@@ -1,0 +1,103 @@
+"""The compressor zoo, ported member by member (``repro/core/compressors.py``).
+
+Ported so far: :class:`BlockTopK` (the block-local top-k contraction of the
+main path) and :class:`Identity`.  ``make_compressor`` parses their specs
+and refuses every other zoo member as not yet ported.
+
+A compressor maps a tensor to a dense tensor of its shape with the
+non-kept coordinates zeroed, and certifies (eta, omega) for
+``theory.tune_for``.  Both ported members are deterministic, so no key is
+taken.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.ref import topk_rows
+
+#: the zoo's spec names that the port does not have yet
+NOT_PORTED = ("topk", "randk", "scaled_randk", "comp", "mix", "sign",
+              "natural", "qsgd", "frac_topk", "frac_comp")
+
+
+class Compressor:
+    """Base class: frozen dataclasses with certified constants."""
+
+    def eta(self, d: int) -> float:
+        raise NotImplementedError
+
+    def omega(self, d: int) -> float:
+        raise NotImplementedError
+
+    def omega_av(self, d: int, n: int) -> float:
+        """Average relative variance of n independent copies (Sect. 2.4)."""
+        return self.omega(d) / max(n, 1)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def codec(self, shape: Tuple[int, ...]):
+        raise NotImplementedError(
+            f"the wire codec of {type(self).__name__} is not yet ported")
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity(Compressor):
+    def eta(self, d):
+        return 0.0
+
+    def omega(self, d):
+        return 0.0
+
+    def __call__(self, x):
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTopK(Compressor):
+    """Block-local top-k: each contiguous block of ``block`` values keeps
+    its own ``kb`` largest |.|, ties to the lowest index.  Deterministic,
+    in B(kb/block)."""
+
+    block: int
+    kb: int
+
+    def eta(self, d):
+        return math.sqrt(max(0.0, 1.0 - self.kb / self.block))
+
+    def omega(self, d):
+        return 0.0
+
+    def __call__(self, x):
+        xf = x.reshape(-1)
+        d = xf.numel()
+        pad = -d % self.block
+        xp = torch.nn.functional.pad(xf, (0, pad)).reshape(-1, self.block)
+        idx = topk_rows(xp.abs(), self.kb)
+        mask = torch.zeros_like(xp).scatter(1, idx, 1.0)
+        return (xp * mask).reshape(-1)[:d].reshape(x.shape)
+
+    def codec(self, shape):
+        from repro_torch.distributed import wire
+        return wire.LeafWire(shape=tuple(shape), size=int(math.prod(shape)),
+                             block=self.block, kb=self.kb)
+
+
+def make_compressor(spec: str) -> Compressor:
+    """Parse 'name[:a[,b]]' into a Compressor."""
+    name, _, args = spec.partition(":")
+    argv = [int(a) for a in args.split(",") if a]
+    if name in ("identity", "none"):
+        return Identity()
+    if name == "block_topk":
+        return BlockTopK(*argv)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"compressor {name!r} is not yet ported to repro_torch "
+            "(ported: block_topk, identity)")
+    raise ValueError(f"unknown compressor {name!r}")

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds, not minutes).  Libraries are
+built at first use into ``build/kernels/`` at the repository root, named by
+a hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads the existing library.
+
+Nothing here runs at import time: this module is imported on machines
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
+
+# argtypes of each library's C entry point: every pointer and the stream as
+# c_void_p (a plain int would cut a 64-bit pointer to 32 bits)
+_P = ctypes.c_void_p
+SIGNATURES = {
+    "pack_update": ("pack_update_f32",
+                    [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_float, _P]),
+}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "build only on a machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def compile_sources(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source not yet built, one ``nvcc`` each, all
+    started together.  Returns ``{name: compiler output}`` for the sources
+    this call compiled (ptxas reports registers, shared memory and
+    spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    nvcc = None
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs = {}
+    for name, (proc, tmp, out) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{logs[name]}")
+        os.replace(tmp, out)
+    return logs
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its entry point's
+    argtypes set (builds it first if needed)."""
+    compile_sources([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    sym, argtypes = SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,38 @@
+"""Public wrappers around the port's kernels: any tensor shape in, padded
+to (nb, block) rows for the kernel, outputs unpadded.
+
+Unlike the TPU wrappers, rows are padded only to nb * block: a CUDA kernel
+has no (8, 128) tile to fill.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import pack
+
+
+def to_rows(x: torch.Tensor, block: int) -> torch.Tensor:
+    """x flattened and zero-padded to whole (nb, block) rows (a view when
+    no padding is needed)."""
+    xf = x.reshape(-1)
+    pad = -xf.numel() % block
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    return xf.reshape(-1, block)
+
+
+def efbv_pack_update(g: torch.Tensor, h: torch.Tensor, lam: float,
+                     block: int = 1024, kb: int = 64
+                     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                torch.Tensor]:
+    """Fused compress-and-pack worker update: d = block_topk(g - h),
+    h' = h + lam d, and the wire payload, in one pass.
+
+    Returns ((values, indices), h') with values/indices of shape (nb, kb),
+    nb = ceil(g.numel() / block), and h' shaped like h."""
+    vals, idx, h_out = pack.pack_update(
+        to_rows(g, block), to_rows(h, block), lam, kb)
+    return (vals, idx), h_out.reshape(-1)[:h.numel()].reshape(h.shape)

@@ -1,0 +1,68 @@
+"""AdamW on params trees (``repro/optim/optimizers.py``).
+
+An Optimizer is a pair (init, update):
+    state            = init(params)
+    updates, state   = update(grads, state, params)   # updates are *deltas*
+    params           = apply_updates(params, updates)
+
+The trainer feeds the EF-BV gradient estimate g in as ``grads``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+
+PyTree = Any
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree], Tuple[PyTree, PyTree]]
+
+
+def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
+    return T.tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in T.leaves(tree)))
+
+
+def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """Adam with decoupled weight decay; moments in f32.  The step count is
+    a python int (a 0-d JAX count carried over by ``convert`` works too)."""
+
+    def init(params):
+        return {"count": 0,
+                "m": T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                params),
+                "v": T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                params)}
+
+    def update(grads, state, params):
+        count = int(state["count"]) + 1
+        lr = schedule(int(state["count"]))
+        m = T.tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                       state["m"], grads)
+        v = T.tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.float()),
+                       state["v"], grads)
+        # bias corrections in f32, as the JAX update computes them
+        c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+
+        def upd(m_, v_, p):
+            step = m_ / c1 / (torch.sqrt(v_ / c2) + eps)
+            if weight_decay:
+                step = step + weight_decay * p.float()
+            return (-lr * step).to(p.dtype)
+
+        updates = T.tree_map(upd, m, v, params)
+        return updates, {"count": count, "m": m, "v": v}
+
+    return Optimizer(init, update)

@@ -1,0 +1,74 @@
+"""Nested-dict pytrees with JAX's flatten order.
+
+JAX flattens a dict by sorted key and a list/tuple by position; the wire's
+leaf order, the per-leaf codecs and ``leaf_paths`` all depend on that
+order, so the port flattens the same way.  Containers are dicts, lists and
+tuples; ``None`` is an empty subtree; anything else is a leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+PyTree = Any
+
+
+def _children(tree):
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def _is_node(tree) -> bool:
+    return isinstance(tree, (dict, list, tuple))
+
+
+def flatten_with_path(tree: PyTree) -> List[Tuple[Tuple[str, ...], Any]]:
+    """[(path segments, leaf)] in JAX's flatten order."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+
+    def walk(t, path):
+        if t is None:
+            return
+        if _is_node(t):
+            for k, v in _children(t):
+                walk(v, path + (k,))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
+
+
+def leaves(tree: PyTree) -> list:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def unflatten(like: PyTree, new_leaves) -> PyTree:
+    """A tree of ``like``'s structure holding ``new_leaves`` in flatten
+    order."""
+    it = iter(new_leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has slots")
+    return out
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` applied leaf-wise over trees of one structure."""
+    flat = leaves(tree)
+    others = [leaves(r) for r in rest]
+    for o in others:
+        if len(o) != len(flat):
+            raise ValueError("tree_map over trees of different structure")
+    return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)])

@@ -1,0 +1,166 @@
+"""The port's fused block-top-k pack against the JAX Pallas kernel.
+
+The same numpy inputs go through ``repro.distributed.wire.fused_pack`` with
+the Pallas kernel in interpret mode and through the port's ``fused_pack``,
+both through the CUDA-kernel wrapper (``auto``, which runs its plain
+version on CPU tensors) and through the oracle.  Tolerance: none -- vals, idx and h_out
+are compared bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.distributed import wire as jwire
+from repro_torch.distributed import wire as twire
+from repro_torch.kernels import ops, pack, ref
+
+LAM = 0.37
+
+# tests/test_kernels.py's sweep: padding, multi-dim, block 1024, kb == block
+SWEEP = [
+    ((4096,), 512, 16),
+    ((1000,), 256, 8),
+    ((64, 300), 128, 4),
+    ((8192,), 1024, 64),
+    ((128,), 128, 128),
+    ((5, 7, 11), 128, 2),
+]
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def _jax_pack(g, h, shape, block, kb):
+    lw = jwire.LeafWire(shape=shape, size=int(np.prod(shape)), block=block,
+                        kb=kb)
+    (v, i), hn = jwire.fused_pack(lw, jnp.asarray(g), jnp.asarray(h), LAM,
+                                  kernel="interpret")
+    return np.asarray(v), np.asarray(i), np.asarray(hn)
+
+
+def _torch_pack(g, h, shape, block, kb, kernel):
+    lw = twire.LeafWire(shape=shape, size=int(np.prod(shape)), block=block,
+                        kb=kb)
+    (v, i), hn = twire.fused_pack(lw, torch.from_numpy(g), torch.from_numpy(h),
+                                  LAM, kernel=kernel)
+    return v.numpy(), i.numpy(), hn.numpy()
+
+
+def _assert_same(want, got):
+    for w, t in zip(want, got):
+        assert w.shape == t.shape and w.dtype == t.dtype
+        np.testing.assert_array_equal(_bits(w), _bits(t))
+
+
+@pytest.mark.parametrize("kernel", ["auto", "oracle"])
+@pytest.mark.parametrize("shape,block,kb", SWEEP)
+def test_fused_pack_bitwise_vs_pallas_interpret(shape, block, kb, kernel):
+    rng = np.random.default_rng(sum(shape) + block + kb)
+    g = rng.standard_normal(shape).astype(np.float32)
+    h = rng.standard_normal(shape).astype(np.float32)
+    _assert_same(_jax_pack(g, h, shape, block, kb),
+                 _torch_pack(g, h, shape, block, kb, kernel))
+
+
+@pytest.mark.parametrize("kernel", ["auto", "oracle"])
+def test_fused_pack_ties_bitwise(kernel):
+    """Tie-heavy rows (integers in [-3, 3]) and all-zero delta rows: the
+    payload order is jax.lax.top_k's, ties to the lowest column."""
+    rng = np.random.default_rng(7)
+    shape, block, kb = (16 * 256,), 256, 16
+    g = rng.integers(-3, 4, shape).astype(np.float32)
+    h = rng.integers(-3, 4, shape).astype(np.float32)
+    g[:512] = h[:512]
+    _assert_same(_jax_pack(g, h, shape, block, kb),
+                 _torch_pack(g, h, shape, block, kb, kernel))
+
+
+def test_kernel_path_turns_selected_negative_zero_positive():
+    """The Pallas kernel extracts a value as a masked row sum, so a selected
+    delta of -0.0 travels as +0.0; the kernel path (and its plain version)
+    keeps that, while the oracle gathers -0.0 as JAX's oracle does."""
+    shape, block, kb = (256,), 256, 16
+    g = np.zeros(shape, np.float32)
+    g[3] = -0.0
+    g[10:20] = 1.0
+    h = np.zeros(shape, np.float32)
+    want = _jax_pack(g, h, shape, block, kb)
+    _assert_same(want, _torch_pack(g, h, shape, block, kb, "auto"))
+    assert _bits(want[0])[0, 13] == 0  # +0.0 for the selected -0.0 at col 3
+    oracle = _torch_pack(g, h, shape, block, kb, "oracle")
+    assert _bits(oracle[0])[0, 13] == 0x80000000
+
+
+def test_nan_rows_bitwise_vs_pallas_interpret():
+    """A row whose delta holds a NaN (a diverged gradient) makes the Pallas
+    kernel's row max NaN in every round, so it selects nothing and sends
+    (0.0, 0) in every slot; h_out is h + lam * 0.  Rows: all NaN, one NaN,
+    a NaN in h, and a clean row after them."""
+    rng = np.random.default_rng(11)
+    shape, block, kb = (4 * 256,), 256, 16
+    g = rng.standard_normal(shape).astype(np.float32)
+    h = rng.standard_normal(shape).astype(np.float32)
+    g[:256] = np.nan
+    g[256 + 77] = np.nan
+    h[512 + 200] = np.nan
+    want = _jax_pack(g, h, shape, block, kb)
+    _assert_same(want, _torch_pack(g, h, shape, block, kb, "auto"))
+    assert not want[0][:3].any() and not want[1][:3].any()
+    assert np.all(want[0][3] != 0)
+
+
+def test_wrapper_counts_only_kernel_launches():
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing."""
+    pack.reset_launches()
+    x = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((4, 256)).astype(np.float32))
+    vals, idx, h_out = pack.pack_update(x, torch.zeros_like(x), LAM, 16)
+    assert pack.LAUNCHES["pack_update"] == 0
+    want = ref.pack_update_ref(x, torch.zeros_like(x), LAM, 16)
+    for a, b in zip((vals, idx, h_out), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "kb"])
+def test_wrapper_checks_inputs(bad):
+    g = torch.zeros(4, 256)
+    h = torch.zeros(4, 256)
+    kb = 16
+    if bad == "shape":
+        h = torch.zeros(4, 128)
+    elif bad == "dtype":
+        g = g.double()
+    else:
+        kb = 257
+    with pytest.raises((ValueError, TypeError)):
+        pack.pack_update(g, h, LAM, kb)
+
+
+def test_ops_pads_only_to_whole_rows():
+    g = torch.from_numpy(
+        np.random.default_rng(2).standard_normal(1000).astype(np.float32))
+    (vals, idx), h_new = ops.efbv_pack_update(g, torch.zeros(1000), LAM,
+                                              block=256, kb=8)
+    assert vals.shape == (4, 8) and idx.shape == (4, 8)
+    assert h_new.shape == (1000,)
+
+
+def test_cuda_mode_needs_a_cuda_tensor():
+    """``cuda`` never runs the plain version; ``auto`` on a CPU tensor runs
+    the wrapper's plain version, which takes any block (on a CUDA tensor
+    the wrapper raises for a block the kernel is not built for)."""
+    lw = twire.LeafWire(shape=(300,), size=300, block=100, kb=4)
+    x = torch.from_numpy(
+        np.random.default_rng(3).standard_normal(300).astype(np.float32))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        twire.fused_pack(lw, x, torch.zeros(300), LAM, kernel="cuda")
+    (v, i), h_new = twire.fused_pack(lw, x, torch.zeros(300), LAM,
+                                     kernel="auto")
+    want = ref.pack_update_ref(x.reshape(3, 100), torch.zeros(3, 100), LAM, 4)
+    for a, b in zip((v, i, h_new), want):
+        assert torch.equal(a, b.reshape(a.shape))

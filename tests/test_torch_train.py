@@ -1,0 +1,181 @@
+"""A 3-step, 2-worker EF-BV smoke round in both packages, from the same
+params and the same batches.
+
+The JAX round is assembled from its public pieces (``model.loss``,
+``compress_local``, ``combine_global``, ``adamw``), jitted, on one device;
+the port's is ``train.trainer.make_train_step``.  Tolerances:
+
+* f32 activations: per-step loss rtol 1e-5; after three steps fewer than
+  0.1% of the params differ by more than 1e-5, and none by more than
+  3 lr = 9e-4.  Matmul sums differ in order, so gradients differ in their
+  last bits; block-top-k can then pick the other value of a near-tie,
+  which AdamW turns into an update of about lr at that coordinate.
+* bf16 activations: loss atol 1e-2 (bf16 rounds at different points in
+  the two frameworks).
+
+Bits per round are exact, and ``SyntheticLM`` batches identical.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jget_smoke_config
+from repro.core import compressors as jcomp
+from repro.core.efbv import EFBV as JEFBV
+from repro.data import SyntheticLM as JSyntheticLM
+from repro.distributed import aggregate as jagg
+from repro.distributed import wire as jwire
+from repro.models import build_model as jbuild_model
+from repro.optim import adamw as jadamw
+from repro.optim import apply_updates as japply_updates
+from repro.optim import cosine as jcosine
+from repro_torch import convert
+from repro_torch import tree as T
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import compressors as tcomp
+from repro_torch.core.efbv import EFBV
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.distributed import wire as twire
+from repro_torch.launch import train as tlaunch
+from repro_torch.models.model import build_model
+from repro_torch.optim.optimizers import adamw
+from repro_torch.optim.schedules import cosine
+from repro_torch.train.trainer import init_train_state, make_train_step
+
+N, STEPS, SEQ, BATCH = 2, 3, 16, 8
+SMOKE_BITS = 5_776_384
+
+
+def _jax_round(jcfg, params, batches, lam, nu):
+    model = jbuild_model(jcfg)
+    algo = JEFBV(jcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    opt = jadamw(jcosine(3e-4, total_steps=STEPS, warmup_steps=1),
+                 weight_decay=0.01)
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b)[0]))
+    local = jax.jit(lambda g, h: jagg.compress_local(
+        algo, None, g, h, mode="sparse_allgather"))
+    combine = jax.jit(lambda m, ha: jagg.combine_global(
+        algo, m, ha, n_workers=N, mode="sparse_allgather"))
+
+    @jax.jit
+    def optimize(g, opt_state, params):
+        updates, opt_state = opt.update(g, opt_state, params)
+        return japply_updates(params, updates), opt_state
+
+    zeros = jax.tree.map(jnp.zeros_like, params)
+    hs, h_avg, opt_state = [zeros] * N, zeros, opt.init(params)
+    losses = []
+    for batch in batches:
+        per = BATCH // N
+        msgs, step_losses = [], []
+        for i in range(N):
+            bi = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            loss, grads = grad_fn(params, bi)
+            msg, hs[i] = local(jax.tree.map(lambda a: a.astype(jnp.float32),
+                                            grads), hs[i])
+            msgs.append(msg)
+            step_losses.append(float(loss))
+        g, h_avg = combine(jax.tree.map(lambda *x: jnp.stack(x), *msgs),
+                           h_avg)
+        params, opt_state = optimize(g, opt_state, params)
+        losses.append(float(np.mean(step_losses)))
+    return losses, params
+
+
+def _torch_round(tcfg, params_np, batches, lam, nu):
+    model = build_model(tcfg)
+    algo = EFBV(tcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
+                weight_decay=0.01)
+    state = init_train_state(convert.params_from_jax(params_np, "cpu"), opt,
+                             n_workers=N)
+    step = make_train_step(model.loss, opt, algo, n_workers=N,
+                           agg_mode="sparse_allgather")
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses, state
+
+
+@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
+def test_smoke_round_matches_jax(adt):
+    jcfg = dataclasses.replace(jget_smoke_config("qwen2-0.5b"),
+                               activation_dtype=adt)
+    tcfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                               activation_dtype=adt)
+    params_np = jax.tree.map(
+        np.asarray, jbuild_model(jcfg).init(jax.random.key(0)))
+    data = SyntheticLM(vocab=jcfg.vocab, seq_len=SEQ, global_batch=BATCH,
+                       n_workers=N, seed=0)
+    batches = [data.batch(s) for s in range(STEPS)]
+    # lam != 1 so the h updates' rounding is exercised
+    lam, nu = 0.37, 0.61
+    jl, jparams = _jax_round(jcfg, params_np, batches, lam, nu)
+    tl, state = _torch_round(tcfg, params_np, batches, lam, nu)
+    assert state.step == STEPS and all(np.isfinite(tl))
+    if adt == "float32":
+        np.testing.assert_allclose(tl, jl, rtol=1e-5)
+        diff = np.concatenate([
+            np.abs(b.numpy() - np.asarray(a)).reshape(-1) for a, b in
+            zip(jax.tree.leaves(jparams), T.leaves(state.params))])
+        assert np.mean(diff > 1e-5) < 1e-3 and diff.max() <= 9e-4
+    else:
+        np.testing.assert_allclose(tl, jl, atol=1e-2)
+
+
+def test_bits_per_round_exact_in_both_packages():
+    jtree = jbuild_model(jget_smoke_config("qwen2-0.5b")).init_abstract()
+    ttree = build_model(get_smoke_config("qwen2-0.5b")).init_abstract()
+    jbits = jwire.format_for(jcomp.BlockTopK(256, 16), jtree).bits_per_round()
+    tbits = twire.format_for(tcomp.BlockTopK(256, 16), ttree).bits_per_round()
+    assert jbits == tbits == SMOKE_BITS
+
+
+@pytest.mark.parametrize("seed,resample", [(0, False), (5, False), (1, True)])
+def test_synthetic_batches_identical(seed, resample):
+    kw = dict(vocab=1024, seq_len=24, global_batch=8, n_workers=2, seed=seed,
+              heterogeneity=0.5, resample_from_shard=resample, shard_size=16)
+    j, t = JSyntheticLM(**kw), SyntheticLM(**kw)
+    for step in (0, 1, 7):
+        jb, tb = j.batch(step), t.batch(step)
+        assert jb.keys() == tb.keys()
+        for k in jb:
+            assert jb[k].dtype == tb[k].dtype
+            np.testing.assert_array_equal(jb[k], tb[k])
+
+
+def test_schedule_and_tuning_match_jax():
+    jsched = jcosine(3e-4, total_steps=50, warmup_steps=2)
+    tsched = cosine(3e-4, total_steps=50, warmup_steps=2)
+    for s in (0, 1, 2, 3, 25, 49, 60):
+        assert tsched(s) == float(jsched(jnp.asarray(s, jnp.int32)))
+
+
+def test_cli_smoke_run_prints_exact_bits(capsys):
+    loss = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--workers", "2",
+                         "--steps", "2", "--global-batch", "4", "--seq", "16",
+                         "--compressor", "block_topk:256,16",
+                         "--agg", "sparse_allgather", "--device", "cpu",
+                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert np.isfinite(loss)
+    assert f" {SMOKE_BITS} bits/round/worker" in out
+    assert out.count("[train] step") == 2
+
+
+@pytest.mark.parametrize("flag", [
+    ["--downlink", "qsgd:16"], ["--participation", "bernoulli:0.5"],
+    ["--pipeline", "depth:1"], ["--leaf-codecs", "*embed*=qsgd:16"],
+    ["--worker-comps", "topk:64;randk:64"], ["--trainer", "fsdp"],
+    ["--spec", "x.json"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
+    ["--schedule", "wsd"], ["--ckpt-dir", "ckpt"], ["--sanitize"]])
+def test_cli_refuses_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit):
+        tlaunch.parse_args(["--smoke", "--device", "cpu", *flag])
+    assert "not yet ported" in capsys.readouterr().err
