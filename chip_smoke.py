@@ -6,22 +6,29 @@
 Phases (any failure exits non-zero, and the final ``{"ok": true, ...}``
 line is printed only when every phase passed):
 
-1. build   -- compile every CUDA source of the port with nvcc (sm_90a).
+1. build   -- compile every CUDA source of the port with nvcc (sm_90a), one
+              nvcc per source, all started together.
 2. kernels -- each kernel against its plain PyTorch version on the card,
-              bitwise, at the main path's shapes and edge cases; times each
+              bitwise, at the main paths' shapes and edge cases; times each
               (CUDA events, median of 20) beside its plain version and its
               memory/compute bound.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
-              the same steps on the CPU (plain path) from the same params.
-4. main path -- ``repro_torch.launch.train.main`` at the full width and
-              depth of qwen2-0.5b: 2 workers, 3 steps, block-top-k
-              (256, 16) over the sparse all-gather wire.  Checks a finite
-              loss at every step, the exact printed wire bits, and that
-              every kernel of the path launched (launch counts are reset
-              just before this phase and read just after).
-5. profile -- the same configuration, one step on the host clock and one
-              under torch.profiler: device time by kernel, busy share.
+              the same steps on the CPU (plain path) from the same params
+              and keys, for each path below.
+4. main paths -- ``repro_torch.launch.train.main`` at the full width and
+              depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
+              wire, once per path:
+              * block-top-k (256, 16) up, dense broadcast down;
+              * QSGD(16) up and down (bidirectional).
+              Checks a finite loss at every step, the exact printed wire
+              bits, and that every kernel of the path launched the expected
+              number of times (launch counts are reset just before each path
+              and read just after).
+5. profile -- each path, one step on the host clock and one under
+              torch.profiler: device time by kernel, busy share; for the
+              QSGD path also the peak device memory of a step and of its
+              uplink encode, downlink broadcast and norm pass, each alone.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -31,6 +38,7 @@ the CUDA toolkit; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -48,9 +56,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+# That rate is 132 SMs x 128 f32 lanes x 2 (an FMA counts two) x 1.98 GHz.
+# Each SM issues one warp instruction per clock from each of its four
+# schedulers (128 thread instructions), and retires 64 results per clock of
+# 32-bit integer add, shift, logic and compare (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0).
+H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2   # thread instructions, f32 ops
+H100_INT32_PER_S = H100_F32_OPS_PER_S / 4   # on the integer pipe
+# SASS opcodes that run on the integer pipe (64 results per clock per SM)
+INT_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "PRMT"}
 FULL_BITS = 1_976_131_584        # qwen2-0.5b, block_topk:256,16, per worker
+QSGD_BITS = 3_952_262_592        # qwen2-0.5b, qsgd:16, per worker and down
+QSGD_TOTAL_BITS = 11_856_787_776  # 2 uplink payloads + 1 broadcast
 FULL_LEAVES, WORKERS, STEPS = 14, 2, 3
+EMBED_SIZE = 151_936 * 896
 REPS = 20
+# f32 operations per QSGD value (sub, abs, div, mul, floor, sub, compare,
+# 2 compares, add, mul, convert, compare, 3 mul, mul, add)
+QSGD_OPS = 19
 
 
 def timed_ms(fn, reps=REPS):
@@ -76,8 +99,8 @@ def pack_bound_ms(size, block, kb):
     nb = -(-size // block)
     nbytes = 3 * 4 * size + 2 * 4 * nb * kb
     ops = nb * block * (3 + kb)
-    return max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3, \
-        ("bytes" if nbytes / H100_BYTES_PER_S >= ops / H100_F32_OPS_PER_S
+    return max(nbytes / H100_BYTES_PER_S, ops / H100_ISSUE_PER_S) * 1e3, \
+        ("bytes" if nbytes / H100_BYTES_PER_S >= ops / H100_ISSUE_PER_S
          else "operations")
 
 
@@ -87,16 +110,28 @@ def same_bits(a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def max_abs_diff(a, b):
+    """max |a - b| over the values where not both are NaN (0.0 if none)."""
+    d = (a.double() - b.double()).abs()
+    d = torch.where(a.double().isnan() & b.double().isnan(),
+                    torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+SOURCES = ("pack_update", "qsgd_pack_update", "threefry")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.compile_sources(["pack_update"])
+    logs = build.compile_sources(SOURCES)
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         print(f"[build] {name}.cu:\n{log.strip()}")
     print(f"[build] seconds={secs:.2f} built={sorted(logs)}")
-    build.load("pack_update")
+    for name in SOURCES:
+        build.load(name)
 
 
 def pack_case(name, g, h, block, kb, lam=0.37, timing=True):
@@ -127,13 +162,31 @@ def pack_case(name, g, h, block, kb, lam=0.37, timing=True):
     return k_ms, p_ms, bound, err
 
 
-def phase_kernels():
-    """Edge cases bitwise; then one worker's full round of main-path leaf
-    shapes, timed."""
+def full_leaves():
+    """(path, size) of every full-width qwen2-0.5b leaf, in flatten order."""
+    from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    from repro_torch import tree as T
 
+    abstract = build_model(get_config("qwen2-0.5b")).init_abstract()
+    return [("/".join(path), leaf.numel())
+            for path, leaf in T.flatten_with_path(abstract)]
+
+
+def phase_kernels():
+    pack_row = kernels_pack()
+    torch.cuda.empty_cache()
+    qsgd_row = kernels_qsgd()
+    torch.cuda.empty_cache()
+    threefry_row = kernels_threefry()
+    torch.cuda.empty_cache()
+    return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
+            "threefry_uniform": threefry_row}
+
+
+def kernels_pack():
+    """Edge cases bitwise; then one worker's full round of main-path leaf
+    shapes, timed."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     def randn(n):
@@ -184,12 +237,10 @@ def phase_kernels():
             raise AssertionError(f"[kernels] block={block} ran on the card")
 
     # one worker's round at the full-width qwen2-0.5b leaf shapes
-    abstract = build_model(get_config("qwen2-0.5b")).init_abstract()
     k_tot = p_tot = b_tot = 0.0
-    for path, leaf in T.flatten_with_path(abstract):
-        size = leaf.numel()
+    for path, size in full_leaves():
         k_ms, p_ms, b_ms, err = pack_case(
-            "qwen2:" + "/".join(path), randn(size), randn(size), 256, 16)
+            "qwen2:" + path, randn(size), randn(size), 256, 16)
         k_tot, p_tot, b_tot = k_tot + k_ms, p_tot + p_ms, b_tot + b_ms
         by = pack_bound_ms(size, 256, 16)[1]
         max_err = max(max_err, err)
@@ -197,12 +248,223 @@ def phase_kernels():
     print(f"[kernels] qwen2-0.5b round (14 leaves, one worker): "
           f"kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} bound_ms={b_tot:.4f}")
     return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
-            "bound_by": by, "max_abs_err": max_err}
+            "bound_by": by, "max_abs_err": max_err, "library_ms": None}
 
 
-def run_steps(params, cfg, steps=3, n=2):
-    from repro_torch.core.compressors import BlockTopK
-    from repro_torch.core.efbv import EFBV
+def qsgd_bound_ms(size, s):
+    """Least time for one QSGD call: read g, h, u and the norm, write the
+    levels and h_out (bytes); or QSGD_OPS f32 operations per value."""
+    nbytes = size * (3 * 4 + (1 if s <= 127 else 2) + 4) + 4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = QSGD_OPS * size / H100_ISSUE_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def qsgd_case(name, g, h, u, s, lam=0.37, timing=True):
+    """Kernel vs plain version on flat f32 CUDA tensors, both given the
+    norm torch computes on the card; returns (kernel ms, plain ms, bound ms,
+    max |diff|)."""
+    from repro_torch.kernels import pack, ref
+
+    norm = torch.linalg.vector_norm(g - h).reshape(1)
+    kl, kh = pack.qsgd_pack_update(g, h, u, norm, lam, s)
+    pl, ph = ref.qsgd_pack_update_ref(g, h, u, norm, lam, s)
+    torch.cuda.synchronize()
+    err = max(max_abs_diff(kl, pl), max_abs_diff(kh, ph))
+    if not (same_bits(kl, pl) and same_bits(kh, ph)):
+        raise AssertionError(f"[kernels] qsgd {name}: kernel != plain "
+                             f"version (max |diff| {err})")
+    bound, by = qsgd_bound_ms(g.numel(), s)
+    k_ms = p_ms = float("nan")
+    if timing:
+        k_ms = timed_ms(lambda: pack.qsgd_pack_update(g, h, u, norm, lam, s))
+        p_ms = timed_ms(lambda: ref.qsgd_pack_update_ref(g, h, u, norm, lam,
+                                                         s))
+    nz = int((kl != 0).sum())
+    print(f"[kernels] qsgd {name}: size={g.numel()} s={s} bitwise=ok "
+          f"nonzero_levels={nz} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"bound_ms={bound:.4f} ({by})")
+    return k_ms, p_ms, bound, err
+
+
+def kernels_qsgd():
+    """QSGD quantize-and-pack: edge cases bitwise, then one worker's round
+    at the full-width leaf shapes (s = 16), timed."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(n):
+        return torch.randn(n, generator=gen, device="cuda")
+
+    def rand(n):
+        return torch.rand(n, generator=gen, device="cuda")
+
+    max_err = 0.0
+    n = 70_001  # ragged: a 16-byte tail of one value
+    for s in (16, 7, 400):
+        max_err = max(max_err, qsgd_case(f"ragged_s{s}", randn(n), randn(n),
+                                         rand(n), s, timing=False)[3])
+    h = randn(n)
+    max_err = max(max_err, qsgd_case("norm0", h.clone(), h, rand(n), 16,
+                                     timing=False)[3])
+    g, h = randn(n), randn(n)
+    g[::3], h[::3] = -0.0, 0.0
+    g[1::5], h[1::5] = -0.0, -0.0
+    h[2::7] = -0.0
+    max_err = max(max_err, qsgd_case("negzero", g, h, rand(n), 16,
+                                     timing=False)[3])
+    for s in (16, 400):
+        g = randn(n)
+        g[n // 2] = float("nan")
+        max_err = max(max_err, qsgd_case(f"nan_one_s{s}", g, randn(n),
+                                         rand(n), s, timing=False)[3])
+        max_err = max(max_err, qsgd_case(
+            f"nan_all_s{s}", torch.full((n,), float("nan"), device="cuda"),
+            randn(n), rand(n), s, timing=False)[3])
+    # views 4 bytes off a 16-byte boundary take the one-value-at-a-time path
+    buf = randn(3 * (n + 1))
+    max_err = max(max_err, qsgd_case(
+        "unaligned", buf[1:n + 1], buf[n + 2:2 * n + 2],
+        rand(n), 16, timing=False)[3])
+
+    k_tot = p_tot = b_tot = n_tot = 0.0
+    for path, size in full_leaves():
+        g, h = randn(size), randn(size)
+        k_ms, p_ms, b_ms, err = qsgd_case("qwen2:" + path, g, h, rand(size),
+                                          16)
+        k_tot, p_tot, b_tot = k_tot + k_ms, p_tot + p_ms, b_tot + b_ms
+        # the codec's norm pass before the kernel: writes delta = g - h
+        # and reads it back (16 B per value)
+        n_tot += timed_ms(lambda: torch.linalg.vector_norm(g - h))
+        by = qsgd_bound_ms(size, 16)[1]
+        max_err = max(max_err, err)
+        del g, h
+        torch.cuda.empty_cache()
+    n_bytes = 16 * sum(size for _, size in full_leaves())
+    print(f"[kernels] qsgd qwen2-0.5b round (14 leaves, one worker, s=16): "
+          f"kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} bound_ms={b_tot:.4f}")
+    print(f"[kernels] qsgd norm pass (vector_norm(g - h), 14 leaves, one "
+          f"worker): ms={n_tot:.4f} bytes={n_bytes} "
+          f"bound_ms={n_bytes / H100_BYTES_PER_S * 1e3:.4f}")
+    return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
+            "bound_by": by, "max_abs_err": max_err, "library_ms": None}
+
+
+def sass_per_value(lib, kernel):
+    """(instructions, integer-pipe instructions, opcode counts) per value
+    in the grid-stride loop of ``kernel``, read from the SASS of the built
+    library ``lib`` (cuobjdump).  A loop is the span of a backward branch;
+    it handles 4 values per 16-byte store it holds.  Where the compiler
+    made several such loops, the one with the fewest instructions per value
+    is taken, so the bound stays a least time."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = [f for f in text.split("Function : ")[1:]
+             if kernel in f.split(None, 1)[0]]
+    if not funcs:
+        raise AssertionError(f"[kernels] no SASS for {kernel} in {lib}")
+    best = None
+    for func in funcs:
+        insts = []
+        for addr, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                    func):
+            tokens = ins.split()
+            if tokens[0].startswith("@"):
+                tokens = tokens[1:]
+            insts.append((int(addr, 16), tokens[0], ins))
+        for addr, op, ins in insts:
+            target = re.search(r"0x([0-9a-f]+)", ins)
+            if op != "BRA" or not target or int(target.group(1), 16) >= addr:
+                continue
+            body = [o for a, o, _ in insts
+                    if int(target.group(1), 16) <= a <= addr and o != "NOP"]
+            values = 4 * sum(o.startswith("STG") and ".128" in o
+                             for o in body)
+            if not values:
+                continue
+            hist = {}
+            for o in body:
+                hist[o.split(".")[0]] = hist.get(o.split(".")[0], 0) + 1
+            ints = sum(c for o, c in hist.items() if o in INT_PIPE)
+            if best is None or len(body) / values < best[0]:
+                best = (len(body) / values, ints / values,
+                        {o: c / values for o, c in hist.items()})
+    if best is None:
+        raise AssertionError(f"[kernels] no store loop in {kernel}'s SASS")
+    return best
+
+
+def threefry_bound_ms(n, per_value):
+    """Least time for one draw of n: write 4 n bytes; or issue the loop's
+    instructions (``per_value[0]`` each value) at one warp instruction per
+    scheduler and clock, and its integer-pipe instructions
+    (``per_value[1]``) at 64 per SM and clock."""
+    t_bytes = 4 * n / H100_BYTES_PER_S
+    t_ops = max(per_value[0] * n / H100_ISSUE_PER_S,
+                per_value[1] * n / H100_INT32_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def kernels_threefry():
+    """threefry draws: bitwise against the plain int64 version at 2**20
+    (words and uniforms) and at the embed leaf's size; then one worker's
+    round of uniform draws at the full-width leaf sizes, timed beside the
+    plain version and torch.rand (not bit-equal: another generator)."""
+    from repro_torch import random
+    from repro_torch.kernels import ref, threefry
+
+    dev = torch.device("cuda")
+    key = random.fold_in(random.fold_in(random.key(0), 1), 13)
+    per_value = sass_per_value("threefry", "threefry_fill_kernel")
+    print(f"[kernels] threefry SASS per value: {per_value[0]:.2f} "
+          f"instructions, {per_value[1]:.2f} on the integer pipe; "
+          + " ".join(f"{o}={c:.2f}" for o, c in
+                     sorted(per_value[2].items(), key=lambda x: -x[1])))
+    max_err = 0.0
+    for n, as_float in ((1, True), (7, True), (2**20, False), (2**20, True),
+                        (EMBED_SIZE, True)):
+        k = threefry.threefry_fill(key, n, dev, as_float)
+        p = ref.threefry_ref(key, n, dev, as_float)
+        torch.cuda.synchronize()
+        if not same_bits(k, p):
+            raise AssertionError(f"[kernels] threefry n={n} "
+                                 f"as_float={as_float}: kernel != plain")
+        max_err = max(max_err, max_abs_diff(k, p))
+        print(f"[kernels] threefry n={n} as_float={as_float} bitwise=ok")
+        del k, p
+        torch.cuda.empty_cache()
+    k_tot = p_tot = l_tot = b_tot = 0.0
+    for path, size in full_leaves():
+        k_ms = timed_ms(lambda: threefry.threefry_fill(key, size, dev, True))
+        p_ms = timed_ms(lambda: ref.threefry_ref(key, size, dev, True),
+                        reps=5)
+        l_ms = timed_ms(lambda: torch.rand(size, device=dev))
+        b_ms, by = threefry_bound_ms(size, per_value)
+        print(f"[kernels] threefry qwen2:{path}: size={size} "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"torch_rand_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({by})")
+        k_tot, p_tot, l_tot, b_tot = (k_tot + k_ms, p_tot + p_ms,
+                                      l_tot + l_ms, b_tot + b_ms)
+        torch.cuda.empty_cache()
+    print(f"[kernels] threefry qwen2-0.5b round (14 leaves, one worker's "
+          f"uniforms): kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} "
+          f"torch_rand_ms={l_tot:.4f} bound_ms={b_tot:.4f}")
+    return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
+            "bound_by": by, "max_abs_err": max_err, "library_ms": l_tot}
+
+
+def run_steps(params, cfg, qsgd, steps=3, n=2):
+    """``steps`` 2-worker EF-BV steps of the sparse all-gather wire from
+    ``params``: block-top-k (256, 16) up, or QSGD(16) up and down; step s
+    under the key fold_in(key(0), s).  Returns the losses."""
+    from repro_torch import random
+    from repro_torch.core.compressors import QSGD, BlockTopK
+    from repro_torch.core.efbv import EFBV, Downlink
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import adamw
@@ -212,15 +474,18 @@ def run_steps(params, cfg, steps=3, n=2):
     model = build_model(cfg)
     opt = adamw(cosine(3e-4, total_steps=steps, warmup_steps=1),
                 weight_decay=0.01)
-    algo = EFBV.make(BlockTopK(256, 16), d=cfg.d_model * cfg.d_ff, n=n)
-    state = init_train_state(params, opt, n_workers=n)
+    comp = QSGD(16) if qsgd else BlockTopK(256, 16)
+    algo = EFBV.make(comp, d=cfg.d_model * cfg.d_ff, n=n)
+    state = init_train_state(params, opt, n_workers=n, bidirectional=qsgd)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
-                              agg_mode="sparse_allgather")
+                              agg_mode="sparse_allgather",
+                              downlink=Downlink(QSGD(16)) if qsgd else None)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
                        n_workers=n, seed=0)
+    key = random.key(0)
     losses = []
     for s in range(steps):
-        state, m = step_fn(state, data.batch(s))
+        state, m = step_fn(state, data.batch(s), random.fold_in(key, s))
         losses.append(float(m["loss"]))
     return losses
 
@@ -235,91 +500,142 @@ def phase_reference():
                               activation_dtype="float32")
     params = build_model(cfg).init(torch.Generator().manual_seed(0),
                                    device="cpu")
-    cpu = run_steps(params, cfg)
-    gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg)
-    print(f"[reference] smoke f32 losses cpu={cpu} gpu={gpu}")
-    for a, b in zip(cpu, gpu):
-        # f32 matmuls sum in another order on the card; the block-top-k
-        # selection can then differ on near-ties, so 1e-3 relative
-        if not (math.isfinite(b) and abs(a - b) <= 1e-3 * abs(a)):
-            raise AssertionError(f"[reference] GPU loss {b} vs CPU {a}")
+    for qsgd in (False, True):
+        name = "qsgd:16 up and down" if qsgd else "block_topk:256,16"
+        cpu = run_steps(params, cfg, qsgd)
+        gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, qsgd)
+        print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu}")
+        for a, b in zip(cpu, gpu):
+            # f32 matmuls sum in another order on the card, and so do the
+            # QSGD norms; a block-top-k near-tie or a QSGD level can then
+            # round the other way, so 1e-3 relative
+            if not (math.isfinite(b) and abs(a - b) <= 1e-3 * abs(a)):
+                raise AssertionError(f"[reference] {name}: GPU loss {b} vs "
+                                     f"CPU {a}")
 
 
-MAIN_ARGV = ["--arch", "qwen2-0.5b", "--workers", str(WORKERS),
+BASE_ARGV = ["--arch", "qwen2-0.5b", "--workers", str(WORKERS),
              "--steps", str(STEPS), "--global-batch", "8", "--seq", "128",
-             "--compressor", "block_topk:256,16", "--algo", "efbv",
-             "--agg", "sparse_allgather", "--log-every", "1"]
+             "--algo", "efbv", "--agg", "sparse_allgather",
+             "--log-every", "1"]
+RUNS = WORKERS * STEPS * FULL_LEAVES
+# each main path: its flags, the exact bits it must print (regex -> values)
+# and the launches of every kernel in its run
+PATHS = {
+    "block_topk": {
+        "argv": BASE_ARGV + ["--compressor", "block_topk:256,16"],
+        "bits": {r"(\d+) bits/round/worker": [FULL_BITS]},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "threefry_uniform": 0},
+        "profile": ("pack_update_rows",),
+    },
+    "qsgd_bidirectional": {
+        "argv": BASE_ARGV + ["--compressor", "qsgd:16",
+                             "--downlink", "qsgd:16"],
+        "bits": {r"(\d+) bits/round/worker": [QSGD_BITS],
+                 r"downlink (\d+) bits/round broadcast": [QSGD_BITS],
+                 r"total (\d+) bits/round up\+down": [QSGD_TOTAL_BITS]},
+        # threefry: one uniform per leaf per worker, and one per leaf for
+        # the broadcast
+        "launches": {"pack_update": 0, "qsgd_pack_update": RUNS,
+                     "threefry_uniform": (WORKERS + 1) * STEPS * FULL_LEAVES},
+        "profile": ("qsgd_pack_update_kernel", "threefry_fill_kernel"),
+    },
+}
 
 
-def phase_main():
-    from repro_torch.kernels import pack
+def collect(label):
+    """Free what only reference cycles still hold, and say how much of the
+    device memory that was (what an earlier phase left for the garbage
+    collector)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    print(f"{label}: allocated {before:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after "
+          "gc.collect()")
+
+
+def phase_main(name):
+    """Drive one main path through the launcher; launch counts are reset
+    just before it and read just after."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
 
-    argv = MAIN_ARGV
+    path = PATHS[name]
     out = io.StringIO()
     torch.cuda.synchronize()
+    collect(f"[main] {name}")
     torch.cuda.reset_peak_memory_stats()
-    pack.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            train.main(argv)
+            train.main(path["argv"])
         torch.cuda.synchronize()
     finally:
         print(out.getvalue().rstrip())
     secs = time.perf_counter() - t0
-    launches = dict(pack.LAUNCHES)
+    launches = dict(LAUNCHES)
     text = out.getvalue()
     losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
-    bits = [int(x) for x in re.findall(r"(\d+) bits/round/worker", text)]
+    bits = {pat: [int(x) for x in re.findall(pat, text)]
+            for pat in path["bits"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[main] seconds={secs:.2f} peak_mem_gib={peak:.2f} "
-          f"losses={losses} bits={bits} launches={launches}")
+    print(f"[main] {name}: seconds={secs:.2f} peak_mem_gib={peak:.2f} "
+          f"losses={losses} bits={list(bits.values())} launches={launches}")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[main] expected {STEPS} finite losses")
+        raise AssertionError(f"[main] {name}: expected {STEPS} finite losses")
     # random init with small embeddings: the first loss is close to ln(V)
     if abs(losses[0] - math.log(151936)) > 1.0:
-        raise AssertionError(f"[main] first loss {losses[0]} far from ln V")
-    if bits != [FULL_BITS]:
-        raise AssertionError(f"[main] printed bits {bits} != {FULL_BITS}")
-    want = FULL_LEAVES * WORKERS * STEPS
-    if launches["pack_update"] != want:
-        raise AssertionError(f"[main] pack_update launched "
-                             f"{launches['pack_update']} times, want {want}")
+        raise AssertionError(f"[main] {name}: first loss {losses[0]} far "
+                             "from ln V")
+    for pat, want in path["bits"].items():
+        if bits[pat] != want:
+            raise AssertionError(f"[main] {name}: printed {pat!r} "
+                                 f"{bits[pat]} != {want}")
+    if launches != path["launches"]:
+        raise AssertionError(f"[main] {name}: launches {launches}, want "
+                             f"{path['launches']}")
     return launches
 
 
-def phase_profile():
+def phase_profile(name):
     """Where a full-width step's time goes: after a warm-up step, one step
     timed on the host clock and one traced with torch.profiler (device
     time by kernel, and the device's busy share of the traced step).  A
     trace whose rows cannot be read is reported, not failed; a failure of
-    the steps themselves fails the phase."""
+    the steps themselves fails the phase.  Then where its memory goes
+    (``phase_peaks``, and for the QSGD path ``memory_probes``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import random
     from repro_torch.launch import train
 
+    path = PATHS[name]
+    collect(f"[profile] {name}")
     with contextlib.redirect_stdout(io.StringIO()):
-        state, step_fn, data = train.setup(train.parse_args(MAIN_ARGV))
-    state, m = step_fn(state, data.batch(0))
+        state, step_fn, data = train.setup(train.parse_args(path["argv"]))
+    key = random.key(0)
+    state, m = step_fn(state, data.batch(0), random.fold_in(key, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, m = step_fn(state, data.batch(1))
+    state, m = step_fn(state, data.batch(1), random.fold_in(key, 1))
     loss = float(m["loss"])
     torch.cuda.synchronize()
     untraced = (time.perf_counter() - t0) * 1e3
     if not math.isfinite(loss):
-        raise AssertionError(f"[profile] untraced step loss {loss}")
-    print(f"[profile] untraced step wall_ms={untraced:.2f}")
+        raise AssertionError(f"[profile] {name}: untraced step loss {loss}")
+    print(f"[profile] {name}: untraced step wall_ms={untraced:.2f}")
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, m = step_fn(state, data.batch(2))
+        state, m = step_fn(state, data.batch(2), random.fold_in(key, 2))
         loss = float(m["loss"])
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     if not math.isfinite(loss):
-        raise AssertionError(f"[profile] traced step loss {loss}")
+        raise AssertionError(f"[profile] {name}: traced step loss {loss}")
     try:
         # device kernels only: CPU ops also carry the device time of the
         # kernels they launched, which would count every kernel twice
@@ -328,16 +644,143 @@ def phase_profile():
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
     except Exception as e:  # reading the trace, not the port: report it
-        print(f"[profile] not measured: {e!r}")
-        return
+        print(f"[profile] {name}: not measured: {e!r}")
+        rows = None
+    if rows is not None:
+        print_profile(name, rows, untraced, wall)
+    # the holder is the only reference to the state, as the launcher's loop
+    # variable is: a second one would keep a stale state alive in the steps
+    holder = {"state": state}
+    del state, prof
+    phase_peaks(name, holder, step_fn, data)
+    if name == "qsgd_bidirectional":
+        memory_probes(holder["state"])
+
+
+def print_profile(name, rows, untraced, wall):
+    """Device time by kernel of the traced step, and its busy share."""
+    path = PATHS[name]
     busy = sum(r[0] for r in rows)
-    print(f"[profile] traced step wall_ms={wall:.2f} (profiler overhead "
-          f"included) device_kernel_ms={busy:.2f}; busy share of the "
-          f"untraced step {busy / untraced:.3f}")
-    pack_ms = sum(r[0] for r in rows if "pack_update" in r[2])
-    print(f"[profile] pack_update device_ms={pack_ms:.3f}")
+    print(f"[profile] {name}: traced step wall_ms={wall:.2f} (profiler "
+          f"overhead included) device_kernel_ms={busy:.2f}; busy share of "
+          f"the untraced step {busy / untraced:.3f}")
+    for kernel in path["profile"]:
+        ms = sum(r[0] for r in rows if kernel in r[2])
+        n = sum(r[1] for r in rows if kernel in r[2])
+        print(f"[profile] {name}: {kernel} device_ms={ms:.3f} x{n}")
     for t, count, key in sorted(rows, reverse=True)[:15]:
-        print(f"[profile] {t:9.3f} ms x{count:<5d} {key[:100]}")
+        print(f"[profile] {name}: {t:9.3f} ms x{count:<5d} {key[:90]}")
+
+
+def peak_above(fn):
+    """(fn(), GiB of device memory allocated at fn's peak above what was
+    allocated when it started)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+PHASES = ("value_and_grad", "compress_local", "stack_messages",
+          "combine_global", "apply_updates", "broadcast_global")
+
+
+def phase_peaks(name, holder, step_fn, data):
+    """The device memory peak of one full-width step, and of each of its
+    phases: the trainer's calls of PHASES are wrapped so that each resets
+    the peak before it runs and reads it after.  ``holder["state"]`` is
+    the state, replaced by each step."""
+    from repro_torch import random
+    from repro_torch.train import trainer
+
+    peaks = {}
+
+    def wrapped(phase, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks[phase] = max(peaks.get(phase, 0),
+                               torch.cuda.max_memory_allocated() / 2**30)
+            return out
+        return call
+
+    gc.collect()
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    holder["state"], _ = step_fn(holder["state"], data.batch(3),
+                                 random.fold_in(random.key(0), 3))
+    torch.cuda.synchronize()
+    step = torch.cuda.max_memory_allocated() / 2**30
+    saved = {p: getattr(trainer, p) for p in PHASES}
+    try:
+        for p in PHASES:
+            setattr(trainer, p, wrapped(p, saved[p]))
+        holder["state"], m = step_fn(holder["state"], data.batch(4),
+                                     random.fold_in(random.key(0), 4))
+    finally:
+        for p in PHASES:
+            setattr(trainer, p, saved[p])
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"[memory] {name}: step loss not finite")
+    print(f"[memory] {name}: resting_gib={rest:.2f} step_peak_gib={step:.2f}"
+          f"; peak GiB within each phase: "
+          + " ".join(f"{p}={peaks[p]:.2f}" for p in PHASES if p in peaks))
+
+
+def memory_probes(state):
+    """Transient memory of the QSGD path's phases, each run alone on the
+    full-width state: one worker's uplink encode, the downlink broadcast,
+    and the embed leaf's encode_update and norm pass."""
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.configs import get_config
+    from repro_torch.core.efbv import EFBV, Downlink, downlink_key
+    from repro_torch.distributed import aggregate, wire
+    from repro_torch.launch.train import tuning_dim
+
+    key = random.fold_in(random.key(0), 5)
+    algo = EFBV.make(QSGD(16), d=tuning_dim(get_config("qwen2-0.5b")),
+                     n=WORKERS)
+    h0 = T.tree_map(lambda a: a[0], state.h)
+    out, uplink = peak_above(lambda: aggregate.compress_local(
+        algo, random.fold_in(key, 0), state.params, h0,
+        mode="sparse_allgather"))
+    del out
+    out, down = peak_above(lambda: aggregate.broadcast_global(
+        Downlink(QSGD(16)), downlink_key(key), state.params, state.w))
+    del out
+    g, h = T.leaves(state.params)[0], T.leaves(h0)[0]
+    codec = wire.QsgdQuant(shape=tuple(g.shape), size=g.numel(), s=16)
+    out, enc = peak_above(lambda: codec.encode_update(
+        random.fold_in(key, 1), g, h, algo.lam))
+    del out
+    _, norm = peak_above(lambda: torch.linalg.vector_norm(g - h))
+    print(f"[memory] qsgd_bidirectional: alone on the full-width state, "
+          f"peak above their inputs: one worker's compress_local "
+          f"{uplink:.2f} GiB, broadcast_global {down:.2f} GiB, the embed "
+          f"leaf's encode_update {enc:.2f} GiB and its norm pass "
+          f"{norm:.2f} GiB ({g.numel()} values)")
+
+
+KERNEL_ROWS = {
+    "pack_update": ("src/repro_torch/kernels/csrc/pack_update.cu",
+                    "src/repro/kernels/pack.py:78", "block_topk"),
+    "qsgd_pack_update": ("src/repro_torch/kernels/csrc/qsgd_pack_update.cu",
+                         "src/repro/kernels/pack.py:227",
+                         "qsgd_bidirectional"),
+    # no Pallas kernel: the JAX package's uniforms come from XLA
+    "threefry_uniform": ("src/repro_torch/kernels/csrc/threefry.cu",
+                         "src/repro/distributed/wire.py:442 "
+                         "(jax.random.uniform; no Pallas kernel)",
+                         "qsgd_bidirectional"),
+}
 
 
 def main():
@@ -356,24 +799,28 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print("[env] tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
+    t0 = time.perf_counter()
     phase_build()
     timing = phase_kernels()
     torch.cuda.empty_cache()
     phase_reference()
-    launches = phase_main()
-    torch.cuda.empty_cache()
-    phase_profile()
-    kernels = [{
-        "name": "pack_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pack_update.cu",
-        "replaces": "src/repro/kernels/pack.py:78",
-        "launches": launches["pack_update"],
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]
-    print(f"[kernels] launches on the main path: {launches}")
+    launches = {}
+    for name in PATHS:
+        launches[name] = phase_main(name)
+        torch.cuda.empty_cache()
+        phase_profile(name)
+        torch.cuda.empty_cache()
+    print(f"[env] phases took {time.perf_counter() - t0:.1f} s")
+    kernels = []
+    for name, (source, replaces, path) in KERNEL_ROWS.items():
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"[kernels] launches on the main paths: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """The compressor zoo, ported member by member (``repro/core/compressors.py``).
 
 Ported so far: :class:`BlockTopK` (the block-local top-k contraction of the
-main path) and :class:`Identity`.  ``make_compressor`` parses their specs
-and refuses every other zoo member as not yet ported.
+block-sparse path), :class:`QSGD` (the stochastic quantizer of the
+bidirectional path) and :class:`Identity`.  ``make_compressor`` parses
+their specs and refuses every other zoo member as not yet ported.
 
-A compressor maps a tensor to a dense tensor of its shape with the
-non-kept coordinates zeroed, and certifies (eta, omega) for
-``theory.tune_for``.  Both ported members are deterministic, so no key is
-taken.
+A compressor ``C(key, x)`` maps a tensor to a dense tensor of its shape
+with the non-kept coordinates zeroed, and certifies (eta, omega) for
+``theory.tune_for``.  ``key`` is a threefry key (``repro_torch.random``);
+the deterministic members ignore it.
 """
 
 from __future__ import annotations
@@ -16,13 +17,15 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.kernels.ref import topk_rows
 
 #: the zoo's spec names that the port does not have yet
 NOT_PORTED = ("topk", "randk", "scaled_randk", "comp", "mix", "sign",
-              "natural", "qsgd", "frac_topk", "frac_comp")
+              "natural", "frac_topk", "frac_comp")
 
 
 class Compressor:
@@ -38,7 +41,7 @@ class Compressor:
         """Average relative variance of n independent copies (Sect. 2.4)."""
         return self.omega(d) / max(n, 1)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, key, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def codec(self, shape: Tuple[int, ...]):
@@ -54,7 +57,7 @@ class Identity(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, x):
+    def __call__(self, key, x):
         return x
 
 
@@ -73,7 +76,7 @@ class BlockTopK(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, x):
+    def __call__(self, key, x):
         xf = x.reshape(-1)
         d = xf.numel()
         pad = -d % self.block
@@ -88,6 +91,42 @@ class BlockTopK(Compressor):
                              block=self.block, kb=self.kb)
 
 
+@dataclasses.dataclass(frozen=True)
+class QSGD(Compressor):
+    """QSGD stochastic quantization with s levels (Alistarh et al. 2017).
+
+    Unbiased with omega = min(d/s^2, sqrt(d)/s)."""
+
+    s: int
+
+    def eta(self, d):
+        return 0.0
+
+    def omega(self, d):
+        return min(d / self.s**2, math.sqrt(d) / self.s)
+
+    def __call__(self, key, x):
+        """The op chain of the JAX compressor, with the uniforms of
+        ``jax.random.uniform(key, (d,))``.  The norm is torch's reduction,
+        which may differ from XLA's in its last bits."""
+        xf = x.reshape(-1)
+        norm = torch.linalg.vector_norm(xf)
+        safe_norm = torch.where(norm > 0, norm, torch.ones_like(norm))
+        level = xf.abs() / safe_norm * self.s
+        low = torch.floor(level)
+        p = level - low
+        up = random.uniform(key, xf.numel(), xf.device) < p
+        q = (low + up.to(xf.dtype)) * float(np.float32(1.0 / self.s))
+        out = torch.where(norm > 0, norm * torch.sign(xf) * q,
+                          torch.zeros_like(q))
+        return out.reshape(x.shape)
+
+    def codec(self, shape):
+        from repro_torch.distributed import wire
+        return wire.QsgdQuant(shape=tuple(shape), size=int(math.prod(shape)),
+                              s=self.s)
+
+
 def make_compressor(spec: str) -> Compressor:
     """Parse 'name[:a[,b]]' into a Compressor."""
     name, _, args = spec.partition(":")
@@ -96,8 +135,10 @@ def make_compressor(spec: str) -> Compressor:
         return Identity()
     if name == "block_topk":
         return BlockTopK(*argv)
+    if name == "qsgd":
+        return QSGD(*argv)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"compressor {name!r} is not yet ported to repro_torch "
-            "(ported: block_topk, identity)")
+            "(ported: block_topk, qsgd, identity)")
     raise ValueError(f"unknown compressor {name!r}")

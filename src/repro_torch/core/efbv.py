@@ -2,9 +2,10 @@
 (``repro/core/efbv.py``).
 
 Ported so far: :class:`EFBV` with ``make`` (Remark 1 auto-tuning through
-``theory.tune_for``), ``init``, ``worker_update`` and ``master_update``.
-Participation, pipelining, downlinks, fleets and per-leaf rules are not
-yet ported.
+``theory.tune_for``), ``init``, ``worker_update`` and ``master_update``;
+the round keys' fold tags; and :class:`Downlink` with a QSGD broadcast.
+Participation, pipelining, other downlink compressors, fleets and
+per-leaf rules are not yet ported.
 
 Rounding: the JAX reference runs these updates under ``jit``, where XLA
 contracts ``h + c * d`` into a fused multiply-add.  ``torch.add(h, d,
@@ -14,15 +15,35 @@ alpha=c)`` computes the same fused result, so it is the spelling here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import random
 from repro_torch import tree as T
 from repro_torch.core import theory
-from repro_torch.core.compressors import Compressor
+from repro_torch.core.compressors import QSGD, Compressor, make_compressor
 
 PyTree = Any
+
+# fold_in tags of the round keys, copied from the JAX package: every
+# execution path derives a round's draws from them, so they must not move.
+#: per-round participation-mask key
+PARTICIPATION_FOLD = 0xFEDE4A7E
+#: per-round minibatch-resampling key
+RESAMPLE_FOLD = 0x5A3D0B17
+#: per-round downlink (master -> worker broadcast) key, shared by every
+#: worker: the broadcast is one message
+DOWNLINK_FOLD = 0xD0401B17
+#: the pipelined schedule's priming-payload key
+PIPELINE_FOLD = 0xF1FE11E
+#: the reference driver's run key
+REFERENCE_FOLD = 0x5EED
+
+
+def downlink_key(round_key):
+    """The shared derivation of the broadcast key from a round key."""
+    return random.fold_in(round_key, DOWNLINK_FOLD)
 
 
 class EFBVState(NamedTuple):
@@ -68,3 +89,61 @@ class EFBV:
         g = T.tree_map(lambda hj, dj: torch.add(hj, dj, alpha=self.nu),
                        h_avg, d_bar)
         return g, self.worker_update(h_avg, d_bar)
+
+
+@dataclasses.dataclass(frozen=True)
+class Downlink:
+    """Master-side EF-BV state for the server -> worker model broadcast.
+
+    The master keeps a control variate ``w``, the workers' shared
+    reconstruction of the model, and each round broadcasts the compressed
+    model innovation through the compressor's wire codec:
+
+        q^t   = C_s(x^{t+1} - w^t)          (one message, every worker)
+        w^t+1 = w^t + lam_s * q^t
+
+    Workers evaluate their gradients at ``w``.  Ported so far: QSGD as
+    C_s."""
+
+    compressor: Compressor
+    lam: float = 1.0
+
+    @staticmethod
+    def parse(spec: str) -> Optional["Downlink"]:
+        """CLI syntax: '' | 'none' -> None (uncompressed dense broadcast);
+        'qsgd:S', optionally '@lam' for the downlink scaling
+        ('qsgd:16@0.9').  Other compressors are not yet ported."""
+        if not spec or spec == "none":
+            return None
+        comp_spec, _, lam_s = spec.partition("@")
+        compressor = make_compressor(comp_spec)
+        if not isinstance(compressor, QSGD):
+            raise NotImplementedError(
+                f"downlink {comp_spec!r} is not yet ported to repro_torch "
+                "(ported: qsgd)")
+        return Downlink(compressor=compressor,
+                        lam=float(lam_s) if lam_s else 1.0)
+
+    def format_for(self, tree: PyTree, *, wire_dtype: str = "float32"):
+        """The downlink WireFormat (one broadcast message per round)."""
+        from repro_torch.distributed import wire
+        return wire.format_for(self.compressor, tree, wire_dtype=wire_dtype)
+
+    def broadcast(self, key, x: PyTree, w: PyTree, *,
+                  wire_dtype: str = "float32") -> Tuple[PyTree, list]:
+        """One downlink round: returns ``(w_new, payloads)``, with leaf j
+        encoded under ``fold_in(key, j)`` and
+        ``w_new = w + lam_s * decode(payload)``, computed from the decoded
+        payload so master and workers agree bit for bit."""
+        from repro_torch.distributed import wire
+        payloads, new_leaves = [], []
+        for j, (xj, wj) in enumerate(zip(T.leaves(x), T.leaves(w))):
+            codec = wire.codec_of(self.compressor, tuple(xj.shape),
+                                  xj.numel(), wire_dtype)
+            kj = None if key is None else random.fold_in(key, j)
+            delta = (xj.float() - wj.float()).reshape(-1)
+            payload = codec.encode(kj, delta)
+            payloads.append(payload)
+            q = codec.decode(payload).reshape(xj.shape)
+            new_leaves.append((wj.float() + self.lam * q).to(wj.dtype))
+        return T.unflatten(w, new_leaves), payloads

@@ -4,7 +4,9 @@ round of Algorithm 1 (``repro/distributed/aggregate.py``).
   phase 1, per worker (:func:`compress_local`): d_i = C(grad_i - h_i) and
       h_i <- h_i + lam d_i, returning the worker's message;
   phase 2, once (:func:`combine_global`): d_bar = (1/n) sum_i d_i from the
-      stacked messages, then the master update.
+      stacked messages, then the master update;
+  phase 3, once (:func:`broadcast_global`), with a downlink: the master's
+      compressed broadcast of x - w, which every worker applies to w.
 
 ``dense_psum`` carries the dense d_i (the paper's semantics, no byte
 savings); ``sparse_allgather`` carries the wire codec's payload, and the
@@ -18,22 +20,25 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch import random
 from repro_torch import tree as T
-from repro_torch.core.efbv import EFBV
+from repro_torch.core.efbv import EFBV, Downlink
 from repro_torch.distributed import wire
 
 PyTree = Any
 AGG_MODES = ("dense_psum", "sparse_allgather")
 
 
-def compress_local(algo: EFBV, grads: PyTree, h_local: PyTree, *,
+def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
                    mode: str = "dense_psum", wire_dtype: str = "float32"
                    ) -> Tuple[Any, PyTree]:
     """d_i = C(grad_i - h_i); h_i <- h_i + lam d_i.
 
-    Returns (message, h_local_new): the dense d_i tree (dense_psum) or the
-    list of per-leaf payloads in flatten order (sparse_allgather), where
-    each leaf's fused pack emits the payload and the h update in one pass.
+    ``key`` is this worker's threefry key (or None for a deterministic
+    compressor); leaf j draws from ``fold_in(key, j)``.  Returns (message,
+    h_local_new): the dense d_i tree (dense_psum) or the list of per-leaf
+    payloads in flatten order (sparse_allgather), where each leaf's fused
+    pack emits the payload and the h update in one pass.
     """
     if mode not in AGG_MODES:
         raise ValueError(f"mode {mode!r} not in {AGG_MODES}")
@@ -43,12 +48,13 @@ def compress_local(algo: EFBV, grads: PyTree, h_local: PyTree, *,
         if mode == "sparse_allgather" else None
     msgs, h_new = [], []
     for j, (g_leaf, h_leaf) in enumerate(zip(leaves, h_leaves)):
+        kj = None if key is None else random.fold_in(key, j)
         if fmt is not None:
             payload, h_leaf_new = wire.encode_update(
-                fmt.leaves[j], g_leaf, h_leaf, algo.lam)
+                fmt.leaves[j], kj, g_leaf, h_leaf, algo.lam)
             msgs.append(payload)
         else:
-            d_leaf = algo.compressor(g_leaf - h_leaf)
+            d_leaf = algo.compressor(kj, g_leaf - h_leaf)
             msgs.append(d_leaf)
             h_leaf_new = algo.worker_update(h_leaf, d_leaf)
         h_new.append(h_leaf_new)
@@ -78,3 +84,12 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
             for payload, codec, ref in zip(message_stacked, fmt.leaves,
                                            ref_leaves)])
     return algo.master_update(h_avg, d_bar)
+
+
+def broadcast_global(downlink: Downlink, key, params: PyTree, w: PyTree, *,
+                     wire_dtype: str = "float32") -> Tuple[PyTree, list]:
+    """One downlink round: the master encodes C_s(x^{t+1} - w^t) through
+    its codec and every worker applies the decoded innovation to the shared
+    reconstruction w.  Returns (w_new, payloads); ``key`` must be the
+    round's ``downlink_key(step_key)``."""
+    return downlink.broadcast(key, params, w, wire_dtype=wire_dtype)

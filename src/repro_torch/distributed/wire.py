@@ -2,20 +2,30 @@
 scatter-add helpers of the block-sparse wire (``repro/distributed/wire.py``).
 
 Ported so far: the block-sparse layout of block-top-k (:class:`LeafWire`,
-per block (values f32, block-local indices int32), (nb, kb) each) with the
-flat :class:`WireFormat` over a params tree.  The other codecs of the zoo
-and the per-leaf ``TreeWire`` are not yet ported.
+per block (values f32, block-local indices int32), (nb, kb) each) and the
+quantized stream of QSGD (:class:`QsgdQuant`, one f32 norm and an int8 or
+int16 level per value), with the flat :class:`WireFormat` over a params
+tree, uplink and downlink.  The other codecs of the zoo and the per-leaf
+``TreeWire`` are not yet ported.
 
-Kernel dispatch of the fused pack (``REPRO_TORCH_WIRE_KERNEL`` or the
+Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
 ``kernel=`` argument): ``auto`` goes through the kernel wrapper, which
 launches the CUDA kernel on a CUDA tensor and runs its plain version on a
 CPU tensor; ``cuda`` does the same but raises for a tensor that is not on
-CUDA; ``oracle`` takes the layout-spec oracle below, the reference the
-tests hold the others against.  The wrapper's two sides match the Pallas
-kernel bit for bit.  The oracle matches JAX's jnp oracle instead, which
-differs from the kernel in two places: it gathers a selected -0.0 as -0.0
-(the kernel sends +0.0), and it ranks a NaN above every number (a row of
-the kernel that holds a NaN sends (0.0, 0) in every slot).
+CUDA; ``oracle`` takes the codec's plain encode -> decode -> update, the
+reference the tests hold the others against.  The wrappers' two sides
+match the Pallas kernels bit for bit.
+
+For block-top-k the oracle matches JAX's jnp oracle, which differs from the
+kernel in two places: it gathers a selected -0.0 as -0.0 (the kernel sends
++0.0), and it ranks a NaN above every number (a row of the kernel that
+holds a NaN sends (0.0, 0) in every slot).  For QSGD the oracle and the
+kernel agree bit for bit, as JAX's two paths do.
+
+QSGD's norm ||g - h||_2 is torch's reduction, which may differ from XLA's
+in its last bits, so a level can flip against the JAX package.  The codec
+is held bitwise given the norm: ``encode`` and ``encode_update`` take an
+optional ``norm`` for that.
 """
 
 from __future__ import annotations
@@ -24,12 +34,14 @@ import dataclasses
 import os
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch import tree as T
 from repro_torch.core.compressors import BlockTopK
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import topk_rows
+from repro_torch.kernels.ref import level_dtype, to_levels, topk_rows
 
 PyTree = Any
 KERNEL_MODES = ("auto", "cuda", "oracle")
@@ -73,39 +85,138 @@ class LeafWire:
         vals, idx = payload
         return scatter_add(self, vals, idx)
 
+    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
+                      lam: float, *, kernel: Optional[str] = None):
+        """Fused compress-and-pack worker update (block-top-k is
+        deterministic: ``key`` is not used)."""
+        return fused_pack(self, g, h, lam, kernel=kernel)
+
+
+@dataclasses.dataclass(frozen=True)
+class QsgdQuant:
+    """QSGD(s): one f32 L2 norm + a signed integer level stream, level in
+    [-s, s] (int8 when s <= 127, int16 otherwise): 32 + 8*d (or 16*d)
+    bits."""
+
+    shape: Tuple[int, ...]
+    size: int
+    s: int
+
+    kind = "qsgd_quant"
+
+    @property
+    def level_dtype(self) -> torch.dtype:
+        return level_dtype(self.s)
+
+    @property
+    def payload_bits(self) -> int:
+        return 32 + self.size * (8 if self.s <= 127 else 16)
+
+    def encode(self, key, delta: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Flat f32 innovation -> (norm (1,) f32, levels (size,)): QSGD's
+        stochastic rounding with the uniforms of
+        ``jax.random.uniform(key, (size,))``."""
+        norm = torch.linalg.vector_norm(delta)
+        safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+        level = delta.abs() / safe * self.s
+        low = torch.floor(level)
+        up = random.uniform(key, delta.numel(), delta.device) < (level - low)
+        levels = to_levels(torch.sign(delta) * (low + up.to(torch.float32)),
+                           self.s)
+        return norm.reshape(1).to(torch.float32), levels
+
+    def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One payload -> dense flat f32 (size,):
+        (norm * sign) * (|level| * f32(1/s)) where level != 0, else 0."""
+        norm, lv = payload
+        lf = lv.to(torch.float32)
+        return torch.where(
+            lf != 0,
+            (norm[0] * torch.sign(lf))
+            * (lf.abs() * float(np.float32(1.0 / self.s))),
+            torch.zeros_like(lf))
+
+    def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Payload, worker-stacked on a leading axis or not -> dense flat
+        (size,) sum of the decoded workers, in ascending worker order."""
+        norm, lv = payload
+        if lv.dim() == 1:
+            return self.decode(payload)
+        out = self.decode((norm[0], lv[0]))
+        for i in range(1, lv.shape[0]):
+            out = out + self.decode((norm[i], lv[i]))
+        return out
+
+    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
+                      lam: float, *, kernel: Optional[str] = None):
+        """(payload, h') with the levels of QSGD(g - h) and
+        h' = h + lam * decode(payload).  ``auto`` and ``cuda`` run the fused
+        kernel wrapper on the uniforms of ``key``; ``oracle`` is encode ->
+        decode -> update.  Both are bitwise equal given the norm."""
+        mode = _kernel_mode(kernel, g)
+        delta = g.reshape(-1).float() - h.reshape(-1).float()
+        if mode == "oracle":
+            payload = self.encode(key, delta)
+            d = self.decode(payload).reshape(g.shape)
+            return payload, (h.float() + lam * d).to(h.dtype)
+        norm = torch.linalg.vector_norm(delta).reshape(1)
+        del delta  # not alive beside u and h_out: 4 B less per value at peak
+        u = random.uniform(key, self.size, g.device)
+        levels, h_new = ops.qsgd_pack_update(g, h, u, norm, lam, self.s)
+        return (norm, levels), h_new
+
 
 @dataclasses.dataclass(frozen=True)
 class WireFormat:
     """Payload layout for a whole params tree (leaf order = flatten order)."""
 
-    leaves: Tuple[LeafWire, ...]
+    leaves: Tuple[Any, ...]
 
     def bits_per_round(self, *, n_workers: int = 1) -> int:
         """Exact uplink bits one round puts on the wire: per worker when
         n_workers == 1 (the paper's per-node accounting), total otherwise."""
         return n_workers * sum(l.payload_bits for l in self.leaves)
 
+    def downlink_bits_per_round(self) -> int:
+        """Exact bits of the ONE master -> worker broadcast message of a
+        round: a single payload whatever n is."""
+        return sum(l.payload_bits for l in self.leaves)
+
     def dense_bits(self) -> int:
         """The fp32 dense baseline for this tree (one full copy)."""
         return 32 * sum(l.size for l in self.leaves)
 
 
-def format_for(compressor, tree: PyTree, *,
-               wire_dtype: str = "float32") -> WireFormat:
-    """WireFormat for ``compressor`` applied leaf-wise to ``tree`` (tensors
-    of any device, ``meta`` included).  Block-top-k clamps kb to a leaf
-    smaller than kb, as ``wire.clamp_for_leaf`` does."""
+def total_round_bits(up: WireFormat, down: WireFormat, *,
+                     n_workers: int) -> int:
+    """Exact wire bits of one full round, both directions: n_workers uplink
+    payloads plus the one downlink broadcast."""
+    return up.bits_per_round(n_workers=n_workers) + \
+        down.downlink_bits_per_round()
+
+
+def codec_of(compressor, shape: Tuple[int, ...], size: int,
+             wire_dtype: str = "float32"):
+    """The codec ``compressor`` declares for one leaf.  Block-top-k clamps
+    kb to a leaf smaller than kb, as ``wire.clamp_for_leaf`` does."""
     if wire_dtype != "float32":
         raise NotImplementedError(
             f"wire dtype {wire_dtype!r} is not yet ported (float32 only)")
-    codecs = []
-    for leaf in T.leaves(tree):
-        size = leaf.numel()
-        comp = compressor
-        if isinstance(comp, BlockTopK) and min(comp.block, size) < comp.kb:
-            comp = dataclasses.replace(comp, kb=min(comp.block, size))
-        codecs.append(comp.codec(tuple(leaf.shape)))
-    return WireFormat(tuple(codecs))
+    if isinstance(compressor, BlockTopK) and \
+            min(compressor.block, size) < compressor.kb:
+        compressor = dataclasses.replace(
+            compressor, kb=min(compressor.block, size))
+    return compressor.codec(tuple(shape))
+
+
+def format_for(compressor, tree: PyTree, *,
+               wire_dtype: str = "float32") -> WireFormat:
+    """WireFormat for ``compressor`` applied leaf-wise to ``tree`` (tensors
+    of any device, ``meta`` included)."""
+    return WireFormat(tuple(
+        codec_of(compressor, tuple(leaf.shape), leaf.numel(), wire_dtype)
+        for leaf in T.leaves(tree)))
 
 
 def leaf_paths(tree: PyTree) -> Tuple[str, ...]:
@@ -171,12 +282,12 @@ def fused_pack(lw: LeafWire, g: torch.Tensor, h: torch.Tensor, lam: float, *,
     return (vals.to(g.dtype), idx), h_new
 
 
-def encode_update(codec: LeafWire, g: torch.Tensor, h: torch.Tensor,
+def encode_update(codec, key, g: torch.Tensor, h: torch.Tensor,
                   lam: float, *, kernel: Optional[str] = None):
     """Fused compress-and-pack worker update through ``codec`` (f32
-    gradients; other wire dtypes are not yet ported)."""
+    gradients; other wire dtypes are not yet ported).  ``key`` feeds the
+    stochastic codecs; the deterministic ones ignore it."""
     if g.dtype != torch.float32:
         raise NotImplementedError(
-            f"the block-sparse wire of the port takes f32 gradients, got "
-            f"{g.dtype}")
-    return fused_pack(codec, g, h, lam, kernel=kernel)
+            f"the wire of the port takes f32 gradients, got {g.dtype}")
+    return codec.encode_update(key, g, h, lam, kernel=kernel)

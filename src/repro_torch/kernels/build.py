@@ -35,6 +35,13 @@ SIGNATURES = {
     "pack_update": ("pack_update_f32",
                     [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, ctypes.c_float, _P]),
+    "qsgd_pack_update": ("qsgd_pack_update_f32",
+                         [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_int, _P]),
+    "threefry": ("threefry_fill",
+                 [ctypes.c_uint, ctypes.c_uint, _P, ctypes.c_longlong,
+                  ctypes.c_int, _P]),
 }
 
 
@@ -49,7 +56,7 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
@@ -64,7 +71,7 @@ def compile_sources(names: Iterable[str]) -> Dict[str, str]:
     procs = {}
     nvcc = None
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
@@ -89,7 +96,7 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its entry point's
     argtypes set (builds it first if needed)."""
     compile_sources([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = ctypes.CDLL(str(lib_path(name)))
     sym, argtypes = SIGNATURES[name]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes

@@ -1,8 +1,9 @@
 """Public wrappers around the port's kernels: any tensor shape in, padded
-to (nb, block) rows for the kernel, outputs unpadded.
+to (nb, block) rows for the block kernel, outputs unpadded.
 
-Unlike the TPU wrappers, rows are padded only to nb * block: a CUDA kernel
-has no (8, 128) tile to fill.
+Unlike the TPU wrappers, rows are padded only to nb * block, and the QSGD
+kernel takes flat leaves unpadded: a CUDA kernel has no (8, 128) tile to
+fill.
 """
 
 from __future__ import annotations
@@ -36,3 +37,18 @@ def efbv_pack_update(g: torch.Tensor, h: torch.Tensor, lam: float,
     vals, idx, h_out = pack.pack_update(
         to_rows(g, block), to_rows(h, block), lam, kb)
     return (vals, idx), h_out.reshape(-1)[:h.numel()].reshape(h.shape)
+
+
+def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+                     norm, lam: float, s: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused QSGD quantize-and-pack (JAX's ``ops.qsgd_pack_update``
+    signature): returns the flat (g.numel(),) signed level stream (int8 for
+    s <= 127, int16 above) and h' = h + lam * dequant(levels) shaped like
+    h.  ``u``: the (g.numel(),) uniform draws; ``norm``: ||g - h||_2 (a
+    tensor or a float)."""
+    norm = torch.as_tensor(norm, dtype=torch.float32,
+                           device=g.device).reshape(1)
+    levels, h_out = pack.qsgd_pack_update(
+        g.reshape(-1), h.reshape(-1), u.reshape(-1), norm, lam, s)
+    return levels, h_out.reshape(h.shape)

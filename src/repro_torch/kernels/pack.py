@@ -1,34 +1,30 @@
-"""Fused compress-and-pack kernel wrapper (block-top-k + h update).
+"""Fused compress-and-pack kernel wrappers.
 
-Port of ``repro/kernels/pack.py::pack_update_pallas``: one pass over
-(g, h) rows emitting the (values, block-local indices) payload and
-h_out = h + lam * d, with the dense compressed d never in device memory.
-The kernel is CUDA C++ for Hopper (``csrc/pack_update.cu``).
+* :func:`pack_update`, the port of ``repro/kernels/pack.py::
+  pack_update_pallas``: one pass over (g, h) rows emitting the block-top-k
+  (values, block-local indices) payload and h_out = h + lam * d, with the
+  dense compressed d never in device memory (``csrc/pack_update.cu``).
+* :func:`qsgd_pack_update`, the port of ``qsgd_pack_update_pallas``: one
+  pass over flat (g, h, u) emitting the QSGD level stream and
+  h_out = h + lam * dequant(levels) (``csrc/qsgd_pack_update.cu``).
 
-On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
+On a CPU tensor a wrapper runs its plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches, so a run can show that its main path went through the kernel.
+launches, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import LAUNCHES, ref
 
 #: block sizes the CUDA kernel is instantiated for (one warp per row,
 #: BLOCK / 32 values per lane)
 CUDA_BLOCKS = (128, 256, 512, 1024)
-
-#: kernel launches per wrapper, incremented only where a kernel launches
-LAUNCHES: Dict[str, int] = {"pack_update": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _check(g2d: torch.Tensor, h2d: torch.Tensor, kb: int) -> None:
@@ -75,3 +71,52 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
         raise RuntimeError(f"pack_update launch failed: cudaError {err}")
     LAUNCHES["pack_update"] += 1
     return vals, idx, h_out
+
+
+def _check_qsgd(g, h, u, norm, s) -> None:
+    if g.dim() != 1 or g.shape != h.shape or g.shape != u.shape:
+        raise ValueError(f"g, h and u must be equal flat vectors, got "
+                         f"{tuple(g.shape)}, {tuple(h.shape)} and "
+                         f"{tuple(u.shape)}")
+    for name, x in (("g", g), ("h", h), ("u", u), ("norm", norm)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"qsgd_pack_update takes f32 {name}, got "
+                            f"{x.dtype}")
+        if x.device != g.device:
+            raise ValueError(f"{name} on {x.device}, g on {g.device}")
+    if norm.numel() != 1:
+        raise ValueError(f"norm must hold one value, got {norm.numel()}")
+    if not 1 <= s <= 32767:
+        raise ValueError(f"QSGD levels take 1 <= s <= 32767, got s={s}")
+
+
+def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+                     norm: torch.Tensor, lam: float, s: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat (size,) f32 g, h, u and the one-value f32 norm ||g - h||_2 ->
+    (levels (size,) int8 for s <= 127 else int16, h_out (size,) f32).  See
+    ``csrc/qsgd_pack_update.cu`` for the arithmetic."""
+    _check_qsgd(g, h, u, norm, s)
+    if g.device.type == "cpu":
+        return ref.qsgd_pack_update_ref(g, h, u, norm, lam, s)
+    if g.device.type != "cuda":
+        raise ValueError(f"qsgd_pack_update runs on cpu or cuda, not "
+                         f"{g.device}")
+    if not all(x.is_contiguous() for x in (g, h, u, norm)):
+        raise ValueError("qsgd_pack_update needs contiguous g, h, u, norm")
+    from repro_torch.kernels import build
+
+    fn = build.load("qsgd_pack_update").qsgd_pack_update_f32
+    dtype = ref.level_dtype(s)
+    levels = torch.empty(g.shape, dtype=dtype, device=g.device)
+    h_out = torch.empty_like(h)
+    inv_s = float(np.float32(1.0 / s))
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), h.data_ptr(), u.data_ptr(), norm.data_ptr(),
+                 levels.data_ptr(), h_out.data_ptr(), g.numel(), s, inv_s,
+                 float(lam), levels.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"qsgd_pack_update launch failed: cudaError {err}")
+    LAUNCHES["qsgd_pack_update"] += 1
+    return levels, h_out

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -41,3 +42,58 @@ def pack_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
     d = torch.zeros_like(delta).scatter(1, idx, picked)
     h_out = h2d + lam * d
     return picked + 0.0, idx.to(torch.int32), h_out
+
+
+def level_dtype(s: int) -> torch.dtype:
+    """The QSGD level stream's type: int8 for s <= 127, int16 above."""
+    return torch.int8 if s <= 127 else torch.int16
+
+
+def to_levels(lv: torch.Tensor, s: int) -> torch.Tensor:
+    """f32 levels -> the level stream's type, as XLA converts: NaN becomes
+    0, and values beyond the type saturate."""
+    dtype = level_dtype(s)
+    info = torch.iinfo(dtype)
+    lv = torch.where(lv.isnan(), torch.zeros_like(lv), lv)
+    return lv.clamp(info.min, info.max).to(dtype)
+
+
+def qsgd_pack_update_ref(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+                         norm: torch.Tensor, lam: float, s: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QSGD quantize-and-pack with the control-variate update, on flat f32
+    g, h, u (the uniform draws) and the (1,) f32 norm ||g - h||_2.  Returns
+    (levels int8/int16, h_out f32), both shaped like g.
+
+    The op chain of the Pallas kernel, each op rounded on its own:
+    level = (|delta| / safe) * s, lvq = floor(level) + (u < level - floor),
+    levels = sign * lvq, and h_out = h + lam * dq with
+    dq = (norm * sign) * (lvq * f32(1/s)) where lvq > 0, else 0.  The level
+    conversion follows XLA's (:func:`to_levels`).  A NaN in delta makes the
+    norm NaN and safe = 1; every lane with lvq > 0 then gets a NaN h_out,
+    every other lane h + lam * 0."""
+    delta = g - h
+    norm = norm.reshape(())
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    level = delta.abs() / safe * s
+    low = torch.floor(level)
+    up = (u < level - low).to(torch.float32)
+    one = torch.ones_like(delta)
+    sgn = torch.where(delta > 0, one,
+                      torch.where(delta < 0, -one, torch.zeros_like(delta)))
+    lvq = low + up
+    levels = to_levels(sgn * lvq, s)
+    inv_s = float(np.float32(1.0 / s))
+    dq = torch.where(lvq > 0, (norm * sgn) * (lvq * inv_s),
+                     torch.zeros_like(lvq))
+    return levels, h + lam * dq
+
+
+def threefry_ref(key, n: int, device, as_float: bool) -> torch.Tensor:
+    """(n,) threefry2x32 draws under ``key`` in torch int64 ops: f32
+    uniforms in [0, 1) when ``as_float``, else the 32-bit words as int32
+    (``repro_torch.random`` holds the arithmetic)."""
+    from repro_torch import random
+
+    b = random.bits_plain(key, n, device)
+    return random.uniform_from_bits(b) if as_float else b

@@ -1,13 +1,19 @@
 """End-to-end training driver of the port (``repro/launch/train.py``).
 
-Example (one GPU, full-width qwen2-0.5b, two workers):
+Examples (one GPU, full-width qwen2-0.5b, two workers): block-top-k up,
+dense broadcast down; and QSGD both ways:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
         --compressor block_topk:256,16 --algo efbv --agg sparse_allgather
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --workers 2 --steps 3 --global-batch 8 --seq 128 \
+        --compressor qsgd:16 --algo efbv --agg sparse_allgather \
+        --downlink qsgd:16
 
 The n workers run in one process on one device (``train/trainer.py``);
-``--workers`` takes the place of the JAX driver's ``--mesh``.  It runs on
+``--workers`` takes the place of the JAX driver's ``--mesh``.  Step s runs
+under the key ``fold_in(key(seed), s)``, as in the JAX driver.  It runs on
 ``cuda`` unless ``--device cpu`` is given.  Flags of the JAX driver that
 this port does not have yet are parsed and refused with a "not yet ported"
 error, never ignored.
@@ -20,10 +26,10 @@ import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import random, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.compressors import Identity, make_compressor
-from repro_torch.core.efbv import EFBV
+from repro_torch.core.efbv import EFBV, Downlink
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
 from repro_torch.models.model import build_model
@@ -34,7 +40,7 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
 NOT_PORTED_FLAGS = {
-    "--spec": "", "--mesh": "", "--downlink": "", "--worker-comps": "",
+    "--spec": "", "--mesh": "", "--worker-comps": "",
     "--participation": "full", "--leaf-codecs": "", "--pipeline": "off",
     "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
     "--sanitize": False,
@@ -61,6 +67,9 @@ def parse_args(argv=None):
     ap.add_argument("--compressor", default="block_topk:256,16")
     ap.add_argument("--agg", default="dense_psum",
                     choices=["dense_psum", "sparse_allgather"])
+    ap.add_argument("--downlink", default="",
+                    help="compress the master -> worker broadcast: "
+                         "'qsgd:S[@lam]' ('' = dense broadcast)")
     ap.add_argument("--wire-dtype", default="float32",
                     choices=["float32", "bfloat16", "float16"])
     ap.add_argument("--local-batch-resample", action="store_true")
@@ -83,6 +92,10 @@ def parse_args(argv=None):
     if args.wire_dtype != "float32":
         ap.error(f"--wire-dtype {args.wire_dtype} is not yet ported to "
                  "repro_torch (float32 only)")
+    try:
+        Downlink.parse(args.downlink)
+    except (NotImplementedError, ValueError) as e:
+        ap.error(f"--downlink: {e}")
     return args
 
 
@@ -95,7 +108,8 @@ def tuning_dim(cfg) -> int:
 def setup(args):
     """Model, schedule, EF-BV tuning, params, state, data and step function
     for the parsed flags; prints the run header and the wire accounting.
-    Returns (state, step_fn, data)."""
+    Returns (state, step_fn, data); step s takes the key
+    ``random.fold_in(random.key(args.seed), s)``."""
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
@@ -111,37 +125,57 @@ def setup(args):
     else:
         algo = EFBV.make(make_compressor(args.compressor), d=tuning_dim(cfg),
                          n=n, mode=args.algo)
+    downlink = Downlink.parse(args.downlink)
     print(f"[train] arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count():,} workers={n} algo={args.algo} "
-          f"lam={algo.lam:.4g} nu={algo.nu:.4g} agg={args.agg} device={dev}")
+          f"lam={algo.lam:.4g} nu={algo.nu:.4g} agg={args.agg}"
+          + (f" downlink={args.downlink}" if downlink else "")
+          + f" device={dev}")
 
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                         device=dev)
-    if args.agg == "sparse_allgather":
+    up_fmt = wire.format_for(algo.compressor, params) \
+        if args.agg == "sparse_allgather" else None
+    if up_fmt is not None:
         # exact wire accounting for the codec payload
-        fmt = wire.format_for(algo.compressor, params)
-        up, dense = fmt.bits_per_round(), fmt.dense_bits()
-        kinds = sorted({l.kind for l in fmt.leaves})
+        up, dense = up_fmt.bits_per_round(), up_fmt.dense_bits()
+        kinds = sorted({l.kind for l in up_fmt.leaves})
         print(f"[train] wire: codec={','.join(kinds)} {up} bits/round/worker "
               f"uplink ({up / 8 / 2**20:.2f} MiB, "
               f"{up / max(dense, 1):.4f}x dense fp32)")
-    state = init_train_state(params, opt, n_workers=n)
+    if downlink is not None:
+        # the broadcast payload is real whatever the uplink carries; the
+        # total prints as an exact integer (the JAX driver rounds it, :g)
+        dfmt = downlink.format_for(params)
+        down, dense = dfmt.downlink_bits_per_round(), dfmt.dense_bits()
+        total = wire.total_round_bits(up_fmt, dfmt, n_workers=n) \
+            if up_fmt is not None else n * dense + down
+        dense_total = n * dense + dense
+        print(f"[train] wire: downlink {down} bits/round broadcast "
+              f"({down / max(dense, 1):.4f}x dense fp32); total "
+              f"{total} bits/round up+down "
+              f"({total / max(dense_total, 1):.4f}x dense both ways)")
+    state = init_train_state(params, opt, n_workers=n,
+                             bidirectional=downlink is not None)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.global_batch, n_workers=n,
                        seed=args.seed, heterogeneity=args.heterogeneity,
                        resample_from_shard=args.local_batch_resample,
                        shard_size=args.shard_size)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
-                              agg_mode=args.agg, wire_dtype=args.wire_dtype)
+                              agg_mode=args.agg, wire_dtype=args.wire_dtype,
+                              downlink=downlink)
     return state, step_fn, data
 
 
 def main(argv=None):
     args = parse_args(argv)
     state, step_fn, data = setup(args)
+    key = random.key(args.seed)
     t_start = time.time()
     for step in range(args.steps):
-        state, metrics = step_fn(state, data.batch(step))
+        state, metrics = step_fn(state, data.batch(step),
+                                 random.fold_in(key, step))
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"[train] step {step:5d} loss={m['loss']:.4f} "

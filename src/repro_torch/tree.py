@@ -26,18 +26,21 @@ def _is_node(tree) -> bool:
 def flatten_with_path(tree: PyTree) -> List[Tuple[Tuple[str, ...], Any]]:
     """[(path segments, leaf)] in JAX's flatten order."""
     out: List[Tuple[Tuple[str, ...], Any]] = []
-
-    def walk(t, path):
-        if t is None:
-            return
-        if _is_node(t):
-            for k, v in _children(t):
-                walk(v, path + (k,))
-        else:
-            out.append((path, t))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+# The recursions are module-level functions: a nested function that calls
+# itself is a reference cycle, which would keep its closure (the leaves)
+# alive until the garbage collector runs.
+def _walk(t, path, out):
+    if t is None:
+        return
+    if _is_node(t):
+        for k, v in _children(t):
+            _walk(v, path + (k,), out)
+    else:
+        out.append((path, t))
 
 
 def leaves(tree: PyTree) -> list:
@@ -48,20 +51,20 @@ def unflatten(like: PyTree, new_leaves) -> PyTree:
     """A tree of ``like``'s structure holding ``new_leaves`` in flatten
     order."""
     it = iter(new_leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has slots")
     return out
+
+
+def _build(t, it):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:

@@ -77,7 +77,7 @@ def _jax_round(mode, grads, hs, h_avg):
 def _torch_round(mode, grads, hs, h_avg):
     algo = EFBV(BlockTopK(256, 16), lam=LAM, nu=NU)
     to_t = lambda t: T.tree_map(torch.from_numpy, t)  # noqa: E731
-    out = [tagg.compress_local(algo, to_t(g), to_t(h), mode=mode)
+    out = [tagg.compress_local(algo, None, to_t(g), to_t(h), mode=mode)
            for g, h in zip(grads, hs)]
     msgs, h_new = zip(*out)
     g, h_avg_new = tagg.combine_global(algo, tagg.stack_messages(msgs),

@@ -28,7 +28,7 @@ def test_block_topk_call_bitwise(shape, block, kb):
     x = np.random.default_rng(block + kb).standard_normal(shape).astype(
         np.float32)
     want = np.asarray(jcomp.BlockTopK(block, kb)(None, jnp.asarray(x)))
-    got = tcomp.BlockTopK(block, kb)(torch.from_numpy(x)).numpy()
+    got = tcomp.BlockTopK(block, kb)(None, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(want.view(np.uint32), got.view(np.uint32))
 
 
@@ -36,12 +36,12 @@ def test_block_topk_ties_bitwise():
     x = np.random.default_rng(5).integers(-2, 3, (8 * 256,)).astype(
         np.float32)
     want = np.asarray(jcomp.BlockTopK(256, 16)(None, jnp.asarray(x)))
-    got = tcomp.BlockTopK(256, 16)(torch.from_numpy(x)).numpy()
+    got = tcomp.BlockTopK(256, 16)(None, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(want.view(np.uint32), got.view(np.uint32))
 
 
 @pytest.mark.parametrize("spec", ["block_topk:256,16", "block_topk:1024,64",
-                                  "identity"])
+                                  "identity", "qsgd:16", "qsgd:400"])
 def test_certified_constants_equal(spec):
     j, t = jcomp.make_compressor(spec), tcomp.make_compressor(spec)
     for d in (896, 4_358_144):
@@ -49,7 +49,7 @@ def test_certified_constants_equal(spec):
             (j.eta(d), j.omega(d), j.omega_av(d, 2))
 
 
-@pytest.mark.parametrize("spec", ["qsgd:16", "topk:64", "randk:8", "sign"])
+@pytest.mark.parametrize("spec", ["natural", "topk:64", "randk:8", "sign"])
 def test_unported_compressors_refused(spec):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tcomp.make_compressor(spec)

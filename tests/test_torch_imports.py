@@ -42,6 +42,7 @@ def test_port_package_imports_without_jax():
 def _cuda_calls():
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
+    from repro_torch import random
     from repro_torch.launch import train
     from repro_torch.models.model import build_model
 
@@ -51,10 +52,12 @@ def _cuda_calls():
         lambda: convert.params_from_jax(tree, device="cuda"),
         lambda: smoke.init(device="cuda"),
         lambda: train.main(["--smoke", "--steps", "1"]),
+        lambda: random.uniform(random.key(0), 10),
+        lambda: random.bits(random.key(0), 10),
     ]
 
 
-@pytest.mark.parametrize("which", range(3))
+@pytest.mark.parametrize("which", range(5))
 def test_cuda_request_without_gpu_raises(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; nothing to refuse")

@@ -1,0 +1,104 @@
+"""The port's threefry PRNG against ``jax.random`` (threefry2x32,
+partitionable, 64-bit types off), bit for bit: keys, ``fold_in`` with the
+small per-worker / per-leaf data and the 32-bit round-key tags, ``split``,
+and the 32-bit ``bits`` and f32 ``uniform`` draws at every size class the
+QSGD codec uses.  Tolerance: none."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import efbv as jefbv
+from repro_torch import random as R
+from repro_torch.core import efbv as tefbv
+from repro_torch.kernels import LAUNCHES, reset_launches
+
+
+def _jkey_data(k):
+    return np.asarray(jax.random.key_data(k))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 + 5, 2**32 + 7, -1,
+                                  2**40 + 3])
+def test_key_matches_jax(seed):
+    np.testing.assert_array_equal(R.key(seed),
+                                  _jkey_data(jax.random.key(seed)))
+
+
+@pytest.mark.parametrize("data", [
+    0, 1, 2, 13, 2**31, 2**32 - 1,
+    jefbv.DOWNLINK_FOLD, jefbv.PARTICIPATION_FOLD, jefbv.RESAMPLE_FOLD,
+    jefbv.PIPELINE_FOLD, jefbv.REFERENCE_FOLD])
+def test_fold_in_matches_jax(data):
+    for seed in (0, 7):
+        want = jax.random.fold_in(jax.random.key(seed), data)
+        np.testing.assert_array_equal(R.fold_in(R.key(seed), data),
+                                      _jkey_data(want))
+
+
+def test_fold_tags_copied_from_jax():
+    for name in ("DOWNLINK_FOLD", "PARTICIPATION_FOLD", "RESAMPLE_FOLD",
+                 "PIPELINE_FOLD", "REFERENCE_FOLD"):
+        assert getattr(tefbv, name) == getattr(jefbv, name)
+    k = jax.random.fold_in(jax.random.key(3), 2)
+    tk = R.fold_in(R.key(3), 2)
+    np.testing.assert_array_equal(tefbv.downlink_key(tk),
+                                  _jkey_data(jefbv.downlink_key(k)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 64])
+def test_split_matches_jax(n):
+    k = jax.random.fold_in(jax.random.key(0), 9)
+    want = _jkey_data(jax.random.split(k, n))
+    np.testing.assert_array_equal(R.split(R.fold_in(R.key(0), 9), n), want)
+
+
+def _step_leaf_key(seed, step, worker, leaf):
+    """The trainer's chain: fold_in(fold_in(fold_in(key(seed), step),
+    worker), leaf), in both packages."""
+    jk, tk = jax.random.key(seed), R.key(seed)
+    for d in (step, worker, leaf):
+        jk, tk = jax.random.fold_in(jk, d), R.fold_in(tk, d)
+    return jk, tk
+
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 70_001, 2**20])
+def test_uniform_matches_jax(n):
+    jk, tk = _step_leaf_key(0, 2, 1, 13)
+    want = np.asarray(jax.random.uniform(jk, (n,)))
+    got = R.uniform(tk, n, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert 0.0 <= float(got.min()) and float(got.max()) < 1.0
+
+
+@pytest.mark.parametrize("n", [3, 4096, 70_001])
+def test_bits_match_jax(n):
+    jk, tk = _step_leaf_key(5, 0, 0, 0)
+    want = np.asarray(jax.random.bits(jk, (n,)))
+    got = R.bits(tk, n, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_downlink_draw_matches_jax():
+    """The downlink's leaf-key chain: fold_in(fold_in(step_key,
+    DOWNLINK_FOLD), j)."""
+    jk = jax.random.fold_in(jax.random.key(0), 1)
+    tk = R.fold_in(R.key(0), 1)
+    jk = jax.random.fold_in(jefbv.downlink_key(jk), 4)
+    tk = R.fold_in(tefbv.downlink_key(tk), 4)
+    want = np.asarray(jax.random.uniform(jk, (4097,)))
+    np.testing.assert_array_equal(R.uniform(tk, 4097, "cpu").numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_cpu_draws_launch_nothing():
+    reset_launches()
+    R.uniform(R.key(0), 100, device="cpu")
+    R.bits(R.key(0), 100, device="cpu")
+    assert LAUNCHES["threefry_uniform"] == 0
+    assert R.uniform(R.key(0), 0, device="cpu").shape == (0,)
+

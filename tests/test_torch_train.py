@@ -1,9 +1,13 @@
 """A 3-step, 2-worker EF-BV smoke round in both packages, from the same
-params and the same batches.
+params, the same batches and the same step keys: block-top-k up with a
+dense broadcast, and QSGD(16) both ways (the bidirectional round).
 
 The JAX round is assembled from its public pieces (``model.loss``,
-``compress_local``, ``combine_global``, ``adamw``), jitted, on one device;
-the port's is ``train.trainer.make_train_step``.  Tolerances:
+``compress_local``, ``combine_global``, ``adamw``, ``broadcast_global``),
+jitted, on one device, with the JAX trainer's keys (worker i compresses
+under ``fold_in(step_key, i)``, the downlink under
+``downlink_key(step_key)``) and gradients at w; the port's is
+``train.trainer.make_train_step``.  Tolerances:
 
 * f32 activations: per-step loss rtol 1e-5; after three steps fewer than
   0.1% of the params differ by more than 1e-5, and none by more than
@@ -12,6 +16,9 @@ the port's is ``train.trainer.make_train_step``.  Tolerances:
   which AdamW turns into an update of about lr at that coordinate.
 * bf16 activations: loss atol 1e-2 (bf16 rounds at different points in
   the two frameworks).
+* The same for the QSGD round: its uniforms are bit-equal, but the norms
+  differ in their last bits (torch and XLA reduce in different orders) and
+  so do the gradients, so now and then a level rounds the other way.
 
 Bits per round are exact, and ``SyntheticLM`` batches identical.
 """
@@ -27,6 +34,8 @@ import torch
 from repro.configs import get_smoke_config as jget_smoke_config
 from repro.core import compressors as jcomp
 from repro.core.efbv import EFBV as JEFBV
+from repro.core.efbv import Downlink as JDownlink
+from repro.core.efbv import downlink_key as jdownlink_key
 from repro.data import SyntheticLM as JSyntheticLM
 from repro.distributed import aggregate as jagg
 from repro.distributed import wire as jwire
@@ -35,10 +44,11 @@ from repro.optim import adamw as jadamw
 from repro.optim import apply_updates as japply_updates
 from repro.optim import cosine as jcosine
 from repro_torch import convert
+from repro_torch import random as R
 from repro_torch import tree as T
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import compressors as tcomp
-from repro_torch.core.efbv import EFBV
+from repro_torch.core.efbv import EFBV, Downlink
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire as twire
 from repro_torch.launch import train as tlaunch
@@ -49,18 +59,25 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 
 N, STEPS, SEQ, BATCH = 2, 3, 16, 8
 SMOKE_BITS = 5_776_384
+SMOKE_QSGD_BITS = 11_553_216
+SEED = 0
 
 
-def _jax_round(jcfg, params, batches, lam, nu):
+def _jax_round(jcfg, params, batches, lam, nu, bidirectional=False):
     model = jbuild_model(jcfg)
-    algo = JEFBV(jcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    comp = jcomp.QSGD(16) if bidirectional else jcomp.BlockTopK(256, 16)
+    algo = JEFBV(comp, lam=lam, nu=nu)
+    downlink = JDownlink(jcomp.QSGD(16)) if bidirectional else None
     opt = jadamw(jcosine(3e-4, total_steps=STEPS, warmup_steps=1),
                  weight_decay=0.01)
     grad_fn = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b)[0]))
-    local = jax.jit(lambda g, h: jagg.compress_local(
-        algo, None, g, h, mode="sparse_allgather"))
+    local = jax.jit(lambda k, g, h: jagg.compress_local(
+        algo, k, g, h, mode="sparse_allgather"))
     combine = jax.jit(lambda m, ha: jagg.combine_global(
         algo, m, ha, n_workers=N, mode="sparse_allgather"))
+    broadcast = jax.jit(lambda k, x, w: jagg.broadcast_global(
+        downlink, jdownlink_key(k), x, w)[0])
+    key = jax.random.key(SEED)
 
     @jax.jit
     def optimize(g, opt_state, params):
@@ -69,42 +86,49 @@ def _jax_round(jcfg, params, batches, lam, nu):
 
     zeros = jax.tree.map(jnp.zeros_like, params)
     hs, h_avg, opt_state = [zeros] * N, zeros, opt.init(params)
+    w = params
     losses = []
-    for batch in batches:
+    for step, batch in enumerate(batches):
+        step_key = jax.random.fold_in(key, step)
         per = BATCH // N
         msgs, step_losses = [], []
         for i in range(N):
             bi = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            loss, grads = grad_fn(params, bi)
-            msg, hs[i] = local(jax.tree.map(lambda a: a.astype(jnp.float32),
+            loss, grads = grad_fn(w if bidirectional else params, bi)
+            msg, hs[i] = local(jax.random.fold_in(step_key, i),
+                               jax.tree.map(lambda a: a.astype(jnp.float32),
                                             grads), hs[i])
             msgs.append(msg)
             step_losses.append(float(loss))
         g, h_avg = combine(jax.tree.map(lambda *x: jnp.stack(x), *msgs),
                            h_avg)
         params, opt_state = optimize(g, opt_state, params)
+        if bidirectional:
+            w = broadcast(step_key, params, w)
         losses.append(float(np.mean(step_losses)))
     return losses, params
 
 
-def _torch_round(tcfg, params_np, batches, lam, nu):
+def _torch_round(tcfg, params_np, batches, lam, nu, bidirectional=False):
     model = build_model(tcfg)
-    algo = EFBV(tcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    comp = tcomp.QSGD(16) if bidirectional else tcomp.BlockTopK(256, 16)
+    algo = EFBV(comp, lam=lam, nu=nu)
     opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
                 weight_decay=0.01)
     state = init_train_state(convert.params_from_jax(params_np, "cpu"), opt,
-                             n_workers=N)
-    step = make_train_step(model.loss, opt, algo, n_workers=N,
-                           agg_mode="sparse_allgather")
+                             n_workers=N, bidirectional=bidirectional)
+    step = make_train_step(
+        model.loss, opt, algo, n_workers=N, agg_mode="sparse_allgather",
+        downlink=Downlink(tcomp.QSGD(16)) if bidirectional else None)
+    key = R.key(SEED)
     losses = []
-    for batch in batches:
-        state, metrics = step(state, batch)
+    for s, batch in enumerate(batches):
+        state, metrics = step(state, batch, R.fold_in(key, s))
         losses.append(float(metrics["loss"]))
     return losses, state
 
 
-@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
-def test_smoke_round_matches_jax(adt):
+def _both_rounds(adt, bidirectional):
     jcfg = dataclasses.replace(jget_smoke_config("qwen2-0.5b"),
                                activation_dtype=adt)
     tcfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
@@ -116,8 +140,14 @@ def test_smoke_round_matches_jax(adt):
     batches = [data.batch(s) for s in range(STEPS)]
     # lam != 1 so the h updates' rounding is exercised
     lam, nu = 0.37, 0.61
-    jl, jparams = _jax_round(jcfg, params_np, batches, lam, nu)
-    tl, state = _torch_round(tcfg, params_np, batches, lam, nu)
+    jl, jparams = _jax_round(jcfg, params_np, batches, lam, nu,
+                             bidirectional)
+    tl, state = _torch_round(tcfg, params_np, batches, lam, nu,
+                             bidirectional)
+    return jl, jparams, tl, state
+
+
+def _assert_round_close(adt, jl, jparams, tl, state):
     assert state.step == STEPS and all(np.isfinite(tl))
     if adt == "float32":
         np.testing.assert_allclose(tl, jl, rtol=1e-5)
@@ -127,6 +157,21 @@ def test_smoke_round_matches_jax(adt):
         assert np.mean(diff > 1e-5) < 1e-3 and diff.max() <= 9e-4
     else:
         np.testing.assert_allclose(tl, jl, atol=1e-2)
+
+
+@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
+def test_smoke_round_matches_jax(adt):
+    _assert_round_close(adt, *_both_rounds(adt, bidirectional=False))
+
+
+@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
+def test_bidirectional_smoke_round_matches_jax(adt):
+    """QSGD(16) up and down: gradients at w, the broadcast after AdamW."""
+    jl, jparams, tl, state = _both_rounds(adt, bidirectional=True)
+    _assert_round_close(adt, jl, jparams, tl, state)
+    assert state.w is not None
+    assert all(not torch.equal(a, b) for a, b in
+               zip(T.leaves(state.w), T.leaves(state.params)))
 
 
 def test_bits_per_round_exact_in_both_packages():
@@ -169,8 +214,48 @@ def test_cli_smoke_run_prints_exact_bits(capsys):
     assert out.count("[train] step") == 2
 
 
+def test_cli_bidirectional_smoke_prints_exact_bits(capsys):
+    loss = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--workers", "2",
+                         "--steps", "2", "--global-batch", "4", "--seq", "16",
+                         "--compressor", "qsgd:16", "--agg",
+                         "sparse_allgather", "--downlink", "qsgd:16",
+                         "--device", "cpu", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert np.isfinite(loss)
+    assert f" {SMOKE_QSGD_BITS} bits/round/worker uplink" in out
+    assert f"downlink {SMOKE_QSGD_BITS} bits/round broadcast" in out
+    assert f"total {3 * SMOKE_QSGD_BITS} bits/round up+down" in out
+    assert out.count("[train] step") == 2
+
+
+@pytest.mark.parametrize("compressor", ["block_topk:256,16", "qsgd:16"])
+def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
+    """Every tensor a run allocates is freed by reference counting: none
+    waits in a reference cycle for the garbage collector (a cycle would
+    keep whole trees of transients alive and raise the peak memory)."""
+    import gc
+    argv = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--steps",
+            "2", "--global-batch", "4", "--seq", "16", "--compressor",
+            compressor, "--agg", "sparse_allgather", "--device", "cpu"]
+    if compressor.startswith("qsgd"):
+        argv += ["--downlink", "qsgd:16"]
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        tlaunch.main(argv)
+        gc.collect()
+        cyclic = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    capsys.readouterr()
+    assert cyclic == []
+
+
 @pytest.mark.parametrize("flag", [
-    ["--downlink", "qsgd:16"], ["--participation", "bernoulli:0.5"],
+    ["--downlink", "block_topk:256,16"], ["--participation", "bernoulli:0.5"],
     ["--pipeline", "depth:1"], ["--leaf-codecs", "*embed*=qsgd:16"],
     ["--worker-comps", "topk:64;randk:64"], ["--trainer", "fsdp"],
     ["--spec", "x.json"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
