@@ -11,7 +11,11 @@ line is printed only when every phase passed):
 2. kernels -- each kernel against its plain PyTorch version on the card,
               bitwise, at the main paths' shapes and edge cases; times each
               (CUDA events, median of 20) beside its plain version and its
-              memory/compute bound.
+              memory/compute bound.  A rand-k position out of range must
+              make the launch fail (checked in a child process: the trap
+              poisons its CUDA context).  The shuffle behind rand-k's
+              positions (``random.permutation``), GPU against CPU bitwise,
+              and timed at the embed leaf's size.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
@@ -20,15 +24,19 @@ line is printed only when every phase passed):
               depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
               * block-top-k (256, 16) up, dense broadcast down;
-              * QSGD(16) up and down (bidirectional).
+              * QSGD(16) up and down (bidirectional);
+              * rand-k (k = 1048576) up, dense broadcast down.
               Checks a finite loss at every step, the exact printed wire
               bits, and that every kernel of the path launched the expected
               number of times (launch counts are reset just before each path
               and read just after).
 5. profile -- each path, one step on the host clock and one under
-              torch.profiler: device time by kernel, busy share; for the
-              QSGD path also the peak device memory of a step and of its
-              uplink encode, downlink broadcast and norm pass, each alone.
+              torch.profiler: device time by kernel, busy share; the peak
+              device memory of a step and of each of its phases; for the
+              QSGD path also its uplink encode, downlink broadcast and norm
+              pass, each alone; for rand-k one worker's uplink encode, the
+              embed leaf's encode and its shuffle, and the shuffles' share
+              of the step.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -68,7 +76,12 @@ INT_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "PRMT"}
 FULL_BITS = 1_976_131_584        # qwen2-0.5b, block_topk:256,16, per worker
 QSGD_BITS = 3_952_262_592        # qwen2-0.5b, qsgd:16, per worker and down
 QSGD_TOTAL_BITS = 11_856_787_776  # 2 uplink payloads + 1 broadcast
+RANDK_BITS = 541_450_240         # qwen2-0.5b, randk:1048576, per worker
+RANDK_K = 1_048_576
 FULL_LEAVES, WORKERS, STEPS = 14, 2, 3
+# rand-k: the sort rounds of one worker's 14 shuffles (checked against the
+# tree in phase 2)
+SHUFFLE_ROUNDS = 35
 EMBED_SIZE = 151_936 * 896
 REPS = 20
 # f32 operations per QSGD value (sub, abs, div, mul, floor, sub, compare,
@@ -104,6 +117,11 @@ def pack_bound_ms(size, block, kb):
          else "operations")
 
 
+def f32(x):
+    """x rounded to the nearest f32, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
 def same_bits(a, b):
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
@@ -118,7 +136,7 @@ def max_abs_diff(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-SOURCES = ("pack_update", "qsgd_pack_update", "threefry")
+SOURCES = ("pack_update", "qsgd_pack_update", "randk_update", "threefry")
 
 
 def phase_build():
@@ -178,10 +196,14 @@ def phase_kernels():
     torch.cuda.empty_cache()
     qsgd_row = kernels_qsgd()
     torch.cuda.empty_cache()
+    randk_row = kernels_randk()
+    torch.cuda.empty_cache()
     threefry_row = kernels_threefry()
     torch.cuda.empty_cache()
+    kernels_permutation()
+    torch.cuda.empty_cache()
     return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
-            "threefry_uniform": threefry_row}
+            "randk_update": randk_row, "threefry_uniform": threefry_row}
 
 
 def kernels_pack():
@@ -350,6 +372,198 @@ def kernels_qsgd():
             "bound_by": by, "max_abs_err": max_err, "library_ms": None}
 
 
+def randk_bound_ms(size, k):
+    """Least time for one rand-k update: read h and write h_out (8 B per
+    value), read idx and g at the k positions and write the k values (12 B
+    per selected value).  Its 4 f32 operations per selected value and one
+    per value are far below that."""
+    return (8 * size + 12 * k) / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def randk_case(name, g, h, k=None, lam=0.37, idx=None, timing=False):
+    """Kernel vs plain version on flat f32 CUDA tensors at k positions
+    drawn by ``random.choice`` on the card (or the given ``idx``); returns
+    (kernel ms, plain ms, library ms, bound ms, max |diff|)."""
+    from repro_torch import random
+    from repro_torch.kernels import pack, ref
+
+    size = g.numel()
+    if idx is None:
+        idx = random.choice(random.fold_in(random.key(7), size), size, k,
+                            "cuda")
+    k = idx.numel()
+    scale = f32(size / k)
+    kv, kh = pack.randk_update(g, h, idx, scale, lam)
+    pv, ph = ref.randk_update_ref(g, h, idx, scale, lam)
+    torch.cuda.synchronize()
+    err = max(max_abs_diff(kv, pv), max_abs_diff(kh, ph))
+    if not (same_bits(kv, pv) and same_bits(kh, ph)):
+        raise AssertionError(f"[kernels] randk {name}: kernel != plain "
+                             f"version (max |diff| {err})")
+    bound, by = randk_bound_ms(size, k)
+    k_ms = p_ms = l_ms = float("nan")
+    if timing:
+        k_ms = timed_ms(lambda: pack.randk_update(g, h, idx, scale, lam))
+        p_ms = timed_ms(lambda: ref.randk_update_ref(g, h, idx, scale, lam))
+        idx64 = idx.long()
+        l_ms = timed_ms(lambda: torch.index_add(h, 0, idx64, kv, alpha=lam))
+    print(f"[kernels] randk {name}: size={size} k={k} lam={lam} bitwise=ok "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"index_add_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
+    return k_ms, p_ms, l_ms, bound, err
+
+
+def randk_device_ms(calls):
+    """Device time of the rand-k kernels in one round of the 14 leaves
+    (torch.profiler), apart from the wrapper's host time that the CUDA
+    events around a lone call also see."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import pack
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for g, h, idx, scale in calls:
+            pack.randk_update(g, h, idx, scale, 0.37)
+        torch.cuda.synchronize()
+    try:
+        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages() if "randk_" in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # reading the trace, not the port: report it
+        print(f"[kernels] randk device time: not measured: {e!r}")
+        return
+    for key, count, ms in rows:
+        print(f"[kernels] randk round device time: {key[:60]} x{count} "
+              f"{ms:.4f} ms")
+    print(f"[kernels] randk round device time: "
+          f"{sum(r[2] for r in rows):.4f} ms in {sum(r[1] for r in rows)} "
+          f"kernels")
+
+
+def randk_trap_child():
+    """Child process: a rand-k position outside [0, size) must make the
+    launch fail.  Exits 3 (skipping teardown in the poisoned context) when
+    it did, 0 when it did not."""
+    import os
+    from repro_torch.kernels import pack
+
+    bad = int(sys.argv[2])
+    g = torch.zeros(1000, device="cuda")
+    idx = torch.tensor([3, bad, 5], dtype=torch.int32, device="cuda")
+    try:
+        pack.randk_update(g, torch.zeros_like(g), idx, 1000 / 3, 0.37)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"[trap] position {bad}: launch failed: {e}".splitlines()[0],
+              flush=True)
+        os._exit(3)
+    print(f"[trap] position {bad}: no error", flush=True)
+    return 0
+
+
+def kernels_randk():
+    """rand-k update: edge cases bitwise, an out-of-range position in a
+    child process; then one worker's round at the 14 full-width leaves
+    (k = 1048576, clamped to the leaf; the embed leaf of 136,134,656 values
+    among them), timed beside the plain version and ``torch.index_add``
+    (the update given the values; not bit-equal: it adds lam * v as an FMA
+    and keeps an unselected -0.0)."""
+    from repro_torch import random
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+
+    def randn(n):
+        return torch.randn(n, generator=gen, device="cuda")
+
+    max_err = 0.0
+    n = 70_001  # ragged: a 16-byte tail of one value
+    for k in (1, n // 2, n):
+        max_err = max(max_err, randk_case(f"ragged_k{k}", randn(n), randn(n),
+                                          k)[4])
+    for lam in (0.37, 0.0, 1.0):
+        g, h = randn(n), randn(n)
+        idx = random.choice(random.key(int(100 * lam)), n, 20_000, "cuda")
+        sel = torch.zeros(n, dtype=torch.bool, device="cuda")
+        sel[idx.long()] = True
+        on, off = sel.nonzero().reshape(-1), (~sel).nonzero().reshape(-1)
+        h[off[::3]] = -0.0          # unselected -0.0 becomes +0.0
+        g[off[1::3]], h[off[1::3]] = -0.0, 0.0
+        g[on[::5]], h[on[::5]] = -0.0, 0.0
+        g[on[1::7]] = float("nan")
+        g[on[2::7]] = float("inf")
+        g[off[2::7]] = float("nan")
+        g[off[3::7]] = -float("inf")
+        max_err = max(max_err, randk_case(f"specials_lam{lam}", g, h,
+                                          lam=lam, idx=idx)[4])
+    # views 4 bytes off a 16-byte boundary take the one-value path
+    buf = randn(2 * n + 2)
+    max_err = max(max_err, randk_case("unaligned", buf[1:n + 1],
+                                      buf[n + 2:], 5000)[4])
+    for bad in (1000, -1):
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--randk-trap-child", str(bad)],
+                           capture_output=True, text=True, timeout=300)
+        print(r.stdout.strip())
+        if r.returncode != 3 or "launch failed" not in r.stdout:
+            raise AssertionError(f"[kernels] randk position {bad}: launch "
+                                 f"did not fail (exit {r.returncode}): "
+                                 f"{r.stderr[-2000:]}")
+    leaves = full_leaves()
+    rounds = sum(random.shuffle_rounds(s) for _, s in leaves)
+    if len(leaves) != FULL_LEAVES or rounds != SHUFFLE_ROUNDS:
+        raise AssertionError(f"[kernels] randk: {len(leaves)} leaves and "
+                             f"{rounds} shuffle rounds per worker")
+    tot = [0.0] * 4
+    calls = []
+    for path, size in leaves:
+        g, h = randn(size), randn(size)
+        idx = random.choice(random.fold_in(random.key(7), size), size,
+                            min(RANDK_K, size), "cuda")
+        out = randk_case("qwen2:" + path, g, h, idx=idx, timing=True)
+        tot = [a + b for a, b in zip(tot, out[:4])]
+        max_err = max(max_err, out[4])
+        calls.append((g, h, idx, f32(size / idx.numel())))
+    values = sum(size for _, size in leaves)
+    print(f"[kernels] randk qwen2-0.5b round ({len(leaves)} leaves, "
+          f"{values} values, one worker): kernel_ms={tot[0]:.4f} "
+          f"plain_ms={tot[1]:.4f} index_add_ms={tot[2]:.4f} "
+          f"bound_ms={tot[3]:.4f}")
+    randk_device_ms(calls)
+    return {"ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[3],
+            "bound_by": "bytes", "max_abs_err": max_err,
+            "library_ms": tot[2]}
+
+
+def kernels_permutation():
+    """The shuffle of ``random.permutation`` (threefry draws, then stable
+    sorts of them as uint32): GPU against the CPU, bitwise, at 2**20 and
+    2**22; timed (CUDA events) with its peak memory at the embed leaf's
+    size, and for one worker's 14 leaves (returned, in ms)."""
+    from repro_torch import random
+
+    key = random.fold_in(random.key(0), 11)
+    for n in (2**20, 2**22):
+        gpu = random.permutation(key, n, "cuda")
+        cpu = random.permutation(key, n, "cpu")
+        if not torch.equal(gpu.cpu(), cpu):
+            raise AssertionError(f"[permutation] n={n}: GPU != CPU")
+        print(f"[permutation] n={n} rounds={random.shuffle_rounds(n)} "
+              "GPU == CPU bitwise")
+    _, mem = peak_above(lambda: random.permutation(key, EMBED_SIZE, "cuda"))
+    ms = timed_ms(lambda: random.permutation(key, EMBED_SIZE, "cuda"),
+                  reps=5)
+    print(f"[permutation] n={EMBED_SIZE} (embed) rounds="
+          f"{random.shuffle_rounds(EMBED_SIZE)} ms={ms:.4f} "
+          f"peak_above_gib={mem:.3f}")
+    sizes = [s for _, s in full_leaves()]
+    ms = timed_ms(lambda: [random.choice(key, s, min(RANDK_K, s), "cuda")
+                           for s in sizes], reps=5)
+    print(f"[permutation] one worker's 14 rand-k choices "
+          f"({sum(random.shuffle_rounds(s) * s for s in sizes)} sorted "
+          f"pairs): ms={ms:.4f}")
+    return ms
+
+
 def sass_per_value(lib, kernel):
     """(instructions, integer-pipe instructions, opcode counts) per value
     in the grid-stride loop of ``kernel``, read from the SASS of the built
@@ -458,12 +672,19 @@ def kernels_threefry():
             "bound_by": by, "max_abs_err": max_err, "library_ms": l_tot}
 
 
-def run_steps(params, cfg, qsgd, steps=3, n=2):
+#: the smoke reference's uplink compressor of each path; only QSGD has a
+#: downlink
+SMOKE_SPECS = {"block_topk": "block_topk:256,16", "qsgd": "qsgd:16",
+               "randk": "randk:4096"}
+
+
+def run_steps(params, cfg, kind, steps=3, n=2):
     """``steps`` 2-worker EF-BV steps of the sparse all-gather wire from
-    ``params``: block-top-k (256, 16) up, or QSGD(16) up and down; step s
-    under the key fold_in(key(0), s).  Returns the losses."""
+    ``params``: block-top-k (256, 16) up, QSGD(16) up and down, or rand-k
+    (k = 4096) up; step s under the key fold_in(key(0), s).  Returns the
+    losses."""
     from repro_torch import random
-    from repro_torch.core.compressors import QSGD, BlockTopK
+    from repro_torch.core.compressors import QSGD, make_compressor
     from repro_torch.core.efbv import EFBV, Downlink
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.model import build_model
@@ -474,8 +695,9 @@ def run_steps(params, cfg, qsgd, steps=3, n=2):
     model = build_model(cfg)
     opt = adamw(cosine(3e-4, total_steps=steps, warmup_steps=1),
                 weight_decay=0.01)
-    comp = QSGD(16) if qsgd else BlockTopK(256, 16)
-    algo = EFBV.make(comp, d=cfg.d_model * cfg.d_ff, n=n)
+    qsgd = kind == "qsgd"
+    algo = EFBV.make(make_compressor(SMOKE_SPECS[kind]),
+                     d=cfg.d_model * cfg.d_ff, n=n)
     state = init_train_state(params, opt, n_workers=n, bidirectional=qsgd)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
                               agg_mode="sparse_allgather",
@@ -500,15 +722,16 @@ def phase_reference():
                               activation_dtype="float32")
     params = build_model(cfg).init(torch.Generator().manual_seed(0),
                                    device="cpu")
-    for qsgd in (False, True):
-        name = "qsgd:16 up and down" if qsgd else "block_topk:256,16"
-        cpu = run_steps(params, cfg, qsgd)
-        gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, qsgd)
+    for kind, spec in SMOKE_SPECS.items():
+        name = spec + (" up and down" if kind == "qsgd" else "")
+        cpu = run_steps(params, cfg, kind)
+        gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, kind)
         print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu}")
         for a, b in zip(cpu, gpu):
             # f32 matmuls sum in another order on the card, and so do the
             # QSGD norms; a block-top-k near-tie or a QSGD level can then
-            # round the other way, so 1e-3 relative
+            # round the other way (rand-k's positions are bit-equal), so
+            # 1e-3 relative
             if not (math.isfinite(b) and abs(a - b) <= 1e-3 * abs(a)):
                 raise AssertionError(f"[reference] {name}: GPU loss {b} vs "
                                      f"CPU {a}")
@@ -526,7 +749,7 @@ PATHS = {
         "argv": BASE_ARGV + ["--compressor", "block_topk:256,16"],
         "bits": {r"(\d+) bits/round/worker": [FULL_BITS]},
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
-                     "threefry_uniform": 0},
+                     "randk_update": 0, "threefry_uniform": 0},
         "profile": ("pack_update_rows",),
     },
     "qsgd_bidirectional": {
@@ -538,8 +761,20 @@ PATHS = {
         # threefry: one uniform per leaf per worker, and one per leaf for
         # the broadcast
         "launches": {"pack_update": 0, "qsgd_pack_update": RUNS,
+                     "randk_update": 0,
                      "threefry_uniform": (WORKERS + 1) * STEPS * FULL_LEAVES},
         "profile": ("qsgd_pack_update_kernel", "threefry_fill_kernel"),
+    },
+    "randk": {
+        "argv": BASE_ARGV + ["--compressor", f"randk:{RANDK_K}"],
+        "bits": {r"(\d+) bits/round/worker": [RANDK_BITS],
+                 r"(\d\.\d+)x dense fp32": ["0.0342"]},
+        # the kernel on every leaf; one threefry draw per shuffle round
+        "launches": {"pack_update": 0, "qsgd_pack_update": 0,
+                     "randk_update": RUNS,
+                     "threefry_uniform": SHUFFLE_ROUNDS * WORKERS * STEPS},
+        "profile": ("randk_dense_kernel", "randk_sparse_kernel",
+                    "threefry_fill_kernel", "RadixSort"),
     },
 }
 
@@ -579,7 +814,7 @@ def phase_main(name):
     launches = dict(LAUNCHES)
     text = out.getvalue()
     losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
-    bits = {pat: [int(x) for x in re.findall(pat, text)]
+    bits = {pat: [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
             for pat in path["bits"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[main] {name}: seconds={secs:.2f} peak_mem_gib={peak:.2f} "
@@ -600,9 +835,36 @@ def phase_main(name):
     return launches
 
 
+def timed_choices(fn):
+    """(fn(), summed ms between CUDA events recorded just before and just
+    after each ``random.choice`` call that fn makes, number of calls): the
+    time the stream spends in the rand-k shuffles within that run."""
+    from repro_torch import random
+
+    choice, pairs = random.choice, []
+
+    def timed(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = choice(*args, **kwargs)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    random.choice = timed
+    try:
+        out = fn()
+    finally:
+        random.choice = choice
+    torch.cuda.synchronize()
+    return out, sum(a.elapsed_time(b) for a, b in pairs), len(pairs)
+
+
 def phase_profile(name):
     """Where a full-width step's time goes: after a warm-up step, one step
-    timed on the host clock and one traced with torch.profiler (device
+    timed on the host clock (for rand-k with its shuffles between CUDA
+    events, ``timed_choices``) and one traced with torch.profiler (device
     time by kernel, and the device's busy share of the traced step).  A
     trace whose rows cannot be read is reported, not failed; a failure of
     the steps themselves fails the phase.  Then where its memory goes
@@ -620,7 +882,8 @@ def phase_profile(name):
     state, m = step_fn(state, data.batch(0), random.fold_in(key, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, m = step_fn(state, data.batch(1), random.fold_in(key, 1))
+    (state, m), shuffle_ms, choices = timed_choices(
+        lambda: step_fn(state, data.batch(1), random.fold_in(key, 1)))
     loss = float(m["loss"])
     torch.cuda.synchronize()
     untraced = (time.perf_counter() - t0) * 1e3
@@ -648,6 +911,10 @@ def phase_profile(name):
         rows = None
     if rows is not None:
         print_profile(name, rows, untraced, wall)
+    if name == "randk":
+        print(f"[profile] randk: the shuffles of the untraced step "
+              f"({choices} random.choice calls between CUDA events) "
+              f"ms={shuffle_ms:.2f}, {shuffle_ms / untraced:.3f} of it")
     # the holder is the only reference to the state, as the launcher's loop
     # variable is: a second one would keep a stale state alive in the steps
     holder = {"state": state}
@@ -655,6 +922,8 @@ def phase_profile(name):
     phase_peaks(name, holder, step_fn, data)
     if name == "qsgd_bidirectional":
         memory_probes(holder["state"])
+    if name == "randk":
+        randk_memory_probes(holder["state"])
 
 
 def print_profile(name, rows, untraced, wall):
@@ -668,6 +937,17 @@ def print_profile(name, rows, untraced, wall):
         ms = sum(r[0] for r in rows if kernel in r[2])
         n = sum(r[1] for r in rows if kernel in r[2])
         print(f"[profile] {name}: {kernel} device_ms={ms:.3f} x{n}")
+    if name == "randk":
+        # kernels that only the shuffles run: the threefry draws, the radix
+        # sorts, the sorts' index fill and the arange; its gathers x[order]
+        # and sign-bit XORs are generic kernels that the step runs for other
+        # work too, so this is a lower bound
+        only = ("threefry_fill_kernel", "RadixSort",
+                "fill_reverse_indices_kernel", "arange_cuda_out")
+        ms = sum(r[0] for r in rows if any(o in r[2] for o in only))
+        print(f"[profile] {name}: kernels only the shuffles run device_ms="
+              f"{ms:.3f}, {ms / busy:.3f} of the device kernel time, "
+              f"{ms / untraced:.3f} of the untraced step")
     for t, count, key in sorted(rows, reverse=True)[:15]:
         print(f"[profile] {name}: {t:9.3f} ms x{count:<5d} {key[:90]}")
 
@@ -769,21 +1049,56 @@ def memory_probes(state):
           f"{norm:.2f} GiB ({g.numel()} values)")
 
 
+def randk_memory_probes(state):
+    """Transient memory of the rand-k path, each run alone on the
+    full-width state: one worker's uplink encode, and the embed leaf's
+    encode_update (the kernel path) and its shuffle (``random.choice``)."""
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import RandK
+    from repro_torch.core.efbv import EFBV
+    from repro_torch.distributed import aggregate
+    from repro_torch.launch.train import tuning_dim
+
+    key = random.fold_in(random.key(0), 5)
+    algo = EFBV.make(RandK(RANDK_K), d=tuning_dim(get_config("qwen2-0.5b")),
+                     n=WORKERS)
+    h0 = T.tree_map(lambda a: a[0], state.h)
+    out, uplink = peak_above(lambda: aggregate.compress_local(
+        algo, random.fold_in(key, 0), state.params, h0,
+        mode="sparse_allgather"))
+    del out
+    g, h = T.leaves(state.params)[0], T.leaves(h0)[0]
+    codec = RandK(RANDK_K).codec(tuple(g.shape))
+    out, enc = peak_above(lambda: codec.encode_update(
+        random.fold_in(key, 1), g, h, algo.lam))
+    del out
+    _, shuffle = peak_above(lambda: random.choice(
+        random.fold_in(key, 2), g.numel(), RANDK_K, "cuda"))
+    print(f"[memory] randk: alone on the full-width state, peak above their "
+          f"inputs: one worker's compress_local {uplink:.2f} GiB, the embed "
+          f"leaf's encode_update {enc:.2f} GiB and its shuffle "
+          f"{shuffle:.2f} GiB ({g.numel()} values)")
+
+
 KERNEL_ROWS = {
     "pack_update": ("src/repro_torch/kernels/csrc/pack_update.cu",
-                    "src/repro/kernels/pack.py:78", "block_topk"),
+                    "src/repro/kernels/pack.py:78"),
     "qsgd_pack_update": ("src/repro_torch/kernels/csrc/qsgd_pack_update.cu",
-                         "src/repro/kernels/pack.py:227",
-                         "qsgd_bidirectional"),
+                         "src/repro/kernels/pack.py:227"),
+    "randk_update": ("src/repro_torch/kernels/csrc/randk_update.cu",
+                     "src/repro/kernels/pack.py:166"),
     # no Pallas kernel: the JAX package's uniforms come from XLA
     "threefry_uniform": ("src/repro_torch/kernels/csrc/threefry.cu",
                          "src/repro/distributed/wire.py:442 "
-                         "(jax.random.uniform; no Pallas kernel)",
-                         "qsgd_bidirectional"),
+                         "(jax.random.uniform; no Pallas kernel)"),
 }
 
 
 def main():
+    if sys.argv[1:2] == ["--randk-trap-child"]:
+        return randk_trap_child()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -812,11 +1127,15 @@ def main():
         torch.cuda.empty_cache()
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")
     kernels = []
-    for name, (source, replaces, path) in KERNEL_ROWS.items():
+    for name, (source, replaces) in KERNEL_ROWS.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[path][name],
+            "replaces": replaces,
+            # summed over the main paths (threefry runs on two), and by path
+            "launches": sum(run[name] for run in launches.values()),
+            "launches_by_path": {p: run[name] for p, run in launches.items()
+                                 if run[name]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

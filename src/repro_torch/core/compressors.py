@@ -2,7 +2,8 @@
 
 Ported so far: :class:`BlockTopK` (the block-local top-k contraction of the
 block-sparse path), :class:`QSGD` (the stochastic quantizer of the
-bidirectional path) and :class:`Identity`.  ``make_compressor`` parses
+bidirectional path), :class:`RandK` (the unbiased sparsifier of the DIANA
+path) and :class:`Identity`.  ``make_compressor`` parses
 their specs and refuses every other zoo member as not yet ported.
 
 A compressor ``C(key, x)`` maps a tensor to a dense tensor of its shape
@@ -24,7 +25,7 @@ from repro_torch import random
 from repro_torch.kernels.ref import topk_rows
 
 #: the zoo's spec names that the port does not have yet
-NOT_PORTED = ("topk", "randk", "scaled_randk", "comp", "mix", "sign",
+NOT_PORTED = ("topk", "scaled_randk", "comp", "mix", "sign",
               "natural", "frac_topk", "frac_comp")
 
 
@@ -127,6 +128,44 @@ class QSGD(Compressor):
                               s=self.s)
 
 
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Unbiased rand-k (Sect. 2.1): keeps k random coordinates scaled by
+    d/k, in U(d/k - 1).  The k positions are
+    ``jax.random.choice(key, d, (k,), replace=False)``
+    (:func:`repro_torch.random.choice`)."""
+
+    k: int
+
+    def eta(self, d):
+        return 0.0
+
+    def omega(self, d):
+        return d / self.k - 1.0
+
+    def __call__(self, key, x):
+        """``(xf * mask) * f32(d / k)``, the JAX compressor's op order."""
+        xf = x.reshape(-1)
+        d = xf.numel()
+        idx = random.choice(key, d, self.k, xf.device)
+        mask = torch.zeros_like(xf)
+        mask[idx.long()] = 1.0
+        return ((xf * mask) * float(np.float32(d / self.k))).reshape(x.shape)
+
+    def codec(self, shape):
+        from repro_torch.distributed import wire
+        return wire.RandKSparse(shape=tuple(shape),
+                                size=int(math.prod(shape)), k=self.k,
+                                selector=self)
+
+    def encode(self, key, x):
+        """(values (k,) = x[idx] * f32(d / k), idx (k,) int32)."""
+        xf = x.reshape(-1)
+        d = xf.numel()
+        idx = random.choice(key, d, self.k, xf.device)
+        return xf[idx.long()] * float(np.float32(d / self.k)), idx
+
+
 def make_compressor(spec: str) -> Compressor:
     """Parse 'name[:a[,b]]' into a Compressor."""
     name, _, args = spec.partition(":")
@@ -137,8 +176,10 @@ def make_compressor(spec: str) -> Compressor:
         return BlockTopK(*argv)
     if name == "qsgd":
         return QSGD(*argv)
+    if name == "randk":
+        return RandK(*argv)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"compressor {name!r} is not yet ported to repro_torch "
-            "(ported: block_topk, qsgd, identity)")
+            "(ported: block_topk, qsgd, randk, identity)")
     raise ValueError(f"unknown compressor {name!r}")

@@ -2,10 +2,12 @@
 scatter-add helpers of the block-sparse wire (``repro/distributed/wire.py``).
 
 Ported so far: the block-sparse layout of block-top-k (:class:`LeafWire`,
-per block (values f32, block-local indices int32), (nb, kb) each) and the
+per block (values f32, block-local indices int32), (nb, kb) each), the
 quantized stream of QSGD (:class:`QsgdQuant`, one f32 norm and an int8 or
-int16 level per value), with the flat :class:`WireFormat` over a params
-tree, uplink and downlink.  The other codecs of the zoo and the per-leaf
+int16 level per value) and the flat sparse layout of rand-k
+(:class:`FlatSparse` / :class:`RandKSparse`, (values f32, global indices
+int32), (k,) each), with the flat :class:`WireFormat` over a params tree,
+uplink and downlink.  The other codecs of the zoo and the per-leaf
 ``TreeWire`` are not yet ported.
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
@@ -19,13 +21,14 @@ match the Pallas kernels bit for bit.
 For block-top-k the oracle matches JAX's jnp oracle, which differs from the
 kernel in two places: it gathers a selected -0.0 as -0.0 (the kernel sends
 +0.0), and it ranks a NaN above every number (a row of the kernel that
-holds a NaN sends (0.0, 0) in every slot).  For QSGD the oracle and the
-kernel agree bit for bit, as JAX's two paths do.
+holds a NaN sends (0.0, 0) in every slot).  For QSGD and rand-k the oracle
+and the kernel agree bit for bit, as JAX's two paths do when neither is
+contracted to an FMA.
 
 QSGD's norm ||g - h||_2 is torch's reduction, which may differ from XLA's
-in its last bits, so a level can flip against the JAX package.  The codec
-is held bitwise given the norm: ``encode`` and ``encode_update`` take an
-optional ``norm`` for that.
+in its last bits, so a level can flip against the JAX package.  The kernel
+wrapper is held bitwise given the norm (its ``norm`` argument); the codec
+computes its own.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from repro_torch import random
 from repro_torch import tree as T
-from repro_torch.core.compressors import BlockTopK
+from repro_torch.core.compressors import BlockTopK, RandK
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import level_dtype, to_levels, topk_rows
 
@@ -168,6 +171,101 @@ class QsgdQuant:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlatSparse:
+    """(values f32, global int32 indices), (k,) each: k * (32 + 32) bits.
+    ``selector`` is the compressor whose ``encode`` picks the k kept
+    coordinates and applies any unbiasedness scaling."""
+
+    shape: Tuple[int, ...]
+    size: int
+    k: int
+    selector: Any
+
+    kind = "flat_sparse"
+
+    @property
+    def payload_bits(self) -> int:
+        return self.k * (32 + 32)
+
+    def encode(self, key, delta: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        vals, idx = self.selector.encode(key, delta)
+        return vals.to(torch.float32), idx.to(torch.int32)
+
+    def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One payload -> dense flat f32 (size,): the values added into
+        zeros at their indices."""
+        vals, idx = payload
+        out = torch.zeros(self.size, dtype=torch.float32, device=vals.device)
+        return out.index_add_(0, idx.reshape(-1).long(),
+                              vals.reshape(-1).float())
+
+    def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Payload, worker-stacked (n, k) or not -> dense flat (size,) sum.
+        The stacked form adds worker by worker in ascending order, one
+        ``index_add_`` each: XLA's scatter of the n * k pairs adds them in
+        that order, and a single scatter on the card would add duplicates
+        across workers in any order (exact for n = 2 only)."""
+        vals, idx = payload
+        if vals.dim() == 1:
+            return self.decode(payload)
+        out = torch.zeros(self.size, dtype=torch.float32, device=vals.device)
+        for i in range(vals.shape[0]):
+            out.index_add_(0, idx[i].long(), vals[i].float())
+        return out
+
+    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
+                      lam: float, *, kernel: Optional[str] = None):
+        """(payload, h'): encode -> decode -> h' = h + lam * d, each op
+        rounded on its own.  There is no kernel: ``cuda`` raises."""
+        if _kernel_mode(kernel, g) == "cuda":
+            raise ValueError(f"{type(self).__name__} of {self.size} values "
+                             "has no CUDA kernel; use 'auto' or 'oracle'")
+        delta = g.reshape(-1).float() - h.reshape(-1).float()
+        payload = self.encode(key, delta)
+        del delta
+        d = self.decode(payload).reshape(g.shape)
+        return payload, (h.float() + lam * d).to(h.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandKSparse(FlatSparse):
+    """FlatSparse of rand-k: the positions do not depend on the data, so
+    they are drawn first (``random.choice``) and the fused kernel computes
+    the payload values and h' = h + lam * d in one pass, the dense d never
+    in device memory."""
+
+    kind = "randk_sparse"
+
+    @property
+    def has_kernel(self) -> bool:
+        """Codec metadata as in the JAX package, whose Pallas kernel
+        compares f32 positions, exact below 2**24.  The CUDA kernel has no
+        such limit and runs on every leaf; nothing dispatches on this."""
+        return self.size < 2 ** 24
+
+    @property
+    def scale(self) -> float:
+        """f32(size / k), the unbiasedness scaling of the values."""
+        return float(np.float32(self.size / self.k))
+
+    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
+                      lam: float, *, kernel: Optional[str] = None):
+        """(payload, h').  ``auto`` and ``cuda`` take the kernel wrapper,
+        ``oracle`` the plain encode -> decode -> update.  Both give the
+        same bits: the decode's 0.0 + v differs from v only for v = -0.0,
+        which (g - h) * scale is only where h = +0.0, and h + lam * (+-0.0)
+        is then +0.0 either way."""
+        mode = _kernel_mode(kernel, g)
+        if mode == "oracle":
+            return FlatSparse.encode_update(self, key, g, h, lam,
+                                            kernel=mode)
+        idx = random.choice(key, self.size, self.k, g.device)
+        vals, h_new = ops.randk_update(g, h, idx, lam, self.scale)
+        return (vals, idx), h_new
+
+
+@dataclasses.dataclass(frozen=True)
 class WireFormat:
     """Payload layout for a whole params tree (leaf order = flatten order)."""
 
@@ -196,18 +294,28 @@ def total_round_bits(up: WireFormat, down: WireFormat, *,
         down.downlink_bits_per_round()
 
 
+def clamp_for_leaf(compressor, size: int):
+    """The compressor with its selection count clamped to one leaf of
+    ``size`` values (``wire.clamp_for_leaf``): rand-k's k and block-top-k's
+    kb.  The same object when nothing changes."""
+    d = int(size)
+    if isinstance(compressor, RandK) and compressor.k > d:
+        return dataclasses.replace(compressor, k=d)
+    if isinstance(compressor, BlockTopK):
+        kb = min(compressor.kb, compressor.block, d)
+        if kb != compressor.kb:
+            return dataclasses.replace(compressor, kb=kb)
+    return compressor
+
+
 def codec_of(compressor, shape: Tuple[int, ...], size: int,
              wire_dtype: str = "float32"):
-    """The codec ``compressor`` declares for one leaf.  Block-top-k clamps
-    kb to a leaf smaller than kb, as ``wire.clamp_for_leaf`` does."""
+    """The codec ``compressor`` declares for one leaf, after
+    :func:`clamp_for_leaf`."""
     if wire_dtype != "float32":
         raise NotImplementedError(
             f"wire dtype {wire_dtype!r} is not yet ported (float32 only)")
-    if isinstance(compressor, BlockTopK) and \
-            min(compressor.block, size) < compressor.kb:
-        compressor = dataclasses.replace(
-            compressor, kb=min(compressor.block, size))
-    return compressor.codec(tuple(shape))
+    return clamp_for_leaf(compressor, size).codec(tuple(shape))
 
 
 def format_for(compressor, tree: PyTree, *,

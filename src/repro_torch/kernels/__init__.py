@@ -11,7 +11,7 @@ the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pack_update": 0, "qsgd_pack_update": 0,
-                            "threefry_uniform": 0}
+                            "randk_update": 0, "threefry_uniform": 0}
 
 
 def reset_launches() -> None:

@@ -39,6 +39,9 @@ SIGNATURES = {
                          [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_float, ctypes.c_float,
                           ctypes.c_int, _P]),
+    "randk_update": ("randk_update_f32",
+                     [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P]),
     "threefry": ("threefry_fill",
                  [ctypes.c_uint, ctypes.c_uint, _P, ctypes.c_longlong,
                   ctypes.c_int, _P]),

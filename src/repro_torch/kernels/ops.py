@@ -2,8 +2,8 @@
 to (nb, block) rows for the block kernel, outputs unpadded.
 
 Unlike the TPU wrappers, rows are padded only to nb * block, and the QSGD
-kernel takes flat leaves unpadded: a CUDA kernel has no (8, 128) tile to
-fill.
+and rand-k kernels take flat leaves unpadded: a CUDA kernel has no (8, 128)
+tile to fill.
 """
 
 from __future__ import annotations
@@ -52,3 +52,16 @@ def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     levels, h_out = pack.qsgd_pack_update(
         g.reshape(-1), h.reshape(-1), u.reshape(-1), norm, lam, s)
     return levels, h_out.reshape(h.shape)
+
+
+def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                 lam: float, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused rand-k worker update (JAX's ``ops.randk_update`` signature):
+    h' = h + lam * d with d = (g - h) * scale at the (k,) int32 flat
+    positions ``idx`` and 0 elsewhere.  Returns (the (k,) payload values
+    d[idx], h' shaped like h): the kernel emits the values that JAX gathers
+    outside its kernel, bit for bit the same."""
+    vals, h_out = pack.randk_update(g.reshape(-1), h.reshape(-1), idx,
+                                    scale, lam)
+    return vals, h_out.reshape(h.shape)

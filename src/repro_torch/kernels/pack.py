@@ -7,6 +7,9 @@
 * :func:`qsgd_pack_update`, the port of ``qsgd_pack_update_pallas``: one
   pass over flat (g, h, u) emitting the QSGD level stream and
   h_out = h + lam * dequant(levels) (``csrc/qsgd_pack_update.cu``).
+* :func:`randk_update`, the port of ``randk_update_pallas``: the rand-k
+  payload values at k given positions and h_out = h + lam * d, the dense
+  d never in device memory (``csrc/randk_update.cu``).
 
 On a CPU tensor a wrapper runs its plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -120,3 +123,51 @@ def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
         raise RuntimeError(f"qsgd_pack_update launch failed: cudaError {err}")
     LAUNCHES["qsgd_pack_update"] += 1
     return levels, h_out
+
+
+def _check_randk(g, h, idx) -> None:
+    if g.dim() != 1 or g.shape != h.shape:
+        raise ValueError(f"g and h must be equal flat vectors, got "
+                         f"{tuple(g.shape)} and {tuple(h.shape)}")
+    if g.dtype != torch.float32 or h.dtype != torch.float32:
+        raise TypeError(f"randk_update takes f32 g and h, got {g.dtype} and "
+                        f"{h.dtype}")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise TypeError(f"randk_update takes (k,) int32 positions, got "
+                        f"{tuple(idx.shape)} {idx.dtype}")
+    for name, x in (("h", h), ("idx", idx)):
+        if x.device != g.device:
+            raise ValueError(f"{name} on {x.device}, g on {g.device}")
+    if g.numel() >= 2**31:
+        raise ValueError(f"int32 positions address < 2**31 values, got "
+                         f"{g.numel()}")
+
+
+def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                 scale: float, lam: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat (size,) f32 g and h and the (k,) int32 selected positions ->
+    (vals (k,) f32, h_out (size,) f32).  See ``csrc/randk_update.cu``; a
+    position outside [0, size) makes the kernel trap (the plain version
+    raises)."""
+    _check_randk(g, h, idx)
+    if g.device.type == "cpu":
+        return ref.randk_update_ref(g, h, idx, scale, lam)
+    if g.device.type != "cuda":
+        raise ValueError(f"randk_update runs on cpu or cuda, not {g.device}")
+    if not all(x.is_contiguous() for x in (g, h, idx)):
+        raise ValueError("randk_update needs contiguous g, h and idx")
+    from repro_torch.kernels import build
+
+    fn = build.load("randk_update").randk_update_f32
+    vals = torch.empty(idx.shape, dtype=torch.float32, device=g.device)
+    h_out = torch.empty_like(h)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), h.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+                 h_out.data_ptr(), g.numel(), idx.numel(), float(scale),
+                 float(lam), stream)
+    if err != 0:
+        raise RuntimeError(f"randk_update launch failed: cudaError {err}")
+    LAUNCHES["randk_update"] += 1
+    return vals, h_out

@@ -89,6 +89,27 @@ def qsgd_pack_update_ref(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     return levels, h + lam * dq
 
 
+def randk_update_ref(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                     scale: float, lam: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rand-k payload values and control-variate update on flat f32 g and h
+    at the (k,) int32 positions ``idx``.  Returns (vals (k,) f32,
+    h_out (size,) f32).
+
+    ``vals = (g[idx] - h[idx]) * scale`` and ``h_out = h + lam * d`` with d
+    those values at idx and 0.0 elsewhere, each op rounded on its own, as
+    in the Pallas kernel: an unselected -0.0 becomes +0.0.  A position
+    outside [0, size) raises (torch would take a negative one from the
+    end)."""
+    if idx.numel() and not (0 <= int(idx.min()) and
+                            int(idx.max()) < h.numel()):
+        raise IndexError(f"rand-k positions outside [0, {h.numel()})")
+    p = idx.long()
+    vals = (g[p] - h[p]) * scale
+    d = torch.zeros_like(h).index_put_((p,), vals)
+    return vals, h + lam * d
+
+
 def threefry_ref(key, n: int, device, as_float: bool) -> torch.Tensor:
     """(n,) threefry2x32 draws under ``key`` in torch int64 ops: f32
     uniforms in [0, 1) when ``as_float``, else the 32-bit words as int32

@@ -1,7 +1,8 @@
 """End-to-end training driver of the port (``repro/launch/train.py``).
 
 Examples (one GPU, full-width qwen2-0.5b, two workers): block-top-k up,
-dense broadcast down; and QSGD both ways:
+dense broadcast down; QSGD both ways; and rand-k up (DIANA-style variance
+reduction with ``--algo efbv``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
@@ -10,6 +11,9 @@ dense broadcast down; and QSGD both ways:
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
         --compressor qsgd:16 --algo efbv --agg sparse_allgather \
         --downlink qsgd:16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --workers 2 --steps 3 --global-batch 8 --seq 128 \
+        --compressor randk:1048576 --algo efbv --agg sparse_allgather
 
 The n workers run in one process on one device (``train/trainer.py``);
 ``--workers`` takes the place of the JAX driver's ``--mesh``.  Step s runs

@@ -13,6 +13,11 @@ so ``bits`` and ``uniform`` run one thread per element on the card
 (``kernels/threefry.py``, CUDA) and a plain int64 version on the CPU.
 ``uniform`` turns the bits into floats in [0, 1) as ``jax.random.uniform``
 does: ``bits >> 9 | 0x3F800000`` read as f32, minus 1.0.
+
+``permutation`` and ``choice(replace=False)`` are ``jax.random``'s shuffle
+by repeated sorts (``jax/_src/random.py`` ``_shuffle``): each round splits
+the key, draws one 32-bit sort key per position and reorders the values by
+a stable sort of those keys as unsigned integers.
 """
 
 from __future__ import annotations
@@ -115,3 +120,43 @@ def uniform(k, n: int, device="cuda") -> torch.Tensor:
     from repro_torch.kernels import threefry
     return threefry.threefry_fill(k, n, resolve_device(device),
                                   as_float=True)
+
+
+#: XOR with the sign bit maps the uint32 order of 32 bits onto int32 order
+_UINT32_ORDER = -2**31
+
+
+def shuffle_rounds(n: int) -> int:
+    """Sort rounds of ``jax.random``'s shuffle of n values, computed as JAX
+    computes it (numpy float64): 0 for n = 1, 1 up to n = 1625, 2 up to
+    n = 2,642,245, then 3."""
+    return int(np.ceil(3 * np.log(max(1, n))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(k, n: int, device="cuda") -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: a (n,) int32 permutation of
+    ``arange(n)``, bit for bit.  Each of the :func:`shuffle_rounds` rounds
+    does ``k, sub = split(k)``, draws ``bits(sub, n)`` (the threefry kernel
+    on the card) and reorders x by a stable sort of the draws as uint32,
+    as ``lax.sort_key_val`` sorts them; equal draws keep their order."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+    for _ in range(shuffle_rounds(n)):
+        k, sub = split(k)
+        keys = bits(sub, n, dev).bitwise_xor_(_UINT32_ORDER)
+        order = torch.sort(keys, stable=True).indices
+        del keys
+        x = x[order]
+    return x
+
+
+def choice(k, n: int, m: int, device="cuda") -> torch.Tensor:
+    """``jax.random.choice(k, n, shape=(m,), replace=False)``: the first m
+    values of :func:`permutation`, as (m,) int32 (a copy, so the
+    permutation's memory is freed)."""
+    if m > n:
+        raise ValueError(f"cannot take a larger sample ({m}) than the "
+                         f"population ({n}) without replacement")
+    return permutation(k, n, device)[:m].clone()

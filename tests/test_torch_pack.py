@@ -1,10 +1,13 @@
-"""The port's fused block-top-k pack against the JAX Pallas kernel.
+"""The port's fused block-top-k pack and rand-k update against the JAX
+Pallas kernels.
 
 The same numpy inputs go through ``repro.distributed.wire.fused_pack`` with
 the Pallas kernel in interpret mode and through the port's ``fused_pack``,
 both through the CUDA-kernel wrapper (``auto``, which runs its plain
-version on CPU tensors) and through the oracle.  Tolerance: none -- vals, idx and h_out
-are compared bit for bit.
+version on CPU tensors) and through the oracle.  Likewise the rand-k
+update: ``repro.kernels.ops.randk_update(..., interpret=True)`` against the
+port's ``ops.randk_update``, whose CPU side is ``ref.randk_update_ref``.
+Tolerance: none -- vals, idx and h_out are compared bit for bit.
 """
 
 import jax.numpy as jnp
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from repro.distributed import wire as jwire
+from repro.kernels import ops as jops
 from repro_torch.distributed import wire as twire
 from repro_torch.kernels import LAUNCHES, ops, pack, ref, reset_launches
 
@@ -164,3 +168,109 @@ def test_cuda_mode_needs_a_cuda_tensor():
     want = ref.pack_update_ref(x.reshape(3, 100), torch.zeros(3, 100), LAM, 4)
     for a, b in zip((v, i, h_new), want):
         assert torch.equal(a, b.reshape(a.shape))
+
+
+# -- rand-k update ----------------------------------------------------------
+
+def _randk_inputs(n, k, case, seed=0):
+    """g, h (n,) f32 and k unique int32 positions; ``case`` plants -0.0,
+    NaN or inf at selected and unselected positions."""
+    rng = np.random.default_rng(seed + n + k)
+    g = rng.standard_normal(n).astype(np.float32)
+    h = rng.standard_normal(n).astype(np.float32)
+    idx = rng.permutation(n)[:k].astype(np.int32)
+    sel = np.zeros(n, bool)
+    sel[idx] = True
+    if case == "negzero":     # -0.0 in h and g, selected and not
+        h[::3] = -0.0
+        g[::6] = -0.0
+        g[1::5], h[1::5] = 0.0, 0.0
+    elif case in ("nan", "inf"):
+        bad = np.float32(np.nan if case == "nan" else np.inf)
+        g[np.flatnonzero(sel)[::2]] = bad
+        g[np.flatnonzero(~sel)[::2]] = bad
+        h[np.flatnonzero(~sel)[1::7]] = -bad
+    return g, h, idx
+
+
+def _randk_both(g, h, idx, lam, torch_views=None):
+    scale = float(np.float32(g.size / idx.size))
+    jg, jh, ji = jnp.asarray(g), jnp.asarray(h), jnp.asarray(idx)
+    want_h = jops.randk_update(jg, jh, ji, lam, scale, interpret=True)
+    # JAX gathers the values outside its kernel (wire.RandKSparse)
+    want_v = (jg.reshape(-1)[ji] - jh.reshape(-1)[ji]) * scale
+    tg, th = torch_views or (torch.from_numpy(g), torch.from_numpy(h))
+    got_v, got_h = ops.randk_update(tg, th, torch.from_numpy(idx), lam, scale)
+    return (np.asarray(want_v), np.asarray(want_h)), \
+        (got_v.numpy(), got_h.numpy())
+
+
+@pytest.mark.parametrize("n,k", [(3001, 1), (3001, 1500), (3001, 3001),
+                                 (70_001, 5000), ((8, 300), 96)],
+                         ids=["k1", "k_half", "k_all", "ragged70001", "2d"])
+def test_randk_update_bitwise_vs_pallas_interpret(n, k):
+    shape = n if isinstance(n, tuple) else (n,)
+    g, h, idx = _randk_inputs(int(np.prod(shape)), k, "rand")
+    want, got = _randk_both(g.reshape(shape), h.reshape(shape), idx, LAM)
+    _assert_same(want, got)
+
+
+@pytest.mark.parametrize("case", ["negzero", "nan", "inf"])
+@pytest.mark.parametrize("lam", [LAM, 0.0, 1.0])
+def test_randk_update_edge_values_bitwise(case, lam):
+    """-0.0 in h at unselected positions becomes +0.0 (h + lam * 0.0); a
+    NaN or inf in g shows only where it is selected."""
+    g, h, idx = _randk_inputs(4099, 700, case)
+    want, got = _randk_both(g, h, idx, lam)
+    _assert_same(want, got)
+    if case == "negzero":
+        unselected = np.setdiff1d(np.arange(g.size), idx)
+        assert np.all(_bits(got[1])[unselected[h[unselected] == 0]] == 0)
+
+
+def test_randk_update_unaligned_views_bitwise():
+    """Views one value off their buffer's start (the kernel's one value at
+    a time path on the card)."""
+    n, k = 4099, 300
+    g, h, idx = _randk_inputs(n, k, "rand", seed=3)
+    buf = np.concatenate([[1.0], g, [2.0], h]).astype(np.float32)
+    tb = torch.from_numpy(buf)
+    views = (tb[1:n + 1], tb[n + 2:])
+    want, got = _randk_both(g, h, idx, LAM, torch_views=views)
+    _assert_same(want, got)
+
+
+def test_randk_update_out_of_range_raises():
+    g = torch.zeros(100)
+    for bad in (100, -1):
+        with pytest.raises(IndexError):
+            pack.randk_update(g, torch.zeros(100),
+                              torch.tensor([3, bad], dtype=torch.int32), 2.0,
+                              LAM)
+
+
+def test_randk_wrapper_counts_only_kernel_launches():
+    reset_launches()
+    g, h, idx = _randk_inputs(1000, 10, "rand")
+    vals, h_out = pack.randk_update(torch.from_numpy(g), torch.from_numpy(h),
+                                    torch.from_numpy(idx), 100.0, LAM)
+    assert LAUNCHES["randk_update"] == 0
+    want = ref.randk_update_ref(torch.from_numpy(g), torch.from_numpy(h),
+                                torch.from_numpy(idx), 100.0, LAM)
+    assert torch.equal(vals, want[0]) and torch.equal(h_out, want[1])
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "idx_dtype", "idx_2d"])
+def test_randk_wrapper_checks_inputs(bad):
+    g, h = torch.zeros(64), torch.zeros(64)
+    idx = torch.arange(4, dtype=torch.int32)
+    if bad == "shape":
+        h = torch.zeros(63)
+    elif bad == "dtype":
+        g = g.double()
+    elif bad == "idx_dtype":
+        idx = idx.long()
+    else:
+        idx = idx.reshape(2, 2)
+    with pytest.raises((ValueError, TypeError)):
+        pack.randk_update(g, h, idx, 16.0, LAM)

@@ -1,8 +1,10 @@
 """The port's threefry PRNG against ``jax.random`` (threefry2x32,
 partitionable, 64-bit types off), bit for bit: keys, ``fold_in`` with the
 small per-worker / per-leaf data and the 32-bit round-key tags, ``split``,
-and the 32-bit ``bits`` and f32 ``uniform`` draws at every size class the
-QSGD codec uses.  Tolerance: none."""
+the 32-bit ``bits`` and f32 ``uniform`` draws at every size class the
+QSGD codec uses, and the shuffle behind ``permutation`` and
+``choice(replace=False)`` that picks rand-k's positions.  Tolerance:
+none."""
 
 import jax
 import numpy as np
@@ -102,3 +104,61 @@ def test_cpu_draws_launch_nothing():
     assert LAUNCHES["threefry_uniform"] == 0
     assert R.uniform(R.key(0), 0, device="cpu").shape == (0,)
 
+
+
+@pytest.mark.parametrize("n", [1, 2, 896, 3072, 65536, 2**20])
+def test_permutation_matches_jax(n):
+    jk, tk = _step_leaf_key(0, 1, 1, 3)
+    want = np.asarray(jax.random.permutation(jk, n))
+    got = R.permutation(tk, n, device="cpu")
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (896, 896), (3072, 1), (70_001, 5000),
+                                 (2**20, 2**19)])
+def test_choice_matches_jax(n, m):
+    jk, tk = _step_leaf_key(2, 0, 1, 7)
+    want = np.asarray(jax.random.choice(jk, n, shape=(m,), replace=False))
+    got = R.choice(tk, n, m, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_shuffle_sort_keys_collide_at_2_20():
+    """At 2**20 positions the 32-bit sort keys of a round collide (about
+    128 pairs expected), so the bitwise match above holds only because the
+    sort is stable and orders the keys as unsigned."""
+    _, tk = _step_leaf_key(0, 1, 1, 3)
+    n = 2**20
+    _, sub = R.split(tk)
+    keys = R.bits(sub, n, device="cpu").numpy().view(np.uint32)
+    assert n - np.unique(keys).size > 0
+    assert (keys >= 2**31).any() and (keys < 2**31).any()
+
+
+def _jax_sort_rounds(n):
+    jaxpr = jax.make_jaxpr(lambda k: jax.random.permutation(k, n))(
+        jax.random.key(0))
+    return str(jaxpr).count(" sort[")
+
+
+@pytest.mark.parametrize("n,rounds", [(1, 0), (2, 1), (1625, 1), (1626, 2),
+                                      (2_642_245, 2), (2_642_246, 3),
+                                      (136_134_656, 3)])
+def test_shuffle_rounds_switch_points(n, rounds):
+    """0 -> 1 -> 2 -> 3 sort rounds, equal to the sorts in JAX's
+    program."""
+    assert R.shuffle_rounds(n) == rounds == _jax_sort_rounds(n)
+
+
+def test_choice_refuses_a_sample_larger_than_n():
+    with pytest.raises(ValueError, match="larger sample"):
+        R.choice(R.key(0), 5, 6, device="cpu")
+    assert R.choice(R.key(0), 5, 0, device="cpu").shape == (0,)
+
+
+def test_cpu_permutation_launches_nothing():
+    reset_launches()
+    R.permutation(R.key(0), 3000, device="cpu")
+    assert LAUNCHES["threefry_uniform"] == 0

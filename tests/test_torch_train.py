@@ -1,6 +1,7 @@
 """A 3-step, 2-worker EF-BV smoke round in both packages, from the same
 params, the same batches and the same step keys: block-top-k up with a
-dense broadcast, and QSGD(16) both ways (the bidirectional round).
+dense broadcast, QSGD(16) both ways (the bidirectional round), and rand-k
+up (randk:4096) with a dense broadcast.
 
 The JAX round is assembled from its public pieces (``model.loss``,
 ``compress_local``, ``combine_global``, ``adamw``, ``broadcast_global``),
@@ -19,6 +20,9 @@ under ``fold_in(step_key, i)``, the downlink under
 * The same for the QSGD round: its uniforms are bit-equal, but the norms
   differ in their last bits (torch and XLA reduce in different orders) and
   so do the gradients, so now and then a level rounds the other way.
+* The same for the rand-k round: its positions are bit-equal; the JAX
+  round's h update is its jitted oracle's FMA (fault (f)), the port's the
+  kernel's multiply then add, one ulp apart at most.
 
 Bits per round are exact, and ``SyntheticLM`` batches identical.
 """
@@ -60,13 +64,17 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 N, STEPS, SEQ, BATCH = 2, 3, 16, 8
 SMOKE_BITS = 5_776_384
 SMOKE_QSGD_BITS = 11_553_216
+SMOKE_RANDK_BITS = 2_244_608
 SEED = 0
+#: uplink compressor of each round; only the QSGD one has a downlink
+SPECS = {"block_topk": "block_topk:256,16", "qsgd": "qsgd:16",
+         "randk": "randk:4096"}
 
 
-def _jax_round(jcfg, params, batches, lam, nu, bidirectional=False):
+def _jax_round(jcfg, params, batches, lam, nu, kind="block_topk"):
     model = jbuild_model(jcfg)
-    comp = jcomp.QSGD(16) if bidirectional else jcomp.BlockTopK(256, 16)
-    algo = JEFBV(comp, lam=lam, nu=nu)
+    bidirectional = kind == "qsgd"
+    algo = JEFBV(jcomp.make_compressor(SPECS[kind]), lam=lam, nu=nu)
     downlink = JDownlink(jcomp.QSGD(16)) if bidirectional else None
     opt = jadamw(jcosine(3e-4, total_steps=STEPS, warmup_steps=1),
                  weight_decay=0.01)
@@ -109,10 +117,10 @@ def _jax_round(jcfg, params, batches, lam, nu, bidirectional=False):
     return losses, params
 
 
-def _torch_round(tcfg, params_np, batches, lam, nu, bidirectional=False):
+def _torch_round(tcfg, params_np, batches, lam, nu, kind="block_topk"):
     model = build_model(tcfg)
-    comp = tcomp.QSGD(16) if bidirectional else tcomp.BlockTopK(256, 16)
-    algo = EFBV(comp, lam=lam, nu=nu)
+    bidirectional = kind == "qsgd"
+    algo = EFBV(tcomp.make_compressor(SPECS[kind]), lam=lam, nu=nu)
     opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
                 weight_decay=0.01)
     state = init_train_state(convert.params_from_jax(params_np, "cpu"), opt,
@@ -128,7 +136,7 @@ def _torch_round(tcfg, params_np, batches, lam, nu, bidirectional=False):
     return losses, state
 
 
-def _both_rounds(adt, bidirectional):
+def _both_rounds(adt, kind):
     jcfg = dataclasses.replace(jget_smoke_config("qwen2-0.5b"),
                                activation_dtype=adt)
     tcfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
@@ -140,10 +148,8 @@ def _both_rounds(adt, bidirectional):
     batches = [data.batch(s) for s in range(STEPS)]
     # lam != 1 so the h updates' rounding is exercised
     lam, nu = 0.37, 0.61
-    jl, jparams = _jax_round(jcfg, params_np, batches, lam, nu,
-                             bidirectional)
-    tl, state = _torch_round(tcfg, params_np, batches, lam, nu,
-                             bidirectional)
+    jl, jparams = _jax_round(jcfg, params_np, batches, lam, nu, kind)
+    tl, state = _torch_round(tcfg, params_np, batches, lam, nu, kind)
     return jl, jparams, tl, state
 
 
@@ -161,17 +167,23 @@ def _assert_round_close(adt, jl, jparams, tl, state):
 
 @pytest.mark.parametrize("adt", ["float32", "bfloat16"])
 def test_smoke_round_matches_jax(adt):
-    _assert_round_close(adt, *_both_rounds(adt, bidirectional=False))
+    _assert_round_close(adt, *_both_rounds(adt, "block_topk"))
 
 
 @pytest.mark.parametrize("adt", ["float32", "bfloat16"])
 def test_bidirectional_smoke_round_matches_jax(adt):
     """QSGD(16) up and down: gradients at w, the broadcast after AdamW."""
-    jl, jparams, tl, state = _both_rounds(adt, bidirectional=True)
+    jl, jparams, tl, state = _both_rounds(adt, "qsgd")
     _assert_round_close(adt, jl, jparams, tl, state)
     assert state.w is not None
     assert all(not torch.equal(a, b) for a, b in
                zip(T.leaves(state.w), T.leaves(state.params)))
+
+
+@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
+def test_randk_smoke_round_matches_jax(adt):
+    """rand-k (DIANA-style, unbiased) up, dense broadcast down."""
+    _assert_round_close(adt, *_both_rounds(adt, "randk"))
 
 
 def test_bits_per_round_exact_in_both_packages():
@@ -228,7 +240,21 @@ def test_cli_bidirectional_smoke_prints_exact_bits(capsys):
     assert out.count("[train] step") == 2
 
 
-@pytest.mark.parametrize("compressor", ["block_topk:256,16", "qsgd:16"])
+def test_cli_randk_smoke_prints_exact_bits(capsys):
+    loss = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--workers", "2",
+                         "--steps", "2", "--global-batch", "4", "--seq", "16",
+                         "--compressor", "randk:4096", "--algo", "efbv",
+                         "--agg", "sparse_allgather", "--device", "cpu",
+                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert np.isfinite(loss)
+    assert f"codec=randk_sparse {SMOKE_RANDK_BITS} bits/round/worker " \
+        "uplink" in out and "0.0486x dense fp32" in out
+    assert out.count("[train] step") == 2
+
+
+@pytest.mark.parametrize("compressor", ["block_topk:256,16", "qsgd:16",
+                                        "randk:4096"])
 def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
     """Every tensor a run allocates is freed by reference counting: none
     waits in a reference cycle for the garbage collector (a cycle would
