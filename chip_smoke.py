@@ -11,11 +11,14 @@ line is printed only when every phase passed):
 2. kernels -- each kernel against its plain PyTorch version on the card,
               bitwise, at the main paths' shapes and edge cases; times each
               (CUDA events, median of 20) beside its plain version and its
-              memory/compute bound.  A rand-k position out of range must
-              make the launch fail (checked in a child process: the trap
-              poisons its CUDA context).  The shuffle behind rand-k's
-              positions (``random.permutation``), GPU against CPU bitwise,
-              and timed at the embed leaf's size.
+              memory/compute bound.  The pack kernel also with a partial
+              last CTA (kb 3 on 8m + 1 rows) and kb = 1024 (64 KiB of
+              shared memory); its SASS must hold the TMA bulk store.  A
+              rand-k position out of range must make the launch fail
+              (checked in a child process: the trap poisons its CUDA
+              context).  The shuffle behind rand-k's positions
+              (``random.permutation``), GPU against CPU bitwise, and timed
+              at the embed leaf's size.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
@@ -25,18 +28,22 @@ line is printed only when every phase passed):
               wire, once per path:
               * block-top-k (256, 16) up, dense broadcast down;
               * QSGD(16) up and down (bidirectional);
-              * rand-k (k = 1048576) up, dense broadcast down.
+              * rand-k (k = 1048576) up, dense broadcast down;
+              * pipelined (``--pipeline depth:1``): block-top-k (256, 16)
+                up, QSGD(16) down.
               Checks a finite loss at every step, the exact printed wire
               bits, and that every kernel of the path launched the expected
               number of times (launch counts are reset just before each path
-              and read just after).
+              and read just after); on the pipelined path, that step 0
+              applies the zero priming payload (|g| = 0).
 5. profile -- each path, one step on the host clock and one under
               torch.profiler: device time by kernel, busy share; the peak
               device memory of a step and of each of its phases; for the
               QSGD path also its uplink encode, downlink broadcast and norm
               pass, each alone; for rand-k one worker's uplink encode, the
               embed leaf's encode and its shuffle, and the shuffles' share
-              of the step.
+              of the step; for the pipelined path the in-flight buffer's
+              resident bytes.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -77,6 +84,8 @@ FULL_BITS = 1_976_131_584        # qwen2-0.5b, block_topk:256,16, per worker
 QSGD_BITS = 3_952_262_592        # qwen2-0.5b, qsgd:16, per worker and down
 QSGD_TOTAL_BITS = 11_856_787_776  # 2 uplink payloads + 1 broadcast
 RANDK_BITS = 541_450_240         # qwen2-0.5b, randk:1048576, per worker
+# pipelined: block-top-k up (FULL_BITS per worker), QSGD(16) down
+PIPELINED_TOTAL_BITS = 7_904_525_760
 RANDK_K = 1_048_576
 FULL_LEAVES, WORKERS, STEPS = 14, 2, 3
 # rand-k: the sort rounds of one worker's 14 shuffles (checked against the
@@ -164,7 +173,7 @@ def pack_case(name, g, h, block, kb, lam=0.37, timing=True):
     kv, ki, kh = pack.pack_update(g2, h2, lam, kb)
     pv, pi, ph = ref.pack_update_ref(g2, h2, lam, kb)
     torch.cuda.synchronize()
-    err = max(float((kv - pv).abs().max()), float((kh - ph).abs().max()))
+    err = max(max_abs_diff(kv, pv), max_abs_diff(kh, ph))
     ok = same_bits(kv, pv) and same_bits(ki, pi) and same_bits(kh, ph)
     if not ok:
         raise AssertionError(f"[kernels] {name}: kernel != plain version "
@@ -206,6 +215,34 @@ def phase_kernels():
             "randk_update": randk_row, "threefry_uniform": threefry_row}
 
 
+def bulk_store_sass():
+    """The bulk-copy opcodes in the SASS of the pack kernel
+    (``cuobjdump -sass``), one instance per block size: the TMA bulk store
+    of the payload must be there."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass",
+                           str(build.lib_path("pack_update"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = [f for f in text.split("Function : ")[1:]
+             if "pack_update_rows" in f.split(None, 1)[0]]
+    bulk = {}
+    for func in funcs:
+        for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", func):
+            tokens = ins.split()
+            op = tokens[1] if tokens[0].startswith("@") else tokens[0]
+            if op.startswith(("UBLKCP", "FENCE", "DEPBAR")):
+                bulk[op] = bulk.get(op, 0) + 1
+    print(f"[kernels] pack_update SASS over its {len(funcs)} block sizes: "
+          f"{bulk}")
+    if not any(o.startswith("UBLKCP") for o in bulk):
+        raise AssertionError("[kernels] no bulk-copy (UBLKCP) instruction "
+                             "in the pack kernel's SASS")
+    return bulk
+
+
 def kernels_pack():
     """Edge cases bitwise; then one worker's full round of main-path leaf
     shapes, timed."""
@@ -214,6 +251,7 @@ def kernels_pack():
     def randn(n):
         return torch.randn(n, generator=gen, device="cuda")
 
+    bulk_store_sass()
     max_err = 0.0
     # edge cases
     n = 896
@@ -228,6 +266,14 @@ def kernels_pack():
     n = 512 * 2000
     max_err = max(max_err, pack_case("block512_kb16", randn(n), randn(n),
                                      512, 16)[3])
+    # the last CTA holding one row (8m + 1 rows): a 12-byte slab row at
+    # kb 3; and kb = block = 1024, 64 KiB of shared memory per CTA
+    n = 128 * (8 * 1000 + 1)
+    max_err = max(max_err, pack_case("kb3_rows8m+1", randn(n), randn(n),
+                                     128, 3)[3])
+    n = 1024 * (8 * 64 + 3)
+    max_err = max(max_err, pack_case("kb_eq_block1024", randn(n), randn(n),
+                                     1024, 1024, 0.37, False)[3])
     # ties: integers in [-3, 3]; every 7th row of delta all zero; some -0.0
     n = 256 * 4096
     gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
@@ -672,20 +718,21 @@ def kernels_threefry():
             "bound_by": by, "max_abs_err": max_err, "library_ms": l_tot}
 
 
-#: the smoke reference's uplink compressor of each path; only QSGD has a
-#: downlink
+#: the smoke reference's uplink compressor of each path; QSGD and the
+#: pipelined path have a QSGD(16) downlink
 SMOKE_SPECS = {"block_topk": "block_topk:256,16", "qsgd": "qsgd:16",
-               "randk": "randk:4096"}
+               "randk": "randk:4096", "pipelined": "block_topk:256,16"}
 
 
 def run_steps(params, cfg, kind, steps=3, n=2):
     """``steps`` 2-worker EF-BV steps of the sparse all-gather wire from
-    ``params``: block-top-k (256, 16) up, QSGD(16) up and down, or rand-k
-    (k = 4096) up; step s under the key fold_in(key(0), s).  Returns the
-    losses."""
+    ``params``: block-top-k (256, 16) up, QSGD(16) up and down, rand-k
+    (k = 4096) up, or the pipelined (depth 1) schedule with block-top-k up
+    and QSGD(16) down; step s under the key fold_in(key(0), s).  Returns
+    the losses."""
     from repro_torch import random
     from repro_torch.core.compressors import QSGD, make_compressor
-    from repro_torch.core.efbv import EFBV, Downlink
+    from repro_torch.core.efbv import EFBV, Downlink, Pipeline
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import adamw
@@ -695,13 +742,18 @@ def run_steps(params, cfg, kind, steps=3, n=2):
     model = build_model(cfg)
     opt = adamw(cosine(3e-4, total_steps=steps, warmup_steps=1),
                 weight_decay=0.01)
-    qsgd = kind == "qsgd"
+    qsgd = kind in ("qsgd", "pipelined")
+    pipeline = Pipeline(1) if kind == "pipelined" else None
     algo = EFBV.make(make_compressor(SMOKE_SPECS[kind]),
-                     d=cfg.d_model * cfg.d_ff, n=n)
-    state = init_train_state(params, opt, n_workers=n, bidirectional=qsgd)
+                     d=cfg.d_model * cfg.d_ff, n=n,
+                     pipeline=pipeline and pipeline.depth)
+    state = init_train_state(params, opt, n_workers=n, bidirectional=qsgd,
+                             algo=algo, agg_mode="sparse_allgather",
+                             pipeline=pipeline)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
                               agg_mode="sparse_allgather",
-                              downlink=Downlink(QSGD(16)) if qsgd else None)
+                              downlink=Downlink(QSGD(16)) if qsgd else None,
+                              pipeline=pipeline)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
                        n_workers=n, seed=0)
     key = random.key(0)
@@ -723,7 +775,9 @@ def phase_reference():
     params = build_model(cfg).init(torch.Generator().manual_seed(0),
                                    device="cpu")
     for kind, spec in SMOKE_SPECS.items():
-        name = spec + (" up and down" if kind == "qsgd" else "")
+        name = spec + {"qsgd": " up and down",
+                       "pipelined": " up, qsgd:16 down, depth:1"}.get(kind,
+                                                                     "")
         cpu = run_steps(params, cfg, kind)
         gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, kind)
         print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu}")
@@ -775,6 +829,21 @@ PATHS = {
                      "threefry_uniform": SHUFFLE_ROUNDS * WORKERS * STEPS},
         "profile": ("randk_dense_kernel", "randk_sparse_kernel",
                     "threefry_fill_kernel", "RadixSort"),
+    },
+    "pipelined": {
+        "argv": BASE_ARGV + ["--compressor", "block_topk:256,16",
+                             "--downlink", "qsgd:16", "--pipeline",
+                             "depth:1"],
+        "bits": {r"(\d+) bits/round/worker": [FULL_BITS],
+                 r"downlink (\d+) bits/round broadcast": [QSGD_BITS],
+                 r"total (\d+) bits/round up\+down": [PIPELINED_TOTAL_BITS],
+                 r" (pipeline=depth:1) ": ["pipeline=depth:1"]},
+        # every worker packs with the pack kernel; one uniform per leaf
+        # for the broadcast
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES},
+        "profile": ("pack_update_rows", "threefry_fill_kernel"),
     },
 }
 
@@ -832,6 +901,12 @@ def phase_main(name):
     if launches != path["launches"]:
         raise AssertionError(f"[main] {name}: launches {launches}, want "
                              f"{path['launches']}")
+    if name == "pipelined":
+        # round 0 applies the decode-zero priming payload: g = 0
+        g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
+        if g0 != ["0.000"]:
+            raise AssertionError(f"[main] pipelined: step 0 |g| {g0}, want "
+                                 "0.000 (the zero priming payload)")
     return launches
 
 
@@ -872,6 +947,7 @@ def phase_profile(name):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import random
+    from repro_torch import tree as T
     from repro_torch.launch import train
 
     path = PATHS[name]
@@ -924,6 +1000,13 @@ def phase_profile(name):
         memory_probes(holder["state"])
     if name == "randk":
         randk_memory_probes(holder["state"])
+    if name == "pipelined":
+        inflight = T.leaves(holder["state"].inflight)
+        used = sum(a.numel() * a.element_size() for a in inflight)
+        held = sum(a.untyped_storage().nbytes() for a in inflight)
+        print(f"[memory] pipelined: in-flight buffer {len(inflight)} "
+              f"tensors, {used} B of payload ({used / 2**30:.3f} GiB), "
+              f"{held} B of storage")
 
 
 def print_profile(name, rows, untraced, wall):
@@ -1084,7 +1167,8 @@ def randk_memory_probes(state):
 
 KERNEL_ROWS = {
     "pack_update": ("src/repro_torch/kernels/csrc/pack_update.cu",
-                    "src/repro/kernels/pack.py:78"),
+                    "src/repro/kernels/pack.py:91 (and :78: the two Pallas "
+                    "bodies of pack_update_pallas give the same bits)"),
     "qsgd_pack_update": ("src/repro_torch/kernels/csrc/qsgd_pack_update.cu",
                          "src/repro/kernels/pack.py:227"),
     "randk_update": ("src/repro_torch/kernels/csrc/randk_update.cu",
@@ -1132,7 +1216,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # summed over the main paths (threefry runs on two), and by path
+            # summed over the main paths (threefry runs on three), and by path
             "launches": sum(run[name] for run in launches.values()),
             "launches_by_path": {p: run[name] for p, run in launches.items()
                                  if run[name]},

@@ -2,10 +2,11 @@
 (``repro/core/efbv.py``).
 
 Ported so far: :class:`EFBV` with ``make`` (Remark 1 auto-tuning through
-``theory.tune_for``), ``init``, ``worker_update`` and ``master_update``;
-the round keys' fold tags; and :class:`Downlink` with a QSGD broadcast.
-Participation, pipelining, other downlink compressors, fleets and
-per-leaf rules are not yet ported.
+``theory.tune_for``, the pipelined schedule's delay included), ``init``,
+``worker_update`` and ``master_update``; the round keys' fold tags;
+:class:`Pipeline` (depth 0 or 1); and :class:`Downlink` with a QSGD
+broadcast.  Participation, other downlink compressors, fleets and per-leaf
+rules are not yet ported.
 
 Rounding: the JAX reference runs these updates under ``jit``, where XLA
 contracts ``h + c * d`` into a fused multiply-add.  ``torch.add(h, d,
@@ -64,10 +65,14 @@ class EFBV:
 
     @staticmethod
     def make(compressor: Compressor, d: int, n: int,
-             mode: theory.Mode = "efbv", independent: bool = True) -> "EFBV":
-        """Auto-tuned instance (Remark 1)."""
+             mode: theory.Mode = "efbv", independent: bool = True,
+             pipeline: Optional[int] = None) -> "EFBV":
+        """Auto-tuned instance (Remark 1).  ``pipeline`` is the staleness
+        depth of the pipelined schedule: the one-round delay is folded into
+        the certified constants (``theory.pipeline_eta`` /
+        ``pipeline_omega``); None or 0 changes nothing."""
         t = theory.tune_for(compressor, d, n, independent=independent,
-                            mode=mode)
+                            mode=mode, pipeline=pipeline)
         return EFBV(compressor, lam=t.lam, nu=t.nu)
 
     def init(self, params: PyTree, n: int) -> EFBVState:
@@ -89,6 +94,49 @@ class EFBV:
         g = T.tree_map(lambda hj, dj: torch.add(hj, dj, alpha=self.nu),
                        h_avg, d_bar)
         return g, self.worker_update(h_avg, d_bar)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pipeline:
+    """The pipelined (one-round-stale) schedule.  ``depth = 0`` is the
+    sequential schedule: round t applies round t's messages.  ``depth = 1``
+    double-buffers the payload: round t applies the messages compressed at
+    round t-1 (``TrainState.inflight``) while its own take their slot.
+    Workers advance h_i on their own round-t messages; only the master's
+    (g, h_avg) recursion lags one round.  Deeper pipelines are refused."""
+
+    depth: int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.depth, int) or self.depth < 0:
+            raise ValueError(
+                f"pipeline depth must be an int >= 0, got {self.depth!r}")
+        if self.depth > 1:
+            raise ValueError(
+                f"pipeline depth {self.depth} not implemented: the trainers "
+                "double-buffer exactly ONE in-flight payload; use 'off' or "
+                "'depth:1'")
+
+    @staticmethod
+    def parse(spec: str) -> "Pipeline":
+        """The CLI syntax: '' | 'off' | 'depth:k' (k in {0, 1}), with the
+        JAX package's grammar and errors."""
+        if not spec or spec == "off":
+            return Pipeline(depth=0)
+        name, _, arg = spec.partition(":")
+        if name == "depth" and arg:
+            try:
+                depth = int(arg)
+            except ValueError:
+                raise ValueError(f"pipeline spec {spec!r} (want off | "
+                                 "depth:0 | depth:1)") from None
+            return Pipeline(depth=depth)
+        raise ValueError(f"pipeline spec {spec!r} (want off | depth:0 | "
+                         "depth:1)")
+
+    @property
+    def is_off(self) -> bool:
+        return self.depth == 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -70,17 +70,21 @@ def stack_messages(messages) -> Any:
 
 def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
                    n_workers: int, mode: str = "dense_psum",
-                   wire_dtype: str = "float32") -> Tuple[PyTree, PyTree]:
+                   wire_dtype: str = "float32", chunks: int = 1
+                   ) -> Tuple[PyTree, PyTree]:
     """d_bar = (1/n) sum_i d_i; g = h_avg + nu d_bar;
     h_avg <- h_avg + lam d_bar.  ``message_stacked`` carries a leading
-    worker axis of size n."""
+    worker axis of size n.  ``chunks`` > 1 (the pipelined exchange) decodes
+    each sparse payload in that many worker slices, summed in ascending
+    order (``wire.chunked_decode_sum``); the dense path ignores it."""
     if mode == "dense_psum":
         d_bar = T.tree_map(lambda d: torch.mean(d, dim=0), message_stacked)
     else:
         fmt = wire.format_for(algo.compressor, h_avg, wire_dtype=wire_dtype)
         ref_leaves = T.leaves(h_avg)
         d_bar = T.unflatten(h_avg, [
-            (codec.decode_sum(payload) / n_workers).reshape(ref.shape)
+            (wire.chunked_decode_sum(codec, payload, chunks)
+             / n_workers).reshape(ref.shape)
             for payload, codec, ref in zip(message_stacked, fmt.leaves,
                                            ref_leaves)])
     return algo.master_update(h_avg, d_bar)

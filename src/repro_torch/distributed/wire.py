@@ -7,8 +7,11 @@ quantized stream of QSGD (:class:`QsgdQuant`, one f32 norm and an int8 or
 int16 level per value) and the flat sparse layout of rand-k
 (:class:`FlatSparse` / :class:`RandKSparse`, (values f32, global indices
 int32), (k,) each), with the flat :class:`WireFormat` over a params tree,
-uplink and downlink.  The other codecs of the zoo and the per-leaf
-``TreeWire`` are not yet ported.
+uplink and downlink; and the pieces of the pipelined exchange: the
+decode-zero priming message (:func:`zero_message`, through
+:func:`mask_message`), the worker-axis chunk rule (:func:`pipeline_chunks`)
+and the chunked decode-sum (:func:`chunked_decode_sum`).  The other codecs
+of the zoo and the per-leaf ``TreeWire`` are not yet ported.
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
 ``kernel=`` argument): ``auto`` goes through the kernel wrapper, which
@@ -34,6 +37,7 @@ computes its own.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Optional, Sequence, Tuple
 
@@ -83,6 +87,13 @@ class LeafWire:
         """Exact bits of one worker's message for this leaf: f32 values +
         int32 local indices, (nb, kb) each."""
         return self.nb * self.kb * (32 + 32)
+
+    def encode(self, key, delta: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Flat f32 innovation -> (values f32, local indices int32), the
+        layout spec (:func:`pack_oracle`); ``key`` is not used."""
+        vals, idx = pack_oracle(self, delta)
+        return vals.to(torch.float32), idx
 
     def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
         vals, idx = payload
@@ -399,3 +410,56 @@ def encode_update(codec, key, g: torch.Tensor, h: torch.Tensor,
         raise NotImplementedError(
             f"the wire of the port takes f32 gradients, got {g.dtype}")
     return codec.encode_update(key, g, h, lam, kernel=kernel)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined exchange
+# ---------------------------------------------------------------------------
+
+def mask_message(payload: Sequence[torch.Tensor], m: float
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Scale a message's leading value-carrying component (sparse values,
+    QSGD norm) by the scalar ``m`` in that component's dtype: m = 0 makes
+    the message decode to exactly zero, and m = 1 is a bitwise identity.
+    (The JAX codecs' per-worker (n,) mask serves partial participation,
+    which the port does not have yet.)"""
+    head, *rest = payload
+    return (head * torch.tensor(m, dtype=head.dtype, device=head.device),
+            *rest)
+
+
+def zero_message(codec, key, device) -> Tuple[torch.Tensor, ...]:
+    """The decode-zero payload of ``codec`` on ``device``: a real wire
+    message (the encode of the zero vector, masked to zero, so a stochastic
+    codec decodes to exactly zero too).  It primes the pipelined schedule's
+    round-0 in-flight slot; every path draws it from the same key,
+    ``fold_in(fold_in(key(0), PIPELINE_FOLD), j)`` for leaf j."""
+    payload = codec.encode(key, torch.zeros(codec.size, dtype=torch.float32,
+                                            device=device))
+    return mask_message(payload, 0.0)
+
+
+def pipeline_chunks(n_workers: int) -> int:
+    """Worker-axis chunk count of the pipelined exchange: gcd(n, 4) for
+    n >= 4, else 1 (the JAX package's rule, so both decode-sum in the same
+    chunks and therefore the same order)."""
+    n = int(n_workers)
+    return math.gcd(n, 4) if n >= 4 else 1
+
+
+def chunked_decode_sum(codec, payload, chunks: int) -> torch.Tensor:
+    """decode_sum of a worker-stacked payload with the worker axis split
+    into ``chunks`` equal slices, the partial sums added in ascending chunk
+    order.  ``chunks=1`` is ``codec.decode_sum`` itself."""
+    if chunks <= 1:
+        return codec.decode_sum(payload)
+    n = payload[0].shape[0]
+    if n % chunks:
+        raise ValueError(f"{n} stacked messages do not split into {chunks} "
+                         "equal chunks")
+    cs = n // chunks
+    total = None
+    for c in range(chunks):
+        dec = codec.decode_sum(tuple(a[c * cs:(c + 1) * cs] for a in payload))
+        total = dec if total is None else total + dec
+    return total

@@ -1,8 +1,9 @@
 // Fused block-top-k compress-and-pack with the EF-BV control-variate update,
 // for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/pack.py::_pack_update_kernel (the Pallas TPU
-// kernel behind pack_update_pallas, selection in _select_block_topk).
+// Replaces: src/repro/kernels/pack.py::pack_update_pallas, both of its
+// Pallas TPU bodies (_pack_update_kernel and _pack_update_stream_kernel,
+// selection in _select_block_topk).
 //
 // Per (nb, BLOCK) row, with delta = g - h in f32:
 //   vals[r, :] / idx[r, :]  the kb largest |delta| of the row in descending
@@ -33,6 +34,22 @@
 // 1.8 ms at the H100 SXM's 3.35 TB/s.  The selection costs kb * (BLOCK/32 +
 // 10) warp instructions per row, below the memory time at kb 16.
 //
+// Payload store (replaces _pack_update_stream_kernel, pack.py:91, the
+// Pallas variant that stages the payload in VMEM scratch and copies it out
+// asynchronously; both Pallas bodies give the same bits): each warp writes
+// its row's kb (value, index) pairs into dynamic shared memory, a slab of
+// 8 rows x kb x 8 B per CTA (1 KiB at kb 16, 64 KiB at kb = block = 1024).
+// After a proxy fence and a barrier, one thread hands the vals slab and the
+// idx slab to the Tensor Memory Accelerator as two bulk stores
+// (cp.async.bulk.global.shared::cta), and the warps then compute and store
+// h_out while the payload is copied out; that thread waits for the copies
+// to have read the slab before the CTA exits.  A bulk copy needs a
+// 16-byte-aligned address and a size that is a multiple of 16: a CTA's slab
+// is 32 * kb bytes at byte offset 32 * kb * blockIdx.x, so the wrapper
+// allocates vals and idx with nb rounded up to whole CTAs (from a
+// 16-byte-aligned base) and returns the first nb rows; rows past nb take
+// part in the barrier and write (0.0, 0) into the padding.
+//
 // Plain C interface (loaded with ctypes, no PyTorch headers): the launcher
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -44,6 +61,21 @@ namespace {
 
 constexpr int kWarpsPerCta = 8;
 
+// a CTA's payload slab: vals [kWarpsPerCta][kb] f32, then
+// idx [kWarpsPerCta][kb] int32
+extern __shared__ __align__(16) unsigned char slab_smem[];
+
+// one bulk copy of ``bytes`` from shared to global memory, in the current
+// bulk group
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           unsigned int bytes) {
+  const unsigned int src =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(gmem), "r"(src), "r"(bytes) : "memory");
+}
+
 template <int BLOCK>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 pack_update_rows(const float* __restrict__ g, const float* __restrict__ h,
@@ -51,90 +83,135 @@ pack_update_rows(const float* __restrict__ g, const float* __restrict__ h,
                  float* __restrict__ h_out, long long nb, int kb, float lam) {
   constexpr int PER = BLOCK / 32;
   static_assert(PER >= 1 && PER <= 32, "BLOCK must be in [32, 1024]");
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarpsPerCta + warp;
   const int lane = threadIdx.x & 31;
-  if (row >= nb) return;
+  // rows past nb take part in the barrier and store no h_out
+  const bool live = row < nb;
+
+  float* vslab = reinterpret_cast<float*>(slab_smem);
+  float* vrow = vslab + warp * kb;
+  int* irow = reinterpret_cast<int*>(vslab + kWarpsPerCta * kb) + warp * kb;
 
   const long long base = row * BLOCK;
   float hv[PER];
   float dv[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = j * 32 + lane;
-    hv[j] = h[base + c];
-    dv[j] = __fsub_rn(g[base + c], hv[j]);
-  }
-
   unsigned int selected = 0u;
-  float* vrow = vals + row * kb;
-  int* irow = idx + row * kb;
-  // a NaN in the row's delta makes the Pallas kernel's row max NaN, which
-  // matches no column: no round of such a row has a winner
-  bool lane_nan = false;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) lane_nan |= isnan(dv[j]);
-  const bool row_nan = __any_sync(0xffffffffu, lane_nan);
-  for (int r = 0; r < kb; ++r) {
-    // this lane's best unselected column; columns ascend with j, so a
-    // strict '>' keeps the lowest column among equal magnitudes
-    float best = -1.0f;
-    int bcol = BLOCK;
+  if (live) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const float m = fabsf(dv[j]);
-      if (!row_nan && !((selected >> j) & 1u) && m > best) {
-        best = m;
-        bcol = j * 32 + lane;
-      }
+      const int c = j * 32 + lane;
+      hv[j] = h[base + c];
+      dv[j] = __fsub_rn(g[base + c], hv[j]);
     }
-    // warp argmax on (|delta|, -col): every lane ends with the same winner
+
+    // a NaN in the row's delta makes the Pallas kernel's row max NaN, which
+    // matches no column: no round of such a row has a winner
+    bool lane_nan = false;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
-      if (ob > best || (ob == best && oc < bcol)) {
-        best = ob;
-        bcol = oc;
-      }
-    }
-    if (bcol == BLOCK) {
-      // no winner: (0.0, 0), as the Pallas kernel's masked sum and max give
-      if (lane == 0) {
-        vrow[r] = 0.0f;
-        irow[r] = 0;
-      }
-    } else if ((bcol & 31) == lane) {
-      const int jw = bcol >> 5;
+    for (int j = 0; j < PER; ++j) lane_nan |= isnan(dv[j]);
+    const bool row_nan = __any_sync(0xffffffffu, lane_nan);
+    for (int r = 0; r < kb; ++r) {
+      // this lane's best unselected column; columns ascend with j, so a
+      // strict '>' keeps the lowest column among equal magnitudes
+      float best = -1.0f;
+      int bcol = BLOCK;
 #pragma unroll
       for (int j = 0; j < PER; ++j) {
-        if (j == jw) {
-          selected |= 1u << j;
-          vrow[r] = __fadd_rn(dv[j], 0.0f);
-          irow[r] = bcol;
+        const float m = fabsf(dv[j]);
+        if (!row_nan && !((selected >> j) & 1u) && m > best) {
+          best = m;
+          bcol = j * 32 + lane;
+        }
+      }
+      // warp argmax on (|delta|, -col): every lane ends with the same winner
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
+        if (ob > best || (ob == best && oc < bcol)) {
+          best = ob;
+          bcol = oc;
+        }
+      }
+      if (bcol == BLOCK) {
+        // no winner: (0.0, 0), as the Pallas kernel's masked sum and max
+        // give
+        if (lane == 0) {
+          vrow[r] = 0.0f;
+          irow[r] = 0;
+        }
+      } else if ((bcol & 31) == lane) {
+        const int jw = bcol >> 5;
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          if (j == jw) {
+            selected |= 1u << j;
+            vrow[r] = __fadd_rn(dv[j], 0.0f);
+            irow[r] = bcol;
+          }
         }
       }
     }
+  } else {
+    // a row past nb: its slab row lands in the padding
+    for (int r = lane; r < kb; r += 32) {
+      vrow[r] = 0.0f;
+      irow[r] = 0;
+    }
   }
 
+  // make this thread's slab writes visible to the async proxy, then one
+  // thread starts the CTA's two bulk stores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int bytes = kWarpsPerCta * kb * 4u;
+    const long long off = (long long)blockIdx.x * kWarpsPerCta * kb;
+    bulk_store(vals + off, slab_smem, bytes);
+    bulk_store(idx + off, slab_smem + bytes, bytes);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+
+  if (live) {
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const float d = ((selected >> j) & 1u) ? dv[j] : 0.0f;
-    h_out[base + j * 32 + lane] = __fadd_rn(hv[j], __fmul_rn(lam, d));
+    for (int j = 0; j < PER; ++j) {
+      const float d = ((selected >> j) & 1u) ? dv[j] : 0.0f;
+      h_out[base + j * 32 + lane] = __fadd_rn(hv[j], __fmul_rn(lam, d));
+    }
+  }
+
+  if (threadIdx.x == 0) {
+    // the slab must outlive the copies' reads of it (the Pallas kernel's
+    // .wait() on its copies)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
 template <int BLOCK>
-void launch(const float* g, const float* h, float* vals, int* idx,
-            float* h_out, long long nb, int kb, float lam,
-            cudaStream_t stream) {
+int launch(const float* g, const float* h, float* vals, int* idx,
+           float* h_out, long long nb, int kb, float lam,
+           cudaStream_t stream) {
   const long long ctas = (nb + kWarpsPerCta - 1) / kWarpsPerCta;
-  pack_update_rows<BLOCK><<<(unsigned int)ctas, kWarpsPerCta * 32, 0,
+  const size_t smem = (size_t)kWarpsPerCta * kb * 8;
+  // above 48 KiB a kernel must opt in to its dynamic shared memory
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pack_update_rows<BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = smem;
+  }
+  pack_update_rows<BLOCK><<<(unsigned int)ctas, kWarpsPerCta * 32, smem,
                             stream>>>(g, h, vals, idx, h_out, nb, kb, lam);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// vals and idx hold nb rounded up to whole CTAs (a multiple of 8 rows) and
+// start 16-byte aligned
 extern "C" int pack_update_f32(const float* g, const float* h, float* vals,
                                int* idx, float* h_out, long long nb,
                                int block, int kb, float lam, void* stream) {
@@ -144,11 +221,15 @@ extern "C" int pack_update_f32(const float* g, const float* h, float* vals,
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (block) {
-    case 128: launch<128>(g, h, vals, idx, h_out, nb, kb, lam, s); break;
-    case 256: launch<256>(g, h, vals, idx, h_out, nb, kb, lam, s); break;
-    case 512: launch<512>(g, h, vals, idx, h_out, nb, kb, lam, s); break;
-    case 1024: launch<1024>(g, h, vals, idx, h_out, nb, kb, lam, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 128:
+      return launch<128>(g, h, vals, idx, h_out, nb, kb, lam, s);
+    case 256:
+      return launch<256>(g, h, vals, idx, h_out, nb, kb, lam, s);
+    case 512:
+      return launch<512>(g, h, vals, idx, h_out, nb, kb, lam, s);
+    case 1024:
+      return launch<1024>(g, h, vals, idx, h_out, nb, kb, lam, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

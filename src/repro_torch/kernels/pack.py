@@ -3,7 +3,8 @@
 * :func:`pack_update`, the port of ``repro/kernels/pack.py::
   pack_update_pallas``: one pass over (g, h) rows emitting the block-top-k
   (values, block-local indices) payload and h_out = h + lam * d, with the
-  dense compressed d never in device memory (``csrc/pack_update.cu``).
+  dense compressed d never in device memory (``csrc/pack_update.cu``; the
+  payload leaves by TMA bulk stores while h_out is computed).
 * :func:`qsgd_pack_update`, the port of ``qsgd_pack_update_pallas``: one
   pass over flat (g, h, u) emitting the QSGD level stream and
   h_out = h + lam * dequant(levels) (``csrc/qsgd_pack_update.cu``).
@@ -28,6 +29,9 @@ from repro_torch.kernels import LAUNCHES, ref
 #: block sizes the CUDA kernel is instantiated for (one warp per row,
 #: BLOCK / 32 values per lane)
 CUDA_BLOCKS = (128, 256, 512, 1024)
+#: rows per CTA of the CUDA pack kernel: it stores whole CTAs' payload
+#: slabs, so its vals and idx are padded to a multiple of this
+CTA_ROWS = 8
 
 
 def _check(g2d: torch.Tensor, h2d: torch.Tensor, kb: int) -> None:
@@ -47,7 +51,10 @@ def _check(g2d: torch.Tensor, h2d: torch.Tensor, kb: int) -> None:
 def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(nb, block) f32 g and h -> (vals (nb, kb) f32, idx (nb, kb) int32,
-    h_out (nb, block) f32).  See ``csrc/pack_update.cu`` for the layout."""
+    h_out (nb, block) f32).  See ``csrc/pack_update.cu`` for the layout.
+    On the card vals and idx are the first nb rows of buffers padded to
+    whole CTAs (multiples of ``CTA_ROWS`` rows), the kernel's bulk stores
+    being whole CTA slabs."""
     _check(g2d, h2d, kb)
     if g2d.device.type == "cpu":
         return ref.pack_update_ref(g2d, h2d, lam, kb)
@@ -62,8 +69,12 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     from repro_torch.kernels import build
 
     fn = build.load("pack_update").pack_update_f32
-    vals = torch.empty((nb, kb), dtype=torch.float32, device=g2d.device)
-    idx = torch.empty((nb, kb), dtype=torch.int32, device=g2d.device)
+    rows = -(-nb // CTA_ROWS) * CTA_ROWS
+    vals = torch.empty((rows, kb), dtype=torch.float32, device=g2d.device)
+    idx = torch.empty((rows, kb), dtype=torch.int32, device=g2d.device)
+    if vals.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("the pack kernel's bulk stores need 16-byte aligned "
+                         "vals and idx")
     h_out = torch.empty_like(h2d)
     with torch.cuda.device(g2d.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -73,7 +84,7 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     if err != 0:
         raise RuntimeError(f"pack_update launch failed: cudaError {err}")
     LAUNCHES["pack_update"] += 1
-    return vals, idx, h_out
+    return vals[:nb], idx[:nb], h_out
 
 
 def _check_qsgd(g, h, u, norm, s) -> None:

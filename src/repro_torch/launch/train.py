@@ -1,8 +1,9 @@
 """End-to-end training driver of the port (``repro/launch/train.py``).
 
 Examples (one GPU, full-width qwen2-0.5b, two workers): block-top-k up,
-dense broadcast down; QSGD both ways; and rand-k up (DIANA-style variance
-reduction with ``--algo efbv``):
+dense broadcast down; QSGD both ways; rand-k up (DIANA-style variance
+reduction with ``--algo efbv``); and the pipelined (one-round-stale)
+schedule with block-top-k up and QSGD down:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
@@ -14,6 +15,10 @@ reduction with ``--algo efbv``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
         --compressor randk:1048576 --algo efbv --agg sparse_allgather
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --workers 2 --steps 3 --global-batch 8 --seq 128 \
+        --compressor block_topk:256,16 --algo efbv --agg sparse_allgather \
+        --downlink qsgd:16 --pipeline depth:1
 
 The n workers run in one process on one device (``train/trainer.py``);
 ``--workers`` takes the place of the JAX driver's ``--mesh``.  Step s runs
@@ -33,7 +38,7 @@ import torch
 from repro_torch import random, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.compressors import Identity, make_compressor
-from repro_torch.core.efbv import EFBV, Downlink
+from repro_torch.core.efbv import EFBV, Downlink, Pipeline
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
 from repro_torch.models.model import build_model
@@ -45,7 +50,7 @@ from repro_torch.train.trainer import init_train_state, make_train_step
 # beyond the port (any other value is refused)
 NOT_PORTED_FLAGS = {
     "--spec": "", "--mesh": "", "--worker-comps": "",
-    "--participation": "full", "--leaf-codecs": "", "--pipeline": "off",
+    "--participation": "full", "--leaf-codecs": "",
     "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
     "--sanitize": False,
 }
@@ -74,6 +79,9 @@ def parse_args(argv=None):
     ap.add_argument("--downlink", default="",
                     help="compress the master -> worker broadcast: "
                          "'qsgd:S[@lam]' ('' = dense broadcast)")
+    ap.add_argument("--pipeline", default="off",
+                    help="'off' | 'depth:0' | 'depth:1' (the master applies "
+                         "the previous round's messages)")
     ap.add_argument("--wire-dtype", default="float32",
                     choices=["float32", "bfloat16", "float16"])
     ap.add_argument("--local-batch-resample", action="store_true")
@@ -100,6 +108,10 @@ def parse_args(argv=None):
         Downlink.parse(args.downlink)
     except (NotImplementedError, ValueError) as e:
         ap.error(f"--downlink: {e}")
+    try:
+        Pipeline.parse(args.pipeline)
+    except ValueError as e:
+        ap.error(f"--pipeline: {e}")
     return args
 
 
@@ -118,6 +130,7 @@ def setup(args):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     n = args.workers
+    pipeline = Pipeline.parse(args.pipeline)
 
     # the JAX driver's auto schedule is cosine for every arch but minicpm
     sched = cosine(args.lr, total_steps=args.steps,
@@ -128,11 +141,13 @@ def setup(args):
         algo = EFBV(Identity(), lam=1.0, nu=1.0)
     else:
         algo = EFBV.make(make_compressor(args.compressor), d=tuning_dim(cfg),
-                         n=n, mode=args.algo)
+                         n=n, mode=args.algo,
+                         pipeline=pipeline.depth or None)
     downlink = Downlink.parse(args.downlink)
     print(f"[train] arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count():,} workers={n} algo={args.algo} "
           f"lam={algo.lam:.4g} nu={algo.nu:.4g} agg={args.agg}"
+          + (f" pipeline={args.pipeline}" if not pipeline.is_off else "")
           + (f" downlink={args.downlink}" if downlink else "")
           + f" device={dev}")
 
@@ -160,7 +175,9 @@ def setup(args):
               f"{total} bits/round up+down "
               f"({total / max(dense_total, 1):.4f}x dense both ways)")
     state = init_train_state(params, opt, n_workers=n,
-                             bidirectional=downlink is not None)
+                             bidirectional=downlink is not None, algo=algo,
+                             agg_mode=args.agg, wire_dtype=args.wire_dtype,
+                             pipeline=pipeline)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.global_batch, n_workers=n,
                        seed=args.seed, heterogeneity=args.heterogeneity,
@@ -168,7 +185,7 @@ def setup(args):
                        shard_size=args.shard_size)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
                               agg_mode=args.agg, wire_dtype=args.wire_dtype,
-                              downlink=downlink)
+                              downlink=downlink, pipeline=pipeline)
     return state, step_fn, data
 
 

@@ -338,3 +338,119 @@ def test_randk_dense_round_vs_jax():
     _assert_tree_bitwise(want[3], got[3])
     for h0, w, t in zip(hs, want[1], got[1]):
         _assert_h_within_one_operand_ulp(h0, w, t, ulps=3)
+
+
+# -- the pipelined exchange --------------------------------------------------
+
+from repro.core import compressors as jcomp  # noqa: E402
+from repro.core.efbv import PIPELINE_FOLD as JPIPELINE_FOLD  # noqa: E402
+from repro.distributed import wire as jwire  # noqa: E402
+from repro_torch.core import compressors as tcomp  # noqa: E402
+from repro_torch.core.efbv import PIPELINE_FOLD  # noqa: E402
+from repro_torch.distributed import wire as twire  # noqa: E402
+
+CODEC_SPECS = ["block_topk:16,4", "qsgd:16", "randk:8"]
+
+
+def _codec_pair(spec, size=96):
+    return (jwire.codec_of(jcomp.make_compressor(spec), (size,), size),
+            twire.codec_of(tcomp.make_compressor(spec), (size,), size))
+
+
+def _tile(payload, n):
+    return tuple(torch.stack([a] * n) for a in payload)
+
+
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_zero_message_equals_jax_and_decodes_to_zero(spec):
+    """The priming message of leaf j under the PIPELINE_FOLD key: equal to
+    JAX's bit for bit, and it decodes to zeros alone and tiled over 4
+    workers."""
+    assert PIPELINE_FOLD == JPIPELINE_FOLD
+    jc, tc = _codec_pair(spec)
+    jk = jax.random.fold_in(jax.random.fold_in(jax.random.key(0),
+                                               JPIPELINE_FOLD), 3)
+    tk = R.fold_in(R.fold_in(R.key(0), PIPELINE_FOLD), 3)
+    want = jwire.zero_message(jc, jk)
+    got = twire.zero_message(tc, tk, "cpu")
+    _assert_tree_bitwise(want, got)
+    zeros = np.zeros(96, np.float32)
+    np.testing.assert_array_equal(_bits(tc.decode_sum(got).numpy()),
+                                  _bits(zeros))
+    np.testing.assert_array_equal(
+        _bits(tc.decode_sum(_tile(got, 4)).numpy()), _bits(zeros))
+
+
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_mask_message_identity_and_zero(spec):
+    """m = 1 leaves a message bit for bit (one and 4 stacked); m = 0 makes
+    it decode to zero in value; both equal JAX's ``mask_message`` with the
+    same scalar bit for bit."""
+    jc, tc = _codec_pair(spec)
+    x = np.random.default_rng(5).standard_normal(96).astype(np.float32)
+    x[::7] = -x[::7]
+    msg = tc.encode(R.key(2), torch.from_numpy(x))
+    for payload in (msg, _tile(msg, 4)):
+        _assert_tree_bitwise(payload, twire.mask_message(payload, 1.0))
+        jpayload = tuple(jnp.asarray(a.numpy()) for a in payload)
+        for m in (0.0, 1.0):
+            _assert_tree_bitwise(jc.mask_message(jpayload, m),
+                                 twire.mask_message(payload, m))
+    # value zero: QSGD decodes a masked negative level to -0.0, as JAX does
+    np.testing.assert_array_equal(
+        tc.decode_sum(twire.mask_message(msg, 0.0)).numpy(),
+        np.zeros(96, np.float32))
+
+
+def test_pipeline_chunks_equal_jax():
+    for n in range(1, 9):
+        assert twire.pipeline_chunks(n) == jwire.pipeline_chunks(n)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_chunked_decode_sum_equals_jax(spec, chunks):
+    """4 stacked payloads of each codec (JAX's encodes, handed to both
+    packages: QSGD's norms differ in their last bits between the two, fault
+    (c)), decoded in 1, 2 and 4 worker chunks summed in ascending order, bit
+    for bit; 3 chunks of 4 raise."""
+    jc, tc = _codec_pair(spec)
+    rng = np.random.default_rng(len(spec) + chunks)
+    msgs_j = []
+    for i in range(4):
+        x = (rng.standard_normal(96) * 10.0 ** rng.integers(-3, 4, 96)
+             ).astype(np.float32)
+        msgs_j.append(jc.encode(_keys(chunks, i)[0], jnp.asarray(x)))
+    msgs_t = [tuple(torch.from_numpy(np.array(a)) for a in m)
+              for m in msgs_j]
+    jstack = jax.tree.map(lambda *a: jnp.stack(a), *msgs_j)
+    tstack = tagg.stack_messages(msgs_t)
+    _assert_tree_bitwise(jwire.chunked_decode_sum(jc, jstack, chunks),
+                         twire.chunked_decode_sum(tc, tstack, chunks))
+    with pytest.raises(ValueError, match="split"):
+        twire.chunked_decode_sum(tc, tstack, 3)
+
+
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_compress_local_stream_equals_no_stream(spec, monkeypatch):
+    """The port's compress_local (one pack kernel) against JAX's with
+    ``stream=True`` (the pipelined trainer's pack) and ``stream=False``:
+    the same payloads and h_i for every ported codec.  Integer inputs keep
+    QSGD's squared sums exact in f32, so both packages' norms agree."""
+    monkeypatch.setenv("REPRO_WIRE_KERNEL", "interpret")
+    jcomp_ = jcomp.make_compressor(spec)
+    comp = tcomp.make_compressor(spec)
+    grads, hs, _ = _inputs(6)
+    g, h = (T.tree_map(lambda a: np.rint(4 * a).astype(np.float32), t[0])
+            for t in (grads, hs))
+    got = tagg.compress_local(EFBV(comp, lam=LAM, nu=NU),
+                              R.fold_in(R.key(9), 0),
+                              T.tree_map(torch.from_numpy, g),
+                              T.tree_map(torch.from_numpy, h),
+                              mode="sparse_allgather")
+    for stream in (False, True):
+        want = jagg.compress_local(JEFBV(jcomp_, lam=LAM, nu=NU),
+                                   jax.random.fold_in(jax.random.key(9), 0),
+                                   g, h, mode="sparse_allgather",
+                                   stream=stream)
+        _assert_tree_bitwise(want, got)

@@ -7,7 +7,10 @@ both through the CUDA-kernel wrapper (``auto``, which runs its plain
 version on CPU tensors) and through the oracle.  Likewise the rand-k
 update: ``repro.kernels.ops.randk_update(..., interpret=True)`` against the
 port's ``ops.randk_update``, whose CPU side is ``ref.randk_update_ref``.
-Tolerance: none -- vals, idx and h_out are compared bit for bit.
+The port has one pack kernel, whose payload leaves by bulk stores as the
+streaming Pallas body's does: it is also held against
+``pack_update_pallas(stream=True)`` in interpret mode.  Tolerance: none --
+vals, idx and h_out are compared bit for bit.
 """
 
 import jax.numpy as jnp
@@ -38,11 +41,11 @@ def _bits(a):
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
 
-def _jax_pack(g, h, shape, block, kb):
+def _jax_pack(g, h, shape, block, kb, stream=False):
     lw = jwire.LeafWire(shape=shape, size=int(np.prod(shape)), block=block,
                         kb=kb)
     (v, i), hn = jwire.fused_pack(lw, jnp.asarray(g), jnp.asarray(h), LAM,
-                                  kernel="interpret")
+                                  kernel="interpret", stream=stream)
     return np.asarray(v), np.asarray(i), np.asarray(hn)
 
 
@@ -168,6 +171,79 @@ def test_cuda_mode_needs_a_cuda_tensor():
     want = ref.pack_update_ref(x.reshape(3, 100), torch.zeros(3, 100), LAM, 4)
     for a, b in zip((v, i, h_new), want):
         assert torch.equal(a, b.reshape(a.shape))
+
+
+# -- JAX's streaming pack (stream=True) ------------------------------------
+
+#: SWEEP plus kb 3 on 8m + 1 rows: the last CTA of the CUDA kernel holds one
+#: row, a 12-byte payload slab
+STREAM_SWEEP = SWEEP + [((17 * 128,), 128, 3)]
+
+
+@pytest.mark.parametrize("shape,block,kb", STREAM_SWEEP)
+def test_stream_pack_bitwise_vs_pallas_interpret(shape, block, kb):
+    """The port's pack against both Pallas bodies of pack_update_pallas."""
+    rng = np.random.default_rng(sum(shape) + block + kb)
+    g = rng.standard_normal(shape).astype(np.float32)
+    h = rng.standard_normal(shape).astype(np.float32)
+    want = _jax_pack(g, h, shape, block, kb, stream=True)
+    _assert_same(want, _torch_pack(g, h, shape, block, kb, "auto"))
+    _assert_same(want, _jax_pack(g, h, shape, block, kb))
+
+
+@pytest.mark.parametrize("case", ["ties", "negzero", "nan_rows"])
+def test_stream_pack_edge_values_bitwise(case):
+    """The ties, -0.0 and NaN-row cases above, against the streaming Pallas
+    body."""
+    rng = np.random.default_rng(7)
+    if case == "ties":
+        shape, block, kb = (16 * 256,), 256, 16
+        g = rng.integers(-3, 4, shape).astype(np.float32)
+        h = rng.integers(-3, 4, shape).astype(np.float32)
+        g[:512] = h[:512]
+    elif case == "negzero":
+        shape, block, kb = (256,), 256, 16
+        g = np.zeros(shape, np.float32)
+        g[3] = -0.0
+        g[10:20] = 1.0
+        h = np.zeros(shape, np.float32)
+    else:
+        shape, block, kb = (4 * 256,), 256, 16
+        g = rng.standard_normal(shape).astype(np.float32)
+        h = rng.standard_normal(shape).astype(np.float32)
+        g[:256] = np.nan
+        g[256 + 77] = np.nan
+        h[512 + 200] = np.nan
+    want = _jax_pack(g, h, shape, block, kb, stream=True)
+    _assert_same(want, _torch_pack(g, h, shape, block, kb, "auto"))
+    if case == "negzero":
+        assert _bits(want[0])[0, 13] == 0
+    if case == "nan_rows":
+        assert not want[0][:3].any() and not want[1][:3].any()
+
+
+def test_stream_wrapper_counts_only_kernel_launches():
+    """On the kernel's partial-CTA shape (8m + 1 rows, kb 3) a CPU tensor
+    takes the plain version: (nb, kb) payload rows, no padding, no
+    launch."""
+    reset_launches()
+    x = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((9, 128)).astype(np.float32))
+    got = pack.pack_update(x, torch.zeros_like(x), LAM, 3)
+    assert sum(LAUNCHES.values()) == 0
+    assert got[0].shape == got[1].shape == (9, 3)
+    want = ref.pack_update_ref(x, torch.zeros_like(x), LAM, 3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["meta", "mixed"])
+def test_wrapper_refuses_other_devices(where):
+    """Only CPU (the plain version) and CUDA (the kernel) tensors run."""
+    g = torch.zeros(4, 256, device="meta")
+    h = torch.zeros(4, 256, device="meta" if where == "meta" else "cpu")
+    with pytest.raises(ValueError, match="cpu or cuda|on meta"):
+        pack.pack_update(g, h, LAM, 16)
 
 
 # -- rand-k update ----------------------------------------------------------

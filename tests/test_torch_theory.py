@@ -55,3 +55,56 @@ def test_tune_with_stepsize_equal(eta, omega, regime):
     got = ttheory.tune(eta, omega, **kw)
     want = jtheory.tune(eta, omega, **kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# -- the pipelined schedule ---------------------------------------------------
+
+from repro.core.efbv import Pipeline as JPipeline  # noqa: E402
+from repro_torch.core.efbv import Pipeline  # noqa: E402
+
+PIPELINE_SPECS = ["block_topk:256,16", "qsgd:16", "randk:1048576",
+                  "randk:4096"]
+
+
+@pytest.mark.parametrize("eta,omega", ETA_OMEGA)
+@pytest.mark.parametrize("depth", [0, 1])
+def test_pipeline_eta_omega_equal(eta, omega, depth):
+    assert ttheory.pipeline_eta(depth, eta) == jtheory.pipeline_eta(depth,
+                                                                     eta)
+    assert ttheory.pipeline_omega(depth, eta, omega) == \
+        jtheory.pipeline_omega(depth, eta, omega)
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("spec", PIPELINE_SPECS)
+def test_make_pipelined_equal_at_both_model_sizes(smoke, spec):
+    """EFBV.make(..., pipeline=1): (lam, nu) equal to JAX's, and the
+    delay changes them wherever the sequential tuning is below 1."""
+    cfg = get_smoke_config("qwen2-0.5b") if smoke else get_config("qwen2-0.5b")
+    d = tuning_dim(cfg)
+    want = jtheory.tune_for(jcomp.make_compressor(spec), d, 2, pipeline=1)
+    got = ttheory.tune_for(tcomp.make_compressor(spec), d, 2, pipeline=1)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    algo = EFBV.make(tcomp.make_compressor(spec), d=d, n=2, pipeline=1)
+    assert (algo.lam, algo.nu) == (want.lam, want.nu)
+    seq = EFBV.make(tcomp.make_compressor(spec), d=d, n=2)
+    assert EFBV.make(tcomp.make_compressor(spec), d=d, n=2, pipeline=0) == seq
+    if seq.lam < 1.0:
+        assert (algo.lam, algo.nu) != (seq.lam, seq.nu)
+
+
+@pytest.mark.parametrize("spec", ["", "off", "depth:0", "depth:1", "depth:2",
+                                  "depth:", "depth:x", "async", "depth:-1",
+                                  "depth: 1", "Depth:1"])
+def test_pipeline_parse_like_jax(spec):
+    """Pipeline.parse accepts what JAX's accepts, with the same depth, and
+    refuses what it refuses, with the same message."""
+    try:
+        want = JPipeline.parse(spec)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            Pipeline.parse(spec)
+        assert str(got.value) == str(e)
+    else:
+        got = Pipeline.parse(spec)
+        assert got.depth == want.depth and got.is_off == want.is_off
