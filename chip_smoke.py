@@ -18,7 +18,13 @@ line is printed only when every phase passed):
               (checked in a child process: the trap poisons its CUDA
               context).  The shuffle behind rand-k's positions
               (``random.permutation``), GPU against CPU bitwise, and timed
-              at the embed leaf's size.
+              at the embed leaf's size.  The dense block-top-k and fused
+              dense update (``block_topk.cu``), f32 and bf16, bitwise at the
+              14 full-width leaves (block 256, kb 16), at every block from
+              128 to 1024, kb 1 / 2 / 64 / block, ragged, ties, NaN rows,
+              +-inf and mixed types; timed at the 14 leaves.  These two and
+              the pack also bitwise at the 14 leaves at the compressor
+              bench's other block/kb, 1024/16 and 1024/64.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
@@ -36,6 +42,12 @@ line is printed only when every phase passed):
               number of times (launch counts are reset just before each path
               and read just after); on the pipelined path, that step 0
               applies the zero priming payload (|g| = 0).
+   Then the compressor bench (``repro_torch.launch.compressor_bench``
+              ``main(["--full"])``): every compressor and codec row at
+              d = 2**16, the fused pack's device bytes on the embed leaf,
+              and the dense kernels and the pack at the 14 full-width
+              leaves (block/kb 256/16, 1024/16, 1024/64), whose untimed
+              pass must launch each kernel exactly 14 times.
 5. profile -- each path, one step on the host clock and one under
               torch.profiler: device time by kernel, busy share; the peak
               device memory of a step and of each of its phases; for the
@@ -117,13 +129,11 @@ def timed_ms(fn, reps=REPS):
 
 def pack_bound_ms(size, block, kb):
     """Least time for one pack call: read g and h, write h_out and the
-    payload (bytes); or kb selection passes over each row (f32 ops)."""
-    nb = -(-size // block)
-    nbytes = 3 * 4 * size + 2 * 4 * nb * kb
-    ops = nb * block * (3 + kb)
-    return max(nbytes / H100_BYTES_PER_S, ops / H100_ISSUE_PER_S) * 1e3, \
-        ("bytes" if nbytes / H100_BYTES_PER_S >= ops / H100_ISSUE_PER_S
-         else "operations")
+    payload (bytes); or kb selection compares per value (operations)."""
+    from repro_torch.kernels import ops
+
+    return ops.dense_bound_ms("pack_update", size, kb,
+                              payload=8 * -(-size // block) * kb)
 
 
 def f32(x):
@@ -132,8 +142,12 @@ def f32(x):
 
 
 def same_bits(a, b):
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and torch.equal(a, b)
 
 
@@ -145,7 +159,8 @@ def max_abs_diff(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-SOURCES = ("pack_update", "qsgd_pack_update", "randk_update", "threefry")
+SOURCES = ("pack_update", "qsgd_pack_update", "randk_update", "threefry",
+           "block_topk")
 
 
 def phase_build():
@@ -211,8 +226,11 @@ def phase_kernels():
     torch.cuda.empty_cache()
     kernels_permutation()
     torch.cuda.empty_cache()
+    dense_rows = kernels_dense()
+    torch.cuda.empty_cache()
     return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
-            "randk_update": randk_row, "threefry_uniform": threefry_row}
+            "randk_update": randk_row, "threefry_uniform": threefry_row,
+            **dense_rows}
 
 
 def bulk_store_sass():
@@ -244,8 +262,9 @@ def bulk_store_sass():
 
 
 def kernels_pack():
-    """Edge cases bitwise; then one worker's full round of main-path leaf
-    shapes, timed."""
+    """Edge cases bitwise; the 14 full-width leaf shapes at the compressor
+    bench's block/kb 1024/16 and 1024/64 bitwise; then one worker's full
+    round of main-path leaf shapes (block 256, kb 16), timed."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     def randn(n):
@@ -304,9 +323,21 @@ def kernels_pack():
         else:
             raise AssertionError(f"[kernels] block={block} ran on the card")
 
+    # the compressor bench's other full-width passes: the 14 leaves at its
+    # other block/kb, bitwise (untimed here; the bench times them)
+    from repro_torch.launch import compressor_bench as bench
+    leaves = full_leaves()
+    for block, kb in bench.FULL_CONFIGS:
+        if (block, kb) != (256, 16):
+            for path, size in leaves:
+                max_err = max(max_err, pack_case(
+                    f"qwen2:{path}", randn(size), randn(size), block, kb,
+                    0.37, False)[3])
+                torch.cuda.empty_cache()
+
     # one worker's round at the full-width qwen2-0.5b leaf shapes
     k_tot = p_tot = b_tot = 0.0
-    for path, size in full_leaves():
+    for path, size in leaves:
         k_ms, p_ms, b_ms, err = pack_case(
             "qwen2:" + path, randn(size), randn(size), 256, 16)
         k_tot, p_tot, b_tot = k_tot + k_ms, p_tot + p_ms, b_tot + b_ms
@@ -610,13 +641,33 @@ def kernels_permutation():
     return ms
 
 
-def sass_per_value(lib, kernel):
+def store_loop_values(body):
+    """Values one pass of a grid-stride store loop handles: 4 per 16-byte
+    store it holds."""
+    return 4 * sum(o.startswith("STG") and ".128" in o for o in body)
+
+
+def select_loop_values(block):
+    """Values one pass of a block kernel's selection loop handles, per
+    round: a round of max extraction holds 10 warp shuffles (a 5-step
+    argmax on two keys), and each lane of the row's warp holds block / 32
+    values."""
+    def values(body):
+        shuffles = sum(o.startswith("SHFL") for o in body)
+        if not shuffles or shuffles % 10:
+            return 0
+        return shuffles // 10 * block // 32
+    return values
+
+
+def sass_per_value(lib, kernel, loop_values=store_loop_values):
     """(instructions, integer-pipe instructions, opcode counts) per value
-    in the grid-stride loop of ``kernel``, read from the SASS of the built
-    library ``lib`` (cuobjdump).  A loop is the span of a backward branch;
-    it handles 4 values per 16-byte store it holds.  Where the compiler
-    made several such loops, the one with the fewest instructions per value
-    is taken, so the bound stays a least time."""
+    in the loop of ``kernel``, read from the SASS of the built library
+    ``lib`` (cuobjdump).  A loop is the span of a backward branch;
+    ``loop_values`` says how many values one pass of it handles (0 for a
+    loop that is not the one sought).  Where the compiler made several
+    such loops, the one with the fewest instructions per value is taken, so
+    the bound stays a least time."""
     from repro_torch.kernels import build
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
@@ -638,12 +689,12 @@ def sass_per_value(lib, kernel):
             insts.append((int(addr, 16), tokens[0], ins))
         for addr, op, ins in insts:
             target = re.search(r"0x([0-9a-f]+)", ins)
-            if op != "BRA" or not target or int(target.group(1), 16) >= addr:
+            if op.split(".")[0] != "BRA" or not target \
+                    or int(target.group(1), 16) >= addr:
                 continue
             body = [o for a, o, _ in insts
                     if int(target.group(1), 16) <= a <= addr and o != "NOP"]
-            values = 4 * sum(o.startswith("STG") and ".128" in o
-                             for o in body)
+            values = loop_values(body)
             if not values:
                 continue
             hist = {}
@@ -654,7 +705,8 @@ def sass_per_value(lib, kernel):
                 best = (len(body) / values, ints / values,
                         {o: c / values for o, c in hist.items()})
     if best is None:
-        raise AssertionError(f"[kernels] no store loop in {kernel}'s SASS")
+        raise AssertionError(f"[kernels] no loop of the sought kind in "
+                             f"{kernel}'s SASS")
     return best
 
 
@@ -716,6 +768,168 @@ def kernels_threefry():
           f"torch_rand_ms={l_tot:.4f} bound_ms={b_tot:.4f}")
     return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
             "bound_by": by, "max_abs_err": max_err, "library_ms": l_tot}
+
+
+def dense_case(kernel, name, g, h, block, kb, lam=0.37, timing=False):
+    """``block_topk`` of g, or ``efbv_update`` of (g, h): the kernel
+    against its plain version on the card, bitwise, through the ops
+    wrappers' padding and casts (h is rounded to g's type first, and h'
+    converted back).  Returns (kernel ms, plain ms, bound ms, bound by,
+    max |diff|)."""
+    from repro_torch.kernels import ops, pack, ref
+
+    gp = ops.to_rows(g, block)
+    if kernel == "block_topk":
+        def run_kernel():
+            return (pack.block_topk(gp, kb),)
+
+        def run_plain():
+            return (ref.block_topk_ref(gp, kb),)
+    else:
+        hp = ops.to_rows(h.to(g.dtype), block)
+
+        def run_kernel():
+            d, h_out = pack.efbv_update(gp, hp, lam, kb)
+            return d, h_out.to(h.dtype)
+
+        def run_plain():
+            d, h_out = ref.efbv_update_ref(gp, hp, lam, kb)
+            return d, h_out.to(h.dtype)
+    got, want = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    err = max(max_abs_diff(a.float(), b.float()) for a, b in zip(got, want))
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"[kernels] {kernel} {name}: kernel != plain "
+                             f"version (max |diff| {err})")
+    bound, by = ops.dense_bound_ms(kernel, g.numel(), kb, g.element_size())
+    k_ms = p_ms = float("nan")
+    if timing:
+        k_ms = timed_ms(run_kernel)
+        p_ms = timed_ms(run_plain, reps=5)
+    print(f"[kernels] {kernel} {name}: size={g.numel()} block={block} "
+          f"kb={kb} {g.dtype}/{(h if h is not None else g).dtype} "
+          f"bitwise=ok kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"bound_ms={bound:.4f} ({by})")
+    return k_ms, p_ms, bound, by, err
+
+
+def kernels_dense():
+    """The dense block-top-k and the fused dense update: edge cases bitwise
+    in f32 and bf16; every instantiated block; blocks the kernel is not
+    built for raise; the 14 full-width leaf shapes at the compressor
+    bench's block/kb 1024/16 and 1024/64, bitwise in f32; then one worker's
+    round at those shapes at block 256, kb 16, bitwise in f32 and bf16,
+    timed in f32; and the selection's SASS instructions at each block/kb."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compressor_bench as bench
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+
+    def randn(n, dtype=torch.float32):
+        return torch.randn(n, generator=gen, device="cuda").to(dtype)
+
+    bf16 = torch.bfloat16
+    err = 0.0
+
+    def both(name, g, h, block, kb):
+        nonlocal err
+        for kernel in ("block_topk", "efbv_update"):
+            err = max(err, dense_case(kernel, name, g, h, block, kb)[4])
+
+    for block in range(128, 1025, 128):
+        n = block * 1000 + 77  # ragged last row
+        both(f"block{block}_ragged", randn(n), randn(n), block, 16)
+    for dtype in (torch.float32, bf16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        n = 1024 * 4096
+        for kb in (1, 2, 16, 64):
+            both(f"block1024_kb{kb}_{tag}", randn(n, dtype), randn(n, dtype),
+                 1024, kb)
+        n = 256 * 4096 + 3
+        both(f"block256_kb1_{tag}", randn(n, dtype), randn(n, dtype), 256, 1)
+        for block in (128, 1024):
+            n = block * 513
+            both(f"kb_eq_block{block}_{tag}", randn(n, dtype),
+                 randn(n, dtype), block, block)
+        # ties: integers in [-3, 3]; every 7th row of g - h all zero; -0.0
+        n = 256 * 4096
+        gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+        hi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+        gi.view(-1, 256)[::7] = hi.view(-1, 256)[::7]
+        gi[(gi == 0) & (torch.arange(n, device="cuda") % 3 == 0)] = -0.0
+        for kb in (1, 16):
+            both(f"ties_kb{kb}_{tag}", gi.to(dtype), hi.to(dtype), 256, kb)
+        # specials: a NaN row, a row with one NaN, +-inf (more than kb of
+        # them in row 4), -0.0, an inf in h
+        n = 256 * 64
+        gs, hs = randn(n), randn(n)
+        gs[:256] = float("nan")
+        gs[3 * 256 + 100] = float("nan")
+        gs[4 * 256 + 10:4 * 256 + 30:2] = float("inf")
+        gs[4 * 256 + 11:4 * 256 + 31:2] = -float("inf")
+        gs[6 * 256 + 5] = -0.0
+        hs[7 * 256 + 9] = float("inf")
+        for kb in (1, 2, 3, 16):
+            both(f"specials_kb{kb}_{tag}", gs.to(dtype), hs.to(dtype), 256,
+                 kb)
+    # mixed types (the wrapper rounds h to g's type, JAX's fault h)
+    n = 256 * 4096
+    for kb in (1, 16):
+        err = max(err, dense_case("efbv_update", f"mixed_bf16_f32_kb{kb}",
+                                  randn(n, bf16), randn(n), 256, kb)[4])
+        err = max(err, dense_case("efbv_update", f"mixed_f32_bf16_kb{kb}",
+                                  randn(n), randn(n, bf16), 256, kb)[4])
+    # blocks the kernels are not built for raise on the card
+    for block in (100, 1152):
+        try:
+            ops.block_topk(randn(4 * block), block=block, kb=4)
+        except ValueError as e:
+            print(f"[kernels] block_topk block={block} raises on the card: "
+                  f"{e}")
+        else:
+            raise AssertionError(f"[kernels] block_topk block={block} ran")
+
+    # the compressor bench's other full-width passes: the 14 leaves at its
+    # other block/kb, f32, bitwise (untimed here; the bench times them)
+    leaves = full_leaves()
+    for block, kb in bench.FULL_CONFIGS:
+        if (block, kb) != (256, 16):
+            for path, size in leaves:
+                both(f"qwen2:{path}", randn(size), randn(size), block, kb)
+                torch.cuda.empty_cache()
+    rows = {}
+    for kernel in ("block_topk", "efbv_update"):
+        tot = [0.0, 0.0, 0.0]
+        for path, size in leaves:
+            for dtype in (bf16, torch.float32):
+                g, h = randn(size, dtype), randn(size, dtype)
+                out = dense_case(kernel, f"qwen2:{path}", g, h, 256, 16,
+                                 timing=dtype == torch.float32)
+                err = max(err, out[4])
+                del g, h
+                torch.cuda.empty_cache()
+            tot = [a + b for a, b in zip(tot, out[:3])]
+            by = out[3]
+        print(f"[kernels] {kernel} qwen2-0.5b round (14 leaves, f32, block "
+              f"256, kb 16): kernel_ms={tot[0]:.4f} plain_ms={tot[1]:.4f} "
+              f"bound_ms={tot[2]:.4f} ({by})")
+        # no single PyTorch call computes a block-top-k with JAX's tie order
+        rows[kernel] = {"ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
+                        "bound_by": by, "max_abs_err": err,
+                        "library_ms": None}
+    # what the selection itself costs to issue, from its SASS: not a least
+    # time for the work, a floor for this design of it
+    values = sum(size for _, size in leaves)
+    for block, kb in bench.FULL_CONFIGS:
+        for kernel in ("block_topk", "efbv_update"):
+            per = sass_per_value("block_topk", f"{kernel}_rowsILi{block}Ef",
+                                 select_loop_values(block))[0]
+            print(f"[kernels] {kernel} block={block} kb={kb}: selection "
+                  f"SASS {per:.2f} instructions per value and round, "
+                  f"{kb * per:.2f} per value; issues in "
+                  f"{kb * per * values / H100_ISSUE_PER_S * 1e3:.4f} ms over "
+                  f"the 14 leaves")
+    return rows
 
 
 #: the smoke reference's uplink compressor of each path; QSGD and the
@@ -898,15 +1112,60 @@ def phase_main(name):
         if bits[pat] != want:
             raise AssertionError(f"[main] {name}: printed {pat!r} "
                                  f"{bits[pat]} != {want}")
-    if launches != path["launches"]:
+    # every kernel the path does not name must not launch
+    want = {**dict.fromkeys(launches, 0), **path["launches"]}
+    if launches != want:
         raise AssertionError(f"[main] {name}: launches {launches}, want "
-                             f"{path['launches']}")
+                             f"{want}")
     if name == "pipelined":
         # round 0 applies the decode-zero priming payload: g = 0
         g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
         if g0 != ["0.000"]:
             raise AssertionError(f"[main] pipelined: step 0 |g| {g0}, want "
                                  "0.000 (the zero priming payload)")
+    return launches
+
+
+def phase_bench():
+    """The compressor bench's main path, ``compressor_bench.main(["--full"])``
+    (launch counts reset just before it and read just after): every
+    untimed full-width pass must launch block_topk, efbv_update and
+    pack_update exactly once per leaf, and the rows must all be there."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import compressor_bench as bench
+
+    collect("[main] compressor_bench")
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rows = bench.main(["--full"])
+        torch.cuda.synchronize()
+    finally:
+        print(out.getvalue().rstrip())
+    launches = dict(LAUNCHES)
+    print(f"[main] compressor_bench: seconds={time.perf_counter() - t0:.2f} "
+          f"launches={launches}")
+    rows = {r["name"]: r["derived"] for r in rows}
+    per_pass = " ".join(f"{k}={FULL_LEAVES}" for k in
+                        ("block_topk", "efbv_update", "pack_update"))
+    for block, kb in bench.FULL_CONFIGS:
+        got = rows.get(f"full/launches_b{block}_k{kb}")
+        if got != per_pass:
+            raise AssertionError(f"[main] compressor_bench b{block} k{kb}: "
+                                 f"untimed pass launched {got}, want "
+                                 f"{per_pass}")
+        for k in ("block_topk", "efbv_update", "pack_update"):
+            if f"full/{k}_b{block}_k{kb}" not in rows:
+                raise AssertionError(f"[main] compressor_bench: no row "
+                                     f"full/{k}_b{block}_k{kb}")
+    codecs = [n for n in rows if n.startswith("wire/codec_")]
+    if len(codecs) != 9 or "wire/fused_pack_bytes" not in rows:
+        raise AssertionError(f"[main] compressor_bench: rows {sorted(rows)}")
+    print(f"[main] compressor_bench: wire/fused_pack_bytes "
+          f"{rows['wire/fused_pack_bytes']}")
     return launches
 
 
@@ -1177,6 +1436,12 @@ KERNEL_ROWS = {
     "threefry_uniform": ("src/repro_torch/kernels/csrc/threefry.cu",
                          "src/repro/distributed/wire.py:442 "
                          "(jax.random.uniform; no Pallas kernel)"),
+    "block_topk": ("src/repro_torch/kernels/csrc/block_topk.cu",
+                   "src/repro/kernels/block_topk.py:55 (block_topk_pallas; "
+                   "body _block_topk_kernel :49)"),
+    "efbv_update": ("src/repro_torch/kernels/csrc/block_topk.cu",
+                    "src/repro/kernels/block_topk.py:86 (efbv_update_pallas; "
+                    "body _efbv_update_kernel :70)"),
 }
 
 
@@ -1209,6 +1474,8 @@ def main():
         torch.cuda.empty_cache()
         phase_profile(name)
         torch.cuda.empty_cache()
+    launches["compressor_bench"] = phase_bench()
+    torch.cuda.empty_cache()
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -1216,7 +1483,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # summed over the main paths (threefry runs on three), and by path
+            # summed over the main paths, and by path
             "launches": sum(run[name] for run in launches.values()),
             "launches_by_path": {p: run[name] for p, run in launches.items()
                                  if run[name]},
@@ -1224,6 +1491,10 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(f"[kernels] launches on the main paths: {launches}")
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"[kernels] never launched on a main path: "
+                             f"{idle}")
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

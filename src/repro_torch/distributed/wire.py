@@ -1,17 +1,28 @@
-"""Wire codecs: payload layout, exact bit accounting, and the pack /
-scatter-add helpers of the block-sparse wire (``repro/distributed/wire.py``).
+"""Wire codecs: payload layouts, exact bit accounting, and the pack /
+scatter-add helpers of the wire (``repro/distributed/wire.py``).
 
-Ported so far: the block-sparse layout of block-top-k (:class:`LeafWire`,
-per block (values f32, block-local indices int32), (nb, kb) each), the
-quantized stream of QSGD (:class:`QsgdQuant`, one f32 norm and an int8 or
-int16 level per value) and the flat sparse layout of rand-k
-(:class:`FlatSparse` / :class:`RandKSparse`, (values f32, global indices
-int32), (k,) each), with the flat :class:`WireFormat` over a params tree,
-uplink and downlink; and the pieces of the pipelined exchange: the
-decode-zero priming message (:func:`zero_message`, through
-:func:`mask_message`), the worker-axis chunk rule (:func:`pipeline_chunks`)
-and the chunked decode-sum (:func:`chunked_decode_sum`).  The other codecs
-of the zoo and the per-leaf ``TreeWire`` are not yet ported.
+Every codec of the JAX zoo's compressors:
+
+  codec         compressors                         payload of one leaf
+  ------------  ----------------------------------  --------------------------
+  LeafWire      block-top-k                         (values f32, local idx
+                                                    int32), (nb, kb) each
+  FlatSparse    top-k, scaled rand-k, comp-(k,k'),  (values f32, global idx
+                mix-(k,k'), frac-*                  int32), (k,) each
+  RandKSparse   rand-k                              as FlatSparse
+  SignPack      sign (L1-norm scaled)               f32 scale + 32-bit bitmap
+  QsgdQuant     QSGD(s)                             f32 norm + int8/16 levels
+  NaturalPack   natural compression                 int8 exponents + bitmap
+  DensePack     identity, m-nice (and any other)    f32 values
+
+with the flat :class:`WireFormat` over a params tree, uplink and downlink;
+and the pieces of the pipelined exchange: the decode-zero priming message
+(:func:`zero_message`, through each codec's ``mask_message``), the
+worker-axis chunk rule (:func:`pipeline_chunks`) and the chunked
+decode-sum (:func:`chunked_decode_sum`).  The wire dtypes other than f32,
+the per-leaf ``TreeWire``, fleets and the serving envelopes are not yet
+ported.  A bitmap's uint32 words are held as int32 with the same bits
+(torch has no uint32 arithmetic on the CPU).
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
 ``kernel=`` argument): ``auto`` goes through the kernel wrapper, which
@@ -19,7 +30,9 @@ launches the CUDA kernel on a CUDA tensor and runs its plain version on a
 CPU tensor; ``cuda`` does the same but raises for a tensor that is not on
 CUDA; ``oracle`` takes the codec's plain encode -> decode -> update, the
 reference the tests hold the others against.  The wrappers' two sides
-match the Pallas kernels bit for bit.
+match the Pallas kernels bit for bit.  Codecs without a kernel run their
+plain encode -> decode -> update under ``auto`` and ``oracle``, and raise
+under ``cuda``.
 
 For block-top-k the oracle matches JAX's jnp oracle, which differs from the
 kernel in two places: it gathers a selected -0.0 as -0.0 (the kernel sends
@@ -46,12 +59,13 @@ import torch
 
 from repro_torch import random
 from repro_torch import tree as T
-from repro_torch.core.compressors import BlockTopK, RandK
+from repro_torch.core import compressors as cz
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import level_dtype, to_levels, topk_rows
 
 PyTree = Any
 KERNEL_MODES = ("auto", "cuda", "oracle")
+MASK32 = 0xFFFFFFFF
 
 
 def _kernel_mode(kernel: Optional[str], x: torch.Tensor) -> str:
@@ -64,8 +78,83 @@ def _kernel_mode(kernel: Optional[str], x: torch.Tensor) -> str:
     return mode
 
 
+# ---------------------------------------------------------------------------
+# bit packing (sign bitmaps)
+# ---------------------------------------------------------------------------
+
+def bitmap_words(nbits: int) -> int:
+    return -(-nbits // 32)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(m,) boolean -> (ceil(m/32),) 32-bit words, LSB-first within each
+    word, as int32 holding the uint32 bits of JAX's ``pack_bits``."""
+    m = bits.numel()
+    w = bitmap_words(m)
+    b = torch.nn.functional.pad(bits.reshape(-1).to(torch.int64),
+                                (0, 32 * w - m)).reshape(w, 32)
+    words = (b << torch.arange(32, device=bits.device)).sum(dim=1)
+    return torch.where(words > 0x7FFFFFFF, words - 2**32, words).to(
+        torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, m: int) -> torch.Tensor:
+    """(w,) 32-bit words -> (m,) boolean, the inverse of
+    :func:`pack_bits`."""
+    u = words.to(torch.int64) & MASK32
+    b = (u[:, None] >> torch.arange(32, device=words.device)) & 1
+    return b.reshape(-1)[:m].to(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
+
+class LeafCodec:
+    """What the codecs share: a frozen dataclass with ``shape`` and
+    ``size``, exact ``payload_bits``, ``encode`` of the flat f32 innovation
+    into a payload tuple and ``decode`` back to the compressor's dense
+    output, bit for bit."""
+
+    kind = "abstract"
+    #: ndim of the first payload component of one (un-stacked) message
+    MSG_NDIM = 1
+
+    def mask_message(self, payload: Sequence[torch.Tensor], m: float
+                     ) -> Tuple[torch.Tensor, ...]:
+        """Gate a message on the scalar participation ``m``
+        (:func:`mask_message`)."""
+        return mask_message(payload, m)
+
+    def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Payload, worker-stacked on a leading axis or not -> dense flat
+        (size,) sum of the decoded workers, added to zeros in ascending
+        worker order, as XLA sums the worker axis (so -0.0 + -0.0 sums to
+        +0.0)."""
+        if payload[0].dim() == self.MSG_NDIM:
+            return self.decode(payload)
+        out = torch.zeros(self.size, dtype=torch.float32,
+                          device=payload[0].device)
+        for i in range(payload[0].shape[0]):
+            out = out + self.decode(tuple(a[i] for a in payload))
+        return out
+
+    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
+                      lam: float, *, kernel: Optional[str] = None):
+        """(payload, h'): encode -> decode -> h' = h + lam * d, each op
+        rounded on its own.  There is no kernel: ``cuda`` raises."""
+        if _kernel_mode(kernel, g) == "cuda":
+            raise ValueError(f"{type(self).__name__} of {self.size} values "
+                             "has no CUDA kernel; use 'auto' or 'oracle'")
+        delta = g.reshape(-1).float() - h.reshape(-1).float()
+        payload = self.encode(key, delta)
+        del delta
+        d = self.decode(payload).reshape(g.shape)
+        return payload, (h.float() + lam * d).to(h.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
-class LeafWire:
+class LeafWire(LeafCodec):
     """Block-sparse layout of one leaf: per-block (values, block-LOCAL
     indices), shapes (nb, kb) each.  Local indices stay below ``block``, so
     the same scatter-add decodes one message and the worker-stacked
@@ -77,6 +166,7 @@ class LeafWire:
     kb: int
 
     kind = "block_sparse"
+    MSG_NDIM = 2
 
     @property
     def nb(self) -> int:
@@ -96,8 +186,12 @@ class LeafWire:
         return vals.to(torch.float32), idx
 
     def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One message (nb, kb) or worker-stacked (n, nb, kb) -> dense flat
+        (size,) scatter-add."""
         vals, idx = payload
-        return scatter_add(self, vals, idx)
+        return scatter_add(self, vals.float(), idx)
+
+    decode = decode_sum
 
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
                       lam: float, *, kernel: Optional[str] = None):
@@ -107,7 +201,7 @@ class LeafWire:
 
 
 @dataclasses.dataclass(frozen=True)
-class QsgdQuant:
+class QsgdQuant(LeafCodec):
     """QSGD(s): one f32 L2 norm + a signed integer level stream, level in
     [-s, s] (int8 when s <= 127, int16 otherwise): 32 + 8*d (or 16*d)
     bits."""
@@ -151,17 +245,6 @@ class QsgdQuant:
             * (lf.abs() * float(np.float32(1.0 / self.s))),
             torch.zeros_like(lf))
 
-    def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Payload, worker-stacked on a leading axis or not -> dense flat
-        (size,) sum of the decoded workers, in ascending worker order."""
-        norm, lv = payload
-        if lv.dim() == 1:
-            return self.decode(payload)
-        out = self.decode((norm[0], lv[0]))
-        for i in range(1, lv.shape[0]):
-            out = out + self.decode((norm[i], lv[i]))
-        return out
-
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
                       lam: float, *, kernel: Optional[str] = None):
         """(payload, h') with the levels of QSGD(g - h) and
@@ -182,7 +265,7 @@ class QsgdQuant:
 
 
 @dataclasses.dataclass(frozen=True)
-class FlatSparse:
+class FlatSparse(LeafCodec):
     """(values f32, global int32 indices), (k,) each: k * (32 + 32) bits.
     ``selector`` is the compressor whose ``encode`` picks the k kept
     coordinates and applies any unbiasedness scaling."""
@@ -225,19 +308,6 @@ class FlatSparse:
             out.index_add_(0, idx[i].long(), vals[i].float())
         return out
 
-    def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
-                      lam: float, *, kernel: Optional[str] = None):
-        """(payload, h'): encode -> decode -> h' = h + lam * d, each op
-        rounded on its own.  There is no kernel: ``cuda`` raises."""
-        if _kernel_mode(kernel, g) == "cuda":
-            raise ValueError(f"{type(self).__name__} of {self.size} values "
-                             "has no CUDA kernel; use 'auto' or 'oracle'")
-        delta = g.reshape(-1).float() - h.reshape(-1).float()
-        payload = self.encode(key, delta)
-        del delta
-        d = self.decode(payload).reshape(g.shape)
-        return payload, (h.float() + lam * d).to(h.dtype)
-
 
 @dataclasses.dataclass(frozen=True)
 class RandKSparse(FlatSparse):
@@ -269,11 +339,102 @@ class RandKSparse(FlatSparse):
         is then +0.0 either way."""
         mode = _kernel_mode(kernel, g)
         if mode == "oracle":
-            return FlatSparse.encode_update(self, key, g, h, lam,
-                                            kernel=mode)
+            return LeafCodec.encode_update(self, key, g, h, lam,
+                                           kernel=mode)
         idx = random.choice(key, self.size, self.k, g.device)
         vals, h_new = ops.randk_update(g, h, idx, lam, self.scale)
         return (vals, idx), h_new
+
+
+@dataclasses.dataclass(frozen=True)
+class SignPack(LeafCodec):
+    """L1-norm-scaled sign: one f32 scale + an LSB-first 32-bit sign bitmap
+    (bit set <=> value negative): 32 + 32 * ceil(d/32) bits.  The scale's
+    sum is torch's reduction (ROADMAP fault c)."""
+
+    shape: Tuple[int, ...]
+    size: int
+
+    kind = "sign_pack"
+
+    @property
+    def payload_bits(self) -> int:
+        return 32 + 32 * bitmap_words(self.size)
+
+    def encode(self, key, delta: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        scale = delta.abs().sum() / delta.numel()
+        return scale.reshape(1).to(torch.float32), pack_bits(delta < 0)
+
+    def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        scale, words = payload
+        return scale[0] * torch.where(unpack_bits(words, self.size), -1.0,
+                                      1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class NaturalPack(LeafCodec):
+    """Natural compression: an int8 power-of-two exponent per value
+    (sentinel -128 for an exact zero) + a 32-bit sign bitmap:
+    8 * d + 32 * ceil(d/32) bits.  Exponents are clipped to [-126, 127]
+    (exact on the normal f32 range).  Encode and decode take exponents
+    exactly (``compressors.floor_log2``, ``exp2_int``), so the stream is
+    lossless; the JAX package's come from XLA's inexact f32 ``log2`` and
+    ``exp2`` (ROADMAP fault j)."""
+
+    shape: Tuple[int, ...]
+    size: int
+
+    kind = "natural_pack"
+
+    @property
+    def payload_bits(self) -> int:
+        return 8 * self.size + 32 * bitmap_words(self.size)
+
+    def encode(self, key, delta: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = delta.abs()
+        es = cz.natural_exponent(key, a).clamp(-126.0, 127.0)
+        exps = torch.where(a > 0, es, -128.0).to(torch.int8)
+        return exps, pack_bits(delta < 0)
+
+    def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        exps, words = payload
+        mag = cz.exp2_int(exps.to(torch.float32))
+        sgn = torch.where(unpack_bits(words, self.size), -1.0, 1.0)
+        return torch.where(exps == -128, 0.0, sgn * mag)
+
+    def mask_message(self, payload, m: float):
+        """Zero is the sentinel exponent -128, not a value to scale: an
+        absent worker's (scalar m = 0) stream becomes the sentinel; m = 1
+        keeps it as it is."""
+        exps, words = payload
+        return (exps if m > 0 else torch.full_like(exps, -128)), words
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePack(LeafCodec):
+    """The compressor's dense output as raw f32 values: size * 32 bits.
+    The codec of identity and m-nice, and of any compressor that declares
+    no layout of its own."""
+
+    shape: Tuple[int, ...]
+    size: int
+    compressor: Any
+
+    kind = "dense_pack"
+
+    @property
+    def payload_bits(self) -> int:
+        return self.size * 32
+
+    def encode(self, key, delta: torch.Tensor) -> Tuple[torch.Tensor]:
+        y = self.compressor(key, delta.reshape(self.shape))
+        return (y.reshape(-1).to(torch.float32),)
+
+    def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
+        (vals,) = payload
+        return vals.to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,27 +467,47 @@ def total_round_bits(up: WireFormat, down: WireFormat, *,
 
 
 def clamp_for_leaf(compressor, size: int):
-    """The compressor with its selection count clamped to one leaf of
-    ``size`` values (``wire.clamp_for_leaf``): rand-k's k and block-top-k's
-    kb.  The same object when nothing changes."""
+    """The compressor with its selection counts clamped to one leaf of
+    ``size`` values (``wire.clamp_for_leaf``): the k of top-k, rand-k and
+    scaled rand-k, comp-(k,k') and mix-(k,k'), and block-top-k's kb.  The
+    same object when nothing changes; the size-adaptive members pass
+    through."""
     d = int(size)
-    if isinstance(compressor, RandK) and compressor.k > d:
-        return dataclasses.replace(compressor, k=d)
-    if isinstance(compressor, BlockTopK):
-        kb = min(compressor.kb, compressor.block, d)
-        if kb != compressor.kb:
-            return dataclasses.replace(compressor, kb=kb)
+    cmp = compressor
+    if isinstance(cmp, cz.MixKK):
+        k = min(cmp.k, d)
+        kp = min(cmp.kp, d - k)
+        if (k, kp) != (cmp.k, cmp.kp):
+            return dataclasses.replace(cmp, k=k, kp=kp)
+    elif isinstance(cmp, cz.CompKK):
+        kp = min(cmp.kp, d)
+        k = min(cmp.k, kp)
+        if (k, kp) != (cmp.k, cmp.kp):
+            return dataclasses.replace(cmp, k=k, kp=kp)
+    elif isinstance(cmp, (cz.TopK, cz.RandK, cz.ScaledRandK)):
+        if cmp.k > d:
+            return dataclasses.replace(cmp, k=d)
+    elif isinstance(cmp, cz.BlockTopK):
+        kb = min(cmp.kb, cmp.block, d)
+        if kb != cmp.kb:
+            return dataclasses.replace(cmp, kb=kb)
     return compressor
 
 
 def codec_of(compressor, shape: Tuple[int, ...], size: int,
              wire_dtype: str = "float32"):
     """The codec ``compressor`` declares for one leaf, after
-    :func:`clamp_for_leaf`."""
+    :func:`clamp_for_leaf` (a dense value stream for an object that
+    declares none)."""
     if wire_dtype != "float32":
         raise NotImplementedError(
             f"wire dtype {wire_dtype!r} is not yet ported (float32 only)")
-    return clamp_for_leaf(compressor, size).codec(tuple(shape))
+    compressor = clamp_for_leaf(compressor, size)
+    fn = getattr(compressor, "codec", None)
+    if fn is None:
+        return DensePack(shape=tuple(shape), size=int(size),
+                         compressor=compressor)
+    return fn(tuple(shape))
 
 
 def format_for(compressor, tree: PyTree, *,
@@ -419,10 +600,10 @@ def encode_update(codec, key, g: torch.Tensor, h: torch.Tensor,
 def mask_message(payload: Sequence[torch.Tensor], m: float
                  ) -> Tuple[torch.Tensor, ...]:
     """Scale a message's leading value-carrying component (sparse values,
-    QSGD norm) by the scalar ``m`` in that component's dtype: m = 0 makes
-    the message decode to exactly zero, and m = 1 is a bitwise identity.
-    (The JAX codecs' per-worker (n,) mask serves partial participation,
-    which the port does not have yet.)"""
+    sign scale, QSGD norm, dense stream) by the scalar ``m`` in that
+    component's dtype: m = 0 makes the message decode to exactly zero, and
+    m = 1 is a bitwise identity.  (The JAX codecs' per-worker (n,) mask
+    serves partial participation, which the port does not have yet.)"""
     head, *rest = payload
     return (head * torch.tensor(m, dtype=head.dtype, device=head.device),
             *rest)
@@ -436,7 +617,7 @@ def zero_message(codec, key, device) -> Tuple[torch.Tensor, ...]:
     ``fold_in(fold_in(key(0), PIPELINE_FOLD), j)`` for leaf j."""
     payload = codec.encode(key, torch.zeros(codec.size, dtype=torch.float32,
                                             device=device))
-    return mask_message(payload, 0.0)
+    return codec.mask_message(payload, 0.0)
 
 
 def pipeline_chunks(n_workers: int) -> int:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds, not minutes).  Libraries are
-built at first use into ``build/kernels/`` at the repository root, named by
-a hash of the source and the flags, so an edited source rebuilds and an
+Each ``csrc/*.cu`` source (with the shared ``csrc/*.cuh`` headers)
+compiles with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes).  Libraries are built at first use into
+``build/kernels/`` at the repository root, named by a hash of the source,
+the headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads the existing library.
 
 Nothing here runs at import time: this module is imported on machines
@@ -28,23 +29,28 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
-# argtypes of each library's C entry point: every pointer and the stream as
+# argtypes of each library's C entry points: every pointer and the stream as
 # c_void_p (a plain int would cut a 64-bit pointer to 32 bits)
 _P = ctypes.c_void_p
+_TOPK = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+_UPDATE = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+           ctypes.c_float, _P]
 SIGNATURES = {
-    "pack_update": ("pack_update_f32",
+    "pack_update": {"pack_update_f32":
                     [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_float, _P]),
-    "qsgd_pack_update": ("qsgd_pack_update_f32",
+                     ctypes.c_int, ctypes.c_float, _P]},
+    "qsgd_pack_update": {"qsgd_pack_update_f32":
                          [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_int, _P]),
-    "randk_update": ("randk_update_f32",
+                          ctypes.c_int, _P]},
+    "randk_update": {"randk_update_f32":
                      [_P, _P, _P, _P, _P, ctypes.c_longlong,
-                      ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P]),
-    "threefry": ("threefry_fill",
+                      ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P]},
+    "threefry": {"threefry_fill":
                  [ctypes.c_uint, ctypes.c_uint, _P, ctypes.c_longlong,
-                  ctypes.c_int, _P]),
+                  ctypes.c_int, _P]},
+    "block_topk": {"block_topk_f32": _TOPK, "block_topk_bf16": _TOPK,
+                   "efbv_update_f32": _UPDATE, "efbv_update_bf16": _UPDATE},
 }
 
 
@@ -60,7 +66,9 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source: an edited header rebuilds
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -96,12 +104,12 @@ def compile_sources(names: Iterable[str]) -> Dict[str, str]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its entry point's
+    """The built library of ``csrc/<name>.cu`` with its entry points'
     argtypes set (builds it first if needed)."""
     compile_sources([name])
     lib = ctypes.CDLL(str(lib_path(name)))
-    sym, argtypes = SIGNATURES[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for sym, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

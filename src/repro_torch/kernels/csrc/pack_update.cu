@@ -25,14 +25,16 @@
 // registers (BLOCK / 32 values), so every load and store of a row is a
 // coalesced 128-byte transaction.  Selection runs kb rounds of a warp-shuffle
 // argmax on the pair (|delta|, -col); the winning lane writes that round's
-// payload entry and marks the value selected in a per-lane bitmask.  The
+// payload entry and marks the value selected in a per-lane bitmask (the
+// selection lives in block_select.cuh, shared with block_topk.cu).  The
 // dense compressed d never reaches device memory.
 //
 // Bound: memory.  Each row reads g and h and writes h_out and the payload:
 // 3 * 4 * BLOCK + 8 * kb bytes (3,200 B at BLOCK 256, kb 16).  For one
 // worker's full qwen2-0.5b gradient (1,929,816 rows) that is 6.18 GB, about
-// 1.8 ms at the H100 SXM's 3.35 TB/s.  The selection costs kb * (BLOCK/32 +
-// 10) warp instructions per row, below the memory time at kb 16.
+// 1.8 ms at the H100 SXM's 3.35 TB/s.  The selection (block_select.cuh)
+// issues 12 thread instructions per value and round at BLOCK 256: 2.83 ms
+// over that gradient at kb 16, above the memory time.
 //
 // Payload store (replaces _pack_update_stream_kernel, pack.py:91, the
 // Pallas variant that stages the payload in VMEM scratch and copies it out
@@ -56,6 +58,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_select.cuh"
 
 namespace {
 
@@ -107,33 +111,10 @@ pack_update_rows(const float* __restrict__ g, const float* __restrict__ h,
 
     // a NaN in the row's delta makes the Pallas kernel's row max NaN, which
     // matches no column: no round of such a row has a winner
-    bool lane_nan = false;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) lane_nan |= isnan(dv[j]);
-    const bool row_nan = __any_sync(0xffffffffu, lane_nan);
+    const bool row_nan = block_select::row_has_nan<PER>(dv);
     for (int r = 0; r < kb; ++r) {
-      // this lane's best unselected column; columns ascend with j, so a
-      // strict '>' keeps the lowest column among equal magnitudes
-      float best = -1.0f;
-      int bcol = BLOCK;
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const float m = fabsf(dv[j]);
-        if (!row_nan && !((selected >> j) & 1u) && m > best) {
-          best = m;
-          bcol = j * 32 + lane;
-        }
-      }
-      // warp argmax on (|delta|, -col): every lane ends with the same winner
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
-        if (ob > best || (ob == best && oc < bcol)) {
-          best = ob;
-          bcol = oc;
-        }
-      }
+      const int bcol =
+          block_select::next_winner<PER>(dv, selected, row_nan, lane);
       if (bcol == BLOCK) {
         // no winner: (0.0, 0), as the Pallas kernel's masked sum and max
         // give

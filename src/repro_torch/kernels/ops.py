@@ -4,6 +4,9 @@ to (nb, block) rows for the block kernel, outputs unpadded.
 Unlike the TPU wrappers, rows are padded only to nb * block, and the QSGD
 and rand-k kernels take flat leaves unpadded: a CUDA kernel has no (8, 128)
 tile to fill.
+
+The least times of the block kernels (:func:`dense_bound_ms`) live here too,
+so that every script that times them holds them to the same bound.
 """
 
 from __future__ import annotations
@@ -23,6 +26,31 @@ def to_rows(x: torch.Tensor, block: int) -> torch.Tensor:
     if pad:
         xf = torch.nn.functional.pad(xf, (0, pad))
     return xf.reshape(-1, block)
+
+
+def _unpad(x2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return x2d.reshape(-1)[:like.numel()].reshape(like.shape)
+
+
+def block_topk(x: torch.Tensor, block: int = 1024, kb: int = 64
+               ) -> torch.Tensor:
+    """Dense block-top-k compression of a tensor of any shape (JAX's
+    ``ops.block_topk``): each block of ``block`` values keeps its kb
+    largest |x|, in x's type (f32 or bf16)."""
+    return _unpad(pack.block_topk(to_rows(x, block), kb), x)
+
+
+def efbv_update(g: torch.Tensor, h: torch.Tensor, lam: float,
+                block: int = 1024, kb: int = 64
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused dense worker update (JAX's ``ops.efbv_update``):
+    d = C(g - h), h' = h + lam d.  Returns (d, h'), both shaped like g, d
+    in g's type and h' in h's.  As JAX's wrapper does, h is rounded to g's
+    type before the kernel and h' converted back after it (ROADMAP
+    fault h)."""
+    d, h_out = pack.efbv_update(to_rows(g, block),
+                              to_rows(h.to(g.dtype), block), lam, kb)
+    return _unpad(d, g), _unpad(h_out, g).to(h.dtype)
 
 
 def efbv_pack_update(g: torch.Tensor, h: torch.Tensor, lam: float,
@@ -65,3 +93,33 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     vals, h_out = pack.randk_update(g.reshape(-1), h.reshape(-1), idx,
                                     scale, lam)
     return vals, h_out.reshape(h.shape)
+
+
+# ---------------------------------------------------------------------------
+# least times of the block kernels on an H100 SXM
+# ---------------------------------------------------------------------------
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+#: thread instructions per second at one warp instruction per scheduler and
+#: clock: 132 SMs x 4 x 32 lanes x 1.98 GHz (half the f32 rate of 67e12,
+#: which counts an FMA as two)
+H100_ISSUE_PER_S = 33.5e12
+#: per kernel: (values read or written per input value, elementwise ops per
+#: value besides the kb selection compares)
+DENSE_WORK = {"block_topk": (2, 2),     # read x, write out; |x|, x * keep
+              "efbv_update": (4, 4),    # g, h, d, h'; -, |.|, *, fma
+              "pack_update": (3, 3)}    # g, h, h' (+ payload); -, |.|, fma
+
+
+def dense_bound_ms(kernel: str, values: int, kb: int, elem: int = 4,
+                   payload: int = 0) -> Tuple[float, str]:
+    """(least ms, what sets it) of ``kernel`` over ``values`` values: each
+    input read once and each output written once (``payload`` bytes
+    besides the dense tensors) at the memory rate, or one compare per value
+    in each of the kb rounds of max extraction plus the elementwise ops at
+    the issue rate."""
+    tensors, n_ops = DENSE_WORK[kernel]
+    t_bytes = (tensors * elem * values + payload) / H100_BYTES_PER_S
+    t_ops = (kb + n_ops) * values / H100_ISSUE_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"

@@ -11,6 +11,12 @@
 * :func:`randk_update`, the port of ``randk_update_pallas``: the rand-k
   payload values at k given positions and h_out = h + lam * d, the dense
   d never in device memory (``csrc/randk_update.cu``).
+* :func:`block_topk` and :func:`efbv_update`, the ports of
+  ``repro/kernels/block_topk.py``'s ``block_topk_pallas`` (out = x * keep
+  per (nb, block) row, keep the kb largest |x|) and ``efbv_update_pallas``
+  (d = block_topk(g - h), h_out = h + lam * d in one pass), on f32 or bf16
+  rows (``csrc/block_topk.cu``).  Unlike the packs, their dense outputs are
+  the functions' results.
 
 On a CPU tensor a wrapper runs its plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -26,9 +32,13 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ref
 
-#: block sizes the CUDA kernel is instantiated for (one warp per row,
+#: block sizes the CUDA pack kernel is instantiated for (one warp per row,
 #: BLOCK / 32 values per lane)
 CUDA_BLOCKS = (128, 256, 512, 1024)
+#: block sizes the dense block-top-k kernels are instantiated for
+DENSE_BLOCKS = tuple(range(128, 1025, 128))
+#: the types of the dense kernels' entries
+DENSE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: rows per CTA of the CUDA pack kernel: it stores whole CTAs' payload
 #: slabs, so its vals and idx are padded to a multiple of this
 CTA_ROWS = 8
@@ -182,3 +192,79 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
         raise RuntimeError(f"randk_update launch failed: cudaError {err}")
     LAUNCHES["randk_update"] += 1
     return vals, h_out
+
+
+def _check_dense(name: str, x2d: torch.Tensor, kb: int, *others) -> None:
+    if x2d.dim() != 2 or any(o.shape != x2d.shape for o in others):
+        raise ValueError(f"{name} takes equal (nb, block) matrices, got "
+                         + ", ".join(str(tuple(t.shape))
+                                     for t in (x2d, *others)))
+    for t in (x2d, *others):
+        if t.dtype not in DENSE_DTYPES or t.dtype != x2d.dtype:
+            raise TypeError(f"{name} takes f32 or bf16 rows of one type, got "
+                            + ", ".join(str(o.dtype) for o in (x2d, *others)))
+        if t.device != x2d.device:
+            raise ValueError(f"{name}: tensors on {x2d.device} and "
+                             f"{t.device}")
+    block = x2d.shape[1]
+    if block % 128:
+        raise ValueError(f"{name} takes block % 128 == 0 (the TPU kernel's "
+                         f"lane tiling), got {block}")
+    if not 0 < kb <= block:
+        raise ValueError(f"need 0 < kb <= block, got kb={kb}, block={block}")
+
+
+def _dense_entry(name: str, x2d: torch.Tensor, *tensors: torch.Tensor):
+    """The CUDA entry of ``name`` for x2d's type, after the checks that
+    only the card needs."""
+    if x2d.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x2d.device}")
+    if x2d.shape[1] not in DENSE_BLOCKS:
+        raise ValueError(f"the CUDA {name} kernel takes block in "
+                         f"{DENSE_BLOCKS}, got {x2d.shape[1]}")
+    if not all(t.is_contiguous() for t in (x2d, *tensors)):
+        raise ValueError(f"{name} needs contiguous rows")
+    from repro_torch.kernels import build
+
+    return getattr(build.load("block_topk"),
+                   f"{name}_{DENSE_DTYPES[x2d.dtype]}")
+
+
+def block_topk(x2d: torch.Tensor, kb: int) -> torch.Tensor:
+    """(nb, block) f32 or bf16 -> (nb, block) of the same type: each row
+    with all but its kb largest |x| zeroed (``ref.block_topk_ref``)."""
+    _check_dense("block_topk", x2d, kb)
+    if x2d.device.type == "cpu":
+        return ref.block_topk_ref(x2d, kb)
+    fn = _dense_entry("block_topk", x2d)
+    out = torch.empty_like(x2d)
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1],
+                 kb, stream)
+    if err != 0:
+        raise RuntimeError(f"block_topk launch failed: cudaError {err}")
+    LAUNCHES["block_topk"] += 1
+    return out
+
+
+def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nb, block) g and h of one type (f32 or bf16) -> (d, h_out) of that
+    type: d = block_topk(f32(g) - f32(h)), h_out = h + lam * d
+    (``ref.efbv_update_ref``)."""
+    _check_dense("efbv_update", g2d, kb, h2d)
+    if g2d.device.type == "cpu":
+        return ref.efbv_update_ref(g2d, h2d, lam, kb)
+    fn = _dense_entry("efbv_update", g2d, h2d)
+    d = torch.empty_like(g2d)
+    h_out = torch.empty_like(h2d)
+    with torch.cuda.device(g2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g2d.data_ptr(), h2d.data_ptr(), d.data_ptr(),
+                 h_out.data_ptr(), g2d.shape[0], g2d.shape[1], kb,
+                 float(lam), stream)
+    if err != 0:
+        raise RuntimeError(f"efbv_update launch failed: cudaError {err}")
+    LAUNCHES["efbv_update"] += 1
+    return d, h_out

@@ -44,6 +44,59 @@ def pack_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
     return picked + 0.0, idx.to(torch.int32), h_out
 
 
+def select_rows(mag: torch.Tensor, kb: int) -> torch.Tensor:
+    """(rows, block) f32 magnitudes -> bool keep-mask of the dense
+    block-top-k Pallas kernel (``_select_mask``): the kb largest per row,
+    ties to the lowest column (:func:`topk_rows`), a +inf selected like any
+    value (the kernel's guard is ``m != -inf``, ROADMAP fault g), and
+    nothing kept in a row holding a NaN (its row max is NaN and matches no
+    column)."""
+    keep = torch.zeros(mag.shape, dtype=torch.bool, device=mag.device)
+    keep.scatter_(1, topk_rows(mag, kb), True)
+    return keep & ~mag.isnan().any(dim=1, keepdim=True)
+
+
+def apply_mask(x: torch.Tensor, keep: torch.Tensor, kb: int) -> torch.Tensor:
+    """``x * keep`` as the Pallas kernel in interpret mode computes it, in
+    x's type: a real multiply by 1 or 0 (an unselected -0.0 or negative
+    value gives -0.0, an unselected NaN or inf gives NaN), except for f32 x
+    at kb = 1, where XLA folds the one-round f32 mask into a select that
+    writes +0.0 (ROADMAP fault i; a bf16 multiply is not folded)."""
+    if kb == 1 and x.dtype == torch.float32:
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+    return x * keep.to(x.dtype)
+
+
+def block_topk_ref(x2d: torch.Tensor, kb: int) -> torch.Tensor:
+    """Dense block-top-k of (nb, block) f32 or bf16 rows: every value but
+    the kb largest |x| of its row zeroed, selected on f32(|x|), in x's
+    type."""
+    return apply_mask(x2d, select_rows(x2d.abs().float(), kb), kb)
+
+
+def efbv_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
+                    kb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused dense worker update of (nb, block) g and h of one type
+    (f32 or bf16): delta = f32(g) - f32(h), d = (delta * keep) in g's type
+    (the f32 product, so kb = 1 selects), h_out = (f32(h) + lam * f32(d))
+    in h's type.  Returns (d, h_out).
+
+    The Pallas kernel runs jitted in interpret mode, and XLA contracts
+    ``h + lam * d`` into one fused multiply-add (``torch.add`` with
+    ``alpha``: one rounding), except for f32 at kb = 1, where the select
+    stands between the two and each op rounds on its own (ROADMAP
+    fault i).  bf16 d and h_out round to nearest even."""
+    delta = g2d.float() - h2d.float()
+    keep = select_rows(delta.abs(), kb)
+    d = apply_mask(delta, keep, kb).to(g2d.dtype)
+    if kb == 1 and h2d.dtype == torch.float32:
+        h_out = h2d + lam * d
+    else:
+        h_out = torch.add(h2d.float(), d.float(), alpha=lam)
+    return d, h_out.to(h2d.dtype)
+
+
 def level_dtype(s: int) -> torch.dtype:
     """The QSGD level stream's type: int8 for s <= 127, int16 above."""
     return torch.int8 if s <= 127 else torch.int16

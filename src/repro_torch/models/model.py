@@ -92,7 +92,7 @@ class Model:
              device="cuda") -> PyTree:
         """Random f32 params on ``device``, drawn from ``generator`` (a
         ``torch.Generator`` on that device; seed 0 when None).  The draws
-        differ from ``jax.random``'s; ``convert.params_from_jax`` carries
+        differ from ``jax.random``'s; ``tree.params_from_jax`` carries
         JAX params across where equal params are needed."""
         dev = resolve_device(device)
         if generator is None:

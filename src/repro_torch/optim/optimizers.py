@@ -36,7 +36,8 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     """Adam with decoupled weight decay; moments in f32.  The step count is
-    a python int (a 0-d JAX count carried over by ``convert`` works too)."""
+    a python int (a 0-d JAX count carried over by
+    ``tree.params_from_jax`` works too)."""
 
     def init(params):
         return {"count": 0,

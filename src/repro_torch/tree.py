@@ -4,11 +4,23 @@ JAX flattens a dict by sorted key and a list/tuple by position; the wire's
 leaf order, the per-leaf codecs and ``leaf_paths`` all depend on that
 order, so the port flattens the same way.  Containers are dicts, lists and
 tuples; ``None`` is an empty subtree; anything else is a leaf.
+
+:func:`params_from_jax` and :func:`params_to_numpy` carry trees between the
+JAX package and the port, leaf by leaf: a JAX params tree (or control
+variates, or AdamW state) converted to numpy
+(``jax.tree.map(np.asarray, tree)``) becomes the same nested dict of torch
+tensors, and back.  Leaves keep their shapes and dtypes, so paths, sizes
+and flatten order are unchanged.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 PyTree = Any
 
@@ -75,3 +87,22 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
         if len(o) != len(flat):
             raise ValueError("tree_map over trees of different structure")
     return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def params_from_jax(tree_of_numpy: PyTree, device="cuda") -> PyTree:
+    """Numpy (or numpy-convertible) leaves -> torch tensors on ``device``;
+    python scalars stay python scalars."""
+    dev = resolve_device(device)
+
+    def one(x):
+        if isinstance(x, (int, float)):
+            return x
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    return tree_map(one, tree_of_numpy)
+
+
+def params_to_numpy(tree: PyTree) -> PyTree:
+    """Torch tensors -> numpy arrays on the host; python scalars stay."""
+    return tree_map(lambda x: x.detach().cpu().numpy()
+                    if isinstance(x, torch.Tensor) else x, tree)

@@ -15,7 +15,12 @@ Rand-k (the ``RandKSparse`` codec): the positions are drawn from the same
 keys in both packages, so payloads, h_i, g and h_avg are compared bit for
 bit against the Pallas kernel in interpret mode, and the (n, k) decode-sum
 at n = 3, where the order of three colliding values matters.
+
+The last section holds every wire codec against the JAX package's; its own
+notes head it.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -454,3 +459,209 @@ def test_compress_local_stream_equals_no_stream(spec, monkeypatch):
                                    g, h, mode="sparse_allgather",
                                    stream=stream)
         _assert_tree_bitwise(want, got)
+
+# ---------------------------------------------------------------------------
+# The wire codecs
+#
+# The port's wire codecs (``repro_torch.distributed.wire``) against the
+# JAX package's: payload arrays, decodes, exact bit counts, the bitmap
+# helpers, ``clamp_for_leaf`` and ``mask_message``.  Inputs from numpy
+# seeds; tolerance: none (bit for bit).  Bitmaps are compared as the uint32
+# words JAX sends (the port holds them as int32 with the same bits).  Where
+# a payload reduces (the sign codec's L1 scale, the QSGD norm: ROADMAP
+# fault c) the inputs are multiples of 1/16 whose sums are exact in f32 in
+# any order; the natural codec's exponents may differ where XLA's f32
+# ``log2``/``exp2`` is inexact (fault j), and nowhere else.
+# ---------------------------------------------------------------------------
+
+
+D = 1 << 12
+SPECS = ["identity", "topk:40", "randk:40", "scaled_randk:40", "comp:40,400",
+         "mix:20,20", "block_topk:1024,16", "sign", "natural", "qsgd:16",
+         "frac_topk:10", "frac_comp:10,100"]
+
+
+def keys(a=3):
+    return (jax.random.fold_in(jax.random.key(0), a),
+            R.fold_in(R.key(0), a))
+
+
+def as_np(a):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.uint32) if a.dtype.itemsize == 4 else a
+
+
+def codecs(spec, d=D):
+    return (jwire.codec_of(jcomp.make_compressor(spec), (d,), d),
+            twire.codec_of(tcomp.make_compressor(spec), (d,), d))
+
+
+def exact_sum_input(seed, d=D):
+    """Multiples of 1/16, |x| <= 4: sums and squared sums exact in f32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-64, 65, d) / 16).astype(np.float32)
+    x[::97] = -0.0
+    return x
+
+
+def xla_inexact_natural(x):
+    """Elements whose natural exponent XLA may get wrong (fault j)."""
+    a = np.abs(x)
+    safe = np.where(a > 0, a, np.float32(1))
+    exact = (np.frexp(safe)[1] - 1).astype(np.float32)
+    xla = np.asarray(jax.jit(lambda s: jnp.floor(jnp.log2(s)))(safe))
+    bad = xla != exact
+    for e in (xla, xla + 1):
+        bad |= np.asarray(jax.jit(jnp.exp2)(e)) != np.ldexp(
+            np.float32(1), e.astype(np.int32))
+    return bad
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_payload_decode_and_bits_equal_jax(spec):
+    jc, tc = codecs(spec)
+    assert (tc.kind, tc.payload_bits) == (jc.kind, jc.payload_bits)
+    x = exact_sum_input(len(spec)) if spec.startswith(("sign", "qsgd")) \
+        else np.random.default_rng(1).standard_normal(D).astype(np.float32)
+    jk, tk = keys()
+    want = jax.jit(jc.encode)(jk, jnp.asarray(x))
+    got = tc.encode(tk, torch.from_numpy(x))
+    assert 8 * twire.payload_bytes(got) == tc.payload_bits
+    assert len(want) == len(got)
+    jdec = np.asarray(jax.jit(jc.decode)(want))
+    tdec = tc.decode(got).numpy()
+    if spec == "natural":
+        bad = xla_inexact_natural(x)
+        np.testing.assert_array_equal(as_np(want[0])[~bad],
+                                      as_np(got[0])[~bad])
+        np.testing.assert_array_equal(as_np(want[1]), as_np(got[1]))
+        # the port's decode is exact: +-2**e, 0 at the sentinel
+        e = got[0].numpy().astype(np.int32)
+        mag = np.where(e == -128, 0, np.ldexp(np.float32(1), e))
+        np.testing.assert_array_equal(np.abs(tdec), mag)
+        np.testing.assert_array_equal(as_np(jdec)[~bad], as_np(tdec)[~bad])
+        return
+    for w, g in zip(want, got):
+        assert np.asarray(w).shape == tuple(g.shape)
+        np.testing.assert_array_equal(as_np(w), as_np(g))
+    np.testing.assert_array_equal(as_np(jdec), as_np(tdec))
+
+
+@pytest.mark.parametrize("spec", ["sign", "natural", "identity", "topk:40",
+                                  "block_topk:1024,16"])
+def test_decode_sum_of_stacked_payloads(spec):
+    """Two workers' payloads stacked on a leading axis decode to the sum of
+    their decodes, as JAX's ``decode_sum`` (-0.0 + -0.0 sums to +0.0)."""
+    jc, tc = codecs(spec)
+    xs = [exact_sum_input(s) for s in (5, 6)]
+    tp = [tc.encode(keys(s)[1], torch.from_numpy(x))
+          for s, x in zip((7, 8), xs)]
+    stacked = tuple(torch.stack(parts) for parts in zip(*tp))
+    jstacked = tuple(jnp.asarray(a.numpy()) for a in stacked)
+    if spec in ("sign", "natural"):  # the bitmap: uint32 words
+        jstacked = (jstacked[0], jstacked[1].view(jnp.uint32))
+    want = np.asarray(jc.decode_sum(jstacked))
+    np.testing.assert_array_equal(as_np(want),
+                                  as_np(tc.decode_sum(stacked)))
+
+
+@pytest.mark.parametrize("m", [0, 17, 31, 32, 33, 1000])
+def test_pack_bits_round_trip_and_equal_jax(m):
+    b = np.random.default_rng(m).random(m) < 0.5
+    if m:
+        b[-1] = True  # the top bit of a full word: int32 sign bit
+    words = twire.pack_bits(torch.from_numpy(b))
+    assert words.dtype == torch.int32
+    assert words.numel() == twire.bitmap_words(m) == jwire.bitmap_words(m)
+    np.testing.assert_array_equal(
+        as_np(words), np.asarray(jwire.pack_bits(jnp.asarray(b))))
+    np.testing.assert_array_equal(twire.unpack_bits(words, m).numpy(), b)
+
+
+CLAMP = [("topk:8", 5), ("topk:8", 8), ("randk:8", 3), ("scaled_randk:8", 2),
+         ("comp:4,16", 10), ("comp:4,16", 3), ("comp:4,16", 16),
+         ("mix:4,16", 10), ("mix:4,16", 3), ("mix:4,16", 100),
+         ("block_topk:256,16", 5), ("block_topk:256,16", 300),
+         ("qsgd:16", 1), ("sign", 1), ("natural", 1), ("frac_topk:10", 1),
+         ("frac_comp:10,100", 1), ("identity", 1)]
+
+
+@pytest.mark.parametrize("spec,size", CLAMP)
+def test_clamp_for_leaf_every_family(spec, size):
+    j = jwire.clamp_for_leaf(jcomp.make_compressor(spec), size)
+    t = twire.clamp_for_leaf(tcomp.make_compressor(spec), size)
+    assert type(t).__name__ == type(j).__name__
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    jc, tc = codecs(spec, size)
+    assert (tc.kind, tc.payload_bits) == (jc.kind, jc.payload_bits)
+
+
+def test_codec_of_falls_back_to_dense():
+    """An object that declares no codec gets the dense value stream, and
+    m-nice the base class's."""
+    def plain(key, x):
+        return x * 2
+
+    jc = jwire.codec_of(plain, (10,), 10)
+    tc = twire.codec_of(plain, (10,), 10)
+    assert (tc.kind, tc.payload_bits) == (jc.kind, jc.payload_bits)
+    jm = jwire.codec_of(jcomp.MNice(4, 2), (10,), 10)
+    tm = twire.codec_of(tcomp.MNice(4, 2), (10,), 10)
+    assert (tm.kind, tm.payload_bits) == (jm.kind, jm.payload_bits)
+
+
+@pytest.mark.parametrize("m,stacked", [(1.0, False), (0.0, False),
+                                       (0.0, True)])
+def test_natural_mask_message(m, stacked):
+    """The natural codec gates on its sentinel exponent -128, not by
+    scaling: m = 1 is the identity, m = 0 decodes to zero, on one message
+    and on 3 worker-stacked ones."""
+    jc, tc = codecs("natural")
+    x = np.random.default_rng(2).standard_normal(D).astype(np.float32)
+    x[:4] = 0.0
+    tp = tc.encode(keys()[1], torch.from_numpy(x))
+    if stacked:
+        tp = tuple(torch.stack([a, a, a]) for a in tp)
+    jp = (jnp.asarray(tp[0].numpy()), jnp.asarray(tp[1].numpy()).view(
+        jnp.uint32))
+    want = jc.mask_message(jp, m)
+    got = tc.mask_message(tp, m)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(as_np(w), as_np(g))
+    if m == 1.0:
+        for a, b in zip(tp, got):
+            assert torch.equal(a, b)
+    else:
+        assert not tc.decode_sum(got).any()
+
+
+@pytest.mark.parametrize("spec", ["sign", "natural", "identity", "mix:20,20",
+                                  "comp:40,400"])
+def test_zero_message_decodes_to_zero_like_jax(spec):
+    jc, tc = codecs(spec)
+    jk, tk = keys(9)
+    want = jwire.zero_message(jc, jk)
+    got = twire.zero_message(tc, tk, "cpu")
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(as_np(w), as_np(g))
+    assert not tc.decode_sum(got).any()
+
+
+@pytest.mark.parametrize("spec", ["sign", "natural", "identity", "topk:40"])
+def test_generic_encode_update_equals_jax_eager(spec):
+    """Codecs without a kernel: encode -> decode -> h + lam * d, each op
+    rounded on its own, as JAX's base ``encode_update`` computes it outside
+    ``jit``; ``cuda`` raises for them."""
+    jc, tc = codecs(spec)
+    g, h = exact_sum_input(11), exact_sum_input(12)
+    jk, tk = keys()
+    want, wh = jc.encode_update(jk, jnp.asarray(g), jnp.asarray(h), 0.37,
+                                kernel="oracle")
+    got, gh = tc.encode_update(tk, torch.from_numpy(g), torch.from_numpy(h),
+                               0.37)
+    for w, t in zip(want, got):
+        np.testing.assert_array_equal(as_np(w), as_np(t))
+    np.testing.assert_array_equal(as_np(wh), as_np(gh))
+    with pytest.raises(ValueError, match="cuda"):
+        tc.encode_update(tk, torch.from_numpy(g), torch.from_numpy(h), 0.37,
+                         kernel="cuda")

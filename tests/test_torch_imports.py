@@ -40,24 +40,25 @@ def test_port_package_imports_without_jax():
 
 
 def _cuda_calls():
-    from repro_torch import convert
+    from repro_torch import tree as T
     from repro_torch.configs import get_smoke_config
     from repro_torch import random
-    from repro_torch.launch import train
+    from repro_torch.launch import compressor_bench, train
     from repro_torch.models.model import build_model
 
     tree = {"w": np.zeros((2, 3), np.float32)}
     smoke = build_model(get_smoke_config("qwen2-0.5b"))
     return [
-        lambda: convert.params_from_jax(tree, device="cuda"),
+        lambda: T.params_from_jax(tree, device="cuda"),
         lambda: smoke.init(device="cuda"),
         lambda: train.main(["--smoke", "--steps", "1"]),
         lambda: random.uniform(random.key(0), 10),
         lambda: random.bits(random.key(0), 10),
+        lambda: compressor_bench.main([]),
     ]
 
 
-@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("which", range(6))
 def test_cuda_request_without_gpu_raises(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; nothing to refuse")

@@ -1,7 +1,7 @@
 """The port's dense model against ``repro.models`` from the same params.
 
 Smoke qwen2 params are drawn once by the JAX package and carried across by
-``convert.params_from_jax``; batches come from numpy.  Tolerances:
+``T.params_from_jax``; batches come from numpy.  Tolerances:
 
 * f32 activations: rtol 1e-5 (atol 1e-5 on O(1) logits).  Both packages
   compute the same f32 ops; only the summation order inside matmuls,
@@ -24,7 +24,6 @@ from repro.configs import get_smoke_config as jget_smoke_config
 from repro.models import build_model as jbuild_model
 from repro.models import layers as jL
 from repro.models.model import cross_entropy as jcross_entropy
-from repro_torch import convert
 from repro_torch import tree as T
 from repro_torch.configs import get_smoke_config
 from repro_torch.data.synthetic import SyntheticLM
@@ -58,8 +57,8 @@ def _np(x):
 
 
 def test_params_round_trip_and_layout(jax_params):
-    tparams = convert.params_from_jax(jax_params, device="cpu")
-    back = convert.params_to_numpy(tparams)
+    tparams = T.params_from_jax(jax_params, device="cpu")
+    back = T.params_to_numpy(tparams)
     for a, b in zip(jax.tree.leaves(jax_params), T.leaves(back)):
         np.testing.assert_array_equal(a, b)
     _, tcfg = _cfgs("float32")
@@ -79,7 +78,7 @@ def test_logits_and_loss_match_jax(jax_params, adt):
     jm, tm = jbuild_model(jcfg), build_model(tcfg)
     jlogits, _ = jm.forward(jax_params, batch)
     jloss, _ = jm.loss(jax_params, batch)
-    tparams = convert.params_from_jax(jax_params, device="cpu")
+    tparams = T.params_from_jax(jax_params, device="cpu")
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     tlogits = tm.forward(tparams, tbatch)
     tloss, _ = tm.loss(tparams, tbatch)
@@ -101,7 +100,7 @@ def test_grads_match_jax_f32(jax_params):
     jloss, jgrads = jax.value_and_grad(
         lambda p: jbuild_model(jcfg).loss(p, batch)[0])(jax_params)
     tloss, tgrads = value_and_grad(
-        build_model(tcfg).loss, convert.params_from_jax(jax_params, "cpu"),
+        build_model(tcfg).loss, T.params_from_jax(jax_params, "cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     for a, b in zip(jax.tree.leaves(jgrads), T.leaves(tgrads)):

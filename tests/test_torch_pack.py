@@ -11,12 +11,18 @@ The port has one pack kernel, whose payload leaves by bulk stores as the
 streaming Pallas body's does: it is also held against
 ``pack_update_pallas(stream=True)`` in interpret mode.  Tolerance: none --
 vals, idx and h_out are compared bit for bit.
+
+The last section holds the dense block-top-k and the fused dense worker
+update (``ops.block_topk`` / ``ops.efbv_update``) against JAX's wrappers in
+interpret mode; its own notes head it.
 """
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _prop import given, settings, st
 
 from repro.distributed import wire as jwire
 from repro.kernels import ops as jops
@@ -350,3 +356,267 @@ def test_randk_wrapper_checks_inputs(bad):
         idx = idx.reshape(2, 2)
     with pytest.raises((ValueError, TypeError)):
         pack.randk_update(g, h, idx, 16.0, LAM)
+
+# ---------------------------------------------------------------------------
+# The dense block-top-k and fused dense worker update (block_topk.cu)
+#
+# The port's dense block-top-k and fused dense worker update
+# (``repro_torch.kernels.ops.block_topk`` / ``efbv_update``, the CPU side of
+# ``csrc/block_topk.cu``) against JAX's wrappers with the Pallas kernels in
+# interpret mode.
+#
+# Inputs come from numpy seeds.  Tolerance: none, every bit of d, h' and out
+# compared, signs of zeros included -- except the bits of a bf16 NaN: XLA
+# keeps the sign of the x86 default NaN (0xFFC0 for inf * 0) where torch's
+# bf16 rounding writes 0x7FC0, so bf16 NaNs are compared as NaNs (on the card
+# the kernel and its plain version agree on those bits too; f32 NaNs are
+# compared bit for bit here).
+#
+# What the reference does, measured here (jax 0.9.0, XLA on the CPU):
+#
+# * fault g: a selected magnitude may be +inf; a row holding a NaN keeps
+#   nothing;
+# * fault i: where the masked product is f32 at kb = 1 (block_topk of f32,
+#   and efbv_update's f32 delta), XLA folds the mask into a select that
+#   writes +0.0 for every unselected value; at kb >= 2, and for bf16
+#   block_topk at every kb, it multiplies by 0 (-0.0 and NaN kept, inf * 0
+#   = NaN);
+# * h' = h + lam * d is one fused multiply-add, except for f32 at kb = 1,
+#   where it is two roundings (``test_h_update_rounding_site``);
+# * fault h: the wrapper rounds h to g's type before the kernel.
+# ---------------------------------------------------------------------------
+
+
+DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
+
+
+def to_torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def assert_bits(want, got):
+    want, got = np.asarray(want), to_numpy(got)
+    assert want.dtype == got.dtype and want.shape == got.shape
+    uint = np.uint16 if want.dtype.itemsize == 2 else np.uint32
+    wb, gb = want.view(uint), got.view(uint)
+    if want.dtype == ml_dtypes.bfloat16:
+        wn = np.isnan(want.astype(np.float32))
+        np.testing.assert_array_equal(wn, np.isnan(got.astype(np.float32)))
+        wb, gb = wb[~wn], gb[~wn]
+    np.testing.assert_array_equal(wb, gb)
+
+
+def check_topk(x, block, kb):
+    want = jops.block_topk(jnp.asarray(x), block=block, kb=kb,
+                           interpret=True)
+    got = ops.block_topk(to_torch(x), block=block, kb=kb)
+    assert_bits(want, got)
+    return got
+
+
+def check_update(g, h, block, kb, lam=LAM):
+    dw, hw = jops.efbv_update(jnp.asarray(g), jnp.asarray(h), lam,
+                              block=block, kb=kb, interpret=True)
+    dg, hg = ops.efbv_update(to_torch(g), to_torch(h), lam, block=block,
+                              kb=kb)
+    assert_bits(dw, dg)
+    assert_bits(hw, hg)
+    return dg, hg
+
+
+def normal(seed, shape, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,block,kb", SWEEP)
+def test_block_topk_sweep(shape, block, kb, dtype):
+    check_topk(normal(block + kb, shape, DTYPES[dtype]), block, kb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,block,kb", SWEEP)
+def test_efbv_update_sweep(shape, block, kb, dtype):
+    check_update(normal(kb, shape, DTYPES[dtype]),
+                 normal(kb + 1, shape, DTYPES[dtype]), block, kb)
+
+
+@given(d=st.integers(1, 3000), kb=st.integers(1, 8),
+       seed=st.integers(0, 2**31 - 1))
+@settings(max_examples=12, deadline=None)
+def test_random_sizes(d, kb, seed):
+    x = normal(seed, (d,))
+    check_topk(x, 128, kb)
+    check_update(x, normal(seed + 1, (d,)), 128, kb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ties(dtype):
+    """Integers in [-3, 3]: many equal magnitudes, ties to the lowest
+    column; every 7th row of g - h all zero, and -0.0 among the zeros."""
+    rng = np.random.default_rng(3)
+    g = rng.integers(-3, 4, (64, 256)).astype(np.float32)
+    h = rng.integers(-3, 4, (64, 256)).astype(np.float32)
+    g[::7] = h[::7]
+    g[(g == 0) & (rng.random(g.shape) < 0.5)] = -0.0
+    g, h = g.astype(DTYPES[dtype]), h.astype(DTYPES[dtype])
+    for kb in (1, 2, 16):
+        check_topk(g, 256, kb)
+        check_update(g, h, 256, kb)
+
+
+def special_rows(dtype):
+    """(4, 128): fault g's row [1, 5, -7, 2, inf, 3, -4, 6, 0...] with
+    small negatives after it and a -inf; a row with one NaN; a row of NaN;
+    a row of normals."""
+    x = np.zeros((4, 128), np.float32)
+    x[0, :8] = [1, 5, -7, 2, np.inf, 3, -4, 6]
+    x[0, 8:20] = -np.arange(1, 13) * 0.01
+    x[0, 30] = -np.inf
+    x[1] = normal(1, 128)
+    x[1, 5] = np.nan
+    x[2] = np.nan
+    x[3] = normal(2, 128)
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kb", [1, 2, 3])
+def test_inf_and_nan_rows(kb, dtype):
+    """Fault g: +-inf selected (|.| = +inf); a NaN row keeps nothing."""
+    x = special_rows(DTYPES[dtype])
+    out = to_numpy(check_topk(x, 128, kb)).astype(np.float32)
+    assert out[0, 4] == np.inf
+    if kb >= 2:
+        assert out[0, 30] == -np.inf
+    assert not np.any(out[1:3][~np.isnan(out[1:3])])
+    h = normal(4, (4, 128), DTYPES[dtype])
+    check_update(x, h, 128, kb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kb", [1, 3])
+def test_more_infs_than_kb(kb, dtype):
+    """Ten infs of both signs in a row and kb < 10: the lowest columns
+    win; an unselected inf is inf * 0 = NaN, or +0.0 where fault i
+    selects."""
+    x = normal(5, (2, 256))
+    x[0, 10:30:2] = np.inf
+    x[0, 11:31:2] = -np.inf
+    x = x.astype(DTYPES[dtype])
+    out = to_numpy(check_topk(x, 256, kb)).astype(np.float32)
+    kept = np.flatnonzero(np.isinf(out[0]))
+    assert list(kept) == list(range(10, 10 + kb))
+    assert np.isnan(out[0, 10 + kb]) == (kb > 1 or dtype == "bf16")
+    check_update(x, np.zeros_like(x), 256, kb)
+
+
+def test_kb1_and_kb2_same_input():
+    """Fault i on one input: f32 kb = 1 writes no -0.0, kb = 2 keeps the
+    sign of every unselected negative; so does efbv_update's d."""
+    x = normal(6, (8 * 128,))
+    neg = lambda a: int(np.sum(np.signbit(a) & (a == 0)))
+    one = to_numpy(check_topk(x, 128, 1))
+    two = to_numpy(check_topk(x, 128, 2))
+    assert neg(one) == 0
+    assert neg(two) == int(np.sum(x < 0)) - int(np.sum(two < 0))
+    d1, _ = check_update(x, np.zeros_like(x), 128, 1)
+    d2, _ = check_update(x, np.zeros_like(x), 128, 2)
+    assert neg(d1.numpy()) == 0 and neg(d2.numpy()) > 0
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_kb_equals_block(block):
+    x = normal(7, (3 * block + 5,))
+    np.testing.assert_array_equal(to_numpy(check_topk(x, block, block)), x)
+    check_update(x, normal(8, x.shape), block, block)
+
+
+@pytest.mark.parametrize("g_dtype,h_dtype", [("bf16", "f32"),
+                                             ("f32", "bf16")])
+def test_mixed_dtypes(g_dtype, h_dtype):
+    """Fault h: h is rounded to g's type before the kernel, and h' is
+    converted back to h's type after it."""
+    g = normal(9, (4096,), DTYPES[g_dtype])
+    h = normal(10, (4096,), DTYPES[h_dtype])
+    for kb in (1, 16):
+        d, h_new = check_update(g, h, 256, kb)
+        assert d.dtype == to_torch(g).dtype
+        assert h_new.dtype == to_torch(h).dtype
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_h_update_rounding_site(dtype):
+    """Where XLA contracts h + lam * d: the reference's h' is the fused
+    multiply-add at kb = 16 (and differs from two roundings on some of
+    these values), and two roundings for f32 at kb = 1."""
+    g = normal(11, (1 << 16,), DTYPES[dtype])
+    h = normal(12, (1 << 16,), DTYPES[dtype])
+    for kb in (1, 16):
+        d, h_new = check_update(g, h, 256, kb)
+        hf, df = to_torch(h).float(), d.float()
+        fused = torch.add(hf, df, alpha=LAM).to(h_new.dtype)
+        two = (hf + LAM * df).to(h_new.dtype)
+        if kb == 1 and dtype == "f32":
+            assert torch.equal(h_new, two)
+        else:
+            assert torch.equal(h_new, fused)
+            if dtype == "f32":
+                assert not torch.equal(h_new, two)
+
+
+def test_wrapper_checks():
+    x = torch.zeros(4, 256)
+    with pytest.raises(ValueError, match="block % 128"):
+        pack.block_topk(torch.zeros(4, 100), 4)
+    for kb in (0, 257):
+        with pytest.raises(ValueError, match="kb"):
+            pack.block_topk(x, kb)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        pack.block_topk(x.half(), 4)
+    with pytest.raises(TypeError, match="one type"):
+        pack.efbv_update(x, x.bfloat16(), LAM, 4)
+    with pytest.raises(ValueError, match="equal"):
+        pack.efbv_update(x, torch.zeros(4, 128), LAM, 4)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        pack.block_topk(torch.zeros(4, 256, device="meta"), 4)
+
+
+def test_plain_version_is_the_cpu_path():
+    """On a CPU tensor the wrapper is its plain version and counts no
+    launch."""
+    from repro_torch.kernels import LAUNCHES
+
+    x = torch.from_numpy(normal(13, (16, 256)))
+    before = dict(LAUNCHES)
+    assert torch.equal(pack.block_topk(x, 16), ref.block_topk_ref(x, 16))
+    d, h = pack.efbv_update(x, x.flip(0), LAM, 16)
+    dr, hr = ref.efbv_update_ref(x, x.flip(0), LAM, 16)
+    assert torch.equal(d, dr) and torch.equal(h, hr)
+    assert LAUNCHES == before
+
+
+# the full-width qwen2-0.5b leaves hold 494,032,768 f32 values
+@pytest.mark.parametrize("kernel,kb,payload,want,by", [
+    ("block_topk", 16, 0, 1.1798, "bytes"),
+    ("efbv_update", 16, 0, 2.3596, "bytes"),
+    ("pack_update", 16, 8 * (494_032_768 // 256) * 16, 1.8434, "bytes"),
+    ("block_topk", 1024, 0, 15.1307, "operations"),
+])
+def test_dense_bound_ms_at_full_width(kernel, kb, payload, want, by):
+    """The least times the kernel table states for one pass over the 14
+    full-width leaves: the bytes each input is read and each output
+    written at 3.35 TB/s, or kb + elementwise instructions per value at
+    the issue rate, whichever is longer."""
+    ms, got_by = ops.dense_bound_ms(kernel, 494_032_768, kb,
+                                    payload=payload)
+    assert (round(ms, 4), got_by) == (want, by)

@@ -53,7 +53,6 @@ from repro.optim import adamw as jadamw
 from repro.optim import apply_updates as japply_updates
 from repro.optim import cosine as jcosine
 from repro.train.trainer import init_inflight as jinit_inflight
-from repro_torch import convert
 from repro_torch import random as R
 from repro_torch import tree as T
 from repro_torch.configs import get_smoke_config
@@ -140,7 +139,7 @@ def _torch_round(tcfg, params_np, batches, lam, nu, kind="block_topk"):
     algo = EFBV(tcomp.make_compressor(SPECS[kind]), lam=lam, nu=nu)
     opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
                 weight_decay=0.01)
-    state = init_train_state(convert.params_from_jax(params_np, "cpu"), opt,
+    state = init_train_state(T.params_from_jax(params_np, "cpu"), opt,
                              n_workers=N, bidirectional=bidirectional,
                              algo=algo, agg_mode="sparse_allgather",
                              pipeline=pipeline)
