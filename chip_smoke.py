@@ -12,23 +12,27 @@ line is printed only when every phase passed):
               bitwise, at the main paths' shapes and edge cases; times each
               (CUDA events, median of 20) beside its plain version and its
               memory/compute bound.  The pack kernel also with a partial
-              last CTA (kb 3 on 8m + 1 rows) and kb = 1024 (64 KiB of
+              last CTA (kb 3 on 8m + 1 rows) and kb = 1024 (128 KiB of
               shared memory); its SASS must hold the TMA bulk store.  A
               rand-k position out of range must make the launch fail
               (checked in a child process: the trap poisons its CUDA
               context).  The shuffle behind rand-k's positions
               (``random.permutation``), GPU against CPU bitwise, and timed
-              at the embed leaf's size.  The dense block-top-k and fused
-              dense update (``block_topk.cu``), f32 and bf16, bitwise at the
-              14 full-width leaves (block 256, kb 16), at every block from
-              128 to 1024, kb 1 / 2 / 64 / block, ragged, ties, NaN rows,
-              +-inf and mixed types; timed at the 14 leaves.  These two and
-              the pack also bitwise at the 14 leaves at the compressor
-              bench's other block/kb, 1024/16 and 1024/64.
+              at the embed leaf's size.  The three block-top-k kernels
+              (``pack_update.cu``; ``block_topk.cu``'s dense block-top-k and
+              fused dense update, f32 and bf16) bitwise at every block
+              from 128 to 4096 (ragged rows, kb 1 / 2 / 3 / 16 / 64 /
+              block), ties, NaN rows, +-inf and mixed types; blocks above
+              4096 raise, and ``wire.fused_pack`` routes a block % 128 != 0
+              to the plain path under ``auto``; at the 14 full-width leaves
+              at block/kb 256/16, 1024/16, 1024/64 and 4096/64, timed at
+              256/16 and 4096/64; the selection's SASS per value and step,
+              and the search's mean steps on those leaves.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
-              and keys, for each path below.
+              and keys, for each path below, and block-top-k also at
+              384/16 and 4096/64.
 4. main paths -- ``repro_torch.launch.train.main`` at the full width and
               depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
@@ -46,8 +50,8 @@ line is printed only when every phase passed):
               ``main(["--full"])``): every compressor and codec row at
               d = 2**16, the fused pack's device bytes on the embed leaf,
               and the dense kernels and the pack at the 14 full-width
-              leaves (block/kb 256/16, 1024/16, 1024/64), whose untimed
-              pass must launch each kernel exactly 14 times.
+              leaves (block/kb 256/16, 1024/16, 1024/64, 4096/64), whose
+              untimed pass must launch each kernel exactly 14 times.
 5. profile -- each path, one step on the host clock and one under
               torch.profiler: device time by kernel, busy share; the peak
               device memory of a step and of each of its phases; for the
@@ -132,7 +136,7 @@ def pack_bound_ms(size, block, kb):
     payload (bytes); or kb selection compares per value (operations)."""
     from repro_torch.kernels import ops
 
-    return ops.dense_bound_ms("pack_update", size, kb,
+    return ops.dense_bound_ms("pack_update", size,
                               payload=8 * -(-size // block) * kb)
 
 
@@ -176,9 +180,10 @@ def phase_build():
         build.load(name)
 
 
-def pack_case(name, g, h, block, kb, lam=0.37, timing=True):
+def pack_case(name, g, h, block, kb, lam=0.37, timing=True, quiet=False):
     """Kernel vs plain version on (g, h) flat f32 CUDA tensors; returns
-    (kernel ms, plain ms, bound ms, max |diff|)."""
+    (kernel ms, plain ms, bound ms, max |diff|).  ``quiet``: no line of
+    its own (the block sweep prints one per block)."""
     from repro_torch.kernels import ops, pack, ref
 
     def rows(x):
@@ -198,9 +203,10 @@ def pack_case(name, g, h, block, kb, lam=0.37, timing=True):
     if timing:
         k_ms = timed_ms(lambda: pack.pack_update(g2, h2, lam, kb))
         p_ms = timed_ms(lambda: ref.pack_update_ref(g2, h2, lam, kb))
-    print(f"[kernels] {name}: size={g.numel()} block={block} kb={kb} "
-          f"bitwise=ok kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"bound_ms={bound:.4f} ({by})")
+    if not quiet:
+        print(f"[kernels] {name}: size={g.numel()} block={block} kb={kb} "
+              f"bitwise=ok kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
     return k_ms, p_ms, bound, err
 
 
@@ -261,10 +267,30 @@ def bulk_store_sass():
     return bulk
 
 
+#: every block the block-top-k kernels take, and the kb of the sweep
+SWEEP_BLOCKS = tuple(range(128, 4097, 128))
+SWEEP_KB = (1, 2, 3, 16, 64)
+#: the 14 full-width leaves' block/kb held bitwise; 256/16 and 4096/64 timed
+LEAF_CONFIGS = ((256, 16), (1024, 16), (1024, 64), (4096, 64))
+TIMED_CONFIGS = ((256, 16), (4096, 64))
+
+
+def sweep_rows(block):
+    """Values of a sweep case: 8 m + 1 rows (a partial last CTA of the
+    warp-per-row kernels) with a ragged last row."""
+    return block * (8 * 6 + 1) - 37
+
+
 def kernels_pack():
-    """Edge cases bitwise; the 14 full-width leaf shapes at the compressor
-    bench's block/kb 1024/16 and 1024/64 bitwise; then one worker's full
-    round of main-path leaf shapes (block 256, kb 16), timed."""
+    """Edge cases bitwise; every block 128..4096 at kb 1/2/3/16/64/block;
+    the route by shape of ``wire.fused_pack`` (a block % 128 != 0 takes the
+    plain path under ``auto``, before any launch; ``cuda`` raises); the 14
+    full-width leaf shapes at every block/kb of LEAF_CONFIGS bitwise; one
+    worker's full round at 256/16 (the row of the kernels JSON line) and
+    4096/64, timed."""
+    from repro_torch.distributed import wire
+    from repro_torch.kernels import LAUNCHES, pack, reset_launches
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     def randn(n):
@@ -294,58 +320,98 @@ def kernels_pack():
     max_err = max(max_err, pack_case("kb_eq_block1024", randn(n), randn(n),
                                      1024, 1024, 0.37, False)[3])
     # ties: integers in [-3, 3]; every 7th row of delta all zero; some -0.0
-    n = 256 * 4096
-    gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
-    hi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
-    rows = gi.view(-1, 256)
-    rows[::7] = hi.view(-1, 256)[::7]
-    zero_h = hi == 0
-    gi[zero_h & (torch.arange(n, device="cuda") % 5 == 0)] = -0.0
-    max_err = max(max_err, pack_case("ties_int", gi, hi, 256, 16)[3])
+    for block in (256, 1152, 4096):
+        n = block * 1024
+        gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+        hi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+        rows = gi.view(-1, block)
+        rows[::7] = hi.view(-1, block)[::7]
+        zero_h = hi == 0
+        gi[zero_h & (torch.arange(n, device="cuda") % 5 == 0)] = -0.0
+        for kb in (1, 16, 64):
+            max_err = max(max_err, pack_case(f"ties_int_b{block}_kb{kb}", gi,
+                                             hi, block, kb, timing=False)[3])
     # NaN in a row's delta (a diverged gradient): that row selects nothing
     # and sends (0.0, 0) in every slot, as the Pallas kernel does.  Row 0 is
-    # all NaN, row 3 has one NaN, and every 5th row from row 10 one more.
-    n = 256 * 64
-    gn, hn = randn(n), randn(n)
-    gn[:256] = float("nan")
-    gn[3 * 256 + 100] = float("nan")
-    gn[10 * 256 + 7::5 * 256 + 1] = float("nan")
-    max_err = max(max_err, pack_case("nan_rows", gn, hn, 256, 16)[3])
+    # all NaN, row 3 has one NaN, and every 5th row from row 10 one more;
+    # +-inf are selected like any other magnitude (more infs than kb in
+    # row 4, a row of +inf in row 6)
+    for block in (256, 2048):
+        n = block * 64
+        gn, hn = randn(n), randn(n)
+        gn[:block] = float("nan")
+        gn[3 * block + 100] = float("nan")
+        gn[10 * block + 7::5 * block + 1] = float("nan")
+        gn[4 * block + 10:4 * block + 60:2] = float("inf")
+        gn[4 * block + 11:4 * block + 61:2] = -float("inf")
+        gn[6 * block:7 * block] = float("inf")
+        for kb in (3, 16):
+            max_err = max(max_err, pack_case(f"nan_inf_rows_b{block}_kb{kb}",
+                                             gn, hn, block, kb,
+                                             timing=False)[3])
 
-    # a block the kernel is not built for raises on the card: no fallback
-    from repro_torch.distributed import wire
-    for block in (100, 384):
-        lw = wire.LeafWire(shape=(768,), size=768, block=block, kb=4)
+    # every block the kernel takes, kb 1/2/3/16/64/block, on ragged rows
+    for block in SWEEP_BLOCKS:
+        n = sweep_rows(block)
+        g, h = randn(n), randn(n)
+        for kb in SWEEP_KB + (block,):
+            max_err = max(max_err, pack_case(
+                f"sweep_b{block}_kb{kb}", g, h, block, kb, timing=False,
+                quiet=True)[3])
+        print(f"[kernels] pack_update sweep block={block}: kb "
+              f"{SWEEP_KB + (block,)} bitwise=ok ({n} values)")
+
+    # the route by shape: block 100 under auto takes the plain layout path
+    # (no launch), bitwise against the plain path on the CPU; an explicit
+    # cuda raises; a block above MAX_BLOCK raises in the wrapper
+    lw = wire.LeafWire(shape=(768,), size=768, block=100, kb=4)
+    g, h = randn(768), randn(768)
+    reset_launches()
+    (v, i), hn = wire.fused_pack(lw, g, h, 0.37)
+    launched = sum(LAUNCHES.values())
+    (wv, wi), wh = wire.fused_pack(lw, g.cpu(), h.cpu(), 0.37,
+                                   kernel="oracle")
+    if launched or not all(same_bits(a.cpu(), b) for a, b in
+                           ((v, wv), (i, wi), (hn, wh))):
+        raise AssertionError(f"[kernels] block=100 under auto: launches "
+                             f"{launched}, or != the plain path")
+    print("[kernels] block=100 under auto: plain layout path, no launch, "
+          "bitwise == the CPU plain path")
+    for block, kernel in ((100, "cuda"), (4224, "auto")):
+        lw = wire.LeafWire(shape=(block,), size=block, block=block, kb=4)
         try:
-            wire.fused_pack(lw, randn(768), randn(768), 0.37)
+            wire.fused_pack(lw, randn(block), randn(block), 0.37,
+                            kernel=kernel)
         except ValueError as e:
-            print(f"[kernels] block={block} raises on the card: {e}")
+            print(f"[kernels] block={block} kernel={kernel} raises on the "
+                  f"card: {e}")
         else:
-            raise AssertionError(f"[kernels] block={block} ran on the card")
+            raise AssertionError(f"[kernels] block={block} kernel={kernel} "
+                                 "ran on the card")
+    if pack.CUDA_BLOCKS != SWEEP_BLOCKS:
+        raise AssertionError(f"[kernels] the wrapper takes {pack.CUDA_BLOCKS}")
 
-    # the compressor bench's other full-width passes: the 14 leaves at its
-    # other block/kb, bitwise (untimed here; the bench times them)
-    from repro_torch.launch import compressor_bench as bench
+    # the 14 full-width leaves at every block/kb, bitwise; timed at 256/16
+    # (one worker's round: the kernels JSON line) and 4096/64
     leaves = full_leaves()
-    for block, kb in bench.FULL_CONFIGS:
-        if (block, kb) != (256, 16):
-            for path, size in leaves:
-                max_err = max(max_err, pack_case(
-                    f"qwen2:{path}", randn(size), randn(size), block, kb,
-                    0.37, False)[3])
-                torch.cuda.empty_cache()
-
-    # one worker's round at the full-width qwen2-0.5b leaf shapes
-    k_tot = p_tot = b_tot = 0.0
-    for path, size in leaves:
-        k_ms, p_ms, b_ms, err = pack_case(
-            "qwen2:" + path, randn(size), randn(size), 256, 16)
-        k_tot, p_tot, b_tot = k_tot + k_ms, p_tot + p_ms, b_tot + b_ms
-        by = pack_bound_ms(size, 256, 16)[1]
-        max_err = max(max_err, err)
-        torch.cuda.empty_cache()
-    print(f"[kernels] qwen2-0.5b round (14 leaves, one worker): "
-          f"kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} bound_ms={b_tot:.4f}")
+    rounds = {}
+    for block, kb in LEAF_CONFIGS:
+        timing = (block, kb) in TIMED_CONFIGS
+        k_tot = p_tot = b_tot = 0.0
+        for path, size in leaves:
+            k_ms, p_ms, b_ms, err = pack_case(
+                f"qwen2:{path}", randn(size), randn(size), block, kb, 0.37,
+                timing, quiet=not timing)
+            k_tot, p_tot, b_tot = k_tot + k_ms, p_tot + p_ms, b_tot + b_ms
+            max_err = max(max_err, err)
+            torch.cuda.empty_cache()
+        by = pack_bound_ms(leaves[0][1], block, kb)[1]
+        rounds[block, kb] = (k_tot, p_tot, b_tot, by)
+        print(f"[kernels] pack_update qwen2-0.5b round (14 leaves, one "
+              f"worker, block {block}, kb {kb}): bitwise=ok"
+              + (f" kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} "
+                 f"bound_ms={b_tot:.4f}" if timing else ""))
+    k_tot, p_tot, b_tot, by = rounds[256, 16]
     return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
             "bound_by": by, "max_abs_err": max_err, "library_ms": None}
 
@@ -647,17 +713,46 @@ def store_loop_values(body):
     return 4 * sum(o.startswith("STG") and ".128" in o for o in body)
 
 
-def select_loop_values(block):
-    """Values one pass of a block kernel's selection loop handles, per
-    round: a round of max extraction holds 10 warp shuffles (a 5-step
-    argmax on two keys), and each lane of the row's warp holds block / 32
-    values."""
-    def values(body):
-        shuffles = sum(o.startswith("SHFL") for o in body)
-        if not shuffles or shuffles % 10:
-            return 0
-        return shuffles // 10 * block // 32
-    return values
+def sass_functions(lib, kernel):
+    """The SASS of every function of the built library ``lib`` whose name
+    holds ``kernel`` (cuobjdump), each as a list of (address, opcode)
+    without NOPs."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = []
+    for f in text.split("Function : ")[1:]:
+        if kernel not in f.split(None, 1)[0]:
+            continue
+        insts = []
+        for addr, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", f):
+            tokens = ins.split()
+            if tokens[0].startswith("@"):
+                tokens = tokens[1:]
+            if tokens[0] != "NOP":
+                insts.append((int(addr, 16), tokens[0], ins))
+        funcs.append(insts)
+    if not funcs:
+        raise AssertionError(f"[kernels] no SASS for {kernel} in {lib}")
+    return funcs
+
+
+def sass_loops(insts):
+    """The loops of one function: the opcodes from a backward branch's
+    target to the branch."""
+    loops = []
+    for addr, op, ins in insts:
+        target = re.search(r"0x([0-9a-f]+)", ins)
+        if op.split(".")[0] != "BRA" or not target \
+                or int(target.group(1), 16) >= addr:
+            continue
+        start = int(target.group(1), 16)
+        loops.append((start, addr,
+                      [o for a, o, _ in insts if start <= a <= addr]))
+    return loops
 
 
 def sass_per_value(lib, kernel, loop_values=store_loop_values):
@@ -668,32 +763,9 @@ def sass_per_value(lib, kernel, loop_values=store_loop_values):
     loop that is not the one sought).  Where the compiler made several
     such loops, the one with the fewest instructions per value is taken, so
     the bound stays a least time."""
-    from repro_torch.kernels import build
-
-    tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    funcs = [f for f in text.split("Function : ")[1:]
-             if kernel in f.split(None, 1)[0]]
-    if not funcs:
-        raise AssertionError(f"[kernels] no SASS for {kernel} in {lib}")
     best = None
-    for func in funcs:
-        insts = []
-        for addr, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
-                                    func):
-            tokens = ins.split()
-            if tokens[0].startswith("@"):
-                tokens = tokens[1:]
-            insts.append((int(addr, 16), tokens[0], ins))
-        for addr, op, ins in insts:
-            target = re.search(r"0x([0-9a-f]+)", ins)
-            if op.split(".")[0] != "BRA" or not target \
-                    or int(target.group(1), 16) >= addr:
-                continue
-            body = [o for a, o, _ in insts
-                    if int(target.group(1), 16) <= a <= addr and o != "NOP"]
+    for insts in sass_functions(lib, kernel):
+        for _, _, body in sass_loops(insts):
             values = loop_values(body)
             if not values:
                 continue
@@ -708,6 +780,116 @@ def sass_per_value(lib, kernel, loop_values=store_loop_values):
         raise AssertionError(f"[kernels] no loop of the sought kind in "
                              f"{kernel}'s SASS")
     return best
+
+
+def search_sass(lib, kernel):
+    """(instructions in one step of the threshold search's loop -- the
+    loop that holds the row's reduce-add, REDUX --, instructions of the
+    function outside every loop, instructions in one iteration of the
+    payload's rank loop -- the other loop that reads shared memory, LDS --
+    or 0, the step's opcode counts) per thread, from the SASS of the one
+    function of ``kernel``."""
+    funcs = sass_functions(lib, kernel)
+    if len(funcs) != 1:
+        raise AssertionError(f"[kernels] {len(funcs)} functions match "
+                             f"{kernel}")
+    insts = funcs[0]
+    loops = sass_loops(insts)
+    steps = [b for _, _, b in loops if any(o.startswith("REDUX") for o in b)]
+    if not steps:
+        raise AssertionError(f"[kernels] no search loop in {kernel}'s SASS")
+    # a rank iteration reads one slot: 4 iterations per LDS.128 if the
+    # compiler unrolled and widened the loads
+    ranks = [len(b) / sum(4 if ".128" in o else 2 if ".64" in o else 1
+                          for o in b if o.startswith("LDS"))
+             for _, _, b in loops if b not in steps
+             and any(o.startswith("LDS") for o in b)]
+    inside = {a for start, end, _ in loops for a, _, _ in insts
+              if start <= a <= end}
+    outside = sum(a not in inside for a, _, _ in insts)
+    step = min(steps, key=len)
+    hist = {}
+    for o in step:
+        hist[o.split(".")[0]] = hist.get(o.split(".")[0], 0) + 1
+    return len(step), outside, min(ranks, default=0), hist
+
+
+def search_steps(x2d, kb):
+    """The steps of the kernels' threshold search (``block_select.cuh``)
+    on each row of f32 x2d, replayed with torch on x2d's device: the keys
+    are the bits of |x|; a step counts the keys >= t | 1 << b from bit 30
+    down and stops the row when exactly kb are; a NaN row, or kb = block,
+    takes none."""
+    keys = x2d.abs().view(torch.int32)
+    rows, block = keys.shape
+    done = (keys > 0x7F800000).any(dim=1) | (kb >= block)
+    t = torch.zeros(rows, dtype=torch.int32, device=x2d.device)
+    steps = torch.zeros(rows, dtype=torch.int32, device=x2d.device)
+    for b in range(30, -1, -1):
+        live = ~done
+        cand = t | (1 << b)
+        c = (keys >= cand[:, None]).sum(dim=1)
+        steps += live.int()
+        up = live & (c >= kb)
+        t = torch.where(up, cand, t)
+        done |= up & (c == kb)
+    return steps
+
+
+def selection_sass(leaves, gen):
+    """What the selection costs to issue, at every block/kb of
+    LEAF_CONFIGS, for each block-top-k kernel: thread instructions per
+    value in one step of the threshold search (SASS), the mean steps the
+    search takes on the rows of the 14 full-width leaves (random f32 from
+    ``gen``: x for block_topk, g - h for the others; replayed by
+    ``search_steps``, outside any timed call), and the total per value:
+    steps x step + the instructions outside every loop, counted once
+    (they include the tie split, which only rows with a tie at T run),
+    and, for the pack, its rank loop (ceil(kb / threads) slots of kb
+    iterations a thread).  Not a least time for the work: what this design
+    issues, against 33.5e12 thread instructions per second."""
+    from repro_torch.kernels import ops
+
+    values = sum(size for _, size in leaves)
+    for block, kb in LEAF_CONFIGS:
+        steps = {}
+        for two in (False, True):
+            tot = rows = 0
+            for _, size in leaves:
+                x = torch.randn(size, generator=gen, device="cuda")
+                if two:
+                    x = x - torch.randn(size, generator=gen, device="cuda")
+                st = search_steps(ops.to_rows(x, block), kb)
+                tot, rows = tot + int(st.sum()), rows + st.numel()
+                del x, st
+                torch.cuda.empty_cache()
+            steps[two] = tot / rows
+        warp = block <= 1024
+        for lib, kernel, two in (("block_topk", "block_topk", False),
+                                 ("block_topk", "efbv_update", True),
+                                 ("pack_update", "pack_update", True)):
+            # the f32 instance of each kernel (the CTA variants' first
+            # template argument is the values a thread holds)
+            cta_per = next(per for per in (16, 8, 4)
+                           if block % (32 * per) == 0)
+            sym = (f"{kernel}_rowsILi{block}E" if warp
+                   else f"{kernel}_ctaILi{cta_per}E") \
+                + "f" * (lib == "block_topk")
+            per, threads = (block // 32, 32) if warp \
+                else (cta_per, block // cta_per)
+            step, outside, rank, hist = search_sass(lib, sym)
+            total = (step * steps[two] + outside
+                     + rank * -(-kb // threads) * kb) / per
+            print(f"[kernels] {kernel} block={block} kb={kb}: selection "
+                  f"SASS {step / per:.2f} instructions per value and step "
+                  f"({step} a thread), mean steps {steps[two]:.3f} on the "
+                  f"14 leaves, {outside / per:.2f} per value outside every "
+                  f"loop, rank loop {rank:.2f} an iteration; total "
+                  f"{total:.2f} per value, issues in "
+                  f"{total * values / H100_ISSUE_PER_S * 1e3:.4f} ms over "
+                  f"the 14 leaves; a step's opcodes: "
+                  + " ".join(f"{o}={c}" for o, c in
+                             sorted(hist.items(), key=lambda x: -x[1])))
 
 
 def threefry_bound_ms(n, per_value):
@@ -770,7 +952,8 @@ def kernels_threefry():
             "bound_by": by, "max_abs_err": max_err, "library_ms": l_tot}
 
 
-def dense_case(kernel, name, g, h, block, kb, lam=0.37, timing=False):
+def dense_case(kernel, name, g, h, block, kb, lam=0.37, timing=False,
+               quiet=False):
     """``block_topk`` of g, or ``efbv_update`` of (g, h): the kernel
     against its plain version on the card, bitwise, through the ops
     wrappers' padding and casts (h is rounded to g's type first, and h'
@@ -801,27 +984,28 @@ def dense_case(kernel, name, g, h, block, kb, lam=0.37, timing=False):
     if not all(same_bits(a, b) for a, b in zip(got, want)):
         raise AssertionError(f"[kernels] {kernel} {name}: kernel != plain "
                              f"version (max |diff| {err})")
-    bound, by = ops.dense_bound_ms(kernel, g.numel(), kb, g.element_size())
+    bound, by = ops.dense_bound_ms(kernel, g.numel(), g.element_size())
     k_ms = p_ms = float("nan")
     if timing:
         k_ms = timed_ms(run_kernel)
         p_ms = timed_ms(run_plain, reps=5)
-    print(f"[kernels] {kernel} {name}: size={g.numel()} block={block} "
-          f"kb={kb} {g.dtype}/{(h if h is not None else g).dtype} "
-          f"bitwise=ok kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"bound_ms={bound:.4f} ({by})")
+    if not quiet:
+        print(f"[kernels] {kernel} {name}: size={g.numel()} block={block} "
+              f"kb={kb} {g.dtype}/{(h if h is not None else g).dtype} "
+              f"bitwise=ok kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
     return k_ms, p_ms, bound, by, err
 
 
 def kernels_dense():
     """The dense block-top-k and the fused dense update: edge cases bitwise
-    in f32 and bf16; every instantiated block; blocks the kernel is not
-    built for raise; the 14 full-width leaf shapes at the compressor
-    bench's block/kb 1024/16 and 1024/64, bitwise in f32; then one worker's
-    round at those shapes at block 256, kb 16, bitwise in f32 and bf16,
-    timed in f32; and the selection's SASS instructions at each block/kb."""
+    in f32 and bf16; every block 128..4096 at kb 1/2/3/16/64/block in f32
+    and bf16; a block above MAX_BLOCK raises; the 14 full-width leaf
+    shapes at every block/kb of LEAF_CONFIGS bitwise in f32 (and in bf16 at
+    256/16); one worker's round timed in f32 at 256/16 (the kernels JSON
+    line) and 4096/64.  Then the selection's cost from the SASS
+    (``selection_sass``)."""
     from repro_torch.kernels import ops
-    from repro_torch.launch import compressor_bench as bench
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
 
@@ -831,47 +1015,58 @@ def kernels_dense():
     bf16 = torch.bfloat16
     err = 0.0
 
-    def both(name, g, h, block, kb):
+    def both(name, g, h, block, kb, quiet=False):
         nonlocal err
         for kernel in ("block_topk", "efbv_update"):
-            err = max(err, dense_case(kernel, name, g, h, block, kb)[4])
+            err = max(err, dense_case(kernel, name, g, h, block, kb,
+                                      quiet=quiet)[4])
 
-    for block in range(128, 1025, 128):
-        n = block * 1000 + 77  # ragged last row
-        both(f"block{block}_ragged", randn(n), randn(n), block, 16)
     for dtype in (torch.float32, bf16):
         tag = "f32" if dtype == torch.float32 else "bf16"
+        for block in SWEEP_BLOCKS:
+            n = sweep_rows(block)
+            g, h = randn(n, dtype), randn(n, dtype)
+            for kb in SWEEP_KB + (block,):
+                both(f"sweep_b{block}_kb{kb}_{tag}", g, h, block, kb, True)
+            print(f"[kernels] block_topk/efbv_update sweep {tag} "
+                  f"block={block}: kb {SWEEP_KB + (block,)} bitwise=ok "
+                  f"({n} values)")
         n = 1024 * 4096
         for kb in (1, 2, 16, 64):
             both(f"block1024_kb{kb}_{tag}", randn(n, dtype), randn(n, dtype),
                  1024, kb)
         n = 256 * 4096 + 3
         both(f"block256_kb1_{tag}", randn(n, dtype), randn(n, dtype), 256, 1)
-        for block in (128, 1024):
+        for block in (128, 1024, 4096):
             n = block * 513
             both(f"kb_eq_block{block}_{tag}", randn(n, dtype),
                  randn(n, dtype), block, block)
         # ties: integers in [-3, 3]; every 7th row of g - h all zero; -0.0
-        n = 256 * 4096
-        gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
-        hi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
-        gi.view(-1, 256)[::7] = hi.view(-1, 256)[::7]
-        gi[(gi == 0) & (torch.arange(n, device="cuda") % 3 == 0)] = -0.0
-        for kb in (1, 16):
-            both(f"ties_kb{kb}_{tag}", gi.to(dtype), hi.to(dtype), 256, kb)
+        for block in (256, 1152, 4096):
+            n = block * 1024
+            gi = torch.randint(-3, 4, (n,), generator=gen,
+                               device="cuda").float()
+            hi = torch.randint(-3, 4, (n,), generator=gen,
+                               device="cuda").float()
+            gi.view(-1, block)[::7] = hi.view(-1, block)[::7]
+            gi[(gi == 0) & (torch.arange(n, device="cuda") % 3 == 0)] = -0.0
+            for kb in (1, 16, 64):
+                both(f"ties_b{block}_kb{kb}_{tag}", gi.to(dtype),
+                     hi.to(dtype), block, kb)
         # specials: a NaN row, a row with one NaN, +-inf (more than kb of
         # them in row 4), -0.0, an inf in h
-        n = 256 * 64
-        gs, hs = randn(n), randn(n)
-        gs[:256] = float("nan")
-        gs[3 * 256 + 100] = float("nan")
-        gs[4 * 256 + 10:4 * 256 + 30:2] = float("inf")
-        gs[4 * 256 + 11:4 * 256 + 31:2] = -float("inf")
-        gs[6 * 256 + 5] = -0.0
-        hs[7 * 256 + 9] = float("inf")
-        for kb in (1, 2, 3, 16):
-            both(f"specials_kb{kb}_{tag}", gs.to(dtype), hs.to(dtype), 256,
-                 kb)
+        for block in (256, 2048):
+            n = block * 64
+            gs, hs = randn(n), randn(n)
+            gs[:block] = float("nan")
+            gs[3 * block + 100] = float("nan")
+            gs[4 * block + 10:4 * block + 30:2] = float("inf")
+            gs[4 * block + 11:4 * block + 31:2] = -float("inf")
+            gs[6 * block + 5] = -0.0
+            hs[7 * block + 9] = float("inf")
+            for kb in (1, 2, 3, 16):
+                both(f"specials_b{block}_kb{kb}_{tag}", gs.to(dtype),
+                     hs.to(dtype), block, kb)
     # mixed types (the wrapper rounds h to g's type, JAX's fault h)
     n = 256 * 4096
     for kb in (1, 16):
@@ -879,8 +1074,8 @@ def kernels_dense():
                                   randn(n, bf16), randn(n), 256, kb)[4])
         err = max(err, dense_case("efbv_update", f"mixed_f32_bf16_kb{kb}",
                                   randn(n), randn(n, bf16), 256, kb)[4])
-    # blocks the kernels are not built for raise on the card
-    for block in (100, 1152):
+    # blocks no kernel takes raise on the card
+    for block in (100, 4224):
         try:
             ops.block_topk(randn(4 * block), block=block, kb=4)
         except ValueError as e:
@@ -889,61 +1084,59 @@ def kernels_dense():
         else:
             raise AssertionError(f"[kernels] block_topk block={block} ran")
 
-    # the compressor bench's other full-width passes: the 14 leaves at its
-    # other block/kb, f32, bitwise (untimed here; the bench times them)
+    # the 14 full-width leaves at every block/kb, f32, bitwise (bf16 too at
+    # 256/16); timed in f32 at TIMED_CONFIGS
     leaves = full_leaves()
-    for block, kb in bench.FULL_CONFIGS:
-        if (block, kb) != (256, 16):
-            for path, size in leaves:
-                both(f"qwen2:{path}", randn(size), randn(size), block, kb)
-                torch.cuda.empty_cache()
     rows = {}
-    for kernel in ("block_topk", "efbv_update"):
-        tot = [0.0, 0.0, 0.0]
-        for path, size in leaves:
-            for dtype in (bf16, torch.float32):
-                g, h = randn(size, dtype), randn(size, dtype)
-                out = dense_case(kernel, f"qwen2:{path}", g, h, 256, 16,
-                                 timing=dtype == torch.float32)
-                err = max(err, out[4])
-                del g, h
-                torch.cuda.empty_cache()
-            tot = [a + b for a, b in zip(tot, out[:3])]
-            by = out[3]
-        print(f"[kernels] {kernel} qwen2-0.5b round (14 leaves, f32, block "
-              f"256, kb 16): kernel_ms={tot[0]:.4f} plain_ms={tot[1]:.4f} "
-              f"bound_ms={tot[2]:.4f} ({by})")
-        # no single PyTorch call computes a block-top-k with JAX's tie order
-        rows[kernel] = {"ms": tot[0], "plain_ms": tot[1], "bound_ms": tot[2],
-                        "bound_by": by, "max_abs_err": err,
-                        "library_ms": None}
-    # what the selection itself costs to issue, from its SASS: not a least
-    # time for the work, a floor for this design of it
-    values = sum(size for _, size in leaves)
-    for block, kb in bench.FULL_CONFIGS:
+    for block, kb in LEAF_CONFIGS:
+        timing = (block, kb) in TIMED_CONFIGS
+        dtypes = (bf16, torch.float32) if (block, kb) == (256, 16) \
+            else (torch.float32,)
         for kernel in ("block_topk", "efbv_update"):
-            per = sass_per_value("block_topk", f"{kernel}_rowsILi{block}Ef",
-                                 select_loop_values(block))[0]
-            print(f"[kernels] {kernel} block={block} kb={kb}: selection "
-                  f"SASS {per:.2f} instructions per value and round, "
-                  f"{kb * per:.2f} per value; issues in "
-                  f"{kb * per * values / H100_ISSUE_PER_S * 1e3:.4f} ms over "
-                  f"the 14 leaves")
+            tot = [0.0, 0.0, 0.0]
+            for path, size in leaves:
+                for dtype in dtypes:
+                    g, h = randn(size, dtype), randn(size, dtype)
+                    out = dense_case(kernel, f"qwen2:{path}", g, h, block,
+                                     kb, timing=timing and dtype != bf16,
+                                     quiet=not timing)
+                    err = max(err, out[4])
+                    del g, h
+                    torch.cuda.empty_cache()
+                tot = [a + b for a, b in zip(tot, out[:3])]
+                by = out[3]
+            print(f"[kernels] {kernel} qwen2-0.5b round (14 leaves, f32, "
+                  f"block {block}, kb {kb}): bitwise=ok"
+                  + (f" kernel_ms={tot[0]:.4f} plain_ms={tot[1]:.4f} "
+                     f"bound_ms={tot[2]:.4f} ({by})" if timing else ""))
+            if (block, kb) == (256, 16):
+                # no single PyTorch call computes a block-top-k with JAX's
+                # tie order
+                rows[kernel] = {"ms": tot[0], "plain_ms": tot[1],
+                                "bound_ms": tot[2], "bound_by": by,
+                                "max_abs_err": err, "library_ms": None}
+    for row in rows.values():
+        row["max_abs_err"] = err
+    selection_sass(leaves, gen)
     return rows
 
 
 #: the smoke reference's uplink compressor of each path; QSGD and the
-#: pipelined path have a QSGD(16) downlink
-SMOKE_SPECS = {"block_topk": "block_topk:256,16", "qsgd": "qsgd:16",
+#: pipelined path have a QSGD(16) downlink.  Block-top-k also at 384/16
+#: (a warp per row) and 4096/64 (a CTA per row; the JAX perf_iter and dry
+#: run's default), both blocks that JAX's trainer runs.
+SMOKE_SPECS = {"block_topk": "block_topk:256,16",
+               "block_topk_384": "block_topk:384,16",
+               "block_topk_4096": "block_topk:4096,64", "qsgd": "qsgd:16",
                "randk": "randk:4096", "pipelined": "block_topk:256,16"}
 
 
 def run_steps(params, cfg, kind, steps=3, n=2):
     """``steps`` 2-worker EF-BV steps of the sparse all-gather wire from
-    ``params``: block-top-k (256, 16) up, QSGD(16) up and down, rand-k
-    (k = 4096) up, or the pipelined (depth 1) schedule with block-top-k up
-    and QSGD(16) down; step s under the key fold_in(key(0), s).  Returns
-    the losses."""
+    ``params``: block-top-k (256/16, 384/16 or 4096/64) up, QSGD(16) up
+    and down, rand-k (k = 4096) up, or the pipelined (depth 1) schedule
+    with block-top-k up and QSGD(16) down; step s under the key
+    fold_in(key(0), s).  Returns the losses."""
     from repro_torch import random
     from repro_torch.core.compressors import QSGD, make_compressor
     from repro_torch.core.efbv import EFBV, Downlink, Pipeline
@@ -981,6 +1174,7 @@ def run_steps(params, cfg, kind, steps=3, n=2):
 def phase_reference():
     import dataclasses
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.model import build_model
     from repro_torch import tree as T
 
@@ -993,8 +1187,16 @@ def phase_reference():
                        "pipelined": " up, qsgd:16 down, depth:1"}.get(kind,
                                                                      "")
         cpu = run_steps(params, cfg, kind)
+        reset_launches()
         gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, kind)
-        print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu}")
+        packs = LAUNCHES["pack_update"]
+        print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu} "
+              f"pack_update launches={packs}")
+        # every leaf of both workers in each of 3 steps goes through the
+        # pack kernel (block % 128 == 0)
+        if kind.startswith("block_topk") and packs != 3 * 2 * FULL_LEAVES:
+            raise AssertionError(f"[reference] {name}: {packs} pack "
+                                 "launches")
         for a, b in zip(cpu, gpu):
             # f32 matmuls sum in another order on the card, and so do the
             # QSGD norms; a block-top-k near-tie or a QSGD level can then

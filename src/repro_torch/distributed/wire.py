@@ -32,7 +32,8 @@ CUDA; ``oracle`` takes the codec's plain encode -> decode -> update, the
 reference the tests hold the others against.  The wrappers' two sides
 match the Pallas kernels bit for bit.  Codecs without a kernel run their
 plain encode -> decode -> update under ``auto`` and ``oracle``, and raise
-under ``cuda``.
+under ``cuda``.  A block-top-k leaf whose block is not a multiple of 128
+takes the plain path under ``auto``, as JAX's ``fused_pack`` does.
 
 For block-top-k the oracle matches JAX's jnp oracle, which differs from the
 kernel in two places: it gathers a selected -0.0 as -0.0 (the kernel sends
@@ -572,8 +573,14 @@ def fused_pack(lw: LeafWire, g: torch.Tensor, h: torch.Tensor, lam: float, *,
 
     ``auto`` and ``cuda`` go through the kernel wrapper (one pass, dense d
     never in device memory), which raises on a CUDA tensor for a block the
-    kernel does not take; only ``oracle`` takes the plain layout spec."""
-    if _kernel_mode(kernel, g) != "oracle":
+    kernel does not take; ``oracle`` takes the plain layout spec.  As in
+    the JAX package, ``auto`` routes a block with block % 128 != 0 (which
+    no kernel tiles) to the plain layout spec on any device, by its shape
+    alone and before any launch; an explicit ``cuda`` raises there."""
+    mode = _kernel_mode(kernel, g)
+    if mode == "auto" and lw.block % 128:
+        mode = "oracle"
+    if mode != "oracle":
         return ops.efbv_pack_update(g, h, lam, block=lw.block, kb=lw.kb)
     delta = g.float() - h.float()
     vals, idx = pack_oracle(lw, delta)

@@ -93,12 +93,18 @@ def compile_sources(names: Iterable[str]) -> Dict[str, str]:
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs = {}
+    failed = []
+    # wait for every nvcc before raising: none is left running
     for name, (proc, tmp, out) in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{logs[name]}")
-        os.replace(tmp, out)
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(
+            f"{name}.cu:\n{logs[name]}" for name in failed))
     return logs
 
 

@@ -29,19 +29,34 @@
 //   * bf16 values are read exactly into f32, and d and h_out are rounded
 //     back to nearest even (__float2bfloat16, as torch rounds on the card).
 //
-// Layout: one warp per row, the row in registers (BLOCK / 32 values per
-// lane, coalesced 128-byte loads and stores of f32, 64-byte of bf16), 8
-// rows per CTA.  Instantiated for every BLOCK % 128 == 0 from 128 to 1024;
-// the wrapper refuses larger blocks.
+// Selection (block_select.cuh): a threshold search replaced the kb rounds
+// of warp-shuffle argmax that these kernels ran until then (192 thread
+// instructions per value at BLOCK 256, kb 16; 432 at 1024/64): the kb-th
+// largest key by bisection with an early exit, then every key above it and
+// the lowest columns among the keys equal to it.  These kernels need only
+// the mask, not the payload order.
 //
-// Bound: memory at small kb.  block_topk reads x and writes out (8 B per
-// f32 value), efbv_update reads g and h and writes d and h_out (16 B); over
-// one worker's full qwen2-0.5b gradient (494,032,768 values) 1.18 and 2.36
-// ms at the H100 SXM's 3.35 TB/s.  The selection (block_select.cuh)
-// issues 12 thread instructions per value and round at BLOCK 256, 6.75 at
-// 1024: 2.83 ms over those values at kb 16 and BLOCK 256, so it, not the
-// bytes, sets this design's time.  The dense d and out are the functions'
-// outputs: unlike pack_update.cu, nothing stays on chip.
+// Layouts: one warp per row with the row in registers (BLOCK / 32 values
+// per lane, coalesced 128-byte loads and stores of f32, 64-byte of bf16), 8
+// rows per CTA, for every BLOCK % 128 == 0 up to 1024; one CTA per row for
+// every block % 128 == 0 from 1152 to 4096, the block a run-time argument:
+// PER = 16, 8 or 4 values a thread (the most that leaves whole warps:
+// block % 512, % 256, % 128), block / PER threads, thread t holding
+// columns t, t + block / PER, ...  The wrapper refuses larger blocks.
+//
+// Bound: memory.  block_topk reads x and writes out (8 B per f32 value),
+// efbv_update reads g and h and writes d and h_out (16 B); over one
+// worker's full qwen2-0.5b gradient (494,032,768 values) 1.18 and 2.36 ms
+// at the H100 SXM's 3.35 TB/s.  Issue overtakes the bytes above about 80
+// thread instructions per value for block_topk and 160 for efbv_update
+// (33.5e12 thread instructions/s).  Issue count (SASS, counted by
+// chip_smoke.py with the search's steps replayed on the 14 full-width
+// leaves): a step is 4.5 instructions per value at BLOCK 256, 3.5 at 1024,
+// 4.9 at 4096; with 12.8-16.4 steps on average, 82 / 94 per value in all
+// at 256/16 (block_topk / efbv_update), 74 / 83 at 1024/64, so about as
+// much issue as bytes for block_topk and half of it for efbv_update.  The
+// dense d and out are the functions' outputs: unlike pack_update.cu,
+// nothing stays on chip.
 //
 // Plain C interface (loaded with ctypes, no PyTorch headers): each entry
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -56,6 +71,8 @@
 namespace {
 
 constexpr int kWarpsPerCta = 8;
+constexpr int kMaxBlock = 4096;    // a CTA per row: at most 1024 threads
+                                   // of 4 values
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -80,31 +97,64 @@ __device__ __forceinline__ float masked(float v, bool keep, bool select) {
   return __fmul_rn(v, keep ? 1.0f : 0.0f);
 }
 
+// out = x * keep over the PER values a thread holds (columns row.col(j))
+template <int PER, typename T, class Row>
+__device__ __forceinline__ void topk_row(const T* __restrict__ xr,
+                                         T* __restrict__ outr, int block,
+                                         int kb, Row& r) {
+  float v[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) v[j] = to_f32(xr[r.col(j)]);
+  const unsigned int sel = block_select::select_mask<PER>(v, kb, block, r);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const bool keep = (sel >> j) & 1u;
+    // f32 at kb = 1 selects: a kept value is stored as read
+    outr[r.col(j)] = (sizeof(T) == 4 && kb == 1)
+                         ? (keep ? from_f32<T>(v[j]) : from_f32<T>(0.0f))
+                         : from_f32<T>(masked(v[j], keep, false));
+  }
+}
+
+// d = T(delta * keep), h_out = T(h + lam * d) over the PER values a thread
+// holds
+template <int PER, typename T, class Row>
+__device__ __forceinline__ void update_row(const T* __restrict__ g,
+                                           const T* __restrict__ h,
+                                           T* __restrict__ d_out,
+                                           T* __restrict__ h_out, int block,
+                                           int kb, float lam, Row& r) {
+  float hv[PER];
+  float dv[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    hv[j] = to_f32(h[r.col(j)]);
+    dv[j] = __fsub_rn(to_f32(g[r.col(j)]), hv[j]);
+  }
+  const unsigned int sel = block_select::select_mask<PER>(dv, kb, block, r);
+  // f32 at kb = 1: a multiply then an add; otherwise one fused op
+  const bool two_roundings = sizeof(T) == 4 && kb == 1;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const T d = from_f32<T>(masked(dv[j], (sel >> j) & 1u, kb == 1));
+    const float df = to_f32(d);
+    d_out[r.col(j)] = d;
+    h_out[r.col(j)] = from_f32<T>(
+        two_roundings ? __fadd_rn(hv[j], __fmul_rn(lam, df))
+                      : __fmaf_rn(lam, df, hv[j]));
+  }
+}
+
+// one warp per row of BLOCK <= 1024 values
 template <int BLOCK, typename T>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 block_topk_rows(const T* __restrict__ x, T* __restrict__ out, long long nb,
                 int kb) {
-  constexpr int PER = BLOCK / 32;
   const long long row =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (row >= nb) return;  // whole warps: the shuffles stay full
-  const int lane = threadIdx.x & 31;
-  const T* xr = x + row * BLOCK;
-  T* outr = out + row * BLOCK;
-
-  float v[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) v[j] = to_f32(xr[j * 32 + lane]);
-  const unsigned int sel = block_select::select_mask<PER>(v, kb, lane);
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = j * 32 + lane;
-    const bool keep = (sel >> j) & 1u;
-    // f32 at kb = 1 selects: a kept value is stored as read
-    outr[c] = (sizeof(T) == 4 && kb == 1)
-                  ? (keep ? xr[c] : from_f32<T>(0.0f))
-                  : from_f32<T>(masked(v[j], keep, false));
-  }
+  block_select::WarpRow r{(int)(threadIdx.x & 31)};
+  topk_row<BLOCK / 32>(x + row * BLOCK, out + row * BLOCK, BLOCK, kb, r);
 }
 
 template <int BLOCK, typename T>
@@ -112,34 +162,38 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
 efbv_update_rows(const T* __restrict__ g, const T* __restrict__ h,
                  T* __restrict__ d_out, T* __restrict__ h_out, long long nb,
                  int kb, float lam) {
-  constexpr int PER = BLOCK / 32;
   const long long row =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (row >= nb) return;
-  const int lane = threadIdx.x & 31;
+  block_select::WarpRow r{(int)(threadIdx.x & 31)};
   const long long base = row * BLOCK;
+  update_row<BLOCK / 32>(g + base, h + base, d_out + base, h_out + base,
+                         BLOCK, kb, lam, r);
+}
 
-  float hv[PER];
-  float dv[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = j * 32 + lane;
-    hv[j] = to_f32(h[base + c]);
-    dv[j] = __fsub_rn(to_f32(g[base + c]), hv[j]);
-  }
-  const unsigned int sel = block_select::select_mask<PER>(dv, kb, lane);
-  // f32 at kb = 1: a multiply then an add; otherwise one fused op
-  const bool two_roundings = sizeof(T) == 4 && kb == 1;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = j * 32 + lane;
-    const T d = from_f32<T>(masked(dv[j], (sel >> j) & 1u, kb == 1));
-    const float df = to_f32(d);
-    d_out[base + c] = d;
-    h_out[base + c] = from_f32<T>(
-        two_roundings ? __fadd_rn(hv[j], __fmul_rn(lam, df))
-                      : __fmaf_rn(lam, df, hv[j]));
-  }
+// one CTA of block / PER threads per row
+template <int PER, typename T>
+__global__ void __launch_bounds__(kMaxBlock / PER)
+block_topk_cta(const T* __restrict__ x, T* __restrict__ out, int block,
+               int kb) {
+  __shared__ int sums[64];
+  block_select::CtaRow r{sums, (int)(threadIdx.x >> 5),
+                         (int)(threadIdx.x & 31), (int)(blockDim.x >> 5), 0};
+  const long long base = (long long)blockIdx.x * block;
+  topk_row<PER>(x + base, out + base, block, kb, r);
+}
+
+template <int PER, typename T>
+__global__ void __launch_bounds__(kMaxBlock / PER)
+efbv_update_cta(const T* __restrict__ g, const T* __restrict__ h,
+                T* __restrict__ d_out, T* __restrict__ h_out, int block,
+                int kb, float lam) {
+  __shared__ int sums[64];
+  block_select::CtaRow r{sums, (int)(threadIdx.x >> 5),
+                         (int)(threadIdx.x & 31), (int)(blockDim.x >> 5), 0};
+  const long long base = (long long)blockIdx.x * block;
+  update_row<PER>(g + base, h + base, d_out + base, h_out + base, block, kb,
+                  lam, r);
 }
 
 unsigned int ctas(long long nb) {
@@ -163,13 +217,13 @@ int launch_update(const T* g, const T* h, T* d, T* h_out, long long nb,
 
 // argument checks shared by the entries; cudaSuccess when the call is fine
 int check(long long nb, int block, int kb) {
-  if (kb <= 0 || kb > block) return (int)cudaErrorInvalidValue;
-  if ((nb + kWarpsPerCta - 1) / kWarpsPerCta > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
+  if (kb <= 0 || kb > block || block % 128 || block > kMaxBlock)
+    return (int)cudaErrorInvalidValue;
+  if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   return (int)cudaSuccess;
 }
 
-#define BLOCK_CASES(F) \
+#define WARP_BLOCKS(F) \
   F(128) F(256) F(384) F(512) F(640) F(768) F(896) F(1024)
 
 template <typename T>
@@ -182,10 +236,20 @@ int block_topk(const T* x, T* out, long long nb, int block, int kb,
 #define CASE(B) \
   case B:       \
     return launch_topk<B, T>(x, out, nb, kb, s);
-    BLOCK_CASES(CASE)
+    WARP_BLOCKS(CASE)
 #undef CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      // the most values a thread that leave whole warps
+      if (block % 512 == 0)
+        block_topk_cta<16, T><<<(unsigned int)nb, block / 16, 0, s>>>(
+            x, out, block, kb);
+      else if (block % 256 == 0)
+        block_topk_cta<8, T><<<(unsigned int)nb, block / 8, 0, s>>>(
+            x, out, block, kb);
+      else
+        block_topk_cta<4, T><<<(unsigned int)nb, block / 4, 0, s>>>(
+            x, out, block, kb);
+      return (int)cudaGetLastError();
   }
 }
 
@@ -199,10 +263,19 @@ int efbv_update(const T* g, const T* h, T* d, T* h_out, long long nb,
 #define CASE(B) \
   case B:       \
     return launch_update<B, T>(g, h, d, h_out, nb, kb, lam, s);
-    BLOCK_CASES(CASE)
+    WARP_BLOCKS(CASE)
 #undef CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (block % 512 == 0)
+        efbv_update_cta<16, T><<<(unsigned int)nb, block / 16, 0, s>>>(
+            g, h, d, h_out, block, kb, lam);
+      else if (block % 256 == 0)
+        efbv_update_cta<8, T><<<(unsigned int)nb, block / 8, 0, s>>>(
+            g, h, d, h_out, block, kb, lam);
+      else
+        efbv_update_cta<4, T><<<(unsigned int)nb, block / 4, 0, s>>>(
+            g, h, d, h_out, block, kb, lam);
+      return (int)cudaGetLastError();
   }
 }
 

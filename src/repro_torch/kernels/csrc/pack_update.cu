@@ -14,43 +14,66 @@
 //
 // Rounding matches the Pallas kernel bit for bit:
 //   * h_out is a multiply then an add, each rounded on its own
-//     (__fmul_rn / __fadd_rn stop nvcc from contracting them into an FMA);
+//     (__fmul_rn / __fadd_rn stop nvcc from contracting them into an FMA),
+//     except at kb = 1: there XLA contracts the Pallas kernel's h update
+//     (jitted in interpret mode) into one fused multiply-add, __fmaf_rn
+//     (measured against interpret mode; ROADMAP fault l);
 //   * the Pallas kernel extracts each value as a masked row SUM, which turns
 //     a selected -0.0 into +0.0; __fadd_rn(v, 0.0f) does the same;
 //   * a NaN anywhere in a row's delta makes the Pallas kernel's row max NaN
 //     in every round, so no column matches it: every round of that row
 //     writes (0.0, 0) and selects nothing (h_out = h + lam * 0).
 //
-// Layout: one warp per row; lane l holds columns l, l + 32, l + 64, ... in
-// registers (BLOCK / 32 values), so every load and store of a row is a
-// coalesced 128-byte transaction.  Selection runs kb rounds of a warp-shuffle
-// argmax on the pair (|delta|, -col); the winning lane writes that round's
-// payload entry and marks the value selected in a per-lane bitmask (the
-// selection lives in block_select.cuh, shared with block_topk.cu).  The
-// dense compressed d never reaches device memory.
+// Selection (block_select.cuh): a threshold search replaced the kb rounds of
+// warp-shuffle argmax that this kernel ran until then (192 thread
+// instructions per value at BLOCK 256, kb 16; 432 at 1024/64).  The kb-th
+// largest key is found by bisection with an early exit, the set is every
+// key above it plus the lowest columns among the keys equal to it, and the
+// payload order comes from compacting the winners in column order into the
+// shared-memory slab and ranking each (block_select::pack_payload).
+//
+// Layouts:
+//   * BLOCK <= 1024 (every multiple of 128): one warp per row, 8 rows per
+//     CTA; lane l holds columns l, l + 32, ... in registers (BLOCK / 32
+//     values), so every load and store of a row is a coalesced 128-byte
+//     transaction.
+//   * 1024 < block <= 4096 (every multiple of 128): one CTA per row of
+//     block / PER threads, PER = 16, 8 or 4 values a thread (the most
+//     that leaves whole warps), thread t holding columns t, t + block /
+//     PER, ...; the block is a run-time argument and the warps' counts meet
+//     in shared memory at each step of the search.
+//
+// Payload store (replaces _pack_update_stream_kernel, pack.py:91, the
+// Pallas variant that stages the payload in VMEM scratch and copies it out
+// asynchronously; both Pallas bodies give the same bits): the payload is
+// built in a slab of dynamic shared memory, vals then idx (after the slab,
+// as much scratch again holds the winners while they are ranked: 16 kb B
+// per row in all, 128 KiB per CTA at kb = block = 1024, 64 KiB at kb =
+// block = 4096); after a proxy fence and a barrier, one thread hands the
+// vals slab and the idx slab to the Tensor Memory Accelerator as two bulk
+// stores (cp.async.bulk.global.shared::cta), and the threads then compute
+// and store h_out while the payload is copied out; that thread waits for
+// the copies to have read the slab before the CTA exits.  A bulk copy needs a
+// 16-byte-aligned address and a size that is a multiple of 16:
+//   * a warp-per-row CTA's slab is 8 rows x kb x 4 B per array (32 kb B)
+//     at byte offset 32 kb blockIdx.x, aligned at any kb, so the wrapper
+//     allocates vals and idx with nb rounded up to whole CTAs (from a
+//     16-byte-aligned base) and returns the first nb rows; rows past nb
+//     take part in the barrier and write (0.0, 0) into the padding;
+//   * a CTA-per-row slab is 4 kb B per array, a multiple of 16 only when
+//     kb % 4 == 0: there it leaves by bulk stores, and at other kb the
+//     threads copy it out with plain stores.
 //
 // Bound: memory.  Each row reads g and h and writes h_out and the payload:
 // 3 * 4 * BLOCK + 8 * kb bytes (3,200 B at BLOCK 256, kb 16).  For one
 // worker's full qwen2-0.5b gradient (1,929,816 rows) that is 6.18 GB, about
-// 1.8 ms at the H100 SXM's 3.35 TB/s.  The selection (block_select.cuh)
-// issues 12 thread instructions per value and round at BLOCK 256: 2.83 ms
-// over that gradient at kb 16, above the memory time.
-//
-// Payload store (replaces _pack_update_stream_kernel, pack.py:91, the
-// Pallas variant that stages the payload in VMEM scratch and copies it out
-// asynchronously; both Pallas bodies give the same bits): each warp writes
-// its row's kb (value, index) pairs into dynamic shared memory, a slab of
-// 8 rows x kb x 8 B per CTA (1 KiB at kb 16, 64 KiB at kb = block = 1024).
-// After a proxy fence and a barrier, one thread hands the vals slab and the
-// idx slab to the Tensor Memory Accelerator as two bulk stores
-// (cp.async.bulk.global.shared::cta), and the warps then compute and store
-// h_out while the payload is copied out; that thread waits for the copies
-// to have read the slab before the CTA exits.  A bulk copy needs a
-// 16-byte-aligned address and a size that is a multiple of 16: a CTA's slab
-// is 32 * kb bytes at byte offset 32 * kb * blockIdx.x, so the wrapper
-// allocates vals and idx with nb rounded up to whole CTAs (from a
-// 16-byte-aligned base) and returns the first nb rows; rows past nb take
-// part in the barrier and write (0.0, 0) into the padding.
+// 1.84 ms at the H100 SXM's 3.35 TB/s.  At 12 B per value the kernel can
+// issue about 120 thread instructions per value before issue, not the
+// bytes, sets its time (33.5e12 thread instructions/s).  Issue count (SASS,
+// counted by chip_smoke.py with the search's steps replayed on the 14
+// full-width leaves): a step is 4.6 instructions per value at BLOCK 256,
+// 3.6 at 1024, 5.5 at 4096; with the compaction and the rank loop, 89 per
+// value in all at 256/16 and 79 at 1024/64 (the rounds: 192 and 432).
 //
 // Plain C interface (loaded with ctypes, no PyTorch headers): the launcher
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -64,9 +87,10 @@
 namespace {
 
 constexpr int kWarpsPerCta = 8;
+constexpr int kMaxBlock = 4096;    // a CTA per row: at most 1024 threads
+                                   // of 4 values
 
-// a CTA's payload slab: vals [kWarpsPerCta][kb] f32, then
-// idx [kWarpsPerCta][kb] int32
+// a CTA's payload slab: vals [rows][kb] f32, then idx [rows][kb] int32
 extern __shared__ __align__(16) unsigned char slab_smem[];
 
 // one bulk copy of ``bytes`` from shared to global memory, in the current
@@ -78,6 +102,27 @@ __device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
   asm volatile(
       "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
       :: "l"(gmem), "r"(src), "r"(bytes) : "memory");
+}
+
+// make this thread's slab writes visible to the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the slab must outlive the copies' reads of it (the Pallas kernel's
+// .wait() on its copies)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// h + lam * d as the Pallas kernel rounds it in interpret mode
+__device__ __forceinline__ float h_update(float h, float d, float lam,
+                                          int kb) {
+  return kb == 1 ? __fmaf_rn(lam, d, h) : __fadd_rn(h, __fmul_rn(lam, d));
 }
 
 template <int BLOCK>
@@ -96,6 +141,9 @@ pack_update_rows(const float* __restrict__ g, const float* __restrict__ h,
   float* vslab = reinterpret_cast<float*>(slab_smem);
   float* vrow = vslab + warp * kb;
   int* irow = reinterpret_cast<int*>(vslab + kWarpsPerCta * kb) + warp * kb;
+  // the row's scratch, after both slabs: its winners as (value, column)
+  float2* winners =
+      reinterpret_cast<float2*>(vslab + 2 * kWarpsPerCta * kb) + warp * kb;
 
   const long long base = row * BLOCK;
   float hv[PER];
@@ -108,65 +156,106 @@ pack_update_rows(const float* __restrict__ g, const float* __restrict__ h,
       hv[j] = h[base + c];
       dv[j] = __fsub_rn(g[base + c], hv[j]);
     }
-
-    // a NaN in the row's delta makes the Pallas kernel's row max NaN, which
-    // matches no column: no round of such a row has a winner
-    const bool row_nan = block_select::row_has_nan<PER>(dv);
-    for (int r = 0; r < kb; ++r) {
-      const int bcol =
-          block_select::next_winner<PER>(dv, selected, row_nan, lane);
-      if (bcol == BLOCK) {
-        // no winner: (0.0, 0), as the Pallas kernel's masked sum and max
-        // give
-        if (lane == 0) {
-          vrow[r] = 0.0f;
-          irow[r] = 0;
-        }
-      } else if ((bcol & 31) == lane) {
-        const int jw = bcol >> 5;
-#pragma unroll
-        for (int j = 0; j < PER; ++j) {
-          if (j == jw) {
-            selected |= 1u << j;
-            vrow[r] = __fadd_rn(dv[j], 0.0f);
-            irow[r] = bcol;
-          }
-        }
-      }
-    }
+    block_select::WarpRow r{lane};
+    selected = block_select::select_mask<PER>(dv, kb, BLOCK, r);
+    block_select::pack_payload<PER>(dv, selected, kb, r, vrow, irow,
+                                    winners);
   } else {
     // a row past nb: its slab row lands in the padding
-    for (int r = lane; r < kb; r += 32) {
-      vrow[r] = 0.0f;
-      irow[r] = 0;
+    for (int p = lane; p < kb; p += 32) {
+      vrow[p] = 0.0f;
+      irow[p] = 0;
     }
   }
 
-  // make this thread's slab writes visible to the async proxy, then one
-  // thread starts the CTA's two bulk stores
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   __syncthreads();
   if (threadIdx.x == 0) {
     const unsigned int bytes = kWarpsPerCta * kb * 4u;
     const long long off = (long long)blockIdx.x * kWarpsPerCta * kb;
     bulk_store(vals + off, slab_smem, bytes);
     bulk_store(idx + off, slab_smem + bytes, bytes);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    bulk_commit();
   }
 
   if (live) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const float d = ((selected >> j) & 1u) ? dv[j] : 0.0f;
-      h_out[base + j * 32 + lane] = __fadd_rn(hv[j], __fmul_rn(lam, d));
+      h_out[base + j * 32 + lane] = h_update(hv[j], d, lam, kb);
     }
   }
 
-  if (threadIdx.x == 0) {
-    // the slab must outlive the copies' reads of it (the Pallas kernel's
-    // .wait() on its copies)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (threadIdx.x == 0) bulk_wait_read();
+}
+
+// one row of ``block`` values per CTA of block / PER threads
+template <int PER>
+__global__ void __launch_bounds__(kMaxBlock / PER)
+pack_update_cta(const float* __restrict__ g, const float* __restrict__ h,
+                float* __restrict__ vals, int* __restrict__ idx,
+                float* __restrict__ h_out, int block, int kb, float lam) {
+  __shared__ int sums[64];
+  const int t = threadIdx.x;
+  const int threads = blockDim.x;
+  block_select::CtaRow r{sums, t >> 5, t & 31, threads >> 5, 0};
+  const long long row = blockIdx.x;
+  const long long base = row * block;
+  // the slab, vals then idx, then the scratch of the winners as (value,
+  // column)
+  float* vrow = reinterpret_cast<float*>(slab_smem);
+  int* irow = reinterpret_cast<int*>(vrow + kb);
+  float2* winners = reinterpret_cast<float2*>(vrow + 2 * kb);
+
+  float hv[PER];
+  float dv[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int c = j * threads + t;
+    hv[j] = h[base + c];
+    dv[j] = __fsub_rn(g[base + c], hv[j]);
   }
+  const unsigned int selected =
+      block_select::select_mask<PER>(dv, kb, block, r);
+  block_select::pack_payload<PER>(dv, selected, kb, r, vrow, irow,
+                                  winners);
+
+  const bool bulk = kb % 4 == 0;
+  if (bulk) fence_proxy_async();
+  __syncthreads();
+  if (bulk) {
+    if (t == 0) {
+      bulk_store(vals + row * kb, vrow, kb * 4u);
+      bulk_store(idx + row * kb, irow, kb * 4u);
+      bulk_commit();
+    }
+  } else {
+    for (int p = t; p < kb; p += threads) {
+      vals[row * kb + p] = vrow[p];
+      idx[row * kb + p] = irow[p];
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float d = ((selected >> j) & 1u) ? dv[j] : 0.0f;
+    h_out[base + j * threads + t] = h_update(hv[j], d, lam, kb);
+  }
+
+  if (bulk && t == 0) bulk_wait_read();
+}
+
+// above 48 KiB of shared memory, static included, a kernel must opt in to
+// its dynamic shared memory: each launcher opts in to the most it has asked
+// for so far (from 0, so the static shared memory never tips it over
+// unseen)
+template <typename K>
+int opt_in(K kernel, size_t smem, size_t& opted_in) {
+  if (smem <= opted_in) return (int)cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) opted_in = smem;
+  return (int)e;
 }
 
 template <int BLOCK>
@@ -174,43 +263,55 @@ int launch(const float* g, const float* h, float* vals, int* idx,
            float* h_out, long long nb, int kb, float lam,
            cudaStream_t stream) {
   const long long ctas = (nb + kWarpsPerCta - 1) / kWarpsPerCta;
-  const size_t smem = (size_t)kWarpsPerCta * kb * 8;
-  // above 48 KiB a kernel must opt in to its dynamic shared memory
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pack_update_rows<BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = smem;
-  }
+  // slab and scratch: 4 arrays of kWarpsPerCta x kb
+  const size_t smem = (size_t)kWarpsPerCta * kb * 16;
+  static size_t opted_in = 0;
+  if (const int e = opt_in(pack_update_rows<BLOCK>, smem, opted_in)) return e;
   pack_update_rows<BLOCK><<<(unsigned int)ctas, kWarpsPerCta * 32, smem,
                             stream>>>(g, h, vals, idx, h_out, nb, kb, lam);
   return (int)cudaGetLastError();
 }
 
+template <int PER>
+int launch_cta(const float* g, const float* h, float* vals, int* idx,
+               float* h_out, long long nb, int block, int kb, float lam,
+               cudaStream_t stream) {
+  // slab and scratch: 4 arrays of kb (64 KiB at kb = 4096)
+  const size_t smem = (size_t)kb * 16;
+  static size_t opted_in = 0;
+  if (const int e = opt_in(pack_update_cta<PER>, smem, opted_in)) return e;
+  pack_update_cta<PER><<<(unsigned int)nb, block / PER, smem, stream>>>(
+      g, h, vals, idx, h_out, block, kb, lam);
+  return (int)cudaGetLastError();
+}
+
+#define WARP_BLOCKS(F) \
+  F(128) F(256) F(384) F(512) F(640) F(768) F(896) F(1024)
+
 }  // namespace
 
-// vals and idx hold nb rounded up to whole CTAs (a multiple of 8 rows) and
-// start 16-byte aligned
+// vals and idx hold nb rounded up to whole CTAs of 8 rows and start 16-byte
+// aligned; block is any multiple of 128 up to 4096
 extern "C" int pack_update_f32(const float* g, const float* h, float* vals,
                                int* idx, float* h_out, long long nb,
                                int block, int kb, float lam, void* stream) {
   if (nb <= 0) return (int)cudaSuccess;
-  if (kb <= 0 || kb > block) return (int)cudaErrorInvalidValue;
-  if ((nb + kWarpsPerCta - 1) / kWarpsPerCta > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
+  if (kb <= 0 || kb > block || block % 128 || block > kMaxBlock)
+    return (int)cudaErrorInvalidValue;
+  if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (block) {
-    case 128:
-      return launch<128>(g, h, vals, idx, h_out, nb, kb, lam, s);
-    case 256:
-      return launch<256>(g, h, vals, idx, h_out, nb, kb, lam, s);
-    case 512:
-      return launch<512>(g, h, vals, idx, h_out, nb, kb, lam, s);
-    case 1024:
-      return launch<1024>(g, h, vals, idx, h_out, nb, kb, lam, s);
+#define CASE(B) \
+  case B:       \
+    return launch<B>(g, h, vals, idx, h_out, nb, kb, lam, s);
+    WARP_BLOCKS(CASE)
+#undef CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      // the most values a thread that leave whole warps
+      if (block % 512 == 0)
+        return launch_cta<16>(g, h, vals, idx, h_out, nb, block, kb, lam, s);
+      if (block % 256 == 0)
+        return launch_cta<8>(g, h, vals, idx, h_out, nb, block, kb, lam, s);
+      return launch_cta<4>(g, h, vals, idx, h_out, nb, block, kb, lam, s);
   }
 }

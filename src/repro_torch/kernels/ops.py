@@ -105,21 +105,26 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 #: which counts an FMA as two)
 H100_ISSUE_PER_S = 33.5e12
 #: per kernel: (values read or written per input value, elementwise ops per
-#: value besides the kb selection compares)
+#: value besides the selection's compares)
 DENSE_WORK = {"block_topk": (2, 2),     # read x, write out; |x|, x * keep
               "efbv_update": (4, 4),    # g, h, d, h'; -, |.|, *, fma
               "pack_update": (3, 3)}    # g, h, h' (+ payload); -, |.|, fma
+#: the most steps the selection's threshold search takes: one per bit of a
+#: 31-bit magnitude key (``csrc/block_select.cuh``)
+SEARCH_STEPS = 31
 
 
-def dense_bound_ms(kernel: str, values: int, kb: int, elem: int = 4,
-                   payload: int = 0) -> Tuple[float, str]:
+def dense_bound_ms(kernel: str, values: int, elem: int = 4, payload: int = 0
+                   ) -> Tuple[float, str]:
     """(least ms, what sets it) of ``kernel`` over ``values`` values: each
     input read once and each output written once (``payload`` bytes
-    besides the dense tensors) at the memory rate, or one compare per value
-    in each of the kb rounds of max extraction plus the elementwise ops at
-    the issue rate."""
+    besides the dense tensors) at the memory rate, or the elementwise ops
+    plus one compare per value in each step of the threshold search, at
+    most SEARCH_STEPS, at the issue rate.  That is at most 35 operations
+    per value, below the bytes of f32 and bf16 rows (80 and 40 per value
+    for block_topk), so the bound is the bytes."""
     tensors, n_ops = DENSE_WORK[kernel]
     t_bytes = (tensors * elem * values + payload) / H100_BYTES_PER_S
-    t_ops = (kb + n_ops) * values / H100_ISSUE_PER_S
+    t_ops = (n_ops + SEARCH_STEPS) * values / H100_ISSUE_PER_S
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"

@@ -32,16 +32,23 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ref
 
-#: block sizes the CUDA pack kernel is instantiated for (one warp per row,
-#: BLOCK / 32 values per lane)
-CUDA_BLOCKS = (128, 256, 512, 1024)
-#: block sizes the dense block-top-k kernels are instantiated for
-DENSE_BLOCKS = tuple(range(128, 1025, 128))
+#: the largest block the CUDA block-top-k kernels take: above 1024 a row
+#: is one CTA of at least 4 values a thread, at most 1024 threads
+MAX_BLOCK = 4096
+#: block sizes the CUDA block-top-k kernels (the pack and the dense two)
+#: take: every multiple of 128 up to MAX_BLOCK (a warp per row up to 1024,
+#: a CTA per row above)
+CUDA_BLOCKS = tuple(range(128, MAX_BLOCK + 1, 128))
 #: the types of the dense kernels' entries
 DENSE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: rows per CTA of the CUDA pack kernel: it stores whole CTAs' payload
 #: slabs, so its vals and idx are padded to a multiple of this
 CTA_ROWS = 8
+
+
+def _block_message(name: str, block: int) -> str:
+    return (f"the CUDA {name} kernel takes block % 128 == 0 up to "
+            f"{MAX_BLOCK} (MAX_BLOCK), got {block}")
 
 
 def _check(g2d: torch.Tensor, h2d: torch.Tensor, kb: int) -> None:
@@ -72,8 +79,7 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
         raise ValueError(f"pack_update runs on cpu or cuda, not {g2d.device}")
     nb, block = g2d.shape
     if block not in CUDA_BLOCKS:
-        raise ValueError(f"the CUDA pack kernel takes block in {CUDA_BLOCKS}, "
-                         f"got {block}")
+        raise ValueError(_block_message("pack_update", block))
     if not (g2d.is_contiguous() and h2d.is_contiguous()):
         raise ValueError("pack_update needs contiguous g and h")
     from repro_torch.kernels import build
@@ -219,9 +225,8 @@ def _dense_entry(name: str, x2d: torch.Tensor, *tensors: torch.Tensor):
     only the card needs."""
     if x2d.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x2d.device}")
-    if x2d.shape[1] not in DENSE_BLOCKS:
-        raise ValueError(f"the CUDA {name} kernel takes block in "
-                         f"{DENSE_BLOCKS}, got {x2d.shape[1]}")
+    if x2d.shape[1] not in CUDA_BLOCKS:
+        raise ValueError(_block_message(name, x2d.shape[1]))
     if not all(t.is_contiguous() for t in (x2d, *tensors)):
         raise ValueError(f"{name} needs contiguous rows")
     from repro_torch.kernels import build

@@ -29,7 +29,10 @@ def pack_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
     h_out (nb, block) f32).
 
     ``h_out = h + lam * d`` is two ops, each rounded on its own, as in the
-    Pallas kernel; ``vals + 0.0`` turns a selected -0.0 into +0.0, as the
+    Pallas kernel, except at kb = 1, where XLA contracts the Pallas
+    kernel's h update into one fused multiply-add (``torch.add`` with
+    ``alpha``: one rounding; ROADMAP fault l); ``vals + 0.0`` turns a
+    selected -0.0 into +0.0, as the
     Pallas kernel's masked row sum does.  A row whose delta holds a NaN
     selects nothing and sends (0.0, 0) in every slot: the Pallas kernel's
     row max is then NaN and matches no column."""
@@ -40,7 +43,7 @@ def pack_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
     idx = idx.masked_fill(nan_row, 0)
     picked = picked.masked_fill(nan_row, 0.0)
     d = torch.zeros_like(delta).scatter(1, idx, picked)
-    h_out = h2d + lam * d
+    h_out = torch.add(h2d, d, alpha=lam) if kb == 1 else h2d + lam * d
     return picked + 0.0, idx.to(torch.int32), h_out
 
 

@@ -27,12 +27,12 @@ Rows:
 
 ``--full`` adds, on the card, the dense kernels and the pack at the 14
 full-width qwen2-0.5b leaves (494,032,768 f32 values, random from
-``--seed``) for block/kb 256/16, 1024/16 and 1024/64: one untimed pass of
-each kernel over the 14 leaves with its launch counts
+``--seed``) for block/kb 256/16, 1024/16, 1024/64 and 4096/64: one
+untimed pass of each kernel over the 14 leaves with its launch counts
 (``full/launches_b<block>_k<kb>``), then each pass timed with CUDA events
 (``full/<kernel>_b<block>_k<kb>``) beside its least time on an H100 SXM
-(``ops.dense_bound_ms``: the bytes it must move at 3.35 TB/s, or one
-compare per value and round at the card's instruction issue rate).
+(``ops.dense_bound_ms``: the bytes it must move at 3.35 TB/s, or its
+operations at the card's instruction issue rate).
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU.  Imports nothing of the JAX package.
@@ -58,9 +58,10 @@ D = 1 << 16
 KEY = random.key(0)
 #: the embed leaf of qwen2-0.5b, the largest: (vocab, d_model)
 EMBED_SIZE = 151_936 * 896
-#: block/kb of the --full passes: the SMOKE path's, the JAX bench's, and
-#: the ops wrappers' defaults
-FULL_CONFIGS = ((256, 16), (1024, 16), (1024, 64))
+#: block/kb of the --full passes: the SMOKE path's, the JAX bench's, the
+#: ops wrappers' defaults, and the JAX perf_iter and dry run's default
+#: compressor (block_topk:4096,64)
+FULL_CONFIGS = ((256, 16), (1024, 16), (1024, 64), (4096, 64))
 LAM = 0.9
 #: the caching allocator's rounding of one allocation is below 2 MiB (a
 #: free block is split when more than 1 MiB would be left)
@@ -289,7 +290,7 @@ def full_rows(dev: torch.device, seed: int = 0) -> List[Dict]:
         for name, fn in passes.items():
             ms = pass_ms(fn)
             b_ms, by = ops.dense_bound_ms(
-                name, values, kb, payload=payload * (name == "pack_update"))
+                name, values, payload=payload * (name == "pack_update"))
             rows.append({
                 "name": f"full/{name}_{tag}", "us_per_call": f"{ms * 1e3:.1f}",
                 "derived": f"values={values} leaves={len(sizes)} "

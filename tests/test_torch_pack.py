@@ -164,9 +164,9 @@ def test_ops_pads_only_to_whole_rows():
 
 
 def test_cuda_mode_needs_a_cuda_tensor():
-    """``cuda`` never runs the plain version; ``auto`` on a CPU tensor runs
-    the wrapper's plain version, which takes any block (on a CUDA tensor
-    the wrapper raises for a block the kernel is not built for)."""
+    """``cuda`` never runs the plain version; ``auto`` routes a block that
+    is not a multiple of 128 to the plain layout spec (the oracle) by its
+    shape, as JAX's ``fused_pack`` does, on any device."""
     lw = twire.LeafWire(shape=(300,), size=300, block=100, kb=4)
     x = torch.from_numpy(
         np.random.default_rng(3).standard_normal(300).astype(np.float32))
@@ -174,9 +174,59 @@ def test_cuda_mode_needs_a_cuda_tensor():
         twire.fused_pack(lw, x, torch.zeros(300), LAM, kernel="cuda")
     (v, i), h_new = twire.fused_pack(lw, x, torch.zeros(300), LAM,
                                      kernel="auto")
-    want = ref.pack_update_ref(x.reshape(3, 100), torch.zeros(3, 100), LAM, 4)
-    for a, b in zip((v, i, h_new), want):
-        assert torch.equal(a, b.reshape(a.shape))
+    (wv, wi), wh = twire.fused_pack(lw, x, torch.zeros(300), LAM,
+                                    kernel="oracle")
+    for a, b in zip((v, i, h_new), (wv, wi, wh)):
+        assert torch.equal(a, b)
+
+
+# -- the route by shape of ``auto`` (JAX's wire.py fused_pack) --------------
+
+@pytest.mark.parametrize("block", [100, 200, 128, 384])
+def test_auto_routes_by_block_shape(block, monkeypatch):
+    """``auto`` takes the kernel wrapper exactly when block % 128 == 0; any
+    other block takes the oracle before any launch (the wrapper is never
+    called) and matches JAX's ``fused_pack`` in its default mode on this
+    host (the jnp oracle) bit for bit, -0.0 and NaN rows included."""
+    n = 3 * block + 7
+    rng = np.random.default_rng(block)
+    g = rng.standard_normal(n).astype(np.float32)
+    h = rng.standard_normal(n).astype(np.float32)
+    g[5], h[5] = -0.0, 0.0
+    g[block + 3] = np.nan
+    calls = []
+    real = pack.pack_update
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pack, "pack_update", counted)
+    reset_launches()
+    got = _torch_pack(g, h, (n,), block, 4, "auto")
+    assert bool(calls) == (block % 128 == 0)
+    assert sum(LAUNCHES.values()) == 0
+    if block % 128:
+        lw = jwire.LeafWire(shape=(n,), size=n, block=block, kb=4)
+        (v, i), hn = jwire.fused_pack(lw, jnp.asarray(g), jnp.asarray(h),
+                                      LAM, kernel="oracle")
+        _assert_same((np.asarray(v), np.asarray(i), np.asarray(hn)), got)
+    else:
+        _assert_same(_jax_pack(g, h, (n,), block, 4), got)
+
+
+@pytest.mark.parametrize("block", [100, 4224])
+def test_cuda_mode_refuses_blocks_no_kernel_takes(block):
+    """An explicit ``cuda`` never takes the oracle: on a CPU tensor it
+    raises for the device (on the card the wrapper raises for these blocks,
+    ``chip_smoke.py``); the kernels take every block % 128 == 0 up to
+    ``pack.MAX_BLOCK`` and no other."""
+    lw = twire.LeafWire(shape=(block,), size=block, block=block, kb=4)
+    x = torch.zeros(block)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        twire.fused_pack(lw, x, x, LAM, kernel="cuda")
+    assert block not in pack.CUDA_BLOCKS
+    assert pack.CUDA_BLOCKS == tuple(range(128, pack.MAX_BLOCK + 1, 128))
 
 
 # -- JAX's streaming pack (stream=True) ------------------------------------
@@ -606,17 +656,262 @@ def test_plain_version_is_the_cpu_path():
 
 
 # the full-width qwen2-0.5b leaves hold 494,032,768 f32 values
-@pytest.mark.parametrize("kernel,kb,payload,want,by", [
-    ("block_topk", 16, 0, 1.1798, "bytes"),
-    ("efbv_update", 16, 0, 2.3596, "bytes"),
-    ("pack_update", 16, 8 * (494_032_768 // 256) * 16, 1.8434, "bytes"),
-    ("block_topk", 1024, 0, 15.1307, "operations"),
+@pytest.mark.parametrize("kernel,elem,payload,want,by", [
+    ("block_topk", 4, 0, 1.1798, "bytes"),
+    ("efbv_update", 4, 0, 2.3596, "bytes"),
+    ("pack_update", 4, 8 * (494_032_768 // 256) * 16, 1.8434, "bytes"),
+    ("block_topk", 2, 0, 0.5899, "bytes"),
 ])
-def test_dense_bound_ms_at_full_width(kernel, kb, payload, want, by):
+def test_dense_bound_ms_at_full_width(kernel, elem, payload, want, by):
     """The least times the kernel table states for one pass over the 14
     full-width leaves: the bytes each input is read and each output
-    written at 3.35 TB/s, or kb + elementwise instructions per value at
-    the issue rate, whichever is longer."""
-    ms, got_by = ops.dense_bound_ms(kernel, 494_032_768, kb,
+    written at 3.35 TB/s, or the elementwise instructions and one compare
+    per value in each of the threshold search's 31 steps at most at the
+    issue rate, whichever is longer: the bytes, in f32 and in bf16."""
+    ms, got_by = ops.dense_bound_ms(kernel, 494_032_768, elem,
                                     payload=payload)
     assert (round(ms, 4), got_by) == (want, by)
+
+
+# ---------------------------------------------------------------------------
+# The threshold-search selection of ``csrc/block_select.cuh``
+#
+# The CUDA kernels (pack_update.cu, block_topk.cu) select by a threshold
+# search, not by the Pallas kernels' kb rounds of max extraction.  The
+# numpy model below follows the kernels step for step (keys, bisection over
+# the key's 31 bits with the early exit, the tie split by a prefix count in
+# column order, the payload's rank order) and is held bit for bit against
+# the Pallas kernels in interpret mode: the pack's payload and h', the
+# selected set (the pack's columns), and the dense kernels' out, d and h'.
+# ---------------------------------------------------------------------------
+
+def model_select(mag, kb):
+    """(rows, block) f32 magnitudes -> (keep (rows, block) bool, steps
+    (rows,) int): the kernels' selection.  Key: the f32 bits of |x| without
+    the sign; T, the kb-th largest key, by bisection from bit 30 down, each
+    step counting the keys >= t | 1 << b, stopping as soon as exactly kb
+    are >= the candidate; then every key > T and the kb - count(> T)
+    lowest columns among the keys == T.  A row holding a NaN keeps
+    nothing; kb == block keeps everything without a step."""
+    keys = np.ascontiguousarray(mag, np.float32).view(np.uint32) & 0x7FFFFFFF
+    rows, block = keys.shape
+    nan = (keys > 0x7F800000).any(axis=1)
+    t = np.zeros(rows, np.uint32)
+    gt = np.zeros(rows, np.int64)
+    steps = np.zeros(rows, np.int64)
+    exact = np.zeros(rows, bool)
+    done = nan | (kb >= block)
+    for b in range(30, -1, -1):
+        live = ~done
+        if not live.any():
+            break
+        cand = t | np.uint32(1 << b)
+        c = (keys >= cand[:, None]).sum(axis=1)
+        steps += live
+        up = live & (c >= kb)
+        t[up] = cand[up]
+        hit = up & (c == kb)
+        exact |= hit
+        done |= hit
+        down = live & (c < kb)
+        gt[down] = c[down]
+    eq = keys == t[:, None]
+    before = np.cumsum(eq, axis=1) - eq          # equal keys in lower columns
+    tie = eq & (before < (kb - gt)[:, None])
+    keep = np.where(exact[:, None], keys >= t[:, None],
+                    (keys > t[:, None]) | tie)
+    keep[kb >= block] = True
+    keep[nan] = False
+    return keep, steps
+
+
+def model_pack(g2d, h2d, kb, lam=LAM):
+    """The pack kernel: (vals, idx, h_out) of (rows, block) f32 g and h.
+    The winners in jax.lax.top_k's order (key descending, then column
+    ascending), a selected -0.0 sent as +0.0 (v + 0.0), (0.0, 0) in every
+    slot of a NaN row; h_out = h + lam * d as a multiply then an add, and
+    at kb = 1 as one FMA (ROADMAP fault l; torch's ``add(alpha=)``, one
+    rounding on the CPU)."""
+    with np.errstate(invalid="ignore"):
+        delta = g2d - h2d
+    keep, steps = model_select(np.abs(delta), kb)
+    keys = delta.view(np.uint32) & 0x7FFFFFFF
+    cols = np.broadcast_to(np.arange(delta.shape[1]), delta.shape)
+    primary = np.where(keep, -keys.astype(np.int64), 1)
+    order = np.lexsort((cols, primary), axis=1)[:, :kb]
+    vals = np.take_along_axis(delta, order, 1) + np.float32(0.0)
+    idx = order.astype(np.int32)
+    none = ~keep.any(axis=1)
+    vals[none], idx[none] = 0.0, 0
+    d = np.where(keep, delta, np.float32(0.0))
+    if kb == 1:
+        h_out = torch.add(torch.from_numpy(h2d), torch.from_numpy(d),
+                          alpha=lam).numpy()
+    else:
+        with np.errstate(invalid="ignore"):
+            h_out = h2d + np.float32(lam) * d
+    return (vals, idx, h_out), keep, steps
+
+
+def model_dense(x, kb):
+    """The dense block_topk kernel: x * keep (fault i: f32 at kb = 1
+    selects)."""
+    keep, steps = model_select(np.abs(x.astype(np.float32)), kb)
+    if kb == 1 and x.dtype == np.float32:
+        return np.where(keep, x, np.float32(0.0)), steps
+    with np.errstate(invalid="ignore"):  # an unselected inf: inf * 0
+        return x * keep.astype(x.dtype), steps
+
+
+def model_update(g, h, kb, lam=LAM):
+    """The dense efbv_update kernel: d = T(delta * keep), h' = T(h + lam
+    d) as one FMA (two roundings for f32 at kb = 1, fault k); the FMA is
+    torch's ``add(alpha=)``, one rounding on the CPU."""
+    with np.errstate(invalid="ignore"):
+        delta = g.astype(np.float32) - h.astype(np.float32)
+    keep, steps = model_select(np.abs(delta), kb)
+    if kb == 1:
+        d = np.where(keep, delta, np.float32(0.0)).astype(g.dtype)
+    else:
+        with np.errstate(invalid="ignore"):
+            d = (delta * keep.astype(np.float32)).astype(g.dtype)
+    hf = torch.from_numpy(h.astype(np.float32))
+    df = torch.from_numpy(d.astype(np.float32))
+    if kb == 1 and h.dtype == np.float32:
+        h_out = (hf + lam * df).numpy()
+    else:
+        h_out = torch.add(hf, df, alpha=lam).numpy().astype(h.dtype)
+    return (d, h_out), steps
+
+
+def model_rows(kind, rows, block, kb, seed):
+    """g, h (rows, block) f32 of one kind of row: gaussian, tie-heavy
+    integers, all-equal, NaN rows, +-inf, -0.0."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((rows, block)).astype(np.float32)
+    h = rng.standard_normal((rows, block)).astype(np.float32)
+    if kind == "ties":
+        g = rng.integers(-3, 4, (rows, block)).astype(np.float32)
+        h = rng.integers(-3, 4, (rows, block)).astype(np.float32)
+        g[::3] = h[::3]                               # all-zero delta rows
+    elif kind == "equal":
+        g[:] = 1.5
+        h[:] = 0.25
+        g[1::2] = -1.25                               # |delta| all 1.5
+    elif kind == "nan":
+        g[0] = np.nan
+        g[2, block // 3] = np.nan
+        h[4, 7] = np.nan
+    elif kind == "inf":
+        g[0, 10:30:2] = np.inf
+        g[0, 11:31:2] = -np.inf
+        g[1, :] = np.inf                              # every column +inf
+        g[2, 3] = -np.inf
+        h[3, 5] = np.inf
+    elif kind == "negzero":
+        g[:] = np.where(rng.random((rows, block)) < 0.5, -0.0, 0.0)
+        h[:] = 0.0
+        g[:, 1::17] = 0.5
+    return g, h
+
+
+#: (block, kb, rows): SWEEP's shapes as rows, and the blocks the CUDA
+#: kernels take above what they took before (384, 1152, 4096: kb <= 16 at
+#: 4096, 8-16 rows, to keep the Pallas interpret time small)
+MODEL_SHAPES = [
+    (512, 16, 8), (256, 8, 8), (128, 4, 16), (1024, 64, 8), (128, 128, 8),
+    (128, 2, 16), (384, 16, 16), (384, 3, 8), (1152, 16, 8), (1152, 64, 8),
+    (4096, 16, 8), (4096, 1, 8),
+]
+MODEL_KINDS = ["normal", "ties", "equal", "nan", "inf", "negzero"]
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+@pytest.mark.parametrize("block,kb,rows", MODEL_SHAPES)
+def test_model_pack_bitwise_vs_pallas_interpret(block, kb, rows, kind):
+    """The model's payload, selected set and h' against the Pallas pack
+    kernel in interpret mode; the port's pack (its plain version here) on
+    the same rows."""
+    g, h = model_rows(kind, rows, block, kb, block + kb + rows)
+    (vals, idx, h_out), keep, steps = model_pack(g, h, kb)
+    shape = (rows * block,)
+    want = _jax_pack(g.reshape(-1), h.reshape(-1), shape, block, kb)
+    _assert_same(want, (vals, idx, h_out.reshape(-1)))
+    clean = ~np.isnan(g - h).any(axis=1)
+    picked = np.zeros_like(keep)
+    np.put_along_axis(picked, want[1].astype(np.int64), True, 1)
+    np.testing.assert_array_equal(keep[clean], picked[clean])
+    _assert_same(want, _torch_pack(g.reshape(-1), h.reshape(-1), shape,
+                                   block, kb, "auto"))
+    assert np.all(steps <= 31)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+@pytest.mark.parametrize("block,kb,rows", MODEL_SHAPES)
+def test_model_dense_bitwise_vs_pallas_interpret(block, kb, rows, kind,
+                                                 dtype):
+    """The model's dense block_topk and efbv_update (out, d, h') against
+    the Pallas kernels in interpret mode, f32 and bf16; the port's
+    wrappers (their plain versions here) on the same rows."""
+    g, h = model_rows(kind, rows, block, kb, block + kb + rows + 1)
+    g, h = g.astype(DTYPES[dtype]), h.astype(DTYPES[dtype])
+    out, _ = model_dense(g, kb)
+    (d, h_out), _ = model_update(g, h, kb)
+    # the wrappers take the rows flat: given exactly one (8, block) tile,
+    # XLA rounds the f32 kb = 1 h' differently (ROADMAP fault m, pinned by
+    # test_reference_contracts_one_unreshaped_tile)
+    g, h = g.reshape(-1), h.reshape(-1)
+    want = jops.block_topk(jnp.asarray(g), block=block, kb=kb,
+                           interpret=True)
+    assert_bits(want, to_torch(out.reshape(-1)))
+    check_topk(g, block, kb)
+    dw, hw = jops.efbv_update(jnp.asarray(g), jnp.asarray(h), LAM,
+                              block=block, kb=kb, interpret=True)
+    assert_bits(dw, to_torch(d.reshape(-1)))
+    assert_bits(hw, to_torch(h_out.reshape(-1)))
+    check_update(g, h, block, kb)
+
+
+@pytest.mark.parametrize("block", [128, 1024])
+def test_reference_contracts_one_unreshaped_tile(block):
+    """ROADMAP fault m: given exactly one (8, block) tile of f32 at kb = 1,
+    ``ops.efbv_update`` in interpret mode rounds h' = h + lam d once (an
+    FMA), while the same values given flat, or any other shape, round
+    twice (fault k).  The port rounds twice for both shapes; the two
+    disagree on that one input shape only, and on no d."""
+    rng = np.random.default_rng(block)
+    g = rng.standard_normal((8, block)).astype(np.float32)
+    h = rng.standard_normal((8, block)).astype(np.float32)
+    tile = [np.asarray(a) for a in jops.efbv_update(
+        jnp.asarray(g), jnp.asarray(h), LAM, block=block, kb=1,
+        interpret=True)]
+    flat = [np.asarray(a).reshape(8, block) for a in jops.efbv_update(
+        jnp.asarray(g.reshape(-1)), jnp.asarray(h.reshape(-1)), LAM,
+        block=block, kb=1, interpret=True)]
+    port = [t.numpy() for t in ops.efbv_update(
+        torch.from_numpy(g), torch.from_numpy(h), LAM, block=block, kb=1)]
+    _assert_same(flat, port)
+    np.testing.assert_array_equal(_bits(tile[0]), _bits(port[0]))
+    fma = torch.add(torch.from_numpy(h), torch.tensor(tile[0]),
+                    alpha=LAM).numpy()
+    np.testing.assert_array_equal(_bits(tile[1]), _bits(fma))
+    assert np.any(_bits(tile[1]) != _bits(port[1]))
+
+
+def test_model_search_steps():
+    """On gaussian rows the search stops early with exactly kb keys at or
+    above the candidate; tie-heavy rows run to bit 0 and split the ties by
+    column; kb == block and NaN rows take no step."""
+    g, h = model_rows("normal", 64, 256, 16, 1)
+    keep, steps = model_select(np.abs(g - h), 16)
+    assert np.all(keep.sum(axis=1) == 16)
+    assert np.all(steps < 31) and 8 <= steps.mean() <= 20
+    g, h = model_rows("ties", 16, 256, 16, 2)
+    keep, steps = model_select(np.abs(g - h), 16)
+    assert np.all(keep.sum(axis=1) == 16) and np.any(steps == 31)
+    _, steps = model_select(np.abs(g - h), 256)
+    assert not steps.any()
+    g[0, 0] = np.nan
+    keep, steps = model_select(np.abs(g - h), 16)
+    assert steps[0] == 0 and not keep[0].any()
