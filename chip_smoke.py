@@ -13,8 +13,14 @@ line is printed only when every phase passed):
               (CUDA events, median of 20) beside its plain version and its
               memory/compute bound.  The pack kernel also with a partial
               last CTA (kb 3 on 8m + 1 rows) and kb = 1024 (128 KiB of
-              shared memory); its SASS must hold the TMA bulk store.  A
-              rand-k position out of range must make the launch fail
+              shared memory); its SASS must hold the TMA bulk store.  The
+              rand-k kernel (one pass over h in tiles, the positions
+              bucketed by tile) at the old edge cases and at its tiles'
+              edges (every position in one tile, tile edges, a partial last
+              tile, one tile and one plus one value, k = size, the embed
+              leaf at k = 1, more tiles than shared memory counts), with
+              its device time per leaf and per kernel; a position out of
+              range must make the launch fail, in one launch and bucketed
               (checked in a child process: the trap poisons its CUDA
               context).  The shuffle behind rand-k's positions
               (``random.permutation``), GPU against CPU bitwise, and timed
@@ -22,12 +28,14 @@ line is printed only when every phase passed):
               (``pack_update.cu``; ``block_topk.cu``'s dense block-top-k and
               fused dense update, f32 and bf16) bitwise at every block
               from 128 to 4096 (ragged rows, kb 1 / 2 / 3 / 16 / 64 /
-              block), ties, NaN rows, +-inf and mixed types; blocks above
-              4096 raise, and ``wire.fused_pack`` routes a block % 128 != 0
-              to the plain path under ``auto``; at the 14 full-width leaves
-              at block/kb 256/16, 1024/16, 1024/64 and 4096/64, timed at
-              256/16 and 4096/64; the selection's SASS per value and step,
-              and the search's mean steps on those leaves.
+              block) and at blocks 4224 / 8192 / 16384 / 65536 (kb 1 / 3 /
+              64 / block/2 / block), a leaf below its block, ties, NaN
+              rows, +-inf and mixed types; ``wire.fused_pack`` routes a
+              block % 128 != 0 to the plain path under ``auto`` and runs
+              the kernel at 4224; at the 14 full-width leaves at block/kb
+              256/16, 1024/16, 1024/64, 4096/64 and 8192/64, timed at
+              256/16, 4096/64 and 8192/64; the selection's SASS per value
+              and step, and the search's mean steps on those leaves.
 3. reference -- a small input (the qwen2 smoke config, f32 activations):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
@@ -267,9 +275,25 @@ def bulk_store_sass():
     return bulk
 
 
-#: every block the block-top-k kernels take, and the kb of the sweep
+#: every block the block-top-k kernels hold in registers, and the kb of the
+#: sweep
 SWEEP_BLOCKS = tuple(range(128, 4097, 128))
 SWEEP_KB = (1, 2, 3, 16, 64)
+#: blocks above 4096 (the row read again at each search step: from shared
+#: memory up to 16384, from device memory at 65536, where the pack's kb /
+#: 2 and kb slots go to device memory too), at kb 1 / 3 / 64 / block / 2 /
+#: block; the full-width pass timed at BIG_LEAF_CONFIG
+BIG_BLOCKS = (4224, 8192, 16384, 65536)
+BIG_LEAF_CONFIG = (8192, 64)
+
+
+def big_kbs(block):
+    return (1, 3, 64, block // 2, block)
+
+
+def big_rows(block):
+    """Values of a big-block sweep case: 17 rows, the last ragged."""
+    return block * 17 - 37
 #: the 14 full-width leaves' block/kb held bitwise; 256/16 and 4096/64 timed
 LEAF_CONFIGS = ((256, 16), (1024, 16), (1024, 64), (4096, 64))
 TIMED_CONFIGS = ((256, 16), (4096, 64))
@@ -282,14 +306,17 @@ def sweep_rows(block):
 
 
 def kernels_pack():
-    """Edge cases bitwise; every block 128..4096 at kb 1/2/3/16/64/block;
-    the route by shape of ``wire.fused_pack`` (a block % 128 != 0 takes the
-    plain path under ``auto``, before any launch; ``cuda`` raises); the 14
-    full-width leaf shapes at every block/kb of LEAF_CONFIGS bitwise; one
-    worker's full round at 256/16 (the row of the kernels JSON line) and
-    4096/64, timed."""
+    """Edge cases bitwise (ties and NaN rows at 8192 too); every block
+    128..4096 at kb 1/2/3/16/64/block, and BIG_BLOCKS at big_kbs; a leaf
+    below its block (one padded row); the route by shape of
+    ``wire.fused_pack`` (a block % 128 != 0 takes the plain path under
+    ``auto``, before any launch, ``cuda`` raises; block 4224 launches the
+    kernel); the 14 full-width leaf shapes at every block/kb of
+    LEAF_CONFIGS bitwise; one worker's full round at 256/16 (the row of the
+    kernels JSON line) and 4096/64, timed; and at BIG_LEAF_CONFIG, bitwise
+    and timed."""
     from repro_torch.distributed import wire
-    from repro_torch.kernels import LAUNCHES, pack, reset_launches
+    from repro_torch.kernels import LAUNCHES, ops, pack, reset_launches
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -320,7 +347,7 @@ def kernels_pack():
     max_err = max(max_err, pack_case("kb_eq_block1024", randn(n), randn(n),
                                      1024, 1024, 0.37, False)[3])
     # ties: integers in [-3, 3]; every 7th row of delta all zero; some -0.0
-    for block in (256, 1152, 4096):
+    for block in (256, 1152, 4096, 8192):
         n = block * 1024
         gi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
         hi = torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
@@ -336,7 +363,7 @@ def kernels_pack():
     # all NaN, row 3 has one NaN, and every 5th row from row 10 one more;
     # +-inf are selected like any other magnitude (more infs than kb in
     # row 4, a row of +inf in row 6)
-    for block in (256, 2048):
+    for block in (256, 2048, 8192):
         n = block * 64
         gn, hn = randn(n), randn(n)
         gn[:block] = float("nan")
@@ -360,36 +387,56 @@ def kernels_pack():
                 quiet=True)[3])
         print(f"[kernels] pack_update sweep block={block}: kb "
               f"{SWEEP_KB + (block,)} bitwise=ok ({n} values)")
+    for block in BIG_BLOCKS:
+        n = big_rows(block)
+        g, h = randn(n), randn(n)
+        for kb in big_kbs(block):
+            max_err = max(max_err, pack_case(
+                f"sweep_b{block}_kb{kb}", g, h, block, kb, timing=False,
+                quiet=True)[3])
+        print(f"[kernels] pack_update sweep block={block}: kb "
+              f"{big_kbs(block)} bitwise=ok ({n} values)")
+    # a leaf below its block: one padded row
+    for kb in (1, 64, 8192):
+        max_err = max(max_err, pack_case(f"one_padded_row_kb{kb}",
+                                         randn(5000), randn(5000), 8192,
+                                         kb)[3])
 
     # the route by shape: block 100 under auto takes the plain layout path
     # (no launch), bitwise against the plain path on the CPU; an explicit
-    # cuda raises; a block above MAX_BLOCK raises in the wrapper
-    lw = wire.LeafWire(shape=(768,), size=768, block=100, kb=4)
-    g, h = randn(768), randn(768)
-    reset_launches()
-    (v, i), hn = wire.fused_pack(lw, g, h, 0.37)
-    launched = sum(LAUNCHES.values())
-    (wv, wi), wh = wire.fused_pack(lw, g.cpu(), h.cpu(), 0.37,
-                                   kernel="oracle")
-    if launched or not all(same_bits(a.cpu(), b) for a, b in
-                           ((v, wv), (i, wi), (hn, wh))):
-        raise AssertionError(f"[kernels] block=100 under auto: launches "
-                             f"{launched}, or != the plain path")
-    print("[kernels] block=100 under auto: plain layout path, no launch, "
-          "bitwise == the CPU plain path")
-    for block, kernel in ((100, "cuda"), (4224, "auto")):
-        lw = wire.LeafWire(shape=(block,), size=block, block=block, kb=4)
-        try:
-            wire.fused_pack(lw, randn(block), randn(block), 0.37,
-                            kernel=kernel)
-        except ValueError as e:
-            print(f"[kernels] block={block} kernel={kernel} raises on the "
-                  f"card: {e}")
-        else:
-            raise AssertionError(f"[kernels] block={block} kernel={kernel} "
-                                 "ran on the card")
-    if pack.CUDA_BLOCKS != SWEEP_BLOCKS:
-        raise AssertionError(f"[kernels] the wrapper takes {pack.CUDA_BLOCKS}")
+    # cuda raises; block 4224 under auto launches the kernel once, bitwise
+    # against the plain path on the CPU
+    for block in (100, 4224):
+        lw = wire.LeafWire(shape=(3 * block + 7,), size=3 * block + 7,
+                           block=block, kb=4)
+        g, h = randn(lw.size), randn(lw.size)
+        reset_launches()
+        (v, i), hn = wire.fused_pack(lw, g, h, 0.37)
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        (wv, wi), wh = wire.fused_pack(lw, g.cpu(), h.cpu(), 0.37,
+                                       kernel="auto" if block % 128 == 0
+                                       else "oracle")
+        want = {**dict.fromkeys(launched, 0),
+                "pack_update": int(block % 128 == 0)}
+        if launched != want or not all(
+                same_bits(a.cpu(), b) for a, b in ((v, wv), (i, wi),
+                                                   (hn, wh))):
+            raise AssertionError(f"[kernels] block={block} under auto: "
+                                 f"launches {launched}, or != the plain "
+                                 "path")
+        print(f"[kernels] block={block} under auto: "
+              + ("one pack_update launch" if block % 128 == 0
+                 else "plain layout path, no launch")
+              + ", bitwise == the CPU plain path")
+    lw = wire.LeafWire(shape=(100,), size=100, block=100, kb=4)
+    try:
+        wire.fused_pack(lw, randn(100), randn(100), 0.37, kernel="cuda")
+    except ValueError as e:
+        print(f"[kernels] block=100 kernel=cuda raises on the card: {e}")
+    else:
+        raise AssertionError("[kernels] block=100 kernel=cuda ran on the "
+                             "card")
 
     # the 14 full-width leaves at every block/kb, bitwise; timed at 256/16
     # (one worker's round: the kernels JSON line) and 4096/64
@@ -411,6 +458,21 @@ def kernels_pack():
               f"worker, block {block}, kb {kb}): bitwise=ok"
               + (f" kernel_ms={k_tot:.4f} plain_ms={p_tot:.4f} "
                  f"bound_ms={b_tot:.4f}" if timing else ""))
+    block, kb = BIG_LEAF_CONFIG
+    k_tot = b_tot = 0.0
+    for path, size in leaves:
+        g, h = randn(size), randn(size)
+        max_err = max(max_err, pack_case(f"qwen2:{path}", g, h, block, kb,
+                                         0.37, False, quiet=True)[3])
+        g2, h2 = ops.to_rows(g, block), ops.to_rows(h, block)
+        k_tot += timed_ms(lambda: pack.pack_update(g2, h2, 0.37, kb), reps=5)
+        del g2, h2
+        b_tot += pack_bound_ms(size, block, kb)[0]
+        del g, h
+        torch.cuda.empty_cache()
+    print(f"[kernels] pack_update qwen2-0.5b round (14 leaves, one worker, "
+          f"block {block}, kb {kb}): bitwise=ok kernel_ms={k_tot:.4f} "
+          f"bound_ms={b_tot:.4f}")
     k_tot, p_tot, b_tot, by = rounds[256, 16]
     return {"ms": k_tot, "plain_ms": p_tot, "bound_ms": b_tot,
             "bound_by": by, "max_abs_err": max_err, "library_ms": None}
@@ -550,37 +612,51 @@ def randk_case(name, g, h, k=None, lam=0.37, idx=None, timing=False):
         p_ms = timed_ms(lambda: ref.randk_update_ref(g, h, idx, scale, lam))
         idx64 = idx.long()
         l_ms = timed_ms(lambda: torch.index_add(h, 0, idx64, kv, alpha=lam))
-    print(f"[kernels] randk {name}: size={size} k={k} lam={lam} bitwise=ok "
+    tiles, bucketed = pack.randk_plan(size, k)[:2]
+    print(f"[kernels] randk {name}: size={size} k={k} lam={lam} tiles={tiles} "
+          f"{'bucketed' if bucketed else 'one launch'} bitwise=ok "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
           f"index_add_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
     return k_ms, p_ms, l_ms, bound, err
 
 
 def randk_device_ms(calls):
-    """Device time of the rand-k kernels in one round of the 14 leaves
-    (torch.profiler), apart from the wrapper's host time that the CUDA
-    events around a lone call also see."""
+    """Device time of the rand-k kernels (torch.profiler), apart from the
+    wrapper's host time that the CUDA events around a lone call also see:
+    each leaf's call traced alone (a line per leaf), and the round's sum by
+    kernel (a line per kernel of the design, the bucketing's memset
+    included)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import pack
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for g, h, idx, scale in calls:
+    by_kernel = {}
+    for name, g, h, idx, scale in calls:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             pack.randk_update(g, h, idx, scale, 0.37)
-        torch.cuda.synchronize()
-    try:
-        rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-                for e in prof.key_averages() if "randk_" in e.key
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-    except Exception as e:  # reading the trace, not the port: report it
-        print(f"[kernels] randk device time: not measured: {e!r}")
-        return
-    for key, count, ms in rows:
-        print(f"[kernels] randk round device time: {key[:60]} x{count} "
+            torch.cuda.synchronize()
+        try:
+            rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and ("randk_" in e.key or "emset" in e.key)]
+        except Exception as e:  # reading the trace, not the port
+            print(f"[kernels] randk device time: not measured: {e!r}")
+            return
+        for key, count, ms in rows:
+            n, t = by_kernel.get(key, (0, 0.0))
+            by_kernel[key] = (n + count, t + ms)
+        print(f"[kernels] randk device time {name}: "
+              f"{sum(r[2] for r in rows):.4f} ms in "
+              f"{sum(r[1] for r in rows)} kernels: "
+              + " ".join(f"{re.search(r'randk_[a-z_]+|Memset', k).group(0)}"
+                         f"={ms:.4f}" for k, _, ms in rows))
+    for key, (count, ms) in by_kernel.items():
+        print(f"[kernels] randk round device time: {key[:70]} x{count} "
               f"{ms:.4f} ms")
     print(f"[kernels] randk round device time: "
-          f"{sum(r[2] for r in rows):.4f} ms in {sum(r[1] for r in rows)} "
-          f"kernels")
+          f"{sum(t for _, t in by_kernel.values()):.4f} ms in "
+          f"{sum(n for n, _ in by_kernel.values())} kernels")
 
 
 def randk_trap_child():
@@ -591,26 +667,78 @@ def randk_trap_child():
     from repro_torch.kernels import pack
 
     bad = int(sys.argv[2])
-    g = torch.zeros(1000, device="cuda")
-    idx = torch.tensor([3, bad, 5], dtype=torch.int32, device="cuda")
+    size = int(sys.argv[3]) if len(sys.argv) > 3 else 1000
+    g = torch.zeros(size, device="cuda")
+    # at the leaf's size, enough positions to be bucketed
+    k = 3 if size == 1000 else size // 8
+    idx = torch.arange(3, 3 + k, dtype=torch.int32, device="cuda")
+    idx[k // 2] = bad
     try:
-        pack.randk_update(g, torch.zeros_like(g), idx, 1000 / 3, 0.37)
+        pack.randk_update(g, torch.zeros_like(g), idx, size / k, 0.37)
         torch.cuda.synchronize()
     except RuntimeError as e:
-        print(f"[trap] position {bad}: launch failed: {e}".splitlines()[0],
-              flush=True)
+        print(f"[trap] position {bad} size {size}: launch failed: "
+              f"{e}".splitlines()[0], flush=True)
         os._exit(3)
-    print(f"[trap] position {bad}: no error", flush=True)
+    print(f"[trap] position {bad} size {size}: no error", flush=True)
     return 0
 
 
+def randk_tile_cases(randn, gen):
+    """The cases of the one-pass design: (name, g, h, idx) with the
+    positions around its tiles of T values (``pack.RANDK_TILE_LOG2``):
+    every position in one tile (the worst bucket); every tile edge, the
+    leaf's ends and the last, partial tile, both bucketed and in one
+    launch; a leaf of exactly one tile and of one tile plus one value; k =
+    size on a leaf of several tiles, in one launch and bucketed; the embed
+    leaf's size at k = 1; a leaf of more tiles than the histogram counts in
+    shared memory (470M values), bucketed with per-tile cursors."""
+    from repro_torch.kernels import pack
+
+    tile = 1 << pack.RANDK_TILE_LOG2
+
+    def perm(n):
+        return torch.randperm(n, generator=gen, device="cuda")
+
+    def shuffled(pos):
+        return pos[perm(pos.numel())].to(torch.int32)
+
+    n = (1 << 22) + 77
+    yield "one_tile_holds_all", randn(n), randn(n), shuffled(100 * tile
+                                                              + perm(tile))
+    n = 40 * tile + 77
+    edges = torch.arange(1, 41, device="cuda") * tile
+    edges = torch.cat([edges - 1, edges, edges + 1,
+                       torch.tensor([0, n - 2], device="cuda")])
+    edges = edges[edges < n]
+    free = torch.ones(n, dtype=torch.bool, device="cuda")
+    free[edges] = False
+    rest = free.nonzero().reshape(-1)
+    for extra in (30_000, 2_000):
+        more = rest[perm(rest.numel())[:extra]]
+        yield f"tile_edges_k{extra}", randn(n), randn(n), shuffled(
+            torch.cat([edges, more, rest[-5:]]).unique())
+    for n in (tile, tile + 1):
+        for k in (n // 2, n):
+            yield f"size{n}_k{k}", randn(n), randn(n), shuffled(perm(n)[:k])
+    for n in (3 * tile + 5, (1 << 20) + 3):
+        yield f"k_eq_size{n}", randn(n), randn(n), shuffled(perm(n))
+    yield "embed_k1", randn(EMBED_SIZE), randn(EMBED_SIZE), \
+        torch.tensor([EMBED_SIZE - 1], dtype=torch.int32, device="cuda")
+    # more tiles than a CTA's shared memory counts: per-tile cursors
+    n = (pack.RANDK_SMEM_BINS + 1) * tile + 5
+    yield "global_cursors", randn(n), randn(n), shuffled(perm(n)[:RANDK_K])
+
+
 def kernels_randk():
-    """rand-k update: edge cases bitwise, an out-of-range position in a
-    child process; then one worker's round at the 14 full-width leaves
-    (k = 1048576, clamped to the leaf; the embed leaf of 136,134,656 values
-    among them), timed beside the plain version and ``torch.index_add``
-    (the update given the values; not bit-equal: it adds lam * v as an FMA
-    and keeps an unselected -0.0)."""
+    """rand-k update: edge cases bitwise (and the one-pass design's tile
+    cases, ``randk_tile_cases``), an out-of-range position in a child
+    process, in one launch and bucketed; then one worker's round at the 14
+    full-width leaves (k = 1048576, clamped to the leaf; the embed leaf of
+    136,134,656 values among them), timed beside the plain version and
+    ``torch.index_add`` (the update given the values; not bit-equal: it adds
+    lam * v as an FMA and keeps an unselected -0.0), with the device time of
+    each leaf and kernel (``randk_device_ms``)."""
     from repro_torch import random
 
     gen = torch.Generator(device="cuda").manual_seed(5678)
@@ -642,15 +770,25 @@ def kernels_randk():
     buf = randn(2 * n + 2)
     max_err = max(max_err, randk_case("unaligned", buf[1:n + 1],
                                       buf[n + 2:], 5000)[4])
-    for bad in (1000, -1):
+    buf = randn(2 * (1 << 20) + 2)
+    max_err = max(max_err, randk_case("unaligned_bucketed",
+                                      buf[1:(1 << 20) + 1],
+                                      buf[(1 << 20) + 2:], 200_000)[4])
+    for name, g, h, idx in randk_tile_cases(randn, gen):
+        max_err = max(max_err, randk_case(name, g, h, idx=idx)[4])
+        del g, h, idx
+        torch.cuda.empty_cache()
+    # one launch (1000 values) and bucketed (2**22 values)
+    for bad, size in ((1000, 1000), (-1, 1000), (1 << 22, 1 << 22),
+                      (-5, 1 << 22)):
         r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--randk-trap-child", str(bad)],
+                            "--randk-trap-child", str(bad), str(size)],
                            capture_output=True, text=True, timeout=300)
         print(r.stdout.strip())
         if r.returncode != 3 or "launch failed" not in r.stdout:
-            raise AssertionError(f"[kernels] randk position {bad}: launch "
-                                 f"did not fail (exit {r.returncode}): "
-                                 f"{r.stderr[-2000:]}")
+            raise AssertionError(f"[kernels] randk position {bad} of {size}: "
+                                 f"launch did not fail (exit "
+                                 f"{r.returncode}): {r.stderr[-2000:]}")
     leaves = full_leaves()
     rounds = sum(random.shuffle_rounds(s) for _, s in leaves)
     if len(leaves) != FULL_LEAVES or rounds != SHUFFLE_ROUNDS:
@@ -665,7 +803,7 @@ def kernels_randk():
         out = randk_case("qwen2:" + path, g, h, idx=idx, timing=True)
         tot = [a + b for a, b in zip(tot, out[:4])]
         max_err = max(max_err, out[4])
-        calls.append((g, h, idx, f32(size / idx.numel())))
+        calls.append(("qwen2:" + path, g, h, idx, f32(size / idx.numel())))
     values = sum(size for _, size in leaves)
     print(f"[kernels] randk qwen2-0.5b round ({len(leaves)} leaves, "
           f"{values} values, one worker): kernel_ms={tot[0]:.4f} "
@@ -999,13 +1137,14 @@ def dense_case(kernel, name, g, h, block, kb, lam=0.37, timing=False,
 
 def kernels_dense():
     """The dense block-top-k and the fused dense update: edge cases bitwise
-    in f32 and bf16; every block 128..4096 at kb 1/2/3/16/64/block in f32
-    and bf16; a block above MAX_BLOCK raises; the 14 full-width leaf
-    shapes at every block/kb of LEAF_CONFIGS bitwise in f32 (and in bf16 at
-    256/16); one worker's round timed in f32 at 256/16 (the kernels JSON
-    line) and 4096/64.  Then the selection's cost from the SASS
-    (``selection_sass``)."""
-    from repro_torch.kernels import ops
+    in f32 and bf16 (ties and specials at 8192 too); every block 128..4096
+    at kb 1/2/3/16/64/block and BIG_BLOCKS at big_kbs in f32 and bf16; a
+    leaf below its block; a block % 128 != 0 raises; the 14 full-width
+    leaf shapes at every block/kb of LEAF_CONFIGS bitwise in f32 (and in
+    bf16 at 256/16); one worker's round timed in f32 at 256/16 (the kernels
+    JSON line), 4096/64 and BIG_LEAF_CONFIG.  Then the selection's cost
+    from the SASS (``selection_sass``)."""
+    from repro_torch.kernels import ops, pack
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
 
@@ -1031,6 +1170,17 @@ def kernels_dense():
             print(f"[kernels] block_topk/efbv_update sweep {tag} "
                   f"block={block}: kb {SWEEP_KB + (block,)} bitwise=ok "
                   f"({n} values)")
+        for block in BIG_BLOCKS:
+            n = big_rows(block)
+            g, h = randn(n, dtype), randn(n, dtype)
+            for kb in big_kbs(block):
+                both(f"sweep_b{block}_kb{kb}_{tag}", g, h, block, kb, True)
+            print(f"[kernels] block_topk/efbv_update sweep {tag} "
+                  f"block={block}: kb {big_kbs(block)} bitwise=ok "
+                  f"({n} values)")
+        for kb in (1, 64, 8192):
+            both(f"one_padded_row_kb{kb}_{tag}", randn(5000, dtype),
+                 randn(5000, dtype), 8192, kb)
         n = 1024 * 4096
         for kb in (1, 2, 16, 64):
             both(f"block1024_kb{kb}_{tag}", randn(n, dtype), randn(n, dtype),
@@ -1042,7 +1192,7 @@ def kernels_dense():
             both(f"kb_eq_block{block}_{tag}", randn(n, dtype),
                  randn(n, dtype), block, block)
         # ties: integers in [-3, 3]; every 7th row of g - h all zero; -0.0
-        for block in (256, 1152, 4096):
+        for block in (256, 1152, 4096, 8192):
             n = block * 1024
             gi = torch.randint(-3, 4, (n,), generator=gen,
                                device="cuda").float()
@@ -1055,7 +1205,7 @@ def kernels_dense():
                      hi.to(dtype), block, kb)
         # specials: a NaN row, a row with one NaN, +-inf (more than kb of
         # them in row 4), -0.0, an inf in h
-        for block in (256, 2048):
+        for block in (256, 2048, 8192):
             n = block * 64
             gs, hs = randn(n), randn(n)
             gs[:block] = float("nan")
@@ -1074,15 +1224,13 @@ def kernels_dense():
                                   randn(n, bf16), randn(n), 256, kb)[4])
         err = max(err, dense_case("efbv_update", f"mixed_f32_bf16_kb{kb}",
                                   randn(n), randn(n, bf16), 256, kb)[4])
-    # blocks no kernel takes raise on the card
-    for block in (100, 4224):
-        try:
-            ops.block_topk(randn(4 * block), block=block, kb=4)
-        except ValueError as e:
-            print(f"[kernels] block_topk block={block} raises on the card: "
-                  f"{e}")
-        else:
-            raise AssertionError(f"[kernels] block_topk block={block} ran")
+    # a block % 128 != 0 raises on the card
+    try:
+        ops.block_topk(randn(400), block=100, kb=4)
+    except ValueError as e:
+        print(f"[kernels] block_topk block=100 raises on the card: {e}")
+    else:
+        raise AssertionError("[kernels] block_topk block=100 ran")
 
     # the 14 full-width leaves at every block/kb, f32, bitwise (bf16 too at
     # 256/16); timed in f32 at TIMED_CONFIGS
@@ -1115,6 +1263,24 @@ def kernels_dense():
                 rows[kernel] = {"ms": tot[0], "plain_ms": tot[1],
                                 "bound_ms": tot[2], "bound_by": by,
                                 "max_abs_err": err, "library_ms": None}
+    block, kb = BIG_LEAF_CONFIG
+    for kernel in ("block_topk", "efbv_update"):
+        k_tot = b_tot = 0.0
+        for path, size in leaves:
+            g, h = randn(size), randn(size)
+            out = dense_case(kernel, f"qwen2:{path}", g, h, block, kb,
+                             quiet=True)
+            err = max(err, out[4])
+            gp, hp = ops.to_rows(g, block), ops.to_rows(h, block)
+            run = (lambda: pack.block_topk(gp, kb)) if kernel == "block_topk" \
+                else (lambda: pack.efbv_update(gp, hp, 0.37, kb))
+            k_tot += timed_ms(run, reps=5)
+            b_tot += out[2]
+            del g, h, gp, hp
+            torch.cuda.empty_cache()
+        print(f"[kernels] {kernel} qwen2-0.5b round (14 leaves, f32, block "
+              f"{block}, kb {kb}): bitwise=ok kernel_ms={k_tot:.4f} "
+              f"bound_ms={b_tot:.4f}")
     for row in rows.values():
         row["max_abs_err"] = err
     selection_sass(leaves, gen)
@@ -1243,7 +1409,8 @@ PATHS = {
         "launches": {"pack_update": 0, "qsgd_pack_update": 0,
                      "randk_update": RUNS,
                      "threefry_uniform": SHUFFLE_ROUNDS * WORKERS * STEPS},
-        "profile": ("randk_dense_kernel", "randk_sparse_kernel",
+        "profile": ("randk_histogram_kernel", "randk_scan_kernel",
+                    "randk_scatter_kernel", "randk_tile_kernel",
                     "threefry_fill_kernel", "RadixSort"),
     },
     "pipelined": {

@@ -37,21 +37,26 @@ _UPDATE = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
            ctypes.c_float, _P]
 SIGNATURES = {
     "pack_update": {"pack_update_f32":
-                    [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_float, _P]},
+                    [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+                    "pack_update_scratch_bytes":
+                    [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]},
     "qsgd_pack_update": {"qsgd_pack_update_f32":
                          [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_float, ctypes.c_float,
                           ctypes.c_int, _P]},
     "randk_update": {"randk_update_f32":
-                     [_P, _P, _P, _P, _P, ctypes.c_longlong,
-                      ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P]},
+                     [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]},
     "threefry": {"threefry_fill":
                  [ctypes.c_uint, ctypes.c_uint, _P, ctypes.c_longlong,
                   ctypes.c_int, _P]},
     "block_topk": {"block_topk_f32": _TOPK, "block_topk_bf16": _TOPK,
                    "efbv_update_f32": _UPDATE, "efbv_update_bf16": _UPDATE},
 }
+#: entry points that return something other than a cudaError_t (int)
+RESTYPES = {"pack_update_scratch_bytes": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -117,5 +122,5 @@ def load(name: str) -> ctypes.CDLL:
     for sym, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(sym, ctypes.c_int)
     return lib

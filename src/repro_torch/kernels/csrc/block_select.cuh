@@ -45,8 +45,9 @@
 // Layouts (a Row type): WarpRow, one warp per row with lane l holding
 // columns j * 32 + l (BLOCK up to 1024, the row in registers); CtaRow, one
 // CTA per row of 32 W threads, thread t holding columns j * 32 W + t (blocks
-// above 1024: PER = 16, 8 or 4 values a thread, the most that gives whole
-// warps, so W = block / (32 PER)).
+// from 1152 to 4096: PER = 16, 8 or 4 values a thread, the most that gives
+// whole warps, so W = block / (32 PER)).  Above 4096 a CtaRow of 1024
+// threads reads the row from memory at each step (select_cut, below).
 
 #pragma once
 
@@ -267,6 +268,72 @@ __device__ __forceinline__ void pack_payload(const float (&v)[PER],
       irow[s] = 0;
     }
   }
+}
+
+// Rows above 4096 values (BIG rows): one CTA of 1024 threads per row, the
+// row too large for the threads' registers.  The values are read again at
+// every step of the search from ``src`` (src(c) is column c as f32: shared
+// memory where the row fits, else recomputed from device memory), thread t
+// reading columns j * 1024 + t.  The search, the early exit and the tie
+// rule are select_mask's; the set comes back as a Cut, three scalars:
+// keep |v| > T, and |v| == T at a column <= cut (every such column when
+// the keys >= T are exactly kb).  A NaN row keeps nothing (T is a NaN,
+// which no |v| compares to); kb >= block keeps every value (T = 0, exact).
+struct Cut {
+  float t;
+  int exact;
+  int cut;
+  __device__ __forceinline__ bool keep(float m, int col) const {
+    return m > t || (m == t && (exact || col <= cut));
+  }
+};
+
+template <class Src>
+__device__ Cut select_cut(const Src& src, int kb, int block, CtaRow& row) {
+  const int threads = row.threads();
+  const int per = (block + threads - 1) / threads;
+  const int me = row.thread();
+  int nan = 0;
+  for (int j = 0; j < per; ++j) {
+    const int c = j * threads + me;
+    if (c < block) nan |= isnan(src(c));
+  }
+  if (row.sum(nan)) return Cut{__uint_as_float(0x7fffffffu), 0, -1};
+  if (kb >= block) return Cut{0.0f, 1, -1};
+
+  unsigned int t = 0u;  // count(keys >= t) >= kb throughout
+  int gt = 0;           // count(keys > t) when the search runs to bit 0
+#pragma unroll 1
+  for (int b = 30; b >= 0; --b) {
+    const unsigned int cand = t | (1u << b);
+    const float cf = __uint_as_float(cand);
+    int c = 0;
+    for (int j = 0; j < per; ++j) {
+      const int col = j * threads + me;
+      if (col < block) c += fabsf(src(col)) >= cf;
+    }
+    c = row.sum(c);
+    if (c >= kb) {
+      t = cand;
+      if (c == kb) return Cut{cf, 1, -1};
+    } else {
+      gt = c;
+    }
+  }
+  // kb - gt of the keys equal to t, the lowest columns first: the column
+  // of the (kb - gt)-th such key, found chunk by chunk in column order
+  const float tf = __uint_as_float(t);
+  int need = kb - gt;
+  for (int j = 0; j < per; ++j) {
+    const int col = j * threads + me;
+    const bool eq = col < block && fabsf(src(col)) == tf;
+    int total;
+    const int before = row.prefix(eq, total);
+    if (total >= need)  // the same for every thread of the row
+      return Cut{tf, 0, row.sum(eq && before == need - 1 ? col + 1 : 0) - 1};
+    need -= total;
+  }
+  return Cut{tf, 0, block};  // not reached: the keys == t are >= kb - gt
 }
 
 }  // namespace block_select

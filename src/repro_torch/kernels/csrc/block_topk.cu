@@ -42,7 +42,12 @@
 // every block % 128 == 0 from 1152 to 4096, the block a run-time argument:
 // PER = 16, 8 or 4 values a thread (the most that leaves whole warps:
 // block % 512, % 256, % 128), block / PER threads, thread t holding
-// columns t, t + block / PER, ...  The wrapper refuses larger blocks.
+// columns t, t + block / PER, ...  Above 4096 (any block % 128 == 0, as
+// the TPU kernels take) the row no longer fits in a CTA's registers: one
+// CTA of 1024 threads per row (*_big) reads it again at each step of the
+// search (block_select::select_cut), from shared memory where the row fits
+// (staged once as f32: up to 57,856 values) and from device memory above
+// (x, or g and h, read again); right, not fast: PERF.md has its times.
 //
 // Bound: memory.  block_topk reads x and writes out (8 B per f32 value),
 // efbv_update reads g and h and writes d and h_out (16 B); over one
@@ -71,8 +76,12 @@
 namespace {
 
 constexpr int kWarpsPerCta = 8;
-constexpr int kMaxBlock = 4096;    // a CTA per row: at most 1024 threads
-                                   // of 4 values
+constexpr int kMaxBlock = 4096;    // rows in registers: at most 1024
+                                   // threads of 4 values
+constexpr int kBigThreads = 1024;  // a CTA per row above kMaxBlock
+// the dynamic shared memory a big row may hold (227 KiB a CTA, less the
+// static shared memory)
+constexpr int kSmemMax = 227 * 1024 - 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -196,6 +205,140 @@ efbv_update_cta(const T* __restrict__ g, const T* __restrict__ h,
                   lam, r);
 }
 
+// Rows above kMaxBlock: one CTA of kBigThreads per row, the row read again
+// at each step of the search (block_select::select_cut) from shared memory
+// (ROW_SMEM: as f32, staged once) or, where it does not fit, from device
+// memory.
+
+template <typename T>
+struct GlobalX {  // x as f32
+  const T* x;
+  __device__ __forceinline__ float operator()(int c) const {
+    return to_f32(x[c]);
+  }
+};
+
+template <typename T>
+struct GlobalDelta {  // f32(g) - f32(h)
+  const T* g;
+  const T* h;
+  __device__ __forceinline__ float operator()(int c) const {
+    return __fsub_rn(to_f32(g[c]), to_f32(h[c]));
+  }
+};
+
+struct SharedRow {
+  const float* s;
+  __device__ __forceinline__ float operator()(int c) const { return s[c]; }
+};
+
+extern __shared__ __align__(16) float big_row_smem[];
+
+__device__ __forceinline__ block_select::CtaRow big_row(int* sums) {
+  return block_select::CtaRow{sums, (int)(threadIdx.x >> 5),
+                              (int)(threadIdx.x & 31), kBigThreads / 32, 0};
+}
+
+// the row's cut: the values staged into shared memory first when ROW_SMEM
+template <bool ROW_SMEM, class Src>
+__device__ __forceinline__ block_select::Cut big_cut(const Src& src,
+                                                     int block, int kb,
+                                                     block_select::CtaRow& r) {
+  if (!ROW_SMEM) return block_select::select_cut(src, kb, block, r);
+  for (int c = threadIdx.x; c < block; c += kBigThreads)
+    big_row_smem[c] = src(c);
+  __syncthreads();
+  return block_select::select_cut(SharedRow{big_row_smem}, kb, block, r);
+}
+
+template <bool ROW_SMEM, typename T>
+__global__ void __launch_bounds__(kBigThreads)
+block_topk_big(const T* __restrict__ x, T* __restrict__ out, int block,
+               int kb) {
+  __shared__ int sums[64];
+  block_select::CtaRow r = big_row(sums);
+  const long long base = (long long)blockIdx.x * block;
+  const GlobalX<T> src{x + base};
+  const block_select::Cut cut = big_cut<ROW_SMEM>(src, block, kb, r);
+  for (int c = threadIdx.x; c < block; c += kBigThreads) {
+    const float v = ROW_SMEM ? big_row_smem[c] : src(c);
+    const bool keep = cut.keep(fabsf(v), c);
+    // f32 at kb = 1 selects: a kept value is stored as read
+    out[base + c] = (sizeof(T) == 4 && kb == 1)
+                        ? (keep ? from_f32<T>(v) : from_f32<T>(0.0f))
+                        : from_f32<T>(masked(v, keep, false));
+  }
+}
+
+template <bool ROW_SMEM, typename T>
+__global__ void __launch_bounds__(kBigThreads)
+efbv_update_big(const T* __restrict__ g, const T* __restrict__ h,
+                T* __restrict__ d_out, T* __restrict__ h_out, int block,
+                int kb, float lam) {
+  __shared__ int sums[64];
+  block_select::CtaRow r = big_row(sums);
+  const long long base = (long long)blockIdx.x * block;
+  const GlobalDelta<T> src{g + base, h + base};
+  const block_select::Cut cut = big_cut<ROW_SMEM>(src, block, kb, r);
+  const bool two_roundings = sizeof(T) == 4 && kb == 1;
+  for (int c = threadIdx.x; c < block; c += kBigThreads) {
+    const float delta = ROW_SMEM ? big_row_smem[c] : src(c);
+    const float hv = to_f32(h[base + c]);
+    const T d = from_f32<T>(masked(delta, cut.keep(fabsf(delta), c),
+                                   kb == 1));
+    const float df = to_f32(d);
+    d_out[base + c] = d;
+    h_out[base + c] = from_f32<T>(two_roundings
+                                      ? __fadd_rn(hv, __fmul_rn(lam, df))
+                                      : __fmaf_rn(lam, df, hv));
+  }
+}
+
+// above 48 KiB of shared memory a kernel must opt in to its dynamic shared
+// memory: opt in to the most asked for so far
+template <typename K>
+int opt_in(K kernel, size_t smem, size_t& opted_in) {
+  if (smem <= opted_in) return (int)cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) opted_in = smem;
+  return (int)e;
+}
+
+template <typename T>
+int launch_topk_big(const T* x, T* out, long long nb, int block, int kb,
+                    cudaStream_t s) {
+  const size_t smem = (size_t)block * 4;
+  if (smem > (size_t)kSmemMax) {
+    block_topk_big<false, T><<<(unsigned int)nb, kBigThreads, 0, s>>>(
+        x, out, block, kb);
+    return (int)cudaGetLastError();
+  }
+  static size_t opted_in = 0;
+  if (const int e = opt_in(block_topk_big<true, T>, smem, opted_in))
+    return e;
+  block_topk_big<true, T><<<(unsigned int)nb, kBigThreads, smem, s>>>(
+      x, out, block, kb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_update_big(const T* g, const T* h, T* d, T* h_out, long long nb,
+                      int block, int kb, float lam, cudaStream_t s) {
+  const size_t smem = (size_t)block * 4;
+  if (smem > (size_t)kSmemMax) {
+    efbv_update_big<false, T><<<(unsigned int)nb, kBigThreads, 0, s>>>(
+        g, h, d, h_out, block, kb, lam);
+    return (int)cudaGetLastError();
+  }
+  static size_t opted_in = 0;
+  if (const int e = opt_in(efbv_update_big<true, T>, smem, opted_in))
+    return e;
+  efbv_update_big<true, T><<<(unsigned int)nb, kBigThreads, smem, s>>>(
+      g, h, d, h_out, block, kb, lam);
+  return (int)cudaGetLastError();
+}
+
 unsigned int ctas(long long nb) {
   return (unsigned int)((nb + kWarpsPerCta - 1) / kWarpsPerCta);
 }
@@ -217,7 +360,7 @@ int launch_update(const T* g, const T* h, T* d, T* h_out, long long nb,
 
 // argument checks shared by the entries; cudaSuccess when the call is fine
 int check(long long nb, int block, int kb) {
-  if (kb <= 0 || kb > block || block % 128 || block > kMaxBlock)
+  if (kb <= 0 || kb > block || block % 128)
     return (int)cudaErrorInvalidValue;
   if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   return (int)cudaSuccess;
@@ -239,6 +382,8 @@ int block_topk(const T* x, T* out, long long nb, int block, int kb,
     WARP_BLOCKS(CASE)
 #undef CASE
     default:
+      if (block > kMaxBlock)
+        return launch_topk_big<T>(x, out, nb, block, kb, s);
       // the most values a thread that leave whole warps
       if (block % 512 == 0)
         block_topk_cta<16, T><<<(unsigned int)nb, block / 16, 0, s>>>(
@@ -266,6 +411,8 @@ int efbv_update(const T* g, const T* h, T* d, T* h_out, long long nb,
     WARP_BLOCKS(CASE)
 #undef CASE
     default:
+      if (block > kMaxBlock)
+        return launch_update_big<T>(g, h, d, h_out, nb, block, kb, lam, s);
       if (block % 512 == 0)
         efbv_update_cta<16, T><<<(unsigned int)nb, block / 16, 0, s>>>(
             g, h, d, h_out, block, kb, lam);

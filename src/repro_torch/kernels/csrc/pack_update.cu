@@ -42,6 +42,17 @@
 //     that leaves whole warps), thread t holding columns t, t + block /
 //     PER, ...; the block is a run-time argument and the warps' counts meet
 //     in shared memory at each step of the search.
+//   * block > 4096 (every multiple of 128, as the TPU kernel takes): the
+//     row no longer fits in registers.  One CTA of 1024 threads per row
+//     (pack_update_big) reads delta again at each step of the search
+//     (block_select::select_cut), from shared memory where the row fits
+//     (staged once: up to 57,856 values), recomputed from g and h in device
+//     memory above.  Its winners are compacted into kb (value, column)
+//     slots of shared memory, or of a device-memory scratch where kb x 8 B
+//     does not fit beside the row (264 CTAs then walk the rows, each with
+//     its own slots), ranked as pack_payload ranks them, and written to
+//     vals and idx at their ranks (no slab, no bulk store).  Right, not
+//     fast: PERF.md has its times.
 //
 // Payload store (replaces _pack_update_stream_kernel, pack.py:91, the
 // Pallas variant that stages the payload in VMEM scratch and copies it out
@@ -87,8 +98,15 @@
 namespace {
 
 constexpr int kWarpsPerCta = 8;
-constexpr int kMaxBlock = 4096;    // a CTA per row: at most 1024 threads
-                                   // of 4 values
+constexpr int kMaxBlock = 4096;    // rows in registers: at most 1024
+                                   // threads of 4 values
+constexpr int kBigThreads = 1024;  // a CTA per row above kMaxBlock
+// the dynamic shared memory a big row may hold (227 KiB a CTA, less the
+// static shared memory)
+constexpr int kSmemMax = 227 * 1024 - 1024;
+// CTAs of the big-row kernel when its winners go to device memory: each
+// walks rows with its own kb slots of scratch
+constexpr int kScratchCtas = 264;
 
 // a CTA's payload slab: vals [rows][kb] f32, then idx [rows][kb] int32
 extern __shared__ __align__(16) unsigned char slab_smem[];
@@ -245,6 +263,93 @@ pack_update_cta(const float* __restrict__ g, const float* __restrict__ h,
   if (bulk && t == 0) bulk_wait_read();
 }
 
+// Rows above kMaxBlock: one CTA of kBigThreads per row (or, with winners in
+// device memory, kScratchCtas CTAs walking the rows).  The row's delta is
+// read again at each step of the search (block_select::select_cut) from
+// shared memory (ROW_SMEM: staged once) or recomputed from g and h in
+// device memory.  The winners are compacted (one shared atomic per warp;
+// their order there does not matter) into kb (value, column) slots of
+// shared memory, or of ``scratch`` where kb x 8 B does not fit, and each is
+// ranked as in block_select::pack_payload; the payload goes straight to
+// vals and idx at its rank, no slab.
+struct GlobalDelta {
+  const float* g;
+  const float* h;
+  __device__ __forceinline__ float operator()(int c) const {
+    return __fsub_rn(g[c], h[c]);
+  }
+};
+
+struct SharedRow {
+  const float* s;
+  __device__ __forceinline__ float operator()(int c) const { return s[c]; }
+};
+
+template <bool ROW_SMEM>
+__global__ void __launch_bounds__(kBigThreads)
+pack_update_big(const float* __restrict__ g, const float* __restrict__ h,
+                float* __restrict__ vals, int* __restrict__ idx,
+                float* __restrict__ h_out, long long nb, int block, int kb,
+                float lam, float2* __restrict__ scratch) {
+  __shared__ int sums[64];
+  __shared__ int count;
+  const int t = threadIdx.x, lane = t & 31;
+  block_select::CtaRow r{sums, t >> 5, lane, kBigThreads / 32, 0};
+  float* rowv = reinterpret_cast<float*>(slab_smem);
+  float2* winners =
+      scratch ? scratch + (long long)blockIdx.x * kb
+              : reinterpret_cast<float2*>(rowv + (ROW_SMEM ? block : 0));
+  for (long long row = blockIdx.x; row < nb; row += gridDim.x) {
+    const long long base = row * block;
+    const GlobalDelta src{g + base, h + base};
+    block_select::Cut cut;
+    if (ROW_SMEM) {
+      for (int c = t; c < block; c += kBigThreads) rowv[c] = src(c);
+      __syncthreads();
+      cut = block_select::select_cut(SharedRow{rowv}, kb, block, r);
+    } else {
+      cut = block_select::select_cut(src, kb, block, r);
+    }
+    if (t == 0) count = 0;
+    __syncthreads();
+    // block % 128 == 0: a warp's 32 columns are all in the row or all past
+    for (int c = t; c < block; c += kBigThreads) {
+      const float v = ROW_SMEM ? rowv[c] : src(c);
+      const bool keep = cut.keep(fabsf(v), c);
+      const unsigned int b = __ballot_sync(block_select::kFull, keep);
+      int at = 0;
+      if (lane == 0 && b) at = atomicAdd(&count, __popc(b));
+      at = __shfl_sync(block_select::kFull, at, 0);
+      if (keep)
+        winners[at + __popc(b & block_select::lanemask_lt())] =
+            make_float2(v, __int_as_float(c));
+      h_out[base + c] = h_update(h[base + c], keep ? v : 0.0f, lam, kb);
+    }
+    __syncthreads();
+    const int n = count;
+    for (int s = t; s < kb; s += kBigThreads) {
+      const long long out = row * kb;
+      if (s < n) {
+        const float2 mine = winners[s];
+        const float m = fabsf(mine.x);
+        const int col = __float_as_int(mine.y);
+        int rank = 0;
+        for (int q = 0; q < n; ++q) {
+          const float2 o = winners[q];
+          const float a = fabsf(o.x);
+          rank += (a > m) | ((a == m) & (__float_as_int(o.y) < col));
+        }
+        vals[out + rank] = __fadd_rn(mine.x, 0.0f);
+        idx[out + rank] = col;
+      } else {
+        vals[out + s] = 0.0f;
+        idx[out + s] = 0;
+      }
+    }
+    __syncthreads();  // the row's shared memory and winners are free again
+  }
+}
+
 // above 48 KiB of shared memory, static included, a kernel must opt in to
 // its dynamic shared memory: each launcher opts in to the most it has asked
 // for so far (from 0, so the static shared memory never tips it over
@@ -285,18 +390,63 @@ int launch_cta(const float* g, const float* h, float* vals, int* idx,
   return (int)cudaGetLastError();
 }
 
+// the device-memory scratch (bytes) the pack needs for its winners: none
+// up to kMaxBlock, nor where the row (if it fits) and kb slots fit in
+// shared memory
+long long big_scratch_bytes(long long nb, int block, int kb) {
+  if (block <= kMaxBlock) return 0;
+  const long long row = (long long)block * 4 <= kSmemMax ? block * 4LL : 0;
+  if (row + kb * 8LL <= kSmemMax) return 0;
+  return (nb < kScratchCtas ? nb : kScratchCtas) * kb * 8LL;
+}
+
+int launch_big(const float* g, const float* h, float* vals, int* idx,
+               float* h_out, long long nb, int block, int kb, float lam,
+               float2* scratch, cudaStream_t stream) {
+  const bool row_smem = (long long)block * 4 <= kSmemMax;
+  const bool in_smem = big_scratch_bytes(nb, block, kb) == 0;
+  if (!in_smem && !scratch) return (int)cudaErrorInvalidValue;
+  const size_t smem = (row_smem ? (size_t)block * 4 : 0) +
+                      (in_smem ? (size_t)kb * 8 : 0);
+  const unsigned int ctas =
+      (unsigned int)(in_smem || nb < kScratchCtas ? nb : kScratchCtas);
+  float2* slots = in_smem ? nullptr : scratch;
+  if (row_smem) {
+    static size_t opted_in = 0;
+    if (const int e = opt_in(pack_update_big<true>, smem, opted_in)) return e;
+    pack_update_big<true><<<ctas, kBigThreads, smem, stream>>>(
+        g, h, vals, idx, h_out, nb, block, kb, lam, slots);
+  } else {
+    static size_t opted_in = 0;
+    if (const int e = opt_in(pack_update_big<false>, smem, opted_in))
+      return e;
+    pack_update_big<false><<<ctas, kBigThreads, smem, stream>>>(
+        g, h, vals, idx, h_out, nb, block, kb, lam, slots);
+  }
+  return (int)cudaGetLastError();
+}
+
 #define WARP_BLOCKS(F) \
   F(128) F(256) F(384) F(512) F(640) F(768) F(896) F(1024)
 
 }  // namespace
 
+// bytes of device memory pack_update_f32 needs as its scratch (0: none)
+extern "C" long long pack_update_scratch_bytes(long long nb, int block,
+                                               int kb) {
+  return nb > 0 ? big_scratch_bytes(nb, block, kb) : 0;
+}
+
 // vals and idx hold nb rounded up to whole CTAs of 8 rows and start 16-byte
-// aligned; block is any multiple of 128 up to 4096
+// aligned; block is any multiple of 128; scratch holds
+// pack_update_scratch_bytes(nb, block, kb) bytes, 8-byte aligned (null
+// when that is 0)
 extern "C" int pack_update_f32(const float* g, const float* h, float* vals,
-                               int* idx, float* h_out, long long nb,
-                               int block, int kb, float lam, void* stream) {
+                               int* idx, float* h_out, void* scratch,
+                               long long nb, int block, int kb, float lam,
+                               void* stream) {
   if (nb <= 0) return (int)cudaSuccess;
-  if (kb <= 0 || kb > block || block % 128 || block > kMaxBlock)
+  if (kb <= 0 || kb > block || block % 128)
     return (int)cudaErrorInvalidValue;
   if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -307,6 +457,9 @@ extern "C" int pack_update_f32(const float* g, const float* h, float* vals,
     WARP_BLOCKS(CASE)
 #undef CASE
     default:
+      if (block > kMaxBlock)
+        return launch_big(g, h, vals, idx, h_out, nb, block, kb, lam,
+                          static_cast<float2*>(scratch), s);
       // the most values a thread that leave whole warps
       if (block % 512 == 0)
         return launch_cta<16>(g, h, vals, idx, h_out, nb, block, kb, lam, s);

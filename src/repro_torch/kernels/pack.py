@@ -10,7 +10,8 @@
   h_out = h + lam * dequant(levels) (``csrc/qsgd_pack_update.cu``).
 * :func:`randk_update`, the port of ``randk_update_pallas``: the rand-k
   payload values at k given positions and h_out = h + lam * d, the dense
-  d never in device memory (``csrc/randk_update.cu``).
+  d never in device memory: one pass over h in tiles, the positions
+  bucketed by tile first (``randk_plan``, ``csrc/randk_update.cu``).
 * :func:`block_topk` and :func:`efbv_update`, the ports of
   ``repro/kernels/block_topk.py``'s ``block_topk_pallas`` (out = x * keep
   per (nb, block) row, keep the kb largest |x|) and ``efbv_update_pallas``
@@ -25,6 +26,7 @@ launches, so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -32,13 +34,11 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ref
 
-#: the largest block the CUDA block-top-k kernels take: above 1024 a row
-#: is one CTA of at least 4 values a thread, at most 1024 threads
-MAX_BLOCK = 4096
-#: block sizes the CUDA block-top-k kernels (the pack and the dense two)
-#: take: every multiple of 128 up to MAX_BLOCK (a warp per row up to 1024,
-#: a CTA per row above)
-CUDA_BLOCKS = tuple(range(128, MAX_BLOCK + 1, 128))
+# The CUDA block-top-k kernels (the pack and the dense two) take every
+# block % 128 == 0, as the TPU kernels do: a warp per row up to 1024 and a
+# CTA per row above, the row in registers up to 4096 and read again from
+# shared or device memory at each step of the search above that.
+
 #: the types of the dense kernels' entries
 DENSE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: rows per CTA of the CUDA pack kernel: it stores whole CTAs' payload
@@ -47,8 +47,8 @@ CTA_ROWS = 8
 
 
 def _block_message(name: str, block: int) -> str:
-    return (f"the CUDA {name} kernel takes block % 128 == 0 up to "
-            f"{MAX_BLOCK} (MAX_BLOCK), got {block}")
+    return (f"the CUDA {name} kernel takes block % 128 == 0 (the TPU "
+            f"kernel's lane tiling), got {block}")
 
 
 def _check(g2d: torch.Tensor, h2d: torch.Tensor, kb: int) -> None:
@@ -78,13 +78,19 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     if g2d.device.type != "cuda":
         raise ValueError(f"pack_update runs on cpu or cuda, not {g2d.device}")
     nb, block = g2d.shape
-    if block not in CUDA_BLOCKS:
+    if block % 128:
         raise ValueError(_block_message("pack_update", block))
     if not (g2d.is_contiguous() and h2d.is_contiguous()):
         raise ValueError("pack_update needs contiguous g and h")
     from repro_torch.kernels import build
 
-    fn = build.load("pack_update").pack_update_f32
+    lib = build.load("pack_update")
+    fn = lib.pack_update_f32
+    # blocks above 4096 whose kb slots do not fit in shared memory rank
+    # their winners in device memory
+    nbytes = lib.pack_update_scratch_bytes(nb, block, kb)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=g2d.device) \
+        if nbytes else None
     rows = -(-nb // CTA_ROWS) * CTA_ROWS
     vals = torch.empty((rows, kb), dtype=torch.float32, device=g2d.device)
     idx = torch.empty((rows, kb), dtype=torch.int32, device=g2d.device)
@@ -95,8 +101,9 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     with torch.cuda.device(g2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g2d.data_ptr(), h2d.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), h_out.data_ptr(), nb, block, kb, float(lam),
-                 stream)
+                 idx.data_ptr(), h_out.data_ptr(),
+                 scratch.data_ptr() if nbytes else None, nb, block, kb,
+                 float(lam), stream)
     if err != 0:
         raise RuntimeError(f"pack_update launch failed: cudaError {err}")
     LAUNCHES["pack_update"] += 1
@@ -170,30 +177,75 @@ def _check_randk(g, h, idx) -> None:
                          f"{g.numel()}")
 
 
+#: rand-k tiles: 2**RANDK_TILE_LOG2 values of h (32 KiB) a tile; a CTA of
+#: the kernel holds two (the next one arrives while one is patched)
+RANDK_TILE_LOG2 = 13
+#: a leaf whose tiles times k is at most this skips the bucketing: each
+#: tile's CTA reads all of idx (4 MiB of L2 reads in all at most)
+RANDK_SCAN_LIMIT = 1 << 20
+#: the most tiles whose counts a CTA holds in shared memory (224 KiB);
+#: a leaf of more tiles is bucketed with global atomics
+RANDK_SMEM_BINS = 56 * 1024
+#: streaming multiprocessors of an H100 SXM
+SMS = 132
+
+
+def randk_plan(size: int, k: int) -> Tuple[int, bool, int, int]:
+    """(tiles, bucketed, scratch int32 words, histogram CTAs) of the rand-k
+    kernel on a leaf of ``size`` values and k positions
+    (``csrc/randk_update.cu``).  The positions are bucketed by tile (a
+    counting sort into k int2 pairs) unless tiles x k <= RANDK_SCAN_LIMIT,
+    where each tile's CTA reads all of idx instead.  Up to RANDK_SMEM_BINS tiles
+    the histogram's CTAs count in shared memory, few enough (k / 4 tiles,
+    at most one an SM) that their per-tile atomics stay near k / 4, and the
+    scratch holds each position's rank and each CTA's offsets; above, one
+    cursor per tile (and no histogram CTA count: 0)."""
+    tiles = -(-size >> RANDK_TILE_LOG2)
+    if tiles * k <= RANDK_SCAN_LIMIT:
+        return tiles, False, 0, 0
+    if tiles > RANDK_SMEM_BINS:
+        return tiles, True, 2 * k + 2 * tiles, 0
+    ctas = min(SMS, max(1, k // (4 * tiles)))
+    return tiles, True, -(-(2 * k + tiles) // 4) * 4 + k + ctas * tiles, ctas
+
+
 def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
                  scale: float, lam: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat (size,) f32 g and h and the (k,) int32 selected positions ->
-    (vals (k,) f32, h_out (size,) f32).  See ``csrc/randk_update.cu``; a
-    position outside [0, size) makes the kernel trap (the plain version
-    raises)."""
+    (vals (k,) f32, h_out (size,) f32).  On the card one pass over h in
+    tiles, the positions bucketed by tile first (``randk_plan``,
+    ``csrc/randk_update.cu``); a position outside [0, size) makes the
+    kernel trap (the plain version raises)."""
     _check_randk(g, h, idx)
     if g.device.type == "cpu":
         return ref.randk_update_ref(g, h, idx, scale, lam)
     if g.device.type != "cuda":
         raise ValueError(f"randk_update runs on cpu or cuda, not {g.device}")
-    if not all(x.is_contiguous() for x in (g, h, idx)):
+    if not (g.is_contiguous() and h.is_contiguous() and idx.is_contiguous()):
         raise ValueError("randk_update needs contiguous g, h and idx")
     from repro_torch.kernels import build
 
     fn = build.load("randk_update").randk_update_f32
-    vals = torch.empty(idx.shape, dtype=torch.float32, device=g.device)
+    size, k = g.numel(), idx.numel()
+    _, bucketed, words, hist_ctas = randk_plan(size, k)
+    vals = torch.empty(k, dtype=torch.float32, device=g.device)
     h_out = torch.empty_like(h)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty(words, dtype=torch.int32, device=g.device) \
+        if bucketed else None
+    # the launch goes to the host thread's current device: switch only when
+    # g lies on another one.  The raw stream handle (the call torch's
+    # Triton launcher makes) saves the 6-7 us a call that
+    # torch.cuda.current_stream() costs on an H100 host: the 6 small leaves
+    # of a rand-k round are host-bound.
+    dev = g.device.index
+    switch = dev != torch.cuda.current_device()
+    with torch.cuda.device(g.device) if switch else contextlib.nullcontext():
         err = fn(g.data_ptr(), h.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-                 h_out.data_ptr(), g.numel(), idx.numel(), float(scale),
-                 float(lam), stream)
+                 h_out.data_ptr(), scratch.data_ptr() if bucketed else None,
+                 size, k, RANDK_TILE_LOG2, int(bucketed), hist_ctas,
+                 float(scale), float(lam),
+                 torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"randk_update launch failed: cudaError {err}")
     LAUNCHES["randk_update"] += 1
@@ -225,8 +277,6 @@ def _dense_entry(name: str, x2d: torch.Tensor, *tensors: torch.Tensor):
     only the card needs."""
     if x2d.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x2d.device}")
-    if x2d.shape[1] not in CUDA_BLOCKS:
-        raise ValueError(_block_message(name, x2d.shape[1]))
     if not all(t.is_contiguous() for t in (x2d, *tensors)):
         raise ValueError(f"{name} needs contiguous rows")
     from repro_torch.kernels import build

@@ -26,6 +26,7 @@ from _prop import given, settings, st
 
 from repro.distributed import wire as jwire
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.distributed import wire as twire
 from repro_torch.kernels import LAUNCHES, ops, pack, ref, reset_launches
 
@@ -182,9 +183,10 @@ def test_cuda_mode_needs_a_cuda_tensor():
 
 # -- the route by shape of ``auto`` (JAX's wire.py fused_pack) --------------
 
-@pytest.mark.parametrize("block", [100, 200, 128, 384])
+@pytest.mark.parametrize("block", [100, 200, 128, 384, 4224])
 def test_auto_routes_by_block_shape(block, monkeypatch):
-    """``auto`` takes the kernel wrapper exactly when block % 128 == 0; any
+    """``auto`` takes the kernel wrapper exactly when block % 128 == 0 (4224
+    too: the kernels take blocks above 4096, as JAX's do); any
     other block takes the oracle before any launch (the wrapper is never
     called) and matches JAX's ``fused_pack`` in its default mode on this
     host (the jnp oracle) bit for bit, -0.0 and NaN rows included."""
@@ -218,15 +220,18 @@ def test_auto_routes_by_block_shape(block, monkeypatch):
 @pytest.mark.parametrize("block", [100, 4224])
 def test_cuda_mode_refuses_blocks_no_kernel_takes(block):
     """An explicit ``cuda`` never takes the oracle: on a CPU tensor it
-    raises for the device (on the card the wrapper raises for these blocks,
-    ``chip_smoke.py``); the kernels take every block % 128 == 0 up to
-    ``pack.MAX_BLOCK`` and no other."""
+    raises for the device.  The kernels take every block % 128 == 0, as
+    the TPU kernels do (4224 runs on the card, ``chip_smoke.py``), and no
+    other; the dense wrappers check that rule on every device."""
     lw = twire.LeafWire(shape=(block,), size=block, block=block, kb=4)
     x = torch.zeros(block)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         twire.fused_pack(lw, x, x, LAM, kernel="cuda")
-    assert block not in pack.CUDA_BLOCKS
-    assert pack.CUDA_BLOCKS == tuple(range(128, pack.MAX_BLOCK + 1, 128))
+    if block % 128:
+        with pytest.raises(ValueError, match="block % 128 == 0"):
+            ops.block_topk(x, block=block, kb=4)
+    else:
+        assert torch.equal(ops.block_topk(x, block=block, kb=4), x)
 
 
 # -- JAX's streaming pack (stream=True) ------------------------------------
@@ -406,6 +411,192 @@ def test_randk_wrapper_checks_inputs(bad):
         idx = idx.reshape(2, 2)
     with pytest.raises((ValueError, TypeError)):
         pack.randk_update(g, h, idx, 16.0, LAM)
+
+
+# -- the one-pass rand-k design (csrc/randk_update.cu) ----------------------
+#
+# A numpy model of the kernel's steps, held bit for bit against the Pallas
+# kernel in interpret mode and against the plain version, at the chip
+# cases' shapes scaled down to tiles of 1024 values (the kernel's smallest;
+# it runs 8192: ``small_randk_tiles``), on each of its plans: the
+# positions bucketed by tile (counts in shared memory, or per-tile
+# cursors), and one launch whose CTAs read all of idx.
+
+RANDK_MODEL_LOG2 = 10
+
+
+def small_randk_tiles(monkeypatch, scan_limit, smem_bins=1 << 20):
+    """The plan at the model's tiles of 1024 values, with the given limits
+    of the one-launch path and of the shared-memory counts."""
+    monkeypatch.setattr(pack, "RANDK_TILE_LOG2", RANDK_MODEL_LOG2)
+    monkeypatch.setattr(pack, "RANDK_SCAN_LIMIT", scan_limit)
+    monkeypatch.setattr(pack, "RANDK_SMEM_BINS", smem_bins)
+
+
+def model_randk(g, h, idx, scale, lam, seed=0):
+    """(vals, h_out) of the rand-k kernel's steps: the plan
+    (``pack.randk_plan``); when bucketed, the counting sort of the (p, j)
+    pairs by tile -- a histogram whose CTAs (contiguous chunks of idx)
+    give each position its rank among its CTA's positions of its tile and
+    each CTA its offset in each tile's bucket (both in the order of the
+    atomics, here a random one), the exclusive scan of the counts, and the
+    scatter to start + offset + rank (with no histogram CTAs, one cursor
+    per tile, bumped in a random order); then per tile: h into a buffer,
+    each pair patched there (v = (g[p] - h[p]) * scale into vals[j], the
+    buffer value h[p] + lam * v, a bit set), and h_out = the buffer where
+    the bit is set, h + lam * 0.0 elsewhere."""
+    size, k = g.size, idx.size
+    tiles, bucketed, words, ctas = pack.randk_plan(size, k)
+    tile_log2 = pack.RANDK_TILE_LOG2
+    if k and (idx.min() < 0 or idx.max() >= size):
+        raise IndexError("rand-k position out of range")
+    rng = np.random.default_rng(seed)
+    tile = 1 << tile_log2
+    of_tile = idx.astype(np.int64) >> tile_log2
+    if bucketed:
+        counts = np.bincount(of_tile, minlength=tiles)
+        starts = np.cumsum(counts) - counts                 # the scan
+        if ctas:
+            assert words == -(-(2 * k + tiles) // 4) * 4 + k + ctas * tiles
+            chunk = -(-(-(-k // ctas)) // 16) * 16
+            cta = np.arange(k) // chunk
+            rank = np.empty(k, np.int64)
+            off = np.zeros((ctas, tiles), np.int64)
+            for t in range(tiles):
+                mine = np.flatnonzero(of_tile == t)
+                local = np.bincount(cta[mine], minlength=ctas)
+                order = rng.permutation(ctas)               # flush atomics
+                off[order, t] = np.cumsum(local[order]) - local[order]
+                for c in range(ctas):
+                    ours = mine[cta[mine] == c]
+                    rank[ours] = rng.permutation(ours.size)
+            slots = starts[of_tile] + off[cta, of_tile] + rank
+        else:
+            assert words == 2 * k + 2 * tiles
+            cursor = starts.copy()
+            slots = np.empty(k, np.int64)
+            for j in rng.permutation(k):
+                slots[j] = cursor[of_tile[j]]
+                cursor[of_tile[j]] += 1
+        assert np.array_equal(np.sort(slots), np.arange(k))
+        pairs = np.empty((k, 2), np.int64)
+        pairs[slots] = np.stack([idx, np.arange(k)], axis=1)
+        ends = np.append(starts[1:], k)
+        buckets = [pairs[starts[t]:ends[t]] for t in range(tiles)]
+        assert all(np.all(b[:, 0] >> tile_log2 == t)
+                   for t, b in enumerate(buckets))
+    else:
+        assert words == 0
+        buckets = [np.stack([idx[of_tile == t], np.flatnonzero(of_tile == t)],
+                            axis=1) for t in range(tiles)]
+    f32 = np.float32
+    vals = np.empty(k, f32)
+    h_out = np.empty_like(h)
+    zero = f32(lam) * f32(0.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for t in range(tiles):
+            buf = h[t * tile:(t + 1) * tile].copy()
+            bits = np.zeros(buf.size, bool)
+            for p, j in buckets[t]:
+                local = p - t * tile
+                hp = buf[local]
+                v = (g[p] - hp) * f32(scale)
+                vals[j] = v
+                buf[local] = hp + f32(lam) * v
+                bits[local] = True
+            h_out[t * tile:(t + 1) * tile] = np.where(bits, buf, buf + zero)
+    return vals, h_out
+
+
+def randk_model_case(case):
+    """(g, h, idx) of one of the chip's tile cases, at tiles of 1024."""
+    tile = 1 << RANDK_MODEL_LOG2
+    rng = np.random.default_rng(len(case))
+    if case == "one_tile_holds_all":
+        n = 8 * tile + 77
+        idx = 3 * tile + rng.permutation(tile)
+    elif case == "tile_edges":
+        n = 12 * tile + 77
+        edges = np.arange(1, 13) * tile
+        edges = np.concatenate([edges - 1, edges, edges + 1, [0, n - 2]])
+        edges = edges[edges < n]
+        rest = np.setdiff1d(np.arange(n), edges)
+        idx = np.concatenate([edges, rng.choice(rest, 600, replace=False),
+                              rest[-5:]])
+        idx = rng.permutation(np.unique(idx))
+    elif case == "last_partial_tile":
+        n = 5 * tile + 77
+        idx = rng.permutation(np.arange(5 * tile, n))
+    elif case.startswith("size"):                 # size<n>_k<k>
+        n, k = (int(x) for x in case[4:].split("_k"))
+        idx = rng.permutation(n)[:k]
+    elif case == "k_eq_size":
+        n = 3 * tile + 5
+        idx = rng.permutation(n)
+    else:                                         # k1: the last value
+        n = 20_000
+        idx = np.array([n - 1])
+    g = rng.standard_normal(n).astype(np.float32)
+    h = rng.standard_normal(n).astype(np.float32)
+    return g, h, idx.astype(np.int32)
+
+
+RANDK_MODEL_CASES = ["one_tile_holds_all", "tile_edges", "last_partial_tile",
+                     "size1024_k512", "size1024_k1024", "size1025_k1025",
+                     "k_eq_size", "k1"]
+
+
+@pytest.mark.parametrize("case", RANDK_MODEL_CASES)
+def test_model_randk_bitwise_vs_pallas_interpret(case, monkeypatch):
+    """The model's three plans (bucketed with the counts in shared memory,
+    bucketed with per-tile cursors, one launch) against the Pallas kernel
+    in interpret mode (h') and JAX's gather (vals), and against the port's
+    plain version."""
+    g, h, idx = randk_model_case(case)
+    want, got = _randk_both(g, h, idx, LAM)
+    _assert_same(want, got)
+    scale = float(np.float32(g.size / idx.size))
+    plans = set()
+    for scan_limit, smem_bins in ((0, 1 << 20), (0, 0), (1 << 40, 0)):
+        small_randk_tiles(monkeypatch, scan_limit, smem_bins)
+        _assert_same(want, model_randk(g, h, idx, scale, LAM,
+                                       seed=len(plans)))
+        plans.add(pack.randk_plan(g.size, idx.size)[1:4:2])
+    assert len(plans) == 3
+
+
+@pytest.mark.parametrize("case", ["negzero", "nan", "inf"])
+def test_model_randk_edge_values_bitwise(case, monkeypatch):
+    """-0.0, NaN and inf at selected and unselected positions through the
+    model's bitmap (an unselected value takes h + lam * 0.0), bucketed
+    (counts in shared memory), across 5 tiles, at lam 0.37 and 0.0."""
+    g, h, idx = _randk_inputs(5 * 1024 + 3, 900, case)
+    scale = float(np.float32(g.size / idx.size))
+    small_randk_tiles(monkeypatch, 0)
+    for lam in (LAM, 0.0):
+        want = ref.randk_update_ref(torch.from_numpy(g), torch.from_numpy(h),
+                                    torch.from_numpy(idx), scale, lam)
+        model = model_randk(g, h, idx, scale, lam)
+        _assert_same([w.numpy() for w in want], model)
+
+
+def test_randk_plan_at_full_width():
+    """The plan of the rand-k path's 14 full-width qwen2-0.5b leaves at k =
+    1048576 (clamped to the leaf): the 6 small leaves in one launch, the 8
+    others bucketed; the embed leaf at k = 1 in one launch."""
+    sizes = {136_134_656: 1, 896: 1, 3072: 2, 21_504: 3,
+             2_752_512: 2, 19_267_584: 2, 104_595_456: 3}
+    plans = []
+    for size, n in sizes.items():
+        k = min(1_048_576, size)
+        tiles, bucketed, words, ctas = pack.randk_plan(size, k)
+        assert tiles == -(-size // 8192)
+        assert (words > 3 * k) == bucketed and (ctas > 0) == bucketed
+        assert ctas == (min(132, k // (4 * tiles)) if bucketed else 0)
+        plans += [bucketed] * n
+    assert plans.count(True) == 8 and plans.count(False) == 6
+    assert not pack.randk_plan(136_134_656, 1)[1]
+
 
 # ---------------------------------------------------------------------------
 # The dense block-top-k and fused dense worker update (block_topk.cu)
@@ -685,15 +876,13 @@ def test_dense_bound_ms_at_full_width(kernel, elem, payload, want, by):
 # selected set (the pack's columns), and the dense kernels' out, d and h'.
 # ---------------------------------------------------------------------------
 
-def model_select(mag, kb):
-    """(rows, block) f32 magnitudes -> (keep (rows, block) bool, steps
-    (rows,) int): the kernels' selection.  Key: the f32 bits of |x| without
-    the sign; T, the kb-th largest key, by bisection from bit 30 down, each
-    step counting the keys >= t | 1 << b, stopping as soon as exactly kb
-    are >= the candidate; then every key > T and the kb - count(> T)
-    lowest columns among the keys == T.  A row holding a NaN keeps
-    nothing; kb == block keeps everything without a step."""
-    keys = np.ascontiguousarray(mag, np.float32).view(np.uint32) & 0x7FFFFFFF
+def model_search(keys, kb):
+    """The threshold search on (rows, block) uint32 keys: (t, gt, exact,
+    steps, nan) per row.  T, the kb-th largest key, by bisection from bit
+    30 down, each step counting the keys >= t | 1 << b, stopping as soon
+    as exactly kb are >= the candidate (exact); gt = count(keys > t) where
+    the search runs to bit 0.  A row holding a NaN, and kb == block, take
+    no step."""
     rows, block = keys.shape
     nan = (keys > 0x7F800000).any(axis=1)
     t = np.zeros(rows, np.uint32)
@@ -715,6 +904,18 @@ def model_select(mag, kb):
         done |= hit
         down = live & (c < kb)
         gt[down] = c[down]
+    return t, gt, exact, steps, nan
+
+
+def model_select(mag, kb):
+    """(rows, block) f32 magnitudes -> (keep (rows, block) bool, steps
+    (rows,) int): the kernels' selection.  Key: the f32 bits of |x| without
+    the sign; T by ``model_search``; then every key > T and the kb -
+    count(> T) lowest columns among the keys == T.  A row holding a NaN
+    keeps nothing; kb == block keeps everything without a step."""
+    keys = np.ascontiguousarray(mag, np.float32).view(np.uint32) & 0x7FFFFFFF
+    block = keys.shape[1]
+    t, gt, exact, steps, nan = model_search(keys, kb)
     eq = keys == t[:, None]
     before = np.cumsum(eq, axis=1) - eq          # equal keys in lower columns
     tie = eq & (before < (kb - gt)[:, None])
@@ -723,6 +924,31 @@ def model_select(mag, kb):
     keep[kb >= block] = True
     keep[nan] = False
     return keep, steps
+
+
+def model_cut(mag, kb):
+    """The selection of rows above 4096 (``block_select::select_cut``): the
+    same search, the set as three scalars per row, (T as f32, exact, cut):
+    keep |x| > T, and |x| == T at a column <= cut, every such column when
+    exact.  cut is the column of the (kb - gt)-th key equal to T in column
+    order.  A NaN row has T = NaN (nothing compares to it); kb >= block
+    has T = 0, exact.  Returns (keep, (T, exact, cut))."""
+    mag = np.ascontiguousarray(mag, np.float32)
+    keys = mag.view(np.uint32) & 0x7FFFFFFF
+    block = keys.shape[1]
+    t, gt, exact, _, nan = model_search(keys, kb)
+    cum = np.cumsum(keys == t[:, None], axis=1)
+    cut = np.where(exact, -1, np.argmax(cum >= (kb - gt)[:, None], axis=1))
+    tf = t.view(np.float32).copy()
+    if kb >= block:
+        tf[:], exact[:] = 0.0, True
+    tf[nan], exact[nan] = np.nan, False
+    cols = np.arange(block)
+    with np.errstate(invalid="ignore"):
+        keep = (mag > tf[:, None]) | ((mag == tf[:, None])
+                                      & (exact[:, None]
+                                         | (cols <= cut[:, None])))
+    return keep, (tf, exact, cut)
 
 
 def model_pack(g2d, h2d, kb, lam=LAM):
@@ -871,6 +1097,148 @@ def test_model_dense_bitwise_vs_pallas_interpret(block, kb, rows, kind,
     assert_bits(dw, to_torch(d.reshape(-1)))
     assert_bits(hw, to_torch(h_out.reshape(-1)))
     check_update(g, h, block, kb)
+
+
+# -- blocks above 4096: the row read again from memory at each step --------
+
+#: (block, kb) of the big-row path, and of a block in registers beside them
+BIG_CUT_SHAPES = [(b, kb) for b in (384, 4224, 8192)
+                  for kb in (1, 3, 64, b // 2, b)]
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+@pytest.mark.parametrize("block,kb", BIG_CUT_SHAPES)
+def test_model_cut_keeps_the_selected_set(block, kb, kind):
+    """The big-row cut (T, exact, cut) keeps exactly the set of the
+    register path's selection, ties by column, NaN rows, +-inf and -0.0
+    included, at 8 rows."""
+    g, h = model_rows(kind, 8, block, kb, block + kb)
+    with np.errstate(invalid="ignore"):
+        mag = np.abs(g - h)
+    keep, (tf, exact, cut) = model_cut(mag, kb)
+    want, _ = model_select(mag, kb)
+    np.testing.assert_array_equal(keep, want)
+    clean = ~np.isnan(mag).any(axis=1)
+    assert np.all(keep[clean].sum(axis=1) == min(kb, block))
+    assert not keep[~clean].any()
+
+
+def model_pack_big(g2d, h2d, kb, lam=LAM, seed=0):
+    """The big-row pack: the cut's winners compacted in any order (the
+    shared atomics'; here a random one) into kb (value, column) slots, each
+    ranked by the winners ahead of it (a larger |v|, or an equal |v| at a
+    lower column) and written at its rank (v + 0.0); (0.0, 0) in the slots
+    past the winners; h_out as ``model_pack``."""
+    with np.errstate(invalid="ignore"):
+        delta = g2d - h2d
+    keep, _ = model_cut(np.abs(delta), kb)
+    rng = np.random.default_rng(seed)
+    rows = delta.shape[0]
+    vals = np.zeros((rows, kb), np.float32)
+    idx = np.zeros((rows, kb), np.int32)
+    for r in range(rows):
+        cols = rng.permutation(np.flatnonzero(keep[r]))
+        mags = np.abs(delta[r, cols])
+        rank = np.empty(cols.size, np.int64)
+        rank[np.lexsort((cols, -mags.astype(np.float64)))] = \
+            np.arange(cols.size)
+        vals[r, rank] = delta[r, cols] + np.float32(0.0)
+        idx[r, rank] = cols
+    d = np.where(keep, delta, np.float32(0.0))
+    if kb == 1:
+        h_out = torch.add(torch.from_numpy(h2d), torch.from_numpy(d),
+                          alpha=lam).numpy()
+    else:
+        with np.errstate(invalid="ignore"):
+            h_out = h2d + np.float32(lam) * d
+    return vals, idx, h_out
+
+
+#: (block, kb, kind) held against the Pallas kernels in interpret mode (8
+#: rows; kb <= 64, as interpret mode runs kb rounds)
+BIG_PALLAS_CASES = [(4224, 1, "inf"), (4224, 3, "ties"), (4224, 64, "nan"),
+                    (8192, 1, "negzero"), (8192, 3, "equal"),
+                    (8192, 64, "normal")]
+
+
+@pytest.mark.parametrize("block,kb,kind", BIG_PALLAS_CASES)
+def test_model_big_pack_bitwise_vs_pallas_interpret(block, kb, kind):
+    """The big-row pack model's payload and h' against the Pallas pack
+    kernel in interpret mode, and against ``model_pack``; the port's pack
+    (its plain version here) on the same rows."""
+    g, h = model_rows(kind, 8, block, kb, block + kb + 3)
+    got = model_pack_big(g, h, kb)
+    _assert_same(model_pack(g, h, kb)[0], got)
+    shape = (8 * block,)
+    want = _jax_pack(g.reshape(-1), h.reshape(-1), shape, block, kb)
+    _assert_same(want, (got[0], got[1], got[2].reshape(-1)))
+    _assert_same(want, _torch_pack(g.reshape(-1), h.reshape(-1), shape,
+                                   block, kb, "auto"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block,kb,kind", [(4224, 1, "nan"),
+                                           (4224, 64, "inf"),
+                                           (8192, 3, "ties"),
+                                           (8192, 64, "negzero")])
+def test_model_big_dense_bitwise_vs_pallas_interpret(block, kb, kind, dtype):
+    """The dense kernels' arithmetic on the big-row cut (out, d, h')
+    against the Pallas kernels in interpret mode, f32 and bf16."""
+    g, h = model_rows(kind, 8, block, kb, block + kb + 5)
+    g, h = g.astype(DTYPES[dtype]), h.astype(DTYPES[dtype])
+    keep, _ = model_cut(np.abs(g.astype(np.float32)), kb)
+    assert np.array_equal(keep, model_select(np.abs(g.astype(np.float32)),
+                                             kb)[0])
+    out, _ = model_dense(g, kb)
+    (d, h_out), _ = model_update(g, h, kb)
+    g, h = g.reshape(-1), h.reshape(-1)
+    assert_bits(jops.block_topk(jnp.asarray(g), block=block, kb=kb,
+                                interpret=True), to_torch(out.reshape(-1)))
+    dw, hw = jops.efbv_update(jnp.asarray(g), jnp.asarray(h), LAM,
+                              block=block, kb=kb, interpret=True)
+    assert_bits(dw, to_torch(d.reshape(-1)))
+    assert_bits(hw, to_torch(h_out.reshape(-1)))
+    check_topk(g, block, kb)
+    check_update(g, h, block, kb)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "equal", "negzero"])
+@pytest.mark.parametrize("block,half", [(4224, True), (4224, False),
+                                        (8192, True), (8192, False)])
+def test_model_big_pack_vs_jnp_oracle(block, half, kind):
+    """kb = block / 2 and kb = block, where interpret mode's kb rounds are
+    too slow: the big-row pack model's payload against the JAX package's
+    jnp oracle (``wire.pack_oracle``: ``jax.lax.top_k``, ties to the lowest
+    column; the kernel sends a selected -0.0 as +0.0, so the oracle's
+    values are compared + 0.0), and the port's pack on the same rows."""
+    kb = block // 2 if half else block
+    g, h = model_rows(kind, 8, block, kb, block + kb + 7)
+    vals, idx, h_out = model_pack_big(g, h, kb)
+    lw = jwire.LeafWire(shape=(8 * block,), size=8 * block, block=block,
+                        kb=kb)
+    ov, oi = jwire.pack_oracle(lw, jnp.asarray((g - h).reshape(-1)))
+    _assert_same((np.asarray(ov) + np.float32(0.0), np.asarray(oi)),
+                 (vals, idx))
+    tv, ti, th = pack.pack_update(torch.from_numpy(g), torch.from_numpy(h),
+                                  LAM, kb)
+    _assert_same((vals, idx, h_out), (tv.numpy(), ti.numpy(), th.numpy()))
+
+
+@pytest.mark.parametrize("kind,kb", [("ties", 2112), ("normal", 4224)])
+def test_model_big_dense_vs_jnp_oracle(kind, kb):
+    """The dense block-top-k at kb = block / 2 and block (4224) against the
+    JAX package's jnp oracle (``ref.block_topk_ref``; no +-inf: fault g),
+    f32: out bitwise, and efbv_update's d (its h' is the wrapper's FMA,
+    fault k)."""
+    block = 4224
+    g, h = model_rows(kind, 8, block, kb, kb)
+    out, _ = model_dense(g, kb)
+    assert_bits(jref.block_topk_ref(jnp.asarray(g.reshape(-1)), block, kb),
+                to_torch(out.reshape(-1)))
+    (d, _), _ = model_update(g, h, kb)
+    dw, _ = jref.efbv_update_ref(jnp.asarray(g), jnp.asarray(h), LAM, block,
+                                 kb)
+    assert_bits(dw, to_torch(d))
 
 
 @pytest.mark.parametrize("block", [128, 1024])
