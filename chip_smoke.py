@@ -40,7 +40,14 @@ line is printed only when every phase passed):
               three 2-worker EF-BV steps on the GPU (kernel path) against
               the same steps on the CPU (plain path) from the same params
               and keys, for each path below, and block-top-k also at
-              384/16 and 4096/64.
+              384/16 and 4096/64.  Then two gloo ranks on cuda:0
+              (``torchrun``, this script's ``--dist-child reference``)
+              against the one-process loop on the card, losses and final
+              params bitwise on both ranks: block-top-k, QSGD both ways,
+              rand-k, pipelined, dense_psum at n = 2, ``bernoulli:0.5`` and
+              n = 4 on two ranks (``DIST_REF``); and ``ring_allgather``
+              (staged through pinned host buffers: gloo's send of a CUDA
+              tensor aborts the process) equal to ``all_gather``.
 4. main paths -- ``repro_torch.launch.train.main`` at the full width and
               depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
@@ -48,12 +55,31 @@ line is printed only when every phase passed):
               * QSGD(16) up and down (bidirectional);
               * rand-k (k = 1048576) up, dense broadcast down;
               * pipelined (``--pipeline depth:1``): block-top-k (256, 16)
-                up, QSGD(16) down.
+                up, QSGD(16) down;
+              * federated: block-top-k (256, 16) up, ``--participation
+                fixed:1``: ``|S|=1/2`` at every step and the federated wire
+                line with ``E|S_t|=1 of 2``.
               Checks a finite loss at every step, the exact printed wire
               bits, and that every kernel of the path launched the expected
               number of times (launch counts are reset just before each path
               and read just after); on the pipelined path, that step 0
-              applies the zero priming payload (|g| = 0).
+              applies the zero priming payload (|g| = 0).  Each step's loss
+              (hex) and a checksum of the params are recorded.
+   Then, one process per worker: two gloo ranks sharing cuda:0 under
+              ``torchrun`` (this script's ``--dist-child``), each rank's
+              output in ``build/dist/<path>/rank<r>.log``:
+              * dist_block_topk: the block-top-k path's flags, sparse
+                all-gather of one byte buffer per round;
+              * dist_pipelined: the pipelined path's flags, the all-gather
+                started asynchronously and waited on before the next
+                round's combine.
+              Rank 0 must print the exact bits and (pipelined) |g| = 0 at
+              step 0; on every rank, every step's loss and params checksum
+              must equal the one-process path's, and its launches must be
+              as stated (42 ``pack_update`` per rank; pipelined also 42
+              ``threefry_uniform``).  A rank that fails, or a launch not
+              done in DIST_TIMEOUT_S (then killed with all its ranks),
+              fails the run.
    Then the compressor bench (``repro_torch.launch.compressor_bench``
               ``main(["--full"])``): every compressor and codec row at
               d = 2**16, the fused pack's device bytes on the embed leaf,
@@ -67,7 +93,13 @@ line is printed only when every phase passed):
               pass, each alone; for rand-k one worker's uplink encode, the
               embed leaf's encode and its shuffle, and the shuffles' share
               of the step; for the pipelined path the in-flight buffer's
-              resident bytes.
+              resident bytes.  The dist paths' profile lines come from
+              their main run, per rank: step ms, host ms in the exchange
+              (around the all-gather, or the ``wait()`` when pipelined),
+              bytes gathered per rank per round, and peak device memory.
+              Two processes on one card time-slice its contexts and gloo
+              moves the payload through host memory: these are not times
+              of NCCL across cards.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -1297,15 +1329,17 @@ SMOKE_SPECS = {"block_topk": "block_topk:256,16",
                "randk": "randk:4096", "pipelined": "block_topk:256,16"}
 
 
-def run_steps(params, cfg, kind, steps=3, n=2):
-    """``steps`` 2-worker EF-BV steps of the sparse all-gather wire from
-    ``params``: block-top-k (256/16, 384/16 or 4096/64) up, QSGD(16) up
-    and down, rand-k (k = 4096) up, or the pipelined (depth 1) schedule
-    with block-top-k up and QSGD(16) down; step s under the key
-    fold_in(key(0), s).  Returns the losses."""
+def run_steps(params, cfg, kind, steps=3, n=2, agg="sparse_allgather",
+              participation="full", group=None):
+    """``steps`` n-worker EF-BV steps from ``params``: block-top-k
+    (256/16, 384/16 or 4096/64) up, QSGD(16) up and down, rand-k (k =
+    4096) up, or the pipelined (depth 1) schedule with block-top-k up and
+    QSGD(16) down; ``agg`` and ``participation`` as the driver's flags; on
+    this rank's workers of ``group`` (None: all n in this process).  Step s
+    runs under the key fold_in(key(0), s).  Returns (losses, state)."""
     from repro_torch import random
     from repro_torch.core.compressors import QSGD, make_compressor
-    from repro_torch.core.efbv import EFBV, Downlink, Pipeline
+    from repro_torch.core.efbv import EFBV, Downlink, Participation, Pipeline
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import adamw
@@ -1321,12 +1355,14 @@ def run_steps(params, cfg, kind, steps=3, n=2):
                      d=cfg.d_model * cfg.d_ff, n=n,
                      pipeline=pipeline and pipeline.depth)
     state = init_train_state(params, opt, n_workers=n, bidirectional=qsgd,
-                             algo=algo, agg_mode="sparse_allgather",
-                             pipeline=pipeline)
+                             algo=algo, agg_mode=agg, pipeline=pipeline,
+                             group=group)
     step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
-                              agg_mode="sparse_allgather",
+                              agg_mode=agg,
                               downlink=Downlink(QSGD(16)) if qsgd else None,
-                              pipeline=pipeline)
+                              pipeline=pipeline,
+                              participation=Participation.parse(
+                                  participation), group=group)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
                        n_workers=n, seed=0)
     key = random.key(0)
@@ -1334,7 +1370,7 @@ def run_steps(params, cfg, kind, steps=3, n=2):
     for s in range(steps):
         state, m = step_fn(state, data.batch(s), random.fold_in(key, s))
         losses.append(float(m["loss"]))
-    return losses
+    return losses, state
 
 
 def phase_reference():
@@ -1352,9 +1388,10 @@ def phase_reference():
         name = spec + {"qsgd": " up and down",
                        "pipelined": " up, qsgd:16 down, depth:1"}.get(kind,
                                                                      "")
-        cpu = run_steps(params, cfg, kind)
+        cpu = run_steps(params, cfg, kind)[0]
         reset_launches()
-        gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg, kind)
+        gpu = run_steps(T.tree_map(lambda p: p.cuda(), params), cfg,
+                        kind)[0]
         packs = LAUNCHES["pack_update"]
         print(f"[reference] {name}: smoke f32 losses cpu={cpu} gpu={gpu} "
               f"pack_update launches={packs}")
@@ -1371,6 +1408,240 @@ def phase_reference():
             if not (math.isfinite(b) and abs(a - b) <= 1e-3 * abs(a)):
                 raise AssertionError(f"[reference] {name}: GPU loss {b} vs "
                                      f"CPU {a}")
+
+
+#: the reference phase's multi-process cases: name -> (smoke kind, agg,
+#: participation, workers), each on two gloo ranks sharing cuda:0
+DIST_REF = {
+    "block_topk": ("block_topk", "sparse_allgather", "full", 2),
+    "qsgd": ("qsgd", "sparse_allgather", "full", 2),
+    "randk": ("randk", "sparse_allgather", "full", 2),
+    "pipelined": ("pipelined", "sparse_allgather", "full", 2),
+    "dense_psum": ("block_topk", "dense_psum", "full", 2),
+    "bernoulli": ("block_topk", "sparse_allgather", "bernoulli:0.5", 2),
+    "n4": ("block_topk", "sparse_allgather", "full", 4),
+}
+#: seconds one torchrun launch of two ranks may take before it is killed
+DIST_TIMEOUT_S = 400
+
+
+def smoke_params():
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              activation_dtype="float32")
+    return cfg, build_model(cfg).init(torch.Generator().manual_seed(0),
+                                      device="cpu")
+
+
+def digest(params):
+    """sha256 of every param's bytes, in flatten order (small trees)."""
+    import hashlib
+    from repro_torch import tree as T
+
+    h = hashlib.sha256()
+    for p in T.leaves(params):
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()[:16]
+
+
+def dist_reference_child():
+    """One rank of the reference phase's multi-process cases: every case
+    of DIST_REF on this rank's workers, printing its losses (hex) and the
+    digest of its final params."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.distributed.aggregate import WorkerGroup, ring_allgather
+
+    cfg, params = smoke_params()
+    group = WorkerGroup.join(2, backend="gloo", device="cuda:0")
+    try:
+        # the ring's hops stage through host buffers (gloo's send of a CUDA
+        # tensor aborts the process); it must give the all-gather's bytes
+        x = torch.randint(0, 256, (3, 1 << 20), dtype=torch.uint8,
+                          device="cuda") + group.rank
+        want = torch.empty((2,) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device)
+        torch.distributed.all_gather(list(want.unbind(0)), x)
+        ring = ring_allgather(group, x)
+        print(f"[dist-ref] ring_allgather equal={torch.equal(ring, want)}",
+              flush=True)
+        del x, want, ring
+        for name, (kind, agg, part, n) in DIST_REF.items():
+            losses, state = run_steps(
+                T.tree_map(lambda p: p.cuda(), params), cfg, kind, n=n,
+                agg=agg, participation=part,
+                group=dataclasses.replace(group, n_workers=n))
+            print(f"[dist-ref] {name} losses={[x.hex() for x in losses]} "
+                  f"digest={digest(state.params)}", flush=True)
+            del state
+    finally:
+        group.close()
+
+
+def phase_reference_dist():
+    """Two gloo ranks on cuda:0 against the one-process loop on the card,
+    for each case of DIST_REF: losses and final params bitwise, on both
+    ranks."""
+    from repro_torch import tree as T
+
+    cfg, params = smoke_params()
+    want = {}
+    for name, (kind, agg, part, n) in DIST_REF.items():
+        losses, state = run_steps(T.tree_map(lambda p: p.cuda(), params),
+                                  cfg, kind, n=n, agg=agg,
+                                  participation=part)
+        want[name] = ([x.hex() for x in losses], digest(state.params))
+        del state
+    torch.cuda.empty_cache()
+    logs = run_ranks("reference")
+    for r, log in enumerate(logs):
+        if "[dist-ref] ring_allgather equal=True" not in log:
+            raise AssertionError(f"[reference] rank {r}: ring_allgather "
+                                 "differs from all_gather")
+    print("[reference] ring_allgather on cuda:0 (staged through pinned host "
+          "buffers) equal to all_gather on both ranks")
+    for name, (losses, dig) in want.items():
+        print(f"[reference] {name}: one process losses={losses} "
+              f"digest={dig}")
+        for r, log in enumerate(logs):
+            got = re.findall(rf"\[dist-ref\] {name} losses=(\[.*?\]) "
+                             r"digest=(\w+)", log)
+            if got != [(str(losses), dig)]:
+                raise AssertionError(f"[reference] {name}: rank {r} printed "
+                                     f"{got}, want {(str(losses), dig)}")
+        print(f"[reference] {name} ({DIST_REF[name]}): 2 gloo ranks on "
+              "cuda:0 bitwise equal to the one-process loop (losses, "
+              "params)")
+
+
+def run_ranks(name, ranks=2):
+    """``torchrun --standalone --nproc-per-node ranks chip_smoke.py
+    --dist-child name DIR``, killed with every rank it started after
+    DIST_TIMEOUT_S; each rank writes its output to DIR/rank<r>.log.
+    Returns those outputs; fails when the launch does not exit 0."""
+    import os
+    import shutil
+    import signal
+
+    outdir = ROOT / "build" / "dist" / name
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={ranks}", str(ROOT / "chip_smoke.py"),
+           "--dist-child", name, str(outdir)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out[-4000:])
+        raise AssertionError(f"[dist] {name}: ranks not done in "
+                             f"{DIST_TIMEOUT_S} s; killed")
+    secs = time.perf_counter() - t0
+    logs = []
+    for r in range(ranks):
+        path = outdir / f"rank{r}.log"
+        logs.append(path.read_text() if path.exists() else "")
+        for line in logs[-1].splitlines():
+            print(f"[rank {r}] {line}")
+    print(f"[dist] {name}: torchrun exit {proc.returncode} after "
+          f"{secs:.1f} s")
+    if proc.returncode != 0:
+        print(out[-4000:])
+        raise AssertionError(f"[dist] {name}: torchrun exit "
+                             f"{proc.returncode}")
+    return logs
+
+
+def params_checksum(params):
+    """A checksum of the params' bits, computed on their device: per leaf
+    the int64 sums of its 32-bit words, all of them and every seventh."""
+    from repro_torch import tree as T
+
+    s = 0
+    for p in T.leaves(params):
+        x = p.detach().reshape(-1).view(torch.int32)
+        s = (s * 1_000_003 + 3 * int(x.sum(dtype=torch.int64))
+             + int(x[::7].sum(dtype=torch.int64))) % (1 << 61)
+    return f"{s:016x}"
+
+
+@contextlib.contextmanager
+def recording(records):
+    """While open, every train step that ``launch.train`` builds appends
+    {loss (hex), params checksum, step ms} and, over a group, the host ms
+    and bytes of its exchange, to ``records``; the step is timed between
+    synchronisations, before the checksum."""
+    from repro_torch.launch import train
+
+    make = train.make_train_step
+
+    def make_recorded(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+        group = kwargs.get("group")
+
+        def step(state, batch, key):
+            torch.cuda.synchronize()
+            stats = dict(group.stats) if group is not None else None
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch, key)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rec = {"loss": loss.hex(), "step_ms": round(
+                (time.perf_counter() - t0) * 1e3, 2)}
+            if group is not None:
+                rec["exchange_ms"] = round(1e3 * (group.stats["exchange_s"]
+                                                  - stats["exchange_s"]), 2)
+                rec["bytes"] = group.stats["bytes"] - stats["bytes"]
+            rec["checksum"] = params_checksum(state.params)
+            records.append(rec)
+            return state, m
+        return step
+
+    train.make_train_step = make_recorded
+    try:
+        yield
+    finally:
+        train.make_train_step = make
+
+
+def dist_child():
+    """``--dist-child NAME DIR``: one rank under torchrun, its output in
+    DIR/rank<RANK>.log.  ``reference``: :func:`dist_reference_child`;
+    a DIST_PATHS name: that path through ``launch.train.main`` with launch
+    counts reset just before it and read just after, then its step
+    records, launches and peak memory."""
+    import os
+
+    name, outdir = sys.argv[2], Path(sys.argv[3])
+    rank = int(os.environ["RANK"])
+    sys.stdout = open(outdir / f"rank{rank}.log", "w", buffering=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if name == "reference":
+        dist_reference_child()
+        return 0
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    with recording(records):
+        reset_launches()
+        train.main(DIST_PATHS[name]["argv"])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    print(f"[dist] records {json.dumps(records)}")
+    print(f"[dist] launches {json.dumps(launches)}")
+    print(f"[dist] peak_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return 0
 
 
 BASE_ARGV = ["--arch", "qwen2-0.5b", "--workers", str(WORKERS),
@@ -1428,7 +1699,44 @@ PATHS = {
                      "threefry_uniform": STEPS * FULL_LEAVES},
         "profile": ("pack_update_rows", "threefry_fill_kernel"),
     },
+    "federated": {
+        "argv": BASE_ARGV + ["--compressor", "block_topk:256,16",
+                             "--participation", "fixed:1"],
+        "bits": {r"(\d+) bits/round/worker": [FULL_BITS],
+                 r"E\|S_t\|=(\d+) of 2 payloads": [1],
+                 r"\|S\|=(\d+)/2 ": [1] * STEPS},
+        # every worker packs (an absent one's message is gated after its
+        # pack); the mask's shuffle draws once a step
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0, "threefry_uniform": STEPS},
+        "profile": ("pack_update_rows", "threefry_fill_kernel"),
+    },
 }
+#: the main paths on two gloo ranks sharing cuda:0 (one worker each,
+#: torchrun), each held bitwise against its one-process path ("same_as"):
+#: losses and params checksums at every step, on every rank
+DIST_PATHS = {
+    "dist_block_topk": {
+        "argv": PATHS["block_topk"]["argv"] + ["--dist-backend", "gloo"],
+        "same_as": "block_topk",
+        "bits": {**PATHS["block_topk"]["bits"],
+                 r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
+        "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
+                     "randk_update": 0, "threefry_uniform": 0},
+    },
+    "dist_pipelined": {
+        "argv": PATHS["pipelined"]["argv"] + ["--dist-backend", "gloo"],
+        "same_as": "pipelined",
+        "bits": {**PATHS["pipelined"]["bits"],
+                 r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
+        # each rank packs its worker; the broadcast runs on every rank
+        "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
+                     "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES},
+    },
+}
+#: each one-process path's step records (``recording``), for DIST_PATHS
+MAIN_RECORDS = {}
 
 
 def collect(label):
@@ -1454,23 +1762,25 @@ def phase_main(name):
     torch.cuda.synchronize()
     collect(f"[main] {name}")
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    records = MAIN_RECORDS[name] = []
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), recording(records):
+            reset_launches()
             train.main(path["argv"])
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
     finally:
         print(out.getvalue().rstrip())
     secs = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
     text = out.getvalue()
     losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
     bits = {pat: [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
             for pat in path["bits"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[main] {name}: seconds={secs:.2f} peak_mem_gib={peak:.2f} "
-          f"losses={losses} bits={list(bits.values())} launches={launches}")
+          f"losses={losses} bits={list(bits.values())} launches={launches} "
+          f"records={json.dumps(records)}")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[main] {name}: expected {STEPS} finite losses")
     # random init with small embeddings: the first loss is close to ln(V)
@@ -1493,6 +1803,63 @@ def phase_main(name):
             raise AssertionError(f"[main] pipelined: step 0 |g| {g0}, want "
                                  "0.000 (the zero priming payload)")
     return launches
+
+
+def phase_dist(name):
+    """One main path on two gloo ranks sharing cuda:0 (``run_ranks``): rank
+    0's printed bits, three finite losses and (pipelined) |g| = 0 at step
+    0; on every rank the launches of its run, and at every step the loss
+    and params checksum of the one-process path it repeats.  Then the dist
+    profile lines: step ms, host ms in the exchange (the all-gather, or
+    ``wait()`` when pipelined), bytes gathered per rank per round and the
+    peak device memory, per rank.  Returns the launches summed over the
+    ranks."""
+    path = DIST_PATHS[name]
+    want = MAIN_RECORDS[path["same_as"]]
+    collect(f"[main] {name}")
+    torch.cuda.empty_cache()
+    logs = run_ranks(name)
+    text = logs[0]
+    losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
+    if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[main] {name}: expected {STEPS} finite losses")
+    for pat, expect in path["bits"].items():
+        got = [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
+        if got != expect:
+            raise AssertionError(f"[main] {name}: printed {pat!r} {got} != "
+                                 f"{expect}")
+    if path["same_as"] == "pipelined":
+        g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
+        if g0 != ["0.000"]:
+            raise AssertionError(f"[main] {name}: step 0 |g| {g0}, want "
+                                 "0.000 (the zero priming payload)")
+    total = {}
+    for r, log in enumerate(logs):
+        records = json.loads(re.search(r"\[dist\] records (.*)", log)[1])
+        launches = json.loads(re.search(r"\[dist\] launches (.*)", log)[1])
+        peak = float(re.search(r"\[dist\] peak_gib (\S+)", log)[1])
+        same = [(a["loss"], a["checksum"]) for a in records] == \
+            [(b["loss"], b["checksum"]) for b in want]
+        print(f"[main] {name} rank {r}: losses and params checksums at "
+              f"every step {'equal' if same else 'NOT equal'} to the "
+              f"one-process {path['same_as']} path's; launches={launches}")
+        if not same:
+            raise AssertionError(f"[main] {name} rank {r}: records "
+                                 f"{records} != one-process {want}")
+        expect = {**dict.fromkeys(launches, 0), **path["launches"]}
+        if launches != expect:
+            raise AssertionError(f"[main] {name} rank {r}: launches "
+                                 f"{launches}, want {expect}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        # step 0 holds the first collective's set-up: the steady steps
+        print(f"[profile] {name} rank {r}: step_ms="
+              f"{[a['step_ms'] for a in records]} exchange_host_ms="
+              f"{[a['exchange_ms'] for a in records]} bytes_gathered_per_"
+              f"round={[a['bytes'] for a in records]} peak_gib={peak:.2f} "
+              "(two processes time-slice one card; gloo moves the payload "
+              "through host memory)")
+    return total
 
 
 def phase_bench():
@@ -1675,7 +2042,7 @@ def peak_above(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-PHASES = ("value_and_grad", "compress_local", "stack_messages",
+PHASES = ("value_and_grad", "compress_local", "exchange",
           "combine_global", "apply_updates", "broadcast_global")
 
 
@@ -1817,6 +2184,8 @@ KERNEL_ROWS = {
 def main():
     if sys.argv[1:2] == ["--randk-trap-child"]:
         return randk_trap_child()
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -1837,12 +2206,16 @@ def main():
     timing = phase_kernels()
     torch.cuda.empty_cache()
     phase_reference()
+    torch.cuda.empty_cache()
+    phase_reference_dist()
     launches = {}
     for name in PATHS:
         launches[name] = phase_main(name)
         torch.cuda.empty_cache()
         phase_profile(name)
         torch.cuda.empty_cache()
+    for name in DIST_PATHS:
+        launches[name] = phase_dist(name)
     launches["compressor_bench"] = phase_bench()
     torch.cuda.empty_cache()
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")

@@ -4,9 +4,9 @@
 Ported so far: :class:`EFBV` with ``make`` (Remark 1 auto-tuning through
 ``theory.tune_for``, the pipelined schedule's delay included), ``init``,
 ``worker_update`` and ``master_update``; the round keys' fold tags;
-:class:`Pipeline` (depth 0 or 1); and :class:`Downlink` with a QSGD
-broadcast.  Participation, other downlink compressors, fleets and per-leaf
-rules are not yet ported.
+:class:`Participation` and :func:`participation_key`; :class:`Pipeline`
+(depth 0 or 1); and :class:`Downlink` with a QSGD broadcast.  Other
+downlink compressors, fleets and per-leaf rules are not yet ported.
 
 Rounding: the JAX reference runs these updates under ``jit``, where XLA
 contracts ``h + c * d`` into a fused multiply-add.  ``torch.add(h, d,
@@ -40,6 +40,79 @@ DOWNLINK_FOLD = 0xD0401B17
 PIPELINE_FOLD = 0xF1FE11E
 #: the reference driver's run key
 REFERENCE_FOLD = 0x5EED
+
+
+@dataclasses.dataclass(frozen=True)
+class Participation:
+    """Per-round client sampling (the federated execution mode):
+
+    * ``full``      -- every worker participates (the paper's setting);
+    * ``bernoulli`` -- worker i participates independently with
+      probability ``p``;
+    * ``fixed``     -- a uniformly random subset of exactly ``s`` workers.
+
+    Masks are {0., 1.}-valued f32, so gating is arithmetic: ``m * d``
+    zeroes an absent worker's message and ``where(m > 0, h', h)`` keeps its
+    control variate stale, both bitwise identities at m = 1."""
+
+    kind: str = "full"
+    p: float = 1.0   # bernoulli inclusion probability
+    s: int = 0       # fixed-size participant count
+
+    def __post_init__(self):
+        if self.kind not in ("full", "bernoulli", "fixed"):
+            raise ValueError(f"participation kind {self.kind!r}")
+        if self.kind == "bernoulli" and not 0.0 < self.p <= 1.0:
+            raise ValueError(
+                f"bernoulli participation needs 0 < p <= 1, got {self.p}")
+        if self.kind == "fixed" and self.s < 1:
+            raise ValueError(
+                f"fixed participation needs s >= 1, got {self.s}")
+
+    @staticmethod
+    def parse(spec: str) -> "Participation":
+        """The CLI syntax: 'full' | 'bernoulli:p' | 'fixed:s'."""
+        name, _, arg = spec.partition(":")
+        if name == "full":
+            return Participation()
+        if name == "bernoulli":
+            return Participation(kind="bernoulli", p=float(arg))
+        if name == "fixed":
+            return Participation(kind="fixed", s=int(arg))
+        raise ValueError(f"participation spec {spec!r} (want full | "
+                         "bernoulli:p | fixed:s)")
+
+    @property
+    def is_full(self) -> bool:
+        return self.kind == "full" or (self.kind == "bernoulli"
+                                       and self.p >= 1.0)
+
+    def fraction(self, n: int) -> float:
+        """Expected fraction of participating workers, E|S_t| / n."""
+        if self.kind == "bernoulli":
+            return self.p
+        if self.kind == "fixed":
+            return min(self.s, n) / n
+        return 1.0
+
+    def sample_mask(self, key, n: int, device="cuda") -> torch.Tensor:
+        """(n,) f32 participation mask of one round on ``device``, bit for
+        bit ``jax``'s: ``bernoulli(key, p, (n,))`` or ``permutation(key, n)
+        < s`` (the threefry kernel on the card)."""
+        if self.kind == "bernoulli":
+            return random.bernoulli(key, self.p, n, device).to(torch.float32)
+        if self.kind == "fixed":
+            if self.s > n:
+                raise ValueError(
+                    f"fixed:{self.s} participation with only {n} workers")
+            return (random.permutation(key, n, device) < self.s).to(
+                torch.float32)
+        return torch.ones(n, dtype=torch.float32, device=device)
+
+
+def participation_key(round_key):
+    """The shared derivation of the mask key from a round key."""
+    return random.fold_in(round_key, PARTICIPATION_FOLD)
 
 
 def downlink_key(round_key):

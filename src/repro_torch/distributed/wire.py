@@ -15,8 +15,11 @@ Every codec of the JAX zoo's compressors:
   NaturalPack   natural compression                 int8 exponents + bitmap
   DensePack     identity, m-nice (and any other)    f32 values
 
-with the flat :class:`WireFormat` over a params tree, uplink and downlink;
-and the pieces of the pipelined exchange: the decode-zero priming message
+with the flat :class:`WireFormat` over a params tree, uplink and downlink,
+and its federated accounting (``bits_per_round(participants=)``,
+:func:`federated_round_bits`); the participation gate
+(:func:`mask_message`, a scalar or an (n,) mask); and the pieces of the
+pipelined exchange: the decode-zero priming message
 (:func:`zero_message`, through each codec's ``mask_message``), the
 worker-axis chunk rule (:func:`pipeline_chunks`) and the chunked
 decode-sum (:func:`chunked_decode_sum`).  The wire dtypes other than f32,
@@ -121,9 +124,10 @@ class LeafCodec:
     #: ndim of the first payload component of one (un-stacked) message
     MSG_NDIM = 1
 
-    def mask_message(self, payload: Sequence[torch.Tensor], m: float
+    def mask_message(self, payload: Sequence[torch.Tensor], m
                      ) -> Tuple[torch.Tensor, ...]:
-        """Gate a message on the scalar participation ``m``
+        """Gate a message on the participation ``m``, a scalar for one
+        message or an (n,) mask for the worker-stacked form
         (:func:`mask_message`)."""
         return mask_message(payload, m)
 
@@ -405,12 +409,14 @@ class NaturalPack(LeafCodec):
         sgn = torch.where(unpack_bits(words, self.size), -1.0, 1.0)
         return torch.where(exps == -128, 0.0, sgn * mag)
 
-    def mask_message(self, payload, m: float):
+    def mask_message(self, payload, m):
         """Zero is the sentinel exponent -128, not a value to scale: an
-        absent worker's (scalar m = 0) stream becomes the sentinel; m = 1
-        keeps it as it is."""
+        absent worker's (m = 0) stream becomes the sentinel; m = 1 keeps
+        it as it is.  ``m`` is a scalar or an (n,) mask over the
+        worker-stacked streams."""
         exps, words = payload
-        return (exps if m > 0 else torch.full_like(exps, -128)), words
+        mm = _mask_like(m, exps)
+        return torch.where(mm > 0, exps, torch.full_like(exps, -128)), words
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,10 +450,23 @@ class WireFormat:
 
     leaves: Tuple[Any, ...]
 
-    def bits_per_round(self, *, n_workers: int = 1) -> int:
+    def bits_per_round(self, *, n_workers: int = 1,
+                       participants: Optional[float] = None):
         """Exact uplink bits one round puts on the wire: per worker when
-        n_workers == 1 (the paper's per-node accounting), total otherwise."""
-        return n_workers * sum(l.payload_bits for l in self.leaves)
+        n_workers == 1 (the paper's per-node accounting), total otherwise.
+
+        ``participants`` switches to the federated round: an n-worker
+        participation bitmap (whole 32-bit words) plus only |S_t|
+        payloads.  An integer count gives exact ``int`` bits; a fractional
+        expected count p * n gives the expected accounting as a ``float``
+        (the only case that returns one)."""
+        per_worker = sum(l.payload_bits for l in self.leaves)
+        if participants is None:
+            return n_workers * per_worker
+        bitmap = 32 * bitmap_words(n_workers)
+        if float(participants).is_integer():
+            return bitmap + int(participants) * per_worker
+        return bitmap + participants * per_worker
 
     def downlink_bits_per_round(self) -> int:
         """Exact bits of the ONE master -> worker broadcast message of a
@@ -460,11 +479,21 @@ class WireFormat:
 
 
 def total_round_bits(up: WireFormat, down: WireFormat, *,
-                     n_workers: int) -> int:
+                     n_workers: int, participants: Optional[float] = None):
     """Exact wire bits of one full round, both directions: n_workers uplink
-    payloads plus the one downlink broadcast."""
-    return up.bits_per_round(n_workers=n_workers) + \
+    payloads (federated: the participation bitmap and |S_t| payloads)
+    plus the one downlink broadcast, which absent workers decode too."""
+    return up.bits_per_round(n_workers=n_workers,
+                             participants=participants) + \
         down.downlink_bits_per_round()
+
+
+def federated_round_bits(fmt: WireFormat, mask) -> int:
+    """Exact wire bits of one federated round given its concrete (n,)
+    mask: the participation bitmap plus the |S_t| sampled payloads."""
+    m = torch.as_tensor(mask)
+    return fmt.bits_per_round(n_workers=int(m.shape[0]),
+                              participants=int(m.sum()))
 
 
 def clamp_for_leaf(compressor, size: int):
@@ -555,14 +584,16 @@ def scatter_add(lw: LeafWire, vals: torch.Tensor, idx: torch.Tensor
 
     Accepts one message (nb, kb) or the worker-stacked all-gather result
     (n, nb, kb); the stacked form is scatter-SUMMED per block (divide by n
-    for the mean).  Duplicate indices from different workers add in an
-    unspecified order; with two workers the sum 0 + a + b is exact in
-    either order."""
-    if vals.dim() == 3:  # (n, nb, kb) -> (nb, n*kb)
-        vals = vals.movedim(0, 1).reshape(vals.shape[1], -1)
-        idx = idx.movedim(0, 1).reshape(idx.shape[1], -1)
+    for the mean), one ``scatter_add_`` per worker in ascending order.
+    Within one message the indices of a block are distinct; across workers
+    they repeat, and one scatter of all n * kb pairs would add the repeats
+    in any order on the card (atomics), which differs from XLA's ascending
+    order, and from run to run, once n >= 3."""
     out = torch.zeros((lw.nb, lw.block), dtype=vals.dtype, device=vals.device)
-    out.scatter_add_(1, idx.long(), vals)
+    if vals.dim() == 2:
+        vals, idx = vals[None], idx[None]
+    for i in range(vals.shape[0]):
+        out.scatter_add_(1, idx[i].long(), vals[i])
     return out.reshape(-1)[:lw.size]
 
 
@@ -604,16 +635,23 @@ def encode_update(codec, key, g: torch.Tensor, h: torch.Tensor,
 # the pipelined exchange
 # ---------------------------------------------------------------------------
 
-def mask_message(payload: Sequence[torch.Tensor], m: float
+def _mask_like(m, x: torch.Tensor) -> torch.Tensor:
+    """The participation ``m`` (a scalar, or an (n,) mask over a leading
+    worker axis) as a tensor on ``x``'s device that broadcasts against
+    ``x``."""
+    mm = torch.as_tensor(m, device=x.device)
+    return mm.reshape(tuple(mm.shape) + (1,) * (x.dim() - mm.dim()))
+
+
+def mask_message(payload: Sequence[torch.Tensor], m
                  ) -> Tuple[torch.Tensor, ...]:
-    """Scale a message's leading value-carrying component (sparse values,
-    sign scale, QSGD norm, dense stream) by the scalar ``m`` in that
-    component's dtype: m = 0 makes the message decode to exactly zero, and
-    m = 1 is a bitwise identity.  (The JAX codecs' per-worker (n,) mask
-    serves partial participation, which the port does not have yet.)"""
+    """Gate a message on the participation ``m``: scale its leading
+    value-carrying component (sparse values, sign scale, QSGD norm, dense
+    stream) by ``m`` in that component's dtype.  m = 0 makes the message
+    decode to exactly zero, and m = 1 is a bitwise identity.  ``m`` is a
+    scalar for one message or an (n,) mask for the worker-stacked form."""
     head, *rest = payload
-    return (head * torch.tensor(m, dtype=head.dtype, device=head.device),
-            *rest)
+    return (head * _mask_like(m, head).to(head.dtype), *rest)
 
 
 def zero_message(codec, key, device) -> Tuple[torch.Tensor, ...]:

@@ -122,6 +122,13 @@ def uniform(k, n: int, device="cuda") -> torch.Tensor:
                                   as_float=True)
 
 
+def bernoulli(k, p: float, n: int, device="cuda") -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, (n,))``: (n,) bool, ``uniform(k, n) <
+    p`` with p rounded to f32 first, as JAX converts it to the uniforms'
+    dtype."""
+    return uniform(k, n, device) < float(np.float32(p))
+
+
 #: XOR with the sign bit maps the uint32 order of 32 bits onto int32 order
 _UINT32_ORDER = -2**31
 

@@ -16,8 +16,10 @@ keys in both packages, so payloads, h_i, g and h_avg are compared bit for
 bit against the Pallas kernel in interpret mode, and the (n, k) decode-sum
 at n = 3, where the order of three colliding values matters.
 
-The last section holds every wire codec against the JAX package's; its own
-notes head it.
+Then every wire codec against the JAX package's, partial participation
+against the JAX package's, and the multi-process exchange (one process per
+worker group, gloo on the CPU) against the one-process loop; each section's
+own notes head it.
 """
 
 import dataclasses
@@ -665,3 +667,604 @@ def test_generic_encode_update_equals_jax_eager(spec):
     with pytest.raises(ValueError, match="cuda"):
         tc.encode_update(tk, torch.from_numpy(g), torch.from_numpy(h), 0.37,
                          kernel="cuda")
+
+
+# ---------------------------------------------------------------------------
+# Partial participation
+#
+# ``random.bernoulli``, ``Participation.sample_mask``, the (n,) form of
+# ``mask_message``, the federated bit accounting and ``compress_local(mask=)``
+# against the JAX package's, bit for bit; then one federated smoke round of
+# the port's trainer against a JAX round assembled from its public pieces
+# with JAX's masks (the tolerances of tests/test_torch_train.py: matmul
+# sums differ in order between the two frameworks).
+# ---------------------------------------------------------------------------
+
+from repro.core import efbv as jefbv  # noqa: E402
+from repro_torch.core.efbv import Participation  # noqa: E402
+from repro_torch.core.efbv import participation_key  # noqa: E402
+
+JParticipation, jparticipation_key = (jefbv.Participation,
+                                      jefbv.participation_key)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.7, 1.0])
+@pytest.mark.parametrize("n", [1, 5, 64])
+def test_bernoulli_equals_jax(p, n):
+    for d in range(4):
+        jk, tk = _keys(d, n)
+        want = np.asarray(jax.random.bernoulli(jk, p, (n,)))
+        np.testing.assert_array_equal(R.bernoulli(tk, p, n, "cpu").numpy(),
+                                      want)
+
+
+@pytest.mark.parametrize("spec", ["full", "bernoulli:0.5", "bernoulli:0.3",
+                                  "bernoulli:1.0", "fixed:1", "fixed:2",
+                                  "fixed:3"])
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_sample_mask_equals_jax(spec, n):
+    jp, tp = JParticipation.parse(spec), Participation.parse(spec)
+    assert (tp.is_full, tp.fraction(n)) == (jp.is_full, jp.fraction(n))
+    for d in range(5):
+        jk, tk = _keys(d)
+        want = np.asarray(jp.sample_mask(jparticipation_key(jk), n))
+        got = tp.sample_mask(participation_key(tk), n, "cpu")
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("spec", ["bernoulli:0", "bernoulli:1.5", "fixed:0",
+                                  "half", "fixed"])
+def test_participation_refuses_bad_specs(spec):
+    with pytest.raises(ValueError):
+        JParticipation.parse(spec)
+    with pytest.raises(ValueError):
+        Participation.parse(spec)
+
+
+def test_fixed_participation_refuses_more_than_n():
+    with pytest.raises(ValueError, match="only 2 workers"):
+        Participation.parse("fixed:3").sample_mask(R.key(0), 2, "cpu")
+
+
+@pytest.mark.parametrize("spec", CODEC_SPECS + ["natural", "sign",
+                                                "identity"])
+def test_stacked_mask_message_equals_jax(spec):
+    """The (n,) mask gates each worker's row of the stacked payload: rows
+    at 0 decode to zero, rows at 1 stay bit for bit; equal to JAX's."""
+    jc, tc = _codec_pair(spec)
+    rng = np.random.default_rng(len(spec))
+    msgs = [tc.encode(R.fold_in(R.key(3), i), torch.from_numpy(
+        rng.standard_normal(96).astype(np.float32))) for i in range(4)]
+    stacked = tagg.stack_messages(msgs)
+    mask = np.array([1, 0, 1, 0], np.float32)
+    got = tc.mask_message(stacked, torch.from_numpy(mask))
+    jstacked = tuple(jnp.asarray(a.numpy()) for a in stacked)
+    if jc.kind in ("sign_pack", "natural_pack"):  # the bitmap: uint32 words
+        jstacked = (jstacked[0], jstacked[1].view(jnp.uint32))
+    want = jc.mask_message(jstacked, jnp.asarray(mask))
+    for w, t in zip(want, got):
+        np.testing.assert_array_equal(as_np(w), as_np(t))
+    for i in range(4):
+        row = tuple(a[i] for a in got)
+        if mask[i]:
+            _assert_tree_bitwise(tuple(a[i] for a in stacked), row)
+        else:
+            assert not tc.decode(row).any()
+
+
+@pytest.mark.parametrize("spec", ["block_topk:256,16", "qsgd:16",
+                                  "randk:64"])
+@pytest.mark.parametrize("n,mask", [(4, [1, 0, 1, 1]), (5, [0, 0, 0, 0, 0]),
+                                    (33, [1] * 33), (2, [1, 0])])
+def test_federated_bits_equal_jax(spec, n, mask):
+    jtree = {"a": jnp.zeros((1000,)), "b": jnp.zeros((64, 300))}
+    ttree = {"a": torch.zeros(1000), "b": torch.zeros(64, 300)}
+    jfmt = jwire.format_for(jcomp.make_compressor(spec), jtree)
+    tfmt = twire.format_for(tcomp.make_compressor(spec), ttree)
+    for parts in (None, 0, 3, 1.5, float(n), 0.25 * n):
+        want = jfmt.bits_per_round(n_workers=n, participants=parts)
+        got = tfmt.bits_per_round(n_workers=n, participants=parts)
+        assert got == want and type(got) is type(want)
+    mask = np.asarray(mask, np.float32)
+    want = jwire.federated_round_bits(jfmt, mask)
+    assert twire.federated_round_bits(tfmt, torch.from_numpy(mask)) == want
+    assert twire.federated_round_bits(tfmt, mask) == want
+    down = twire.format_for(tcomp.QSGD(16), ttree)
+    jdown = jwire.format_for(jcomp.QSGD(16), jtree)
+    assert twire.total_round_bits(tfmt, down, n_workers=n,
+                                  participants=0.5 * n) == \
+        jwire.total_round_bits(jfmt, jdown, n_workers=n,
+                               participants=0.5 * n)
+
+
+@pytest.mark.parametrize("mode", ["sparse_allgather", "dense_psum"])
+@pytest.mark.parametrize("m", [0.0, 1.0])
+def test_compress_local_mask_equals_jax(mode, m, monkeypatch):
+    """At m = 0 the message decodes to zero and h_i stays stale; at m = 1
+    both gates are bitwise identities (the unmasked round's message and
+    h_i).  Equal to JAX's ``compress_local(mask=)`` bit for bit."""
+    monkeypatch.setenv("REPRO_WIRE_KERNEL", "interpret")
+    grads, hs, _ = _inputs(8)
+    jalgo = JEFBV(JBlockTopK(256, 16), lam=LAM, nu=NU)
+    talgo = EFBV(BlockTopK(256, 16), lam=LAM, nu=NU)
+    local = jax.jit(lambda k, g, h, mm: jagg.compress_local(
+        jalgo, k, g, h, mode=mode, mask=mm))
+    want = local(jax.random.key(9), grads[0], hs[0], jnp.float32(m))
+    to_t = lambda t: T.tree_map(torch.from_numpy, t)  # noqa: E731
+    got = tagg.compress_local(talgo, R.key(9), to_t(grads[0]), to_t(hs[0]),
+                              mode=mode, mask=torch.tensor(m))
+    for w, t in zip(want, got):
+        _assert_tree_bitwise(w, t)
+    plain = tagg.compress_local(talgo, R.key(9), to_t(grads[0]),
+                                to_t(hs[0]), mode=mode)
+    if m:
+        _assert_tree_bitwise(plain, got)
+    else:
+        _assert_tree_bitwise(hs[0], got[1])
+
+
+SMOKE_N, SMOKE_SEQ, SMOKE_BATCH, SMOKE_STEPS = 2, 16, 8, 3
+
+
+def _smoke_cfg():
+    """The qwen2 smoke config cut to one layer (852,736 params, under
+    2**20) with f32 activations."""
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
+                               activation_dtype="float32")
+
+
+def test_federated_smoke_round_matches_jax():
+    """fixed:1 of 2 workers for three steps, block-top-k up: the port's
+    trainer against a JAX round of ``compress_local(mask=)`` and
+    ``combine_global`` with JAX's masks, from the same params and
+    batches.  Masks and participants are equal; losses within rtol 1e-5."""
+    from repro.configs import get_smoke_config as jget_smoke_config
+    from repro.models import build_model as jbuild_model
+    from repro.optim import adamw as jadamw
+    from repro.optim import apply_updates as japply_updates
+    from repro.optim import cosine as jcosine
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    jcfg = dataclasses.replace(jget_smoke_config("qwen2-0.5b"), n_layers=1,
+                               activation_dtype="float32")
+    jmodel = jbuild_model(jcfg)
+    params_np = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0)))
+    data = SyntheticLM(vocab=jcfg.vocab, seq_len=SMOKE_SEQ,
+                       global_batch=SMOKE_BATCH, n_workers=SMOKE_N, seed=0)
+    jpart, tpart = JParticipation.parse("fixed:1"), Participation.parse(
+        "fixed:1")
+    # JAX: the trainer's pieces, one worker after another
+    algo = JEFBV(JBlockTopK(256, 16), lam=LAM, nu=NU)
+    opt = jadamw(jcosine(3e-4, total_steps=SMOKE_STEPS, warmup_steps=1),
+                 weight_decay=0.01)
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jmodel.loss(p, b)[0]))
+    local = jax.jit(lambda k, g, h, m: jagg.compress_local(
+        algo, k, g, h, mode="sparse_allgather", mask=m))
+    combine = jax.jit(lambda msg, ha: jagg.combine_global(
+        algo, msg, ha, n_workers=SMOKE_N, mode="sparse_allgather"))
+    params = params_np
+    zeros = jax.tree.map(jnp.zeros_like, params)
+    hs, h_avg, opt_state = [zeros] * SMOKE_N, zeros, opt.init(params)
+    jlosses, jmasks = [], []
+    per = SMOKE_BATCH // SMOKE_N
+    for step in range(SMOKE_STEPS):
+        batch = data.batch(step)
+        k = jax.random.fold_in(jax.random.key(0), step)
+        mask = jpart.sample_mask(jparticipation_key(k), SMOKE_N)
+        msgs, losses = [], []
+        for i in range(SMOKE_N):
+            bi = {kk: v[i * per:(i + 1) * per] for kk, v in batch.items()}
+            loss, grads = grad_fn(params, bi)
+            msg, hs[i] = local(jax.random.fold_in(k, i), grads, hs[i],
+                               mask[i])
+            msgs.append(msg)
+            losses.append(float(loss))
+        g, h_avg = combine(jax.tree.map(lambda *x: jnp.stack(x), *msgs),
+                           h_avg)
+        updates, opt_state = opt.update(g, opt_state, params)
+        params = japply_updates(params, updates)
+        jlosses.append(float(np.mean(losses)))
+        jmasks.append(np.asarray(mask))
+    # the port
+    model = build_model(_smoke_cfg())
+    talgo = EFBV(BlockTopK(256, 16), lam=LAM, nu=NU)
+    topt = adamw(cosine(3e-4, total_steps=SMOKE_STEPS, warmup_steps=1),
+                 weight_decay=0.01)
+    state = init_train_state(T.params_from_jax(params_np, "cpu"), topt,
+                             n_workers=SMOKE_N, algo=talgo,
+                             agg_mode="sparse_allgather")
+    step_fn = make_train_step(model.loss, topt, talgo, n_workers=SMOKE_N,
+                              agg_mode="sparse_allgather",
+                              participation=tpart)
+    for step in range(SMOKE_STEPS):
+        k = R.fold_in(R.key(0), step)
+        np.testing.assert_array_equal(
+            tpart.sample_mask(participation_key(k), SMOKE_N, "cpu").numpy(),
+            jmasks[step])
+        state, m = step_fn(state, data.batch(step), k)
+        assert float(m["participants"]) == 1.0
+        np.testing.assert_allclose(float(m["loss"]), jlosses[step],
+                                   rtol=1e-5)
+    diff = np.concatenate([
+        np.abs(b.numpy() - np.asarray(a)).reshape(-1) for a, b in
+        zip(jax.tree.leaves(params), T.leaves(state.params))])
+    assert np.mean(diff > 1e-5) < 1e-3 and diff.max() <= 9e-4
+
+
+# ---------------------------------------------------------------------------
+# One process per worker group (torch.distributed, gloo on the CPU)
+#
+# Ranks are spawned with torch.multiprocessing, rendezvous through a
+# file:// store under tmp_path (no port to race for), one thread each, and
+# a join time limit of DIST_TIMEOUT_S: a hung rank fails its test.  The
+# one-process loop is the reference, run here with one thread too (CPU
+# matmuls sum in another order with more threads).  Tolerance: none
+# (bitwise), except dense_psum at n = 4, where the all-reduce's summation
+# order differs from torch.mean's (below).
+# ---------------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+import io  # noqa: E402
+import os  # noqa: E402
+import time  # noqa: E402
+
+import torch.multiprocessing as tmp  # noqa: E402
+
+from repro_torch.core.efbv import Downlink, Pipeline  # noqa: E402
+
+DIST_TIMEOUT_S = 120
+#: dense_psum at n = 4: gloo sums the four d_i in another order than
+#: torch.mean (((d0 + d1) + d2) + d3); each d_bar differs by a few ulps, and
+#: AdamW's normalised step turns that into params within 1e-6 of each other
+#: after three steps (lr 3e-4); the losses agree to rtol 1e-6
+DENSE4_PARAMS_ATOL, DENSE4_LOSS_RTOL = 1e-6, 1e-6
+
+#: name -> (agg, uplink, downlink, pipelined, participation, n)
+DIST_CASES = {
+    "block_topk": ("sparse_allgather", "block_topk:256,16", False, False,
+                   "full", 2),
+    "pipelined": ("sparse_allgather", "block_topk:256,16", True, True,
+                  "full", 2),
+    "qsgd": ("sparse_allgather", "qsgd:16", True, False, "full", 2),
+    "randk": ("sparse_allgather", "randk:4096", False, False, "full", 2),
+    "dense_psum": ("dense_psum", "block_topk:256,16", False, False, "full",
+                   2),
+    "dense_psum_pipelined": ("dense_psum", "block_topk:256,16", False, True,
+                             "full", 2),
+    "fixed1": ("sparse_allgather", "block_topk:256,16", False, False,
+               "fixed:1", 2),
+    "bernoulli": ("sparse_allgather", "qsgd:16", True, False,
+                  "bernoulli:0.5", 2),
+    "n4": ("sparse_allgather", "block_topk:256,16", False, False, "full", 4),
+    "n4_pipelined": ("sparse_allgather", "block_topk:256,16", True, True,
+                     "fixed:3", 4),
+    "dense_psum_n4": ("dense_psum", "block_topk:256,16", False, False,
+                      "full", 4),
+}
+
+
+def _train_case(name, group=None):
+    """SMOKE_STEPS steps of case ``name`` from params of a fixed seed:
+    (losses, participants, final state as numpy: params, h_avg, w, this
+    rank's h)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    agg, spec, down, pipelined, part, n = DIST_CASES[name]
+    cfg = _smoke_cfg()
+    model = build_model(cfg)
+    algo = EFBV(tcomp.make_compressor(spec), lam=LAM, nu=NU)
+    opt = adamw(cosine(3e-4, total_steps=SMOKE_STEPS, warmup_steps=1),
+                weight_decay=0.01)
+    pipeline = Pipeline(1) if pipelined else None
+    params = model.init(torch.Generator().manual_seed(5), device="cpu")
+    state = init_train_state(params, opt, n_workers=n, bidirectional=down,
+                             algo=algo, agg_mode=agg, pipeline=pipeline,
+                             group=group)
+    step = make_train_step(model.loss, opt, algo, n_workers=n, agg_mode=agg,
+                           downlink=Downlink(tcomp.QSGD(16)) if down
+                           else None, pipeline=pipeline,
+                           participation=Participation.parse(part),
+                           group=group)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=SMOKE_SEQ,
+                       global_batch=SMOKE_BATCH, n_workers=n, seed=1)
+    losses, parts = [], []
+    for s in range(SMOKE_STEPS):
+        state, m = step(state, data.batch(s), R.fold_in(R.key(SMOKE_N), s))
+        losses.append(float(m["loss"]))
+        parts.append(float(m.get("participants", n)))
+    as_np = lambda t: None if t is None else T.tree_map(  # noqa: E731
+        lambda a: a.numpy().copy(), t)
+    return {"losses": losses, "participants": parts,
+            "params": as_np(state.params), "h_avg": as_np(state.h_avg),
+            "w": as_np(state.w), "h": as_np(state.h)}
+
+
+def _rank_main(rank, world, store, fn, args, join):
+    """One spawned rank, with RANK and WORLD_SIZE as torchrun sets them:
+    join the group (file:// store) and run ``fn(group, *args)``, or with
+    ``join`` False run ``fn(*args)``, which joins it itself; save the
+    result for the parent."""
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if not join:
+        out = fn(*args)
+    else:
+        group = tagg.WorkerGroup.join(args[0], backend="gloo", device="cpu",
+                                      init_method=f"file://{store}/store")
+        try:
+            out = fn(group, *args)
+        finally:
+            group.close()
+    torch.save(out, f"{store}/rank{rank}.pt")
+
+
+def _spawn(tmp_path, world, fn, *args, join=True):
+    """Run ``fn`` on ``world`` gloo ranks; their results in rank order.
+    Fails (and kills every rank) when a rank raises or the ranks are not
+    done within DIST_TIMEOUT_S."""
+    ctx = tmp.start_processes(_rank_main, args=(world, str(tmp_path), fn,
+                                                args, join),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks not done in {DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _case_on_group(group, n, name):
+    return _train_case(name, group)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tree_bits_equal(a, b):
+    la, lb = T.leaves(a), T.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("name", [c for c in DIST_CASES
+                                  if c != "dense_psum_n4"])
+def test_multiprocess_step_equals_one_process_bitwise(name, tmp_path):
+    """2 gloo ranks (n/2 workers each) against the one-process loop: the
+    losses, participants, params, h_avg and w of three steps bit for bit on
+    every rank, and each rank's h the loop's rows of its workers."""
+    n = DIST_CASES[name][-1]
+    with _one_thread():
+        want = _train_case(name)
+    ranks = _spawn(tmp_path, 2, _case_on_group, n, name)
+    for r, got in enumerate(ranks):
+        assert got["losses"] == want["losses"]
+        assert got["participants"] == want["participants"]
+        for k in ("params", "h_avg", "w"):
+            if want[k] is not None:
+                _tree_bits_equal(want[k], got[k])
+        rows = T.tree_map(lambda a: a[r * n // 2:(r + 1) * n // 2],
+                          want["h"])
+        _tree_bits_equal(rows, got["h"])
+
+
+def test_dense_psum_four_ranks_within_tolerance(tmp_path):
+    """n = 4 on 4 ranks: the all-reduce's order differs from torch.mean's,
+    so within DENSE4_*; the ranks agree with each other bit for bit."""
+    with _one_thread():
+        want = _train_case("dense_psum_n4")
+    ranks = _spawn(tmp_path, 4, _case_on_group, 4, "dense_psum_n4")
+    for got in ranks:
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=DENSE4_LOSS_RTOL)
+        for a, b in zip(T.leaves(want["params"]), T.leaves(got["params"])):
+            np.testing.assert_allclose(b, a, rtol=0, atol=DENSE4_PARAMS_ATOL)
+        _tree_bits_equal(ranks[0]["params"], got["params"])
+        _tree_bits_equal(ranks[0]["h_avg"], got["h_avg"])
+
+
+def _rings(group, n):
+    rng = np.random.default_rng(group.rank)
+    x = torch.from_numpy(rng.integers(0, 256, (5, 7), dtype=np.uint8))
+    out = torch.empty((group.world, 5, 7), dtype=torch.uint8)
+    torch.distributed.all_gather(list(out.unbind(0)), x)
+    return {"ring": tagg.ring_allgather(group, x).numpy(),
+            "gather": out.numpy()}
+
+
+def test_ring_allgather_equals_all_gather(tmp_path):
+    """3 ranks: the ring's P - 1 hops give what one all-gather gives, in
+    rank order, on every rank."""
+    ranks = _spawn(tmp_path, 3, _rings, 3)
+    for got in ranks:
+        np.testing.assert_array_equal(got["ring"], got["gather"])
+        np.testing.assert_array_equal(got["ring"], ranks[0]["gather"])
+
+
+TRANSPORT_SPECS = ["block_topk:256,16", "qsgd:16", "qsgd:200", "randk:37",
+                   "identity"]
+
+
+@pytest.mark.parametrize("spec", TRANSPORT_SPECS)
+def test_byte_transport_round_trip(spec):
+    """Every payload the trainer sends (TRAIN_COMPRESSORS; QSGD at s = 200
+    has int16 levels) on leaves of odd sizes: 3 workers' messages packed
+    into one byte buffer and viewed back equal ``stack_messages`` bit for
+    bit, -0.0 and NaN values included, each component 4-byte aligned."""
+    from repro_torch.launch.train import TRAIN_COMPRESSORS
+    assert spec.partition(":")[0] in TRAIN_COMPRESSORS
+    algo = EFBV(tcomp.make_compressor(spec), lam=LAM, nu=NU)
+    rng = np.random.default_rng(len(spec))
+    shapes = {"a": (1001,), "b": (3, 257), "c": (5,)}
+    msgs = []
+    for i in range(3):
+        g = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in shapes.items()}
+        g["a"][:3] = torch.tensor([-0.0, float("nan"), -5.0])
+        h = T.tree_map(torch.zeros_like, g)
+        msgs.append(tagg.compress_local(algo, R.fold_in(R.key(1), i), g, h,
+                                        mode="sparse_allgather")[0])
+    layout, row = tagg.byte_layout(msgs[0])
+    assert row % tagg.ALIGN == 0 and all(off % tagg.ALIGN == 0
+                                         for _, _, off, _ in layout)
+    buf = tagg.pack_bytes(msgs)
+    assert buf.dtype == torch.uint8 and tuple(buf.shape) == (3, row)
+    got = tagg.unpack_bytes(buf, msgs[0])
+    want = tagg.stack_messages(msgs)
+    for w, t in zip(T.leaves(want), T.leaves(got)):
+        assert w.dtype == t.dtype and w.shape == t.shape
+        assert torch.equal(w.contiguous().view(torch.uint8),
+                           t.contiguous().view(torch.uint8))
+    if spec == "qsgd:200":
+        assert T.leaves(got)[1].dtype == torch.int16
+
+
+def test_worker_group_slices_like_jax():
+    """Rank r of P owns workers [r n/P, (r + 1) n/P), as the JAX package's
+    process_worker_slice numbers them; n % P != 0 is refused."""
+    from repro.launch.mesh import process_worker_slice
+    for n, P in [(2, 2), (4, 2), (8, 4), (6, 3), (5, 1)]:
+        for r in range(P):
+            g = tagg.WorkerGroup(n_workers=n, rank=r, world=P,
+                                 backend="gloo", device=torch.device("cpu"))
+            assert g.workers == process_worker_slice((n, 1), P, r)
+    with pytest.raises(ValueError, match="whole workers"):
+        tagg.WorkerGroup(n_workers=3, rank=0, world=2, backend="gloo",
+                         device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="backend"):
+        tagg.WorkerGroup(n_workers=2, rank=0, world=2, backend="mpi",
+                         device=torch.device("cpu"))
+
+
+# -- the driver ---------------------------------------------------------------
+
+from repro_torch.launch import train as tlaunch  # noqa: E402
+
+CLI = ["--arch", "qwen2-0.5b", "--smoke", "--workers", "2", "--steps", "3",
+       "--global-batch", "4", "--seq", "16", "--agg", "sparse_allgather",
+       "--device", "cpu", "--log-every", "1"]
+
+
+def _cli_rank(n, store, argv):
+    """One rank of the driver: ``main`` joins the group itself (the store
+    by --dist-init); returns what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tlaunch.main(argv + ["--dist-backend", "gloo", "--dist-init",
+                             f"file://{store}/driver"])
+    return out.getvalue()
+
+
+def _steps(text):
+    """The step lines without their timing."""
+    return [line.rsplit(" (", 1)[0] for line in text.splitlines()
+            if line.startswith("[train] step")]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--compressor", "block_topk:256,16", "--downlink", "qsgd:16",
+     "--pipeline", "depth:1"],
+    ["--compressor", "block_topk:256,16", "--participation", "fixed:1"]])
+def test_cli_two_ranks_print_the_one_process_run(flags, tmp_path):
+    """The driver on 2 gloo ranks: rank 0 prints the one-process run's
+    bits and step lines (losses to the printed digit), the header
+    ``ranks=2 backend=gloo`` and the exchange line; rank 1 prints
+    nothing."""
+    argv = CLI + flags
+    with _one_thread(), contextlib.redirect_stdout(io.StringIO()) as one:
+        tlaunch.main(argv)
+    ranks = _spawn(tmp_path, 2, _cli_rank, 2, str(tmp_path), argv,
+                   join=False)
+    assert ranks[1] == ""
+    out = ranks[0]
+    assert " ranks=2 backend=gloo " in out
+    assert _steps(out) == _steps(one.getvalue()) and len(_steps(out)) == 3
+    wire_lines = [l for l in one.getvalue().splitlines() if "wire:" in l]
+    assert wire_lines and all(l in out.splitlines() for l in wire_lines)
+    assert "[train] exchange: ranks=2 backend=gloo 3 exchanges, " \
+        f"{2 * 5_776_384 // 8} B per rank per round" in out
+
+
+def test_cli_participation_prints_federated_lines(capsys):
+    """--participation is ported: the header, the JAX driver's federated
+    wire line, the total through participants=, and |S|=k/n each step."""
+    with _one_thread():
+        tlaunch.main(CLI + ["--compressor", "block_topk:256,16",
+                            "--participation", "fixed:1", "--downlink",
+                            "qsgd:16"])
+    out = capsys.readouterr().out
+    assert " participation=fixed:1 " in out
+    assert "[train] wire: federated round (mask bitmap + E|S_t|=1 of 2 " \
+        "payloads) ~0.69 MiB total (0.500x the full-participation round)" \
+        in out
+    assert f"total {32 + 5_776_384 + 11_553_216} bits/round up+down" in out
+    assert out.count("|S|=1/2 ") == 3
+
+
+@pytest.mark.parametrize("spec", ["bernoulli:0.5", "bernoulli:1", "full"])
+def test_cli_parses_participation(spec, capsys):
+    args = tlaunch.parse_args(["--smoke", "--device", "cpu",
+                               "--participation", spec])
+    assert Participation.parse(args.participation) == \
+        Participation.parse(spec)
+
+
+@pytest.mark.parametrize("spec", ["fixed:0", "some", "bernoulli:2"])
+def test_cli_refuses_bad_participation(spec, capsys):
+    with pytest.raises(SystemExit):
+        tlaunch.parse_args(["--smoke", "--device", "cpu", "--participation",
+                            spec])
+    assert "--participation" in capsys.readouterr().err
+
+
+def test_cli_needs_a_backend_under_torchrun(monkeypatch, capsys):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit):
+        tlaunch.parse_args(["--smoke", "--device", "cpu"])
+    assert "--dist-backend" in capsys.readouterr().err
+    args = tlaunch.parse_args(["--smoke", "--device", "cpu",
+                               "--dist-backend", "gloo"])
+    assert args.dist_backend == "gloo"
+
+
+@pytest.mark.parametrize("cards,rank,want", [
+    (2, 1, "cuda:1"), (4, 1, "cuda:1"), (1, 1, "cuda:0"), (0, 0, "cuda:0")])
+def test_rank_device_rule(cards, rank, want):
+    """cuda:LOCAL_RANK with a card per local rank, else every rank on
+    cuda:0 (gloo only); the CPU when asked."""
+    assert str(tlaunch.rank_device("cuda", "gloo", rank, 2, cards)) == want
+    assert str(tlaunch.rank_device("cpu", "gloo", rank, 2, cards)) == "cpu"
+
+
+@pytest.mark.parametrize("device,cards", [("cuda", 1), ("cuda", 0),
+                                          ("cpu", 2)])
+def test_nccl_refused_on_a_shared_device(device, cards):
+    """nccl refuses two ranks on one GPU, and the CPU: the rule raises,
+    and never runs gloo instead."""
+    with pytest.raises(ValueError, match="nccl"):
+        tlaunch.rank_device(device, "nccl", 1, 2, cards)
+    assert str(tlaunch.rank_device("cuda", "nccl", 1, 2, 2)) == "cuda:1"

@@ -305,8 +305,7 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--downlink", "block_topk:256,16"], ["--participation", "bernoulli:0.5"],
-    ["--participation", "fixed:1"], ["--leaf-codecs", "*embed*=qsgd:16"],
+    ["--downlink", "block_topk:256,16"], ["--leaf-codecs", "*embed*=qsgd:16"],
     ["--worker-comps", "topk:64;randk:64"], ["--trainer", "fsdp"],
     ["--spec", "x.json"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
     ["--schedule", "wsd"], ["--ckpt-dir", "ckpt"], ["--sanitize"]])
