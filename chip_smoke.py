@@ -48,6 +48,18 @@ line is printed only when every phase passed):
               n = 4 on two ranks (``DIST_REF``); and ``ring_allgather``
               (staged through pinned host buffers: gloo's send of a CUDA
               tensor aborts the process) equal to ``all_gather``.
+3b. reference backend -- through the spec (``repro_torch.core.build``):
+              the committed ``examples/specs/reference_logreg_efbv.json``
+              (500 rounds, n = 16, d = 64, comp-(2, 32), auto-tuned) on the
+              card and on the CPU, each drawing its own problem (ms per
+              round, f(x) - f* at rounds 0, 100 and 500, within 1e-5 of each
+              other); the same spec with the exact gradient x - B_i, x, h
+              and h_avg bitwise card against CPU; the time of a round at
+              paper Figure 2's scale (logreg, d = 112, n = 1000 workers of
+              8 rows each, comp-(1, 56)), EF-BV and EF21, 100 rounds each on
+              the card.  Only rounds are timed: each problem is drawn, f*
+              solved and the stepsize tuned before the timer.  Its launches
+              (threefry draws) are a main path's, ``reference``.
 4. main paths -- ``repro_torch.launch.train.main`` at the full width and
               depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
@@ -58,7 +70,13 @@ line is printed only when every phase passed):
                 up, QSGD(16) down;
               * federated: block-top-k (256, 16) up, ``--participation
                 fixed:1``: ``|S|=1/2`` at every step and the federated wire
-                line with ``E|S_t|=1 of 2``.
+                line with ``E|S_t|=1 of 2``;
+              * spec: the pipelined path's flags written as a spec file
+                (``spec_from_args``, ``build/spec/pipelined.json``) and run
+                with ``--spec``: the printed fingerprint equal to the
+                file's and the pipelined run's, and every step's loss and
+                params checksum equal to the pipelined path's (not profiled
+                again).
               Checks a finite loss at every step, the exact printed wire
               bits, and that every kernel of the path launched the expected
               number of times (launch counts are reset just before each path
@@ -1410,6 +1428,167 @@ def phase_reference():
                                      f"CPU {a}")
 
 
+#: the reference backend's committed spec (phase 3b, case a)
+REFERENCE_SPEC = ROOT / "examples" / "specs" / "reference_logreg_efbv.json"
+#: paper Figure 2's scale through the spec (case c): logreg at the
+#: mushrooms width, n = 1000, comp-(1, d/2), EF-BV and EF21
+FIG2 = dict(problem="logreg", d=112, n=1000, compressor="comp:1,56",
+            steps=100, seed=0)
+#: rows a worker holds in case (c), as the paper's mushrooms data (8124
+#: rows) spreads over n = 1000 (the spec's own problem has N = 16 d, one
+#: row a worker at this n)
+FIG2_ROWS = 8
+#: threefry launches of one built-in logreg problem: the column-scale and
+#: flip uniforms and the two normal draws
+PROBLEM_DRAWS = 4
+
+
+def reference_case(run, device, prob=None, grad_fn=None, gamma=None):
+    """``run.reference()`` on ``device`` with only its rounds timed.  With
+    no ``grad_fn`` the problem (the spec's built-in one unless ``prob`` is
+    given) is drawn, f* solved and Remark 1's stepsize tuned from its L and
+    L_tilde before the timer, as ``reference()`` would tune it, and f(x) -
+    f* is recorded; a custom ``grad_fn`` comes with ``gamma``.  Returns
+    (ReferenceRun, ms per round between synchronisations, the problem,
+    f*)."""
+    f_star = record = None
+    if grad_fn is None:
+        prob = run.problem_instance(device) if prob is None else prob
+        f_star = prob.solve()[1]
+        gamma = run._tune(L=prob.L(), Ltilde=prob.L_tilde()).gamma
+        grad_fn = prob.grads
+
+        def record(x):
+            return prob.f(x) - f_star
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run.reference(grad_fn=grad_fn, gamma=gamma, record=record,
+                        device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / run.spec.steps
+    return res, ms, prob, f_star
+
+
+def _bits_equal(a, b):
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_reference_spec():
+    """The reference backend through the spec (``repro_torch.core.build``):
+    (a) the committed ``reference_logreg_efbv.json`` verbatim (500 rounds,
+    n = 16, d = 64, comp-(2, 32), auto-tuned), on the card and on the CPU,
+    each drawing its own problem: ms per round, f(x) - f* at rounds 0, 100
+    and 500, the two trajectories within 1e-5 of the CPU's gap at every
+    round (the normals behind A come from each device's erfinv, so A
+    agrees to ~1e-6; measured 1.35e-6 on an H100); (b) the same spec with
+    the exact elementwise gradient x - B_i (B from numpy): x, h and h_avg
+    bitwise, card against CPU; (c) the time of a round at paper Figure 2's
+    scale (FIG2 with FIG2_ROWS rows a worker), EF-BV and EF21, 100 rounds
+    each on the card, with the gap at rounds 0 and 100 as a check that both
+    descend (100 rounds are too few to compare them as Figure 2 does).
+    Launch counts are reset just before and read just after; only the
+    card's runs launch (threefry: one draw per worker per round for comp's
+    position, and PROBLEM_DRAWS per drawn problem)."""
+    import numpy as np
+
+    from repro_torch import random
+    from repro_torch.core import ExperimentSpec, build
+    from repro_torch.data.synthetic import LogReg, make_synthetic
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    text = REFERENCE_SPEC.read_text()
+    spec = ExperimentSpec.from_json(text)
+    if spec.to_json() != text:
+        raise AssertionError("[reference-spec] the committed spec does not "
+                             "serialise back byte for byte")
+    run = build(spec)
+    print(f"[reference-spec] {REFERENCE_SPEC.relative_to(ROOT)}: "
+          f"fingerprint={spec.fingerprint()} lam={run.algo.lam!r} "
+          f"nu={run.algo.nu!r}")
+    collect("[reference-spec]")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    want_launches = 0
+    # (a) the spec verbatim, card and CPU
+    gaps, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        res, ms, prob, f_star = reference_case(run, dev)
+        f0 = float(prob.f(torch.zeros(spec.d, device=dev)) - f_star)
+        gaps[dev] = [f0] + [float(res.metrics[t - 1]) for t in (100, 500)]
+        runs[dev] = res
+        print(f"[reference-spec] (a) {dev}: {ms:.3f} ms per round, "
+              f"f(x) - f* at rounds 0/100/500 = {gaps[dev]}, f*={f_star!r}")
+    want_launches += spec.steps * spec.n + PROBLEM_DRAWS
+    worst = max(abs(g - c) / abs(c) for g, c in zip(gaps["cuda"],
+                                                     gaps["cpu"]))
+    gpu_m, cpu_m = runs["cuda"].metrics.cpu(), runs["cpu"].metrics
+    worst_all = float(((gpu_m - cpu_m).abs() / cpu_m.abs()).max())
+    print(f"[reference-spec] (a) card vs CPU: gap relative difference at "
+          f"rounds 0/100/500 at most {worst:.3e}, over all 500 rounds "
+          f"{worst_all:.3e}; x max |diff| "
+          f"{float((runs['cuda'].x.cpu() - runs['cpu'].x).abs().max()):.3e}")
+    if not (worst_all <= 1e-5
+            and all(math.isfinite(g) for g in gaps["cuda"])
+            and gaps["cuda"][-1] < gaps["cuda"][0]):
+        raise AssertionError(f"[reference-spec] (a) card {gaps['cuda']} vs "
+                             f"CPU {gaps['cpu']}")
+    # (b) the exact elementwise gradient: bitwise, card against CPU
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (spec.n, spec.d)).astype(np.float32))
+    gamma = run._tune(L=1.0, Ltilde=1.0).gamma
+    out = {}
+    for dev in ("cuda", "cpu"):
+        Bd = B.to(dev)
+        res, ms, _, _ = reference_case(run, dev, grad_fn=lambda x: x - Bd,
+                                       gamma=gamma)
+        out[dev] = res
+        print(f"[reference-spec] (b) {dev}: {ms:.3f} ms per round")
+    want_launches += spec.steps * spec.n
+    same = {k: _bits_equal(getattr(out["cuda"], k) if k == "x" else
+                           getattr(out["cuda"].state, k),
+                           getattr(out["cpu"], k) if k == "x" else
+                           getattr(out["cpu"].state, k))
+            for k in ("x", "h", "h_avg")}
+    print(f"[reference-spec] (b) x - B_i, gamma={gamma!r}: card vs CPU "
+          f"bitwise {same}")
+    if not all(same.values()):
+        raise AssertionError(f"[reference-spec] (b) not bitwise: {same}")
+    # (c) a round at paper Figure 2's scale
+    A, b = make_synthetic(random.key(FIG2["seed"]), N=FIG2_ROWS * FIG2["n"],
+                          d=FIG2["d"], device="cuda")
+    fprob = LogReg.split(A, b, n=FIG2["n"], mu_reg=0.1)
+    want_launches += PROBLEM_DRAWS
+    for mode in ("efbv", "ef21"):
+        frun = build(ExperimentSpec(mode=mode, **FIG2))
+        res, ms, _, f_star = reference_case(frun, "cuda", prob=fprob)
+        f0 = float(fprob.f(torch.zeros(FIG2["d"], device="cuda")) - f_star)
+        final = float(res.metrics[-1])
+        print(f"[reference-spec] (c) fig2 scale {mode}: n={FIG2['n']} "
+              f"d={FIG2['d']} {FIG2_ROWS} rows a worker "
+              f"{FIG2['compressor']} lam={frun.algo.lam!r} "
+              f"nu={frun.algo.nu!r}: {ms:.3f} ms per round (workers as a "
+              f"loop); f(x) - f* {f0!r} at round 0, {final!r} after "
+              f"{FIG2['steps']}")
+        want_launches += FIG2["steps"] * FIG2["n"]
+        if not (math.isfinite(final) and final < f0):
+            raise AssertionError(f"[reference-spec] (c) {mode}: gap {f0} "
+                                 f"-> {final}")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"[reference-spec] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{launches}")
+    want = {**dict.fromkeys(launches, 0), "threefry_uniform": want_launches}
+    if launches != want:
+        raise AssertionError(f"[reference-spec] launches {launches}, want "
+                             f"{want}")
+    return launches
+
+
 #: the reference phase's multi-process cases: name -> (smoke kind, agg,
 #: participation, workers), each on two gloo ranks sharing cuda:0
 DIST_REF = {
@@ -1575,11 +1754,12 @@ def params_checksum(params):
 
 @contextlib.contextmanager
 def recording(records):
-    """While open, every train step that ``launch.train`` builds appends
-    {loss (hex), params checksum, step ms} and, over a group, the host ms
-    and bytes of its exchange, to ``records``; the step is timed between
-    synchronisations, before the checksum."""
-    from repro_torch.launch import train
+    """While open, every train step that ``launch.train`` builds (through
+    ``Run.train_step``, which looks ``trainer.make_train_step`` up at each
+    call) appends {loss (hex), params checksum, step ms} and, over a group,
+    the host ms and bytes of its exchange, to ``records``; the step is
+    timed between synchronisations, before the checksum."""
+    from repro_torch.train import trainer as train
 
     make = train.make_train_step
 
@@ -1644,6 +1824,8 @@ def dist_child():
     return 0
 
 
+#: the spec path's file, written from the pipelined path's flags
+SPEC_FILE = ROOT / "build" / "spec" / "pipelined.json"
 BASE_ARGV = ["--arch", "qwen2-0.5b", "--workers", str(WORKERS),
              "--steps", str(STEPS), "--global-batch", "8", "--seq", "128",
              "--algo", "efbv", "--agg", "sparse_allgather",
@@ -1711,6 +1893,24 @@ PATHS = {
                      "randk_update": 0, "threefry_uniform": STEPS},
         "profile": ("pack_update_rows", "threefry_fill_kernel"),
     },
+    # the pipelined path's flags as a spec file (``spec_from_args``,
+    # written just before the run), run with --spec and the same runtime
+    # flags: the same fingerprint and, at every step, the same loss and
+    # params checksum as the pipelined path ("same_as"); not profiled again
+    "spec": {
+        "argv": ["--spec", str(SPEC_FILE), "--global-batch", "8", "--seq",
+                 "128", "--log-every", "1"],
+        "spec_of": "pipelined",
+        "same_as": "pipelined",
+        "bits": {r"(\d+) bits/round/worker": [FULL_BITS],
+                 r"downlink (\d+) bits/round broadcast": [QSGD_BITS],
+                 r"total (\d+) bits/round up\+down": [PIPELINED_TOTAL_BITS],
+                 r" (pipeline=depth:1) ": ["pipeline=depth:1"]},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES},
+        "profile": None,
+    },
 }
 #: the main paths on two gloo ranks sharing cuda:0 (one worker each,
 #: torchrun), each held bitwise against its one-process path ("same_as"):
@@ -1736,7 +1936,10 @@ DIST_PATHS = {
     },
 }
 #: each one-process path's step records (``recording``), for DIST_PATHS
+#: and the spec path
 MAIN_RECORDS = {}
+#: each one-process path's printed spec fingerprint
+MAIN_FINGERPRINTS = {}
 
 
 def collect(label):
@@ -1758,6 +1961,16 @@ def phase_main(name):
     from repro_torch.launch import train
 
     path = PATHS[name]
+    written = None
+    if path.get("spec_of"):
+        # the flags of the path it repeats, folded into a spec file
+        args = train.parse_args(PATHS[path["spec_of"]]["argv"])
+        written = train.spec_from_args(args, args.workers)
+        SPEC_FILE.parent.mkdir(parents=True, exist_ok=True)
+        SPEC_FILE.write_text(written.to_json())
+        print(f"[main] {name}: wrote {SPEC_FILE.relative_to(ROOT)} from the "
+              f"{path['spec_of']} path's flags, fingerprint "
+              f"{written.fingerprint()}")
     out = io.StringIO()
     torch.cuda.synchronize()
     collect(f"[main] {name}")
@@ -1796,12 +2009,33 @@ def phase_main(name):
     if launches != want:
         raise AssertionError(f"[main] {name}: launches {launches}, want "
                              f"{want}")
-    if name == "pipelined":
+    if "pipeline=depth:1" in text:
         # round 0 applies the decode-zero priming payload: g = 0
         g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
         if g0 != ["0.000"]:
-            raise AssertionError(f"[main] pipelined: step 0 |g| {g0}, want "
+            raise AssertionError(f"[main] {name}: step 0 |g| {g0}, want "
                                  "0.000 (the zero priming payload)")
+    fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", text)
+    MAIN_FINGERPRINTS[name] = fps
+    if len(fps) != 1:
+        raise AssertionError(f"[main] {name}: printed fingerprints {fps}")
+    if written is not None:
+        want = MAIN_FINGERPRINTS[path["same_as"]]
+        if fps != [written.fingerprint()] or fps != want:
+            raise AssertionError(
+                f"[main] {name}: fingerprint {fps}, the file's "
+                f"{written.fingerprint()}, the {path['same_as']} path's "
+                f"{want}")
+        same = [(a["loss"], a["checksum"]) for a in records] == \
+            [(b["loss"], b["checksum"]) for b in MAIN_RECORDS[
+                path["same_as"]]]
+        print(f"[main] {name}: fingerprint {fps[0]} equal to the file's and "
+              f"the {path['same_as']} path's; losses and params checksums "
+              f"at every step {'equal' if same else 'NOT equal'} to the "
+              f"{path['same_as']} path's")
+        if not same:
+            raise AssertionError(f"[main] {name}: records {records} != "
+                                 f"{MAIN_RECORDS[path['same_as']]}")
     return launches
 
 
@@ -2209,11 +2443,14 @@ def main():
     torch.cuda.empty_cache()
     phase_reference_dist()
     launches = {}
+    launches["reference"] = phase_reference_spec()
+    torch.cuda.empty_cache()
     for name in PATHS:
         launches[name] = phase_main(name)
         torch.cuda.empty_cache()
-        phase_profile(name)
-        torch.cuda.empty_cache()
+        if PATHS[name]["profile"] is not None:
+            phase_profile(name)
+            torch.cuda.empty_cache()
     for name in DIST_PATHS:
         launches[name] = phase_dist(name)
     launches["compressor_bench"] = phase_bench()

@@ -37,3 +37,9 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(ARCHS)
+
+
+def known_archs() -> List[str]:
+    """The JAX package's arch ids: the ported ones and the rest (what an
+    experiment spec may name)."""
+    return ARCHS + NOT_PORTED

@@ -4,8 +4,12 @@ Every member of the JAX zoo: :class:`Identity`, :class:`TopK`,
 :class:`RandK`, :class:`ScaledRandK`, :class:`CompKK`, :class:`MixKK`,
 :class:`BlockTopK`, :class:`SignNorm`, :class:`Natural`, :class:`QSGD`,
 :class:`FracTopK`, :class:`FracCompKK` and :class:`MNice`, with
-``make_compressor``'s spec table and ``expand_fleet``.  ``make_fleet`` (the
-spec grammar) is not yet ported.
+``make_compressor``'s spec table, ``expand_fleet`` and ``make_fleet``; the
+contract's ``scaled`` and ``bias_variance_estimate``
+(``repro/core/contract.py``); and the spec grammar
+(``repro/core/specgrammar.py``): ``parse_*`` / ``format_*`` of atoms,
+fleets, leaf-codec rules, the downlink and the pipeline, with JAX's
+spellings and error messages.
 
 A compressor ``C(key, x)`` maps a tensor to a dense tensor of its shape
 with the non-kept coordinates zeroed, and certifies (eta, omega) for
@@ -78,6 +82,10 @@ class Compressor:
 
     def omega(self, d: int) -> float:
         raise NotImplementedError
+
+    def alpha(self, d: int) -> float:
+        """Contraction factor when in B(alpha); eq. (5)."""
+        return 1.0 - self.eta(d) ** 2 - self.omega(d)
 
     def omega_av(self, d: int, n: int) -> float:
         """Average relative variance of n independent copies (Sect. 2.4)."""
@@ -597,3 +605,173 @@ def expand_fleet(members: Tuple[Compressor, ...], n: int
         raise ValueError("jointly-defined compressors (m-nice) cannot be "
                          "fleet members: their draws couple all workers")
     return tuple(members[i % len(members)] for i in range(n))
+
+
+def make_fleet(spec: str, n: int) -> Tuple[Compressor, ...]:
+    """Parse a heterogeneous-fleet spec -- ';'-separated compressor specs,
+    e.g. 'topk:64;randk:64;qsgd:16' -- and assign it to n workers
+    (:func:`parse_fleet`)."""
+    return parse_fleet(spec, n)
+
+
+# ---------------------------------------------------------------------------
+# the contract's helpers (repro/core/contract.py)
+# ---------------------------------------------------------------------------
+
+def scaled(c: Compressor, lam: float):
+    """lam * C  (Prop. 1: eta' = lam*eta + 1 - lam, omega' = lam^2 omega)."""
+
+    def apply(key, x):
+        return lam * c(key, x)
+
+    return apply
+
+
+def bias_variance_estimate(c: Compressor, key, x: torch.Tensor,
+                           n_samples: int = 256) -> Tuple[float, float]:
+    """Monte-Carlo estimate of (||E C(x) - x|| / ||x||,
+    E||C(x) - E C(x)||^2 / ||x||^2) at the point x, over the draws of
+    ``split(key, n_samples)``."""
+    ys = torch.stack([c(k, x) for k in random.split(key, n_samples)])
+    mean = ys.mean(dim=0)
+    nx2 = (x * x).sum()
+    bias = torch.sqrt(((mean - x) ** 2).sum() / nx2)
+    var = ((ys - mean) ** 2).sum(dim=-1).mean() / nx2
+    return float(bias), float(var)
+
+
+# ---------------------------------------------------------------------------
+# the spec grammar (repro/core/specgrammar.py): one parser and printer for
+# compressor atoms 'name[:a[,b]]', fleets 'a;b', leaf-codec rules
+# 'pattern=atom;...', the downlink 'atom[@lam]' and the pipeline 'depth:k'
+# ---------------------------------------------------------------------------
+
+def parse_compressor(spec: str) -> Compressor:
+    """The atom parser: :func:`make_compressor`."""
+    return make_compressor(spec)
+
+
+def _per_mille(frac: float) -> int:
+    return int(round(frac * 1000.0))
+
+
+def format_compressor(comp: Compressor) -> str:
+    """Canonical atom spelling of a zoo compressor, the inverse of
+    :func:`parse_compressor` ('none' prints as 'identity'); m-nice has no
+    spelling and is refused."""
+    if isinstance(comp, Identity):
+        return "identity"
+    if isinstance(comp, TopK):
+        return f"topk:{comp.k}"
+    if isinstance(comp, RandK):
+        return f"randk:{comp.k}"
+    if isinstance(comp, ScaledRandK):
+        return f"scaled_randk:{comp.k}"
+    if isinstance(comp, CompKK):
+        return f"comp:{comp.k},{comp.kp}"
+    if isinstance(comp, MixKK):
+        return f"mix:{comp.k},{comp.kp}"
+    if isinstance(comp, BlockTopK):
+        return f"block_topk:{comp.block},{comp.kb}"
+    if isinstance(comp, SignNorm):
+        return "sign"
+    if isinstance(comp, Natural):
+        return "natural"
+    if isinstance(comp, QSGD):
+        return f"qsgd:{comp.s}"
+    # fraction-style atoms spell per-mille integers ("frac_topk:50" = 5%)
+    if isinstance(comp, FracCompKK):
+        return f"frac_comp:{_per_mille(comp.frac)},{_per_mille(comp.fracp)}"
+    if isinstance(comp, FracTopK):
+        return f"frac_topk:{_per_mille(comp.frac)}"
+    raise ValueError(f"compressor {comp!r} has no spec-string spelling")
+
+
+def parse_fleet(spec: str, n: int) -> Tuple[Compressor, ...]:
+    """';'-separated atoms -> length-n worker fleet (round-robin when the
+    list is shorter than n, explicit when exactly n)."""
+    members = tuple(make_compressor(s.strip())
+                    for s in spec.split(";") if s.strip())
+    return expand_fleet(members, n)
+
+
+def format_fleet(members) -> str:
+    """Canonical fleet spelling: ``parse_fleet(format_fleet(f), len(f))
+    == f``."""
+    return ";".join(format_compressor(c) for c in members)
+
+
+def parse_leaf_rules(spec: str) -> Tuple[Tuple[str, Compressor], ...]:
+    """';'-separated ``pattern=compressor_spec`` entries -> (pattern,
+    Compressor) rules, first match wins; a bare atom is the catch-all rule
+    '*'.  Jointly-defined compressors (m-nice) are refused."""
+    rules = []
+    for entry in spec.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if "=" in entry:
+            pat, _, comp_spec = entry.partition("=")
+            pat, comp_spec = pat.strip(), comp_spec.strip()
+            if not pat or not comp_spec:
+                raise ValueError(
+                    f"leaf-codec rule {entry!r} needs both a leaf-path "
+                    "pattern and a compressor spec around the '='")
+        else:
+            pat, comp_spec = "*", entry
+        comp = make_compressor(comp_spec)
+        if getattr(comp, "joint", False):
+            raise ValueError(
+                "jointly-defined compressors (m-nice) cannot be leaf-codec "
+                "rules: their draws couple all workers")
+        rules.append((pat, comp))
+    return tuple(rules)
+
+
+def format_leaf_rules(rules) -> str:
+    """Canonical rule spelling, every pattern explicit (incl. '*')."""
+    return ";".join(f"{pat}={format_compressor(c)}" for pat, c in rules)
+
+
+def parse_downlink(spec: str):
+    """'' | 'none' -> None (dense broadcast); otherwise an atom with an
+    optional '@lam' downlink scaling -> (compressor, lam)."""
+    if not spec or spec == "none":
+        return None
+    comp_spec, _, lam_s = spec.partition("@")
+    return make_compressor(comp_spec), float(lam_s) if lam_s else 1.0
+
+
+def format_downlink(downlink) -> str:
+    """Canonical spelling of None, a (compressor, lam) pair or a Downlink;
+    the default scaling 1.0 is omitted."""
+    if downlink is None:
+        return "none"
+    if isinstance(downlink, tuple):
+        comp, lam = downlink
+    else:
+        comp, lam = downlink.compressor, downlink.lam
+    atom = format_compressor(comp)
+    return atom if lam == 1.0 else f"{atom}@{lam!r}"
+
+
+def parse_pipeline(spec: str) -> int:
+    """'' | 'off' | 'depth:k' -> the depth k (the Pipeline dataclass
+    enforces the implemented range)."""
+    if not spec or spec == "off":
+        return 0
+    name, _, arg = spec.partition(":")
+    if name == "depth" and arg:
+        try:
+            return int(arg)
+        except ValueError:
+            raise ValueError(f"pipeline spec {spec!r} (want off | "
+                             "depth:0 | depth:1)") from None
+    raise ValueError(f"pipeline spec {spec!r} (want off | depth:0 | "
+                     "depth:1)")
+
+
+def format_pipeline(pipeline) -> str:
+    """Canonical spelling of an int depth or a Pipeline: 0 is 'off'."""
+    depth = pipeline if isinstance(pipeline, int) else pipeline.depth
+    return "off" if depth == 0 else f"depth:{depth}"

@@ -1,29 +1,40 @@
-"""EF-BV (Algorithm 1) on tensors: the worker and master updates
+"""EF-BV (Algorithm 1) on tensors, with EF21 / DIANA as parametrizations
 (``repro/core/efbv.py``).
 
-Ported so far: :class:`EFBV` with ``make`` (Remark 1 auto-tuning through
-``theory.tune_for``, the pipelined schedule's delay included), ``init``,
-``worker_update`` and ``master_update``; the round keys' fold tags;
-:class:`Participation` and :func:`participation_key`; :class:`Pipeline`
-(depth 0 or 1); and :class:`Downlink` with a QSGD broadcast.  Other
-downlink compressors, fleets and per-leaf rules are not yet ported.
+The whole module: :class:`EFBV` (``make`` with Remark 1's auto-tuning,
+heterogeneous fleets, per-leaf rules, partial participation and the
+pipelined schedule's delay; ``ef21`` / ``diana``; ``init``; the worker and
+master updates, masked or not; ``compress_delta`` and ``compress_round``;
+``step`` and ``step_federated``), the round keys' fold tags,
+:class:`Participation`, :class:`Pipeline`, :class:`Downlink` with any zoo
+compressor, the proximal operators, and the reference driver
+:func:`run_reference` (Algorithm 1 over n workers in one process).
 
-Rounding: the JAX reference runs these updates under ``jit``, where XLA
-contracts ``h + c * d`` into a fused multiply-add.  ``torch.add(h, d,
-alpha=c)`` computes the same fused result, so it is the spelling here.
+Rounding: the JAX reference runs these updates under ``jit`` (the trainers,
+and ``run_reference``'s ``lax.scan``), where XLA contracts ``h + c * d``
+into a fused multiply-add.  ``torch.add(h, d, alpha=c)`` computes the same
+fused result, so it is the spelling here, with ``x - gamma * g`` as
+``torch.add(x, g, alpha=-gamma)``.  A Python constant is rounded to f32
+first, as JAX rounds a weakly typed one.  The mean over workers sums in
+worker order from +0.0 and multiplies by f32(1/n), as XLA rewrites
+``jnp.mean``'s division by a constant; the same bits on the CPU and on the
+card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import random
 from repro_torch import tree as T
 from repro_torch.core import theory
-from repro_torch.core.compressors import QSGD, Compressor, make_compressor
+from repro_torch.core.compressors import (Compressor, Identity, _f32,
+                                          expand_fleet, jsign,
+                                          parse_downlink, parse_pipeline)
 
 PyTree = Any
 
@@ -120,6 +131,38 @@ def downlink_key(round_key):
     return random.fold_in(round_key, DOWNLINK_FOLD)
 
 
+def worker_sum(d: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading worker axis, in worker order from +0.0 (XLA's
+    reduce): the same bits on the CPU and on the card."""
+    acc = torch.zeros_like(d[0])
+    for i in range(d.shape[0]):
+        acc = acc + d[i]
+    return acc
+
+
+def worker_mean(d: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading worker axis: :func:`worker_sum` times
+    f32(1/n) -- XLA turns ``jnp.mean``'s division by the constant n into
+    that product (at n = 6 the division differed from JAX on 9 of 32
+    values, the product on none)."""
+    return worker_sum(d) * _f32(1.0 / d.shape[0])
+
+
+def _add_mean(h: torch.Tensor, d_sum: torch.Tensor, coef: float,
+              n: int) -> torch.Tensor:
+    """h + coef * mean, the mean d_sum * f32(1/n) computed in the same XLA
+    fusion, which folds the two constants, coef * (d_sum * (1/n)) ->
+    d_sum * f32(coef * 1/n), and contracts the product into the add: one
+    fma(d_sum, f32(f32(coef) * f32(1/n)), h)."""
+    c = _f32(_f32(coef) * np.float32(_f32(1.0 / n)))
+    return torch.add(h, d_sum, alpha=c)
+
+
+def _bcast(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The (n,) mask shaped to broadcast over a worker-stacked leaf."""
+    return m.reshape((m.shape[0],) + (1,) * (like.dim() - 1))
+
+
 class EFBVState(NamedTuple):
     h: PyTree        # per-worker control variates, leading axis n
     h_avg: PyTree    # master's control variate (1/n) sum_i h_i
@@ -130,23 +173,76 @@ class EFBVState(NamedTuple):
 class EFBV:
     """lam scales the control-variate update (variance reduction), nu the
     gradient-estimate update (error feedback).  nu = lam -> EF21;
-    nu = 1 -> DIANA."""
+    nu = 1 -> DIANA.
+
+    ``fleet`` is the heterogeneous setting: worker i runs ``fleet[i]``
+    (length n, round-robin expanded), ``compressor`` holds ``fleet[0]``;
+    a homogeneous fleet collapses to ``fleet=None``.  ``leaf_rules`` are
+    (fnmatch pattern, Compressor) pairs resolved against each leaf's
+    '/'-joined path, first match wins; unmatched leaves keep
+    ``compressor``."""
 
     compressor: Compressor
     lam: float
     nu: float
+    fleet: Optional[Tuple[Compressor, ...]] = None
+    leaf_rules: Optional[Tuple[Tuple[str, Compressor], ...]] = None
 
     @staticmethod
-    def make(compressor: Compressor, d: int, n: int,
-             mode: theory.Mode = "efbv", independent: bool = True,
-             pipeline: Optional[int] = None) -> "EFBV":
-        """Auto-tuned instance (Remark 1).  ``pipeline`` is the staleness
-        depth of the pipelined schedule: the one-round delay is folded into
-        the certified constants (``theory.pipeline_eta`` /
-        ``pipeline_omega``); None or 0 changes nothing."""
+    def make(compressor, d: int, n: int, mode: theory.Mode = "efbv",
+             independent: bool = True,
+             participation: Optional[float] = None,
+             pipeline: Optional[int] = None,
+             leaf_rules: Optional[Tuple[Tuple[str, Compressor], ...]] = None
+             ) -> "EFBV":
+        """Auto-tuned instance (Remark 1).  ``participation`` is the
+        expected per-round participation fraction p: (lam, nu) are then
+        tuned for the effective compressor b*C, b ~ Bernoulli(p)
+        (``theory.tune_partial``).  ``pipeline`` is the staleness depth of
+        the pipelined schedule, folded into the certified constants; None
+        or 0 changes nothing.  A sequence of compressors is a fleet,
+        round-robin expanded to n members and tuned through
+        ``theory.tune_fleet``; ``leaf_rules`` tune for the worst-case
+        composition over the base compressor and every rule member
+        (``theory.tune_tree``)."""
+        if isinstance(compressor, (list, tuple)):
+            if leaf_rules:
+                raise ValueError("per-leaf codec rules cannot be combined "
+                                 "with a heterogeneous worker fleet")
+            members = expand_fleet(tuple(compressor), n)
+            t = theory.tune_for(members, d, n, independent=independent,
+                                mode=mode, participation=participation,
+                                pipeline=pipeline)
+            fleet = None if len(set(members)) == 1 else members
+            return EFBV(members[0], lam=t.lam, nu=t.nu, fleet=fleet)
+        if leaf_rules:
+            if not independent:
+                raise ValueError("per-leaf codec tuning assumes independent "
+                                 "per-worker compressors")
+            comps = [compressor] + [c for _, c in leaf_rules]
+            if any(getattr(c, "joint", False) for c in comps):
+                raise ValueError(
+                    "jointly-defined compressors (m-nice) cannot be "
+                    "leaf-codec rules: their draws couple all workers")
+            t = theory.tune_tree([c.eta(d) for c in comps],
+                                 [c.omega(d) for c in comps],
+                                 n=n, aggregate="worst", mode=mode,
+                                 participation=participation,
+                                 pipeline=pipeline)
+            return EFBV(compressor, lam=t.lam, nu=t.nu,
+                        leaf_rules=tuple(leaf_rules))
         t = theory.tune_for(compressor, d, n, independent=independent,
-                            mode=mode, pipeline=pipeline)
+                            mode=mode, participation=participation,
+                            pipeline=pipeline)
         return EFBV(compressor, lam=t.lam, nu=t.nu)
+
+    @staticmethod
+    def ef21(compressor: Compressor, d: int, n: int) -> "EFBV":
+        return EFBV.make(compressor, d, n, mode="ef21")
+
+    @staticmethod
+    def diana(compressor: Compressor, d: int, n: int) -> "EFBV":
+        return EFBV.make(compressor, d, n, mode="diana")
 
     def init(self, params: PyTree, n: int) -> EFBVState:
         """h_i^0 = 0, stacked on a leading worker axis; h_avg^0 = 0."""
@@ -156,17 +252,134 @@ class EFBV:
         return EFBVState(h=h, h_avg=T.tree_map(torch.zeros_like, params),
                          step=0)
 
+    # ---- the algorithm's pieces ---------------------------------------------
+
+    def compress_delta(self, key, grad: PyTree, h: PyTree,
+                       compressor: Optional[Compressor] = None) -> PyTree:
+        """d_i = C_i(grad_i - h_i), leaf j under ``fold_in(key, j)``.
+        ``compressor`` overrides ``self.compressor`` (a fleet member); with
+        ``leaf_rules`` (and no override) each leaf runs the compressor its
+        path resolves to, clamped to the leaf's size."""
+        from repro_torch.distributed import wire
+        comp = self.compressor if compressor is None else compressor
+        leaves, h_leaves = T.leaves(grad), T.leaves(h)
+        if compressor is None and self.leaf_rules:
+            comps = [wire.clamp_for_leaf(
+                wire.resolve_leaf(self.leaf_rules, p, comp), g.numel())
+                for p, g in zip(wire.leaf_paths(grad), leaves)]
+        else:
+            comps = [comp] * len(leaves)
+        outs = []
+        for j, (cj, g, hj) in enumerate(zip(comps, leaves, h_leaves)):
+            kj = None if key is None else random.fold_in(key, j)
+            outs.append(cj(kj, g - hj))
+        return T.unflatten(grad, outs)
+
     def worker_update(self, h: PyTree, d: PyTree) -> PyTree:
         """h_i <- h_i + lam d_i."""
         return T.tree_map(lambda hj, dj: torch.add(hj, dj, alpha=self.lam),
                           h, d)
 
+    def worker_update_masked(self, h: PyTree, d: PyTree,
+                             m: torch.Tensor) -> PyTree:
+        """Worker-stacked h_i <- h_i + lam d_i where worker i is sampled
+        (m_i = 1), the old h_i verbatim where it is not (m_i = 0)."""
+        return T.tree_map(
+            lambda hj, dj: torch.where(_bcast(m, hj) > 0,
+                                       torch.add(hj, dj, alpha=self.lam), hj),
+            h, d)
+
     def master_update(self, h_avg: PyTree, d_bar: PyTree
                       ) -> Tuple[PyTree, PyTree]:
-        """g <- h + nu d_bar ; h <- h + lam d_bar.  Returns (g, new h_avg)."""
+        """g <- h + nu d_bar ; h <- h + lam d_bar.  Returns (g, new h_avg).
+        Under partial participation absent workers' messages are zero and
+        d_bar stays normalised by n, which keeps h_avg = (1/n) sum_i h_i."""
         g = T.tree_map(lambda hj, dj: torch.add(hj, dj, alpha=self.nu),
                        h_avg, d_bar)
         return g, self.worker_update(h_avg, d_bar)
+
+    # ---- the reference round (workers as a loop) ----------------------------
+
+    def _compress_workers(self, keys, grads: PyTree, h: PyTree,
+                          n: int) -> PyTree:
+        """Worker-stacked d_i = C_i(grad_i - h_i), worker i under
+        ``keys[i]`` with its own fleet member when there is a fleet."""
+        if self.fleet is not None and len(self.fleet) != n:
+            raise ValueError(f"fleet of {len(self.fleet)} members for {n} "
+                             "workers (expand_fleet sizes it to n)")
+        d = []
+        for i in range(n):
+            d.append(self.compress_delta(
+                keys[i], T.tree_map(lambda a: a[i], grads),
+                T.tree_map(lambda a: a[i], h),
+                None if self.fleet is None else self.fleet[i]))
+        return T.tree_map(lambda *ds: torch.stack(ds), *d)
+
+    def _compress_sum(self, key, grads: PyTree, state: EFBVState,
+                      mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[PyTree, PyTree]:
+        """(sum_i [m_i] C_i(grad_i - h_i), advanced h): the worker half of
+        a round before the mean's 1/n."""
+        n = T.leaves(grads)[0].shape[0]
+        if getattr(self.compressor, "joint", False):
+            if mask is not None:
+                raise ValueError(
+                    "jointly-defined compressors (m-nice) model participation "
+                    "themselves; combine them with Participation masks is "
+                    "ambiguous")
+            d = T.tree_map(lambda *ds: torch.stack(ds), *[
+                T.tree_map(lambda g, h: self.compressor.joint_call(
+                    key, i, g[i] - h[i]), grads, state.h)
+                for i in range(n)])
+            return T.tree_map(worker_sum, d), self.worker_update(state.h, d)
+        d = self._compress_workers(random.split(key, n), grads, state.h, n)
+        if mask is None:
+            return T.tree_map(worker_sum, d), self.worker_update(state.h, d)
+        d_sum = T.tree_map(lambda dj: worker_sum(_bcast(mask, dj) * dj), d)
+        return d_sum, self.worker_update_masked(state.h, d, mask)
+
+    def compress_round(self, key, grads: PyTree, state: EFBVState,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[PyTree, PyTree]:
+        """The worker half of one round: ``(d_bar, h_new)`` with d_bar =
+        (1/n) sum_i [m_i] C_i(grad_i - h_i) and the advanced control
+        variates, without the master update.  Worker i draws under
+        ``split(key, n)[i]``; a jointly-defined compressor (m-nice) draws
+        every worker's share from ``key`` itself."""
+        d_sum, h_new = self._compress_sum(key, grads, state, mask)
+        n = T.leaves(grads)[0].shape[0]
+        return T.tree_map(lambda s: s * _f32(1.0 / n), d_sum), h_new
+
+    def _round(self, key, grads: PyTree, state: EFBVState,
+               mask: Optional[torch.Tensor]) -> Tuple[PyTree, EFBVState]:
+        """compress_round then master_update, fused as XLA fuses them
+        (:func:`_add_mean`)."""
+        d_sum, h_new = self._compress_sum(key, grads, state, mask)
+        n = T.leaves(grads)[0].shape[0]
+        g = T.tree_map(lambda h, s: _add_mean(h, s, self.nu, n),
+                       state.h_avg, d_sum)
+        h_avg = T.tree_map(lambda h, s: _add_mean(h, s, self.lam, n),
+                           state.h_avg, d_sum)
+        return g, EFBVState(h=h_new, h_avg=h_avg, step=state.step + 1)
+
+    def step(self, key, grads: PyTree, state: EFBVState
+             ) -> Tuple[PyTree, EFBVState]:
+        """One round of Algorithm 1 on worker-stacked gradients: returns
+        (g^{t+1}, new state); the caller applies the proximal step."""
+        return self._round(key, grads, state, None)
+
+    def step_federated(self, key, grads: PyTree, state: EFBVState,
+                       mask: torch.Tensor) -> Tuple[PyTree, EFBVState]:
+        """One round under client sampling: only the workers of the (n,)
+        {0., 1.} ``mask`` contribute and advance h_i; absent workers' zero
+        messages still count in the 1/n.  An all-ones mask gives
+        :meth:`step`'s bits."""
+        if getattr(self.compressor, "joint", False):
+            raise ValueError(
+                "jointly-defined compressors (m-nice) model participation "
+                "themselves; combine them with Participation masks is "
+                "ambiguous")
+        return self._round(key, grads, state, mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,20 +405,9 @@ class Pipeline:
 
     @staticmethod
     def parse(spec: str) -> "Pipeline":
-        """The CLI syntax: '' | 'off' | 'depth:k' (k in {0, 1}), with the
-        JAX package's grammar and errors."""
-        if not spec or spec == "off":
-            return Pipeline(depth=0)
-        name, _, arg = spec.partition(":")
-        if name == "depth" and arg:
-            try:
-                depth = int(arg)
-            except ValueError:
-                raise ValueError(f"pipeline spec {spec!r} (want off | "
-                                 "depth:0 | depth:1)") from None
-            return Pipeline(depth=depth)
-        raise ValueError(f"pipeline spec {spec!r} (want off | depth:0 | "
-                         "depth:1)")
+        """The CLI syntax: '' | 'off' | 'depth:k' (k in {0, 1}), through
+        the spec grammar (``compressors.parse_pipeline``)."""
+        return Pipeline(depth=parse_pipeline(spec))
 
     @property
     def is_off(self) -> bool:
@@ -223,8 +425,9 @@ class Downlink:
         q^t   = C_s(x^{t+1} - w^t)          (one message, every worker)
         w^t+1 = w^t + lam_s * q^t
 
-    Workers evaluate their gradients at ``w``.  Ported so far: QSGD as
-    C_s."""
+    Workers evaluate their gradients at ``w``.  Any zoo compressor is
+    C_s.  With the identity on an f32 wire and lam_s = 1 the update
+    telescopes to w = x, and the broadcast assigns x verbatim."""
 
     compressor: Compressor
     lam: float = 1.0
@@ -232,18 +435,22 @@ class Downlink:
     @staticmethod
     def parse(spec: str) -> Optional["Downlink"]:
         """CLI syntax: '' | 'none' -> None (uncompressed dense broadcast);
-        'qsgd:S', optionally '@lam' for the downlink scaling
-        ('qsgd:16@0.9').  Other compressors are not yet ported."""
-        if not spec or spec == "none":
+        otherwise any zoo compressor spec, optionally '@lam' for the
+        downlink scaling ('topk:64@0.9'), through the spec grammar
+        (``compressors.parse_downlink``)."""
+        parsed = parse_downlink(spec)
+        if parsed is None:
             return None
-        comp_spec, _, lam_s = spec.partition("@")
-        compressor = make_compressor(comp_spec)
-        if not isinstance(compressor, QSGD):
-            raise NotImplementedError(
-                f"downlink {comp_spec!r} is not yet ported to repro_torch "
-                "(ported: qsgd)")
-        return Downlink(compressor=compressor,
-                        lam=float(lam_s) if lam_s else 1.0)
+        compressor, lam = parsed
+        return Downlink(compressor=compressor, lam=lam)
+
+    def _is_lossless(self, wire_dtype: str) -> bool:
+        return (isinstance(self.compressor, Identity) and self.lam == 1.0
+                and wire_dtype == "float32")
+
+    def init(self, params: PyTree) -> PyTree:
+        """w^0 = x^0 (workers start from the broadcast initial model)."""
+        return T.tree_map(torch.clone, params)
 
     def format_for(self, tree: PyTree, *, wire_dtype: str = "float32"):
         """The downlink WireFormat (one broadcast message per round)."""
@@ -255,7 +462,11 @@ class Downlink:
         """One downlink round: returns ``(w_new, payloads)``, with leaf j
         encoded under ``fold_in(key, j)`` and
         ``w_new = w + lam_s * decode(payload)``, computed from the decoded
-        payload so master and workers agree bit for bit."""
+        payload so master and workers agree bit for bit, rounded as jitted
+        JAX rounds it: once (fused), or twice after a decode that ends in
+        a select (QSGD, natural: ``LeafCodec.DECODE_SELECTS``; at lam_s =
+        0.9 on 4096 values the other spelling differed from JAX on 58 and
+        72); a lossless wire assigns ``w_new = x``."""
         from repro_torch.distributed import wire
         payloads, new_leaves = [], []
         for j, (xj, wj) in enumerate(zip(T.leaves(x), T.leaves(w))):
@@ -265,6 +476,122 @@ class Downlink:
             delta = (xj.float() - wj.float()).reshape(-1)
             payload = codec.encode(kj, delta)
             payloads.append(payload)
+            if self._is_lossless(wire_dtype):
+                new_leaves.append(xj)
+                continue
             q = codec.decode(payload).reshape(xj.shape)
-            new_leaves.append((wj.float() + self.lam * q).to(wj.dtype))
+            if codec.DECODE_SELECTS:
+                wn = wj.float() + self.lam * q
+            else:
+                wn = torch.add(wj.float(), q, alpha=self.lam)
+            new_leaves.append(wn.to(wj.dtype))
         return T.unflatten(w, new_leaves), payloads
+
+
+# ------------------------------------------------------------------------------
+# proximal operators for the composite term R (problem (1))
+# ------------------------------------------------------------------------------
+
+def prox_zero(gamma: float, x: PyTree) -> PyTree:
+    return x
+
+
+def prox_l2(mu_reg: float) -> Callable[[float, PyTree], PyTree]:
+    """R = (mu_reg/2)||x||^2  ->  prox = x / (1 + gamma mu_reg), as XLA
+    computes it: x times the f32 reciprocal of the constant (on 2**16
+    values the division differed from jitted JAX on 3,964, the product on
+    none)."""
+
+    def prox(gamma, x):
+        r = _f32(np.float32(1.0) / np.float32(1.0 + gamma * mu_reg))
+        return T.tree_map(lambda v: v * r, x)
+
+    return prox
+
+
+def prox_l1(lam_reg: float) -> Callable[[float, PyTree], PyTree]:
+    """R = lam_reg ||x||_1  ->  soft threshold."""
+
+    def prox(gamma, x):
+        t = _f32(gamma * lam_reg)
+        return T.tree_map(
+            lambda v: jsign(v) * torch.clamp(v.abs() - t, min=0.0), x)
+
+    return prox
+
+
+def proximal_step(x: PyTree, g: PyTree, gamma: float,
+                  prox: Callable[[float, PyTree], PyTree] = prox_zero
+                  ) -> PyTree:
+    """x^{t+1} = prox_{gamma R}(x^t - gamma g^{t+1}), the step one fused
+    rounding."""
+    y = T.tree_map(lambda xv, gv: torch.add(xv, gv, alpha=-gamma), x, g)
+    return prox(gamma, y)
+
+
+# ------------------------------------------------------------------------------
+# the reference driver
+# ------------------------------------------------------------------------------
+
+class ReferenceRun(NamedTuple):
+    """Result of :func:`run_reference`: the final iterate, the final
+    :class:`EFBVState`, the downlink's w (None without one), the stacked
+    ``record`` values (None when not recording), and under the pipelined
+    schedule the last round's aggregate, not yet applied."""
+
+    x: PyTree
+    state: EFBVState
+    w: Optional[PyTree]
+    metrics: Optional[torch.Tensor]
+    pending: Optional[PyTree] = None
+
+
+def run_reference(*, algo: EFBV, grad_fn: Callable, x0: PyTree,
+                  gamma: float, steps: int, key, n: int,
+                  participation: Optional[Participation] = None,
+                  downlink: Optional[Downlink] = None,
+                  prox: Callable[[float, PyTree], PyTree] = prox_zero,
+                  record: Optional[Callable] = None,
+                  wire_dtype: str = "float32",
+                  pipeline: Optional[Pipeline] = None) -> ReferenceRun:
+    """Algorithm 1 over ``steps`` rounds, the n workers as a loop on x0's
+    device: JAX's ``run_reference`` round for round.
+
+    Round t runs under ``split(key, steps)[t]`` = k: gradients
+    ``grad_fn(fold_in(k, RESAMPLE_FOLD), x)`` (at w under a downlink),
+    worker i's compressor under ``split(k, n)[i]``, the mask (other than
+    full participation) under ``participation_key(k)``, the broadcast under
+    ``downlink_key(k)``.  ``pipeline`` depth 1 applies each round's
+    aggregate one round late (round 0 applies zeros) and returns the last
+    one as ``.pending``."""
+    part = participation if participation is not None else Participation()
+    depth = 0 if pipeline is None else pipeline.depth
+    state = algo.init(x0, n)
+    w = downlink.init(x0) if downlink is not None else None
+    device = T.leaves(x0)[0].device
+    pending = T.tree_map(torch.zeros_like, x0) if depth else None
+    x, metrics = x0, []
+    for k in random.split(key, steps):
+        grads = grad_fn(random.fold_in(k, RESAMPLE_FOLD),
+                        w if downlink is not None else x)
+        mask = None if part.is_full else part.sample_mask(
+            participation_key(k), n, device)
+        if depth:
+            d_new, h_new = algo.compress_round(k, grads, state, mask)
+            g, h_avg_new = algo.master_update(state.h_avg, pending)
+            state = EFBVState(h=h_new, h_avg=h_avg_new, step=state.step + 1)
+            pending = d_new
+        elif mask is None:
+            g, state = algo.step(k, grads, state)
+        else:
+            g, state = algo.step_federated(k, grads, state, mask)
+        x = proximal_step(x, g, gamma, prox)
+        if downlink is not None:
+            w, _ = downlink.broadcast(downlink_key(k), x, w,
+                                      wire_dtype=wire_dtype)
+        if record is not None:
+            metrics.append(torch.as_tensor(record(x)))
+    return ReferenceRun(x=x, state=state, w=w,
+                        metrics=torch.stack(metrics) if record is not None
+                        and metrics else None,
+                        pending=pending)

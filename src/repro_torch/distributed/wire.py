@@ -22,9 +22,11 @@ and its federated accounting (``bits_per_round(participants=)``,
 pipelined exchange: the decode-zero priming message
 (:func:`zero_message`, through each codec's ``mask_message``), the
 worker-axis chunk rule (:func:`pipeline_chunks`) and the chunked
-decode-sum (:func:`chunked_decode_sum`).  The wire dtypes other than f32,
-the per-leaf ``TreeWire``, fleets and the serving envelopes are not yet
-ported.  A bitmap's uint32 words are held as int32 with the same bits
+decode-sum (:func:`chunked_decode_sum`); a heterogeneous fleet's
+per-worker formats (:func:`fleet_formats`, :func:`fleet_bits_per_round`);
+and the per-leaf codec rules' grammar (:func:`parse_leaf_rules`,
+:func:`resolve_leaf`).  The wire dtypes other than f32, the per-leaf
+``TreeWire`` and the serving envelopes are not yet ported.  A bitmap's uint32 words are held as int32 with the same bits
 (torch has no uint32 arithmetic on the CPU).
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
@@ -54,6 +56,7 @@ computes its own.
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import math
 import os
 from typing import Any, Optional, Sequence, Tuple
@@ -123,6 +126,11 @@ class LeafCodec:
     kind = "abstract"
     #: ndim of the first payload component of one (un-stacked) message
     MSG_NDIM = 1
+    #: the decode ends in a select against zero (``where(..., v, 0)``):
+    #: under ``jit`` XLA keeps a product applied to it inside the select,
+    #: so a downlink's w + lam * q rounds twice (every other decode's
+    #: update is one fused rounding)
+    DECODE_SELECTS = False
 
     def mask_message(self, payload: Sequence[torch.Tensor], m
                      ) -> Tuple[torch.Tensor, ...]:
@@ -216,6 +224,7 @@ class QsgdQuant(LeafCodec):
     s: int
 
     kind = "qsgd_quant"
+    DECODE_SELECTS = True
 
     @property
     def level_dtype(self) -> torch.dtype:
@@ -391,6 +400,7 @@ class NaturalPack(LeafCodec):
     size: int
 
     kind = "natural_pack"
+    DECODE_SELECTS = True
 
     @property
     def payload_bits(self) -> int:
@@ -478,14 +488,16 @@ class WireFormat:
         return 32 * sum(l.size for l in self.leaves)
 
 
-def total_round_bits(up: WireFormat, down: WireFormat, *,
+def total_round_bits(up: WireFormat, down: Optional[WireFormat], *,
                      n_workers: int, participants: Optional[float] = None):
     """Exact wire bits of one full round, both directions: n_workers uplink
     payloads (federated: the participation bitmap and |S_t| payloads)
-    plus the one downlink broadcast, which absent workers decode too."""
+    plus the one downlink broadcast, which absent workers decode too (a
+    dense f32 broadcast when ``down`` is None)."""
+    down_bits = (up.dense_bits() if down is None
+                 else down.downlink_bits_per_round())
     return up.bits_per_round(n_workers=n_workers,
-                             participants=participants) + \
-        down.downlink_bits_per_round()
+                             participants=participants) + down_bits
 
 
 def federated_round_bits(fmt: WireFormat, mask) -> int:
@@ -547,6 +559,44 @@ def format_for(compressor, tree: PyTree, *,
     return WireFormat(tuple(
         codec_of(compressor, tuple(leaf.shape), leaf.numel(), wire_dtype)
         for leaf in T.leaves(tree)))
+
+
+def fleet_formats(fleet: Sequence[Any], tree: PyTree, *,
+                  wire_dtype: str = "float32") -> Tuple[WireFormat, ...]:
+    """One WireFormat per worker of a heterogeneous fleet (worker i's
+    payload layout is its own compressor's)."""
+    return tuple(format_for(c, tree, wire_dtype=wire_dtype) for c in fleet)
+
+
+def fleet_bits_per_round(fmts: Sequence[WireFormat], mask=None) -> int:
+    """Exact uplink bits of one mixed-fleet round: the sum of the
+    participating workers' payloads.  ``mask``, the (n,) participation
+    mask of a federated round, adds the n-worker bitmap and drops absent
+    workers' payloads; None is the full-participation round."""
+    if mask is None:
+        return sum(f.bits_per_round() for f in fmts)
+    m = torch.as_tensor(mask)
+    if m.shape[0] != len(fmts):
+        raise ValueError(f"mask of {m.shape[0]} workers for a fleet of "
+                         f"{len(fmts)}")
+    return 32 * bitmap_words(len(fmts)) + sum(
+        f.bits_per_round() for f, mi in zip(fmts, m.tolist()) if mi > 0)
+
+
+def parse_leaf_rules(spec: str):
+    """The per-leaf codec grammar, ';'-separated ``pattern=compressor_spec``
+    entries (fnmatch over the leaf's '/'-joined path, first match wins; a
+    bare spec is the catch-all '*'): :func:`compressors.parse_leaf_rules`."""
+    return cz.parse_leaf_rules(spec)
+
+
+def resolve_leaf(rules, path: str, default):
+    """The compressor the rule list assigns to one leaf path (first
+    matching fnmatch pattern wins; no match keeps ``default``)."""
+    for pat, comp in rules or ():
+        if fnmatch.fnmatchcase(path, pat):
+            return comp
+    return default
 
 
 def leaf_paths(tree: PyTree) -> Tuple[str, ...]:

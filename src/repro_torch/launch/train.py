@@ -34,39 +34,57 @@ Each rank joins the process group from ``torchrun``'s environment (or
 ``--dist-backend`` names, which must be given when ``WORLD_SIZE`` > 1;
 rank r runs its n/P workers on ``cuda:LOCAL_RANK`` when there are as many
 cards as local ranks, else every rank on ``cuda:0``, which nccl refuses
-(``rank_device``).  Rank 0 prints.  ``--workers`` takes the place of the
-JAX driver's ``--mesh``.  Step s runs under the key ``fold_in(key(seed),
-s)``, as in the JAX driver.  It runs on ``cuda`` unless ``--device cpu``
-is given.  Flags of the JAX driver that this port does not have yet are
-parsed and refused with a "not yet ported" error, never ignored; so are
-the zoo compressors whose training rounds are not yet ported
-(``TRAIN_COMPRESSORS``).
+(``rank_device``).  Rank 0 prints.  ``--workers n`` takes the place of
+the JAX driver's ``--mesh nx1``.  Step s runs under the key
+``fold_in(key(seed), s)``, as in the JAX driver.  It runs on ``cuda``
+unless ``--device cpu`` is given.
+
+As in the JAX driver, the algorithmic flags fold into one
+:class:`repro_torch.core.ExperimentSpec` (:func:`spec_from_args`) and the
+run -- EF-BV tuning (for the sampled regime under ``--participation``),
+downlink, participation, pipeline, trainer -- comes from
+``repro_torch.core.build(spec)``; ``--spec path.json`` loads a serialized
+spec instead (its algorithmic fields, steps and seed replace the flags;
+``--smoke`` and ``--pipeline`` fold into it), and the driver prints the
+spec's fingerprint, the JAX driver's for the same experiment:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --spec examples/specs/pipelined_blocktopk.json --global-batch 8 \
+        --seq 32
+
+(refused here: that file's 2x2 mesh has a model axis, which the port has
+not yet; a spec written with ``mesh: "2x1"`` runs).  Flags and spec
+contents of the JAX driver that this port does not have yet are refused
+with a "not yet ported" error, never ignored; so are the zoo compressors
+whose training rounds are not yet ported (``TRAIN_COMPRESSORS``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
 import torch
 
 from repro_torch import random, resolve_device
-from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.compressors import Identity, make_compressor
-from repro_torch.core.efbv import EFBV, Downlink, Participation, Pipeline
+from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
+                                 known_archs)
+from repro_torch.core import ExperimentSpec, SpecError, build
+from repro_torch.core.compressors import QSGD
+from repro_torch.core.efbv import Downlink, Participation, Pipeline
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
 from repro_torch.distributed.aggregate import BACKENDS, Pending, WorkerGroup
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import adamw
 from repro_torch.optim.schedules import cosine
-from repro_torch.train.trainer import init_train_state, make_train_step
 
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
 NOT_PORTED_FLAGS = {
-    "--spec": "", "--mesh": "", "--worker-comps": "", "--leaf-codecs": "",
+    "--mesh": "", "--worker-comps": "", "--leaf-codecs": "",
     "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
     "--sanitize": False,
 }
@@ -78,6 +96,10 @@ TRAIN_COMPRESSORS = ("block_topk", "qsgd", "randk", "identity", "none")
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--spec", default="",
+                    help="path to an ExperimentSpec JSON: the declarative "
+                         "form of the algorithmic flags (which it replaces, "
+                         "with --steps and --seed); see examples/specs/")
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--workers", type=int, default=2,
@@ -132,18 +154,13 @@ def parse_args(argv=None):
             ap.error(f"{flag} is not yet ported to repro_torch")
     if args.schedule == "wsd":
         ap.error("--schedule wsd is not yet ported to repro_torch")
-    name = args.compressor.partition(":")[0]
-    if name not in TRAIN_COMPRESSORS:
-        ap.error(f"--compressor {name} is not yet ported to repro_torch's "
-                 f"trainer (it trains {', '.join(TRAIN_COMPRESSORS)}; see "
-                 "ROADMAP queue 3)")
-    if args.wire_dtype != "float32":
-        ap.error(f"--wire-dtype {args.wire_dtype} is not yet ported to "
-                 "repro_torch (float32 only)")
     try:
-        Downlink.parse(args.downlink)
-    except (NotImplementedError, ValueError) as e:
+        unported = _unported_wire(args.compressor, args.wire_dtype,
+                                  args.downlink)
+    except ValueError as e:
         ap.error(f"--downlink: {e}")
+    if unported:
+        ap.error(unported)
     try:
         Pipeline.parse(args.pipeline)
     except ValueError as e:
@@ -156,6 +173,27 @@ def parse_args(argv=None):
         ap.error(f"WORLD_SIZE={world_size()}: --dist-backend "
                  f"{{{','.join(BACKENDS)}}} must be given")
     return args
+
+
+def _unported_wire(compressor: str, wire_dtype: str, downlink: str) -> str:
+    """Why the trainer refuses this uplink compressor, wire dtype or
+    downlink ('' when it takes them): every zoo compressor parses, but the
+    trainer's rounds are held against the JAX trainer for
+    ``TRAIN_COMPRESSORS`` up and a QSGD downlink only."""
+    name = compressor.partition(":")[0]
+    if name not in TRAIN_COMPRESSORS:
+        return (f"--compressor {name} is not yet ported to repro_torch's "
+                f"trainer (it trains {', '.join(TRAIN_COMPRESSORS)}; see "
+                "ROADMAP queue 3)")
+    if wire_dtype != "float32":
+        return (f"--wire-dtype {wire_dtype} is not yet ported to "
+                "repro_torch (float32 only)")
+    dl = Downlink.parse(downlink)
+    if dl is not None and not isinstance(dl.compressor, QSGD):
+        return (f"--downlink {downlink!r} is not yet ported to repro_torch's "
+                "trainer (it trains a qsgd:S[@lam] downlink; ROADMAP queue "
+                "1, item 2e)")
+    return ""
 
 
 def world_size() -> int:
@@ -185,15 +223,16 @@ def rank_device(device: str, backend: str, local_rank: int,
     return torch.device("cuda", 0)
 
 
-def join_group(args):
-    """This rank's WorkerGroup under ``torchrun`` (None in one process)."""
+def join_group(args, n: int):
+    """This rank's WorkerGroup of the run's n workers under ``torchrun``
+    (None in one process)."""
     if world_size() <= 1:
         return None
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))
     dev = rank_device(args.device, args.dist_backend,
                       int(os.environ.get("LOCAL_RANK", "0")), local_world,
                       torch.cuda.device_count())
-    return WorkerGroup.join(args.workers, backend=args.dist_backend,
+    return WorkerGroup.join(n, backend=args.dist_backend,
                             device=resolve_device(dev),
                             init_method=args.dist_init or None)
 
@@ -204,50 +243,124 @@ def tuning_dim(cfg) -> int:
     return max(cfg.d_model * max(cfg.d_ff, 1), 1)
 
 
+def spec_from_args(args, n: int) -> ExperimentSpec:
+    """The driver's flags folded into the declarative spec, as the JAX
+    driver folds them (``--workers n`` is its ``--mesh nx1``); the runtime
+    knobs -- batch, seq, lr, schedule, logging, device -- stay flags.  The
+    tuning dimension is the dominant layer size of the config the run uses
+    (smoke or full), so the spec reproduces the same (lam, nu)."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    return ExperimentSpec(
+        compressor=args.compressor, mode=args.algo, agg=args.agg,
+        wire_dtype=args.wire_dtype, downlink=args.downlink,
+        participation=args.participation,
+        resample=args.local_batch_resample, backend="shard_map",
+        problem=args.arch, smoke=args.smoke, mesh=f"{n}x1", n=n,
+        d=tuning_dim(cfg), steps=args.steps, seed=args.seed,
+        pipeline=args.pipeline)
+
+
+def _unported_spec(spec: ExperimentSpec) -> str:
+    """What of a valid spec the port's trainer does not have yet ('' when
+    nothing), naming the ROADMAP item that ports it."""
+    if spec.problem not in ARCHS:
+        return (f"arch {spec.problem!r} is not yet ported to repro_torch "
+                f"(ported: {ARCHS}; ROADMAP queue 1, item 7)")
+    if spec.backend == "fsdp":
+        return ("backend 'fsdp' is not yet ported to repro_torch (ROADMAP "
+                "queue 1, item 8)")
+    if spec.mesh_dims()[-1] > 1 and len(spec.mesh_dims()) > 1:
+        return (f"mesh {spec.mesh!r} has a 'model' axis, which is not yet "
+                f"ported to repro_torch (ROADMAP queue 1, item 2c; use "
+                f"mesh '{spec.n}x1')")
+    if len(spec.fleet_specs()) > 1 or spec.leaf_codecs:
+        return ("heterogeneous fleets and per-leaf codecs are not yet "
+                "ported to repro_torch's trainer (ROADMAP queue 1, item 6)")
+    return _unported_wire(spec.compressor, spec.wire_dtype, spec.downlink)
+
+
+def experiment(args) -> ExperimentSpec:
+    """The run's spec: loaded from ``--spec`` with ``--smoke`` and a
+    non-default ``--pipeline`` folded in (both are part of the experiment's
+    identity), as the JAX driver's ``main`` does, or folded from the flags.
+    Exits with the JAX driver's message on a bad spec and with "not yet
+    ported" on what the port's trainer does not have."""
+    try:
+        if args.spec:
+            with open(args.spec) as f:
+                spec = ExperimentSpec.from_json(f.read())
+            if args.smoke and not spec.smoke:
+                spec = dataclasses.replace(
+                    spec, smoke=True,
+                    d=tuning_dim(get_smoke_config(spec.problem))
+                    if spec.problem in ARCHS else spec.d)
+            if args.pipeline != "off" and spec.pipeline != args.pipeline:
+                spec = dataclasses.replace(spec, pipeline=args.pipeline)
+            if spec.backend == "reference":
+                raise SpecError(
+                    "the train driver runs the distributed trainers; a "
+                    "backend='reference' spec runs via "
+                    "repro_torch.core.build(spec).reference()")
+            if spec.problem not in known_archs():
+                raise SpecError(
+                    f"this driver trains model archs "
+                    f"{sorted(known_archs())}; problem={spec.problem!r} "
+                    "specs supply their own loss via "
+                    "repro_torch.core.build(spec).train_step(...)")
+        else:
+            spec = spec_from_args(args, args.workers)
+    except (SpecError, ValueError, OSError) as e:
+        raise SystemExit(f"[train] bad experiment spec: {e}")
+    unported = _unported_spec(spec)
+    if unported:
+        raise SystemExit(f"[train] {unported}")
+    return spec
+
+
 def _quiet(*args, **kwargs):
     """Ranks other than 0 print nothing."""
 
 
-def setup(args, group=None):
-    """Model, schedule, EF-BV tuning, params, state, data and step function
-    for the parsed flags; prints the run header and the wire accounting
-    (rank 0 of a ``group``).  Returns (state, step_fn, data); step s takes
-    the key ``random.fold_in(random.key(args.seed), s)``."""
+def setup(args, group=None, spec: ExperimentSpec = None):
+    """Model, schedule, params, state, data and step function of the run's
+    spec (:func:`experiment` of the flags unless ``spec`` is given), its
+    algorithm from ``build(spec)``; prints the run header, the spec's
+    fingerprint and the wire accounting (rank 0 of a ``group``).  Returns
+    (state, step_fn, data); step s takes the key
+    ``random.fold_in(random.key(spec.seed), s)``."""
     echo = print if group is None or group.rank == 0 else _quiet
+    spec = experiment(args) if spec is None else spec
+    run_ = build(spec)
     dev = group.device if group is not None else resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = (get_smoke_config(spec.problem) if spec.smoke
+           else get_config(spec.problem))
     model = build_model(cfg)
-    n = args.workers
-    pipeline = Pipeline.parse(args.pipeline)
-    participation = Participation.parse(args.participation)
-    federated = not participation.is_full
+    n = spec.n
+    algo, downlink = run_.algo, run_.downlink
+    participation, pipeline = run_.participation, run_.pipeline
+    federated = run_.federated
 
     # the JAX driver's auto schedule is cosine for every arch but minicpm
-    sched = cosine(args.lr, total_steps=args.steps,
-                   warmup_steps=max(args.steps // 20, 1))
+    sched = cosine(args.lr, total_steps=spec.steps,
+                   warmup_steps=max(spec.steps // 20, 1))
     opt = adamw(sched, weight_decay=0.01)
 
-    if args.algo == "none":
-        algo = EFBV(Identity(), lam=1.0, nu=1.0)
-    else:
-        algo = EFBV.make(make_compressor(args.compressor), d=tuning_dim(cfg),
-                         n=n, mode=args.algo,
-                         pipeline=pipeline.depth or None)
-    downlink = Downlink.parse(args.downlink)
     echo(f"[train] arch={cfg.name} family={cfg.family} "
-         f"params~{cfg.param_count():,} workers={n} algo={args.algo} "
-         f"lam={algo.lam:.4g} nu={algo.nu:.4g} agg={args.agg}"
-         + (f" participation={args.participation}" if federated else "")
-         + (f" pipeline={args.pipeline}" if not pipeline.is_off else "")
-         + (f" downlink={args.downlink}" if downlink else "")
+         f"params~{cfg.param_count():,} workers={n} algo={spec.mode} "
+         f"lam={algo.lam:.4g} nu={algo.nu:.4g} agg={spec.agg}"
+         + (f" participation={spec.participation}" if federated else "")
+         + (f" pipeline={spec.pipeline}" if not pipeline.is_off else "")
+         + (f" downlink={spec.downlink}" if downlink else "")
          + (f" ranks={group.world} backend={group.backend}"
             if group is not None else "")
          + f" device={dev}")
+    echo(f"[train] spec fingerprint={spec.fingerprint()}"
+         + (f" (from {args.spec})" if args.spec else ""))
 
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+    params = model.init(torch.Generator(device=dev).manual_seed(spec.seed),
                         device=dev)
     up_fmt = wire.format_for(algo.compressor, params) \
-        if args.agg == "sparse_allgather" else None
+        if spec.agg == "sparse_allgather" else None
     exp_s = participation.fraction(n) * n if federated else None
     if up_fmt is not None:
         # exact wire accounting for the codec payload
@@ -276,44 +389,40 @@ def setup(args, group=None):
              f"({down / max(dense, 1):.4f}x dense fp32); total "
              f"{total} bits/round up+down "
              f"({total / max(dense_total, 1):.4f}x dense both ways)")
-    state = init_train_state(params, opt, n_workers=n,
-                             bidirectional=downlink is not None, algo=algo,
-                             agg_mode=args.agg, wire_dtype=args.wire_dtype,
-                             pipeline=pipeline, group=group)
+    state = run_.init_state(params, opt, group=group)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.global_batch, n_workers=n,
-                       seed=args.seed, heterogeneity=args.heterogeneity,
-                       resample_from_shard=args.local_batch_resample,
+                       seed=spec.seed, heterogeneity=args.heterogeneity,
+                       resample_from_shard=spec.resample,
                        shard_size=args.shard_size)
-    step_fn = make_train_step(model.loss, opt, algo, n_workers=n,
-                              agg_mode=args.agg, wire_dtype=args.wire_dtype,
-                              downlink=downlink, pipeline=pipeline,
-                              participation=participation, group=group)
+    step_fn = run_.train_step(model.loss, opt, group=group)
     return state, step_fn, data
 
 
 def main(argv=None):
     args = parse_args(argv)
-    group = join_group(args)
+    spec = experiment(args)
+    group = join_group(args, spec.n)
     try:
-        return run(args, group)
+        return run(args, group, spec)
     finally:
         if group is not None:
             group.close()
 
 
-def run(args, group=None):
+def run(args, group=None, spec: ExperimentSpec = None):
     """The training loop of ``main`` on a joined group (or None); returns
     the final loss."""
     echo = print if group is None or group.rank == 0 else _quiet
-    state, step_fn, data = setup(args, group)
-    n = args.workers
-    key = random.key(args.seed)
+    spec = experiment(args) if spec is None else spec
+    state, step_fn, data = setup(args, group, spec)
+    n = spec.n
+    key = random.key(spec.seed)
     t_start = time.time()
-    for step in range(args.steps):
+    for step in range(spec.steps):
         state, metrics = step_fn(state, data.batch(step),
                                  random.fold_in(key, step))
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if step % args.log_every == 0 or step == spec.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             part = f"|S|={int(m['participants'])}/{n} " \
                 if "participants" in m else ""
@@ -330,7 +439,7 @@ def run(args, group=None):
         echo(f"[train] exchange: ranks={group.world} "
              f"backend={group.backend} {st['exchanges']} exchanges, "
              f"{st['bytes'] // max(st['exchanges'], 1)} B per rank per "
-             f"round, {1e3 * st['exchange_s'] / max(args.steps, 1):.2f} ms "
+             f"round, {1e3 * st['exchange_s'] / max(spec.steps, 1):.2f} ms "
              "host time in the collective (wait() when pipelined) per step "
              "on rank 0")
     echo(f"[train] done: final loss {float(metrics['loss']):.4f}")

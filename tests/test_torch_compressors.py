@@ -475,3 +475,182 @@ def test_full_needs_the_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         tbench.full_rows(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The spec grammar
+#
+# ``repro/core/specgrammar.py``'s parsers and printers, in the port's
+# ``core/compressors.py``: every case of ``tests/test_specgrammar.py`` (its
+# lists are imported, so a case added there runs here too), with the port's
+# parse equal to JAX's (same classes, same fields) and its format equal to
+# JAX's character for character, errors included.  Tolerance: none.
+# ---------------------------------------------------------------------------
+
+import json as _json  # noqa: E402
+import pathlib  # noqa: E402
+
+from test_specgrammar import CODEC_SPECS as G_CODECS  # noqa: E402
+from test_specgrammar import DOWNLINK_SPECS as G_DOWNLINKS  # noqa: E402
+from test_specgrammar import FLEET_SPECS as G_FLEETS  # noqa: E402
+from test_specgrammar import LEAF_RULE_SPECS as G_RULES  # noqa: E402
+from test_specgrammar import PIPELINE_SPECS as G_PIPES  # noqa: E402
+
+from repro.core import specgrammar as jgrammar  # noqa: E402
+from repro.core import efbv as jefbv_  # noqa: E402
+from repro_torch.core import efbv as tefbv_  # noqa: E402
+
+SPECS_DIR = pathlib.Path(__file__).resolve().parents[1] / "examples" / "specs"
+
+
+def _errors_alike(jfn, tfn):
+    """Both raise ValueError with the same message."""
+    with pytest.raises(ValueError) as jerr:
+        jfn()
+    with pytest.raises(ValueError) as terr:
+        tfn()
+    assert str(terr.value) == str(jerr.value)
+    return str(terr.value)
+
+
+@pytest.mark.parametrize("spec", G_CODECS)
+def test_grammar_atom_parse_and_format_like_jax(spec):
+    j, t = jgrammar.parse_compressor(spec), tcomp.parse_compressor(spec)
+    assert t == port_of(j) == tcomp.make_compressor(spec)
+    canon = tcomp.format_compressor(t)
+    assert canon == jgrammar.format_compressor(j)
+    assert tcomp.parse_compressor(canon) == t
+
+
+def test_grammar_atom_errors_like_jax():
+    assert tcomp.format_compressor(tcomp.make_compressor("none")) == \
+        "identity"
+    msg = _errors_alike(lambda: jgrammar.format_compressor(jcomp.MNice(4, 2)),
+                        lambda: tcomp.format_compressor(tcomp.MNice(4, 2)))
+    assert "no spec-string spelling" in msg
+    msg = _errors_alike(lambda: jgrammar.parse_compressor("nope:3"),
+                        lambda: tcomp.parse_compressor("nope:3"))
+    assert "unknown compressor 'nope'; known:" in msg
+
+
+@pytest.mark.parametrize("spec", G_FLEETS)
+def test_grammar_fleet_parse_and_format_like_jax(spec):
+    n = 8
+    j, t = jgrammar.parse_fleet(spec, n), tcomp.parse_fleet(spec, n)
+    assert t == tuple(port_of(c) for c in j) == tcomp.make_fleet(spec, n)
+    assert len(t) == n
+    canon = tcomp.format_fleet(t)
+    assert canon == jgrammar.format_fleet(j)
+    assert tcomp.parse_fleet(canon, n) == t
+
+
+@pytest.mark.parametrize("spec,n", [(" ; ", 4), ("sign;sign;sign", 2)])
+def test_grammar_fleet_errors_like_jax(spec, n):
+    _errors_alike(lambda: jcomp.make_fleet(spec, n),
+                  lambda: tcomp.make_fleet(spec, n))
+
+
+@pytest.mark.parametrize("spec", G_RULES)
+def test_grammar_leaf_rules_parse_and_format_like_jax(spec):
+    j = jgrammar.parse_leaf_rules(spec)
+    t = tcomp.parse_leaf_rules(spec)
+    assert t == tuple((p, port_of(c)) for p, c in j)
+    assert twire.parse_leaf_rules(spec) == t
+    canon = tcomp.format_leaf_rules(t)
+    assert canon == jgrammar.format_leaf_rules(j)
+    assert tcomp.parse_leaf_rules(canon) == t
+
+
+def test_grammar_leaf_rules_catch_all_and_errors_like_jax():
+    rules = tcomp.parse_leaf_rules("embed*=qsgd:16;sign")
+    assert rules == (("embed*", tcomp.QSGD(16)), ("*", tcomp.SignNorm()))
+    assert tcomp.format_leaf_rules(rules) == "embed*=qsgd:16;*=sign"
+    for bad in ("=qsgd:16", "embed*=", "embed*=mnice:4,2"):
+        _errors_alike(lambda: jwire.parse_leaf_rules(bad),
+                      lambda: twire.parse_leaf_rules(bad))
+    _errors_alike(
+        lambda: jgrammar.format_leaf_rules((("e*", jcomp.MNice(4, 2)),)),
+        lambda: tcomp.format_leaf_rules((("e*", tcomp.MNice(4, 2)),)))
+    spec = "embed*=qsgd:16;*norm*=identity"
+    jrules, trules = jwire.parse_leaf_rules(spec), twire.parse_leaf_rules(spec)
+    for path in ("embed", "layers/norm", "head"):
+        jr = jwire.resolve_leaf(jrules, path, None)
+        assert twire.resolve_leaf(trules, path, None) == (
+            None if jr is None else port_of(jr))
+
+
+@pytest.mark.parametrize("spec", G_DOWNLINKS + ["qsgd:16@0.5", "randk:8"])
+def test_grammar_downlink_parse_and_format_like_jax(spec):
+    jpair, tpair = jgrammar.parse_downlink(spec), tcomp.parse_downlink(spec)
+    jdl, tdl = jefbv_.Downlink.parse(spec), tefbv_.Downlink.parse(spec)
+    if jpair is None:
+        assert tpair is None and jdl is None and tdl is None
+    else:
+        assert tpair == (port_of(jpair[0]), jpair[1])
+        assert tdl == tefbv_.Downlink(compressor=tpair[0], lam=tpair[1])
+    canon = tcomp.format_downlink(tpair)
+    assert canon == jgrammar.format_downlink(jpair)
+    assert tcomp.parse_downlink(canon) == tpair
+    assert tcomp.format_downlink(tdl) == canon
+
+
+def test_grammar_downlink_canonical_spellings():
+    assert tcomp.format_downlink(None) == "none"
+    assert tcomp.format_downlink((tcomp.QSGD(16), 1.0)) == "qsgd:16"
+    assert tcomp.format_downlink((tcomp.TopK(64), 0.9)) == "topk:64@0.9"
+    assert tcomp.parse_downlink("topk:64@0.9") == (tcomp.TopK(64), 0.9)
+
+
+@pytest.mark.parametrize("spec", G_PIPES + ["depth:2"])
+def test_grammar_pipeline_parse_and_format_like_jax(spec):
+    depth = tcomp.parse_pipeline(spec)
+    assert depth == jgrammar.parse_pipeline(spec)
+    canon = tcomp.format_pipeline(depth)
+    assert canon == jgrammar.format_pipeline(depth)
+    assert tcomp.parse_pipeline(canon) == depth
+    if depth <= 1:
+        assert tefbv_.Pipeline.parse(spec) == tefbv_.Pipeline(depth=depth)
+        assert tcomp.format_pipeline(tefbv_.Pipeline(depth=depth)) == canon
+    else:
+        _errors_alike(lambda: jefbv_.Pipeline.parse(spec),
+                      lambda: tefbv_.Pipeline.parse(spec))
+
+
+@pytest.mark.parametrize("bad", ["depth:", "async", "depth:x"])
+def test_grammar_pipeline_bad_spec_like_jax(bad):
+    msg = _errors_alike(lambda: jefbv_.Pipeline.parse(bad),
+                        lambda: tefbv_.Pipeline.parse(bad))
+    assert f"pipeline spec {bad!r} (want off | depth:0 | depth:1)" in msg
+
+
+@pytest.mark.parametrize("path", sorted(SPECS_DIR.glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_grammar_committed_spec_files_like_jax(path):
+    payload = _json.loads(path.read_text())
+    n = int(payload.get("n", 1))
+    fleet = tcomp.parse_fleet(payload.get("compressor", "identity"), n)
+    assert tcomp.format_fleet(fleet) == jgrammar.format_fleet(
+        jgrammar.parse_fleet(payload.get("compressor", "identity"), n))
+    pair = tcomp.parse_downlink(payload.get("downlink", ""))
+    assert tcomp.parse_downlink(tcomp.format_downlink(pair)) == pair
+    rules = tcomp.parse_leaf_rules(payload.get("leaf_codecs", ""))
+    assert tcomp.format_leaf_rules(rules) == jgrammar.format_leaf_rules(
+        jgrammar.parse_leaf_rules(payload.get("leaf_codecs", "")))
+    depth = tcomp.parse_pipeline(payload.get("pipeline", "off"))
+    assert tcomp.parse_pipeline(tcomp.format_pipeline(depth)) == depth
+
+
+def test_contract_scaled_and_bias_variance_like_jax():
+    """``scaled`` multiplies the output; the Monte-Carlo (bias, variance)
+    estimate draws the same keys as JAX's, so rand-k's agrees to f32
+    rounding (JAX's vmapped sums run in another order)."""
+    x = np.random.default_rng(0).standard_normal(64).astype(np.float32)
+    y = tcomp.scaled(tcomp.TopK(8), 0.5)(None, torch.from_numpy(x))
+    np.testing.assert_array_equal(
+        y.numpy(), np.asarray(jcomp.TopK(8)(None, jnp.asarray(x))) * 0.5)
+    from repro.core.contract import bias_variance_estimate as jbve
+    want = jbve(jcomp.RandK(8), jax.random.key(3), jnp.asarray(x), 64)
+    got = tcomp.bias_variance_estimate(tcomp.RandK(8), R.key(3),
+                                       torch.from_numpy(x), 64)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert tcomp.RandK(8).alpha(64) == jcomp.RandK(8).alpha(64)

@@ -176,3 +176,105 @@ def test_swiglu_and_cross_entropy_match_jax():
     tce, tn = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
     np.testing.assert_allclose(float(tce), float(jce), rtol=1e-6)
     assert float(tn) == float(jn) == 8.0
+
+
+# -- the driver's --spec (launch/train.py) ------------------------------------
+#
+# One spec file drives the port's driver: the flags folded by
+# ``spec_from_args`` and written as JSON, run again with ``--spec`` and the
+# same runtime flags, give the same printed fingerprint (JAX's for the same
+# flags with ``--mesh 2x1``) and the same step lines on the smoke config.
+
+import re  # noqa: E402
+
+from repro.configs import get_smoke_config as _jsmoke  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+
+SPEC_FLAGS = ["--compressor", "block_topk:256,16", "--agg",
+              "sparse_allgather", "--downlink", "qsgd:16", "--pipeline",
+              "depth:1", "--steps", "2"]
+RUNTIME = ["--device", "cpu", "--global-batch", "4", "--seq", "16",
+           "--log-every", "1"]
+
+
+def _run(argv, capsys):
+    tlaunch.main(argv)
+    out = capsys.readouterr().out
+    fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", out)
+    steps = [re.sub(r"\(\S+s/step\)", "", line)
+             for line in out.splitlines() if "] step " in line]
+    return fps, steps, out
+
+
+def _write(tmp_path, spec, name="s.json"):
+    path = tmp_path / name
+    path.write_text(spec.to_json())
+    return str(path)
+
+
+def test_driver_spec_file_equals_flag_run(tmp_path, capsys):
+    fps, steps, out = _run(["--smoke", "--workers", "2"] + SPEC_FLAGS
+                           + RUNTIME, capsys)
+    spec = tlaunch.spec_from_args(tlaunch.parse_args(
+        ["--smoke", "--device", "cpu", "--workers", "2"] + SPEC_FLAGS), 2)
+    jspec = jtrain.spec_from_args(jtrain.parse_args(
+        ["--arch", "qwen2-0.5b", "--smoke", "--mesh", "2x1"] + SPEC_FLAGS), 2)
+    assert spec.to_json() == jspec.to_json()
+    assert fps == [spec.fingerprint()] == [jspec.fingerprint()]
+    path = _write(tmp_path, spec)
+    sfps, ssteps, sout = _run(["--spec", path] + RUNTIME, capsys)
+    assert sfps == fps and f"(from {path})" in sout
+    assert len(steps) == 2 and ssteps == steps
+    assert "|g|=0.000" in steps[0]  # the pipelined priming round
+
+
+def test_driver_folds_smoke_and_pipeline_into_a_spec(tmp_path, capsys):
+    """--smoke (with the smoke config's tuning dimension) and --pipeline
+    fold into a loaded spec, as JAX's driver folds them."""
+    full = tlaunch.spec_from_args(tlaunch.parse_args(
+        ["--device", "cpu", "--workers", "2"] + SPEC_FLAGS[:6]
+        + ["--steps", "2"]), 2)
+    assert not full.smoke and full.pipeline == "off"
+    jfull = jtrain.spec_from_args(jtrain.parse_args(
+        ["--arch", "qwen2-0.5b", "--mesh", "2x1"] + SPEC_FLAGS[:6]
+        + ["--steps", "2"]), 2)
+    jfolded = dataclasses.replace(
+        jfull, smoke=True, d=jtrain.tuning_dim(_jsmoke("qwen2-0.5b")),
+        pipeline="depth:1")
+    fps, steps, _ = _run(["--spec", _write(tmp_path, full), "--smoke",
+                          "--pipeline", "depth:1"] + RUNTIME, capsys)
+    assert fps == [jfolded.fingerprint()]
+    ffps, fsteps, _ = _run(["--smoke", "--workers", "2"] + SPEC_FLAGS
+                           + RUNTIME, capsys)
+    assert ffps == fps and fsteps == steps
+
+
+@pytest.mark.parametrize("spec,message", [
+    (dict(backend="reference", problem="logreg"), "bad experiment spec"),
+    (dict(problem="logreg", mesh="1x1", n=1, d=16), "model archs"),
+    (dict(mesh="2x2"), "not yet ported"),
+    (dict(backend="fsdp"), "not yet ported"),
+    (dict(problem="mamba2-130m", d=128), "not yet ported"),
+    (dict(leaf_codecs="*embed*=qsgd:16"), "not yet ported"),
+    (dict(downlink="topk:64"), "not yet ported"),
+    (dict(compressor="sign"), "not yet ported"),
+    (None, "bad experiment spec")])
+def test_driver_refuses_specs_it_cannot_run(tmp_path, spec, message):
+    from repro_torch.core import ExperimentSpec
+
+    if spec is None:
+        path = str(tmp_path / "missing.json")
+    else:
+        kw = dict(backend="shard_map", problem="qwen2-0.5b", smoke=True,
+                  mesh="2x1", n=2, d=131072, steps=1)
+        kw.update(spec)
+        if kw["backend"] == "reference":
+            kw.update(mesh="", smoke=False)
+        if kw["problem"] == "logreg":
+            kw.update(smoke=False)
+        if kw.get("mesh") == "2x2":
+            kw.update(n=2)
+        path = _write(tmp_path, ExperimentSpec(**kw))
+    with pytest.raises(SystemExit, match=message):
+        tlaunch.main(["--spec", path] + RUNTIME)

@@ -274,12 +274,20 @@ def test_downlink_broadcast_bitwise_vs_jax(spec):
         jdl.format_for(x).downlink_bits_per_round()
 
 
-def test_downlink_parse_refuses_unported():
+def test_downlink_parse_refuses_unported(capsys):
+    """Downlink.parse takes any zoo compressor, as JAX's does; the trainer
+    trains a QSGD downlink only and refuses the rest as not yet ported."""
+    from repro_torch.launch import train as tlaunch
+
     assert tefbv.Downlink.parse("") is None
     assert tefbv.Downlink.parse("none") is None
     assert tefbv.Downlink.parse("qsgd:16@0.5").lam == 0.5
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tefbv.Downlink.parse("block_topk:256,16")
+    dl = tefbv.Downlink.parse("block_topk:256,16")
+    assert dl.compressor == tcomp.BlockTopK(256, 16) and dl.lam == 1.0
+    with pytest.raises(SystemExit):
+        tlaunch.parse_args(["--smoke", "--device", "cpu", "--downlink",
+                            "block_topk:256,16"])
+    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_wrapper_counts_only_kernel_launches():

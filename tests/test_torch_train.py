@@ -307,7 +307,7 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
 @pytest.mark.parametrize("flag", [
     ["--downlink", "block_topk:256,16"], ["--leaf-codecs", "*embed*=qsgd:16"],
     ["--worker-comps", "topk:64;randk:64"], ["--trainer", "fsdp"],
-    ["--spec", "x.json"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
+    ["--ckpt-every", "2"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
     ["--schedule", "wsd"], ["--ckpt-dir", "ckpt"], ["--sanitize"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
