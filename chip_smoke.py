@@ -36,8 +36,12 @@ line is printed only when every phase passed):
               256/16, 1024/16, 1024/64, 4096/64 and 8192/64, timed at
               256/16, 4096/64 and 8192/64; the selection's SASS per value
               and step, and the search's mean steps on those leaves.
-3. reference -- a small input (the qwen2 smoke config, f32 activations):
-              three 2-worker EF-BV steps on the GPU (kernel path) against
+3. reference -- JAX's initial weights (``Model.init(random.key(0))``,
+              XLA's f32 erf_inv emulated) of the smoke config drawn on the
+              card bitwise equal to the CPU's, and a 2**22-value normal
+              draw.  A small input (the qwen2 smoke config, f32
+              activations): three 2-worker EF-BV steps on the GPU (kernel
+              path) against
               the same steps on the CPU (plain path) from the same params
               and keys, for each path below, and block-top-k also at
               384/16 and 4096/64.  Then two gloo ranks on cuda:0
@@ -71,12 +75,16 @@ line is printed only when every phase passed):
               * federated: block-top-k (256, 16) up, ``--participation
                 fixed:1``: ``|S|=1/2`` at every step and the federated wire
                 line with ``E|S_t|=1 of 2``;
+              * smoke_flags: ROADMAP's SMOKE flags (block-top-k (256,
+                16) up, QSGD(16) down, sequential), the mesh path's
+                reference (not profiled);
               * spec: the pipelined path's flags written as a spec file
                 (``spec_from_args``, ``build/spec/pipelined.json``) and run
                 with ``--spec``: the printed fingerprint equal to the
                 file's and the pipelined run's, and every step's loss and
                 params checksum equal to the pipelined path's (not profiled
                 again).
+              Every run draws JAX's weights, 169 threefry launches.
               Checks a finite loss at every step, the exact printed wire
               bits, and that every kernel of the path launched the expected
               number of times (launch counts are reset just before each path
@@ -98,6 +106,24 @@ line is printed only when every phase passed):
               ``threefry_uniform``).  A rank that fails, or a launch not
               done in DIST_TIMEOUT_S (then killed with all its ranks),
               fails the run.
+   Then the mesh: the smoke_flags path's flags on ``--mesh 2x2`` (2
+              workers x 2-way tensor parallelism), four gloo ranks sharing
+              cuda:0: rank 0's exact bits, finite losses within 1e-3
+              relative of smoke_flags's on every rank, 42 ``pack_update``
+              and 42 + 169 ``threefry_uniform`` a rank, the two ranks of
+              each model index bitwise equal in their shards of params, w,
+              h_avg, m and v after every step, and the first worker's
+              shards, reassembled, within the stated bound of smoke_flags's
+              final params (``mesh_params_check``); per rank the step ms,
+              the host ms, calls and bytes sent of the model-axis
+              collectives and of the worker exchange, and the peak.  Then
+              the three committed 2x2 specs (``examples/specs/``
+              pipelined_blocktopk, qsgd_bidirectional, federated_blocktopk)
+              at smoke size on four ranks (``--dist-child mesh_specs``):
+              each prints the file's fingerprint, its exact bits and four
+              finite losses, with its launches per rank as MESH_SPECS
+              says; and whether gloo's all-reduce takes a bf16 CUDA
+              tensor.
    Then the compressor bench (``repro_torch.launch.compressor_bench``
               ``main(["--full"])``): every compressor and codec row at
               d = 2**16, the fused pack's device bytes on the embed leaf,
@@ -1391,17 +1417,35 @@ def run_steps(params, cfg, kind, steps=3, n=2, agg="sparse_allgather",
     return losses, state
 
 
-def phase_reference():
-    import dataclasses
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels import LAUNCHES, reset_launches
+def init_on_card(cfg, params):
+    """JAX's initial weights (``Model.init(random.key(0))``, XLA's f32
+    erf_inv emulated with f64 fused multiply-adds) drawn on the card equal
+    the CPU's bit for bit, and so does a 2**22-value ``random.normal``."""
+    from repro_torch import random
+    from repro_torch import tree as T
     from repro_torch.models.model import build_model
+
+    card = build_model(cfg).init(random.key(0), device="cuda")
+    bad = [i for i, (a, b) in enumerate(zip(T.leaves(card), T.leaves(params)))
+           if not same_bits(a.cpu(), b)]
+    n = 1 << 22
+    draw_same = same_bits(random.normal(random.key(3), n, "cuda").cpu(),
+                          random.normal(random.key(3), n, "cpu"))
+    print(f"[reference] init: smoke params from random.key(0) on the card "
+          f"{'bitwise equal to' if not bad else 'NOT equal to'} the CPU's "
+          f"({len(T.leaves(card))} leaves); normal of {n} values card == "
+          f"cpu: {draw_same}")
+    if bad or not draw_same:
+        raise AssertionError(f"[reference] init differs on leaves {bad}, "
+                             f"normal draw equal={draw_same}")
+
+
+def phase_reference():
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch import tree as T
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
-                              activation_dtype="float32")
-    params = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                   device="cpu")
+    cfg, params = smoke_params()
+    init_on_card(cfg, params)
     for kind, spec in SMOKE_SPECS.items():
         name = spec + {"qsgd": " up and down",
                        "pipelined": " up, qsgd:16 down, depth:1"}.get(kind,
@@ -1606,13 +1650,13 @@ DIST_TIMEOUT_S = 400
 
 def smoke_params():
     import dataclasses
+    from repro_torch import random
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
 
     cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
                               activation_dtype="float32")
-    return cfg, build_model(cfg).init(torch.Generator().manual_seed(0),
-                                      device="cpu")
+    return cfg, build_model(cfg).init(random.key(0), device="cpu")
 
 
 def digest(params):
@@ -1696,11 +1740,13 @@ def phase_reference_dist():
               "params)")
 
 
-def run_ranks(name, ranks=2):
+def run_ranks(name, ranks=2, timeout=None):
     """``torchrun --standalone --nproc-per-node ranks chip_smoke.py
     --dist-child name DIR``, killed with every rank it started after
-    DIST_TIMEOUT_S; each rank writes its output to DIR/rank<r>.log.
-    Returns those outputs; fails when the launch does not exit 0."""
+    ``timeout`` seconds (DIST_TIMEOUT_S); each rank writes its output to
+    DIR/rank<r>.log.  Returns those outputs; fails when the launch does not
+    exit 0."""
+    timeout = timeout or DIST_TIMEOUT_S
     import os
     import shutil
     import signal
@@ -1716,13 +1762,13 @@ def run_ranks(name, ranks=2):
                             start_new_session=True)
     t0 = time.perf_counter()
     try:
-        out, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
         print(out[-4000:])
         raise AssertionError(f"[dist] {name}: ranks not done in "
-                             f"{DIST_TIMEOUT_S} s; killed")
+                             f"{timeout} s; killed")
     secs = time.perf_counter() - t0
     logs = []
     for r in range(ranks):
@@ -1753,12 +1799,16 @@ def params_checksum(params):
 
 
 @contextlib.contextmanager
-def recording(records):
+def recording(records, holder=None):
     """While open, every train step that ``launch.train`` builds (through
     ``Run.train_step``, which looks ``trainer.make_train_step`` up at each
     call) appends {loss (hex), params checksum, step ms} and, over a group,
     the host ms and bytes of its exchange, to ``records``; the step is
-    timed between synchronisations, before the checksum."""
+    timed between synchronisations, before the checksum.  On a mesh rank
+    (a group with a ``model`` axis) also the host ms, calls and bytes sent
+    of its model-axis collectives, and checksums of its shards of the
+    master state (params, w, h_avg, AdamW's m and v).  ``holder["state"]``
+    keeps the newest state."""
     from repro_torch.train import trainer as train
 
     make = train.make_train_step
@@ -1766,10 +1816,12 @@ def recording(records):
     def make_recorded(*args, **kwargs):
         step_fn = make(*args, **kwargs)
         group = kwargs.get("group")
+        axis = None if group is None else group.model
 
         def step(state, batch, key):
             torch.cuda.synchronize()
             stats = dict(group.stats) if group is not None else None
+            mstats = dict(axis.stats) if axis is not None else None
             t0 = time.perf_counter()
             state, m = step_fn(state, batch, key)
             loss = float(m["loss"])
@@ -1780,8 +1832,23 @@ def recording(records):
                 rec["exchange_ms"] = round(1e3 * (group.stats["exchange_s"]
                                                   - stats["exchange_s"]), 2)
                 rec["bytes"] = group.stats["bytes"] - stats["bytes"]
+            if axis is not None:
+                rec["model_ms"] = round(1e3 * (axis.stats["model_s"]
+                                               - mstats["model_s"]), 2)
+                rec["model_calls"] = (axis.stats["model_calls"]
+                                      - mstats["model_calls"])
+                rec["model_bytes"] = (axis.stats["model_bytes"]
+                                      - mstats["model_bytes"])
+                rec["master"] = {
+                    "params": params_checksum(state.params),
+                    "w": params_checksum(state.w),
+                    "h_avg": params_checksum(state.h_avg),
+                    "m": params_checksum(state.opt_state["m"]),
+                    "v": params_checksum(state.opt_state["v"])}
             rec["checksum"] = params_checksum(state.params)
             records.append(rec)
+            if holder is not None:
+                holder["state"] = state
             return state, m
         return step
 
@@ -1808,19 +1875,28 @@ def dist_child():
     if name == "reference":
         dist_reference_child()
         return 0
+    if name == "mesh_specs":
+        mesh_specs_child(outdir)
+        return 0
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
 
-    records = []
+    records, holder = [], {}
+    argv = MESH["argv"] if name == "mesh" else DIST_PATHS[name]["argv"]
     torch.cuda.reset_peak_memory_stats()
-    with recording(records):
+    with recording(records, holder):
         reset_launches()
-        train.main(DIST_PATHS[name]["argv"])
+        train.main(argv)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
     print(f"[dist] records {json.dumps(records)}")
     print(f"[dist] launches {json.dumps(launches)}")
     print(f"[dist] peak_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    if name == "mesh" and rank < MESH_M:
+        # the first worker group's shards, for the parent to reassemble
+        from repro_torch import tree as T
+        torch.save(T.tree_map(lambda a: a.cpu(), holder["state"].params),
+                   outdir / f"params_rank{rank}.pt")
     return 0
 
 
@@ -1831,6 +1907,10 @@ BASE_ARGV = ["--arch", "qwen2-0.5b", "--workers", str(WORKERS),
              "--algo", "efbv", "--agg", "sparse_allgather",
              "--log-every", "1"]
 RUNS = WORKERS * STEPS * FULL_LEAVES
+#: threefry draws of the init (JAX's weights, ``Model.init(random.key(0))``)
+#: in every run of the driver, on every rank: the embedding and 7 weights a
+#: layer (biases and norms are constants); full width 24 layers, smoke 2
+INIT_DRAWS, SMOKE_INIT_DRAWS = 1 + 24 * 7, 1 + 2 * 7
 # each main path: its flags, the exact bits it must print (regex -> values)
 # and the launches of every kernel in its run
 PATHS = {
@@ -1838,7 +1918,7 @@ PATHS = {
         "argv": BASE_ARGV + ["--compressor", "block_topk:256,16"],
         "bits": {r"(\d+) bits/round/worker": [FULL_BITS]},
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
-                     "randk_update": 0, "threefry_uniform": 0},
+                     "randk_update": 0, "threefry_uniform": INIT_DRAWS},
         "profile": ("pack_update_rows",),
     },
     "qsgd_bidirectional": {
@@ -1851,7 +1931,8 @@ PATHS = {
         # the broadcast
         "launches": {"pack_update": 0, "qsgd_pack_update": RUNS,
                      "randk_update": 0,
-                     "threefry_uniform": (WORKERS + 1) * STEPS * FULL_LEAVES},
+                     "threefry_uniform": (WORKERS + 1) * STEPS * FULL_LEAVES
+                     + INIT_DRAWS},
         "profile": ("qsgd_pack_update_kernel", "threefry_fill_kernel"),
     },
     "randk": {
@@ -1861,7 +1942,8 @@ PATHS = {
         # the kernel on every leaf; one threefry draw per shuffle round
         "launches": {"pack_update": 0, "qsgd_pack_update": 0,
                      "randk_update": RUNS,
-                     "threefry_uniform": SHUFFLE_ROUNDS * WORKERS * STEPS},
+                     "threefry_uniform": SHUFFLE_ROUNDS * WORKERS * STEPS
+                     + INIT_DRAWS},
         "profile": ("randk_histogram_kernel", "randk_scan_kernel",
                     "randk_scatter_kernel", "randk_tile_kernel",
                     "threefry_fill_kernel", "RadixSort"),
@@ -1878,7 +1960,7 @@ PATHS = {
         # for the broadcast
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
                      "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES},
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
         "profile": ("pack_update_rows", "threefry_fill_kernel"),
     },
     "federated": {
@@ -1890,8 +1972,22 @@ PATHS = {
         # every worker packs (an absent one's message is gated after its
         # pack); the mask's shuffle draws once a step
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
-                     "randk_update": 0, "threefry_uniform": STEPS},
+                     "randk_update": 0, "threefry_uniform": STEPS + INIT_DRAWS},
         "profile": ("pack_update_rows", "threefry_fill_kernel"),
+    },
+    # ROADMAP's SMOKE flags (block-top-k up, QSGD down, sequential) in one
+    # process: the mesh path's reference (its final params are kept)
+    "smoke_flags": {
+        "argv": BASE_ARGV + ["--compressor", "block_topk:256,16",
+                             "--downlink", "qsgd:16"],
+        "bits": {r"(\d+) bits/round/worker": [FULL_BITS],
+                 r"downlink (\d+) bits/round broadcast": [QSGD_BITS],
+                 r"total (\d+) bits/round up\+down": [PIPELINED_TOTAL_BITS]},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+        "profile": None,
+        "keep_params": True,
     },
     # the pipelined path's flags as a spec file (``spec_from_args``,
     # written just before the run), run with --spec and the same runtime
@@ -1908,7 +2004,7 @@ PATHS = {
                  r" (pipeline=depth:1) ": ["pipeline=depth:1"]},
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
                      "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES},
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
         "profile": None,
     },
 }
@@ -1922,7 +2018,7 @@ DIST_PATHS = {
         "bits": {**PATHS["block_topk"]["bits"],
                  r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
         "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
-                     "randk_update": 0, "threefry_uniform": 0},
+                     "randk_update": 0, "threefry_uniform": INIT_DRAWS},
     },
     "dist_pipelined": {
         "argv": PATHS["pipelined"]["argv"] + ["--dist-backend", "gloo"],
@@ -1932,12 +2028,40 @@ DIST_PATHS = {
         # each rank packs its worker; the broadcast runs on every rank
         "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
                      "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES},
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
     },
+}
+#: the mesh path: the smoke_flags path's flags on a 2x2 mesh (2 workers x
+#: 2-way tensor parallelism), four gloo ranks sharing cuda:0; every rank
+#: packs every leaf once a step (in place or after a gather), encodes
+#: every leaf of the broadcast, and draws the whole init to keep its shards
+MESH_M = 2
+MESH = {
+    "argv": [a for a in PATHS["smoke_flags"]["argv"]
+             if a not in ("--workers", str(WORKERS))]
+    + ["--mesh", f"{WORKERS}x{MESH_M}", "--dist-backend", "gloo"],
+    "bits": {**PATHS["smoke_flags"]["bits"],
+             r" (mesh=2x2 ranks=4 backend=gloo) device=":
+             ["mesh=2x2 ranks=4 backend=gloo"]},
+    "launches": {"pack_update": STEPS * FULL_LEAVES, "qsgd_pack_update": 0,
+                 "randk_update": 0, "threefry_uniform": STEPS * FULL_LEAVES
+                 + INIT_DRAWS},
+}
+MESH_TIMEOUT_S = 600
+#: the committed 2x2 specs (smoke size, 4 steps) and the launches each
+#: makes on a rank: the smoke model's 14 leaves a step, packed or
+#: quantized once, and each QSGD leaf's uniforms (up and down) drawn once;
+#: bernoulli participation draws one uniform a step; and the init's draws
+MESH_SPECS = {
+    "pipelined_blocktopk": {"pack_update": 56, "threefry_uniform": 56 + SMOKE_INIT_DRAWS},
+    "qsgd_bidirectional": {"qsgd_pack_update": 56, "threefry_uniform": 112 + SMOKE_INIT_DRAWS},
+    "federated_blocktopk": {"pack_update": 56, "threefry_uniform": 4 + SMOKE_INIT_DRAWS},
 }
 #: each one-process path's step records (``recording``), for DIST_PATHS
 #: and the spec path
 MAIN_RECORDS = {}
+#: the final params (on the host) of the paths that keep them
+MAIN_PARAMS = {}
 #: each one-process path's printed spec fingerprint
 MAIN_FINGERPRINTS = {}
 
@@ -1976,15 +2100,21 @@ def phase_main(name):
     collect(f"[main] {name}")
     torch.cuda.reset_peak_memory_stats()
     records = MAIN_RECORDS[name] = []
+    holder = {}
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), recording(records):
+        with contextlib.redirect_stdout(out), recording(records, holder):
             reset_launches()
             train.main(path["argv"])
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
     finally:
         print(out.getvalue().rstrip())
+    if path.get("keep_params"):
+        from repro_torch import tree as T
+        MAIN_PARAMS[name] = T.tree_map(lambda a: a.cpu(),
+                                       holder["state"].params)
+    holder.clear()
     secs = time.perf_counter() - t0
     text = out.getvalue()
     losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
@@ -2093,6 +2223,208 @@ def phase_dist(name):
               f"round={[a['bytes'] for a in records]} peak_gib={peak:.2f} "
               "(two processes time-slice one card; gloo moves the payload "
               "through host memory)")
+    return total
+
+
+def mesh_specs_child(outdir):
+    """One rank of the mesh specs phase: probes whether gloo's all-reduce
+    takes a bf16 CUDA tensor (the model axis reduces in f32 either way),
+    then each committed 2x2 spec through ``launch.train.main`` with
+    ``--spec`` (smoke size), its own file store, between marker lines, with
+    launch counts reset just before it and read just after."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{outdir}/probe",
+                            rank=rank, world_size=world)
+    try:
+        x = torch.full((1024,), 1.5, dtype=torch.bfloat16, device="cuda")
+        dist.all_reduce(x)
+        probe = f"ok, sum {float(x[0])} (want {1.5 * world})"
+    except Exception as e:  # the probe's answer, not a failure
+        probe = f"refused: {type(e).__name__}: {str(e)[:200]}"
+    dist.destroy_process_group()
+    print(f"[mesh-specs] gloo all_reduce of a bf16 CUDA tensor: {probe}")
+    for i, name in enumerate(MESH_SPECS):
+        print(f"[mesh-specs] begin {name}", flush=True)
+        reset_launches()
+        train.main(["--spec", str(ROOT / "examples" / "specs" /
+                                  f"{name}.json"),
+                    "--global-batch", "8", "--seq", "32", "--log-every",
+                    "1", "--dist-backend", "gloo", "--dist-init",
+                    f"file://{outdir}/store{i}"])
+        torch.cuda.synchronize()
+        print(f"[mesh-specs] launches {name} {json.dumps(dict(LAUNCHES))}")
+        print(f"[mesh-specs] end {name}", flush=True)
+
+
+def phase_mesh():
+    """The mesh path (``MESH``): four gloo ranks on cuda:0, full-width
+    qwen2-0.5b from JAX's weights.  Rank 0's exact bits; a finite loss at
+    every step on every rank; each kernel's launches per rank; at every
+    step, the two ranks of each model index (one per worker) hold bitwise
+    the same shards of params, w, h_avg, m and v; the first worker group's
+    params shards, reassembled, against the one-process smoke_flags run
+    from the same init (``mesh_params_check``).  Then the per-rank numbers.
+    Returns the launches summed over the ranks."""
+    collect("[main] mesh")
+    torch.cuda.empty_cache()
+    logs = run_ranks("mesh", ranks=WORKERS * MESH_M, timeout=MESH_TIMEOUT_S)
+    text = logs[0]
+    for pat, expect in MESH["bits"].items():
+        got = [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
+        if got != expect:
+            raise AssertionError(f"[main] mesh: printed {pat!r} {got} != "
+                                 f"{expect}")
+    want = MAIN_RECORDS["smoke_flags"]
+    records, total = [], {}
+    for r, log in enumerate(logs):
+        recs = json.loads(re.search(r"\[dist\] records (.*)", log)[1])
+        launches = json.loads(re.search(r"\[dist\] launches (.*)", log)[1])
+        peak = float(re.search(r"\[dist\] peak_gib (\S+)", log)[1])
+        losses = [float.fromhex(a["loss"]) for a in recs]
+        if len(losses) != STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"[main] mesh rank {r}: losses {losses}")
+        # bf16 activations summed in another order by the model axis's
+        # all-reduces: the losses within 1e-3 relative of one process
+        one = [float.fromhex(b["loss"]) for b in want]
+        if any(abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, one)):
+            raise AssertionError(f"[main] mesh rank {r}: losses {losses} "
+                                 f"vs one process {one}")
+        expect = {**dict.fromkeys(launches, 0), **MESH["launches"]}
+        if launches != expect:
+            raise AssertionError(f"[main] mesh rank {r}: launches "
+                                 f"{launches}, want {expect}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        records.append(recs)
+        print(f"[main] mesh rank {r} (worker {r // MESH_M}, model "
+              f"{r % MESH_M}): losses={losses} (one process {one}) "
+              f"launches={launches}")
+        print(f"[profile] mesh rank {r}: step_ms="
+              f"{[a['step_ms'] for a in recs]} model_axis_host_ms="
+              f"{[a['model_ms'] for a in recs]} model_axis_calls="
+              f"{[a['model_calls'] for a in recs]} model_axis_bytes_sent="
+              f"{[a['model_bytes'] for a in recs]} exchange_host_ms="
+              f"{[a['exchange_ms'] for a in recs]} exchange_bytes_sent="
+              f"{[a['bytes'] // WORKERS for a in recs]} peak_gib={peak:.2f} "
+              "(four processes time-slice one card; gloo moves every "
+              "collective through host memory: not NCCL, not a "
+              "tensor-parallel time)")
+    for m in range(MESH_M):
+        a, b = records[m], records[MESH_M + m]
+        same = [x["master"] for x in a] == [y["master"] for y in b]
+        print(f"[main] mesh: model index {m}: ranks {m} and {MESH_M + m} "
+              f"hold {'bitwise the same' if same else 'DIFFERENT'} shards "
+              "of params, w, h_avg, m, v at every step")
+        if not same:
+            raise AssertionError(f"[main] mesh: model index {m} ranks "
+                                 "differ")
+    mesh_params_check()
+    return total
+
+
+def mesh_params_check():
+    """The mesh's final params (the first worker group's shards,
+    reassembled by ``param_specs``) against the one-process smoke_flags
+    run's, both from ``init(random.key(0))``.  Their bf16 activations are
+    summed in another order, so a block-top-k near-tie can select other
+    values, and AdamW then moves an element by up to lr_t * 1.001 a step
+    (its m / sqrt(v) bound at b1 0.9, b2 0.95 over 3 steps) either way:
+    max |diff| <= 2.02 * sum_t lr_t.  Beyond that bound, the share of
+    elements that differ by more than 1e-6 must stay below 0.25 and the
+    norm of the difference below half the norm of the update, which a
+    wrong gradient or shard would break (at smoke size on the CPU: 2-8%
+    and 0.19)."""
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import is_spec, spec_dim
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.schedules import cosine
+
+    model = build_model(get_config("qwen2-0.5b"))
+    dims = [spec_dim(x) for x in T.leaves(model.param_specs(),
+                                          is_leaf=is_spec)]
+    outdir = ROOT / "build" / "dist" / "mesh"
+    parts = [T.leaves(torch.load(outdir / f"params_rank{r}.pt"))
+             for r in range(MESH_M)]
+    one = T.leaves(MAIN_PARAMS["smoke_flags"])
+    init = T.leaves(model.init(random.key(0), device="cuda"))
+    sched = cosine(3e-4, total_steps=STEPS,
+                   warmup_steps=max(STEPS // 20, 1))
+    bound = 2.02 * sum(sched(t) for t in range(STEPS))
+    worst, over, count, num, den = 0.0, 0, 0, 0.0, 0.0
+    for dim, ps, o, i in zip(dims, zip(*parts), one, init):
+        whole = (ps[0] if dim is None else torch.cat(ps, dim=dim)).cuda()
+        o = o.cuda()
+        d = (whole.double() - o.double()).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > 1e-6).sum())
+        count += d.numel()
+        num += float((d * d).sum())
+        den += float(((o.double() - i.double()) ** 2).sum())
+    share, rel = over / count, math.sqrt(num / den)
+    print(f"[main] mesh: reassembled params after {STEPS} steps vs one "
+          f"process: max |diff| {worst:.3e} (bound {bound:.3e}), share "
+          f"differing > 1e-6 {share:.4f} (limit 0.25), |diff| / |update| "
+          f"{rel:.4f} (limit 0.5)")
+    if not (worst <= bound and share < 0.25 and rel < 0.5):
+        raise AssertionError("[main] mesh: params outside the tolerance of "
+                             "the one-process run")
+
+
+def phase_mesh_specs():
+    """The three committed 2x2 specs at smoke size on four gloo ranks:
+    each exits 0 (the launch), prints the file's fingerprint, its exact
+    bits and four finite losses, and launches its kernels as MESH_SPECS
+    says on every rank.  Returns the launches summed over the ranks and
+    specs."""
+    from repro_torch.core import ExperimentSpec
+
+    collect("[main] mesh_specs")
+    torch.cuda.empty_cache()
+    logs = run_ranks("mesh_specs", ranks=WORKERS * MESH_M)
+    print(re.search(r"\[mesh-specs\] gloo all_reduce.*", logs[0])[0])
+    total = {}
+    for name, want in MESH_SPECS.items():
+        spec = ExperimentSpec.from_json(
+            (ROOT / "examples" / "specs" / f"{name}.json").read_text())
+        bits = {"pipelined_blocktopk": [5_776_384, 11_553_216, 23_105_984],
+                "qsgd_bidirectional": [11_553_216, 11_553_216, 34_659_648],
+                "federated_blocktopk": [5_776_384]}[name]
+        for r, log in enumerate(logs):
+            seg = log.split(f"[mesh-specs] begin {name}")[1].split(
+                f"[mesh-specs] end {name}")[0]
+            launches = json.loads(re.search(
+                rf"\[mesh-specs\] launches {name} (.*)", seg)[1])
+            expect = {**dict.fromkeys(launches, 0), **want}
+            if launches != expect:
+                raise AssertionError(f"[mesh-specs] {name} rank {r}: "
+                                     f"launches {launches}, want {expect}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if r:
+                continue
+            fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", seg)
+            got = [int(x) for x in re.findall(
+                r"(\d+) bits/round(?:/worker)? (?:uplink|broadcast|up\+d"
+                r"own)", seg)]
+            losses = [float(x) for x in re.findall(
+                r"step\s+\d+ loss=(\S+)", seg)]
+            print(f"[mesh-specs] {name}: fingerprint {fps} (file "
+                  f"{spec.fingerprint()}) bits {got} losses {losses} "
+                  f"launches per rank {launches}")
+            if fps != [spec.fingerprint()] or got != bits or \
+                    len(losses) != spec.steps or \
+                    not all(map(math.isfinite, losses)):
+                raise AssertionError(f"[mesh-specs] {name}: wrong output")
     return total
 
 
@@ -2453,6 +2785,9 @@ def main():
             torch.cuda.empty_cache()
     for name in DIST_PATHS:
         launches[name] = phase_dist(name)
+    launches["mesh"] = phase_mesh()
+    MAIN_PARAMS.clear()
+    launches["mesh_specs"] = phase_mesh_specs()
     launches["compressor_bench"] = phase_bench()
     torch.cuda.empty_cache()
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")

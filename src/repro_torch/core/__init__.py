@@ -12,12 +12,15 @@ problems, :func:`repro_torch.core.efbv.run_reference`), ``.train_step()``
 and ``.init_state()`` over the port's trainer, ``.round_bits()`` (the exact
 wire accounting) and ``.tuned`` (Remark 1's auto-tuning).
 
+``Run.make_mesh`` gives the spec's mesh geometry
+(``distributed.aggregate.make_mesh``; its ``model`` axis runs as tensor
+parallelism over a group's model sub-group, ``train_step(group=...,
+shards=...)``), and ``Run.state_shardings`` each state leaf's spec.
+
 Not yet ported, and refused with the ROADMAP item that ports it:
 ``round_bits`` under per-leaf codec rules (item 6); ``train_step`` for the
-fsdp backend (item 8) or a mesh whose model axis exceeds 1 (item 2c);
-``make_mesh`` and ``state_shardings`` (item 2c).  ``Run.reference()`` and
-``problem_instance()`` run on ``cuda`` unless the caller passes
-``device="cpu"``.
+fsdp backend (item 8).  ``Run.reference()`` and ``problem_instance()`` run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -561,33 +564,37 @@ class Run:
             raise NotImplementedError(
                 "backend='fsdp' is not yet ported to repro_torch (ROADMAP "
                 "queue 1, item 8); use backend='shard_map'")
-        if len(spec.mesh_dims()) > 1 and spec.mesh_dims()[-1] > 1:
-            raise NotImplementedError(
-                f"mesh {spec.mesh!r} shards a 'model' axis, which is not yet "
-                "ported to repro_torch (ROADMAP queue 1, item 2c); use "
-                f"mesh='{spec.n}x1'")
 
     def make_mesh(self):
-        """Refused: the port has no device mesh yet."""
+        """The spec's mesh: its geometry (axis names and sizes, the
+        ``model`` axis last), ``distributed.aggregate.make_mesh`` of
+        ``spec.mesh``.  The port runs one process per mesh rank, so there
+        are no devices to place."""
+        from repro_torch.distributed.aggregate import make_mesh
+
         if self.spec.backend == "reference":
             raise SpecError("the reference backend has no device mesh; use "
                             ".reference()")
-        raise NotImplementedError(
-            "Run.make_mesh is not yet ported to repro_torch (ROADMAP queue 1,"
-            " item 2c): the trainer runs its workers as a loop, or one "
-            "process per worker group (train_step(group=...))")
+        return make_mesh(self.spec.mesh_dims())
+
+    def _check_mesh(self, mesh) -> None:
+        if mesh is not None and tuple(mesh.devices_shape) != \
+                self.spec.mesh_dims():
+            raise SpecError(f"mesh {mesh.devices_shape} is not the spec's "
+                            f"{self.spec.mesh!r}")
 
     def train_step(self, loss_fn: Callable, optimizer, mesh=None,
                    **kw) -> Callable:
         """The train step of this spec over the port's trainer
         (``repro_torch.train.make_train_step``), threading agg, wire_dtype,
         downlink, participation and pipeline from the spec; ``group=`` in
-        ``kw`` runs one process per worker group.  ``mesh`` must be None."""
+        ``kw`` runs one process per worker group, and with ``shards=`` a
+        rank of the mesh's ``model`` axis.  ``mesh``, when given, must be
+        the spec's."""
         from repro_torch.train.trainer import make_train_step
 
         self._trainer_backend()
-        if mesh is not None:
-            self.make_mesh()
+        self._check_mesh(mesh)
         return make_train_step(loss_fn, optimizer, self.algo,
                                n_workers=self.n, agg_mode=self.spec.agg,
                                wire_dtype=self.spec.wire_dtype,
@@ -601,8 +608,7 @@ class Run:
         from repro_torch.train.trainer import init_train_state
 
         self._trainer_backend()
-        if mesh is not None:
-            self.make_mesh()
+        self._check_mesh(mesh)
         return init_train_state(params, optimizer, n_workers=self.n,
                                 bidirectional=self.downlink is not None,
                                 algo=self.algo, agg_mode=self.spec.agg,
@@ -610,10 +616,28 @@ class Run:
                                 pipeline=self.pipeline, **kw)
 
     def state_shardings(self, mesh, param_specs: PyTree, state):
-        """Refused: the port shards no state yet."""
-        raise NotImplementedError(
-            "Run.state_shardings is not yet ported to repro_torch (ROADMAP "
-            "queue 1, items 2c and 8)")
+        """Each TrainState leaf's spec on ``mesh`` (JAX's
+        ``train_state_shardings``, specs as tuples of axis names): params,
+        AdamW's m and v, h_avg and w by ``param_specs``; h with the worker
+        axes prepended (``stack_worker_spec``); the in-flight payload over
+        the worker axes; the counters replicated."""
+        from repro_torch import tree as T
+        from repro_torch.distributed.aggregate import (stack_worker_spec,
+                                                       worker_entry)
+        from repro_torch.train.trainer import TrainState
+
+        self._trainer_backend()
+        self._check_mesh(mesh)
+        opt = {k: (param_specs if isinstance(v, (dict, list)) else ())
+               for k, v in state.opt_state.items()}
+        waxes = (worker_entry(mesh),)
+        inflight = None if state.inflight is None else T.tree_map(
+            lambda _: waxes, state.inflight)
+        return TrainState(
+            params=param_specs, opt_state=opt,
+            h=stack_worker_spec(mesh, param_specs), h_avg=param_specs,
+            step=(), w=None if state.w is None else param_specs,
+            inflight=inflight)
 
     # ---- exact wire accounting ---------------------------------------------
 

@@ -458,7 +458,9 @@ class Downlink:
         return wire.format_for(self.compressor, tree, wire_dtype=wire_dtype)
 
     def broadcast(self, key, x: PyTree, w: PyTree, *,
-                  wire_dtype: str = "float32") -> Tuple[PyTree, list]:
+                  wire_dtype: str = "float32",
+                  gather: Optional[Callable] = None,
+                  shard: Optional[Callable] = None) -> Tuple[PyTree, list]:
         """One downlink round: returns ``(w_new, payloads)``, with leaf j
         encoded under ``fold_in(key, j)`` and
         ``w_new = w + lam_s * decode(payload)``, computed from the decoded
@@ -466,20 +468,29 @@ class Downlink:
         JAX rounds it: once (fused), or twice after a decode that ends in
         a select (QSGD, natural: ``LeafCodec.DECODE_SELECTS``; at lam_s =
         0.9 on 4096 values the other spelling differed from JAX on 58 and
-        72); a lossless wire assigns ``w_new = x``."""
+        72); a lossless wire assigns ``w_new = x``.
+
+        ``gather(j, t)`` and ``shard(j, t)`` (a mesh rank of the ``model``
+        axis: x and w are shards) turn leaf j's shard of x - w into the
+        logical leaf before the encode, and the decoded logical innovation
+        into this rank's shard."""
         from repro_torch.distributed import wire
         payloads, new_leaves = [], []
         for j, (xj, wj) in enumerate(zip(T.leaves(x), T.leaves(w))):
-            codec = wire.codec_of(self.compressor, tuple(xj.shape),
-                                  xj.numel(), wire_dtype)
+            delta = xj.float() - wj.float()
+            if gather is not None:
+                delta = gather(j, delta)
+            codec = wire.codec_of(self.compressor, tuple(delta.shape),
+                                  delta.numel(), wire_dtype)
             kj = None if key is None else random.fold_in(key, j)
-            delta = (xj.float() - wj.float()).reshape(-1)
-            payload = codec.encode(kj, delta)
+            payload = codec.encode(kj, delta.reshape(-1))
+            del delta
             payloads.append(payload)
             if self._is_lossless(wire_dtype):
                 new_leaves.append(xj)
                 continue
-            q = codec.decode(payload).reshape(xj.shape)
+            q = codec.decode(payload)
+            q = (q if shard is None else shard(j, q)).reshape(xj.shape)
             if codec.DECODE_SELECTS:
                 wn = wj.float() + self.lam * q
             else:

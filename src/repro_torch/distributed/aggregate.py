@@ -30,14 +30,30 @@ Federated rounds thread a per-worker participation ``mask`` through
 :func:`compress_local`: an absent worker's message is gated to
 decode-zero and its control variate stays stale, so
 :func:`combine_global` needs no variant.
+
+The mesh (``repro/launch/mesh.py`` and ``repro/distributed/spec.py``):
+:func:`make_mesh` and friends give its geometry, the worker axes and the
+trailing ``model`` axis.  Under a mesh ``WxM`` over P = W' x M processes
+(W' dividing the W workers), global rank r is worker-group rank r // M and
+model rank r % M: the M ranks of one worker group hold the shards of one
+worker's params (tensor parallelism, ``models/layers.py``), and the ranks
+with one model index form the worker group that exchanges messages.  The
+compressor acts on the logical (unsharded) per-worker gradient, so the
+payload and the bits per round are those of one process
+(:class:`ModelShards`): a block-sparse leaf whose every block lies inside
+one contiguous run of a shard is packed on its shard in place, any other
+sharded leaf is gathered over the model group, packed whole, and only this
+rank's shard of h' is kept.  Master state, decode, the master update and
+AdamW act on shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +62,8 @@ from repro_torch import random
 from repro_torch import tree as T
 from repro_torch.core.efbv import EFBV, Downlink
 from repro_torch.distributed import wire
+from repro_torch.models.layers import (MODEL_AXIS, ModelAxis, is_spec,
+                                      spec_dim)
 
 PyTree = Any
 AGG_MODES = ("dense_psum", "sparse_allgather")
@@ -57,7 +75,8 @@ ALIGN = 4
 
 def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
                    mode: str = "dense_psum", wire_dtype: str = "float32",
-                   mask=None) -> Tuple[Any, PyTree]:
+                   mask=None, shards: Optional["ModelShards"] = None
+                   ) -> Tuple[Any, PyTree]:
     """d_i = C(grad_i - h_i); h_i <- h_i + lam d_i.
 
     ``key`` is this worker's threefry key (or None for a deterministic
@@ -71,27 +90,45 @@ def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
     (``codec.mask_message``, or a zeroed dense d_i) and h_i stays stale
     (``where(m > 0, h', h)``); at 1 both gates are bitwise identities;
     None (full participation) skips them.
+
+    ``shards`` (a mesh rank): ``grads`` and ``h_local`` are this rank's
+    shards and the codecs those of the logical leaves; each leaf is packed
+    in place or gathered (:meth:`ModelShards.part_codec`), so the message
+    holds this rank's part of an in-place leaf and the whole payload of
+    every other.
     """
     if mode not in AGG_MODES:
         raise ValueError(f"mode {mode!r} not in {AGG_MODES}")
     leaves = T.leaves(grads)
     h_leaves = T.leaves(h_local)
-    fmt = wire.format_for(algo.compressor, grads, wire_dtype=wire_dtype) \
+    logical = grads if shards is None else shards.logical
+    fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype) \
         if mode == "sparse_allgather" else None
     msgs, h_new = [], []
     for j, (g_leaf, h_leaf) in enumerate(zip(leaves, h_leaves)):
         kj = None if key is None else random.fold_in(key, j)
+        part = None if fmt is None or shards is None \
+            else shards.part_codec(j, fmt.leaves[j])
+        whole = shards is not None and part is None
+        if whole:
+            g_leaf, h_leaf = shards.gather(j, g_leaf), shards.gather(j, h_leaf)
         if fmt is not None:
+            codec = fmt.leaves[j] if part is None else part
             payload, h_leaf_new = wire.encode_update(
-                fmt.leaves[j], kj, g_leaf, h_leaf, algo.lam)
+                codec, kj, g_leaf, h_leaf, algo.lam)
             if mask is not None:
-                payload = fmt.leaves[j].mask_message(payload, mask)
+                payload = codec.mask_message(payload, mask)
             msgs.append(payload)
         else:
             d_leaf = algo.compressor(kj, g_leaf - h_leaf)
+            h_leaf_new = algo.worker_update(h_leaf, d_leaf)
+            if whole:  # the dense message: this rank's shard of d
+                d_leaf = shards.shard(j, d_leaf)
             msgs.append(d_leaf if mask is None else wire.mask_message(
                 (d_leaf,), mask)[0])
-            h_leaf_new = algo.worker_update(h_leaf, d_leaf)
+        if whole:
+            h_leaf = shards.shard(j, h_leaf)
+            h_leaf_new = shards.shard(j, h_leaf_new)
         if mask is not None:
             h_leaf_new = torch.where(
                 torch.as_tensor(mask, device=h_leaf.device) > 0, h_leaf_new,
@@ -108,6 +145,215 @@ def stack_messages(messages) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# the mesh: geometry (``repro/launch/mesh.py``) and specs
+# (``repro/distributed/spec.py``)
+# ---------------------------------------------------------------------------
+
+POD_AXIS, DATA_AXIS = "pod", "data"
+_DEFAULT_AXES = (POD_AXIS, DATA_AXIS, MODEL_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A mesh's geometry: axis names and sizes, the ``model`` axis (if
+    any) last.  Its ranks are laid out row-major over ``devices_shape``,
+    which is process-major: rank r's coordinates are
+    ``np.unravel_index(r, devices_shape)``.  The port runs one process per
+    rank; there is no device array."""
+
+    axis_names: Tuple[str, ...]
+    devices_shape: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices_shape))
+
+
+def _mesh_axes(shape, axes, who: str) -> Tuple[str, ...]:
+    if axes is not None:
+        return tuple(axes)
+    if len(shape) > len(_DEFAULT_AXES):
+        # the trailing-names slice cannot grow past 3 axes
+        raise ValueError(
+            f"{who} has default axis names for up to {len(_DEFAULT_AXES)} "
+            f"mesh dims {_DEFAULT_AXES}, got shape {tuple(shape)} with "
+            f"{len(shape)} dims -- pass axes= explicitly")
+    return _DEFAULT_AXES[-len(shape):]
+
+
+def make_mesh(shape: Sequence[int], axes: Optional[Sequence[str]] = None
+              ) -> Mesh:
+    """A mesh of ``shape``; axes default to the trailing names of
+    ('pod', 'data', 'model')."""
+    shape = tuple(int(x) for x in shape)
+    return Mesh(_mesh_axes(shape, axes, "make_mesh"), shape)
+
+
+def multihost_worker_shape(n_workers: int, num_processes: int
+                           ) -> Tuple[int, int]:
+    """Split a worker count into (num_processes, workers_per_process): the
+    leading worker axis must tile the processes exactly, so each process
+    owns whole workers."""
+    if num_processes < 1:
+        raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+    if n_workers % num_processes:
+        raise ValueError(
+            f"{n_workers} workers cannot tile {num_processes} processes: "
+            f"the leading worker axis must be divisible by the process "
+            f"count so each host owns whole workers")
+    return num_processes, n_workers // num_processes
+
+
+def make_multihost_mesh(shape: Sequence[int],
+                        axes: Optional[Sequence[str]] = None, *,
+                        num_processes: int = 1) -> Mesh:
+    """A mesh whose rank layout is process-major: process p owns rows
+    [p * rows, (p + 1) * rows) of the leading axis.  Rank numbers are
+    process-major by construction; this checks the geometry (the leading
+    axis divisible by ``num_processes``)."""
+    shape = tuple(int(x) for x in shape)
+    axes = _mesh_axes(shape, axes, "make_multihost_mesh")
+    multihost_worker_shape(shape[0], num_processes)
+    return Mesh(axes, shape)
+
+
+def process_worker_slice(shape: Sequence[int], num_processes: int,
+                         process_index: int) -> range:
+    """The linear worker indices process ``process_index`` owns under the
+    process-major layout; the trailing ``model`` axis, if any, does not
+    change worker numbering (a 1-d mesh is all workers)."""
+    shape = tuple(shape)
+    n = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+    multihost_worker_shape(shape[0], num_processes)
+    if not 0 <= process_index < num_processes:
+        raise ValueError(f"process_index {process_index} out of range for "
+                         f"{num_processes} processes")
+    per = n // num_processes
+    return range(process_index * per, (process_index + 1) * per)
+
+
+def worker_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The EF-BV worker axes: every axis but ``model``."""
+    return tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+
+
+def num_workers(mesh: Mesh) -> int:
+    return math.prod(mesh.shape[a] for a in worker_axes(mesh))
+
+
+def model_size(mesh: Mesh) -> int:
+    """Size of the mesh's ``model`` axis (1 without one)."""
+    return mesh.shape.get(MODEL_AXIS, 1)
+
+
+def worker_entry(mesh: Mesh):
+    """The worker axes as one spec entry, as a PartitionSpec normalizes
+    them: None without one, the axis name alone when there is one, else
+    the tuple."""
+    w = worker_axes(mesh)
+    return (w[0] if len(w) == 1 else w) if w else None
+
+
+def batch_spec(mesh: Mesh) -> tuple:
+    """The global batch is sharded over every worker axis."""
+    return (worker_entry(mesh),)
+
+
+def stack_worker_spec(mesh: Mesh, specs: PyTree) -> PyTree:
+    """The control variates' specs: the worker axes prepended to each
+    leaf's spec (h has a leading per-worker axis of size n)."""
+    w = worker_entry(mesh)
+    return T.tree_map(lambda s: (w,) + tuple(s), specs, is_leaf=is_spec)
+
+
+def linear_worker_index(mesh: Mesh, coords: Dict[str, int]) -> int:
+    """The linearized worker index of worker-axis coordinates (axis ->
+    index), row-major over the worker axes."""
+    idx = 0
+    for a in worker_axes(mesh):
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+@dataclasses.dataclass
+class ModelShards:
+    """One worker's tree on a rank of the mesh's ``model`` axis: per leaf
+    in flatten order the dim the axis shards (None: replicated), and the
+    logical tree (``meta`` tensors) that the wire formats are built from.
+    :meth:`gather` and :meth:`shard` move a leaf between its shard and its
+    logical form; :meth:`part_codec` says whether a block-sparse leaf packs
+    in place."""
+
+    axis: ModelAxis
+    logical: PyTree
+    dims: Tuple[Optional[int], ...]
+
+    @classmethod
+    def of(cls, axis: ModelAxis, specs: PyTree, logical: PyTree
+           ) -> "ModelShards":
+        dims = tuple(spec_dim(s) for s in T.leaves(specs, is_leaf=is_spec))
+        if len(dims) != len(T.leaves(logical)):
+            raise ValueError("specs and params differ in structure")
+        return cls(axis=axis, logical=logical, dims=dims)
+
+    def shape(self, j: int) -> Tuple[int, ...]:
+        return tuple(T.leaves(self.logical)[j].shape)
+
+    def shard_shape(self, j: int) -> Tuple[int, ...]:
+        shape, dim = list(self.shape(j)), self.dims[j]
+        if dim is not None:
+            shape[dim] //= self.axis.size
+        return tuple(shape)
+
+    def gather(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf j's logical tensor from this rank's shard (a collective
+        over the model group for a sharded leaf)."""
+        dim = self.dims[j]
+        return x if dim is None else self.axis.all_gather(x, dim)
+
+    def shard(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of leaf j's logical tensor (flat or shaped)."""
+        x = x.reshape(self.shape(j))
+        dim = self.dims[j]
+        return x if dim is None else self.axis.shard(x, dim)
+
+    def shard_tree(self, tree: PyTree) -> PyTree:
+        return T.unflatten(tree, [self.shard(j, x) for j, x in
+                                  enumerate(T.leaves(tree))])
+
+    def part_codec(self, j: int, codec) -> Optional[wire.LeafWire]:
+        """The codec of this rank's part of leaf j's payload when it packs
+        in place: a block-sparse leaf sharded on a dim whose contiguous run
+        per shard (shard's dim size times the trailing dims) is a multiple
+        of the block, so every block lies inside one shard and the shard's
+        blocks, in order, are its rows of the logical payload.  None: the
+        leaf is replicated, or packs whole after a gather."""
+        dim = self.dims[j]
+        if dim is None or not isinstance(codec, wire.LeafWire):
+            return None
+        shape = self.shape(j)
+        run = shape[dim] // self.axis.size * math.prod(shape[dim + 1:])
+        if run % codec.block:
+            return None
+        shard = self.shard_shape(j)
+        return wire.LeafWire(shape=shard, size=math.prod(shard),
+                             block=codec.block, kb=codec.kb)
+
+    def norm(self, tree: PyTree) -> torch.Tensor:
+        """The global L2 norm of the logical tree from this rank's shards:
+        the sharded leaves' squares summed here, then over the axis (f32);
+        the replicated leaves' added once."""
+        local, rep = [], []
+        for x, dim in zip(T.leaves(tree), self.dims):
+            (rep if dim is None else local).append(
+                torch.sum(torch.square(x)))
+        total = self.axis.all_reduce(torch.stack(local).sum())
+        if rep:
+            total = total + torch.stack(rep).sum()
+        return torch.sqrt(total)
+
+
+# ---------------------------------------------------------------------------
 # one process per worker group
 # ---------------------------------------------------------------------------
 
@@ -118,7 +364,10 @@ class WorkerGroup:
     (:attr:`workers`), its device, and what its exchanges cost
     (:attr:`stats`: host seconds spent in the collectives, or in
     ``wait()`` for an exchange started with ``async_op``; exchanges; bytes
-    gathered).  Build one with :meth:`join`."""
+    gathered).  On a mesh with a ``model`` axis of M > 1, ``rank``,
+    ``world`` and ``pg`` are those of the worker group (the ranks with
+    this rank's model index), and :attr:`model` is its place on the model
+    axis.  Build one with :meth:`join`."""
 
     n_workers: int
     rank: int
@@ -128,6 +377,7 @@ class WorkerGroup:
     pg: Any = None
     stats: dict = dataclasses.field(default_factory=lambda: {
         "exchange_s": 0.0, "exchanges": 0, "bytes": 0})
+    model: Optional[ModelAxis] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -141,30 +391,56 @@ class WorkerGroup:
 
     @classmethod
     def join(cls, n_workers: int, *, backend: str, device,
-             init_method: Optional[str] = None) -> "WorkerGroup":
+             init_method: Optional[str] = None,
+             model_size: int = 1) -> "WorkerGroup":
         """Join the process group as ``torchrun`` starts a rank: rank and
         size from ``RANK`` and ``WORLD_SIZE``, the rendezvous from
         ``init_method`` (``env://`` -- ``MASTER_ADDR`` / ``MASTER_PORT`` --
         by default; tests pass a ``file://`` store).  The backend is the
-        caller's: nothing switches it."""
+        caller's: nothing switches it.  ``model_size`` M > 1 splits the
+        WORLD_SIZE ranks into WORLD_SIZE / M worker-group ranks of M model
+        ranks each (global rank r = worker rank r // M, model rank r % M)
+        and builds both sub-groups."""
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if model_size < 1 or world % model_size:
+            raise ValueError(f"WORLD_SIZE={world} ranks do not split into "
+                             f"model groups of {model_size}")
         device = torch.device(device)
         if backend == "nccl" and device.type != "cuda":
             raise ValueError(f"nccl needs a CUDA device, got {device}")
-        group = cls(n_workers=n_workers, rank=rank, world=world,
+        m = model_size
+        group = cls(n_workers=n_workers, rank=rank // m, world=world // m,
                     backend=backend, device=device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=rank, world_size=world)
         group.pg = dist.group.WORLD
+        if m > 1:
+            # every rank builds every sub-group, in the same order
+            for w in range(world // m):
+                pg = dist.new_group([w * m + i for i in range(m)])
+                if w == rank // m:
+                    group.model = ModelAxis(size=m, rank=rank % m, pg=pg)
+            for i in range(m):
+                pg = dist.new_group([w * m + i for w in range(world // m)])
+                if i == rank % m:
+                    group.pg = pg
         return group
+
+    @property
+    def global_rank(self) -> int:
+        """This process's rank among all WORLD_SIZE ranks."""
+        return self.rank if self.model is None \
+            else self.rank * self.model.size + self.model.rank
 
     def close(self) -> None:
         """Leave the process group."""
         if self.pg is not None:
             dist.destroy_process_group()
             self.pg = None
+            if self.model is not None:
+                self.model.pg = None
 
     @property
     def per_rank(self) -> int:
@@ -341,7 +617,9 @@ def ring_allgather(group: WorkerGroup, x: torch.Tensor) -> torch.Tensor:
 def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
                    n_workers: int, mode: str = "dense_psum",
                    wire_dtype: str = "float32", chunks: int = 1,
-                   summed: bool = False) -> Tuple[PyTree, PyTree]:
+                   summed: bool = False,
+                   shards: Optional[ModelShards] = None
+                   ) -> Tuple[PyTree, PyTree]:
     """d_bar = (1/n) sum_i d_i; g = h_avg + nu d_bar;
     h_avg <- h_avg + lam d_bar.  ``message_stacked`` carries a leading
     worker axis of size n.  ``chunks`` > 1 (the pipelined exchange) decodes
@@ -349,26 +627,39 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
     order (``wire.chunked_decode_sum``); the dense path ignores it.
     ``summed`` (dense only) says the message is already the sum of the n
     workers' d (the all-reduce of :func:`exchange`), which is divided by n
-    here as ``torch.mean`` divides."""
+    here as ``torch.mean`` divides.  ``shards`` (a mesh rank): ``h_avg``
+    holds shards, an in-place leaf's payload decodes to this rank's shard
+    and any other's to the logical leaf, of which the shard is kept."""
     if mode == "dense_psum":
         d_bar = T.tree_map(lambda d: d / n_workers, message_stacked) \
             if summed else T.tree_map(lambda d: torch.mean(d, dim=0),
                                       message_stacked)
     else:
-        fmt = wire.format_for(algo.compressor, h_avg, wire_dtype=wire_dtype)
-        ref_leaves = T.leaves(h_avg)
-        d_bar = T.unflatten(h_avg, [
-            (wire.chunked_decode_sum(codec, payload, chunks)
-             / n_workers).reshape(ref.shape)
-            for payload, codec, ref in zip(message_stacked, fmt.leaves,
-                                           ref_leaves)])
+        logical = h_avg if shards is None else shards.logical
+        fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype)
+        d_leaves = []
+        for j, (payload, codec, ref) in enumerate(zip(
+                message_stacked, fmt.leaves, T.leaves(h_avg))):
+            part = None if shards is None else shards.part_codec(j, codec)
+            d = wire.chunked_decode_sum(part or codec, payload,
+                                        chunks) / n_workers
+            d_leaves.append(d.reshape(ref.shape) if shards is None or part
+                            else shards.shard(j, d))
+        d_bar = T.unflatten(h_avg, d_leaves)
     return algo.master_update(h_avg, d_bar)
 
 
 def broadcast_global(downlink: Downlink, key, params: PyTree, w: PyTree, *,
-                     wire_dtype: str = "float32") -> Tuple[PyTree, list]:
+                     wire_dtype: str = "float32",
+                     shards: Optional[ModelShards] = None
+                     ) -> Tuple[PyTree, list]:
     """One downlink round: the master encodes C_s(x^{t+1} - w^t) through
     its codec and every worker applies the decoded innovation to the shared
     reconstruction w.  Returns (w_new, payloads); ``key`` must be the
-    round's ``downlink_key(step_key)``."""
-    return downlink.broadcast(key, params, w, wire_dtype=wire_dtype)
+    round's ``downlink_key(step_key)``.  ``shards`` (a mesh rank): x and w
+    are shards, and each sharded leaf's x - w is gathered and encoded
+    whole, so the payload (its norm too) is the logical leaf's."""
+    if shards is None:
+        return downlink.broadcast(key, params, w, wire_dtype=wire_dtype)
+    return downlink.broadcast(key, params, w, wire_dtype=wire_dtype,
+                              gather=shards.gather, shard=shards.shard)

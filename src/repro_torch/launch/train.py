@@ -52,17 +52,33 @@ spec's fingerprint, the JAX driver's for the same experiment:
         --spec examples/specs/pipelined_blocktopk.json --global-batch 8 \
         --seq 32
 
-(refused here: that file's 2x2 mesh has a model axis, which the port has
-not yet; a spec written with ``mesh: "2x1"`` runs).  Flags and spec
-contents of the JAX driver that this port does not have yet are refused
-with a "not yet ported" error, never ignored; so are the zoo compressors
-whose training rounds are not yet ported (``TRAIN_COMPRESSORS``).
+(that file's 2x2 mesh needs four ranks, below).  ``--mesh WxM`` (or a
+spec's ``mesh``) with a ``model`` axis M > 1 runs W workers with M-way
+tensor parallelism under ``torchrun``: WORLD_SIZE must be a multiple W'
+x M of M with W' dividing W; global rank r is worker-group rank r // M
+and model rank r % M, and each rank holds its shards of one worker's
+params (``Model.param_specs``).  The SMOKE step of the JAX package on four
+gloo ranks on the CPU:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --smoke --device cpu \
+        --dist-backend gloo --mesh 2x2 --steps 4 --global-batch 8 \
+        --seq 32 --compressor block_topk:256,16 --agg sparse_allgather \
+        --downlink qsgd:16
+
+The wire bits are those of the logical gradient, unchanged from ``2x1``.
+A model axis whose heads do not split whole is refused
+(``Model.model_axis_refusal``).  Flags and spec contents of the JAX driver
+that this port does not have yet are refused with a "not yet ported"
+error, never ignored; so are the zoo compressors whose training rounds are
+not yet ported (``TRAIN_COMPRESSORS``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import time
 
@@ -71,12 +87,14 @@ import torch
 from repro_torch import random, resolve_device
 from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
                                  known_archs)
-from repro_torch.core import ExperimentSpec, SpecError, build
+from repro_torch.core import (ExperimentSpec, SpecError, build,
+                              mesh_worker_count)
 from repro_torch.core.compressors import QSGD
 from repro_torch.core.efbv import Downlink, Participation, Pipeline
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
-from repro_torch.distributed.aggregate import BACKENDS, Pending, WorkerGroup
+from repro_torch.distributed.aggregate import (BACKENDS, ModelShards,
+                                               Pending, WorkerGroup)
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import adamw
 from repro_torch.optim.schedules import cosine
@@ -84,7 +102,7 @@ from repro_torch.optim.schedules import cosine
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
 NOT_PORTED_FLAGS = {
-    "--mesh": "", "--worker-comps": "", "--leaf-codecs": "",
+    "--worker-comps": "", "--leaf-codecs": "",
     "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
     "--sanitize": False,
 }
@@ -105,6 +123,11 @@ def parse_args(argv=None):
     ap.add_argument("--workers", type=int, default=2,
                     help="EF-BV workers, run one after another on the device "
                          "(over torchrun's ranks: n/P on each)")
+    ap.add_argument("--mesh", default="",
+                    help="WxM or PxWxM (the JAX driver's --mesh): the "
+                         "worker axes' product is the worker count and M the "
+                         "'model' axis, tensor parallelism over M ranks a "
+                         "worker group ('' = --workers n, mesh nx1)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dist-backend", default="", choices=("",) + BACKENDS,
                     help="process-group backend; required when WORLD_SIZE "
@@ -172,7 +195,26 @@ def parse_args(argv=None):
     if world_size() > 1 and not args.dist_backend:
         ap.error(f"WORLD_SIZE={world_size()}: --dist-backend "
                  f"{{{','.join(BACKENDS)}}} must be given")
+    if args.mesh:
+        try:
+            [int(x) for x in args.mesh.split("x")]
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r} is not an 'AxB' integer shape")
     return args
+
+
+def workers_of(args) -> int:
+    """The run's worker count: the worker axes of ``--mesh``, else
+    ``--workers``."""
+    if args.mesh:
+        return mesh_worker_count([int(x) for x in args.mesh.split("x")])
+    return args.workers
+
+
+def model_axis(spec: ExperimentSpec) -> int:
+    """The size of the spec's ``model`` axis (1 for a 1-d mesh)."""
+    dims = spec.mesh_dims()
+    return dims[-1] if len(dims) > 1 else 1
 
 
 def _unported_wire(compressor: str, wire_dtype: str, downlink: str) -> str:
@@ -223,9 +265,9 @@ def rank_device(device: str, backend: str, local_rank: int,
     return torch.device("cuda", 0)
 
 
-def join_group(args, n: int):
-    """This rank's WorkerGroup of the run's n workers under ``torchrun``
-    (None in one process)."""
+def join_group(args, n: int, model_size: int = 1):
+    """This rank's WorkerGroup of the run's n workers under ``torchrun``,
+    with a ``model`` axis of ``model_size`` ranks (None in one process)."""
     if world_size() <= 1:
         return None
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))
@@ -234,7 +276,23 @@ def join_group(args, n: int):
                       torch.cuda.device_count())
     return WorkerGroup.join(n, backend=args.dist_backend,
                             device=resolve_device(dev),
-                            init_method=args.dist_init or None)
+                            init_method=args.dist_init or None,
+                            model_size=model_size)
+
+
+def mesh_refusal(spec: ExperimentSpec, world: int) -> str:
+    """Why ``world`` ranks cannot run the spec's mesh ('' when they can):
+    with a ``model`` axis M > 1 the ranks must be W' x M, W' dividing the
+    n workers."""
+    m = model_axis(spec)
+    if m == 1:
+        return ""
+    if world % m or spec.n % (world // m):
+        return (f"mesh {spec.mesh!r} has a 'model' axis of {m}: it runs on "
+                f"W' x {m} ranks with W' dividing its {spec.n} workers (e.g."
+                f" torchrun --nproc-per-node {spec.n * m}), not on "
+                f"WORLD_SIZE={world}")
+    return ""
 
 
 def tuning_dim(cfg) -> int:
@@ -245,7 +303,8 @@ def tuning_dim(cfg) -> int:
 
 def spec_from_args(args, n: int) -> ExperimentSpec:
     """The driver's flags folded into the declarative spec, as the JAX
-    driver folds them (``--workers n`` is its ``--mesh nx1``); the runtime
+    driver folds them (``--workers n`` is its ``--mesh nx1``; ``--mesh``
+    itself is the spec's mesh, n its worker count); the runtime
     knobs -- batch, seq, lr, schedule, logging, device -- stay flags.  The
     tuning dimension is the dominant layer size of the config the run uses
     (smoke or full), so the spec reproduces the same (lam, nu)."""
@@ -255,7 +314,8 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
         wire_dtype=args.wire_dtype, downlink=args.downlink,
         participation=args.participation,
         resample=args.local_batch_resample, backend="shard_map",
-        problem=args.arch, smoke=args.smoke, mesh=f"{n}x1", n=n,
+        problem=args.arch, smoke=args.smoke, mesh=args.mesh or f"{n}x1",
+        n=n,
         d=tuning_dim(cfg), steps=args.steps, seed=args.seed,
         pipeline=args.pipeline)
 
@@ -269,10 +329,11 @@ def _unported_spec(spec: ExperimentSpec) -> str:
     if spec.backend == "fsdp":
         return ("backend 'fsdp' is not yet ported to repro_torch (ROADMAP "
                 "queue 1, item 8)")
-    if spec.mesh_dims()[-1] > 1 and len(spec.mesh_dims()) > 1:
-        return (f"mesh {spec.mesh!r} has a 'model' axis, which is not yet "
-                f"ported to repro_torch (ROADMAP queue 1, item 2c; use "
-                f"mesh '{spec.n}x1')")
+    cfg = (get_smoke_config(spec.problem) if spec.smoke
+           else get_config(spec.problem))
+    refusal = build_model(cfg).model_axis_refusal(model_axis(spec))
+    if refusal:
+        return f"mesh {spec.mesh!r}: {refusal}"
     if len(spec.fleet_specs()) > 1 or spec.leaf_codecs:
         return ("heterogeneous fleets and per-leaf codecs are not yet "
                 "ported to repro_torch's trainer (ROADMAP queue 1, item 6)")
@@ -308,10 +369,10 @@ def experiment(args) -> ExperimentSpec:
                     "specs supply their own loss via "
                     "repro_torch.core.build(spec).train_step(...)")
         else:
-            spec = spec_from_args(args, args.workers)
+            spec = spec_from_args(args, workers_of(args))
     except (SpecError, ValueError, OSError) as e:
         raise SystemExit(f"[train] bad experiment spec: {e}")
-    unported = _unported_spec(spec)
+    unported = _unported_spec(spec) or mesh_refusal(spec, world_size())
     if unported:
         raise SystemExit(f"[train] {unported}")
     return spec
@@ -328,7 +389,7 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     fingerprint and the wire accounting (rank 0 of a ``group``).  Returns
     (state, step_fn, data); step s takes the key
     ``random.fold_in(random.key(spec.seed), s)``."""
-    echo = print if group is None or group.rank == 0 else _quiet
+    echo = print if group is None or group.global_rank == 0 else _quiet
     spec = experiment(args) if spec is None else spec
     run_ = build(spec)
     dev = group.device if group is not None else resolve_device(args.device)
@@ -336,6 +397,10 @@ def setup(args, group=None, spec: ExperimentSpec = None):
            else get_config(spec.problem))
     model = build_model(cfg)
     n = spec.n
+    tp = None if group is None else group.model
+    if (tp.size if tp is not None else 1) != model_axis(spec):
+        raise SystemExit(f"[train] mesh {spec.mesh!r}: the group's model "
+                         f"axis is {1 if tp is None else tp.size}")
     algo, downlink = run_.algo, run_.downlink
     participation, pipeline = run_.participation, run_.pipeline
     federated = run_.federated
@@ -351,15 +416,24 @@ def setup(args, group=None, spec: ExperimentSpec = None):
          + (f" participation={spec.participation}" if federated else "")
          + (f" pipeline={spec.pipeline}" if not pipeline.is_off else "")
          + (f" downlink={spec.downlink}" if downlink else "")
-         + (f" ranks={group.world} backend={group.backend}"
-            if group is not None else "")
+         + (f" mesh={spec.mesh}" if tp is not None else "")
+         + (f" ranks={group.world * model_axis(spec)} "
+            f"backend={group.backend}" if group is not None else "")
          + f" device={dev}")
     echo(f"[train] spec fingerprint={spec.fingerprint()}"
          + (f" (from {args.spec})" if args.spec else ""))
 
-    params = model.init(torch.Generator(device=dev).manual_seed(spec.seed),
-                        device=dev)
-    up_fmt = wire.format_for(algo.compressor, params) \
+    # JAX's weights, model.init(jax.random.key(seed)); a mesh rank keeps
+    # its shards
+    params = model.init(random.key(spec.seed), device=dev)
+    shards = None
+    if tp is not None:
+        shards = ModelShards.of(tp, model.param_specs(),
+                                model.init_abstract())
+        params = shards.shard_tree(params)
+    # the wire carries the logical gradient: bits as in one process
+    logical = params if shards is None else shards.logical
+    up_fmt = wire.format_for(algo.compressor, logical) \
         if spec.agg == "sparse_allgather" else None
     exp_s = participation.fraction(n) * n if federated else None
     if up_fmt is not None:
@@ -379,7 +453,7 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     if downlink is not None:
         # the broadcast payload is real whatever the uplink carries; the
         # total prints as an exact integer (the JAX driver rounds it, :g)
-        dfmt = downlink.format_for(params)
+        dfmt = downlink.format_for(logical)
         down, dense = dfmt.downlink_bits_per_round(), dfmt.dense_bits()
         total = wire.total_round_bits(up_fmt, dfmt, n_workers=n,
                                       participants=exp_s) \
@@ -389,20 +463,22 @@ def setup(args, group=None, spec: ExperimentSpec = None):
              f"({down / max(dense, 1):.4f}x dense fp32); total "
              f"{total} bits/round up+down "
              f"({total / max(dense_total, 1):.4f}x dense both ways)")
-    state = run_.init_state(params, opt, group=group)
+    state = run_.init_state(params, opt, group=group, shards=shards)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.global_batch, n_workers=n,
                        seed=spec.seed, heterogeneity=args.heterogeneity,
                        resample_from_shard=spec.resample,
                        shard_size=args.shard_size)
-    step_fn = run_.train_step(model.loss, opt, group=group)
+    loss_fn = model.loss if tp is None else functools.partial(model.loss,
+                                                              tp=tp)
+    step_fn = run_.train_step(loss_fn, opt, group=group, shards=shards)
     return state, step_fn, data
 
 
 def main(argv=None):
     args = parse_args(argv)
     spec = experiment(args)
-    group = join_group(args, spec.n)
+    group = join_group(args, spec.n, model_axis(spec))
     try:
         return run(args, group, spec)
     finally:
@@ -413,7 +489,7 @@ def main(argv=None):
 def run(args, group=None, spec: ExperimentSpec = None):
     """The training loop of ``main`` on a joined group (or None); returns
     the final loss."""
-    echo = print if group is None or group.rank == 0 else _quiet
+    echo = print if group is None or group.global_rank == 0 else _quiet
     spec = experiment(args) if spec is None else spec
     state, step_fn, data = setup(args, group, spec)
     n = spec.n
@@ -442,6 +518,14 @@ def run(args, group=None, spec: ExperimentSpec = None):
              f"round, {1e3 * st['exchange_s'] / max(spec.steps, 1):.2f} ms "
              "host time in the collective (wait() when pipelined) per step "
              "on rank 0")
+        if group.model is not None:
+            ms = group.model.stats
+            steps = max(spec.steps, 1)
+            echo(f"[train] model axis: {group.model.size} ranks a worker, "
+                 f"{ms['model_calls'] // steps} collectives and "
+                 f"{ms['model_bytes'] // steps} B sent per rank per step, "
+                 f"{1e3 * ms['model_s'] / steps:.2f} ms host time in them "
+                 "per step on rank 0")
     echo(f"[train] done: final loss {float(metrics['loss']):.4f}")
     return float(metrics["loss"])
 

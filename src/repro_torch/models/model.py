@@ -1,10 +1,20 @@
-"""Config -> Model: init / forward / loss (``repro/models/model.py``).
+"""Config -> Model: init / param_specs / forward / loss
+(``repro/models/model.py``).
 
 Ported so far: the dense family (qwen2).  Params are a nested dict in the
 JAX layout: per-layer weights stacked on a leading L axis, ``x @ W``
 weights, the embedding reused as the LM head under tied embeddings.  The
 leaf paths, shapes and flatten order therefore equal the JAX tree's, which
-the wire's per-leaf layout depends on.
+the wire's per-leaf layout depends on.  ``init`` follows JAX's key tree, so
+``init(random.key(s))`` is ``Model.init(jax.random.key(s))`` bit for bit.
+
+On a mesh with a ``model`` axis of M ranks (``tp``, a
+:class:`~repro_torch.models.layers.ModelAxis`) each rank holds the shards
+that :meth:`Model.param_specs` names and runs Megatron-style tensor
+parallelism: column-parallel q/k/v (with biases) and gate/up, row-parallel
+o and down followed by an all-reduce, a vocab-parallel embedding and tied
+LM head with a vocab-parallel cross-entropy.  The ranks' heads must be
+whole (:meth:`Model.model_axis_refusal`).
 """
 
 from __future__ import annotations
@@ -15,7 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import random, resolve_device
 from repro_torch import tree as T
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -54,79 +64,177 @@ class Model:
 
     # ------------------------------------------------------------------ init
 
-    def _build(self, make: Callable[[Tuple[int, ...], Optional[float]],
-                                    torch.Tensor]) -> PyTree:
-        """The params tree, each leaf from ``make(shape, scale)``: a normal
-        draw times ``scale``, or ones for scale None.  Init distributions
-        are the JAX package's (biases zero, norms one)."""
+    def _build(self, make: Callable[[Tuple[str, int], Tuple[int, ...],
+                                     Optional[float]], torch.Tensor]
+               ) -> PyTree:
+        """The params tree, each leaf from ``make(site, shape, scale)``: a
+        normal draw times ``scale`` under the key of ``site`` in JAX's key
+        tree (:meth:`init`), zeros for scale 0.0 and ones for None.  Init
+        distributions are the JAX package's (biases zero, norms one)."""
         cfg = self.cfg
         d, ff, V, Lr = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
         hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
         attn = {
-            "wq": make((Lr, d, nh * hd), 1.0 / math.sqrt(d)),
-            "wk": make((Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
-            "wv": make((Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
-            "wo": make((Lr, nh * hd, d), 1.0 / math.sqrt(nh * hd)),
+            "wq": make(("attn", 0), (Lr, d, nh * hd), 1.0 / math.sqrt(d)),
+            "wk": make(("attn", 1), (Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
+            "wv": make(("attn", 2), (Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
+            "wo": make(("attn", 3), (Lr, nh * hd, d),
+                       1.0 / math.sqrt(nh * hd)),
         }
         if cfg.qkv_bias:
-            attn.update({"bq": make((Lr, nh * hd), 0.0),
-                         "bk": make((Lr, nkv * hd), 0.0),
-                         "bv": make((Lr, nkv * hd), 0.0)})
+            attn.update({"bq": make(None, (Lr, nh * hd), 0.0),
+                         "bk": make(None, (Lr, nkv * hd), 0.0),
+                         "bv": make(None, (Lr, nkv * hd), 0.0)})
         params: Dict[str, Any] = {
-            "embed": make((V, d), 0.02),
+            "embed": make(("embed", 1), (V, d), 0.02),
             "layers": {
                 "attn": attn,
-                "mlp": {"wg": make((Lr, d, ff), 1.0 / math.sqrt(d)),
-                        "wu": make((Lr, d, ff), 1.0 / math.sqrt(d)),
-                        "wd": make((Lr, ff, d), 1.0 / math.sqrt(ff))},
-                "ln1": make((Lr, d), None),
-                "ln2": make((Lr, d), None),
+                "mlp": {"wg": make(("mlp", 0), (Lr, d, ff),
+                                   1.0 / math.sqrt(d)),
+                        "wu": make(("mlp", 1), (Lr, d, ff),
+                                   1.0 / math.sqrt(d)),
+                        "wd": make(("mlp", 2), (Lr, ff, d),
+                                   1.0 / math.sqrt(ff))},
+                "ln1": make(None, (Lr, d), None),
+                "ln2": make(None, (Lr, d), None),
             },
-            "final_norm": make((d,), None),
+            "final_norm": make(None, (d,), None),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = make((d, V), 1.0 / math.sqrt(d))
+            params["lm_head"] = make(("embed", 2), (d, V),
+                                     1.0 / math.sqrt(d))
         return params
 
-    def init(self, generator: Optional[torch.Generator] = None,
-             device="cuda") -> PyTree:
-        """Random f32 params on ``device``, drawn from ``generator`` (a
-        ``torch.Generator`` on that device; seed 0 when None).  The draws
-        differ from ``jax.random``'s; ``tree.params_from_jax`` carries
-        JAX params across where equal params are needed."""
+    def init(self, key=None, device="cuda") -> PyTree:
+        """f32 params on ``device`` from the threefry ``key`` (a
+        ``repro_torch.random`` key; ``key(0)`` when None), drawn as
+        ``repro.models.model.Model.init(jax.random.key(s))`` draws them,
+        bit for bit: ``keys = split(key, 8)``; layer l's key is
+        ``split(keys[0], L)[l]``, split in two for attention (split in 4:
+        wq, wk, wv, wo) and the MLP (split in 3: wg, wu, wd); the embedding
+        draws under ``keys[1]`` (an untied head under ``keys[2]``).  Each
+        weight is ``normal(key, shape) * scale``; all of them are drawn in
+        one ``random.normal_many`` pass."""
         dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+        cfg = self.cfg
+        keys = random.split(random.key(0) if key is None else key, 8)
+        layers = [_layer_keys(k) for k in random.split(keys[0],
+                                                       cfg.n_layers)]
+        sub = {"attn": [a for a, _ in layers], "mlp": [m for _, m in layers]}
+        # every weight's draws in one pass (``random.normal_many``), in the
+        # order _build makes the leaves: the embedding's key, or a stacked
+        # leaf's key of each layer, its layers consecutive
+        draws = []
 
-        def make(shape, scale):
+        def plan(site, shape, scale):
+            if scale is not None and scale != 0.0:
+                part, i = site
+                if part == "embed":
+                    draws.append((keys[i], math.prod(shape)))
+                else:
+                    draws.extend((ks[i], math.prod(shape[1:]))
+                                 for ks in sub[part])
+
+        self._build(plan)
+        z = random.normal_many([k for k, _ in draws], [n for _, n in draws],
+                               dev)
+        off = 0
+
+        def make(site, shape, scale):
+            nonlocal off
             if scale is None:
                 return torch.ones(shape, dtype=torch.float32, device=dev)
             if scale == 0.0:
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
-            x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=dev)
-            return x.mul_(scale)
+            n = math.prod(shape)
+            leaf = z[off:off + n].reshape(shape).mul_(scale).clone()
+            off += n
+            return leaf
 
         return self._build(make)
 
     def init_abstract(self) -> PyTree:
         """Params as ``meta`` tensors: shapes and dtypes, no storage."""
-        return self._build(lambda shape, scale: torch.empty(
+        return self._build(lambda site, shape, scale: torch.empty(
             shape, dtype=torch.float32, device="meta"))
+
+    def param_specs(self) -> PyTree:
+        """Each leaf's spec over the mesh's ``model`` axis, a tuple of axis
+        names per dim (JAX's PartitionSpecs, ``Model.param_specs``): the
+        per-layer specs of attention and the MLP lifted over the stacked L
+        axis, the embedding by ``auto_spec`` on its vocab dim."""
+        cfg = self.cfg
+        d, V = cfg.d_model, cfg.vocab
+        block = {"attn": L.attention_specs(d, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.hd(), cfg.qkv_bias,
+                                           cfg.attn_shard_policy),
+                 "mlp": L.mlp_specs(d, cfg.d_ff),
+                 "ln1": (None,), "ln2": (None,)}
+        specs: Dict[str, Any] = {
+            "embed": L.auto_spec((V, d), prefer=(0,)),
+            "layers": T.tree_map(lambda s: (None,) + s, block,
+                                 is_leaf=L.is_spec),
+            "final_norm": (None,),
+        }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = L.auto_spec((d, V), prefer=(1,))
+        return specs
+
+    def model_axis_refusal(self, size: int) -> str:
+        """Why the tensor-parallel forward cannot run on a ``model`` axis of
+        ``size`` ranks ('' when it can): it needs whole query and KV heads
+        on every rank, the q/k/v/gate/up weights column-sharded, o and down
+        row-sharded and the embedding vocab-sharded by ``param_specs``.
+        JAX's 'flat' policy also splits heads that do not align and GSPMD
+        re-partitions them; the port does not yet."""
+        if size == 1:
+            return ""
+        cfg = self.cfg
+        why = ""
+        if cfg.n_heads % size or cfg.n_kv_heads % size:
+            why = (f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads do "
+                   f"not split into whole heads over {size} ranks")
+        elif not cfg.tie_embeddings:
+            why = "an untied LM head"
+        else:
+            want = {"embed": (MODEL, None), "wq": (None, None, MODEL),
+                    "wk": (None, None, MODEL), "wv": (None, None, MODEL),
+                    "wo": (None, MODEL, None), "wg": (None, None, MODEL),
+                    "wu": (None, None, MODEL), "wd": (None, MODEL, None)}
+            for (path, leaf), spec in zip(
+                    T.flatten_with_path(self.init_abstract()),
+                    T.leaves(self.param_specs(), is_leaf=L.is_spec)):
+                dim = L.spec_dim(spec)
+                if want.get(path[-1], spec) != spec:
+                    why = f"{'/'.join(path)} has spec {spec}"
+                elif dim is not None and leaf.shape[dim] % size:
+                    why = (f"{'/'.join(path)} {tuple(leaf.shape)} does not "
+                           f"split over {size} ranks")
+                if why:
+                    break
+        return (f"a 'model' axis of {size}: {why}; such a mesh is not yet "
+                "ported to repro_torch (ROADMAP queue 1, item 2f)"
+                if why else "")
 
     # --------------------------------------------------------------- forward
 
-    def forward(self, params: PyTree, batch: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, V) in the activation dtype."""
+    def forward(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                tp: Optional[L.ModelAxis] = None) -> torch.Tensor:
+        """Full-sequence forward -> logits (B, S, V) in the activation
+        dtype; on a ``model`` axis (``tp``) each rank's params are its
+        shards and the logits its vocab shard (B, S, V / M)."""
         cfg = self.cfg
         adt = _DTYPES[cfg.activation_dtype]
         tokens = batch["tokens"].long()
-        h = params["embed"].to(adt)[tokens]
+        if tp is None:
+            h = params["embed"].to(adt)[tokens]
+        else:
+            h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
         B, S, _ = h.shape
+        m = 1 if tp is None else tp.size
         pos = torch.arange(S, device=h.device).expand(B, S)
-        attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd(),
-                       positions=pos, theta=cfg.rope_theta,
+        attn_kw = dict(n_heads=cfg.n_heads // m, n_kv=cfg.n_kv_heads // m,
+                       hd=cfg.hd(), positions=pos, theta=cfg.rope_theta,
                        impl=cfg.attn_impl)
         # one unbind per stacked leaf: its backward stacks the L layer
         # grads in one pass, where indexing a[i] in every layer would
@@ -135,19 +243,37 @@ class Model:
         per_layer = [a.unbind(0) for a in stacked]
         for i in range(cfg.n_layers):
             lp = T.unflatten(params["layers"], [u[i] for u in per_layer])
-            h = h + L.attention(lp["attn"], L.rmsnorm(h, lp["ln1"],
-                                                      cfg.norm_eps), **attn_kw)
-            h = h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
-        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+            x = L.to_model(L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp)
+            h = h + L.from_model(L.attention(lp["attn"], x, **attn_kw), tp)
+            x = L.to_model(L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
+            h = h + L.from_model(L.swiglu(lp["mlp"], x), tp)
+        h = L.to_model(L.rmsnorm(h, params["final_norm"], cfg.norm_eps), tp)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ head.to(h.dtype)
 
-    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor],
+             tp: Optional[L.ModelAxis] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy, {"ce": ...}); the dense family has no
-        auxiliary loss."""
-        ce, _ = cross_entropy(self.forward(params, batch), batch["labels"])
+        auxiliary loss.  On a ``model`` axis the cross-entropy is
+        vocab-parallel and every rank of the axis gets the same value."""
+        logits = self.forward(params, batch, tp)
+        if tp is None:
+            ce, _ = cross_entropy(logits, batch["labels"])
+        else:
+            ce, _ = L.vocab_parallel_cross_entropy(logits, batch["labels"],
+                                                   tp)
         return ce, {"ce": ce}
+
+
+MODEL = L.MODEL_AXIS
+
+
+def _layer_keys(key):
+    """A layer's keys, as JAX's vmapped ``one(k)`` splits them: two, then
+    4 for attention (wq, wk, wv, wo) and 3 for the MLP (wg, wu, wd)."""
+    k1, k2 = random.split(key)
+    return random.split(k1, 4), random.split(k2, 3)
 
 
 def build_model(cfg: ModelConfig) -> Model:

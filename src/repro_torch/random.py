@@ -17,9 +17,9 @@ does: ``bits >> 9 | 0x3F800000`` read as f32, minus 1.0; a range
 ``floats * (maxval - minval) + minval`` inside JAX's jitted ``_uniform``.
 ``randint`` is JAX's two-draw modulus (bit for bit); ``normal`` is
 sqrt(2) * erfinv of the exact uniform on (nextafter(-1, 0), 1), as JAX
-computes it, but ``torch.erfinv`` is not XLA's f32 ``erf_inv`` polynomial,
-so it agrees with ``jax.random.normal`` within about 6e-6 relative, not
-bit for bit.
+computes it, with XLA CPU's own f32 ``erf_inv`` (:func:`erf_inv`: Giles'
+polynomial over XLA's ``log1p`` and ``log``, each multiply-add fused as
+XLA's compiled code fuses it), so it too is bit for bit.
 
 ``permutation`` and ``choice(replace=False)`` are ``jax.random``'s shuffle
 by repeated sorts (``jax/_src/random.py`` ``_shuffle``): each round splits
@@ -29,7 +29,8 @@ a stable sort of those keys as unsigned integers.
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,13 +169,171 @@ def randint(k, n: int, minval: int, maxval: int,
 _SQRT2 = float(np.float32(np.sqrt(2)))
 
 
-def normal(k, n: int, device="cuda") -> torch.Tensor:
-    """``jax.random.normal(k, (n,))`` as JAX spells it: sqrt(2) *
-    erfinv(u), u uniform on (nextafter(-1, 0), 1) (bit for bit JAX's u).
-    ``torch.erfinv`` is not XLA's polynomial: on 2**20 values the result
-    differed from JAX's on 619,440, by at most 5.8e-6 relative."""
+def _f32(bits_hex: str) -> float:
+    """An f32 constant from the hex of its double, as LLVM IR prints it."""
+    return float(np.frombuffer(bytes.fromhex(bits_hex)[::-1], np.float64)[0])
+
+
+# The constants of XLA CPU's compiled ``erf_inv`` (jax 0.9.0), read from its
+# LLVM IR: the Cephes polynomial of its f32 ``log``, the rational
+# approximation of its ``log1p`` below |x| = sqrt(2) - 1, and Giles'
+# coefficients of ``ErfInv32`` for w < 5 and w >= 5 (highest degree first).
+_LOG_P = tuple(map(_f32, (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000")))
+_LOG_Q1, _LOG_Q2 = _f32("BF2BD01060000000"), _f32("3FE6300000000000")
+_LOG_SQRTHF = _f32("3FE6A09E60000000")
+_LOG1P_DEN = tuple(map(_f32, (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000")))
+_LOG1P_NUM = tuple(map(_f32, (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000")))
+_LOG1P_SMALL = _f32("3FDA8279A0000000")
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+#: values an ``erf_inv`` pass takes at a time (its f64 temporaries)
+_ERFINV_CHUNK = 1 << 22
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add, round(a * b + c) once, on any device, for
+    results in f32's normal range: the product is exact in f64 and the sum
+    is rounded to f64, whose rounding to f32 is then the correct one unless
+    the f64 sum fell exactly on a midpoint between two f32 values (its low
+    29 mantissa bits 1 followed by zeros); there, and only there, the
+    error of the f64 sum (TwoSum) says which way the exact value lies."""
+    p = a.double() * b
+    s = p + c
+    out = s.float()
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if bool(mid.any()):
+        pm, sm = p.expand_as(s)[mid], s[mid]
+        cm = torch.as_tensor(c, dtype=torch.float64,
+                             device=s.device).expand_as(s)[mid]
+        bb = sm - pm
+        err = (pm - (sm - bb)) + (cm - bb)
+        inf = torch.full_like(sm, float("inf"))
+        toward = torch.nextafter(sm, torch.where(err > 0, inf, -inf))
+        out[mid] = torch.where(err != 0, toward, sm).float()
+    return out
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt (torch's CPU sqrt is not, on 0.7% of
+    values): through f64, where one rounding to f32 is exact."""
+    return torch.sqrt(x.double()).float()
+
+
+def _xla_log(y: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log``: split y into a mantissa in [sqrt(1/2),
+    sqrt(2)) and an exponent e, then the Cephes polynomial in Estrin form
+    and e * ln 2 in two parts, fused as its compiled code fuses them."""
+    tiny = float(np.finfo(np.float32).tiny)
+    bits = torch.clamp(y, min=tiny).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _LOG_SQRTHF
+    e = ((bits >> 23) - 127).float() + 1.0 - small.float()
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    z = x * x
+    x3 = z * x
+    a = fma(fma(x, _LOG_P[0], _LOG_P[1]), x, _LOG_P[2])
+    b = fma(fma(x, _LOG_P[3], _LOG_P[4]), x, _LOG_P[5])
+    c = fma(fma(x, _LOG_P[6], _LOG_P[7]), x, _LOG_P[8])
+    r = (x - z * 0.5) + fma(fma(fma(a, x3, b), x3, c), x3, e * _LOG_Q1)
+    r = r + e * _LOG_Q2
+    r = torch.where(y < 0, torch.full_like(r, float("nan")), r)
+    r = torch.where(y == 0, torch.full_like(r, -float("inf")), r)
+    return torch.where(torch.isposinf(y), y, r)
+
+
+def _xla_log1p(t: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log1p``: a rational approximation for |t| below
+    sqrt(2) - 1, else ``log(1 + t)``."""
+    t2 = t * t
+    den = t + _LOG1P_DEN[0]
+    for d in _LOG1P_DEN[1:]:
+        den = fma(den, t, d)
+    num = fma(torch.full_like(t, _LOG1P_NUM[0]), t, _LOG1P_NUM[1])
+    for c in _LOG1P_NUM[2:]:
+        num = fma(num, t, c)
+    q = (num.double() / den.double()).float()
+    near = t + fma(t2, -0.5, (t * t2) * q)
+    return torch.where(t.abs() < _LOG1P_SMALL, near, _xla_log(1.0 + t))
+
+
+def erf_inv(x: torch.Tensor, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """XLA CPU's f32 ``erf_inv`` (``jax.lax.erf_inv`` jitted), bit for bit:
+    w = -log1p(-x * x); Giles' degree-8 polynomial in w - 2.5 (w < 5) or
+    sqrt(w) - 3, each step one fused multiply-add; times x; +-inf at
+    |x| = 1.  Runs in chunks of :data:`_ERFINV_CHUNK` values, into ``out``
+    (which may be ``x``) when given."""
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat) if out is None else out.reshape(-1)
+    for i in range(0, flat.numel(), _ERFINV_CHUNK):
+        xs = flat[i:i + _ERFINV_CHUNK]
+        lw = _xla_log1p(xs * -xs)
+        lt = lw > -5.0
+        w = torch.where(lt, -2.5 - lw, _sqrt(-lw) - 3.0)
+
+        def coef(j):
+            return torch.where(lt, torch.full_like(xs, _ERFINV_LT5[j]),
+                               torch.full_like(xs, _ERFINV_GE5[j]))
+        p = coef(0)
+        for j in range(1, 9):
+            p = fma(p, w, coef(j))
+        p = torch.where(xs.abs() == 1.0, torch.full_like(p, float("inf")),
+                        p)
+        out[i:i + _ERFINV_CHUNK] = xs * p
+    return out.reshape(x.shape)
+
+
+@contextlib.contextmanager
+def _serial(device: torch.device):
+    """One intra-op thread while the CPU runs the plain versions' hundreds
+    of elementwise ops: beside other busy processes, OpenMP's barriers cost
+    far more than the work (a smoke model's init took 35 s on 8 threads
+    next to 5 busy processes, 1.5 s on one).  No effect on the card."""
+    if device.type != "cpu":
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def normal_many(keys, sizes, device="cuda") -> torch.Tensor:
+    """``jax.random.normal(keys[i], (sizes[i],))`` for every i, bit for bit,
+    concatenated into one flat f32 tensor: one uniform draw per key, then
+    one :func:`erf_inv` pass over them all (many small draws, such as a
+    model's init, cost one pass)."""
+    dev = torch.device(device)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return _SQRT2 * torch.erfinv(uniform(k, n, device, minval=lo))
+    with _serial(dev):
+        u = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        off = 0
+        for k, n in zip(keys, sizes):
+            u[off:off + n] = uniform(k, n, device, minval=lo)
+            off += n
+        return erf_inv(u, out=u).mul_(_SQRT2)
+
+
+def normal(k, n: int, device="cuda") -> torch.Tensor:
+    """``jax.random.normal(k, (n,))``, bit for bit: sqrt(2) * erf_inv(u),
+    u uniform on (nextafter(-1, 0), 1) (JAX's u), with XLA's f32
+    :func:`erf_inv`.  A draw of shape s is this draw of prod(s) values
+    reshaped (threefry's counters run over the flat index)."""
+    return normal_many([k], [n], device)
 
 
 def bernoulli(k, p: float, n: int, device="cuda") -> torch.Tensor:

@@ -35,6 +35,16 @@ backward.
 ``participation_key(key)`` on every rank; each rank gates its own workers'
 messages and control variates with it, and the step reports the
 ``participants`` metric.
+
+On a mesh with a ``model`` axis (``shards``, a
+:class:`~repro_torch.distributed.aggregate.ModelShards`, with a group whose
+``model`` is that axis) every tree of the state holds this rank's shards
+(params, AdamW's m and v, h_i, h_avg, w) as ``Model.param_specs`` shards
+them; ``loss_fn`` is the tensor-parallel loss.  The compressor still acts
+on the logical gradient (``compress_local``), the decode keeps this rank's
+shard, AdamW is elementwise on shards, the norms are reduced over the
+model group, and the worker exchange runs over the worker group.  The
+in-flight payload is every worker's message, as the exchange delivers it.
 """
 
 from __future__ import annotations
@@ -49,8 +59,8 @@ from repro_torch.core.efbv import (EFBV, PIPELINE_FOLD, Downlink,
                                    Participation, Pipeline, downlink_key,
                                    participation_key)
 from repro_torch.distributed import wire
-from repro_torch.distributed.aggregate import (Pending, WorkerGroup,
-                                               broadcast_global,
+from repro_torch.distributed.aggregate import (ModelShards, Pending,
+                                               WorkerGroup, broadcast_global,
                                                combine_global, compress_local,
                                                exchange, gather_metrics)
 from repro_torch.optim.optimizers import Optimizer, apply_updates, global_norm
@@ -75,24 +85,30 @@ class TrainState(NamedTuple):
 
 def init_inflight(algo: EFBV, params: PyTree, n: int, *,
                   agg_mode: str = "dense_psum",
-                  wire_dtype: str = "float32") -> PyTree:
+                  wire_dtype: str = "float32",
+                  shards: Optional[ModelShards] = None) -> PyTree:
     """The round-0 in-flight messages of the pipelined schedule: under
     ``sparse_allgather`` leaf j's slot holds ``wire.zero_message`` under
     ``fold_in(fold_in(key(0), PIPELINE_FOLD), j)``, tiled over the n
     workers (a real wire message that decodes to exactly zero, so round 0
     applies g = h_avg + nu * 0); under ``dense_psum`` an f32 zeros tree of
-    shape (n,) + leaf shape."""
+    shape (n,) + leaf shape.  On a mesh rank (``shards``) a leaf packed in
+    place holds its part's rows (every row of a zero message is the same)."""
     if agg_mode != "sparse_allgather":
         return T.tree_map(
             lambda p: torch.zeros((n,) + tuple(p.shape), dtype=torch.float32,
                                   device=p.device), params)
     base = random.fold_in(random.key(0), PIPELINE_FOLD)
-    fmt = wire.format_for(algo.compressor, params, wire_dtype=wire_dtype)
-    return [tuple(a.unsqueeze(0).repeat((n,) + (1,) * a.dim())
-                  for a in wire.zero_message(codec, random.fold_in(base, j),
-                                             leaf.device))
-            for j, (codec, leaf) in enumerate(zip(fmt.leaves,
-                                                  T.leaves(params)))]
+    logical = params if shards is None else shards.logical
+    fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype)
+    dev = T.leaves(params)[0].device
+    out = []
+    for j, codec in enumerate(fmt.leaves):
+        part = None if shards is None else shards.part_codec(j, codec)
+        out.append(tuple(a.unsqueeze(0).repeat((n,) + (1,) * a.dim())
+                         for a in wire.zero_message(
+                             part or codec, random.fold_in(base, j), dev)))
+    return out
 
 
 def init_train_state(params: PyTree, optimizer: Optimizer, *,
@@ -101,14 +117,17 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
                      agg_mode: str = "dense_psum",
                      wire_dtype: str = "float32",
                      pipeline: Optional[Pipeline] = None,
-                     group: Optional[WorkerGroup] = None) -> TrainState:
+                     group: Optional[WorkerGroup] = None,
+                     shards: Optional[ModelShards] = None) -> TrainState:
     """h_i = 0 (f32, stacked on a leading axis over this rank's workers:
     all n without a ``group``), h_avg = 0, and w = a copy of the params
     when ``bidirectional`` (workers start from the broadcast initial model).
     A pipelined state (``pipeline`` of depth 1) also holds the priming
     in-flight messages, which need ``algo`` (and the run's ``agg_mode``
     and ``wire_dtype``): over a group under ``dense_psum`` their all-reduced
-    sum, zeros of the params' shapes."""
+    sum, zeros of the params' shapes.  On a mesh rank ``params`` are its
+    shards and ``shards`` says how (every tree of the state is sharded
+    alike)."""
     n = n_workers
     pipelined = pipeline is not None and pipeline.depth > 0
     if pipelined and algo is None:
@@ -128,7 +147,7 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
         inflight = T.tree_map(torch.zeros_like, h_avg)
     elif pipelined:
         inflight = init_inflight(algo, params, n, agg_mode=agg_mode,
-                                 wire_dtype=wire_dtype)
+                                 wire_dtype=wire_dtype, shards=shards)
     return TrainState(params=params, opt_state=optimizer.init(params), h=h,
                       h_avg=h_avg, step=0,
                       w=T.tree_map(torch.clone, params) if bidirectional
@@ -161,6 +180,7 @@ def make_train_step(
     pipeline: Optional[Pipeline] = None,
     participation: Optional[Participation] = None,
     group: Optional[WorkerGroup] = None,
+    shards: Optional[ModelShards] = None,
 ) -> Callable[[TrainState, Dict[str, Any], Any], Tuple[TrainState, dict]]:
     """Build the train step ``step(state, batch, key)``.
     ``loss_fn(params, batch) -> (loss, aux)`` sees one worker's batch
@@ -183,6 +203,9 @@ def make_train_step(
     (federated mode).  ``group`` runs this rank's workers only and
     exchanges the messages over its processes; it needs a TrainState built
     with the same group.  Without one the step is the one-process loop.
+    ``shards`` runs this rank's shards on a mesh with a ``model`` axis
+    (with ``group``, whose ``model`` is that axis, and the tensor-parallel
+    ``loss_fn``); it needs a TrainState built with the same shards.
 
     The step takes the state over, as the JAX step donates it: the
     control variates are updated in place, worker by worker."""
@@ -196,6 +219,9 @@ def make_train_step(
                          f"step {n}")
     workers = range(n) if group is None else group.workers
     summed = group is not None and agg_mode == "dense_psum"
+    if shards is not None and (group is None or group.model is None):
+        raise ValueError("model shards need a group with a 'model' axis")
+    norm = global_norm if shards is None else shards.norm
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: Dict[str, Any], key
@@ -225,10 +251,10 @@ def make_train_step(
             message, h_i_new = compress_local(
                 algo, random.fold_in(key, i), grads, h_i, mode=agg_mode,
                 wire_dtype=wire_dtype,
-                mask=None if mask is None else mask[i])
+                mask=None if mask is None else mask[i], shards=shards)
             local.append(torch.stack([
-                loss.float(), global_norm(grads),
-                global_norm(T.tree_map(torch.sub, grads, h_i_new))]))
+                loss.float(), norm(grads),
+                norm(T.tree_map(torch.sub, grads, h_i_new))]))
             T.tree_map(lambda dst, src: dst.copy_(src), h_i, h_i_new)
             messages.append(message)
             del grads, h_i_new
@@ -244,7 +270,8 @@ def make_train_step(
             applied = applied.wait()
         g, h_avg = combine_global(
             algo, applied, state.h_avg, n_workers=n, mode=agg_mode,
-            wire_dtype=wire_dtype, chunks=chunks, summed=summed)
+            wire_dtype=wire_dtype, chunks=chunks, summed=summed,
+            shards=shards)
         del applied
         inflight = message if pipelined else state.inflight
         del message
@@ -252,16 +279,16 @@ def make_train_step(
         params = apply_updates(state.params, updates)
         metrics = {k: local[:, j].contiguous().mean()
                    for j, k in enumerate(METRICS)}
-        metrics["g_norm"] = global_norm(g)
-        metrics["update_norm"] = global_norm(updates)
+        metrics["g_norm"] = norm(g)
+        metrics["update_norm"] = norm(updates)
         if federated:
             metrics["participants"] = mask.sum()
         w = state.w
         if downlink is not None:
             # phase 3: one compressed broadcast, applied by every worker
             w, _ = broadcast_global(downlink, downlink_key(key), params, w,
-                                    wire_dtype=wire_dtype)
-            metrics["w_err"] = global_norm(T.tree_map(torch.sub, params, w))
+                                    wire_dtype=wire_dtype, shards=shards)
+            metrics["w_err"] = norm(T.tree_map(torch.sub, params, w))
         return TrainState(params=params, opt_state=opt_state, h=state.h,
                           h_avg=h_avg, step=state.step + 1, w=w,
                           inflight=inflight), metrics

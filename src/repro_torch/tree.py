@@ -3,7 +3,9 @@
 JAX flattens a dict by sorted key and a list/tuple by position; the wire's
 leaf order, the per-leaf codecs and ``leaf_paths`` all depend on that
 order, so the port flattens the same way.  Containers are dicts, lists and
-tuples; ``None`` is an empty subtree; anything else is a leaf.
+tuples; ``None`` is an empty subtree; anything else is a leaf, and so is
+any node for which the optional ``is_leaf`` says so (a tuple of axis names
+in a tree of parameter specs, say).
 
 :func:`params_from_jax` and :func:`params_to_numpy` carry trees between the
 JAX package and the port, leaf by leaf: a JAX params tree (or control
@@ -15,7 +17,7 @@ and flatten order are unchanged.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,58 +37,64 @@ def _is_node(tree) -> bool:
     return isinstance(tree, (dict, list, tuple))
 
 
-def flatten_with_path(tree: PyTree) -> List[Tuple[Tuple[str, ...], Any]]:
+def flatten_with_path(tree: PyTree, is_leaf: Optional[Callable] = None
+                      ) -> List[Tuple[Tuple[str, ...], Any]]:
     """[(path segments, leaf)] in JAX's flatten order."""
     out: List[Tuple[Tuple[str, ...], Any]] = []
-    _walk(tree, (), out)
+    _walk(tree, (), out, is_leaf)
     return out
 
 
 # The recursions are module-level functions: a nested function that calls
 # itself is a reference cycle, which would keep its closure (the leaves)
 # alive until the garbage collector runs.
-def _walk(t, path, out):
+def _walk(t, path, out, is_leaf):
     if t is None:
         return
-    if _is_node(t):
+    if _is_node(t) and not (is_leaf is not None and is_leaf(t)):
         for k, v in _children(t):
-            _walk(v, path + (k,), out)
+            _walk(v, path + (k,), out, is_leaf)
     else:
         out.append((path, t))
 
 
-def leaves(tree: PyTree) -> list:
-    return [leaf for _, leaf in flatten_with_path(tree)]
+def leaves(tree: PyTree, is_leaf: Optional[Callable] = None) -> list:
+    return [leaf for _, leaf in flatten_with_path(tree, is_leaf)]
 
 
-def unflatten(like: PyTree, new_leaves) -> PyTree:
+def unflatten(like: PyTree, new_leaves,
+              is_leaf: Optional[Callable] = None) -> PyTree:
     """A tree of ``like``'s structure holding ``new_leaves`` in flatten
     order."""
     it = iter(new_leaves)
-    out = _build(like, it)
+    out = _build(like, it, is_leaf)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has slots")
     return out
 
 
-def _build(t, it):
+def _build(t, it, is_leaf):
     if t is None:
         return None
+    if is_leaf is not None and is_leaf(t):
+        return next(it)
     if isinstance(t, dict):
-        return {k: _build(t[k], it) for k in sorted(t)}
+        return {k: _build(t[k], it, is_leaf) for k in sorted(t)}
     if isinstance(t, (list, tuple)):
-        return type(t)(_build(v, it) for v in t)
+        return type(t)(_build(v, it, is_leaf) for v in t)
     return next(it)
 
 
-def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """``fn`` applied leaf-wise over trees of one structure."""
-    flat = leaves(tree)
-    others = [leaves(r) for r in rest]
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
+             is_leaf: Optional[Callable] = None) -> PyTree:
+    """``fn`` applied leaf-wise over trees of one structure (``is_leaf``
+    decides the leaves of ``tree``; ``rest`` is flattened to as many)."""
+    flat = leaves(tree, is_leaf)
+    others = [leaves(r, is_leaf) for r in rest]
     for o in others:
         if len(o) != len(flat):
             raise ValueError("tree_map over trees of different structure")
-    return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)])
+    return unflatten(tree, [fn(*xs) for xs in zip(flat, *others)], is_leaf)
 
 
 def params_from_jax(tree_of_numpy: PyTree, device="cuda") -> PyTree:

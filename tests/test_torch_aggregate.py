@@ -966,7 +966,7 @@ def _train_case(name, group=None):
     opt = adamw(cosine(3e-4, total_steps=SMOKE_STEPS, warmup_steps=1),
                 weight_decay=0.01)
     pipeline = Pipeline(1) if pipelined else None
-    params = model.init(torch.Generator().manual_seed(5), device="cpu")
+    params = model.init(R.key(5), device="cpu")
     state = init_train_state(params, opt, n_workers=n, bidirectional=down,
                              algo=algo, agg_mode=agg, pipeline=pipeline,
                              group=group)

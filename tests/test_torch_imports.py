@@ -64,3 +64,50 @@ def test_cuda_request_without_gpu_raises(which):
         pytest.skip("a GPU is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="cuda"):
         _cuda_calls()[which]()
+
+
+# -- the committed 2x2 specs run from the port's driver -----------------------
+
+SPECS_2X2 = {
+    # spec file -> exact bits it prints: uplink per worker, and the
+    # downlink broadcast and round total where it has a downlink
+    "pipelined_blocktopk.json": [5_776_384, 11_553_216, 23_105_984],
+    "qsgd_bidirectional.json": [11_553_216, 11_553_216, 34_659_648],
+    "federated_blocktopk.json": [5_776_384],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPECS_2X2))
+def test_committed_2x2_spec_runs_on_four_ranks(name):
+    """``examples/specs/<name>`` (mesh 2x2: 2 workers x 2-way tensor
+    parallelism) through ``--spec`` on four gloo ranks under torchrun, as a
+    user runs it: exit 0, the file's fingerprint, its exact bits and four
+    finite losses; nothing imports JAX."""
+    from repro_torch.core import ExperimentSpec
+
+    path = ROOT / "examples" / "specs" / name
+    spec = ExperimentSpec.from_json(path.read_text())
+    assert spec.mesh == "2x2" and spec.smoke
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--spec", str(path), "--device", "cpu", "--dist-backend", "gloo",
+         "--global-batch", "8", "--seq", "32", "--log-every", "1"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = res.stdout
+    assert re.findall(r"spec fingerprint=([0-9a-f]{16})", out) == \
+        [spec.fingerprint()]
+    assert " mesh=2x2 ranks=4 backend=gloo " in out
+    bits = [int(x) for x in re.findall(
+        r"(\d+) bits/round(?:/worker)? (?:uplink|broadcast|up\+down)", out)]
+    assert bits == SPECS_2X2[name]
+    losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", out)]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    if spec.pipeline == "depth:1":
+        assert "step     0 loss=" in out and "|g|=0.000" in out.split(
+            "step     1")[0]
+    if spec.participation != "full":
+        assert " participation=bernoulli:0.5 " in out
+        assert len(re.findall(r"\|S\|=\d/2 ", out)) == 4

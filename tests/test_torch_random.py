@@ -7,6 +7,7 @@ QSGD codec uses, and the shuffle behind ``permutation`` and
 none."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -209,11 +210,44 @@ def test_ranged_uniform_matches_jax(lo, hi):
 
 @pytest.mark.parametrize("seed", [0, 9])
 def test_normal_within_tolerance_of_jax(seed):
-    """``normal`` = sqrt(2) * erfinv(u) of JAX's exact uniform; torch's
-    erfinv is not XLA's f32 polynomial, so the values agree within 1e-5
-    relative (measured: at most 5.8e-6 on 2**20 values), not bitwise."""
-    n = 1 << 18
+    """``normal`` = sqrt(2) * erf_inv(u) of JAX's exact uniform, with XLA
+    CPU's own f32 erf_inv (fault p, closed): bitwise with
+    ``jax.random.normal`` on 2**20 values, no residue.  (``torch.erfinv``
+    differed on 619,440 of them, by up to 5.8e-6 relative.)"""
+    n = 1 << 20
     want = np.asarray(jax.random.normal(jax.random.key(seed), (n,)))
     got = R.normal(R.key(seed), n, "cpu").numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
-    assert (got.view(np.uint32) != want.view(np.uint32)).any()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_erf_inv_is_xlas_bitwise():
+    """``random.erf_inv`` against jitted ``jax.lax.erf_inv`` on 2**20
+    values spread over (-1, 1) (both branches of its log1p, w < 5 and
+    w >= 5), and at 0, +-1, +-0.5 and the ends of normal's range."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    x = np.concatenate([
+        np.random.default_rng(0).uniform(-1, 1, 1 << 20),
+        [0.0, -0.0, 1.0, -1.0, 0.5, -0.5, lo, -lo, 1e-30]]
+    ).astype(np.float32)
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(jnp.asarray(x)))
+    got = R.erf_inv(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_fma_rounds_once():
+    """``random.fma`` is round(a * b + c) with one rounding: against the
+    exact value in Python's fractions on values where two roundings
+    differ."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(2000).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    c = (-(a.astype(np.float64) * b)).astype(np.float32)
+    got = R.fma(torch.from_numpy(a), torch.from_numpy(b),
+                torch.from_numpy(c)).numpy()
+    exact = [np.float32(float(Fraction(float(x)) * Fraction(float(y))
+                              + Fraction(float(z))))
+             for x, y, z in zip(a, b, c)]
+    np.testing.assert_array_equal(got, np.array(exact, np.float32))
+    assert (got != (a * b + c)).any()

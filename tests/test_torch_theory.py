@@ -345,8 +345,8 @@ def test_smoke_field_is_part_of_the_identity():
 @pytest.mark.parametrize("kw,item", [
     (dict(leaf_codecs="*embed*=qsgd:16"), "item 6"),
     (dict(backend="fsdp", mesh="2x1", n=2, problem="qwen2-0.5b"), "item 8"),
-    (dict(backend="shard_map", mesh="2x2", n=2, problem="qwen2-0.5b"),
-     "item 2c")])
+    (dict(backend="fsdp", mesh="2x2", n=2, problem="qwen2-0.5b"),
+     "item 8")])
 def test_unported_run_surface_refused_with_its_roadmap_item(kw, item):
     r = build(ExperimentSpec(**kw))
     with pytest.raises(NotImplementedError, match=item):
@@ -355,10 +355,12 @@ def test_unported_run_surface_refused_with_its_roadmap_item(kw, item):
         else:
             r.train_step(lambda p, b: (0.0, {}), None)
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            r.make_mesh()
-        with pytest.raises(NotImplementedError, match="items 2c and 8"):
-            r.state_shardings(None, None, None)
+        # the mesh is ported (its geometry, the model axis); the fsdp
+        # state's layout is not
+        mesh = r.make_mesh()
+        assert mesh.devices_shape == r.spec.mesh_dims()
+        with pytest.raises(NotImplementedError, match="item 8"):
+            r.state_shardings(mesh, None, None)
 
 
 @pytest.mark.parametrize("kw,participants", [

@@ -307,7 +307,8 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
 @pytest.mark.parametrize("flag", [
     ["--downlink", "block_topk:256,16"], ["--leaf-codecs", "*embed*=qsgd:16"],
     ["--worker-comps", "topk:64;randk:64"], ["--trainer", "fsdp"],
-    ["--ckpt-every", "2"], ["--mesh", "2x2"], ["--wire-dtype", "bfloat16"],
+    ["--ckpt-every", "2"], ["--compressor", "sign"],
+    ["--wire-dtype", "bfloat16"],
     ["--schedule", "wsd"], ["--ckpt-dir", "ckpt"], ["--sanitize"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
@@ -338,7 +339,7 @@ def _port_run(agg, pipeline, steps=2, downlink=True):
     algo = EFBV(tcomp.BlockTopK(256, 16), lam=0.37, nu=0.61)
     opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
                 weight_decay=0.01)
-    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    params = model.init(R.key(3), device="cpu")
     down = Downlink(tcomp.QSGD(16)) if downlink else None
     state = init_train_state(params, opt, n_workers=N,
                              bidirectional=downlink, algo=algo,
