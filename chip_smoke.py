@@ -30,7 +30,10 @@ line is printed only when every phase passed):
               from 128 to 4096 (ragged rows, kb 1 / 2 / 3 / 16 / 64 /
               block) and at blocks 4224 / 8192 / 16384 / 65536 (kb 1 / 3 /
               64 / block/2 / block), a leaf below its block, ties, NaN
-              rows, +-inf and mixed types; ``wire.fused_pack`` routes a
+              rows, +-inf and mixed types, and ``efbv_update`` on exactly
+              one unreshaped (8, block) f32 tile at kb = 1, where the
+              wrapper asks for one rounding of h' (ROADMAP fault m);
+              ``wire.fused_pack`` routes a
               block % 128 != 0 to the plain path under ``auto`` and runs
               the kernel at 4224; at the 14 full-width leaves at block/kb
               256/16, 1024/16, 1024/64, 4096/64 and 8192/64, timed at
@@ -52,6 +55,16 @@ line is printed only when every phase passed):
               n = 4 on two ranks (``DIST_REF``); and ``ring_allgather``
               (staged through pinned host buffers: gloo's send of a CUDA
               tensor aborts the process) equal to ``all_gather``.
+3a. zoo -- the rest of the trainer's wire at smoke size (``ZOO_CASES``),
+              2 steps of ``build(spec)``'s trainer on the card and on the
+              CPU from the same init, batches and keys: the eight uplinks
+              that no main path runs (top-k, scaled rand-k, comp, mix,
+              sign, natural, frac top-k, frac comp) over the sparse
+              all-gather, a top-k and a block-top-k downlink, a mixed fleet
+              (``topk:64;randk:64``, dense_psum) and block-top-k on a bf16
+              and an f16 wire: each case's exact bits, the losses within
+              the CPU tests' 1e-5 relative and the params within AdamW's
+              bound of the CPU's.
 3b. reference backend -- through the spec (``repro_torch.core.build``):
               the committed ``examples/specs/reference_logreg_efbv.json``
               (500 rounds, n = 16, d = 64, comp-(2, 32), auto-tuned) on the
@@ -75,6 +88,11 @@ line is printed only when every phase passed):
               * federated: block-top-k (256, 16) up, ``--participation
                 fixed:1``: ``|S|=1/2`` at every step and the federated wire
                 line with ``E|S_t|=1 of 2``;
+              * leaf_codecs: block-top-k (256, 16) with ``--leaf-codecs
+                '*embed*=qsgd:16;*norm*=identity'`` (the per-leaf wire:
+                the embedding QSGD, the final norm dense, 12 leaves
+                block-sparse): 2,520,694,816 bits a worker, 72
+                ``pack_update`` and 6 ``qsgd_pack_update`` launches;
               * smoke_flags: ROADMAP's SMOKE flags (block-top-k (256,
                 16) up, QSGD(16) down, sequential), the mesh path's
                 reference (not profiled);
@@ -117,8 +135,9 @@ line is printed only when every phase passed):
               final params (``mesh_params_check``); per rank the step ms,
               the host ms, calls and bytes sent of the model-axis
               collectives and of the worker exchange, and the peak.  Then
-              the three committed 2x2 specs (``examples/specs/``
-              pipelined_blocktopk, qsgd_bidirectional, federated_blocktopk)
+              the four committed 2x2 specs (``examples/specs/``
+              pipelined_blocktopk, qsgd_bidirectional, federated_blocktopk,
+              tree_mixed_codecs)
               at smoke size on four ranks (``--dist-child mesh_specs``):
               each prints the file's fingerprint, its exact bits and four
               finite losses, with its launches per rank as MESH_SPECS
@@ -183,6 +202,10 @@ INT_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "PRMT"}
 FULL_BITS = 1_976_131_584        # qwen2-0.5b, block_topk:256,16, per worker
 QSGD_BITS = 3_952_262_592        # qwen2-0.5b, qsgd:16, per worker and down
 QSGD_TOTAL_BITS = 11_856_787_776  # 2 uplink payloads + 1 broadcast
+# qwen2-0.5b, block_topk:256,16 with '*embed*=qsgd:16;*norm*=identity', per
+# worker: the embed leaf QSGD, final_norm dense, the other 12 block-sparse
+LEAF_CODECS_BITS = 2_520_694_816
+LEAF_RULES = "*embed*=qsgd:16;*norm*=identity"
 RANDK_BITS = 541_450_240         # qwen2-0.5b, randk:1048576, per worker
 # pipelined: block-top-k up (FULL_BITS per worker), QSGD(16) down
 PIPELINED_TOTAL_BITS = 7_904_525_760
@@ -1300,6 +1323,26 @@ def kernels_dense():
                                   randn(n, bf16), randn(n), 256, kb)[4])
         err = max(err, dense_case("efbv_update", f"mixed_f32_bf16_kb{kb}",
                                   randn(n), randn(n, bf16), 256, kb)[4])
+    # exactly one unreshaped (8, block) f32 tile at kb = 1: the wrapper asks
+    # for one rounding of h' (ROADMAP fault m); the kernel equals its plain
+    # version there, and the same values given flat round twice
+    for block in (128, 1024, 8192):
+        g, h = randn(8 * block).view(8, block), randn(8 * block).view(8, block)
+        got = ops.efbv_update(g, h, 0.37, block=block, kb=1)
+        want = ops.efbv_update(g.cpu(), h.cpu(), 0.37, block=block, kb=1)
+        flat = ops.efbv_update(g.reshape(-1), h.reshape(-1), 0.37,
+                               block=block, kb=1)[1].view(8, block)
+        fma = torch.add(h, got[0], alpha=0.37)
+        ok = all(same_bits(a.cpu(), b) for a, b in zip(got, want)) and \
+            same_bits(got[1], fma)
+        twice = int((got[1] != flat).sum())
+        print(f"[kernels] efbv_update one (8, {block}) f32 tile kb=1: kernel "
+              f"{'==' if ok else '!='} plain version, h' one fused rounding; "
+              f"{twice} of {8 * block} values differ from the flat input's "
+              "two roundings")
+        if not ok:
+            raise AssertionError(f"[kernels] efbv_update one tile {block}: "
+                                 "kernel != plain version")
     # a block % 128 != 0 raises on the card
     try:
         ops.block_topk(randn(400), block=100, kb=4)
@@ -1470,6 +1513,105 @@ def phase_reference():
             if not (math.isfinite(b) and abs(a - b) <= 1e-3 * abs(a)):
                 raise AssertionError(f"[reference] {name}: GPU loss {b} vs "
                                      f"CPU {a}")
+
+
+#: the zoo phase: the rest of the trainer's wire at smoke size, as spec
+#: fields over block-top-k up on the sparse all-gather: the eight uplinks
+#: that PR 12-21's paths do not run, a top-k and a block-top-k downlink, a
+#: mixed fleet (dense_psum) and the bf16 and f16 wires
+ZOO_CASES = {
+    "topk": {"compressor": "topk:64"},
+    "scaled_randk": {"compressor": "scaled_randk:64"},
+    "comp": {"compressor": "comp:64,256"},
+    "mix": {"compressor": "mix:32,32"},
+    "sign": {"compressor": "sign"},
+    "natural": {"compressor": "natural"},
+    "frac_topk": {"compressor": "frac_topk:50"},
+    "frac_comp": {"compressor": "frac_comp:10,200"},
+    "down_topk": {"downlink": "topk:64"},
+    "down_block_topk": {"downlink": "block_topk:256,16"},
+    "fleet": {"compressor": "topk:64;randk:64", "agg": "dense_psum"},
+    "wire_bf16": {"wire_dtype": "bfloat16"},
+    "wire_f16": {"wire_dtype": "float16"},
+}
+ZOO_STEPS = 2
+
+
+def zoo_steps(spec, cfg, params):
+    """``ZOO_STEPS`` steps of ``build(spec)``'s trainer from ``params`` (on
+    their device), the batches of ``SyntheticLM`` seed 0 and the step keys
+    fold_in(key(0), s).  Returns (losses, final params)."""
+    from repro_torch import random
+    from repro_torch.core import build
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine
+
+    run_ = build(spec)
+    opt = adamw(cosine(3e-4, total_steps=ZOO_STEPS, warmup_steps=0),
+                weight_decay=0.01)
+    state = run_.init_state(params, opt)
+    step_fn = run_.train_step(build_model(cfg).loss, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
+                       n_workers=spec.n, seed=0)
+    losses = []
+    for s in range(ZOO_STEPS):
+        state, m = step_fn(state, data.batch(s), random.fold_in(
+            random.key(0), s))
+        losses.append(float(m["loss"]))
+    return losses, state.params
+
+
+def phase_zoo():
+    """Every ``ZOO_CASES`` entry for ``ZOO_STEPS`` smoke steps on the card
+    (kernel path) and on the CPU (plain path) from the same init, batches
+    and keys: its exact bits (``Run.round_bits`` on the smoke tree), and
+    the card held to the CPU with the CPU tests' loss tolerance against JAX
+    (f32 activations, 1e-5 relative).  The params must stay within AdamW's
+    bound, 2.02 x the sum of lr_t (as ``mesh_params_check``): f32 matmuls
+    sum in another order on the card, and a selection by magnitude can
+    then take the other value of a near-tie -- for comp-(k, k') the rank
+    order of the top k' that its random draw indexes -- which AdamW turns
+    into a move of about lr; the share of params more than 1e-5 apart is
+    printed."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.core import ExperimentSpec, build
+
+    from repro_torch.optim.schedules import cosine
+
+    cfg, params = smoke_params()
+    sched = cosine(3e-4, total_steps=ZOO_STEPS, warmup_steps=0)
+    bound = 2.02 * sum(sched(t) for t in range(ZOO_STEPS))
+    base = ExperimentSpec(compressor="block_topk:256,16",
+                          agg="sparse_allgather", backend="shard_map",
+                          problem="qwen2-0.5b", smoke=True, mesh="2x1", n=2,
+                          d=cfg.d_model * cfg.d_ff, steps=ZOO_STEPS)
+    t0 = time.perf_counter()
+    for name, fields in ZOO_CASES.items():
+        spec = dataclasses.replace(base, **fields)
+        bits = build(spec).round_bits(params)
+        cpu, pc = zoo_steps(spec, cfg, params)
+        gpu, pg = zoo_steps(spec, cfg, T.tree_map(lambda p: p.cuda(),
+                                                  params))
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(cpu, gpu))
+        diff = torch.cat([(b.cpu() - a).abs().reshape(-1)
+                          for a, b in zip(T.leaves(pc), T.leaves(pg))])
+        share = float((diff > 1e-5).float().mean())
+        worst = float(diff.max())
+        print(f"[zoo] {name} {fields}: bits up={bits['up']} "
+              f"down={bits['down']} total={bits['total']}; losses cpu={cpu} "
+              f"gpu={gpu} max rel diff {loss_err:.3e} (limit 1e-5); params "
+              f"max |diff| {worst:.3e} (bound {bound:.3e}), share > 1e-5 "
+              f"{share:.5f}")
+        if not (all(map(math.isfinite, gpu)) and loss_err <= 1e-5
+                and worst <= bound):
+            raise AssertionError(f"[zoo] {name}: card vs CPU beyond the "
+                                 "CPU tests' tolerance")
+    print(f"[zoo] {len(ZOO_CASES)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 #: the reference backend's committed spec (phase 3b, case a)
@@ -1989,6 +2131,24 @@ PATHS = {
         "profile": None,
         "keep_params": True,
     },
+    # per-leaf codecs: QSGD(16) on the embedding, the final norm dense,
+    # block-top-k on the other 12 leaves (the TreeWire)
+    "leaf_codecs": {
+        "argv": BASE_ARGV + ["--compressor", "block_topk:256,16",
+                             "--leaf-codecs", LEAF_RULES],
+        "bits": {r"codec=(\S+) \d+ bits/round/worker":
+                 ["block_sparse,dense_pack,qsgd_quant"],
+                 r"(\d+) bits/round/worker": [LEAF_CODECS_BITS],
+                 r"\((\d+\.\d+) MiB": ["300.49"],
+                 r"(\d\.\d+)x dense fp32": ["0.1594"]},
+        # 12 leaves packed by the pack kernel, the embed leaf quantized
+        # (and its uniforms drawn), per worker and step
+        "launches": {"pack_update": (FULL_LEAVES - 2) * WORKERS * STEPS,
+                     "qsgd_pack_update": WORKERS * STEPS, "randk_update": 0,
+                     "threefry_uniform": WORKERS * STEPS + INIT_DRAWS},
+        "profile": ("pack_update_rows", "qsgd_pack_update_kernel",
+                    "threefry_fill_kernel"),
+    },
     # the pipelined path's flags as a spec file (``spec_from_args``,
     # written just before the run), run with --spec and the same runtime
     # flags: the same fingerprint and, at every step, the same loss and
@@ -2056,6 +2216,18 @@ MESH_SPECS = {
     "pipelined_blocktopk": {"pack_update": 56, "threefry_uniform": 56 + SMOKE_INIT_DRAWS},
     "qsgd_bidirectional": {"qsgd_pack_update": 56, "threefry_uniform": 112 + SMOKE_INIT_DRAWS},
     "federated_blocktopk": {"pack_update": 56, "threefry_uniform": 4 + SMOKE_INIT_DRAWS},
+    # per-leaf codecs: 12 block-sparse leaves packed, the embed leaf
+    # quantized (its uniforms drawn) once a step
+    "tree_mixed_codecs": {"pack_update": 48, "qsgd_pack_update": 4,
+                          "threefry_uniform": 4 + SMOKE_INIT_DRAWS},
+}
+#: the exact bits each committed 2x2 spec prints: uplink per worker, and
+#: the downlink broadcast and round total where it has a downlink
+MESH_SPEC_BITS = {
+    "pipelined_blocktopk": [5_776_384, 11_553_216, 23_105_984],
+    "qsgd_bidirectional": [11_553_216, 11_553_216, 34_659_648],
+    "federated_blocktopk": [5_776_384],
+    "tree_mixed_codecs": [6_832_160],
 }
 #: each one-process path's step records (``recording``), for DIST_PATHS
 #: and the spec path
@@ -2381,7 +2553,7 @@ def mesh_params_check():
 
 
 def phase_mesh_specs():
-    """The three committed 2x2 specs at smoke size on four gloo ranks:
+    """The four committed 2x2 specs at smoke size on four gloo ranks:
     each exits 0 (the launch), prints the file's fingerprint, its exact
     bits and four finite losses, and launches its kernels as MESH_SPECS
     says on every rank.  Returns the launches summed over the ranks and
@@ -2396,9 +2568,7 @@ def phase_mesh_specs():
     for name, want in MESH_SPECS.items():
         spec = ExperimentSpec.from_json(
             (ROOT / "examples" / "specs" / f"{name}.json").read_text())
-        bits = {"pipelined_blocktopk": [5_776_384, 11_553_216, 23_105_984],
-                "qsgd_bidirectional": [11_553_216, 11_553_216, 34_659_648],
-                "federated_blocktopk": [5_776_384]}[name]
+        bits = MESH_SPEC_BITS[name]
         for r, log in enumerate(logs):
             seg = log.split(f"[mesh-specs] begin {name}")[1].split(
                 f"[mesh-specs] end {name}")[0]
@@ -2772,6 +2942,8 @@ def main():
     timing = phase_kernels()
     torch.cuda.empty_cache()
     phase_reference()
+    torch.cuda.empty_cache()
+    phase_zoo()
     torch.cuda.empty_cache()
     phase_reference_dist()
     launches = {}

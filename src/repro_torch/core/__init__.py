@@ -18,8 +18,7 @@ parallelism over a group's model sub-group, ``train_step(group=...,
 shards=...)``), and ``Run.state_shardings`` each state leaf's spec.
 
 Not yet ported, and refused with the ROADMAP item that ports it:
-``round_bits`` under per-leaf codec rules (item 6); ``train_step`` for the
-fsdp backend (item 8).  ``Run.reference()`` and ``problem_instance()`` run
+``train_step`` for the fsdp backend (item 8).  ``Run.reference()`` and ``problem_instance()`` run
 on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -647,16 +646,13 @@ class Run:
         gradient tree shaped like ``tree`` (default: the spec's flat (d,)
         vector): ``{'up', 'down', 'total', 'dense_both_ways'}``, n uplink
         payloads (federated: the bitmap and E|S_t| of them) plus one
-        broadcast."""
+        broadcast; under per-leaf codec rules the uplink is the
+        ``TreeWire``'s (``wire.tree_format_for``)."""
         import torch
 
         from repro_torch.distributed import wire
 
         spec = self.spec
-        if self.algo.leaf_rules:
-            raise NotImplementedError(
-                "Run.round_bits under per-leaf codec rules (TreeWire) is not "
-                "yet ported to repro_torch (ROADMAP queue 1, item 6)")
         if tree is None:
             tree = torch.zeros(spec.d, dtype=torch.float32, device="meta")
         n = spec.n
@@ -685,8 +681,9 @@ class Run:
                     else down_fmt.downlink_bits_per_round())
             total = up + down
         else:
-            up_fmt = wire.format_for(self.compressor, tree,
-                                     wire_dtype=spec.wire_dtype)
+            up_fmt = wire.tree_format_for(self.compressor, tree,
+                                          wire_dtype=spec.wire_dtype,
+                                          rules=self.algo.leaf_rules)
             up = up_fmt.bits_per_round(n_workers=n, participants=participants)
             total = wire.total_round_bits(up_fmt, down_fmt, n_workers=n,
                                           participants=participants)

@@ -68,10 +68,10 @@ def _scatter_decode(payload, d: int) -> torch.Tensor:
     return out.index_add_(0, idx.reshape(-1).long(), vals.reshape(-1))
 
 
-def _flat_sparse_codec(compressor, shape, k: int):
+def _flat_sparse_codec(compressor, shape, k: int, wire_dtype: str):
     from repro_torch.distributed import wire
     return wire.FlatSparse(shape=tuple(shape), size=int(math.prod(shape)),
-                           k=k, selector=compressor)
+                           k=k, selector=compressor, val_dtype=wire_dtype)
 
 
 class Compressor:
@@ -94,12 +94,15 @@ class Compressor:
     def __call__(self, key, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def codec(self, shape: Tuple[int, ...]):
-        """The wire codec of one leaf: the dense value stream unless the
-        compressor declares its own layout."""
+    def codec(self, shape: Tuple[int, ...], *, wire_dtype: str = "float32"):
+        """The wire codec of one leaf, its values of ``wire_dtype``: the
+        dense value stream unless the compressor declares its own layout.
+        The quantized and bit-packed codecs (QSGD, sign, natural) ignore
+        the dtype."""
         from repro_torch.distributed import wire
         return wire.DensePack(shape=tuple(shape),
-                              size=int(math.prod(shape)), compressor=self)
+                              size=int(math.prod(shape)), compressor=self,
+                              val_dtype=wire_dtype)
 
     def encode(self, key, x: torch.Tensor):
         raise NotImplementedError(
@@ -138,8 +141,8 @@ class TopK(Compressor):
         xf = x.reshape(-1)
         return (xf * _mask_at(xf, _topk_idx(xf, self.k))).reshape(x.shape)
 
-    def codec(self, shape):
-        return _flat_sparse_codec(self, shape, self.k)
+    def codec(self, shape, *, wire_dtype="float32"):
+        return _flat_sparse_codec(self, shape, self.k, wire_dtype)
 
     def encode(self, key, x):
         """(values (k,), int32 positions (k,)), largest |x| first."""
@@ -173,11 +176,11 @@ class RandK(Compressor):
         idx = random.choice(key, d, self.k, xf.device)
         return ((xf * _mask_at(xf, idx)) * _f32(d / self.k)).reshape(x.shape)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.RandKSparse(shape=tuple(shape),
                                 size=int(math.prod(shape)), k=self.k,
-                                selector=self)
+                                selector=self, val_dtype=wire_dtype)
 
     def encode(self, key, x):
         """(values (k,) = x[idx] * f32(d / k), idx (k,) int32)."""
@@ -208,8 +211,8 @@ class ScaledRandK(Compressor):
         idx = random.choice(key, xf.numel(), self.k, xf.device)
         return (xf * _mask_at(xf, idx)).reshape(x.shape)
 
-    def codec(self, shape):
-        return _flat_sparse_codec(self, shape, self.k)
+    def codec(self, shape, *, wire_dtype="float32"):
+        return _flat_sparse_codec(self, shape, self.k, wire_dtype)
 
     def encode(self, key, x):
         xf = x.reshape(-1)
@@ -247,8 +250,8 @@ class CompKK(Compressor):
         mask = _mask_at(xf, self._keep(key, xf))
         return ((xf * mask) * _f32(self.kp / self.k)).reshape(x.shape)
 
-    def codec(self, shape):
-        return _flat_sparse_codec(self, shape, self.k)
+    def codec(self, shape, *, wire_dtype="float32"):
+        return _flat_sparse_codec(self, shape, self.k, wire_dtype)
 
     def encode(self, key, x):
         xf = x.reshape(-1)
@@ -292,8 +295,8 @@ class MixKK(Compressor):
         mask[rnd_idx] = 1.0
         return (xf * mask).reshape(x.shape)
 
-    def codec(self, shape):
-        return _flat_sparse_codec(self, shape, self.k + self.kp)
+    def codec(self, shape, *, wire_dtype="float32"):
+        return _flat_sparse_codec(self, shape, self.k + self.kp, wire_dtype)
 
     def encode(self, key, x):
         """k top positions then k' random ones, disjoint by construction,
@@ -327,10 +330,11 @@ class BlockTopK(Compressor):
         mask = torch.zeros_like(xp).scatter(1, idx, 1.0)
         return (xp * mask).reshape(-1)[:d].reshape(x.shape)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.LeafWire(shape=tuple(shape), size=int(math.prod(shape)),
-                             block=self.block, kb=self.kb)
+                             block=self.block, kb=self.kb,
+                             val_dtype=wire_dtype)
 
     def encode(self, key, x):
         """Per-block (values, block-local indices), (nb, kb) each: the
@@ -356,12 +360,15 @@ class SignNorm(Compressor):
         return 0.0
 
     def __call__(self, key, x):
+        """(sum|x| * f32(1/d)) * sgn(x): jitted XLA rewrites the division
+        by the constant d into that product (differing from the quotient
+        for d = 3, 5, 7, 1000 on a third of draws)."""
         xf = x.reshape(-1)
-        scale = xf.abs().sum() / xf.numel()
+        scale = xf.abs().sum() * _f32(1.0 / xf.numel())
         sgn = torch.where(xf < 0, -1.0, 1.0)
         return (scale * sgn).reshape(x.shape)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.SignPack(shape=tuple(shape), size=int(math.prod(shape)))
 
@@ -420,7 +427,7 @@ class Natural(Compressor):
         mag = exp2_int(natural_exponent(key, a))
         return torch.where(a > 0, jsign(xf) * mag, 0.0).reshape(x.shape)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.NaturalPack(shape=tuple(shape),
                                 size=int(math.prod(shape)))
@@ -456,7 +463,7 @@ class QSGD(Compressor):
                           torch.zeros_like(q))
         return out.reshape(x.shape)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.QsgdQuant(shape=tuple(shape), size=int(math.prod(shape)),
                               s=self.s)
@@ -481,8 +488,9 @@ class FracTopK(Compressor):
     def __call__(self, key, x):
         return TopK(self._k(x.numel()))(key, x)
 
-    def codec(self, shape):
-        return _flat_sparse_codec(self, shape, self._k(int(math.prod(shape))))
+    def codec(self, shape, *, wire_dtype="float32"):
+        return _flat_sparse_codec(self, shape, self._k(int(math.prod(shape))),
+                                  wire_dtype)
 
     def encode(self, key, x):
         return TopK(self._k(x.numel())).encode(key, x)
@@ -515,9 +523,10 @@ class FracCompKK(Compressor):
     def __call__(self, key, x):
         return CompKK(*self._kk(x.numel()))(key, x)
 
-    def codec(self, shape):
+    def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape,
-                                  self._kk(int(math.prod(shape)))[0])
+                                  self._kk(int(math.prod(shape)))[0],
+                                  wire_dtype)
 
     def encode(self, key, x):
         return CompKK(*self._kk(x.numel())).encode(key, x)

@@ -465,10 +465,11 @@ class Downlink:
         encoded under ``fold_in(key, j)`` and
         ``w_new = w + lam_s * decode(payload)``, computed from the decoded
         payload so master and workers agree bit for bit, rounded as jitted
-        JAX rounds it: once (fused), or twice after a decode that ends in
-        a select (QSGD, natural: ``LeafCodec.DECODE_SELECTS``; at lam_s =
-        0.9 on 4096 values the other spelling differed from JAX on 58 and
-        72); a lossless wire assigns ``w_new = x``.
+        JAX rounds it (``LeafCodec.update(contract=True)``): once (fused),
+        or twice after a decode that ends in a select (QSGD, natural:
+        ``LeafCodec.DECODE_SELECTS``; at lam_s = 0.9 on 4096 values the
+        other spelling differed from JAX on 58 and 72); a lossless wire
+        (the identity at lam_s = 1 on an f32 wire) assigns ``w_new = x``.
 
         ``gather(j, t)`` and ``shard(j, t)`` (a mesh rank of the ``model``
         axis: x and w are shards) turn leaf j's shard of x - w into the
@@ -491,11 +492,7 @@ class Downlink:
                 continue
             q = codec.decode(payload)
             q = (q if shard is None else shard(j, q)).reshape(xj.shape)
-            if codec.DECODE_SELECTS:
-                wn = wj.float() + self.lam * q
-            else:
-                wn = torch.add(wj.float(), q, alpha=self.lam)
-            new_leaves.append(wn.to(wj.dtype))
+            new_leaves.append(codec.update(wj, q, self.lam, contract=True))
         return T.unflatten(w, new_leaves), payloads
 
 

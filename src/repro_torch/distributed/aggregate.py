@@ -75,15 +75,25 @@ ALIGN = 4
 
 def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
                    mode: str = "dense_psum", wire_dtype: str = "float32",
-                   mask=None, shards: Optional["ModelShards"] = None
+                   mask=None, worker: Optional[int] = None,
+                   shards: Optional["ModelShards"] = None
                    ) -> Tuple[Any, PyTree]:
-    """d_i = C(grad_i - h_i); h_i <- h_i + lam d_i.
+    """d_i = C_i(grad_i - h_i); h_i <- h_i + lam d_i.
 
     ``key`` is this worker's threefry key (or None for a deterministic
     compressor); leaf j draws from ``fold_in(key, j)``.  Returns (message,
     h_local_new): the dense d_i tree (dense_psum) or the list of per-leaf
     payloads in flatten order (sparse_allgather), where each leaf's fused
-    pack emits the payload and the h update in one pass.
+    pack emits the payload and the h update in one pass, and each plain
+    codec rounds h + lam d as the jitted JAX trainer does
+    (``wire.LeafCodec.update(contract=True)``).  Under ``algo.leaf_rules``
+    leaf j runs the compressor its path resolves to, clamped to the leaf
+    (``wire.tree_format_for``; under dense_psum the same compressors,
+    dense).
+
+    ``worker`` is this worker's linear index, which a heterogeneous fleet
+    (``algo.fleet``) needs: worker i runs ``algo.fleet[i]``.  Mixed fleets
+    send dense messages of one shape, so they run under dense_psum only.
 
     ``mask`` is this worker's scalar participation for the round (a 0-dim
     tensor or a number): at 0 the message is gated to decode-zero
@@ -99,11 +109,30 @@ def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
     """
     if mode not in AGG_MODES:
         raise ValueError(f"mode {mode!r} not in {AGG_MODES}")
+    if algo.fleet is not None:
+        if mode != "dense_psum":
+            raise ValueError(
+                "mixed fleets need a uniform per-worker message shape; "
+                "mode='sparse_allgather' cannot stack heterogeneous "
+                "payloads -- use mode='dense_psum'")
+        if worker is None:
+            raise ValueError("mixed-fleet compress_local needs the worker "
+                             "index (worker=)")
     leaves = T.leaves(grads)
     h_leaves = T.leaves(h_local)
     logical = grads if shards is None else shards.logical
-    fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype) \
+    fmt = wire.tree_format_for(algo.compressor, logical, wire_dtype=wire_dtype,
+                               rules=algo.leaf_rules) \
         if mode == "sparse_allgather" else None
+    # the dense path's compressor of each leaf
+    comps = [algo.compressor] * len(leaves)
+    if algo.fleet is not None:
+        comps = [algo.fleet[worker]] * len(leaves)
+    elif algo.leaf_rules and fmt is None:
+        comps = [wire.clamp_for_leaf(
+            wire.resolve_leaf(algo.leaf_rules, p, algo.compressor),
+            leaf.numel()) for p, leaf in zip(wire.leaf_paths(logical),
+                                             T.leaves(logical))]
     msgs, h_new = [], []
     for j, (g_leaf, h_leaf) in enumerate(zip(leaves, h_leaves)):
         kj = None if key is None else random.fold_in(key, j)
@@ -115,12 +144,12 @@ def compress_local(algo: EFBV, key, grads: PyTree, h_local: PyTree, *,
         if fmt is not None:
             codec = fmt.leaves[j] if part is None else part
             payload, h_leaf_new = wire.encode_update(
-                codec, kj, g_leaf, h_leaf, algo.lam)
+                codec, kj, g_leaf, h_leaf, algo.lam, contract=True)
             if mask is not None:
                 payload = codec.mask_message(payload, mask)
             msgs.append(payload)
         else:
-            d_leaf = algo.compressor(kj, g_leaf - h_leaf)
+            d_leaf = comps[j](kj, g_leaf - h_leaf)
             h_leaf_new = algo.worker_update(h_leaf, d_leaf)
             if whole:  # the dense message: this rank's shard of d
                 d_leaf = shards.shard(j, d_leaf)
@@ -323,11 +352,12 @@ class ModelShards:
 
     def part_codec(self, j: int, codec) -> Optional[wire.LeafWire]:
         """The codec of this rank's part of leaf j's payload when it packs
-        in place: a block-sparse leaf sharded on a dim whose contiguous run
-        per shard (shard's dim size times the trailing dims) is a multiple
-        of the block, so every block lies inside one shard and the shard's
-        blocks, in order, are its rows of the logical payload.  None: the
-        leaf is replicated, or packs whole after a gather."""
+        in place: a block-sparse leaf (of any wire dtype, a TreeWire's
+        too) sharded on a dim whose contiguous run per shard (shard's dim
+        size times the trailing dims) is a multiple of the block, so every
+        block lies inside one shard and the shard's blocks, in order, are
+        its rows of the logical payload.  None: the leaf is replicated, or
+        packs whole after a gather (every other codec)."""
         dim = self.dims[j]
         if dim is None or not isinstance(codec, wire.LeafWire):
             return None
@@ -336,8 +366,7 @@ class ModelShards:
         if run % codec.block:
             return None
         shard = self.shard_shape(j)
-        return wire.LeafWire(shape=shard, size=math.prod(shard),
-                             block=codec.block, kb=codec.kb)
+        return dataclasses.replace(codec, shape=shard, size=math.prod(shard))
 
     def norm(self, tree: PyTree) -> torch.Tensor:
         """The global L2 norm of the logical tree from this rank's shards:
@@ -636,7 +665,9 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
                                       message_stacked)
     else:
         logical = h_avg if shards is None else shards.logical
-        fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype)
+        fmt = wire.tree_format_for(algo.compressor, logical,
+                                   wire_dtype=wire_dtype,
+                                   rules=algo.leaf_rules)
         d_leaves = []
         for j, (payload, codec, ref) in enumerate(zip(
                 message_stacked, fmt.leaves, T.leaves(h_avg))):

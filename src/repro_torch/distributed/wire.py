@@ -5,17 +5,24 @@ Every codec of the JAX zoo's compressors:
 
   codec         compressors                         payload of one leaf
   ------------  ----------------------------------  --------------------------
-  LeafWire      block-top-k                         (values f32, local idx
+  LeafWire      block-top-k                         (values, local idx
                                                     int32), (nb, kb) each
-  FlatSparse    top-k, scaled rand-k, comp-(k,k'),  (values f32, global idx
+  FlatSparse    top-k, scaled rand-k, comp-(k,k'),  (values, global idx
                 mix-(k,k'), frac-*                  int32), (k,) each
   RandKSparse   rand-k                              as FlatSparse
   SignPack      sign (L1-norm scaled)               f32 scale + 32-bit bitmap
   QsgdQuant     QSGD(s)                             f32 norm + int8/16 levels
   NaturalPack   natural compression                 int8 exponents + bitmap
-  DensePack     identity, m-nice (and any other)    f32 values
+  DensePack     identity, m-nice (and any other)    values
 
-with the flat :class:`WireFormat` over a params tree, uplink and downlink,
+``val_dtype`` (float32, bfloat16 or float16) is the type of the values of
+LeafWire, FlatSparse and DensePack; scales, norms, levels, signs and
+exponents keep theirs.  A value rounds to nearest even into the wire type
+and the decode reads it back exactly, so the control variate tracks the
+rounded values: a non-f32 wire takes the plain encode -> decode -> update
+path, as the JAX package's does.
+
+The flat :class:`WireFormat` over a params tree, uplink and downlink,
 and its federated accounting (``bits_per_round(participants=)``,
 :func:`federated_round_bits`); the participation gate
 (:func:`mask_message`, a scalar or an (n,) mask); and the pieces of the
@@ -24,10 +31,10 @@ pipelined exchange: the decode-zero priming message
 worker-axis chunk rule (:func:`pipeline_chunks`) and the chunked
 decode-sum (:func:`chunked_decode_sum`); a heterogeneous fleet's
 per-worker formats (:func:`fleet_formats`, :func:`fleet_bits_per_round`);
-and the per-leaf codec rules' grammar (:func:`parse_leaf_rules`,
-:func:`resolve_leaf`).  The wire dtypes other than f32, the per-leaf
-``TreeWire`` and the serving envelopes are not yet ported.  A bitmap's uint32 words are held as int32 with the same bits
-(torch has no uint32 arithmetic on the CPU).
+and the per-leaf wire: the codec rules' grammar (:func:`parse_leaf_rules`,
+:func:`resolve_leaf`), :class:`TreeWire` and :func:`tree_format_for`.  The
+serving envelopes are not yet ported.  A bitmap's uint32 words are held as
+int32 with the same bits (torch has no uint32 arithmetic on the CPU).
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
 ``kernel=`` argument): ``auto`` goes through the kernel wrapper, which
@@ -37,8 +44,17 @@ CUDA; ``oracle`` takes the codec's plain encode -> decode -> update, the
 reference the tests hold the others against.  The wrappers' two sides
 match the Pallas kernels bit for bit.  Codecs without a kernel run their
 plain encode -> decode -> update under ``auto`` and ``oracle``, and raise
-under ``cuda``.  A block-top-k leaf whose block is not a multiple of 128
-takes the plain path under ``auto``, as JAX's ``fused_pack`` does.
+under ``cuda``.  A block-top-k leaf whose block is not a multiple of 128,
+and a block-top-k or rand-k leaf on a non-f32 wire, take the plain path
+under ``auto``, by shape and type before any launch, as the JAX package's
+dispatch routes them; ``cuda`` raises there.
+
+The plain path's h' = h + lam * d rounds each op on its own, as JAX's
+base ``encode_update`` computes it outside ``jit``.  The trainer's worker
+update (``contract=True``, from ``aggregate.compress_local``) rounds it
+as XLA does under ``jit``: one fused multiply-add, except after a decode
+that ends in a select (``LeafCodec.DECODE_SELECTS``: QSGD, natural), where
+the two roundings stay (ROADMAP faults a and r).
 
 For block-top-k the oracle matches JAX's jnp oracle, which differs from the
 kernel in two places: it gathers a selected -0.0 as -0.0 (the kernel sends
@@ -73,6 +89,32 @@ from repro_torch.kernels.ref import level_dtype, to_levels, topk_rows
 PyTree = Any
 KERNEL_MODES = ("auto", "cuda", "oracle")
 MASK32 = 0xFFFFFFFF
+#: the wire's value dtypes by name
+VAL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+
+
+def val_torch_dtype(val_dtype: str) -> torch.dtype:
+    """The torch type of a wire value dtype's name."""
+    if val_dtype not in VAL_DTYPES:
+        raise ValueError(f"wire value dtype {val_dtype!r} not in "
+                         f"{tuple(VAL_DTYPES)}")
+    return VAL_DTYPES[val_dtype]
+
+
+def _val_bits(val_dtype: str) -> int:
+    return 8 * val_torch_dtype(val_dtype).itemsize
+
+
+def to_wire(x: torch.Tensor, val_dtype: str) -> torch.Tensor:
+    """f32 values in the wire type, rounded to nearest even as XLA
+    converts them; a NaN becomes bf16's quiet NaN of its sign, as in XLA
+    (torch's conversion on the CPU gives 0xffff for every NaN)."""
+    y = x.to(val_torch_dtype(val_dtype))
+    if y.dtype != torch.bfloat16:
+        return y
+    qnan = torch.where(torch.signbit(x), -0x40, 0x7FC0).to(torch.int16)
+    return torch.where(x.isnan(), qnan.view(torch.bfloat16), y)
 
 
 def _kernel_mode(kernel: Optional[str], x: torch.Tensor) -> str:
@@ -126,6 +168,8 @@ class LeafCodec:
     kind = "abstract"
     #: ndim of the first payload component of one (un-stacked) message
     MSG_NDIM = 1
+    #: a fused kernel computes this leaf's payload and h'
+    has_kernel = False
     #: the decode ends in a select against zero (``where(..., v, 0)``):
     #: under ``jit`` XLA keeps a product applied to it inside the select,
     #: so a downlink's w + lam * q rounds twice (every other decode's
@@ -152,18 +196,30 @@ class LeafCodec:
             out = out + self.decode(tuple(a[i] for a in payload))
         return out
 
+    def update(self, h: torch.Tensor, d: torch.Tensor, lam: float,
+               contract: bool = False) -> torch.Tensor:
+        """h + lam * d of the decoded d, in h's type: each op rounded on
+        its own, or with ``contract`` as XLA rounds it under ``jit``, one
+        fused multiply-add unless the decode ends in a select."""
+        if contract and not self.DECODE_SELECTS:
+            return torch.add(h.float(), d, alpha=lam).to(h.dtype)
+        return (h.float() + lam * d).to(h.dtype)
+
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
-                      lam: float, *, kernel: Optional[str] = None):
-        """(payload, h'): encode -> decode -> h' = h + lam * d, each op
-        rounded on its own.  There is no kernel: ``cuda`` raises."""
+                      lam: float, *, kernel: Optional[str] = None,
+                      contract: bool = False):
+        """(payload, h'): encode -> decode -> h' = h + lam * d
+        (:meth:`update`).  There is no kernel: ``cuda`` raises."""
         if _kernel_mode(kernel, g) == "cuda":
             raise ValueError(f"{type(self).__name__} of {self.size} values "
-                             "has no CUDA kernel; use 'auto' or 'oracle'")
+                             f"on a {getattr(self, 'val_dtype', 'float32')} "
+                             "wire has no CUDA kernel; use 'auto' or "
+                             "'oracle'")
         delta = g.reshape(-1).float() - h.reshape(-1).float()
         payload = self.encode(key, delta)
         del delta
         d = self.decode(payload).reshape(g.shape)
-        return payload, (h.float() + lam * d).to(h.dtype)
+        return payload, self.update(h, d, lam, contract)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +233,7 @@ class LeafWire(LeafCodec):
     size: int
     block: int
     kb: int
+    val_dtype: str = "float32"
 
     kind = "block_sparse"
     MSG_NDIM = 2
@@ -187,16 +244,23 @@ class LeafWire(LeafCodec):
 
     @property
     def payload_bits(self) -> int:
-        """Exact bits of one worker's message for this leaf: f32 values +
+        """Exact bits of one worker's message for this leaf: values +
         int32 local indices, (nb, kb) each."""
-        return self.nb * self.kb * (32 + 32)
+        return self.nb * self.kb * (_val_bits(self.val_dtype) + 32)
+
+    @property
+    def has_kernel(self) -> bool:
+        """The pack kernel takes this leaf: block % 128 == 0 on an f32
+        wire (it updates h with the f32 values, which equal the decoded
+        payload only there)."""
+        return self.block % 128 == 0 and self.val_dtype == "float32"
 
     def encode(self, key, delta: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Flat f32 innovation -> (values f32, local indices int32), the
+        """Flat f32 innovation -> (values, local indices int32), the
         layout spec (:func:`pack_oracle`); ``key`` is not used."""
         vals, idx = pack_oracle(self, delta)
-        return vals.to(torch.float32), idx
+        return to_wire(vals, self.val_dtype), idx
 
     def decode_sum(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
         """One message (nb, kb) or worker-stacked (n, nb, kb) -> dense flat
@@ -207,10 +271,15 @@ class LeafWire(LeafCodec):
     decode = decode_sum
 
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
-                      lam: float, *, kernel: Optional[str] = None):
+                      lam: float, *, kernel: Optional[str] = None,
+                      contract: bool = False):
         """Fused compress-and-pack worker update (block-top-k is
-        deterministic: ``key`` is not used)."""
-        return fused_pack(self, g, h, lam, kernel=kernel)
+        deterministic: ``key`` is not used).  A non-f32 wire takes the
+        plain path (``cuda`` raises there)."""
+        if self.val_dtype != "float32":
+            return LeafCodec.encode_update(self, key, g, h, lam,
+                                           kernel=kernel, contract=contract)
+        return fused_pack(self, g, h, lam, kernel=kernel, contract=contract)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +294,7 @@ class QsgdQuant(LeafCodec):
 
     kind = "qsgd_quant"
     DECODE_SELECTS = True
+    has_kernel = True
 
     @property
     def level_dtype(self) -> torch.dtype:
@@ -260,11 +330,13 @@ class QsgdQuant(LeafCodec):
             torch.zeros_like(lf))
 
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
-                      lam: float, *, kernel: Optional[str] = None):
+                      lam: float, *, kernel: Optional[str] = None,
+                      contract: bool = False):
         """(payload, h') with the levels of QSGD(g - h) and
         h' = h + lam * decode(payload).  ``auto`` and ``cuda`` run the fused
         kernel wrapper on the uniforms of ``key``; ``oracle`` is encode ->
-        decode -> update.  Both are bitwise equal given the norm."""
+        decode -> update.  Both are bitwise equal given the norm; the decode
+        ends in a select, so ``contract`` changes nothing."""
         mode = _kernel_mode(kernel, g)
         delta = g.reshape(-1).float() - h.reshape(-1).float()
         if mode == "oracle":
@@ -280,25 +352,26 @@ class QsgdQuant(LeafCodec):
 
 @dataclasses.dataclass(frozen=True)
 class FlatSparse(LeafCodec):
-    """(values f32, global int32 indices), (k,) each: k * (32 + 32) bits.
-    ``selector`` is the compressor whose ``encode`` picks the k kept
+    """(values, global int32 indices), (k,) each: k * (value bits + 32)
+    bits.  ``selector`` is the compressor whose ``encode`` picks the k kept
     coordinates and applies any unbiasedness scaling."""
 
     shape: Tuple[int, ...]
     size: int
     k: int
     selector: Any
+    val_dtype: str = "float32"
 
     kind = "flat_sparse"
 
     @property
     def payload_bits(self) -> int:
-        return self.k * (32 + 32)
+        return self.k * (_val_bits(self.val_dtype) + 32)
 
     def encode(self, key, delta: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         vals, idx = self.selector.encode(key, delta)
-        return vals.to(torch.float32), idx.to(torch.int32)
+        return to_wire(vals, self.val_dtype), idx.to(torch.int32)
 
     def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
         """One payload -> dense flat f32 (size,): the values added into
@@ -335,9 +408,10 @@ class RandKSparse(FlatSparse):
     @property
     def has_kernel(self) -> bool:
         """Codec metadata as in the JAX package, whose Pallas kernel
-        compares f32 positions, exact below 2**24.  The CUDA kernel has no
-        such limit and runs on every leaf; nothing dispatches on this."""
-        return self.size < 2 ** 24
+        compares f32 positions, exact below 2**24, on an f32 wire.  The
+        CUDA kernel has no size limit and runs on every f32 leaf; only
+        the wire dtype is dispatched on."""
+        return self.size < 2 ** 24 and self.val_dtype == "float32"
 
     @property
     def scale(self) -> float:
@@ -345,13 +419,18 @@ class RandKSparse(FlatSparse):
         return float(np.float32(self.size / self.k))
 
     def encode_update(self, key, g: torch.Tensor, h: torch.Tensor,
-                      lam: float, *, kernel: Optional[str] = None):
+                      lam: float, *, kernel: Optional[str] = None,
+                      contract: bool = False):
         """(payload, h').  ``auto`` and ``cuda`` take the kernel wrapper,
         ``oracle`` the plain encode -> decode -> update.  Both give the
         same bits: the decode's 0.0 + v differs from v only for v = -0.0,
         which (g - h) * scale is only where h = +0.0, and h + lam * (+-0.0)
-        is then +0.0 either way."""
+        is then +0.0 either way.  A non-f32 wire takes the plain path with
+        the trainer's ``contract`` rounding (``cuda`` raises there)."""
         mode = _kernel_mode(kernel, g)
+        if self.val_dtype != "float32":
+            return LeafCodec.encode_update(self, key, g, h, lam,
+                                           kernel=kernel, contract=contract)
         if mode == "oracle":
             return LeafCodec.encode_update(self, key, g, h, lam,
                                            kernel=mode)
@@ -364,7 +443,7 @@ class RandKSparse(FlatSparse):
 class SignPack(LeafCodec):
     """L1-norm-scaled sign: one f32 scale + an LSB-first 32-bit sign bitmap
     (bit set <=> value negative): 32 + 32 * ceil(d/32) bits.  The scale's
-    sum is torch's reduction (ROADMAP fault c)."""
+    sum is torch's reduction (ROADMAP fault c), times f32(1/d)."""
 
     shape: Tuple[int, ...]
     size: int
@@ -377,7 +456,9 @@ class SignPack(LeafCodec):
 
     def encode(self, key, delta: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        scale = delta.abs().sum() / delta.numel()
+        """(the f32 scale sum|delta| * f32(1/d), as XLA computes the
+        division by a constant, and the sign bitmap)."""
+        scale = delta.abs().sum() * cz._f32(1.0 / delta.numel())
         return scale.reshape(1).to(torch.float32), pack_bits(delta < 0)
 
     def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -431,23 +512,24 @@ class NaturalPack(LeafCodec):
 
 @dataclasses.dataclass(frozen=True)
 class DensePack(LeafCodec):
-    """The compressor's dense output as raw f32 values: size * 32 bits.
-    The codec of identity and m-nice, and of any compressor that declares
-    no layout of its own."""
+    """The compressor's dense output as raw values of the wire type:
+    size * value bits.  The codec of identity and m-nice, and of any
+    compressor that declares no layout of its own."""
 
     shape: Tuple[int, ...]
     size: int
     compressor: Any
+    val_dtype: str = "float32"
 
     kind = "dense_pack"
 
     @property
     def payload_bits(self) -> int:
-        return self.size * 32
+        return self.size * _val_bits(self.val_dtype)
 
     def encode(self, key, delta: torch.Tensor) -> Tuple[torch.Tensor]:
         y = self.compressor(key, delta.reshape(self.shape))
-        return (y.reshape(-1).to(torch.float32),)
+        return (to_wire(y.reshape(-1), self.val_dtype),)
 
     def decode(self, payload: Sequence[torch.Tensor]) -> torch.Tensor:
         (vals,) = payload
@@ -538,18 +620,15 @@ def clamp_for_leaf(compressor, size: int):
 
 def codec_of(compressor, shape: Tuple[int, ...], size: int,
              wire_dtype: str = "float32"):
-    """The codec ``compressor`` declares for one leaf, after
-    :func:`clamp_for_leaf` (a dense value stream for an object that
-    declares none)."""
-    if wire_dtype != "float32":
-        raise NotImplementedError(
-            f"wire dtype {wire_dtype!r} is not yet ported (float32 only)")
+    """The codec ``compressor`` declares for one leaf on a ``wire_dtype``
+    wire, after :func:`clamp_for_leaf` (a dense value stream for an object
+    that declares none)."""
     compressor = clamp_for_leaf(compressor, size)
     fn = getattr(compressor, "codec", None)
     if fn is None:
         return DensePack(shape=tuple(shape), size=int(size),
-                         compressor=compressor)
-    return fn(tuple(shape))
+                         compressor=compressor, val_dtype=wire_dtype)
+    return fn(tuple(shape), wire_dtype=wire_dtype)
 
 
 def format_for(compressor, tree: PyTree, *,
@@ -604,6 +683,109 @@ def leaf_paths(tree: PyTree) -> Tuple[str, ...]:
     return tuple("/".join(p) for p, _ in T.flatten_with_path(tree))
 
 
+@dataclasses.dataclass(frozen=True)
+class TreeWire(WireFormat):
+    """The per-leaf wire format (``wire.TreeWire``): leaf j carries the
+    compressor its path resolves to under the rules (clamped to the leaf's
+    size) and that compressor's codec.  The accounting is the inherited
+    sum over leaves, so the composed bits are the sum of the per-leaf
+    bits.  Encode, decode, zero and mask walk the leaves in flatten order,
+    leaf j keyed ``fold_in(key, j)`` as every aggregation path keys it.
+    ``skeleton`` holds the tree's structure (its leaves are placeholders)
+    for the decoded trees."""
+
+    paths: Tuple[str, ...]
+    compressors: Tuple[Any, ...]
+    skeleton: Any
+
+    @staticmethod
+    def for_tree(compressor, tree: PyTree, *, wire_dtype: str = "float32",
+                 rules=()) -> "TreeWire":
+        """TreeWire of ``tree`` (tensors of any device, ``meta``
+        included): every leaf's compressor resolved through ``rules``
+        (falling back to ``compressor``), clamped to the leaf's size, and
+        asked for its codec."""
+        flat = T.leaves(tree)
+        paths = leaf_paths(tree)
+        comps = tuple(
+            clamp_for_leaf(resolve_leaf(rules, p, compressor), leaf.numel())
+            for p, leaf in zip(paths, flat))
+        codecs = tuple(
+            codec_of(c, tuple(leaf.shape), leaf.numel(), wire_dtype)
+            for c, leaf in zip(comps, flat))
+        return TreeWire(leaves=codecs, paths=paths, compressors=comps,
+                        skeleton=T.tree_map(lambda _: 0, tree))
+
+    def leaf_keys(self, keys) -> Tuple[Any, ...]:
+        """Per-leaf keys: an explicit sequence of keys as it is, one base
+        key folded per leaf index, ``fold_in(key, j)`` (None stays
+        None)."""
+        if isinstance(keys, (tuple, list)):
+            if len(keys) != len(self.leaves):
+                raise ValueError(f"{len(keys)} leaf keys for a tree of "
+                                 f"{len(self.leaves)} leaves")
+            return tuple(keys)
+        return tuple(None if keys is None else random.fold_in(keys, j)
+                     for j in range(len(self.leaves)))
+
+    def encode_update(self, keys, grads: PyTree, h: PyTree, lam: float, *,
+                      kernel: Optional[str] = None, contract: bool = False):
+        """Per-leaf worker update: (payload list, h' tree) with
+        d_j = C_j(g_j - h_j) packed and h'_j = h_j + lam d_j.  An explicit
+        ``cuda`` applies where a leaf has a kernel; the other leaves run
+        their plain path, their only one."""
+        payloads, h_new = [], []
+        for codec, kj, gj, hj in zip(self.leaves, self.leaf_keys(keys),
+                                     T.leaves(grads), T.leaves(h)):
+            kk = kernel
+            if kernel == "cuda" and not getattr(codec, "has_kernel", False):
+                kk = "oracle"
+            p, hn = codec.encode_update(kj, gj, hj, lam, kernel=kk,
+                                        contract=contract)
+            payloads.append(p)
+            h_new.append(hn)
+        return payloads, T.unflatten(self.skeleton, h_new)
+
+    def decode(self, payloads) -> PyTree:
+        """One worker's payload list -> dense f32 tree (leaf shapes)."""
+        return T.unflatten(self.skeleton, [
+            c.decode(p).reshape(c.shape)
+            for c, p in zip(self.leaves, payloads)])
+
+    def decode_sum(self, payloads, *, chunks: int = 1) -> PyTree:
+        """Worker-stacked payload list -> dense f32 tree of the sums over
+        workers (divide by n for the mean), the worker axis split into
+        ``chunks`` as :func:`chunked_decode_sum` splits it."""
+        return T.unflatten(self.skeleton, [
+            chunked_decode_sum(c, p, chunks).reshape(c.shape)
+            for c, p in zip(self.leaves, payloads)])
+
+    def mask_messages(self, payloads, m) -> list:
+        """Every leaf's message gated on the participation ``m``."""
+        return [c.mask_message(p, m) for c, p in zip(self.leaves, payloads)]
+
+    def zero_messages(self, base_key, device) -> list:
+        """The pipelined schedule's priming payloads on ``device``, leaf j
+        keyed ``fold_in(base_key, j)``, as ``init_inflight`` keys them."""
+        return [zero_message(c, random.fold_in(base_key, j), device)
+                for j, c in enumerate(self.leaves)]
+
+    def bits_by_leaf(self) -> Tuple[int, ...]:
+        """Exact per-leaf payload bits in flatten order; their sum is
+        ``bits_per_round()``."""
+        return tuple(c.payload_bits for c in self.leaves)
+
+
+def tree_format_for(compressor, tree: PyTree, *,
+                    wire_dtype: str = "float32", rules=None):
+    """The wire format of ``tree``: the flat :class:`WireFormat` without
+    per-leaf rules, a :class:`TreeWire` with them."""
+    if not rules:
+        return format_for(compressor, tree, wire_dtype=wire_dtype)
+    return TreeWire.for_tree(compressor, tree, wire_dtype=wire_dtype,
+                             rules=tuple(rules))
+
+
 def payload_bytes(payload: PyTree) -> int:
     """Measured bytes of a payload tree (what actually crosses the wire)."""
     return sum(a.numel() * a.element_size() for a in T.leaves(payload))
@@ -648,7 +830,7 @@ def scatter_add(lw: LeafWire, vals: torch.Tensor, idx: torch.Tensor
 
 
 def fused_pack(lw: LeafWire, g: torch.Tensor, h: torch.Tensor, lam: float, *,
-               kernel: Optional[str] = None
+               kernel: Optional[str] = None, contract: bool = False
                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """d = block_topk(g - h) packed as (values, indices); h' = h + lam d.
 
@@ -657,28 +839,33 @@ def fused_pack(lw: LeafWire, g: torch.Tensor, h: torch.Tensor, lam: float, *,
     kernel does not take; ``oracle`` takes the plain layout spec.  As in
     the JAX package, ``auto`` routes a block with block % 128 != 0 (which
     no kernel tiles) to the plain layout spec on any device, by its shape
-    alone and before any launch; an explicit ``cuda`` raises there."""
+    alone and before any launch; an explicit ``cuda`` raises there.  The
+    explicit ``oracle`` rounds h + lam d twice, as the kernel does (it is
+    the kernel's reference); the plain path that ``auto`` takes by shape
+    rounds it as JAX's jitted oracle does when ``contract`` (the trainer's
+    rounding, :meth:`LeafCodec.update`)."""
     mode = _kernel_mode(kernel, g)
-    if mode == "auto" and lw.block % 128:
-        mode = "oracle"
-    if mode != "oracle":
+    routed = mode == "auto" and lw.block % 128 != 0
+    if mode != "oracle" and not routed:
         return ops.efbv_pack_update(g, h, lam, block=lw.block, kb=lw.kb)
     delta = g.float() - h.float()
     vals, idx = pack_oracle(lw, delta)
     d = scatter_add(lw, vals, idx).reshape(lw.shape)
-    h_new = (h.float() + lam * d).to(h.dtype)
-    return (vals.to(g.dtype), idx), h_new
+    return (vals.to(g.dtype), idx), lw.update(h, d, lam, contract and routed)
 
 
 def encode_update(codec, key, g: torch.Tensor, h: torch.Tensor,
-                  lam: float, *, kernel: Optional[str] = None):
+                  lam: float, *, kernel: Optional[str] = None,
+                  contract: bool = False):
     """Fused compress-and-pack worker update through ``codec`` (f32
-    gradients; other wire dtypes are not yet ported).  ``key`` feeds the
-    stochastic codecs; the deterministic ones ignore it."""
+    gradients, any wire dtype).  ``key`` feeds the stochastic codecs; the
+    deterministic ones ignore it.  ``contract``: the plain paths round
+    h + lam * d as XLA does under ``jit`` (:meth:`LeafCodec.update`)."""
     if g.dtype != torch.float32:
         raise NotImplementedError(
             f"the wire of the port takes f32 gradients, got {g.dtype}")
-    return codec.encode_update(key, g, h, lam, kernel=kernel)
+    return codec.encode_update(key, g, h, lam, kernel=kernel,
+                               contract=contract)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _TOPK = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
 _UPDATE = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-           ctypes.c_float, _P]
+           ctypes.c_float, ctypes.c_int, _P]
 SIGNATURES = {
     "pack_update": {"pack_update_f32":
                     [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,

@@ -25,7 +25,9 @@
 //   * h_out = h + lam * d is one fused multiply-add (__fmaf_rn): XLA
 //     contracts it -- except for f32 at kb = 1, where the select stands
 //     between the multiply and the add and each rounds on its own
-//     (__fmul_rn then __fadd_rn; nvcc would contract them otherwise);
+//     (__fmul_rn then __fadd_rn; nvcc would contract them otherwise).
+//     On exactly one unreshaped (8, block) f32 tile at kb = 1 XLA
+//     contracts there too (ROADMAP fault m): the wrapper passes fused = 1;
 //   * bf16 values are read exactly into f32, and d and h_out are rounded
 //     back to nearest even (__float2bfloat16, as torch rounds on the card).
 //
@@ -132,7 +134,8 @@ __device__ __forceinline__ void update_row(const T* __restrict__ g,
                                            const T* __restrict__ h,
                                            T* __restrict__ d_out,
                                            T* __restrict__ h_out, int block,
-                                           int kb, float lam, Row& r) {
+                                           int kb, float lam,
+                                           bool two_roundings, Row& r) {
   float hv[PER];
   float dv[PER];
 #pragma unroll
@@ -141,8 +144,6 @@ __device__ __forceinline__ void update_row(const T* __restrict__ g,
     dv[j] = __fsub_rn(to_f32(g[r.col(j)]), hv[j]);
   }
   const unsigned int sel = block_select::select_mask<PER>(dv, kb, block, r);
-  // f32 at kb = 1: a multiply then an add; otherwise one fused op
-  const bool two_roundings = sizeof(T) == 4 && kb == 1;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const T d = from_f32<T>(masked(dv[j], (sel >> j) & 1u, kb == 1));
@@ -170,14 +171,14 @@ template <int BLOCK, typename T>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 efbv_update_rows(const T* __restrict__ g, const T* __restrict__ h,
                  T* __restrict__ d_out, T* __restrict__ h_out, long long nb,
-                 int kb, float lam) {
+                 int kb, float lam, bool two_roundings) {
   const long long row =
       (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (row >= nb) return;
   block_select::WarpRow r{(int)(threadIdx.x & 31)};
   const long long base = row * BLOCK;
   update_row<BLOCK / 32>(g + base, h + base, d_out + base, h_out + base,
-                         BLOCK, kb, lam, r);
+                         BLOCK, kb, lam, two_roundings, r);
 }
 
 // one CTA of block / PER threads per row
@@ -196,13 +197,13 @@ template <int PER, typename T>
 __global__ void __launch_bounds__(kMaxBlock / PER)
 efbv_update_cta(const T* __restrict__ g, const T* __restrict__ h,
                 T* __restrict__ d_out, T* __restrict__ h_out, int block,
-                int kb, float lam) {
+                int kb, float lam, bool two_roundings) {
   __shared__ int sums[64];
   block_select::CtaRow r{sums, (int)(threadIdx.x >> 5),
                          (int)(threadIdx.x & 31), (int)(blockDim.x >> 5), 0};
   const long long base = (long long)blockIdx.x * block;
   update_row<PER>(g + base, h + base, d_out + base, h_out + base, block, kb,
-                  lam, r);
+                  lam, two_roundings, r);
 }
 
 // Rows above kMaxBlock: one CTA of kBigThreads per row, the row read again
@@ -274,13 +275,12 @@ template <bool ROW_SMEM, typename T>
 __global__ void __launch_bounds__(kBigThreads)
 efbv_update_big(const T* __restrict__ g, const T* __restrict__ h,
                 T* __restrict__ d_out, T* __restrict__ h_out, int block,
-                int kb, float lam) {
+                int kb, float lam, bool two_roundings) {
   __shared__ int sums[64];
   block_select::CtaRow r = big_row(sums);
   const long long base = (long long)blockIdx.x * block;
   const GlobalDelta<T> src{g + base, h + base};
   const block_select::Cut cut = big_cut<ROW_SMEM>(src, block, kb, r);
-  const bool two_roundings = sizeof(T) == 4 && kb == 1;
   for (int c = threadIdx.x; c < block; c += kBigThreads) {
     const float delta = ROW_SMEM ? big_row_smem[c] : src(c);
     const float hv = to_f32(h[base + c]);
@@ -324,18 +324,19 @@ int launch_topk_big(const T* x, T* out, long long nb, int block, int kb,
 
 template <typename T>
 int launch_update_big(const T* g, const T* h, T* d, T* h_out, long long nb,
-                      int block, int kb, float lam, cudaStream_t s) {
+                      int block, int kb, float lam, bool two,
+                      cudaStream_t s) {
   const size_t smem = (size_t)block * 4;
   if (smem > (size_t)kSmemMax) {
     efbv_update_big<false, T><<<(unsigned int)nb, kBigThreads, 0, s>>>(
-        g, h, d, h_out, block, kb, lam);
+        g, h, d, h_out, block, kb, lam, two);
     return (int)cudaGetLastError();
   }
   static size_t opted_in = 0;
   if (const int e = opt_in(efbv_update_big<true, T>, smem, opted_in))
     return e;
   efbv_update_big<true, T><<<(unsigned int)nb, kBigThreads, smem, s>>>(
-      g, h, d, h_out, block, kb, lam);
+      g, h, d, h_out, block, kb, lam, two);
   return (int)cudaGetLastError();
 }
 
@@ -352,9 +353,9 @@ int launch_topk(const T* x, T* out, long long nb, int kb, cudaStream_t s) {
 
 template <int BLOCK, typename T>
 int launch_update(const T* g, const T* h, T* d, T* h_out, long long nb,
-                  int kb, float lam, cudaStream_t s) {
+                  int kb, float lam, bool two, cudaStream_t s) {
   efbv_update_rows<BLOCK, T><<<ctas(nb), kWarpsPerCta * 32, 0, s>>>(
-      g, h, d, h_out, nb, kb, lam);
+      g, h, d, h_out, nb, kb, lam, two);
   return (int)cudaGetLastError();
 }
 
@@ -400,28 +401,32 @@ int block_topk(const T* x, T* out, long long nb, int block, int kb,
 
 template <typename T>
 int efbv_update(const T* g, const T* h, T* d, T* h_out, long long nb,
-                int block, int kb, float lam, void* stream) {
+                int block, int kb, float lam, int fused, void* stream) {
   if (nb <= 0) return (int)cudaSuccess;
   if (const int e = check(nb, block, kb)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // f32 at kb = 1: a multiply then an add, unless the caller asks for the
+  // one fused op (one unreshaped (8, block) tile: ROADMAP fault m)
+  const bool two = sizeof(T) == 4 && kb == 1 && !fused;
   switch (block) {
 #define CASE(B) \
   case B:       \
-    return launch_update<B, T>(g, h, d, h_out, nb, kb, lam, s);
+    return launch_update<B, T>(g, h, d, h_out, nb, kb, lam, two, s);
     WARP_BLOCKS(CASE)
 #undef CASE
     default:
       if (block > kMaxBlock)
-        return launch_update_big<T>(g, h, d, h_out, nb, block, kb, lam, s);
+        return launch_update_big<T>(g, h, d, h_out, nb, block, kb, lam, two,
+                                    s);
       if (block % 512 == 0)
         efbv_update_cta<16, T><<<(unsigned int)nb, block / 16, 0, s>>>(
-            g, h, d, h_out, block, kb, lam);
+            g, h, d, h_out, block, kb, lam, two);
       else if (block % 256 == 0)
         efbv_update_cta<8, T><<<(unsigned int)nb, block / 8, 0, s>>>(
-            g, h, d, h_out, block, kb, lam);
+            g, h, d, h_out, block, kb, lam, two);
       else
         efbv_update_cta<4, T><<<(unsigned int)nb, block / 4, 0, s>>>(
-            g, h, d, h_out, block, kb, lam);
+            g, h, d, h_out, block, kb, lam, two);
       return (int)cudaGetLastError();
   }
 }
@@ -441,14 +446,16 @@ extern "C" int block_topk_bf16(const __nv_bfloat16* x, __nv_bfloat16* out,
 
 extern "C" int efbv_update_f32(const float* g, const float* h, float* d,
                                float* h_out, long long nb, int block, int kb,
-                               float lam, void* stream) {
-  return efbv_update<float>(g, h, d, h_out, nb, block, kb, lam, stream);
+                               float lam, int fused, void* stream) {
+  return efbv_update<float>(g, h, d, h_out, nb, block, kb, lam, fused,
+                            stream);
 }
 
 extern "C" int efbv_update_bf16(const __nv_bfloat16* g,
                                 const __nv_bfloat16* h, __nv_bfloat16* d,
                                 __nv_bfloat16* h_out, long long nb,
-                                int block, int kb, float lam, void* stream) {
+                                int block, int kb, float lam, int fused,
+                                void* stream) {
   return efbv_update<__nv_bfloat16>(g, h, d, h_out, nb, block, kb, lam,
-                                    stream);
+                                    fused, stream);
 }

@@ -47,9 +47,14 @@ def efbv_update(g: torch.Tensor, h: torch.Tensor, lam: float,
     d = C(g - h), h' = h + lam d.  Returns (d, h'), both shaped like g, d
     in g's type and h' in h's.  As JAX's wrapper does, h is rounded to g's
     type before the kernel and h' converted back after it (ROADMAP
-    fault h)."""
+    fault h).  f32 at kb = 1 rounds h' twice, except on exactly one
+    unreshaped (8, block) tile of g, where JAX's kernel rounds once
+    (fault m)."""
+    fused = (kb == 1 and g.dtype == torch.float32
+             and tuple(g.shape) == (8, block))
     d, h_out = pack.efbv_update(to_rows(g, block),
-                              to_rows(h.to(g.dtype), block), lam, kb)
+                                to_rows(h.to(g.dtype), block), lam, kb,
+                                fused)
     return _unpad(d, g), _unpad(h_out, g).to(h.dtype)
 
 

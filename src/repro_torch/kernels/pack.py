@@ -303,14 +303,14 @@ def block_topk(x2d: torch.Tensor, kb: int) -> torch.Tensor:
     return out
 
 
-def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int,
+                fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nb, block) g and h of one type (f32 or bf16) -> (d, h_out) of that
     type: d = block_topk(f32(g) - f32(h)), h_out = h + lam * d
-    (``ref.efbv_update_ref``)."""
+    (``ref.efbv_update_ref``; ``fused``: one rounding at f32 kb = 1 too)."""
     _check_dense("efbv_update", g2d, kb, h2d)
     if g2d.device.type == "cpu":
-        return ref.efbv_update_ref(g2d, h2d, lam, kb)
+        return ref.efbv_update_ref(g2d, h2d, lam, kb, fused)
     fn = _dense_entry("efbv_update", g2d, h2d)
     d = torch.empty_like(g2d)
     h_out = torch.empty_like(h2d)
@@ -318,7 +318,7 @@ def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g2d.data_ptr(), h2d.data_ptr(), d.data_ptr(),
                  h_out.data_ptr(), g2d.shape[0], g2d.shape[1], kb,
-                 float(lam), stream)
+                 float(lam), int(fused), stream)
     if err != 0:
         raise RuntimeError(f"efbv_update launch failed: cudaError {err}")
     LAUNCHES["efbv_update"] += 1

@@ -79,7 +79,8 @@ def block_topk_ref(x2d: torch.Tensor, kb: int) -> torch.Tensor:
 
 
 def efbv_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
-                    kb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    kb: int, fused: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused dense worker update of (nb, block) g and h of one type
     (f32 or bf16): delta = f32(g) - f32(h), d = (delta * keep) in g's type
     (the f32 product, so kb = 1 selects), h_out = (f32(h) + lam * f32(d))
@@ -89,11 +90,13 @@ def efbv_update_ref(g2d: torch.Tensor, h2d: torch.Tensor, lam: float,
     ``h + lam * d`` into one fused multiply-add (``torch.add`` with
     ``alpha``: one rounding), except for f32 at kb = 1, where the select
     stands between the two and each op rounds on its own (ROADMAP
-    fault i).  bf16 d and h_out round to nearest even."""
+    fault i) -- unless ``fused``: given exactly one unreshaped (8, block)
+    f32 tile, XLA contracts there too (fault m; the wrapper decides).
+    bf16 d and h_out round to nearest even."""
     delta = g2d.float() - h2d.float()
     keep = select_rows(delta.abs(), kb)
     d = apply_mask(delta, keep, kb).to(g2d.dtype)
-    if kb == 1 and h2d.dtype == torch.float32:
+    if kb == 1 and h2d.dtype == torch.float32 and not fused:
         h_out = h2d + lam * d
     else:
         h_out = torch.add(h2d.float(), d.float(), alpha=lam)

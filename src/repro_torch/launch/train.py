@@ -2,8 +2,9 @@
 
 Examples (one GPU, full-width qwen2-0.5b, two workers): block-top-k up,
 dense broadcast down; QSGD both ways; rand-k up (DIANA-style variance
-reduction with ``--algo efbv``); and the pipelined (one-round-stale)
-schedule with block-top-k up and QSGD down:
+reduction with ``--algo efbv``); the pipelined (one-round-stale)
+schedule with block-top-k up and QSGD down; and per-leaf codecs (QSGD on
+the embedding, the norm dense, block-top-k elsewhere):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
@@ -19,6 +20,15 @@ schedule with block-top-k up and QSGD down:
         --workers 2 --steps 3 --global-batch 8 --seq 128 \
         --compressor block_topk:256,16 --algo efbv --agg sparse_allgather \
         --downlink qsgd:16 --pipeline depth:1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --workers 2 --steps 3 --global-batch 8 --seq 128 \
+        --compressor block_topk:256,16 --agg sparse_allgather \
+        --leaf-codecs '*embed*=qsgd:16;*norm*=identity'
+
+Every zoo compressor trains up (``--compressor``) and down
+(``--downlink``), on an f32, bf16 or f16 wire (``--wire-dtype``); a
+heterogeneous fleet (``--worker-comps 'topk:64;randk:64'``, round-robin
+over the workers) runs under ``--agg dense_psum``.
 
 The n workers run in one process on one device (``train/trainer.py``),
 or one process per worker group under ``torchrun`` (two ranks on the CPU
@@ -70,8 +80,7 @@ The wire bits are those of the logical gradient, unchanged from ``2x1``.
 A model axis whose heads do not split whole is refused
 (``Model.model_axis_refusal``).  Flags and spec contents of the JAX driver
 that this port does not have yet are refused with a "not yet ported"
-error, never ignored; so are the zoo compressors whose training rounds are
-not yet ported (``TRAIN_COMPRESSORS``).
+error, never ignored.
 """
 
 from __future__ import annotations
@@ -89,7 +98,6 @@ from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
                                  known_archs)
 from repro_torch.core import (ExperimentSpec, SpecError, build,
                               mesh_worker_count)
-from repro_torch.core.compressors import QSGD
 from repro_torch.core.efbv import Downlink, Participation, Pipeline
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
@@ -102,14 +110,14 @@ from repro_torch.optim.schedules import cosine
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
 NOT_PORTED_FLAGS = {
-    "--worker-comps": "", "--leaf-codecs": "",
     "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
     "--sanitize": False,
 }
-#: the --compressor families the trainer runs; the rest of the zoo is
-#: ported as compressors and wire codecs, but its training rounds are not
-#: yet held against the JAX trainer (ROADMAP queue 3)
-TRAIN_COMPRESSORS = ("block_topk", "qsgd", "randk", "identity", "none")
+#: the compressor families the trainer runs, up, down and per leaf: every
+#: name of the spec grammar
+TRAIN_COMPRESSORS = ("identity", "none", "topk", "randk", "scaled_randk",
+                     "comp", "mix", "block_topk", "sign", "natural", "qsgd",
+                     "frac_topk", "frac_comp")
 
 
 def parse_args(argv=None):
@@ -145,12 +153,34 @@ def parse_args(argv=None):
                          "yet ported")
     ap.add_argument("--algo", default="efbv",
                     choices=["efbv", "ef21", "diana", "none"])
-    ap.add_argument("--compressor", default="block_topk:256,16")
+    ap.add_argument("--compressor", default="block_topk:256,16",
+                    help="uplink compressor: name[:a[,b]] with a name of "
+                         + ", ".join(TRAIN_COMPRESSORS))
     ap.add_argument("--agg", default="dense_psum",
                     choices=["dense_psum", "sparse_allgather"])
+    ap.add_argument("--wire-dtype", default="float32",
+                    choices=["float32", "bfloat16", "float16"],
+                    help="value precision of sparse/dense wire payloads "
+                         "(quantized and bit-packed codecs ignore it)")
     ap.add_argument("--downlink", default="",
-                    help="compress the master -> worker broadcast: "
-                         "'qsgd:S[@lam]' ('' = dense broadcast)")
+                    help="compress the master -> worker broadcast with any "
+                         "zoo compressor spec, optionally '@lam' (e.g. "
+                         "'qsgd:16', 'block_topk:256,16'; '' = dense "
+                         "broadcast)")
+    ap.add_argument("--worker-comps", default="",
+                    help="heterogeneous fleet: ';'-separated compressor "
+                         "specs assigned round-robin to the n workers (or "
+                         "an explicit length-n list), e.g. "
+                         "'topk:64;randk:64'.  Overrides --compressor; "
+                         "mixed fleets need --agg dense_psum")
+    ap.add_argument("--leaf-codecs", default="",
+                    help="per-leaf wire codecs: ';'-separated "
+                         "'pattern=comp_spec' rules matched against "
+                         "'/'-joined parameter paths (fnmatch; first match "
+                         "wins; unmatched leaves use --compressor), e.g. "
+                         "'*embed*=qsgd:16;*norm*=identity'.  With --spec, "
+                         "a non-default value overrides the spec's "
+                         "leaf_codecs field")
     ap.add_argument("--participation", default="full",
                     help="full | bernoulli:p | fixed:s (federated mode: "
                          "absent workers send a decode-zero message and "
@@ -158,8 +188,6 @@ def parse_args(argv=None):
     ap.add_argument("--pipeline", default="off",
                     help="'off' | 'depth:0' | 'depth:1' (the master applies "
                          "the previous round's messages)")
-    ap.add_argument("--wire-dtype", default="float32",
-                    choices=["float32", "bfloat16", "float16"])
     ap.add_argument("--local-batch-resample", action="store_true")
     ap.add_argument("--shard-size", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
@@ -178,12 +206,9 @@ def parse_args(argv=None):
     if args.schedule == "wsd":
         ap.error("--schedule wsd is not yet ported to repro_torch")
     try:
-        unported = _unported_wire(args.compressor, args.wire_dtype,
-                                  args.downlink)
+        Downlink.parse(args.downlink)
     except ValueError as e:
         ap.error(f"--downlink: {e}")
-    if unported:
-        ap.error(unported)
     try:
         Pipeline.parse(args.pipeline)
     except ValueError as e:
@@ -215,27 +240,6 @@ def model_axis(spec: ExperimentSpec) -> int:
     """The size of the spec's ``model`` axis (1 for a 1-d mesh)."""
     dims = spec.mesh_dims()
     return dims[-1] if len(dims) > 1 else 1
-
-
-def _unported_wire(compressor: str, wire_dtype: str, downlink: str) -> str:
-    """Why the trainer refuses this uplink compressor, wire dtype or
-    downlink ('' when it takes them): every zoo compressor parses, but the
-    trainer's rounds are held against the JAX trainer for
-    ``TRAIN_COMPRESSORS`` up and a QSGD downlink only."""
-    name = compressor.partition(":")[0]
-    if name not in TRAIN_COMPRESSORS:
-        return (f"--compressor {name} is not yet ported to repro_torch's "
-                f"trainer (it trains {', '.join(TRAIN_COMPRESSORS)}; see "
-                "ROADMAP queue 3)")
-    if wire_dtype != "float32":
-        return (f"--wire-dtype {wire_dtype} is not yet ported to "
-                "repro_torch (float32 only)")
-    dl = Downlink.parse(downlink)
-    if dl is not None and not isinstance(dl.compressor, QSGD):
-        return (f"--downlink {downlink!r} is not yet ported to repro_torch's "
-                "trainer (it trains a qsgd:S[@lam] downlink; ROADMAP queue "
-                "1, item 2e)")
-    return ""
 
 
 def world_size() -> int:
@@ -310,14 +314,15 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
     (smoke or full), so the spec reproduces the same (lam, nu)."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     return ExperimentSpec(
-        compressor=args.compressor, mode=args.algo, agg=args.agg,
+        compressor=args.worker_comps or args.compressor, mode=args.algo,
+        agg=args.agg,
         wire_dtype=args.wire_dtype, downlink=args.downlink,
         participation=args.participation,
         resample=args.local_batch_resample, backend="shard_map",
         problem=args.arch, smoke=args.smoke, mesh=args.mesh or f"{n}x1",
         n=n,
         d=tuning_dim(cfg), steps=args.steps, seed=args.seed,
-        pipeline=args.pipeline)
+        pipeline=args.pipeline, leaf_codecs=args.leaf_codecs)
 
 
 def _unported_spec(spec: ExperimentSpec) -> str:
@@ -334,16 +339,14 @@ def _unported_spec(spec: ExperimentSpec) -> str:
     refusal = build_model(cfg).model_axis_refusal(model_axis(spec))
     if refusal:
         return f"mesh {spec.mesh!r}: {refusal}"
-    if len(spec.fleet_specs()) > 1 or spec.leaf_codecs:
-        return ("heterogeneous fleets and per-leaf codecs are not yet "
-                "ported to repro_torch's trainer (ROADMAP queue 1, item 6)")
-    return _unported_wire(spec.compressor, spec.wire_dtype, spec.downlink)
+    return ""
 
 
 def experiment(args) -> ExperimentSpec:
     """The run's spec: loaded from ``--spec`` with ``--smoke`` and a
-    non-default ``--pipeline`` folded in (both are part of the experiment's
-    identity), as the JAX driver's ``main`` does, or folded from the flags.
+    non-default ``--pipeline`` and ``--leaf-codecs`` folded in (all part of
+    the experiment's identity), as the JAX driver's ``main`` does, or
+    folded from the flags.
     Exits with the JAX driver's message on a bad spec and with "not yet
     ported" on what the port's trainer does not have."""
     try:
@@ -357,6 +360,8 @@ def experiment(args) -> ExperimentSpec:
                     if spec.problem in ARCHS else spec.d)
             if args.pipeline != "off" and spec.pipeline != args.pipeline:
                 spec = dataclasses.replace(spec, pipeline=args.pipeline)
+            if args.leaf_codecs and spec.leaf_codecs != args.leaf_codecs:
+                spec = dataclasses.replace(spec, leaf_codecs=args.leaf_codecs)
             if spec.backend == "reference":
                 raise SpecError(
                     "the train driver runs the distributed trainers; a "
@@ -416,6 +421,8 @@ def setup(args, group=None, spec: ExperimentSpec = None):
          + (f" participation={spec.participation}" if federated else "")
          + (f" pipeline={spec.pipeline}" if not pipeline.is_off else "")
          + (f" downlink={spec.downlink}" if downlink else "")
+         + (f" fleet={spec.compressor}" if algo.fleet is not None else "")
+         + (f" leaf_codecs={spec.leaf_codecs}" if spec.leaf_codecs else "")
          + (f" mesh={spec.mesh}" if tp is not None else "")
          + (f" ranks={group.world * model_axis(spec)} "
             f"backend={group.backend}" if group is not None else "")
@@ -433,7 +440,9 @@ def setup(args, group=None, spec: ExperimentSpec = None):
         params = shards.shard_tree(params)
     # the wire carries the logical gradient: bits as in one process
     logical = params if shards is None else shards.logical
-    up_fmt = wire.format_for(algo.compressor, logical) \
+    up_fmt = wire.tree_format_for(algo.compressor, logical,
+                                  wire_dtype=spec.wire_dtype,
+                                  rules=algo.leaf_rules) \
         if spec.agg == "sparse_allgather" else None
     exp_s = participation.fraction(n) * n if federated else None
     if up_fmt is not None:
@@ -450,10 +459,18 @@ def setup(args, group=None, spec: ExperimentSpec = None):
                  f"E|S_t|={exp_s:g} of {n} payloads) "
                  f"~{fed / 8 / 2**20:.2f} MiB total "
                  f"({fed / max(full, 1):.3f}x the full-participation round)")
+    elif algo.fleet is not None:
+        fmts = wire.fleet_formats(algo.fleet, logical,
+                                  wire_dtype=spec.wire_dtype)
+        bits = wire.fleet_bits_per_round(fmts)
+        per = sorted({f.bits_per_round() for f in fmts})
+        echo(f"[train] wire: mixed fleet of {len(set(algo.fleet))} member "
+             f"kinds, per-worker bits in {per}, {bits} bits/round uplink "
+             f"(would-be payload; dense_psum carries dense tensors)")
     if downlink is not None:
         # the broadcast payload is real whatever the uplink carries; the
         # total prints as an exact integer (the JAX driver rounds it, :g)
-        dfmt = downlink.format_for(logical)
+        dfmt = downlink.format_for(logical, wire_dtype=spec.wire_dtype)
         down, dense = dfmt.downlink_bits_per_round(), dfmt.dense_bits()
         total = wire.total_round_bits(up_fmt, dfmt, n_workers=n,
                                       participants=exp_s) \

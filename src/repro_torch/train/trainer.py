@@ -88,7 +88,9 @@ def init_inflight(algo: EFBV, params: PyTree, n: int, *,
                   wire_dtype: str = "float32",
                   shards: Optional[ModelShards] = None) -> PyTree:
     """The round-0 in-flight messages of the pipelined schedule: under
-    ``sparse_allgather`` leaf j's slot holds ``wire.zero_message`` under
+    ``sparse_allgather`` leaf j's slot holds ``wire.zero_message`` of its
+    codec in the run's format (``wire.tree_format_for``, per-leaf rules
+    included) under
     ``fold_in(fold_in(key(0), PIPELINE_FOLD), j)``, tiled over the n
     workers (a real wire message that decodes to exactly zero, so round 0
     applies g = h_avg + nu * 0); under ``dense_psum`` an f32 zeros tree of
@@ -100,7 +102,8 @@ def init_inflight(algo: EFBV, params: PyTree, n: int, *,
                                   device=p.device), params)
     base = random.fold_in(random.key(0), PIPELINE_FOLD)
     logical = params if shards is None else shards.logical
-    fmt = wire.format_for(algo.compressor, logical, wire_dtype=wire_dtype)
+    fmt = wire.tree_format_for(algo.compressor, logical,
+                               wire_dtype=wire_dtype, rules=algo.leaf_rules)
     dev = T.leaves(params)[0].device
     out = []
     for j, codec in enumerate(fmt.leaves):
@@ -251,7 +254,8 @@ def make_train_step(
             message, h_i_new = compress_local(
                 algo, random.fold_in(key, i), grads, h_i, mode=agg_mode,
                 wire_dtype=wire_dtype,
-                mask=None if mask is None else mask[i], shards=shards)
+                mask=None if mask is None else mask[i], worker=i,
+                shards=shards)
             local.append(torch.stack([
                 loss.float(), norm(grads),
                 norm(T.tree_map(torch.sub, grads, h_i_new))]))

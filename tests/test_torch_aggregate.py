@@ -440,10 +440,12 @@ def test_chunked_decode_sum_equals_jax(spec, chunks):
 
 @pytest.mark.parametrize("spec", CODEC_SPECS)
 def test_compress_local_stream_equals_no_stream(spec, monkeypatch):
-    """The port's compress_local (one pack kernel) against JAX's with
-    ``stream=True`` (the pipelined trainer's pack) and ``stream=False``:
-    the same payloads and h_i for every ported codec.  Integer inputs keep
-    QSGD's squared sums exact in f32, so both packages' norms agree."""
+    """The port's compress_local (one pack kernel) against JAX's, jitted
+    as the JAX trainer runs it, with ``stream=True`` (the pipelined
+    trainer's pack) and ``stream=False``: the same payloads and h_i for
+    every ported codec (a block of 16 takes JAX's jitted oracle, whose h
+    update is one FMA).  Integer inputs keep QSGD's squared sums exact in
+    f32, so both packages' norms agree."""
     monkeypatch.setenv("REPRO_WIRE_KERNEL", "interpret")
     jcomp_ = jcomp.make_compressor(spec)
     comp = tcomp.make_compressor(spec)
@@ -456,10 +458,10 @@ def test_compress_local_stream_equals_no_stream(spec, monkeypatch):
                               T.tree_map(torch.from_numpy, h),
                               mode="sparse_allgather")
     for stream in (False, True):
-        want = jagg.compress_local(JEFBV(jcomp_, lam=LAM, nu=NU),
-                                   jax.random.fold_in(jax.random.key(9), 0),
-                                   g, h, mode="sparse_allgather",
-                                   stream=stream)
+        want = jax.jit(lambda k, g_, h_: jagg.compress_local(
+            JEFBV(jcomp_, lam=LAM, nu=NU), k, g_, h_,
+            mode="sparse_allgather", stream=stream))(
+                jax.random.fold_in(jax.random.key(9), 0), g, h)
         _assert_tree_bitwise(want, got)
 
 # ---------------------------------------------------------------------------

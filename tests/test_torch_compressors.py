@@ -64,14 +64,17 @@ def test_certified_constants_equal(spec):
 @pytest.mark.parametrize("spec", ["natural", "topk:64", "scaled_randk:8",
                                   "sign"])
 def test_unported_compressors_refused(spec, capsys):
-    """Every zoo compressor is ported (``make_compressor`` builds it), but
-    the trainer refuses those whose training rounds are not yet ported."""
+    """Every zoo compressor is ported (``make_compressor`` builds it), and
+    since the per-leaf wire slice the trainer takes each of them: the
+    driver refuses none (their rounds are held against JAX's
+    ``compress_local`` below)."""
     from repro_torch.launch import train
 
     assert tcomp.make_compressor(spec) == jcomp_equivalent(spec)
-    with pytest.raises(SystemExit):
-        train.parse_args(["--device", "cpu", "--compressor", spec])
-    assert "not yet ported" in capsys.readouterr().err
+    assert spec.partition(":")[0] in train.TRAIN_COMPRESSORS
+    args = train.parse_args(["--device", "cpu", "--compressor", spec])
+    assert args.compressor == spec
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def jcomp_equivalent(spec):
@@ -654,3 +657,363 @@ def test_contract_scaled_and_bias_variance_like_jax():
                                        torch.from_numpy(x), 64)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert tcomp.RandK(8).alpha(64) == jcomp.RandK(8).alpha(64)
+
+
+# ---------------------------------------------------------------------------
+# The trainer's wire: every zoo uplink, wire dtypes, and the per-leaf wire
+#
+# ``aggregate.compress_local`` (sparse_allgather) against JAX's, jitted as
+# the JAX trainer runs it, on a small nested tree with a (2, 128) leaf, a
+# 3-value leaf, a size-1 leaf and a 0-d leaf, at f32, bf16 and f16: every
+# payload component and every h' bitwise.  JAX runs its Pallas kernels in
+# interpret mode (``REPRO_WIRE_KERNEL=interpret``): the port's kernel
+# wrappers follow the kernels (faults e, f), and every plain codec rounds
+# h + lam d as XLA does under ``jit`` (one FMA, two roundings after a
+# decode that ends in a select; faults a, r).  Inputs are multiples of 1/64
+# with |x| <= 1, so the QSGD norm and the sign scale are exact sums in any
+# order (fault c) and natural's exponents are exact in XLA too; natural on
+# normal draws differs only where XLA's log2/exp2 are inexact (fault j).
+# Then ``TreeWire`` against JAX's ``tree_format_for`` and the cases of
+# JAX's ``tests/test_tree_wire.py``: single-leaf parity over the zoo,
+# composed bits, degenerate leaves and zero messages.
+# ---------------------------------------------------------------------------
+
+from repro.core.efbv import EFBV as JEFBV  # noqa: E402
+from repro.distributed import aggregate as jagg  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.core.efbv import EFBV  # noqa: E402
+from repro_torch.distributed import aggregate as tagg  # noqa: E402
+
+ZOO_UPLINKS = ["identity", "topk:64", "randk:64", "scaled_randk:64",
+               "comp:16,128", "mix:16,32", "block_topk:128,8",
+               "block_topk:32,4", "sign", "natural", "qsgd:16",
+               "frac_topk:50", "frac_comp:10,200"]
+WIRE_DTYPES = ["float32", "bfloat16", "float16"]
+LAM_W = 0.37
+
+
+def _small_tree(seed, normal_draws=False):
+    rng = np.random.default_rng(seed)
+
+    def leaf(shape):
+        if normal_draws:
+            return rng.standard_normal(shape).astype(np.float32)
+        return (rng.integers(-64, 65, shape) / 64).astype(np.float32)
+
+    return {"a": leaf((40, 64)), "b": {"w": leaf((2, 128)),
+                                       "bias": leaf((3,))},
+            "c": leaf((1,)), "d": leaf(())}
+
+
+def _wire_bits(a):
+    """The raw bytes of a payload component or h' (numpy or torch; a
+    bitmap's uint32 words are the port's int32 words)."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(a)).reshape(-1).view(np.uint8)
+
+
+def _both_compress_local(spec, dt, g, h, monkeypatch, rules=None):
+    monkeypatch.setenv("REPRO_WIRE_KERNEL", "interpret")
+    jr = tuple(jwire.parse_leaf_rules(rules)) if rules else None
+    tr = twire.parse_leaf_rules(rules) if rules else None
+    jalgo = JEFBV(jcomp.make_compressor(spec), lam=LAM_W, nu=0.5,
+                  leaf_rules=jr)
+    talgo = EFBV(tcomp.make_compressor(spec), lam=LAM_W, nu=0.5,
+                 leaf_rules=tr)
+    jk, tk = keys(13, 3)
+    want = jax.jit(lambda k, g_, h_: jagg.compress_local(
+        jalgo, k, g_, h_, mode="sparse_allgather", wire_dtype=dt))(
+            jk, jax.tree.map(jnp.asarray, g), jax.tree.map(jnp.asarray, h))
+    got = tagg.compress_local(talgo, tk, T.params_from_jax(g, "cpu"),
+                              T.params_from_jax(h, "cpu"),
+                              mode="sparse_allgather", wire_dtype=dt)
+    return want, got
+
+
+@pytest.mark.parametrize("dt", WIRE_DTYPES)
+@pytest.mark.parametrize("spec", ZOO_UPLINKS)
+def test_compress_local_zoo_bitwise_vs_jitted_jax(spec, dt, monkeypatch):
+    (jm, jh), (tm, th) = _both_compress_local(
+        spec, dt, _small_tree(1), _small_tree(2), monkeypatch)
+    jmsg, tmsg = jax.tree.leaves(jm), T.leaves(tm)
+    assert len(jmsg) == len(tmsg)
+    for w, t in zip(jmsg, tmsg):
+        assert tuple(np.shape(w)) == tuple(t.shape)
+        assert np.asarray(w).dtype.itemsize == t.element_size()
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+    for w, t in zip(jax.tree.leaves(jh), T.leaves(th)):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+    fmt = twire.format_for(tcomp.make_compressor(spec),
+                           T.params_from_jax(_small_tree(1), "cpu"),
+                           wire_dtype=dt)
+    assert 8 * twire.payload_bytes(tm) == fmt.bits_per_round()
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("spec", ["block_topk:128,8", "block_topk:32,4",
+                                  "topk:64", "identity"])
+def test_compress_local_non_f32_wire_specials_like_jax(spec, dt,
+                                                       monkeypatch):
+    """-0.0 innovations (g = -0.0, h = +0.0), a NaN, and values beyond
+    f16's range on a bf16/f16 wire: the plain path's payload rounds them
+    to the wire type as XLA converts, and h' tracks the rounded values,
+    bitwise JAX's jitted ``compress_local``."""
+    g, h = _small_tree(9), _small_tree(10)
+    g["a"][0, :16], h["a"][0, :16] = -0.0, 0.0
+    g["a"][1, 3] = np.nan
+    g["a"][2, :4] = [7e4, -9e4, 3e38, -3e38]
+    g["b"]["w"][0, :8], h["b"]["w"][0, :8] = -0.0, 0.0
+    (jm, jh), (tm, th) = _both_compress_local(spec, dt, g, h, monkeypatch)
+    for w, t in zip(jax.tree.leaves(jm), T.leaves(tm)):
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+    for w, t in zip(jax.tree.leaves(jh), T.leaves(th)):
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_compress_local_natural_differs_only_where_xla_is_inexact(
+        dt, monkeypatch):
+    """Natural on normal draws: exponents and h' differ from JAX's only at
+    the values whose exponent XLA takes inexactly (fault j)."""
+    g, h = _small_tree(3, True), _small_tree(4, True)
+    (jm, jh), (tm, th) = _both_compress_local("natural", dt, g, h,
+                                              monkeypatch)
+    for j, (gl, hl) in enumerate(zip(jax.tree.leaves(g),
+                                     jax.tree.leaves(h))):
+        inexact = _xla_inexact((gl - hl).reshape(-1))
+        exps_differ = np.asarray(jm[j][0]) != tm[j][0].numpy()
+        h_differ = (np.asarray(jax.tree.leaves(jh)[j]).reshape(-1).view(
+            np.uint32) != T.leaves(th)[j].reshape(-1).numpy().view(
+                np.uint32))
+        assert not np.any(exps_differ & ~inexact)
+        assert not np.any(h_differ & ~inexact)
+        np.testing.assert_array_equal(_wire_bits(jm[j][1]),
+                                      _wire_bits(tm[j][1]))
+
+
+def test_compress_local_leaf_rules_bitwise_vs_jitted_jax(monkeypatch):
+    """Per-leaf rules on the small tree: QSGD, identity, sign and top-k
+    leaves beside block-top-k, on a bf16 wire."""
+    rules = "a=qsgd:16;*bias=identity;c=sign;d=topk:4"
+    (jm, jh), (tm, th) = _both_compress_local(
+        "block_topk:32,4", "bfloat16", _small_tree(5), _small_tree(6),
+        monkeypatch, rules)
+    for w, t in zip(jax.tree.leaves(jm), T.leaves(tm)):
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+    for w, t in zip(jax.tree.leaves(jh), T.leaves(th)):
+        np.testing.assert_array_equal(_wire_bits(w), _wire_bits(t))
+
+
+def test_wire_dtype_codecs_and_bits_like_jax():
+    """Every codec's kind, value dtype, bits and kernel flag at each wire
+    dtype equal JAX's; QSGD, sign and natural ignore the dtype; a bad
+    dtype is refused with JAX's message."""
+    ttree = T.params_from_jax(_small_tree(1), "cpu")
+    for spec in ZOO_UPLINKS:
+        for dt in WIRE_DTYPES:
+            j = jwire.format_for(jcomp.make_compressor(spec), _small_tree(1),
+                                 wire_dtype=dt)
+            t = twire.format_for(tcomp.make_compressor(spec), ttree,
+                                 wire_dtype=dt)
+            assert [(c.kind, c.payload_bits, c.has_kernel,
+                     getattr(c, "val_dtype", None)) for c in t.leaves] == \
+                [(c.kind, c.payload_bits, c.has_kernel,
+                  getattr(c, "val_dtype", None)) for c in j.leaves], \
+                (spec, dt)
+    with pytest.raises(ValueError, match="not in"):
+        twire.codec_of(tcomp.TopK(4), (8,), 8, "float64").payload_bits
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("spec", ["block_topk:256,16", "randk:64"])
+def test_non_f32_wire_takes_the_plain_path(spec, dt):
+    """A kernel codec on a bf16/f16 wire: ``auto`` takes the plain encode
+    -> decode -> update before any launch (h' tracks the rounded values),
+    ``cuda`` raises; the payload values are the rounded f32 ones."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    codec = twire.codec_of(tcomp.make_compressor(spec), (1000,), 1000, dt)
+    assert not codec.has_kernel
+    g = torch.from_numpy(normal(1, (1000,)))
+    h = torch.from_numpy(normal(2, (1000,)))
+    reset_launches()
+    (vals, idx), hn = codec.encode_update(R.key(3), g, h, LAM_W)
+    assert not any(LAUNCHES.values())
+    assert vals.dtype == twire.val_torch_dtype(dt)
+    d = codec.decode((vals, idx))
+    np.testing.assert_array_equal(hn.numpy(), (h + LAM_W * d).numpy())
+    with pytest.raises(ValueError, match="cuda"):
+        codec.encode_update(R.key(3), g, h, LAM_W, kernel="cuda")
+
+
+def test_tree_wire_equals_jax_on_smoke_tree():
+    """``TreeWire`` of the smoke qwen2 tree under the mixed-codec rules:
+    paths, kinds, bits by leaf and the composed total equal JAX's
+    ``tree_format_for`` (BENCH_bits ``tree_wire``: 6,832,160 bits,
+    0.147847x dense); no rules is the flat format."""
+    rules = "*embed*=qsgd:16;*norm*=identity"
+    ttree = build_model(get_smoke_config("qwen2-0.5b")).init_abstract()
+    j = jwire.tree_format_for(jcomp.BlockTopK(256, 16),
+                              _jax_smoke_abstract(),
+                              rules=jwire.parse_leaf_rules(rules))
+    t = twire.tree_format_for(tcomp.BlockTopK(256, 16), ttree,
+                              rules=twire.parse_leaf_rules(rules))
+    assert isinstance(t, twire.TreeWire)
+    assert t.paths == j.paths
+    assert [c.kind for c in t.leaves] == [c.kind for c in j.leaves]
+    assert t.bits_by_leaf() == j.bits_by_leaf()
+    assert t.bits_per_round() == sum(t.bits_by_leaf()) == 6_832_160
+    assert f"{t.bits_per_round() / t.dense_bits():.6f}" == "0.147847"
+    assert [_fields(c) for c in t.compressors] == \
+        [_fields(c) for c in j.compressors]
+    flat = twire.tree_format_for(tcomp.BlockTopK(256, 16), ttree)
+    assert type(flat) is twire.WireFormat
+    assert flat.bits_per_round() == SMOKE_BITS
+
+
+def _fields(c):
+    return (type(c).__name__, dataclasses.asdict(c))
+
+
+TREE_ZOO = ["identity", "topk:8", "randk:8", "scaled_randk:8", "comp:4,16",
+            "mix:4,4", "block_topk:32,4", "sign", "natural", "qsgd:16",
+            "frac_topk:125"]
+
+
+@pytest.mark.parametrize("spec", TREE_ZOO)
+def test_tree_wire_single_leaf_parity_over_the_zoo(spec):
+    """A one-leaf TreeWire (no rules) is the flat wire: payload and h'
+    bitwise the flat codec's under ``fold_in(key, 0)``, its bits the
+    codec's; the payload equals JAX's TreeWire's (jitted) and decodes to
+    the compressor's dense output."""
+    x = exact_sum_normal(7, 64)
+    h = exact_sum_normal(8, 64)
+    tree = {"x": torch.from_numpy(x)}
+    fmt = twire.TreeWire.for_tree(tcomp.make_compressor(spec), tree)
+    codec = twire.codec_of(tcomp.make_compressor(spec), (64,), 64)
+    assert fmt.leaves == (codec,) and fmt.bits_by_leaf() == \
+        (codec.payload_bits,)
+    jk, tk = keys(21, 22)
+    pays, hn = fmt.encode_update(tk, tree, {"x": torch.from_numpy(h)},
+                                 LAM_W)
+    p0, h0 = codec.encode_update(R.fold_in(tk, 0), torch.from_numpy(x),
+                                 torch.from_numpy(h), LAM_W)
+    for a, b in zip(pays[0], p0):
+        assert torch.equal(a, b)
+    assert torch.equal(hn["x"], h0)
+    jfmt = jwire.TreeWire.for_tree(jcomp.make_compressor(spec),
+                                   {"x": jnp.zeros(64)})
+    jp = jax.jit(lambda k, g_, h_: jfmt.encode_update(k, g_, h_, LAM_W)[0])(
+        jk, {"x": jnp.asarray(x)}, {"x": jnp.asarray(h)})
+    for a, b in zip(jp[0], pays[0]):
+        assert_bits(a, b)
+    dense = fmt.decode(pays)["x"]
+    want = fmt.compressors[0](R.fold_in(tk, 0), torch.from_numpy(x - h))
+    np.testing.assert_array_equal(dense.numpy(), want.numpy())
+
+
+def exact_sum_normal(seed, d):
+    """Multiples of 1/64 with |x| <= 4: norms and L1 sums exact in f32."""
+    return (np.random.default_rng(seed).integers(-256, 257, d) / 64).astype(
+        np.float32)
+
+
+NESTED = {"embed": (16, 8), "mlp": {"w": (64,), "bias": (1,)}, "scale": ()}
+MIXED_RULES = "embed*=qsgd:16;*bias=identity"
+
+
+def _nested(lib, t=NESTED):
+    """NESTED's tree of zeros in JAX or torch."""
+    if isinstance(t, dict):
+        return {k: _nested(lib, v) for k, v in t.items()}
+    return (jnp.zeros if lib == "jax" else torch.zeros)(t)
+
+
+def test_tree_wire_composed_bits_is_sum_of_leaf_bits():
+    fmt = twire.TreeWire.for_tree(tcomp.make_compressor("block_topk:32,4"),
+                                  _nested("torch"),
+                                  rules=twire.parse_leaf_rules(MIXED_RULES))
+    j = jwire.TreeWire.for_tree(jcomp.make_compressor("block_topk:32,4"),
+                                _nested("jax"),
+                                rules=jwire.parse_leaf_rules(MIXED_RULES))
+    assert [c.kind for c in fmt.leaves] == ["qsgd_quant", "dense_pack",
+                                            "block_sparse", "block_sparse"]
+    assert fmt.bits_by_leaf() == j.bits_by_leaf()
+    per_worker = fmt.bits_per_round()
+    assert per_worker == sum(fmt.bits_by_leaf()) == j.bits_per_round()
+    assert fmt.bits_per_round(n_workers=4) == 4 * per_worker
+    assert fmt.dense_bits() == 32 * (16 * 8 + 64 + 1 + 1)
+    # the bits follow the path, not where the leaf sits in the tree
+    named = [("embed", torch.zeros(16, 8)), ("w", torch.zeros(64)),
+             ("tiny", torch.zeros(5))]
+    layouts = [dict(named), {"outer": dict(named[::-1])},
+               (dict(named[:1]), dict(named[1:]))]
+    rules = twire.parse_leaf_rules("*embed*=qsgd:16")
+    fmts = [twire.TreeWire.for_tree(tcomp.TopK(8), t, rules=rules)
+            for t in layouts]
+    assert len({f.bits_per_round() for f in fmts}) == 1
+    assert len({tuple(sorted(f.bits_by_leaf())) for f in fmts}) == 1
+
+
+DEGENERATE = {"scalar": (), "one": (1,), "tiny": (3,), "wide": (64,)}
+
+
+@pytest.mark.parametrize("spec", ["topk:8", "randk:8", "scaled_randk:8",
+                                  "block_topk:32,4", "mix:4,4", "comp:4,16",
+                                  "qsgd:16", "sign", "natural"])
+def test_tree_wire_degenerate_leaves(spec):
+    """k above a leaf's size clamps per leaf: encode, decode, zero and
+    masked messages work on 0-d, size-1 and size-3 leaves, each payload
+    equal to JAX's (jitted), and the masked and zero messages decode to
+    exactly zero."""
+    ttree = {k: torch.zeros(s) for k, s in DEGENERATE.items()}
+    jtree = {k: jnp.zeros(s) for k, s in DEGENERATE.items()}
+    fmt = twire.TreeWire.for_tree(tcomp.make_compressor(spec), ttree)
+    jfmt = jwire.TreeWire.for_tree(jcomp.make_compressor(spec), jtree)
+    assert fmt.bits_by_leaf() == jfmt.bits_by_leaf()
+    jk, tk = keys(3, 4)
+    jks, tks = jfmt.leaf_keys(jk), fmt.leaf_keys(tk)
+    for j, codec in enumerate(fmt.leaves):
+        delta = exact_sum_normal(100 + j, codec.size)
+        payload = codec.encode(tks[j], torch.from_numpy(delta))
+        want = jax.jit(jfmt.leaves[j].encode)(jks[j], jnp.asarray(delta))
+        for a, b in zip(want, payload):
+            assert_bits(a, b)
+        assert codec.decode(payload).shape == (codec.size,)
+        zero = twire.zero_message(codec, tks[j], "cpu")
+        assert not codec.decode(zero).any()
+        masked = codec.mask_message(payload, 0.0)
+        assert not codec.decode(masked).any()
+
+
+@pytest.mark.parametrize("spec", ["block_topk:32,4", "qsgd:16", "natural",
+                                  "mix:4,4"])
+def test_tree_wire_zero_messages_like_jax(spec):
+    """The pipelined priming payloads of a mixed tree: leaf j keyed
+    ``fold_in(base, j)``, bitwise JAX's ``zero_messages``, decoding to
+    exactly zero; ``mask_messages`` at 0 zeroes a real message."""
+    rules = "embed*=qsgd:16;*bias=identity"
+    fmt = twire.TreeWire.for_tree(tcomp.make_compressor(spec),
+                                  _nested("torch"),
+                                  rules=twire.parse_leaf_rules(rules))
+    jfmt = jwire.TreeWire.for_tree(jcomp.make_compressor(spec),
+                                   _nested("jax"),
+                                   rules=jwire.parse_leaf_rules(rules))
+    jk, tk = keys(5, 6)
+    got = fmt.zero_messages(tk, "cpu")
+    want = jfmt.zero_messages(jk)
+    for w, t in zip(jax.tree.leaves(want), T.leaves(got)):
+        assert_bits(w, t)
+    for leaf in T.leaves(fmt.decode(got)):
+        assert not leaf.any()
+    g = T.tree_map(lambda z: torch.ones_like(z), _nested("torch"))
+    pays, _ = fmt.encode_update(tk, g, _nested("torch"), LAM_W)
+    for leaf in T.leaves(fmt.decode(fmt.mask_messages(pays, 0.0))):
+        assert not leaf.any()
+    stacked = [tuple(torch.stack([a, a]) for a in p) for p in pays]
+    total = fmt.decode_sum(stacked)
+    one = fmt.decode(pays)
+    for a, b in zip(T.leaves(total), T.leaves(one)):
+        np.testing.assert_array_equal(a.numpy(), (b + b).numpy())

@@ -74,6 +74,9 @@ SPECS_2X2 = {
     "pipelined_blocktopk.json": [5_776_384, 11_553_216, 23_105_984],
     "qsgd_bidirectional.json": [11_553_216, 11_553_216, 34_659_648],
     "federated_blocktopk.json": [5_776_384],
+    # per-leaf codecs: QSGD on the embedding, the final norm dense,
+    # block-top-k elsewhere (BENCH_bits tree_wire)
+    "tree_mixed_codecs.json": [6_832_160],
 }
 
 
@@ -111,3 +114,67 @@ def test_committed_2x2_spec_runs_on_four_ranks(name):
     if spec.participation != "full":
         assert " participation=bernoulli:0.5 " in out
         assert len(re.findall(r"\|S\|=\d/2 ", out)) == 4
+
+
+# -- the per-leaf wire from the CLI, and a mixed-dtype payload on two ranks ---
+
+LEAF_FLAGS = ["--smoke", "--device", "cpu", "--agg", "sparse_allgather",
+              "--leaf-codecs", "*embed*=qsgd:16;*norm*=identity",
+              "--steps", "2", "--global-batch", "8", "--seq", "32",
+              "--log-every", "1"]
+
+
+def test_leaf_codecs_cli_prints_jaxs_bits_line(capsys):
+    """``--leaf-codecs`` prints the JAX driver's wire line character for
+    character (reckoned from JAX's ``tree_format_for`` on its own smoke
+    params, as its driver prints it), and the header names the rules."""
+    from repro.configs import get_smoke_config
+    from repro.core.compressors import BlockTopK
+    from repro.distributed import wire as jwire
+    from repro.models import build_model
+    from repro_torch.launch import train
+
+    params = build_model(get_smoke_config("qwen2-0.5b")).init_abstract()
+    fmt = jwire.tree_format_for(
+        BlockTopK(256, 16), params,
+        rules=jwire.parse_leaf_rules("*embed*=qsgd:16;*norm*=identity"))
+    up, dense = fmt.bits_per_round(), fmt.dense_bits()
+    kinds = sorted({leaf.kind for leaf in fmt.leaves})
+    want = (f"[train] wire: codec={','.join(kinds)} {up} bits/round/worker "
+            f"uplink ({up / 8 / 2**20:.2f} MiB, "
+            f"{up / max(dense, 1):.4f}x dense fp32)")
+    assert want == ("[train] wire: codec=block_sparse,dense_pack,qsgd_quant "
+                    "6832160 bits/round/worker uplink (0.81 MiB, 0.1478x "
+                    "dense fp32)")
+    assert np.isfinite(train.main(LEAF_FLAGS))
+    out = capsys.readouterr().out
+    assert want in out.splitlines()
+    assert " leaf_codecs=*embed*=qsgd:16;*norm*=identity " in out
+
+
+def test_mixed_dtype_payload_two_ranks_equal_one_process():
+    """int8 levels, an f32 norm, bf16 values and int32 indices in one byte
+    buffer: two gloo ranks (one worker each) print every step as the
+    one-process run does (both on one thread), the bf16 wire's bits
+    (block-top-k values at 16 bits) included."""
+    flags = LEAF_FLAGS + ["--wire-dtype", "bfloat16"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+
+    def steps(out):
+        return [re.sub(r"\(\S+s/step\)", "", line) for line in
+                out.splitlines() if "] step " in line or "bits/round" in line]
+
+    one = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *flags], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert one.returncode == 0, one.stderr[-3000:]
+    two = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *flags,
+         "--dist-backend", "gloo"], capture_output=True, text=True,
+        timeout=300, env=env, cwd=ROOT)
+    assert two.returncode == 0, two.stderr[-3000:]
+    assert steps(two.stdout) == steps(one.stdout)
+    assert len(steps(one.stdout)) == 3
+    assert "codec=block_sparse,dense_pack,qsgd_quant 5646368 " \
+        "bits/round/worker" in one.stdout

@@ -1243,11 +1243,11 @@ def test_model_big_dense_vs_jnp_oracle(kind, kb):
 
 @pytest.mark.parametrize("block", [128, 1024])
 def test_reference_contracts_one_unreshaped_tile(block):
-    """ROADMAP fault m: given exactly one (8, block) tile of f32 at kb = 1,
-    ``ops.efbv_update`` in interpret mode rounds h' = h + lam d once (an
-    FMA), while the same values given flat, or any other shape, round
-    twice (fault k).  The port rounds twice for both shapes; the two
-    disagree on that one input shape only, and on no d."""
+    """ROADMAP fault m (repaired): given exactly one (8, block) tile of
+    f32 at kb = 1, ``ops.efbv_update`` in interpret mode rounds h' = h +
+    lam d once (an FMA), while the same values given flat, or any other
+    shape, round twice (fault k).  The port's wrapper decides from the
+    unreshaped shape as JAX's does: bitwise with both."""
     rng = np.random.default_rng(block)
     g = rng.standard_normal((8, block)).astype(np.float32)
     h = rng.standard_normal((8, block)).astype(np.float32)
@@ -1259,12 +1259,16 @@ def test_reference_contracts_one_unreshaped_tile(block):
         block=block, kb=1, interpret=True)]
     port = [t.numpy() for t in ops.efbv_update(
         torch.from_numpy(g), torch.from_numpy(h), LAM, block=block, kb=1)]
-    _assert_same(flat, port)
+    port_flat = [t.numpy().reshape(8, block) for t in ops.efbv_update(
+        torch.from_numpy(g.reshape(-1)), torch.from_numpy(h.reshape(-1)),
+        LAM, block=block, kb=1)]
+    _assert_same(flat, port_flat)
     np.testing.assert_array_equal(_bits(tile[0]), _bits(port[0]))
     fma = torch.add(torch.from_numpy(h), torch.tensor(tile[0]),
                     alpha=LAM).numpy()
     np.testing.assert_array_equal(_bits(tile[1]), _bits(fma))
-    assert np.any(_bits(tile[1]) != _bits(port[1]))
+    assert np.any(_bits(tile[1]) != _bits(flat[1]))
+    np.testing.assert_array_equal(_bits(tile[1]), _bits(port[1]))
 
 
 def test_model_search_steps():

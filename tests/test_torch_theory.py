@@ -349,11 +349,17 @@ def test_smoke_field_is_part_of_the_identity():
      "item 8")])
 def test_unported_run_surface_refused_with_its_roadmap_item(kw, item):
     r = build(ExperimentSpec(**kw))
+    if "leaf_codecs" in kw:
+        # item 6 is ported: round_bits under leaf rules is the TreeWire's,
+        # JAX's own accounting (on the spec's flat vector and on a tree)
+        assert r.round_bits() == jbuild(JSpec(**kw)).round_bits()
+        tree = {"embed": torch.zeros(64, 8, device="meta"),
+                "w": torch.zeros(300, device="meta")}
+        jtree = {"embed": jnp.zeros((64, 8)), "w": jnp.zeros(300)}
+        assert r.round_bits(tree) == jbuild(JSpec(**kw)).round_bits(jtree)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if "leaf_codecs" in kw:
-            r.round_bits()
-        else:
-            r.train_step(lambda p, b: (0.0, {}), None)
+        r.train_step(lambda p, b: (0.0, {}), None)
     if "mesh" in kw:
         # the mesh is ported (its geometry, the model axis); the fsdp
         # state's layout is not
@@ -631,6 +637,35 @@ def test_reference_matmul_gradients_within_tolerance(problem, resample,
                                atol=tol * scale)
     np.testing.assert_allclose(t.metrics.numpy(), np.asarray(j.metrics),
                                rtol=tol / 100)
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+def test_reference_wire_dtype_within_tolerance(dt):
+    """A bf16/f16 wire in the reference backend: the broadcast's top-k
+    values round to the wire type and w tracks the rounded values, on
+    logistic regression (JAX's data carried across), within the matmul
+    tolerance above; with the gradient x - B_i, bitwise."""
+    kw = dict(compressor="comp:2,8", problem="logreg", downlink="topk:8@0.9",
+              wire_dtype=dt, n=N_REF, d=D_REF, steps=STEPS_REF, seed=2)
+    jrun, trun = jbuild(JSpec(**kw)), build(ExperimentSpec(**kw))
+    jp = jrun.problem_instance()
+    tp = _carried(jp)
+    gamma = jrun._tune(L=jp.L(), Ltilde=jp.L_tilde()).gamma
+    j = jrun.reference(grad_fn=jp.grads, gamma=gamma, record=jp.f)
+    t = trun.reference(grad_fn=tp.grads, gamma=gamma, record=tp.f,
+                       device="cpu")
+    scale = float(np.abs(np.asarray(j.x)).max())
+    np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), rtol=0,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(t.metrics.numpy(), np.asarray(j.metrics),
+                               rtol=1e-6)
+    f32 = build(ExperimentSpec(**dict(kw, wire_dtype="float32"))).reference(
+        grad_fn=tp.grads, gamma=gamma, device="cpu")
+    assert not torch.equal(f32.w, t.w)
+    j, t = _elementwise_pair(compressor="comp:2,8", downlink="topk:8@0.9",
+                             wire_dtype=dt)
+    _assert_bitwise(j, t, dt)
+    np.testing.assert_array_equal(_bits(t.w), _bits(j.w))
 
 
 def test_spec_reference_equals_direct_run_reference():
