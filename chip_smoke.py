@@ -38,7 +38,14 @@ line is printed only when every phase passed):
               the kernel at 4224; at the 14 full-width leaves at block/kb
               256/16, 1024/16, 1024/64, 4096/64 and 8192/64, timed at
               256/16, 4096/64 and 8192/64; the selection's SASS per value
-              and step, and the search's mean steps on those leaves.
+              and step, and the search's mean steps on those leaves.  The
+              reference backend's two kernels (``kernels_rows``): the row
+              draw (``threefry_rows``, n keys at once) and the ordered
+              worker sum (``worker_sum.cu``, with and without the mask and
+              the fused master update), bitwise against their plain
+              versions at n in {16, 1000} and d in {64, 112, 300, 2**20},
+              timed beside them; the stable sorts of the batched
+              compressors with forced ties, card == CPU == numpy.
 3. reference -- JAX's initial weights (``Model.init(random.key(0))``,
               XLA's f32 erf_inv emulated) of the smoke config drawn on the
               card bitwise equal to the CPU's, and a 2**22-value normal
@@ -65,18 +72,29 @@ line is printed only when every phase passed):
               and an f16 wire: each case's exact bits, the losses within
               the CPU tests' 1e-5 relative and the params within AdamW's
               bound of the CPU's.
-3b. reference backend -- through the spec (``repro_torch.core.build``):
-              the committed ``examples/specs/reference_logreg_efbv.json``
-              (500 rounds, n = 16, d = 64, comp-(2, 32), auto-tuned) on the
-              card and on the CPU, each drawing its own problem (ms per
-              round, f(x) - f* at rounds 0, 100 and 500, within 1e-5 of each
-              other); the same spec with the exact gradient x - B_i, x, h
-              and h_avg bitwise card against CPU; the time of a round at
-              paper Figure 2's scale (logreg, d = 112, n = 1000 workers of
-              8 rows each, comp-(1, 56)), EF-BV and EF21, 100 rounds each on
-              the card.  Only rounds are timed: each problem is drawn, f*
-              solved and the stepsize tuned before the timer.  Its launches
-              (threefry draws) are a main path's, ``reference``.
+3b. reference backend -- through the spec (``repro_torch.core.build``),
+              the workers batched: (a) the committed
+              ``examples/specs/reference_logreg_efbv.json`` (500 rounds,
+              n = 16, d = 64, comp-(2, 32), auto-tuned) on the card and on
+              the CPU, each drawing its own problem (ms per round, f(x) -
+              f* at rounds 0, 100 and 500, within 1e-5 of each other); (b)
+              the same spec with the exact gradient x - B_i, x, h and h_avg
+              bitwise card against CPU; (c) a round at paper Figure 2's
+              scale (logreg, d = 112, n = 1000 workers of 8 rows each,
+              comp-(1, 56)), EF-BV and EF21, 100 rounds each on the card
+              and on the CPU (the card's data), within 1e-5 relative, and
+              one short run profiled (launches, copies, device and host
+              time a round); (d) the paper's experiments from
+              ``paper_torch/`` at their fast setting on the card: Table 3's
+              five rows (each ``matches_paper=True``), Figure 2 (mushrooms
+              and phishing, n = 1000, 1500 rounds of EF-BV and EF21) and
+              Figure 3 (mushrooms, n = 200, 1200 rounds), every trajectory
+              finite and descending, with the seconds each took.  Only
+              rounds are timed in (a)-(c): each problem is drawn, f* solved
+              and the stepsize tuned before the timer.  Its launches (the
+              problems' threefry draws, one row draw per shuffle round and
+              one worker sum a round, none of it growing with n) are a
+              main path's, ``reference``.
 4. main paths -- ``repro_torch.launch.train.main`` at the full width and
               depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
@@ -172,6 +190,7 @@ the CUDA toolkit; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -263,15 +282,15 @@ def same_bits(a, b):
 
 
 def max_abs_diff(a, b):
-    """max |a - b| over the values where not both are NaN (0.0 if none)."""
-    d = (a.double() - b.double()).abs()
-    d = torch.where(a.double().isnan() & b.double().isnan(),
-                    torch.zeros_like(d), d)
+    """max |a - b| over the values that differ and are not both NaN (0.0
+    if none): equal infinities count 0, not inf - inf = NaN."""
+    a, b = a.double(), b.double()
+    d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
     return float(d.max()) if d.numel() else 0.0
 
 
 SOURCES = ("pack_update", "qsgd_pack_update", "randk_update", "threefry",
-           "block_topk")
+           "block_topk", "worker_sum")
 
 
 def phase_build():
@@ -341,9 +360,11 @@ def phase_kernels():
     torch.cuda.empty_cache()
     dense_rows = kernels_dense()
     torch.cuda.empty_cache()
+    rows_rows = kernels_rows()
+    torch.cuda.empty_cache()
     return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
             "randk_update": randk_row, "threefry_uniform": threefry_row,
-            **dense_rows}
+            **dense_rows, **rows_rows}
 
 
 def bulk_store_sass():
@@ -942,6 +963,247 @@ def kernels_permutation():
           f"({sum(random.shuffle_rounds(s) * s for s in sizes)} sorted "
           f"pairs): ms={ms:.4f}")
     return ms
+
+
+#: the reference backend's kernels (phase 2, ``kernels_rows``): worker
+#: counts (the committed spec's 16, paper Figure 2's 1000) and row widths
+#: (the spec's 64, the paper's 112 and 300, and a wide leaf)
+ROW_NS = (16, 1000)
+ROW_DS = (64, 112, 300, 2**20)
+#: the reference-spec phase's own shapes: comp's shuffle draws over k' =
+#: d/2 ((16, 32) for the committed spec, (1000, 56) and (1000, 34) for
+#: Figure 2 on mushrooms and phishing, (200, 56) for Figure 3) and the
+#: worker sums over d = 2k'; beside them worker sums with XLA's window
+#: padding (33 rows: 15 in front) and two windowed levels (2000 rows)
+MAIN_NS = (16, 200, 1000)
+MAIN_MS = (32, 34, 56)
+SUM_EXTRA = ((33, 64), (2000, 112))
+#: the shapes of the kernels JSON line: Figure 2's round at n = 1000 on
+#: mushrooms, its comp-(1, 56) shuffle draw (one round over k' = 56) and
+#: its worker sum of (1000, 112) with the master update fused
+ROWS_MAIN = (1000, 56)
+SUM_MAIN = (1000, 112)
+
+
+def worker_sum_bound_ms(n, cols, rows_weights, fuse):
+    """Least time of one ordered worker sum of (n, cols) f32: read d (and
+    the (n,) weights, and h when fused) once and write the sum (or g and
+    h_avg'); or its adds or fmas (and the two fmas when fused) at one f32
+    instruction per lane and clock."""
+    reads = n * cols + (n if rows_weights else 0) + (cols if fuse else 0)
+    writes = cols * (2 if fuse else 1)
+    ops = n * cols + (2 * cols if fuse else 0)
+    t_bytes = 4 * (reads + writes) / H100_BYTES_PER_S
+    t_ops = ops / H100_ISSUE_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def rows_cases(ns, ms):
+    return {(n, m) for n in ns for m in ms}
+
+
+def check_threefry_rows(n, m, as_float, dev, keys=None):
+    """``threefry_rows`` at (n, m) against its plain version on the card,
+    bitwise, and its first and last rows against the 1-D draw; returns
+    the max |kernel - plain|."""
+    from repro_torch import random
+    from repro_torch.kernels import ref, threefry
+
+    if keys is None:
+        keys = random.split(random.fold_in(random.key(3), n), n)
+    kt = random.key_tensor(keys, dev)
+    k = threefry.threefry_rows(kt, m, as_float)
+    p = ref.threefry_rows_ref(kt, m, as_float)
+    ok = same_bits(k, p) and all(same_bits(
+        k[i], threefry.threefry_fill(keys[i], m, dev, as_float))
+        for i in (0, n - 1))
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"[kernels] threefry_rows n={n} m={m} "
+                             f"as_float={as_float}: kernel != plain")
+    return max_abs_diff(k, p)
+
+
+def sum_weights(n, kind, gen, dev):
+    """The weights of a worker sum of kind None, "rows" (a 0/1 mask with
+    its last worker out), "scale" (one f32 constant), "mask*scale", or a
+    fleet's (n,) scales (10/3 but on every third worker)."""
+    mask = (torch.rand(n, generator=gen) < 0.5).float()
+    mask[n - 1] = 0.0
+    scale = f32(10 / 3)
+    return {None: None, "rows": mask.to(dev), "scale": scale,
+            "mask*scale": (mask * scale).to(dev),
+            "fleet": torch.where(torch.arange(n) % 3 == 1, 1.0,
+                                 scale).to(dev)}[kind]
+
+
+def check_worker_sum(n, cols, kind, order, fuse, gen, dev):
+    """``worker_sum`` of (n, cols) with weights of ``kind`` in ``order``
+    (fused with the master update or not) against its plain version on
+    the card, bitwise, on data with -0.0, inf and a NaN in the last
+    worker's row (its mask is 0: 0 * NaN stays NaN); returns the max
+    |kernel - plain|."""
+    from repro_torch.kernels import ops, ref
+
+    d = torch.randn(n, cols, generator=gen)
+    d[0, :3] = torch.tensor([-0.0, float("inf"), -1.5])[:cols]
+    d = d.to(dev)
+    if kind in ("rows", "mask*scale"):
+        d[n - 1, 1 % cols] = float("nan")
+    w = sum_weights(n, kind, gen, dev)
+    h = torch.randn(cols, generator=gen).to(dev)
+    c_g, c_h = f32(0.37 / n), f32(0.011 / n)
+    args = (d, w) + ((h, c_g, c_h) if fuse else (None, 0.0, 0.0))
+    k = ops.worker_sum(*args, order=order)
+    p = ref.worker_sum_ref(*args, order=order)
+    k, p = (k, p) if fuse else ((k,), (p,))
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip(k, p)):
+        raise AssertionError(f"[kernels] worker_sum n={n} cols={cols} "
+                             f"{kind} {order} fuse={fuse}: kernel != plain")
+    return max(max_abs_diff(a, b) for a, b in zip(k, p))
+
+
+#: the worker sums held bitwise at every shape: (weights, order)
+SUM_KINDS = ((None, "reduce"), ("rows", "reduce"), ("scale", "reduce"),
+             ("mask*scale", "reduce"), ("fleet", "unrolled"),
+             ("fleet", "pair"))
+
+
+def kernels_rows():
+    """The reference backend's two kernels, each bitwise against its plain
+    version on the card at n in ROW_NS and d in ROW_DS (and the row draw's
+    scalar path at m = 1 and 7) and at the reference-spec phase's own
+    shapes (MAIN_NS x MAIN_MS and their d = 2k'; SUM_EXTRA), then timed
+    beside the plain version, a PyTorch call and the bound: the row draw
+    (``threefry_rows``: words and uniforms, each row also equal to the 1-D
+    draw under its key) and the ordered worker sum (``worker_sum``: plain,
+    under the mask, with a constant scale c, with f32(m * c), and a fleet's
+    per-row scales unrolled and with the first pair contracted, each with
+    and without the fused master update, in XLA's reduce order: worker
+    order up to 32 rows, windows of 32 beyond; -0.0, inf and a NaN row
+    that the mask zeroes, which stays NaN).  The JSON line's error is the
+    one at ROWS_MAIN and SUM_MAIN.  Then the stable sorts the batched
+    compressors stand on, card against CPU and numpy with forced ties:
+    ``random.stable_order`` (the shuffle's sort as uint32) and
+    ``ref.topk_rows`` (top-k's tie order), and ``random.permutation_rows``
+    card against CPU."""
+    import numpy as np
+
+    from repro_torch import random
+    from repro_torch.kernels import ops, ref, threefry
+
+    dev = torch.device("cuda")
+    per_value = sass_per_value("threefry", "threefry_rows_kernel")
+    print(f"[kernels] threefry_rows SASS per value: {per_value[0]:.2f} "
+          f"instructions, {per_value[1]:.2f} on the integer pipe")
+    err_rows = {}
+    draws = sorted(rows_cases(ROW_NS, (1, 7) + ROW_DS)
+                   | rows_cases(MAIN_NS, MAIN_MS))
+    for n, m in draws:
+        err_rows[n, m] = max(check_threefry_rows(n, m, f, dev)
+                             for f in (False, True))
+        torch.cuda.empty_cache()
+    print(f"[kernels] threefry_rows (n, m) in {draws}, words and uniforms: "
+          "bitwise == plain, rows == the 1-D draw")
+    err_sum = {}
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    sums = sorted(rows_cases(ROW_NS, ROW_DS)
+                  | rows_cases(MAIN_NS, [2 * m for m in MAIN_MS])
+                  | set(SUM_EXTRA))
+    for n, cols in sums:
+        err_sum[n, cols] = max(
+            check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+            for kind, order in SUM_KINDS for fuse in (False, True))
+        torch.cuda.empty_cache()
+    print(f"[kernels] worker_sum (n, cols) in {sums} (weights and orders "
+          f"{SUM_KINDS}, each with and without the fused update): bitwise "
+          "== plain; a NaN row under a zero mask stays NaN")
+    nan_d = torch.ones(40, 3, device=dev)
+    nan_d[39, 1] = float("nan")
+    nan_m = torch.ones(40, device=dev)
+    nan_m[39] = 0.0
+    if not math.isnan(float(ops.worker_sum(nan_d, nan_m)[1])):
+        raise AssertionError("[kernels] worker_sum: 0 * NaN under the mask "
+                             "is not NaN")
+    timing = {}
+    for n in ROW_NS:
+        for m in sorted(set(ROW_DS + (ROWS_MAIN[1],))):
+            kt = random.key_tensor(random.split(random.key(n), n), dev)
+            k_ms = timed_ms(lambda: threefry.threefry_rows(kt, m, False))
+            p_ms = timed_ms(lambda: ref.threefry_rows_ref(kt, m, False),
+                            reps=5)
+            l_ms = timed_ms(lambda: torch.rand(n, m, device=dev))
+            b_ms, by = threefry_bound_ms(n * m, per_value)
+            print(f"[kernels] threefry_rows n={n} m={m}: kernel_ms="
+                  f"{k_ms:.4f} plain_ms={p_ms:.4f} torch_rand_ms={l_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({by})")
+            if (n, m) == ROWS_MAIN:
+                timing["threefry_rows"] = {
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": by, "max_abs_err": err_rows[ROWS_MAIN],
+                    "library_ms": l_ms}
+            torch.cuda.empty_cache()
+        for cols in sorted(set(ROW_DS + (SUM_MAIN[1],))):
+            d = torch.randn(n, cols, device=dev)
+            h = torch.randn(cols, device=dev)
+            mask = torch.ones(n, device=dev)
+            # a plain sum, a masked one, and the main path's: at n = 1000
+            # comp-(1, 56)'s messages y * 56 summed plain with the master
+            # update fused (at n = 16 the scale 56 contracted, fault u)
+            for wname, w, fuse in (("plain", None, False),
+                                   ("mask", mask, False),
+                                   ("main", None if n > 32 else 56.0,
+                                    True)):
+                args = (d, w) + ((h, 0.25, 0.5) if fuse else ())
+                k_ms = timed_ms(lambda: ops.worker_sum(*args))
+                p_ms = timed_ms(lambda: ref.worker_sum_ref(*args), reps=5)
+                l_ms = timed_ms(lambda: torch.sum(d, dim=0))
+                b_ms, by = worker_sum_bound_ms(
+                    n, cols, isinstance(w, torch.Tensor), fuse)
+                print(f"[kernels] worker_sum n={n} cols={cols} {wname} "
+                      f"fuse={fuse}: kernel_ms={k_ms:.4f} plain_ms="
+                      f"{p_ms:.4f} torch_sum_ms={l_ms:.4f} bound_ms="
+                      f"{b_ms:.6f} ({by})")
+                if (n, cols) == SUM_MAIN and fuse:
+                    timing["worker_sum"] = {
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": by, "max_abs_err": err_sum[SUM_MAIN],
+                        "library_ms": l_ms}
+            del d
+            torch.cuda.empty_cache()
+    # the sorts the batched compressors stand on, with forced ties
+    for n, m, top in ((1000, 56, 4), (1000, 150, 4), (16, 4096, 64),
+                      (16, 2**20, 1000)):
+        # top distinct keys spread over the uint32 range, both signs
+        keys = (torch.randint(0, top, (n, m), generator=gen)
+                * (2**32 // top) - 2**31).to(torch.int32)
+        want = np.argsort(keys.numpy().view(np.uint32), axis=1,
+                          kind="stable")
+        got_gpu = random.stable_order(keys.to(dev)).cpu().numpy()
+        got_cpu = random.stable_order(keys).numpy()
+        mag = torch.randint(0, top, (n, m), generator=gen).float()
+        ties_gpu = ref.topk_rows(mag.to(dev), min(m, 64)).cpu()
+        ties_cpu = ref.topk_rows(mag, min(m, 64))
+        if not (np.array_equal(got_gpu, want) and np.array_equal(got_cpu,
+                                                                 want)
+                and torch.equal(ties_gpu, ties_cpu)):
+            raise AssertionError(f"[kernels] stable sorts ({n}, {m}) with "
+                                 "ties: card, CPU and numpy differ")
+        print(f"[kernels] stable sorts ({n}, {m}) with {top}-valued ties: "
+              "stable_order card == CPU == numpy stable argsort, topk_rows "
+              "card == CPU")
+    for n, m in ((1000, 56), (1000, 112), (16, 2**20)):
+        keys = random.split(random.key(m), n)
+        gpu = random.permutation_rows(keys, m, "cuda").cpu()
+        cpu = random.permutation_rows(keys, m, "cpu")
+        if not torch.equal(gpu, cpu):
+            raise AssertionError(f"[kernels] permutation_rows ({n}, {m}): "
+                                 "card != CPU")
+        print(f"[kernels] permutation_rows ({n}, {m}) rounds="
+              f"{random.shuffle_rounds(m)}: card == CPU bitwise")
+    return timing
 
 
 def store_loop_values(body):
@@ -1627,6 +1889,12 @@ FIG2_ROWS = 8
 #: threefry launches of one built-in logreg problem: the column-scale and
 #: flip uniforms and the two normal draws
 PROBLEM_DRAWS = 4
+#: rounds of one profiled reference run at n = 1000 (case c), and the
+#: most launches and host-to-device copies it may make a round (measured
+#: 44.8 and 1.0 on an H100)
+PROFILE_ROUNDS = 5
+PROFILE_MAX_LAUNCHES = 64
+PROFILE_MAX_COPIES = 2
 
 
 def reference_case(run, device, prob=None, grad_fn=None, gamma=None):
@@ -1663,6 +1931,181 @@ def _bits_equal(a, b):
                                               b.view(torch.int32))
 
 
+def round_launches(comp, rounds):
+    """Launches of ``rounds`` reference rounds of a comp-(k, k') run on one
+    f32 leaf: each round one row draw per shuffle round over k' (for all
+    n workers at once) and one ordered worker sum with the master update
+    fused; none of it depends on n."""
+    from repro_torch import random
+
+    return {"threefry_rows": rounds * random.shuffle_rounds(comp.kp),
+            "worker_sum": rounds}
+
+
+def add_launches(want, more):
+    for k, v in more.items():
+        want[k] = want.get(k, 0) + v
+
+
+def gaps_descend(curve):
+    """Every value finite, the last below the first."""
+    c = [float(v) for v in curve]
+    return all(math.isfinite(v) for v in c) and c[-1] < c[0]
+
+
+def profile_reference_round(frun, fprob, gamma, f_star):
+    """One reference run of PROFILE_ROUNDS rounds at n = 1000 under
+    torch.profiler: per round the kernels launched, the host-to-device
+    copies, the device kernel time and the host time; and the host's
+    operators by self CPU time (what the host still does).  Fails unless
+    the trace shows launches, and at most PROFILE_MAX_LAUNCHES launches
+    and PROFILE_MAX_COPIES host-to-device copies a round (a loop over the
+    1000 workers would launch at least 1000)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import build
+
+    run = build(dataclasses.replace(frun.spec, steps=PROFILE_ROUNDS))
+    kw = dict(grad_fn=fprob.grads, gamma=gamma, device="cuda",
+              record=lambda x: fprob.f(x) - f_star)
+    run.reference(**kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run.reference(**kw)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_ROUNDS
+    ev = prof.key_averages()
+    dev_rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    copies = sum(e.count for e in ev if "HtoD" in e.key)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in ev if e.device_type !=
+                   torch.autograd.DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in dev_rows)
+    print(f"[reference-spec] (c) profile {run.spec.mode}, {PROFILE_ROUNDS} "
+          f"rounds at n={run.spec.n}: per round {launches / PROFILE_ROUNDS:.1f}"
+          f" kernel launches, {copies / PROFILE_ROUNDS:.1f} host-to-device "
+          f"copies, device kernel ms {busy / PROFILE_ROUNDS:.4f}, traced "
+          f"wall ms {wall:.3f} (profiler overhead included)")
+    for t, count, key in sorted(dev_rows, reverse=True)[:10]:
+        print(f"[reference-spec] (c) profile device {t:8.4f} ms x{count:<4d}"
+              f" {key[:80]}")
+    for t, count, key in host[:15]:
+        print(f"[reference-spec] (c) profile host {t:8.3f} ms x{count:<4d} "
+              f"{key[:80]}")
+    if not (0 < launches <= PROFILE_MAX_LAUNCHES * PROFILE_ROUNDS
+            and copies <= PROFILE_MAX_COPIES * PROFILE_ROUNDS):
+        raise AssertionError(
+            f"[reference-spec] (c) profile: {launches} launches and {copies}"
+            f" host-to-device copies in {PROFILE_ROUNDS} rounds, want "
+            f"some launches and at most {PROFILE_MAX_LAUNCHES} and "
+            f"{PROFILE_MAX_COPIES} a round")
+
+
+def recording_kernel_shapes():
+    """Wrap the row draw's and the worker sum's wrappers so that every call
+    on the card notes its shape (and as_float; weights, order, fusion).
+    Returns (the notes, a function that restores the wrappers)."""
+    from repro_torch.kernels import ops, threefry
+
+    seen = {"threefry_rows": set(), "worker_sum": set()}
+    rows, wsum = threefry.threefry_rows, ops.worker_sum
+
+    def rows_noted(keys, m, as_float):
+        if keys.is_cuda:
+            seen["threefry_rows"].add((keys.shape[0], m, bool(as_float)))
+        return rows(keys, m, as_float)
+
+    def sum_noted(d, weights=None, h=None, c_g=0.0, c_h=0.0,
+                  order="reduce"):
+        if d.is_cuda:
+            kind = (None if weights is None
+                    else "scale" if not isinstance(weights, torch.Tensor)
+                    else "rows" if order == "reduce" else "fleet")
+            seen["worker_sum"].add((d.shape[0], d[0].numel(), kind, order,
+                                    h is not None))
+        return wsum(d, weights, h, c_g, c_h, order)
+
+    def restore():
+        threefry.threefry_rows, ops.worker_sum = rows, wsum
+
+    threefry.threefry_rows, ops.worker_sum = rows_noted, sum_noted
+    return seen, restore
+
+
+def check_main_shapes(seen):
+    """Each (shape, form) the main path gave the two reference kernels,
+    held bitwise against its plain version on the card on fresh data of
+    that shape (after the launch counts are read)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    for n, m, as_float in sorted(seen["threefry_rows"]):
+        check_threefry_rows(n, m, as_float, dev)
+    for n, cols, kind, order, fuse in sorted(seen["worker_sum"], key=str):
+        check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+    torch.cuda.empty_cache()
+    print(f"[reference-spec] the main path's own shapes, each bitwise == "
+          f"plain on the card: threefry_rows (n, m, as_float) "
+          f"{sorted(seen['threefry_rows'])}; worker_sum (n, cols, weights, "
+          f"order, fused) {sorted(seen['worker_sum'], key=str)}")
+    if not (seen["threefry_rows"] and seen["worker_sum"]):
+        raise AssertionError("[reference-spec] the main path gave a "
+                             f"reference kernel no call: {seen}")
+
+
+def paper_runs(want):
+    """(d) the paper's experiments at their fast setting on the card
+    (``paper_torch``): Table 3's five rows, each ``matches_paper=True``;
+    Figure 2 (mushrooms and phishing, k = 1, xi = 1, n = 1000, 1500 rounds
+    of EF-BV and of EF21) and Figure 3 (mushrooms, nonconvex, n = 200, 1200
+    rounds of each): every row printed, every trajectory finite with its
+    last value below its first, the seconds each took.  Adds the launches
+    they make to ``want``."""
+    from paper_torch import common, paper_fig2, paper_fig3, paper_tab3
+    from repro_torch import random
+    from repro_torch.core import CompKK
+
+    rows = paper_tab3.run()
+    for r in rows:
+        print(f"[paper] {r['name']},{r['us_per_call']},{r['derived']}")
+    if len(rows) != 5 or not all(r["derived"].endswith("matches_paper=True")
+                                 for r in rows):
+        raise AssertionError("[paper] tab3: a row does not match the paper")
+    problem = PROBLEM_DRAWS + random.shuffle_rounds(
+        common.DATASETS["mushrooms"]["N"])
+    for script, run, steps, names in (
+            ("fig2", lambda: paper_fig2.run(fast=True, device="cuda"), 1500,
+             ("mushrooms", "phishing")),
+            ("fig3", lambda: paper_fig3.run_bench(fast=True, device="cuda"),
+             1200, ("mushrooms",))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, curves = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for r in rows:
+            print(f"[paper] {r['name']},{r['us_per_call']},{r['derived']}")
+        for key, c in curves.items():
+            print(f"[paper] {script} {key}: {len(c)} rounds, value after "
+                  f"rounds 1/100/{len(c)}: {float(c[0])!r} / "
+                  f"{float(c[99])!r} / {float(c[-1])!r}")
+            if len(c) != steps or not gaps_descend(c):
+                raise AssertionError(f"[paper] {script} {key}: not finite "
+                                     "and descending")
+        print(f"[paper] {script} fast: {len(curves)} runs of {steps} rounds "
+              f"in {secs:.2f} s on the card (problems drawn and f* solved "
+              f"included), {secs * 1e3 / (len(curves) * steps):.3f} ms a "
+              "round on average")
+        for name in names:
+            d = common.DATASETS[name]["d"]
+            add_launches(want, {"threefry_uniform": problem})
+            add_launches(want, round_launches(CompKK(1, d // 2), 2 * steps))
 def phase_reference_spec():
     """The reference backend through the spec (``repro_torch.core.build``):
     (a) the committed ``reference_logreg_efbv.json`` verbatim (500 rounds,
@@ -1672,19 +2115,21 @@ def phase_reference_spec():
     round (the normals behind A come from each device's erfinv, so A
     agrees to ~1e-6; measured 1.35e-6 on an H100); (b) the same spec with
     the exact elementwise gradient x - B_i (B from numpy): x, h and h_avg
-    bitwise, card against CPU; (c) the time of a round at paper Figure 2's
-    scale (FIG2 with FIG2_ROWS rows a worker), EF-BV and EF21, 100 rounds
-    each on the card, with the gap at rounds 0 and 100 as a check that both
-    descend (100 rounds are too few to compare them as Figure 2 does).
-    Launch counts are reset just before and read just after; only the
-    card's runs launch (threefry: one draw per worker per round for comp's
-    position, and PROBLEM_DRAWS per drawn problem)."""
-    import numpy as np
-
-    from repro_torch import random
+    bitwise, card against CPU; (c) a round at paper Figure 2's scale
+    (FIG2 with FIG2_ROWS rows a worker), EF-BV and EF21, 100 rounds each
+    on the card and on the CPU on the card's data: ms per round, the two
+    gap trajectories within 1e-5 relative, both descending; and one short
+    run profiled (``profile_reference_round``); (d) the paper's
+    experiments at their fast setting (``paper_runs``).  The workers run
+    batched, so a round's launches do not grow with n: each round one row
+    draw per shuffle round of comp's positions (``threefry_rows``) and one
+    ordered worker sum (``worker_sum``); ``threefry_uniform`` draws only
+    the problems.  Launch counts are reset just before and read just
+    after (the profiled run is not counted); only the card's runs launch.
+    Every shape the runs give the two kernels is noted and, after the
+    counts are read, held bitwise against the plain version
+    (``check_main_shapes``)."""
     from repro_torch.core import ExperimentSpec, build
-    from repro_torch.data.synthetic import LogReg, make_synthetic
-    from repro_torch.kernels import LAUNCHES, reset_launches
 
     text = REFERENCE_SPEC.read_text()
     spec = ExperimentSpec.from_json(text)
@@ -1697,8 +2142,27 @@ def phase_reference_spec():
           f"nu={run.algo.nu!r}")
     collect("[reference-spec]")
     torch.cuda.reset_peak_memory_stats()
+    seen, restore = recording_kernel_shapes()
+    try:
+        want, launches = reference_spec_runs(run, spec)
+    finally:
+        restore()
+    check_main_shapes(seen)
+    return launches
+
+
+def reference_spec_runs(run, spec):
+    """(a)-(d) of :func:`phase_reference_spec`, between the launch counts'
+    reset and their reading: returns (the launches wanted, those read)."""
+    import numpy as np
+
+    from repro_torch import random
+    from repro_torch.core import ExperimentSpec, build
+    from repro_torch.data.synthetic import LogReg, make_synthetic
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
     reset_launches()
-    want_launches = 0
+    want = {}
     # (a) the spec verbatim, card and CPU
     gaps, runs = {}, {}
     for dev in ("cuda", "cpu"):
@@ -1706,9 +2170,11 @@ def phase_reference_spec():
         f0 = float(prob.f(torch.zeros(spec.d, device=dev)) - f_star)
         gaps[dev] = [f0] + [float(res.metrics[t - 1]) for t in (100, 500)]
         runs[dev] = res
-        print(f"[reference-spec] (a) {dev}: {ms:.3f} ms per round, "
-              f"f(x) - f* at rounds 0/100/500 = {gaps[dev]}, f*={f_star!r}")
-    want_launches += spec.steps * spec.n + PROBLEM_DRAWS
+        print(f"[reference-spec] (a) {dev}: {ms:.3f} ms per round "
+              f"(n={spec.n}, batched), f(x) - f* at rounds 0/100/500 = "
+              f"{gaps[dev]}, f*={f_star!r}")
+    add_launches(want, {"threefry_uniform": PROBLEM_DRAWS})
+    add_launches(want, round_launches(run.algo.compressor, spec.steps))
     worst = max(abs(g - c) / abs(c) for g, c in zip(gaps["cuda"],
                                                      gaps["cpu"]))
     gpu_m, cpu_m = runs["cuda"].metrics.cpu(), runs["cpu"].metrics
@@ -1733,7 +2199,7 @@ def phase_reference_spec():
                                        gamma=gamma)
         out[dev] = res
         print(f"[reference-spec] (b) {dev}: {ms:.3f} ms per round")
-    want_launches += spec.steps * spec.n
+    add_launches(want, round_launches(run.algo.compressor, spec.steps))
     same = {k: _bits_equal(getattr(out["cuda"], k) if k == "x" else
                            getattr(out["cuda"].state, k),
                            getattr(out["cpu"], k) if k == "x" else
@@ -1743,36 +2209,67 @@ def phase_reference_spec():
           f"bitwise {same}")
     if not all(same.values()):
         raise AssertionError(f"[reference-spec] (b) not bitwise: {same}")
-    # (c) a round at paper Figure 2's scale
+    # (c) a round at paper Figure 2's scale, card and CPU on the card's data
     A, b = make_synthetic(random.key(FIG2["seed"]), N=FIG2_ROWS * FIG2["n"],
                           d=FIG2["d"], device="cuda")
-    fprob = LogReg.split(A, b, n=FIG2["n"], mu_reg=0.1)
-    want_launches += PROBLEM_DRAWS
+    probs = {"cuda": LogReg.split(A, b, n=FIG2["n"], mu_reg=0.1)}
+    probs["cpu"] = LogReg(probs["cuda"].A.cpu(), probs["cuda"].b.cpu(), 0.1)
+    add_launches(want, {"threefry_uniform": PROBLEM_DRAWS})
+    before = dict(LAUNCHES)
     for mode in ("efbv", "ef21"):
         frun = build(ExperimentSpec(mode=mode, **FIG2))
-        res, ms, _, f_star = reference_case(frun, "cuda", prob=fprob)
-        f0 = float(fprob.f(torch.zeros(FIG2["d"], device="cuda")) - f_star)
-        final = float(res.metrics[-1])
-        print(f"[reference-spec] (c) fig2 scale {mode}: n={FIG2['n']} "
-              f"d={FIG2['d']} {FIG2_ROWS} rows a worker "
-              f"{FIG2['compressor']} lam={frun.algo.lam!r} "
-              f"nu={frun.algo.nu!r}: {ms:.3f} ms per round (workers as a "
-              f"loop); f(x) - f* {f0!r} at round 0, {final!r} after "
-              f"{FIG2['steps']}")
-        want_launches += FIG2["steps"] * FIG2["n"]
-        if not (math.isfinite(final) and final < f0):
-            raise AssertionError(f"[reference-spec] (c) {mode}: gap {f0} "
-                                 f"-> {final}")
+        curves = {}
+        for dev in ("cuda", "cpu"):
+            res, ms, _, f_star = reference_case(frun, dev, prob=probs[dev])
+            f0 = float(probs[dev].f(torch.zeros(FIG2["d"], device=dev))
+                       - f_star)
+            curves[dev] = res.metrics.cpu()
+            print(f"[reference-spec] (c) fig2 scale {mode} {dev}: "
+                  f"n={FIG2['n']} d={FIG2['d']} {FIG2_ROWS} rows a worker "
+                  f"{FIG2['compressor']} lam={frun.algo.lam!r} "
+                  f"nu={frun.algo.nu!r}: {ms:.3f} ms per round (batched); "
+                  f"f(x) - f* {f0!r} at round 0, "
+                  f"{float(curves[dev][-1])!r} after {FIG2['steps']}")
+            if not gaps_descend([f0] + curves[dev].tolist()):
+                raise AssertionError(f"[reference-spec] (c) {mode} {dev}: "
+                                     "gaps not finite and descending")
+            if dev == "cuda":
+                gamma_c = frun._tune(L=probs[dev].L(),
+                                     Ltilde=probs[dev].L_tilde()).gamma
+                f_star_c = f_star
+        rel = float(((curves["cuda"] - curves["cpu"]).abs()
+                     / curves["cpu"].abs()).max())
+        print(f"[reference-spec] (c) {mode} card vs CPU over "
+              f"{FIG2['steps']} rounds: gap relative difference at most "
+              f"{rel:.3e}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"[reference-spec] (c) {mode}: card vs CPU "
+                                 f"{rel}")
+        add_launches(want, round_launches(frun.algo.compressor,
+                                          FIG2["steps"]))
+        if mode == "efbv":
+            saved = dict(LAUNCHES)
+            profile_reference_round(frun, probs["cuda"], gamma_c, f_star_c)
+            torch.cuda.synchronize()
+            LAUNCHES.update(saved)
+    torch.cuda.synchronize()
+    print(f"[reference-spec] (c) launches of the two n = {FIG2['n']} runs "
+          f"of {FIG2['steps']} rounds: "
+          f"{ {k: LAUNCHES[k] - before[k] for k in LAUNCHES} } (a loop "
+          f"over the workers would launch threefry_uniform n x rounds = "
+          f"{2 * FIG2['n'] * FIG2['steps']})")
+    # (d) the paper at its fast setting
+    paper_runs(want)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"[reference-spec] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
           f"{launches}")
-    want = {**dict.fromkeys(launches, 0), "threefry_uniform": want_launches}
+    want = {**dict.fromkeys(launches, 0), **want}
     if launches != want:
         raise AssertionError(f"[reference-spec] launches {launches}, want "
                              f"{want}")
-    return launches
+    return want, launches
 
 
 #: the reference phase's multi-process cases: name -> (smoke kind, agg,
@@ -2914,6 +3411,15 @@ KERNEL_ROWS = {
     "efbv_update": ("src/repro_torch/kernels/csrc/block_topk.cu",
                     "src/repro/kernels/block_topk.py:86 (efbv_update_pallas; "
                     "body _efbv_update_kernel :70)"),
+    # the reference backend's batched round; no Pallas kernel: JAX's draws
+    # under vmap and its worker mean are XLA's
+    "threefry_rows": ("src/repro_torch/kernels/csrc/threefry.cu",
+                      "src/repro/core/efbv.py:604 (jax.random under vmap "
+                      "over the workers of run_reference; no Pallas "
+                      "kernel)"),
+    "worker_sum": ("src/repro_torch/kernels/csrc/worker_sum.cu",
+                   "src/repro/core/efbv.py:608 (jnp.mean over the vmapped "
+                   "workers, and :611 masked; no Pallas kernel)"),
 }
 
 

@@ -13,7 +13,14 @@ spellings and error messages.
 
 A compressor ``C(key, x)`` maps a tensor to a dense tensor of its shape
 with the non-kept coordinates zeroed, and certifies (eta, omega) for
-``theory.tune_for``.  ``key`` is a threefry key (``repro_torch.random``,
+``theory.tune_for``.  Each family states its law once, as
+``C.batch(keys, X)``: ``vmap(C)`` over a leading worker axis, every draw
+of the n workers in one row draw and every selection one sort along the
+rows (``random.*_rows``), so its launches do not grow with n.  One
+worker's ``C(key, x)`` is row 0 of the one-row batch.  Only
+:class:`SignNorm` and :class:`QSGD` keep a 1-D call beside ``batch``: a
+row of an (n, d) norm may round its last bit otherwise than the 1-D norm
+of JAX's unbatched call (fault c).  ``key`` is a threefry key (``repro_torch.random``,
 bit for bit ``jax.random``); the deterministic members ignore it.  Each
 op follows the JAX compressor's, so outputs match it bit for bit; top-k
 selections take JAX's tie order (``kernels.ref.topk_rows``).  Where they
@@ -53,19 +60,28 @@ def _topk_idx(xf: torch.Tensor, k: int) -> torch.Tensor:
     return topk_rows(xf.abs().reshape(1, -1), k)[0]
 
 
-def _mask_at(xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """zeros like xf with 1.0 at ``idx`` (``zeros.at[idx].set(1.0)``)."""
-    mask = torch.zeros_like(xf)
-    mask[idx.long()] = 1.0
-    return mask
-
-
 def _scatter_decode(payload, d: int) -> torch.Tensor:
     """(values, positions) -> zeros((d,)) with the values added at their
     positions (``zeros.at[idx].add(vals)``)."""
     vals, idx = payload
     out = torch.zeros(d, dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, idx.reshape(-1).long(), vals.reshape(-1))
+
+
+def _flat_rows(X: torch.Tensor) -> torch.Tensor:
+    """A worker-stacked (n, ...) tensor as (n, d) rows."""
+    return X.reshape(X.shape[0], -1)
+
+
+def _topk_rows_idx(Xf: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`_topk_idx` of every row of (n, d) ``Xf``: (n, k) int64."""
+    return topk_rows(Xf.abs(), k)
+
+
+def _mask_rows(Xf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Zeros like (n, d) ``Xf`` with 1.0 at the (n, k) columns ``idx``
+    (``zeros.at[idx].set(1.0)`` on every row)."""
+    return torch.zeros_like(Xf).scatter_(1, idx.long(), 1.0)
 
 
 def _flat_sparse_codec(compressor, shape, k: int, wire_dtype: str):
@@ -92,7 +108,27 @@ class Compressor:
         return self.omega(d) / max(n, 1)
 
     def __call__(self, key, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+        """One worker's call: row 0 of :meth:`batch` on the one-row stack
+        (``key`` None for a deterministic member).  Only :class:`SignNorm`
+        and :class:`QSGD` keep a call of their own, with the 1-D norm of
+        JAX's unbatched call (a row of a batched norm may round otherwise,
+        fault c)."""
+        keys = None if key is None else np.asarray(key, np.uint32)[None]
+        return self.batch(keys, x[None])[0]
+
+    def batch(self, keys, X: torch.Tensor) -> torch.Tensor:
+        """``vmap(self)(keys, X)``: X is worker-stacked (n, ...), ``keys``
+        the (n, 2) uint32 key array (None for a deterministic member); row
+        i of the result equals ``self(keys[i], X[i])``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no batched call")
+
+    def batch_parts(self, keys, X: torch.Tensor):
+        """(y, c): :meth:`batch` is ``y * c`` for a compressor whose output
+        ends in a product by the f32 constant c (rand-k's d/k, comp's
+        k'/k), else (``batch(keys, X)``, None).  Jitted JAX folds c into
+        the constant of a product that follows (fault u)."""
+        return self.batch(keys, X), None
 
     def codec(self, shape: Tuple[int, ...], *, wire_dtype: str = "float32"):
         """The wire codec of one leaf, its values of ``wire_dtype``: the
@@ -121,8 +157,8 @@ class Identity(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, key, x):
-        return x
+    def batch(self, keys, X):
+        return X
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +173,10 @@ class TopK(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        return (xf * _mask_at(xf, _topk_idx(xf, self.k))).reshape(x.shape)
+    def batch(self, keys, X):
+        Xf = _flat_rows(X)
+        return (Xf * _mask_rows(Xf, _topk_rows_idx(Xf, self.k))).reshape(
+            X.shape)
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape, self.k, wire_dtype)
@@ -169,12 +206,16 @@ class RandK(Compressor):
     def omega(self, d):
         return d / self.k - 1.0
 
-    def __call__(self, key, x):
+    def batch(self, keys, X):
         """``(xf * mask) * f32(d / k)``, the JAX compressor's op order."""
-        xf = x.reshape(-1)
-        d = xf.numel()
-        idx = random.choice(key, d, self.k, xf.device)
-        return ((xf * _mask_at(xf, idx)) * _f32(d / self.k)).reshape(x.shape)
+        y, c = self.batch_parts(keys, X)
+        return y * c
+
+    def batch_parts(self, keys, X):
+        Xf = _flat_rows(X)
+        d = Xf.shape[1]
+        idx = random.choice_rows(keys, d, self.k, X.device)
+        return (Xf * _mask_rows(Xf, idx)).reshape(X.shape), _f32(d / self.k)
 
     def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
@@ -206,10 +247,10 @@ class ScaledRandK(Compressor):
     def omega(self, d):
         return (self.k / d) * (1.0 - self.k / d)
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        idx = random.choice(key, xf.numel(), self.k, xf.device)
-        return (xf * _mask_at(xf, idx)).reshape(x.shape)
+    def batch(self, keys, X):
+        Xf = _flat_rows(X)
+        idx = random.choice_rows(keys, Xf.shape[1], self.k, X.device)
+        return (Xf * _mask_rows(Xf, idx)).reshape(X.shape)
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape, self.k, wire_dtype)
@@ -245,10 +286,19 @@ class CompKK(Compressor):
         sub = random.choice(key, self.kp, self.k, xf.device)
         return top_idx[sub.long()]
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        mask = _mask_at(xf, self._keep(key, xf))
-        return ((xf * mask) * _f32(self.kp / self.k)).reshape(x.shape)
+    def batch(self, keys, X):
+        y, c = self.batch_parts(keys, X)
+        return y * c
+
+    def batch_parts(self, keys, X):
+        """Every row's top k' by one sort along the rows, every row's k of
+        them by one row shuffle (:func:`random.choice_rows`)."""
+        Xf = _flat_rows(X)
+        top_idx = _topk_rows_idx(Xf, self.kp)
+        sub = random.choice_rows(keys, self.kp, self.k, X.device)
+        keep = torch.gather(top_idx, 1, sub.long())
+        return ((Xf * _mask_rows(Xf, keep)).reshape(X.shape),
+                _f32(self.kp / self.k))
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape, self.k, wire_dtype)
@@ -288,12 +338,14 @@ class MixKK(Compressor):
         scores[top_idx] = -1.0  # exclude the already kept
         return top_idx, topk_rows(scores.reshape(1, -1), self.kp)[0]
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        top_idx, rnd_idx = self._picks(key, xf)
-        mask = _mask_at(xf, top_idx)
-        mask[rnd_idx] = 1.0
-        return (xf * mask).reshape(x.shape)
+    def batch(self, keys, X):
+        Xf = _flat_rows(X)
+        top_idx = _topk_rows_idx(Xf, self.k)
+        scores = random.uniform_rows(keys, Xf.shape[1], X.device)
+        scores.scatter_(1, top_idx, -1.0)
+        rnd_idx = topk_rows(scores, self.kp)
+        mask = _mask_rows(Xf, top_idx).scatter_(1, rnd_idx, 1.0)
+        return (Xf * mask).reshape(X.shape)
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape, self.k + self.kp, wire_dtype)
@@ -321,14 +373,16 @@ class BlockTopK(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        d = xf.numel()
-        pad = -d % self.block
-        xp = torch.nn.functional.pad(xf, (0, pad)).reshape(-1, self.block)
+    def batch(self, keys, X):
+        """Each block's top kb on the (n * nb, block) stack of every
+        worker's zero-padded blocks."""
+        Xf = _flat_rows(X)
+        n, d = Xf.shape
+        xp = torch.nn.functional.pad(Xf, (0, -d % self.block)).reshape(
+            -1, self.block)
         idx = topk_rows(xp.abs(), self.kb)
         mask = torch.zeros_like(xp).scatter(1, idx, 1.0)
-        return (xp * mask).reshape(-1)[:d].reshape(x.shape)
+        return (xp * mask).reshape(n, -1)[:, :d].reshape(X.shape)
 
     def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
@@ -368,6 +422,14 @@ class SignNorm(Compressor):
         sgn = torch.where(xf < 0, -1.0, 1.0)
         return (scale * sgn).reshape(x.shape)
 
+    def batch(self, keys, X):
+        """The L1 sums are one reduction along the rows (fault c: a row may
+        round otherwise than its 1-D sum)."""
+        Xf = _flat_rows(X)
+        scale = Xf.abs().sum(dim=1, keepdim=True) * _f32(1.0 / Xf.shape[1])
+        sgn = torch.where(Xf < 0, -1.0, 1.0)
+        return (scale * sgn).reshape(X.shape)
+
     def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
         return wire.SignPack(shape=tuple(shape), size=int(math.prod(shape)))
@@ -397,14 +459,16 @@ def exp2_int(e: torch.Tensor) -> torch.Tensor:
     return torch.where(ei > 127, torch.full_like(out, math.inf), out)
 
 
-def natural_exponent(key, a: torch.Tensor) -> torch.Tensor:
+def natural_exponent(key, a: torch.Tensor, u=None) -> torch.Tensor:
     """The exponent natural compression rounds |x| = a to, as f32: e or
     e + 1 with e = floor(log2(a)) and P(e + 1) = a / 2**e - 1, under the
-    uniforms of ``jax.random.uniform(key, (a.numel(),))``; a = 0 counts as
-    1 (the caller masks it)."""
+    uniforms of ``jax.random.uniform(key, (a.numel(),))`` (or the uniforms
+    ``u`` shaped like a); a = 0 counts as 1 (the caller masks it)."""
     safe = torch.where(a > 0, a, 1.0)
     e = floor_log2(safe)
-    up = random.uniform(key, a.numel(), a.device) < safe / exp2_int(e) - 1.0
+    if u is None:
+        u = random.uniform(key, a.numel(), a.device)
+    up = u < safe / exp2_int(e) - 1.0
     return e + up.to(torch.float32)
 
 
@@ -421,11 +485,12 @@ class Natural(Compressor):
     def omega(self, d):
         return 1.0 / 8.0
 
-    def __call__(self, key, x):
-        xf = x.reshape(-1)
-        a = xf.abs()
-        mag = exp2_int(natural_exponent(key, a))
-        return torch.where(a > 0, jsign(xf) * mag, 0.0).reshape(x.shape)
+    def batch(self, keys, X):
+        Xf = _flat_rows(X)
+        a = Xf.abs()
+        u = random.uniform_rows(keys, Xf.shape[1], X.device)
+        mag = exp2_int(natural_exponent(None, a, u))
+        return torch.where(a > 0, jsign(Xf) * mag, 0.0).reshape(X.shape)
 
     def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
@@ -453,15 +518,25 @@ class QSGD(Compressor):
         which may differ from XLA's in its last bits."""
         xf = x.reshape(-1)
         norm = torch.linalg.vector_norm(xf)
+        u = random.uniform(key, xf.numel(), xf.device)
+        return self._quantize(xf, norm, u).reshape(x.shape)
+
+    def batch(self, keys, X):
+        """The norms are one reduction along the rows (fault c)."""
+        Xf = _flat_rows(X)
+        norm = torch.linalg.vector_norm(Xf, dim=1, keepdim=True)
+        u = random.uniform_rows(keys, Xf.shape[1], X.device)
+        return self._quantize(Xf, norm, u).reshape(X.shape)
+
+    def _quantize(self, xf, norm, u):
         safe_norm = torch.where(norm > 0, norm, torch.ones_like(norm))
         level = xf.abs() / safe_norm * self.s
         low = torch.floor(level)
         p = level - low
-        up = random.uniform(key, xf.numel(), xf.device) < p
+        up = u < p
         q = (low + up.to(xf.dtype)) * _f32(1.0 / self.s)
-        out = torch.where(norm > 0, norm * jsign(xf) * q,
-                          torch.zeros_like(q))
-        return out.reshape(x.shape)
+        return torch.where(norm > 0, norm * jsign(xf) * q,
+                           torch.zeros_like(q))
 
     def codec(self, shape, *, wire_dtype="float32"):
         from repro_torch.distributed import wire
@@ -485,8 +560,8 @@ class FracTopK(Compressor):
     def omega(self, d):
         return 0.0
 
-    def __call__(self, key, x):
-        return TopK(self._k(x.numel()))(key, x)
+    def batch(self, keys, X):
+        return TopK(self._k(X[0].numel())).batch(keys, X)
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape, self._k(int(math.prod(shape))),
@@ -520,8 +595,11 @@ class FracCompKK(Compressor):
         k, kp = self._kk(d)
         return (kp - k) / k
 
-    def __call__(self, key, x):
-        return CompKK(*self._kk(x.numel()))(key, x)
+    def batch(self, keys, X):
+        return CompKK(*self._kk(X[0].numel())).batch(keys, X)
+
+    def batch_parts(self, keys, X):
+        return CompKK(*self._kk(X[0].numel())).batch_parts(keys, X)
 
     def codec(self, shape, *, wire_dtype="float32"):
         return _flat_sparse_codec(self, shape,
@@ -559,19 +637,39 @@ class MNice(Compressor):
             return 0.0
         return (self.n - self.m) / (self.m * (self.n - 1))
 
+    def members(self, round_key, device) -> torch.Tensor:
+        """(n,) bool: worker i is among the first m of
+        ``jax.random.permutation(round_key, n)`` (one draw, no host
+        sync)."""
+        member = random.permutation(round_key, self.n, device)[:self.m]
+        keep = torch.zeros(self.n, dtype=torch.bool, device=device)
+        return keep.index_fill_(0, member.long(), True)
+
+    def _gate(self, keep, x):
+        """(n/m) x where ``keep``, else zeros: ``jnp.where``."""
+        return torch.where(keep, _f32(self.n / self.m) * x,
+                           torch.zeros_like(x))
+
     def joint_call(self, round_key, worker_idx: int, x):
         """(n/m) x if worker ``worker_idx`` is among the first m of
         ``jax.random.permutation(round_key, n)``, else zeros."""
-        member = random.permutation(round_key, self.n, x.device)[:self.m]
-        keep = bool((member == worker_idx).any())
-        return _f32(self.n / self.m) * x if keep else torch.zeros_like(x)
+        return self._gate(self.members(round_key, x.device)[worker_idx], x)
 
-    def __call__(self, key, x):
-        """One worker's marginal law: (n/m) x with probability m/n, under
-        ``jax.random.uniform(key, ())``."""
-        u = random.uniform(key, 1, x.device)[0]
-        keep = bool(u < _f32(self.m / self.n))
-        return _f32(self.n / self.m) * x if keep else torch.zeros_like(x)
+    def joint_batch(self, round_key, X, keep=None):
+        """Every worker's :meth:`joint_call` on the worker-stacked (n, ...)
+        X: one permutation of the round key (or the given :meth:`members`
+        mask) and a select along the worker axis."""
+        if keep is None:
+            keep = self.members(round_key, X.device)
+        return self._gate(keep.reshape((-1,) + (1,) * (X.dim() - 1)), X)
+
+    def batch(self, keys, X):
+        """The marginal law of every worker, (n/m) x with probability m/n
+        under ``jax.random.uniform(key, ())``: one row draw of one uniform
+        a worker."""
+        u = random.uniform_rows(keys, 1, X.device)[:, 0]
+        keep = u < _f32(self.m / self.n)
+        return self._gate(keep.reshape((-1,) + (1,) * (X.dim() - 1)), X)
 
 
 def make_compressor(spec: str) -> Compressor:

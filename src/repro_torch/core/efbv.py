@@ -4,11 +4,14 @@
 The whole module: :class:`EFBV` (``make`` with Remark 1's auto-tuning,
 heterogeneous fleets, per-leaf rules, partial participation and the
 pipelined schedule's delay; ``ef21`` / ``diana``; ``init``; the worker and
-master updates, masked or not; ``compress_delta`` and ``compress_round``;
+master updates; ``compress_delta`` and ``compress_round``;
 ``step`` and ``step_federated``), the round keys' fold tags,
 :class:`Participation`, :class:`Pipeline`, :class:`Downlink` with any zoo
 compressor, the proximal operators, and the reference driver
-:func:`run_reference` (Algorithm 1 over n workers in one process).
+:func:`run_reference` (Algorithm 1 over n workers in one process, the
+workers batched as JAX's ``vmap`` runs them: one ``Compressor.batch`` call
+per leaf, and one ordered-sum kernel per leaf for the mean and the master
+update, so a round's launches do not grow with n).
 
 Rounding: the JAX reference runs these updates under ``jit`` (the trainers,
 and ``run_reference``'s ``lax.scan``), where XLA contracts ``h + c * d``
@@ -16,9 +19,11 @@ into a fused multiply-add.  ``torch.add(h, d, alpha=c)`` computes the same
 fused result, so it is the spelling here, with ``x - gamma * g`` as
 ``torch.add(x, g, alpha=-gamma)``.  A Python constant is rounded to f32
 first, as JAX rounds a weakly typed one.  The mean over workers sums in
-worker order from +0.0 and multiplies by f32(1/n), as XLA rewrites
-``jnp.mean``'s division by a constant; the same bits on the CPU and on the
-card.
+the order of XLA's CPU reduce (worker order from +0.0 up to 32 workers,
+windows of 32 beyond: ``kernels.ops.worker_sum``, the ``worker_sum``
+kernel on the card, its plain loop on the CPU) and multiplies by
+f32(1/n), as XLA rewrites ``jnp.mean``'s division by a constant; the same
+bits on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from repro_torch.core import theory
 from repro_torch.core.compressors import (Compressor, Identity, _f32,
                                           expand_fleet, jsign,
                                           parse_downlink, parse_pipeline)
+from repro_torch.kernels import ops, ref
 
 PyTree = Any
 
@@ -131,31 +137,22 @@ def downlink_key(round_key):
     return random.fold_in(round_key, DOWNLINK_FOLD)
 
 
-def worker_sum(d: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading worker axis, in worker order from +0.0 (XLA's
-    reduce): the same bits on the CPU and on the card."""
-    acc = torch.zeros_like(d[0])
-    for i in range(d.shape[0]):
-        acc = acc + d[i]
-    return acc
+def _sum_weights(c, mask: Optional[torch.Tensor]):
+    """The ordered sum's weights for messages y * c (c a float, a fleet's
+    (n,) scales, or None) under the mask: None (a plain sum), the mask, c,
+    or f32(m_i * c) (XLA's fused reduce folds the constant into the mask's
+    product and contracts the product into the add)."""
+    if c is None:
+        return mask
+    return c if mask is None else mask * np.float32(c)
 
 
-def worker_mean(d: torch.Tensor) -> torch.Tensor:
-    """Mean over the leading worker axis: :func:`worker_sum` times
-    f32(1/n) -- XLA turns ``jnp.mean``'s division by the constant n into
-    that product (at n = 6 the division differed from JAX on 9 of 32
-    values, the product on none)."""
-    return worker_sum(d) * _f32(1.0 / d.shape[0])
-
-
-def _add_mean(h: torch.Tensor, d_sum: torch.Tensor, coef: float,
-              n: int) -> torch.Tensor:
-    """h + coef * mean, the mean d_sum * f32(1/n) computed in the same XLA
-    fusion, which folds the two constants, coef * (d_sum * (1/n)) ->
-    d_sum * f32(coef * 1/n), and contracts the product into the add: one
-    fma(d_sum, f32(f32(coef) * f32(1/n)), h)."""
-    c = _f32(_f32(coef) * np.float32(_f32(1.0 / n)))
-    return torch.add(h, d_sum, alpha=c)
+def _mean_coef(coef: float, n: int) -> float:
+    """The master update's folded constant: h + coef * mean, the mean
+    d_sum * f32(1/n) computed in the same XLA fusion, folds coef * (d_sum *
+    (1/n)) into d_sum * f32(f32(coef) * f32(1/n)) and contracts the product
+    into the add, one fma(d_sum, that constant, h)."""
+    return _f32(_f32(coef) * np.float32(_f32(1.0 / n)))
 
 
 def _bcast(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -254,21 +251,28 @@ class EFBV:
 
     # ---- the algorithm's pieces ---------------------------------------------
 
+    def _leaf_comps(self, tree: PyTree, sizes) -> list:
+        """The compressor of each leaf: ``self.compressor`` everywhere, or
+        with ``leaf_rules`` the one the leaf's path resolves to, clamped to
+        the leaf's size (one worker's size: ``sizes[j]``)."""
+        from repro_torch.distributed import wire
+        if not self.leaf_rules:
+            return [self.compressor] * len(sizes)
+        return [wire.clamp_for_leaf(
+            wire.resolve_leaf(self.leaf_rules, p, self.compressor), size)
+            for p, size in zip(wire.leaf_paths(tree), sizes)]
+
     def compress_delta(self, key, grad: PyTree, h: PyTree,
                        compressor: Optional[Compressor] = None) -> PyTree:
         """d_i = C_i(grad_i - h_i), leaf j under ``fold_in(key, j)``.
         ``compressor`` overrides ``self.compressor`` (a fleet member); with
         ``leaf_rules`` (and no override) each leaf runs the compressor its
         path resolves to, clamped to the leaf's size."""
-        from repro_torch.distributed import wire
-        comp = self.compressor if compressor is None else compressor
         leaves, h_leaves = T.leaves(grad), T.leaves(h)
-        if compressor is None and self.leaf_rules:
-            comps = [wire.clamp_for_leaf(
-                wire.resolve_leaf(self.leaf_rules, p, comp), g.numel())
-                for p, g in zip(wire.leaf_paths(grad), leaves)]
+        if compressor is None:
+            comps = self._leaf_comps(grad, [g.numel() for g in leaves])
         else:
-            comps = [comp] * len(leaves)
+            comps = [compressor] * len(leaves)
         outs = []
         for j, (cj, g, hj) in enumerate(zip(comps, leaves, h_leaves)):
             kj = None if key is None else random.fold_in(key, j)
@@ -280,15 +284,6 @@ class EFBV:
         return T.tree_map(lambda hj, dj: torch.add(hj, dj, alpha=self.lam),
                           h, d)
 
-    def worker_update_masked(self, h: PyTree, d: PyTree,
-                             m: torch.Tensor) -> PyTree:
-        """Worker-stacked h_i <- h_i + lam d_i where worker i is sampled
-        (m_i = 1), the old h_i verbatim where it is not (m_i = 0)."""
-        return T.tree_map(
-            lambda hj, dj: torch.where(_bcast(m, hj) > 0,
-                                       torch.add(hj, dj, alpha=self.lam), hj),
-            h, d)
-
     def master_update(self, h_avg: PyTree, d_bar: PyTree
                       ) -> Tuple[PyTree, PyTree]:
         """g <- h + nu d_bar ; h <- h + lam d_bar.  Returns (g, new h_avg).
@@ -298,28 +293,108 @@ class EFBV:
                        h_avg, d_bar)
         return g, self.worker_update(h_avg, d_bar)
 
-    # ---- the reference round (workers as a loop) ----------------------------
+    # ---- the reference round (the workers batched) ---------------------------
 
-    def _compress_workers(self, keys, grads: PyTree, h: PyTree,
-                          n: int) -> PyTree:
-        """Worker-stacked d_i = C_i(grad_i - h_i), worker i under
-        ``keys[i]`` with its own fleet member when there is a fleet."""
-        if self.fleet is not None and len(self.fleet) != n:
+    def _fleet_rows(self, n: int, device):
+        """[(member, its workers' rows as a numpy array and as an index
+        tensor on ``device``)] for each distinct fleet member, in the order
+        of first appearance: one batch call each."""
+        if len(self.fleet) != n:
             raise ValueError(f"fleet of {len(self.fleet)} members for {n} "
                              "workers (expand_fleet sizes it to n)")
-        d = []
-        for i in range(n):
-            d.append(self.compress_delta(
-                keys[i], T.tree_map(lambda a: a[i], grads),
-                T.tree_map(lambda a: a[i], h),
-                None if self.fleet is None else self.fleet[i]))
-        return T.tree_map(lambda *ds: torch.stack(ds), *d)
+        rows = {}
+        for i, c in enumerate(self.fleet):
+            rows.setdefault(c, []).append(i)
+        return [(c, np.asarray(r), torch.tensor(r, device=device))
+                for c, r in rows.items()]
 
-    def _compress_sum(self, key, grads: PyTree, state: EFBVState,
-                      mask: Optional[torch.Tensor] = None
-                      ) -> Tuple[PyTree, PyTree]:
-        """(sum_i [m_i] C_i(grad_i - h_i), advanced h): the worker half of
-        a round before the mean's 1/n."""
+    def _compress_workers(self, keys, grads: PyTree, h: PyTree, n: int,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[list, PyTree]:
+        """(per leaf the terms (y, w, order) of the ordered sum of the
+        worker-stacked messages d_i = C_i(grad_i - h_i), the advanced h),
+        ``vmap`` over the workers: leaf j of worker i under ``fold_in(keys[i], j)``, one
+        ``batch`` call per leaf (a fleet: one per distinct member on its
+        workers' rows, scattered back in worker order; JAX loops over a
+        fleet, the bits are the same).
+
+        Where the compressor ends in a product by an f32 constant, d = y *
+        c (rand-k, comp; a fleet has an (n,) tensor of each worker's c, 1
+        for the others), jitted JAX rounds as follows (fault u): under
+        ``vmap`` it folds lam into c, h_i' = fma(y, f32(lam * c), h); up to
+        32 workers its fused reduce contracts the sum's product, acc =
+        fma(y, w, acc) with w = c or f32(m * c), beyond 32 (fault v: XLA
+        cuts the reduce into windows) it sums d = y * c, rounded, under
+        the mask; across a fleet's stacked workers h_i' = fma(d, lam, h),
+        and the sum unmasked contracts too but unrolled at every n
+        ("unrolled"), its first pair fma(y_0, c_0, y_1 * c_1) ("pair"),
+        masked it reduces m * d.  Otherwise h_i' = fma(d, lam, h) and w =
+        m (None: a plain sum).  Under a mask an absent worker keeps its h_i
+        verbatim."""
+        leaves, h_leaves = T.leaves(grads), T.leaves(h)
+        groups = None
+        if self.fleet is not None:
+            groups = self._fleet_rows(n, leaves[0].device)
+            comps = [None] * len(leaves)
+        else:
+            comps = self._leaf_comps(grads, [g[0].numel() for g in leaves])
+        terms, h_out = [], []
+        for j, (cj, g, hj) in enumerate(zip(comps, leaves, h_leaves)):
+            kj = random.fold_in(keys, j)
+            x = g - hj
+            order = "reduce"
+            if groups is None:
+                y, c = cj.batch_parts(kj, x)
+                lam = self.lam if c is None else _f32(_f32(self.lam)
+                                                      * np.float32(c))
+                hn = torch.add(hj, y, alpha=lam)
+                if c is not None and n > ref.REDUCE_WINDOW:
+                    y, c = y * c, None
+            else:
+                y, c, order = self._fleet_batch(groups, kj, x)
+                d = y if c is None else y * _bcast(c, y)
+                hn = torch.add(hj, d, alpha=self.lam)
+                if mask is not None:
+                    y, c, order = d, None, "reduce"
+            if mask is not None:
+                hn = torch.where(_bcast(mask, hj) > 0, hn, hj)
+            terms.append((y, _sum_weights(c, mask), order))
+            h_out.append(hn)
+        return terms, T.unflatten(h, h_out)
+
+    @staticmethod
+    def _fleet_batch(groups, keys, x: torch.Tensor):
+        """(y, c, order) of a fleet's leaf: each distinct member's
+        ``batch_parts`` on its workers' rows, scattered back in worker
+        order; c the (n,) f32 scales (1 where a member has none), or None
+        if no member has one; ``order`` "pair" where worker 0's message
+        ends in a product by a constant other than 1 (then XLA's unrolled
+        sum contracts that product with the second term; measured on
+        fleets led by rand-k, comp and frac-comp, and by top-k and
+        natural, which take the plain order, "unrolled")."""
+        y = torch.empty_like(x)
+        scales = []
+        for member, rows, idx in groups:
+            ym, cm = member.batch_parts(keys[rows], x[idx])
+            y[idx] = ym
+            scales.append((idx, cm))
+        if all(cm is None for _, cm in scales):
+            return y, None, "unrolled"
+        c = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+        for idx, cm in scales:
+            if cm is not None:
+                c.index_fill_(0, idx, cm)
+        lead = scales[0][1]  # groups[0] holds worker 0
+        return y, c, ("pair" if lead is not None and lead != 1.0
+                      else "unrolled")
+
+    def _compress_stacked(self, key, grads: PyTree, state: EFBVState,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[list, PyTree]:
+        """(per leaf the ordered sum's terms (y, w, order), the advanced h):
+        the worker half of a round before the sum over workers, which is
+        ``kernels.ops.worker_sum(y, w, order=order)``
+        (:meth:`_compress_workers` says which weights and order)."""
         n = T.leaves(grads)[0].shape[0]
         if getattr(self.compressor, "joint", False):
             if mask is not None:
@@ -327,16 +402,13 @@ class EFBV:
                     "jointly-defined compressors (m-nice) model participation "
                     "themselves; combine them with Participation masks is "
                     "ambiguous")
-            d = T.tree_map(lambda *ds: torch.stack(ds), *[
-                T.tree_map(lambda g, h: self.compressor.joint_call(
-                    key, i, g[i] - h[i]), grads, state.h)
-                for i in range(n)])
-            return T.tree_map(worker_sum, d), self.worker_update(state.h, d)
-        d = self._compress_workers(random.split(key, n), grads, state.h, n)
-        if mask is None:
-            return T.tree_map(worker_sum, d), self.worker_update(state.h, d)
-        d_sum = T.tree_map(lambda dj: worker_sum(_bcast(mask, dj) * dj), d)
-        return d_sum, self.worker_update_masked(state.h, d, mask)
+            keep = self.compressor.members(key, T.leaves(grads)[0].device)
+            d = T.tree_map(lambda g, h: self.compressor.joint_batch(
+                key, g - h, keep), grads, state.h)
+            return ([(dj, None, "reduce") for dj in T.leaves(d)],
+                    self.worker_update(state.h, d))
+        return self._compress_workers(random.split(key, n), grads, state.h,
+                                      n, mask)
 
     def compress_round(self, key, grads: PyTree, state: EFBVState,
                        mask: Optional[torch.Tensor] = None
@@ -346,20 +418,24 @@ class EFBV:
         variates, without the master update.  Worker i draws under
         ``split(key, n)[i]``; a jointly-defined compressor (m-nice) draws
         every worker's share from ``key`` itself."""
-        d_sum, h_new = self._compress_sum(key, grads, state, mask)
+        terms, h_new = self._compress_stacked(key, grads, state, mask)
         n = T.leaves(grads)[0].shape[0]
-        return T.tree_map(lambda s: s * _f32(1.0 / n), d_sum), h_new
+        return T.unflatten(state.h_avg, [
+            ops.worker_sum(y, w, order=order) * _f32(1.0 / n)
+            for y, w, order in terms]), h_new
 
     def _round(self, key, grads: PyTree, state: EFBVState,
                mask: Optional[torch.Tensor]) -> Tuple[PyTree, EFBVState]:
         """compress_round then master_update, fused as XLA fuses them
-        (:func:`_add_mean`)."""
-        d_sum, h_new = self._compress_sum(key, grads, state, mask)
+        (:func:`_mean_coef`): per leaf one pass of the ordered sum over
+        the workers that also writes g and the new h_avg."""
+        terms, h_new = self._compress_stacked(key, grads, state, mask)
         n = T.leaves(grads)[0].shape[0]
-        g = T.tree_map(lambda h, s: _add_mean(h, s, self.nu, n),
-                       state.h_avg, d_sum)
-        h_avg = T.tree_map(lambda h, s: _add_mean(h, s, self.lam, n),
-                           state.h_avg, d_sum)
+        c_g, c_h = _mean_coef(self.nu, n), _mean_coef(self.lam, n)
+        pairs = [ops.worker_sum(y, w, hj, c_g, c_h, order)
+                 for hj, (y, w, order) in zip(T.leaves(state.h_avg), terms)]
+        g = T.unflatten(state.h_avg, [p[0] for p in pairs])
+        h_avg = T.unflatten(state.h_avg, [p[1] for p in pairs])
         return g, EFBVState(h=h_new, h_avg=h_avg, step=state.step + 1)
 
     def step(self, key, grads: PyTree, state: EFBVState
@@ -562,8 +638,9 @@ def run_reference(*, algo: EFBV, grad_fn: Callable, x0: PyTree,
                   record: Optional[Callable] = None,
                   wire_dtype: str = "float32",
                   pipeline: Optional[Pipeline] = None) -> ReferenceRun:
-    """Algorithm 1 over ``steps`` rounds, the n workers as a loop on x0's
-    device: JAX's ``run_reference`` round for round.
+    """Algorithm 1 over ``steps`` rounds, the n workers batched on x0's
+    device (``vmap`` over the worker axis): JAX's ``run_reference`` round
+    for round.
 
     Round t runs under ``split(key, steps)[t]`` = k: gradients
     ``grad_fn(fold_in(k, RESAMPLE_FOLD), x)`` (at w under a downlink),

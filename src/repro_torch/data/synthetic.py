@@ -95,10 +95,13 @@ class SyntheticLM:
 # -----------------------------------------------------------------------------
 #
 # Data come from the port's threefry draws, on the device asked for.  The
-# uniforms are JAX's bit for bit; ``random.normal`` is not (torch's erfinv
-# is not XLA's), so A, x_true, Q and b agree with the JAX package's within a
-# few f32 ulps, and a label whose logit is within that of zero can flip.
-# Tests that need JAX's exact data carry it across as numpy.
+# uniforms and the normals are JAX's bit for bit (``random.normal`` runs
+# XLA's f32 erf_inv), so x_true and Quadratic's b are too.  What still
+# differs: torch's ``exp`` of the column scales against XLA's (1 ulp in a
+# few columns, so A within 2 ulps), and the matmuls behind the labels and
+# Q, so a label whose logit is within that of zero can flip (none does at
+# the paper's Figure 2 sizes, pinned by the tests).  Tests that need JAX's
+# exact data carry it across as numpy.
 
 def make_synthetic(key, *, N: int, d: int, noise: float = 0.2,
                    scale: float = 1.0, device="cuda"
@@ -215,10 +218,11 @@ class LogReg:
                         batch: int) -> torch.Tensor:
         """Per-worker stochastic gradients, (n, d): worker i draws
         ``randint(split(key, n)[i], batch, 0, Ni)`` rows of its shard (with
-        replacement), as JAX's vmap over the split keys does."""
+        replacement), as JAX's vmap over the split keys does: one row
+        draw for all n workers (``random.randint_rows``)."""
         Ni = self.A.shape[1]
-        idx = torch.stack([random.randint(k, batch, 0, Ni, x.device)
-                           for k in random.split(key, self.n)]).long()
+        idx = random.randint_rows(random.split(key, self.n), batch, 0, Ni,
+                                  x.device).long()
         rows = torch.arange(self.n, device=x.device).unsqueeze(1)
         return self._grads(self.A[rows, idx], self.b[rows, idx], x)
 

@@ -51,7 +51,15 @@ SIGNATURES = {
                       ctypes.c_int, ctypes.c_float, ctypes.c_float, _P]},
     "threefry": {"threefry_fill":
                  [ctypes.c_uint, ctypes.c_uint, _P, ctypes.c_longlong,
-                  ctypes.c_int, _P]},
+                  ctypes.c_int, _P],
+                 "threefry_rows":
+                 [_P, ctypes.c_longlong, ctypes.c_longlong, _P, ctypes.c_int,
+                  _P]},
+    "worker_sum": {"worker_sum_f32":
+                   [_P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    _P, _P, _P,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
+                    ctypes.c_float, _P]},
     "block_topk": {"block_topk_f32": _TOPK, "block_topk_bf16": _TOPK,
                    "efbv_update_f32": _UPDATE, "efbv_update_bf16": _UPDATE},
 }

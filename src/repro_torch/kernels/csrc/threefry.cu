@@ -16,6 +16,14 @@
 // Layout: each thread draws 4 consecutive elements and writes them as one
 // 16-byte store (a scalar tail for n % 4), in a grid-stride loop.
 //
+// The row draw (threefry_rows) is the same draw under n keys at once, as
+// vmap over a worker axis draws it: element (i, c) of an (n, m) output is
+// word(keys[i], c), the key pair read from device memory (n x 2 uint32,
+// copied once per call).  A 2-D grid: blockIdx.y strides over the rows,
+// the x dimension over the row's groups of 4 columns; a row of m % 4 == 0
+// values is written with 16-byte stores, any other row value by value
+// (two instantiations of one template, so each loop is straight code).
+//
 // Bound: about 80 32-bit integer operations per element (20 x (add, rotate,
 // xor), 6 injections, the xor and float conversion) against 4 bytes written;
 // on the H100 the integer pipes, not memory, are the limit.
@@ -91,7 +99,65 @@ threefry_fill_kernel(uint32_t k0, uint32_t k1, uint32_t* __restrict__ out,
   }
 }
 
+template <bool kQuad>
+__global__ void __launch_bounds__(kThreads)
+threefry_rows_kernel(const uint32_t* __restrict__ keys, long long rows,
+                     unsigned int m, uint32_t* __restrict__ out,
+                     int as_float) {
+  const unsigned int quads = (m + 3u) / 4u;
+  const unsigned int stride = gridDim.x * blockDim.x;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint32_t k0 = keys[2 * r], k1 = keys[2 * r + 1];
+    const uint32_t k2 = k0 ^ k1 ^ 0x1bd11bdau;
+    uint32_t* row = out + r * (long long)m;
+    for (unsigned int q = blockIdx.x * blockDim.x + threadIdx.x; q < quads;
+         q += stride) {
+      const unsigned int c = 4u * q;
+      if (kQuad) {
+        uint4 v;
+        v.x = to_out(threefry_word(k0, k1, k2, c), as_float);
+        v.y = to_out(threefry_word(k0, k1, k2, c + 1), as_float);
+        v.z = to_out(threefry_word(k0, k1, k2, c + 2), as_float);
+        v.w = to_out(threefry_word(k0, k1, k2, c + 3), as_float);
+        reinterpret_cast<uint4*>(row)[q] = v;
+      } else {
+        for (unsigned int j = c; j < c + 4u && j < m; ++j)
+          row[j] = to_out(threefry_word(k0, k1, k2, j), as_float);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int threefry_rows(const void* keys, long long rows, long long m,
+                             void* out, int as_float, void* stream) {
+  if (rows <= 0 || m <= 0) return (int)cudaSuccess;
+  if (m >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const bool quad = (m % 4 == 0);
+  if (quad && reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long quads = (m + 3) / 4;
+  // a warp per row at least; up to kThreads threads across a row's quads
+  long long threads = (quads + 31) / 32 * 32;
+  if (threads > kThreads) threads = kThreads;
+  long long bx = (quads + threads - 1) / threads;
+  long long by = rows < 65535 ? rows : 65535;
+  // about 16 CTAs per SM in all: the loops stride over the rest
+  const long long cap = 132 * 16 * 4;
+  if (bx * by > cap) bx = cap / by > 0 ? cap / by : 1;
+  const dim3 grid((unsigned int)bx, (unsigned int)by);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (quad)
+    threefry_rows_kernel<true><<<grid, (unsigned int)threads, 0, s>>>(
+        static_cast<const uint32_t*>(keys), rows, (unsigned int)m,
+        static_cast<uint32_t*>(out), as_float);
+  else
+    threefry_rows_kernel<false><<<grid, (unsigned int)threads, 0, s>>>(
+        static_cast<const uint32_t*>(keys), rows, (unsigned int)m,
+        static_cast<uint32_t*>(out), as_float);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int threefry_fill(unsigned int k0, unsigned int k1, void* out,
                              long long n, int as_float, void* stream) {

@@ -1,5 +1,7 @@
 """Public wrappers around the port's kernels: any tensor shape in, padded
-to (nb, block) rows for the block kernel, outputs unpadded.
+to (nb, block) rows for the block kernel, outputs unpadded; and the
+reference round's ordered worker sum (:func:`worker_sum`, whose launch
+lives here).
 
 Unlike the TPU wrappers, rows are padded only to nb * block, and the QSGD
 and rand-k kernels take flat leaves unpadded: a CUDA kernel has no (8, 128)
@@ -11,11 +13,11 @@ so that every script that times them holds them to the same bound.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import pack
+from repro_torch.kernels import LAUNCHES, pack, ref
 
 
 def to_rows(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -98,6 +100,70 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     vals, h_out = pack.randk_update(g.reshape(-1), h.reshape(-1), idx,
                                     scale, lam)
     return vals, h_out.reshape(h.shape)
+
+
+def worker_sum(d: torch.Tensor, weights=None,
+               h: Optional[torch.Tensor] = None, c_g: float = 0.0,
+               c_h: float = 0.0, order: str = "reduce"):
+    """The reference round's ordered worker sum of the worker-stacked (n,
+    ...) f32 ``d``, shaped like d[0]: sum_i d_i, or with ``weights`` (the
+    (n,) f32 participation mask, f32(m_i * c), or one float c for every
+    row) each step one fma(d_i, w_i, acc), as XLA's fused reduce contracts
+    acc + w_i * d_i.  ``order`` (``ref.worker_sum_ref``): "reduce", XLA's
+    CPU reduce (worker order from +0.0 up to 32 rows, windows of 32
+    beyond); "unrolled", worker order at every n, as XLA sums a fleet's
+    stacked workers; "pair" (with an (n,) tensor of weights), unrolled
+    with the first two terms fma(d_0, w_0, d_1 * w_1).  With ``h`` (shaped
+    like d[0]) the master's two updates fused into the same pass: returns
+    (fma(sum, c_g, h), fma(sum, c_h, h)).  On the card the ``worker_sum``
+    kernel (``csrc/worker_sum.cu``, one launch); on the CPU its plain
+    loop (``ref.worker_sum_ref``)."""
+    if d.device.type == "cpu":
+        return ref.worker_sum_ref(d, weights, h, c_g, c_h, order)
+    if d.device.type != "cuda":
+        raise ValueError(f"worker_sum runs on cpu or cuda, not {d.device}")
+    if d.dtype != torch.float32 or (h is not None
+                                    and h.dtype != torch.float32):
+        raise ValueError(f"worker_sum kernel takes f32, got {d.dtype}")
+    if order not in ("reduce", "unrolled", "pair"):
+        raise ValueError(f"unknown worker sum order {order!r}")
+    from repro_torch.kernels import build
+
+    n = d.shape[0]
+    if n == 0:
+        raise ValueError("worker_sum over no workers")
+    d2 = d.reshape(n, -1).contiguous()
+    cols = d2.shape[1]
+    w, scale, mode = None, 0.0, 0
+    pair = order == "pair"
+    if isinstance(weights, torch.Tensor):
+        w, mode = weights.to(torch.float32).contiguous(), 3 if pair else 1
+        if w.numel() != n:
+            raise ValueError(f"{w.numel()} weights for {n} workers")
+    elif pair:
+        raise ValueError("pair needs an (n,) tensor of weights")
+    elif weights is not None:
+        scale, mode = float(weights), 2
+    hf = None if h is None else h.reshape(-1).contiguous()
+    if hf is not None and hf.numel() != cols:
+        raise ValueError(f"h of {hf.numel()} values for rows of {cols}")
+    out = torch.empty(cols, dtype=torch.float32, device=d.device)
+    out_h = None if h is None else torch.empty_like(out)
+    window = ref.REDUCE_WINDOW if order == "reduce" else 0
+    fn = build.load("worker_sum").worker_sum_f32
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(d2.data_ptr(), None if w is None else w.data_ptr(), scale,
+                 mode, window, None if hf is None else hf.data_ptr(),
+                 out.data_ptr(), None if out_h is None else out_h.data_ptr(),
+                 n, cols, float(c_g), float(c_h), stream)
+    if err != 0:
+        raise RuntimeError(f"worker_sum launch failed: cudaError {err}")
+    LAUNCHES["worker_sum"] += 1
+    shape = d.shape[1:]
+    if h is None:
+        return out.reshape(shape)
+    return out.reshape(shape), out_h.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -177,3 +177,88 @@ def threefry_ref(key, n: int, device, as_float: bool) -> torch.Tensor:
 
     b = random.bits_plain(key, n, device)
     return random.uniform_from_bits(b) if as_float else b
+
+
+#: values a plain row draw computes at a time (its int64 temporaries)
+_ROWS_CHUNK = 1 << 24
+
+
+def threefry_rows_ref(keys: torch.Tensor, m: int,
+                      as_float: bool) -> torch.Tensor:
+    """(n, m) threefry2x32 draws, row i under the i-th key of the (n, 2)
+    int32 tensor ``keys`` (the int64 rounds of :func:`threefry_ref` with
+    each key broadcast along its row), a block of rows at a time."""
+    from repro_torch import random
+
+    n = keys.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32 if as_float
+                      else torch.int32, device=keys.device)
+    step = max(1, _ROWS_CHUNK // max(m, 1))
+    for r in range(0, n, step):
+        b = random.bits_rows_plain(keys[r:r + step], m)
+        out[r:r + step] = random.uniform_from_bits(b) if as_float else b
+    return out
+
+
+#: rows of one window of XLA's CPU tree reduction (its
+#: TreeReductionRewriter): a reduce over more rows sums windows of this many
+REDUCE_WINDOW = 32
+
+
+def reduce_windows(n: int):
+    """[(start, stop)] row ranges of the windows XLA's CPU rewriter cuts a
+    reduce over n > REDUCE_WINDOW rows into: the rows padded by -n % 32
+    zeros, pad // 2 of them in front, then windows of 32."""
+    lo = (-n % REDUCE_WINDOW) // 2
+    return [(max(0, s - lo), min(n, s - lo + REDUCE_WINDOW))
+            for s in range(0, n + lo, REDUCE_WINDOW)]
+
+
+def _in_order(d, weights, rows):
+    """sum over ``rows`` of d in order from +0.0, each step fma(d_i, w_i,
+    acc) under ``weights``."""
+    acc = torch.zeros_like(d[0])
+    for i in rows:
+        if weights is None:
+            acc = acc + d[i]
+        else:
+            w = weights[i] if isinstance(weights, torch.Tensor) else weights
+            acc = torch.add(acc, d[i], alpha=float(w))
+    return acc
+
+
+def worker_sum_ref(d: torch.Tensor, weights=None, h=None, c_g: float = 0.0,
+                   c_h: float = 0.0, order: str = "reduce"):
+    """The ordered worker sum of the worker-stacked (n, ...) f32 ``d``, with
+    ``weights`` (an (n,) tensor, or one float for every row) each step
+    fma(d_i, w_i, acc) (``torch.add`` with ``alpha``: one rounding, as
+    XLA's fused reduce contracts it; with a 0/1 mask the product is exact,
+    so these are the bits of m_i * d_i then the add, and 0 * NaN is NaN).
+    ``order``: "reduce", XLA's CPU reduce of a vmapped stack: up to 32
+    rows in worker order from +0.0, beyond that the windows of
+    :func:`reduce_windows`, each in order from +0.0, their partials
+    reduced the same way; "unrolled", XLA's sum of a fleet's stacked
+    workers, in worker order at every n; "pair", unrolled with the first
+    two steps fma(d_0, w_0, d_1 * w_1).  With ``h`` the master's two
+    updates of the same pass, (fma(sum, c_g, h), fma(sum, c_h, h)), as
+    ``torch.add(h, sum, alpha=c)`` rounds them."""
+    n = d.shape[0]
+    if order == "pair":
+        w0 = float(weights[0])
+        acc = d[0] * w0 if n == 1 else torch.add(d[1] * float(weights[1]),
+                                                 d[0], alpha=w0)
+        for i in range(min(n, 2), n):
+            acc = torch.add(acc, d[i], alpha=float(weights[i]))
+    elif order == "reduce":
+        while n > REDUCE_WINDOW:
+            d = torch.stack([_in_order(d, weights, range(a, b))
+                             for a, b in reduce_windows(n)])
+            weights, n = None, d.shape[0]
+        acc = _in_order(d, weights, range(n))
+    elif order == "unrolled":
+        acc = _in_order(d, weights, range(n))
+    else:
+        raise ValueError(f"unknown worker sum order {order!r}")
+    if h is None:
+        return acc
+    return torch.add(h, acc, alpha=c_g), torch.add(h, acc, alpha=c_h)

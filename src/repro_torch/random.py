@@ -55,16 +55,22 @@ def _rounds(x0, x1, k0, k1, add, rotl):
 
 
 def threefry2x32(key, x0, x1):
-    """threefry2x32 of uint32 numpy counters (x0, x1) under ``key``."""
-    k0, k1 = (int(k) for k in np.asarray(key, np.uint32))
+    """threefry2x32 of uint32 numpy counters (x0, x1) under ``key``: one
+    (2,) key, or an (..., 2) array of keys broadcast against the
+    counters (key row i with counter i, or every key with every counter
+    when their shapes say so)."""
+    key = np.asarray(key, np.uint32)
+    k0 = key[..., 0].astype(np.uint64)
+    k1 = key[..., 1].astype(np.uint64)
     x0 = np.asarray(x0, np.uint64)
     x1 = np.asarray(x1, np.uint64)
+    mask = np.uint64(MASK32)
     with np.errstate(over="ignore"):
         y0, y1 = _rounds(
-            x0, x1, np.uint64(k0), np.uint64(k1),
-            lambda a, b: (a + np.uint64(b)) & np.uint64(MASK32),
+            x0, x1, k0, k1,
+            lambda a, b: (a + np.asarray(b, np.uint64)) & mask,
             lambda a, r: ((a << np.uint64(r)) | (a >> np.uint64(32 - r)))
-            & np.uint64(MASK32))
+            & mask)
     return y0.astype(np.uint32), y1.astype(np.uint32)
 
 
@@ -82,16 +88,27 @@ def key(seed: int) -> np.ndarray:
 
 
 def fold_in(k, data: int) -> np.ndarray:
-    """``jax.random.fold_in``: threefry2x32(k, (0, data)) as the new key."""
+    """``jax.random.fold_in``: threefry2x32(k, (0, data)) as the new key.
+    ``k`` is one (2,) key, or an (n, 2) array of keys, each folded with the
+    same ``data`` (``vmap(fold_in)``), in one vectorised pass."""
+    k = np.asarray(k, np.uint32)
+    if k.ndim > 1:
+        y0, y1 = threefry2x32(k, np.uint32(0), np.uint32(int(data) & MASK32))
+        return np.stack([y0, y1], axis=-1)
     k0, k1 = (int(v) for v in k)
     return np.array(_threefry_int(k0, k1, 0, int(data) & MASK32), np.uint32)
 
 
 def split(k, n: int = 2) -> np.ndarray:
     """``jax.random.split`` (fold-like under partitionable threefry): key i
-    is threefry2x32(k, (0, i)).  Returns (n, 2) uint32."""
+    is threefry2x32(k, (0, i)).  Returns (n, 2) uint32; for an (r, 2) array
+    of keys, (r, n, 2) with row i the split of ``k[i]``
+    (``vmap(split)``)."""
+    k = np.asarray(k, np.uint32)
+    if k.ndim > 1:
+        k = k[..., None, :]
     y0, y1 = threefry2x32(k, np.zeros(n, np.uint32), np.arange(n))
-    return np.stack([y0, y1], axis=1)
+    return np.stack([y0, y1], axis=-1)
 
 
 def bits_plain(k, n: int, device) -> torch.Tensor:
@@ -103,6 +120,20 @@ def bits_plain(k, n: int, device) -> torch.Tensor:
     i = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = _rounds(
         i >> 32, i & MASK32, k0, k1,
+        lambda a, b: (a + b) & MASK32,
+        lambda a, r: ((a << r) | (a >> (32 - r))) & MASK32)
+    return _as_int32(y0 ^ y1)
+
+
+def bits_rows_plain(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """(n, m) draws, row i ``bits(keys[i], m)``, in torch int64 ops on the
+    device of the (n, 2) int32 key tensor ``keys`` (each key's two words
+    broadcast along its row), returned as int32 holding the same bits."""
+    k = keys.to(torch.int64) & MASK32
+    k0, k1 = k[:, :1], k[:, 1:]
+    c = torch.arange(m, dtype=torch.int64, device=keys.device)
+    y0, y1 = _rounds(
+        c >> 32, c & MASK32, k0, k1,
         lambda a, b: (a + b) & MASK32,
         lambda a, r: ((a << r) | (a >> (32 - r))) & MASK32)
     return _as_int32(y0 ^ y1)
@@ -381,3 +412,102 @@ def choice(k, n: int, m: int, device="cuda") -> torch.Tensor:
         raise ValueError(f"cannot take a larger sample ({m}) than the "
                          f"population ({n}) without replacement")
     return permutation(k, n, device)[:m].clone()
+
+
+# ---------------------------------------------------------------------------
+# many keys at once: the draws of ``vmap`` over a worker axis
+# ---------------------------------------------------------------------------
+
+def key_tensor(keys, device) -> torch.Tensor:
+    """An (n, 2) uint32 key array as an (n, 2) int32 tensor holding the same
+    bits on ``device``: the one host-to-device copy of a batched draw
+    (staged through pinned memory and not waited for on the card: the
+    caching host allocator keeps the staging buffer until the copy is
+    done)."""
+    t = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(keys, np.uint32).reshape(-1, 2)).view(np.int32))
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _rows(keys_t: torch.Tensor, m: int, as_float: bool) -> torch.Tensor:
+    from repro_torch.kernels import threefry
+    return threefry.threefry_rows(keys_t, m, as_float)
+
+
+def bits_rows(keys, m: int, device="cuda") -> torch.Tensor:
+    """``vmap(lambda k: jax.random.bits(k, (m,)))(keys)`` for an (n, 2)
+    key array: (n, m) int32 with row i equal to ``bits(keys[i], m)``, in
+    one launch of the row draw kernel on the card (the plain version on
+    the CPU) and one copy of the keys, whatever n is."""
+    from repro_torch import resolve_device
+    return _rows(key_tensor(keys, resolve_device(device)), m, False)
+
+
+def uniform_rows(keys, m: int, device="cuda") -> torch.Tensor:
+    """(n, m) f32 with row i equal to ``uniform(keys[i], m)``, as
+    :func:`bits_rows`."""
+    from repro_torch import resolve_device
+    return _rows(key_tensor(keys, resolve_device(device)), m, True)
+
+
+def randint_rows(keys, m: int, minval: int, maxval: int,
+                 device="cuda") -> torch.Tensor:
+    """(n, m) int32 with row i equal to ``randint(keys[i], m, minval,
+    maxval)``: both halves of every key's split drawn in one launch (rows
+    0..n-1 the high words, n..2n-1 the low)."""
+    lim = 2**31
+    if not (-lim <= minval < lim and -lim <= maxval < lim):
+        raise ValueError(f"randint bounds ({minval}, {maxval}) outside int32")
+    pair = split(np.asarray(keys, np.uint32).reshape(-1, 2))
+    n = pair.shape[0]
+    both = bits_rows(np.concatenate([pair[:, 0], pair[:, 1]]), m,
+                     device).to(torch.int64) & MASK32
+    hi, lo = both[:n], both[n:]
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & MASK32) % span
+    off = (((hi % span) * mult + lo % span) & MASK32) % span
+    return (off + minval).to(torch.int32)
+
+
+def stable_order(sort_keys: torch.Tensor) -> torch.Tensor:
+    """int64 order of a stable ascending sort of each row of the (n, m)
+    int32 ``sort_keys`` read as uint32 (``lax.sort_key_val`` along the last
+    axis): equal keys keep their column order, on the CPU and the card."""
+    flipped = sort_keys.bitwise_xor(_UINT32_ORDER)
+    return torch.sort(flipped, dim=1, stable=True).indices
+
+
+def permutation_rows(keys, m: int, device="cuda") -> torch.Tensor:
+    """``vmap(lambda k: jax.random.permutation(k, m))(keys)``: (n, m) int32,
+    row i equal to ``permutation(keys[i], m)``.  Every round's subkeys are
+    derived on the host first (``k, sub = split(k)`` for all rows at once)
+    and copied in one go; each round is one row draw and one stable sort of
+    the (n, m) draws along the rows."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    k = np.asarray(keys, np.uint32).reshape(-1, 2)
+    n = k.shape[0]
+    subs = []
+    for _ in range(shuffle_rounds(m)):
+        pair = split(k)
+        k = pair[:, 0]
+        subs.append(pair[:, 1])
+    x = torch.arange(m, dtype=torch.int32, device=dev).repeat(n, 1)
+    if not subs:
+        return x
+    sub_t = key_tensor(np.concatenate(subs), dev)
+    for r in range(len(subs)):
+        order = stable_order(_rows(sub_t[r * n:(r + 1) * n], m, False))
+        x = torch.gather(x, 1, order)
+    return x
+
+
+def choice_rows(keys, m: int, k: int, device="cuda") -> torch.Tensor:
+    """(n, k) int32, row i equal to ``choice(keys[i], m, k)``: the first k
+    columns of :func:`permutation_rows`."""
+    if k > m:
+        raise ValueError(f"cannot take a larger sample ({k}) than the "
+                         f"population ({m}) without replacement")
+    return permutation_rows(keys, m, device)[:, :k].contiguous()

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch/`` or ``chip_smoke.py``, and a CUDA request without a GPU
-raises instead of falling back to the CPU."""
+``src/repro_torch/``, ``paper_torch/`` or ``chip_smoke.py``, and a CUDA
+request without a GPU raises instead of falling back to the CPU."""
 
 import os
 import re
@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "paper_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|,|$)",
                        re.MULTILINE)
 
@@ -45,6 +45,7 @@ def _cuda_calls():
     from repro_torch import random
     from repro_torch.launch import compressor_bench, train
     from repro_torch.models.model import build_model
+    from paper_torch import paper_fig2, paper_fig3
 
     tree = {"w": np.zeros((2, 3), np.float32)}
     smoke = build_model(get_smoke_config("qwen2-0.5b"))
@@ -55,10 +56,13 @@ def _cuda_calls():
         lambda: random.uniform(random.key(0), 10),
         lambda: random.bits(random.key(0), 10),
         lambda: compressor_bench.main([]),
+        lambda: random.uniform_rows(random.split(random.key(0), 3), 10),
+        lambda: paper_fig2.main([]),
+        lambda: paper_fig3.main([]),
     ]
 
 
-@pytest.mark.parametrize("which", range(6))
+@pytest.mark.parametrize("which", range(9))
 def test_cuda_request_without_gpu_raises(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; nothing to refuse")

@@ -6,6 +6,8 @@ QSGD codec uses, and the shuffle behind ``permutation`` and
 ``choice(replace=False)`` that picks rand-k's positions.  Tolerance:
 none."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,3 +253,118 @@ def test_fma_rounds_once():
              for x, y, z in zip(a, b, c)]
     np.testing.assert_array_equal(got, np.array(exact, np.float32))
     assert (got != (a * b + c)).any()
+
+
+# -- many keys at once: the draws of vmap over a worker axis -----------------
+
+def _worker_keys(n, seed=4):
+    """(JAX's, the port's) split(fold_in(key(seed), 2), n): a round's
+    worker keys."""
+    jk = jax.random.split(jax.random.fold_in(jax.random.key(seed), 2), n)
+    tk = R.split(R.fold_in(R.key(seed), 2), n)
+    np.testing.assert_array_equal(tk, _jkey_data(jk))
+    return jk, tk
+
+
+@pytest.mark.parametrize("n", [1, 16, 1000])
+def test_fold_in_and_split_over_key_arrays_match_jax(n):
+    """``fold_in`` and ``split`` of an (n, 2) key array, one vectorised
+    pass, equal ``vmap`` of JAX's (the leaf keys fold_in(keys[i], j) and a
+    shuffle round's ``k, sub = split(k)`` of every worker)."""
+    jk, tk = _worker_keys(n)
+    for data in (0, 13, jefbv.DOWNLINK_FOLD):
+        np.testing.assert_array_equal(
+            R.fold_in(tk, data),
+            _jkey_data(jax.vmap(partial(jax.random.fold_in, data=data))(jk)))
+    for m in (2, 3):
+        got = R.split(tk, m)
+        assert got.shape == (n, m, 2)
+        np.testing.assert_array_equal(
+            got, _jkey_data(jax.vmap(partial(jax.random.split, num=m))(jk)))
+
+
+@pytest.mark.parametrize("n,m", [(16, 1), (16, 7), (16, 56), (3, 4099),
+                                 (1000, 112)])
+def test_row_draws_match_jax_under_vmap(n, m):
+    """``bits_rows``, ``uniform_rows`` and ``randint_rows``: row i is JAX's
+    draw under keys[i], as ``vmap`` draws it, bit for bit."""
+    jk, tk = _worker_keys(n)
+    got = R.bits_rows(tk, m, device="cpu")
+    assert got.shape == (n, m) and got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32),
+        np.asarray(jax.vmap(partial(jax.random.bits, shape=(m,)))(jk)))
+    np.testing.assert_array_equal(
+        R.uniform_rows(tk, m, device="cpu").numpy().view(np.uint32),
+        np.asarray(jax.vmap(partial(jax.random.uniform, shape=(m,)))(
+            jk)).view(np.uint32))
+    np.testing.assert_array_equal(
+        R.randint_rows(tk, m, 0, 37, device="cpu").numpy(),
+        np.asarray(jax.vmap(partial(jax.random.randint, shape=(m,),
+                                    minval=0, maxval=37))(jk)))
+
+
+@pytest.mark.parametrize("n,m,k", [(16, 1, 1), (16, 56, 1), (16, 150, 150),
+                                   (4, 1626, 9), (1000, 56, 1)])
+def test_permutation_and_choice_rows_match_jax_under_vmap(n, m, k):
+    """One row shuffle for all workers (one draw and one stable sort a
+    round; 2 rounds above 1625) equals ``vmap`` of JAX's permutation and
+    choice."""
+    jk, tk = _worker_keys(n)
+    got = R.permutation_rows(tk, m, device="cpu")
+    assert got.shape == (n, m) and got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax.vmap(
+            partial(jax.random.permutation, x=m))(jk)))
+    np.testing.assert_array_equal(
+        R.choice_rows(tk, m, k, device="cpu").numpy(),
+        np.asarray(jax.vmap(partial(jax.random.choice, a=m, shape=(k,),
+                                    replace=False))(jk)))
+
+
+@pytest.mark.parametrize("n,m,distinct", [(16, 56, 3), (8, 150, 2),
+                                          (4, 4096, 64)])
+def test_stable_order_keeps_ties_in_order_like_lax_sort(n, m, distinct):
+    """The shuffle's sort with forced ties: equal uint32 keys (a few
+    distinct values over both halves of the range, as int32 both signs)
+    keep their column order, as JAX's ``lax.sort_key_val`` under vmap
+    orders them (threefry draws tie too rarely to test this through the
+    draws)."""
+    rng = np.random.default_rng(distinct)
+    u = (rng.integers(0, distinct, (n, m)) * (2**32 // distinct)).astype(
+        np.uint32)
+    order = R.stable_order(torch.from_numpy(u.view(np.int32)))
+    cols = jnp.broadcast_to(jnp.arange(m, dtype=jnp.int32), (n, m))
+    _, want = jax.vmap(jax.lax.sort_key_val)(jnp.asarray(u), cols)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(want))
+
+
+def test_row_draws_are_one_call_and_one_key_copy(monkeypatch):
+    """Each batched draw makes one row-draw call and one copy of its keys,
+    whatever n is (a 2-round permutation: two calls, still one copy); on
+    the CPU nothing launches."""
+    calls = {"rows": 0, "copies": 0}
+    rows, copy = R._rows, R.key_tensor
+
+    def counted_rows(*a):
+        calls["rows"] += 1
+        return rows(*a)
+
+    def counted_copy(*a):
+        calls["copies"] += 1
+        return copy(*a)
+
+    monkeypatch.setattr(R, "_rows", counted_rows)
+    monkeypatch.setattr(R, "key_tensor", counted_copy)
+    reset_launches()
+    for n in (2, 300):
+        tk = R.split(R.key(n), n)
+        for fn, want in ((lambda: R.uniform_rows(tk, 9, "cpu"), (1, 1)),
+                         (lambda: R.randint_rows(tk, 9, 0, 5, "cpu"), (1, 1)),
+                         (lambda: R.permutation_rows(tk, 40, "cpu"), (1, 1)),
+                         (lambda: R.choice_rows(tk, 1700, 3, "cpu"),
+                          (2, 1))):
+            calls.update(rows=0, copies=0)
+            fn()
+            assert (calls["rows"], calls["copies"]) == want
+    assert not any(LAUNCHES.values())

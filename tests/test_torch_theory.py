@@ -6,6 +6,7 @@ python float arithmetic gives the same floats.
 """
 
 import dataclasses
+import itertools
 
 import pytest
 
@@ -496,8 +497,8 @@ def test_make_with_participation_and_fleets_equal_jax(comp, participation):
 # for the deterministic codecs and rand-k / comp (whose draws are bitwise),
 # at full, bernoulli and fixed participation, with the prox operators and
 # the pipelined oracle.  That needs XLA's rounding at each site: fused
-# h + lam*d and x - gamma*g; the worker mean as a sum in worker order
-# times f32(1/n); the master update's coefficient folded into that 1/n and
+# h + lam*d and x - gamma*g; the worker mean as a sum in XLA's CPU order
+# (worker order up to 32 workers, windows of 32 beyond) times f32(1/n); the master update's coefficient folded into that 1/n and
 # contracted, fma(sum, f32(coef * 1/n), h); prox_l2 as a product with the
 # f32 reciprocal.  QSGD, sign and natural reduce in torch's order (faults c
 # and j): x within 1e-4 of max |x|.  With the problems' own matmul
@@ -536,9 +537,16 @@ def _elementwise_pair(gamma=0.05, **kw):
                                            "fixed:3"])
 @pytest.mark.parametrize("comp", ["identity", "topk:8", "block_topk:16,4",
                                   "randk:4", "comp:2,8", "mix:2,4",
-                                  "scaled_randk:4"])
+                                  "scaled_randk:4", "frac_topk:100",
+                                  "frac_comp:100,300", "topk:8;randk:4",
+                                  "comp:3,10", "randk:3;comp:3,10;topk:5"])
 def test_reference_bitwise_with_jax(comp, participation):
-    j, t = _elementwise_pair(compressor=comp, participation=participation)
+    """The batched round (the port's one ``batch`` call per leaf and fleet
+    member, one ordered sum) against JAX's vmap (and its loop over a
+    fleet's workers), the spec's ``compressor`` field with ';' a fleet."""
+    kw = dict(agg="dense_psum") if ";" in comp else {}
+    j, t = _elementwise_pair(compressor=comp, participation=participation,
+                             **kw)
     _assert_bitwise(j, t, f"{comp} {participation}")
     assert t.w is None and t.state.step == STEPS_REF
 
@@ -867,3 +875,355 @@ def test_compress_delta_leaf_rules_and_fleet_equal_jax():
 def jwire_rules(spec):
     from repro.distributed import wire as jwire
     return jwire.parse_leaf_rules(spec)
+
+
+# -- the batched round: Compressor.batch against JAX's vmap ------------------
+#
+# Every zoo family's ``batch(keys, X)`` on a worker-stacked (16, 6, 7) leaf
+# against ``jax.vmap(C)(keys, X)`` jitted, and row i against the port's own
+# ``C(keys[i], X[i])``.  On multiples of 1/64 with |x| <= 1 every L1 and L2
+# sum is exact in any order and natural's exponents are exact in XLA too,
+# so all thirteen are bitwise; on normal draws the families without a
+# reduction stay bitwise, SignNorm and QSGD sum in torch's order (fault c:
+# 222-252 of 672 values differ from JAX in their last bits here, within
+# 1e-6 relative), and natural differs from JAX only where XLA's log2/exp2
+# are inexact (fault j).  Against the port's per-worker call every family
+# is bitwise on the CPU: torch reduces each row of an (n, d) tensor as it
+# reduces the row alone (measured also at (16, 4096) and (1000, 112)).
+
+BATCH_N, BATCH_SHAPE = 16, (6, 7)
+BATCH_SPECS = ["identity", "topk:8", "randk:4", "scaled_randk:4", "comp:2,8",
+               "mix:2,4", "block_topk:16,4", "sign", "natural", "qsgd:16",
+               "frac_topk:100", "frac_comp:100,300", "mnice:16,5"]
+NORM_FAMILIES = ("sign", "qsgd:16")
+
+
+def _both_comps(spec):
+    if spec.startswith("mnice"):
+        n, m = (int(v) for v in spec.partition(":")[2].split(","))
+        return jcomp.MNice(n, m), tcomp.MNice(n, m)
+    return jcomp.make_compressor(spec), tcomp.make_compressor(spec)
+
+
+def _batch_input(grid):
+    rng = np.random.default_rng(21)
+    shape = (BATCH_N,) + BATCH_SHAPE
+    if grid:
+        return (rng.integers(-64, 65, shape) / 64).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("grid", [True, False], ids=["exact_sums", "normal"])
+@pytest.mark.parametrize("spec", BATCH_SPECS)
+def test_batch_equals_jax_vmap(spec, grid):
+    jc, tc = _both_comps(spec)
+    x = _batch_input(grid)
+    jk = jax.random.split(jax.random.key(8), BATCH_N)
+    tk = R.split(R.key(8), BATCH_N)
+    want = np.asarray(jax.jit(jax.vmap(jc.__call__))(jk, jnp.asarray(x)))
+    got = tc.batch(tk, torch.from_numpy(x))
+    assert tuple(got.shape) == x.shape
+    loop = torch.stack([tc(tk[i], torch.from_numpy(x[i]))
+                        for i in range(BATCH_N)])
+    if grid or spec not in NORM_FAMILIES + ("natural",):
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    elif spec == "natural":
+        differs = _bits(got) != _bits(want)
+        a = np.abs(x)
+        near = np.abs(a / np.exp2(np.round(np.log2(a))) - 1) < 1e-6
+        assert not np.any(differs & ~near)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(_bits(got), _bits(loop))
+
+
+def test_mnice_joint_batch_equals_jax_vmap():
+    """The jointly-defined m-nice: one permutation of the round key and a
+    select along the worker axis, equal to JAX's vmap of ``joint_call``
+    over the worker index."""
+    jc, tc = jcomp.MNice(16, 5), tcomp.MNice(16, 5)
+    x = _batch_input(False)
+    jk, tk = jax.random.key(9), R.key(9)
+    want = jax.jit(jax.vmap(lambda i, v: jc.joint_call(jk, i, v)))(
+        jnp.arange(16), jnp.asarray(x))
+    got = tc.joint_batch(tk, torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert int((got.reshape(16, -1) != 0).any(dim=1).sum()) == 5
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("comp", ["randk:3", "topk:8;randk:3;comp:3,10",
+                                  "frac_comp:100,300;randk:5"])
+def test_reference_constant_scale_rounds_as_jitted_jax(comp, depth):
+    """Fault u: a message that ends in a product by a constant that is not
+    a power of two (rand-k's d/k = 32/3, comp's k'/k = 10/3).  Under vmap
+    jitted JAX folds lam into it, h' = fma(y, f32(lam * c), h), and its
+    fused reduce contracts the sum's products, fma(y, c, acc); over a
+    fleet's stacked workers h' = fma(y * c, lam, h) and the unrolled sum
+    contracts its first pair the other way when worker 0 is scaled.
+    Sequential and pipelined, bitwise."""
+    kw = dict(compressor=comp, n=N_REF, d=D_REF)
+    if ";" in comp:
+        kw["agg"] = "dense_psum"
+    jrun, trun = jbuild(JSpec(**kw)), build(ExperimentSpec(**kw))
+    jB, tB = jnp.asarray(B_REF), torch.from_numpy(B_REF)
+    j = jefbv.run_reference(
+        algo=jrun.algo, grad_fn=lambda k, x: x[None] - jB,
+        x0=jnp.zeros(D_REF), gamma=0.05, steps=STEPS_REF,
+        key=jax.random.key(4), n=N_REF, pipeline=jefbv.Pipeline(depth))
+    t = tefbv.run_reference(
+        algo=trun.algo, grad_fn=lambda k, x: x[None] - tB,
+        x0=torch.zeros(D_REF), gamma=0.05, steps=STEPS_REF, key=R.key(4),
+        n=N_REF, pipeline=tefbv.Pipeline(depth))
+    _assert_bitwise(j, t, f"{comp} depth {depth}")
+    if depth:
+        np.testing.assert_array_equal(_bits(t.pending), _bits(j.pending))
+
+
+@pytest.mark.parametrize("n,comp,participation,d", [
+    (64, "comp:3,10", "full", D_REF),
+    (40, "randk:3;comp:3,10;topk:5", "full", D_REF),
+    (40, "topk:8;randk:4", "bernoulli:0.5", D_REF),
+    (100, "randk:3", "bernoulli:0.5", D_REF),
+    (1000, "comp:1,56", "full", 112)])
+def test_reference_bitwise_with_jax_beyond_32_workers(n, comp, participation,
+                                                      d):
+    """Fault v: beyond 32 workers XLA's CPU reduce sums windows of 32 (the
+    rows padded in front by half of -n % 32), and a constant scale is
+    rounded into the message before the sum (fault u's contraction is
+    gone); a fleet's unrolled sum keeps worker order at every n, its
+    masked sum is a reduce (n = 40: padded windows; a fleet's JAX program
+    grows with n).  Bitwise over 50 rounds, at n = 1000 on paper Figure
+    2's mushrooms width."""
+    kw = dict(compressor=comp, n=n, d=d, participation=participation)
+    if ";" in comp:
+        kw["agg"] = "dense_psum"
+    jrun, trun = jbuild(JSpec(**kw)), build(ExperimentSpec(**kw))
+    B = np.random.default_rng(12).standard_normal((n, d)).astype(np.float32)
+    jB, tB = jnp.asarray(B), torch.from_numpy(B)
+    full = participation == "full"
+    j = jefbv.run_reference(
+        algo=jrun.algo, grad_fn=lambda k, x: x[None] - jB, x0=jnp.zeros(d),
+        gamma=0.05, steps=STEPS_REF, key=jax.random.key(4), n=n,
+        participation=None if full else jrun.participation)
+    t = tefbv.run_reference(
+        algo=trun.algo, grad_fn=lambda k, x: x[None] - tB,
+        x0=torch.zeros(d), gamma=0.05, steps=STEPS_REF, key=R.key(4), n=n,
+        participation=None if full else trun.participation)
+    _assert_bitwise(j, t, f"{comp} {participation} n={n}")
+
+
+def test_reference_mnice_bitwise_with_jax():
+    """An m-nice compressor at full participation (the spec grammar has no
+    m-nice): direct run_reference calls, sequential and pipelined, below
+    and beyond XLA's 32-row reduce window."""
+    for n, depth in itertools.product((N_REF, 64), (0, 1)):
+        B = B_REF if n == N_REF else np.random.default_rng(
+            3).standard_normal((n, D_REF)).astype(np.float32)
+        jB, tB = jnp.asarray(B), torch.from_numpy(B)
+        j = jefbv.run_reference(
+            algo=jefbv.EFBV(jcomp.MNice(n, 2), lam=0.25, nu=1.0),
+            grad_fn=lambda k, x: x[None] - jB, x0=jnp.zeros(D_REF),
+            gamma=0.05, steps=STEPS_REF, key=jax.random.key(5), n=n,
+            pipeline=jefbv.Pipeline(depth))
+        t = tefbv.run_reference(
+            algo=EFBV(tcomp.MNice(n, 2), lam=0.25, nu=1.0),
+            grad_fn=lambda k, x: x[None] - tB, x0=torch.zeros(D_REF),
+            gamma=0.05, steps=STEPS_REF, key=R.key(5), n=n,
+            pipeline=tefbv.Pipeline(depth))
+        _assert_bitwise(j, t, f"m-nice n={n} depth {depth}")
+
+
+#: configurations whose per-round draw calls, key copies and worker sums
+#: must not depend on n: every family, a fleet, both sampled regimes, a
+#: downlink, the prox, the pipeline and minibatch resampling
+COUNT_CASES = {spec: dict(compressor=spec) for spec in BATCH_SPECS[:-1]}
+COUNT_CASES.update({
+    "fleet": dict(compressor="topk:8;randk:4;qsgd:16", agg="dense_psum"),
+    "bernoulli": dict(compressor="comp:2,8", participation="bernoulli:0.5"),
+    "fixed": dict(compressor="randk:4", participation="fixed:3"),
+    "downlink": dict(compressor="comp:2,8", downlink="qsgd:16"),
+    "resample": dict(compressor="comp:2,8", problem="logreg",
+                     resample=True),
+    # direct run_reference calls: the spec's reference refuses the pipeline
+    # and has no m-nice or prox field
+    "mnice": None, "prox": None, "pipelined": None,
+})
+
+
+def _count_round(monkeypatch, name, n, steps):
+    """Draw calls (1-D and row draws), key copies and worker sums of a
+    ``steps``-round reference run of COUNT_CASES[name] at n workers."""
+    from repro_torch.kernels import ops, threefry
+
+    counts = dict(draws=0, copies=0, sums=0)
+
+    def counted(key, fn):
+        def wrapped(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(threefry, "threefry_rows",
+                        counted("draws", threefry.threefry_rows))
+    monkeypatch.setattr(threefry, "threefry_fill",
+                        counted("draws", threefry.threefry_fill))
+    monkeypatch.setattr(R, "key_tensor", counted("copies", R.key_tensor))
+    monkeypatch.setattr(ops, "worker_sum", counted("sums", ops.worker_sum))
+    B = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, 16)).astype(np.float32))
+    if COUNT_CASES[name] is None:
+        comp = {"mnice": tcomp.MNice(n, 2), "prox": tcomp.RandK(4),
+                "pipelined": tcomp.CompKK(2, 8)}[name]
+        tefbv.run_reference(
+            algo=EFBV(comp, lam=0.25, nu=1.0),
+            grad_fn=lambda k, x: x[None] - B, x0=torch.zeros(16), gamma=0.05,
+            steps=steps, key=R.key(5), n=n,
+            prox=tefbv.prox_l1(0.01) if name == "prox" else tefbv.prox_zero,
+            pipeline=tefbv.Pipeline(int(name == "pipelined")))
+    else:
+        run = build(ExperimentSpec(n=n, d=16, steps=steps, seed=1,
+                                   **COUNT_CASES[name]))
+        if COUNT_CASES[name].get("resample"):
+            run.reference(device="cpu")
+        else:
+            run.reference(grad_fn=lambda x: x[None] - B, gamma=0.05,
+                          device="cpu")
+    monkeypatch.undo()
+    return counts
+
+
+@pytest.mark.parametrize("name", list(COUNT_CASES))
+def test_reference_round_calls_do_not_grow_with_n(monkeypatch, name):
+    """A round's draw calls, host-to-device key copies and worker sums are
+    the same at n = 4 and n = 64 (per round: a 4-round run less a 1-round
+    run, so the problem's own draws cancel); every round sums once per
+    leaf."""
+    per_round = {}
+    for n in (4, 64):
+        more = _count_round(monkeypatch, name, n, 4)
+        less = _count_round(monkeypatch, name, n, 1)
+        per_round[n] = {k: (more[k] - less[k]) / 3 for k in more}
+    assert per_round[4] == per_round[64], per_round
+    assert per_round[4]["sums"] == 1
+
+
+# -- the paper's experiments on the port (paper_torch/) ----------------------
+
+def test_paper_tab3_rows_equal_jax_string_for_string():
+    from benchmarks import paper_tab3 as jtab3
+    from paper_torch import paper_tab3 as ttab3
+
+    want, got = jtab3.run(), ttab3.run()
+    assert [r["name"] for r in got] == [r["name"] for r in want]
+    assert got == want
+    assert all(r["derived"].endswith("matches_paper=True") for r in got)
+
+
+def test_paper_run_algorithm_matches_jax_on_carried_data():
+    """``paper_torch.common.run_algorithm`` against
+    ``benchmarks.common.run_algorithm`` on JAX's data carried across as
+    numpy (n = 16, d = 112, 50 rounds of EF-BV and of EF21, JAX's f*):
+    f(x) - f* within 1e-6 relative at every round."""
+    from benchmarks import common as jcommon
+    from paper_torch import common as tcommon
+    from repro.problems import LogReg as JLogReg
+    from repro.problems import make_synthetic as jmake
+
+    jA, jb = jmake(jax.random.key(12), N=16 * 8, d=112)
+    jp = JLogReg.split(jA, jb, n=16, mu_reg=0.1, key=jax.random.key(1))
+    tp = _carried(jp)
+    fstar = float(jp.solve(steps=400)[1])
+    for mode in ("efbv", "ef21"):
+        want = np.asarray(jcommon.run_algorithm(jp, mode, 1, 50, fstar))
+        got = tcommon.run_algorithm(tp, mode, 1, 50, fstar, device="cpu")
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["mushrooms", "phishing"])
+def test_make_synthetic_at_fig2_sizes_against_jax(name):
+    """The paper's data at Figure 2's sizes under the port's fixed key:
+    every uniform and normal bitwise; only ``exp`` of the column scales
+    (torch's against XLA's) may differ, by 1 ulp in a few columns, so A
+    is within 2 ulps and the labels equal JAX's."""
+    from paper_torch import common as tcommon
+    from repro.problems import make_synthetic as jmake
+    from repro_torch.data.synthetic import make_synthetic
+
+    spec = tcommon.DATASETS[name]
+    jk = jax.random.fold_in(jax.random.key(0), _crc_data(name))
+    np.testing.assert_array_equal(tcommon.dataset_key(name),
+                                  np.asarray(jax.random.key_data(jk)))
+    jA, jb = (np.asarray(a) for a in jmake(jk, N=spec["N"], d=spec["d"]))
+    tA, tb = (a.numpy() for a in make_synthetic(
+        tcommon.dataset_key(name), N=spec["N"], d=spec["d"], device="cpu"))
+    ulps = np.abs(jA.view(np.int32).astype(np.int64)
+                  - tA.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2
+    np.testing.assert_array_equal(tb, jb)
+    jks = jax.random.split(jk, 4)
+    tks = R.split(tcommon.dataset_key(name), 4)
+    ju = jax.random.uniform(jks[0], (spec["d"],), minval=-1.5, maxval=1.5)
+    np.testing.assert_array_equal(
+        _bits(R.uniform(tks[0], spec["d"], "cpu", minval=-1.5, maxval=1.5)),
+        _bits(ju))
+    np.testing.assert_array_equal(
+        _bits(R.normal(tks[1], spec["N"] * spec["d"], "cpu")),
+        _bits(jax.random.normal(jks[1], (spec["N"] * spec["d"],))))
+    col = np.abs(_bits(torch.exp(R.uniform(tks[0], spec["d"], "cpu",
+                                           minval=-1.5, maxval=1.5)))
+                 .astype(np.int64) - _bits(jnp.exp(ju)).astype(np.int64))
+    assert col.max() <= 1
+
+
+def _crc_data(name):
+    import zlib
+    return zlib.crc32(name.encode()) % 2**31
+
+
+# -- the theory functions no other port test names ---------------------------
+
+@pytest.mark.parametrize("p", [1.0, 0.5, 0.125])
+@pytest.mark.parametrize("eta,omega", ETA_OMEGA)
+def test_participation_constants_equal(p, eta, omega):
+    assert ttheory.participation_eta(p, eta) == jtheory.participation_eta(
+        p, eta)
+    assert ttheory.participation_omega(p, eta, omega) == \
+        jtheory.participation_omega(p, eta, omega)
+    for fn in (lambda m: m.participation_eta(0.0, eta),
+               lambda m: m.participation_omega(1.5, eta, omega)):
+        with pytest.raises(ValueError) as jerr:
+            fn(jtheory)
+        with pytest.raises(ValueError) as terr:
+            fn(ttheory)
+        assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("eta,omega", ETA_OMEGA)
+def test_tune_pipelined_and_iteration_complexity_equal(eta, omega, depth):
+    kw = dict(n=8, L=2.0, Ltilde=3.0, mu=0.1, omega_av=omega / 8)
+    j = jtheory.tune_pipelined(eta, omega, depth, **kw)
+    t = ttheory.tune_pipelined(eta, omega, depth, **kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    outcome = []
+    for mod, tun in ((jtheory, j), (ttheory, t)):
+        try:  # r = 0 (no compression) divides by zero in both
+            outcome.append(mod.iteration_complexity(2.0, 3.0, 0.1, tun))
+        except ZeroDivisionError as e:
+            outcome.append(repr(e))
+    assert outcome[0] == outcome[1]
+
+
+@pytest.mark.parametrize("aggregate", ["worst", "mean"])
+def test_fleet_and_tree_constants_equal(aggregate):
+    etas, omegas = [0.0, 0.5, 0.9], [3.0, 0.25, 0.0]
+    for n in (None, 4):
+        assert ttheory.fleet_constants(etas, omegas, n=n,
+                                       aggregate=aggregate) == \
+            jtheory.fleet_constants(etas, omegas, n=n, aggregate=aggregate)
+        for sizes in (None, [10, 100, 1000]):
+            assert ttheory.tree_constants(etas, omegas, sizes, n=n,
+                                          aggregate=aggregate) == \
+                jtheory.tree_constants(etas, omegas, sizes, n=n,
+                                       aggregate=aggregate)
