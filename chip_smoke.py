@@ -72,6 +72,20 @@ line is printed only when every phase passed):
               and an f16 wire: each case's exact bits, the losses within
               the CPU tests' 1e-5 relative and the params within AdamW's
               bound of the CPU's.
+3a'. families -- the ssm and moe families at smoke size
+              (``phase_families``): mamba2's and granite-moe's initial
+              trees drawn on the card bitwise equal to the CPU's (mamba2's
+              dt_bias and A_log run XLA's f32 exp, expm1 and log,
+              emulated); two steps of ``build(spec)``'s trainer
+              (block-top-k up) on the card and the CPU for mamba2,
+              granite-moe and dbrx, held as the zoo phase holds its cases;
+              the fixed-routing MoE regime (zero routers): only experts
+              0..k-1 carry gradients on the card, one step with
+              ``grad_transform=zero_inactive_expert_grads`` gives the
+              CPU's loss and params, and a mask dropping active expert 0
+              leaves its slabs unchanged by the step; and fault w at full
+              width: one chunk-128 mamba2 layer's gradients finite on the
+              card where JAX's literal form is not.
 3b. reference backend -- through the spec (``repro_torch.core.build``),
               the workers batched: (a) the committed
               ``examples/specs/reference_logreg_efbv.json`` (500 rounds,
@@ -126,7 +140,32 @@ line is printed only when every phase passed):
               number of times (launch counts are reset just before each path
               and read just after); on the pipelined path, that step 0
               applies the zero priming payload (|g| = 0).  Each step's loss
-              (hex) and a checksum of the params are recorded.
+              (hex), the workers' raw gradient norm (finite) and a
+              checksum of the params are recorded, and every leaf shape
+              the path gives ``pack_update`` is held bitwise against its
+              plain version on the card after the counts are read.
+              * mamba2: mamba2-130m at full width and depth (24 SSD
+                blocks, d_model 768, 24 heads of 64, state 128, 128,983,488
+                params in 15 leaves), sequence 512 (4 chunks of 128: the
+                inter-chunk recurrence carries state), block-top-k (256,
+                16), a checkpoint every step (``--ckpt-dir``): 515,936,256
+                bits a worker, 90 ``pack_update`` and 193
+                ``threefry_uniform`` launches, finite losses, |g| and
+                h_res, and the last checkpoint
+                restored bitwise into the template, its embedded spec the
+                run's, a restore under another spec refused;
+              * moe: granite-moe-3b-a800m at full width with 8 of its 32
+                layers (956,828,160 params, 13 leaves), built by the
+                functions the driver's ``setup`` calls on the cut config
+                (``cut_setup``: the driver has no depth flag) and run by
+                its loop (``train.train_loop``),
+                block-top-k (256, 16): 3,827,312,640 bits a worker, 78
+                ``pack_update`` and 66 ``threefry_uniform`` launches,
+                finite losses, gradient norms and aux losses.
+   Then the CLI at ``--smoke`` on the card for granite-moe, dbrx (their
+              step lines carry the aux loss) and minicpm (``--schedule
+              auto`` picks WSD and says so), 2 steps each
+              (``cli_smoke``).
    Then, one process per worker: two gloo ranks sharing cuda:0 under
               ``torchrun`` (this script's ``--dist-child``), each rank's
               output in ``build/dist/<path>/rank<r>.log``:
@@ -170,6 +209,9 @@ line is printed only when every phase passed):
 5. profile -- each path, one step on the host clock and one under
               torch.profiler: device time by kernel, busy share; the peak
               device memory of a step and of each of its phases; for the
+              mamba2 and moe paths the device kernel time of the SSD scan
+              and of the MoE dispatch, forward and backward, alone at the
+              step's shapes, as a share of the step's; for the
               QSGD path also its uplink encode, downlink broadcast and norm
               pass, each alone; for rand-k one worker's uplink encode, the
               embed leaf's encode and its shuffle, and the shuffles' share
@@ -189,6 +231,7 @@ the CUDA toolkit; imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1876,6 +1919,205 @@ def phase_zoo():
           f"{time.perf_counter() - t0:.1f} s")
 
 
+#: the families phase: the ssm and moe smoke configs, card against CPU
+FAMILY_ARCHS = ("mamba2-130m", "granite-moe-3b-a800m", "dbrx-132b")
+#: init on the card bitwise with the CPU's (mamba2's dt_bias and A_log are
+#: XLA's f32 exp, expm1 and log, emulated)
+FAMILY_INIT = ("mamba2-130m", "granite-moe-3b-a800m")
+
+
+def family_spec(arch, cfg, **fields):
+    from repro_torch.core import ExperimentSpec
+
+    kw = dict(compressor="block_topk:256,16", agg="sparse_allgather",
+              backend="shard_map", problem=arch, smoke=True, mesh="2x1", n=2,
+              d=max(cfg.d_model * max(cfg.d_ff, 1), 1), steps=ZOO_STEPS)
+    return ExperimentSpec(**{**kw, **fields})
+
+
+def fixed_routing_check(cfg, params):
+    """The fixed-routing MoE regime on the card: with every router zero,
+    each layer's expert gradients are nonzero for experts 0..k-1 only
+    (``expert_activity_mask``), as on the CPU.  Then one step of the
+    trainer with ``grad_transform=zero_inactive_expert_grads``, card
+    against CPU: the loss within 1e-5 relative and the params after the
+    step within AdamW's bound.  Then the hook with an explicit mask that
+    drops active expert 0 (AdamW without weight decay): on the card that
+    expert's slabs come out of the step bitwise unchanged, while those of
+    experts 1..k-1 move."""
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.core import build
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.trainer import value_and_grad
+
+    fixed = L.fixed_routing_params(params)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
+                       n_workers=2, seed=0)
+    model = build_model(cfg)
+    k = cfg.experts_per_tok
+    want = torch.arange(cfg.n_experts) < k
+    batch = {key: torch.as_tensor(v[:4]).cuda()
+             for key, v in data.batch(0).items()}
+    _, grads = value_and_grad(model.loss, T.tree_map(lambda p: p.cuda(),
+                                                     fixed), batch)
+    mask = L.expert_activity_mask(grads["layers"]["moe"]).cpu()
+    if not bool((mask == want).all()):
+        raise AssertionError(f"[families] fixed routing: active experts "
+                             f"{mask.tolist()}, want the first {k}")
+    spec = family_spec("granite-moe-3b-a800m", cfg, steps=1)
+    lr = 3e-4
+
+    def one_step(dev, weight_decay, hook):
+        run_ = build(spec)
+        opt = adamw(constant(lr), weight_decay=weight_decay)
+        state = run_.init_state(
+            T.tree_map(lambda p: p.to(dev).clone(), fixed), opt)
+        step = run_.train_step(model.loss, opt, grad_transform=hook)
+        state, m = step(state, data.batch(0),
+                        random.fold_in(random.key(0), 0))
+        return float(m["loss"]), state.params
+
+    (cpu, pc), (gpu, pg) = (one_step(dev, 0.01, L.zero_inactive_expert_grads)
+                            for dev in ("cpu", "cuda"))
+    bound = 2.02 * lr
+    worst = max(float((b.cpu() - a).abs().max())
+                for a, b in zip(T.leaves(pc), T.leaves(pg)))
+    drop = want.clone()
+    drop[0] = False
+    drop = drop.expand(cfg.n_layers, -1).cuda()
+    _, pm = one_step("cuda", 0.0,
+                     lambda g: L.zero_inactive_expert_grads(g, drop))
+    kept = all(same_bits(pm["layers"]["moe"][n][:, 0].cpu(),
+                         fixed["layers"]["moe"][n][:, 0])
+               for n in L.EXPERT_LEAVES)
+    moved = all(not same_bits(pm["layers"]["moe"][n][:, 1:k].cpu(),
+                              fixed["layers"]["moe"][n][:, 1:k])
+                for n in L.EXPERT_LEAVES)
+    print(f"[families] fixed routing: every layer's active experts "
+          f"{mask[0].tolist()} on the card; one step with "
+          f"grad_transform=zero_inactive_expert_grads: loss cpu={cpu} "
+          f"gpu={gpu}, params max |diff| {worst:.3e} (bound {bound:.3e}); "
+          f"the hook dropping active expert 0: its slabs "
+          f"{'unchanged' if kept else 'CHANGED'} by the step, experts "
+          f"1..{k - 1}'s {'moved' if moved else 'NOT moved'}")
+    if abs(cpu - gpu) > 1e-5 * abs(cpu) or not worst <= bound:
+        raise AssertionError("[families] fixed routing: card vs CPU")
+    if not (kept and moved):
+        raise AssertionError("[families] fixed routing: grad_transform's "
+                             "mask not seen in the step's update")
+
+
+def ssd_gradient_check():
+    """Fault w on the card: one full-width mamba2-130m layer (layer 0 of
+    ``Model.init(random.key(0))``, chunk 128) at the mamba2 path's
+    sequence, 512, on x ~ N(0, 1): every gradient of <y, r> (r ~ N(0, 1))
+    finite.  The data reach the fault: above the diagonal the same layer's
+    decay sums pass f32 exp's overflow, where JAX's literal
+    ``where(causal, exp(diff), 0)`` (``mamba2.py:98``) has a non-finite
+    gradient."""
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("mamba2-130m")
+    params = build_model(cfg).init(random.key(0), device="cuda")
+    p = {n: v[0].clone().requires_grad_(True)
+         for n, v in params["layers"]["mamba"].items()}
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S, Q, H = 2, 512, cfg.ssm_chunk, cfg.ssm_heads()
+    x = torch.randn((B, S, cfg.d_model), device="cuda", generator=gen,
+                    requires_grad=True)
+    r = torch.randn((B, S, cfg.d_model), device="cuda", generator=gen)
+    y = L.mamba2_apply(p, x, d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
+                       n_heads=H, chunk=Q, norm_eps=cfg.norm_eps)
+    (y * r).sum().backward()
+    bad = [n for n, v in p.items() if not bool(torch.isfinite(v.grad).all())]
+    bad += [] if bool(torch.isfinite(x.grad).all()) else ["x"]
+    with torch.no_grad():
+        dt = L.softplus((x @ p["wdt"]).float() + p["dt_bias"])
+        cum = (dt * -torch.exp(p["A_log"])).reshape(B, S // Q, Q, H)
+        cum = cum.cumsum(2)
+    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).requires_grad_()
+    idx = torch.arange(Q, device="cuda")
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    upper = float(diff.detach().masked_fill(causal, -math.inf).max())
+    torch.where(causal, torch.exp(diff), 0.0).sum().backward()
+    literal = int((~torch.isfinite(diff.grad)).sum())
+    print(f"[families] fault w on the card: one full-width mamba2 layer "
+          f"(chunk {Q}, seq {S}): decay sums above the diagonal up to "
+          f"{upper:.1f} (f32 exp overflows above 88.72), JAX's literal "
+          f"form has {literal} non-finite gradient values there; the "
+          f"port's gradients of x and of the {len(p)} leaves "
+          f"{'finite' if not bad else 'NOT finite: ' + str(bad)}")
+    if bad or not upper > 88.72 or not literal:
+        raise AssertionError("[families] fault w: the SSD's gradient on "
+                             "the card")
+
+
+def phase_families():
+    """The ssm and moe families at smoke size: mamba2's and granite-moe's
+    initial trees drawn on the card bitwise equal to the CPU's; two steps
+    of ``build(spec)``'s trainer (block-top-k up) on the card and on the
+    CPU for mamba2, granite-moe and dbrx, held to each other as the zoo
+    phase holds its cases (losses within 1e-5 relative, params within
+    AdamW's bound); the fixed-routing MoE regime; and, first, fault w's
+    repair at full width (``ssd_gradient_check``)."""
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.core import build
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.schedules import cosine
+
+    t0 = time.perf_counter()
+    ssd_gradient_check()
+    torch.cuda.empty_cache()
+    sched = cosine(3e-4, total_steps=ZOO_STEPS, warmup_steps=0)
+    bound = 2.02 * sum(sched(t) for t in range(ZOO_STEPS))
+    for arch in FAMILY_ARCHS:
+        cfg, params = smoke_params(arch)
+        if arch in FAMILY_INIT:
+            card = build_model(cfg).init(random.key(0), device="cuda")
+            bad = ["/".join(p) for (p, a), b in zip(
+                T.flatten_with_path(card), T.leaves(params))
+                if not same_bits(a.cpu(), b)]
+            print(f"[families] init: {cfg.name} from random.key(0) on the "
+                  f"card {'bitwise equal to' if not bad else 'NOT equal to'}"
+                  f" the CPU's ({len(T.leaves(card))} leaves)")
+            if bad:
+                raise AssertionError(f"[families] {cfg.name} init differs "
+                                     f"on {bad}")
+            del card
+        spec = family_spec(arch, cfg)
+        bits = build(spec).round_bits(params)
+        cpu, pc = zoo_steps(spec, cfg, params)
+        gpu, pg = zoo_steps(spec, cfg, T.tree_map(lambda p: p.cuda(),
+                                                  params))
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(cpu, gpu))
+        diff = torch.cat([(b.cpu() - a).abs().reshape(-1)
+                          for a, b in zip(T.leaves(pc), T.leaves(pg))])
+        worst = float(diff.max())
+        share = float((diff > 1e-5).float().mean())
+        print(f"[families] {cfg.name}: bits up={bits['up']}; losses cpu="
+              f"{cpu} gpu={gpu} max rel diff {loss_err:.3e} (limit 1e-5); "
+              f"params max |diff| {worst:.3e} (bound {bound:.3e}), share > "
+              f"1e-5 {share:.5f}")
+        if not (all(map(math.isfinite, gpu)) and loss_err <= 1e-5
+                and worst <= bound):
+            raise AssertionError(f"[families] {cfg.name}: card vs CPU "
+                                 "beyond the CPU tests' tolerance")
+        if arch == "granite-moe-3b-a800m":
+            fixed_routing_check(cfg, params)
+    print(f"[families] {len(FAMILY_ARCHS)} archs in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 #: the reference backend's committed spec (phase 3b, case a)
 REFERENCE_SPEC = ROOT / "examples" / "specs" / "reference_logreg_efbv.json"
 #: paper Figure 2's scale through the spec (case c): logreg at the
@@ -2287,13 +2529,15 @@ DIST_REF = {
 DIST_TIMEOUT_S = 400
 
 
-def smoke_params():
+def smoke_params(arch="qwen2-0.5b"):
+    """(the arch's smoke config with f32 activations, its JAX initial
+    weights on the host)."""
     import dataclasses
     from repro_torch import random
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+    cfg = dataclasses.replace(get_smoke_config(arch),
                               activation_dtype="float32")
     return cfg, build_model(cfg).init(random.key(0), device="cpu")
 
@@ -2441,7 +2685,9 @@ def params_checksum(params):
 def recording(records, holder=None):
     """While open, every train step that ``launch.train`` builds (through
     ``Run.train_step``, which looks ``trainer.make_train_step`` up at each
-    call) appends {loss (hex), params checksum, step ms} and, over a group,
+    call) appends {loss (hex), the workers' mean raw gradient norm
+    (``grad_norm``, before compression), params checksum, step ms} and,
+    over a group,
     the host ms and bytes of its exchange, to ``records``; the step is
     timed between synchronisations, before the checksum.  On a mesh rank
     (a group with a ``model`` axis) also the host ms, calls and bytes sent
@@ -2465,7 +2711,8 @@ def recording(records, holder=None):
             state, m = step_fn(state, batch, key)
             loss = float(m["loss"])
             torch.cuda.synchronize()
-            rec = {"loss": loss.hex(), "step_ms": round(
+            rec = {"loss": loss.hex(), "grad_norm": float(m["grad_norm"]),
+                   "step_ms": round(
                 (time.perf_counter() - t0) * 1e3, 2)}
             if group is not None:
                 rec["exchange_ms"] = round(1e3 * (group.stats["exchange_s"]
@@ -2665,6 +2912,63 @@ PATHS = {
         "profile": None,
     },
 }
+#: the ssm and moe main paths: mamba2-130m at full width and depth, and
+#: granite-moe-3b-a800m at full width with 8 of its 32 layers
+MAMBA2_BITS = 515_936_256       # mamba2-130m, block_topk:256,16, per worker
+MAMBA2_LEAVES, MOE_LEAVES = 15, 13
+MOE_BITS = 3_827_312_640        # granite-moe 8 layers, block_topk:256,16
+MOE_LAYERS = 8
+#: the inits' threefry draws: mamba2's embedding and 8 a layer (5 normal
+#: projections, dt_bias's uniform, conv_w, wo); granite-moe's embedding,
+#: untied head and 8 a layer (4 attention and 4 expert weights)
+MAMBA2_INIT_DRAWS = 1 + 24 * 8
+MOE_INIT_DRAWS = 2 + MOE_LAYERS * 8
+#: the mamba2 path's checkpoints (one a step, JAX's npz format)
+CKPT_DIR = ROOT / "build" / "ckpt" / "mamba2"
+
+
+def arch_argv(arch, seq=128):
+    """BASE_ARGV with another arch and sequence length."""
+    out = list(BASE_ARGV)
+    out[out.index("--arch") + 1] = arch
+    out[out.index("--seq") + 1] = str(seq)
+    return out
+
+
+PATHS.update({
+    # 4 chunks of 128 a sequence: the inter-chunk recurrence carries state
+    "mamba2": {
+        "argv": arch_argv("mamba2-130m", seq=512)
+        + ["--compressor", "block_topk:256,16", "--ckpt-dir", str(CKPT_DIR),
+           "--ckpt-every", "1"],
+        "vocab": 50280,
+        "bits": {r"(\d+) bits/round/worker": [MAMBA2_BITS],
+                 r"checkpoint @ (\d+)": [1, 2, 3]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
+        "launches": {"pack_update": MAMBA2_LEAVES * WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": MAMBA2_INIT_DRAWS},
+        "profile": ("pack_update_rows",),
+        "checkpoint": CKPT_DIR,
+        "op": "ssd_chunked",
+    },
+    # the driver has no depth flag (nor has JAX's): the driver's own
+    # functions on the config cut to 8 layers (``cut_setup``), then its
+    # loop (``train.train_loop``)
+    "moe": {
+        "argv": arch_argv("granite-moe-3b-a800m")
+        + ["--compressor", "block_topk:256,16"],
+        "layers": MOE_LAYERS,
+        "vocab": 49155,
+        "bits": {r"(\d+) bits/round/worker": [MOE_BITS]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)", r"aux_loss=(\S+) "),
+        "launches": {"pack_update": MOE_LEAVES * WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": MOE_INIT_DRAWS},
+        "profile": ("pack_update_rows",),
+        "op": "dispatch_groups",
+    },
+})
 #: the main paths on two gloo ranks sharing cuda:0 (one worker each,
 #: torchrun), each held bitwise against its one-process path ("same_as"):
 #: losses and params checksums at every step, on every rank
@@ -2770,11 +3074,13 @@ def phase_main(name):
     torch.cuda.reset_peak_memory_stats()
     records = MAIN_RECORDS[name] = []
     holder = {}
+    pack_calls = collections.Counter()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), recording(records, holder):
+        with contextlib.redirect_stdout(out), recording(records, holder), \
+                recording_pack_shapes(pack_calls):
             reset_launches()
-            train.main(path["argv"])
+            drive(path)
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
     finally:
@@ -2783,6 +3089,8 @@ def phase_main(name):
         from repro_torch import tree as T
         MAIN_PARAMS[name] = T.tree_map(lambda a: a.cpu(),
                                        holder["state"].params)
+    if path.get("checkpoint"):
+        checkpoint_check(name, path, holder["state"].params)
     holder.clear()
     secs = time.perf_counter() - t0
     text = out.getvalue()
@@ -2795,8 +3103,18 @@ def phase_main(name):
           f"records={json.dumps(records)}")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[main] {name}: expected {STEPS} finite losses")
+    for pat in path.get("finite", ()):
+        vals = [float(x) for x in re.findall(pat, text)]
+        if len(vals) != STEPS or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"[main] {name}: printed {pat!r} {vals}, "
+                                 f"want {STEPS} finite values")
+    # the workers' raw gradients, before compression (a NaN row would
+    # pack to (0.0, 0) and leave |g| and the losses finite)
+    if not all(math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"[main] {name}: workers' grad_norm "
+                             f"{[r['grad_norm'] for r in records]}")
     # random init with small embeddings: the first loss is close to ln(V)
-    if abs(losses[0] - math.log(151936)) > 1.0:
+    if abs(losses[0] - math.log(path.get("vocab", 151936))) > 1.0:
         raise AssertionError(f"[main] {name}: first loss {losses[0]} far "
                              "from ln V")
     for pat, want in path["bits"].items():
@@ -2808,6 +3126,7 @@ def phase_main(name):
     if launches != want:
         raise AssertionError(f"[main] {name}: launches {launches}, want "
                              f"{want}")
+    check_pack_shapes(name, pack_calls, launches["pack_update"])
     if "pipeline=depth:1" in text:
         # round 0 applies the decode-zero priming payload: g = 0
         g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
@@ -2836,6 +3155,281 @@ def phase_main(name):
             raise AssertionError(f"[main] {name}: records {records} != "
                                  f"{MAIN_RECORDS[path['same_as']]}")
     return launches
+
+
+#: (numel, block, kb) of the pack kernel's calls on the main paths, each
+#: held bitwise against its plain version once (``check_pack_shapes``)
+PACK_CHECKED = set()
+
+
+@contextlib.contextmanager
+def recording_pack_shapes(calls):
+    """While open, every call on the card of ``ops.efbv_pack_update`` (the
+    wire's one way to the pack kernel) counts its leaf's (numel, block,
+    kb) in ``calls``."""
+    from repro_torch.kernels import ops
+
+    fn = ops.efbv_pack_update
+
+    def noted(g, h, lam, block=1024, kb=64):
+        if g.is_cuda:
+            calls[(g.numel(), block, kb)] += 1
+        return fn(g, h, lam, block=block, kb=kb)
+
+    ops.efbv_pack_update = noted
+    try:
+        yield
+    finally:
+        ops.efbv_pack_update = fn
+
+
+def check_pack_shapes(name, calls, launches):
+    """Every (numel, block, kb) that a main path gave the pack kernel and no
+    earlier path did, held bitwise against its plain version on the card
+    on fresh data of that size (after the launch counts are read).  The
+    calls noted must be the kernel's launches."""
+    if sum(calls.values()) != launches:
+        raise AssertionError(f"[main] {name}: {sum(calls.values())} pack "
+                             f"calls noted, {launches} launches")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    new = sorted(set(calls) - PACK_CHECKED)
+    for numel, block, kb in new:
+        g = torch.randn(numel, device="cuda", generator=gen)
+        h = 0.5 * torch.randn(numel, device="cuda", generator=gen)
+        pack_case(f"{name} leaf", g, h, block, kb, timing=False,
+                  quiet=True)
+        del g, h
+        PACK_CHECKED.add((numel, block, kb))
+    torch.cuda.empty_cache()
+    print(f"[main] {name}: pack_update's calls by (numel, block, kb) "
+          f"{dict(sorted(calls.items()))}; the {len(new)} shapes no earlier "
+          "path gave it each bitwise == plain on the card")
+
+
+def cut_setup(path, echo=print):
+    """``train.setup`` for a path cut in depth (``layers``).  The driver has
+    no depth flag (nor has JAX's), so the functions ``setup`` calls build
+    the run here on the arch's config at ``layers`` layers: the model and
+    JAX's weights at ``random.key(seed)``, ``build(spec)``'s state and step
+    (AdamW on the driver's schedule) and ``SyntheticLM``.  The spec is the
+    flags', which name the full-depth arch: the cut is this script's.
+    Prints the header lines the path's checks read (the fingerprint, the
+    wire's bits).  Returns (state, step_fn, data)."""
+    from repro_torch import random
+    from repro_torch.core import build
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.distributed import wire
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+
+    args = train.parse_args(path["argv"])
+    spec = train.experiment(args)
+    full = train.run_config(spec)
+    cfg = dataclasses.replace(full, n_layers=path["layers"])
+    run_ = build(spec)
+    model = build_model(cfg)
+    sched = train.make_schedule(train.schedule_kind(args.schedule,
+                                                    spec.problem),
+                                args.lr, spec.steps)
+    opt = adamw(sched, weight_decay=0.01)
+    params = model.init(random.key(spec.seed), device="cuda")
+    fmt = wire.tree_format_for(run_.algo.compressor, params,
+                               wire_dtype=spec.wire_dtype,
+                               rules=run_.algo.leaf_rules)
+    up, dense = fmt.bits_per_round(), fmt.dense_bits()
+    echo(f"[train] arch={cfg.name} family={cfg.family} at {cfg.n_layers} "
+         f"of {full.n_layers} layers params~{cfg.param_count():,} "
+         f"workers={spec.n} algo={spec.mode} agg={spec.agg} device=cuda")
+    echo(f"[train] spec fingerprint={spec.fingerprint()} (the flags' spec, "
+         f"{full.n_layers} layers)")
+    echo(f"[train] wire: {up} bits/round/worker uplink "
+         f"({up / max(dense, 1):.4f}x dense fp32)")
+    state = run_.init_state(params, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
+                       global_batch=args.global_batch, n_workers=spec.n,
+                       seed=spec.seed, heterogeneity=args.heterogeneity,
+                       resample_from_shard=spec.resample,
+                       shard_size=args.shard_size)
+    step_fn = run_.train_step(model.loss, opt)
+    return state, step_fn, data
+
+
+def path_setup(path):
+    """(state, step_fn, data) of a path's run, header unprinted."""
+    from repro_torch.launch import train
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if path.get("layers"):
+            return cut_setup(path)
+        return train.setup(train.parse_args(path["argv"]))
+
+
+def drive(path):
+    """Run one main path through the driver: ``train.main`` of its flags,
+    or, for a path cut in depth, ``cut_setup`` and the driver's loop."""
+    from repro_torch.launch import train
+
+    if not path.get("layers"):
+        return train.main(path["argv"])
+    args = train.parse_args(path["argv"])
+    return train.train_loop(args, None, train.experiment(args),
+                            lambda: cut_setup(path))
+
+
+def checkpoint_check(name, path, params):
+    """The path's last checkpoint (``--ckpt-dir``, JAX's npz format)
+    restores into the model's template bitwise equal to the run's final
+    params, its embedded spec equals the run's, and a restore under
+    another spec is refused."""
+    import dataclasses
+    import shutil
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    ckpt = str(path["checkpoint"])
+    args = train.parse_args(path["argv"])
+    spec = train.experiment(args)
+    step = T.latest_step(ckpt)
+    template = {"params": build_model(train.run_config(spec))
+                .init_abstract()}
+    t0 = time.perf_counter()
+    back = T.restore_checkpoint(ckpt, step, template, spec=spec)["params"]
+    secs = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(T.leaves(back),
+                                            T.leaves(params)))
+           if not same_bits(a, b.cpu())]
+    saved = T.saved_spec(ckpt, step)
+    try:
+        T.restore_checkpoint(ckpt, step, template,
+                             spec=dataclasses.replace(spec, seed=1))
+        refused = False
+    except ValueError as e:
+        refused = "refusing resume" in str(e)
+    print(f"[main] {name}: checkpoint step {step} of {ckpt} restored in "
+          f"{secs:.2f} s, {'bitwise equal to' if not bad else 'NOT equal to'}"
+          f" the run's final params ({len(T.leaves(back))} leaves); saved "
+          f"spec {'equal to' if saved == spec else 'NOT equal to'} the "
+          f"run's ({spec.fingerprint()}); a restore under another spec "
+          f"{'refused' if refused else 'NOT refused'}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if bad or saved != spec or not refused or step != STEPS:
+        raise AssertionError(f"[main] {name}: checkpoint round trip")
+
+
+def phase_cli_smoke():
+    """The driver's CLI on the card at ``--smoke`` for the other new archs:
+    granite-moe and dbrx (each step line with its aux_loss) and minicpm
+    (``--schedule auto`` picks WSD, and the header says so): finite
+    losses, the exact bits, and every leaf packed by the kernel on each
+    worker at each step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.distributed import wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch import tree as T
+    from repro_torch.models.model import build_model
+
+    total = {}
+    for arch in ("granite-moe-3b-a800m", "dbrx-132b", "minicpm-2b"):
+        cfg = get_smoke_config(arch)
+        abstract = build_model(cfg).init_abstract()
+        bits = wire.tree_format_for(make_compressor("block_topk:256,16"),
+                                    abstract).bits_per_round()
+        argv = ["--arch", arch, "--smoke", "--workers", str(WORKERS),
+                "--steps", "2", "--global-batch", "8", "--seq", "32",
+                "--compressor", "block_topk:256,16", "--agg",
+                "sparse_allgather", "--log-every", "1"]
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                reset_launches()
+                train.main(argv)
+                torch.cuda.synchronize()
+                launches = dict(LAUNCHES)
+        finally:
+            print(out.getvalue().rstrip())
+        text = out.getvalue()
+        losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)",
+                                               text)]
+        aux = [float(x) for x in re.findall(r"aux_loss=(\S+) ", text)]
+        packs = len(T.leaves(abstract)) * WORKERS * 2
+        ok = (len(losses) == 2 and all(map(math.isfinite, losses))
+              and f" {bits} bits/round/worker" in text
+              and launches.get("pack_update") == packs)
+        if cfg.family == "moe":
+            ok = ok and len(aux) == 2 and all(map(math.isfinite, aux))
+        if arch == "minicpm-2b":
+            ok = ok and " schedule=wsd " in text
+        print(f"[cli_smoke] {cfg.name}: losses={losses} aux_loss={aux} "
+              f"bits={bits} launches={launches} (pack_update want {packs})")
+        if not ok:
+            raise AssertionError(f"[cli_smoke] {cfg.name} failed")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def op_share(name, path, state, step_fn, data, busy):
+    """The share of the step's device time that the path's family op takes
+    (``op``: the SSD scan or the MoE dispatch, forward and backward): its
+    inputs are captured from one call in a step, then the op alone runs
+    forward and backward on them under torch.profiler, and its device
+    kernel time, times its calls a step, is held against the traced
+    step's device kernel time ``busy``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import random
+    from repro_torch.models import layers as L
+
+    op = getattr(L, path["op"])
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return op(*args, **kwargs)
+
+    setattr(L, path["op"], spy)
+    try:
+        state, _ = step_fn(state, data.batch(5),
+                           random.fold_in(random.key(0), 5))
+    finally:
+        setattr(L, path["op"], op)
+    calls = len(seen)
+    args, kwargs = seen[0]
+    seen.clear()
+    args = [a.detach().clone().requires_grad_(a.is_floating_point())
+            if isinstance(a, torch.Tensor) else a for a in args]
+    if isinstance(args[0], dict):      # dispatch_groups(p, xg): the weights
+        args[0] = {k: v.detach().clone().requires_grad_(True)
+                   for k, v in args[0].items()}
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out = op(*args, **kwargs)
+            out = out[0] if isinstance(out, tuple) else out
+            out.float().sum().backward()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    try:
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    except Exception as e:  # reading the trace, not the port: report it
+        print(f"[profile] {name}: {path['op']} not measured: {e!r}")
+        return state
+    share = f"{ms * calls / busy:.3f}" if busy else "not measured"
+    print(f"[profile] {name}: {path['op']} forward+backward alone at the "
+          f"step's shapes: {ms:.3f} ms of device kernels x {calls} calls a "
+          f"step = {ms * calls:.2f} ms, {share} of the traced step's "
+          "device kernel time")
+    return state
 
 
 def phase_dist(name):
@@ -3176,12 +3770,10 @@ def phase_profile(name):
 
     from repro_torch import random
     from repro_torch import tree as T
-    from repro_torch.launch import train
 
     path = PATHS[name]
     collect(f"[profile] {name}")
-    with contextlib.redirect_stdout(io.StringIO()):
-        state, step_fn, data = train.setup(train.parse_args(path["argv"]))
+    state, step_fn, data = path_setup(path)
     key = random.key(0)
     state, m = step_fn(state, data.batch(0), random.fold_in(key, 0))
     torch.cuda.synchronize()
@@ -3213,12 +3805,15 @@ def phase_profile(name):
     except Exception as e:  # reading the trace, not the port: report it
         print(f"[profile] {name}: not measured: {e!r}")
         rows = None
+    busy = None
     if rows is not None:
-        print_profile(name, rows, untraced, wall)
+        busy = print_profile(name, rows, untraced, wall)
     if name == "randk":
         print(f"[profile] randk: the shuffles of the untraced step "
               f"({choices} random.choice calls between CUDA events) "
               f"ms={shuffle_ms:.2f}, {shuffle_ms / untraced:.3f} of it")
+    if path.get("op"):
+        state = op_share(name, path, state, step_fn, data, busy)
     # the holder is the only reference to the state, as the launcher's loop
     # variable is: a second one would keep a stale state alive in the steps
     holder = {"state": state}
@@ -3238,7 +3833,8 @@ def phase_profile(name):
 
 
 def print_profile(name, rows, untraced, wall):
-    """Device time by kernel of the traced step, and its busy share."""
+    """Device time by kernel of the traced step, and its busy share;
+    returns the step's device kernel ms."""
     path = PATHS[name]
     busy = sum(r[0] for r in rows)
     print(f"[profile] {name}: traced step wall_ms={wall:.2f} (profiler "
@@ -3261,6 +3857,7 @@ def print_profile(name, rows, untraced, wall):
               f"{ms / untraced:.3f} of the untraced step")
     for t, count, key in sorted(rows, reverse=True)[:15]:
         print(f"[profile] {name}: {t:9.3f} ms x{count:<5d} {key[:90]}")
+    return busy
 
 
 def peak_above(fn):
@@ -3275,7 +3872,7 @@ def peak_above(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-PHASES = ("value_and_grad", "compress_local", "exchange",
+PHASES = ("value_aux_and_grad", "compress_local", "exchange",
           "combine_global", "apply_updates", "broadcast_global")
 
 
@@ -3444,30 +4041,37 @@ def main():
     print("[env] tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
     t0 = time.perf_counter()
-    phase_build()
-    timing = phase_kernels()
-    torch.cuda.empty_cache()
-    phase_reference()
-    torch.cuda.empty_cache()
-    phase_zoo()
-    torch.cuda.empty_cache()
-    phase_reference_dist()
-    launches = {}
-    launches["reference"] = phase_reference_spec()
-    torch.cuda.empty_cache()
-    for name in PATHS:
-        launches[name] = phase_main(name)
+    took = {}
+
+    def timed(label, fn, *args):
+        """``fn(*args)``, its seconds kept under ``label`` (summed)."""
+        t = time.perf_counter()
+        out = fn(*args)
         torch.cuda.empty_cache()
+        took[label] = took.get(label, 0.0) + time.perf_counter() - t
+        return out
+
+    timed("build", phase_build)
+    timing = timed("kernels", phase_kernels)
+    timed("reference", phase_reference)
+    timed("zoo", phase_zoo)
+    timed("families", phase_families)
+    timed("reference_dist", phase_reference_dist)
+    launches = {}
+    launches["reference"] = timed("reference_spec", phase_reference_spec)
+    for name in PATHS:
+        launches[name] = timed(name, phase_main, name)
         if PATHS[name]["profile"] is not None:
-            phase_profile(name)
-            torch.cuda.empty_cache()
+            timed(name, phase_profile, name)
+    launches["cli_smoke"] = timed("cli_smoke", phase_cli_smoke)
     for name in DIST_PATHS:
-        launches[name] = phase_dist(name)
-    launches["mesh"] = phase_mesh()
+        launches[name] = timed(name, phase_dist, name)
+    launches["mesh"] = timed("mesh", phase_mesh)
     MAIN_PARAMS.clear()
-    launches["mesh_specs"] = phase_mesh_specs()
-    launches["compressor_bench"] = phase_bench()
-    torch.cuda.empty_cache()
+    launches["mesh_specs"] = timed("mesh_specs", phase_mesh_specs)
+    launches["compressor_bench"] = timed("compressor_bench", phase_bench)
+    print("[env] seconds by phase (a path's profile with it): "
+          + " ".join(f"{k}={v:.1f}" for k, v in took.items()))
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -1,38 +1,192 @@
-"""Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
+"""Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
+(``repro/configs/``).
 
-The port has the architectures of its finished slices; the rest of the JAX
-package's registry raises as not yet ported.
+The port has the architectures of its finished slices, each config equal
+to the JAX package's field for field; the rest of the JAX package's
+registry raises as not yet ported.  qwen2-0.5b keeps its module
+(``qwen2_0_5b.py``); the later archs are ``config()`` / ``smoke_config()``
+pairs below, one section per JAX config module, since the port adds no
+file under ``src/``.  Smoke variants are reduced (2 layers, d_model <= 256,
+<= 4 experts) same-family configs for CPU tests.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Callable, Dict, List, Tuple
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ["qwen2-0.5b"]
-NOT_PORTED = ["minitron-8b", "granite-moe-3b-a800m", "mamba2-130m",
-              "phi3-medium-14b", "qwen2-vl-2b", "dbrx-132b", "whisper-medium",
-              "minicpm-2b", "zamba2-7b"]
+
+# -- minitron-8b (``repro/configs/minitron_8b.py``) ---------------------------
+# Width-pruned Nemotron-4 [arXiv:2407.14679]: dense, 32L x d4096, 32 query
+# heads with GQA kv=8, SwiGLU ff=16384, 256k vocabulary.
+
+def _minitron_8b() -> ModelConfig:
+    return ModelConfig(
+        name="minitron-8b", family="dense",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+        d_ff=16384, vocab=256000, head_dim=128,
+        rope_theta=1e4, attn_window=0,
+    )
 
 
-def _module(name: str):
+def _minitron_8b_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="minitron-8b-smoke", family="dense",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+        d_ff=512, vocab=1024, head_dim=64,
+    )
+
+
+# -- granite-moe-3b-a800m (``repro/configs/granite_moe_3b_a800m.py``) ---------
+# Fine-grained MoE: 40 experts top-8, per-expert ff=512; 24 heads do not
+# divide the 16-way model axis, so attention weights replicate.
+
+def _granite_moe() -> ModelConfig:
+    return ModelConfig(
+        name="granite-moe-3b-a800m", family="moe",
+        n_layers=32, d_model=1536, n_heads=24, n_kv_heads=8,
+        d_ff=512, vocab=49155, head_dim=64,
+        n_experts=40, experts_per_tok=8,
+        attn_shard_policy="replicate",
+    )
+
+
+def _granite_moe_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="granite-moe-smoke", family="moe",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab=1024, head_dim=64,
+        n_experts=4, experts_per_tok=2,
+    )
+
+
+# -- mamba2-130m (``repro/configs/mamba2_130m.py``) ---------------------------
+# SSD [arXiv:2405.21060]: attention-free, 24 SSD blocks, d_model=768
+# (d_inner=1536, 24 heads of 64), state=128, tied embeddings, vocab 50280.
+
+def _mamba2_130m() -> ModelConfig:
+    return ModelConfig(
+        name="mamba2-130m", family="ssm",
+        n_layers=24, d_model=768, n_heads=0, n_kv_heads=0,
+        d_ff=0, vocab=50280,
+        ssm_state=128, ssm_head_dim=64, ssm_expand=2, ssm_conv=4,
+        ssm_chunk=128,
+        tie_embeddings=True,
+    )
+
+
+def _mamba2_130m_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="mamba2-smoke", family="ssm",
+        n_layers=2, d_model=128, n_heads=0, n_kv_heads=0,
+        d_ff=0, vocab=1024,
+        ssm_state=16, ssm_head_dim=32, ssm_expand=2, ssm_conv=4,
+        ssm_chunk=32,
+        tie_embeddings=True,
+    )
+
+
+# -- phi3-medium-14b (``repro/configs/phi3_medium_14b.py``) -------------------
+# [arXiv:2404.14219]: dense, 40L x d5120, 40 heads GQA kv=10, ff=17920.
+
+def _phi3_medium() -> ModelConfig:
+    return ModelConfig(
+        name="phi3-medium-14b", family="dense",
+        n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10,
+        d_ff=17920, vocab=100352, head_dim=128,
+    )
+
+
+def _phi3_medium_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="phi3-smoke", family="dense",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+        d_ff=512, vocab=1024, head_dim=64,
+    )
+
+
+# -- dbrx-132b (``repro/configs/dbrx_132b.py``) -------------------------------
+# [hf:databricks/dbrx-base]: MoE, 16 experts top-4, 40L x d6144, 48 heads
+# GQA kv=8, per-expert ff=10752, vocab 100352.
+
+def _dbrx() -> ModelConfig:
+    return ModelConfig(
+        name="dbrx-132b", family="moe",
+        n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8,
+        d_ff=10752, vocab=100352, head_dim=128,
+        n_experts=16, experts_per_tok=4,
+    )
+
+
+def _dbrx_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="dbrx-smoke", family="moe",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+        d_ff=256, vocab=1024, head_dim=64,
+        n_experts=4, experts_per_tok=2,
+    )
+
+
+# -- minicpm-2b (``repro/configs/minicpm_2b.py``) -----------------------------
+# [arXiv:2404.06395]: llama-like dense, trained with the WSD schedule (the
+# driver's ``--schedule auto``); 40L x d2304, 36 heads MHA, ff=5760, vocab
+# 122753, tied embeddings.
+
+def _minicpm() -> ModelConfig:
+    return ModelConfig(
+        name="minicpm-2b", family="dense",
+        n_layers=40, d_model=2304, n_heads=36, n_kv_heads=36,
+        d_ff=5760, vocab=122753, head_dim=64,
+        tie_embeddings=True,
+    )
+
+
+def _minicpm_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="minicpm-smoke", family="dense",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
+        d_ff=512, vocab=1024, head_dim=64,
+        tie_embeddings=True,
+    )
+
+
+#: arch -> (config, smoke_config) of the archs without a module of their own
+_PAIRS: Dict[str, Tuple[Callable[[], ModelConfig],
+                        Callable[[], ModelConfig]]] = {
+    "minitron-8b": (_minitron_8b, _minitron_8b_smoke),
+    "granite-moe-3b-a800m": (_granite_moe, _granite_moe_smoke),
+    "mamba2-130m": (_mamba2_130m, _mamba2_130m_smoke),
+    "phi3-medium-14b": (_phi3_medium, _phi3_medium_smoke),
+    "dbrx-132b": (_dbrx, _dbrx_smoke),
+    "minicpm-2b": (_minicpm, _minicpm_smoke),
+}
+
+#: the ported archs in the JAX registry's order; qwen2 has its own module
+ARCHS = list(_PAIRS) + ["qwen2-0.5b"]
+NOT_PORTED = ["qwen2-vl-2b", "whisper-medium", "zamba2-7b"]
+
+
+def _pair(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported to repro_torch; ported: {ARCHS}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
-    return importlib.import_module(
+    if name in _PAIRS:
+        return _PAIRS[name]
+    mod = importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+    return mod.config, mod.smoke_config
 
 
 def get_config(name: str) -> ModelConfig:
-    return _module(name).config()
+    return _pair(name)[0]()
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    return _module(name).smoke_config()
+    return _pair(name)[1]()
 
 
 def list_archs() -> List[str]:

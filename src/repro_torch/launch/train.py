@@ -25,6 +25,21 @@ the embedding, the norm dense, block-top-k elsewhere):
         --compressor block_topk:256,16 --agg sparse_allgather \
         --leaf-codecs '*embed*=qsgd:16;*norm*=identity'
 
+The archs are the JAX registry's dense (qwen2-0.5b, minitron-8b,
+phi3-medium-14b, minicpm-2b), moe (granite-moe-3b-a800m, dbrx-132b) and
+ssm (mamba2-130m) configs, e.g. the mamba2 smoke config on the CPU with a
+checkpoint every step (JAX's npz format, ``{"params": ...}`` with the
+spec; ``repro_torch.tree.restore_checkpoint`` reads it back):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --smoke --device cpu --steps 2 --global-batch 8 --seq 64 \
+        --compressor block_topk:256,16 --agg sparse_allgather \
+        --ckpt-dir build/ckpt --ckpt-every 1
+
+``--schedule auto`` is WSD for minicpm (the header then says
+``schedule=wsd``) and cosine otherwise, as in the JAX driver; a moe
+arch's step lines carry its ``aux_loss``.
+
 Every zoo compressor trains up (``--compressor``) and down
 (``--downlink``), on an f32, bf16 or f16 wire (``--wire-dtype``); a
 heterogeneous fleet (``--worker-comps 'topk:64;randk:64'``, round-robin
@@ -94,6 +109,7 @@ import time
 import torch
 
 from repro_torch import random, resolve_device
+from repro_torch import tree as T
 from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
                                  known_archs)
 from repro_torch.core import (ExperimentSpec, SpecError, build,
@@ -105,14 +121,11 @@ from repro_torch.distributed.aggregate import (BACKENDS, ModelShards,
                                                Pending, WorkerGroup)
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import adamw
-from repro_torch.optim.schedules import cosine
+from repro_torch.optim.schedules import cosine, wsd
 
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
-NOT_PORTED_FLAGS = {
-    "--trainer": "shard_map", "--ckpt-dir": "", "--ckpt-every": 0,
-    "--sanitize": False,
-}
+NOT_PORTED_FLAGS = {"--trainer": "shard_map", "--sanitize": False}
 #: the compressor families the trainer runs, up, down and per leaf: every
 #: name of the spec grammar
 TRAIN_COMPRESSORS = ("identity", "none", "topk", "randk", "scaled_randk",
@@ -149,8 +162,8 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--schedule", default="auto",
                     choices=["auto", "cosine", "wsd"],
-                    help="auto = cosine for every ported arch; wsd is not "
-                         "yet ported")
+                    help="auto = wsd for minicpm (its training recipe), "
+                         "cosine otherwise")
     ap.add_argument("--algo", default="efbv",
                     choices=["efbv", "ef21", "diana", "none"])
     ap.add_argument("--compressor", default="block_topk:256,16",
@@ -193,6 +206,11 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--heterogeneity", type=float, default=0.5)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save {'params': ...} with the spec as npz "
+                         "checkpoints here (JAX's format), every "
+                         "--ckpt-every steps and at the end")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     for flag, neutral in NOT_PORTED_FLAGS.items():
         if isinstance(neutral, bool):
             ap.add_argument(flag, action="store_true", help="not yet ported")
@@ -203,8 +221,6 @@ def parse_args(argv=None):
     for flag, neutral in NOT_PORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) != neutral:
             ap.error(f"{flag} is not yet ported to repro_torch")
-    if args.schedule == "wsd":
-        ap.error("--schedule wsd is not yet ported to repro_torch")
     try:
         Downlink.parse(args.downlink)
     except ValueError as e:
@@ -334,9 +350,8 @@ def _unported_spec(spec: ExperimentSpec) -> str:
     if spec.backend == "fsdp":
         return ("backend 'fsdp' is not yet ported to repro_torch (ROADMAP "
                 "queue 1, item 8)")
-    cfg = (get_smoke_config(spec.problem) if spec.smoke
-           else get_config(spec.problem))
-    refusal = build_model(cfg).model_axis_refusal(model_axis(spec))
+    refusal = build_model(run_config(spec)).model_axis_refusal(
+        model_axis(spec))
     if refusal:
         return f"mesh {spec.mesh!r}: {refusal}"
     return ""
@@ -378,13 +393,41 @@ def experiment(args) -> ExperimentSpec:
     except (SpecError, ValueError, OSError) as e:
         raise SystemExit(f"[train] bad experiment spec: {e}")
     unported = _unported_spec(spec) or mesh_refusal(spec, world_size())
+    if not unported and args.ckpt_dir and model_axis(spec) > 1:
+        # each rank holds shards: a checkpoint of them is not JAX's format
+        unported = (f"mesh {spec.mesh!r}: --ckpt-dir on a 'model' axis is "
+                    "not yet ported to repro_torch")
     if unported:
         raise SystemExit(f"[train] {unported}")
     return spec
 
 
+def schedule_kind(flag: str, arch: str) -> str:
+    """The run's schedule: ``--schedule``, where ``auto`` is WSD for minicpm
+    (its training recipe) and cosine otherwise, as in the JAX driver."""
+    if flag == "auto":
+        return "wsd" if arch.startswith("minicpm") else "cosine"
+    return flag
+
+
+def make_schedule(kind: str, lr: float, steps: int):
+    """The JAX driver's schedules: linear warmup over 5% of the steps, then
+    cosine, or WSD with 70% stable and 25% decay."""
+    if kind == "wsd":
+        return wsd(lr, warmup_steps=max(steps // 20, 1),
+                   stable_steps=int(steps * 0.7),
+                   decay_steps=max(int(steps * 0.25), 1))
+    return cosine(lr, total_steps=steps, warmup_steps=max(steps // 20, 1))
+
+
 def _quiet(*args, **kwargs):
     """Ranks other than 0 print nothing."""
+
+
+def run_config(spec: ExperimentSpec):
+    """The model config a spec names (its smoke variant under ``smoke``)."""
+    return (get_smoke_config(spec.problem) if spec.smoke
+            else get_config(spec.problem))
 
 
 def setup(args, group=None, spec: ExperimentSpec = None):
@@ -398,8 +441,7 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     spec = experiment(args) if spec is None else spec
     run_ = build(spec)
     dev = group.device if group is not None else resolve_device(args.device)
-    cfg = (get_smoke_config(spec.problem) if spec.smoke
-           else get_config(spec.problem))
+    cfg = run_config(spec)
     model = build_model(cfg)
     n = spec.n
     tp = None if group is None else group.model
@@ -410,9 +452,8 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     participation, pipeline = run_.participation, run_.pipeline
     federated = run_.federated
 
-    # the JAX driver's auto schedule is cosine for every arch but minicpm
-    sched = cosine(args.lr, total_steps=spec.steps,
-                   warmup_steps=max(spec.steps // 20, 1))
+    sched_kind = schedule_kind(args.schedule, spec.problem)
+    sched = make_schedule(sched_kind, args.lr, spec.steps)
     opt = adamw(sched, weight_decay=0.01)
 
     echo(f"[train] arch={cfg.name} family={cfg.family} "
@@ -424,6 +465,8 @@ def setup(args, group=None, spec: ExperimentSpec = None):
          + (f" fleet={spec.compressor}" if algo.fleet is not None else "")
          + (f" leaf_codecs={spec.leaf_codecs}" if spec.leaf_codecs else "")
          + (f" mesh={spec.mesh}" if tp is not None else "")
+         + (f" schedule={sched_kind}" if args.schedule == "auto"
+            and sched_kind != "cosine" else "")
          + (f" ranks={group.world * model_axis(spec)} "
             f"backend={group.backend}" if group is not None else "")
          + f" device={dev}")
@@ -503,15 +546,35 @@ def main(argv=None):
             group.close()
 
 
+def save_params(args, group, spec: ExperimentSpec, step: int,
+                state) -> None:
+    """``{"params": state.params}`` with the spec, as the JAX driver saves
+    it (``tree.save_checkpoint``); over a group rank 0 writes (every rank
+    holds the same params)."""
+    if group is None or group.global_rank == 0:
+        T.save_checkpoint(args.ckpt_dir, step, {"params": state.params},
+                          spec=spec)
+
+
 def run(args, group=None, spec: ExperimentSpec = None):
-    """The training loop of ``main`` on a joined group (or None); returns
-    the final loss."""
-    echo = print if group is None or group.global_rank == 0 else _quiet
+    """``main`` on a joined group (or None): :func:`setup`, then
+    :func:`train_loop`; returns the final loss."""
     spec = experiment(args) if spec is None else spec
-    state, step_fn, data = setup(args, group, spec)
+    return train_loop(args, group, spec, lambda: setup(args, group, spec))
+
+
+def train_loop(args, group, spec: ExperimentSpec, make) -> float:
+    """The spec's steps on ``make()``'s (state, step_fn, data), as
+    :func:`setup` returns them: the step lines, the checkpoints and, over
+    a group, its exchange summary (rank 0 prints); returns the final loss.
+    Only the loop holds the state, so each step's input state is freed
+    once the next is made."""
+    echo = print if group is None or group.global_rank == 0 else _quiet
+    state, step_fn, data = make()
     n = spec.n
     key = random.key(spec.seed)
     t_start = time.time()
+    moe = run_config(spec).family == "moe"
     for step in range(spec.steps):
         state, metrics = step_fn(state, data.batch(step),
                                  random.fold_in(key, step))
@@ -519,10 +582,17 @@ def run(args, group=None, spec: ExperimentSpec = None):
             m = {k: float(v) for k, v in metrics.items()}
             part = f"|S|={int(m['participants'])}/{n} " \
                 if "participants" in m else ""
+            aux = f"aux_loss={m['aux_loss']:.4f} " if moe else ""
             echo(f"[train] step {step:5d} loss={m['loss']:.4f} "
                  f"|g|={m['g_norm']:.3f} |upd|={m['update_norm']:.4f} "
-                 f"h_res={m['h_residual']:.3f} {part}"
+                 f"h_res={m['h_residual']:.3f} {part}{aux}"
                  f"({(time.time() - t_start) / (step + 1):.2f}s/step)")
+        if args.ckpt_dir and args.ckpt_every \
+                and (step + 1) % args.ckpt_every == 0:
+            save_params(args, group, spec, step + 1, state)
+            echo(f"[train] checkpoint @ {step + 1}")
+    if args.ckpt_dir:
+        save_params(args, group, spec, spec.steps, state)
     if group is not None:
         if isinstance(state.inflight, Pending):
             # the last round's exchange, which a next round would apply:

@@ -1,12 +1,14 @@
 """Transformer building blocks as plain torch ops (``repro/models/layers.py``):
-RMSNorm, RoPE, grouped-query attention with QKV bias, SwiGLU, and the
-parameter specs and collectives of the mesh's ``model`` axis.
+RMSNorm, RoPE, grouped-query attention with QKV bias, SwiGLU, the
+parameter specs and collectives of the mesh's ``model`` axis, the Mamba-2
+SSD block (``repro/models/mamba2.py``) and the mixture of experts
+(``repro/models/moe.py``).
 
 Parameters are dicts of tensors in the JAX layout (``x @ W`` weights of
 shape (in, out)).  Each op keeps the JAX version's dtype casts (norm and
 RoPE in f32, matmuls in the activation dtype, softmax in f32), so the two
-packages round at the same places.  Ported so far: what the dense family
-runs in training.
+packages round at the same places.  Ported so far: what the dense, ssm and
+moe families run in training.
 
 Parameter specs (:func:`auto_spec`, :func:`head_spec`) are the JAX
 package's PartitionSpecs written as tuples of axis names, one per dim:
@@ -341,3 +343,284 @@ def swiglu(p: Dict[str, Tensor], x: Tensor) -> Tensor:
     g = torch.nn.functional.silu(x @ p["wg"].to(x.dtype))
     u = x @ p["wu"].to(x.dtype)
     return (g * u) @ p["wd"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD block (``repro/models/mamba2.py``)
+# --------------------------------------------------------------------------
+#
+# The chunked SSD scan of training and prefill: quadratic within a chunk,
+# a linear recurrence over the chunks' end states.  Projections are stored
+# un-fused (wz/wx/wB/wC/wdt), as in JAX.  The recurrent decode
+# (``mamba2_decode``, ``mamba2_cache_init``) belongs to serving and is not
+# ported yet.
+
+def mamba2_specs(d: int, *, d_inner: int, d_state: int, n_heads: int,
+                 d_conv: int) -> Dict[str, Spec]:
+    """The specs of ``mamba2_init``'s params (per layer, unstacked)."""
+    conv_ch = d_inner + 2 * d_state
+    return {
+        "wz": auto_spec((d, d_inner), prefer=(1,)),
+        "wx": auto_spec((d, d_inner), prefer=(1,)),
+        "wB": auto_spec((d, d_state), prefer=(1,)),
+        "wC": auto_spec((d, d_state), prefer=(1,)),
+        "wdt": auto_spec((d, n_heads), prefer=(1,)),
+        "dt_bias": (None,), "A_log": (None,), "D": (None,),
+        "conv_w": auto_spec((d_conv, conv_ch), prefer=(1,)),
+        "conv_b": auto_spec((conv_ch,), prefer=(0,)),
+        "norm_w": auto_spec((d_inner,), prefer=(0,)),
+        "wo": auto_spec((d_inner, d), prefer=(0,)),
+    }
+
+
+def softplus(x: Tensor) -> Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (torch's
+    ``softplus`` returns x itself above a threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Depthwise causal conv over time as K shifted adds, then SiLU.
+    x: (B, S, C); w: (K, C); b: (C,)."""
+    K = w.shape[0]
+    out = x * w[K - 1]
+    for j in range(K - 1):
+        shift = K - 1 - j
+        out = out + torch.nn.functional.pad(
+            x, (0, 0, shift, 0))[:, :-shift] * w[j]
+    return torch.nn.functional.silu(out + b.to(x.dtype))
+
+
+def ssd_chunked(xh: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                chunk: int) -> Tensor:
+    """Chunked SSD scan.  xh: (B, S, H, hp); dt: (B, S, H); A: (H,)
+    negative; Bm, Cm: (B, S, st).  Returns y: (B, S, H, hp).
+
+    One change from ``mamba2.py:95-98`` (ROADMAP fault w): the decay matrix
+    is ``exp(where(causal, diff, -inf))``, masked before the exp, where JAX
+    computes ``where(causal, exp(diff), 0)``.  Above the diagonal ``diff``
+    is a positive sum of up to chunk - 1 decays ``-dt * A``; at full width
+    (chunk 128, A down to -24) it passes 88 and ``exp`` gives inf.  The
+    forward values are the same either way (the select drops those
+    entries, and exp(-inf) is 0), but the backward pass multiplies the
+    select's zero cotangent by inf: JAX's gradient is NaN there, this
+    one finite.  The scan over the chunks is a loop over their count."""
+    B, S, H, hp = xh.shape
+    st = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk "
+                         f"{chunk}")
+    nc = S // chunk
+    f32 = torch.float32
+    xc = xh.reshape(B, nc, chunk, H, hp)
+    dtc = dt.reshape(B, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(B, nc, chunk, st)
+    Cc = Cm.reshape(B, nc, chunk, st)
+
+    a = dtc * A                           # per-step log decay (negative)
+    cum_a = torch.cumsum(a, dim=2)        # inclusive, within the chunk
+    xdt = xc * dtc[..., None].to(xc.dtype)
+
+    # intra-chunk: L[i, j] = exp(cum_a[i] - cum_a[j]) for i >= j, else 0
+    diff = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]
+    idx = torch.arange(chunk, device=xh.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    L = torch.exp(torch.where(causal, diff,
+                              torch.full((), -math.inf, dtype=f32,
+                                         device=xh.device)))
+    cb = torch.einsum("bnis,bnjs->bnij", Cc.to(f32), Bc.to(f32))
+    att = cb[..., None] * L
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", att.to(xc.dtype), xdt)
+
+    # chunk-local end states: sum_j exp(cum_a[Q-1] - cum_a[j]) B_j x_j dt_j
+    decay_to_end = torch.exp(cum_a[:, :, -1:, :] - cum_a)
+    s_local = torch.einsum("bnjs,bnjh,bnjhp->bnhsp", Bc.to(f32),
+                           decay_to_end, xdt.to(f32))
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(cum_a[:, :, -1, :])   # (B, nc, H)
+    s = torch.zeros((B, H, st, hp), dtype=f32, device=xh.device)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = chunk_decay[:, c, :, None, None] * s + s_local[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)         # (B, nc, H, st, hp)
+
+    decay_from_start = torch.exp(cum_a)
+    y_inter = torch.einsum("bnis,bnih,bnhsp->bnihp", Cc.to(f32),
+                           decay_from_start, s_prevs)
+    return (y_intra + y_inter.to(xc.dtype)).reshape(B, S, H, hp)
+
+
+def mamba2_apply(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
+                 d_state: int, n_heads: int, chunk: int,
+                 norm_eps: float = 1e-5) -> Tensor:
+    """Full-sequence SSD block.  x: (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    hp = d_inner // n_heads
+    z = x @ p["wz"].to(x.dtype)
+    xin = x @ p["wx"].to(x.dtype)
+    Bm = x @ p["wB"].to(x.dtype)
+    Cm = x @ p["wC"].to(x.dtype)
+    dt = softplus((x @ p["wdt"].to(x.dtype)).float() + p["dt_bias"])
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out = causal_conv(conv_in, p["conv_w"].to(x.dtype), p["conv_b"])
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, d_state, d_state], dim=-1)
+    A = -torch.exp(p["A_log"])
+    xh = xin.reshape(B, S, n_heads, hp)
+    y = ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, d_inner)
+    y = rmsnorm(y * torch.nn.functional.silu(z), p["norm_w"], norm_eps)
+    return y @ p["wo"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture of experts (``repro/models/moe.py``)
+# --------------------------------------------------------------------------
+#
+# A top-k softmax router, capacity-bounded scatter/gather dispatch and the
+# Switch-style load-balance loss.  Expert weights are stacked on a leading
+# E axis.  The dispatch groups run batched, as JAX's ``vmap`` runs them.
+
+EXPERT_LEAVES = ("wg", "wu", "wd")
+
+
+def moe_specs(d: int, ff: int, n_experts: int) -> Dict[str, Spec]:
+    """The specs of ``moe_init``'s params (per layer, unstacked): experts
+    parallel over 'model' only when E divides it, the router
+    replicated."""
+    return {"router": (None, None),
+            "wg": auto_spec((n_experts, d, ff), prefer=(0,)),
+            "wu": auto_spec((n_experts, d, ff), prefer=(0,)),
+            "wd": auto_spec((n_experts, ff, d), prefer=(0,))}
+
+
+def _is_moe_subtree(node) -> bool:
+    return (isinstance(node, dict) and "router" in node
+            and all(k in node for k in EXPERT_LEAVES))
+
+
+def expert_activity_mask(moe_grads: Dict[str, Tensor]) -> Tensor:
+    """Which experts this round's gradients touched: a boolean (..., E)
+    mask, True where any of the wg/wu/wd slabs of an expert holds a
+    nonzero entry (an expert no token reached has exactly zero slabs: the
+    dispatch scatters a zero buffer row to it)."""
+    masks = [(moe_grads[name] != 0).flatten(-2).any(-1)
+             for name in EXPERT_LEAVES]
+    return masks[0] | masks[1] | masks[2]
+
+
+def zero_inactive_expert_grads(grads, mask: Optional[Tensor] = None):
+    """Zero the wg/wu/wd gradient slabs of inactive experts, worker-side:
+    every MoE subtree's expert leaves times ``mask`` (default
+    :func:`expert_activity_mask` of the subtree itself, under which this
+    is the identity).  Non-MoE subtrees pass through."""
+    if _is_moe_subtree(grads):
+        m = expert_activity_mask(grads) if mask is None else mask
+        out = dict(grads)
+        for name in EXPERT_LEAVES:
+            g = grads[name]
+            out[name] = g * m[..., None, None].to(g.dtype)
+        return out
+    if isinstance(grads, dict):
+        return {k: zero_inactive_expert_grads(v, mask)
+                for k, v in grads.items()}
+    return grads
+
+
+def fixed_routing_params(params):
+    """Zero every MoE router leaf, so all logits tie and the top-k routes
+    every token to experts 0..k-1 (ties to the lowest index)."""
+    if _is_moe_subtree(params):
+        out = dict(params)
+        out["router"] = torch.zeros_like(params["router"])
+        return out
+    if isinstance(params, dict):
+        return {k: fixed_routing_params(v) for k, v in params.items()}
+    return params
+
+
+def top_k_lowest_ties(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """``jax.lax.top_k`` along the last dim: (values, int64 indices) in
+    descending order, ties to the lowest index (a stable descending sort;
+    ``torch.topk`` orders ties otherwise)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices
+    ids = order[..., :k]
+    return torch.gather(x, -1, ids), ids
+
+
+def dispatch_groups(p: Dict[str, Tensor], xg: Tensor, *, n_experts: int,
+                    k: int, capacity: int) -> Tuple[Tensor, Tensor]:
+    """Capacity-bounded dispatch and combine of G token groups at once
+    (JAX's ``vmap`` of ``_dispatch_group``).  xg: (G, Tg, d) -> (out
+    (G, Tg, d), aux (G,)).  A token's position in its expert is the
+    exclusive cumsum of the int32 one-hot of the (token, choice) list;
+    past the capacity it goes to the trash row E * C, the one row that
+    repeats in the scatter."""
+    G, Tg, d = xg.shape
+    E, C = n_experts, capacity
+    dt = xg.dtype
+    logits = (xg @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = top_k_lowest_ties(probs, k)       # (G, Tg, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    me = probs.mean(dim=1)
+    ce = torch.nn.functional.one_hot(expert_ids[..., 0], E).float() \
+        .mean(dim=1)
+    aux = E * (me * ce).sum(dim=-1)
+
+    flat_ids = expert_ids.reshape(G, Tg * k)
+    onehot = torch.nn.functional.one_hot(flat_ids, E).to(torch.int32)
+    pos = torch.gather(torch.cumsum(onehot, dim=1, dtype=torch.int32)
+                       - onehot, -1, flat_ids[..., None])[..., 0]
+    in_cap = pos < C
+    slot = torch.where(in_cap, flat_ids * C + pos,
+                       torch.full_like(flat_ids, E * C))       # (G, Tg*k)
+
+    rows = E * C + 1
+    xk = xg.repeat_interleave(k, dim=1)
+    offset = torch.arange(G, device=xg.device)[:, None] * rows
+    buf = torch.zeros((G * rows, d), dtype=dt, device=xg.device)
+    buf = buf.index_add(0, (slot + offset).reshape(-1), xk.reshape(-1, d))
+    eb = buf.reshape(G, rows, d)[:, :-1].reshape(G, E, C, d)
+
+    h = torch.nn.functional.silu(
+        torch.einsum("gecd,edf->gecf", eb, p["wg"].to(dt)))
+    h = h * torch.einsum("gecd,edf->gecf", eb, p["wu"].to(dt))
+    out_e = torch.einsum("gecf,efd->gecd", h, p["wd"].to(dt))
+
+    flat_out = torch.cat([out_e.reshape(G, E * C, d),
+                          torch.zeros((G, 1, d), dtype=dt,
+                                      device=xg.device)], dim=1)
+    ok = torch.gather(flat_out, 1, slot[..., None].expand(G, Tg * k, d))
+    weighted = ok * (gate_vals.reshape(G, -1, 1).to(dt)
+                     * in_cap.reshape(G, -1, 1).to(dt))
+    return weighted.reshape(G, Tg, k, d).sum(dim=2), aux
+
+
+def moe_capacity(T: int, groups: int, n_experts: int, k: int,
+                 capacity_factor: float) -> Tuple[int, int]:
+    """(G, capacity) of ``moe_apply``: G groups (default one per batch row,
+    lowered until it divides the T tokens) and the per-group capacity
+    ``max(1, int(capacity_factor * k * Tg / E))`` in JAX's float order."""
+    G = groups
+    while T % G:
+        G -= 1
+    Tg = T // G
+    return G, max(1, int(capacity_factor * k * Tg / n_experts))
+
+
+def moe_apply(p: Dict[str, Tensor], x: Tensor, *, n_experts: int, k: int,
+              capacity_factor: float = 1.25,
+              groups: int = 0) -> Tuple[Tensor, Tensor]:
+    """x: (B, S, d) -> (out (B, S, d), aux load-balance loss, the mean over
+    the dispatch groups)."""
+    B, S, d = x.shape
+    G, capacity = moe_capacity(B * S, groups or B, n_experts, k,
+                               capacity_factor)
+    out, aux = dispatch_groups(p, x.reshape(G, (B * S) // G, d),
+                               n_experts=n_experts, k=k, capacity=capacity)
+    return out.reshape(B, S, d), aux.mean()

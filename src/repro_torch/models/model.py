@@ -1,11 +1,14 @@
 """Config -> Model: init / param_specs / forward / loss
 (``repro/models/model.py``).
 
-Ported so far: the dense family (qwen2).  Params are a nested dict in the
-JAX layout: per-layer weights stacked on a leading L axis, ``x @ W``
-weights, the embedding reused as the LM head under tied embeddings.  The
-leaf paths, shapes and flatten order therefore equal the JAX tree's, which
-the wire's per-leaf layout depends on.  ``init`` follows JAX's key tree, so
+Ported so far: the dense family (qwen2, minitron, phi3, minicpm), the moe
+family (granite-moe, dbrx: attention and a mixture of experts a layer,
+``layers.moe_apply``) and the ssm family (mamba2: one SSD block a layer,
+``layers.mamba2_apply``).  Params are a nested dict in the JAX layout:
+per-layer weights stacked on a leading L axis, ``x @ W`` weights, the
+embedding reused as the LM head under tied embeddings.  The leaf paths,
+shapes and flatten order therefore equal the JAX tree's, which the wire's
+per-leaf layout depends on.  ``init`` follows JAX's key tree, so
 ``init(random.key(s))`` is ``Model.init(jax.random.key(s))`` bit for bit.
 
 On a mesh with a ``model`` axis of M ranks (``tp``, a
@@ -14,7 +17,7 @@ that :meth:`Model.param_specs` names and runs Megatron-style tensor
 parallelism: column-parallel q/k/v (with biases) and gate/up, row-parallel
 o and down followed by an all-reduce, a vocab-parallel embedding and tied
 LM head with a vocab-parallel cross-entropy.  The ranks' heads must be
-whole (:meth:`Model.model_axis_refusal`).
+whole, and the family dense (:meth:`Model.model_axis_refusal`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import random, resolve_device
@@ -46,16 +50,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return per_tok.sum() / denom, denom
 
 
+#: the families the port builds
+FAMILIES = ("dense", "moe", "ssm")
+#: dt_bias's uniform range (``mamba2_init``): log(1e-3) to log(1e-1)
+DT_RANGE = (math.log(1e-3), math.log(1e-1))
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not yet ported to "
-                "repro_torch (ported: dense)")
+                f"repro_torch (ported: {', '.join(FAMILIES)}; ROADMAP queue "
+                "1, item 7)")
         if cfg.attn_window or cfg.mrope_sections:
             raise NotImplementedError(
                 "sliding-window attention and M-RoPE are not yet ported")
@@ -64,15 +75,33 @@ class Model:
 
     # ------------------------------------------------------------------ init
 
-    def _build(self, make: Callable[[Tuple[str, int], Tuple[int, ...],
-                                     Optional[float]], torch.Tensor]
-               ) -> PyTree:
-        """The params tree, each leaf from ``make(site, shape, scale)``: a
-        normal draw times ``scale`` under the key of ``site`` in JAX's key
-        tree (:meth:`init`), zeros for scale 0.0 and ones for None.  Init
-        distributions are the JAX package's (biases zero, norms one)."""
+    def _block(self, make) -> Dict[str, Any]:
+        """One family's stacked per-layer leaves (JAX's ``_block_inits``
+        under ``vmap``), each from ``make`` as in :meth:`_build`."""
         cfg = self.cfg
-        d, ff, V, Lr = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+        d, ff, Lr = cfg.d_model, cfg.d_ff, cfg.n_layers
+        if cfg.family == "ssm":
+            di, st, nh = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads()
+            conv_ch = di + 2 * st
+            return {
+                "mamba": {
+                    "wz": make(("mamba", 0), (Lr, d, di), 1.0 / math.sqrt(d)),
+                    "wx": make(("mamba", 1), (Lr, d, di), 1.0 / math.sqrt(d)),
+                    "wB": make(("mamba", 2), (Lr, d, st), 1.0 / math.sqrt(d)),
+                    "wC": make(("mamba", 3), (Lr, d, st), 1.0 / math.sqrt(d)),
+                    "wdt": make(("mamba", 4), (Lr, d, nh), 0.02),
+                    "dt_bias": make(("mamba", 5), (Lr, nh), "dt_bias"),
+                    "A_log": make(None, (Lr, nh), "A_log"),
+                    "D": make(None, (Lr, nh), None),
+                    "conv_w": make(("mamba", 6), (Lr, cfg.ssm_conv, conv_ch),
+                                   0.5 / math.sqrt(cfg.ssm_conv)),
+                    "conv_b": make(None, (Lr, conv_ch), 0.0),
+                    "norm_w": make(None, (Lr, di), None),
+                    "wo": make(("mamba", 7), (Lr, di, d),
+                               1.0 / math.sqrt(di)),
+                },
+                "ln": make(None, (Lr, d), None),
+            }
         hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
         attn = {
             "wq": make(("attn", 0), (Lr, d, nh * hd), 1.0 / math.sqrt(d)),
@@ -85,19 +114,39 @@ class Model:
             attn.update({"bq": make(None, (Lr, nh * hd), 0.0),
                          "bk": make(None, (Lr, nkv * hd), 0.0),
                          "bv": make(None, (Lr, nkv * hd), 0.0)})
+        block: Dict[str, Any] = {"attn": attn}
+        if cfg.family == "moe":
+            E = cfg.n_experts
+            # _init's default scale is 1 / sqrt(shape[0]): E for wg and wu
+            block["moe"] = {
+                "router": make(("moe", 0), (Lr, d, E), 0.02),
+                "wg": make(("moe", 1), (Lr, E, d, ff), 1.0 / math.sqrt(E)),
+                "wu": make(("moe", 2), (Lr, E, d, ff), 1.0 / math.sqrt(E)),
+                "wd": make(("moe", 3), (Lr, E, ff, d), 1.0 / math.sqrt(ff)),
+            }
+        else:
+            block["mlp"] = {
+                "wg": make(("mlp", 0), (Lr, d, ff), 1.0 / math.sqrt(d)),
+                "wu": make(("mlp", 1), (Lr, d, ff), 1.0 / math.sqrt(d)),
+                "wd": make(("mlp", 2), (Lr, ff, d), 1.0 / math.sqrt(ff))}
+        block["ln1"] = make(None, (Lr, d), None)
+        block["ln2"] = make(None, (Lr, d), None)
+        return block
+
+    def _build(self, make: Callable[[Optional[Tuple[str, int]],
+                                     Tuple[int, ...], Any], torch.Tensor]
+               ) -> PyTree:
+        """The params tree, each leaf from ``make(site, shape, init)``: for
+        a float ``init``, a normal draw times ``init`` under the key of
+        ``site`` in JAX's key tree (:meth:`init`); zeros for 0.0 and ones
+        for None; ``"dt_bias"`` and ``"A_log"`` are mamba2's two computed
+        leaves.  Init distributions are the JAX package's (biases zero,
+        norms one)."""
+        cfg = self.cfg
+        d, V = cfg.d_model, cfg.vocab
         params: Dict[str, Any] = {
             "embed": make(("embed", 1), (V, d), 0.02),
-            "layers": {
-                "attn": attn,
-                "mlp": {"wg": make(("mlp", 0), (Lr, d, ff),
-                                   1.0 / math.sqrt(d)),
-                        "wu": make(("mlp", 1), (Lr, d, ff),
-                                   1.0 / math.sqrt(d)),
-                        "wd": make(("mlp", 2), (Lr, ff, d),
-                                   1.0 / math.sqrt(ff))},
-                "ln1": make(None, (Lr, d), None),
-                "ln2": make(None, (Lr, d), None),
-            },
+            "layers": self._block(make),
             "final_norm": make(None, (d,), None),
         }
         if not cfg.tie_embeddings:
@@ -110,24 +159,26 @@ class Model:
         ``repro_torch.random`` key; ``key(0)`` when None), drawn as
         ``repro.models.model.Model.init(jax.random.key(s))`` draws them,
         bit for bit: ``keys = split(key, 8)``; layer l's key is
-        ``split(keys[0], L)[l]``, split in two for attention (split in 4:
-        wq, wk, wv, wo) and the MLP (split in 3: wg, wu, wd); the embedding
-        draws under ``keys[1]`` (an untied head under ``keys[2]``).  Each
-        weight is ``normal(key, shape) * scale``; all of them are drawn in
-        one ``random.normal_many`` pass."""
+        ``split(keys[0], L)[l]`` (:func:`_layer_keys`); the embedding draws
+        under ``keys[1]`` (an untied head under ``keys[2]``).  Each weight
+        is ``normal(key, shape) * scale``, all of them drawn in one
+        ``random.normal_many`` pass.  mamba2's ``dt_bias`` is
+        ``log(expm1(exp(u)))`` of a uniform on [log 1e-3, log 1e-1) and its
+        ``A_log`` is ``log(1..H)``, each op XLA CPU's f32 function
+        (``random.xla_exp``, ``xla_expm1``, ``xla_log``)."""
         dev = resolve_device(device)
         cfg = self.cfg
         keys = random.split(random.key(0) if key is None else key, 8)
-        layers = [_layer_keys(k) for k in random.split(keys[0],
-                                                       cfg.n_layers)]
-        sub = {"attn": [a for a, _ in layers], "mlp": [m for _, m in layers]}
+        layers = [_layer_keys(cfg.family, k)
+                  for k in random.split(keys[0], cfg.n_layers)]
+        sub = {part: [lk[part] for lk in layers] for part in layers[0]}
         # every weight's draws in one pass (``random.normal_many``), in the
         # order _build makes the leaves: the embedding's key, or a stacked
         # leaf's key of each layer, its layers consecutive
         draws = []
 
-        def plan(site, shape, scale):
-            if scale is not None and scale != 0.0:
+        def plan(site, shape, init):
+            if isinstance(init, float) and init != 0.0:
                 part, i = site
                 if part == "embed":
                     draws.append((keys[i], math.prod(shape)))
@@ -140,14 +191,28 @@ class Model:
                                dev)
         off = 0
 
-        def make(site, shape, scale):
+        def make(site, shape, init):
             nonlocal off
-            if scale is None:
+            if init is None:
                 return torch.ones(shape, dtype=torch.float32, device=dev)
-            if scale == 0.0:
+            if init == 0.0:
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
+            if init == "A_log":
+                h = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                 device=dev)
+                return random.xla_log(h).expand(shape).clone()
+            if init == "dt_bias":
+                part, i = site
+                with random._serial(dev):
+                    u = torch.stack([
+                        random.uniform(ks[i], shape[-1], dev,
+                                       minval=DT_RANGE[0],
+                                       maxval=DT_RANGE[1])
+                        for ks in sub[part]])
+                    return random.xla_log(random.xla_expm1(
+                        random.xla_exp(u)))
             n = math.prod(shape)
-            leaf = z[off:off + n].reshape(shape).mul_(scale).clone()
+            leaf = z[off:off + n].reshape(shape).mul_(init).clone()
             off += n
             return leaf
 
@@ -155,21 +220,31 @@ class Model:
 
     def init_abstract(self) -> PyTree:
         """Params as ``meta`` tensors: shapes and dtypes, no storage."""
-        return self._build(lambda site, shape, scale: torch.empty(
+        return self._build(lambda site, shape, init: torch.empty(
             shape, dtype=torch.float32, device="meta"))
 
     def param_specs(self) -> PyTree:
         """Each leaf's spec over the mesh's ``model`` axis, a tuple of axis
         names per dim (JAX's PartitionSpecs, ``Model.param_specs``): the
-        per-layer specs of attention and the MLP lifted over the stacked L
+        per-layer specs of the family's block lifted over the stacked L
         axis, the embedding by ``auto_spec`` on its vocab dim."""
         cfg = self.cfg
         d, V = cfg.d_model, cfg.vocab
-        block = {"attn": L.attention_specs(d, cfg.n_heads, cfg.n_kv_heads,
-                                           cfg.hd(), cfg.qkv_bias,
-                                           cfg.attn_shard_policy),
-                 "mlp": L.mlp_specs(d, cfg.d_ff),
-                 "ln1": (None,), "ln2": (None,)}
+        if cfg.family == "ssm":
+            block = {"mamba": L.mamba2_specs(
+                d, d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
+                n_heads=cfg.ssm_heads(), d_conv=cfg.ssm_conv),
+                "ln": (None,)}
+        else:
+            block = {"attn": L.attention_specs(d, cfg.n_heads,
+                                               cfg.n_kv_heads, cfg.hd(),
+                                               cfg.qkv_bias,
+                                               cfg.attn_shard_policy),
+                     "ln1": (None,), "ln2": (None,)}
+            if cfg.family == "moe":
+                block["moe"] = L.moe_specs(d, cfg.d_ff, cfg.n_experts)
+            else:
+                block["mlp"] = L.mlp_specs(d, cfg.d_ff)
         specs: Dict[str, Any] = {
             "embed": L.auto_spec((V, d), prefer=(0,)),
             "layers": T.tree_map(lambda s: (None,) + s, block,
@@ -182,16 +257,20 @@ class Model:
 
     def model_axis_refusal(self, size: int) -> str:
         """Why the tensor-parallel forward cannot run on a ``model`` axis of
-        ``size`` ranks ('' when it can): it needs whole query and KV heads
-        on every rank, the q/k/v/gate/up weights column-sharded, o and down
-        row-sharded and the embedding vocab-sharded by ``param_specs``.
-        JAX's 'flat' policy also splits heads that do not align and GSPMD
-        re-partitions them; the port does not yet."""
+        ``size`` ranks ('' when it can): it needs the dense family, whole
+        query and KV heads on every rank, the q/k/v/gate/up weights
+        column-sharded, o and down row-sharded and the embedding
+        vocab-sharded by ``param_specs``.  JAX's 'flat' policy also splits
+        heads that do not align and GSPMD re-partitions them, and shards the
+        experts and the SSD projections; the port does not yet."""
         if size == 1:
             return ""
         cfg = self.cfg
         why = ""
-        if cfg.n_heads % size or cfg.n_kv_heads % size:
+        if cfg.family != "dense":
+            why = (f"the {cfg.family} family (the port's tensor parallelism "
+                   "covers attention and the MLP only)")
+        elif cfg.n_heads % size or cfg.n_kv_heads % size:
             why = (f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads do "
                    f"not split into whole heads over {size} ranks")
         elif not cfg.tie_embeddings:
@@ -218,24 +297,23 @@ class Model:
 
     # --------------------------------------------------------------- forward
 
-    def forward(self, params: PyTree, batch: Dict[str, torch.Tensor],
-                tp: Optional[L.ModelAxis] = None) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, V) in the activation
-        dtype; on a ``model`` axis (``tp``) each rank's params are its
-        shards and the logits its vocab shard (B, S, V / M)."""
+    def _decoder_blocks(self, params: PyTree, h: torch.Tensor,
+                        tp: Optional[L.ModelAxis]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The stacked decoder blocks of the family (JAX's scan), in a
+        loop over the layers.  Returns (hidden, aux loss summed over the
+        layers; 0.0 but for moe)."""
         cfg = self.cfg
-        adt = _DTYPES[cfg.activation_dtype]
-        tokens = batch["tokens"].long()
-        if tp is None:
-            h = params["embed"].to(adt)[tokens]
-        else:
-            h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
         B, S, _ = h.shape
         m = 1 if tp is None else tp.size
         pos = torch.arange(S, device=h.device).expand(B, S)
         attn_kw = dict(n_heads=cfg.n_heads // m, n_kv=cfg.n_kv_heads // m,
                        hd=cfg.hd(), positions=pos, theta=cfg.rope_theta,
                        impl=cfg.attn_impl)
+        ssm_kw = dict(d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
+                      n_heads=cfg.ssm_heads(), chunk=cfg.ssm_chunk,
+                      norm_eps=cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         # one unbind per stacked leaf: its backward stacks the L layer
         # grads in one pass, where indexing a[i] in every layer would
         # accumulate L full-size zero-padded grads
@@ -243,37 +321,81 @@ class Model:
         per_layer = [a.unbind(0) for a in stacked]
         for i in range(cfg.n_layers):
             lp = T.unflatten(params["layers"], [u[i] for u in per_layer])
+            if cfg.family == "ssm":
+                h = h + L.mamba2_apply(
+                    lp["mamba"], L.rmsnorm(h, lp["ln"], cfg.norm_eps),
+                    **ssm_kw)
+                continue
             x = L.to_model(L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp)
             h = h + L.from_model(L.attention(lp["attn"], x, **attn_kw), tp)
             x = L.to_model(L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
-            h = h + L.from_model(L.swiglu(lp["mlp"], x), tp)
+            if cfg.family == "moe":
+                y, a = L.moe_apply(lp["moe"], x, n_experts=cfg.n_experts,
+                                   k=cfg.experts_per_tok,
+                                   capacity_factor=cfg.capacity_factor,
+                                   groups=cfg.moe_groups)
+                h, aux = h + y, aux + a
+            else:
+                h = h + L.from_model(L.swiglu(lp["mlp"], x), tp)
+        return h, aux
+
+    def forward_aux(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                    tp: Optional[L.ModelAxis] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward -> (logits (B, S, V) in the activation
+        dtype, aux loss), JAX's ``Model.forward``; on a ``model`` axis
+        (``tp``) each rank's params are its shards and the logits its vocab
+        shard (B, S, V / M)."""
+        cfg = self.cfg
+        adt = _DTYPES[cfg.activation_dtype]
+        tokens = batch["tokens"].long()
+        if tp is None:
+            h = params["embed"].to(adt)[tokens]
+        else:
+            h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
+        h, aux = self._decoder_blocks(params, h, tp)
         h = L.to_model(L.rmsnorm(h, params["final_norm"], cfg.norm_eps), tp)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return h @ head.to(h.dtype)
+        return h @ head.to(h.dtype), aux
+
+    def forward(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                tp: Optional[L.ModelAxis] = None) -> torch.Tensor:
+        """The logits of :meth:`forward_aux`."""
+        return self.forward_aux(params, batch, tp)[0]
 
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor],
              tp: Optional[L.ModelAxis] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(mean cross-entropy, {"ce": ...}); the dense family has no
-        auxiliary loss.  On a ``model`` axis the cross-entropy is
+        """(ce + router_aux_weight * aux, {"ce": ..., "aux_loss": ...}), as
+        JAX's ``Model.loss``; the aux loss is the moe family's load-balance
+        loss summed over the layers (0.0 elsewhere, where the total is the
+        cross-entropy itself).  On a ``model`` axis the cross-entropy is
         vocab-parallel and every rank of the axis gets the same value."""
-        logits = self.forward(params, batch, tp)
+        logits, aux = self.forward_aux(params, batch, tp)
         if tp is None:
             ce, _ = cross_entropy(logits, batch["labels"])
         else:
             ce, _ = L.vocab_parallel_cross_entropy(logits, batch["labels"],
                                                    tp)
-        return ce, {"ce": ce}
+        total = ce + self.cfg.router_aux_weight * aux \
+            if self.cfg.family == "moe" else ce
+        return total, {"ce": ce, "aux_loss": aux}
 
 
 MODEL = L.MODEL_AXIS
 
 
-def _layer_keys(key):
-    """A layer's keys, as JAX's vmapped ``one(k)`` splits them: two, then
-    4 for attention (wq, wk, wv, wo) and 3 for the MLP (wg, wu, wd)."""
+def _layer_keys(family: str, key) -> Dict[str, np.ndarray]:
+    """A layer's keys by part, as JAX's vmapped ``one(k)`` splits them:
+    dense and moe split two, then 4 for attention (wq, wk, wv, wo) and 3
+    for the MLP (wg, wu, wd) or 4 for the experts (router, wg, wu, wd);
+    ssm splits 8 for mamba2 (wz, wx, wB, wC, wdt, dt_bias, conv_w, wo)."""
+    if family == "ssm":
+        return {"mamba": random.split(key, 8)}
     k1, k2 = random.split(key)
-    return random.split(k1, 4), random.split(k2, 3)
+    if family == "moe":
+        return {"attn": random.split(k1, 4), "moe": random.split(k2, 4)}
+    return {"attn": random.split(k1, 4), "mlp": random.split(k2, 3)}
 
 
 def build_model(cfg: ModelConfig) -> Model:

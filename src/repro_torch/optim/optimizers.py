@@ -1,4 +1,6 @@
-"""AdamW on params trees (``repro/optim/optimizers.py``).
+"""Optimizers on params trees (``repro/optim/optimizers.py``): SGD (with
+momentum and Nesterov), AdamW, and the chainable gradient transforms
+``clip_by_global_norm`` and ``chain``.
 
 An Optimizer is a pair (init, update):
     state            = init(params)
@@ -33,6 +35,30 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x)) for x in T.leaves(tree)))
 
 
+def sgd(schedule, momentum: float = 0.0, nesterov: bool = False
+        ) -> Optimizer:
+    """SGD, with heavy-ball momentum m <- momentum * m + g (Nesterov: the
+    step takes momentum * m + g); the step count is a python int."""
+
+    def init(params):
+        mom = T.tree_map(torch.zeros_like, params) if momentum else None
+        return {"count": 0, "mom": mom}
+
+    def update(grads, state, params):
+        lr = schedule(int(state["count"]))
+        if momentum:
+            mom = T.tree_map(lambda m, g: momentum * m + g, state["mom"],
+                             grads)
+            eff = (T.tree_map(lambda m, g: momentum * m + g, mom, grads)
+                   if nesterov else mom)
+        else:
+            mom, eff = None, grads
+        updates = T.tree_map(lambda g: -lr * g, eff)
+        return updates, {"count": int(state["count"]) + 1, "mom": mom}
+
+    return Optimizer(init, update)
+
+
 def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     """Adam with decoupled weight decay; moments in f32.  The step count is
@@ -65,5 +91,37 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
         updates = T.tree_map(upd, m, v, params)
         return updates, {"count": count, "m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    """Gradient transform: rescale so ||g|| <= max_norm (chainable).  The
+    scale stays a tensor on the grads' device."""
+
+    def init(params):
+        return {}
+
+    def update(grads, state, params):
+        norm = global_norm(grads)
+        scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+        return T.tree_map(lambda g: g * scale, grads), state
+
+    return Optimizer(init, update)
+
+
+def chain(*transforms: Optimizer) -> Optimizer:
+    """Compose gradient transforms; the last one produces the final
+    deltas."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params):
+        new_states = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_states.append(s)
+        return grads, tuple(new_states)
 
     return Optimizer(init, update)

@@ -19,7 +19,10 @@ does: ``bits >> 9 | 0x3F800000`` read as f32, minus 1.0; a range
 sqrt(2) * erfinv of the exact uniform on (nextafter(-1, 0), 1), as JAX
 computes it, with XLA CPU's own f32 ``erf_inv`` (:func:`erf_inv`: Giles'
 polynomial over XLA's ``log1p`` and ``log``, each multiply-add fused as
-XLA's compiled code fuses it), so it too is bit for bit.
+XLA's compiled code fuses it), so it too is bit for bit.  XLA CPU's f32
+``exp``, ``expm1`` and ``log`` (:func:`xla_exp`, :func:`xla_expm1`,
+:func:`xla_log`) are emulated the same way, for the inits that compute
+with them (mamba2's ``dt_bias`` and ``A_log``).
 
 ``permutation`` and ``choice(replace=False)`` are ``jax.random``'s shuffle
 by repeated sorts (``jax/_src/random.py`` ``_shuffle``): each round splits
@@ -262,7 +265,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def _xla_log(y: torch.Tensor) -> torch.Tensor:
+def xla_log(y: torch.Tensor) -> torch.Tensor:
     """XLA CPU's f32 ``log``: split y into a mantissa in [sqrt(1/2),
     sqrt(2)) and an exponent e, then the Cephes polynomial in Estrin form
     and e * ln 2 in two parts, fused as its compiled code fuses them."""
@@ -279,9 +282,81 @@ def _xla_log(y: torch.Tensor) -> torch.Tensor:
     c = fma(fma(x, _LOG_P[6], _LOG_P[7]), x, _LOG_P[8])
     r = (x - z * 0.5) + fma(fma(fma(a, x3, b), x3, c), x3, e * _LOG_Q1)
     r = r + e * _LOG_Q2
-    r = torch.where(y < 0, torch.full_like(r, float("nan")), r)
+    r = torch.where((y < 0) | torch.isnan(y), torch.full_like(r, float("nan")),
+                    r)
     r = torch.where(y == 0, torch.full_like(r, -float("inf")), r)
     return torch.where(torch.isposinf(y), y, r)
+
+
+# The constants of XLA CPU's compiled f32 ``exp`` and ``expm1`` (jax 0.9.0),
+# read from their LLVM IR: the input clamp, log2(e), the Cephes polynomial
+# of ``expf`` (highest degree first, then 0.5), and the rational
+# approximation of ``tanh`` that ``expm1`` runs below |x| = 0.5 (its clamp,
+# numerator and denominator, highest degree first).
+_EXP_LO, _EXP_HI = _f32("C055F33340000000"), _f32("4056333340000000")
+_LOG2E = _f32("3FF7154760000000")
+_EXP_P = tuple(map(_f32, (
+    "3F2A0D2CE0000000", "3F56E879C0000000", "3F81112100000000",
+    "3FA5553820000000", "3FC5555540000000"))) + (0.5,)
+_TINY = float(np.finfo(np.float32).tiny)
+_TANH_CLAMP = _f32("401FFEC880000000")
+_TANH_SMALL = _f32("3F3A36E2E0000000")
+_TANH_NUM = tuple(map(_f32, (
+    "BCB3E4B800000000", "3D4C266FC0000000", "BDD7A6FFE0000000",
+    "3E6B800820000000", "3EEF286940000000", "3F44E1BDA0000000",
+    "3F740B3B80000000")))
+_TANH_DEN = tuple(map(_f32, (
+    "3EB41A7B00000000", "3F1F12BAC0000000", "3F629540A0000000",
+    "3F740B3BA0000000")))
+
+
+def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 division on any device: through f64, where one
+    rounding to f32 is exact (53 >= 2 * 24 + 2 bits)."""
+    return (a.double() / b.double()).float()
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``exp`` (Cephes ``expf``): x clamped to [-87.8, 88.7],
+    n = floor(x log2(e) + 1/2) clamped to [-127, 127], r = x - n ln 2 in
+    two parts, 1 + r + r^2 p(r), times 2^n built from its bits; every
+    multiply-add that LLVM fuses is one FMA (``fma``); a subnormal result
+    is flushed to zero."""
+    xc = torch.where(x < _EXP_LO, torch.full_like(x, _EXP_LO), x)
+    xc = torch.where(xc > _EXP_HI, torch.full_like(x, _EXP_HI), xc)
+    n = torch.floor(fma(xc, _LOG2E, 0.5)).clamp_(-127.0, 127.0)
+    r = fma(-n, _LOG_Q2, xc)
+    r = fma(-n, _LOG_Q1, r)
+    p = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        p = fma(p, r, c)
+    y = fma(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * scale
+    # XLA's CPU code runs with subnormals flushed to zero
+    return torch.where(out < _TINY, torch.zeros_like(out), out)
+
+
+def xla_expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``expm1``: ``exp(x) - 1`` above |x| = 0.5, else
+    ``tanh(x / 2) * (exp(x) + 1)`` with XLA's rational ``tanh`` (the
+    argument itself below 4e-4, +-1 from 20 up); x where x / 2 is zero."""
+    e = xla_exp(x)
+    h = x * 0.5
+    ah = h.abs()
+    hc = torch.clamp(h, -_TANH_CLAMP, _TANH_CLAMP)
+    h2 = hc * hc
+    p = fma(h2, _TANH_NUM[0], _TANH_NUM[1])
+    for c in _TANH_NUM[2:]:
+        p = fma(h2, p, c)
+    q = fma(h2, _TANH_DEN[0], _TANH_DEN[1])
+    for c in _TANH_DEN[2:]:
+        q = fma(h2, q, c)
+    t = _div(hc * p, q)
+    t = torch.where(ah < _TANH_SMALL, h, t)
+    t = torch.where(ah >= 20.0, torch.copysign(torch.ones_like(h), h), t)
+    out = torch.where(x.abs() > 0.5, e - 1.0, t * (e + 1.0))
+    return torch.where(h == 0, x, out)
 
 
 def _xla_log1p(t: torch.Tensor) -> torch.Tensor:
@@ -294,9 +369,9 @@ def _xla_log1p(t: torch.Tensor) -> torch.Tensor:
     num = fma(torch.full_like(t, _LOG1P_NUM[0]), t, _LOG1P_NUM[1])
     for c in _LOG1P_NUM[2:]:
         num = fma(num, t, c)
-    q = (num.double() / den.double()).float()
+    q = _div(num, den)
     near = t + fma(t2, -0.5, (t * t2) * q)
-    return torch.where(t.abs() < _LOG1P_SMALL, near, _xla_log(1.0 + t))
+    return torch.where(t.abs() < _LOG1P_SMALL, near, xla_log(1.0 + t))
 
 
 def erf_inv(x: torch.Tensor, out: Optional[torch.Tensor] = None

@@ -158,16 +158,28 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
                       inflight=inflight)
 
 
+def value_aux_and_grad(loss_fn, params: PyTree, batch
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                  PyTree]:
+    """(loss, aux metrics, f32 grads) of ``loss_fn(params, batch) ->
+    (loss, aux)`` w.r.t. every leaf."""
+    leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(T.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            T.unflatten(params, [g.float() for g in grads]))
+
+
 def value_and_grad(loss_fn, params: PyTree, batch) -> Tuple[torch.Tensor,
                                                              PyTree]:
     """(loss, f32 grads) of ``loss_fn(params, batch)`` w.r.t. every leaf."""
-    leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
-    with torch.enable_grad():
-        loss, _ = loss_fn(T.unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), T.unflatten(params, [g.float() for g in grads])
+    loss, _, grads = value_aux_and_grad(loss_fn, params, batch)
+    return loss, grads
 
 
+#: the per-worker metrics of every step, averaged over the workers; the
+#: loss function's aux metrics (``ce``, ``aux_loss``) follow, by name
 METRICS = ("loss", "grad_norm", "h_residual")
 
 
@@ -184,6 +196,7 @@ def make_train_step(
     participation: Optional[Participation] = None,
     group: Optional[WorkerGroup] = None,
     shards: Optional[ModelShards] = None,
+    grad_transform: Optional[Callable[[PyTree], PyTree]] = None,
 ) -> Callable[[TrainState, Dict[str, Any], Any], Tuple[TrainState, dict]]:
     """Build the train step ``step(state, batch, key)``.
     ``loss_fn(params, batch) -> (loss, aux)`` sees one worker's batch
@@ -209,6 +222,16 @@ def make_train_step(
     ``shards`` runs this rank's shards on a mesh with a ``model`` axis
     (with ``group``, whose ``model`` is that axis, and the tensor-parallel
     ``loss_fn``); it needs a TrainState built with the same shards.
+
+    ``grad_transform`` rewrites each worker's f32 gradient tree before its
+    compress step (the JAX trainer's hook; e.g.
+    ``layers.zero_inactive_expert_grads``, the worker side of the MoE
+    expert-sparsity contract); the norms and h_residual see the rewritten
+    tree.  None is the plain step.
+
+    The metrics are the workers' means of ``METRICS`` and of the loss
+    function's aux metrics, and ``g_norm``, ``update_norm`` (and
+    ``participants``, ``w_err`` where they apply).
 
     The step takes the state over, as the JAX step donates it: the
     control variates are updated in place, worker by worker."""
@@ -246,10 +269,14 @@ def make_train_step(
         # sampled before the workers run, on every rank from the same key
         mask = participation.sample_mask(participation_key(key), n, dev) \
             if federated else None
-        messages, local = [], []
+        messages, local, names = [], [], METRICS
         for row, i in enumerate(workers):
             batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            loss, grads = value_and_grad(loss_fn, eval_params, batch_i)
+            loss, aux, grads = value_aux_and_grad(loss_fn, eval_params,
+                                                  batch_i)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            names = METRICS + tuple(sorted(aux))
             h_i = T.tree_map(lambda a: a[row], state.h)
             message, h_i_new = compress_local(
                 algo, random.fold_in(key, i), grads, h_i, mode=agg_mode,
@@ -258,7 +285,8 @@ def make_train_step(
                 shards=shards)
             local.append(torch.stack([
                 loss.float(), norm(grads),
-                norm(T.tree_map(torch.sub, grads, h_i_new))]))
+                norm(T.tree_map(torch.sub, grads, h_i_new))]
+                + [aux[k].float() for k in sorted(aux)]))
             T.tree_map(lambda dst, src: dst.copy_(src), h_i, h_i_new)
             messages.append(message)
             del grads, h_i_new
@@ -282,7 +310,7 @@ def make_train_step(
         updates, opt_state = optimizer.update(g, state.opt_state, state.params)
         params = apply_updates(state.params, updates)
         metrics = {k: local[:, j].contiguous().mean()
-                   for j, k in enumerate(METRICS)}
+                   for j, k in enumerate(names)}
         metrics["g_norm"] = norm(g)
         metrics["update_norm"] = norm(updates)
         if federated:

@@ -182,3 +182,370 @@ def test_mixed_dtype_payload_two_ranks_equal_one_process():
     assert len(steps(one.stdout)) == 3
     assert "codec=block_sparse,dense_pack,qsgd_quant 5646368 " \
         "bits/round/worker" in one.stdout
+
+
+# -- the ssm and moe families against the JAX package -------------------------
+#
+# Seeded numpy inputs through the JAX function and the port's.  Tolerances:
+# f32 activations rtol 1e-5 on the loss and 1e-4 of each leaf's largest
+# gradient (matmul and reduction sums in another order); bf16 activations
+# atol 1e-2 on the loss and 1.5e-2 on the global gradient norm's relative
+# difference (bf16 rounds at other points; in the moe family a near-tie
+# in the router can then send a token to another expert).
+
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke_config as jsmoke  # noqa: E402
+from repro.models import mamba2 as jm2  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models.model import Model as JModel  # noqa: E402
+from repro_torch import random as R  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.configs import get_smoke_config as tsmoke  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.models import layers as tL  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+FAMILY_ARCHS = ["mamba2-130m", "granite-moe-3b-a800m", "dbrx-132b",
+                "minicpm-2b"]
+
+
+def _family(arch, adt="float32"):
+    jcfg = dataclasses.replace(jsmoke(arch), activation_dtype=adt)
+    tcfg = dataclasses.replace(tsmoke(arch), activation_dtype=adt)
+    params = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.key(0)))
+    return jcfg, tcfg, params
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("adt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_loss_and_grads_match_jax(arch, adt):
+    """Logits, loss, its ``ce``/``aux_loss`` metrics and every leaf's
+    gradient of the four new smoke archs (two SSD chunks a sequence), the
+    port against ``repro.models.model.Model`` from the same params."""
+    from repro_torch.train.trainer import value_aux_and_grad
+
+    jcfg, tcfg, params = _family(arch, adt)
+    batch = SyntheticLM(vocab=1024, seq_len=64, global_batch=2,
+                        n_workers=1, seed=3).batch(0)
+    jm, tm = JModel(jcfg), build_model(tcfg)
+    (jloss, jaux), jgrads = jax.value_and_grad(
+        lambda p: jm.loss(p, batch), has_aux=True)(params)
+    jlogits, _ = jm.forward(params, batch)
+    with R._serial(torch.device("cpu")):
+        tparams = T.params_from_jax(params, "cpu")
+        tloss, taux, tgrads = value_aux_and_grad(tm.loss, tparams,
+                                                 _tbatch(batch))
+        tlogits = tm.forward(tparams, _tbatch(batch))
+    assert sorted(taux) == sorted(jaux) == ["aux_loss", "ce"]
+    jl, tl = jax.tree.leaves(jgrads), T.leaves(tgrads)
+    assert len(jl) == len(tl) and all(torch.isfinite(b).all() for b in tl)
+    if adt == "float32":
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-5, atol=1e-5)
+        for k in ("ce", "aux_loss"):
+            np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
+                                       rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        for a, b in zip(jl, tl):
+            a = np.asarray(a)
+            np.testing.assert_allclose(b.numpy(), a, rtol=0,
+                                       atol=1e-4 * float(np.abs(a).max()))
+    else:
+        np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-2)
+        jn = np.sqrt(sum(float(np.sum(np.square(np.asarray(a, np.float64))))
+                         for a in jl))
+        tn = np.sqrt(sum(float(torch.sum(b.double() ** 2)) for b in tl))
+        assert abs(tn - jn) <= 1.5e-2 * jn
+
+
+def _mamba2_layer(chunk):
+    """One full-width mamba2 layer (d 768, d_inner 1536, 24 heads of 64,
+    state 128) from ``mamba2_init(key(0))`` and x ~ N(0, 1) of shape
+    (2, 128, 768), in f32."""
+    kw = dict(d_inner=1536, d_state=128, n_heads=24)
+    p, _ = jm2.mamba2_init(jax.random.key(0), 768, d_conv=4, **kw)
+    p = jax.tree.map(np.asarray, p)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 128, 768)).astype(np.float32)
+    r = rng.standard_normal((2, 128, 768)).astype(np.float32)
+
+    def jloss(p, x):
+        y = jm2.mamba2_apply(p, x, chunk=chunk, **kw)
+        return jnp.sum(y * r), y
+
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        p, x)
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_(True)
+          for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with R._serial(torch.device("cpu")):
+        ty = tL.mamba2_apply(tp, tx, chunk=chunk, **kw)
+        torch.sum(ty * torch.from_numpy(r)).backward()
+    return jy, jg, ty.detach(), tp, tx
+
+
+def test_ssd_gradient_finite_where_jax_is_nan():
+    """ROADMAP fault w: at full width with chunk 128 JAX's
+    ``where(causal, exp(diff), 0)`` has inf above the diagonal, and its
+    gradient is NaN (the select's zero cotangent times inf); the port
+    masks before the exp, so the forward is the same and every gradient
+    finite."""
+    jy, (jgp, jgx), ty, tp, tx = _mamba2_layer(128)
+    assert not np.isfinite(np.asarray(jgx)).all()
+    assert not all(np.isfinite(np.asarray(v)).all()
+                   for v in jax.tree.leaves(jgp))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(jy).max()))
+    assert torch.isfinite(tx.grad).all()
+    assert all(torch.isfinite(v.grad).all() for v in tp.values())
+
+
+def test_ssd_gradient_matches_jax_at_chunk_32():
+    """At the same full widths with chunk 32 (where JAX's decays stay below
+    exp's overflow) the port's gradients match JAX's."""
+    jy, (jgp, jgx), ty, tp, tx = _mamba2_layer(32)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(jy).max()))
+    for name, v in tp.items():
+        a = np.asarray(jgp[name])
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(v.grad.numpy(), a, rtol=0,
+                                   atol=2e-4 * float(np.abs(a).max()))
+    a = np.asarray(jgx)
+    np.testing.assert_allclose(tx.grad.numpy(), a, rtol=0,
+                               atol=2e-4 * float(np.abs(a).max()))
+
+
+def test_moe_routing_and_fixed_routing_match_jax():
+    """The router's top-k (``expert_ids``) equals ``jax.lax.top_k``'s on
+    granite-moe-smoke's probabilities, ties included (rows of equal
+    probabilities go to the lowest indices); under
+    ``fixed_routing_params`` every token goes to experts 0..k-1 in both
+    packages, and the MoE layer's output and aux loss match JAX's."""
+    jcfg, tcfg, params = _family("granite-moe-3b-a800m")
+    E, k = jcfg.n_experts, jcfg.experts_per_tok
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 16, jcfg.d_model)).astype(np.float32)
+    router = params["layers"]["moe"]["router"][0]
+    probs = np.array(jax.nn.softmax(jnp.asarray(x @ router), axis=-1))
+    probs[0, :3] = 0.25                       # four-way ties
+    probs[1, 5] = [0.5, 0.25, 0.25, 0.0]
+    jv, jids = jax.lax.top_k(jnp.asarray(probs), k)
+    tv, tids = tL.top_k_lowest_ties(torch.from_numpy(probs), k)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    layer = {n: v[0] for n, v in params["layers"]["moe"].items()}
+    for fixed in (False, True):
+        p = jmoe.fixed_routing_params({"moe": layer})["moe"] if fixed \
+            else layer
+        tp = T.params_from_jax(p, "cpu")
+        if fixed:
+            zeros = torch.zeros((x.shape[0] * x.shape[1], E))
+            _, ids = tL.top_k_lowest_ties(torch.softmax(zeros, -1), k)
+            assert (ids == torch.arange(k)).all()
+            assert float(tL.fixed_routing_params({"moe": tp})["moe"][
+                "router"].abs().sum()) == 0.0
+        jy, jaux = jmoe.moe_apply(p, x, n_experts=E, k=k)
+        ty, taux = tL.moe_apply(tp, torch.from_numpy(x), n_experts=E, k=k)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(jy).max()))
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+    assert tL.moe_capacity(32, 2, E, k, 1.25) == (2, max(1, int(
+        1.25 * k * 16 / E)))
+    assert tL.moe_capacity(3 * 5, 4, 40, 8, 1.25) == (3, 1)
+
+
+def test_expert_mask_and_zeroing_bitwise():
+    """``expert_activity_mask`` and ``zero_inactive_expert_grads`` (its own
+    mask and a given one) equal JAX's bit for bit on stacked (L, E, a, b)
+    slabs with zero experts, -0.0 and a NaN; non-MoE subtrees pass."""
+    rng = np.random.default_rng(2)
+    moe = {n: rng.standard_normal((2, 4, 3, 5)).astype(np.float32)
+           for n in tL.EXPERT_LEAVES}
+    moe["router"] = rng.standard_normal((2, 6, 4)).astype(np.float32)
+    for n in tL.EXPERT_LEAVES:
+        moe[n][0, 1] = 0.0
+        moe[n][1, 2] = -0.0
+    moe["wg"][1, 3, 0, 0] = np.nan
+    moe["wu"][0, 3] = 0.0                     # one slab of three zero
+    tree = {"layers": {"moe": moe, "ln1": rng.standard_normal(
+        (2, 6)).astype(np.float32)}, "embed": np.ones((3, 6), np.float32)}
+    jm = jmoe.expert_activity_mask(moe)
+    tm = tL.expert_activity_mask(T.params_from_jax(moe, "cpu"))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    given = np.array([[True, False, True, False], [False, True, True,
+                                                   True]])
+    for mask in (None, given):
+        want = jmoe.zero_inactive_expert_grads(
+            tree, None if mask is None else jnp.asarray(mask))
+        got = tL.zero_inactive_expert_grads(
+            T.params_from_jax(tree, "cpu"),
+            None if mask is None else torch.from_numpy(mask))
+        for a, b in zip(jax.tree.leaves(want), T.leaves(got)):
+            a = np.asarray(a)
+            np.testing.assert_array_equal(b.numpy().view(np.uint32),
+                                          a.view(np.uint32))
+
+
+def _jax_trainer_round(jcfg, params, data, steps, grad_transform):
+    """JAX's ``make_train_step`` on a 1x1 mesh (one worker): block-top-k
+    (256, 16) up over the sparse all-gather, AdamW on a warmup-cosine
+    schedule, step s under fold_in(key(0), s)."""
+    from repro.core import compressors as jcomp
+    from repro.core.efbv import EFBV as JEFBV
+    from repro.launch.mesh import make_mesh
+    from repro.optim import adamw as jadamw
+    from repro.optim import cosine as jcosine
+    from repro.train.trainer import init_train_state as jinit
+    from repro.train.trainer import make_train_step as jmake
+
+    mesh = make_mesh((1, 1))
+    algo = JEFBV(jcomp.make_compressor("block_topk:256,16"), lam=0.37,
+                 nu=0.61)
+    opt = jadamw(jcosine(3e-4, total_steps=steps, warmup_steps=1),
+                 weight_decay=0.01)
+    state = jinit(jax.tree.map(jnp.asarray, params), opt, mesh)
+    step = jmake(lambda p, b: JModel(jcfg).loss(p, b), opt, algo, mesh,
+                 agg_mode="sparse_allgather", grad_transform=grad_transform)
+    losses, metrics = [], None
+    for s in range(steps):
+        state, metrics = step(state, {k: jnp.asarray(v) for k, v in
+                                      data.batch(s).items()},
+                              jax.random.fold_in(jax.random.key(0), s))
+        losses.append(float(metrics["loss"]))
+    return losses, state.params, metrics
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m"])
+def test_family_trainer_round_matches_jax_trainer(arch):
+    """Two EF-BV rounds of the port's trainer against JAX's
+    ``make_train_step`` (one worker, JAX's own trainer, not fault d's
+    oracle): mamba2-smoke as it is, granite-moe-smoke under
+    ``fixed_routing_params`` with ``grad_transform=
+    zero_inactive_expert_grads`` (the expert-sparsity regime).  Losses
+    within 1e-5 relative, params within 1e-5 (block-top-k on gradients
+    that differ in their last bits), the same metric names."""
+    from repro_torch.core import compressors as tcomp
+    from repro_torch.core.efbv import EFBV
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    jcfg, tcfg, params = _family(arch)
+    moe = arch.startswith("granite")
+    if moe:
+        params = jax.tree.map(np.asarray, jmoe.fixed_routing_params(params))
+    data = SyntheticLM(vocab=1024, seq_len=32, global_batch=4, n_workers=1,
+                       seed=0)
+    steps = 2
+    jl, jparams, jm = _jax_trainer_round(
+        jcfg, params, data, steps,
+        jmoe.zero_inactive_expert_grads if moe else None)
+    opt = adamw(cosine(3e-4, total_steps=steps, warmup_steps=1),
+                weight_decay=0.01)
+    algo = EFBV(tcomp.make_compressor("block_topk:256,16"), lam=0.37,
+                nu=0.61)
+    with R._serial(torch.device("cpu")):
+        state = init_train_state(T.params_from_jax(params, "cpu"), opt,
+                                 n_workers=1)
+        step = make_train_step(
+            build_model(tcfg).loss, opt, algo, n_workers=1,
+            agg_mode="sparse_allgather",
+            grad_transform=tL.zero_inactive_expert_grads if moe else None)
+        tl = []
+        for s in range(steps):
+            state, tm = step(state, data.batch(s), R.fold_in(R.key(0), s))
+            tl.append(float(tm["loss"]))
+    assert sorted(tm) == sorted(jm)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(jparams), T.leaves(state.params)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-5)
+
+
+def test_checkpoints_move_between_packages_bitwise(tmp_path):
+    """A checkpoint saved by the JAX package restores in the port bit for
+    bit, and one saved by the port restores in JAX bit for bit: the same
+    file name, '|'-joined leaf paths and spec entries; a spec-gated restore
+    under another spec is refused in both, with the same text."""
+    from repro.checkpoint import npz as jnpz
+    from repro.core import ExperimentSpec as JSpec
+    from repro_torch.core import ExperimentSpec
+
+    _, tcfg, params = _family("mamba2-130m")
+    tree = {"params": params}
+    raw = dict(compressor="block_topk:256,16", agg="sparse_allgather",
+               backend="shard_map", problem="mamba2-130m", smoke=True,
+               mesh="2x1", n=2, d=128, steps=2)
+    jspec, tspec = JSpec(**raw), ExperimentSpec(**raw)
+    assert jspec.fingerprint() == tspec.fingerprint()
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jnpz.save_checkpoint(jdir, 2, tree, spec=jspec)
+    T.save_checkpoint(tdir, 2, T.params_from_jax(tree, "cpu"), spec=tspec)
+    assert sorted(os.listdir(jdir)) == sorted(os.listdir(tdir)) == \
+        ["step_00000002.npz"]
+    assert T.latest_step(jdir) == jnpz.latest_step(tdir) == 2
+    template = {"params": build_model(tcfg).init_abstract()}
+    step, back = T.restore_latest(jdir, template, spec=tspec)
+    jback = jnpz.restore_checkpoint(tdir, 2, tree, spec=jspec)
+    for a, b, c in zip(jax.tree.leaves(tree), T.leaves(back),
+                       jax.tree.leaves(jback)):
+        np.testing.assert_array_equal(b.numpy().view(np.uint32),
+                                      a.view(np.uint32))
+        np.testing.assert_array_equal(np.asarray(c).view(np.uint32),
+                                      a.view(np.uint32))
+    assert T.saved_spec(jdir, 2) == tspec
+    assert jnpz.saved_spec(tdir, 2) == jspec
+    other = dataclasses.replace(tspec, seed=1)
+    with pytest.raises(ValueError, match="refusing resume") as te:
+        T.restore_checkpoint(jdir, 2, template, spec=other)
+    with pytest.raises(ValueError, match="refusing resume") as je:
+        jnpz.restore_checkpoint(tdir, 2, tree,
+                                spec=dataclasses.replace(jspec, seed=1))
+    assert str(te.value) == str(je.value)
+    with pytest.raises(ValueError, match="mismatch"):
+        T.restore_checkpoint(jdir, 2, {"params": {"embed": template[
+            "params"]["embed"]}})
+
+
+@pytest.mark.parametrize("arch,bits,ratio", [
+    ("mamba2-130m", 1_371_136, "0.1254x"),
+    ("granite-moe-3b-a800m", 6_829_056, "0.1250x")])
+def test_family_cli_smoke_prints_jaxs_bits(arch, bits, ratio, tmp_path,
+                                           capsys):
+    """The driver at ``--smoke`` on the two new families prints JAX's
+    ``wire.tree_format_for`` bits (over ``init_abstract()``); granite's
+    step lines carry the aux loss; mamba2 with ``--ckpt-dir`` and
+    ``--ckpt-every 1`` writes a checkpoint a step that restores into the
+    port's template."""
+    from repro.core import compressors as jcomp
+    from repro.distributed import wire as jwire
+    from repro_torch.launch import train as tlaunch
+
+    jfmt = jwire.tree_format_for(jcomp.make_compressor("block_topk:256,16"),
+                                 JModel(jsmoke(arch)).init_abstract())
+    assert jfmt.bits_per_round() == bits
+    ckpt = str(tmp_path / "ckpt")
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--workers", "2",
+            "--steps", "2", "--global-batch", "4", "--seq", "64",
+            "--compressor", "block_topk:256,16", "--agg",
+            "sparse_allgather", "--log-every", "1"]
+    if arch.startswith("mamba2"):
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", "1"]
+    assert np.isfinite(tlaunch.main(argv))
+    out = capsys.readouterr().out
+    assert f" {bits} bits/round/worker uplink" in out and ratio in out
+    assert out.count("[train] step") == 2
+    assert out.count("aux_loss=") == (2 if "moe" in arch else 0)
+    if arch.startswith("mamba2"):
+        assert out.count("[train] checkpoint @") == 2
+        assert T.latest_step(ckpt) == 2
+        spec = tlaunch.experiment(tlaunch.parse_args(argv))
+        assert T.saved_spec(ckpt, 2) == spec

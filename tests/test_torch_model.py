@@ -256,7 +256,7 @@ def test_driver_folds_smoke_and_pipeline_into_a_spec(tmp_path, capsys):
     (dict(problem="logreg", mesh="1x1", n=1, d=16), "model archs"),
     (dict(mesh="2x4"), "not yet ported"),
     (dict(backend="fsdp"), "not yet ported"),
-    (dict(problem="mamba2-130m", d=128), "not yet ported"),
+    (dict(problem="zamba2-7b", d=128), "not yet ported"),
     (dict(leaf_codecs="*embed*=qsgd:16"), None),
     (dict(downlink="topk:64"), None),
     (dict(compressor="sign"), None),
@@ -294,16 +294,23 @@ from repro.configs import get_config as _jfull  # noqa: E402
 from repro_torch.configs import get_config as _tfull  # noqa: E402
 
 
-@pytest.mark.parametrize("seed", [0, 7])
-def test_init_draws_jax_weights_bitwise(seed):
+@pytest.mark.parametrize("seed,arch", [
+    pytest.param(0, "qwen2-0.5b", id="0"),
+    pytest.param(7, "qwen2-0.5b", id="7"),
+    pytest.param(0, "mamba2-130m", id="mamba2-130m"),
+    pytest.param(0, "granite-moe-3b-a800m", id="granite-moe-3b-a800m")])
+def test_init_draws_jax_weights_bitwise(seed, arch):
     """``Model.init(random.key(s))`` follows JAX's key tree (split(key, 8);
     the layers' keys split per layer, then 4 ways for attention and 3 for
-    the MLP; the embedding under keys[1]) and draws ``random.normal``,
-    XLA's erf_inv bit for bit: every leaf equals
+    the MLP or 4 for the experts, or 8 ways for mamba2; the embedding under
+    keys[1], an untied head under keys[2]) and draws ``random.normal``,
+    XLA's erf_inv bit for bit; mamba2's dt_bias (XLA's exp, expm1 and log
+    of a uniform) and A_log (XLA's log) too: every leaf equals
     ``repro.models.model.Model.init(jax.random.key(s))`` bitwise."""
-    jp = JModel(jget_smoke_config("qwen2-0.5b")).init(jax.random.key(seed))
-    tp = build_model(get_smoke_config("qwen2-0.5b")).init(random.key(seed),
-                                                          device="cpu")
+    jp = JModel(jget_smoke_config(arch)).init(jax.random.key(seed))
+    with random._serial(torch.device("cpu")):
+        tp = build_model(get_smoke_config(arch)).init(random.key(seed),
+                                                      device="cpu")
     jl, tl = jax.tree.leaves(jp), T.leaves(tp)
     assert len(jl) == len(tl)
     for a, b in zip(jl, tl):
@@ -674,3 +681,39 @@ def test_run_state_shardings_lift_param_specs():
     with pytest.raises(Exception, match="not the spec"):
         run.train_step(model.loss, adamw(lambda s: 1e-3),
                        tagg.make_mesh((2, 1)))
+
+
+# -- the ssm and moe families: configs, specs, the model axis -----------------
+
+from repro import configs as jconfigs  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+
+NEW_ARCHS = ["minitron-8b", "granite-moe-3b-a800m", "mamba2-130m",
+             "phi3-medium-14b", "dbrx-132b", "minicpm-2b"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["qwen2-0.5b"])
+def test_configs_equal_jax_field_for_field(arch):
+    """Each ported arch's config and smoke config equal the JAX
+    registry's, field for field; the archs not ported still raise."""
+    for jget, tget in ((jconfigs.get_config, tconfigs.get_config),
+                       (jconfigs.get_smoke_config,
+                        tconfigs.get_smoke_config)):
+        assert dataclasses.asdict(tget(arch)) == \
+            dataclasses.asdict(jget(arch))
+    assert arch in tconfigs.list_archs()
+    assert sorted(tconfigs.known_archs()) == sorted(jconfigs.list_archs())
+    for name in ("qwen2-vl-2b", "whisper-medium", "zamba2-7b"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tconfigs.get_config(name)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m"])
+def test_model_axis_refuses_the_ssm_and_moe_families(arch):
+    """The port's tensor parallelism covers attention and the MLP only: a
+    ``model`` axis of 2 is refused for mamba2 and granite-moe (ROADMAP
+    2f), never run."""
+    why = build_model(get_smoke_config(arch)).model_axis_refusal(2)
+    family = get_smoke_config(arch).family
+    assert f"the {family} family" in why and "not yet ported" in why
+    assert build_model(get_smoke_config(arch)).model_axis_refusal(1) == ""

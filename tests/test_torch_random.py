@@ -368,3 +368,76 @@ def test_row_draws_are_one_call_and_one_key_copy(monkeypatch):
             fn()
             assert (calls["rows"], calls["copies"]) == want
     assert not any(LAUNCHES.values())
+
+
+# -- XLA CPU's f32 exp, expm1 and log (mamba2's init) -------------------------
+
+def _xla_inputs():
+    """2**20 values over exp's whole range, 2**18 near zero (expm1's tanh
+    branch and its 4e-4 cut), 2**18 of mamba2's dt draws exp(u) (u on
+    [log 1e-3, log 1e-1)), and the edges: zeros, infinities, NaN, the
+    clamps, the 0.5 switch and subnormal results."""
+    rng = np.random.default_rng(0)
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-30, -1e-30,
+                      88.7, 88.8, -87.3, -87.9, -103.0, 40.0, -20.0, 20.0,
+                      0.5, -0.5, np.nextafter(np.float32(0.5), 1),
+                      8e-4, 7.9e-4, 2**-20], np.float32)
+    return np.concatenate([
+        rng.uniform(-100, 100, 2**20).astype(np.float32),
+        rng.uniform(-1e-3, 1e-3, 2**18).astype(np.float32),
+        np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                           2**18)).astype(np.float32), edges])
+
+
+@pytest.mark.parametrize("name", ["exp", "expm1", "log"])
+def test_xla_exp_expm1_and_log_bitwise(name):
+    """``random.xla_exp`` (Cephes ``expf``, subnormal results flushed to
+    zero), ``xla_expm1`` (``exp(x) - 1`` above |x| = 0.5, else
+    ``tanh(x / 2) * (exp(x) + 1)`` with XLA's rational tanh) and
+    ``xla_log`` equal ``jnp.exp``, ``jnp.expm1`` and ``jnp.log`` on the
+    CPU bit for bit, each fused multiply-add emulated (``random.fma``);
+    NaN where JAX gives NaN (log of a negative too)."""
+    x = _xla_inputs()
+    jfn, tfn = {"exp": (jnp.exp, R.xla_exp), "expm1": (jnp.expm1,
+                                                        R.xla_expm1),
+                "log": (jnp.log, R.xla_log)}[name]
+    want = np.asarray(jfn(x))
+    with R._serial(torch.device("cpu")):
+        got = tfn(torch.from_numpy(x)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+
+
+# -- the families' parameter specs and layout (a slow, JAX-heavy check) -------
+
+from repro.configs import get_config as _jfull  # noqa: E402
+from repro.configs import get_smoke_config as jget_smoke_config  # noqa: E402
+from repro.models.model import Model as JModel  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.configs import get_config as _tfull  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.models.layers import is_spec  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m",
+                                  "dbrx-132b", "minicpm-2b"])
+def test_family_param_specs_and_layout_equal_jax(arch, full):
+    """``param_specs()`` equal JAX's PartitionSpecs leaf for leaf, and the
+    abstract tree has JAX's leaf paths and shapes in JAX's flatten order
+    (the wire's per-leaf layout), full and smoke."""
+    jcfg = _jfull(arch) if full else jget_smoke_config(arch)
+    tcfg = _tfull(arch) if full else get_smoke_config(arch)
+    jspecs = jax.tree.leaves(
+        JModel(jcfg).param_specs(),
+        is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
+    assert [tuple(s) for s in jspecs] == T.leaves(
+        build_model(tcfg).param_specs(), is_leaf=is_spec)
+    jabs = jax.tree_util.tree_flatten_with_path(JModel(jcfg).init_abstract())[0]
+    tabs = T.flatten_with_path(build_model(tcfg).init_abstract())
+    assert [("/".join(str(k.key) for k in p), tuple(a.shape))
+            for p, a in jabs] == [("/".join(p), tuple(a.shape))
+                                  for p, a in tabs]

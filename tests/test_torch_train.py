@@ -313,11 +313,13 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
 def test_cli_refuses_unported_flags(flag, capsys):
     """The JAX driver's flags the port lacks exit with "not yet ported";
     those ported since (a non-QSGD downlink, per-leaf codecs, a worker
-    fleet, every zoo compressor, bf16/f16 wires) parse as JAX's do."""
+    fleet, every zoo compressor, bf16/f16 wires, checkpoints and the WSD
+    schedule) parse as JAX's do."""
     if flag[0] in ("--downlink", "--leaf-codecs", "--worker-comps",
-                   "--compressor", "--wire-dtype"):
+                   "--compressor", "--wire-dtype", "--ckpt-dir",
+                   "--ckpt-every", "--schedule"):
         args = tlaunch.parse_args(["--smoke", "--device", "cpu", *flag])
-        assert getattr(args, flag[0][2:].replace("-", "_")) == flag[1]
+        assert str(getattr(args, flag[0][2:].replace("-", "_"))) == flag[1]
         assert "not yet ported" not in capsys.readouterr().err
         return
     with pytest.raises(SystemExit):
