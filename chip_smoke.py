@@ -43,9 +43,15 @@ line is printed only when every phase passed):
               draw (``threefry_rows``, n keys at once) and the ordered
               worker sum (``worker_sum.cu``, with and without the mask and
               the fused master update), bitwise against their plain
-              versions at n in {16, 1000} and d in {64, 112, 300, 2**20},
-              timed beside them; the stable sorts of the batched
-              compressors with forced ties, card == CPU == numpy.
+              versions at n in {16, 1000} and d in {64, 112, 300, 2**20}
+              and, for the worker sum, at its layouts' edges (n = 33,
+              1024, 1025, 32**3 + 1 and the narrow layout's last row count
+              +-1; 1, 31, 33 and 113 columns), timed beside them (the
+              worker sum's device time by the profiler at (1000, 112); a
+              plain version above 2**24 values is not timed); the stable
+              sorts of the batched compressors with forced ties, card ==
+              CPU == numpy.  The threefry draw's SASS per value: all
+              instructions, the integer pipe's, the FMA pipe's IMADs.
 3. reference -- JAX's initial weights (``Model.init(random.key(0))``,
               XLA's f32 erf_inv emulated) of the smoke config drawn on the
               card bitwise equal to the CPU's, and a 2**22-value normal
@@ -254,12 +260,11 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 # That rate is 132 SMs x 128 f32 lanes x 2 (an FMA counts two) x 1.98 GHz.
 # Each SM issues one warp instruction per clock from each of its four
-# schedulers (128 thread instructions), and retires 64 results per clock of
-# 32-bit integer add, shift, logic and compare (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0).
+# schedulers (128 thread instructions).
 H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2   # thread instructions, f32 ops
-H100_INT32_PER_S = H100_F32_OPS_PER_S / 4   # on the integer pipe
-# SASS opcodes that run on the integer pipe (64 results per clock per SM)
+# SASS opcodes of the integer pipe, counted apart in the threefry draw's
+# SASS; not a bound: the card ran 48.75 of them a value faster than the 64
+# a clock per SM that the CUDA C++ Programming Guide gives (PERF.md §6)
 INT_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "IMNMX", "PRMT"}
 FULL_BITS = 1_976_131_584        # qwen2-0.5b, block_topk:256,16, per worker
 QSGD_BITS = 3_952_262_592        # qwen2-0.5b, qsgd:16, per worker and down
@@ -1026,6 +1031,17 @@ SUM_EXTRA = ((33, 64), (2000, 112))
 #: its worker sum of (1000, 112) with the master update fused
 ROWS_MAIN = (1000, 56)
 SUM_MAIN = (1000, 112)
+#: the worker sum's layout edges (``ops.worker_sum_plan``): one window of
+#: 17 + 16 rows, 1024 rows with no padding, two levels at 1025 and three
+#: at 32**3 + 1, and the narrow layout's last row count and its neighbours
+#: (the switch to the streamed column form, ``ops.SUM_NARROW_ROWS``), at
+#: one column, a partial tile of 4 and the tiles around 32 and 112
+SUM_EDGE_NS = (33, 1024, 1025)
+SUM_BIG_NS = (32**3 + 1,)
+SUM_EDGE_COLS = (1, 31, 33, 113)
+#: a plain version's call above this many values is not timed (the
+#: (1000, 2**20) loops take over a second a call)
+PLAIN_TIMED_MAX = 2**24
 
 
 def worker_sum_bound_ms(n, cols, rows_weights, fuse):
@@ -1086,7 +1102,9 @@ def check_worker_sum(n, cols, kind, order, fuse, gen, dev):
     (fused with the master update or not) against its plain version on
     the card, bitwise, on data with -0.0, inf and a NaN in the last
     worker's row (its mask is 0: 0 * NaN stays NaN); returns the max
-    |kernel - plain|."""
+    |kernel - plain|.  The plain version takes a host copy of an (n,)
+    tensor of weights (the same values: its loop reads each row's weight,
+    which from the card would cost a synchronisation a row)."""
     from repro_torch.kernels import ops, ref
 
     d = torch.randn(n, cols, generator=gen)
@@ -1099,6 +1117,8 @@ def check_worker_sum(n, cols, kind, order, fuse, gen, dev):
     c_g, c_h = f32(0.37 / n), f32(0.011 / n)
     args = (d, w) + ((h, c_g, c_h) if fuse else (None, 0.0, 0.0))
     k = ops.worker_sum(*args, order=order)
+    if isinstance(w, torch.Tensor):
+        args = (d, w.cpu()) + args[2:]
     p = ref.worker_sum_ref(*args, order=order)
     k, p = (k, p) if fuse else ((k,), (p,))
     torch.cuda.synchronize()
@@ -1138,9 +1158,17 @@ def kernels_rows():
     from repro_torch.kernels import ops, ref, threefry
 
     dev = torch.device("cuda")
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(label):
+        nonlocal t0
+        secs[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     per_value = sass_per_value("threefry", "threefry_rows_kernel")
     print(f"[kernels] threefry_rows SASS per value: {per_value[0]:.2f} "
-          f"instructions, {per_value[1]:.2f} on the integer pipe")
+          f"instructions, {per_value[1]:.2f} on the integer pipe, "
+          f"{per_value[3]:.2f} IMADs on the FMA pipe")
     err_rows = {}
     draws = sorted(rows_cases(ROW_NS, (1, 7) + ROW_DS)
                    | rows_cases(MAIN_NS, MAIN_MS))
@@ -1150,6 +1178,7 @@ def kernels_rows():
         torch.cuda.empty_cache()
     print(f"[kernels] threefry_rows (n, m) in {draws}, words and uniforms: "
           "bitwise == plain, rows == the 1-D draw")
+    lap("row_draws")
     err_sum = {}
     gen = torch.Generator(device="cpu").manual_seed(5)
     sums = sorted(rows_cases(ROW_NS, ROW_DS)
@@ -1163,6 +1192,28 @@ def kernels_rows():
     print(f"[kernels] worker_sum (n, cols) in {sums} (weights and orders "
           f"{SUM_KINDS}, each with and without the fused update): bitwise "
           "== plain; a NaN row under a zero mask stays NaN")
+    lap("sums")
+    edges = [(n, cols, kind, order, fuse)
+             for n in SUM_EDGE_NS + SUM_BIG_NS for cols in SUM_EDGE_COLS
+             for kind, order in SUM_KINDS for fuse in (False, True)
+             if n not in SUM_BIG_NS or cols in (1, 113) and fuse]
+    # at the switch (95,232 rows: the plain version's loop over them takes
+    # about half a second a call): the windowed kinds at a partial tile,
+    # fused, and the plain sum alone
+    switch = tuple(ops.SUM_NARROW_ROWS + k for k in (-1, 0, 1))
+    edges += [(n, 113, kind, order, kind is not None)
+              for n in switch for kind, order in SUM_KINDS[:4]]
+    layouts = collections.Counter()
+    for n, cols, kind, order, fuse in edges:
+        check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+        layouts[ops.worker_sum_plan(n, cols, order).layout] += 1
+    torch.cuda.empty_cache()
+    print(f"[kernels] worker_sum at the layouts' edges: n in "
+          f"{SUM_EDGE_NS + SUM_BIG_NS + switch} x cols in {SUM_EDGE_COLS} "
+          f"({len(edges)} cases; the switch at SUM_NARROW_ROWS = "
+          f"{ops.SUM_NARROW_ROWS} rows), by layout {dict(layouts)}: bitwise "
+          "== plain")
+    lap("sum_edges")
     nan_d = torch.ones(40, 3, device=dev)
     nan_d[39, 1] = float("nan")
     nan_m = torch.ones(40, device=dev)
@@ -1176,7 +1227,8 @@ def kernels_rows():
             kt = random.key_tensor(random.split(random.key(n), n), dev)
             k_ms = timed_ms(lambda: threefry.threefry_rows(kt, m, False))
             p_ms = timed_ms(lambda: ref.threefry_rows_ref(kt, m, False),
-                            reps=5)
+                            reps=5) if n * m <= PLAIN_TIMED_MAX \
+                else float("nan")
             l_ms = timed_ms(lambda: torch.rand(n, m, device=dev))
             b_ms, by = threefry_bound_ms(n * m, per_value)
             print(f"[kernels] threefry_rows n={n} m={m}: kernel_ms="
@@ -1201,7 +1253,9 @@ def kernels_rows():
                                     True)):
                 args = (d, w) + ((h, 0.25, 0.5) if fuse else ())
                 k_ms = timed_ms(lambda: ops.worker_sum(*args))
-                p_ms = timed_ms(lambda: ref.worker_sum_ref(*args), reps=5)
+                p_ms = timed_ms(lambda: ref.worker_sum_ref(*args),
+                                reps=5) if n * cols <= PLAIN_TIMED_MAX \
+                    else float("nan")
                 l_ms = timed_ms(lambda: torch.sum(d, dim=0))
                 b_ms, by = worker_sum_bound_ms(
                     n, cols, isinstance(w, torch.Tensor), fuse)
@@ -1214,8 +1268,17 @@ def kernels_rows():
                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                         "bound_by": by, "max_abs_err": err_sum[SUM_MAIN],
                         "library_ms": l_ms}
+                    dev_us = device_us(lambda: ops.worker_sum(*args),
+                                       "worker_sum")
+                    print(f"[kernels] worker_sum device time at {SUM_MAIN} "
+                          f"{wname} fuse={fuse} (layout "
+                          f"{ops.worker_sum_plan(*SUM_MAIN).layout}): "
+                          f"{dev_us:.2f} us a call (profiler, 50 calls) "
+                          f"beside kernel_ms={k_ms:.4f} (the wrapper, CUDA "
+                          f"events) and torch_sum_ms={l_ms:.4f}")
             del d
             torch.cuda.empty_cache()
+    lap("timing")
     # the sorts the batched compressors stand on, with forced ties
     for n, m, top in ((1000, 56, 4), (1000, 150, 4), (16, 4096, 64),
                       (16, 2**20, 1000)):
@@ -1246,7 +1309,27 @@ def kernels_rows():
                                  "card != CPU")
         print(f"[kernels] permutation_rows ({n}, {m}) rounds="
               f"{random.shuffle_rounds(m)}: card == CPU bitwise")
+    lap("sorts")
+    print("[kernels] rows seconds: " + " ".join(f"{k}={v:.1f}"
+                                                for k, v in secs.items()))
     return timing
+
+
+def device_us(fn, name, calls=50):
+    """Microseconds of device time a call of ``fn`` spends in kernels whose
+    name holds ``name`` (torch.profiler over ``calls`` calls), apart from
+    the wrapper's host time that CUDA events around a lone call also see."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.key) / calls
 
 
 def store_loop_values(body):
@@ -1256,13 +1339,14 @@ def store_loop_values(body):
 
 
 def sass_functions(lib, kernel):
-    """The SASS of every function of the built library ``lib`` whose name
-    holds ``kernel`` (cuobjdump), each as a list of (address, opcode)
-    without NOPs."""
+    """The SASS of every function of the built library ``lib`` (a source's
+    name, or the path of a library) whose name holds ``kernel``
+    (cuobjdump), each as a list of (address, opcode) without NOPs."""
     from repro_torch.kernels import build
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+    path = lib if isinstance(lib, Path) else build.lib_path(lib)
+    text = subprocess.run([str(tool), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     funcs = []
@@ -1298,9 +1382,10 @@ def sass_loops(insts):
 
 
 def sass_per_value(lib, kernel, loop_values=store_loop_values):
-    """(instructions, integer-pipe instructions, opcode counts) per value
-    in the loop of ``kernel``, read from the SASS of the built library
-    ``lib`` (cuobjdump).  A loop is the span of a backward branch;
+    """(instructions, integer-pipe instructions, opcode counts, IMADs: the
+    FMA pipe's integer instructions) per value in the loop of ``kernel``,
+    read from the SASS of the built library ``lib`` (cuobjdump).  The
+    opcode counts key on the opcode's first word, and IMAD.WIDE apart.  A loop is the span of a backward branch;
     ``loop_values`` says how many values one pass of it handles (0 for a
     loop that is not the one sought).  Where the compiler made several
     such loops, the one with the fewest instructions per value is taken, so
@@ -1313,11 +1398,15 @@ def sass_per_value(lib, kernel, loop_values=store_loop_values):
                 continue
             hist = {}
             for o in body:
-                hist[o.split(".")[0]] = hist.get(o.split(".")[0], 0) + 1
+                op = "IMAD.WIDE" if o.startswith("IMAD.WIDE") \
+                    else o.split(".")[0]
+                hist[op] = hist.get(op, 0) + 1
             ints = sum(c for o, c in hist.items() if o in INT_PIPE)
+            imads = hist.get("IMAD", 0) + hist.get("IMAD.WIDE", 0)
             if best is None or len(body) / values < best[0]:
                 best = (len(body) / values, ints / values,
-                        {o: c / values for o, c in hist.items()})
+                        {o: c / values for o, c in hist.items()},
+                        imads / values)
     if best is None:
         raise AssertionError(f"[kernels] no loop of the sought kind in "
                              f"{kernel}'s SASS")
@@ -1437,11 +1526,11 @@ def selection_sass(leaves, gen):
 def threefry_bound_ms(n, per_value):
     """Least time for one draw of n: write 4 n bytes; or issue the loop's
     instructions (``per_value[0]`` each value) at one warp instruction per
-    scheduler and clock, and its integer-pipe instructions
-    (``per_value[1]``) at 64 per SM and clock."""
+    scheduler and clock.  Not its integer-pipe instructions at 64 per SM and
+    clock: the card ran a loop of 48.75 of them a value in less time than
+    that rate allows (PERF.md §6)."""
     t_bytes = 4 * n / H100_BYTES_PER_S
-    t_ops = max(per_value[0] * n / H100_ISSUE_PER_S,
-                per_value[1] * n / H100_INT32_PER_S)
+    t_ops = per_value[0] * n / H100_ISSUE_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -1458,7 +1547,8 @@ def kernels_threefry():
     key = random.fold_in(random.fold_in(random.key(0), 1), 13)
     per_value = sass_per_value("threefry", "threefry_fill_kernel")
     print(f"[kernels] threefry SASS per value: {per_value[0]:.2f} "
-          f"instructions, {per_value[1]:.2f} on the integer pipe; "
+          f"instructions, {per_value[1]:.2f} on the integer pipe, "
+          f"{per_value[3]:.2f} IMADs on the FMA pipe; "
           + " ".join(f"{o}={c:.2f}" for o, c in
                      sorted(per_value[2].items(), key=lambda x: -x[1])))
     max_err = 0.0

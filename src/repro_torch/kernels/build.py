@@ -9,7 +9,8 @@ the headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads the existing library.
 
 Nothing here runs at import time: this module is imported on machines
-without ``nvcc``.
+without ``nvcc``.  :func:`launch` calls an entry point on a device's
+current stream, the one way every wrapper launches.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -59,7 +62,8 @@ SIGNATURES = {
                    [_P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     _P, _P, _P,
                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
-                    ctypes.c_float, _P]},
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int, _P]},
     "block_topk": {"block_topk_f32": _TOPK, "block_topk_bf16": _TOPK,
                    "efbv_update_f32": _UPDATE, "efbv_update_bf16": _UPDATE},
 }
@@ -132,3 +136,19 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(sym, ctypes.c_int)
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``: the C entry point ``fn`` called with the raw
+    handle of ``device``'s current CUDA stream (the call torch's Triton
+    launcher makes; ``torch.cuda.current_stream()`` costs several
+    microseconds of host time, which the reference round's small launches
+    feel).  A launch goes to the host thread's current device, so it runs
+    under ``torch.cuda.device`` when ``device`` is another card, and only
+    then.  Returns ``fn``'s cudaError."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

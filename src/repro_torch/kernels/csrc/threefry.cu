@@ -14,7 +14,9 @@
 // float conversion is exact: a float in [1, 2) minus 1.0.
 //
 // Layout: each thread draws 4 consecutive elements and writes them as one
-// 16-byte store (a scalar tail for n % 4), in a grid-stride loop.
+// 16-byte store (a scalar tail for n % 4), in a grid-stride loop.  The 4
+// counters share their high word (4 divides 2**32), and below 2**32 words
+// the loop counts in 32 bits with that word the constant 0.
 //
 // The row draw (threefry_rows) is the same draw under n keys at once, as
 // vmap over a worker axis draws it: element (i, c) of an (n, m) output is
@@ -24,9 +26,14 @@
 // values is written with 16-byte stores, any other row value by value
 // (two instantiations of one template, so each loop is straight code).
 //
-// Bound: about 80 32-bit integer operations per element (20 x (add, rotate,
-// xor), 6 injections, the xor and float conversion) against 4 bytes written;
-// on the H100 the integer pipes, not memory, are the limit.
+// Bound: about 72 SASS instructions per element (20 x (add, rotate, xor),
+// the injections, the xor, the float conversion, the loop) against 4 bytes
+// written: on the H100 the issue of instructions (128 a clock per SM), not
+// memory, is the limit.  The integer pipe is not: the card ran a loop of
+// 48.75 integer-pipe instructions a value faster than 64 of them a clock
+// per SM allow.  So a core that moves rotations and adds to the FMA
+// pipe (IMAD, IMAD.WIDE) buys nothing and costs issue slots; such cores
+// were measured slower (PERF.md, section 6).
 //
 // Plain C interface (loaded with ctypes, no PyTorch headers): the launcher
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -48,11 +55,12 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   x1 = rotl(x1, r);   \
   x1 ^= x0;
 
+// the word of counter (hi, lo) under the key schedule (k0, k1, k2)
 __device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1,
-                                                  uint32_t k2,
-                                                  unsigned long long i) {
-  uint32_t x0 = (uint32_t)(i >> 32) + k0;
-  uint32_t x1 = (uint32_t)(i & 0xffffffffull) + k1;
+                                                  uint32_t k2, uint32_t hi,
+                                                  uint32_t lo) {
+  uint32_t x0 = hi + k0;
+  uint32_t x1 = lo + k1;
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
   x0 += k1; x1 += k2 + 1u;
   TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
@@ -74,27 +82,33 @@ __device__ __forceinline__ uint32_t to_out(uint32_t w, int as_float) {
   return __float_as_uint(f);
 }
 
+// Index: the loop's integer type, 32 bits below 2**32 words (the counters'
+// high word then the constant 0)
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 threefry_fill_kernel(uint32_t k0, uint32_t k1, uint32_t* __restrict__ out,
-                     long long n, int as_float) {
+                     Index n, int as_float) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1bd11bdau;
-  const long long quads = n / 4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
+  const Index quads = n / 4;
+  const Index stride = (Index)gridDim.x * blockDim.x;
   uint4* out4 = reinterpret_cast<uint4*>(out);
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       q < quads; q += stride) {
-    const unsigned long long i = 4ull * (unsigned long long)q;
+  for (Index q = (Index)blockIdx.x * blockDim.x + threadIdx.x; q < quads;
+       q += stride) {
+    const unsigned long long i = 4ull * q;
+    const uint32_t hi = sizeof(Index) == 4 ? 0u : (uint32_t)(i >> 32);
+    const uint32_t lo = (uint32_t)i;
     uint4 v;
-    v.x = to_out(threefry_word(k0, k1, k2, i), as_float);
-    v.y = to_out(threefry_word(k0, k1, k2, i + 1), as_float);
-    v.z = to_out(threefry_word(k0, k1, k2, i + 2), as_float);
-    v.w = to_out(threefry_word(k0, k1, k2, i + 3), as_float);
+    v.x = to_out(threefry_word(k0, k1, k2, hi, lo), as_float);
+    v.y = to_out(threefry_word(k0, k1, k2, hi, lo + 1u), as_float);
+    v.z = to_out(threefry_word(k0, k1, k2, hi, lo + 2u), as_float);
+    v.w = to_out(threefry_word(k0, k1, k2, hi, lo + 3u), as_float);
     out4[q] = v;
   }
   // the n % 4 tail, one element per thread of the first block
   if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
-    const long long i = 4 * quads + threadIdx.x;
-    out[i] = to_out(threefry_word(k0, k1, k2, (unsigned long long)i),
+    const unsigned long long i = 4ull * quads + threadIdx.x;
+    out[i] = to_out(threefry_word(k0, k1, k2, (uint32_t)(i >> 32),
+                                  (uint32_t)i),
                     as_float);
   }
 }
@@ -115,14 +129,14 @@ threefry_rows_kernel(const uint32_t* __restrict__ keys, long long rows,
       const unsigned int c = 4u * q;
       if (kQuad) {
         uint4 v;
-        v.x = to_out(threefry_word(k0, k1, k2, c), as_float);
-        v.y = to_out(threefry_word(k0, k1, k2, c + 1), as_float);
-        v.z = to_out(threefry_word(k0, k1, k2, c + 2), as_float);
-        v.w = to_out(threefry_word(k0, k1, k2, c + 3), as_float);
+        v.x = to_out(threefry_word(k0, k1, k2, 0u, c), as_float);
+        v.y = to_out(threefry_word(k0, k1, k2, 0u, c + 1), as_float);
+        v.z = to_out(threefry_word(k0, k1, k2, 0u, c + 2), as_float);
+        v.w = to_out(threefry_word(k0, k1, k2, 0u, c + 3), as_float);
         reinterpret_cast<uint4*>(row)[q] = v;
       } else {
         for (unsigned int j = c; j < c + 4u && j < m; ++j)
-          row[j] = to_out(threefry_word(k0, k1, k2, j), as_float);
+          row[j] = to_out(threefry_word(k0, k1, k2, 0u, j), as_float);
       }
     }
   }
@@ -169,8 +183,15 @@ extern "C" int threefry_fill(unsigned int k0, unsigned int k1, void* out,
   long long blocks = (quads + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 per SM
-  threefry_fill_kernel<<<(unsigned int)blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, static_cast<uint32_t*>(out), n, as_float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (n < (1ll << 32))
+    threefry_fill_kernel<unsigned int><<<(unsigned int)blocks, kThreads, 0,
+                                         s>>>(k0, k1, o, (unsigned int)n,
+                                              as_float);
+  else
+    threefry_fill_kernel<unsigned long long>
+        <<<(unsigned int)blocks, kThreads, 0, s>>>(
+            k0, k1, o, (unsigned long long)n, as_float);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,12 @@ so that every script that times them holds them to the same bound.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, pack, ref
+from repro_torch.kernels import LAUNCHES, build, pack, ref
 
 
 def to_rows(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -102,6 +103,91 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     return vals, h_out.reshape(h.shape)
 
 
+#: the worker sum's launch plan (:func:`worker_sum_plan`): columns a CTA
+#: takes in the narrow layout; threads a CTA takes elsewhere (and at most
+#: in the narrow layout); the shared memory its partials may take (48 KB, a
+#: CTA's without asking for more); the width from which a thread takes 4
+#: columns with 16-byte loads; the most CTAs (grid-stride beyond 16 an SM)
+SUM_TILE = 4
+SUM_THREADS = 256
+SUM_SMEM = 48 * 1024
+SUM_WIDE_COLS = 132 * 1024
+SUM_MAX_GRID = 132 * 16
+#: the C entry point's layout codes
+SUM_LAYOUTS = {"column": 0, "narrow": 1, "wide": 2}
+
+
+class SumPlan(NamedTuple):
+    """How ``worker_sum.cu`` runs one sum.  ``layout``: "narrow" (a CTA per
+    ``tile`` columns, its threads over the first level's windows, the
+    partials of every level in ``smem`` bytes of shared memory), "column"
+    (a thread per column, the rows in order or the windows streamed) or
+    "wide" (the column form with ``tile`` = 4 columns a thread); ``levels``:
+    the items at each level of XLA's windowed reduce (the rows, then the
+    windows of each level, the last at most 32; one level when the sum is
+    in order); ``threads`` a CTA, ``grid`` CTAs."""
+    layout: str
+    levels: Tuple[int, ...]
+    tile: int
+    threads: int
+    grid: int
+    smem: int
+
+
+def _sum_levels(n: int, order: str) -> Tuple[int, ...]:
+    """Items at each level of the sum: n rows, then while more than 32
+    remain the windows of ``ref.reduce_windows`` (order "reduce"; the other
+    orders sum the rows in order)."""
+    levels = [n]
+    while order == "reduce" and levels[-1] > ref.REDUCE_WINDOW:
+        m = levels[-1]
+        lo = (-m % ref.REDUCE_WINDOW) // 2
+        levels.append(-(-(m + lo) // ref.REDUCE_WINDOW))
+    return tuple(levels)
+
+
+@functools.lru_cache(maxsize=1024)
+def worker_sum_plan(n: int, cols: int, order: str = "reduce",
+                    aligned: bool = True) -> SumPlan:
+    """The launch plan of an ordered worker sum of (n, cols) f32 in
+    ``order`` (``aligned``: every pointer 16-byte aligned).  A windowed
+    reduce (order "reduce", n > 32) over fewer than SUM_WIDE_COLS columns
+    takes the narrow layout while its partials fit SUM_SMEM
+    (:data:`SUM_NARROW_ROWS` rows at most), so the windows run in parallel;
+    every other sum takes a thread per column, or per 4 columns from
+    SUM_WIDE_COLS on (when cols % 4 == 0 and aligned)."""
+    if order not in ("reduce", "unrolled", "pair"):
+        raise ValueError(f"unknown worker sum order {order!r}")
+    levels = _sum_levels(n, order)
+    smem = 4 * SUM_TILE * sum(levels[1:])
+    if len(levels) > 1 and cols < SUM_WIDE_COLS and smem <= SUM_SMEM:
+        return SumPlan("narrow", levels, SUM_TILE,
+                       SUM_TILE * min(levels[1], SUM_THREADS // SUM_TILE),
+                       -(-cols // SUM_TILE), smem)
+    vec = 4 if cols >= SUM_WIDE_COLS and cols % 4 == 0 and aligned else 1
+    return SumPlan("wide" if vec == 4 else "column", levels, vec,
+                   SUM_THREADS,
+                   min(-(-(cols // vec) // SUM_THREADS), SUM_MAX_GRID), 0)
+
+
+def _narrow_rows() -> int:
+    """The most rows the narrow layout takes: the largest n whose partials
+    fit SUM_SMEM (bisection; the levels grow with n)."""
+    lo, hi = ref.REDUCE_WINDOW + 1, 2**40
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if 4 * SUM_TILE * sum(_sum_levels(mid, "reduce")[1:]) <= SUM_SMEM:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+#: the switch of a windowed reduce from the narrow layout to the streamed
+#: column form
+SUM_NARROW_ROWS = _narrow_rows()
+
+
 def worker_sum(d: torch.Tensor, weights=None,
                h: Optional[torch.Tensor] = None, c_g: float = 0.0,
                c_h: float = 0.0, order: str = "reduce"):
@@ -116,54 +202,65 @@ def worker_sum(d: torch.Tensor, weights=None,
     with the first two terms fma(d_0, w_0, d_1 * w_1).  With ``h`` (shaped
     like d[0]) the master's two updates fused into the same pass: returns
     (fma(sum, c_g, h), fma(sum, c_h, h)).  On the card the ``worker_sum``
-    kernel (``csrc/worker_sum.cu``, one launch); on the CPU its plain
-    loop (``ref.worker_sum_ref``)."""
-    if d.device.type == "cpu":
-        return ref.worker_sum_ref(d, weights, h, c_g, c_h, order)
-    if d.device.type != "cuda":
+    kernel (``csrc/worker_sum.cu``, one launch, laid out by
+    :func:`worker_sum_plan`); on the CPU its plain loop
+    (``ref.worker_sum_ref``)."""
+    if not d.is_cuda:
+        if d.device.type == "cpu":
+            return ref.worker_sum_ref(d, weights, h, c_g, c_h, order)
         raise ValueError(f"worker_sum runs on cpu or cuda, not {d.device}")
     if d.dtype != torch.float32 or (h is not None
                                     and h.dtype != torch.float32):
         raise ValueError(f"worker_sum kernel takes f32, got {d.dtype}")
-    if order not in ("reduce", "unrolled", "pair"):
-        raise ValueError(f"unknown worker sum order {order!r}")
-    from repro_torch.kernels import build
-
     n = d.shape[0]
     if n == 0:
         raise ValueError("worker_sum over no workers")
-    d2 = d.reshape(n, -1).contiguous()
+    # the host path is part of the reference round's time: no op that the
+    # inputs do not need (a reshape, a copy, a device switch)
+    d2 = d if d.dim() == 2 else d.reshape(n, -1)
+    if not d2.is_contiguous():
+        d2 = d2.contiguous()
     cols = d2.shape[1]
     w, scale, mode = None, 0.0, 0
     pair = order == "pair"
     if isinstance(weights, torch.Tensor):
-        w, mode = weights.to(torch.float32).contiguous(), 3 if pair else 1
+        w, mode = weights, 3 if pair else 1
+        if w.dtype != torch.float32 or not w.is_contiguous():
+            w = w.to(torch.float32).contiguous()
         if w.numel() != n:
             raise ValueError(f"{w.numel()} weights for {n} workers")
     elif pair:
         raise ValueError("pair needs an (n,) tensor of weights")
     elif weights is not None:
         scale, mode = float(weights), 2
-    hf = None if h is None else h.reshape(-1).contiguous()
-    if hf is not None and hf.numel() != cols:
-        raise ValueError(f"h of {hf.numel()} values for rows of {cols}")
-    out = torch.empty(cols, dtype=torch.float32, device=d.device)
-    out_h = None if h is None else torch.empty_like(out)
+    hf = None
+    if h is not None:
+        hf = h if h.dim() == 1 else h.reshape(-1)
+        if not hf.is_contiguous():
+            hf = hf.contiguous()
+        if hf.numel() != cols:
+            raise ValueError(f"h of {hf.numel()} values for rows of {cols}")
+    # one allocation for the sum, or for (g, h_avg') side by side
+    shape = d.shape[1:]
+    dev = d.device
+    buf = torch.empty(shape if h is None else (2,) + shape,
+                      dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
+    aligned = (d2.data_ptr() | (0 if hf is None else hf.data_ptr())
+               | ptr) % 16 == 0
+    plan = worker_sum_plan(n, cols, order, aligned)
     window = ref.REDUCE_WINDOW if order == "reduce" else 0
-    fn = build.load("worker_sum").worker_sum_f32
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(d2.data_ptr(), None if w is None else w.data_ptr(), scale,
-                 mode, window, None if hf is None else hf.data_ptr(),
-                 out.data_ptr(), None if out_h is None else out_h.data_ptr(),
-                 n, cols, float(c_g), float(c_h), stream)
+    err = build.launch(
+        build.load("worker_sum").worker_sum_f32, dev, d2.data_ptr(),
+        None if w is None else w.data_ptr(), scale, mode, window,
+        None if hf is None else hf.data_ptr(), ptr,
+        None if h is None else ptr + 4 * cols, n, cols, float(c_g),
+        float(c_h), SUM_LAYOUTS[plan.layout], plan.tile, plan.threads,
+        plan.grid, plan.smem)
     if err != 0:
         raise RuntimeError(f"worker_sum launch failed: cudaError {err}")
     LAUNCHES["worker_sum"] += 1
-    shape = d.shape[1:]
-    if h is None:
-        return out.reshape(shape)
-    return out.reshape(shape), out_h.reshape(shape)
+    return buf if h is None else buf.unbind(0)
 
 
 # ---------------------------------------------------------------------------

@@ -26,13 +26,12 @@ launches, so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels import LAUNCHES, build, ref
 
 # The CUDA block-top-k kernels (the pack and the dense two) take every
 # block % 128 == 0, as the TPU kernels do: a warp per row up to 1024 and a
@@ -82,8 +81,6 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
         raise ValueError(_block_message("pack_update", block))
     if not (g2d.is_contiguous() and h2d.is_contiguous()):
         raise ValueError("pack_update needs contiguous g and h")
-    from repro_torch.kernels import build
-
     lib = build.load("pack_update")
     fn = lib.pack_update_f32
     # blocks above 4096 whose kb slots do not fit in shared memory rank
@@ -98,12 +95,10 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
         raise ValueError("the pack kernel's bulk stores need 16-byte aligned "
                          "vals and idx")
     h_out = torch.empty_like(h2d)
-    with torch.cuda.device(g2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g2d.data_ptr(), h2d.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), h_out.data_ptr(),
-                 scratch.data_ptr() if nbytes else None, nb, block, kb,
-                 float(lam), stream)
+    err = build.launch(fn, g2d.device, g2d.data_ptr(), h2d.data_ptr(),
+                       vals.data_ptr(), idx.data_ptr(), h_out.data_ptr(),
+                       scratch.data_ptr() if nbytes else None, nb, block, kb,
+                       float(lam))
     if err != 0:
         raise RuntimeError(f"pack_update launch failed: cudaError {err}")
     LAUNCHES["pack_update"] += 1
@@ -141,18 +136,15 @@ def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
                          f"{g.device}")
     if not all(x.is_contiguous() for x in (g, h, u, norm)):
         raise ValueError("qsgd_pack_update needs contiguous g, h, u, norm")
-    from repro_torch.kernels import build
-
     fn = build.load("qsgd_pack_update").qsgd_pack_update_f32
     dtype = ref.level_dtype(s)
     levels = torch.empty(g.shape, dtype=dtype, device=g.device)
     h_out = torch.empty_like(h)
     inv_s = float(np.float32(1.0 / s))
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), h.data_ptr(), u.data_ptr(), norm.data_ptr(),
-                 levels.data_ptr(), h_out.data_ptr(), g.numel(), s, inv_s,
-                 float(lam), levels.element_size(), stream)
+    err = build.launch(fn, g.device, g.data_ptr(), h.data_ptr(),
+                       u.data_ptr(), norm.data_ptr(), levels.data_ptr(),
+                       h_out.data_ptr(), g.numel(), s, inv_s, float(lam),
+                       levels.element_size())
     if err != 0:
         raise RuntimeError(f"qsgd_pack_update launch failed: cudaError {err}")
     LAUNCHES["qsgd_pack_update"] += 1
@@ -224,8 +216,6 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"randk_update runs on cpu or cuda, not {g.device}")
     if not (g.is_contiguous() and h.is_contiguous() and idx.is_contiguous()):
         raise ValueError("randk_update needs contiguous g, h and idx")
-    from repro_torch.kernels import build
-
     fn = build.load("randk_update").randk_update_f32
     size, k = g.numel(), idx.numel()
     _, bucketed, words, hist_ctas = randk_plan(size, k)
@@ -233,19 +223,11 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     h_out = torch.empty_like(h)
     scratch = torch.empty(words, dtype=torch.int32, device=g.device) \
         if bucketed else None
-    # the launch goes to the host thread's current device: switch only when
-    # g lies on another one.  The raw stream handle (the call torch's
-    # Triton launcher makes) saves the 6-7 us a call that
-    # torch.cuda.current_stream() costs on an H100 host: the 6 small leaves
-    # of a rand-k round are host-bound.
-    dev = g.device.index
-    switch = dev != torch.cuda.current_device()
-    with torch.cuda.device(g.device) if switch else contextlib.nullcontext():
-        err = fn(g.data_ptr(), h.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-                 h_out.data_ptr(), scratch.data_ptr() if bucketed else None,
-                 size, k, RANDK_TILE_LOG2, int(bucketed), hist_ctas,
-                 float(scale), float(lam),
-                 torch._C._cuda_getCurrentRawStream(dev))
+    err = build.launch(fn, g.device, g.data_ptr(), h.data_ptr(),
+                       idx.data_ptr(), vals.data_ptr(), h_out.data_ptr(),
+                       scratch.data_ptr() if bucketed else None, size, k,
+                       RANDK_TILE_LOG2, int(bucketed), hist_ctas,
+                       float(scale), float(lam))
     if err != 0:
         raise RuntimeError(f"randk_update launch failed: cudaError {err}")
     LAUNCHES["randk_update"] += 1
@@ -279,8 +261,6 @@ def _dense_entry(name: str, x2d: torch.Tensor, *tensors: torch.Tensor):
         raise ValueError(f"{name} runs on cpu or cuda, not {x2d.device}")
     if not all(t.is_contiguous() for t in (x2d, *tensors)):
         raise ValueError(f"{name} needs contiguous rows")
-    from repro_torch.kernels import build
-
     return getattr(build.load("block_topk"),
                    f"{name}_{DENSE_DTYPES[x2d.dtype]}")
 
@@ -293,10 +273,8 @@ def block_topk(x2d: torch.Tensor, kb: int) -> torch.Tensor:
         return ref.block_topk_ref(x2d, kb)
     fn = _dense_entry("block_topk", x2d)
     out = torch.empty_like(x2d)
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x2d.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1],
-                 kb, stream)
+    err = build.launch(fn, x2d.device, x2d.data_ptr(), out.data_ptr(),
+                       x2d.shape[0], x2d.shape[1], kb)
     if err != 0:
         raise RuntimeError(f"block_topk launch failed: cudaError {err}")
     LAUNCHES["block_topk"] += 1
@@ -314,11 +292,9 @@ def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int,
     fn = _dense_entry("efbv_update", g2d, h2d)
     d = torch.empty_like(g2d)
     h_out = torch.empty_like(h2d)
-    with torch.cuda.device(g2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g2d.data_ptr(), h2d.data_ptr(), d.data_ptr(),
-                 h_out.data_ptr(), g2d.shape[0], g2d.shape[1], kb,
-                 float(lam), int(fused), stream)
+    err = build.launch(fn, g2d.device, g2d.data_ptr(), h2d.data_ptr(),
+                       d.data_ptr(), h_out.data_ptr(), g2d.shape[0],
+                       g2d.shape[1], kb, float(lam), int(fused))
     if err != 0:
         raise RuntimeError(f"efbv_update launch failed: cudaError {err}")
     LAUNCHES["efbv_update"] += 1

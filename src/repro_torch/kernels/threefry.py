@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels import LAUNCHES, build, ref
 
 
 def threefry_fill(key, n: int, device: torch.device,
@@ -34,17 +34,13 @@ def threefry_fill(key, n: int, device: torch.device,
         return ref.threefry_ref(key, n, device, as_float)
     if device.type != "cuda":
         raise ValueError(f"threefry runs on cpu or cuda, not {device}")
-    from repro_torch.kernels import build
-
     k0, k1 = (int(v) for v in np.asarray(key, np.uint32))
     out = torch.empty(n, dtype=torch.float32 if as_float else torch.int32,
                       device=device)
     if n == 0:
         return out
-    fn = build.load("threefry").threefry_fill
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(k0, k1, out.data_ptr(), n, int(as_float), stream)
+    err = build.launch(build.load("threefry").threefry_fill, out.device,
+                       k0, k1, out.data_ptr(), n, int(as_float))
     if err != 0:
         raise RuntimeError(f"threefry launch failed: cudaError {err}")
     LAUNCHES["threefry_uniform"] += 1
@@ -67,19 +63,14 @@ def threefry_rows(keys: torch.Tensor, m: int, as_float: bool
         return ref.threefry_rows_ref(keys, m, as_float)
     if device.type != "cuda":
         raise ValueError(f"threefry runs on cpu or cuda, not {device}")
-    from repro_torch.kernels import build
-
     keys = keys.contiguous()
     n = keys.shape[0]
     out = torch.empty((n, m), dtype=torch.float32 if as_float
                       else torch.int32, device=device)
     if n == 0 or m == 0:
         return out
-    fn = build.load("threefry").threefry_rows
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(keys.data_ptr(), n, m, out.data_ptr(), int(as_float),
-                 stream)
+    err = build.launch(build.load("threefry").threefry_rows, device,
+                       keys.data_ptr(), n, m, out.data_ptr(), int(as_float))
     if err != 0:
         raise RuntimeError(f"threefry_rows launch failed: cudaError {err}")
     LAUNCHES["threefry_rows"] += 1

@@ -22,7 +22,9 @@ polynomial over XLA's ``log1p`` and ``log``, each multiply-add fused as
 XLA's compiled code fuses it), so it too is bit for bit.  XLA CPU's f32
 ``exp``, ``expm1`` and ``log`` (:func:`xla_exp`, :func:`xla_expm1`,
 :func:`xla_log`) are emulated the same way, for the inits that compute
-with them (mamba2's ``dt_bias`` and ``A_log``).
+with them (mamba2's ``dt_bias`` and ``A_log``); its f32 ``cos`` and ``pow``
+(:func:`xla_cos`, :func:`xla_pow`: the C library's ``cosf`` and ``powf``,
+which XLA calls) for the learning-rate schedules.
 
 ``permutation`` and ``choice(replace=False)`` are ``jax.random``'s shuffle
 by repeated sorts (``jax/_src/random.py`` ``_shuffle``): each round splits
@@ -399,6 +401,232 @@ def erf_inv(x: torch.Tensor, out: Optional[torch.Tensor] = None
                         p)
         out[i:i + _ERFINV_CHUNK] = xs * p
     return out.reshape(x.shape)
+
+
+# XLA CPU compiles an f32 ``cos`` or ``pow`` to a call of the C library's
+# ``cosf`` or ``powf`` (``llvm.cos.f32`` and ``llvm.pow.f32`` in its LLVM IR,
+# calls of the symbols in its object code, jax 0.9.0 on x86-64): glibc
+# 2.36's, in the build it picks on a CPU with FMA and AVX2, which evaluates
+# in f64 with fused multiply-adds.  The tables and the order of the fused
+# steps below are read from that build's object code (libm.so.6).
+
+#: glibc's ``__sincosf_table``: per row (the second for quadrants 2 and 3)
+#: c0..c4 of the cos polynomial, then s1..s3 of the sin polynomial
+_SINCOSF = tuple(tuple(map(float.fromhex, row)) for row in (
+    ("0x1p+0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+     "-0x1.994eb3774cf24p-13"),
+    ("-0x1p+0", "0x1.ffffffd0c621cp-2", "-0x1.55553e1068f19p-5",
+     "0x1.6c087e89a359dp-10", "-0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+     "-0x1.994eb3774cf24p-13")))
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")   # 2 / pi * 2**24
+_HPI = float.fromhex("0x1.921fb54442d18p+0")        # pi / 2
+_PI63 = float.fromhex("0x1.921fb54442d18p-62")      # pi / 2**63
+#: glibc's ``__inv_pio4``: 4 / pi in a sliding window of 32 bits a byte
+_INV_PIO4 = bytes.fromhex("a2f9836e4e441529fc2757d1f534ddc0db6295993c439041")
+#: glibc's ``__powf_log2_data``: (1/c, log2 c) of 16 subintervals, then the
+#: log2(1 + r) polynomial
+_POWF_LOG2 = tuple((float.fromhex(a), float.fromhex(b)) for a, b in (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010bp+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8eap+0", "-0x1.97c1d1b3b7afp-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1p+0", "0x0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aap-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2")))
+_POWF_POLY = tuple(map(float.fromhex, (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0")))
+#: glibc's ``__exp2f_data``: the bits of 2**(i/32) less i << 47, the shift
+#: that rounds to a multiple of 1/32, and the 2**r polynomial
+_EXP2F_TAB = (
+    0x3FF0000000000000, 0x3FEFD9B0D3158574, 0x3FEFB5586CF9890F,
+    0x3FEF9301D0125B51, 0x3FEF72B83C7D517B, 0x3FEF54873168B9AA,
+    0x3FEF387A6E756238, 0x3FEF1E9DF51FDEE1, 0x3FEF06FE0A31B715,
+    0x3FEEF1A7373AA9CB, 0x3FEEDEA64C123422, 0x3FEECE086061892D,
+    0x3FEEBFDAD5362A27, 0x3FEEB42B569D4F82, 0x3FEEAB07DD485429,
+    0x3FEEA47EB03A5585, 0x3FEEA09E667F3BCD, 0x3FEE9F75E8EC5F74,
+    0x3FEEA11473EB0187, 0x3FEEA589994CCE13, 0x3FEEACE5422AA0DB,
+    0x3FEEB737B0CDC5E5, 0x3FEEC49182A3F090, 0x3FEED503B23E255D,
+    0x3FEEE89F995AD3AD, 0x3FEEFF76F2FB5E47, 0x3FEF199BDD85529C,
+    0x3FEF3720DCEF9069, 0x3FEF5818DCFBA487, 0x3FEF7C97337B9B5F,
+    0x3FEFA4AFA2A490DA, 0x3FEFD0765B6E4540)
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")
+_EXP2F_POLY = tuple(map(float.fromhex, (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1")))
+
+
+def _two_sum(a: np.ndarray, b: np.ndarray):
+    """(a + b rounded, its error), exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split64(a: np.ndarray):
+    """a as hi + lo, each of at most 26 significant bits (Veltkamp)."""
+    t = a * 134217729.0
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma64(a: np.ndarray, b, c) -> np.ndarray:
+    """f64 fused multiply-add, round(a * b + c) once, for values far from
+    f64's overflow and underflow (Boldo and Melquiond's emulation): the
+    product exact as a pair (Dekker), its sum with c exact as a pair, the
+    two low parts added rounding to odd, then one rounding to nearest."""
+    b = np.broadcast_to(np.asarray(b, np.float64), a.shape)
+    c = np.broadcast_to(np.asarray(c, np.float64), a.shape)
+    p = a * b
+    ah, al = _split64(a)
+    bh, bl = _split64(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    v, err = _two_sum(tl, e)
+    odd = (v.view(np.uint64) & np.uint64(1)) == 1
+    toward = np.nextafter(v, np.where(err > 0, np.inf, -np.inf))
+    return th + np.where((err != 0) & ~odd, toward, v)
+
+
+def _sincosf_poly(x: np.ndarray, q: np.ndarray, row: np.ndarray
+                  ) -> np.ndarray:
+    """glibc's ``sinf_poly`` for ``cosf`` on x, the remainder of quadrant q
+    times the quadrant's sign: the cos polynomial in x**2 where q is even,
+    the sin polynomial of x where q is odd, with the constants of table
+    row ``row``; each step fused as its FMA build fuses it."""
+    out = np.empty_like(x)
+    tab = np.asarray(_SINCOSF)[row]
+    x2 = x * x
+    ev = (q & 1) == 0
+    if ev.any():
+        c0, c1, c2, c3, c4 = (tab[ev, j] for j in range(5))
+        y2 = x2[ev]
+        y4 = y2 * y2
+        out[ev] = _fma64(_fma64(y2, c4, c3), y2 * y4,
+                         _fma64(y4, c2, _fma64(y2, c1, c0)))
+    od = ~ev
+    if od.any():
+        s1, s2, s3 = (tab[od, j] for j in range(5, 8))
+        y2, xs = x2[od], x[od]
+        x3 = y2 * xs
+        out[od] = _fma64(_fma64(y2, s3, s2), y2 * x3, _fma64(x3, s1, xs))
+    return out
+
+
+def _quadrant_sign(q: np.ndarray) -> np.ndarray:
+    """glibc's ``sign[q & 3]``: +1, -1, -1, +1."""
+    return np.where(((q ^ (q >> 1)) & 1) == 1, -1.0, 1.0)
+
+
+def xla_cos(x) -> np.ndarray:
+    """XLA CPU's f32 ``cos``, glibc 2.36's ``cosf`` (FMA build), on an f32
+    array, in numpy: 1 below 2**-12; the cos polynomial below about 0.75;
+    up to 120, x - n pi / 2 by one FMA, n the nearest quadrant; beyond,
+    the quadrant and remainder from 4 / pi in fixed point
+    (``reduce_large``); then the sin or cos polynomial of the remainder, in
+    f64, rounded once to f32; NaN for inf and NaN."""
+    x = np.asarray(x, np.float32)
+    xi = x.view(np.uint32).astype(np.uint64)
+    top = (xi >> np.uint64(20)) & np.uint64(0x7FF)
+    out = np.full(x.shape, np.nan)
+    out[top < 0x398] = 1.0
+    with np.errstate(all="ignore"):
+        m = (top >= 0x398) & (top < 0x3F4)
+        if m.any():
+            xd = x[m].astype(np.float64)
+            out[m] = _sincosf_poly(xd, np.zeros(xd.shape, np.int64),
+                                   np.zeros(xd.shape, np.int64))
+        m = (top >= 0x3F4) & (top < 0x42F)
+        if m.any():
+            # up to 120: n = round(x * 2 / pi), r = fma(-n, pi / 2, x)
+            xd = x[m].astype(np.float64)
+            n = (np.trunc(xd * _HPI_INV).astype(np.int64) + 0x800000) >> 24
+            r = _fma64(-n.astype(np.float64), _HPI, xd)
+            out[m] = _sincosf_poly(r * _quadrant_sign(n), n,
+                                   (n & 2) >> 1)
+        m = (top >= 0x42F) & (top <= 0x7F7)
+        if m.any():
+            # beyond 120: 62 fraction bits of x * 4 / pi, by three 32-bit
+            # products with windows of glibc's __inv_pio4
+            u = np.uint64
+            win = np.array([int.from_bytes(_INV_PIO4[max(0, i - 3):i + 1],
+                                           "big") for i in range(24)], u)
+            xm = xi[m]
+            j = (xm >> u(26)) & u(15)
+            mant = ((xm & u(0x7FFFFF)) | u(0x800000)) << ((xm >> u(23))
+                                                          & u(7))
+            res0 = (mant * win[j]) & u(MASK32)
+            res1 = mant * win[j + u(4)]
+            res2 = mant * win[j + u(8)]
+            res0 = ((res2 >> u(32)) | (res0 << u(32))) + res1
+            q = (res0 + u(1 << 61)) >> u(62)
+            res0 = res0 - (q << u(62))
+            rl = res0.view(np.int64).astype(np.float64) * _PI63
+            q = q.astype(np.int64)
+            qs = q + (xm >> u(31)).astype(np.int64)
+            out[m] = _sincosf_poly(rl * _quadrant_sign(qs), q,
+                                   (qs & 2) >> 1)
+    return out.astype(np.float32)
+
+
+def xla_pow(x, y) -> np.ndarray:
+    """XLA CPU's f32 ``pow``, glibc 2.36's ``powf`` (FMA build), on f32
+    arrays, in numpy, for x positive and normal (or 0) and y finite:
+    log2(x) from a 16-entry table and a degree-5 polynomial, times y, then
+    2**(y log2 x) from a 32-entry table and a cubic, all in f64, rounded
+    once to f32; pow(x, 0) = 1, pow(0, y) = 0 for y > 0.  Raises outside
+    that domain, and where |y log2 x| >= 126 (glibc's overflow and
+    underflow paths)."""
+    x, y = np.broadcast_arrays(np.asarray(x, np.float32),
+                               np.asarray(y, np.float32))
+    ix = x.view(np.uint32).astype(np.int64)
+    if ((ix != 0) & ((ix < 0x800000) | (ix >= 0x7F800000))).any() \
+            or not np.isfinite(y).all() or ((ix == 0) & (y < 0)).any():
+        raise ValueError("xla_pow: x must be 0 or positive and normal, y "
+                         "finite (and y >= 0 where x = 0)")
+    with np.errstate(all="ignore"):
+        # log2 x = k + log2 c + log2(z / c), z in [0.7, 1.4), c the centre
+        # of z's subinterval
+        tmp = (ix - 0x3F330000) & MASK32
+        top = tmp & 0xFF800000
+        k = ((top >> 23) ^ 0x100) - 0x100   # int32's arithmetic shift
+        z = ((ix - top) & MASK32).astype(np.uint32).view(np.float32)
+        tab = np.asarray(_POWF_LOG2)[(tmp >> 19) & 15]
+        a = _POWF_POLY
+        r = _fma64(z.astype(np.float64), tab[..., 0], -1.0)
+        r2 = r * r
+        q = _fma64(r2, _fma64(r, a[2], a[3]),
+                   _fma64(r, a[4], k + tab[..., 1]))
+        logx = _fma64(_fma64(r, a[0], a[1]), r2 * r2, q)
+        ylogx = y * logx
+        big = ((ylogx.view(np.uint64) >> np.uint64(47)) & np.uint64(0xFFFF)
+               ) >= 0x80BF
+        if (big & (ix != 0) & (y != 0)).any():
+            raise ValueError("xla_pow: |y log2 x| >= 126 (glibc's overflow "
+                             "and underflow paths are not emulated)")
+        # 2**ylogx = 2**(i/32) * 2**rr, i the nearest multiple of 1/32
+        kd = ylogx + _EXP2F_SHIFT
+        ki = kd.view(np.uint64)
+        rr = ylogx - (kd - _EXP2F_SHIFT)
+        s = (np.array(_EXP2F_TAB, np.uint64)[ki & np.uint64(31)]
+             + (ki << np.uint64(47))).view(np.float64)
+        c = _EXP2F_POLY
+        out = np.array(_fma64(_fma64(rr, c[0], c[1]), rr * rr,
+                              _fma64(rr, c[2], 1.0)) * s, np.float32)
+    out[ix == 0] = 0.0
+    out[y == 0] = 1.0
+    return out
 
 
 @contextlib.contextmanager

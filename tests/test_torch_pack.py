@@ -1287,3 +1287,164 @@ def test_model_search_steps():
     g[0, 0] = np.nan
     keep, steps = model_select(np.abs(g - h), 16)
     assert steps[0] == 0 and not keep[0].any()
+
+
+# ---------------------------------------------------------------------------
+# The reference round's kernels' launch plans and rewrites (worker_sum.cu,
+# threefry.cu): what the CPU can hold of them.  The kernels themselves run
+# only on the card (chip_smoke.py holds them bitwise against their plain
+# versions there).
+
+
+#: the reference backend's worker sums: the committed spec's (16, 64), the
+#: paper's (200 and 1000 workers over 2 k' in {64, 68, 112}), two windowed
+#: levels (2000, 112)
+REFERENCE_SUMS = [(16, 64)] + [(n, c) for n in (200, 1000)
+                                for c in (64, 68, 112)] + [(2000, 112)]
+
+
+@pytest.mark.parametrize("n,cols", REFERENCE_SUMS)
+def test_worker_sum_plan_at_the_reference_shapes(n, cols):
+    """Beyond 32 workers the reference's windowed reduce takes the narrow
+    layout (the windows of a tile of 4 columns in parallel, several CTAs:
+    28 at (1000, 112)); 16 workers sum in order, a thread per column; the
+    fleets' orders are never windowed."""
+    plan = ops.worker_sum_plan(n, cols, "reduce")
+    if n > 32:
+        assert plan.layout == "narrow" and plan.tile == ops.SUM_TILE
+        assert plan.grid == -(-cols // ops.SUM_TILE) >= 16
+        assert plan.threads == plan.tile * min(plan.levels[1], 64)
+    else:
+        assert plan.layout == "column" and plan.levels == (n,)
+    for order in ("unrolled", "pair"):
+        other = ops.worker_sum_plan(n, cols, order)
+        assert other.layout == "column" and other.levels == (n,)
+        assert other.smem == 0
+
+
+@pytest.mark.parametrize("n", [16, 1000])
+def test_worker_sum_plan_wide(n):
+    """Over 2**20 columns a thread takes 4 (16-byte loads), in order at 16
+    workers, the windows streamed at 1000; one column a thread when the
+    columns are not a multiple of 4 or a pointer is not 16-byte aligned."""
+    plan = ops.worker_sum_plan(n, 2**20)
+    assert plan.layout == "wide" and plan.tile == 4 and plan.smem == 0
+    assert plan.grid == 2**20 // 4 // ops.SUM_THREADS
+    assert plan.levels == ((16,) if n == 16 else (1000, 32))
+    assert ops.worker_sum_plan(n, 2**20 + 1).layout == "column"
+    assert ops.worker_sum_plan(n, 2**20, aligned=False).layout == "column"
+    assert ops.worker_sum_plan(n, ops.SUM_WIDE_COLS - 4).layout == (
+        "column" if n == 16 else "narrow")
+
+
+def test_worker_sum_plan_levels_are_xlas_windows():
+    """At every n up to 5000 and at 32**3 + 1 and the switch +-1, each
+    level of the plan has as many items as ``ref.reduce_windows`` cuts the
+    level below into, the last at most 32; the narrow layout's shared
+    memory holds a tile of each level above the rows."""
+    for n in list(range(1, 5001)) + [32**3 + 1, ops.SUM_NARROW_ROWS,
+                                     ops.SUM_NARROW_ROWS + 1]:
+        plan = ops.worker_sum_plan.__wrapped__(n, 113, "reduce")
+        assert plan.levels[0] == n and plan.levels[-1] <= 32
+        for below, above in zip(plan.levels, plan.levels[1:]):
+            assert below > 32
+            assert above == len(ref.reduce_windows(below))
+        if plan.layout == "narrow":
+            assert plan.smem == 4 * ops.SUM_TILE * sum(plan.levels[1:])
+
+
+def test_worker_sum_plan_switch_fits_shared_memory():
+    """Every windowed n up to the switch (SUM_NARROW_ROWS, 95,232 rows)
+    takes the narrow layout within 48 KB of shared memory (a CTA's without
+    asking; the card's most is 227 KB); the next n streams its windows."""
+    assert ops.SUM_NARROW_ROWS == 95_232
+    for n in range(33, ops.SUM_NARROW_ROWS + 1):
+        levels = ops._sum_levels(n, "reduce")
+        assert 4 * ops.SUM_TILE * sum(levels[1:]) <= ops.SUM_SMEM <= 232_448
+    assert ops.worker_sum_plan(ops.SUM_NARROW_ROWS, 1).layout == "narrow"
+    assert ops.worker_sum_plan(ops.SUM_NARROW_ROWS + 1, 1).layout == "column"
+
+
+def model_worker_sum_narrow(d, weights, plan):
+    """The narrow layout's arithmetic as ``worker_sum.cu`` indexes it, in
+    torch over all columns at once: each (window, column) of the rows from
+    +0.0 with its weights, the partials of each level windowed again in
+    the same order, the last level in order from +0.0."""
+    def window(items, w, lo, win):
+        s = win * 32 - lo
+        acc = torch.zeros_like(items[0])
+        for i in range(max(0, s), min(items.shape[0], s + 32)):
+            acc = acc + items[i] if w is None else torch.add(
+                acc, items[i], alpha=float(w[i] if isinstance(
+                    w, torch.Tensor) else w))
+        return acc
+
+    items, w = d, weights
+    for count in plan.levels[1:]:
+        m = items.shape[0]
+        lo = ((32 - m % 32) % 32) // 2
+        assert count == (m + lo + 31) // 32
+        items = torch.stack([window(items, w, lo, win)
+                             for win in range(count)])
+        w = None
+    return window(items, None, 0, 0)
+
+
+@pytest.mark.parametrize("n", [33, 200, 1000, 1025, 2000])
+@pytest.mark.parametrize("kind", [None, "rows", "scale"])
+def test_model_worker_sum_narrow_bitwise(n, kind):
+    """The narrow layout's order of adds (``model_worker_sum_narrow``)
+    equals the plain version's, bitwise, with -0.0 and inf in the data and
+    a NaN under a zero mask."""
+    rng = np.random.default_rng(n)
+    d = torch.from_numpy(rng.standard_normal((n, 7)).astype(np.float32))
+    d[0, :3] = torch.tensor([-0.0, float("inf"), -1.5])
+    w = {None: None, "scale": 10 / 3,
+         "rows": torch.from_numpy((rng.random(n) < 0.5).astype(np.float32))
+         }[kind]
+    if kind == "rows":
+        w[n - 1] = 0.0
+        d[n - 1, 1] = float("nan")
+    plan = ops.worker_sum_plan(n, 7)
+    assert plan.layout == "narrow"
+    model = model_worker_sum_narrow(d, w, plan)
+    want = ref.worker_sum_ref(d, w)
+    np.testing.assert_array_equal(_bits(model.numpy()), _bits(want.numpy()))
+
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_launch_switches_device_only_off_the_current_one(index, monkeypatch):
+    """``build.launch``, through which every wrapper launches: the entry
+    point gets the raw current stream of the tensor's card, and runs under
+    ``torch.cuda.device`` only when that card is not the host thread's
+    current one (card 0 here), since a launch goes to the current one."""
+    from repro_torch.kernels import build
+
+    entered, current = [], [0]
+
+    class Switch:
+        def __init__(self, i):
+            self.i = i
+
+        def __enter__(self):
+            entered.append(self.i)
+            current[0], self.prev = self.i, current[0]
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(torch.cuda, "device", Switch)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: 1000 + i, raising=False)
+    calls = []
+
+    def entry(*args):
+        calls.append((args, current[0]))
+        return 0
+
+    assert build.launch(entry, torch.device("cuda", index), 7, 8) == 0
+    assert calls == [((7, 8, 1000 + index), index)]
+    assert entered == ([1] if index else [])
+    assert current == [0]

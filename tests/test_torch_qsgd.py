@@ -551,18 +551,85 @@ def test_clip_by_global_norm_and_chain_match_jax(max_norm):
                                            rtol=3e-7, atol=0)
 
 
-@pytest.mark.parametrize("kind", ["constant", "linear_warmup", "wsd"])
+def _schedule_args(kind, steps, warmup):
+    """A schedule's arguments for a run of ``steps``: warmup steps about a
+    twentieth of the run (or none), WSD's plateau 0.7 and decay 0.25 of it,
+    cosine to the run's end."""
+    w = max(steps // 20, 1) if warmup else 0
+    return {"constant": (3e-4,), "linear_warmup": (3e-4, w),
+            "cosine": (3e-4, steps, w),
+            "wsd": (3e-4, w, int(steps * 0.7), max(int(steps * 0.25), 1))
+            }[kind]
+
+
+@pytest.mark.parametrize("kind", ["constant", "linear_warmup", "wsd",
+                                  "cosine"])
 def test_schedules_match_jax(kind):
-    """The schedules this slice ports, at every step of a short and a long
-    run (warmup, plateau, decay, past the end), equal to JAX's eager f32
-    value.  (``cosine``, ported earlier, is pinned at chosen steps in
-    ``test_torch_train.py``: numpy's f32 cos is not XLA's, ROADMAP fault
-    x.)"""
-    for steps in (3, 50):
-        w, stable, decay = max(steps // 20, 1), int(steps * 0.7), \
-            max(int(steps * 0.25), 1)
-        args = {"constant": (3e-4,), "linear_warmup": (3e-4, w),
-                "wsd": (3e-4, w, stable, decay)}[kind]
-        jf, tf = getattr(joptim, kind)(*args), getattr(toptim, kind)(*args)
-        for s in range(steps + 5):
-            assert tf(s) == float(jf(jnp.asarray(s, jnp.int32))), (kind, s)
+    """Each schedule at every step of runs of 3, 50 and 1000 steps (warmup,
+    plateau, decay, past the end), with and without warmup, equal to
+    ``jax.jit(schedule)``: the lr of JAX's jitted optimizer step, whose
+    products by constant reciprocals, fused multiply-adds, ``cosf`` and
+    ``powf`` differ from the eager value by up to 7 ulp (ROADMAP fault
+    x)."""
+    for warmup in (True, False):
+        for steps in (3, 50, 1000):
+            args = _schedule_args(kind, steps, warmup)
+            jf = jax.jit(getattr(joptim, kind)(*args))
+            tf = getattr(toptim, kind)(*args)
+            for s in range(steps + 5):
+                assert tf(s) == float(jf(jnp.asarray(s, jnp.int32))), \
+                    (kind, args, s)
+
+
+@pytest.mark.parametrize("kind", ["cosine", "wsd"])
+def test_schedule_is_the_jitted_trainers_lr(kind):
+    """The lr that JAX's jitted ``sgd(schedule).update`` applies (its
+    update of a gradient of 1 is -lr), read at every step of a 1000-step
+    run, equals the port's schedule: ``jax.jit(schedule)`` is the
+    trainer's value."""
+    args = _schedule_args(kind, 1000, True)
+    update = jax.jit(joptim.sgd(getattr(joptim, kind)(*args)).update)
+    tf = getattr(toptim, kind)(*args)
+    one = jnp.ones((), jnp.float32)
+    for s in range(1005):
+        u, _ = update(one, {"count": jnp.asarray(s, jnp.int32),
+                            "mom": None}, one)
+        assert -float(u) == tf(s), (kind, s)
+
+
+def test_xla_cos_bitwise():
+    """``random.xla_cos`` (glibc's ``cosf``, which XLA CPU calls) against
+    jitted ``jnp.cos`` on 2**20 values spread over [0, pi] (the schedules'
+    range), 2**16 random f32 bit patterns (every reduction path) and the
+    edges of its paths and their f32 neighbours below, bit for bit (NaN
+    where JAX's is NaN)."""
+    rng = np.random.default_rng(0)
+    edges = np.array([2**-12, 0.75, 120.0, np.pi / 2, np.pi, 1.0,
+                      np.finfo(np.float32).max, np.finfo(np.float32).tiny,
+                      1e-45, 2**23], np.float32)
+    x = np.concatenate([
+        np.linspace(0, np.pi, 2**20, dtype=np.float32),
+        rng.integers(0, 2**32, 2**16, dtype=np.uint64).astype(
+            np.uint32).view(np.float32),
+        edges, -edges, np.nextafter(edges, np.float32(0)),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)])
+    want = np.asarray(jax.jit(jnp.cos)(x))
+    got = R.xla_cos(x)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+def test_xla_pow_bitwise():
+    """``random.xla_pow`` (glibc's ``powf``, which XLA CPU calls) against
+    jitted ``jnp.power`` on 2**16 exponents in [0, 1] (and 0, 1, 1/2) for
+    WSD-like bases and a few others, bit for bit; 0 ** t is 0 and x ** 0
+    is 1."""
+    rng = np.random.default_rng(1)
+    t = np.concatenate([np.array([0.0, 1.0, 0.5], np.float32),
+                        rng.random(2**16, dtype=np.float32)])
+    for base in (0.01, 0.1, 0.5, 0.9, 1e-6, 1.0, 3.0, 0.0):
+        b = np.float32(base)
+        want = np.asarray(jax.jit(jnp.power)(b, t))
+        got = R.xla_pow(b, t)
+        np.testing.assert_array_equal(_bits(got), _bits(want))

@@ -227,7 +227,9 @@ def test_synthetic_batches_identical(seed, resample):
 
 
 def test_schedule_and_tuning_match_jax():
-    jsched = jcosine(3e-4, total_steps=50, warmup_steps=2)
+    """The port's warmup-cosine lr equals ``jax.jit(schedule)``, the lr of
+    JAX's jitted optimizer step (ROADMAP fault x), at chosen steps."""
+    jsched = jax.jit(jcosine(3e-4, total_steps=50, warmup_steps=2))
     tsched = cosine(3e-4, total_steps=50, warmup_steps=2)
     for s in (0, 1, 2, 3, 25, 49, 60):
         assert tsched(s) == float(jsched(jnp.asarray(s, jnp.int32)))
