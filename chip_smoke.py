@@ -78,13 +78,15 @@ line is printed only when every phase passed):
               and an f16 wire: each case's exact bits, the losses within
               the CPU tests' 1e-5 relative and the params within AdamW's
               bound of the CPU's.
-3a'. families -- the ssm and moe families at smoke size
-              (``phase_families``): mamba2's and granite-moe's initial
-              trees drawn on the card bitwise equal to the CPU's (mamba2's
-              dt_bias and A_log run XLA's f32 exp, expm1 and log,
-              emulated); two steps of ``build(spec)``'s trainer
-              (block-top-k up) on the card and the CPU for mamba2,
-              granite-moe and dbrx, held as the zoo phase holds its cases;
+3a'. families -- the ssm, moe, hybrid, encdec and vlm families at smoke
+              size (``phase_families``): the initial trees of mamba2,
+              granite-moe, zamba2, whisper and qwen2-vl drawn on the card
+              bitwise equal to the CPU's (mamba2's and zamba2's dt_bias and
+              A_log run XLA's f32 exp, expm1 and log, emulated); two steps
+              of ``build(spec)``'s trainer (block-top-k up; whisper's frames
+              and qwen2-vl's vision embeddings in every batch) on the card
+              and the CPU for those and dbrx, held as the zoo phase holds
+              its cases;
               the fixed-routing MoE regime (zero routers): only experts
               0..k-1 carry gradients on the card, one step with
               ``grad_transform=zero_inactive_expert_grads`` gives the
@@ -115,8 +117,9 @@ line is printed only when every phase passed):
               problems' threefry draws, one row draw per shuffle round and
               one worker sum a round, none of it growing with n) are a
               main path's, ``reference``.
-4. main paths -- ``repro_torch.launch.train.main`` at the full width and
-              depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
+4. main paths -- the driver's ``setup`` and loop (``train.train_loop``),
+              as ``repro_torch.launch.train.main`` runs them in one
+              process, at the full width and depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
               wire, once per path:
               * block-top-k (256, 16) up, dense broadcast down;
               * QSGD(16) up and down (bidirectional);
@@ -168,6 +171,23 @@ line is printed only when every phase passed):
                 block-top-k (256, 16): 3,827,312,640 bits a worker, 78
                 ``pack_update`` and 66 ``threefry_uniform`` launches,
                 finite losses, gradient norms and aux losses.
+              * hybrid: zamba2-7b at full width with 12 of its 81 layers
+                (1,370,644,416 params, 25 leaves; the shared attention
+                block after layers 5 and 11), by ``cut_setup`` and the
+                driver's loop: 5,482,579,968 bits a worker, 150
+                ``pack_update`` and 105 ``threefry_uniform`` launches,
+                finite losses, |g|, h_res and raw gradient norms (SSD
+                chunk 128: fault w's repair at the hybrid's widths).
+              * encdec: whisper-medium whole (24 + 24 layers,
+                1,012,314,112 params, 27 leaves), through the driver's
+                CLI, each batch with JAX's 1500 stub frames a sample:
+                4,049,256,448 bits a worker, 162 ``pack_update`` and 434
+                ``threefry_uniform`` launches.
+              * vlm: qwen2-vl-2b at full width with 16 of its 28 layers
+                (1,215,514,112 params, 15 leaves), by ``cut_setup``, each
+                batch with JAX's 1024 stub patches before the 128 tokens
+                (M-RoPE positions): 4,862,056,448 bits a worker, 90
+                ``pack_update`` and 114 ``threefry_uniform`` launches.
    Then the CLI at ``--smoke`` on the card for granite-moe, dbrx (their
               step lines carry the aux loss) and minicpm (``--schedule
               auto`` picks WSD and says so), 2 steps each
@@ -396,20 +416,26 @@ def full_leaves():
 
 
 def phase_kernels():
-    pack_row = kernels_pack()
-    torch.cuda.empty_cache()
-    qsgd_row = kernels_qsgd()
-    torch.cuda.empty_cache()
-    randk_row = kernels_randk()
-    torch.cuda.empty_cache()
-    threefry_row = kernels_threefry()
-    torch.cuda.empty_cache()
-    kernels_permutation()
-    torch.cuda.empty_cache()
-    dense_rows = kernels_dense()
-    torch.cuda.empty_cache()
-    rows_rows = kernels_rows()
-    torch.cuda.empty_cache()
+    """Every kernel against its plain version, section by section; prints
+    each section's seconds."""
+    secs = {}
+
+    def section(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        secs[fn.__name__] = time.perf_counter() - t
+        return out
+
+    pack_row = section(kernels_pack)
+    qsgd_row = section(kernels_qsgd)
+    randk_row = section(kernels_randk)
+    threefry_row = section(kernels_threefry)
+    section(kernels_permutation)
+    dense_rows = section(kernels_dense)
+    rows_rows = section(kernels_rows)
+    print("[kernels] seconds by section: " + " ".join(
+        f"{k}={v:.1f}" for k, v in secs.items()))
     return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
             "randk_update": randk_row, "threefry_uniform": threefry_row,
             **dense_rows, **rows_rows}
@@ -946,17 +972,27 @@ def kernels_randk():
         max_err = max(max_err, randk_case(name, g, h, idx=idx)[4])
         del g, h, idx
         torch.cuda.empty_cache()
-    # one launch (1000 values) and bucketed (2**22 values)
-    for bad, size in ((1000, 1000), (-1, 1000), (1 << 22, 1 << 22),
-                      (-5, 1 << 22)):
-        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--randk-trap-child", str(bad), str(size)],
-                           capture_output=True, text=True, timeout=300)
-        print(r.stdout.strip())
-        if r.returncode != 3 or "launch failed" not in r.stdout:
-            raise AssertionError(f"[kernels] randk position {bad} of {size}: "
-                                 f"launch did not fail (exit "
-                                 f"{r.returncode}): {r.stderr[-2000:]}")
+    # one launch (1000 values) and bucketed (2**22 values); the four
+    # children at once (each spends seconds reaching the card), each
+    # trap in its own context
+    cases = ((1000, 1000), (-1, 1000), (1 << 22, 1 << 22), (-5, 1 << 22))
+    children = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--randk-trap-child",
+         str(bad), str(size)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for bad, size in cases]
+    try:
+        for (bad, size), child in zip(cases, children):
+            out, err = child.communicate(timeout=300)
+            print(out.strip())
+            if child.returncode != 3 or "launch failed" not in out:
+                raise AssertionError(
+                    f"[kernels] randk position {bad} of {size}: launch did "
+                    f"not fail (exit {child.returncode}): {err[-2000:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+            child.communicate()
     leaves = full_leaves()
     rounds = sum(random.shuffle_rounds(s) for _, s in leaves)
     if len(leaves) != FULL_LEAVES or rounds != SHUFFLE_ROUNDS:
@@ -1097,23 +1133,25 @@ def sum_weights(n, kind, gen, dev):
                                  scale).to(dev)}[kind]
 
 
-def check_worker_sum(n, cols, kind, order, fuse, gen, dev):
+def check_worker_sum(n, cols, kind, order, fuse, gen, dev, dgen):
     """``worker_sum`` of (n, cols) with weights of ``kind`` in ``order``
     (fused with the master update or not) against its plain version on
     the card, bitwise, on data with -0.0, inf and a NaN in the last
     worker's row (its mask is 0: 0 * NaN stays NaN); returns the max
-    |kernel - plain|.  The plain version takes a host copy of an (n,)
-    tensor of weights (the same values: its loop reads each row's weight,
-    which from the card would cost a synchronisation a row)."""
+    |kernel - plain|.  The data d and h are drawn on the card (``dgen``, a
+    CUDA generator: a (1000, 2**20) draw on the host took seconds a case),
+    the weights on the host (``gen``).  The plain version takes a host
+    copy of an (n,) tensor of weights (the same values: its loop reads
+    each row's weight, which from the card would cost a synchronisation a
+    row)."""
     from repro_torch.kernels import ops, ref
 
-    d = torch.randn(n, cols, generator=gen)
-    d[0, :3] = torch.tensor([-0.0, float("inf"), -1.5])[:cols]
-    d = d.to(dev)
+    d = torch.randn(n, cols, generator=dgen, device=dev)
+    d[0, :3] = torch.tensor([-0.0, float("inf"), -1.5], device=dev)[:cols]
     if kind in ("rows", "mask*scale"):
         d[n - 1, 1 % cols] = float("nan")
     w = sum_weights(n, kind, gen, dev)
-    h = torch.randn(cols, generator=gen).to(dev)
+    h = torch.randn(cols, generator=dgen, device=dev)
     c_g, c_h = f32(0.37 / n), f32(0.011 / n)
     args = (d, w) + ((h, c_g, c_h) if fuse else (None, 0.0, 0.0))
     k = ops.worker_sum(*args, order=order)
@@ -1181,12 +1219,13 @@ def kernels_rows():
     lap("row_draws")
     err_sum = {}
     gen = torch.Generator(device="cpu").manual_seed(5)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
     sums = sorted(rows_cases(ROW_NS, ROW_DS)
                   | rows_cases(MAIN_NS, [2 * m for m in MAIN_MS])
                   | set(SUM_EXTRA))
     for n, cols in sums:
         err_sum[n, cols] = max(
-            check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+            check_worker_sum(n, cols, kind, order, fuse, gen, dev, dgen)
             for kind, order in SUM_KINDS for fuse in (False, True))
         torch.cuda.empty_cache()
     print(f"[kernels] worker_sum (n, cols) in {sums} (weights and orders "
@@ -1205,7 +1244,7 @@ def kernels_rows():
               for n in switch for kind, order in SUM_KINDS[:4]]
     layouts = collections.Counter()
     for n, cols, kind, order, fuse in edges:
-        check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+        check_worker_sum(n, cols, kind, order, fuse, gen, dev, dgen)
         layouts[ops.worker_sum_plan(n, cols, order).layout] += 1
     torch.cuda.empty_cache()
     print(f"[kernels] worker_sum at the layouts' edges: n in "
@@ -1948,8 +1987,9 @@ def zoo_steps(spec, cfg, params):
                 weight_decay=0.01)
     state = run_.init_state(params, opt)
     step_fn = run_.train_step(build_model(cfg).loss, opt)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8,
-                       n_workers=spec.n, seed=0)
+    data = StepBatches(SyntheticLM(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=8, n_workers=spec.n, seed=0),
+                       cfg, 8)
     losses = []
     for s in range(ZOO_STEPS):
         state, m = step_fn(state, data.batch(s), random.fold_in(
@@ -2009,11 +2049,14 @@ def phase_zoo():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-#: the families phase: the ssm and moe smoke configs, card against CPU
-FAMILY_ARCHS = ("mamba2-130m", "granite-moe-3b-a800m", "dbrx-132b")
-#: init on the card bitwise with the CPU's (mamba2's dt_bias and A_log are
-#: XLA's f32 exp, expm1 and log, emulated)
-FAMILY_INIT = ("mamba2-130m", "granite-moe-3b-a800m")
+#: the families phase: the ssm, moe, hybrid, encdec and vlm smoke configs,
+#: card against CPU
+FAMILY_ARCHS = ("mamba2-130m", "granite-moe-3b-a800m", "dbrx-132b",
+                "zamba2-7b", "whisper-medium", "qwen2-vl-2b")
+#: init on the card bitwise with the CPU's (mamba2's and zamba2's dt_bias
+#: and A_log are XLA's f32 exp, expm1 and log, emulated)
+FAMILY_INIT = ("mamba2-130m", "granite-moe-3b-a800m", "zamba2-7b",
+               "whisper-medium", "qwen2-vl-2b")
 
 
 def family_spec(arch, cfg, **fields):
@@ -2152,13 +2195,14 @@ def ssd_gradient_check():
 
 
 def phase_families():
-    """The ssm and moe families at smoke size: mamba2's and granite-moe's
-    initial trees drawn on the card bitwise equal to the CPU's; two steps
-    of ``build(spec)``'s trainer (block-top-k up) on the card and on the
-    CPU for mamba2, granite-moe and dbrx, held to each other as the zoo
-    phase holds its cases (losses within 1e-5 relative, params within
-    AdamW's bound); the fixed-routing MoE regime; and, first, fault w's
-    repair at full width (``ssd_gradient_check``)."""
+    """The ssm, moe, hybrid, encdec and vlm families at smoke size: the
+    initial trees of FAMILY_INIT drawn on the card bitwise equal to the
+    CPU's; two steps of ``build(spec)``'s trainer (block-top-k up; the
+    encdec's frames and the vlm's vision embeddings in every batch) on the
+    card and on the CPU for each of FAMILY_ARCHS, held to each other as
+    the zoo phase holds its cases (losses within 1e-5 relative, params
+    within AdamW's bound); the fixed-routing MoE regime; and, first, fault
+    w's repair at full width (``ssd_gradient_check``)."""
     from repro_torch import random
     from repro_torch import tree as T
     from repro_torch.core import build
@@ -2377,10 +2421,11 @@ def check_main_shapes(seen):
     that shape (after the launch counts are read)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(7)
+    dgen = torch.Generator(device="cuda").manual_seed(7)
     for n, m, as_float in sorted(seen["threefry_rows"]):
         check_threefry_rows(n, m, as_float, dev)
     for n, cols, kind, order, fuse in sorted(seen["worker_sum"], key=str):
-        check_worker_sum(n, cols, kind, order, fuse, gen, dev)
+        check_worker_sum(n, cols, kind, order, fuse, gen, dev, dgen)
     torch.cuda.empty_cache()
     print(f"[reference-spec] the main path's own shapes, each bitwise == "
           f"plain on the card: threefry_rows (n, m, as_float) "
@@ -2783,7 +2828,8 @@ def recording(records, holder=None):
     (a group with a ``model`` axis) also the host ms, calls and bytes sent
     of its model-axis collectives, and checksums of its shards of the
     master state (params, w, h_avg, AdamW's m and v).  ``holder["state"]``
-    keeps the newest state."""
+    keeps the newest state; a recorded step's ``unrecorded`` is the step
+    function the trainer built."""
     from repro_torch.train import trainer as train
 
     make = train.make_train_step
@@ -2826,6 +2872,7 @@ def recording(records, holder=None):
             if holder is not None:
                 holder["state"] = state
             return state, m
+        step.unrecorded = step_fn
         return step
 
     train.make_train_step = make_recorded
@@ -3059,6 +3106,65 @@ PATHS.update({
         "op": "dispatch_groups",
     },
 })
+#: the hybrid, encdec and vlm main paths: zamba2-7b at full width with 12
+#: of its 81 layers (the shared attention block after layers 5 and 11),
+#: whisper-medium whole (24 + 24 layers, 1500 frames) and qwen2-vl-2b at
+#: full width with 16 of its 28 layers (1024 patches before 128 tokens)
+HYBRID_BITS = 5_482_579_968     # zamba2-7b 12 layers, block_topk:256,16
+ENCDEC_BITS = 4_049_256_448     # whisper-medium, block_topk:256,16
+VLM_BITS = 4_862_056_448        # qwen2-vl-2b 16 layers, block_topk:256,16
+HYBRID_LAYERS, VLM_LAYERS = 12, 16
+HYBRID_LEAVES, ENCDEC_LEAVES, VLM_LEAVES = 25, 27, 15
+#: the inits' threefry draws: the embedding and the untied head, then
+#: zamba2's 8 a mamba layer and 7 for the shared block (4 attention, 3
+#: MLP weights); whisper's 11 a decoder layer (attention, cross-attention,
+#: MLP) and 7 an encoder layer; qwen2-vl's 7 a layer
+HYBRID_INIT_DRAWS = 2 + HYBRID_LAYERS * 8 + 7
+ENCDEC_INIT_DRAWS = 2 + 24 * 11 + 24 * 7
+VLM_INIT_DRAWS = 2 + VLM_LAYERS * 7
+
+PATHS.update({
+    # the driver has no depth flag: cut to 12 layers by ``cut_setup``, a
+    # multiple of attn_every = 6, so the shared block runs twice
+    "hybrid": {
+        "argv": arch_argv("zamba2-7b")
+        + ["--compressor", "block_topk:256,16"],
+        "layers": HYBRID_LAYERS,
+        "vocab": 32000,
+        "bits": {r"(\d+) bits/round/worker": [HYBRID_BITS]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
+        "launches": {"pack_update": HYBRID_LEAVES * WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": HYBRID_INIT_DRAWS},
+        "profile": ("pack_update_rows",),
+    },
+    # whole, through the driver's CLI: each step's batch carries JAX's
+    # frames (``train.family_batch_extras``)
+    "encdec": {
+        "argv": arch_argv("whisper-medium")
+        + ["--compressor", "block_topk:256,16"],
+        "vocab": 51865,
+        "bits": {r"(\d+) bits/round/worker": [ENCDEC_BITS]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
+        "launches": {"pack_update": ENCDEC_LEAVES * WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": ENCDEC_INIT_DRAWS},
+        "profile": ("pack_update_rows",),
+    },
+    # 16 of 28 layers; each step's batch carries JAX's vision embeddings
+    "vlm": {
+        "argv": arch_argv("qwen2-vl-2b")
+        + ["--compressor", "block_topk:256,16"],
+        "layers": VLM_LAYERS,
+        "vocab": 151936,
+        "bits": {r"(\d+) bits/round/worker": [VLM_BITS]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
+        "launches": {"pack_update": VLM_LEAVES * WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": VLM_INIT_DRAWS},
+        "profile": ("pack_update_rows",),
+    },
+})
 #: the main paths on two gloo ranks sharing cuda:0 (one worker each,
 #: torchrun), each held bitwise against its one-process path ("same_as"):
 #: losses and params checksums at every step, on every rank
@@ -3170,7 +3276,7 @@ def phase_main(name):
         with contextlib.redirect_stdout(out), recording(records, holder), \
                 recording_pack_shapes(pack_calls):
             reset_launches()
-            drive(path)
+            drive(path, holder)
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
     finally:
@@ -3181,6 +3287,12 @@ def phase_main(name):
                                        holder["state"].params)
     if path.get("checkpoint"):
         checkpoint_check(name, path, holder["state"].params)
+    if path["profile"] is not None:
+        # the run's final state, its step and its batches: the profile
+        # phase goes on from them (an init of the same model again took
+        # 1-6 s a path)
+        step_fn, data = holder["run"]
+        PROFILE_RUNS[name] = (holder["state"], step_fn.unrecorded, data)
     holder.clear()
     secs = time.perf_counter() - t0
     text = out.getvalue()
@@ -3247,6 +3359,9 @@ def phase_main(name):
     return launches
 
 
+#: each profiled main path's (final state, step function, batches), kept
+#: by ``phase_main`` for ``phase_profile``
+PROFILE_RUNS = {}
 #: (numel, block, kb) of the pack kernel's calls on the main paths, each
 #: held bitwise against its plain version once (``check_pack_shapes``)
 PACK_CHECKED = set()
@@ -3345,26 +3460,40 @@ def cut_setup(path, echo=print):
     return state, step_fn, data
 
 
-def path_setup(path):
-    """(state, step_fn, data) of a path's run, header unprinted."""
+class StepBatches:
+    """A run's batches as the driver's loop makes them: ``data.batch(s)``
+    with the family's extras (``train.step_batch``: the encdec's frames,
+    the vlm's vision embeddings)."""
+
+    def __init__(self, data, cfg, global_batch):
+        self.data, self.cfg, self.global_batch = data, cfg, global_batch
+
+    def batch(self, step):
+        from repro_torch.launch import train
+
+        return train.step_batch(self.data, self.cfg, self.global_batch,
+                                step)
+
+
+def drive(path, holder):
+    """Run one main path through the driver's loop (``train.train_loop``)
+    on ``train.setup`` of its flags, as ``train.main`` runs it in one
+    process, or, for a path cut in depth, on ``cut_setup``.
+    ``holder["run"]`` keeps the run's step function and its batches
+    (``StepBatches``), not its state: only the loop holds that."""
     from repro_torch.launch import train
 
-    with contextlib.redirect_stdout(io.StringIO()):
-        if path.get("layers"):
-            return cut_setup(path)
-        return train.setup(train.parse_args(path["argv"]))
-
-
-def drive(path):
-    """Run one main path through the driver: ``train.main`` of its flags,
-    or, for a path cut in depth, ``cut_setup`` and the driver's loop."""
-    from repro_torch.launch import train
-
-    if not path.get("layers"):
-        return train.main(path["argv"])
     args = train.parse_args(path["argv"])
-    return train.train_loop(args, None, train.experiment(args),
-                            lambda: cut_setup(path))
+    spec = train.experiment(args)
+
+    def make():
+        state, step_fn, data = (cut_setup(path) if path.get("layers")
+                                else train.setup(args, None, spec))
+        holder["run"] = (step_fn, StepBatches(data, train.run_config(spec),
+                                              args.global_batch))
+        return state, step_fn, data
+
+    return train.train_loop(args, None, spec, make)
 
 
 def checkpoint_check(name, path, params):
@@ -3849,10 +3978,13 @@ def timed_choices(fn):
 
 
 def phase_profile(name):
-    """Where a full-width step's time goes: after a warm-up step, one step
+    """Where a full-width step's time goes, on from the state, step
+    function and batches of the path's run (``phase_main``, which keeps
+    them in PROFILE_RUNS): after a warm-up step, one step
     timed on the host clock (for rand-k with its shuffles between CUDA
-    events, ``timed_choices``) and one traced with torch.profiler (device
-    time by kernel, and the device's busy share of the traced step).  A
+    events, ``timed_choices``) and one traced with torch.profiler, the
+    device's activity only (device time by kernel, and the device's busy
+    share of the untraced step).  A
     trace whose rows cannot be read is reported, not failed; a failure of
     the steps themselves fails the phase.  Then where its memory goes
     (``phase_peaks``, and for the QSGD path ``memory_probes``)."""
@@ -3862,8 +3994,17 @@ def phase_profile(name):
     from repro_torch import tree as T
 
     path = PATHS[name]
+    secs, t_lap = {}, time.perf_counter()
+
+    def lap(label):
+        nonlocal t_lap
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t_lap
+        t_lap = time.perf_counter()
+
+    state, step_fn, data = PROFILE_RUNS.pop(name)
     collect(f"[profile] {name}")
-    state, step_fn, data = path_setup(path)
+    lap("collect")
     key = random.key(0)
     state, m = step_fn(state, data.batch(0), random.fold_in(key, 0))
     torch.cuda.synchronize()
@@ -3876,18 +4017,20 @@ def phase_profile(name):
     if not math.isfinite(loss):
         raise AssertionError(f"[profile] {name}: untraced step loss {loss}")
     print(f"[profile] {name}: untraced step wall_ms={untraced:.2f}")
+    batch_extras_ms(name, data, untraced)
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: a trace of the step's tens of thousands
+    # of CPU ops took seconds to read (and their rows would count every
+    # kernel a second time)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step_fn(state, data.batch(2), random.fold_in(key, 2))
         loss = float(m["loss"])
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    lap("steps")
     if not math.isfinite(loss):
         raise AssertionError(f"[profile] {name}: traced step loss {loss}")
     try:
-        # device kernels only: CPU ops also carry the device time of the
-        # kernels they launched, which would count every kernel twice
         rows = [(e.self_device_time_total / 1e3, e.count, e.key)
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -3898,17 +4041,20 @@ def phase_profile(name):
     busy = None
     if rows is not None:
         busy = print_profile(name, rows, untraced, wall)
+    lap("trace_rows")
     if name == "randk":
         print(f"[profile] randk: the shuffles of the untraced step "
               f"({choices} random.choice calls between CUDA events) "
               f"ms={shuffle_ms:.2f}, {shuffle_ms / untraced:.3f} of it")
     if path.get("op"):
         state = op_share(name, path, state, step_fn, data, busy)
+        lap("op_share")
     # the holder is the only reference to the state, as the launcher's loop
     # variable is: a second one would keep a stale state alive in the steps
     holder = {"state": state}
     del state, prof
     phase_peaks(name, holder, step_fn, data)
+    lap("peaks")
     if name == "qsgd_bidirectional":
         memory_probes(holder["state"])
     if name == "randk":
@@ -3920,6 +4066,35 @@ def phase_profile(name):
         print(f"[memory] pipelined: in-flight buffer {len(inflight)} "
               f"tensors, {used} B of payload ({used / 2**30:.3f} GiB), "
               f"{held} B of storage")
+    lap("probes")
+    print(f"[profile] {name}: seconds " + " ".join(
+        f"{k}={v:.1f}" for k, v in secs.items()))
+
+
+def batch_extras_ms(name, data, untraced):
+    """The encdec's frames or the vlm's vision embeddings of the untraced
+    step (``train.family_batch_extras``, numpy's standard normals), drawn
+    on the host and copied to the card on their own, as the trainer copies
+    a batch (``torch.as_tensor`` from pageable memory); nothing for the
+    other families."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    extras = train.family_batch_extras(data.cfg, data.global_batch, 1)
+    if not extras:
+        return
+    draw = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = {k: torch.as_tensor(v, device="cuda")
+               for k, v in extras.items()}
+    torch.cuda.synchronize()
+    copy = (time.perf_counter() - t0) * 1e3
+    del on_card
+    mb = sum(v.nbytes for v in extras.values()) / 1e6
+    print(f"[profile] {name}: batch extras ({', '.join(extras)}, "
+          f"{mb:.1f} MB) host draw_ms={draw:.2f} copy_to_card_ms="
+          f"{copy:.2f}, {(draw + copy) / untraced:.3f} of the untraced step")
 
 
 def print_profile(name, rows, untraced, wall):

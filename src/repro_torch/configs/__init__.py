@@ -1,9 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 (``repro/configs/``).
 
-The port has the architectures of its finished slices, each config equal
-to the JAX package's field for field; the rest of the JAX package's
-registry raises as not yet ported.  qwen2-0.5b keeps its module
+The port has every architecture of the JAX package's registry, each config
+equal to the JAX package's field for field.  qwen2-0.5b keeps its module
 (``qwen2_0_5b.py``); the later archs are ``config()`` / ``smoke_config()``
 pairs below, one section per JAX config module, since the port adds no
 file under ``src/``.  Smoke variants are reduced (2 layers, d_model <= 256,
@@ -152,6 +151,86 @@ def _minicpm_smoke() -> ModelConfig:
     )
 
 
+# -- qwen2-vl-2b (``repro/configs/qwen2_vl_2b.py``) ---------------------------
+# [arXiv:2409.12191]: M-RoPE VLM, language decoder only (the vision tower is
+# a stub: batches carry precomputed patch embeddings before the text);
+# 28L x d1536, 12 heads GQA kv=2, ff=8960, vocab 151936, M-RoPE sections
+# (16, 24, 24) over head_dim/2 = 64 frequency channels.
+
+def _qwen2_vl() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-vl-2b", family="vlm",
+        n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2,
+        d_ff=8960, vocab=151936, head_dim=128,
+        qkv_bias=True, mrope_sections=(16, 24, 24),
+        frontend="vision", vision_patches=1024,
+    )
+
+
+def _qwen2_vl_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-vl-smoke", family="vlm",
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+        d_ff=512, vocab=1024, head_dim=64,
+        qkv_bias=True, mrope_sections=(8, 12, 12),
+        frontend="vision", vision_patches=16,
+    )
+
+
+# -- whisper-medium (``repro/configs/whisper_medium.py``) ---------------------
+# [arXiv:2212.04356]: encoder-decoder, 24 + 24 layers, d1024, 16 heads MHA,
+# ff=4096, vocab 51865; the audio frontend is a stub (batches carry
+# (B, 1500, d) frame embeddings); SwiGLU and RMSNorm, sinusoidal positions
+# on both sides, no RoPE.
+
+def _whisper_medium() -> ModelConfig:
+    return ModelConfig(
+        name="whisper-medium", family="encdec",
+        n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
+        d_ff=4096, vocab=51865, head_dim=64,
+        encoder_layers=24, encoder_frames=1500,
+        rope_theta=0.0,  # sinusoidal absolute positions, no RoPE
+        frontend="audio",
+    )
+
+
+def _whisper_medium_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="whisper-smoke", family="encdec",
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+        d_ff=256, vocab=1024, head_dim=32,
+        encoder_layers=2, encoder_frames=64,
+        rope_theta=0.0, frontend="audio",
+    )
+
+
+# -- zamba2-7b (``repro/configs/zamba2_7b.py``) -------------------------------
+# [arXiv:2411.15242]: hybrid, 81 Mamba-2 layers (d3584, d_inner 7168, 112
+# ssm heads of 64, state 64) and one shared attention+MLP block (32-head
+# MHA, head_dim 112, SwiGLU ff=14336) after every 6th layer; vocab 32000.
+
+def _zamba2_7b() -> ModelConfig:
+    return ModelConfig(
+        name="zamba2-7b", family="hybrid",
+        n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32,
+        d_ff=14336, vocab=32000, head_dim=112,
+        ssm_state=64, ssm_head_dim=64, ssm_expand=2, ssm_conv=4,
+        ssm_chunk=128,
+        attn_every=6,
+    )
+
+
+def _zamba2_7b_smoke() -> ModelConfig:
+    return ModelConfig(
+        name="zamba2-smoke", family="hybrid",
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+        d_ff=256, vocab=1024, head_dim=32,
+        ssm_state=16, ssm_head_dim=32, ssm_expand=2, ssm_conv=4,
+        ssm_chunk=32,
+        attn_every=2,
+    )
+
+
 #: arch -> (config, smoke_config) of the archs without a module of their own
 _PAIRS: Dict[str, Tuple[Callable[[], ModelConfig],
                         Callable[[], ModelConfig]]] = {
@@ -161,11 +240,18 @@ _PAIRS: Dict[str, Tuple[Callable[[], ModelConfig],
     "phi3-medium-14b": (_phi3_medium, _phi3_medium_smoke),
     "dbrx-132b": (_dbrx, _dbrx_smoke),
     "minicpm-2b": (_minicpm, _minicpm_smoke),
+    "qwen2-vl-2b": (_qwen2_vl, _qwen2_vl_smoke),
+    "whisper-medium": (_whisper_medium, _whisper_medium_smoke),
+    "zamba2-7b": (_zamba2_7b, _zamba2_7b_smoke),
 }
 
 #: the ported archs in the JAX registry's order; qwen2 has its own module
-ARCHS = list(_PAIRS) + ["qwen2-0.5b"]
-NOT_PORTED = ["qwen2-vl-2b", "whisper-medium", "zamba2-7b"]
+ARCHS = ["minitron-8b", "granite-moe-3b-a800m", "mamba2-130m",
+         "phi3-medium-14b", "qwen2-vl-2b", "dbrx-132b", "whisper-medium",
+         "minicpm-2b", "qwen2-0.5b", "zamba2-7b"]
+#: the JAX registry's archs the port does not have (none since the hybrid,
+#: encdec and vlm families)
+NOT_PORTED: List[str] = []
 
 
 def _pair(name: str):

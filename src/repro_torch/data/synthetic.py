@@ -96,12 +96,12 @@ class SyntheticLM:
 #
 # Data come from the port's threefry draws, on the device asked for.  The
 # uniforms and the normals are JAX's bit for bit (``random.normal`` runs
-# XLA's f32 erf_inv), so x_true and Quadratic's b are too.  What still
-# differs: torch's ``exp`` of the column scales against XLA's (1 ulp in a
-# few columns, so A within 2 ulps), and the matmuls behind the labels and
-# Q, so a label whose logit is within that of zero can flip (none does at
-# the paper's Figure 2 sizes, pinned by the tests).  Tests that need JAX's
-# exact data carry it across as numpy.
+# XLA's f32 erf_inv), so x_true and Quadratic's b are too, and so is A: the
+# column scales are XLA's eager f32 ``exp`` (``random.xla_exp``).  What
+# still differs: the matmuls behind the labels and Q, so a label whose
+# logit is within an ulp of zero could flip (none does at the paper's
+# Figure 2 sizes, pinned by the tests).  Tests that need JAX's exact data
+# carry it across as numpy.
 
 def make_synthetic(key, *, N: int, d: int, noise: float = 0.2,
                    scale: float = 1.0, device="cuda"
@@ -111,8 +111,8 @@ def make_synthetic(key, *, N: int, d: int, noise: float = 0.2,
     per-worker smoothness over two decades, labels are the signs of
     A x_true / sqrt(d) with a fraction ``noise`` flipped."""
     k1, k2, k3, k4 = random.split(key, 4)
-    col_scales = torch.exp(random.uniform(k1, d, device, minval=-1.5,
-                                          maxval=1.5))
+    col_scales = random.xla_exp(random.uniform(k1, d, device, minval=-1.5,
+                                               maxval=1.5))
     A = random.normal(k2, N * d, device).reshape(N, d) * col_scales * scale
     x_true = random.normal(k3, d, device)
     logits = A @ x_true / math.sqrt(d)

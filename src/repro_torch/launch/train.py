@@ -25,9 +25,12 @@ the embedding, the norm dense, block-top-k elsewhere):
         --compressor block_topk:256,16 --agg sparse_allgather \
         --leaf-codecs '*embed*=qsgd:16;*norm*=identity'
 
-The archs are the JAX registry's dense (qwen2-0.5b, minitron-8b,
-phi3-medium-14b, minicpm-2b), moe (granite-moe-3b-a800m, dbrx-132b) and
-ssm (mamba2-130m) configs, e.g. the mamba2 smoke config on the CPU with a
+The archs are all of the JAX registry's: dense (qwen2-0.5b, minitron-8b,
+phi3-medium-14b, minicpm-2b), moe (granite-moe-3b-a800m, dbrx-132b), ssm
+(mamba2-130m), hybrid (zamba2-7b), encdec (whisper-medium: each step's
+batch carries ``frames``) and vlm (qwen2-vl-2b: ``vision_embeds`` before
+the text), the last two drawn as the JAX driver draws them
+(:func:`family_batch_extras`); e.g. the mamba2 smoke config on the CPU with a
 checkpoint every step (JAX's npz format, ``{"params": ...}`` with the
 spec; ``repro_torch.tree.restore_checkpoint`` reads it back):
 
@@ -106,6 +109,7 @@ import functools
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import random, resolve_device
@@ -344,9 +348,6 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
 def _unported_spec(spec: ExperimentSpec) -> str:
     """What of a valid spec the port's trainer does not have yet ('' when
     nothing), naming the ROADMAP item that ports it."""
-    if spec.problem not in ARCHS:
-        return (f"arch {spec.problem!r} is not yet ported to repro_torch "
-                f"(ported: {ARCHS}; ROADMAP queue 1, item 7)")
     if spec.backend == "fsdp":
         return ("backend 'fsdp' is not yet ported to repro_torch (ROADMAP "
                 "queue 1, item 8)")
@@ -418,6 +419,30 @@ def make_schedule(kind: str, lr: float, steps: int):
                    stable_steps=int(steps * 0.7),
                    decay_steps=max(int(steps * 0.25), 1))
     return cosine(lr, total_steps=steps, warmup_steps=max(steps // 20, 1))
+
+
+def family_batch_extras(cfg, global_batch: int, step: int) -> dict:
+    """The per-family batch inputs beyond tokens and labels, as JAX's
+    driver draws them (``repro/train/loop.py::family_batch_extras``): the
+    vlm's stub vision-tower output ``vision_embeds`` (B, vision_patches, d)
+    or the encdec's stub audio frames ``frames`` (B, encoder_frames, d),
+    f32 standard normals from ``np.random.default_rng(step)``, so both
+    packages see the same bits; {} for the other families."""
+    shape = {"vlm": ("vision_embeds", cfg.vision_patches),
+             "encdec": ("frames", cfg.encoder_frames)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, rows = shape
+    return {name: np.random.default_rng(step).standard_normal(
+        (global_batch, rows, cfg.d_model), dtype=np.float32)}
+
+
+def step_batch(data, cfg, global_batch: int, step: int) -> dict:
+    """Step ``step``'s batch: ``data.batch(step)`` and the family's extras
+    (:func:`family_batch_extras`)."""
+    batch = data.batch(step)
+    batch.update(family_batch_extras(cfg, global_batch, step))
+    return batch
 
 
 def _quiet(*args, **kwargs):
@@ -574,9 +599,11 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
     n = spec.n
     key = random.key(spec.seed)
     t_start = time.time()
-    moe = run_config(spec).family == "moe"
+    cfg = run_config(spec)
+    moe = cfg.family == "moe"
     for step in range(spec.steps):
-        state, metrics = step_fn(state, data.batch(step),
+        state, metrics = step_fn(state, step_batch(data, cfg,
+                                                   args.global_batch, step),
                                  random.fold_in(key, step))
         if step % args.log_every == 0 or step == spec.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}

@@ -7,8 +7,9 @@ SSD block (``repro/models/mamba2.py``) and the mixture of experts
 Parameters are dicts of tensors in the JAX layout (``x @ W`` weights of
 shape (in, out)).  Each op keeps the JAX version's dtype casts (norm and
 RoPE in f32, matmuls in the activation dtype, softmax in f32), so the two
-packages round at the same places.  Ported so far: what the dense, ssm and
-moe families run in training.
+packages round at the same places.  Ported: what the dense, moe, ssm,
+hybrid, encdec and vlm families run in training (sliding windows, M-RoPE,
+non-causal and cross-attention included).
 
 Parameter specs (:func:`auto_spec`, :func:`head_spec`) are the JAX
 package's PartitionSpecs written as tuples of axis names, one per dim:
@@ -248,6 +249,28 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return out.to(x.dtype)
 
 
+def apply_mrope(x: Tensor, positions3: Tensor, theta: float,
+                sections: Sequence[int]) -> Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions3 (3, B, S) = (t, h, w) ids;
+    the hd/2 frequency channels split into ``sections``, each group rotated
+    by its own position stream.  sum(sections) == hd // 2."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, device=x.device)
+    chunks, start = [], 0
+    for sec, pos in zip(sections, positions3):
+        chunks.append(pos[..., None].float() * freqs[start:start + sec])
+        start += sec
+    angles = torch.cat(chunks, dim=-1)  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def _project_qkv(p: Dict[str, Tensor], x: Tensor, n_heads: int, n_kv: int,
                  hd: int):
     B, S, _ = x.shape
@@ -262,11 +285,15 @@ def _project_qkv(p: Dict[str, Tensor], x: Tensor, n_heads: int, n_kv: int,
             v.reshape(B, S, n_kv, hd))
 
 
-def causal_mask(Sq: int, Sk: int, device=None) -> Tensor:
-    """(1, 1, 1, Sq, Sk) boolean mask."""
+def causal_mask(Sq: int, Sk: int, window: int = 0, device=None) -> Tensor:
+    """(1, 1, 1, Sq, Sk) boolean mask: key j visible to query i when j <= i
+    and, with a ``window``, j > i - window."""
     qi = torch.arange(Sq, device=device)[:, None]
     ki = torch.arange(Sk, device=device)[None, :]
-    return (ki <= qi)[None, None, None]
+    m = ki <= qi
+    if window:
+        m = m & (ki > qi - window)
+    return m[None, None, None]
 
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask) -> Tensor:
@@ -284,11 +311,11 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask) -> Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
-def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *,
+def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *, window: int = 0,
                   chunk: int = 1024) -> Tensor:
-    """Causal attention as a loop over KV chunks with an online softmax: the
-    semantics of the JAX ``_sdpa_chunked`` scan (scores stay at
-    (B, K, G, Sq, chunk))."""
+    """Causal attention (within a ``window`` when it is nonzero) as a loop
+    over KV chunks with an online softmax: the semantics of the JAX
+    ``_sdpa_chunked`` scan (scores stay at (B, K, G, Sq, chunk))."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -307,6 +334,8 @@ def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *,
         s = torch.einsum("bqkgh,bckh->bkgqc", qg, kj).float()
         kidx = j * chunk + torch.arange(chunk, device=q.device)
         valid = kidx[None, :] <= qi[:, None]
+        if window:
+            valid &= kidx[None, :] > qi[:, None] - window
         s = torch.where(valid[None, None, None], s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -320,22 +349,46 @@ def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 def attention(p: Dict[str, Tensor], x: Tensor, *, n_heads: int, n_kv: int,
-              hd: int, positions: Tensor, theta: float,
+              hd: int, positions: Tensor, theta: float, window: int = 0,
+              mrope_sections: Sequence[int] = (), causal: bool = True,
+              kv: Optional[Tuple[Tensor, Tensor]] = None,
               impl: str = "direct") -> Tensor:
-    """Causal self-attention over the full sequence (training / prefill).
-    impl: 'direct' (materialized scores) or 'chunked' (online softmax)."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, hd)
-    if theta > 0:
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    if impl == "chunked":
-        out = _sdpa_chunked(q, k, v, chunk=min(1024, k.shape[1]))
-    elif impl == "direct":
-        out = _sdpa(q, k, v, causal_mask(S, k.shape[1], device=x.device))
-    else:
+    """Full-sequence attention (training / prefill), JAX's ``attention``.
+
+    positions: (B, S), or (3, B, S) under M-RoPE (``mrope_sections``);
+    window: sliding-window size (0: full); causal=False: no mask at all;
+    kv: given (k, v) of shape (B, Sk, n_kv, hd) for cross-attention, which
+    replace the projected ones and get no rotary embedding.
+    impl: 'direct' (materialized scores) or 'chunked' (online softmax; the
+    causal self-attention only, as in JAX)."""
+    if impl not in ("direct", "chunked"):
         raise ValueError(f"attention impl {impl!r} not in ('direct', "
                          "'chunked')")
+    B, S, _ = x.shape
+    if kv is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, hd)
+    else:
+        # JAX projects k and v from x too, then drops them
+        q = x @ p["wq"].to(x.dtype)
+        if "bq" in p:
+            q = q + p["bq"].to(x.dtype)
+        q = q.reshape(B, S, n_heads, hd)
+        k, v = kv
+    if mrope_sections:
+        q = apply_mrope(q, positions, theta, mrope_sections)
+        if kv is None:
+            k = apply_mrope(k, positions, theta, mrope_sections)
+    elif theta > 0 and kv is None:
+        pos2 = positions if positions.dim() == 2 else positions[0]
+        q = apply_rope(q, pos2, theta)
+        k = apply_rope(k, pos2, theta)
+    if impl == "chunked" and causal and kv is None:
+        out = _sdpa_chunked(q, k, v, window=window,
+                            chunk=min(1024, k.shape[1]))
+    else:
+        mask = causal_mask(S, k.shape[1], window, device=x.device) \
+            if causal else None
+        out = _sdpa(q, k, v, mask)
     return out.reshape(B, S, n_heads * hd) @ p["wo"].to(x.dtype)
 
 

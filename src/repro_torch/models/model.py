@@ -1,10 +1,17 @@
 """Config -> Model: init / param_specs / forward / loss
 (``repro/models/model.py``).
 
-Ported so far: the dense family (qwen2, minitron, phi3, minicpm), the moe
-family (granite-moe, dbrx: attention and a mixture of experts a layer,
-``layers.moe_apply``) and the ssm family (mamba2: one SSD block a layer,
-``layers.mamba2_apply``).  Params are a nested dict in the JAX layout:
+Every family of the JAX package: dense (qwen2, minitron, phi3, minicpm),
+moe (granite-moe, dbrx: attention and a mixture of experts a layer,
+``layers.moe_apply``), ssm (mamba2: one SSD block a layer,
+``layers.mamba2_apply``), hybrid (zamba2: Mamba-2 layers and one shared
+attention+MLP block after every ``attn_every``-th), encdec (whisper: a
+non-causal encoder over the batch's ``frames``, decoder blocks with
+cross-attention, sinusoidal positions) and vlm (qwen2-vl: M-RoPE, the
+batch's ``vision_embeds`` before the text).  The serving half of the JAX
+model (``init_cache``, ``decode_step``, ``encode_cross_cache``) is not
+ported yet (ROADMAP queue 1, item 9).  Params are a nested dict in the
+JAX layout:
 per-layer weights stacked on a leading L axis, ``x @ W`` weights, the
 embedding reused as the LM head under tied embeddings.  The leaf paths,
 shapes and flatten order therefore equal the JAX tree's, which the wire's
@@ -50,8 +57,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return per_tok.sum() / denom, denom
 
 
-#: the families the port builds
-FAMILIES = ("dense", "moe", "ssm")
+#: the families the port builds: all of the JAX package's
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: key-tree parts drawn once, not per layer (the hybrid's shared block)
+UNSTACKED = ("shared_attn", "shared_mlp")
 #: dt_bias's uniform range (``mamba2_init``): log(1e-3) to log(1e-1)
 DT_RANGE = (math.log(1e-3), math.log(1e-1))
 
@@ -63,24 +72,47 @@ class Model:
     def __post_init__(self):
         cfg = self.cfg
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not yet ported to "
-                f"repro_torch (ported: {', '.join(FAMILIES)}; ROADMAP queue "
-                "1, item 7)")
-        if cfg.attn_window or cfg.mrope_sections:
-            raise NotImplementedError(
-                "sliding-window attention and M-RoPE are not yet ported")
+            raise ValueError(f"unknown model family {cfg.family!r} (known: "
+                             f"{', '.join(FAMILIES)})")
         if cfg.param_dtype != "float32":
             raise NotImplementedError("the port keeps f32 params")
 
     # ------------------------------------------------------------------ init
+
+    def _attn(self, make, part: str, lead: Tuple[int, ...]
+              ) -> Dict[str, Any]:
+        """``attention_init``'s leaves under the key-tree ``part`` (wq, wk,
+        wv, wo; zero biases under ``qkv_bias``), each of shape ``lead``
+        plus its own (``lead`` = (L,) for stacked layers)."""
+        cfg = self.cfg
+        d, hd, nh, nkv = cfg.d_model, cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+        attn = {
+            "wq": make((part, 0), lead + (d, nh * hd), 1.0 / math.sqrt(d)),
+            "wk": make((part, 1), lead + (d, nkv * hd), 1.0 / math.sqrt(d)),
+            "wv": make((part, 2), lead + (d, nkv * hd), 1.0 / math.sqrt(d)),
+            "wo": make((part, 3), lead + (nh * hd, d),
+                       1.0 / math.sqrt(nh * hd)),
+        }
+        if cfg.qkv_bias:
+            attn.update({"bq": make(None, lead + (nh * hd,), 0.0),
+                         "bk": make(None, lead + (nkv * hd,), 0.0),
+                         "bv": make(None, lead + (nkv * hd,), 0.0)})
+        return attn
+
+    def _mlp(self, make, part: str, lead: Tuple[int, ...]
+             ) -> Dict[str, Any]:
+        """``mlp_init``'s leaves (wg, wu, wd) under the key-tree ``part``."""
+        d, ff = self.cfg.d_model, self.cfg.d_ff
+        return {"wg": make((part, 0), lead + (d, ff), 1.0 / math.sqrt(d)),
+                "wu": make((part, 1), lead + (d, ff), 1.0 / math.sqrt(d)),
+                "wd": make((part, 2), lead + (ff, d), 1.0 / math.sqrt(ff))}
 
     def _block(self, make) -> Dict[str, Any]:
         """One family's stacked per-layer leaves (JAX's ``_block_inits``
         under ``vmap``), each from ``make`` as in :meth:`_build`."""
         cfg = self.cfg
         d, ff, Lr = cfg.d_model, cfg.d_ff, cfg.n_layers
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             di, st, nh = cfg.d_inner(), cfg.ssm_state, cfg.ssm_heads()
             conv_ch = di + 2 * st
             return {
@@ -102,19 +134,7 @@ class Model:
                 },
                 "ln": make(None, (Lr, d), None),
             }
-        hd, nh, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
-        attn = {
-            "wq": make(("attn", 0), (Lr, d, nh * hd), 1.0 / math.sqrt(d)),
-            "wk": make(("attn", 1), (Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
-            "wv": make(("attn", 2), (Lr, d, nkv * hd), 1.0 / math.sqrt(d)),
-            "wo": make(("attn", 3), (Lr, nh * hd, d),
-                       1.0 / math.sqrt(nh * hd)),
-        }
-        if cfg.qkv_bias:
-            attn.update({"bq": make(None, (Lr, nh * hd), 0.0),
-                         "bk": make(None, (Lr, nkv * hd), 0.0),
-                         "bv": make(None, (Lr, nkv * hd), 0.0)})
-        block: Dict[str, Any] = {"attn": attn}
+        block: Dict[str, Any] = {"attn": self._attn(make, "attn", (Lr,))}
         if cfg.family == "moe":
             E = cfg.n_experts
             # _init's default scale is 1 / sqrt(shape[0]): E for wg and wu
@@ -125,10 +145,10 @@ class Model:
                 "wd": make(("moe", 3), (Lr, E, ff, d), 1.0 / math.sqrt(ff)),
             }
         else:
-            block["mlp"] = {
-                "wg": make(("mlp", 0), (Lr, d, ff), 1.0 / math.sqrt(d)),
-                "wu": make(("mlp", 1), (Lr, d, ff), 1.0 / math.sqrt(d)),
-                "wd": make(("mlp", 2), (Lr, ff, d), 1.0 / math.sqrt(ff))}
+            block["mlp"] = self._mlp(make, "mlp", (Lr,))
+        if cfg.family == "encdec":
+            block["xattn"] = self._attn(make, "xattn", (Lr,))
+            block["ln3"] = make(None, (Lr, d), None)
         block["ln1"] = make(None, (Lr, d), None)
         block["ln2"] = make(None, (Lr, d), None)
         return block
@@ -152,6 +172,20 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = make(("embed", 2), (d, V),
                                      1.0 / math.sqrt(d))
+        if cfg.family == "hybrid":
+            params["shared_attn"] = {
+                "attn": self._attn(make, "shared_attn", ()),
+                "mlp": self._mlp(make, "shared_mlp", ()),
+                "ln1": make(None, (d,), None),
+                "ln2": make(None, (d,), None)}
+        if cfg.family == "encdec":
+            E = (cfg.encoder_layers,)
+            params["encoder"] = {
+                "attn": self._attn(make, "enc_attn", E),
+                "mlp": self._mlp(make, "enc_mlp", E),
+                "ln1": make(None, E + (d,), None),
+                "ln2": make(None, E + (d,), None)}
+            params["enc_norm"] = make(None, (d,), None)
         return params
 
     def init(self, key=None, device="cuda") -> PyTree:
@@ -160,7 +194,10 @@ class Model:
         ``repro.models.model.Model.init(jax.random.key(s))`` draws them,
         bit for bit: ``keys = split(key, 8)``; layer l's key is
         ``split(keys[0], L)[l]`` (:func:`_layer_keys`); the embedding draws
-        under ``keys[1]`` (an untied head under ``keys[2]``).  Each weight
+        under ``keys[1]`` (an untied head under ``keys[2]``); the hybrid's
+        shared block under ``split(keys[3])`` (attention, MLP), the encdec
+        encoder's layer e under ``split(split(keys[4], E)[e])`` (attention,
+        MLP).  Each weight
         is ``normal(key, shape) * scale``, all of them drawn in one
         ``random.normal_many`` pass.  mamba2's ``dt_bias`` is
         ``log(expm1(exp(u)))`` of a uniform on [log 1e-3, log 1e-1) and its
@@ -172,6 +209,14 @@ class Model:
         layers = [_layer_keys(cfg.family, k)
                   for k in random.split(keys[0], cfg.n_layers)]
         sub = {part: [lk[part] for lk in layers] for part in layers[0]}
+        if cfg.family == "hybrid":
+            k1, k2 = random.split(keys[3])
+            sub.update(shared_attn=[random.split(k1, 4)],
+                       shared_mlp=[random.split(k2, 3)])
+        if cfg.family == "encdec":
+            enc = [_encoder_keys(ke) for ke in random.split(
+                keys[4], cfg.encoder_layers)]
+            sub.update({part: [ek[part] for ek in enc] for part in enc[0]})
         # every weight's draws in one pass (``random.normal_many``), in the
         # order _build makes the leaves: the embedding's key, or a stacked
         # leaf's key of each layer, its layers consecutive
@@ -182,6 +227,8 @@ class Model:
                 part, i = site
                 if part == "embed":
                     draws.append((keys[i], math.prod(shape)))
+                elif part in UNSTACKED:
+                    draws.append((sub[part][0][i], math.prod(shape)))
                 else:
                     draws.extend((ks[i], math.prod(shape[1:]))
                                  for ks in sub[part])
@@ -230,29 +277,37 @@ class Model:
         axis, the embedding by ``auto_spec`` on its vocab dim."""
         cfg = self.cfg
         d, V = cfg.d_model, cfg.vocab
-        if cfg.family == "ssm":
+        attn = L.attention_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+                                 cfg.qkv_bias, cfg.attn_shard_policy)
+        lift = lambda tree: T.tree_map(  # noqa: E731
+            lambda s: (None,) + s, tree, is_leaf=L.is_spec)
+        if cfg.family in ("ssm", "hybrid"):
             block = {"mamba": L.mamba2_specs(
                 d, d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
                 n_heads=cfg.ssm_heads(), d_conv=cfg.ssm_conv),
                 "ln": (None,)}
         else:
-            block = {"attn": L.attention_specs(d, cfg.n_heads,
-                                               cfg.n_kv_heads, cfg.hd(),
-                                               cfg.qkv_bias,
-                                               cfg.attn_shard_policy),
-                     "ln1": (None,), "ln2": (None,)}
+            block = {"attn": attn, "ln1": (None,), "ln2": (None,)}
             if cfg.family == "moe":
                 block["moe"] = L.moe_specs(d, cfg.d_ff, cfg.n_experts)
             else:
                 block["mlp"] = L.mlp_specs(d, cfg.d_ff)
+            if cfg.family == "encdec":
+                block.update(xattn=attn, ln3=(None,))
         specs: Dict[str, Any] = {
             "embed": L.auto_spec((V, d), prefer=(0,)),
-            "layers": T.tree_map(lambda s: (None,) + s, block,
-                                 is_leaf=L.is_spec),
+            "layers": lift(block),
             "final_norm": (None,),
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = L.auto_spec((d, V), prefer=(1,))
+        shared = {"attn": attn, "mlp": L.mlp_specs(d, cfg.d_ff),
+                  "ln1": (None,), "ln2": (None,)}
+        if cfg.family == "hybrid":
+            specs["shared_attn"] = shared
+        if cfg.family == "encdec":
+            specs["encoder"] = lift(shared)
+            specs["enc_norm"] = (None,)
         return specs
 
     def model_axis_refusal(self, size: int) -> str:
@@ -269,7 +324,7 @@ class Model:
         why = ""
         if cfg.family != "dense":
             why = (f"the {cfg.family} family (the port's tensor parallelism "
-                   "covers attention and the MLP only)")
+                   "covers the dense family's attention and MLP only)")
         elif cfg.n_heads % size or cfg.n_kv_heads % size:
             why = (f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads do "
                    f"not split into whole heads over {size} ranks")
@@ -297,37 +352,115 @@ class Model:
 
     # --------------------------------------------------------------- forward
 
+    def _embed_inputs(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                      tp: Optional[L.ModelAxis]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hidden (B, S, d), positions), JAX's ``_embed_inputs`` and the
+        encdec branch of its ``forward``: the token embedding; for vlm the
+        batch's ``vision_embeds`` (B, Pn, d) before it, with M-RoPE ids
+        (3, B, S): the patches at t = 0 on an (h, w) grid of side
+        int(sqrt(Pn)), the text at t = h = w = 1, 2, ...; positions (B, S)
+        otherwise, broadcast to (3, B, S) under M-RoPE; for encdec the
+        sinusoid added to the embedding."""
+        cfg = self.cfg
+        adt = _DTYPES[cfg.activation_dtype]
+        tokens = batch["tokens"].long()
+        if tp is None:
+            h = params["embed"].to(adt)[tokens]
+        else:
+            h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
+        dev = h.device
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(adt)
+            h = torch.cat([ve, h], dim=1)
+            B, S, _ = h.shape
+            Pn = ve.shape[1]
+            side = max(int(math.sqrt(Pn)), 1)
+            pidx = torch.arange(Pn, device=dev)
+            text = torch.arange(S - Pn, device=dev) + 1
+            pos3 = torch.stack([
+                torch.cat([torch.zeros_like(pidx), text]),
+                torch.cat([pidx // side, text]),
+                torch.cat([pidx % side, text])])
+            return h, pos3[:, None, :].expand(3, B, S)
+        B, S, _ = h.shape
+        pos = torch.arange(S, device=dev).expand(B, S)
+        if cfg.mrope_sections:
+            pos = pos.expand(3, B, S)
+        if cfg.family == "encdec":
+            h = h + sinusoid(S, cfg.d_model, adt, dev)
+        return h, pos
+
+    def _encode(self, params: PyTree, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper-style encoder over the stub frame embeddings
+        (B, F, d), JAX's ``_encode``: the frames plus the sinusoid in the
+        activation dtype, non-causal attention without RoPE and SwiGLU a
+        layer, then ``enc_norm``."""
+        cfg = self.cfg
+        adt = _DTYPES[cfg.activation_dtype]
+        h = frames.to(adt) + sinusoid(frames.shape[1], cfg.d_model, adt,
+                                      frames.device)
+        B, S, _ = h.shape
+        pos = torch.arange(S, device=h.device).expand(B, S)
+        for lp in _per_layer(params["encoder"], cfg.encoder_layers):
+            h = h + L.attention(lp["attn"],
+                                L.rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                hd=cfg.hd(), positions=pos, theta=0.0,
+                                causal=False)
+            h = h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
     def _decoder_blocks(self, params: PyTree, h: torch.Tensor,
-                        tp: Optional[L.ModelAxis]
+                        positions: torch.Tensor, tp: Optional[L.ModelAxis],
+                        enc_out: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stacked decoder blocks of the family (JAX's scan), in a
-        loop over the layers.  Returns (hidden, aux loss summed over the
-        layers; 0.0 but for moe)."""
+        loop over the layers.  The hybrid's shared block runs after every
+        layer i with i % attn_every == attn_every - 1 (JAX's ``lax.cond``),
+        its leaves' gradients summed over those runs.  Returns (hidden,
+        aux loss summed over the layers; 0.0 but for moe)."""
         cfg = self.cfg
-        B, S, _ = h.shape
         m = 1 if tp is None else tp.size
-        pos = torch.arange(S, device=h.device).expand(B, S)
-        attn_kw = dict(n_heads=cfg.n_heads // m, n_kv=cfg.n_kv_heads // m,
-                       hd=cfg.hd(), positions=pos, theta=cfg.rope_theta,
-                       impl=cfg.attn_impl)
+        nh, nkv, hd = cfg.n_heads // m, cfg.n_kv_heads // m, cfg.hd()
+        attn_kw = dict(n_heads=nh, n_kv=nkv, hd=hd, positions=positions,
+                       theta=cfg.rope_theta, window=cfg.attn_window,
+                       mrope_sections=cfg.mrope_sections, impl=cfg.attn_impl)
         ssm_kw = dict(d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
                       n_heads=cfg.ssm_heads(), chunk=cfg.ssm_chunk,
                       norm_eps=cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        # one unbind per stacked leaf: its backward stacks the L layer
-        # grads in one pass, where indexing a[i] in every layer would
-        # accumulate L full-size zero-padded grads
-        stacked = T.leaves(params["layers"])
-        per_layer = [a.unbind(0) for a in stacked]
-        for i in range(cfg.n_layers):
-            lp = T.unflatten(params["layers"], [u[i] for u in per_layer])
-            if cfg.family == "ssm":
+        for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+            if cfg.family in ("ssm", "hybrid"):
                 h = h + L.mamba2_apply(
                     lp["mamba"], L.rmsnorm(h, lp["ln"], cfg.norm_eps),
                     **ssm_kw)
+                if cfg.family == "hybrid" \
+                        and i % cfg.attn_every == cfg.attn_every - 1:
+                    shared = params["shared_attn"]
+                    h = h + L.attention(
+                        shared["attn"],
+                        L.rmsnorm(h, shared["ln1"], cfg.norm_eps), **attn_kw)
+                    h = h + L.swiglu(shared["mlp"], L.rmsnorm(
+                        h, shared["ln2"], cfg.norm_eps))
                 continue
             x = L.to_model(L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp)
             h = h + L.from_model(L.attention(lp["attn"], x, **attn_kw), tp)
+            if cfg.family == "encdec":
+                # cross-attention: the encoder output projected by this
+                # layer's k/v, no bias and no rope
+                B, Se, _ = enc_out.shape
+                xk = (enc_out @ lp["xattn"]["wk"].to(h.dtype)).reshape(
+                    B, Se, nkv, hd)
+                xv = (enc_out @ lp["xattn"]["wv"].to(h.dtype)).reshape(
+                    B, Se, nkv, hd)
+                h = h + L.attention(
+                    lp["xattn"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps),
+                    n_heads=nh, n_kv=nkv, hd=hd, positions=positions,
+                    theta=0.0, causal=False, kv=(xk, xv))
+                h = h + L.swiglu(lp["mlp"],
+                                 L.rmsnorm(h, lp["ln3"], cfg.norm_eps))
+                continue
             x = L.to_model(L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
             if cfg.family == "moe":
                 y, a = L.moe_apply(lp["moe"], x, n_experts=cfg.n_experts,
@@ -345,15 +478,13 @@ class Model:
         """Full-sequence forward -> (logits (B, S, V) in the activation
         dtype, aux loss), JAX's ``Model.forward``; on a ``model`` axis
         (``tp``) each rank's params are its shards and the logits its vocab
-        shard (B, S, V / M)."""
+        shard (B, S, V / M).  encdec reads the batch's ``frames``, vlm its
+        ``vision_embeds`` (S then counts the patches too)."""
         cfg = self.cfg
-        adt = _DTYPES[cfg.activation_dtype]
-        tokens = batch["tokens"].long()
-        if tp is None:
-            h = params["embed"].to(adt)[tokens]
-        else:
-            h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
-        h, aux = self._decoder_blocks(params, h, tp)
+        enc_out = self._encode(params, batch["frames"]) \
+            if cfg.family == "encdec" else None
+        h, pos = self._embed_inputs(params, batch, tp)
+        h, aux = self._decoder_blocks(params, h, pos, tp, enc_out)
         h = L.to_model(L.rmsnorm(h, params["final_norm"], cfg.norm_eps), tp)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ head.to(h.dtype), aux
@@ -372,11 +503,17 @@ class Model:
         cross-entropy itself).  On a ``model`` axis the cross-entropy is
         vocab-parallel and every rank of the axis gets the same value."""
         logits, aux = self.forward_aux(params, batch, tp)
+        labels = batch["labels"]
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            # no loss on the vision span
+            pad = torch.full(labels.shape[:1]
+                             + (batch["vision_embeds"].shape[1],), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
         if tp is None:
-            ce, _ = cross_entropy(logits, batch["labels"])
+            ce, _ = cross_entropy(logits, labels)
         else:
-            ce, _ = L.vocab_parallel_cross_entropy(logits, batch["labels"],
-                                                   tp)
+            ce, _ = L.vocab_parallel_cross_entropy(logits, labels, tp)
         total = ce + self.cfg.router_aux_weight * aux \
             if self.cfg.family == "moe" else ce
         return total, {"ce": ce, "aux_loss": aux}
@@ -385,13 +522,52 @@ class Model:
 MODEL = L.MODEL_AXIS
 
 
+def sinusoid(S: int, d: int, dtype, device=None) -> torch.Tensor:
+    """JAX's ``_sinusoid``: the (S, d) sinusoidal position encoding of
+    positions 0..S-1 (sin on the even channels, cos on the odd), computed
+    in f32 (its inverse frequencies by XLA's f32 exp, ``random.xla_exp``)
+    and cast to ``dtype``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    div = random.xla_exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                      device=device)
+                         * (-math.log(10000.0) / d))
+    ang = pos * div
+    pe = torch.zeros((S, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe.to(dtype)
+
+
+def _per_layer(stacked: PyTree, n: int):
+    """The n layers' param trees of a tree of stacked leaves.  One unbind
+    per leaf: its backward stacks the n layer grads in one pass, where
+    indexing a[i] in every layer would accumulate n full-size zero-padded
+    grads."""
+    per_leaf = [a.unbind(0) for a in T.leaves(stacked)]
+    return [T.unflatten(stacked, [u[i] for u in per_leaf])
+            for i in range(n)]
+
+
+def _encoder_keys(key) -> Dict[str, np.ndarray]:
+    """An encoder layer's keys by part, as JAX's vmapped ``enc_init(k)``
+    splits them: two, then 4 for attention and 3 for the MLP."""
+    k1, k2 = random.split(key)
+    return {"enc_attn": random.split(k1, 4), "enc_mlp": random.split(k2, 3)}
+
+
 def _layer_keys(family: str, key) -> Dict[str, np.ndarray]:
     """A layer's keys by part, as JAX's vmapped ``one(k)`` splits them:
-    dense and moe split two, then 4 for attention (wq, wk, wv, wo) and 3
-    for the MLP (wg, wu, wd) or 4 for the experts (router, wg, wu, wd);
-    ssm splits 8 for mamba2 (wz, wx, wB, wC, wdt, dt_bias, conv_w, wo)."""
-    if family == "ssm":
+    dense, vlm and moe split two, then 4 for attention (wq, wk, wv, wo)
+    and 3 for the MLP (wg, wu, wd) or 4 for the experts (router, wg, wu,
+    wd); encdec splits three: attention, cross-attention (4 each) and the
+    MLP; ssm and hybrid split 8 for mamba2 (wz, wx, wB, wC, wdt, dt_bias,
+    conv_w, wo)."""
+    if family in ("ssm", "hybrid"):
         return {"mamba": random.split(key, 8)}
+    if family == "encdec":
+        k1, k2, k3 = random.split(key, 3)
+        return {"attn": random.split(k1, 4), "xattn": random.split(k2, 4),
+                "mlp": random.split(k3, 3)}
     k1, k2 = random.split(key)
     if family == "moe":
         return {"attn": random.split(k1, 4), "moe": random.split(k2, 4)}

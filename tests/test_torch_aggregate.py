@@ -45,6 +45,16 @@ LAM, NU = 0.37, 0.61
 SHAPES = {"a": (1000,), "b": {"c": (64, 300), "d": (896,)}, "e": (3, 512)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tree(rng):
     def leaf(shape):
         return rng.standard_normal(shape).astype(np.float32)

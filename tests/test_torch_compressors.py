@@ -32,6 +32,16 @@ SMOKE_RANDK_BITS = 2_244_608      # randk:4096
 FULL_RANDK_BITS = 541_450_240     # randk:1048576
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("shape,block,kb", [
     ((4096,), 512, 16), ((1000,), 256, 8), ((64, 300), 128, 4),
     ((128,), 128, 128), ((5, 7, 11), 128, 2), ((896,), 256, 16)])

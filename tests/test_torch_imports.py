@@ -19,6 +19,16 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|,|$)",
                        re.MULTILINE)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_repro(path):
@@ -210,14 +220,43 @@ from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 FAMILY_ARCHS = ["mamba2-130m", "granite-moe-3b-a800m", "dbrx-132b",
-                "minicpm-2b"]
+                "minicpm-2b", "zamba2-7b", "zamba2-7b@4", "whisper-medium",
+                "qwen2-vl-2b"]
 
 
 def _family(arch, adt="float32"):
-    jcfg = dataclasses.replace(jsmoke(arch), activation_dtype=adt)
-    tcfg = dataclasses.replace(tsmoke(arch), activation_dtype=adt)
+    """(JAX config, port config, JAX's init as numpy) of an arch's smoke
+    config with activations in ``adt``; ``arch@L`` at L layers (zamba2 at
+    4: the shared block runs after layers 1 and 3)."""
+    arch, _, layers = arch.partition("@")
+    over = dict(activation_dtype=adt)
+    if layers:
+        over["n_layers"] = int(layers)
+    jcfg = dataclasses.replace(jsmoke(arch), **over)
+    tcfg = dataclasses.replace(tsmoke(arch), **over)
     params = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.key(0)))
     return jcfg, tcfg, params
+
+
+def _with_extras(data, jcfg, global_batch):
+    """``data``'s batches with the family's extras (the encdec's frames,
+    the vlm's vision embeddings), drawn by JAX's ``family_batch_extras``;
+    the port's copy (``launch.train.family_batch_extras``) gives the same
+    bits."""
+    from repro.train.loop import family_batch_extras as jextras
+    from repro_torch.launch.train import family_batch_extras as textras
+
+    class Batches:
+        def batch(self, step):
+            out = data.batch(step)
+            extra = jextras(jcfg, global_batch, step)
+            mine = textras(jcfg, global_batch, step)
+            assert sorted(mine) == sorted(extra)
+            for k in extra:
+                np.testing.assert_array_equal(mine[k], extra[k])
+            out.update(extra)
+            return out
+    return Batches()
 
 
 def _tbatch(batch):
@@ -228,13 +267,16 @@ def _tbatch(batch):
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_forward_loss_and_grads_match_jax(arch, adt):
     """Logits, loss, its ``ce``/``aux_loss`` metrics and every leaf's
-    gradient of the four new smoke archs (two SSD chunks a sequence), the
-    port against ``repro.models.model.Model`` from the same params."""
+    gradient of the smoke archs of the moe, ssm, hybrid (also at 4 layers),
+    encdec and vlm families and minicpm (two SSD chunks a sequence; the
+    encdec's frames and the vlm's vision embeddings from JAX's batch
+    extras), the port against ``repro.models.model.Model`` from the same
+    params."""
     from repro_torch.train.trainer import value_aux_and_grad
 
     jcfg, tcfg, params = _family(arch, adt)
-    batch = SyntheticLM(vocab=1024, seq_len=64, global_batch=2,
-                        n_workers=1, seed=3).batch(0)
+    batch = _with_extras(SyntheticLM(vocab=1024, seq_len=64, global_batch=2,
+                                     n_workers=1, seed=3), jcfg, 2).batch(0)
     jm, tm = JModel(jcfg), build_model(tcfg)
     (jloss, jaux), jgrads = jax.value_and_grad(
         lambda p: jm.loss(p, batch), has_aux=True)(params)
@@ -424,11 +466,14 @@ def _jax_trainer_round(jcfg, params, data, steps, grad_transform):
     return losses, state.params, metrics
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m",
+                                  "zamba2-7b", "whisper-medium",
+                                  "qwen2-vl-2b"])
 def test_family_trainer_round_matches_jax_trainer(arch):
     """Two EF-BV rounds of the port's trainer against JAX's
     ``make_train_step`` (one worker, JAX's own trainer, not fault d's
-    oracle): mamba2-smoke as it is, granite-moe-smoke under
+    oracle): mamba2-, zamba2-, whisper- and qwen2-vl-smoke as they are
+    (both trainers given the same batch extras), granite-moe-smoke under
     ``fixed_routing_params`` with ``grad_transform=
     zero_inactive_expert_grads`` (the expert-sparsity regime).  Losses
     within 1e-5 relative, params within 1e-5 (block-top-k on gradients
@@ -442,8 +487,8 @@ def test_family_trainer_round_matches_jax_trainer(arch):
     moe = arch.startswith("granite")
     if moe:
         params = jax.tree.map(np.asarray, jmoe.fixed_routing_params(params))
-    data = SyntheticLM(vocab=1024, seq_len=32, global_batch=4, n_workers=1,
-                       seed=0)
+    data = _with_extras(SyntheticLM(vocab=1024, seq_len=32, global_batch=4,
+                                    n_workers=1, seed=0), jcfg, 4)
     steps = 2
     jl, jparams, jm = _jax_trainer_round(
         jcfg, params, data, steps,
@@ -517,14 +562,17 @@ def test_checkpoints_move_between_packages_bitwise(tmp_path):
 
 @pytest.mark.parametrize("arch,bits,ratio", [
     ("mamba2-130m", 1_371_136, "0.1254x"),
-    ("granite-moe-3b-a800m", 6_829_056, "0.1250x")])
+    ("granite-moe-3b-a800m", 6_829_056, "0.1250x"),
+    ("zamba2-7b", 2_552_832, "0.1253x"),
+    ("whisper-medium", 4_201_472, "0.1250x"),
+    ("qwen2-vl-2b", 6_824_960, "0.1250x")])
 def test_family_cli_smoke_prints_jaxs_bits(arch, bits, ratio, tmp_path,
                                            capsys):
-    """The driver at ``--smoke`` on the two new families prints JAX's
-    ``wire.tree_format_for`` bits (over ``init_abstract()``); granite's
-    step lines carry the aux loss; mamba2 with ``--ckpt-dir`` and
-    ``--ckpt-every 1`` writes a checkpoint a step that restores into the
-    port's template."""
+    """The driver at ``--smoke`` on the moe, ssm, hybrid, encdec and vlm
+    families prints JAX's ``wire.tree_format_for`` bits (over
+    ``init_abstract()``); granite's step lines carry the aux loss; mamba2
+    with ``--ckpt-dir`` and ``--ckpt-every 1`` writes a checkpoint a step
+    that restores into the port's template."""
     from repro.core import compressors as jcomp
     from repro.distributed import wire as jwire
     from repro_torch.launch import train as tlaunch

@@ -39,6 +39,16 @@ from repro_torch.kernels import LAUNCHES, ops, pack, ref, reset_launches
 LAM = 0.37
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(a):
     a = np.asarray(a)
     return a.view(np.uint32) if a.dtype == np.float32 else a

@@ -20,6 +20,16 @@ from repro_torch.core import efbv as tefbv
 from repro_torch.kernels import LAUNCHES, reset_launches
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jkey_data(k):
     return np.asarray(jax.random.key_data(k))
 

@@ -79,6 +79,16 @@ SPECS = {"block_topk": "block_topk:256,16", "qsgd": "qsgd:16",
 BIDIRECTIONAL = ("qsgd", "pipelined")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread, for the reason test_torch_model.py's
+    copy gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_round(jcfg, params, batches, lam, nu, kind="block_topk"):
     model = jbuild_model(jcfg)
     bidirectional = kind in BIDIRECTIONAL
