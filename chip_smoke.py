@@ -207,6 +207,18 @@ line is printed only when every phase passed):
               ``threefry_uniform``).  A rank that fails, or a launch not
               done in DIST_TIMEOUT_S (then killed with all its ranks),
               fails the run.
+              * dist_fsdp: the smoke_flags path's flags with ``--trainer
+                fsdp`` (the master state sharded over the two ranks by
+                ``fsdp_specs``: every qwen2-0.5b leaf halves, the
+                embedding by its columns).  At every step each rank's
+                losses equal smoke_flags's, and the ranks' shards of
+                params, w, h_avg, m and v, reassembled (``layout_sum``:
+                every 32-bit word weighted by its logical flat index, a
+                sum over the ranks), are bitwise smoke_flags's; each
+                rank's resident state, counted leaf by leaf, within 1% of
+                (5/2 + 1) x the params' bytes, the allocator's reading
+                beside it; 42 ``pack_update`` and 42 + 169
+                ``threefry_uniform`` a rank.
    Then the mesh: the smoke_flags path's flags on ``--mesh 2x2`` (2
               workers x 2-way tensor parallelism), four gloo ranks sharing
               cuda:0: rank 0's exact bits, finite losses within 1e-3
@@ -225,7 +237,23 @@ line is printed only when every phase passed):
               each prints the file's fingerprint, its exact bits and four
               finite losses, with its launches per rank as MESH_SPECS
               says; and whether gloo's all-reduce takes a bf16 CUDA
-              tensor.
+              tensor.  In the same launch the three committed fsdp specs
+              (zoo_qwen2_fsdp, zoo_mamba2_fsdp, finetune_moe) through the
+              fine-tuning CLI (``launch.train finetune --spec ...
+              --steps 2 --processes 4``): each prints the file's
+              fingerprint, its exact up, down and total bits (the
+              ``zoo_scaling`` rows of ``BENCH_bits.json``, ZOO_SPECS
+              here), two finite losses and a finite eval loss, with its
+              launches per rank as ZOO_SPECS says.
+   Then the fine-tuning harness in one process (``finetune``):
+              ``launch.train.FinetuneLoop`` on ``finetune_moe.json`` at
+              full width (granite-moe-3b-a800m cut to 8 of its 32 layers,
+              d its tuning dim, the spec's 4 workers, the expert leaves'
+              rules ``expert_sparse_rules`` of the cut tree): 3 steps,
+              ``evaluate`` on one batch and a checkpoint restored bitwise;
+              its exact bits, the expert leaves at exactly 1/5 of their
+              dense bits, a finite eval loss; 120 ``pack_update`` and 105
+              ``threefry_uniform`` launches.
    Then the compressor bench (``repro_torch.launch.compressor_bench``
               ``main(["--full"])``): every compressor and codec row at
               d = 2**16, the fused pack's device bytes on the embed leaf,
@@ -260,6 +288,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -2816,8 +2845,37 @@ def params_checksum(params):
     return f"{s:016x}"
 
 
+def layout_sum(tree, shards=None):
+    """A checksum of a master tree's bits that sums over the fsdp ranks'
+    shards: for each leaf j, the sum of its 32-bit words times (1 + the
+    word's flat index in the logical leaf mod 65521), weighted by j + 1,
+    all mod 2**64.  ``shards`` (an fsdp rank's ``FsdpShards``) places
+    this rank's shard in the logical leaf by its dim; a leaf no dim
+    shards counts on rank 0 only.  Without shards, the whole tree."""
+    from repro_torch import tree as T
+
+    fsdp = shards is not None and not shards.shards_worker_state
+    total = 0
+    for j, x in enumerate(T.leaves(tree)):
+        dim = shards.dims[j] if fsdp else None
+        if fsdp and dim is None and shards.axis.rank:
+            continue
+        shape = shards.shape(j) if fsdp else tuple(x.shape)
+        idx = torch.arange(math.prod(shape), device=x.device,
+                           dtype=torch.int64)
+        if dim is not None:
+            size = shape[dim] // shards.axis.size
+            idx = idx.view(shape).narrow(dim, shards.axis.rank * size, size)
+        idx = idx.reshape(-1) % 65521 + 1
+        words = x.detach().contiguous().view(torch.int32).reshape(-1)
+        total = (total + (j + 1) * int((words.to(torch.int64) * idx).sum())
+                 ) & MASK64
+        del idx, words
+    return total
+
+
 @contextlib.contextmanager
-def recording(records, holder=None):
+def recording(records, holder=None, layout=False):
     """While open, every train step that ``launch.train`` builds (through
     ``Run.train_step``, which looks ``trainer.make_train_step`` up at each
     call) appends {loss (hex), the workers' mean raw gradient norm
@@ -2829,15 +2887,25 @@ def recording(records, holder=None):
     of its model-axis collectives, and checksums of its shards of the
     master state (params, w, h_avg, AdamW's m and v).  ``holder["state"]``
     keeps the newest state; a recorded step's ``unrecorded`` is the step
-    function the trainer built."""
+    function the trainer built.  The fsdp trainer's steps
+    (``make_train_step_fsdp``) too, with the host ms, calls and bytes of
+    their gathers over the worker group in the model axis's fields; with
+    ``layout`` each record also holds the ``layout_sum`` of params, w,
+    h_avg, m and v."""
     from repro_torch.train import trainer as train
 
-    make = train.make_train_step
+    makers = {"make_train_step": train.make_train_step,
+              "make_train_step_fsdp": train.make_train_step_fsdp}
 
-    def make_recorded(*args, **kwargs):
+    def recorded(make, *args, **kwargs):
         step_fn = make(*args, **kwargs)
+        shards = getattr(step_fn, "shards", None)
         group = kwargs.get("group")
-        axis = None if group is None else group.model
+        tp = None if group is None else group.model
+        # the collectives counted apart: the model axis's, or the fsdp
+        # gathers over the worker group
+        axis = shards.axis if shards is not None and \
+            not shards.shards_worker_state else tp
 
         def step(state, batch, key):
             torch.cuda.synchronize()
@@ -2861,6 +2929,7 @@ def recording(records, holder=None):
                                       - mstats["model_calls"])
                 rec["model_bytes"] = (axis.stats["model_bytes"]
                                       - mstats["model_bytes"])
+            if tp is not None:
                 rec["master"] = {
                     "params": params_checksum(state.params),
                     "w": params_checksum(state.w),
@@ -2868,18 +2937,27 @@ def recording(records, holder=None):
                     "m": params_checksum(state.opt_state["m"]),
                     "v": params_checksum(state.opt_state["v"])}
             rec["checksum"] = params_checksum(state.params)
+            if layout:
+                trees = {"params": state.params, "w": state.w,
+                         "h_avg": state.h_avg, "m": state.opt_state["m"],
+                         "v": state.opt_state["v"]}
+                rec["layout"] = {k: layout_sum(trees[k], shards)
+                                 for k in LAYOUT_TREES}
             records.append(rec)
             if holder is not None:
-                holder["state"] = state
+                holder["state"], holder["shards"] = state, shards
             return state, m
         step.unrecorded = step_fn
+        step.shards = shards
         return step
 
-    train.make_train_step = make_recorded
+    for name, make in makers.items():
+        setattr(train, name, functools.partial(recorded, make))
     try:
         yield
     finally:
-        train.make_train_step = make
+        for name, make in makers.items():
+            setattr(train, name, make)
 
 
 def dist_child():
@@ -2905,16 +2983,27 @@ def dist_child():
     from repro_torch.launch import train
 
     records, holder = [], {}
-    argv = MESH["argv"] if name == "mesh" else DIST_PATHS[name]["argv"]
+    path = MESH if name == "mesh" else DIST_PATHS[name]
     torch.cuda.reset_peak_memory_stats()
-    with recording(records, holder):
+    with recording(records, holder, layout=path.get("layout", False)):
         reset_launches()
-        train.main(argv)
+        train.main(path["argv"])
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
     print(f"[dist] records {json.dumps(records)}")
     print(f"[dist] launches {json.dumps(launches)}")
     print(f"[dist] peak_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    if path.get("layout"):
+        from repro_torch import tree as T
+        st = holder["state"]
+        trees = (st.params, st.w, st.h_avg, st.opt_state["m"],
+                 st.opt_state["v"], st.h)
+        resident = sum(x.numel() * x.element_size() for t in trees
+                       for x in T.leaves(t))
+        gc.collect()
+        print(f"[dist] resident_bytes {resident} allocated "
+              f"{torch.cuda.memory_allocated()}")
+        print(f"[dist] fsdp_dims {json.dumps(holder['shards'].dims)}")
     if name == "mesh" and rank < MESH_M:
         # the first worker group's shards, for the parent to reassemble
         from repro_torch import tree as T
@@ -3011,6 +3100,8 @@ PATHS = {
                      "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
         "profile": None,
         "keep_params": True,
+        # dist_fsdp's reference: the master trees' layout sums each step
+        "layout": True,
     },
     # per-leaf codecs: QSGD(16) on the embedding, the final norm dense,
     # block-top-k on the other 12 leaves (the TreeWire)
@@ -3188,6 +3279,23 @@ DIST_PATHS = {
                      "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
     },
 }
+DIST_PATHS["dist_fsdp"] = {
+    "argv": PATHS["smoke_flags"]["argv"] + ["--trainer", "fsdp",
+                                            "--dist-backend", "gloo"],
+    "same_as": "smoke_flags",
+    "layout": True,
+    "bits": {**PATHS["smoke_flags"]["bits"],
+             r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
+    # each rank packs its worker; every rank draws the whole init and
+    # encodes every leaf of the broadcast whole
+    "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
+                 "randk_update": 0,
+                 "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+}
+#: the master trees whose fsdp shards dist_fsdp holds against smoke_flags
+LAYOUT_TREES = ("params", "w", "h_avg", "m", "v")
+MASK64 = (1 << 64) - 1
+QWEN2_PARAMS = 494_032_768
 #: the mesh path: the smoke_flags path's flags on a 2x2 mesh (2 workers x
 #: 2-way tensor parallelism), four gloo ranks sharing cuda:0; every rank
 #: packs every leaf once a step (in place or after a gather), encodes
@@ -3225,6 +3333,27 @@ MESH_SPEC_BITS = {
     "qsgd_bidirectional": [11_553_216, 11_553_216, 34_659_648],
     "federated_blocktopk": [5_776_384],
     "tree_mixed_codecs": [6_832_160],
+}
+#: the committed fsdp specs, run at smoke size on four ranks through the
+#: fine-tuning CLI (2 steps): their fingerprints and their up, down and
+#: total bits (``BENCH_bits.json``'s ``zoo_scaling`` rows), and each
+#: rank's launches: its worker packs every block-sparse leaf a step, and it
+#: draws the smoke init and encodes every leaf of the broadcast whole
+ZOO_STEPS_FSDP = 2
+ZOO_SPECS = {
+    "zoo_qwen2_fsdp": {
+        "fingerprint": "e379cbd8a0e45487",
+        "bits": [23_105_536, 11_553_216, 34_658_752],
+        "launches": {"pack_update": 28, "threefry_uniform": 28 + 15}},
+    "zoo_mamba2_fsdp": {
+        "fingerprint": "6a9502177435874c",
+        "bits": [5_484_544, 2_734_432, 8_218_976],
+        "launches": {"pack_update": 30, "threefry_uniform": 30 + 17}},
+    # 10 block-sparse leaves packed, the 3 expert leaves' plain top-k
+    "finetune_moe": {
+        "fingerprint": "f67bc877b3e73340",
+        "bits": [21_024_768, 13_658_528, 34_683_296],
+        "launches": {"pack_update": 20, "threefry_uniform": 26 + 18}},
 }
 #: each one-process path's step records (``recording``), for DIST_PATHS
 #: and the spec path
@@ -3273,7 +3402,8 @@ def phase_main(name):
     pack_calls = collections.Counter()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), recording(records, holder), \
+        with contextlib.redirect_stdout(out), \
+                recording(records, holder, layout=path.get("layout", False)), \
                 recording_pack_shapes(pack_calls):
             reset_launches()
             drive(path, holder)
@@ -3537,6 +3667,149 @@ def checkpoint_check(name, path, params):
         raise AssertionError(f"[main] {name}: checkpoint round trip")
 
 
+#: the fine-tuning path: ``finetune_moe.json`` made full width
+#: (granite-moe-3b-a800m at 8 of 32 layers, d its tuning dim, the expert
+#: leaves' rules ``expert_sparse_rules`` of the cut tree: topk:3145728, 8
+#: of 40 experts), the spec's 4 workers, global batch 8 of 128 tokens
+FINETUNE_SPEC = ROOT / "examples" / "specs" / "finetune_moe.json"
+FINETUNE_WORKERS = 4
+FINETUNE_BITS = [5_645_574_144, 7_654_625_696, 13_300_199_840]
+#: the expert leaves' payload bits, sparse and under the dense block-top-k
+FINETUNE_EXPERT_BITS = [603_979_776, 3_019_898_880]
+#: 10 block-sparse leaves packed a worker a step (the 3 expert leaves are
+#: plain top-k); the init's draws and one uniform a leaf a step for the
+#: broadcast
+FINETUNE_LAUNCHES = {"pack_update": 10 * FINETUNE_WORKERS * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": MOE_INIT_DRAWS + MOE_LEAVES * STEPS}
+FINETUNE_CKPT = ROOT / "build" / "ckpt" / "finetune"
+#: the kernels the finetune path's profile reports
+FINETUNE_PROFILE = ("pack_update_rows", "threefry_fill_kernel")
+
+
+def phase_finetune():
+    """The staged fine-tuning harness (``launch.train.FinetuneLoop``) in
+    one process on ``finetune_moe.json`` made full width, its config cut
+    to ``MOE_LAYERS`` layers (the harness takes ``config=``; the spec names
+    the whole arch): ``setup``, ``build_data``, ``train`` for STEPS steps
+    (the spec's cosine over its own 8), ``evaluate`` on one held-out
+    batch, and the final checkpoint, restored and compared bitwise.  Its
+    printed fingerprint and exact bits, the expert leaves at exactly 1/5
+    of their dense bits (8 of 40 experts routed), finite losses and eval
+    loss, its launches (reset just before the harness and read after
+    the evaluation), and the state's resident bytes beside the allocator's
+    reading.  Keeps its run for ``phase_profile``.  Returns the
+    launches."""
+    import shutil
+    from fractions import Fraction
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExperimentSpec, make_compressor
+    from repro_torch.distributed import wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models.layers import EXPERT_LEAVES
+    from repro_torch.models.model import build_model
+
+    committed = ExperimentSpec.from_json(FINETUNE_SPEC.read_text())
+    full = get_config(committed.problem)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    tree = build_model(cfg).init_abstract()
+    rules = train.expert_sparse_rules(
+        tree, make_compressor(committed.compressor),
+        n_experts=cfg.n_experts, experts_per_tok=cfg.experts_per_tok)
+    spec = dataclasses.replace(committed, smoke=False,
+                               d=train.tuning_dim(full), leaf_codecs=rules)
+    print(f"[finetune] {FINETUNE_SPEC.name} at full width: leaf_codecs "
+          f"{rules}, fingerprint {spec.fingerprint()} (committed "
+          f"{committed.fingerprint()}); {cfg.name} at {cfg.n_layers} of "
+          f"{full.n_layers} layers, {cfg.param_count():,} params")
+    shutil.rmtree(FINETUNE_CKPT, ignore_errors=True)
+    settings = train.FinetuneSettings(global_batch=8, seq_len=128,
+                                      eval_batches=1, log_every=1,
+                                      ckpt_dir=str(FINETUNE_CKPT))
+    collect("[main] finetune")
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    records, holder = [], {}
+    pack_calls = collections.Counter()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), recording(records, holder), \
+                recording_pack_shapes(pack_calls):
+            reset_launches()
+            loop = train.FinetuneLoop(spec, settings, config=cfg)
+            loop.setup()
+            loop.build_data()
+            loop.train(steps=STEPS)
+            eval_loss = loop.evaluate()
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+    finally:
+        print(out.getvalue().rstrip())
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    text = out.getvalue()
+    st = loop.state
+    resident = sum(x.numel() * x.element_size() for t in (
+        st.params, st.w, st.h_avg, st.opt_state["m"], st.opt_state["v"],
+        st.h) for x in T.leaves(t))
+    losses = [float(x) for x in re.findall(r"step\s+\d+ loss=(\S+)", text)]
+    fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", text)
+    bits = [int(x) for x in re.search(
+        r"wire: up=(\d+) down=(\d+) total=(\d+) bits/round", text).groups()]
+    run = loop.run_obj
+    paths = wire.leaf_paths(tree)
+    expert = [i for i, p in enumerate(paths)
+              if p.split("/")[-1] in EXPERT_LEAVES and "moe" in p.split("/")]
+    expert_bits = [sum(wire.tree_format_for(
+        run.compressor, tree, wire_dtype=spec.wire_dtype,
+        rules=r).bits_by_leaf()[i] for i in expert)
+        for r in (run.leaf_rules, (("*", run.compressor),))]
+    ratio = Fraction(*expert_bits)
+    gc.collect()
+    print(f"[main] finetune: seconds={secs:.2f} peak_mem_gib={peak:.2f} "
+          f"resident state {resident / 2**30:.3f} GiB counted leaf by leaf "
+          f"(params, w, h_avg, m, v and {FINETUNE_WORKERS} h), allocator "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; losses={losses} "
+          f"eval_loss={eval_loss} bits up/down/total={bits} expert leaves "
+          f"{expert_bits[0]} of dense {expert_bits[1]} bits = {ratio} "
+          f"launches={launches} records={json.dumps(records)}")
+    if fps != [spec.fingerprint()] or bits != FINETUNE_BITS or \
+            expert_bits != FINETUNE_EXPERT_BITS or ratio != Fraction(1, 5):
+        raise AssertionError(f"[main] finetune: fingerprint {fps}, bits "
+                             f"{bits}, expert bits {expert_bits}")
+    if len(losses) != STEPS or not all(map(math.isfinite,
+                                           losses + [eval_loss])):
+        raise AssertionError(f"[main] finetune: losses {losses}, eval "
+                             f"{eval_loss}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+        raise AssertionError(f"[main] finetune: first loss {losses[0]}")
+    want = {**dict.fromkeys(launches, 0), **FINETUNE_LAUNCHES}
+    if launches != want:
+        raise AssertionError(f"[main] finetune: launches {launches}, want "
+                             f"{want}")
+    check_pack_shapes("finetune", pack_calls, launches["pack_update"])
+    t1 = time.perf_counter()
+    restored = T.restore_checkpoint(str(FINETUNE_CKPT), STEPS,
+                                    {"params": tree}, spec=spec)["params"]
+    same = all(same_bits(a, b.cpu()) for a, b in
+               zip(T.leaves(restored), T.leaves(st.params)))
+    print(f"[main] finetune: checkpoint step {STEPS} restored in "
+          f"{time.perf_counter() - t1:.1f} s, "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} the params")
+    if not same:
+        raise AssertionError("[main] finetune: restored params differ")
+    del restored
+    # the run's final state, its step and its batches, for phase_profile
+    PROFILE_RUNS["finetune"] = (loop.state, loop.step_fn.unrecorded,
+                                StepBatches(loop.data, cfg, 8))
+    del loop, st
+    holder.clear()
+    return launches
+
+
 def phase_cli_smoke():
     """The driver's CLI on the card at ``--smoke`` for the other new archs:
     granite-moe and dbrx (each step line with its aux_loss) and minicpm
@@ -3679,16 +3952,22 @@ def phase_dist(name):
         if g0 != ["0.000"]:
             raise AssertionError(f"[main] {name}: step 0 |g| {g0}, want "
                                  "0.000 (the zero priming payload)")
-    total = {}
+    total, ranks = {}, []
+    # an fsdp rank holds shards: its losses must be the one-process path's
+    # and its shards are checked together below (``fsdp_check``)
+    key = "loss" if path.get("layout") else "checksum"
     for r, log in enumerate(logs):
         records = json.loads(re.search(r"\[dist\] records (.*)", log)[1])
         launches = json.loads(re.search(r"\[dist\] launches (.*)", log)[1])
         peak = float(re.search(r"\[dist\] peak_gib (\S+)", log)[1])
-        same = [(a["loss"], a["checksum"]) for a in records] == \
-            [(b["loss"], b["checksum"]) for b in want]
-        print(f"[main] {name} rank {r}: losses and params checksums at "
-              f"every step {'equal' if same else 'NOT equal'} to the "
-              f"one-process {path['same_as']} path's; launches={launches}")
+        ranks.append(records)
+        same = [(a["loss"], a[key]) for a in records] == \
+            [(b["loss"], b[key]) for b in want]
+        what = "losses" if path.get("layout") else \
+            "losses and params checksums"
+        print(f"[main] {name} rank {r}: {what} at every step "
+              f"{'equal' if same else 'NOT equal'} to the one-process "
+              f"{path['same_as']} path's; launches={launches}")
         if not same:
             raise AssertionError(f"[main] {name} rank {r}: records "
                                  f"{records} != one-process {want}")
@@ -3705,7 +3984,60 @@ def phase_dist(name):
               f"round={[a['bytes'] for a in records]} peak_gib={peak:.2f} "
               "(two processes time-slice one card; gloo moves the payload "
               "through host memory)")
+        if path.get("layout"):
+            print(f"[profile] {name} rank {r}: fsdp_gather_host_ms="
+                  f"{[a['model_ms'] for a in records]} fsdp_collectives="
+                  f"{[a['model_calls'] for a in records]} fsdp_bytes_sent="
+                  f"{[a['model_bytes'] for a in records]}")
+    if path.get("layout"):
+        fsdp_check(name, logs, ranks, want)
     return total
+
+
+def fsdp_check(name, logs, ranks, want):
+    """dist_fsdp's ranks against the one-process path: their fsdp dims are
+    ``fsdp_specs``'s for full-width qwen2-0.5b on a 2x1 mesh (every leaf
+    halves; the embedding by its columns); at every step the sum over the
+    ranks of each master tree's ``layout_sum`` (params, w, h_avg, m, v:
+    their shards reassembled) equals the one-process tree's; each rank's
+    resident state, counted leaf by leaf, is within 1% of (5/2 + 1) x the
+    params' f32 bytes (h whole: one worker a rank), the allocator's
+    reading printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.aggregate import fsdp_dims, make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import fsdp_specs
+
+    model = build_model(get_config("qwen2-0.5b"))
+    mesh = make_mesh((WORKERS, 1))
+    dims = list(fsdp_dims(fsdp_specs(mesh, model.param_specs(),
+                                     model.init_abstract()), mesh))
+    predicted = (5 / WORKERS + 1) * 4 * QWEN2_PARAMS
+    for r, log in enumerate(logs):
+        got = json.loads(re.search(r"\[dist\] fsdp_dims (.*)", log)[1])
+        m = re.search(r"\[dist\] resident_bytes (\d+) allocated (\d+)", log)
+        resident, allocated = int(m[1]), int(m[2])
+        print(f"[main] {name} rank {r}: fsdp dims {got} (fsdp_specs: "
+              f"{dims}); resident state {resident} B = "
+              f"{resident / 2**30:.3f} GiB counted leaf by leaf, predicted "
+              f"{predicted / 2**30:.3f} GiB, allocator "
+              f"{allocated / 2**30:.3f} GiB")
+        if got != dims or None in got:
+            raise AssertionError(f"[main] {name} rank {r}: dims {got}")
+        if abs(resident - predicted) > 0.01 * predicted:
+            raise AssertionError(f"[main] {name} rank {r}: resident "
+                                 f"{resident} B, predicted {predicted}")
+    for s, one in enumerate(want):
+        for k in LAYOUT_TREES:
+            summed = sum(recs[s]["layout"][k] for recs in ranks) & MASK64
+            if summed != one["layout"][k]:
+                raise AssertionError(f"[main] {name}: step {s} {k}: the "
+                                     f"ranks' shards sum {summed:x}, one "
+                                     f"process {one['layout'][k]:x}")
+    print(f"[main] {name}: at each of {len(want)} steps the {len(ranks)} "
+          f"ranks' shards of {', '.join(LAYOUT_TREES)}, reassembled by "
+          "fsdp_specs (layout sums over the ranks), bitwise the one-process "
+          "smoke_flags path's")
 
 
 def mesh_specs_child(outdir):
@@ -3743,6 +4075,23 @@ def mesh_specs_child(outdir):
                     f"file://{outdir}/store{i}"])
         torch.cuda.synchronize()
         print(f"[mesh-specs] launches {name} {json.dumps(dict(LAUNCHES))}")
+        print(f"[mesh-specs] end {name}", flush=True)
+    # the committed fsdp specs through the fine-tuning CLI, truncated to
+    # ZOO_STEPS_FSDP steps (the spec's identity kept)
+    for i, name in enumerate(ZOO_SPECS):
+        print(f"[mesh-specs] begin {name}", flush=True)
+        t0 = time.perf_counter()
+        reset_launches()
+        train.main(["finetune", "--spec", str(ROOT / "examples" / "specs" /
+                                              f"{name}.json"),
+                    "--steps", str(ZOO_STEPS_FSDP), "--processes",
+                    str(world), "--global-batch", "8", "--seq", "32",
+                    "--log-every", "1", "--eval-batches", "1",
+                    "--dist-backend", "gloo", "--dist-init",
+                    f"file://{outdir}/zoo{i}"])
+        torch.cuda.synchronize()
+        print(f"[mesh-specs] launches {name} {json.dumps(dict(LAUNCHES))}")
+        print(f"[mesh-specs] seconds {name} {time.perf_counter() - t0:.1f}")
         print(f"[mesh-specs] end {name}", flush=True)
 
 
@@ -3905,6 +4254,43 @@ def phase_mesh_specs():
                     len(losses) != spec.steps or \
                     not all(map(math.isfinite, losses)):
                 raise AssertionError(f"[mesh-specs] {name}: wrong output")
+    for name, want in ZOO_SPECS.items():
+        spec = ExperimentSpec.from_json(
+            (ROOT / "examples" / "specs" / f"{name}.json").read_text())
+        for r, log in enumerate(logs):
+            seg = log.split(f"[mesh-specs] begin {name}")[1].split(
+                f"[mesh-specs] end {name}")[0]
+            launches = json.loads(re.search(
+                rf"\[mesh-specs\] launches {name} (.*)", seg)[1])
+            expect = {**dict.fromkeys(launches, 0), **want["launches"]}
+            if launches != expect:
+                raise AssertionError(f"[fsdp-specs] {name} rank {r}: "
+                                     f"launches {launches}, want {expect}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if r:
+                continue
+            fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", seg)
+            got = [int(x) for x in re.search(
+                r"wire: up=(\d+) down=(\d+) total=(\d+) bits/round",
+                seg).groups()]
+            ratio = re.search(r"\((\d\.\d+)x dense both ways\)", seg)[1]
+            losses = [float(x) for x in re.findall(
+                r"step\s+\d+ loss=(\S+)", seg)]
+            evals = [float(x) for x in re.findall(r"eval @ \d+: loss=(\S+)",
+                                                  seg)]
+            secs = re.search(rf"\[mesh-specs\] seconds {name} (\S+)", seg)[1]
+            print(f"[fsdp-specs] {name}: fingerprint {fps} (file "
+                  f"{spec.fingerprint()}, pinned {want['fingerprint']}) "
+                  f"bits up/down/total {got} ({ratio}x dense both ways) "
+                  f"losses {losses} eval {evals} launches per rank "
+                  f"{launches}; {secs} s on four ranks")
+            if fps != [want["fingerprint"]] or \
+                    spec.fingerprint() != want["fingerprint"] or \
+                    got != want["bits"] or len(losses) != ZOO_STEPS_FSDP \
+                    or len(evals) != 1 or \
+                    not all(map(math.isfinite, losses + evals)):
+                raise AssertionError(f"[fsdp-specs] {name}: wrong output")
     return total
 
 
@@ -3993,7 +4379,7 @@ def phase_profile(name):
     from repro_torch import random
     from repro_torch import tree as T
 
-    path = PATHS[name]
+    path = PATHS.get(name, {})
     secs, t_lap = {}, time.perf_counter()
 
     def lap(label):
@@ -4100,12 +4486,12 @@ def batch_extras_ms(name, data, untraced):
 def print_profile(name, rows, untraced, wall):
     """Device time by kernel of the traced step, and its busy share;
     returns the step's device kernel ms."""
-    path = PATHS[name]
+    kernels = PATHS[name]["profile"] if name in PATHS else FINETUNE_PROFILE
     busy = sum(r[0] for r in rows)
     print(f"[profile] {name}: traced step wall_ms={wall:.2f} (profiler "
           f"overhead included) device_kernel_ms={busy:.2f}; busy share of "
           f"the untraced step {busy / untraced:.3f}")
-    for kernel in path["profile"]:
+    for kernel in kernels:
         ms = sum(r[0] for r in rows if kernel in r[2])
         n = sum(r[1] for r in rows if kernel in r[2])
         print(f"[profile] {name}: {kernel} device_ms={ms:.3f} x{n}")
@@ -4329,6 +4715,8 @@ def main():
         if PATHS[name]["profile"] is not None:
             timed(name, phase_profile, name)
     launches["cli_smoke"] = timed("cli_smoke", phase_cli_smoke)
+    launches["finetune"] = timed("finetune", phase_finetune)
+    timed("finetune", phase_profile, "finetune")
     for name in DIST_PATHS:
         launches[name] = timed(name, phase_dist, name)
     launches["mesh"] = timed("mesh", phase_mesh)

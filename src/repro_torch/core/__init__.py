@@ -15,11 +15,16 @@ wire accounting) and ``.tuned`` (Remark 1's auto-tuning).
 ``Run.make_mesh`` gives the spec's mesh geometry
 (``distributed.aggregate.make_mesh``; its ``model`` axis runs as tensor
 parallelism over a group's model sub-group, ``train_step(group=...,
-shards=...)``), and ``Run.state_shardings`` each state leaf's spec.
+shards=...)``), and ``Run.state_shardings`` each state leaf's spec.  The
+trainer and the layout follow ``spec.backend``: ``shard_map``
+(``train.trainer.make_train_step``) or ``fsdp``
+(``make_train_step_fsdp``, the master state sharded over the worker
+group, ``shards=make_fsdp_shards(...)``).
 
-Not yet ported, and refused with the ROADMAP item that ports it:
-``train_step`` for the fsdp backend (item 8).  ``Run.reference()`` and ``problem_instance()`` run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+Not yet ported, and refused with the ROADMAP item that ports it: the fsdp
+trainer on a mesh with a ``model`` axis above 1 (item 8b).
+``Run.reference()`` and ``problem_instance()`` run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -559,10 +564,12 @@ class Run:
             raise SpecError("backend='reference' has no distributed trainer:"
                             " use .reference(), or set backend='shard_map' "
                             "or 'fsdp'")
-        if spec.backend == "fsdp":
+        dims = spec.mesh_dims()
+        if spec.backend == "fsdp" and len(dims) > 1 and dims[-1] > 1:
             raise NotImplementedError(
-                "backend='fsdp' is not yet ported to repro_torch (ROADMAP "
-                "queue 1, item 8); use backend='shard_map'")
+                "backend='fsdp' on a mesh with a 'model' axis above 1 is not "
+                "yet ported to repro_torch (ROADMAP queue 1, item 8b); use a "
+                "'model' axis of 1, or backend='shard_map'")
 
     def make_mesh(self):
         """The spec's mesh: its geometry (axis names and sizes, the
@@ -584,26 +591,30 @@ class Run:
 
     def train_step(self, loss_fn: Callable, optimizer, mesh=None,
                    **kw) -> Callable:
-        """The train step of this spec over the port's trainer
-        (``repro_torch.train.make_train_step``), threading agg, wire_dtype,
+        """The train step of this spec over the port's trainer of
+        ``spec.backend`` (``repro_torch.train.trainer.make_train_step``,
+        or ``make_train_step_fsdp`` for fsdp), threading agg, wire_dtype,
         downlink, participation and pipeline from the spec; ``group=`` in
-        ``kw`` runs one process per worker group, and with ``shards=`` a
-        rank of the mesh's ``model`` axis.  ``mesh``, when given, must be
-        the spec's."""
-        from repro_torch.train.trainer import make_train_step
+        ``kw`` runs one process per worker group, with ``shards=`` a rank
+        of the mesh's ``model`` axis (shard_map) or the rank's fsdp shards
+        (``make_fsdp_shards``).  ``mesh``, when given, must be the
+        spec's."""
+        from repro_torch.train import trainer
 
         self._trainer_backend()
         self._check_mesh(mesh)
-        return make_train_step(loss_fn, optimizer, self.algo,
-                               n_workers=self.n, agg_mode=self.spec.agg,
-                               wire_dtype=self.spec.wire_dtype,
-                               downlink=self.downlink,
-                               participation=self.participation,
-                               pipeline=self.pipeline, **kw)
+        make = (trainer.make_train_step_fsdp if self.spec.backend == "fsdp"
+                else trainer.make_train_step)
+        return make(loss_fn, optimizer, self.algo, n_workers=self.n,
+                    agg_mode=self.spec.agg, wire_dtype=self.spec.wire_dtype,
+                    downlink=self.downlink, participation=self.participation,
+                    pipeline=self.pipeline, **kw)
 
     def init_state(self, params: PyTree, optimizer, mesh=None, **kw):
         """TrainState for this spec (bidirectional iff a downlink is set;
-        the priming in-flight payload iff pipelined)."""
+        the priming in-flight payload iff pipelined); under fsdp over a
+        group, ``params`` are the rank's shards and ``shards=`` says
+        how."""
         from repro_torch.train.trainer import init_train_state
 
         self._trainer_backend()
@@ -615,28 +626,19 @@ class Run:
                                 pipeline=self.pipeline, **kw)
 
     def state_shardings(self, mesh, param_specs: PyTree, state):
-        """Each TrainState leaf's spec on ``mesh`` (JAX's
-        ``train_state_shardings``, specs as tuples of axis names): params,
-        AdamW's m and v, h_avg and w by ``param_specs``; h with the worker
-        axes prepended (``stack_worker_spec``); the in-flight payload over
-        the worker axes; the counters replicated."""
-        from repro_torch import tree as T
-        from repro_torch.distributed.aggregate import (stack_worker_spec,
-                                                       worker_entry)
-        from repro_torch.train.trainer import TrainState
+        """Each TrainState leaf's spec on ``mesh``, as tuples of axis
+        names, by the backend as JAX's ``Run.state_shardings``:
+        ``train.trainer.train_state_shardings`` (shard_map) or
+        ``fsdp_state_shardings`` (fsdp: params, w, m, v and h_avg
+        sharded over the worker axes too)."""
+        from repro_torch.train import trainer
 
-        self._trainer_backend()
+        if self.spec.backend == "reference":
+            self._trainer_backend()
         self._check_mesh(mesh)
-        opt = {k: (param_specs if isinstance(v, (dict, list)) else ())
-               for k, v in state.opt_state.items()}
-        waxes = (worker_entry(mesh),)
-        inflight = None if state.inflight is None else T.tree_map(
-            lambda _: waxes, state.inflight)
-        return TrainState(
-            params=param_specs, opt_state=opt,
-            h=stack_worker_spec(mesh, param_specs), h_avg=param_specs,
-            step=(), w=None if state.w is None else param_specs,
-            inflight=inflight)
+        fn = (trainer.fsdp_state_shardings if self.spec.backend == "fsdp"
+              else trainer.train_state_shardings)
+        return fn(mesh, param_specs, state)
 
     # ---- exact wire accounting ---------------------------------------------
 

@@ -381,6 +381,58 @@ class ModelShards:
             total = total + torch.stack(rep).sum()
         return torch.sqrt(total)
 
+    def gather_tree(self, tree: PyTree) -> PyTree:
+        """The logical tree from this rank's shards, leaf by leaf."""
+        return T.unflatten(tree, [self.gather(j, x) for j, x in
+                                  enumerate(T.leaves(tree))])
+
+    #: whether a worker's control variate h_i and its compress step hold
+    #: shards (a mesh rank), or the logical tree (fsdp)
+    shards_worker_state = True
+
+
+@dataclasses.dataclass
+class FsdpShards(ModelShards):
+    """The fsdp layout of the master state on a rank of a
+    :class:`WorkerGroup` of P ranks (``repro/train/trainer.py``'s
+    ``fsdp_state_shardings`` at a mesh of n workers and no ``model``
+    axis): params, AdamW's m and v, h_avg and w hold, per leaf, the rank's
+    contiguous 1/P of the dim that ``fsdp_dims`` picks (a leaf with none
+    stays whole on every rank).  A worker's h_i, its gradient and its
+    payload are the logical leaf's, so each rank decodes a payload whole
+    and keeps its shard (:meth:`part_codec` is always None): for one leaf
+    at a time that costs the logical leaf in f32 beside its shard.  The
+    axis is the worker group's process group, so :meth:`gather` is an
+    all-gather over the ranks; its host time, calls and bytes are counted
+    in ``axis.stats``."""
+
+    shards_worker_state = False
+
+    @classmethod
+    def of_group(cls, group: "WorkerGroup", dims: Sequence[Optional[int]],
+                 logical: PyTree) -> "FsdpShards":
+        if group.model is not None:
+            raise NotImplementedError(
+                "fsdp on a mesh with a 'model' axis above 1 is not yet "
+                "ported to repro_torch (ROADMAP queue 1, item 8b)")
+        dims = tuple(dims)
+        if len(dims) != len(T.leaves(logical)):
+            raise ValueError("fsdp dims and params differ in structure")
+        return cls(axis=ModelAxis(size=group.world, rank=group.rank,
+                                  pg=group.pg),
+                   logical=logical, dims=dims)
+
+    def part_codec(self, j: int, codec) -> Optional[wire.LeafWire]:
+        return None
+
+
+def fsdp_dims(specs: PyTree, mesh: Mesh) -> Tuple[Optional[int], ...]:
+    """Per leaf in flatten order, the dim that ``fsdp_specs`` gives the
+    worker axes (None: the leaf stays whole)."""
+    w = worker_entry(mesh)
+    return tuple(s.index(w) if w in s else None
+                 for s in T.leaves(specs, is_leaf=is_spec))
+
 
 # ---------------------------------------------------------------------------
 # one process per worker group

@@ -214,17 +214,28 @@ def reduce_windows(n: int):
             for s in range(0, n + lo, REDUCE_WINDOW)]
 
 
-def _in_order(d, weights, rows):
-    """sum over ``rows`` of d in order from +0.0, each step fma(d_i, w_i,
-    acc) under ``weights``."""
-    acc = torch.zeros_like(d[0])
-    for i in rows:
+def _in_order(rows, weights, span):
+    """sum over ``span`` of ``rows`` (the worker rows of d, ``unbind``-ed)
+    in order from +0.0, each step fma(d_i, w_i, acc) under ``weights`` (a
+    list of floats, or one float)."""
+    acc = torch.zeros_like(rows[0])
+    for i in span:
         if weights is None:
-            acc = acc + d[i]
+            acc = acc + rows[i]
         else:
-            w = weights[i] if isinstance(weights, torch.Tensor) else weights
-            acc = torch.add(acc, d[i], alpha=float(w))
+            w = weights[i] if isinstance(weights, list) else weights
+            acc = torch.add(acc, rows[i], alpha=w)
     return acc
+
+
+def _rows(d, weights):
+    """(d's rows, the weights as python floats): unbound and listed once,
+    not indexed a row at a time (the windowed sum's loop at 95,232 rows)."""
+    if isinstance(weights, torch.Tensor):
+        weights = weights.tolist()
+    elif weights is not None:
+        weights = float(weights)
+    return d.unbind(0), weights
 
 
 def worker_sum_ref(d: torch.Tensor, weights=None, h=None, c_g: float = 0.0,
@@ -251,12 +262,13 @@ def worker_sum_ref(d: torch.Tensor, weights=None, h=None, c_g: float = 0.0,
             acc = torch.add(acc, d[i], alpha=float(weights[i]))
     elif order == "reduce":
         while n > REDUCE_WINDOW:
-            d = torch.stack([_in_order(d, weights, range(a, b))
+            rows, ws = _rows(d, weights)
+            d = torch.stack([_in_order(rows, ws, range(a, b))
                              for a, b in reduce_windows(n)])
             weights, n = None, d.shape[0]
-        acc = _in_order(d, weights, range(n))
+        acc = _in_order(*_rows(d, weights), range(n))
     elif order == "unrolled":
-        acc = _in_order(d, weights, range(n))
+        acc = _in_order(*_rows(d, weights), range(n))
     else:
         raise ValueError(f"unknown worker sum order {order!r}")
     if h is None:

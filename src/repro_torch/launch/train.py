@@ -96,9 +96,39 @@ gloo ranks on the CPU:
 
 The wire bits are those of the logical gradient, unchanged from ``2x1``.
 A model axis whose heads do not split whole is refused
-(``Model.model_axis_refusal``).  Flags and spec contents of the JAX driver
-that this port does not have yet are refused with a "not yet ported"
-error, never ignored.
+(``Model.model_axis_refusal``).
+
+``--trainer fsdp`` (a spec's ``backend: fsdp``) runs the fsdp trainer
+(``train.trainer.make_train_step_fsdp``): under ``torchrun`` each rank
+keeps only its shards of params, AdamW's m and v, h_avg and w, as JAX's
+``fsdp_specs`` lays them out over the workers, gathers w before its
+workers run, and a checkpoint gathers the params on every rank before
+rank 0 writes them; in one process it is the shard_map step.  On a mesh
+with a ``model`` axis above 1 it is refused (ROADMAP item 8b):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --smoke --device cpu \
+        --dist-backend gloo --workers 2 --steps 3 --global-batch 8 \
+        --seq 32 --compressor block_topk:256,16 --agg sparse_allgather \
+        --downlink qsgd:16 --trainer fsdp
+
+The ``finetune`` subcommand is JAX's ``launch/finetune.py``: the staged
+fine-tuning harness (:class:`FinetuneLoop`, JAX's ``train/loop.py``) of a
+spec file, its flags the runtime knobs (:class:`FinetuneSettings`), plus
+``--device`` and ``--dist-*``; ``--processes`` is the worker group's size,
+the ranks ``torchrun`` starts.  The JAX CLI reads the spec's mesh before
+JAX starts to force its host device count (``_mesh_from_argv``); the
+port sets no such flag, so it has no counterpart:
+
+    PYTHONPATH=src python -m repro_torch.launch.train finetune \
+        --spec examples/specs/finetune_moe.json --device cpu --steps 2
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train finetune --device cpu \
+        --spec examples/specs/zoo_qwen2_fsdp.json --steps 2 \
+        --processes 4 --dist-backend gloo
+
+Flags and spec contents of the JAX drivers that this port does not have
+yet are refused with a "not yet ported" error, never ignored.
 """
 
 from __future__ import annotations
@@ -107,6 +137,7 @@ import argparse
 import dataclasses
 import functools
 import os
+import sys
 import time
 
 import numpy as np
@@ -122,14 +153,17 @@ from repro_torch.core.efbv import Downlink, Participation, Pipeline
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
 from repro_torch.distributed.aggregate import (BACKENDS, ModelShards,
-                                               Pending, WorkerGroup)
+                                               Pending, WorkerGroup,
+                                               make_multihost_mesh,
+                                               model_size, num_workers)
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import adamw
 from repro_torch.optim.schedules import cosine, wsd
+from repro_torch.train.trainer import make_fsdp_shards
 
 # JAX-driver flags not yet ported, with the value that asks for nothing
 # beyond the port (any other value is refused)
-NOT_PORTED_FLAGS = {"--trainer": "shard_map", "--sanitize": False}
+NOT_PORTED_FLAGS = {"--sanitize": False}
 #: the compressor families the trainer runs, up, down and per leaf: every
 #: name of the spec grammar
 TRAIN_COMPRESSORS = ("identity", "none", "topk", "randk", "scaled_randk",
@@ -215,6 +249,11 @@ def parse_args(argv=None):
                          "checkpoints here (JAX's format), every "
                          "--ckpt-every steps and at the end")
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--trainer", default="shard_map",
+                    choices=["shard_map", "fsdp"],
+                    help="fsdp: the master state (params, AdamW's m and v, "
+                         "h_avg, w) sharded over the worker group's ranks "
+                         "(spec backend 'fsdp')")
     for flag, neutral in NOT_PORTED_FLAGS.items():
         if isinstance(neutral, bool):
             ap.add_argument(flag, action="store_true", help="not yet ported")
@@ -338,7 +377,8 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
         agg=args.agg,
         wire_dtype=args.wire_dtype, downlink=args.downlink,
         participation=args.participation,
-        resample=args.local_batch_resample, backend="shard_map",
+        resample=args.local_batch_resample,
+        backend="fsdp" if args.trainer == "fsdp" else "shard_map",
         problem=args.arch, smoke=args.smoke, mesh=args.mesh or f"{n}x1",
         n=n,
         d=tuning_dim(cfg), steps=args.steps, seed=args.seed,
@@ -348,9 +388,10 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
 def _unported_spec(spec: ExperimentSpec) -> str:
     """What of a valid spec the port's trainer does not have yet ('' when
     nothing), naming the ROADMAP item that ports it."""
-    if spec.backend == "fsdp":
-        return ("backend 'fsdp' is not yet ported to repro_torch (ROADMAP "
-                "queue 1, item 8)")
+    if spec.backend == "fsdp" and model_axis(spec) > 1:
+        return (f"mesh {spec.mesh!r}: backend 'fsdp' on a 'model' axis "
+                "above 1 is not yet ported to repro_torch (ROADMAP queue 1, "
+                "item 8b)")
     refusal = build_model(run_config(spec)).model_axis_refusal(
         model_axis(spec))
     if refusal:
@@ -498,13 +539,17 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     echo(f"[train] spec fingerprint={spec.fingerprint()}"
          + (f" (from {args.spec})" if args.spec else ""))
 
-    # JAX's weights, model.init(jax.random.key(seed)); a mesh rank keeps
-    # its shards
+    # JAX's weights, model.init(jax.random.key(seed)); a mesh rank, and a
+    # rank of the fsdp trainer, keeps its shards
     params = model.init(random.key(spec.seed), device=dev)
     shards = None
     if tp is not None:
         shards = ModelShards.of(tp, model.param_specs(),
                                 model.init_abstract())
+    elif spec.backend == "fsdp":
+        shards = make_fsdp_shards(group, run_.make_mesh(),
+                                  model.param_specs(), model.init_abstract())
+    if shards is not None:
         params = shards.shard_tree(params)
     # the wire carries the logical gradient: bits as in one process
     logical = params if shards is None else shards.logical
@@ -561,6 +606,9 @@ def setup(args, group=None, spec: ExperimentSpec = None):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["finetune"]:
+        return finetune_main(argv[1:])
     args = parse_args(argv)
     spec = experiment(args)
     group = join_group(args, spec.n, model_axis(spec))
@@ -571,14 +619,24 @@ def main(argv=None):
             group.close()
 
 
-def save_params(args, group, spec: ExperimentSpec, step: int,
-                state) -> None:
-    """``{"params": state.params}`` with the spec, as the JAX driver saves
-    it (``tree.save_checkpoint``); over a group rank 0 writes (every rank
-    holds the same params)."""
+def save_params(args, group, spec: ExperimentSpec, step: int, state,
+                step_fn) -> None:
+    """``{"params": ...}`` with the spec, as the JAX driver saves it
+    (``tree.save_checkpoint``); over a group rank 0 writes (every rank
+    holds the same params, or under fsdp its shards, which every rank
+    gathers first: :func:`whole_params`)."""
+    params = whole_params(step_fn, state.params)
     if group is None or group.global_rank == 0:
-        T.save_checkpoint(args.ckpt_dir, step, {"params": state.params},
+        T.save_checkpoint(args.ckpt_dir, step, {"params": params},
                           spec=spec)
+
+
+def whole_params(step_fn, tree):
+    """A master tree (params, w) of ``step_fn``'s state whole: the tree
+    itself, or gathered from the shards the step's ``shards`` attribute
+    names (a collective: every rank of the group calls it)."""
+    shards = getattr(step_fn, "shards", None)
+    return tree if shards is None else shards.gather_tree(tree)
 
 
 def run(args, group=None, spec: ExperimentSpec = None):
@@ -616,10 +674,10 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
                  f"({(time.time() - t_start) / (step + 1):.2f}s/step)")
         if args.ckpt_dir and args.ckpt_every \
                 and (step + 1) % args.ckpt_every == 0:
-            save_params(args, group, spec, step + 1, state)
+            save_params(args, group, spec, step + 1, state, step_fn)
             echo(f"[train] checkpoint @ {step + 1}")
     if args.ckpt_dir:
-        save_params(args, group, spec, spec.steps, state)
+        save_params(args, group, spec, spec.steps, state, step_fn)
     if group is not None:
         if isinstance(state.inflight, Pending):
             # the last round's exchange, which a next round would apply:
@@ -632,6 +690,15 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
              f"round, {1e3 * st['exchange_s'] / max(spec.steps, 1):.2f} ms "
              "host time in the collective (wait() when pipelined) per step "
              "on rank 0")
+        shards = getattr(step_fn, "shards", None)
+        if shards is not None and not shards.shards_worker_state:
+            fs = shards.axis.stats
+            steps = max(spec.steps, 1)
+            echo(f"[train] fsdp: {group.world} ranks hold the master state's "
+                 f"shards, {fs['model_calls'] // steps} all-gathers and "
+                 f"{fs['model_bytes'] // steps} B sent per rank per step, "
+                 f"{1e3 * fs['model_s'] / steps:.2f} ms host time in them per "
+                 "step on rank 0")
         if group.model is not None:
             ms = group.model.stats
             steps = max(spec.steps, 1)
@@ -642,6 +709,400 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
                  "per step on rank 0")
     echo(f"[train] done: final loss {float(metrics['loss']):.4f}")
     return float(metrics["loss"])
+
+
+# ---------------------------------------------------------------------------
+# the staged fine-tuning harness (``repro/train/loop.py``) and its CLI
+# (``repro/launch/finetune.py``), this driver's ``finetune`` subcommand
+# ---------------------------------------------------------------------------
+
+#: the eval stream's seed is ``spec.seed ^ EVAL_SEED_XOR``, decorrelated
+#: from the training stream's
+EVAL_SEED_XOR = 0xE7A1
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneSettings:
+    """The runtime knobs of a fine-tune run (JAX's, field for field); none
+    enters the spec's fingerprint.  ``num_processes`` is the size of the
+    worker group the run is on: 1 in one process, P under ``torchrun``."""
+
+    global_batch: int = 8
+    seq_len: int = 32
+    lr: float = 1e-4
+    schedule: str = "auto"       # auto | cosine | wsd
+    eval_every: int = 0          # 0 = final eval only
+    eval_batches: int = 2
+    log_every: int = 10
+    heterogeneity: float = 0.5
+    shard_size: int = 64         # for spec.resample fixed-shard minibatches
+    num_processes: int = 1
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+
+
+def expert_sparse_rules(params, base, *, n_experts: int,
+                        experts_per_tok: int) -> str:
+    """The ``leaf_codecs`` rule string that composes MoE expert sparsity
+    with the base compressor's budget (JAX's): each expert leaf (wg, wu,
+    wd of a MoE subtree) gets ``topk:K``, K the base compressor's dense
+    entry budget on that leaf times ``experts_per_tok / n_experts``
+    (at least 1), the rules sorted by path.  ``base`` must be a TopK or a
+    BlockTopK, the compressors with an entry budget."""
+    from repro_torch.core.compressors import BlockTopK, TopK
+    from repro_torch.models.layers import EXPERT_LEAVES, _is_moe_subtree
+
+    def dense_entries(size: int) -> int:
+        if isinstance(base, BlockTopK):
+            nb = -(-size // base.block)
+            return nb * min(base.kb, base.block)
+        if isinstance(base, TopK):
+            return min(base.k, size)
+        raise ValueError(
+            f"expert_sparse_rules rescales an entry budget; base compressor "
+            f"{base!r} has none (use topk:k or block_topk:b,kb)")
+
+    leaves = {}
+
+    def walk(node, prefix):
+        if not isinstance(node, dict):
+            return
+        if _is_moe_subtree(node):
+            for name in EXPERT_LEAVES:
+                leaves["/".join(prefix + [name])] = int(node[name].numel())
+        for k, v in node.items():
+            walk(v, prefix + [k])
+
+    walk(params, [])
+    if not leaves:
+        raise ValueError("expert_sparse_rules: no MoE subtree "
+                         "(router + wg/wu/wd) found in the parameter tree")
+    return ";".join(
+        f"{path}=topk:"
+        f"{max(1, dense_entries(leaves[path]) * experts_per_tok // n_experts)}"
+        for path in sorted(leaves))
+
+
+class FinetuneLoop:
+    """The four stages of a fine-tune run of one spec (JAX's
+    ``FinetuneLoop``): :meth:`setup` (model, schedule, AdamW, state and the
+    step of the spec's backend; a moe arch's workers zero their inactive
+    experts' gradients, ``layers.zero_inactive_expert_grads``),
+    :meth:`build_data` (the training stream and a held-out one),
+    :meth:`train` (periodic eval and checkpoints) and :meth:`evaluate`
+    (the held-out loss at the workers' model); :meth:`run` chains them.
+    Each stage runs the one before it when it has not run.
+
+    ``group`` (a :class:`WorkerGroup`, under ``torchrun``) runs the
+    workers over its ranks, and under fsdp the master state as each
+    rank's shards; ``settings.num_processes`` must be its size (1 without
+    one).  ``config`` replaces the spec's config (e.g. the arch cut in
+    depth).  It runs on ``device`` (``cuda`` unless the caller asks for
+    the CPU), or the group's."""
+
+    def __init__(self, spec: ExperimentSpec, settings=None, *, config=None,
+                 verbose: bool = True, device="cuda", group=None):
+        self.check(spec, config)
+        self.spec = spec
+        self.settings = settings or FinetuneSettings()
+        self.verbose = verbose
+        self.cfg = config if config is not None else run_config(spec)
+        self.run_obj = build(spec)
+        self.group = group
+        self.device = group.device if group is not None \
+            else resolve_device(device)
+        self.mesh = None
+        self.data = None
+        self.eval_data = None
+        self.state = None
+        self.history = []
+
+    @staticmethod
+    def check(spec: ExperimentSpec, config=None) -> None:
+        """JAX's refusals of a spec the harness cannot run (SpecError)."""
+        if spec.backend == "reference":
+            raise SpecError(
+                "the fine-tune harness drives the distributed trainers; a "
+                "backend='reference' spec runs via build(spec).reference()")
+        if config is None and spec.problem not in ARCHS:
+            raise SpecError(
+                f"the fine-tune harness trains model archs {sorted(ARCHS)}; "
+                f"problem={spec.problem!r} needs an explicit config=")
+
+    def _log(self, msg: str):
+        if self.verbose and (self.group is None
+                             or self.group.global_rank == 0):
+            print(f"[finetune] {msg}")
+
+    # ---- stage 1: setup ----------------------------------------------------
+
+    def setup(self):
+        """The mesh (its process-major layout checked for the group's
+        size), model, schedule (``auto``: WSD for minicpm, else cosine),
+        AdamW (weight decay 0.01), the state from JAX's weights at
+        ``random.key(spec.seed)`` and the step of ``spec.backend``."""
+        from repro_torch.models.layers import zero_inactive_expert_grads
+
+        spec, st = self.spec, self.settings
+        run_ = self.run_obj
+        world = 1 if self.group is None else self.group.world
+        if st.num_processes != world:
+            raise SpecError(
+                f"num_processes={st.num_processes}, but the run is on a "
+                f"worker group of {world} process(es): launch that many "
+                "ranks under torchrun")
+        self.mesh = make_multihost_mesh(spec.mesh_dims(),
+                                        num_processes=st.num_processes)
+        if model_size(self.mesh) > 1:
+            raise NotImplementedError(
+                f"mesh {spec.mesh!r}: the fine-tune harness on a 'model' "
+                "axis above 1 is not yet ported to repro_torch (ROADMAP "
+                "queue 1, item 8b)")
+        self.n = num_workers(self.mesh)
+        self.model = build_model(self.cfg)
+        kind = schedule_kind(st.schedule, spec.problem)
+        self.opt = adamw(make_schedule(kind, st.lr, spec.steps),
+                         weight_decay=0.01)
+        self.key = random.key(spec.seed)
+        params = self.model.init(self.key, device=self.device)
+        self.shards = None
+        if spec.backend == "fsdp":
+            self.shards = make_fsdp_shards(
+                self.group, self.mesh, self.model.param_specs(),
+                self.model.init_abstract())
+        if self.shards is not None:
+            params = self.shards.shard_tree(params)
+        self.state = run_.init_state(params, self.opt, group=self.group,
+                                     shards=self.shards)
+        # the worker side of the expert-sparsity contract: inactive
+        # experts' slabs pinned to exact zero before compression
+        grad_transform = (zero_inactive_expert_grads
+                          if self.cfg.family == "moe" else None)
+        self.step_fn = run_.train_step(self.model.loss, self.opt,
+                                       group=self.group, shards=self.shards,
+                                       grad_transform=grad_transform)
+        algo = run_.algo
+        self._log(f"arch={self.cfg.name} family={self.cfg.family} "
+                  f"params~{self.cfg.param_count():,} workers={self.n} "
+                  f"backend={spec.backend} mesh={spec.mesh} "
+                  f"processes={st.num_processes} algo={spec.mode} "
+                  f"lam={algo.lam:.4g} nu={algo.nu:.4g}"
+                  + (" grad_transform=expert_sparsity"
+                     if grad_transform else "")
+                  + f" device={self.device}")
+        self._log(f"spec fingerprint={spec.fingerprint()}")
+        rb = self.wire_report()
+        # exact integers (JAX's line rounds them, :g)
+        self._log(f"wire: up={rb['up']} down={rb['down']} "
+                  f"total={rb['total']} bits/round "
+                  f"({rb['total'] / max(rb['dense_both_ways'], 1):.6f}x "
+                  "dense both ways)")
+        return self
+
+    def wire_report(self) -> dict:
+        """Exact up + down bits of one round on the model's parameter tree
+        (``Run.round_bits``: ``{'up', 'down', 'total',
+        'dense_both_ways'}``)."""
+        if self.state is None:
+            raise RuntimeError("wire_report() needs setup() first")
+        return self.run_obj.round_bits(self.model.init_abstract())
+
+    # ---- stage 2: data -----------------------------------------------------
+
+    def build_data(self):
+        """``SyntheticLM`` streams over the n workers: the training stream
+        at ``spec.seed`` and the held-out one at ``spec.seed ^
+        EVAL_SEED_XOR``; every rank makes the whole global batch and its
+        step takes its workers' rows."""
+        spec, st = self.spec, self.settings
+        if self.mesh is None:
+            self.setup()
+
+        def stream(seed):
+            return SyntheticLM(
+                vocab=self.cfg.vocab, seq_len=st.seq_len,
+                global_batch=st.global_batch, n_workers=self.n, seed=seed,
+                heterogeneity=st.heterogeneity,
+                resample_from_shard=spec.resample, shard_size=st.shard_size)
+
+        self.data = stream(spec.seed)
+        self.eval_data = stream(spec.seed ^ EVAL_SEED_XOR)
+        return self
+
+    def _batch(self, data, step: int) -> dict:
+        return step_batch(data, self.cfg, self.settings.global_batch, step)
+
+    # ---- stage 3: the compressed train loop --------------------------------
+
+    def train(self, steps=None):
+        """``steps`` (default ``spec.steps``) steps, step s under
+        ``fold_in(key(spec.seed), s)``; an eval every
+        ``settings.eval_every`` steps, a checkpoint every
+        ``settings.ckpt_every`` and at the end (``{"params": ...}``,
+        JAX's npz format, gathered whole under fsdp)."""
+        spec, st = self.spec, self.settings
+        if self.data is None:
+            self.build_data()
+        steps = spec.steps if steps is None else steps
+        t0 = time.time()
+        metrics = {}
+        for step in range(steps):
+            self.state, metrics = self.step_fn(
+                self.state, self._batch(self.data, step),
+                random.fold_in(self.key, step))
+            if step % st.log_every == 0 or step == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                self._log(f"step {step:5d} loss={m['loss']:.4f} "
+                          f"|g|={m['g_norm']:.3f} "
+                          f"h_res={m['h_residual']:.3f} "
+                          f"({(time.time() - t0) / (step + 1):.2f}s/step)")
+            if st.eval_every and (step + 1) % st.eval_every == 0:
+                self.evaluate(step=step + 1)
+            if st.ckpt_dir and st.ckpt_every \
+                    and (step + 1) % st.ckpt_every == 0:
+                self._save(step + 1)
+                self._log(f"checkpoint @ {step + 1}")
+        self._final = {k: float(v) for k, v in metrics.items()}
+        self._steps_per_sec = steps / max(time.time() - t0, 1e-9)
+        if st.ckpt_dir:
+            self._save(steps)
+        return self
+
+    def _save(self, step: int) -> None:
+        params = whole_params(self.step_fn, self.state.params)
+        if self.group is None or self.group.global_rank == 0:
+            T.save_checkpoint(self.settings.ckpt_dir, step,
+                              {"params": params}, spec=self.spec)
+
+    # ---- stage 4: eval -----------------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self, step=None) -> float:
+        """The mean held-out loss over ``settings.eval_batches`` batches of
+        the eval stream, at the workers' model: w under a downlink, the
+        params otherwise, whole (gathered under fsdp)."""
+        if self.eval_data is None:
+            self.build_data()
+        tree = self.state.w if self.state.w is not None else self.state.params
+        params = whole_params(self.step_fn, tree)
+        losses = []
+        for b in range(self.settings.eval_batches):
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in self._batch(self.eval_data, b).items()}
+            losses.append(float(self.model.loss(params, batch)[0]))
+        del params
+        loss = float(np.mean(losses))
+        self.history.append({"step": float(self.state.step),
+                             "eval_loss": loss})
+        self._log(f"eval @ {int(self.state.step)}: loss={loss:.4f} "
+                  f"({self.settings.eval_batches} held-out batches)")
+        return loss
+
+    # ---- all four stages ---------------------------------------------------
+
+    def run(self) -> dict:
+        self.setup()
+        self.build_data()
+        self.train()
+        eval_loss = self.evaluate()
+        return {
+            "fingerprint": self.spec.fingerprint(),
+            "arch": self.cfg.name,
+            "family": self.cfg.family,
+            "final_loss": self._final["loss"],
+            "eval_loss": eval_loss,
+            "steps_per_sec": round(self._steps_per_sec, 4),
+            "round_bits": self.wire_report(),
+        }
+
+
+def finetune(spec: ExperimentSpec, settings=None, *, config=None,
+             verbose: bool = True, device="cuda", group=None) -> dict:
+    """All four stages of :class:`FinetuneLoop`; returns the summary."""
+    return FinetuneLoop(spec, settings, config=config, verbose=verbose,
+                        device=device, group=group).run()
+
+
+def parse_finetune_args(argv=None):
+    """The flags of JAX's ``launch/finetune.py`` (same names, defaults and
+    choices), and the port's ``--device``, ``--dist-backend`` and
+    ``--dist-init``.  ``--processes`` is the worker group's size: P ranks
+    under ``torchrun``.  ``--sanitize`` is not yet ported."""
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.train finetune")
+    ap.add_argument("--spec", required=True,
+                    help="path to the ExperimentSpec JSON driving the run "
+                         "(committed examples live in examples/specs/)")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="train this many steps instead of spec.steps "
+                         "(0 = the spec's own budget; a truncated run keeps "
+                         "the spec identity)")
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--schedule", default="auto",
+                    choices=["auto", "cosine", "wsd"])
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="held-out eval cadence (0 = final eval only)")
+    ap.add_argument("--eval-batches", type=int, default=2)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--heterogeneity", type=float, default=0.5)
+    ap.add_argument("--shard-size", type=int, default=64)
+    ap.add_argument("--processes", type=int, default=1,
+                    help="the worker group's size: the ranks torchrun "
+                         "starts (1 in one process)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--sanitize", action="store_true",
+                    help="not yet ported")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default="", choices=("",) + BACKENDS,
+                    help="process-group backend; required when WORLD_SIZE "
+                         "> 1")
+    ap.add_argument("--dist-init", default="",
+                    help="init_method of the process group (default env://)")
+    args = ap.parse_args(argv)
+    if args.sanitize:
+        ap.error("--sanitize is not yet ported to repro_torch")
+    if world_size() > 1 and not args.dist_backend:
+        ap.error(f"WORLD_SIZE={world_size()}: --dist-backend "
+                 f"{{{','.join(BACKENDS)}}} must be given")
+    return args
+
+
+def finetune_main(argv=None) -> float:
+    """``python -m repro_torch.launch.train finetune --spec ...``: JAX's
+    ``launch/finetune.py`` ``main`` (the spec file is the experiment, the
+    flags its runtime knobs); returns the eval loss."""
+    args = parse_finetune_args(argv)
+    settings = FinetuneSettings(
+        global_batch=args.global_batch, seq_len=args.seq, lr=args.lr,
+        schedule=args.schedule, eval_every=args.eval_every,
+        eval_batches=args.eval_batches, log_every=args.log_every,
+        heterogeneity=args.heterogeneity, shard_size=args.shard_size,
+        num_processes=args.processes, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every)
+    try:
+        with open(args.spec) as f:
+            spec = ExperimentSpec.from_json(f.read())
+        FinetuneLoop.check(spec)
+    except (SpecError, ValueError, OSError) as e:
+        raise SystemExit(f"[finetune] bad experiment spec: {e}")
+    group = join_group(args, spec.n, model_axis(spec))
+    try:
+        loop = FinetuneLoop(spec, settings, device=args.device, group=group)
+        loop.setup()
+        loop.build_data()
+        loop.train(steps=args.steps or None)
+        eval_loss = loop.evaluate()
+        loop._log(f"done: final loss {loop._final['loss']:.4f} "
+                  f"eval loss {eval_loss:.4f} "
+                  f"({loop._steps_per_sec:.3f} steps/s)")
+        if isinstance(loop.state.inflight, Pending):
+            loop.state.inflight.wait()
+        return eval_loss
+    finally:
+        if group is not None:
+            group.close()
 
 
 if __name__ == "__main__":

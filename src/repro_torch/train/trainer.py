@@ -59,10 +59,15 @@ from repro_torch.core.efbv import (EFBV, PIPELINE_FOLD, Downlink,
                                    Participation, Pipeline, downlink_key,
                                    participation_key)
 from repro_torch.distributed import wire
-from repro_torch.distributed.aggregate import (ModelShards, Pending,
+from repro_torch.distributed.aggregate import (FsdpShards, Mesh,
+                                               ModelShards, Pending,
                                                WorkerGroup, broadcast_global,
                                                combine_global, compress_local,
-                                               exchange, gather_metrics)
+                                               exchange, fsdp_dims,
+                                               gather_metrics, num_workers,
+                                               stack_worker_spec,
+                                               worker_entry)
+from repro_torch.models.layers import is_spec
 from repro_torch.optim.optimizers import Optimizer, apply_updates, global_norm
 
 PyTree = Any
@@ -128,9 +133,10 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     A pipelined state (``pipeline`` of depth 1) also holds the priming
     in-flight messages, which need ``algo`` (and the run's ``agg_mode``
     and ``wire_dtype``): over a group under ``dense_psum`` their all-reduced
-    sum, zeros of the params' shapes.  On a mesh rank ``params`` are its
-    shards and ``shards`` says how (every tree of the state is sharded
-    alike)."""
+    sum, zeros of the workers' leaf shapes.  On a mesh rank ``params`` are
+    its shards and ``shards`` says how (every tree of the state is sharded
+    alike); under fsdp (:class:`FsdpShards`) ``params`` are the rank's fsdp
+    shards and h_i and the in-flight messages the logical tree's."""
     n = n_workers
     pipelined = pipeline is not None and pipeline.depth > 0
     if pipelined and algo is None:
@@ -140,14 +146,19 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
         raise ValueError(f"the group shares {group.n_workers} workers, the "
                          f"state {n}")
     local = n if group is None else group.per_rank
+    dev = T.leaves(params)[0].device
+    # the tree a worker's h_i and message are shaped like
+    worker = params if shards is None or shards.shards_worker_state \
+        else shards.logical
     h = T.tree_map(lambda p: torch.zeros((local,) + tuple(p.shape),
-                                         dtype=torch.float32, device=p.device),
-                   params)
+                                         dtype=torch.float32, device=dev),
+                   worker)
     h_avg = T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                        params)
     inflight = None
     if pipelined and group is not None and agg_mode == "dense_psum":
-        inflight = T.tree_map(torch.zeros_like, h_avg)
+        inflight = T.tree_map(lambda p: torch.zeros(
+            tuple(p.shape), dtype=torch.float32, device=dev), worker)
     elif pipelined:
         inflight = init_inflight(algo, params, n, agg_mode=agg_mode,
                                  wire_dtype=wire_dtype, shards=shards)
@@ -235,6 +246,22 @@ def make_train_step(
 
     The step takes the state over, as the JAX step donates it: the
     control variates are updated in place, worker by worker."""
+    if shards is not None and not shards.shards_worker_state:
+        raise ValueError("fsdp shards run make_train_step_fsdp")
+    if shards is not None and (group is None or group.model is None):
+        raise ValueError("model shards need a group with a 'model' axis")
+    return _make_step(loss_fn, optimizer, algo, n_workers=n_workers,
+                      agg_mode=agg_mode, wire_dtype=wire_dtype,
+                      downlink=downlink, pipeline=pipeline,
+                      participation=participation, group=group,
+                      shards=shards, grad_transform=grad_transform)
+
+
+def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
+               downlink, pipeline, participation, group, shards,
+               grad_transform):
+    """The step of :func:`make_train_step` and, when ``shards`` is an
+    :class:`FsdpShards`, of :func:`make_train_step_fsdp`."""
     n = n_workers
     pipelined = pipeline is not None and pipeline.depth > 0
     federated = participation is not None and not participation.is_full
@@ -245,9 +272,12 @@ def make_train_step(
                          f"step {n}")
     workers = range(n) if group is None else group.workers
     summed = group is not None and agg_mode == "dense_psum"
-    if shards is not None and (group is None or group.model is None):
-        raise ValueError("model shards need a group with a 'model' axis")
-    norm = global_norm if shards is None else shards.norm
+    fsdp = shards is not None and not shards.shards_worker_state
+    # the workers' tree: a mesh rank's shards, or the logical tree (one
+    # process, fsdp); the master state's: the rank's shards, if any
+    worker_shards = None if fsdp else shards
+    wnorm = global_norm if worker_shards is None else shards.norm
+    mnorm = global_norm if shards is None else shards.norm
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: Dict[str, Any], key
@@ -259,6 +289,9 @@ def make_train_step(
             raise ValueError("a pipelined step needs a TrainState built "
                              "with init_train_state(..., pipeline=...)")
         eval_params = state.w if downlink is not None else state.params
+        if fsdp:
+            # the workers run the whole model: gathered leaf by leaf
+            eval_params = shards.gather_tree(eval_params)
         dev = T.leaves(state.params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         B = batch["tokens"].shape[0]
@@ -282,14 +315,15 @@ def make_train_step(
                 algo, random.fold_in(key, i), grads, h_i, mode=agg_mode,
                 wire_dtype=wire_dtype,
                 mask=None if mask is None else mask[i], worker=i,
-                shards=shards)
+                shards=worker_shards)
             local.append(torch.stack([
-                loss.float(), norm(grads),
-                norm(T.tree_map(torch.sub, grads, h_i_new))]
+                loss.float(), wnorm(grads),
+                wnorm(T.tree_map(torch.sub, grads, h_i_new))]
                 + [aux[k].float() for k in sorted(aux)]))
             T.tree_map(lambda dst, src: dst.copy_(src), h_i, h_i_new)
             messages.append(message)
             del grads, h_i_new
+        del eval_params
         # every worker's metrics, in worker order, on every rank
         local = gather_metrics(group, torch.stack(local))
         # pipelined over a group: round t's exchange stays on the wire while
@@ -300,6 +334,9 @@ def make_train_step(
         applied = state.inflight if pipelined else message
         if isinstance(applied, Pending):
             applied = applied.wait()
+        if fsdp and summed:
+            # the all-reduced d of the logical leaves: this rank's shards
+            applied = shards.shard_tree(applied)
         g, h_avg = combine_global(
             algo, applied, state.h_avg, n_workers=n, mode=agg_mode,
             wire_dtype=wire_dtype, chunks=chunks, summed=summed,
@@ -311,8 +348,8 @@ def make_train_step(
         params = apply_updates(state.params, updates)
         metrics = {k: local[:, j].contiguous().mean()
                    for j, k in enumerate(names)}
-        metrics["g_norm"] = norm(g)
-        metrics["update_norm"] = norm(updates)
+        metrics["g_norm"] = mnorm(g)
+        metrics["update_norm"] = mnorm(updates)
         if federated:
             metrics["participants"] = mask.sum()
         w = state.w
@@ -320,9 +357,149 @@ def make_train_step(
             # phase 3: one compressed broadcast, applied by every worker
             w, _ = broadcast_global(downlink, downlink_key(key), params, w,
                                     wire_dtype=wire_dtype, shards=shards)
-            metrics["w_err"] = norm(T.tree_map(torch.sub, params, w))
+            metrics["w_err"] = mnorm(T.tree_map(torch.sub, params, w))
         return TrainState(params=params, opt_state=opt_state, h=state.h,
                           h_avg=h_avg, step=state.step + 1, w=w,
                           inflight=inflight), metrics
 
+    # what the state's master trees hold: the logical tree (None), a mesh
+    # rank's shards or an fsdp rank's
+    train_step.shards = shards
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the fsdp trainer: the master state sharded over the worker group
+# ---------------------------------------------------------------------------
+
+def train_state_shardings(mesh: Mesh, param_specs: PyTree,
+                          state: TrainState) -> TrainState:
+    """Each TrainState leaf's spec on ``mesh`` (JAX's
+    ``train_state_shardings``, specs as tuples of axis names): params,
+    AdamW's m and v, h_avg and w by ``param_specs`` (as the port lays
+    them out, leaf by leaf); h with the worker axes prepended
+    (``stack_worker_spec``); the in-flight payload over the worker axes;
+    the counters replicated."""
+    opt = {k: (param_specs if isinstance(v, (dict, list)) else ())
+           for k, v in state.opt_state.items()}
+    return _state_specs(mesh, param_specs, param_specs, opt, param_specs,
+                        state)
+
+
+def _state_specs(mesh, param_specs, master, opt, h_avg, state) -> TrainState:
+    waxes = (worker_entry(mesh),)
+    inflight = None if state.inflight is None else T.tree_map(
+        lambda _: waxes, state.inflight)
+    return TrainState(
+        params=master, opt_state=opt,
+        h=stack_worker_spec(mesh, param_specs), h_avg=h_avg, step=(),
+        w=None if state.w is None else master, inflight=inflight)
+
+
+def fsdp_specs(mesh: Mesh, param_specs: PyTree, shapes: PyTree) -> PyTree:
+    """JAX's ``fsdp_specs``: the worker axes added to the first dim of each
+    param spec that no axis shards and that the worker count divides
+    (classic FSDP on top of tensor parallelism); a leaf with no such dim
+    keeps its spec.  ``shapes``: the logical params (tensors, ``meta``
+    ones too)."""
+    w = worker_entry(mesh)
+    n = num_workers(mesh)
+
+    def one(spec, leaf):
+        shape = tuple(leaf.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (p, dim) in enumerate(zip(parts, shape)):
+            if p is None and dim % n == 0 and dim > 0:
+                parts[i] = w
+                break
+        return tuple(parts)
+
+    return T.tree_map(one, param_specs, shapes, is_leaf=is_spec)
+
+
+def fsdp_state_shardings(mesh: Mesh, param_specs: PyTree,
+                         state: TrainState) -> TrainState:
+    """JAX's ``fsdp_state_shardings``, specs as tuples: params and w by
+    :func:`fsdp_specs`; AdamW's m and v and h_avg by the fsdp spec of the
+    first param of their shape (JAX's ``spec_for``); h keeps
+    ``stack_worker_spec`` of the param specs (a worker's h_i is whole);
+    the in-flight payload over the worker axes.  The logical shapes come
+    from h, which is whole on every rank.  These are JAX's specs; the
+    port keeps each m, v and h_avg leaf on its own param's shard, which
+    differs where the shape-keyed lookup names another param's spec (at
+    4x1 on the smoke trees: qwen2's ``layers/attn/wq``, ``ln1`` and
+    ``ln2``, whisper's ``wo``; zamba2's ``shared_attn/attn/wo`` at every
+    n)."""
+    shapes = [tuple(a.shape[1:]) for a in T.leaves(state.h)]
+    fspecs = fsdp_specs(mesh, param_specs, T.unflatten(
+        param_specs, [torch.empty(s, device="meta") for s in shapes],
+        is_leaf=is_spec))
+    by_shape = {}
+    for shape, spec in zip(shapes, T.leaves(fspecs, is_leaf=is_spec)):
+        by_shape.setdefault(shape, spec)
+    like = [by_shape[shape] for shape in shapes]
+    opt = {k: (T.unflatten(v, like) if isinstance(v, (dict, list)) else ())
+           for k, v in state.opt_state.items()}
+    return _state_specs(mesh, param_specs, fspecs, opt,
+                        T.unflatten(state.h_avg, like), state)
+
+
+def make_fsdp_shards(group: Optional[WorkerGroup], mesh: Mesh,
+                     param_specs: PyTree, logical: PyTree
+                     ) -> Optional[FsdpShards]:
+    """This rank's :class:`FsdpShards` of the logical params (``meta``
+    tensors) by :func:`fsdp_specs` on ``mesh``; None in one process,
+    where nothing is sharded."""
+    if group is None:
+        return None
+    return FsdpShards.of_group(
+        group, fsdp_dims(fsdp_specs(mesh, param_specs, logical), mesh),
+        logical)
+
+
+def make_train_step_fsdp(
+    loss_fn: Callable[[PyTree, Any], Tuple[torch.Tensor, dict]],
+    optimizer: Optimizer,
+    algo: EFBV,
+    *,
+    n_workers: int,
+    agg_mode: str = "dense_psum",
+    wire_dtype: str = "float32",
+    downlink: Optional[Downlink] = None,
+    pipeline: Optional[Pipeline] = None,
+    participation: Optional[Participation] = None,
+    group: Optional[WorkerGroup] = None,
+    shards: Optional[FsdpShards] = None,
+    grad_transform: Optional[Callable[[PyTree], PyTree]] = None,
+) -> Callable[[TrainState, Dict[str, Any], Any], Tuple[TrainState, dict]]:
+    """The fsdp train step (``repro/train/trainer.py``'s
+    ``make_train_step_fsdp``, the same keywords): over a ``group`` with
+    its ``shards`` (:func:`make_fsdp_shards`) each rank keeps only its
+    fsdp shards of params, AdamW's m and v, h_avg and w, and the whole
+    h_i of its own workers.  One step:
+
+        w_full = all-gather of w (the params without a downlink)
+        for each of this rank's workers: loss, grads at w_full, then
+            compress_local exactly as :func:`make_train_step` does
+        exchange; combine_global decodes each payload whole and keeps
+            this rank's shard of g and h_avg
+        AdamW on the shards
+        broadcast_global: each leaf's x - w gathered, encoded whole (its
+            norm and uniforms the logical leaf's), its shard kept
+
+    Every per-element step acts on shards and every draw and reduction of
+    the wire on the logical leaf, so the shards are bitwise those of one
+    process; ``g_norm``, ``update_norm`` and ``w_err`` are reduced over
+    the ranks (within rounding).  It needs a TrainState built with
+    ``init_train_state(..., group=group, shards=shards)``.  In one process
+    (no group) nothing is sharded and this is :func:`make_train_step`."""
+    if shards is not None and shards.shards_worker_state:
+        raise ValueError("model shards run make_train_step")
+    if (shards is None) != (group is None):
+        raise ValueError("an fsdp step over a group needs its FsdpShards "
+                         "(make_fsdp_shards), and only then")
+    return _make_step(loss_fn, optimizer, algo, n_workers=n_workers,
+                      agg_mode=agg_mode, wire_dtype=wire_dtype,
+                      downlink=downlink, pipeline=pipeline,
+                      participation=participation, group=group,
+                      shards=shards, grad_transform=grad_transform)

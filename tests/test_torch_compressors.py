@@ -1027,3 +1027,203 @@ def test_tree_wire_zero_messages_like_jax(spec):
     one = fmt.decode(pays)
     for a, b in zip(T.leaves(total), T.leaves(one)):
         np.testing.assert_array_equal(a.numpy(), (b + b).numpy())
+
+
+# -- the fine-tuning harness's wire: expert-sparse rules, the zoo rows, and
+# -- the fsdp layout -----------------------------------------------------------
+
+import json  # noqa: E402
+import os  # noqa: E402
+
+from conftest import run_with_devices  # noqa: E402
+from repro.train import loop as jloop  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.core import ExperimentSpec, build  # noqa: E402
+from repro_torch.distributed import aggregate as tagg  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models.layers import EXPERT_LEAVES, is_spec  # noqa: E402
+from repro_torch.optim.optimizers import adamw  # noqa: E402
+from repro_torch.train import trainer as ttrainer  # noqa: E402
+
+SPECS_DIR = os.path.join(os.path.dirname(__file__), "..", "examples",
+                         "specs")
+#: ``BENCH_bits.json``'s ``zoo_scaling`` rows of the committed fsdp specs,
+#: as literals: fingerprint, up, down and total bits, vs dense both ways
+ZOO_ROWS = {
+    "zoo_mamba2_fsdp.json": ("6a9502177435874c", 5_484_544, 2_734_432,
+                             8_218_976, 0.150313),
+    "zoo_qwen2_fsdp.json": ("e379cbd8a0e45487", 23_105_536, 11_553_216,
+                            34_658_752, 0.150002),
+    "finetune_moe.json": ("f67bc877b3e73340", 21_024_768, 13_658_528,
+                          34_683_296, 0.12697),
+}
+FAMILY_SMOKES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-130m",
+                 "zamba2-7b", "whisper-medium", "qwen2-vl-2b")
+
+
+def _spec(name):
+    return ExperimentSpec.from_json(open(os.path.join(SPECS_DIR,
+                                                      name)).read())
+
+
+def test_expert_sparse_rules_equal_jax_and_the_committed_spec():
+    """``expert_sparse_rules`` is JAX's on granite-moe's smoke tree (the
+    committed ``finetune_moe.json`` rules) and on its full tree cut to 8
+    layers (8 of 40 experts routed: K = 0.2 of the dense budget), for
+    block-top-k and top-k bases, with JAX's errors."""
+    from repro.configs import get_config as jget_config
+
+    for full, layers in ((False, None), (True, 8)):
+        jcfg = (jget_config if full else jget_smoke_config)(
+            "granite-moe-3b-a800m")
+        tcfg = (get_config if full else get_smoke_config)(
+            "granite-moe-3b-a800m")
+        if layers:
+            jcfg = dataclasses.replace(jcfg, n_layers=layers)
+            tcfg = dataclasses.replace(tcfg, n_layers=layers)
+        jtree = jbuild_model(jcfg).init_abstract()
+        ttree = build_model(tcfg).init_abstract()
+        kw = dict(n_experts=tcfg.n_experts,
+                  experts_per_tok=tcfg.experts_per_tok)
+        for base in ("block_topk:256,16", "topk:100"):
+            want = jloop.expert_sparse_rules(
+                jtree, jcomp.make_compressor(base), **kw)
+            got = tlaunch.expert_sparse_rules(
+                ttree, tcomp.make_compressor(base), **kw)
+            assert got == want
+        if not full:
+            assert got.split(";")[0] == "layers/moe/wd=topk:50"
+            assert _spec("finetune_moe.json").leaf_codecs == \
+                tlaunch.expert_sparse_rules(
+                    ttree, tcomp.make_compressor("block_topk:256,16"), **kw)
+    assert (kw["experts_per_tok"], kw["n_experts"]) == (8, 40)
+    with pytest.raises(ValueError, match="entry budget"):
+        tlaunch.expert_sparse_rules(ttree, tcomp.make_compressor("qsgd:16"),
+                                    **kw)
+    with pytest.raises(ValueError, match="no MoE subtree"):
+        tlaunch.expert_sparse_rules({"w": torch.zeros(4, 4)},
+                                    tcomp.BlockTopK(256, 16), **kw)
+
+
+@pytest.mark.parametrize("name", list(ZOO_ROWS))
+def test_zoo_scaling_rows_pinned(name):
+    """Each committed fsdp spec's fingerprint and its round's exact bits
+    on its smoke tree, as ``BENCH_bits.json``'s ``zoo_scaling`` row holds
+    them (literals here); the moe row's expert leaves at exactly half of
+    their dense block-top-k bits."""
+    fp, up, down, total, ratio = ZOO_ROWS[name]
+    spec = _spec(name)
+    assert spec.fingerprint() == fp and spec.backend == "fsdp"
+    run = build(spec)
+    tree = build_model(get_smoke_config(spec.problem)).init_abstract()
+    rb = run.round_bits(tree)
+    assert (rb["up"], rb["down"], rb["total"]) == (up, down, total)
+    assert round(rb["total"] / rb["dense_both_ways"], 6) == ratio
+    if spec.leaf_codecs:
+        paths = twire.leaf_paths(tree)
+        expert = [i for i, p in enumerate(paths)
+                  if p.split("/")[-1] in EXPERT_LEAVES
+                  and "moe" in p.split("/")]
+        bits = [sum(twire.tree_format_for(
+            run.compressor, tree, wire_dtype=spec.wire_dtype,
+            rules=rules).bits_by_leaf()[i] for i in expert)
+            for rules in (run.leaf_rules, (("*", run.compressor),))]
+        assert bits == [1_572_864, 3_145_728]
+
+
+_JAX_FSDP_LAYOUT = """
+    import json
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.configs import get_smoke_config
+    from repro.launch.mesh import make_mesh
+    from repro.models import build_model
+    from repro.optim import adamw, constant
+    from repro.train import fsdp_specs, fsdp_state_shardings, init_train_state
+
+    def specs(tree):
+        return [[list(e) if isinstance(e, tuple) else e for e in tuple(
+            s.spec if isinstance(s, NamedSharding) else s)]
+            for s in jax.tree.leaves(tree, is_leaf=lambda x: isinstance(
+                x, (P, NamedSharding)))]
+
+    out = {}
+    for arch in ARCHS:
+        model = build_model(get_smoke_config(arch))
+        shapes = jax.eval_shape(model.init, jax.random.key(0))
+        for shape in ((1, 1), (2, 1), (4, 1)):
+            mesh = make_mesh(shape)
+            state = jax.eval_shape(lambda p: init_train_state(
+                p, adamw(constant(1e-3)), mesh, bidirectional=True), shapes)
+            sh = fsdp_state_shardings(mesh, model.param_specs(), state)
+            out[f"{arch} {shape[0]}"] = {
+                "fsdp_specs": specs(fsdp_specs(mesh, model.param_specs(),
+                                               shapes)),
+                "params": specs(sh.params), "w": specs(sh.w),
+                "h": specs(sh.h), "h_avg": specs(sh.h_avg),
+                "m": specs(sh.opt_state["m"]), "v": specs(sh.opt_state["v"]),
+                "count": specs(sh.opt_state["count"])}
+    print("FSDP_LAYOUT " + json.dumps(out))
+"""
+
+
+def test_fsdp_specs_and_state_shardings_equal_jax():
+    """``fsdp_specs`` and ``fsdp_state_shardings`` (``Run.state_shardings``
+    of an fsdp spec) give JAX's specs leaf for leaf, as tuples, for the
+    smoke tree of each family at 1x1, 2x1 and 4x1 (JAX on four host
+    devices in a subprocess); m, v and h_avg take the fsdp spec of the
+    first param of their shape (JAX's ``spec_for``), whose worker dim
+    differs from their own param's only at the leaves of
+    ``FSDP_BY_SHAPE``."""
+    code = _JAX_FSDP_LAYOUT.replace("ARCHS", repr(FAMILY_SMOKES))
+    out = run_with_devices(code, 4)
+    want = json.loads(out.split("FSDP_LAYOUT ", 1)[1])
+    js = lambda tree: json.loads(json.dumps(  # noqa: E731
+        T.leaves(tree, is_leaf=is_spec)))
+    for arch in FAMILY_SMOKES:
+        model = build_model(get_smoke_config(arch))
+        logical = model.init_abstract()
+        for n in (1, 2, 4):
+            mesh = tagg.make_mesh((n, 1))
+            spec = ExperimentSpec(backend="fsdp", problem=arch, smoke=True,
+                                  mesh=f"{n}x1", n=n, d=64,
+                                  downlink="qsgd:16")
+            run = build(spec)
+            state = run.init_state(logical, adamw(lambda s: 1e-3))
+            sh = run.state_shardings(mesh, model.param_specs(), state)
+            w = want[f"{arch} {n}"]
+            fspecs = ttrainer.fsdp_specs(mesh, model.param_specs(), logical)
+            assert js(fspecs) == w["fsdp_specs"], (arch, n)
+            for k in ("params", "w", "h", "h_avg"):
+                assert js(getattr(sh, k)) == w[k], (arch, n, k)
+            for k in ("m", "v"):
+                assert js(sh.opt_state[k]) == w[k], (arch, n, k)
+            assert js(sh.opt_state["count"]) == w["count"]
+            dims = tagg.fsdp_dims(sh.params, mesh)
+            by_shape = tagg.fsdp_dims(sh.opt_state["m"], mesh)
+            assert tagg.fsdp_dims(sh.h_avg, mesh) == by_shape
+            paths = twire.leaf_paths(logical)
+            assert [(paths[j], dims[j], by_shape[j])
+                    for j in range(len(dims)) if dims[j] != by_shape[j]] \
+                == FSDP_BY_SHAPE.get((arch, n), []), (arch, n)
+
+
+#: the leaves whose m, v and h_avg JAX's shape-keyed ``spec_for`` gives
+#: the fsdp spec of another param of their shape, with another worker dim
+#: (None: whole) than their own param's: (path, param's dim, that dim).
+#: The port keeps every m, v and h_avg leaf on its own param's shard
+#: (AdamW and the master update are elementwise on aligned shards);
+#: ``fsdp_state_shardings`` states JAX's layout.
+FSDP_BY_SHAPE = {
+    ("qwen2-0.5b", 4): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
+                        ("layers/ln2", 1, None)],
+    ("granite-moe-3b-a800m", 4): [("layers/attn/wq", 1, 2)],
+    ("zamba2-7b", 1): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", 2): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", 4): [("shared_attn/attn/wo", 1, 0)],
+    ("whisper-medium", 4): [("encoder/attn/wo", 2, 1),
+                            ("layers/attn/wo", 2, 1),
+                            ("layers/xattn/wo", 2, 1)],
+    ("qwen2-vl-2b", 4): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
+                         ("layers/ln2", 1, None)],
+}

@@ -301,12 +301,13 @@ def test_driver_folds_smoke_and_pipeline_into_a_spec(tmp_path, capsys):
     (dict(backend="reference", problem="logreg"), "bad experiment spec"),
     (dict(problem="logreg", mesh="1x1", n=1, d=16), "model archs"),
     (dict(mesh="2x4"), "not yet ported"),
-    (dict(backend="fsdp"), "not yet ported"),
+    (dict(backend="fsdp", mesh="2x2"), "not yet ported"),
     (dict(problem="zamba2-7b", d=32768, mesh="2x2"), "not yet ported"),
     (dict(leaf_codecs="*embed*=qsgd:16"), None),
     (dict(downlink="topk:64"), None),
     (dict(compressor="sign"), None),
-    (None, "bad experiment spec")])
+    (None, "bad experiment spec"),
+    (dict(backend="fsdp"), None)])
 def test_driver_refuses_specs_it_cannot_run(tmp_path, spec, message):
     from repro_torch.core import ExperimentSpec
 
@@ -324,8 +325,8 @@ def test_driver_refuses_specs_it_cannot_run(tmp_path, spec, message):
             kw.update(n=2)
         path = _write(tmp_path, ExperimentSpec(**kw))
     if message is None:
-        # per-leaf codecs, a non-QSGD downlink and the rest of the zoo are
-        # ported: the driver runs the spec's step
+        # per-leaf codecs, a non-QSGD downlink, the rest of the zoo and the
+        # fsdp trainer are ported: the driver runs the spec's step
         assert np.isfinite(tlaunch.main(["--spec", path] + RUNTIME))
         return
     with pytest.raises(SystemExit, match=message):
@@ -784,3 +785,150 @@ def test_model_axis_refuses_the_ssm_and_moe_families(arch):
     family = get_smoke_config(arch).family
     assert f"the {family} family" in why and "not yet ported" in why
     assert build_model(get_smoke_config(arch)).model_axis_refusal(1) == ""
+
+
+# -- the fsdp trainer on two gloo ranks ---------------------------------------
+
+import contextlib  # noqa: E402
+
+from repro_torch.core import compressors as tcomp  # noqa: E402
+from repro_torch.core.efbv import EFBV, Downlink, Pipeline  # noqa: E402
+from repro_torch.optim.optimizers import adamw  # noqa: E402
+from repro_torch.optim.schedules import cosine  # noqa: E402
+from repro_torch.train import trainer as ttrainer  # noqa: E402
+
+#: (uplink, agg, downlink, pipeline) of each two-rank fsdp case
+FSDP_RANK_CASES = {
+    "sparse_qsgd_down": ("block_topk:256,16", "sparse_allgather",
+                         "qsgd:16", None),
+    "dense_pipelined": ("block_topk:256,16", "dense_psum", "qsgd:16",
+                        Pipeline(1)),
+}
+FSDP_STEPS = 3
+
+
+def _fsdp_run(case, group=None):
+    """Three fsdp steps of 2 workers on the f32 smoke config, in one
+    process (no group) or on this rank of ``group``: the losses and, as
+    numpy, the master trees (this rank's shards) and h."""
+    comp, agg, down, pipeline = FSDP_RANK_CASES[case]
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              activation_dtype="float32")
+    model = build_model(cfg)
+    algo = EFBV(tcomp.make_compressor(comp), lam=0.37, nu=0.61)
+    opt = adamw(cosine(3e-4, total_steps=FSDP_STEPS, warmup_steps=1),
+                weight_decay=0.01)
+    shards = ttrainer.make_fsdp_shards(group, tagg.make_mesh((2, 1)),
+                                       model.param_specs(),
+                                       model.init_abstract())
+    params = model.init(random.key(3), device="cpu")
+    if shards is not None:
+        params = shards.shard_tree(params)
+    state = ttrainer.init_train_state(
+        params, opt, n_workers=2, bidirectional=True, algo=algo,
+        agg_mode=agg, pipeline=pipeline, group=group, shards=shards)
+    step = ttrainer.make_train_step_fsdp(
+        model.loss, opt, algo, n_workers=2, agg_mode=agg,
+        downlink=Downlink.parse(down), pipeline=pipeline, group=group,
+        shards=shards)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=4,
+                       n_workers=2, seed=0)
+    losses = []
+    for s in range(FSDP_STEPS):
+        state, m = step(state, data.batch(s), random.fold_in(random.key(0),
+                                                              s))
+        losses.append(float(m["loss"]))
+    if isinstance(state.inflight, tagg.Pending):
+        state.inflight.wait()
+    as_np = lambda t: T.tree_map(lambda a: a.numpy().copy(), t)  # noqa
+    return {"losses": losses, "params": as_np(state.params),
+            "w": as_np(state.w), "h_avg": as_np(state.h_avg),
+            "m": as_np(state.opt_state["m"]),
+            "v": as_np(state.opt_state["v"]), "h": as_np(state.h),
+            "dims": None if shards is None else shards.dims}
+
+
+def _fsdp_rank(store, case):
+    group = tagg.WorkerGroup.join(2, backend="gloo", device="cpu",
+                                  init_method=f"file://{store}/fsdp")
+    try:
+        return _fsdp_run(case, group)
+    finally:
+        group.close()
+
+
+@pytest.mark.parametrize("case", list(FSDP_RANK_CASES))
+def test_fsdp_two_ranks_equal_one_process_bitwise(tmp_path, case):
+    """The fsdp step on 2 gloo ranks (one worker each) against one
+    process: each rank holds only its fsdp shards of params, w, h_avg and
+    AdamW's m and v (every leaf of the smoke tree halves, the embedding by
+    its columns, as JAX's ``fsdp_specs`` lays it out), which reassembled
+    are the one-process trees bit for bit after three steps; each rank's h
+    is its worker's row, and the losses are equal."""
+    with _one_thread():
+        want = _fsdp_run(case)
+    ranks = _spawn_ranks(tmp_path, 2, _fsdp_rank, case)
+    dims = ranks[0]["dims"]
+    paths = ["/".join(p) for p, _ in T.flatten_with_path(want["params"])]
+    assert dims[paths.index("embed")] == 1
+    assert None not in dims and dims == ranks[1]["dims"]
+    for r, got in enumerate(ranks):
+        assert got["losses"] == want["losses"]
+        for a, b in zip(T.leaves(want["h"]), T.leaves(got["h"])):
+            np.testing.assert_array_equal(b.view(np.uint32),
+                                          a[r:r + 1].view(np.uint32))
+    for k in ("params", "w", "h_avg", "m", "v"):
+        for j, whole in enumerate(T.leaves(want[k])):
+            parts = [T.leaves(g[k])[j] for g in ranks]
+            half = list(whole.shape)
+            half[dims[j]] //= 2
+            assert [list(p.shape) for p in parts] == [half, half], (k, j)
+            np.testing.assert_array_equal(
+                np.concatenate(parts, axis=dims[j]).view(np.uint32),
+                whole.view(np.uint32), err_msg=f"{k} {paths[j]}")
+
+
+@contextlib.contextmanager
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_fsdp_step_keeps_inactive_expert_slabs_of_h_zero():
+    """One fsdp step of granite-moe's smoke config under fixed routing
+    (zeroed routers: every token to experts 0 and 1) with the committed
+    ``finetune_moe.json`` spec's expert-sparse leaf rules and
+    ``zero_inactive_expert_grads``: h only accumulates masked messages,
+    so its inactive-expert slabs are exactly zero and its routed ones
+    are not (as ``tests/test_finetune.py`` asserts of JAX's trainers)."""
+    from repro_torch.core import ExperimentSpec, build
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.optim.schedules import constant
+
+    spec = ExperimentSpec.from_json(open(os.path.join(
+        os.path.dirname(__file__), "..", "examples", "specs",
+        "finetune_moe.json")).read())
+    run = build(spec)
+    cfg = get_smoke_config(spec.problem)
+    model = build_model(cfg)
+    params = tL.fixed_routing_params(model.init(random.key(0),
+                                                device="cpu"))
+    opt = sgd(constant(0.05))
+    state = run.init_state(params, opt)
+    step = run.train_step(model.loss, opt,
+                          grad_transform=tL.zero_inactive_expert_grads)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=16,
+                       n_workers=4, seed=0)
+    with _one_thread():
+        state, m = step(state, data.batch(0), random.fold_in(
+            random.key(spec.seed), 0))
+    assert np.isfinite(float(m["loss"]))
+    for name in tL.EXPERT_LEAVES:
+        hh = state.h["layers"]["moe"][name]
+        assert hh.shape[:3] == (4, cfg.n_layers, cfg.n_experts)
+        assert not hh[:, :, 2:].any(), name
+        assert hh[:, :, :2].any(), name

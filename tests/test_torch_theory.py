@@ -370,15 +370,31 @@ def test_unported_run_surface_refused_with_its_roadmap_item(kw, item):
         jtree = {"embed": jnp.zeros((64, 8)), "w": jnp.zeros(300)}
         assert r.round_bits(tree) == jbuild(JSpec(**kw)).round_bits(jtree)
         return
+    from repro_torch.models.model import build_model
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim.optimizers import adamw
+
+    # the mesh is ported (its geometry, the model axis), and so is the
+    # fsdp state's layout: params over the worker axis, on the first dim
+    # that no axis shards
+    mesh = r.make_mesh()
+    assert mesh.devices_shape == r.spec.mesh_dims()
+    model = build_model(get_smoke_config("qwen2-0.5b"))
+    params = model.init_abstract()
+    opt = adamw(lambda s: 1e-3)
+    from repro_torch.train.trainer import init_train_state
+    sh = r.state_shardings(mesh, model.param_specs(), init_train_state(
+        params, opt, n_workers=2))
+    assert sh.params["embed"] == ("model", "data")
+    assert sh.params["final_norm"] == ("data",)
+    if mesh.shape["model"] == 1:
+        # item 8 is ported: the fsdp step builds (one process: the
+        # shard_map step)
+        assert callable(r.train_step(lambda p, b: (0.0, {}), None))
+        return
+    # item 8b: fsdp on a 'model' axis above 1 is refused
     with pytest.raises(NotImplementedError, match=item):
         r.train_step(lambda p, b: (0.0, {}), None)
-    if "mesh" in kw:
-        # the mesh is ported (its geometry, the model axis); the fsdp
-        # state's layout is not
-        mesh = r.make_mesh()
-        assert mesh.devices_shape == r.spec.mesh_dims()
-        with pytest.raises(NotImplementedError, match="item 8"):
-            r.state_shardings(mesh, None, None)
 
 
 @pytest.mark.parametrize("kw,participants", [

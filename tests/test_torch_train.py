@@ -325,11 +325,11 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
 def test_cli_refuses_unported_flags(flag, capsys):
     """The JAX driver's flags the port lacks exit with "not yet ported";
     those ported since (a non-QSGD downlink, per-leaf codecs, a worker
-    fleet, every zoo compressor, bf16/f16 wires, checkpoints and the WSD
-    schedule) parse as JAX's do."""
+    fleet, every zoo compressor, bf16/f16 wires, checkpoints, the WSD
+    schedule and the fsdp trainer) parse as JAX's do."""
     if flag[0] in ("--downlink", "--leaf-codecs", "--worker-comps",
                    "--compressor", "--wire-dtype", "--ckpt-dir",
-                   "--ckpt-every", "--schedule"):
+                   "--ckpt-every", "--schedule", "--trainer"):
         args = tlaunch.parse_args(["--smoke", "--device", "cpu", *flag])
         assert str(getattr(args, flag[0][2:].replace("-", "_"))) == flag[1]
         assert "not yet ported" not in capsys.readouterr().err
@@ -457,3 +457,197 @@ def test_cli_refuses_bad_pipeline(spec, capsys):
     with pytest.raises(SystemExit):
         tlaunch.parse_args(["--smoke", "--device", "cpu", "--pipeline", spec])
     assert "--pipeline" in capsys.readouterr().err
+
+
+# -- the fsdp trainer and the fine-tuning harness ----------------------------
+
+import os  # noqa: E402
+
+from repro.launch import finetune as jfinetune  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro.core import ExperimentSpec as JSpec  # noqa: E402
+from repro.core import SpecError as JSpecError  # noqa: E402
+from repro.train import loop as jloop  # noqa: E402
+from repro_torch.core import ExperimentSpec, SpecError  # noqa: E402
+from repro_torch.core.efbv import Participation  # noqa: E402
+from repro_torch.train.trainer import make_train_step_fsdp  # noqa: E402
+
+SPECS_DIR = os.path.join(os.path.dirname(__file__), "..", "examples",
+                         "specs")
+#: the one-process fsdp cases: (uplink, agg, downlink, pipeline,
+#: participation)
+FSDP_ONE = {
+    "block_topk_qsgd_down": ("block_topk:256,16", "sparse_allgather",
+                             "qsgd:16", None, None),
+    "pipelined": ("block_topk:256,16", "sparse_allgather", "qsgd:16",
+                  Pipeline(1), None),
+    "federated": ("block_topk:256,16", "sparse_allgather", "", None,
+                  "fixed:1"),
+}
+
+
+def _one_process_run(make, case, steps=2):
+    comp, agg, down, pipeline, part = FSDP_ONE[case]
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              activation_dtype="float32")
+    model = build_model(cfg)
+    algo = EFBV(tcomp.make_compressor(comp), lam=0.37, nu=0.61)
+    opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
+                weight_decay=0.01)
+    state = init_train_state(model.init(R.key(3), device="cpu"), opt,
+                             n_workers=N, bidirectional=bool(down),
+                             algo=algo, agg_mode=agg, pipeline=pipeline)
+    step = make(model.loss, opt, algo, n_workers=N, agg_mode=agg,
+                downlink=Downlink.parse(down), pipeline=pipeline,
+                participation=Participation.parse(part) if part else None)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH,
+                       n_workers=N, seed=0)
+    metrics = []
+    for s in range(steps):
+        state, m = step(state, data.batch(s), R.fold_in(R.key(SEED), s))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+@pytest.mark.parametrize("case", list(FSDP_ONE))
+def test_fsdp_step_is_the_shard_map_step_in_one_process(case):
+    """In one process nothing is sharded: the fsdp step is the shard_map
+    step bit for bit, every state leaf and every metric of two steps
+    (block-top-k up with QSGD down, pipelined, federated)."""
+    a, am = _one_process_run(make_train_step, case)
+    b, bm = _one_process_run(make_train_step_fsdp, case)
+    assert _tree_bitwise(a, b) and am == bm
+    if case == "federated":
+        assert [m["participants"] for m in bm] == [1.0, 1.0]
+
+
+def test_fsdp_step_matches_jax_fsdp_trainer():
+    """The port's fsdp step against JAX's ``make_train_step_fsdp`` on a 1x1
+    mesh (jitted, vmap over the one worker, FSDP shardings), block-top-k
+    up and QSGD(16) down, f32 activations, three steps from JAX's weights:
+    the file's f32 tolerances (loss rtol 1e-5; under 0.1% of the params
+    more than 1e-5 apart, none more than 3 lr)."""
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro.train import (fsdp_state_shardings as jfsdp_shardings,
+                             init_train_state as jinit_state,
+                             make_train_step_fsdp as jmake_fsdp)
+
+    jcfg = dataclasses.replace(jget_smoke_config("qwen2-0.5b"),
+                               activation_dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                               activation_dtype="float32")
+    jmodel, model = jbuild_model(jcfg), build_model(tcfg)
+    params_np = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0)))
+    data = SyntheticLM(vocab=jcfg.vocab, seq_len=SEQ, global_batch=4,
+                       n_workers=1, seed=0)
+    lam, nu = 0.37, 0.61
+
+    mesh = jmake_mesh((1, 1))
+    jalgo = JEFBV(jcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    jopt = jadamw(jcosine(3e-4, total_steps=STEPS, warmup_steps=1),
+                  weight_decay=0.01)
+    jstate = jinit_state(jax.tree.map(jnp.asarray, params_np), jopt, mesh,
+                         bidirectional=True)
+    sh = jfsdp_shardings(mesh, jmodel.param_specs(), jstate)
+    jstate = jax.tree.map(jax.device_put, jstate, sh)
+    jstep = jmake_fsdp(jmodel.loss, jopt, jalgo, mesh,
+                       agg_mode="sparse_allgather",
+                       downlink=JDownlink(jcomp.QSGD(16)))
+    key = jax.random.key(SEED)
+    jl = []
+    for s in range(STEPS):
+        jstate, m = jstep(jstate, data.batch(s), jax.random.fold_in(key, s))
+        jl.append(float(m["loss"]))
+
+    algo = EFBV(tcomp.BlockTopK(256, 16), lam=lam, nu=nu)
+    opt = adamw(cosine(3e-4, total_steps=STEPS, warmup_steps=1),
+                weight_decay=0.01)
+    state = init_train_state(T.params_from_jax(params_np, "cpu"), opt,
+                             n_workers=1, bidirectional=True, algo=algo,
+                             agg_mode="sparse_allgather")
+    step = make_train_step_fsdp(model.loss, opt, algo, n_workers=1,
+                                agg_mode="sparse_allgather",
+                                downlink=Downlink(tcomp.QSGD(16)))
+    tl = []
+    for s in range(STEPS):
+        state, m = step(state, data.batch(s), R.fold_in(R.key(SEED), s))
+        tl.append(float(m["loss"]))
+    _assert_round_close("float32", jl, jstate.params, tl, state)
+
+
+def test_trainer_fsdp_folds_into_the_spec_as_jax():
+    """``--trainer fsdp`` is the spec's ``backend='fsdp'``, the JAX
+    driver's fingerprint (``--workers 2`` is its ``--mesh 2x1``)."""
+    flags = ["--arch", "qwen2-0.5b", "--smoke", "--compressor",
+             "block_topk:256,16", "--agg", "sparse_allgather", "--downlink",
+             "qsgd:16", "--steps", "3", "--trainer", "fsdp"]
+    spec = tlaunch.spec_from_args(tlaunch.parse_args(
+        flags + ["--device", "cpu", "--workers", "2"]), 2)
+    jspec = jtrain.spec_from_args(jtrain.parse_args(flags + ["--mesh",
+                                                             "2x1"]), 2)
+    assert spec.backend == "fsdp"
+    assert spec.fingerprint() == jspec.fingerprint()
+
+
+def test_finetune_loop_matches_jax_loop():
+    """All four stages on ``zoo_mamba2_fsdp.json`` at 1x1 (n = 1), two steps
+    of batch 2 and seq 32, in both packages: the fingerprint, the round's
+    bits and the eval stream's seed exactly JAX's, the final and eval
+    losses within bf16's 1e-2 (the smoke config's activations); the
+    staged prerequisite and both refusals with JAX's messages."""
+    raw = open(os.path.join(SPECS_DIR, "zoo_mamba2_fsdp.json")).read()
+    jspec = dataclasses.replace(JSpec.from_json(raw), mesh="1x1", n=1,
+                                steps=2)
+    spec = dataclasses.replace(ExperimentSpec.from_json(raw), mesh="1x1",
+                               n=1, steps=2)
+    kw = dict(global_batch=2, seq_len=32, eval_batches=1, log_every=1)
+    jl = jloop.FinetuneLoop(jspec, jloop.FinetuneSettings(**kw),
+                            verbose=False)
+    tl = tlaunch.FinetuneLoop(spec, tlaunch.FinetuneSettings(**kw),
+                              verbose=False, device="cpu")
+    with pytest.raises(RuntimeError, match="setup"):
+        tl.wire_report()
+    want, got = jl.run(), tl.run()
+    assert got["fingerprint"] == want["fingerprint"] == jspec.fingerprint()
+    assert got["round_bits"] == want["round_bits"]
+    assert (got["arch"], got["family"]) == (want["arch"], "ssm")
+    np.testing.assert_allclose(
+        [got["final_loss"], got["eval_loss"]],
+        [want["final_loss"], want["eval_loss"]], atol=1e-2)
+    assert tl.eval_data.seed == jl.eval_data.seed == \
+        spec.seed ^ tlaunch.EVAL_SEED_XOR
+    assert tl.data.seed == spec.seed
+    assert [h["step"] for h in tl.history] == [2.0]
+    for kw in (dict(compressor="topk:4", backend="reference",
+                    problem="quadratic", d=32, n=2, steps=2),
+               dict(compressor="topk:4", backend="shard_map",
+                    problem="quadratic", d=32, n=1, mesh="1x1", steps=2)):
+        with pytest.raises(JSpecError) as je:
+            jloop.FinetuneLoop(JSpec(**kw))
+        with pytest.raises(SpecError) as te:
+            tlaunch.FinetuneLoop(ExperimentSpec(**kw), device="cpu")
+        assert str(te.value) == str(je.value)
+
+
+def test_finetune_cli_flags_equal_jax(capsys):
+    """``repro_torch.launch.train finetune`` takes JAX's
+    ``launch/finetune.py`` flags with the same defaults and values, and
+    the port's device and process-group flags; ``--sanitize`` is refused
+    as not yet ported, and an unreadable spec with JAX's message."""
+    spec = os.path.join(SPECS_DIR, "finetune_moe.json")
+    extra = {"device": "cuda", "dist_backend": "", "dist_init": ""}
+    for argv in (["--spec", spec],
+                 ["--spec", spec, "--steps", "3", "--global-batch", "4",
+                  "--seq", "64", "--lr", "0.002", "--schedule", "wsd",
+                  "--eval-every", "2", "--eval-batches", "1",
+                  "--log-every", "1", "--heterogeneity", "0.25",
+                  "--shard-size", "16", "--processes", "2", "--ckpt-dir",
+                  "ck", "--ckpt-every", "5"]):
+        want = vars(jfinetune.parse_args(argv))
+        got = vars(tlaunch.parse_finetune_args(argv))
+        assert got == {**want, **extra}
+    with pytest.raises(SystemExit):
+        tlaunch.parse_finetune_args(["--spec", spec, "--sanitize"])
+    assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match=r"\[finetune\] bad experiment"):
+        tlaunch.main(["finetune", "--spec", spec + ".missing"])
