@@ -163,13 +163,13 @@ line is printed only when every phase passed):
                 h_res, and the last checkpoint
                 restored bitwise into the template, its embedded spec the
                 run's, a restore under another spec refused;
-              * moe: granite-moe-3b-a800m at full width with 8 of its 32
-                layers (956,828,160 params, 13 leaves), built by the
+              * moe: granite-moe-3b-a800m at full width with 4 of its 32
+                layers (553,916,928 params, 13 leaves), built by the
                 functions the driver's ``setup`` calls on the cut config
                 (``cut_setup``: the driver has no depth flag) and run by
                 its loop (``train.train_loop``),
-                block-top-k (256, 16): 3,827,312,640 bits a worker, 78
-                ``pack_update`` and 66 ``threefry_uniform`` launches,
+                block-top-k (256, 16): 2,215,667,712 bits a worker, 78
+                ``pack_update`` and 34 ``threefry_uniform`` launches,
                 finite losses, gradient norms and aux losses.
               * hybrid: zamba2-7b at full width with 12 of its 81 layers
                 (1,370,644,416 params, 25 leaves; the shared attention
@@ -183,11 +183,11 @@ line is printed only when every phase passed):
                 CLI, each batch with JAX's 1500 stub frames a sample:
                 4,049,256,448 bits a worker, 162 ``pack_update`` and 434
                 ``threefry_uniform`` launches.
-              * vlm: qwen2-vl-2b at full width with 16 of its 28 layers
-                (1,215,514,112 params, 15 leaves), by ``cut_setup``, each
+              * vlm: qwen2-vl-2b at full width with 8 of its 28 layers
+                (841,131,520 params, 15 leaves), by ``cut_setup``, each
                 batch with JAX's 1024 stub patches before the 128 tokens
-                (M-RoPE positions): 4,862,056,448 bits a worker, 90
-                ``pack_update`` and 114 ``threefry_uniform`` launches.
+                (M-RoPE positions): 3,364,526,080 bits a worker, 90
+                ``pack_update`` and 58 ``threefry_uniform`` launches.
    Then the CLI at ``--smoke`` on the card for granite-moe, dbrx (their
               step lines carry the aux loss) and minicpm (``--schedule
               auto`` picks WSD and says so), 2 steps each
@@ -247,12 +247,12 @@ line is printed only when every phase passed):
               launches per rank as ZOO_SPECS says.
    Then the fine-tuning harness in one process (``finetune``):
               ``launch.train.FinetuneLoop`` on ``finetune_moe.json`` at
-              full width (granite-moe-3b-a800m cut to 8 of its 32 layers,
+              full width (granite-moe-3b-a800m cut to 4 of its 32 layers,
               d its tuning dim, the spec's 4 workers, the expert leaves'
               rules ``expert_sparse_rules`` of the cut tree): 3 steps,
               ``evaluate`` on one batch and a checkpoint restored bitwise;
               its exact bits, the expert leaves at exactly 1/5 of their
-              dense bits, a finite eval loss; 120 ``pack_update`` and 105
+              dense bits, a finite eval loss; 120 ``pack_update`` and 73
               ``threefry_uniform`` launches.
    Then the compressor bench (``repro_torch.launch.compressor_bench``
               ``main(["--full"])``): every compressor and codec row at
@@ -277,6 +277,34 @@ line is printed only when every phase passed):
               Two processes on one card time-slice its contexts and gloo
               moves the payload through host memory: these are not times
               of NCCL across cards.
+
+6. serving -- through the driver's ``serve`` subcommand
+              (``launch.train.main(["serve", ...])``), launch counts reset
+              just before each run and read just after:
+              * serve_fleet (the slice's main path): the replica fleet of
+                qwen2-0.5b at full width and depth from JAX's weights (seed
+                0), ``downlink: qsgd:16``, 2 replicas of 4 slots, prompts of
+                16 and 16 generated tokens, 3 pushes (the spec written to
+                ``build/spec/serve_fleet.json``): every replica's w bitwise
+                the pusher's after each push (``run_fleet`` asserts it),
+                3,952,262,720 delta bits against 15,809,048,704 checkpoint
+                bits a push, 16 requests and 512 tokens, 285
+                ``threefry_uniform`` launches (169 init, 42 QSGD uniforms,
+                42 training-move normals, 32 prompt draws) and no other;
+                tok/s, the largest stage and swap, the peak, and one decode
+                step's host and device time, kernels and busy share;
+              * serve_delta: the committed ``serve_delta.json`` (mamba2's
+                smoke config), JAX's fingerprint 7d408c73e1bcf250 and bits
+                2,734,560 / 10,935,936 (0.250053); the same spec with
+                ``smoke: false`` (mamba2-130m whole), 1,031,868,512 /
+                4,127,471,744; and one dropped push resynced bitwise from
+                the pusher's checkpoints (``build/ckpt/serve_delta``);
+              * serve_families: one smoke decode per family (dense, moe,
+                ssm, hybrid, encdec, vlm), the card's greedy ids the CPU's
+                up to a near tie, the card's engine (2 slots) its fixed
+                batch's.
+              Every threefry shape a serving path drew is held bitwise
+              against the plain version on the card afterwards.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -2693,17 +2721,27 @@ DIST_REF = {
 DIST_TIMEOUT_S = 400
 
 
+#: each arch's smoke config and JAX initial weights, drawn once a process
+#: (a few MB each; the CPU's draw took 0.3-1.7 s an arch)
+SMOKE_PARAMS = {}
+
+
 def smoke_params(arch="qwen2-0.5b"):
-    """(the arch's smoke config with f32 activations, its JAX initial
-    weights on the host)."""
+    """(the arch's smoke config with f32 activations, a copy of its JAX
+    initial weights on the host)."""
     import dataclasses
     from repro_torch import random
+    from repro_torch import tree as T
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_smoke_config(arch),
-                              activation_dtype="float32")
-    return cfg, build_model(cfg).init(random.key(0), device="cpu")
+    if arch not in SMOKE_PARAMS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  activation_dtype="float32")
+        SMOKE_PARAMS[arch] = (cfg, build_model(cfg).init(random.key(0),
+                                                         device="cpu"))
+    cfg, params = SMOKE_PARAMS[arch]
+    return cfg, T.tree_map(torch.clone, params)
 
 
 def digest(params):
@@ -3141,15 +3179,18 @@ PATHS = {
     },
 }
 #: the ssm and moe main paths: mamba2-130m at full width and depth, and
-#: granite-moe-3b-a800m at full width with 8 of its 32 layers
+#: granite-moe-3b-a800m at full width with 4 of its 32 layers (cut from 8
+#: to keep the run's time with the serving paths)
 MAMBA2_BITS = 515_936_256       # mamba2-130m, block_topk:256,16, per worker
 MAMBA2_LEAVES, MOE_LEAVES = 15, 13
-MOE_BITS = 3_827_312_640        # granite-moe 8 layers, block_topk:256,16
-MOE_LAYERS = 8
+MOE_BITS = 2_215_667_712        # granite-moe 4 layers, block_topk:256,16
+MOE_LAYERS = 4
 #: the inits' threefry draws: mamba2's embedding and 8 a layer (5 normal
 #: projections, dt_bias's uniform, conv_w, wo); granite-moe's embedding,
 #: untied head and 8 a layer (4 attention and 4 expert weights)
 MAMBA2_INIT_DRAWS = 1 + 24 * 8
+#: the smoke config's (2 layers)
+SMOKE_MAMBA2_INIT_DRAWS = 1 + 2 * 8
 MOE_INIT_DRAWS = 2 + MOE_LAYERS * 8
 #: the mamba2 path's checkpoints (one a step, JAX's npz format)
 CKPT_DIR = ROOT / "build" / "ckpt" / "mamba2"
@@ -3181,7 +3222,7 @@ PATHS.update({
         "op": "ssd_chunked",
     },
     # the driver has no depth flag (nor has JAX's): the driver's own
-    # functions on the config cut to 8 layers (``cut_setup``), then its
+    # functions on the config cut to 4 layers (``cut_setup``), then its
     # loop (``train.train_loop``)
     "moe": {
         "argv": arch_argv("granite-moe-3b-a800m")
@@ -3200,11 +3241,12 @@ PATHS.update({
 #: the hybrid, encdec and vlm main paths: zamba2-7b at full width with 12
 #: of its 81 layers (the shared attention block after layers 5 and 11),
 #: whisper-medium whole (24 + 24 layers, 1500 frames) and qwen2-vl-2b at
-#: full width with 16 of its 28 layers (1024 patches before 128 tokens)
+#: full width with 8 of its 28 layers (1024 patches before 128 tokens;
+#: cut from 16 to keep the run's time with the serving paths)
 HYBRID_BITS = 5_482_579_968     # zamba2-7b 12 layers, block_topk:256,16
 ENCDEC_BITS = 4_049_256_448     # whisper-medium, block_topk:256,16
-VLM_BITS = 4_862_056_448        # qwen2-vl-2b 16 layers, block_topk:256,16
-HYBRID_LAYERS, VLM_LAYERS = 12, 16
+VLM_BITS = 3_364_526_080        # qwen2-vl-2b 8 layers, block_topk:256,16
+HYBRID_LAYERS, VLM_LAYERS = 12, 8
 HYBRID_LEAVES, ENCDEC_LEAVES, VLM_LEAVES = 25, 27, 15
 #: the inits' threefry draws: the embedding and the untied head, then
 #: zamba2's 8 a mamba layer and 7 for the shared block (4 attention, 3
@@ -3242,7 +3284,7 @@ PATHS.update({
                      "threefry_uniform": ENCDEC_INIT_DRAWS},
         "profile": ("pack_update_rows",),
     },
-    # 16 of 28 layers; each step's batch carries JAX's vision embeddings
+    # 8 of 28 layers; each step's batch carries JAX's vision embeddings
     "vlm": {
         "argv": arch_argv("qwen2-vl-2b")
         + ["--compressor", "block_topk:256,16"],
@@ -3668,14 +3710,15 @@ def checkpoint_check(name, path, params):
 
 
 #: the fine-tuning path: ``finetune_moe.json`` made full width
-#: (granite-moe-3b-a800m at 8 of 32 layers, d its tuning dim, the expert
-#: leaves' rules ``expert_sparse_rules`` of the cut tree: topk:3145728, 8
+#: (granite-moe-3b-a800m at MOE_LAYERS = 4 of 32 layers, d its tuning dim,
+#: the expert leaves' rules ``expert_sparse_rules`` of the cut tree:
+#: topk:1572864, 8
 #: of 40 experts), the spec's 4 workers, global batch 8 of 128 tokens
 FINETUNE_SPEC = ROOT / "examples" / "specs" / "finetune_moe.json"
 FINETUNE_WORKERS = 4
-FINETUNE_BITS = [5_645_574_144, 7_654_625_696, 13_300_199_840]
+FINETUNE_BITS = [4_030_832_640, 4_431_335_840, 8_462_168_480]
 #: the expert leaves' payload bits, sparse and under the dense block-top-k
-FINETUNE_EXPERT_BITS = [603_979_776, 3_019_898_880]
+FINETUNE_EXPERT_BITS = [301_989_888, 1_509_949_440]
 #: 10 block-sparse leaves packed a worker a step (the 3 expert leaves are
 #: plain top-k); the init's draws and one uniform a leaf a step for the
 #: broadcast
@@ -4641,6 +4684,388 @@ def randk_memory_probes(state):
           f"{shuffle:.2f} GiB ({g.numel()} values)")
 
 
+# ---------------------------------------------------------------------------
+# serving: the decode step, the push protocol and the replica fleet
+# ---------------------------------------------------------------------------
+
+SERVE_DELTA_SPEC = ROOT / "examples" / "specs" / "serve_delta.json"
+#: JAX's ``run_fleet`` of the committed spec (``BENCH_bits.json``'s
+#: ``serve_delta`` row), written here
+SERVE_DELTA_JAX = {"fingerprint": "7d408c73e1bcf250",
+                   "delta_bits_per_push": 2_734_560,
+                   "checkpoint_bits_per_push": 10_935_936,
+                   "push_ratio": "0.250053", "requests": 8}
+#: the committed spec with ``smoke: false``: mamba2-130m whole (15 leaves)
+SERVE_DELTA_FULL_BITS = (1_031_868_512, 4_127_471_744)
+SERVE_FLEET_SPEC = ROOT / "build" / "spec" / "serve_fleet.json"
+SERVE_FLEET_SERVE = "replicas:2,slots:4,prompt:16,gen:16,max_len:64,pushes:3"
+#: qwen2-0.5b at full width, qsgd:16: a push (header + one broadcast) and
+#: a full f32 copy under the same header
+SERVE_FLEET_BITS = (3_952_262_720, 15_809_048_704)
+SERVE_CKPT = ROOT / "build" / "ckpt" / "serve_delta"
+#: one decode per family at smoke size, card against CPU
+SERVE_FAMILIES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-130m",
+                  "zamba2-7b", "whisper-medium", "qwen2-vl-2b")
+#: a top-2 logit gap at or below this may flip the greedy token between
+#: the card and the CPU (f32 activations: the CPU tests' atol)
+SERVE_GAP = 3e-5
+
+
+def serve_launches(spec, init_draws, leaves):
+    """The threefry launches of one fleet run: the init's draws, a
+    uniform draw a leaf a push (QSGD's stochastic rounding) and a normal
+    draw a leaf a push (the simulated training move), and two word draws
+    a prompt (``random.randint``); no other kernel."""
+    sv = spec.serve_spec()
+    prompts = sv.replicas * 2 * sv.slots
+    return {"threefry_uniform": init_draws + 2 * sv.pushes * leaves
+            + 2 * prompts}
+
+
+def recording_threefry_shapes():
+    """Wrap ``threefry.threefry_fill`` so that every call on the card
+    notes (n, as_float).  Returns (the notes, a function that restores
+    the wrapper)."""
+    from repro_torch.kernels import threefry
+
+    seen, fill = set(), threefry.threefry_fill
+
+    def noted(key, n, device, as_float):
+        if device.type == "cuda":
+            seen.add((int(n), bool(as_float)))
+        return fill(key, n, device, as_float)
+
+    def restore():
+        threefry.threefry_fill = fill
+
+    threefry.threefry_fill = noted
+    return seen, restore
+
+
+def check_threefry_shapes(label, seen):
+    """Each (n, as_float) a serving path drew on the card, held bitwise
+    against the plain version on the card under a fresh key."""
+    from repro_torch import random
+    from repro_torch.kernels import ref, threefry
+
+    dev = torch.device("cuda")
+    key = random.fold_in(random.key(0), 28)
+    for n, as_float in sorted(seen):
+        k = threefry.threefry_fill(key, n, dev, as_float)
+        p = ref.threefry_ref(key, n, dev, as_float)
+        if not same_bits(k, p):
+            raise AssertionError(f"[{label}] threefry n={n} as_float="
+                                 f"{as_float}: kernel != plain")
+        del k, p
+    torch.cuda.empty_cache()
+    print(f"[{label}] threefry at the path's own shapes (n, as_float), each "
+          f"bitwise == plain on the card: {sorted(seen)}")
+
+
+def run_serve_cli(label, argv):
+    """``repro_torch.launch.train.main(["serve", ...])`` on the card, its
+    output printed; launch counts reset just before and read just after.
+    Returns (its metrics, its output, the launches, the threefry shapes,
+    seconds)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    out = io.StringIO()
+    seen, restore = recording_threefry_shapes()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            reset_launches()
+            metrics = train.main(["serve"] + argv)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+    finally:
+        restore()
+        print(out.getvalue().rstrip())
+    secs = time.perf_counter() - t0
+    print(f"[{label}] {' '.join(argv)}: seconds={secs:.2f} metrics="
+          f"{json.dumps(metrics)} launches={launches}")
+    return metrics, out.getvalue(), launches, seen, secs
+
+
+def check_fleet(label, metrics, spec, bits, launches, want_launches):
+    """The fleet's metrics: the spec's fingerprint, the exact bits, every
+    request and token served; the launches as stated."""
+    sv = spec.serve_spec()
+    requests = sv.replicas * 2 * sv.slots
+    want = {"fingerprint": spec.fingerprint(), "replicas": sv.replicas,
+            "pushes": sv.pushes, "requests": requests,
+            "tokens": requests * (sv.prompt + sv.gen),
+            "delta_bits_per_push": bits[0],
+            "checkpoint_bits_per_push": bits[1]}
+    bad = {k: (metrics[k], v) for k, v in want.items() if metrics[k] != v}
+    full = {**dict.fromkeys(launches, 0), **want_launches}
+    if bad or launches != full:
+        raise AssertionError(f"[{label}] metrics (got, want) {bad}; "
+                             f"launches {launches}, want {full}")
+    print(f"[{label}] every replica's w bitwise the pusher's after each of "
+          f"the {sv.pushes} pushes (asserted by run_fleet); "
+          f"{metrics['delta_bits_per_push']} delta bits against "
+          f"{metrics['checkpoint_bits_per_push']} checkpoint bits a push "
+          f"({metrics['push_ratio']:.6f}x); {metrics['requests']} requests, "
+          f"{metrics['tokens']} tokens")
+
+
+def decode_profile(label, engine, params):
+    """The decode step of a fleet's engine, on from its state with its
+    replica's last params: every lane fed a token at position 20, one
+    warm-up step, median host time of 5 synchronised steps, then one step
+    under torch.profiler (the device's activity): device kernel time,
+    kernel launches, busy share of the untraced step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = engine.slots
+    tok = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((B,), 20, dtype=torch.int64, device="cuda")
+
+    def step():
+        logits, _ = engine.model.decode_step(params, engine.cache, tok, pos)
+        return torch.argmax(logits[:, -1], dim=-1).cpu()
+
+    step()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    untraced = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    try:
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    except Exception as e:  # reading the trace, not the port: report it
+        print(f"[{label}] decode step: trace not measured: {e!r}")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"[{label}] decode step ({B} lanes, {engine.cfg.n_layers} layers): "
+          f"untraced wall_ms={untraced:.3f} (median of 5) "
+          f"device_kernel_ms={busy:.3f} kernels={sum(r[1] for r in rows)} "
+          f"busy share {busy / untraced:.3f}")
+    for t, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"[{label}]   {t:8.3f} ms x{count:<5d} {key[:80]}")
+
+
+def phase_serve_fleet():
+    """The slice's main path: the replica fleet (``serve --spec``) of
+    qwen2-0.5b at full width and depth from JAX's weights (seed 0),
+    ``downlink: qsgd:16`` and SERVE_FLEET_SERVE, its spec written under
+    ``build/``: run_fleet asserts every replica's w bitwise the pusher's
+    after each of the 3 pushes; the exact bits, the requests and tokens,
+    the launches (the init's 169 threefry draws and the pushes' and
+    prompts'), tok/s, the largest stage and swap, the peak, and the decode
+    step's device time and busy share."""
+    import dataclasses as dc
+
+    from repro_torch.core import ExperimentSpec
+    from repro_torch.launch import train
+
+    base = ExperimentSpec.from_json(SERVE_DELTA_SPEC.read_text())
+    spec = dc.replace(base, problem="qwen2-0.5b", smoke=False,
+                      serve=SERVE_FLEET_SERVE)
+    SERVE_FLEET_SPEC.parent.mkdir(parents=True, exist_ok=True)
+    SERVE_FLEET_SPEC.write_text(spec.to_json())
+    print(f"[serve_fleet] wrote {SERVE_FLEET_SPEC.relative_to(ROOT)}: "
+          f"fingerprint {spec.fingerprint()}")
+    collect("[serve_fleet]")
+    kept = {}
+    step = train.DecodeEngine.step
+
+    def keep(engine, params, **kw):
+        kept["run"] = (engine, params)
+        return step(engine, params, **kw)
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train.DecodeEngine.step = keep
+    try:
+        metrics, _, launches, seen, _ = run_serve_cli(
+            "serve_fleet", ["--spec", str(SERVE_FLEET_SPEC)])
+    finally:
+        train.DecodeEngine.step = step
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    check_fleet("serve_fleet", metrics, spec, SERVE_FLEET_BITS, launches,
+                serve_launches(spec, INIT_DRAWS, FULL_LEAVES))
+    print(f"[serve_fleet] {metrics['tok_per_s']:.1f} tok/s; stage_ms max "
+          f"{metrics['stage_ms_max']:.3f}, swap_ms max "
+          f"{metrics['swap_ms_max']:.4f}; peak {peak:.2f} GiB above the "
+          f"{base_mem / 2**30:.2f} GiB held before; threefry_fill launches "
+          f"{launches['threefry_uniform']}")
+    engine, params = kept.pop("run")
+    decode_profile("serve_fleet", engine, params)
+    del engine, params
+    check_threefry_shapes("serve_fleet", seen)
+    return launches
+
+
+def phase_serve_delta():
+    """The committed ``serve_delta.json`` (mamba2's smoke config) through
+    ``serve --spec`` on the card, JAX's fingerprint and bits; the same spec
+    with ``smoke: false`` (mamba2-130m whole), its own bits; and one
+    dropped push: the replica sees a gap, resyncs from the checkpoint
+    directory and is bitwise the pusher's again."""
+    import dataclasses as dc
+
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.core import ExperimentSpec
+    from repro_torch.core.efbv import Downlink
+    from repro_torch.launch import train
+
+    spec = ExperimentSpec.from_json(SERVE_DELTA_SPEC.read_text())
+    total = collections.Counter()
+    m, _, launches, seen, _ = run_serve_cli(
+        "serve_delta", ["--spec", str(SERVE_DELTA_SPEC)])
+    got = {"fingerprint": m["fingerprint"],
+           "delta_bits_per_push": m["delta_bits_per_push"],
+           "checkpoint_bits_per_push": m["checkpoint_bits_per_push"],
+           "push_ratio": f"{m['push_ratio']:.6f}",
+           "requests": m["requests"]}
+    print(f"[serve_delta] committed spec: {got}; JAX's {SERVE_DELTA_JAX}")
+    if got != SERVE_DELTA_JAX:
+        raise AssertionError("[serve_delta] not JAX's metrics")
+    check_fleet("serve_delta", m, spec, (SERVE_DELTA_JAX[
+        "delta_bits_per_push"], SERVE_DELTA_JAX["checkpoint_bits_per_push"]),
+        launches, serve_launches(spec, SMOKE_MAMBA2_INIT_DRAWS,
+                                 MAMBA2_LEAVES))
+    total.update(launches)
+    full = dc.replace(spec, smoke=False)
+    path = ROOT / "build" / "spec" / "serve_delta_full.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(full.to_json())
+    m, _, launches, more, _ = run_serve_cli(
+        "serve_delta", ["--spec", str(path)])
+    check_fleet("serve_delta", m, full, SERVE_DELTA_FULL_BITS, launches,
+                serve_launches(full, MAMBA2_INIT_DRAWS, MAMBA2_LEAVES))
+    print(f"[serve_delta] mamba2-130m whole: fingerprint "
+          f"{m['fingerprint']}, {m['delta_bits_per_push']} delta bits "
+          f"against {m['checkpoint_bits_per_push']} ({m['push_ratio']:.6f}x),"
+          f" {m['tok_per_s']:.1f} tok/s, stage_ms max "
+          f"{m['stage_ms_max']:.3f}")
+    total.update(launches)
+    seen |= more
+    # a dropped push: the gap resyncs from the pusher's checkpoints
+    cfg = train.run_config(spec)
+    params = train.build_model(cfg).init(random.key(3), device="cuda")
+    dl = Downlink.parse(spec.downlink)
+    if SERVE_CKPT.exists():
+        for f in SERVE_CKPT.iterdir():
+            f.unlink()
+    pusher = train.DeltaPusher(dl, params, key=random.key(4),
+                               ckpt_dir=str(SERVE_CKPT), spec=spec)
+    rep = train.ServeReplica(dl, pusher.w, ckpt_dir=str(SERVE_CKPT),
+                             spec=spec)
+    x = params
+    states = []
+    for v in (1, 2, 3):
+        x = train._train_move(x, random.fold_in(random.key(5), v))
+        env = pusher.push(x)
+        if v != 2:  # push 2 is dropped on the floor
+            states.append(rep.push(env))
+    train._assert_fleet_pinned(pusher, [rep])
+    print(f"[serve_delta] dropped push 2: push 1 {states[0]}, push 3 "
+          f"{states[1]} (a gap), {rep.resyncs} resync from "
+          f"{SERVE_CKPT.relative_to(ROOT)}; the replica at version "
+          f"{rep.version} bitwise the pusher's w ({len(T.leaves(rep.params))}"
+          " leaves)")
+    if states != ["applied", "resync"] or rep.resyncs != 1:
+        raise AssertionError(f"[serve_delta] resync states {states}")
+    del params, pusher, rep, x
+    check_threefry_shapes("serve_delta", seen)
+    return dict(total)
+
+
+def greedy_tokens(model, params, prompts, gen, frames, device):
+    """The fixed-batch greedy loop of ``decode_step`` on ``device``:
+    (ids (B, gen), the top-2 logit gaps)."""
+    B, P = prompts.shape
+    cache = model.init_cache(B, 16, device)
+    if frames is not None:
+        cache = model.encode_cross_cache(
+            params, torch.from_numpy(frames).to(device), cache)
+    tok, outs, gaps = None, [], []
+    for t in range(P + gen):
+        inp = torch.from_numpy(prompts[:, t:t + 1]).to(device) if t < P \
+            else tok
+        logits, cache = model.decode_step(params, cache, inp, t)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if t >= P:
+            top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            outs.append(tok[:, 0].cpu().numpy())
+            gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+    import numpy as np
+    return np.stack(outs, 1), np.stack(gaps, 1)
+
+
+def phase_serve_families():
+    """One smoke-config decode per family (dense, moe, ssm, hybrid, encdec,
+    vlm; f32 activations, JAX's weights from the CPU): 3 requests of 4 + 6
+    tokens, the card's fixed-batch greedy ids against the CPU's (equal up
+    to the first position where the CPU's top-2 gap is within SERVE_GAP, a
+    near tie), and the card's engine (2 slots: staggered lanes) equal to
+    the card's fixed batch."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    total = collections.Counter()
+    for arch in SERVE_FAMILIES:
+        cfg, params = smoke_params(arch)
+        model = build_model(cfg)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab, (3, 4))
+        frames = (rng.standard_normal((3, cfg.encoder_frames, cfg.d_model))
+                  * 0.1).astype(np.float32) \
+            if cfg.family == "encdec" else None
+        cpu, gaps = greedy_tokens(model, params, prompts, 6, frames, "cpu")
+        card_params = T.tree_map(lambda a: a.cuda(), params)
+        from repro_torch.kernels import LAUNCHES, reset_launches
+        reset_launches()
+        card, _ = greedy_tokens(model, card_params, prompts, 6, frames,
+                                torch.device("cuda"))
+        eng = train.DecodeEngine(model, slots=2, max_len=16, device="cuda")
+        reqs = [eng.submit(prompts[i], 6,
+                           frames=None if frames is None else frames[i])
+                for i in range(3)]
+        eng.run(card_params)
+        torch.cuda.synchronize()
+        total.update(LAUNCHES)
+        engine = np.stack([r.out for r in reqs])
+        compared = 0
+        for i in range(3):
+            for p in range(6):
+                if gaps[i, p] <= SERVE_GAP:
+                    break
+                if card[i, p] != cpu[i, p]:
+                    raise AssertionError(
+                        f"[serve_families] {cfg.name}: request {i} token "
+                        f"{p} card {card[i, p]} cpu {cpu[i, p]} (gap "
+                        f"{gaps[i, p]:.3e})")
+                compared += 1
+        print(f"[serve_families] {cfg.name} ({cfg.family}): card ids "
+              f"{card.tolist()}, CPU ids {cpu.tolist()}; {compared} of 18 "
+              f"compared (top-2 gap above {SERVE_GAP}), equal; engine "
+              f"(2 slots) {'equal to' if np.array_equal(engine, card) else 'NOT equal to'}"
+              " the card's fixed batch")
+        if not np.array_equal(engine, card) or compared < 9:
+            raise AssertionError(f"[serve_families] {cfg.name} failed")
+        del card_params, eng
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
 KERNEL_ROWS = {
     "pack_update": ("src/repro_torch/kernels/csrc/pack_update.cu",
                     "src/repro/kernels/pack.py:91 (and :78: the two Pallas "
@@ -4723,6 +5148,10 @@ def main():
     MAIN_PARAMS.clear()
     launches["mesh_specs"] = timed("mesh_specs", phase_mesh_specs)
     launches["compressor_bench"] = timed("compressor_bench", phase_bench)
+    launches["serve_fleet"] = timed("serve_fleet", phase_serve_fleet)
+    launches["serve_delta"] = timed("serve_delta", phase_serve_delta)
+    launches["serve_families"] = timed("serve_families",
+                                       phase_serve_families)
     print("[env] seconds by phase (a path's profile with it): "
           + " ".join(f"{k}={v:.1f}" for k, v in took.items()))
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")

@@ -80,7 +80,7 @@ def _choice(field: str, value: str, allowed: Sequence[str]) -> None:
 @dataclasses.dataclass(frozen=True)
 class ServeSpec:
     """Parsed form of ``ExperimentSpec.serve``, the replica-fleet serving
-    leg (parsing and validation only: serving is not yet ported).
+    leg that ``launch.train.run_fleet`` runs (the ``serve`` subcommand).
 
     replicas, slots (continuous-batching slots per replica), prompt (0 =
     BOS-only), gen, max_len (prompt + gen must fit) and pushes, as

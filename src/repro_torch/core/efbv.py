@@ -503,7 +503,10 @@ class Downlink:
 
     Workers evaluate their gradients at ``w``.  Any zoo compressor is
     C_s.  With the identity on an f32 wire and lam_s = 1 the update
-    telescopes to w = x, and the broadcast assigns x verbatim."""
+    telescopes to w = x, and the broadcast assigns x verbatim.  The same
+    channel feeds serving replicas (:meth:`encode_push`,
+    :meth:`apply_push`; ``launch/train.py``'s ``DeltaPusher`` and
+    ``ServeReplica``)."""
 
     compressor: Compressor
     lam: float = 1.0
@@ -570,6 +573,65 @@ class Downlink:
             q = (q if shard is None else shard(j, q)).reshape(xj.shape)
             new_leaves.append(codec.update(wj, q, self.lam, contract=True))
         return T.unflatten(w, new_leaves), payloads
+
+    # ---- the serving push protocol (compressed-delta model distribution) ----
+
+    def serve_format(self, tree: PyTree, *, wire_dtype: str = "float32",
+                     rules=None):
+        """The wire format of one serving push for ``tree``: the flat
+        per-leaf format of :attr:`compressor`, or with per-leaf codec
+        ``rules`` the :class:`~repro_torch.distributed.wire.TreeWire`.
+        ``wire.push_bits`` of it is the exact envelope size of a push."""
+        from repro_torch.distributed import wire
+        return wire.tree_format_for(self.compressor, tree,
+                                    wire_dtype=wire_dtype,
+                                    rules=tuple(rules) if rules else None)
+
+    def push_kind(self, wire_dtype: str = "float32", rules=None) -> str:
+        """'snapshot' for a lossless wire (the payload decodes to the model
+        and the replica assigns it), 'delta' otherwise; per-leaf ``rules``
+        may map a leaf to a lossy codec, so a ruled push is a delta."""
+        if rules:
+            return "delta"
+        return "snapshot" if self._is_lossless(wire_dtype) else "delta"
+
+    def encode_push(self, key, x: PyTree, w: PyTree, *,
+                    wire_dtype: str = "float32", rules=None
+                    ) -> Tuple[PyTree, list]:
+        """The trainer's half of one serving push: ``(w_new, payloads)``.
+        Leaf j's payload is the codec's encode of x - w (of x itself for a
+        snapshot) under ``fold_in(key, j)``, the bits :meth:`broadcast`
+        puts on the wire; ``w_new`` is :meth:`apply_push` of them, the
+        replicas' arithmetic, so pusher and replicas agree bit for bit."""
+        fmt = self.serve_format(x, wire_dtype=wire_dtype, rules=rules)
+        snapshot = self.push_kind(wire_dtype, rules) == "snapshot"
+        payloads = []
+        for j, (codec, xj, wj) in enumerate(zip(fmt.leaves, T.leaves(x),
+                                                T.leaves(w))):
+            kj = None if key is None else random.fold_in(key, j)
+            flat = xj.float().reshape(-1) if snapshot \
+                else (xj.float() - wj.float()).reshape(-1)
+            payloads.append(codec.encode(kj, flat))
+            del flat
+        return self.apply_push(payloads, w, wire_dtype=wire_dtype,
+                               rules=rules), payloads
+
+    def apply_push(self, payloads, w: PyTree, *,
+                   wire_dtype: str = "float32", rules=None) -> PyTree:
+        """The replica's half of one serving push: per leaf ``w + lam *
+        decode(payload)`` (a delta) or ``decode(payload)`` verbatim (a
+        snapshot).  JAX applies a push eagerly, outside ``jit``, so the
+        delta rounds twice, the product and then the sum
+        (``LeafCodec.update(contract=False)``), where :meth:`broadcast`
+        rounds as the jitted trainer contracts."""
+        fmt = self.serve_format(w, wire_dtype=wire_dtype, rules=rules)
+        snapshot = self.push_kind(wire_dtype, rules) == "snapshot"
+        new_leaves = []
+        for codec, wj, p in zip(fmt.leaves, T.leaves(w), payloads):
+            q = codec.decode(p).reshape(wj.shape)
+            new_leaves.append(q.to(wj.dtype) if snapshot
+                              else codec.update(wj, q, self.lam))
+        return T.unflatten(w, new_leaves)
 
 
 # ------------------------------------------------------------------------------

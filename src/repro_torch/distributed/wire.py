@@ -32,9 +32,11 @@ worker-axis chunk rule (:func:`pipeline_chunks`) and the chunked
 decode-sum (:func:`chunked_decode_sum`); a heterogeneous fleet's
 per-worker formats (:func:`fleet_formats`, :func:`fleet_bits_per_round`);
 and the per-leaf wire: the codec rules' grammar (:func:`parse_leaf_rules`,
-:func:`resolve_leaf`), :class:`TreeWire` and :func:`tree_format_for`.  The
-serving envelopes are not yet ported.  A bitmap's uint32 words are held as
-int32 with the same bits (torch has no uint32 arithmetic on the CPU).
+:func:`resolve_leaf`), :class:`TreeWire` and :func:`tree_format_for`; and
+the serving downlink's versioned push envelope (:class:`DeltaEnvelope`,
+:func:`push_bits`, :func:`checkpoint_push_bits`).  A bitmap's uint32 words
+are held as int32 with the same bits (torch has no uint32 arithmetic on
+the CPU).
 
 Kernel dispatch of the fused packs (``REPRO_TORCH_WIRE_KERNEL`` or the
 ``kernel=`` argument): ``auto`` goes through the kernel wrapper, which
@@ -789,6 +791,57 @@ def tree_format_for(compressor, tree: PyTree, *,
 def payload_bytes(payload: PyTree) -> int:
     """Measured bytes of a payload tree (what actually crosses the wire)."""
     return sum(a.numel() * a.element_size() for a in T.leaves(payload))
+
+
+# ---------------------------------------------------------------------------
+# the serving downlink: versioned compressed-delta push envelopes
+# ---------------------------------------------------------------------------
+
+#: exact header bits of one push envelope: two unsigned 64-bit version
+#: fields, ``version`` (the w the push produces) and ``base_version`` (the
+#: w it must be applied to)
+PUSH_HEADER_BITS = 2 * 64
+
+#: envelope kinds: a ``delta`` decodes to the model innovation (the replica
+#: applies w + lam * decode), a ``snapshot`` to the model itself (the
+#: replica assigns it: a lossless downlink's push is a full checkpoint)
+PUSH_KINDS = ("delta", "snapshot")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaEnvelope:
+    """One versioned model push on the serving downlink (``wire.py``'s
+    ``DeltaEnvelope``): ``payloads`` is the per-leaf payload list of ONE
+    broadcast message, as ``Downlink.encode_push`` emits it and
+    ``Downlink.apply_push`` consumes it; ``version`` is the model version
+    the push produces, ``base_version`` the version it applies to.  A
+    replica at any other version refuses it (stale or gap)."""
+
+    version: int
+    base_version: int
+    payloads: Any
+    kind: str = "delta"
+
+    def __post_init__(self):
+        if self.kind not in PUSH_KINDS:
+            raise ValueError(f"push kind {self.kind!r} not in {PUSH_KINDS}")
+        if self.version <= self.base_version:
+            raise ValueError(
+                f"push version {self.version} must advance past its base "
+                f"{self.base_version} (versions are strictly monotonic)")
+
+
+def push_bits(fmt: WireFormat) -> int:
+    """Exact bits of one versioned push: the envelope header plus the ONE
+    broadcast message of the downlink format (every replica decodes the
+    same push)."""
+    return PUSH_HEADER_BITS + fmt.downlink_bits_per_round()
+
+
+def checkpoint_push_bits(fmt: WireFormat) -> int:
+    """Exact bits of shipping a full f32 copy of the same tree under the
+    same header: the baseline a delta push is measured against."""
+    return PUSH_HEADER_BITS + fmt.dense_bits()
 
 
 # ---------------------------------------------------------------------------

@@ -127,6 +127,18 @@ port sets no such flag, so it has no counterpart:
         --spec examples/specs/zoo_qwen2_fsdp.json --steps 2 \
         --processes 4 --dist-backend gloo
 
+The ``serve`` subcommand is JAX's ``launch/serve.py``: with ``--spec``
+the simulated replica fleet of a spec's ``serve`` leg (:func:`run_fleet`:
+versioned compressed-delta pushes of the downlink's w, replicas that
+hot-swap between decode steps and resync from checkpoints after a gap),
+else greedy decode of random prompts on the continuous-batching engine
+(:class:`DecodeEngine`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train serve \
+        --spec examples/specs/serve_delta.json --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train serve \
+        --arch mamba2-130m --smoke --batch 2 --prompt-len 4 --gen 6
+
 Flags and spec contents of the JAX drivers that this port does not have
 yet are refused with a "not yet ported" error, never ignored.
 """
@@ -134,6 +146,7 @@ yet are refused with a "not yet ported" error, never ignored.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import os
@@ -149,7 +162,8 @@ from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
                                  known_archs)
 from repro_torch.core import (ExperimentSpec, SpecError, build,
                               mesh_worker_count)
-from repro_torch.core.efbv import Downlink, Participation, Pipeline
+from repro_torch.core.efbv import (Downlink, Participation, Pipeline,
+                                   downlink_key)
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.distributed import wire
 from repro_torch.distributed.aggregate import (BACKENDS, ModelShards,
@@ -609,6 +623,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["finetune"]:
         return finetune_main(argv[1:])
+    if argv[:1] == ["serve"]:
+        return serve_main(argv[1:])
     args = parse_args(argv)
     spec = experiment(args)
     group = join_group(args, spec.n, model_axis(spec))
@@ -1103,6 +1119,498 @@ def finetune_main(argv=None) -> float:
     finally:
         if group is not None:
             group.close()
+
+
+
+# -----------------------------------------------------------------------------
+# serving (``repro/launch/serve.py``), the ``serve`` subcommand
+# -----------------------------------------------------------------------------
+#
+# The trainer's downlink control variate w (``core.efbv.Downlink``) is the
+# workers' shared reconstruction of the model, which is what a serving
+# replica needs: :class:`DeltaPusher` (the trainer's side: versioned
+# compressed pushes and a checkpoint a version), :class:`ServeReplica` (w
+# advanced by ``Downlink.apply_push``, a push staged into a shadow and
+# committed between decode steps, stale pushes refused, a gap resynced
+# from the newest checkpoint), :class:`DecodeEngine` (continuous batching
+# over the cache's lanes) and :func:`run_fleet` (the simulated fleet of a
+# spec's ``serve`` leg).
+
+
+@dataclasses.dataclass
+class Request:
+    """One decode request: ``prompt`` then ``gen`` greedy tokens.  ``out``
+    collects the generated ids, ``versions[i]`` the model version (the tag
+    given to :meth:`DecodeEngine.step`) that produced ``out[i]``."""
+
+    rid: int
+    prompt: np.ndarray
+    gen: int
+    frames: object = None
+    out: list = dataclasses.field(default_factory=list)
+    versions: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+    @property
+    def total_steps(self) -> int:
+        return len(self.prompt) + self.gen
+
+
+class DecodeEngine:
+    """Greedy decode over ``slots`` cache lanes, requests admitted and
+    retired at every step (JAX's ``DecodeEngine``).
+
+    Axis 1 of every cache leaf is the lane; one batched
+    ``Model.decode_step`` advances every lane at its own position (JAX runs
+    ``vmap`` of the one-lane step), and the lanes do not interact, so a
+    request decodes the same ids whatever its neighbours do.  The input at
+    position p is ``prompt[p]`` while p < len(prompt), else the previous
+    output (0 for an empty prompt at p = 0); the output ids are those of
+    positions len(prompt) .. len(prompt) + gen - 1.  An admitted lane is
+    zeroed in every cache leaf (the SSM state accumulates), and an encdec
+    request's ``frames`` fill its cross-attention cache."""
+
+    def __init__(self, model, *, slots: int, max_len: int, device="cuda"):
+        if slots <= 0:
+            raise ValueError(f"need at least one slot, got {slots}")
+        self.model = model
+        self.cfg = model.cfg
+        self.slots = slots
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        self.cache = model.init_cache(slots, max_len, self.device)
+        self.pos = np.zeros(slots, np.int64)
+        self.last_tok = np.zeros(slots, np.int64)
+        self.active = [None] * slots
+        self.queue = collections.deque()
+        self.finished = []
+        self.tokens_decoded = 0
+        self._next_rid = 0
+
+    def submit(self, prompt, gen: int, *, frames=None) -> Request:
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if len(prompt) + gen > self.max_len:
+            raise ValueError(
+                f"request needs {len(prompt)} prompt + {gen} generated = "
+                f"{len(prompt) + gen} positions but the decode cache holds "
+                f"{self.max_len}; shorten the request or build the engine "
+                "with a larger max_len")
+        req = Request(rid=self._next_rid, prompt=prompt, gen=int(gen),
+                      frames=frames)
+        self._next_rid += 1
+        self.queue.append(req)
+        return req
+
+    def _admit(self, params) -> None:
+        for s in range(self.slots):
+            if self.active[s] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            self.active[s] = req
+            self.pos[s] = 0
+            self.last_tok[s] = 0
+            for leaf in T.leaves(self.cache):
+                leaf[:, s] = 0
+            if req.frames is not None:
+                frames = torch.as_tensor(req.frames, device=self.device)
+                c1 = self.model.encode_cross_cache(
+                    params, frames[None],
+                    self.model.init_cache(1, self.max_len, self.device))
+                for k in ("cross_k", "cross_v"):
+                    self.cache[k][:, s] = c1[k][:, 0]
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and all(r is None for r in self.active)
+
+    def step(self, params, *, version: int = -1) -> int:
+        """Admit what fits, advance every lane one token, retire finished
+        requests; ``version`` tags this step's tokens.  Returns the request
+        tokens decoded (idle lanes do not count)."""
+        self._admit(params)
+        toks = np.zeros(self.slots, np.int64)
+        for s, req in enumerate(self.active):
+            if req is not None:
+                p = self.pos[s]
+                toks[s] = req.prompt[p] if p < len(req.prompt) \
+                    else self.last_tok[s]
+        logits, self.cache = self.model.decode_step(
+            params, self.cache,
+            torch.from_numpy(toks).to(self.device)[:, None],
+            torch.from_numpy(self.pos.copy()).to(self.device))
+        out = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        decoded = 0
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            decoded += 1
+            p = int(self.pos[s])
+            if p >= len(req.prompt):
+                req.out.append(int(out[s]))
+                req.versions.append(version)
+            self.last_tok[s] = int(out[s])
+            self.pos[s] = p + 1
+            if p + 1 == req.total_steps:
+                req.done = True
+                self.finished.append(req)
+                self.active[s] = None
+        self.tokens_decoded += decoded
+        return decoded
+
+    def run(self, params, *, version: int = -1) -> int:
+        """Drain the queue and the lanes; returns the tokens decoded."""
+        n = 0
+        while not self.idle:
+            n += self.step(params, version=version)
+        return n
+
+
+def push_key(key, version: int):
+    """The key of push ``version``: training round ``version``'s downlink
+    key, ``downlink_key(fold_in(key, version))``, so a push and that
+    round's broadcast put the same bits on the wire."""
+    return downlink_key(random.fold_in(key, version))
+
+
+def _synchronize(tree) -> None:
+    """Wait for the card that holds ``tree``'s first leaf (no-op on the
+    CPU), so a host timer covers the device work."""
+    leaves = T.leaves(tree)
+    if leaves and leaves[0].device.type == "cuda":
+        torch.cuda.synchronize(leaves[0].device)
+
+
+class DeltaPusher:
+    """The trainer's side of the push protocol: the fleet's shared
+    reconstruction ``w``, strictly versioned :class:`wire.DeltaEnvelope`s,
+    and a checkpoint of w a version (``tree.save_checkpoint``) as the
+    replicas' resync source."""
+
+    def __init__(self, downlink: Downlink, params0, *, key,
+                 wire_dtype: str = "float32", rules=None, ckpt_dir=None,
+                 spec=None):
+        self.downlink = downlink
+        self.wire_dtype = wire_dtype
+        self.rules = rules
+        self.key = key
+        self.ckpt_dir = ckpt_dir
+        self.spec = spec
+        self.version = 0
+        self.w = downlink.init(params0)
+        if ckpt_dir is not None:
+            T.save_checkpoint(ckpt_dir, 0, self.w, spec=spec)
+
+    def push(self, x) -> "wire.DeltaEnvelope":
+        """Compress x - w (a lossless wire: x itself) into the next
+        envelope and advance w as every replica will."""
+        v = self.version + 1
+        self.w, payloads = self.downlink.encode_push(
+            push_key(self.key, v), x, self.w, wire_dtype=self.wire_dtype,
+            rules=self.rules)
+        env = wire.DeltaEnvelope(
+            version=v, base_version=self.version, payloads=payloads,
+            kind=self.downlink.push_kind(self.wire_dtype, self.rules))
+        self.version = v
+        if self.ckpt_dir is not None:
+            T.save_checkpoint(self.ckpt_dir, v, self.w, spec=self.spec)
+        return env
+
+
+class ServeReplica:
+    """One serving replica: its reconstruction ``params`` (w) and a
+    versioned hot-swap.  :meth:`stage` decodes a push into a shadow while
+    the current model serves; :meth:`commit` swaps it in between decode
+    steps, one rebind, so every token comes from one version.  A push at
+    or below the replica's version is stale (refused, idempotent); a
+    delta whose ``base_version`` is not the replica's is a gap: the
+    replica resyncs from the newest checkpoint, then chains the push on if
+    it still applies.  A snapshot push assigns, so it repairs a gap by
+    itself."""
+
+    def __init__(self, downlink: Downlink, params0, *,
+                 wire_dtype: str = "float32", rules=None, ckpt_dir=None,
+                 spec=None, version: int = 0):
+        self.downlink = downlink
+        self.wire_dtype = wire_dtype
+        self.rules = rules
+        self.ckpt_dir = ckpt_dir
+        self.spec = spec
+        self.version = version
+        self.params = params0
+        self._shadow = None
+        self.stage_s = []
+        self.swap_s = []
+        self.resyncs = 0
+
+    def stage(self, env) -> str:
+        """Decode a push into the shadow: 'staged', 'stale' or 'gap'."""
+        if env.version <= self.version:
+            return "stale"
+        if env.kind == "delta" and env.base_version != self.version:
+            return "gap"
+        t0 = time.perf_counter()
+        w_new = self.downlink.apply_push(env.payloads, self.params,
+                                         wire_dtype=self.wire_dtype,
+                                         rules=self.rules)
+        _synchronize(w_new)
+        self.stage_s.append(time.perf_counter() - t0)
+        self._shadow = (env.version, w_new)
+        return "staged"
+
+    def commit(self) -> bool:
+        """Swap the staged model in: one rebind, nothing decoded here."""
+        if self._shadow is None:
+            return False
+        t0 = time.perf_counter()
+        self.version, self.params = self._shadow
+        self._shadow = None
+        self.swap_s.append(time.perf_counter() - t0)
+        return True
+
+    def resync(self) -> int:
+        """Stage the newest checkpoint (the pusher writes w each version,
+        so this re-pins w bit for bit); :meth:`commit` applies it."""
+        if self.ckpt_dir is None:
+            raise RuntimeError(
+                "replica hit a version gap but has no ckpt_dir to resync "
+                "from; construct ServeReplica(..., ckpt_dir=...) or ship "
+                "snapshot pushes")
+        got = T.restore_latest(self.ckpt_dir, self.params, spec=self.spec)
+        if got is None:
+            raise RuntimeError(f"no checkpoint to resync from in "
+                               f"{self.ckpt_dir!r}")
+        self.resyncs += 1
+        self._shadow = got
+        return got[0]
+
+    def push(self, env) -> str:
+        """Stage and commit in one call: 'applied', 'stale' or 'resync'."""
+        st = self.stage(env)
+        if st == "staged":
+            self.commit()
+            return "applied"
+        if st == "gap":
+            self.resync()
+            self.commit()
+            if self.stage(env) == "staged":  # the push chains on the restore
+                self.commit()
+            return "resync"
+        return st
+
+
+def _train_move(x, key):
+    """One simulated training update: leaf j plus ``0.01 * normal(
+    fold_in(key, j))``, each op rounded on its own as JAX's eager code
+    rounds it."""
+    new = []
+    for j, leaf in enumerate(T.leaves(x)):
+        z = random.normal(random.fold_in(key, j), leaf.numel(), leaf.device)
+        new.append((leaf.float() + 0.01 * z.reshape(leaf.shape))
+                   .to(leaf.dtype))
+        del z
+    return T.unflatten(x, new)
+
+
+def _assert_fleet_pinned(pusher: DeltaPusher, replicas) -> None:
+    """Every replica at the pusher's version, its w bitwise the pusher's."""
+    want = T.leaves(pusher.w)
+    for r, rep in enumerate(replicas):
+        if rep.version != pusher.version:
+            raise AssertionError(f"replica {r} at version {rep.version}, "
+                                 f"trainer at {pusher.version}")
+        for j, (a, b) in enumerate(zip(T.leaves(rep.params), want)):
+            if a.dtype != b.dtype or not torch.equal(
+                    a.contiguous().view(torch.uint8),
+                    b.contiguous().view(torch.uint8)):
+                raise AssertionError(
+                    f"replica {r} leaf {j} diverged from the trainer's w "
+                    f"at version {pusher.version}")
+
+
+def serve_refusal(spec: ExperimentSpec) -> str:
+    """What of a spec's serving leg the port does not have yet ('' when
+    nothing)."""
+    if model_axis(spec) > 1:
+        return (f"mesh {spec.mesh!r}: serving on a 'model' axis above 1 is "
+                "not yet ported to repro_torch")
+    return ""
+
+
+def run_fleet(spec: ExperimentSpec, *, ckpt_dir=None, quiet: bool = False,
+              device="cuda") -> dict:
+    """The simulated replica fleet of ``spec``'s ``serve`` leg (JAX's
+    ``run_fleet``): the pusher sends ``pushes`` compressed deltas of a
+    simulated training trajectory while every replica decodes its
+    requests (two waves of ``slots``), a push staged while the old version
+    serves and committed between steps.  Asserts every replica's w bitwise
+    the pusher's after every push; returns JAX's metrics under its keys."""
+    sv = spec.serve_spec()
+    if sv is None:
+        raise SpecError("run_fleet needs a spec with a serve leg (e.g. "
+                        "serve='replicas:2,slots:2,prompt:4,gen:8')")
+    refusal = serve_refusal(spec)
+    if refusal:
+        raise SpecError(refusal)
+    dev = resolve_device(device)
+    cfg = run_config(spec)
+    model = build_model(cfg)
+    root = random.key(spec.seed)
+    k_params, k_prompt, k_train = random.split(root, 3)
+    params = model.init(k_params, device=dev)
+    downlink = Downlink.parse(spec.downlink) or Downlink.parse("identity")
+    rules = wire.parse_leaf_rules(spec.leaf_codecs) \
+        if spec.leaf_codecs else None
+    pusher = DeltaPusher(downlink, params, key=root,
+                         wire_dtype=spec.wire_dtype, rules=rules,
+                         ckpt_dir=ckpt_dir, spec=spec)
+    # exact per-push wire accounting (the envelope, header included)
+    fmt = downlink.serve_format(params, wire_dtype=spec.wire_dtype,
+                                rules=rules)
+    del params
+    delta_bits = wire.push_bits(fmt)
+    ckpt_bits = wire.checkpoint_push_bits(fmt)
+    replicas = [ServeReplica(downlink, pusher.w, wire_dtype=spec.wire_dtype,
+                             rules=rules, ckpt_dir=ckpt_dir, spec=spec)
+                for _ in range(sv.replicas)]
+    engines = [DecodeEngine(model, slots=sv.slots, max_len=sv.max_len,
+                            device=dev) for _ in range(sv.replicas)]
+    for r, eng in enumerate(engines):
+        for q in range(2 * sv.slots):  # 2 waves: admission mid-flight
+            kq = random.fold_in(k_prompt, r * 1000 + q)
+            eng.submit(random.randint(kq, sv.prompt, 0, cfg.vocab, dev)
+                       .cpu().numpy(), sv.gen)
+
+    x = pusher.w
+    steps_per_phase = max(1, (2 * sv.slots * (sv.prompt + sv.gen))
+                          // (sv.pushes * max(1, sv.slots)))
+    t0 = time.perf_counter()
+    for v in range(1, sv.pushes + 1):
+        x = _train_move(x, random.fold_in(k_train, v))
+        env = pusher.push(x)
+        for rep, eng in zip(replicas, engines):
+            st = rep.stage(env)
+            if st != "staged":
+                raise AssertionError(f"replica refused push {v}: {st}")
+            for _ in range(steps_per_phase):  # the old version serves on
+                if eng.idle:
+                    break
+                eng.step(rep.params, version=rep.version)
+            rep.commit()
+        _assert_fleet_pinned(pusher, replicas)
+    for rep, eng in zip(replicas, engines):
+        eng.run(rep.params, version=rep.version)
+    _synchronize(pusher.w)
+    wall_s = time.perf_counter() - t0
+
+    tokens = sum(eng.tokens_decoded for eng in engines)
+    swaps = [s for rep in replicas for s in rep.swap_s]
+    stages = [s for rep in replicas for s in rep.stage_s]
+    metrics = {
+        "fingerprint": spec.fingerprint(),
+        "replicas": sv.replicas,
+        "pushes": sv.pushes,
+        "requests": sum(len(eng.finished) for eng in engines),
+        "tokens": tokens,
+        "tok_per_s": tokens / max(wall_s, 1e-9),
+        "delta_bits_per_push": delta_bits,
+        "checkpoint_bits_per_push": ckpt_bits,
+        "push_ratio": delta_bits / ckpt_bits,
+        "swap_ms_max": 1e3 * max(swaps, default=0.0),
+        "stage_ms_max": 1e3 * max(stages, default=0.0),
+    }
+    if not quiet:
+        print(f"[serve-fleet] arch={cfg.name} replicas={sv.replicas} "
+              f"pushes={sv.pushes} device={dev.type}: "
+              f"{metrics['tok_per_s']:.1f} tok/s, delta {delta_bits} vs "
+              f"checkpoint {ckpt_bits} bits/push "
+              f"({metrics['push_ratio']:.6f}x), swap "
+              f"{metrics['swap_ms_max']:.3f} ms max, stage "
+              f"{metrics['stage_ms_max']:.3f} ms max; spec fingerprint="
+              f"{metrics['fingerprint']}")
+    return metrics
+
+
+def parse_serve_args(argv=None):
+    """The flags of JAX's ``launch/serve.py`` (same names, defaults and the
+    ``--prompt-len + --gen <= --max-len`` check), and the port's
+    ``--device``.  ``--sanitize`` is not yet ported."""
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.train serve")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec", default=None, metavar="SPEC_JSON",
+                    help="run the replica-fleet driver for this spec file "
+                         "(needs a 'serve' field) instead of the "
+                         "single-model decode")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="fleet mode: checkpoint directory for the "
+                         "per-version resync source")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="not yet ported")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.sanitize:
+        ap.error("--sanitize is not yet ported to repro_torch")
+    if args.prompt_len + args.gen > args.max_len:
+        ap.error(
+            f"--prompt-len {args.prompt_len} + --gen {args.gen} = "
+            f"{args.prompt_len + args.gen} tokens would overrun the decode "
+            f"cache (--max-len {args.max_len}); shorten the request or "
+            "raise --max-len")
+    return args
+
+
+def serve_main(argv=None):
+    """``python -m repro_torch.launch.train serve``: JAX's ``launch/serve.py``
+    ``main``.  ``--spec`` runs the fleet (returns its metrics); otherwise
+    greedy decode of ``--batch`` random prompts (encdec with random
+    frames) on the engine, returning the (batch, gen) generated ids."""
+    args = parse_serve_args(argv)
+    dev = resolve_device(args.device)
+    if args.spec is not None:
+        try:
+            with open(args.spec) as f:
+                spec = ExperimentSpec.from_json(f.read())
+            if spec.serve_spec() is None:
+                raise SpecError("the serve driver needs a spec with a "
+                                "'serve' field")
+        except (SpecError, ValueError, OSError) as e:
+            raise SystemExit(f"[serve] bad experiment spec: {e}")
+        refusal = serve_refusal(spec)
+        if refusal:
+            raise SystemExit(f"[serve] {refusal}")
+        return run_fleet(spec, ckpt_dir=args.ckpt_dir, device=dev)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    # independent streams for the params, the prompts and the frames
+    k_params, k_prompt, k_frames = random.split(random.key(args.seed), 3)
+    params = model.init(k_params, device=dev)
+    B = args.batch
+    prompts = random.randint(k_prompt, B * args.prompt_len, 0, cfg.vocab,
+                             dev).reshape(B, args.prompt_len).cpu().numpy()
+    frames = None
+    if cfg.family == "encdec":
+        frames = random.normal(k_frames, B * cfg.encoder_frames
+                               * cfg.d_model, dev).reshape(
+            B, cfg.encoder_frames, cfg.d_model) * 0.1
+    engine = DecodeEngine(model, slots=B, max_len=args.max_len, device=dev)
+    reqs = [engine.submit(prompts[i], args.gen,
+                          frames=None if frames is None else frames[i])
+            for i in range(B)]
+    t0 = time.time()
+    engine.run(params)
+    dt = time.time() - t0
+    gen = np.stack([np.asarray(r.out, np.int64) for r in reqs], 0)
+    total_tokens = B * (args.prompt_len + args.gen)
+    print(f"[serve] arch={cfg.name} batch={B} prompt={args.prompt_len} "
+          f"gen={args.gen}: {total_tokens / dt:.1f} tok/s ({dev.type})")
+    print(f"[serve] sample continuation (req 0): {gen[0][:16].tolist()}")
+    return gen
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ shape (in, out)).  Each op keeps the JAX version's dtype casts (norm and
 RoPE in f32, matmuls in the activation dtype, softmax in f32), so the two
 packages round at the same places.  Ported: what the dense, moe, ssm,
 hybrid, encdec and vlm families run in training (sliding windows, M-RoPE,
-non-causal and cross-attention included).
+non-causal and cross-attention included) and in serving (the one-token
+decode steps :func:`attention_decode` and :func:`mamba2_decode`, with
+:func:`mamba2_cache_init`), the latter batched over lanes that each hold
+their own position, as JAX's ``vmap`` of the per-lane step runs them.
 
 Parameter specs (:func:`auto_spec`, :func:`head_spec`) are the JAX
 package's PartitionSpecs written as tuples of axis names, one per dim:
@@ -392,6 +395,48 @@ def attention(p: Dict[str, Tensor], x: Tensor, *, n_heads: int, n_kv: int,
     return out.reshape(B, S, n_heads * hd) @ p["wo"].to(x.dtype)
 
 
+def attention_decode(p: Dict[str, Tensor], x: Tensor, cache_k: Tensor,
+                     cache_v: Tensor, pos: Tensor, *, n_heads: int,
+                     n_kv: int, hd: int, theta: float, window: int = 0,
+                     mrope_sections: Sequence[int] = ()
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One-token decode with a KV cache (JAX's ``attention_decode``), each
+    lane at its own position.
+
+    x: (B, 1, d); cache_k/v: (B, C, K, hd), C the context (or the window);
+    pos: (B,) int, each lane's absolute position.  RoPE (or M-RoPE with
+    all three sections at ``pos``) on q and k; the new K/V go to slot
+    ``pos % C`` under a window (a ring buffer), else ``min(pos, C - 1)``,
+    written into the cache tensors in place; then attention over the slots
+    the lane has filled (all of them once a ring buffer wrapped).  Returns
+    (out (B, 1, d'), cache_k, cache_v)."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, hd)
+    pos = pos.to(device=x.device, dtype=torch.int64)
+    if mrope_sections:
+        pos3 = pos[None, :, None].expand(3, B, 1)
+        q = apply_mrope(q, pos3, theta, mrope_sections)
+        k = apply_mrope(k, pos3, theta, mrope_sections)
+    elif theta > 0:
+        q = apply_rope(q, pos[:, None], theta)
+        k = apply_rope(k, pos[:, None], theta)
+    C = cache_k.shape[1]
+    slot = pos % C if window else torch.clamp(pos, max=C - 1)
+    lanes = torch.arange(B, device=x.device)
+    cache_k[lanes, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[lanes, slot] = v[:, 0].to(cache_v.dtype)
+    ki = torch.arange(C, device=x.device)[None, :]
+    valid = ki <= pos[:, None]
+    if window:
+        # a ring buffer: before it wraps only slots <= pos are live, after
+        # it every slot holds one of the last C tokens
+        valid = valid | (pos[:, None] >= C)
+    mask = valid[:, None, None, None, :]  # (B, 1, 1, 1, C)
+    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+    out = out.reshape(B, 1, n_heads * hd) @ p["wo"].to(x.dtype)
+    return out, cache_k, cache_v
+
+
 def swiglu(p: Dict[str, Tensor], x: Tensor) -> Tensor:
     g = torch.nn.functional.silu(x @ p["wg"].to(x.dtype))
     u = x @ p["wu"].to(x.dtype)
@@ -404,9 +449,9 @@ def swiglu(p: Dict[str, Tensor], x: Tensor) -> Tensor:
 #
 # The chunked SSD scan of training and prefill: quadratic within a chunk,
 # a linear recurrence over the chunks' end states.  Projections are stored
-# un-fused (wz/wx/wB/wC/wdt), as in JAX.  The recurrent decode
-# (``mamba2_decode``, ``mamba2_cache_init``) belongs to serving and is not
-# ported yet.
+# un-fused (wz/wx/wB/wC/wdt), as in JAX.  Serving's recurrent decode
+# (``mamba2_decode``) carries the SSM state and the conv window of each
+# lane (``mamba2_cache_init``).
 
 def mamba2_specs(d: int, *, d_inner: int, d_state: int, n_heads: int,
                  d_conv: int) -> Dict[str, Spec]:
@@ -527,6 +572,59 @@ def mamba2_apply(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
     y = y.reshape(B, S, d_inner)
     y = rmsnorm(y * torch.nn.functional.silu(z), p["norm_w"], norm_eps)
     return y @ p["wo"].to(x.dtype)
+
+
+def mamba2_cache_init(batch: int, *, d_inner: int, d_state: int,
+                      n_heads: int, d_conv: int, dtype=torch.float32,
+                      device=None) -> Dict[str, Tensor]:
+    """One layer's decode cache, zeros: the f32 SSM ``state`` (batch, H,
+    st, hp) and the ``conv`` window of the last d_conv - 1 inputs (batch,
+    d_conv - 1, d_inner + 2 st) in ``dtype``."""
+    hp = d_inner // n_heads
+    return {
+        "state": torch.zeros((batch, n_heads, d_state, hp),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, d_conv - 1, d_inner + 2 * d_state),
+                            dtype=dtype, device=device)}
+
+
+def mamba2_decode(p: Dict[str, Tensor], x: Tensor, cache: Dict[str, Tensor],
+                  *, d_inner: int, d_state: int, n_heads: int,
+                  norm_eps: float = 1e-5
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token recurrent SSD step (JAX's ``mamba2_decode``).  x: (B, 1,
+    d) -> (out (B, 1, d), the new cache).  Two of JAX's choices keep the
+    batched step equal to the per-lane one: the dt projection in f32 (a
+    narrow bf16 matmul sums in an order that varies with the batch), and
+    the state update as an explicit broadcast product, not a three-operand
+    einsum (whose pairing varies too).  A = -exp(A_log) and the decay by
+    ``torch.exp``, as :func:`mamba2_apply` computes A."""
+    B = x.shape[0]
+    hp = d_inner // n_heads
+    xt = x[:, 0]
+    z = xt @ p["wz"].to(x.dtype)
+    xin = xt @ p["wx"].to(x.dtype)
+    Bm = xt @ p["wB"].to(x.dtype)
+    Cm = xt @ p["wC"].to(x.dtype)
+    dt = softplus(xt.float() @ p["wdt"] + p["dt_bias"])         # (B, H)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                  # (B, Ch)
+    hist = torch.cat([cache["conv"], conv_in[:, None]], dim=1)  # (B, K, Ch)
+    w = p["conv_w"].to(x.dtype)
+    conv_out = torch.nn.functional.silu(
+        torch.einsum("bkc,kc->bc", hist, w) + p["conv_b"].to(x.dtype))
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, d_state, d_state], dim=-1)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dt * A)                                   # (B, H)
+    xh = xin.reshape(B, n_heads, hp).float()
+    upd = (Bm.float()[:, None, :, None] * xh[:, :, None, :]
+           * dt[:, :, None, None])
+    state = decay[:, :, None, None] * cache["state"] + upd
+    y = torch.einsum("bs,bhsp->bhp", Cm.float(), state)
+    y = y + p["D"][None, :, None] * xh
+    y = y.reshape(B, d_inner).to(x.dtype)
+    y = rmsnorm(y * torch.nn.functional.silu(z), p["norm_w"], norm_eps)
+    out = (y @ p["wo"].to(x.dtype))[:, None]
+    return out, {"state": state, "conv": hist[:, 1:]}
 
 
 # --------------------------------------------------------------------------

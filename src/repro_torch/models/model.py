@@ -8,10 +8,11 @@ moe (granite-moe, dbrx: attention and a mixture of experts a layer,
 attention+MLP block after every ``attn_every``-th), encdec (whisper: a
 non-causal encoder over the batch's ``frames``, decoder blocks with
 cross-attention, sinusoidal positions) and vlm (qwen2-vl: M-RoPE, the
-batch's ``vision_embeds`` before the text).  The serving half of the JAX
-model (``init_cache``, ``decode_step``, ``encode_cross_cache``) is not
-ported yet (ROADMAP queue 1, item 9).  Params are a nested dict in the
-JAX layout:
+batch's ``vision_embeds`` before the text).  The serving half
+(:meth:`Model.init_cache`, :meth:`Model.decode_step`,
+:meth:`Model.prefill`, :meth:`Model.encode_cross_cache`) keeps JAX's
+cache tree and layout, a lane per slot of axis 1.  Params are a nested
+dict in the JAX layout:
 per-layer weights stacked on a leading L axis, ``x @ W`` weights, the
 embedding reused as the LM head under tied embeddings.  The leaf paths,
 shapes and flatten order therefore equal the JAX tree's, which the wire's
@@ -518,24 +519,200 @@ class Model:
             if self.cfg.family == "moe" else ce
         return total, {"ce": ce, "aux_loss": aux}
 
+    # ------------------------------------------------------------- serving
+
+    def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """The full-sequence forward's last-position logits (B, V)."""
+        return self.forward(params, batch)[:, -1]
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   device="cuda") -> PyTree:
+        """The decode cache of ``batch_size`` lanes, zeros on ``device``,
+        JAX's tree and layout (the lane axis 1 of every leaf): K/V (layers,
+        B, C, K, hd) in the activation dtype, C = max_len or the window;
+        the ssm's f32 ``state`` (layers, B, H, st, hp) and ``conv``
+        (layers, B, d_conv - 1, d_inner + 2 st); the hybrid's ``mamba``
+        entries and one ``shared`` K/V; encdec's ``self`` K/V and the
+        ``cross_k``/``cross_v`` of the encoder's frames."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        hd = cfg.hd()
+        kvd = _DTYPES[cfg.activation_dtype]
+        C = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=kvd, device=dev)
+
+        def attn_cache(layers: int):
+            return {"k": zeros(layers, batch_size, C, cfg.n_kv_heads, hd),
+                    "v": zeros(layers, batch_size, C, cfg.n_kv_heads, hd)}
+
+        if cfg.family in ("dense", "vlm", "moe"):
+            return attn_cache(cfg.n_layers)
+        if cfg.family in ("ssm", "hybrid"):
+            mk = L.mamba2_cache_init(
+                batch_size, d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
+                n_heads=cfg.ssm_heads(), d_conv=cfg.ssm_conv, dtype=kvd,
+                device=dev)
+            mamba = {k: a.expand((cfg.n_layers,) + a.shape).clone()
+                     for k, a in mk.items()}
+            if cfg.family == "ssm":
+                return mamba
+            return {"mamba": mamba, "shared": attn_cache(1)}
+        F = cfg.encoder_frames
+        return {"self": attn_cache(cfg.n_layers),
+                "cross_k": zeros(cfg.n_layers, batch_size, F,
+                                 cfg.n_kv_heads, hd),
+                "cross_v": zeros(cfg.n_layers, batch_size, F,
+                                 cfg.n_kv_heads, hd)}
+
+    def cache_specs(self) -> PyTree:
+        """Each cache leaf's spec over the ``model`` axis (JAX's
+        ``cache_specs``): the KV heads sharded when they divide the axis,
+        else the head dim, else replicated; the SSM cache replicated."""
+        cfg = self.cfg
+        hd = cfg.hd()
+        if cfg.n_kv_heads % L.MODEL_AXIS_SIZE == 0:
+            kv = (None, None, None, MODEL, None)
+        elif hd % L.MODEL_AXIS_SIZE == 0:
+            kv = (None, None, None, None, MODEL)
+        else:
+            kv = (None,) * 5
+        ssm = {"state": (None,) * 5, "conv": (None,) * 4}
+        if cfg.family in ("dense", "vlm", "moe"):
+            return {"k": kv, "v": kv}
+        if cfg.family == "ssm":
+            return ssm
+        if cfg.family == "hybrid":
+            return {"mamba": ssm, "shared": {"k": kv, "v": kv}}
+        return {"self": {"k": kv, "v": kv}, "cross_k": kv, "cross_v": kv}
+
+    def encode_cross_cache(self, params: PyTree, frames: torch.Tensor,
+                           cache: PyTree) -> PyTree:
+        """encdec: run the encoder over ``frames`` (B, F, d) and fill every
+        layer's cross-attention K/V of ``cache`` (a new tree; the other
+        entries are ``cache``'s)."""
+        cfg = self.cfg
+        if cfg.family != "encdec":
+            raise ValueError(f"encode_cross_cache is encdec's; this model "
+                             f"is {cfg.family}")
+        enc = self._encode(params, frames)
+        B = frames.shape[0]
+        shape = (B, -1, cfg.n_kv_heads, cfg.hd())
+        lays = _per_layer(params["layers"], cfg.n_layers)
+        ck = torch.stack([(enc @ lp["xattn"]["wk"].to(enc.dtype))
+                          .reshape(shape) for lp in lays])
+        cv = torch.stack([(enc @ lp["xattn"]["wv"].to(enc.dtype))
+                          .reshape(shape) for lp in lays])
+        return {**cache, "cross_k": ck.to(cache["cross_k"].dtype),
+                "cross_v": cv.to(cache["cross_v"].dtype)}
+
+    @torch.no_grad()
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    token: torch.Tensor, pos) -> Tuple[torch.Tensor, PyTree]:
+        """One-token decode of every lane (JAX's ``decode_step``, batched as
+        its ``vmap`` over lanes runs it): token (B, 1) int, pos (B,) int
+        (each lane's position) or one int for all.  Returns (logits (B, 1,
+        V) in the activation dtype, the cache), the new entries written
+        into ``cache``'s tensors in place.  moe dispatches each lane as its
+        own group (capacity ``max(1, int(cf * k / E))``), as the per-lane
+        step does; the hybrid's shared block runs after each layer i with
+        i % attn_every == attn_every - 1, on its one K/V cache."""
+        cfg = self.cfg
+        adt = _DTYPES[cfg.activation_dtype]
+        hd = cfg.hd()
+        token = token.long()
+        dev = token.device
+        B = token.shape[0]
+        pos = torch.as_tensor(pos, device=dev).to(torch.int64)
+        if pos.dim() == 0:
+            pos = pos.expand(B)
+        h = params["embed"].to(adt)[token]                    # (B, 1, d)
+        if cfg.family == "encdec":
+            h = h + sinusoid_at(pos[:, None], cfg.d_model)[:, None].to(adt)
+        attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=hd,
+                       theta=cfg.rope_theta, window=cfg.attn_window)
+        ssm_kw = dict(d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
+                      n_heads=cfg.ssm_heads(), norm_eps=cfg.norm_eps)
+        kv = cache["self"] if cfg.family == "encdec" else cache
+        for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+            if cfg.family in ("ssm", "hybrid"):
+                mc = cache if cfg.family == "ssm" else cache["mamba"]
+                y, new = L.mamba2_decode(
+                    lp["mamba"], L.rmsnorm(h, lp["ln"], cfg.norm_eps),
+                    {"state": mc["state"][i], "conv": mc["conv"][i]},
+                    **ssm_kw)
+                mc["state"][i] = new["state"]
+                mc["conv"][i] = new["conv"]
+                h = h + y
+                if cfg.family == "hybrid" \
+                        and i % cfg.attn_every == cfg.attn_every - 1:
+                    shared = params["shared_attn"]
+                    y, _, _ = L.attention_decode(
+                        shared["attn"],
+                        L.rmsnorm(h, shared["ln1"], cfg.norm_eps),
+                        cache["shared"]["k"][0], cache["shared"]["v"][0],
+                        pos, **attn_kw)
+                    h = h + y
+                    h = h + L.swiglu(shared["mlp"], L.rmsnorm(
+                        h, shared["ln2"], cfg.norm_eps))
+                continue
+            y, _, _ = L.attention_decode(
+                lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                kv["k"][i], kv["v"][i], pos,
+                mrope_sections=cfg.mrope_sections, **attn_kw)
+            h = h + y
+            if cfg.family == "encdec":
+                h = h + L.attention(
+                    lp["xattn"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps),
+                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=hd,
+                    positions=torch.zeros((B, 1), dtype=torch.int64,
+                                          device=dev),
+                    theta=0.0, causal=False,
+                    kv=(cache["cross_k"][i].to(h.dtype),
+                        cache["cross_v"][i].to(h.dtype)))
+                h = h + L.swiglu(lp["mlp"],
+                                 L.rmsnorm(h, lp["ln3"], cfg.norm_eps))
+                continue
+            hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+            if cfg.family == "moe":
+                y, _ = L.moe_apply(lp["moe"], hn, n_experts=cfg.n_experts,
+                                   k=cfg.experts_per_tok,
+                                   capacity_factor=cfg.capacity_factor,
+                                   groups=B)
+            else:
+                y = L.swiglu(lp["mlp"], hn)
+            h = h + y
+        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return h @ head.to(h.dtype), cache
+
 
 MODEL = L.MODEL_AXIS
 
 
-def sinusoid(S: int, d: int, dtype, device=None) -> torch.Tensor:
-    """JAX's ``_sinusoid``: the (S, d) sinusoidal position encoding of
-    positions 0..S-1 (sin on the even channels, cos on the odd), computed
-    in f32 (its inverse frequencies by XLA's f32 exp, ``random.xla_exp``)
-    and cast to ``dtype``."""
-    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+def sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """JAX's ``_sinusoid_at``: the f32 sinusoidal encoding (..., d) of the
+    positions ``pos`` (..., 1), sin on the even channels and cos on the
+    odd, its inverse frequencies by XLA's f32 exp (``random.xla_exp``)."""
+    pos = pos.float()
     div = random.xla_exp(torch.arange(0, d, 2, dtype=torch.float32,
-                                      device=device)
+                                      device=pos.device)
                          * (-math.log(10000.0) / d))
     ang = pos * div
-    pe = torch.zeros((S, d), dtype=torch.float32, device=device)
-    pe[:, 0::2] = torch.sin(ang)
-    pe[:, 1::2] = torch.cos(ang)
-    return pe.to(dtype)
+    pe = torch.zeros(pos.shape[:-1] + (d,), dtype=torch.float32,
+                     device=pos.device)
+    pe[..., 0::2] = torch.sin(ang)
+    pe[..., 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoid(S: int, d: int, dtype, device=None) -> torch.Tensor:
+    """JAX's ``_sinusoid``: :func:`sinusoid_at` of positions 0..S-1,
+    (S, d), cast to ``dtype``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    return sinusoid_at(pos, d).to(dtype)
 
 
 def _per_layer(stacked: PyTree, n: int):

@@ -932,3 +932,225 @@ def test_fsdp_step_keeps_inactive_expert_slabs_of_h_zero():
         assert hh.shape[:3] == (4, cfg.n_layers, cfg.n_experts)
         assert not hh[:, :, 2:].any(), name
         assert hh[:, :, :2].any(), name
+
+
+# --------------------------------------------------------------------------
+# serving: the decode step, its cache, and the continuous-batching engine
+# --------------------------------------------------------------------------
+#
+# Tolerances: f32 activations, logits and every cache leaf within rtol 1e-5
+# and atol 3e-5 of JAX's jitted ``decode_step`` (the two packages sum
+# matmuls, softmax and norms in other orders; the worst seen is 7e-6 on
+# logits of scale 3.4); bf16 activations (the dense case) within atol
+# 3e-2 on logits and 5e-2 on the cache, a few bf16 ulps.  Token streams:
+# the port's engine equals its fixed batch exactly; JAX's engine equals the
+# port's wherever the port's top-2 logit gap exceeds the f32 tolerance,
+# up to the first position where it does not (a near tie may flip there
+# and the streams part).
+
+from repro.launch.serve import DecodeEngine as JDecodeEngine  # noqa: E402
+from repro_torch.launch.train import DecodeEngine  # noqa: E402
+
+DECODE_F32 = dict(rtol=1e-5, atol=3e-5)
+DECODE_BF16 = dict(logits=3e-2, cache=5e-2)
+FAMILY_OF = {"qwen2-0.5b": "dense", "granite-moe-3b-a800m": "moe",
+             "mamba2-130m": "ssm", "zamba2-7b": "hybrid",
+             "whisper-medium": "encdec", "qwen2-vl-2b": "vlm"}
+DECODE_CASES = {
+    # case: (arch, activation dtype, lanes, steps, max_len, attn_window)
+    **{fam: (arch, "float32", 2, 6, 8, 0) for arch, fam in FAMILY_OF.items()},
+    # the ring buffer: 7 positions through a window of 4 slots
+    "dense_window": ("qwen2-0.5b", "float32", 2, 7, 8, 4),
+    # three lanes, each its own dispatch group
+    "moe_3_lanes": ("granite-moe-3b-a800m", "float32", 3, 5, 8, 0),
+    "dense_bf16": ("qwen2-0.5b", "bfloat16", 2, 6, 8, 0),
+}
+
+
+def _serve_models(arch, adt, window=0):
+    """(JAX model, JAX params, port model, port params) of the arch's smoke
+    config at activation dtype ``adt``, JAX's init at key 0."""
+    jcfg = dataclasses.replace(jget_smoke_config(arch), activation_dtype=adt,
+                               attn_window=window)
+    tcfg = dataclasses.replace(get_smoke_config(arch), activation_dtype=adt,
+                               attn_window=window)
+    jm, tm = jbuild_model(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, tm, T.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _frames(cfg, lanes, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((lanes, cfg.encoder_frames, cfg.d_model))
+            * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_step_matches_jax(case):
+    """``init_cache`` is JAX's tree, shapes and dtypes; teacher-forced
+    decode steps (the same tokens into both) give JAX's logits and cache
+    within the stated tolerance, every leaf at every step."""
+    arch, adt, B, steps, ML, window = DECODE_CASES[case]
+    jm, jp, tm, tp = _serve_models(arch, adt, window)
+    jc, tc = jm.init_cache(B, ML), tm.init_cache(B, ML, device="cpu")
+    assert jax.tree.structure(jc) == jax.tree.structure(
+        T.tree_map(lambda a: 0, tc))
+    assert [(a.shape, str(a.dtype)) for a in jax.tree.leaves(jc)] == \
+        [(tuple(a.shape), str(a.dtype).replace("torch.", ""))
+         for a in T.leaves(tc)]
+    if window:
+        assert jc["k"].shape[2] == window
+    if jm.cfg.family == "encdec":
+        fr = _frames(jm.cfg, B)
+        jc = jm.encode_cross_cache(jp, jnp.asarray(fr), jc)
+        tc = tm.encode_cross_cache(tp, torch.from_numpy(fr), tc)
+    toks = np.random.default_rng(2).integers(0, jm.cfg.vocab, (B, steps))
+    step = jax.jit(jm.decode_step)
+    for t in range(steps):
+        jl, jc = step(jp, jc, jnp.asarray(toks[:, t:t + 1], jnp.int32),
+                      jnp.int32(t))
+        tl, tc = tm.decode_step(tp, tc, torch.from_numpy(toks[:, t:t + 1]),
+                                torch.full((B,), t))
+        assert tuple(tl.shape) == (B, 1, jm.cfg.vocab)
+        pairs = [(jl, tl, "logits")] + [
+            (a, b, f"cache leaf {j}") for j, (a, b) in enumerate(
+                zip(jax.tree.leaves(jc), T.leaves(tc)))]
+        for a, b, what in pairs:
+            a, b = np.asarray(a, np.float32), _np(b)
+            if adt == "float32":
+                np.testing.assert_allclose(b, a, **DECODE_F32,
+                                           err_msg=f"{what} at step {t}")
+            else:
+                tol = DECODE_BF16["logits" if what == "logits" else "cache"]
+                np.testing.assert_allclose(b, a, rtol=0, atol=tol,
+                                           err_msg=f"{what} at step {t}")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-medium"])
+def test_prefill_matches_jax(arch):
+    """``prefill``: the last position's logits of the full forward."""
+    jm, jp, tm, tp = _serve_models(arch, "float32")
+    batch = {"tokens": np.random.default_rng(3).integers(
+        0, jm.cfg.vocab, (2, 8)).astype(np.int32)}
+    if jm.cfg.family == "encdec":
+        batch["frames"] = _frames(jm.cfg, 2)
+    want = jax.jit(jm.prefill)(jp, jax.tree.map(jnp.asarray, batch))
+    got = tm.prefill(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert tuple(got.shape) == (2, jm.cfg.vocab)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **DECODE_F32)
+
+
+def test_cache_specs_equal_jax():
+    """``cache_specs`` is JAX's, a tuple per PartitionSpec, every family."""
+    for arch in FAMILY_OF:
+        jm = jbuild_model(jget_smoke_config(arch))
+        tm = build_model(get_smoke_config(arch))
+        want = jax.tree.leaves(jm.cache_specs(),
+                               is_leaf=lambda s: isinstance(
+                                   s, jax.sharding.PartitionSpec))
+        got = T.leaves(tm.cache_specs(), is_leaf=tL.is_spec)
+        assert [tuple(s) for s in want] == got, arch
+
+
+def _fixed_batch(tm, tp, prompts, gen, ML, frames=None):
+    """The plain lockstep loop: every request in its own lane from
+    position 0, greedy; returns (ids (B, gen), top-2 logit gaps)."""
+    B, P = prompts.shape
+    cache = tm.init_cache(B, ML, device="cpu")
+    if frames is not None:
+        cache = tm.encode_cross_cache(tp, torch.from_numpy(frames), cache)
+    tok, outs, gaps = None, [], []
+    for t in range(P + gen):
+        inp = torch.from_numpy(prompts[:, t:t + 1]) if t < P else tok
+        logits, cache = tm.decode_step(tp, cache, inp, t)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if t >= P:
+            top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            outs.append(tok[:, 0].numpy())
+            gaps.append((top[:, 0] - top[:, 1]).numpy())
+    return np.stack(outs, 1), np.stack(gaps, 1)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_OF))
+def test_continuous_batching_matches_fixed_batch_and_jax(arch):
+    """3 requests through 2 slots (staggered admission and retirement,
+    lanes at different positions) decode exactly the ids of the port's
+    fixed-batch loop; JAX's engine (``vmap`` of the one-lane step) gives
+    the same ids wherever the port's top-2 gap exceeds the tolerance."""
+    jm, jp, tm, tp = _serve_models(arch, "float32")
+    B, P, G, ML = 3, 4, 6, 16
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, jm.cfg.vocab, (B, P))
+    frames = _frames(jm.cfg, B) if jm.cfg.family == "encdec" else None
+    fixed, gaps = _fixed_batch(tm, tp, prompts, G, ML, frames)
+    eng = DecodeEngine(tm, slots=2, max_len=ML, device="cpu")
+    reqs = [eng.submit(prompts[i], G,
+                       frames=None if frames is None else frames[i])
+            for i in range(B)]
+    eng.run(tp)
+    assert all(r.done for r in reqs) and eng.tokens_decoded == B * (P + G)
+    np.testing.assert_array_equal(np.stack([r.out for r in reqs]), fixed)
+    jeng = JDecodeEngine(jm, slots=2, max_len=ML)
+    jreqs = [jeng.submit(prompts[i], G,
+                         frames=None if frames is None else frames[i])
+             for i in range(B)]
+    jeng.run(jp)
+    compared = 0
+    for i, jr in enumerate(jreqs):
+        for p in range(G):
+            if gaps[i, p] <= DECODE_F32["atol"]:
+                break
+            assert jr.out[p] == fixed[i, p], (arch, i, p)
+            compared += 1
+    assert compared >= B * G // 2, compared
+
+
+def test_engine_rejects_overlong_requests():
+    _, _, tm, _ = _serve_models("mamba2-130m", "float32")
+    eng = DecodeEngine(tm, slots=1, max_len=8, device="cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        eng.submit(np.zeros(5, np.int64), 4)
+
+
+def test_hot_swap_atomicity_mid_decode():
+    """A push staged mid-decode (``tests/test_serve_delta.py``'s check on
+    the port): tokens before the commit come from the old version, after
+    it from the new, each from exactly one model, and the stream is the
+    two-phase reference loop's token for token."""
+    from repro_torch.core.efbv import Downlink
+    from repro_torch.launch.train import DeltaPusher, ServeReplica
+
+    cfg = get_smoke_config("mamba2-130m")
+    model = build_model(cfg)
+    params0 = model.init(random.key(7), device="cpu")
+    P, G, ML, SWAP = 2, 6, 16, 5  # commit before engine step 5
+    prompt = random.randint(random.key(9), P, 0, cfg.vocab, "cpu").numpy()
+    dl = Downlink.parse("qsgd:16")
+    pusher = DeltaPusher(dl, params0, key=random.key(8))
+    rep = ServeReplica(dl, pusher.w)
+    env = pusher.push(T.tree_map(lambda a: a + 0.01, params0))
+    eng = DecodeEngine(model, slots=1, max_len=ML, device="cpu")
+    req = eng.submit(prompt, G)
+    for i in range(P + G):
+        if i == 2:  # arrives mid-decode: staged, the old version serves on
+            assert rep.stage(env) == "staged"
+        if i == SWAP:
+            assert rep.commit()
+        eng.step(rep.params, version=rep.version)
+    assert req.done
+    ref_old = dl.init(params0)
+    ref_new = dl.apply_push(env.payloads, ref_old)
+    cache = model.init_cache(1, ML, device="cpu")
+    tok, want, want_versions = None, [], []
+    for i in range(P + G):
+        p = ref_old if i < SWAP else ref_new
+        inp = torch.from_numpy(prompt[i:i + 1])[None] if i < P else tok
+        logits, cache = model.decode_step(p, cache, inp, i)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if i >= P:
+            want.append(int(tok[0, 0]))
+            want_versions.append(0 if i < SWAP else 1)
+    assert req.out == want
+    assert req.versions == want_versions
+    assert set(req.versions) == {0, 1}
+    assert req.versions == sorted(req.versions)

@@ -15,6 +15,8 @@ Everything else is pinned bit for bit given the norm:
   small integer numerators), so both reductions give the exact norm.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -643,3 +645,313 @@ def test_xla_pow_bitwise():
         want = np.asarray(jax.jit(jnp.power)(b, t))
         got = R.xla_pow(b, t)
         np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# the serving push protocol: envelopes, replicas, resync, the fleet
+# ---------------------------------------------------------------------------
+#
+# The pushes are JAX's (``repro.launch.serve.DeltaPusher``, eager, as JAX's
+# fleet runs them); the port's replica decodes them and must rebuild JAX's
+# w bit for bit.  JAX applies a push outside ``jit``: w + lam * q rounds
+# twice, the product and the sum; the lam = 0.9 cases tell that apart from
+# the fused form the jitted trainer's broadcast takes (at lam = 0.5 the two
+# agree: 0.5 * q is exact).
+
+import dataclasses  # noqa: E402
+
+from repro.launch import serve as jserve  # noqa: E402
+from repro_torch.core import ExperimentSpec as TSpec  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from test_wire_codecs import ZOO  # noqa: E402
+
+PUSH_D = 96
+PUSHES = 5
+LAMS = (1.0, 0.9)
+BF16_PUSH_SPECS = ["topk:7", "qsgd:16", "block_topk:16,4", "natural"]
+TREE_RULES = "*embed*=qsgd:16;*norm*=identity"
+#: the codecs whose encode divides by a norm of the innovation (fault c:
+#: torch's reduction, not XLA's)
+NORMED = ("sign", "qsgd", "qsgd_wide", "qsgd_odd")
+
+
+def _port_comp(comp):
+    """The port's compressor of a JAX zoo object (same class, same
+    fields)."""
+    return getattr(tcomp, type(comp).__name__)(**dataclasses.asdict(comp))
+
+
+def _jt(a):
+    """A JAX payload component or leaf as the port's tensor with the same
+    bits: uint32 words as int32, bf16 through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32).copy())
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _raw(a):
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(a)).reshape(-1).view(np.uint8)
+
+
+def _jenv_to_port(env):
+    """A JAX envelope as the port's: the same versions, kind and payload
+    bits."""
+    pays = [tuple(_jt(a) for a in p) for p in env.payloads]
+    return twire.DeltaEnvelope(version=env.version,
+                               base_version=env.base_version, payloads=pays,
+                               kind=env.kind)
+
+
+def _flat_traj(key, t):
+    return jax.random.normal(jax.random.fold_in(key, t), (PUSH_D,))
+
+
+def _tree_traj(key, t):
+    k = jax.random.fold_in(key, t)
+    return {"embed": jax.random.normal(jax.random.fold_in(k, 0), (8, 16)),
+            "layers": {"w": jax.random.normal(jax.random.fold_in(k, 1),
+                                              (4, 4)),
+                       "norm": jax.random.normal(jax.random.fold_in(k, 2),
+                                                 (4,))}}
+
+
+def _assert_w_equal(jw, tw, msg=""):
+    jl, tl = jax.tree.leaves(jw), T.leaves(tw)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        assert tuple(np.shape(a)) == tuple(b.shape), msg
+        np.testing.assert_array_equal(_raw(b), _raw(a), err_msg=msg)
+
+
+def _replica_rebuilds_jax(jcomp_obj, lam, make_x, *, wire_dtype="float32",
+                          rules=None, seed=0):
+    """JAX's pusher over PUSHES pushes; a port replica fed its envelopes
+    equals JAX's w bitwise after every push."""
+    key = jax.random.key(seed)
+    jdl = jefbv.Downlink(compressor=jcomp_obj, lam=lam)
+    tdl = tefbv.Downlink(compressor=_port_comp(jcomp_obj), lam=lam)
+    jr = jwire.parse_leaf_rules(rules) if rules else None
+    tr = twire.parse_leaf_rules(rules) if rules else None
+    jp = jserve.DeltaPusher(jdl, make_x(key, 0), key=key,
+                            wire_dtype=wire_dtype, rules=jr)
+    rep = tlaunch.ServeReplica(
+        tdl, T.tree_map(_jt, jax.tree.map(np.asarray, jp.w)),
+        wire_dtype=wire_dtype, rules=tr)
+    for t in range(1, PUSHES + 1):
+        env = jp.push(make_x(key, t))
+        assert rep.push(_jenv_to_port(env)) == "applied"
+        assert rep.version == jp.version == t
+        _assert_w_equal(jp.w, rep.params, f"push {t}")
+    return jp, rep
+
+
+@pytest.mark.parametrize("lam", LAMS)
+@pytest.mark.parametrize("name,comp", ZOO, ids=[n for n, _ in ZOO])
+def test_port_replica_rebuilds_jax_w_bitwise(name, comp, lam):
+    """Every zoo codec, f32 wire: the port's ``apply_push`` of JAX's
+    payloads is JAX's w bit for bit over five pushes (the identity at
+    lam 1 a snapshot, assigned)."""
+    jp, _ = _replica_rebuilds_jax(comp, lam, _flat_traj,
+                                  seed=sum(map(ord, name)))
+    want = "snapshot" if (name, lam) == ("identity", 1.0) else "delta"
+    assert jp.downlink.push_kind() == want
+
+
+@pytest.mark.parametrize("lam", LAMS)
+@pytest.mark.parametrize("spec", BF16_PUSH_SPECS)
+def test_port_replica_rebuilds_jax_w_bf16_wire(spec, lam):
+    _replica_rebuilds_jax(jcomp.make_compressor(spec), lam, _flat_traj,
+                          wire_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("lam", LAMS)
+@pytest.mark.parametrize("wire_dtype", ["float32", "bfloat16"])
+def test_port_replica_rebuilds_jax_w_tree_rules(wire_dtype, lam):
+    """The per-leaf wire (``*embed*=qsgd:16;*norm*=identity`` over
+    block-top-k): each leaf through its own codec, a ruled push always a
+    delta."""
+    jp, rep = _replica_rebuilds_jax(
+        jcomp.make_compressor("block_topk:16,4"), lam, _tree_traj,
+        wire_dtype=wire_dtype, rules=TREE_RULES)
+    assert rep.downlink.push_kind(wire_dtype, rep.rules) == "delta"
+
+
+def _exact_traj(key, t):
+    """Multiples of 1/64 with |x| <= 4 (from JAX's key): every L1 and L2
+    sum of a difference of two of them is exact in f32, so torch's norm
+    is XLA's."""
+    u = jax.random.randint(jax.random.fold_in(key, t), (PUSH_D,), -256, 257)
+    return u.astype(jnp.float32) / 64
+
+
+@pytest.mark.parametrize("lam", LAMS)
+@pytest.mark.parametrize("name,comp", ZOO, ids=[n for n, _ in ZOO])
+def test_port_push_payloads_equal_jax(name, comp, lam):
+    """The port's ``encode_push`` puts JAX's bits on the wire under the
+    same key and returns JAX's w: on normal draws for the codecs that take
+    no norm; for sign and QSGD on values whose norms are exact in f32,
+    where torch's norm is XLA's (fault c: elsewhere they agree given JAX's
+    norm)."""
+    make = _exact_traj if name in NORMED else _flat_traj
+    key = jax.random.key(11)
+    jdl = jefbv.Downlink(compressor=comp, lam=lam)
+    tdl = tefbv.Downlink(compressor=_port_comp(comp), lam=lam)
+    x0, x1 = make(key, 0), make(key, 1)
+    jw, jpay = jdl.encode_push(jserve.push_key(key, 1), x1, x0)
+    tw, tpay = tdl.encode_push(tlaunch.push_key(R.key(11), 1), _jt(x1),
+                               _jt(x0))
+    assert len(jpay) == len(tpay) == 1
+    for a, b in zip(jpay[0], tpay[0]):
+        assert tuple(np.shape(a)) == tuple(b.shape), name
+        np.testing.assert_array_equal(_raw(b), _raw(a), err_msg=name)
+    _assert_w_equal(jw, tw, name)
+
+
+def test_push_key_is_the_rounds_downlink_key():
+    for v in (1, 2, 7):
+        want = jax.random.key_data(jserve.push_key(jax.random.key(5), v))
+        np.testing.assert_array_equal(
+            np.asarray(tlaunch.push_key(R.key(5), v)), np.asarray(want))
+
+
+@pytest.mark.parametrize("name,comp", ZOO, ids=[n for n, _ in ZOO])
+def test_push_bits_equal_jax(name, comp):
+    """``push_bits`` and ``checkpoint_push_bits`` are JAX's for every
+    codec, on a vector and on the ruled tree; a push's payload bytes are
+    its bits less the header."""
+    key = jax.random.key(5)
+    for make, rules in ((_flat_traj, None), (_tree_traj, TREE_RULES)):
+        x = make(key, 0)
+        tx = T.tree_map(_jt, jax.tree.map(np.asarray, x))
+        jfmt = jefbv.Downlink(compressor=comp).serve_format(
+            x, rules=jwire.parse_leaf_rules(rules) if rules else None)
+        tdl = tefbv.Downlink(compressor=_port_comp(comp))
+        tr = twire.parse_leaf_rules(rules) if rules else None
+        tfmt = tdl.serve_format(tx, rules=tr)
+        assert twire.push_bits(tfmt) == jwire.push_bits(jfmt), name
+        assert twire.checkpoint_push_bits(tfmt) == \
+            jwire.checkpoint_push_bits(jfmt), name
+        assert twire.PUSH_HEADER_BITS == jwire.PUSH_HEADER_BITS == 128
+        pusher = tlaunch.DeltaPusher(tdl, tx, key=R.key(5), rules=tr)
+        env = pusher.push(T.tree_map(_jt, jax.tree.map(
+            np.asarray, make(key, 1))))
+        assert 8 * twire.payload_bytes(env.payloads) == \
+            twire.push_bits(tfmt) - twire.PUSH_HEADER_BITS, name
+
+
+def test_port_pushes_stale_refused_and_idempotent():
+    dl = tefbv.Downlink.parse("topk:7")
+    key = jax.random.key(0)
+    x = [_jt(_flat_traj(key, t)) for t in range(3)]
+    pusher = tlaunch.DeltaPusher(dl, x[0], key=R.key(0))
+    rep = tlaunch.ServeReplica(dl, pusher.w)
+    env1, env2 = pusher.push(x[1]), pusher.push(x[2])
+    assert rep.push(env1) == rep.push(env2) == "applied"
+    before = [t.clone() for t in T.leaves(rep.params)]
+    assert rep.push(env2) == "stale" and rep.push(env1) == "stale"
+    assert rep.version == 2
+    for a, b in zip(T.leaves(rep.params), before):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="monotonic"):
+        twire.DeltaEnvelope(version=1, base_version=1, payloads=[])
+    with pytest.raises(ValueError, match="kind"):
+        twire.DeltaEnvelope(version=2, base_version=1, payloads=[],
+                            kind="patch")
+
+
+def test_gap_resyncs_bitwise_from_jax_checkpoint(tmp_path):
+    """JAX's pusher writes a checkpoint a version; push 2 is dropped, so
+    the port replica sees a gap at push 3, restores JAX's newest
+    checkpoint (spec-gated: the port's spec has JAX's fingerprint) and
+    ends at JAX's w bit for bit."""
+    from repro.core import ExperimentSpec as JSpec
+
+    fields = dict(downlink="qsgd:16", d=PUSH_D, n=2)
+    jspec, tspec = JSpec(**fields), TSpec(**fields)
+    assert jspec.fingerprint() == tspec.fingerprint()
+    key = jax.random.key(1)
+    jdl = jefbv.Downlink.parse("qsgd:16")
+    jp = jserve.DeltaPusher(jdl, _tree_traj(key, 0), key=key,
+                            ckpt_dir=str(tmp_path), spec=jspec)
+    rep = tlaunch.ServeReplica(
+        tefbv.Downlink.parse("qsgd:16"),
+        T.tree_map(_jt, jax.tree.map(np.asarray, jp.w)),
+        ckpt_dir=str(tmp_path), spec=tspec)
+    assert rep.push(_jenv_to_port(jp.push(_tree_traj(key, 1)))) == "applied"
+    jp.push(_tree_traj(key, 2))                       # dropped
+    env3 = _jenv_to_port(jp.push(_tree_traj(key, 3)))
+    assert env3.base_version == 2 and rep.version == 1
+    assert rep.push(env3) == "resync"
+    assert rep.resyncs == 1 and rep.version == jp.version == 3
+    _assert_w_equal(jp.w, rep.params)
+
+
+def test_gap_without_checkpoint_dir_is_loud_and_snapshots_repair():
+    key = jax.random.key(2)
+    x = [_jt(_flat_traj(key, t)) for t in range(3)]
+    for spec, outcome in (("topk:7", "raise"), ("identity", "applied")):
+        dl = tefbv.Downlink.parse(spec)
+        pusher = tlaunch.DeltaPusher(dl, x[0], key=R.key(2))
+        rep = tlaunch.ServeReplica(dl, pusher.w)
+        pusher.push(x[1])                              # dropped
+        env2 = pusher.push(x[2])
+        if outcome == "raise":
+            with pytest.raises(RuntimeError, match="resync"):
+                rep.push(env2)
+        else:
+            assert env2.kind == "snapshot" and rep.push(env2) == "applied"
+            assert torch.equal(rep.params.view(torch.int32),
+                               x[2].view(torch.int32))
+
+
+#: JAX's ``run_fleet`` metrics of the committed ``serve_delta.json``
+SERVE_DELTA = {"fingerprint": "7d408c73e1bcf250", "replicas": 2,
+               "pushes": 3, "requests": 8, "tokens": 64,
+               "delta_bits_per_push": 2_734_560,
+               "checkpoint_bits_per_push": 10_935_936}
+
+
+def test_serve_cli_runs_the_committed_fleet_spec(tmp_path, capsys):
+    """``serve --spec examples/specs/serve_delta.json --device cpu``: JAX's
+    metrics (8 requests: 2 replicas x 2 waves x 2 slots), every replica
+    pinned to the pusher after every push (asserted inside), a checkpoint
+    a version under ``--ckpt-dir``."""
+    spec = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "specs", "serve_delta.json")
+    m = tlaunch.main(["serve", "--spec", spec, "--device", "cpu",
+                      "--ckpt-dir", str(tmp_path)])
+    for k, v in SERVE_DELTA.items():
+        assert m[k] == v, k
+    assert f"{m['push_ratio']:.6f}" == "0.250053"
+    out = capsys.readouterr().out
+    assert "delta 2734560 vs checkpoint 10935936 bits/push (0.250053x)" in out
+    assert "fingerprint=7d408c73e1bcf250" in out
+    assert sorted(os.listdir(tmp_path)) == [
+        f"step_{v:08d}.npz" for v in range(4)]
+
+
+def test_serve_cli_single_model_and_refusals(tmp_path, capsys):
+    gen = tlaunch.main(["serve", "--arch", "mamba2-130m", "--smoke",
+                        "--batch", "2", "--prompt-len", "4", "--gen", "6",
+                        "--device", "cpu"])
+    assert gen.shape == (2, 6)
+    assert "[serve] arch=mamba2-smoke batch=2 prompt=4 gen=6" in \
+        capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        tlaunch.parse_serve_args(["--prompt-len", "20", "--gen", "20",
+                                  "--max-len", "32"])
+    assert "--max-len" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        tlaunch.parse_serve_args(["--sanitize"])
+    assert "not yet ported" in capsys.readouterr().err
+    meshed = tmp_path / "mesh.json"
+    meshed.write_text(TSpec(problem="qwen2-0.5b", smoke=True,
+                            backend="shard_map", mesh="1x2", n=1,
+                            serve="gen:4,max_len:8").to_json())
+    with pytest.raises(SystemExit, match="not yet ported"):
+        tlaunch.main(["serve", "--spec", str(meshed), "--device", "cpu"])
