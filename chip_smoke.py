@@ -165,15 +165,15 @@ line is printed only when every phase passed):
                 run's, a restore under another spec refused;
               * moe: granite-moe-3b-a800m at full width with 4 of its 32
                 layers (553,916,928 params, 13 leaves), built by the
-                functions the driver's ``setup`` calls on the cut config
-                (``cut_setup``: the driver has no depth flag) and run by
-                its loop (``train.train_loop``),
+                driver's ``setup`` on the cut config (``cut_depth``: the
+                driver has no depth flag) and run by its loop
+                (``train.train_loop``),
                 block-top-k (256, 16): 2,215,667,712 bits a worker, 78
                 ``pack_update`` and 34 ``threefry_uniform`` launches,
                 finite losses, gradient norms and aux losses.
               * hybrid: zamba2-7b at full width with 12 of its 81 layers
                 (1,370,644,416 params, 25 leaves; the shared attention
-                block after layers 5 and 11), by ``cut_setup`` and the
+                block after layers 5 and 11), by ``cut_depth`` and the
                 driver's loop: 5,482,579,968 bits a worker, 150
                 ``pack_update`` and 105 ``threefry_uniform`` launches,
                 finite losses, |g|, h_res and raw gradient norms (SSD
@@ -184,7 +184,7 @@ line is printed only when every phase passed):
                 4,049,256,448 bits a worker, 162 ``pack_update`` and 434
                 ``threefry_uniform`` launches.
               * vlm: qwen2-vl-2b at full width with 8 of its 28 layers
-                (841,131,520 params, 15 leaves), by ``cut_setup``, each
+                (841,131,520 params, 15 leaves), by ``cut_depth``, each
                 batch with JAX's 1024 stub patches before the 128 tokens
                 (M-RoPE positions): 3,364,526,080 bits a worker, 90
                 ``pack_update`` and 58 ``threefry_uniform`` launches.
@@ -219,21 +219,36 @@ line is printed only when every phase passed):
                 (5/2 + 1) x the params' bytes, the allocator's reading
                 beside it; 42 ``pack_update`` and 42 + 169
                 ``threefry_uniform`` a rank.
-   Then the mesh: the smoke_flags path's flags on ``--mesh 2x2`` (2
-              workers x 2-way tensor parallelism), four gloo ranks sharing
-              cuda:0: rank 0's exact bits, finite losses within 1e-3
-              relative of smoke_flags's on every rank, 42 ``pack_update``
-              and 42 + 169 ``threefry_uniform`` a rank, the two ranks of
-              each model index bitwise equal in their shards of params, w,
-              h_avg, m and v after every step, and the first worker's
-              shards, reassembled, within the stated bound of smoke_flags's
-              final params (``mesh_params_check``); per rank the step ms,
-              the host ms, calls and bytes sent of the model-axis
-              collectives and of the worker exchange, and the peak.  Then
+   Then the mesh paths (``MESH_PATHS``), gloo ranks sharing cuda:0,
+              each against a one-process main path of the same flags and
+              depth: ``mesh``, the smoke_flags path's flags on ``--mesh
+              2x2`` (2 workers x 2-way tensor parallelism) with qwen2-0.5b
+              cut to 8 of 24 layers (``cut_depth``; against
+              ``mesh_ref``); ``mesh_heads``, the same flags on 1x4 with
+              qwen2-0.5b whole (3.5 query heads and half a KV head a rank;
+              against ``mesh_heads_ref``); ``mesh_mamba2``, the mamba2
+              path's flags on 1x2 with mamba2-130m whole (against
+              ``mesh_mamba2_ref``).  Each: rank 0's exact bits, finite
+              losses and raw gradient norms within 1e-3 relative of the
+              reference's losses on every rank, its launches a rank, every
+              master tree resident in exactly its shards' bytes, the two
+              ranks of each model index bitwise equal in their shards of
+              params, w, h_avg, m and v after every step (two workers),
+              and the first worker's shards, reassembled, within the
+              stated bound of the reference's final params
+              (``mesh_params_check``); per rank the step ms, the host ms,
+              calls and bytes sent of the model-axis collectives and of
+              the worker exchange, and the peak, beside the card's name
+              and power limit.  In the mesh_mamba2 launch,
+              ``mesh_families``: every arch's smoke config in f32 on 1x2,
+              its loss and gathered gradients against one rank on the
+              card (1e-5 relative, 1e-4 of each leaf's largest entry), and
+              granite-moe at full width cut to 2 layers (no leaf sharded)
+              bitwise.  Then
               the four committed 2x2 specs (``examples/specs/``
               pipelined_blocktopk, qsgd_bidirectional, federated_blocktopk,
               tree_mixed_codecs)
-              at smoke size on four ranks (``--dist-child mesh_specs``):
+              at smoke size in the four-rank launch of mesh and mesh_heads:
               each prints the file's fingerprint, its exact bits and four
               finite losses, with its launches per rank as MESH_SPECS
               says; and whether gloo's all-reduce takes a bf16 CUDA
@@ -3001,7 +3016,8 @@ def recording(records, holder=None, layout=False):
 def dist_child():
     """``--dist-child NAME DIR``: one rank under torchrun, its output in
     DIR/rank<RANK>.log.  ``reference``: :func:`dist_reference_child`;
-    a DIST_PATHS name: that path through ``launch.train.main`` with launch
+    a MESH_LAUNCHES name: its mesh paths (:func:`mesh_path_child`) and
+    checks; a DIST_PATHS name: that path through ``launch.train.main`` with launch
     counts reset just before it and read just after, then its step
     records, launches and peak memory."""
     import os
@@ -3014,14 +3030,28 @@ def dist_child():
     if name == "reference":
         dist_reference_child()
         return 0
-    if name == "mesh_specs":
-        mesh_specs_child(outdir)
+    if name in MESH_LAUNCHES:
+        # the launch's mesh paths one after the other, each between
+        # marker lines, then its other checks
+        launch = MESH_LAUNCHES[name]
+        for sub in launch["paths"]:
+            t0 = time.perf_counter()
+            print(f"[dist] begin {sub}", flush=True)
+            mesh_path_child(sub, outdir, rank)
+            print(f"[dist] seconds {time.perf_counter() - t0:.1f}")
+            print(f"[dist] end {sub}", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if launch.get("families"):
+            mesh_families_child(outdir)
+        if launch.get("specs"):
+            mesh_specs_child(outdir)
         return 0
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
 
     records, holder = [], {}
-    path = MESH if name == "mesh" else DIST_PATHS[name]
+    path = DIST_PATHS[name]
     torch.cuda.reset_peak_memory_stats()
     with recording(records, holder, layout=path.get("layout", False)):
         reset_launches()
@@ -3042,12 +3072,52 @@ def dist_child():
         print(f"[dist] resident_bytes {resident} allocated "
               f"{torch.cuda.memory_allocated()}")
         print(f"[dist] fsdp_dims {json.dumps(holder['shards'].dims)}")
-    if name == "mesh" and rank < MESH_M:
-        # the first worker group's shards, for the parent to reassemble
-        from repro_torch import tree as T
-        torch.save(T.tree_map(lambda a: a.cpu(), holder["state"].params),
-                   outdir / f"params_rank{rank}.pt")
     return 0
+
+
+def mesh_path_child(name, outdir, rank):
+    """One rank of a mesh path (``MESH_PATHS[name]``) through
+    ``launch.train.main`` (its own file store, cut by ``cut_depth`` to the
+    path's depth), launch counts reset just before it and read just
+    after; then its step records, launches, peak memory, every master
+    tree's resident bytes against its shards' and the logical tree's, and,
+    on the first worker group's ranks, the params shards for the parent
+    to reassemble."""
+    from repro_torch import tree as T
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+
+    path = MESH_PATHS[name]
+    records, holder = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    with recording(records, holder), cut_depth(path.get("layers")):
+        reset_launches()
+        train.main(path["argv"] + ["--dist-init",
+                                   f"file://{outdir}/store_{name}"])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    print(f"[dist] records {json.dumps(records)}")
+    print(f"[dist] launches {json.dumps(launches)}")
+    print(f"[dist] peak_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    st, shards = holder.pop("state"), holder.pop("shards")
+    # every master tree holds this rank's shards, never a whole leaf that
+    # the specs shard: its bytes, counted leaf by leaf, against the
+    # shards' and the logical tree's
+    want = sum(4 * math.prod(shards.shard_shape(j))
+               for j in range(len(shards.dims)))
+    logical = sum(4 * math.prod(shards.shape(j))
+                  for j in range(len(shards.dims)))
+    trees = {"params": st.params, "w": st.w, "h_avg": st.h_avg,
+             "m": st.opt_state["m"], "v": st.opt_state["v"]}
+    resident = {k: sum(x.numel() * x.element_size() for x in T.leaves(t))
+                for k, t in trees.items() if t is not None}
+    print(f"[dist] resident {json.dumps(resident)} shards {want} "
+          f"logical {logical} sharded_leaves "
+          f"{sum(d is not None for d in shards.dims)} of "
+          f"{len(shards.dims)}")
+    if rank < path["m"]:
+        torch.save(T.tree_map(lambda a: a.cpu(), st.params),
+                   outdir / f"params_{name}_rank{rank}.pt")
 
 
 #: the spec path's file, written from the pipelined path's flags
@@ -3221,9 +3291,8 @@ PATHS.update({
         "checkpoint": CKPT_DIR,
         "op": "ssd_chunked",
     },
-    # the driver has no depth flag (nor has JAX's): the driver's own
-    # functions on the config cut to 4 layers (``cut_setup``), then its
-    # loop (``train.train_loop``)
+    # the driver has no depth flag (nor has JAX's): its setup and loop on
+    # the config cut to 4 layers (``cut_depth``)
     "moe": {
         "argv": arch_argv("granite-moe-3b-a800m")
         + ["--compressor", "block_topk:256,16"],
@@ -3257,7 +3326,7 @@ ENCDEC_INIT_DRAWS = 2 + 24 * 11 + 24 * 7
 VLM_INIT_DRAWS = 2 + VLM_LAYERS * 7
 
 PATHS.update({
-    # the driver has no depth flag: cut to 12 layers by ``cut_setup``, a
+    # the driver has no depth flag: cut to 12 layers by ``cut_depth``, a
     # multiple of attn_every = 6, so the shared block runs twice
     "hybrid": {
         "argv": arch_argv("zamba2-7b")
@@ -3338,22 +3407,132 @@ DIST_PATHS["dist_fsdp"] = {
 LAYOUT_TREES = ("params", "w", "h_avg", "m", "v")
 MASK64 = (1 << 64) - 1
 QWEN2_PARAMS = 494_032_768
-#: the mesh path: the smoke_flags path's flags on a 2x2 mesh (2 workers x
-#: 2-way tensor parallelism), four gloo ranks sharing cuda:0; every rank
-#: packs every leaf once a step (in place or after a gather), encodes
-#: every leaf of the broadcast, and draws the whole init to keep its shards
+
+
+def with_workers(argv, n):
+    """``argv`` with ``--workers n``."""
+    out = list(argv)
+    out[out.index("--workers") + 1] = str(n)
+    return out
+
+
+def with_mesh(argv, mesh):
+    """``argv`` on ``--mesh mesh`` (its worker count in place of
+    ``--workers``) over gloo ranks."""
+    out = list(argv)
+    i = out.index("--workers")
+    del out[i:i + 2]
+    return out + ["--mesh", mesh, "--dist-backend", "gloo"]
+
+
+def mesh_bits(up, down=None, total=None, mesh=None, ranks=None):
+    """A mesh path's printed bits: the uplink per worker, the downlink
+    broadcast and the round's total where there is a downlink, and the
+    header's mesh and ranks."""
+    out = {r"(\d+) bits/round/worker": [up]}
+    if down is not None:
+        out[r"downlink (\d+) bits/round broadcast"] = [down]
+        out[r"total (\d+) bits/round up\+down"] = [total]
+    out[rf" (mesh={mesh} ranks={ranks} backend=gloo) device="] = [
+        f"mesh={mesh} ranks={ranks} backend=gloo"]
+    return out
+
+
+#: the mesh paths, each on gloo ranks sharing cuda:0 (``--dist-child
+#: NAME``), against a one-process path of the same flags and depth
+#: (``ref``, in PATHS): ``m`` ranks a worker, ``workers`` workers, the
+#: arch (cut to ``layers``), the exact bits rank 0 prints, the launches on
+#: every rank -- each rank packs every leaf of its worker once a step (in
+#: place or after a gather), encodes every leaf of the broadcast, and
+#: draws the whole init to keep its shards.
+#:   mesh: the smoke_flags path's flags on a 2x2 mesh (2 workers x 2-way
+#:     tensor parallelism), qwen2-0.5b cut to 8 of its 24 layers (cut
+#:     from 24 to keep the run's time with the model-axis paths);
+#:   mesh_heads: the same flags on 1x4, qwen2-0.5b whole: 14 / 4 = 3.5
+#:     query heads and half a KV head a rank, so each layer's attention
+#:     runs on weights gathered on use, its MLP Megatron-style;
+#:   mesh_mamba2: the mamba2 path's flags (seq 512, no checkpoint: a
+#:     rank's shards are not JAX's format) on 1x2, mamba2-130m whole: the
+#:     SSD leaves gathered on use, the embedding (vocab 50,280) and the
+#:     tied head replicated; the same two ranks then run the
+#:     ``mesh_families`` module check (``mesh_families_child``).
 MESH_M = 2
-MESH = {
-    "argv": [a for a in PATHS["smoke_flags"]["argv"]
-             if a not in ("--workers", str(WORKERS))]
-    + ["--mesh", f"{WORKERS}x{MESH_M}", "--dist-backend", "gloo"],
-    "bits": {**PATHS["smoke_flags"]["bits"],
-             r" (mesh=2x2 ranks=4 backend=gloo) device=":
-             ["mesh=2x2 ranks=4 backend=gloo"]},
-    "launches": {"pack_update": STEPS * FULL_LEAVES, "qsgd_pack_update": 0,
-                 "randk_update": 0, "threefry_uniform": STEPS * FULL_LEAVES
-                 + INIT_DRAWS},
+MESH_LAYERS = 8
+#: qwen2-0.5b at 8 layers, block_topk:256,16 up and qsgd:16 down
+MESH_CUT_BITS = (1_021_739_008, 2_043_477_440, 4_086_955_456)
+MESH_INIT_DRAWS = 1 + MESH_LAYERS * 7
+MAMBA2_MESH_ARGV = arch_argv("mamba2-130m", seq=512) \
+    + ["--compressor", "block_topk:256,16"]
+MESH_PATHS = {
+    "mesh": {
+        "argv": with_mesh(PATHS["smoke_flags"]["argv"],
+                          f"{WORKERS}x{MESH_M}"),
+        "m": MESH_M, "workers": WORKERS, "arch": "qwen2-0.5b",
+        "layers": MESH_LAYERS, "ref": "mesh_ref",
+        "bits": mesh_bits(*MESH_CUT_BITS, mesh="2x2", ranks=4),
+        "launches": {"pack_update": STEPS * FULL_LEAVES,
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + MESH_INIT_DRAWS},
+    },
+    "mesh_heads": {
+        "argv": with_mesh(PATHS["smoke_flags"]["argv"], "1x4"),
+        "m": 4, "workers": 1, "arch": "qwen2-0.5b", "ref": "mesh_heads_ref",
+        "bits": mesh_bits(FULL_BITS, QSGD_BITS, FULL_BITS + QSGD_BITS,
+                          mesh="1x4", ranks=4),
+        "launches": {"pack_update": STEPS * FULL_LEAVES,
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+    },
+    "mesh_mamba2": {
+        "argv": with_mesh(MAMBA2_MESH_ARGV, "1x2"),
+        "m": 2, "workers": 1, "arch": "mamba2-130m",
+        "ref": "mesh_mamba2_ref",
+        "bits": mesh_bits(MAMBA2_BITS, mesh="1x2", ranks=2),
+        "launches": {"pack_update": MAMBA2_LEAVES * STEPS,
+                     "threefry_uniform": MAMBA2_INIT_DRAWS},
+    },
 }
+#: the torchrun launches that run the mesh paths, to pay each launch's
+#: start (about 25 s: four processes importing torch, joining gloo and
+#: drawing the init) once: four ranks run mesh, mesh_heads, then the
+#: committed specs (``mesh_specs_child``); two run mesh_mamba2, then the
+#: ``mesh_families`` check
+MESH_LAUNCHES = {
+    "mesh_four": {"ranks": 4, "paths": ("mesh", "mesh_heads"),
+                  "specs": True},
+    "mesh_two": {"ranks": 2, "paths": ("mesh_mamba2",), "families": True},
+}
+#: the mesh paths' one-process references (main paths of their own, run
+#: with the others, their final params kept)
+PATHS.update({
+    "mesh_ref": {
+        "argv": PATHS["smoke_flags"]["argv"], "layers": MESH_LAYERS,
+        "bits": {k: v for k, v in mesh_bits(*MESH_CUT_BITS, mesh="2x2",
+                                            ranks=4).items()
+                 if "mesh=" not in k},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0, "threefry_uniform":
+                     STEPS * FULL_LEAVES + MESH_INIT_DRAWS},
+        "profile": None, "keep_params": True,
+    },
+    "mesh_heads_ref": {
+        "argv": with_workers(PATHS["smoke_flags"]["argv"], 1),
+        "bits": {k: v for k, v in MESH_PATHS["mesh_heads"]["bits"].items()
+                 if "mesh=" not in k},
+        "launches": {"pack_update": STEPS * FULL_LEAVES,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+        "profile": None, "keep_params": True,
+    },
+    "mesh_mamba2_ref": {
+        "argv": with_workers(MAMBA2_MESH_ARGV, 1), "vocab": 50280,
+        "bits": {r"(\d+) bits/round/worker": [MAMBA2_BITS]},
+        "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
+        "launches": {"pack_update": MAMBA2_LEAVES * STEPS,
+                     "qsgd_pack_update": 0, "randk_update": 0,
+                     "threefry_uniform": MAMBA2_INIT_DRAWS},
+        "profile": None, "keep_params": True,
+    },
+})
 MESH_TIMEOUT_S = 600
 #: the committed 2x2 specs (smoke size, 4 steps) and the launches each
 #: makes on a rank: the smoke model's 14 leaves a step, packed or
@@ -3583,55 +3762,6 @@ def check_pack_shapes(name, calls, launches):
           "path gave it each bitwise == plain on the card")
 
 
-def cut_setup(path, echo=print):
-    """``train.setup`` for a path cut in depth (``layers``).  The driver has
-    no depth flag (nor has JAX's), so the functions ``setup`` calls build
-    the run here on the arch's config at ``layers`` layers: the model and
-    JAX's weights at ``random.key(seed)``, ``build(spec)``'s state and step
-    (AdamW on the driver's schedule) and ``SyntheticLM``.  The spec is the
-    flags', which name the full-depth arch: the cut is this script's.
-    Prints the header lines the path's checks read (the fingerprint, the
-    wire's bits).  Returns (state, step_fn, data)."""
-    from repro_torch import random
-    from repro_torch.core import build
-    from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.distributed import wire
-    from repro_torch.launch import train
-    from repro_torch.models.model import build_model
-    from repro_torch.optim.optimizers import adamw
-
-    args = train.parse_args(path["argv"])
-    spec = train.experiment(args)
-    full = train.run_config(spec)
-    cfg = dataclasses.replace(full, n_layers=path["layers"])
-    run_ = build(spec)
-    model = build_model(cfg)
-    sched = train.make_schedule(train.schedule_kind(args.schedule,
-                                                    spec.problem),
-                                args.lr, spec.steps)
-    opt = adamw(sched, weight_decay=0.01)
-    params = model.init(random.key(spec.seed), device="cuda")
-    fmt = wire.tree_format_for(run_.algo.compressor, params,
-                               wire_dtype=spec.wire_dtype,
-                               rules=run_.algo.leaf_rules)
-    up, dense = fmt.bits_per_round(), fmt.dense_bits()
-    echo(f"[train] arch={cfg.name} family={cfg.family} at {cfg.n_layers} "
-         f"of {full.n_layers} layers params~{cfg.param_count():,} "
-         f"workers={spec.n} algo={spec.mode} agg={spec.agg} device=cuda")
-    echo(f"[train] spec fingerprint={spec.fingerprint()} (the flags' spec, "
-         f"{full.n_layers} layers)")
-    echo(f"[train] wire: {up} bits/round/worker uplink "
-         f"({up / max(dense, 1):.4f}x dense fp32)")
-    state = run_.init_state(params, opt)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
-                       global_batch=args.global_batch, n_workers=spec.n,
-                       seed=spec.seed, heterogeneity=args.heterogeneity,
-                       resample_from_shard=spec.resample,
-                       shard_size=args.shard_size)
-    step_fn = run_.train_step(model.loss, opt)
-    return state, step_fn, data
-
-
 class StepBatches:
     """A run's batches as the driver's loop makes them: ``data.batch(s)``
     with the family's extras (``train.step_batch``: the encdec's frames,
@@ -3647,25 +3777,45 @@ class StepBatches:
                                 step)
 
 
+@contextlib.contextmanager
+def cut_depth(layers):
+    """While open, ``launch.train.run_config`` gives the spec's config cut
+    to ``layers`` layers (None: as it is): the driver, which has no depth
+    flag, then builds, shards, prints and trains the cut model under its
+    own flags' spec, in one process or on a mesh rank."""
+    from repro_torch.launch import train
+
+    full = train.run_config
+    if layers:
+        train.run_config = lambda spec: dataclasses.replace(
+            full(spec), n_layers=layers)
+    try:
+        yield
+    finally:
+        train.run_config = full
+
+
 def drive(path, holder):
     """Run one main path through the driver's loop (``train.train_loop``)
     on ``train.setup`` of its flags, as ``train.main`` runs it in one
-    process, or, for a path cut in depth, on ``cut_setup``.
-    ``holder["run"]`` keeps the run's step function and its batches
-    (``StepBatches``), not its state: only the loop holds that."""
+    process, under ``cut_depth`` for a path cut in depth (``layers``; the
+    spec is the flags', which name the full-depth arch: the cut is this
+    script's).  ``holder["run"]`` keeps the run's step function and its
+    batches (``StepBatches``), not its state: only the loop holds
+    that."""
     from repro_torch.launch import train
 
     args = train.parse_args(path["argv"])
     spec = train.experiment(args)
 
     def make():
-        state, step_fn, data = (cut_setup(path) if path.get("layers")
-                                else train.setup(args, None, spec))
+        state, step_fn, data = train.setup(args, None, spec)
         holder["run"] = (step_fn, StepBatches(data, train.run_config(spec),
                                               args.global_batch))
         return state, step_fn, data
 
-    return train.train_loop(args, None, spec, make)
+    with cut_depth(path.get("layers")):
+        return train.train_loop(args, None, spec, make)
 
 
 def checkpoint_check(name, path, params):
@@ -4138,84 +4288,119 @@ def mesh_specs_child(outdir):
         print(f"[mesh-specs] end {name}", flush=True)
 
 
-def phase_mesh():
-    """The mesh path (``MESH``): four gloo ranks on cuda:0, full-width
-    qwen2-0.5b from JAX's weights.  Rank 0's exact bits; a finite loss at
-    every step on every rank; each kernel's launches per rank; at every
-    step, the two ranks of each model index (one per worker) hold bitwise
-    the same shards of params, w, h_avg, m and v; the first worker group's
-    params shards, reassembled, against the one-process smoke_flags run
-    from the same init (``mesh_params_check``).  Then the per-rank numbers.
-    Returns the launches summed over the ranks."""
-    collect("[main] mesh")
-    torch.cuda.empty_cache()
-    logs = run_ranks("mesh", ranks=WORKERS * MESH_M, timeout=MESH_TIMEOUT_S)
+def phase_mesh(name):
+    """A mesh path (``MESH_PATHS[name]``): its ranks on cuda:0 from JAX's
+    weights.  Rank 0's exact bits; a finite loss and a finite raw gradient
+    norm (``grad_norm``, before compression: fault w on mamba2) at every
+    step on every rank, within 1e-3 relative of the one-process ``ref``
+    path's losses; each kernel's launches per rank; every master tree
+    (params, w, h_avg, m, v) resident on every rank in exactly its shards'
+    bytes, below the logical tree's; with two workers, the two ranks of
+    each model index hold bitwise the same shards of params, w, h_avg, m
+    and v at every step; the first worker group's params shards,
+    reassembled, against the ``ref`` path's final params
+    (``mesh_params_check``).  Then the per-rank numbers.  Returns the
+    launches summed over the ranks."""
+    path = MESH_PATHS[name]
+    m, workers = path["m"], path["workers"]
+    logs = [log.split(f"[dist] begin {name}\n")[1].split(
+        f"[dist] end {name}\n")[0] for log in mesh_launch_logs(name)]
     text = logs[0]
-    for pat, expect in MESH["bits"].items():
+    for pat, expect in path["bits"].items():
         got = [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
         if got != expect:
-            raise AssertionError(f"[main] mesh: printed {pat!r} {got} != "
+            raise AssertionError(f"[main] {name}: printed {pat!r} {got} != "
                                  f"{expect}")
-    want = MAIN_RECORDS["smoke_flags"]
+    want = MAIN_RECORDS[path["ref"]]
+    one = [float.fromhex(b["loss"]) for b in want]
     records, total = [], {}
     for r, log in enumerate(logs):
         recs = json.loads(re.search(r"\[dist\] records (.*)", log)[1])
         launches = json.loads(re.search(r"\[dist\] launches (.*)", log)[1])
         peak = float(re.search(r"\[dist\] peak_gib (\S+)", log)[1])
+        res = re.search(r"\[dist\] resident (\{.*\}) shards (\d+) logical "
+                        r"(\d+) sharded_leaves (\d+) of (\d+)", log)
+        resident = json.loads(res[1])
+        shard_bytes, logical = int(res[2]), int(res[3])
         losses = [float.fromhex(a["loss"]) for a in recs]
-        if len(losses) != STEPS or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"[main] mesh rank {r}: losses {losses}")
+        norms = [a["grad_norm"] for a in recs]
+        if len(losses) != STEPS or not all(map(math.isfinite,
+                                               losses + norms)):
+            raise AssertionError(f"[main] {name} rank {r}: losses {losses} "
+                                 f"grad_norm {norms}")
         # bf16 activations summed in another order by the model axis's
-        # all-reduces: the losses within 1e-3 relative of one process
-        one = [float.fromhex(b["loss"]) for b in want]
+        # collectives: the losses within 1e-3 relative of one process
         if any(abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, one)):
-            raise AssertionError(f"[main] mesh rank {r}: losses {losses} "
+            raise AssertionError(f"[main] {name} rank {r}: losses {losses} "
                                  f"vs one process {one}")
-        expect = {**dict.fromkeys(launches, 0), **MESH["launches"]}
+        expect = {**dict.fromkeys(launches, 0), **path["launches"]}
         if launches != expect:
-            raise AssertionError(f"[main] mesh rank {r}: launches "
+            raise AssertionError(f"[main] {name} rank {r}: launches "
                                  f"{launches}, want {expect}")
+        if any(v != shard_bytes for v in resident.values()) or \
+                not shard_bytes < logical:
+            raise AssertionError(f"[main] {name} rank {r}: resident "
+                                 f"{resident}, shards {shard_bytes}, "
+                                 f"logical {logical}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         records.append(recs)
-        print(f"[main] mesh rank {r} (worker {r // MESH_M}, model "
-              f"{r % MESH_M}): losses={losses} (one process {one}) "
-              f"launches={launches}")
-        print(f"[profile] mesh rank {r}: step_ms="
+        print(f"[main] {name} rank {r} (worker {r // m}, model {r % m}): "
+              f"losses={losses} (one process {one}) grad_norm={norms} "
+              f"launches={launches}; resident bytes by tree {resident} = "
+              f"its shards' {shard_bytes} of the logical {logical} "
+              f"({res[4]} of {res[5]} leaves sharded)")
+        print(f"[profile] {name} rank {r}: step_ms="
               f"{[a['step_ms'] for a in recs]} model_axis_host_ms="
               f"{[a['model_ms'] for a in recs]} model_axis_calls="
               f"{[a['model_calls'] for a in recs]} model_axis_bytes_sent="
               f"{[a['model_bytes'] for a in recs]} exchange_host_ms="
               f"{[a['exchange_ms'] for a in recs]} exchange_bytes_sent="
-              f"{[a['bytes'] // WORKERS for a in recs]} peak_gib={peak:.2f} "
-              "(four processes time-slice one card; gloo moves every "
-              "collective through host memory: not NCCL, not a "
-              "tensor-parallel time)")
-    for m in range(MESH_M):
-        a, b = records[m], records[MESH_M + m]
+              f"{[a['bytes'] // workers for a in recs]} peak_gib={peak:.2f} "
+              f"on {SMI} ({workers * m} processes time-slice one card; gloo "
+              "moves every collective through host memory: not NCCL, not "
+              "a tensor-parallel time)")
+    for i in range(m if workers > 1 else 0):
+        a, b = records[i], records[m + i]
         same = [x["master"] for x in a] == [y["master"] for y in b]
-        print(f"[main] mesh: model index {m}: ranks {m} and {MESH_M + m} "
+        print(f"[main] {name}: model index {i}: ranks {i} and {m + i} "
               f"hold {'bitwise the same' if same else 'DIFFERENT'} shards "
               "of params, w, h_avg, m, v at every step")
         if not same:
-            raise AssertionError(f"[main] mesh: model index {m} ranks "
+            raise AssertionError(f"[main] {name}: model index {i} ranks "
                                  "differ")
-    mesh_params_check()
+    secs = re.search(r"\[dist\] seconds (\S+)", logs[0])[1]
+    print(f"[main] {name}: {secs} s on rank 0 from its driver's start to "
+          "its last check")
+    mesh_params_check(name)
     return total
 
 
-def mesh_params_check():
-    """The mesh's final params (the first worker group's shards,
-    reassembled by ``param_specs``) against the one-process smoke_flags
-    run's, both from ``init(random.key(0))``.  Their bf16 activations are
-    summed in another order, so a block-top-k near-tie can select other
-    values, and AdamW then moves an element by up to lr_t * 1.001 a step
-    (its m / sqrt(v) bound at b1 0.9, b2 0.95 over 3 steps) either way:
-    max |diff| <= 2.02 * sum_t lr_t.  Beyond that bound, the share of
-    elements that differ by more than 1e-6 must stay below 0.25 and the
-    norm of the difference below half the norm of the update, which a
-    wrong gradient or shard would break (at smoke size on the CPU: 2-8%
-    and 0.19)."""
+def mesh_launch_logs(name):
+    """The rank logs of the MESH_LAUNCHES launch that runs the mesh path
+    ``name``, launching it the first time one of its paths asks."""
+    launch = next(k for k, v in MESH_LAUNCHES.items() if name in v["paths"])
+    if launch not in MESH_LOGS:
+        collect(f"[main] {launch}")
+        torch.cuda.empty_cache()
+        MESH_LOGS[launch] = run_ranks(launch,
+                                      ranks=MESH_LAUNCHES[launch]["ranks"],
+                                      timeout=MESH_TIMEOUT_S)
+    return MESH_LOGS[launch]
+
+
+def mesh_params_check(name):
+    """A mesh path's final params (the first worker group's shards,
+    reassembled by ``param_specs``) against its one-process ``ref``
+    path's, both from ``init(random.key(0))`` at the same depth.  Their
+    bf16 activations are summed in another order, so a block-top-k
+    near-tie can select other values, and AdamW then moves an element by
+    up to lr_t * 1.001 a step (its m / sqrt(v) bound at b1 0.9, b2 0.95
+    over 3 steps) either way: max |diff| <= 2.02 * sum_t lr_t.  Beyond
+    that bound, the share of elements that differ by more than 1e-6 must
+    stay below 0.25 and the norm of the difference below half the norm of
+    the update, which a wrong gradient or shard would break (at smoke size
+    on the CPU: 2-8% and 0.19)."""
     from repro_torch import random
     from repro_torch import tree as T
     from repro_torch.configs import get_config
@@ -4223,13 +4408,18 @@ def mesh_params_check():
     from repro_torch.models.model import build_model
     from repro_torch.optim.schedules import cosine
 
-    model = build_model(get_config("qwen2-0.5b"))
+    path = MESH_PATHS[name]
+    cfg = get_config(path["arch"])
+    if path.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=path["layers"])
+    model = build_model(cfg)
     dims = [spec_dim(x) for x in T.leaves(model.param_specs(),
                                           is_leaf=is_spec)]
-    outdir = ROOT / "build" / "dist" / "mesh"
-    parts = [T.leaves(torch.load(outdir / f"params_rank{r}.pt"))
-             for r in range(MESH_M)]
-    one = T.leaves(MAIN_PARAMS["smoke_flags"])
+    launch = next(k for k, v in MESH_LAUNCHES.items() if name in v["paths"])
+    outdir = ROOT / "build" / "dist" / launch
+    parts = [T.leaves(torch.load(outdir / f"params_{name}_rank{r}.pt"))
+             for r in range(path["m"])]
+    one = T.leaves(MAIN_PARAMS[path["ref"]])
     init = T.leaves(model.init(random.key(0), device="cuda"))
     sched = cosine(3e-4, total_steps=STEPS,
                    warmup_steps=max(STEPS // 20, 1))
@@ -4245,13 +4435,153 @@ def mesh_params_check():
         num += float((d * d).sum())
         den += float(((o.double() - i.double()) ** 2).sum())
     share, rel = over / count, math.sqrt(num / den)
-    print(f"[main] mesh: reassembled params after {STEPS} steps vs one "
-          f"process: max |diff| {worst:.3e} (bound {bound:.3e}), share "
-          f"differing > 1e-6 {share:.4f} (limit 0.25), |diff| / |update| "
-          f"{rel:.4f} (limit 0.5)")
+    print(f"[main] {name}: reassembled params after {STEPS} steps vs one "
+          f"process ({path['ref']}): max |diff| {worst:.3e} (bound "
+          f"{bound:.3e}), share differing > 1e-6 {share:.4f} (limit 0.25), "
+          f"|diff| / |update| {rel:.4f} (limit 0.5)")
     if not (worst <= bound and share < 0.25 and rel < 0.5):
-        raise AssertionError("[main] mesh: params outside the tolerance of "
-                             "the one-process run")
+        raise AssertionError(f"[main] {name}: params outside the tolerance "
+                             "of the one-process run")
+
+
+#: each mesh path's rank logs, for the phases that read them again
+MESH_LOGS = {}
+#: the module check of the model axis: each arch's smoke config in f32 on
+#: a 1x2 mesh against the same arch's one-rank run on the card, and
+#: granite-moe at full width cut to 2 layers, whose specs shard no leaf
+#: (its 'replicate' attention, 40 experts, vocab 49,155): the compute is
+#: replicated and nothing is reduced, so it must be bitwise
+FAMILY_TP_ARCHS = ("minitron-8b", "granite-moe-3b-a800m", "mamba2-130m",
+                   "phi3-medium-14b", "qwen2-vl-2b", "dbrx-132b",
+                   "whisper-medium", "minicpm-2b", "qwen2-0.5b", "zamba2-7b",
+                   "granite-moe-3b-a800m@full2")
+#: the loss's relative and each gradient leaf's tolerance (of its largest
+#: entry) against one rank, f32 activations: JAX's one-device tolerance in
+#: tests/test_torch_imports.py (the CPU run is within 3e-6)
+FAMILY_TP_RTOL, FAMILY_TP_LEAF = 1e-5, 1e-4
+
+
+def family_tp_config(arch):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    name, _, cut = arch.partition("@full")
+    cfg = dataclasses.replace(get_config(name), n_layers=int(cut)) if cut \
+        else get_smoke_config(name)
+    return dataclasses.replace(cfg, activation_dtype="float32")
+
+
+def mesh_families_child(outdir):
+    """The ``mesh_families`` check on this rank of the mesh_mamba2 launch
+    (a new group of both ranks, one worker of two model ranks): for each
+    FAMILY_TP_ARCHS config, JAX's weights (``init(random.key(0))``) and
+    one batch of 2 x 64 tokens with the family's extras, the loss and the
+    logical gradients gathered from this rank's shards; rank 0 also runs
+    the one-rank loss and gradients on the same card and prints how far
+    apart they are; every rank prints a checksum of its replicated
+    leaves' gradients.  Launch counts are reset just before and read just
+    after."""
+    import os
+
+    from repro_torch import random
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.distributed.aggregate import ModelShards, WorkerGroup
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import family_batch_extras
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import value_and_grad
+
+    t0 = time.perf_counter()
+    world = int(os.environ["WORLD_SIZE"])
+    reset_launches()
+    group = WorkerGroup.join(1, backend="gloo", device="cuda:0",
+                             init_method=f"file://{outdir}/families",
+                             model_size=world)
+    tp = group.model
+    try:
+        for arch in FAMILY_TP_ARCHS:
+            cfg = family_tp_config(arch)
+            model = build_model(cfg)
+            params = model.init(random.key(0), device="cuda")
+            raw = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=2,
+                              n_workers=1, seed=3).batch(0)
+            raw.update(family_batch_extras(cfg, 2, 0))
+            batch = {k: torch.as_tensor(v).cuda() for k, v in raw.items()}
+            shards = ModelShards.of(tp, model.param_specs(),
+                                    model.init_abstract())
+            calls = tp.stats["model_calls"]
+            loss, g = value_and_grad(
+                lambda p, b: model.loss(p, b, tp=tp),
+                shards.shard_tree(params), batch)
+            calls = tp.stats["model_calls"] - calls
+            whole = shards.gather_tree(g)
+            rep = [x for x, d in zip(T.leaves(g), shards.dims) if d is None]
+            out = {"arch": arch, "loss": float(loss).hex(),
+                   "replicated": params_checksum(rep),
+                   "sharded": sum(d is not None for d in shards.dims),
+                   "leaves": len(shards.dims), "collectives": calls}
+            if tp.rank == 0:
+                one_loss, one = value_and_grad(model.loss, params, batch)
+                out["one_loss"] = float(one_loss).hex()
+                worst, bitwise = 0.0, bool(torch.equal(loss, one_loss))
+                for a, b in zip(T.leaves(whole), T.leaves(one)):
+                    scale = float(b.abs().max()) or 1.0
+                    worst = max(worst, float((a - b).abs().max()) / scale)
+                    bitwise = bitwise and bool(torch.equal(a, b))
+                out.update(leaf_rel=worst, bitwise=bitwise)
+            print(f"[mesh-families] {json.dumps(out)}", flush=True)
+            del params, g, whole, shards
+    finally:
+        group.close()
+    torch.cuda.synchronize()
+    print(f"[mesh-families] launches {json.dumps(dict(LAUNCHES))}")
+    print(f"[mesh-families] seconds {time.perf_counter() - t0:.1f}")
+
+
+def phase_mesh_families():
+    """The ``mesh_families`` check, from the mesh_mamba2 launch's logs:
+    every arch's loss on both ranks, the same on each, within
+    FAMILY_TP_RTOL of its one-rank loss and each logical gradient leaf
+    within FAMILY_TP_LEAF of its largest entry (an M-fold gradient fails);
+    granite-moe at full width, whose leaves are all replicated, bitwise;
+    the replicated leaves' gradients bitwise the same on both ranks.
+    Returns the launches (the inits' draws) summed over the ranks."""
+    logs = MESH_LOGS["mesh_two"]
+    rows = [[json.loads(x) for x in re.findall(
+        r"\[mesh-families\] (\{\"arch.*)", log)] for log in logs]
+    if [len(r) for r in rows] != [len(FAMILY_TP_ARCHS)] * len(logs):
+        raise AssertionError(f"[mesh-families] rows {[len(r) for r in rows]}")
+    for arch, *per_rank in zip(FAMILY_TP_ARCHS, *rows):
+        r0 = per_rank[0]
+        loss, one = float.fromhex(r0["loss"]), float.fromhex(r0["one_loss"])
+        same = all(r["loss"] == r0["loss"] and
+                   r["replicated"] == r0["replicated"] for r in per_rank)
+        want_bitwise = r0["sharded"] == 0
+        print(f"[mesh-families] {arch}: loss {loss!r} on both ranks "
+              f"{'(equal)' if same else '(DIFFERENT)'}, one rank {one!r}, "
+              f"relative {abs(loss - one) / abs(one):.3e} (limit "
+              f"{FAMILY_TP_RTOL:g}); gradients gathered from the shards "
+              f"within {r0['leaf_rel']:.3e} of one rank's largest entry a "
+              f"leaf (limit {FAMILY_TP_LEAF:g}); bitwise "
+              f"{r0['bitwise']}; {r0['sharded']} of {r0['leaves']} leaves "
+              f"sharded, {r0['collectives']} model-axis collectives in the "
+              f"step; on {SMI}")
+        if not same or abs(loss - one) > FAMILY_TP_RTOL * abs(one) or \
+                r0["leaf_rel"] > FAMILY_TP_LEAF or \
+                (want_bitwise and not r0["bitwise"]):
+            raise AssertionError(f"[mesh-families] {arch}: outside the "
+                                 "tolerance of one rank")
+    total = {}
+    for r, log in enumerate(logs):
+        launches = json.loads(re.search(
+            r"\[mesh-families\] launches (.*)", log)[1])
+        secs = re.search(r"\[mesh-families\] seconds (\S+)", log)[1]
+        print(f"[mesh-families] rank {r}: launches {launches} in {secs} s")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    if not total.get("threefry_uniform"):
+        raise AssertionError("[mesh-families] the inits drew nothing")
+    return total
 
 
 def phase_mesh_specs():
@@ -4262,9 +4592,9 @@ def phase_mesh_specs():
     specs."""
     from repro_torch.core import ExperimentSpec
 
-    collect("[main] mesh_specs")
-    torch.cuda.empty_cache()
-    logs = run_ranks("mesh_specs", ranks=WORKERS * MESH_M)
+    # run in the mesh paths' four-rank launch, after them
+    logs = [log.split("[dist] end mesh_heads\n")[1]
+            for log in MESH_LOGS["mesh_four"]]
     print(re.search(r"\[mesh-specs\] gloo all_reduce.*", logs[0])[0])
     total = {}
     for name, want in MESH_SPECS.items():
@@ -5096,7 +5426,13 @@ KERNEL_ROWS = {
 }
 
 
+#: the card's name and power limit (``nvidia-smi``), printed beside the
+#: mesh paths' numbers
+SMI = ""
+
+
 def main():
+    global SMI
     if sys.argv[1:2] == ["--randk-trap-child"]:
         return randk_trap_child()
     if sys.argv[1:2] == ["--dist-child"]:
@@ -5112,6 +5448,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
     print(f"[env] nvidia-smi: {smi}")
+    SMI = smi.splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[env] tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
@@ -5144,9 +5481,14 @@ def main():
     timed("finetune", phase_profile, "finetune")
     for name in DIST_PATHS:
         launches[name] = timed(name, phase_dist, name)
-    launches["mesh"] = timed("mesh", phase_mesh)
+    # mesh's launch also runs mesh_heads and mesh_specs, mesh_mamba2's
+    # the mesh_families check: each phase reads its part of the logs
+    for name in MESH_PATHS:
+        launches[name] = timed(name, phase_mesh, name)
+    launches["mesh_families"] = timed("mesh_mamba2", phase_mesh_families)
     MAIN_PARAMS.clear()
     launches["mesh_specs"] = timed("mesh_specs", phase_mesh_specs)
+    MESH_LOGS.clear()
     launches["compressor_bench"] = timed("compressor_bench", phase_bench)
     launches["serve_fleet"] = timed("serve_fleet", phase_serve_fleet)
     launches["serve_delta"] = timed("serve_delta", phase_serve_delta)

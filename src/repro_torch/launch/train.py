@@ -95,8 +95,21 @@ gloo ranks on the CPU:
         --downlink qsgd:16
 
 The wire bits are those of the logical gradient, unchanged from ``2x1``.
-A model axis whose heads do not split whole is refused
-(``Model.model_axis_refusal``).
+Every family runs on a model axis, heads whole or not (``models/model.py``
+says how); one that does not split a sharded dim (M = 3) is refused
+(``Model.model_axis_refusal``).  qwen2 with half a KV head a rank, and
+mamba2 with its SSD block gathered on use:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --smoke --device cpu \
+        --dist-backend gloo --mesh 1x4 --steps 2 --global-batch 8 \
+        --seq 32 --compressor block_topk:256,16 --agg sparse_allgather \
+        --downlink qsgd:16
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch mamba2-130m --smoke \
+        --device cpu --dist-backend gloo --mesh 1x2 --steps 2 \
+        --global-batch 8 --seq 64 --compressor block_topk:256,16 \
+        --agg sparse_allgather
 
 ``--trainer fsdp`` (a spec's ``backend: fsdp``) runs the fsdp trainer
 (``train.trainer.make_train_step_fsdp``): under ``torchrun`` each rank
@@ -718,7 +731,10 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
         if group.model is not None:
             ms = group.model.stats
             steps = max(spec.steps, 1)
+            held = sum(d is not None for d in shards.dims)
             echo(f"[train] model axis: {group.model.size} ranks a worker, "
+                 f"each holding its shards of {held} of "
+                 f"{len(shards.dims)} leaves, "
                  f"{ms['model_calls'] // steps} collectives and "
                  f"{ms['model_bytes'] // steps} B sent per rank per step, "
                  f"{1e3 * ms['model_s'] / steps:.2f} ms host time in them "
@@ -1427,15 +1443,6 @@ def _assert_fleet_pinned(pusher: DeltaPusher, replicas) -> None:
                     f"at version {pusher.version}")
 
 
-def serve_refusal(spec: ExperimentSpec) -> str:
-    """What of a spec's serving leg the port does not have yet ('' when
-    nothing)."""
-    if model_axis(spec) > 1:
-        return (f"mesh {spec.mesh!r}: serving on a 'model' axis above 1 is "
-                "not yet ported to repro_torch")
-    return ""
-
-
 def run_fleet(spec: ExperimentSpec, *, ckpt_dir=None, quiet: bool = False,
               device="cuda") -> dict:
     """The simulated replica fleet of ``spec``'s ``serve`` leg (JAX's
@@ -1443,14 +1450,12 @@ def run_fleet(spec: ExperimentSpec, *, ckpt_dir=None, quiet: bool = False,
     simulated training trajectory while every replica decodes its
     requests (two waves of ``slots``), a push staged while the old version
     serves and committed between steps.  Asserts every replica's w bitwise
-    the pusher's after every push; returns JAX's metrics under its keys."""
+    the pusher's after every push; returns JAX's metrics under its keys.
+    As in JAX, the fleet runs in this one process and reads no ``mesh``."""
     sv = spec.serve_spec()
     if sv is None:
         raise SpecError("run_fleet needs a spec with a serve leg (e.g. "
                         "serve='replicas:2,slots:2,prompt:4,gen:8')")
-    refusal = serve_refusal(spec)
-    if refusal:
-        raise SpecError(refusal)
     dev = resolve_device(device)
     cfg = run_config(spec)
     model = build_model(cfg)
@@ -1580,9 +1585,6 @@ def serve_main(argv=None):
                                 "'serve' field")
         except (SpecError, ValueError, OSError) as e:
             raise SystemExit(f"[serve] bad experiment spec: {e}")
-        refusal = serve_refusal(spec)
-        if refusal:
-            raise SystemExit(f"[serve] {refusal}")
         return run_fleet(spec, ckpt_dir=args.ckpt_dir, device=dev)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

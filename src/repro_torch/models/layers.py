@@ -21,7 +21,9 @@ in JAX, divisibility is tested against :data:`MODEL_AXIS_SIZE` (16, the
 production axis), not against the mesh at hand.  :class:`ModelAxis` is a
 rank's place on that axis; :func:`to_model` (identity forward, all-reduce
 backward) and :func:`from_model` (all-reduce forward, identity backward)
-are the two collectives of tensor parallelism, as autograd functions.
+are the two collectives of tensor parallelism, as autograd functions, and
+:func:`gather_tree` gathers a layer's sharded leaves for a compute that
+runs replicated (all-gather forward, this rank's slice backward).
 """
 
 from __future__ import annotations
@@ -183,12 +185,58 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherParam(torch.autograd.Function):
+    """A sharded weight gathered for use: all-gather forward; backward
+    keeps this rank's slice of the gradient, with no reduction (the compute
+    that uses the gathered weight runs replicated over the axis, so every
+    rank's gradient is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.shard(g, ctx.dim), None, None
+
+
 def to_model(x: Tensor, axis: Optional[ModelAxis]) -> Tensor:
     return x if axis is None else _ToModel.apply(x, axis)
 
 
 def from_model(x: Tensor, axis: Optional[ModelAxis]) -> Tensor:
     return x if axis is None else _FromModel.apply(x, axis)
+
+
+def gather_tree(p: Dict[str, Any], specs: Dict[str, Any],
+                axis: Optional[ModelAxis]) -> Dict[str, Any]:
+    """``p`` (a rank's shards of one layer's leaves, specs ``specs``) with
+    every sharded leaf gathered on use (:class:`_GatherParam`): the logical
+    weights, for a compute that runs replicated over the axis."""
+    if axis is None:
+        return p
+    if isinstance(p, dict):
+        return {k: gather_tree(v, specs[k], axis) for k, v in p.items()}
+    dim = spec_dim(specs)
+    return p if dim is None else _GatherParam.apply(p, axis, dim)
+
+
+def head_aligned(specs: Dict[str, Spec], n_heads: int, n_kv: int,
+                 size: int) -> bool:
+    """Whether an attention's shards run Megatron-style on ``size`` ranks:
+    q, k and v column-sharded, o row-sharded, and whole query and KV heads
+    on every rank.  Otherwise its sharded leaves are gathered on use."""
+    return (specs["wq"] == specs["wk"] == specs["wv"] == (None, MODEL_AXIS)
+            and specs["wo"] == (MODEL_AXIS, None)
+            and n_heads % size == 0 and n_kv % size == 0)
+
+
+def mlp_aligned(specs: Dict[str, Spec]) -> bool:
+    """Whether a SwiGLU's shards run Megatron-style: gate and up
+    column-sharded, down row-sharded."""
+    return (specs["wg"] == specs["wu"] == (None, MODEL_AXIS)
+            and specs["wd"] == (MODEL_AXIS, None))
 
 
 def vocab_parallel_embed(embed: Tensor, tokens: Tensor, dtype,

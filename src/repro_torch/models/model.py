@@ -21,11 +21,18 @@ per-leaf layout depends on.  ``init`` follows JAX's key tree, so
 
 On a mesh with a ``model`` axis of M ranks (``tp``, a
 :class:`~repro_torch.models.layers.ModelAxis`) each rank holds the shards
-that :meth:`Model.param_specs` names and runs Megatron-style tensor
-parallelism: column-parallel q/k/v (with biases) and gate/up, row-parallel
-o and down followed by an all-reduce, a vocab-parallel embedding and tied
-LM head with a vocab-parallel cross-entropy.  The ranks' heads must be
-whole, and the family dense (:meth:`Model.model_axis_refusal`).
+that :meth:`Model.param_specs` names, in every family, and computes the
+logical function: an attention whose heads split whole and an MLP run
+Megatron-style (column-parallel q/k/v with biases and gate/up, row-parallel
+o and down followed by an all-reduce); a vocab-sharded embedding and LM
+head (tied or not) run vocab-parallel, with a vocab-parallel
+cross-entropy; every other sharded leaf -- an attention whose heads do not
+split whole, the SSD block, the experts -- is gathered on use, one layer at
+a time, and its compute runs replicated over the axis
+(``layers.gather_tree``).  Replicated leaves (granite's attention, an
+embedding whose vocab 16 does not divide) run the plain ops, with no
+collective.  M must split every sharded dim
+(:meth:`Model.model_axis_refusal`).
 """
 
 from __future__ import annotations
@@ -312,44 +319,76 @@ class Model:
         return specs
 
     def model_axis_refusal(self, size: int) -> str:
-        """Why the tensor-parallel forward cannot run on a ``model`` axis of
-        ``size`` ranks ('' when it can): it needs the dense family, whole
-        query and KV heads on every rank, the q/k/v/gate/up weights
-        column-sharded, o and down row-sharded and the embedding
-        vocab-sharded by ``param_specs``.  JAX's 'flat' policy also splits
-        heads that do not align and GSPMD re-partitions them, and shards the
-        experts and the SSD projections; the port does not yet."""
-        if size == 1:
-            return ""
+        """Why the model cannot run on a ``model`` axis of ``size`` ranks
+        ('' when it can): a leaf that ``param_specs`` shards on a dim that
+        ``size`` does not divide (a model axis of 3, say).  Every family
+        runs on any axis that splits its sharded dims, heads whole or not
+        (the module docstring)."""
+        for (path, leaf), spec in zip(
+                T.flatten_with_path(self.init_abstract()),
+                T.leaves(self.param_specs(), is_leaf=L.is_spec)):
+            dim = L.spec_dim(spec)
+            if dim is not None and leaf.shape[dim] % size:
+                return (f"a 'model' axis of {size}: {'/'.join(path)} "
+                        f"{tuple(leaf.shape)} does not split over {size} "
+                        "ranks; such a mesh is not yet ported to repro_torch "
+                        "(ROADMAP queue 1, item 2f)")
+        return ""
+
+    def _specs(self) -> PyTree:
+        """:meth:`param_specs` with the stacked trees' specs per layer (the
+        lifted L axis dropped), as :func:`_per_layer` hands out leaves."""
+        specs = self.param_specs()
+        unlift = lambda tree: T.tree_map(  # noqa: E731
+            lambda s: s[1:], tree, is_leaf=L.is_spec)
+        return {k: unlift(v) if k in ("layers", "encoder") else v
+                for k, v in specs.items()}
+
+    def vocab_sharded(self, tp: Optional[L.ModelAxis]) -> bool:
+        """Whether the LM head (the embedding, when tied) is vocab-sharded
+        on ``tp``: then the logits are this rank's vocab shard and the loss
+        is the vocab-parallel cross-entropy."""
+        if tp is None:
+            return False
+        specs = self.param_specs()
+        head = specs["embed"][::-1] if self.cfg.tie_embeddings \
+            else specs["lm_head"]
+        return L.spec_dim(head) is not None
+
+    def _attend(self, p: Dict[str, torch.Tensor], specs: Dict[str, Any],
+                x: torch.Tensor, tp: Optional[L.ModelAxis], *,
+                kv_src: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+        """One attention on this rank's leaves ``p`` (self-attention, or
+        cross-attention over ``kv_src``, projected by ``p``'s k and v with
+        no bias and no rope): Megatron-style where ``layers.head_aligned``,
+        else on the weights gathered on use, replicated over the axis."""
         cfg = self.cfg
-        why = ""
-        if cfg.family != "dense":
-            why = (f"the {cfg.family} family (the port's tensor parallelism "
-                   "covers the dense family's attention and MLP only)")
-        elif cfg.n_heads % size or cfg.n_kv_heads % size:
-            why = (f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads do "
-                   f"not split into whole heads over {size} ranks")
-        elif not cfg.tie_embeddings:
-            why = "an untied LM head"
+        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+        reduce = None
+        if tp is not None and L.head_aligned(specs, nh, nkv, tp.size):
+            nh, nkv, reduce = nh // tp.size, nkv // tp.size, tp
+            x = L.to_model(x, tp)
+            if kv_src is not None:
+                kv_src = L.to_model(kv_src, tp)
         else:
-            want = {"embed": (MODEL, None), "wq": (None, None, MODEL),
-                    "wk": (None, None, MODEL), "wv": (None, None, MODEL),
-                    "wo": (None, MODEL, None), "wg": (None, None, MODEL),
-                    "wu": (None, None, MODEL), "wd": (None, MODEL, None)}
-            for (path, leaf), spec in zip(
-                    T.flatten_with_path(self.init_abstract()),
-                    T.leaves(self.param_specs(), is_leaf=L.is_spec)):
-                dim = L.spec_dim(spec)
-                if want.get(path[-1], spec) != spec:
-                    why = f"{'/'.join(path)} has spec {spec}"
-                elif dim is not None and leaf.shape[dim] % size:
-                    why = (f"{'/'.join(path)} {tuple(leaf.shape)} does not "
-                           f"split over {size} ranks")
-                if why:
-                    break
-        return (f"a 'model' axis of {size}: {why}; such a mesh is not yet "
-                "ported to repro_torch (ROADMAP queue 1, item 2f)"
-                if why else "")
+            p = L.gather_tree(p, specs, tp)
+        kv = None
+        if kv_src is not None:
+            B, Se, _ = kv_src.shape
+            kv = tuple((kv_src @ p[w].to(x.dtype)).reshape(B, Se, nkv, hd)
+                       for w in ("wk", "wv"))
+        return L.from_model(L.attention(p, x, n_heads=nh, n_kv=nkv, hd=hd,
+                                        kv=kv, **kw), reduce)
+
+    @staticmethod
+    def _ffn(p: Dict[str, torch.Tensor], specs: Dict[str, Any],
+             x: torch.Tensor, tp: Optional[L.ModelAxis]) -> torch.Tensor:
+        """SwiGLU on this rank's leaves: Megatron-style where
+        ``layers.mlp_aligned``, else gathered on use (a no-op for
+        replicated leaves)."""
+        if tp is not None and L.mlp_aligned(specs):
+            return L.from_model(L.swiglu(p, L.to_model(x, tp)), tp)
+        return L.swiglu(L.gather_tree(p, specs, tp), x)
 
     # --------------------------------------------------------------- forward
 
@@ -366,7 +405,7 @@ class Model:
         cfg = self.cfg
         adt = _DTYPES[cfg.activation_dtype]
         tokens = batch["tokens"].long()
-        if tp is None:
+        if tp is None or L.spec_dim(self.param_specs()["embed"]) is None:
             h = params["embed"].to(adt)[tokens]
         else:
             h = L.vocab_parallel_embed(params["embed"], tokens, adt, tp)
@@ -392,7 +431,8 @@ class Model:
             h = h + sinusoid(S, cfg.d_model, adt, dev)
         return h, pos
 
-    def _encode(self, params: PyTree, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: PyTree, frames: torch.Tensor,
+                tp: Optional[L.ModelAxis] = None) -> torch.Tensor:
         """The whisper-style encoder over the stub frame embeddings
         (B, F, d), JAX's ``_encode``: the frames plus the sinusoid in the
         activation dtype, non-causal attention without RoPE and SwiGLU a
@@ -403,13 +443,13 @@ class Model:
                                       frames.device)
         B, S, _ = h.shape
         pos = torch.arange(S, device=h.device).expand(B, S)
+        es = self._specs()["encoder"]
         for lp in _per_layer(params["encoder"], cfg.encoder_layers):
-            h = h + L.attention(lp["attn"],
-                                L.rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                hd=cfg.hd(), positions=pos, theta=0.0,
-                                causal=False)
-            h = h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+            h = h + self._attend(lp["attn"], es["attn"],
+                                 L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp,
+                                 positions=pos, theta=0.0, causal=False)
+            h = h + self._ffn(lp["mlp"], es["mlp"],
+                              L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
         return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
     def _decoder_blocks(self, params: PyTree, h: torch.Tensor,
@@ -422,55 +462,52 @@ class Model:
         its leaves' gradients summed over those runs.  Returns (hidden,
         aux loss summed over the layers; 0.0 but for moe)."""
         cfg = self.cfg
-        m = 1 if tp is None else tp.size
-        nh, nkv, hd = cfg.n_heads // m, cfg.n_kv_heads // m, cfg.hd()
-        attn_kw = dict(n_heads=nh, n_kv=nkv, hd=hd, positions=positions,
-                       theta=cfg.rope_theta, window=cfg.attn_window,
+        attn_kw = dict(positions=positions, theta=cfg.rope_theta,
+                       window=cfg.attn_window,
                        mrope_sections=cfg.mrope_sections, impl=cfg.attn_impl)
         ssm_kw = dict(d_inner=cfg.d_inner(), d_state=cfg.ssm_state,
                       n_heads=cfg.ssm_heads(), chunk=cfg.ssm_chunk,
                       norm_eps=cfg.norm_eps)
+        specs = self._specs()
+        ls = specs["layers"]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
             if cfg.family in ("ssm", "hybrid"):
                 h = h + L.mamba2_apply(
-                    lp["mamba"], L.rmsnorm(h, lp["ln"], cfg.norm_eps),
-                    **ssm_kw)
+                    L.gather_tree(lp["mamba"], ls["mamba"], tp),
+                    L.rmsnorm(h, lp["ln"], cfg.norm_eps), **ssm_kw)
                 if cfg.family == "hybrid" \
                         and i % cfg.attn_every == cfg.attn_every - 1:
-                    shared = params["shared_attn"]
-                    h = h + L.attention(
-                        shared["attn"],
-                        L.rmsnorm(h, shared["ln1"], cfg.norm_eps), **attn_kw)
-                    h = h + L.swiglu(shared["mlp"], L.rmsnorm(
-                        h, shared["ln2"], cfg.norm_eps))
+                    shared, ss = params["shared_attn"], specs["shared_attn"]
+                    h = h + self._attend(
+                        shared["attn"], ss["attn"],
+                        L.rmsnorm(h, shared["ln1"], cfg.norm_eps), tp,
+                        **attn_kw)
+                    h = h + self._ffn(shared["mlp"], ss["mlp"], L.rmsnorm(
+                        h, shared["ln2"], cfg.norm_eps), tp)
                 continue
-            x = L.to_model(L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp)
-            h = h + L.from_model(L.attention(lp["attn"], x, **attn_kw), tp)
+            h = h + self._attend(lp["attn"], ls["attn"],
+                                 L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp,
+                                 **attn_kw)
             if cfg.family == "encdec":
-                # cross-attention: the encoder output projected by this
-                # layer's k/v, no bias and no rope
-                B, Se, _ = enc_out.shape
-                xk = (enc_out @ lp["xattn"]["wk"].to(h.dtype)).reshape(
-                    B, Se, nkv, hd)
-                xv = (enc_out @ lp["xattn"]["wv"].to(h.dtype)).reshape(
-                    B, Se, nkv, hd)
-                h = h + L.attention(
-                    lp["xattn"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps),
-                    n_heads=nh, n_kv=nkv, hd=hd, positions=positions,
-                    theta=0.0, causal=False, kv=(xk, xv))
-                h = h + L.swiglu(lp["mlp"],
-                                 L.rmsnorm(h, lp["ln3"], cfg.norm_eps))
+                h = h + self._attend(
+                    lp["xattn"], ls["xattn"],
+                    L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp,
+                    kv_src=enc_out, positions=positions, theta=0.0,
+                    causal=False)
+                h = h + self._ffn(lp["mlp"], ls["mlp"],
+                                  L.rmsnorm(h, lp["ln3"], cfg.norm_eps), tp)
                 continue
-            x = L.to_model(L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
+            x = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
             if cfg.family == "moe":
-                y, a = L.moe_apply(lp["moe"], x, n_experts=cfg.n_experts,
+                y, a = L.moe_apply(L.gather_tree(lp["moe"], ls["moe"], tp),
+                                   x, n_experts=cfg.n_experts,
                                    k=cfg.experts_per_tok,
                                    capacity_factor=cfg.capacity_factor,
                                    groups=cfg.moe_groups)
                 h, aux = h + y, aux + a
             else:
-                h = h + L.from_model(L.swiglu(lp["mlp"], x), tp)
+                h = h + self._ffn(lp["mlp"], ls["mlp"], x, tp)
         return h, aux
 
     def forward_aux(self, params: PyTree, batch: Dict[str, torch.Tensor],
@@ -478,15 +515,18 @@ class Model:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward -> (logits (B, S, V) in the activation
         dtype, aux loss), JAX's ``Model.forward``; on a ``model`` axis
-        (``tp``) each rank's params are its shards and the logits its vocab
-        shard (B, S, V / M).  encdec reads the batch's ``frames``, vlm its
-        ``vision_embeds`` (S then counts the patches too)."""
+        (``tp``) each rank's params are its shards, and the logits its vocab
+        shard (B, S, V / M) where the head is vocab-sharded
+        (:meth:`vocab_sharded`).  encdec reads the batch's ``frames``, vlm
+        its ``vision_embeds`` (S then counts the patches too)."""
         cfg = self.cfg
-        enc_out = self._encode(params, batch["frames"]) \
+        enc_out = self._encode(params, batch["frames"], tp) \
             if cfg.family == "encdec" else None
         h, pos = self._embed_inputs(params, batch, tp)
         h, aux = self._decoder_blocks(params, h, pos, tp, enc_out)
-        h = L.to_model(L.rmsnorm(h, params["final_norm"], cfg.norm_eps), tp)
+        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        if self.vocab_sharded(tp):
+            h = L.to_model(h, tp)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ head.to(h.dtype), aux
 
@@ -501,8 +541,9 @@ class Model:
         """(ce + router_aux_weight * aux, {"ce": ..., "aux_loss": ...}), as
         JAX's ``Model.loss``; the aux loss is the moe family's load-balance
         loss summed over the layers (0.0 elsewhere, where the total is the
-        cross-entropy itself).  On a ``model`` axis the cross-entropy is
-        vocab-parallel and every rank of the axis gets the same value."""
+        cross-entropy itself).  On a ``model`` axis every rank of the axis
+        gets the same value, by the vocab-parallel cross-entropy where the
+        head is vocab-sharded."""
         logits, aux = self.forward_aux(params, batch, tp)
         labels = batch["labels"]
         if self.cfg.family == "vlm" and "vision_embeds" in batch:
@@ -511,10 +552,10 @@ class Model:
                              + (batch["vision_embeds"].shape[1],), -1,
                              dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        if tp is None:
-            ce, _ = cross_entropy(logits, labels)
-        else:
+        if self.vocab_sharded(tp):
             ce, _ = L.vocab_parallel_cross_entropy(logits, labels, tp)
+        else:
+            ce, _ = cross_entropy(logits, labels)
         total = ce + self.cfg.router_aux_weight * aux \
             if self.cfg.family == "moe" else ce
         return total, {"ce": ce, "aux_loss": aux}

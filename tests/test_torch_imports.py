@@ -263,9 +263,33 @@ def _tbatch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_family():
+    """JAX's one-device reference of an arch's smoke config, computed once
+    a module per (arch, activation dtype): ``ref(arch, adt)`` gives (JAX
+    config, port config, JAX's init as numpy, the batch, loss, aux metrics,
+    gradients, logits) of ``jax.value_and_grad(Model.loss)``."""
+    cache = {}
+
+    def ref(arch, adt):
+        if (arch, adt) not in cache:
+            jcfg, tcfg, params = _family(arch, adt)
+            batch = _with_extras(SyntheticLM(
+                vocab=1024, seq_len=64, global_batch=2, n_workers=1,
+                seed=3), jcfg, 2).batch(0)
+            jm = JModel(jcfg)
+            (jloss, jaux), jgrads = jax.value_and_grad(
+                lambda p: jm.loss(p, batch), has_aux=True)(params)
+            jlogits, _ = jm.forward(params, batch)
+            cache[arch, adt] = (jcfg, tcfg, params, batch, jloss, jaux,
+                                jgrads, jlogits)
+        return cache[arch, adt]
+    return ref
+
+
 @pytest.mark.parametrize("adt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
-def test_family_forward_loss_and_grads_match_jax(arch, adt):
+def test_family_forward_loss_and_grads_match_jax(arch, adt, jax_family):
     """Logits, loss, its ``ce``/``aux_loss`` metrics and every leaf's
     gradient of the smoke archs of the moe, ssm, hybrid (also at 4 layers),
     encdec and vlm families and minicpm (two SSD chunks a sequence; the
@@ -274,13 +298,9 @@ def test_family_forward_loss_and_grads_match_jax(arch, adt):
     params."""
     from repro_torch.train.trainer import value_aux_and_grad
 
-    jcfg, tcfg, params = _family(arch, adt)
-    batch = _with_extras(SyntheticLM(vocab=1024, seq_len=64, global_batch=2,
-                                     n_workers=1, seed=3), jcfg, 2).batch(0)
-    jm, tm = JModel(jcfg), build_model(tcfg)
-    (jloss, jaux), jgrads = jax.value_and_grad(
-        lambda p: jm.loss(p, batch), has_aux=True)(params)
-    jlogits, _ = jm.forward(params, batch)
+    jcfg, tcfg, params, batch, jloss, jaux, jgrads, jlogits = \
+        jax_family(arch, adt)
+    tm = build_model(tcfg)
     with R._serial(torch.device("cpu")):
         tparams = T.params_from_jax(params, "cpu")
         tloss, taux, tgrads = value_aux_and_grad(tm.loss, tparams,
@@ -306,6 +326,111 @@ def test_family_forward_loss_and_grads_match_jax(arch, adt):
                          for a in jl))
         tn = np.sqrt(sum(float(torch.sum(b.double() ** 2)) for b in tl))
         assert abs(tn - jn) <= 1.5e-2 * jn
+
+
+# -- the model axis for every family: M gloo ranks on the CPU ----------------
+#
+# Each arch's smoke config in f32 on a ``model`` axis of M ranks, each rank
+# holding its shards (``Model.param_specs``): the loss and every logical
+# gradient, gathered from the shards, against JAX's one-device
+# ``value_and_grad`` at the family test's tolerances (loss rtol 1e-5, each
+# leaf atol 1e-4 of its largest entry), and against the port's one-rank run
+# ten times tighter (loss rtol 1e-6, each leaf atol 1e-5 of its largest
+# entry; measured 3e-6): the sharding changes only the order of the
+# row-parallel and vocab-parallel sums.  An M-fold gradient fails both.  At
+# M = 4 qwen2's 4 heads and 2 KV heads do not split whole (half a KV head
+# a rank) and at M = 8 neither do its query heads: its attention runs on
+# weights gathered on use.  A leaf the specs replicate gets the same
+# gradient on every rank, bit for bit.
+
+#: M -> the archs one spawn of M ranks runs
+TP_FAMILY_CASES = {2: ["minitron-8b", "granite-moe-3b-a800m", "mamba2-130m",
+                       "phi3-medium-14b", "qwen2-vl-2b", "dbrx-132b",
+                       "whisper-medium", "minicpm-2b", "qwen2-0.5b",
+                       "zamba2-7b"],
+                   4: ["qwen2-0.5b"], 8: ["qwen2-0.5b"]}
+
+
+def _tp_family_batch(tcfg):
+    from repro_torch.launch.train import family_batch_extras
+
+    batch = SyntheticLM(vocab=1024, seq_len=64, global_batch=2, n_workers=1,
+                        seed=3).batch(0)
+    batch.update(family_batch_extras(tcfg, 2, 0))
+    return _tbatch(batch)
+
+
+def _tp_family_rank(store, archs):
+    """One rank of a 1xM mesh: per arch the loss, the logical gradients
+    gathered from its shards (rank 0) and its replicated leaves'
+    gradients."""
+    from repro_torch.distributed.aggregate import ModelShards, WorkerGroup
+    from repro_torch.train.trainer import value_and_grad
+
+    world = int(os.environ["WORLD_SIZE"])
+    group = WorkerGroup.join(1, backend="gloo", device="cpu",
+                             init_method=f"file://{store}/tp",
+                             model_size=world)
+    out = {}
+    try:
+        for arch in archs:
+            tcfg = dataclasses.replace(tsmoke(arch),
+                                       activation_dtype="float32")
+            model = build_model(tcfg)
+            with R._serial(torch.device("cpu")):
+                params = model.init(R.key(0), device="cpu")
+            shards = ModelShards.of(group.model, model.param_specs(),
+                                    model.init_abstract())
+            loss, g = value_and_grad(
+                lambda p, b: model.loss(p, b, tp=group.model),
+                shards.shard_tree(params), _tp_family_batch(tcfg))
+            whole = shards.gather_tree(g)
+            out[arch] = {
+                "loss": float(loss),
+                "grads": whole if group.model.rank == 0 else None,
+                "replicated": [x for x, d in zip(T.leaves(g), shards.dims)
+                               if d is None]}
+    finally:
+        group.close()
+    return out
+
+
+@pytest.mark.parametrize("m", sorted(TP_FAMILY_CASES))
+def test_model_axis_family_loss_and_grads_match_jax(m, jax_family,
+                                                    tmp_path):
+    from test_torch_model import _spawn_ranks
+
+    from repro_torch.train.trainer import value_and_grad
+
+    archs = TP_FAMILY_CASES[m]
+    ranks = _spawn_ranks(tmp_path, m, _tp_family_rank, archs)
+    for arch in archs:
+        _, tcfg, params, batch, jloss, _, jgrads, _ = \
+            jax_family(arch, "float32")
+        model = build_model(tcfg)
+        one_loss, one = value_and_grad(model.loss, T.params_from_jax(
+            params, "cpu"), _tbatch(batch))
+        for r in ranks:
+            got = r[arch]["loss"]
+            np.testing.assert_allclose(got, float(jloss), rtol=1e-5,
+                                       err_msg=arch)
+            np.testing.assert_allclose(got, float(one_loss), rtol=1e-6,
+                                       err_msg=arch)
+            for a, b in zip(r[arch]["replicated"],
+                            ranks[0][arch]["replicated"]):
+                assert torch.equal(a, b), arch
+        paths = ["/".join(p) for p, _ in T.flatten_with_path(one)]
+        got = T.leaves(ranks[0][arch]["grads"])
+        assert len(got) == len(paths) == len(jax.tree.leaves(jgrads))
+        for path, g, o, j in zip(paths, got, T.leaves(one),
+                                 jax.tree.leaves(jgrads)):
+            j = np.asarray(j)
+            np.testing.assert_allclose(
+                g.numpy(), j, rtol=0, atol=1e-4 * float(np.abs(j).max()),
+                err_msg=f"{arch} {path}")
+            np.testing.assert_allclose(
+                g.numpy(), o.numpy(), rtol=0,
+                atol=1e-5 * float(o.abs().max()), err_msg=f"{arch} {path}")
 
 
 def _mamba2_layer(chunk):

@@ -300,9 +300,9 @@ def test_driver_folds_smoke_and_pipeline_into_a_spec(tmp_path, capsys):
 @pytest.mark.parametrize("spec,message", [
     (dict(backend="reference", problem="logreg"), "bad experiment spec"),
     (dict(problem="logreg", mesh="1x1", n=1, d=16), "model archs"),
-    (dict(mesh="2x4"), "not yet ported"),
+    (dict(mesh="2x3"), "not yet ported"),
     (dict(backend="fsdp", mesh="2x2"), "not yet ported"),
-    (dict(problem="zamba2-7b", d=32768, mesh="2x2"), "not yet ported"),
+    (dict(problem="zamba2-7b", d=32768, mesh="2x2"), "W' x 2 ranks"),
     (dict(leaf_codecs="*embed*=qsgd:16"), None),
     (dict(downlink="topk:64"), None),
     (dict(compressor="sign"), None),
@@ -321,7 +321,7 @@ def test_driver_refuses_specs_it_cannot_run(tmp_path, spec, message):
             kw.update(mesh="", smoke=False)
         if kw["problem"] == "logreg":
             kw.update(smoke=False)
-        if kw.get("mesh") == "2x4":
+        if kw.get("mesh") == "2x3":
             kw.update(n=2)
         path = _write(tmp_path, ExperimentSpec(**kw))
     if message is None:
@@ -407,15 +407,30 @@ def test_param_specs_equal_jax(arch, full):
 
 
 @pytest.mark.parametrize("full", [False, True])
-def test_model_axis_refuses_heads_that_do_not_split(full):
-    """M = 2 splits qwen2's heads whole (full: 7 query and 1 KV head a
-    rank; smoke: 2 and 1); M = 4 would split a KV head, which JAX's 'flat'
-    policy leaves to GSPMD and the port refuses."""
-    model = build_model(_tfull("qwen2-0.5b") if full
-                        else get_smoke_config("qwen2-0.5b"))
-    assert model.model_axis_refusal(1) == model.model_axis_refusal(2) == ""
-    msg = model.model_axis_refusal(4)
-    assert "not yet ported" in msg and "KV heads" in msg
+def test_model_axis_refuses_an_axis_that_does_not_split(full):
+    """Every axis that divides the production axis of 16 splits every
+    sharded dim, whole heads or not (qwen2 full at M = 4: 3.5 query heads
+    and half a KV head a rank); M = 3 is refused wherever it does not split
+    a sharded dim, naming the leaf and ROADMAP item 2f: every smoke config,
+    and every full one but minicpm (36 heads of 64, d_ff 5760: all split
+    over 3) and granite-moe (it shards no leaf: its 'replicate' attention,
+    40 experts, vocab 49,155)."""
+    runs = []
+    for arch in tconfigs.list_archs():
+        model = build_model(_tfull(arch) if full else get_smoke_config(arch))
+        assert model.model_axis_refusal(1) == "", arch
+        msg = model.model_axis_refusal(3)
+        split = all(a.shape[tL.spec_dim(sp)] % 3 == 0 for a, sp in zip(
+            T.leaves(model.init_abstract()),
+            T.leaves(model.param_specs(), is_leaf=is_spec))
+            if tL.spec_dim(sp) is not None)
+        if split:
+            assert msg == "", arch
+            runs.append(arch)
+        else:
+            assert "does not split over 3 ranks" in msg, arch
+            assert "item 2f" in msg, arch
+    assert runs == (["granite-moe-3b-a800m", "minicpm-2b"] if full else [])
 
 
 # -- the tensor-parallel forward and backward on two gloo ranks ---------------
@@ -774,17 +789,15 @@ def test_configs_equal_jax_field_for_field(arch):
         tconfigs.get_config(arch + "-x")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-moe-3b-a800m",
-                                  "zamba2-7b", "whisper-medium",
-                                  "qwen2-vl-2b"])
-def test_model_axis_refuses_the_ssm_and_moe_families(arch):
-    """The port's tensor parallelism covers the dense family's attention
-    and MLP only: a ``model`` axis of 2 is refused for mamba2,
-    granite-moe, zamba2, whisper and qwen2-vl (ROADMAP 2f), never run."""
-    why = build_model(get_smoke_config(arch)).model_axis_refusal(2)
-    family = get_smoke_config(arch).family
-    assert f"the {family} family" in why and "not yet ported" in why
-    assert build_model(get_smoke_config(arch)).model_axis_refusal(1) == ""
+@pytest.mark.parametrize("arch", NEW_ARCHS + ["qwen2-0.5b"])
+def test_model_axis_runs_every_arch(arch):
+    """ROADMAP 2f: every arch, smoke and full, runs on a ``model`` axis of
+    2, 4, 8 and 16 (JAX's production axis), whatever its family, its heads
+    and its head: nothing is refused."""
+    for cfg in (get_smoke_config(arch), _tfull(arch)):
+        model = build_model(cfg)
+        for m in (2, 4, 8, 16):
+            assert model.model_axis_refusal(m) == "", (cfg.name, m)
 
 
 # -- the fsdp trainer on two gloo ranks ---------------------------------------
@@ -1154,3 +1167,26 @@ def test_hot_swap_atomicity_mid_decode():
     assert req.versions == want_versions
     assert set(req.versions) == {0, 1}
     assert req.versions == sorted(req.versions)
+
+
+def test_serve_spec_with_a_model_axis_runs_as_jax(tmp_path, capsys):
+    """Fault y: JAX's ``run_fleet`` never reads ``spec.mesh``, so the
+    committed ``serve_delta.json`` with ``mesh`` 2x2 and n = 2 serves in
+    one process: JAX's fingerprint, delta and checkpoint bits a push and
+    tokens, every replica bitwise the pusher's after each push (asserted
+    inside ``run_fleet``)."""
+    from repro_torch.core import ExperimentSpec
+
+    base = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "specs", "serve_delta.json")
+    with open(base) as f:
+        spec = dataclasses.replace(ExperimentSpec.from_json(f.read()),
+                                   mesh="2x2", n=2)
+    path = tmp_path / "serve_2x2.json"
+    path.write_text(spec.to_json())
+    m = tlaunch.main(["serve", "--spec", str(path), "--device", "cpu"])
+    assert m["fingerprint"] == spec.fingerprint() == "7d854fd9f63e078f"
+    assert m["delta_bits_per_push"] == 2_734_560
+    assert m["checkpoint_bits_per_push"] == 10_935_936
+    assert m["tokens"] == 64 and m["pushes"] == 3 and m["replicas"] == 2
+    assert "fingerprint=7d854fd9f63e078f" in capsys.readouterr().out

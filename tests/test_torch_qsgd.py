@@ -949,9 +949,11 @@ def test_serve_cli_single_model_and_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit):
         tlaunch.parse_serve_args(["--sanitize"])
     assert "not yet ported" in capsys.readouterr().err
+    # a model axis is no refusal (fault y): the fleet runs in one process
+    # and reads no mesh, as JAX's
     meshed = tmp_path / "mesh.json"
     meshed.write_text(TSpec(problem="qwen2-0.5b", smoke=True,
                             backend="shard_map", mesh="1x2", n=1,
                             serve="gen:4,max_len:8").to_json())
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tlaunch.main(["serve", "--spec", str(meshed), "--device", "cpu"])
+    m = tlaunch.main(["serve", "--spec", str(meshed), "--device", "cpu"])
+    assert m["tokens"] > 0 and m["replicas"] >= 1

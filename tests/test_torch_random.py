@@ -451,3 +451,47 @@ def test_family_param_specs_and_layout_equal_jax(arch, full):
     assert [("/".join(str(k.key) for k in p), tuple(a.shape))
             for p, a in jabs] == [("/".join(p), tuple(a.shape))
                                   for p, a in tabs]
+
+
+# -- the model axis through the driver, against JAX's on fake host devices ---
+#
+# qwen2 smoke on --mesh 1x4 (half a KV head a rank: its attention on
+# weights gathered on use) and mamba2 smoke on --mesh 1x2 (the SSD block
+# gathered on use, the embedding and tied head vocab-parallel), on M gloo
+# ranks, against JAX's driver on M fake host devices: the fingerprint and
+# the bits exact, every step's loss within test_torch_model.py's LOSS_ATOL.
+
+from test_torch_model import (LOSS_ATOL, _driver_lines,  # noqa: E402
+                              _jax_driver, _mesh_driver_rank, _spawn_ranks)
+
+#: case -> (driver flags, model axis M, the port's bits lines)
+MESH_DRIVER_CASES = {
+    "qwen2_1x4": (["--arch", "qwen2-0.5b", "--smoke", "--mesh", "1x4",
+                   "--downlink", "qsgd:16"], 4,
+                  [5_776_384, 11_553_216, 17_329_600]),
+    "mamba2_1x2": (["--arch", "mamba2-130m", "--smoke", "--mesh", "1x2"], 2,
+                   [1_371_136]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_DRIVER_CASES))
+def test_driver_model_axis_matches_jax(case, tmp_path):
+    """JAX's driver prints losses 6.9480 / 6.9908 (qwen2) and 6.9689 /
+    6.9497 (mamba2) with these flags."""
+    flags, m, bits = MESH_DRIVER_CASES[case]
+    argv = flags + ["--steps", "2", "--global-batch", "4", "--seq", "32",
+                    "--compressor", "block_topk:256,16", "--agg",
+                    "sparse_allgather", "--log-every", "1"]
+    ranks = _spawn_ranks(tmp_path, m, _mesh_driver_rank,
+                         argv + ["--device", "cpu"])
+    assert ranks[1:] == [""] * (m - 1)
+    assert f" mesh={flags[4]} ranks={m} backend=gloo " in ranks[0]
+    assert f"[train] model axis: {m} ranks a worker" in ranks[0]
+    pf, pb, pl = _driver_lines(ranks[0])
+    jf, jb, jl = _driver_lines(_jax_driver(argv, m))
+    assert pf == jf and len(pf) == 1
+    # the JAX driver prints the total rounded (:g), the port exactly
+    assert pb == bits
+    assert jb == bits[:2] + [int(float(f"{b:g}")) for b in bits[2:]]
+    assert len(pl) == len(jl) == 2
+    np.testing.assert_allclose(pl, jl, rtol=0, atol=LOSS_ATOL)
