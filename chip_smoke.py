@@ -135,8 +135,9 @@ line is printed only when every phase passed):
                 block-sparse): 2,520,694,816 bits a worker, 72
                 ``pack_update`` and 6 ``qsgd_pack_update`` launches;
               * smoke_flags: ROADMAP's SMOKE flags (block-top-k (256,
-                16) up, QSGD(16) down, sequential), the mesh path's
-                reference (not profiled);
+                16) up, QSGD(16) down, sequential), qwen2-0.5b cut to 12
+                of 24 layers (``cut_depth``), dist_fsdp's reference (not
+                profiled);
               * spec: the pipelined path's flags written as a spec file
                 (``spec_from_args``, ``build/spec/pipelined.json``) and run
                 with ``--spec``: the printed fingerprint equal to the
@@ -207,7 +208,8 @@ line is printed only when every phase passed):
               ``threefry_uniform``).  A rank that fails, or a launch not
               done in DIST_TIMEOUT_S (then killed with all its ranks),
               fails the run.
-              * dist_fsdp: the smoke_flags path's flags with ``--trainer
+              * dist_fsdp: the smoke_flags path's flags and depth (12 of
+                24 layers) with ``--trainer
                 fsdp`` (the master state sharded over the two ranks by
                 ``fsdp_specs``: every qwen2-0.5b leaf halves, the
                 embedding by its columns).  At every step each rank's
@@ -217,15 +219,25 @@ line is printed only when every phase passed):
                 sum over the ranks), are bitwise smoke_flags's; each
                 rank's resident state, counted leaf by leaf, within 1% of
                 (5/2 + 1) x the params' bytes, the allocator's reading
-                beside it; 42 ``pack_update`` and 42 + 169
+                beside it; 42 ``pack_update`` and 42 + 85
                 ``threefry_uniform`` a rank.
    Then the mesh paths (``MESH_PATHS``), gloo ranks sharing cuda:0,
               each against a one-process main path of the same flags and
               depth: ``mesh``, the smoke_flags path's flags on ``--mesh
               2x2`` (2 workers x 2-way tensor parallelism) with qwen2-0.5b
               cut to 8 of 24 layers (``cut_depth``; against
-              ``mesh_ref``); ``mesh_heads``, the same flags on 1x4 with
-              qwen2-0.5b whole (3.5 query heads and half a KV head a rank;
+              ``mesh_ref``), its final checkpoint (``--ckpt-dir``: the
+              params gathered over the model axis, rank 0 writing JAX's
+              npz) bitwise the reassembled shards; ``mesh_fsdp``, the
+              mesh path's flags under ``--trainer fsdp`` in the same
+              launch (each rank's master trees its fsdp part, over the
+              worker group, of its model shard), which must equal the
+              mesh path bit for bit: every rank's losses and h, the
+              master trees' layout sums over the ranks at every step, the
+              final checkpoint, and each rank resident in exactly the
+              fsdp-on-model specs' part (``fsdp_part_bytes``);
+              ``mesh_heads``, the same flags on 1x4 with qwen2-0.5b at
+              12 of 24 layers (3.5 query heads and half a KV head a rank;
               against ``mesh_heads_ref``); ``mesh_mamba2``, the mamba2
               path's flags on 1x2 with mamba2-130m whole (against
               ``mesh_mamba2_ref``).  Each: rank 0's exact bits, finite
@@ -259,7 +271,13 @@ line is printed only when every phase passed):
               fingerprint, its exact up, down and total bits (the
               ``zoo_scaling`` rows of ``BENCH_bits.json``, ZOO_SPECS
               here), two finite losses and a finite eval loss, with its
-              launches per rank as ZOO_SPECS says.
+              launches per rank as ZOO_SPECS says; then zoo_qwen2_fsdp and
+              finetune_moe made 2x2 (``"mesh": "2x2", "n": 2``, written
+              to build/spec/) with ``--processes 2`` (two processes of two
+              ranks): the fingerprints and bits pinned against JAX's
+              FinetuneLoop on the CPU (``FSDP_SPECS_2X2``), and no slab
+              of h moved for an expert that a worker's gradients never
+              touched.
    Then the fine-tuning harness in one process (``finetune``):
               ``launch.train.FinetuneLoop`` on ``finetune_moe.json`` at
               full width (granite-moe-3b-a800m cut to 4 of its 32 layers,
@@ -2898,27 +2916,47 @@ def params_checksum(params):
     return f"{s:016x}"
 
 
-def layout_sum(tree, shards=None):
-    """A checksum of a master tree's bits that sums over the fsdp ranks'
-    shards: for each leaf j, the sum of its 32-bit words times (1 + the
-    word's flat index in the logical leaf mod 65521), weighted by j + 1,
-    all mod 2**64.  ``shards`` (an fsdp rank's ``FsdpShards``) places
-    this rank's shard in the logical leaf by its dim; a leaf no dim
-    shards counts on rank 0 only.  Without shards, the whole tree."""
+def layout_sum(tree, shards=None, replica=False):
+    """A checksum of a master tree's bits that sums over the ranks' parts:
+    for each leaf j, the sum of its 32-bit words times (1 + the word's
+    flat index in the logical leaf mod 65521), weighted by j + 1, all mod
+    2**64.  ``shards`` (a rank's ``ModelShards`` or ``FsdpShards``) places
+    this rank's tensor in the logical leaf by the dims that its axes split
+    (the model spec's, the fsdp dim, or both); a leaf that an axis does
+    not split counts on that axis's rank 0 only, and a ``replica`` (a
+    mesh rank of a worker group other than the first, whose shards repeat
+    the first's) counts nowhere.  Without shards, the whole tree."""
     from repro_torch import tree as T
 
-    fsdp = shards is not None and not shards.shards_worker_state
+    if replica:
+        return 0
+    cuts = []  # (dims a leaf, axis): each axis that splits the tree
+    if shards is not None:
+        fsdp = not shards.shards_worker_state
+        model = shards.model if fsdp else shards
+        if model is not None:
+            cuts.append((model.dims, model.axis))
+        if fsdp:
+            cuts.append((shards.dims, shards.axis))
     total = 0
     for j, x in enumerate(T.leaves(tree)):
-        dim = shards.dims[j] if fsdp else None
-        if fsdp and dim is None and shards.axis.rank:
+        shape = tuple(x.shape) if shards is None else shards.shape(j)
+        offsets = [0] * len(shape)
+        if any(dims[j] is None and axis.rank for dims, axis in cuts):
             continue
-        shape = shards.shape(j) if fsdp else tuple(x.shape)
-        idx = torch.arange(math.prod(shape), device=x.device,
-                           dtype=torch.int64)
-        if dim is not None:
-            size = shape[dim] // shards.axis.size
-            idx = idx.view(shape).narrow(dim, shards.axis.rank * size, size)
+        for dims, axis in cuts:
+            if dims[j] is not None:
+                offsets[dims[j]] = axis.rank * x.shape[dims[j]]
+        # the logical flat index of each word of this rank's part
+        idx = torch.zeros((), dtype=torch.int64, device=x.device)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            view = [1] * len(shape)
+            view[d] = x.shape[d]
+            idx = idx + (torch.arange(x.shape[d], device=x.device,
+                                      dtype=torch.int64)
+                         + offsets[d]).view(view) * stride
+            stride *= shape[d]
         idx = idx.reshape(-1) % 65521 + 1
         words = x.detach().contiguous().view(torch.int32).reshape(-1)
         total = (total + (j + 1) * int((words.to(torch.int64) * idx).sum())
@@ -2942,7 +2980,9 @@ def recording(records, holder=None, layout=False):
     keeps the newest state; a recorded step's ``unrecorded`` is the step
     function the trainer built.  The fsdp trainer's steps
     (``make_train_step_fsdp``) too, with the host ms, calls and bytes of
-    their gathers over the worker group in the model axis's fields; with
+    their gathers over the worker group in the model axis's fields, or on
+    a model axis in ``fsdp_*`` (the first stage, over the worker group)
+    and ``fsdp_model_*`` (the second, over the model axis); with
     ``layout`` each record also holds the ``layout_sum`` of params, w,
     h_avg, m and v."""
     from repro_torch.train import trainer as train
@@ -2955,15 +2995,22 @@ def recording(records, holder=None, layout=False):
         shards = getattr(step_fn, "shards", None)
         group = kwargs.get("group")
         tp = None if group is None else group.model
-        # the collectives counted apart: the model axis's, or the fsdp
-        # gathers over the worker group
-        axis = shards.axis if shards is not None and \
-            not shards.shards_worker_state else tp
+        fsdp = shards is not None and not shards.shards_worker_state
+        # the collectives counted apart, by field prefix: the model axis's
+        # (or without one the fsdp gathers over the worker group), and on
+        # a model axis the fsdp gathers' two stages
+        axes = {"model": shards.axis if fsdp and tp is None else tp}
+        if fsdp and tp is not None:
+            axes.update(fsdp=shards.axis, fsdp_model=shards.model_axis)
+        axes = {k: a for k, a in axes.items() if a is not None}
+        # a mesh rank of another worker group than the first holds a copy
+        # of the first's shards
+        replica = tp is not None and not fsdp and group.rank > 0
 
         def step(state, batch, key):
             torch.cuda.synchronize()
             stats = dict(group.stats) if group is not None else None
-            mstats = dict(axis.stats) if axis is not None else None
+            before = {k: dict(a.stats) for k, a in axes.items()}
             t0 = time.perf_counter()
             state, m = step_fn(state, batch, key)
             loss = float(m["loss"])
@@ -2975,13 +3022,13 @@ def recording(records, holder=None, layout=False):
                 rec["exchange_ms"] = round(1e3 * (group.stats["exchange_s"]
                                                   - stats["exchange_s"]), 2)
                 rec["bytes"] = group.stats["bytes"] - stats["bytes"]
-            if axis is not None:
-                rec["model_ms"] = round(1e3 * (axis.stats["model_s"]
-                                               - mstats["model_s"]), 2)
-                rec["model_calls"] = (axis.stats["model_calls"]
-                                      - mstats["model_calls"])
-                rec["model_bytes"] = (axis.stats["model_bytes"]
-                                      - mstats["model_bytes"])
+            for k, a in axes.items():
+                rec[f"{k}_ms"] = round(1e3 * (a.stats["model_s"]
+                                              - before[k]["model_s"]), 2)
+                rec[f"{k}_calls"] = (a.stats["model_calls"]
+                                     - before[k]["model_calls"])
+                rec[f"{k}_bytes"] = (a.stats["model_bytes"]
+                                     - before[k]["model_bytes"])
             if tp is not None:
                 rec["master"] = {
                     "params": params_checksum(state.params),
@@ -2994,7 +3041,7 @@ def recording(records, holder=None, layout=False):
                 trees = {"params": state.params, "w": state.w,
                          "h_avg": state.h_avg, "m": state.opt_state["m"],
                          "v": state.opt_state["v"]}
-                rec["layout"] = {k: layout_sum(trees[k], shards)
+                rec["layout"] = {k: layout_sum(trees[k], shards, replica)
                                  for k in LAYOUT_TREES}
             records.append(rec)
             if holder is not None:
@@ -3053,7 +3100,8 @@ def dist_child():
     records, holder = [], {}
     path = DIST_PATHS[name]
     torch.cuda.reset_peak_memory_stats()
-    with recording(records, holder, layout=path.get("layout", False)):
+    with recording(records, holder, layout=path.get("layout", False)), \
+            cut_depth(path.get("layers")):
         reset_launches()
         train.main(path["argv"])
         torch.cuda.synchronize()
@@ -3079,10 +3127,12 @@ def mesh_path_child(name, outdir, rank):
     """One rank of a mesh path (``MESH_PATHS[name]``) through
     ``launch.train.main`` (its own file store, cut by ``cut_depth`` to the
     path's depth), launch counts reset just before it and read just
-    after; then its step records, launches, peak memory, every master
-    tree's resident bytes against its shards' and the logical tree's, and,
-    on the first worker group's ranks, the params shards for the parent
-    to reassemble."""
+    after; then its step records (with ``layout``, the master trees'
+    layout sums), launches, peak memory, every master tree's resident
+    bytes against its shards' (an fsdp rank's: its parts') and the
+    logical tree's, a checksum of h and whether it holds the worker's
+    model shards, and, on the first worker group's ranks of a mesh path
+    without fsdp, the params shards for the parent to reassemble."""
     from repro_torch import tree as T
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
@@ -3090,7 +3140,8 @@ def mesh_path_child(name, outdir, rank):
     path = MESH_PATHS[name]
     records, holder = [], {}
     torch.cuda.reset_peak_memory_stats()
-    with recording(records, holder), cut_depth(path.get("layers")):
+    with recording(records, holder, layout=path.get("layout", False)), \
+            cut_depth(path.get("layers")):
         reset_launches()
         train.main(path["argv"] + ["--dist-init",
                                    f"file://{outdir}/store_{name}"])
@@ -3115,7 +3166,15 @@ def mesh_path_child(name, outdir, rank):
           f"logical {logical} sharded_leaves "
           f"{sum(d is not None for d in shards.dims)} of "
           f"{len(shards.dims)}")
-    if rank < path["m"]:
+    # a worker's h_i: its model shards, under fsdp as on the mesh
+    fsdp = not shards.shards_worker_state
+    model = shards.model if fsdp else shards
+    h_shards = all(tuple(x.shape[1:]) == model.shard_shape(j)
+                   for j, x in enumerate(T.leaves(st.h)))
+    print(f"[dist] h {params_checksum(st.h)} model_shards {h_shards}")
+    if fsdp:
+        print(f"[dist] fsdp_dims {json.dumps(shards.dims)}")
+    elif rank < path["m"]:
         torch.save(T.tree_map(lambda a: a.cpu(), st.params),
                    outdir / f"params_{name}_rank{rank}.pt")
 
@@ -3131,6 +3190,13 @@ RUNS = WORKERS * STEPS * FULL_LEAVES
 #: in every run of the driver, on every rank: the embedding and 7 weights a
 #: layer (biases and norms are constants); full width 24 layers, smoke 2
 INIT_DRAWS, SMOKE_INIT_DRAWS = 1 + 24 * 7, 1 + 2 * 7
+#: qwen2-0.5b at full width cut to 12 of its 24 layers (smoke_flags,
+#: dist_fsdp and mesh_heads: cut to keep the run's time with
+#: mesh_fsdp): its bits a worker up (block_topk:256,16) and down
+#: (qsgd:16), and its init's draws
+HALF_LAYERS = 12
+HALF_BITS = (1_260_337_152, 2_520_673_728)
+HALF_INIT_DRAWS = 1 + HALF_LAYERS * 7
 # each main path: its flags, the exact bits it must print (regex -> values)
 # and the launches of every kernel in its run
 PATHS = {
@@ -3200,12 +3266,15 @@ PATHS = {
     "smoke_flags": {
         "argv": BASE_ARGV + ["--compressor", "block_topk:256,16",
                              "--downlink", "qsgd:16"],
-        "bits": {r"(\d+) bits/round/worker": [FULL_BITS],
-                 r"downlink (\d+) bits/round broadcast": [QSGD_BITS],
-                 r"total (\d+) bits/round up\+down": [PIPELINED_TOTAL_BITS]},
+        "layers": HALF_LAYERS,
+        "bits": {r"(\d+) bits/round/worker": [HALF_BITS[0]],
+                 r"downlink (\d+) bits/round broadcast": [HALF_BITS[1]],
+                 r"total (\d+) bits/round up\+down":
+                 [WORKERS * HALF_BITS[0] + HALF_BITS[1]]},
         "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
                      "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + HALF_INIT_DRAWS},
         "profile": None,
         "keep_params": True,
         # dist_fsdp's reference: the master trees' layout sums each step
@@ -3395,18 +3464,18 @@ DIST_PATHS["dist_fsdp"] = {
                                             "--dist-backend", "gloo"],
     "same_as": "smoke_flags",
     "layout": True,
+    "layers": HALF_LAYERS,
     "bits": {**PATHS["smoke_flags"]["bits"],
              r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
     # each rank packs its worker; every rank draws the whole init and
     # encodes every leaf of the broadcast whole
     "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
                  "randk_update": 0,
-                 "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+                 "threefry_uniform": STEPS * FULL_LEAVES + HALF_INIT_DRAWS},
 }
 #: the master trees whose fsdp shards dist_fsdp holds against smoke_flags
 LAYOUT_TREES = ("params", "w", "h_avg", "m", "v")
 MASK64 = (1 << 64) - 1
-QWEN2_PARAMS = 494_032_768
 
 
 def with_workers(argv, n):
@@ -3447,10 +3516,17 @@ def mesh_bits(up, down=None, total=None, mesh=None, ranks=None):
 #: draws the whole init to keep its shards.
 #:   mesh: the smoke_flags path's flags on a 2x2 mesh (2 workers x 2-way
 #:     tensor parallelism), qwen2-0.5b cut to 8 of its 24 layers (cut
-#:     from 24 to keep the run's time with the model-axis paths);
-#:   mesh_heads: the same flags on 1x4, qwen2-0.5b whole: 14 / 4 = 3.5
-#:     query heads and half a KV head a rank, so each layer's attention
-#:     runs on weights gathered on use, its MLP Megatron-style;
+#:     from 24 to keep the run's time with the model-axis paths), a
+#:     checkpoint at the end;
+#:   mesh_fsdp: the mesh path's flags under ``--trainer fsdp``: each rank
+#:     holds its fsdp part (over the worker group) of its model shard of
+#:     every master tree, and must match the mesh path bit for bit
+#:     (``same_as``): losses, the master trees' layout sums at every step,
+#:     each rank's h, the final checkpoint;
+#:   mesh_heads: the same flags on 1x4, qwen2-0.5b at full width cut to
+#:     12 of its 24 layers: 14 / 4 = 3.5 query heads
+#:     and half a KV head a rank, so each layer's attention runs on
+#:     weights gathered on use, its MLP Megatron-style;
 #:   mesh_mamba2: the mamba2 path's flags (seq 512, no checkpoint: a
 #:     rank's shards are not JAX's format) on 1x2, mamba2-130m whole: the
 #:     SSD leaves gathered on use, the embedding (vocab 50,280) and the
@@ -3463,12 +3539,27 @@ MESH_CUT_BITS = (1_021_739_008, 2_043_477_440, 4_086_955_456)
 MESH_INIT_DRAWS = 1 + MESH_LAYERS * 7
 MAMBA2_MESH_ARGV = arch_argv("mamba2-130m", seq=512) \
     + ["--compressor", "block_topk:256,16"]
+MESH_CKPT = ROOT / "build" / "ckpt"
 MESH_PATHS = {
     "mesh": {
         "argv": with_mesh(PATHS["smoke_flags"]["argv"],
-                          f"{WORKERS}x{MESH_M}"),
+                          f"{WORKERS}x{MESH_M}")
+        + ["--ckpt-dir", str(MESH_CKPT / "mesh")],
         "m": MESH_M, "workers": WORKERS, "arch": "qwen2-0.5b",
-        "layers": MESH_LAYERS, "ref": "mesh_ref",
+        "layers": MESH_LAYERS, "ref": "mesh_ref", "layout": True,
+        "checkpoint": MESH_CKPT / "mesh",
+        "bits": mesh_bits(*MESH_CUT_BITS, mesh="2x2", ranks=4),
+        "launches": {"pack_update": STEPS * FULL_LEAVES,
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + MESH_INIT_DRAWS},
+    },
+    "mesh_fsdp": {
+        "argv": with_mesh(PATHS["smoke_flags"]["argv"],
+                          f"{WORKERS}x{MESH_M}")
+        + ["--trainer", "fsdp", "--ckpt-dir", str(MESH_CKPT / "mesh_fsdp")],
+        "m": MESH_M, "workers": WORKERS, "arch": "qwen2-0.5b",
+        "layers": MESH_LAYERS, "ref": "mesh_ref", "layout": True,
+        "checkpoint": MESH_CKPT / "mesh_fsdp", "same_as": "mesh",
         "bits": mesh_bits(*MESH_CUT_BITS, mesh="2x2", ranks=4),
         "launches": {"pack_update": STEPS * FULL_LEAVES,
                      "threefry_uniform": STEPS * FULL_LEAVES
@@ -3477,10 +3568,11 @@ MESH_PATHS = {
     "mesh_heads": {
         "argv": with_mesh(PATHS["smoke_flags"]["argv"], "1x4"),
         "m": 4, "workers": 1, "arch": "qwen2-0.5b", "ref": "mesh_heads_ref",
-        "bits": mesh_bits(FULL_BITS, QSGD_BITS, FULL_BITS + QSGD_BITS,
-                          mesh="1x4", ranks=4),
+        "layers": HALF_LAYERS,
+        "bits": mesh_bits(*HALF_BITS, sum(HALF_BITS), mesh="1x4", ranks=4),
         "launches": {"pack_update": STEPS * FULL_LEAVES,
-                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + HALF_INIT_DRAWS},
     },
     "mesh_mamba2": {
         "argv": with_mesh(MAMBA2_MESH_ARGV, "1x2"),
@@ -3493,11 +3585,12 @@ MESH_PATHS = {
 }
 #: the torchrun launches that run the mesh paths, to pay each launch's
 #: start (about 25 s: four processes importing torch, joining gloo and
-#: drawing the init) once: four ranks run mesh, mesh_heads, then the
-#: committed specs (``mesh_specs_child``); two run mesh_mamba2, then the
+#: drawing the init) once: four ranks run mesh, mesh_fsdp, mesh_heads,
+#: then the committed specs and the two fsdp specs on 2x2
+#: (``mesh_specs_child``); two run mesh_mamba2, then the
 #: ``mesh_families`` check
 MESH_LAUNCHES = {
-    "mesh_four": {"ranks": 4, "paths": ("mesh", "mesh_heads"),
+    "mesh_four": {"ranks": 4, "paths": ("mesh", "mesh_fsdp", "mesh_heads"),
                   "specs": True},
     "mesh_two": {"ranks": 2, "paths": ("mesh_mamba2",), "families": True},
 }
@@ -3516,11 +3609,13 @@ PATHS.update({
     },
     "mesh_heads_ref": {
         "argv": with_workers(PATHS["smoke_flags"]["argv"], 1),
+        "layers": HALF_LAYERS,
         "bits": {k: v for k, v in MESH_PATHS["mesh_heads"]["bits"].items()
                  if "mesh=" not in k},
         "launches": {"pack_update": STEPS * FULL_LEAVES,
                      "qsgd_pack_update": 0, "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + HALF_INIT_DRAWS},
         "profile": None, "keep_params": True,
     },
     "mesh_mamba2_ref": {
@@ -3576,6 +3671,45 @@ ZOO_SPECS = {
         "bits": [21_024_768, 13_658_528, 34_683_296],
         "launches": {"pack_update": 20, "threefry_uniform": 26 + 18}},
 }
+#: the committed fsdp specs made 2x2 (``"mesh": "2x2", "n": 2``: two
+#: workers of 2-way tensor parallelism), written to build/spec/ and run
+#: through the fine-tuning CLI in the same launch (2 steps, ``--processes
+#: 2``: a JAX process owning a row of the mesh is two ranks here): their
+#: fingerprints (pinned against JAX's FinetuneLoop by
+#: tests/test_torch_train.py's FSDP_SPECS_2X2), exact up, down and total
+#: bits, and each rank's launches -- its worker packs every block-sparse
+#: leaf once a step, in place or gathered, and it draws the smoke init and
+#: encodes every leaf of the broadcast whole, as at 4x1
+FSDP_SPECS_2X2 = {
+    "zoo_qwen2_fsdp": {
+        "fingerprint": "14ee601318e673be",
+        "bits": [11_552_768, 11_553_216, 23_105_984],
+        "launches": ZOO_SPECS["zoo_qwen2_fsdp"]["launches"]},
+    "finetune_moe": {
+        "fingerprint": "3bf8fba981e36383",
+        "bits": [10_512_384, 13_658_528, 24_170_912],
+        "launches": ZOO_SPECS["finetune_moe"]["launches"]},
+}
+FSDP_SPECS_2X2_DIR = ROOT / "build" / "spec"
+
+
+def fsdp_spec_2x2_path(name):
+    return FSDP_SPECS_2X2_DIR / f"{name}_2x2.json"
+
+
+def write_fsdp_specs_2x2():
+    """The committed fsdp specs on a 2x2 mesh of two workers, as JSON
+    files under build/spec/."""
+    from repro_torch.core import ExperimentSpec
+
+    FSDP_SPECS_2X2_DIR.mkdir(parents=True, exist_ok=True)
+    for name in FSDP_SPECS_2X2:
+        spec = ExperimentSpec.from_json(
+            (ROOT / "examples" / "specs" / f"{name}.json").read_text())
+        fsdp_spec_2x2_path(name).write_text(dataclasses.replace(
+            spec, mesh="2x2", n=2).to_json())
+
+
 #: each one-process path's step records (``recording``), for DIST_PATHS
 #: and the spec path
 MAIN_RECORDS = {}
@@ -4189,7 +4323,8 @@ def phase_dist(name):
 
 def fsdp_check(name, logs, ranks, want):
     """dist_fsdp's ranks against the one-process path: their fsdp dims are
-    ``fsdp_specs``'s for full-width qwen2-0.5b on a 2x1 mesh (every leaf
+    ``fsdp_specs``'s for full-width qwen2-0.5b (at the path's depth) on a
+    2x1 mesh (every leaf
     halves; the embedding by its columns); at every step the sum over the
     ranks of each master tree's ``layout_sum`` (params, w, h_avg, m, v:
     their shards reassembled) equals the one-process tree's; each rank's
@@ -4201,11 +4336,16 @@ def fsdp_check(name, logs, ranks, want):
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import fsdp_specs
 
-    model = build_model(get_config("qwen2-0.5b"))
+    from repro_torch import tree as T
+
+    model = build_model(dataclasses.replace(
+        get_config("qwen2-0.5b"), n_layers=DIST_PATHS[name]["layers"]))
     mesh = make_mesh((WORKERS, 1))
-    dims = list(fsdp_dims(fsdp_specs(mesh, model.param_specs(),
-                                     model.init_abstract()), mesh))
-    predicted = (5 / WORKERS + 1) * 4 * QWEN2_PARAMS
+    logical = model.init_abstract()
+    dims = list(fsdp_dims(fsdp_specs(mesh, model.param_specs(), logical),
+                          mesh))
+    params = sum(x.numel() for x in T.leaves(logical))
+    predicted = (5 / WORKERS + 1) * 4 * params
     for r, log in enumerate(logs):
         got = json.loads(re.search(r"\[dist\] fsdp_dims (.*)", log)[1])
         m = re.search(r"\[dist\] resident_bytes (\d+) allocated (\d+)", log)
@@ -4238,13 +4378,17 @@ def mesh_specs_child(outdir):
     takes a bf16 CUDA tensor (the model axis reduces in f32 either way),
     then each committed 2x2 spec through ``launch.train.main`` with
     ``--spec`` (smoke size), its own file store, between marker lines, with
-    launch counts reset just before it and read just after."""
+    launch counts reset just before it and read just after; then the
+    committed fsdp specs through the fine-tuning CLI, at 4x1 and made 2x2
+    (``FSDP_SPECS_2X2``: two processes of two ranks, a moe worker's h
+    against the experts its gradients touched)."""
     import os
 
     import torch.distributed as dist
 
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
+    from repro_torch.models import layers as L
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.cuda.set_device(0)
@@ -4286,6 +4430,53 @@ def mesh_specs_child(outdir):
         print(f"[mesh-specs] launches {name} {json.dumps(dict(LAUNCHES))}")
         print(f"[mesh-specs] seconds {name} {time.perf_counter() - t0:.1f}")
         print(f"[mesh-specs] end {name}", flush=True)
+    # the committed fsdp specs on 2x2 (fsdp on a model axis), two
+    # processes of two ranks; a moe worker's h is checked against the
+    # experts its gradients touched
+    for i, name in enumerate(FSDP_SPECS_2X2):
+        label = f"{name}_2x2"
+        print(f"[mesh-specs] begin {label}", flush=True)
+        t0 = time.perf_counter()
+        active, records, holder = {}, [], {}
+        activity = L.expert_activity_mask
+
+        def watch(moe_grads):
+            # the experts this worker's gradients touched in any step so
+            # far, as ``zero_inactive_expert_grads`` reads them
+            m = activity(moe_grads)
+            active["mask"] = m | active.get("mask", torch.zeros_like(m))
+            return m
+
+        L.expert_activity_mask = watch
+        reset_launches()
+        try:
+            with recording(records, holder):
+                train.main(["finetune", "--spec",
+                            str(fsdp_spec_2x2_path(name)), "--steps",
+                            str(ZOO_STEPS_FSDP), "--processes", "2",
+                            "--global-batch", "8", "--seq", "32",
+                            "--log-every", "1", "--eval-batches", "1",
+                            "--dist-backend", "gloo", "--dist-init",
+                            f"file://{outdir}/fsdp22_{i}"])
+            torch.cuda.synchronize()
+        finally:
+            L.expert_activity_mask = activity
+        print(f"[mesh-specs] launches {label} {json.dumps(dict(LAUNCHES))}")
+        if active:
+            # an expert no step of this worker routed a token to: its
+            # slabs of h stay exactly zero
+            h = holder["state"].h["layers"]["moe"]
+            idle = ~active["mask"]
+            print(f"[mesh-specs] experts {label} " + json.dumps({
+                "idle_slabs": int(idle.sum()),
+                "slabs": idle.numel(),
+                "nonzero_idle": {k: int(h[k][0][idle].count_nonzero())
+                                 for k in L.EXPERT_LEAVES},
+                "nonzero_active": {k: int(h[k][0][~idle].count_nonzero())
+                                   for k in L.EXPERT_LEAVES}}))
+        del holder
+        print(f"[mesh-specs] seconds {label} {time.perf_counter() - t0:.1f}")
+        print(f"[mesh-specs] end {label}", flush=True)
 
 
 def phase_mesh(name):
@@ -4303,8 +4494,7 @@ def phase_mesh(name):
     launches summed over the ranks."""
     path = MESH_PATHS[name]
     m, workers = path["m"], path["workers"]
-    logs = [log.split(f"[dist] begin {name}\n")[1].split(
-        f"[dist] end {name}\n")[0] for log in mesh_launch_logs(name)]
+    logs = mesh_segments(name)
     text = logs[0]
     for pat, expect in path["bits"].items():
         got = [int(x) if x.isdigit() else x for x in re.findall(pat, text)]
@@ -4342,6 +4532,10 @@ def phase_mesh(name):
             raise AssertionError(f"[main] {name} rank {r}: resident "
                                  f"{resident}, shards {shard_bytes}, "
                                  f"logical {logical}")
+        h = re.search(r"\[dist\] h (\S+) model_shards (\S+)", log)
+        if h[2] != "True":
+            raise AssertionError(f"[main] {name} rank {r}: h does not hold "
+                                 "the worker's model shards")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         records.append(recs)
@@ -4357,9 +4551,23 @@ def phase_mesh(name):
               f"{[a['model_bytes'] for a in recs]} exchange_host_ms="
               f"{[a['exchange_ms'] for a in recs]} exchange_bytes_sent="
               f"{[a['bytes'] // workers for a in recs]} peak_gib={peak:.2f} "
-              f"on {SMI} ({workers * m} processes time-slice one card; gloo "
-              "moves every collective through host memory: not NCCL, not "
-              "a tensor-parallel time)")
+              + "".join(
+                  f"{stage}_gathers_host_ms={[a[k + '_ms'] for a in recs]} "
+                  f"{stage}_gathers_calls={[a[k + '_calls'] for a in recs]} "
+                  f"{stage}_gathers_bytes_sent="
+                  f"{[a[k + '_bytes'] for a in recs]} "
+                  for k, stage in (("fsdp", "worker_group"),
+                                   ("fsdp_model", "model_axis"))
+                  if k + "_ms" in recs[0])
+              + f"on {SMI} ({workers * m} processes time-slice one card; "
+              "gloo moves every collective through host memory: not NCCL, "
+              "not a tensor-parallel time)")
+    if path.get("same_as"):
+        fsdp_mesh_check(name, logs, records)
+        secs = re.search(r"\[dist\] seconds (\S+)", logs[0])[1]
+        print(f"[main] {name}: {secs} s on rank 0 from its driver's start "
+              "to its last check")
+        return total
     for i in range(m if workers > 1 else 0):
         a, b = records[i], records[m + i]
         same = [x["master"] for x in a] == [y["master"] for y in b]
@@ -4376,13 +4584,126 @@ def phase_mesh(name):
     return total
 
 
+def mesh_segments(name):
+    """Each rank's log of the mesh path ``name`` (between its markers)."""
+    return [log.split(f"[dist] begin {name}\n")[1].split(
+        f"[dist] end {name}\n")[0] for log in mesh_launch_logs(name)]
+
+
+def npz_params(ckpt):
+    """The ``params|...`` entries of a path's last checkpoint (JAX's npz
+    format, step STEPS), as numpy arrays by key."""
+    import numpy as np
+
+    with np.load(Path(ckpt) / f"step_{STEPS:08d}.npz") as f:
+        return {k: f[k] for k in f.files if k.startswith("params|")}
+
+
+def fsdp_part_bytes(arch, layers, shape):
+    """Each rank's bytes of one f32 master tree under fsdp on a mesh of
+    ``shape``, from the specs alone: every leaf's dims divided by the
+    axes that its fsdp spec (``fsdp_specs`` over the model's
+    ``param_specs``) names, the worker axes by the worker count and
+    ``model`` by the model axis."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.aggregate import make_mesh
+    from repro_torch.models.layers import is_spec
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import fsdp_specs
+
+    model = build_model(dataclasses.replace(get_config(arch),
+                                            n_layers=layers))
+    mesh = make_mesh(shape)
+    logical = model.init_abstract()
+    total = 0
+    for leaf, spec in zip(T.leaves(logical), T.leaves(fsdp_specs(
+            mesh, model.param_specs(), logical), is_leaf=is_spec)):
+        part = list(leaf.shape)
+        for i, entry in enumerate(spec):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None:
+                    part[i] //= mesh.shape[a]
+        total += 4 * math.prod(part)
+    return total
+
+
+def fsdp_mesh_check(name, logs, records):
+    """A mesh path under fsdp (``same_as``) against its mesh path, bit for
+    bit: every rank's losses; at every step the master trees' layout sums
+    over the four ranks (params, w, h_avg, m, v: the fsdp parts of the
+    model shards, placed in the logical leaves) against the mesh path's
+    (its first worker group's shards); every rank's h checksum against the
+    same rank's; the final checkpoints' params; and each rank's resident
+    bytes of every master tree, exactly the fsdp-on-model specs' part
+    (``fsdp_part_bytes``), beside the mesh path's."""
+    import shutil
+
+    path = MESH_PATHS[name]
+    base = path["same_as"]
+    blogs = mesh_segments(base)
+    brecs = [json.loads(re.search(r"\[dist\] records (.*)", log)[1])
+             for log in blogs]
+    for r, (recs, want) in enumerate(zip(records, brecs)):
+        if [a["loss"] for a in recs] != [b["loss"] for b in want]:
+            raise AssertionError(f"[main] {name} rank {r}: losses differ "
+                                 f"from {base}'s")
+        h = re.search(r"\[dist\] h (\S+)", logs[r])[1]
+        bh = re.search(r"\[dist\] h (\S+)", blogs[r])[1]
+        if h != bh:
+            raise AssertionError(f"[main] {name} rank {r}: h {h} != "
+                                 f"{base}'s {bh}")
+    for s in range(STEPS):
+        for k in LAYOUT_TREES:
+            got = sum(recs[s]["layout"][k] for recs in records) & MASK64
+            want = sum(recs[s]["layout"][k] for recs in brecs) & MASK64
+            if got != want:
+                raise AssertionError(f"[main] {name}: step {s} {k}: the "
+                                     f"parts sum {got:x}, {base} {want:x}")
+    mine, theirs = (npz_params(path["checkpoint"]),
+                    npz_params(MESH_PATHS[base]["checkpoint"]))
+    bad = sorted(k for k in theirs if k not in mine
+                 or mine[k].tobytes() != theirs[k].tobytes())
+    if bad or mine.keys() != theirs.keys():
+        raise AssertionError(f"[main] {name}: checkpoint differs from "
+                             f"{base}'s at {bad[:4]}")
+    part = fsdp_part_bytes(path["arch"], path["layers"],
+                           (path["workers"], path["m"]))
+    for r, log in enumerate(logs):
+        resident = json.loads(re.search(r"\[dist\] resident (\{.*\}) ",
+                                        log)[1])
+        bres = json.loads(re.search(r"\[dist\] resident (\{.*\}) ",
+                                    blogs[r])[1])
+        print(f"[main] {name} rank {r}: resident bytes by tree {resident} "
+              f"(the fsdp-on-model specs' part: {part}; {base}: {bres})")
+        if any(v != part for v in resident.values()):
+            raise AssertionError(f"[main] {name} rank {r}: resident "
+                                 f"{resident}, want {part} a tree")
+    dims = re.search(r"\[dist\] fsdp_dims (.*)", logs[0])[1]
+    print(f"[main] {name}: fsdp dims {dims}; at each of {STEPS} steps the "
+          f"{len(logs)} ranks' parts of {', '.join(LAYOUT_TREES)} "
+          f"(layout sums) bitwise {base}'s, every rank's losses and h "
+          f"bitwise, the final checkpoint's {len(mine)} params bitwise "
+          f"{base}'s")
+    for p in (path["checkpoint"], MESH_PATHS[base]["checkpoint"]):
+        shutil.rmtree(p, ignore_errors=True)
+
+
 def mesh_launch_logs(name):
     """The rank logs of the MESH_LAUNCHES launch that runs the mesh path
     ``name``, launching it the first time one of its paths asks."""
+    import shutil
+
     launch = next(k for k, v in MESH_LAUNCHES.items() if name in v["paths"])
     if launch not in MESH_LOGS:
         collect(f"[main] {launch}")
         torch.cuda.empty_cache()
+        for sub in MESH_LAUNCHES[launch]["paths"]:
+            if MESH_PATHS[sub].get("checkpoint"):
+                shutil.rmtree(MESH_PATHS[sub]["checkpoint"],
+                              ignore_errors=True)
+        if MESH_LAUNCHES[launch].get("specs"):
+            write_fsdp_specs_2x2()
         MESH_LOGS[launch] = run_ranks(launch,
                                       ranks=MESH_LAUNCHES[launch]["ranks"],
                                       timeout=MESH_TIMEOUT_S)
@@ -4400,7 +4721,9 @@ def mesh_params_check(name):
     that bound, the share of elements that differ by more than 1e-6 must
     stay below 0.25 and the norm of the difference below half the norm of
     the update, which a wrong gradient or shard would break (at smoke size
-    on the CPU: 2-8% and 0.19)."""
+    on the CPU: 2-8% and 0.19).  A path with a ``checkpoint`` also holds
+    its final npz (rank 0's, of the params gathered over the model axis)
+    bitwise against the reassembled shards."""
     from repro_torch import random
     from repro_torch import tree as T
     from repro_torch.configs import get_config
@@ -4424,9 +4747,18 @@ def mesh_params_check(name):
     sched = cosine(3e-4, total_steps=STEPS,
                    warmup_steps=max(STEPS // 20, 1))
     bound = 2.02 * sum(sched(t) for t in range(STEPS))
+    # the path's final checkpoint, written by rank 0 from the gathered
+    # params: bitwise the shards reassembled here
+    ckpt = npz_params(path["checkpoint"]) if path.get("checkpoint") else {}
+    keys = ["params|" + "|".join(k) for k, _ in
+            T.flatten_with_path(model.init_abstract())]
     worst, over, count, num, den = 0.0, 0, 0, 0.0, 0.0
-    for dim, ps, o, i in zip(dims, zip(*parts), one, init):
-        whole = (ps[0] if dim is None else torch.cat(ps, dim=dim)).cuda()
+    for key, dim, ps, o, i in zip(keys, dims, zip(*parts), one, init):
+        whole = ps[0] if dim is None else torch.cat(ps, dim=dim)
+        if ckpt and ckpt[key].tobytes() != whole.numpy().tobytes():
+            raise AssertionError(f"[main] {name}: checkpoint {key} is not "
+                                 "the reassembled shards")
+        whole = whole.cuda()
         o = o.cuda()
         d = (whole.double() - o.double()).abs()
         worst = max(worst, float(d.max()))
@@ -4438,7 +4770,12 @@ def mesh_params_check(name):
     print(f"[main] {name}: reassembled params after {STEPS} steps vs one "
           f"process ({path['ref']}): max |diff| {worst:.3e} (bound "
           f"{bound:.3e}), share differing > 1e-6 {share:.4f} (limit 0.25), "
-          f"|diff| / |update| {rel:.4f} (limit 0.5)")
+          f"|diff| / |update| {rel:.4f} (limit 0.5)"
+          + (f"; the final checkpoint's {len(ckpt)} params bitwise the "
+             "reassembled shards" if ckpt else ""))
+    if ckpt and len(ckpt) != len(keys):
+        raise AssertionError(f"[main] {name}: checkpoint holds {len(ckpt)} "
+                             f"params, the model {len(keys)}")
     if not (worst <= bound and share < 0.25 and rel < 0.5):
         raise AssertionError(f"[main] {name}: params outside the tolerance "
                              "of the one-process run")
@@ -4585,7 +4922,8 @@ def phase_mesh_families():
 
 
 def phase_mesh_specs():
-    """The four committed 2x2 specs at smoke size on four gloo ranks:
+    """The four committed 2x2 specs at smoke size on four gloo ranks
+    (and the fsdp specs at 4x1 and made 2x2, ``FSDP_SPECS_2X2``):
     each exits 0 (the launch), prints the file's fingerprint, its exact
     bits and four finite losses, and launches its kernels as MESH_SPECS
     says on every rank.  Returns the launches summed over the ranks and
@@ -4664,6 +5002,59 @@ def phase_mesh_specs():
                     or len(evals) != 1 or \
                     not all(map(math.isfinite, losses + evals)):
                 raise AssertionError(f"[fsdp-specs] {name}: wrong output")
+    for name, want in FSDP_SPECS_2X2.items():
+        label = f"{name}_2x2"
+        spec = ExperimentSpec.from_json(
+            fsdp_spec_2x2_path(name).read_text())
+        for r, log in enumerate(logs):
+            seg = log.split(f"[mesh-specs] begin {label}")[1].split(
+                f"[mesh-specs] end {label}")[0]
+            launches = json.loads(re.search(
+                rf"\[mesh-specs\] launches {label} (.*)", seg)[1])
+            expect = {**dict.fromkeys(launches, 0), **want["launches"]}
+            if launches != expect:
+                raise AssertionError(f"[fsdp-specs] {label} rank {r}: "
+                                     f"launches {launches}, want {expect}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            experts = re.search(rf"\[mesh-specs\] experts {label} (.*)",
+                                seg)
+            if experts:
+                e = json.loads(experts[1])
+                print(f"[fsdp-specs] {label} rank {r} (worker {r // 2}): "
+                      f"{e['idle_slabs']} of {e['slabs']} expert slabs "
+                      "never routed to; h's nonzero entries there "
+                      f"{e['nonzero_idle']}, in the routed ones "
+                      f"{e['nonzero_active']}")
+                if any(e["nonzero_idle"].values()):
+                    raise AssertionError(f"[fsdp-specs] {label} rank {r}: "
+                                         "an idle expert's slab of h moved")
+            elif spec.problem.startswith("granite-moe"):
+                raise AssertionError(f"[fsdp-specs] {label}: no expert "
+                                     "check")
+            if r:
+                continue
+            fps = re.findall(r"spec fingerprint=([0-9a-f]{16})", seg)
+            got = [int(x) for x in re.search(
+                r"wire: up=(\d+) down=(\d+) total=(\d+) bits/round",
+                seg).groups()]
+            losses = [float(x) for x in re.findall(
+                r"step\s+\d+ loss=(\S+)", seg)]
+            evals = [float(x) for x in re.findall(r"eval @ \d+: loss=(\S+)",
+                                                  seg)]
+            secs = re.search(rf"\[mesh-specs\] seconds {label} (\S+)",
+                             seg)[1]
+            print(f"[fsdp-specs] {label}: mesh {spec.mesh}, fingerprint "
+                  f"{fps} (file {spec.fingerprint()}, pinned "
+                  f"{want['fingerprint']}) bits up/down/total {got} losses "
+                  f"{losses} eval {evals} launches per rank {launches}; "
+                  f"{secs} s on four ranks (2 processes x 2)")
+            if fps != [want["fingerprint"]] or \
+                    spec.fingerprint() != want["fingerprint"] or \
+                    got != want["bits"] or len(losses) != ZOO_STEPS_FSDP \
+                    or len(evals) != 1 or \
+                    not all(map(math.isfinite, losses + evals)):
+                raise AssertionError(f"[fsdp-specs] {label}: wrong output")
     return total
 
 

@@ -19,10 +19,8 @@ shards=...)``), and ``Run.state_shardings`` each state leaf's spec.  The
 trainer and the layout follow ``spec.backend``: ``shard_map``
 (``train.trainer.make_train_step``) or ``fsdp``
 (``make_train_step_fsdp``, the master state sharded over the worker
-group, ``shards=make_fsdp_shards(...)``).
+group, on a ``model`` axis too, ``shards=make_fsdp_shards(...)``).
 
-Not yet ported, and refused with the ROADMAP item that ports it: the fsdp
-trainer on a mesh with a ``model`` axis above 1 (item 8b).
 ``Run.reference()`` and ``problem_instance()`` run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
@@ -564,12 +562,6 @@ class Run:
             raise SpecError("backend='reference' has no distributed trainer:"
                             " use .reference(), or set backend='shard_map' "
                             "or 'fsdp'")
-        dims = spec.mesh_dims()
-        if spec.backend == "fsdp" and len(dims) > 1 and dims[-1] > 1:
-            raise NotImplementedError(
-                "backend='fsdp' on a mesh with a 'model' axis above 1 is not "
-                "yet ported to repro_torch (ROADMAP queue 1, item 8b); use a "
-                "'model' axis of 1, or backend='shard_map'")
 
     def make_mesh(self):
         """The spec's mesh: its geometry (axis names and sizes, the

@@ -44,7 +44,8 @@ payload and the bits per round are those of one process
 one contiguous run of a shard is packed on its shard in place, any other
 sharded leaf is gathered over the model group, packed whole, and only this
 rank's shard of h' is kept.  Master state, decode, the master update and
-AdamW act on shards.
+AdamW act on shards.  Under fsdp (:class:`FsdpShards`) the master state is
+split once more over the worker group, and gathered in two stages.
 """
 
 from __future__ import annotations
@@ -350,6 +351,11 @@ class ModelShards:
         return T.unflatten(tree, [self.shard(j, x) for j, x in
                                   enumerate(T.leaves(tree))])
 
+    def from_worker(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the master's leaf j from what a worker
+        holds of it (here, the same shard)."""
+        return x.reshape(self.shard_shape(j))
+
     def part_codec(self, j: int, codec) -> Optional[wire.LeafWire]:
         """The codec of this rank's part of leaf j's payload when it packs
         in place: a block-sparse leaf (of any wire dtype, a TreeWire's
@@ -395,35 +401,131 @@ class ModelShards:
 class FsdpShards(ModelShards):
     """The fsdp layout of the master state on a rank of a
     :class:`WorkerGroup` of P ranks (``repro/train/trainer.py``'s
-    ``fsdp_state_shardings`` at a mesh of n workers and no ``model``
-    axis): params, AdamW's m and v, h_avg and w hold, per leaf, the rank's
-    contiguous 1/P of the dim that ``fsdp_dims`` picks (a leaf with none
-    stays whole on every rank).  A worker's h_i, its gradient and its
-    payload are the logical leaf's, so each rank decodes a payload whole
-    and keeps its shard (:meth:`part_codec` is always None): for one leaf
-    at a time that costs the logical leaf in f32 beside its shard.  The
-    axis is the worker group's process group, so :meth:`gather` is an
-    all-gather over the ranks; its host time, calls and bytes are counted
-    in ``axis.stats``."""
+    ``fsdp_state_shardings``): params, AdamW's m and v, h_avg and w hold,
+    per leaf, the rank's contiguous 1/P of the dim that ``fsdp_dims``
+    picks on the logical shape (a leaf with none keeps what a worker
+    holds of it).  ``axis`` is the worker group's process group, so the
+    first stage of :meth:`gather` is an all-gather over the ranks; its
+    host time, calls and bytes are counted in ``axis.stats``.
+
+    Without a ``model`` axis (:attr:`model` None) a worker's h_i, its
+    gradient and its payload are the logical leaf's, so each rank decodes
+    a payload whole and keeps its part (:meth:`part_codec` is None): for
+    one leaf at a time that costs the logical leaf in f32 beside its part.
+
+    On a mesh with a ``model`` axis the worker side is the axis's
+    (:attr:`model`, the :class:`ModelShards` of the group's ``model``; JAX's
+    ``h_sh = stack_worker_spec(mesh, param_specs)``): h_i, the gradient and
+    the payload are model shards, packed in place where the model axis
+    allows, and a master leaf is doubly sharded -- the model spec's dim
+    split over the M model ranks, the fsdp dim over the worker group.
+    :meth:`gather` then runs in two stages: over the worker group, which
+    rebuilds the model shard (:meth:`to_worker`), then over the model axis
+    (:attr:`model_axis`, the group's ``model`` process group with its own
+    ``stats``), which rebuilds the logical leaf."""
 
     shards_worker_state = False
+    #: what a worker holds: the model axis's shards (None: logical leaves)
+    model: Optional[ModelShards] = None
+    #: the second stage of :meth:`gather` (None without a model axis)
+    model_axis: Optional[ModelAxis] = None
 
     @classmethod
     def of_group(cls, group: "WorkerGroup", dims: Sequence[Optional[int]],
-                 logical: PyTree) -> "FsdpShards":
-        if group.model is not None:
-            raise NotImplementedError(
-                "fsdp on a mesh with a 'model' axis above 1 is not yet "
-                "ported to repro_torch (ROADMAP queue 1, item 8b)")
+                 logical: PyTree, specs: PyTree = None) -> "FsdpShards":
+        """This rank's layout: ``dims`` the fsdp dims, ``specs`` the
+        model specs (needed on a group with a ``model`` axis)."""
         dims = tuple(dims)
         if len(dims) != len(T.leaves(logical)):
             raise ValueError("fsdp dims and params differ in structure")
+        model = model_axis = None
+        if group.model is not None:
+            if specs is None:
+                raise ValueError("fsdp on a 'model' axis needs the param "
+                                 "specs")
+            tp = group.model
+            model = ModelShards.of(tp, specs, logical)
+            model_axis = ModelAxis(size=tp.size, rank=tp.rank, pg=tp.pg)
         return cls(axis=ModelAxis(size=group.world, rank=group.rank,
                                   pg=group.pg),
-                   logical=logical, dims=dims)
+                   logical=logical, dims=dims, model=model,
+                   model_axis=model_axis)
+
+    def worker_shape(self, j: int) -> Tuple[int, ...]:
+        """The shape of what a worker holds of leaf j: its model shard, or
+        the logical leaf."""
+        return self.shape(j) if self.model is None \
+            else self.model.shard_shape(j)
+
+    def shard_shape(self, j: int) -> Tuple[int, ...]:
+        shape, dim = list(self.worker_shape(j)), self.dims[j]
+        if dim is not None:
+            shape[dim] //= self.axis.size
+        return tuple(shape)
+
+    def from_worker(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of leaf j from what a worker holds of it."""
+        x = x.reshape(self.worker_shape(j))
+        dim = self.dims[j]
+        return x if dim is None else self.axis.shard(x, dim)
+
+    def shard(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of leaf j's logical tensor (flat or shaped)."""
+        x = x.reshape(self.shape(j))
+        if self.model is not None:
+            x = self.model.shard(j, x)
+        return self.from_worker(j, x)
+
+    def to_worker(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """What a worker holds of leaf j from this rank's part: the first
+        stage of :meth:`gather`, over the worker group."""
+        dim = self.dims[j]
+        return x if dim is None else self.axis.all_gather(x, dim)
+
+    def gather(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        x = self.to_worker(j, x)
+        dim = None if self.model is None else self.model.dims[j]
+        return x if dim is None else self.model_axis.all_gather(x, dim)
+
+    def worker_tree(self, tree: PyTree) -> PyTree:
+        """What a worker holds of a master tree (:meth:`to_worker`)."""
+        return T.unflatten(tree, [self.to_worker(j, x) for j, x in
+                                  enumerate(T.leaves(tree))])
+
+    def from_worker_tree(self, tree: PyTree) -> PyTree:
+        return T.unflatten(tree, [self.from_worker(j, x) for j, x in
+                                  enumerate(T.leaves(tree))])
+
+    def worker_like(self) -> PyTree:
+        """``meta`` tensors shaped as what a worker holds of each leaf."""
+        return T.unflatten(self.logical, [
+            torch.empty(self.worker_shape(j), device="meta")
+            for j in range(len(self.dims))])
 
     def part_codec(self, j: int, codec) -> Optional[wire.LeafWire]:
-        return None
+        return None if self.model is None \
+            else self.model.part_codec(j, codec)
+
+    def norm(self, tree: PyTree) -> torch.Tensor:
+        """The global L2 norm of the logical tree from this rank's parts:
+        each leaf's squares summed here, then over the axes that split it
+        (f32)."""
+        if self.model is None:
+            return super().norm(tree)
+        # by (split over the workers, split over the model axis)
+        sums = {}
+        for j, x in enumerate(T.leaves(tree)):
+            key = (self.dims[j] is not None, self.model.dims[j] is not None)
+            sums.setdefault(key, []).append(torch.sum(torch.square(x)))
+        dev = T.leaves(tree)[0].device
+        part = {k: torch.stack(sums[k]).sum() if k in sums
+                else torch.zeros((), device=dev)
+                for k in ((a, b) for a in (True, False)
+                          for b in (True, False))}
+        workers = self.axis.all_reduce(torch.stack(
+            [part[(True, True)], part[(True, False)]]))
+        model = self.model_axis.all_reduce(workers[0] + part[(False, True)])
+        return torch.sqrt(model + workers[1] + part[(False, False)])
 
 
 def fsdp_dims(specs: PyTree, mesh: Mesh) -> Tuple[Optional[int], ...]:
@@ -708,9 +810,10 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
     order (``wire.chunked_decode_sum``); the dense path ignores it.
     ``summed`` (dense only) says the message is already the sum of the n
     workers' d (the all-reduce of :func:`exchange`), which is divided by n
-    here as ``torch.mean`` divides.  ``shards`` (a mesh rank): ``h_avg``
-    holds shards, an in-place leaf's payload decodes to this rank's shard
-    and any other's to the logical leaf, of which the shard is kept."""
+    here as ``torch.mean`` divides.  ``shards`` (a mesh or fsdp rank):
+    ``h_avg`` holds this rank's parts, an in-place leaf's payload decodes
+    to this rank's model shard and any other's to the logical leaf, and
+    each is cut to the part (``from_worker``, ``shard``)."""
     if mode == "dense_psum":
         d_bar = T.tree_map(lambda d: d / n_workers, message_stacked) \
             if summed else T.tree_map(lambda d: torch.mean(d, dim=0),
@@ -726,7 +829,8 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
             part = None if shards is None else shards.part_codec(j, codec)
             d = wire.chunked_decode_sum(part or codec, payload,
                                         chunks) / n_workers
-            d_leaves.append(d.reshape(ref.shape) if shards is None or part
+            d_leaves.append(d.reshape(ref.shape) if shards is None
+                            else shards.from_worker(j, d) if part
                             else shards.shard(j, d))
         d_bar = T.unflatten(h_avg, d_leaves)
     return algo.master_update(h_avg, d_bar)

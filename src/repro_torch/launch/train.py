@@ -113,23 +113,36 @@ mamba2 with its SSD block gathered on use:
 
 ``--trainer fsdp`` (a spec's ``backend: fsdp``) runs the fsdp trainer
 (``train.trainer.make_train_step_fsdp``): under ``torchrun`` each rank
-keeps only its shards of params, AdamW's m and v, h_avg and w, as JAX's
+keeps only its parts of params, AdamW's m and v, h_avg and w, as JAX's
 ``fsdp_specs`` lays them out over the workers, gathers w before its
 workers run, and a checkpoint gathers the params on every rank before
 rank 0 writes them; in one process it is the shard_map step.  On a mesh
-with a ``model`` axis above 1 it is refused (ROADMAP item 8b):
+with a ``model`` axis the parts are those of the rank's model shards
+(``aggregate.FsdpShards``), the workers hold model shards as on the mesh
+without fsdp, and the master trees reassemble bit for bit into that
+mesh run's:
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --smoke --device cpu \
         --dist-backend gloo --workers 2 --steps 3 --global-batch 8 \
         --seq 32 --compressor block_topk:256,16 --agg sparse_allgather \
         --downlink qsgd:16 --trainer fsdp
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --smoke --device cpu \
+        --dist-backend gloo --mesh 2x2 --steps 3 --global-batch 8 \
+        --seq 32 --compressor block_topk:256,16 --agg sparse_allgather \
+        --downlink qsgd:16 --trainer fsdp --ckpt-dir build/ckpt/fsdp22
+
+``--ckpt-dir`` writes JAX's npz of the whole params on any mesh: a mesh
+rank's shards, or an fsdp rank's parts, are gathered first.
 
 The ``finetune`` subcommand is JAX's ``launch/finetune.py``: the staged
 fine-tuning harness (:class:`FinetuneLoop`, JAX's ``train/loop.py``) of a
 spec file, its flags the runtime knobs (:class:`FinetuneSettings`), plus
-``--device`` and ``--dist-*``; ``--processes`` is the worker group's size,
-the ranks ``torchrun`` starts.  The JAX CLI reads the spec's mesh before
+``--device`` and ``--dist-*``; ``--processes`` is the worker group's size:
+a JAX process owning a row of M devices of the mesh is M ranks here, so
+``torchrun`` starts ``--processes`` x M ranks (M the spec's ``model``
+axis).  The JAX CLI reads the spec's mesh before
 JAX starts to force its host device count (``_mesh_from_argv``); the
 port sets no such flag, so it has no counterpart:
 
@@ -139,6 +152,11 @@ port sets no such flag, so it has no counterpart:
         -m repro_torch.launch.train finetune --device cpu \
         --spec examples/specs/zoo_qwen2_fsdp.json --steps 2 \
         --processes 4 --dist-backend gloo
+    # a spec written with "mesh": "2x2", "n": 2: 2 processes x 2 ranks
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train finetune --device cpu \
+        --spec build/spec/zoo_qwen2_fsdp_2x2.json --steps 2 \
+        --processes 2 --dist-backend gloo
 
 The ``serve`` subcommand is JAX's ``launch/serve.py``: with ``--spec``
 the simulated replica fleet of a spec's ``serve`` leg (:func:`run_fleet`:
@@ -414,11 +432,7 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
 
 def _unported_spec(spec: ExperimentSpec) -> str:
     """What of a valid spec the port's trainer does not have yet ('' when
-    nothing), naming the ROADMAP item that ports it."""
-    if spec.backend == "fsdp" and model_axis(spec) > 1:
-        return (f"mesh {spec.mesh!r}: backend 'fsdp' on a 'model' axis "
-                "above 1 is not yet ported to repro_torch (ROADMAP queue 1, "
-                "item 8b)")
+    nothing)."""
     refusal = build_model(run_config(spec)).model_axis_refusal(
         model_axis(spec))
     if refusal:
@@ -462,10 +476,6 @@ def experiment(args) -> ExperimentSpec:
     except (SpecError, ValueError, OSError) as e:
         raise SystemExit(f"[train] bad experiment spec: {e}")
     unported = _unported_spec(spec) or mesh_refusal(spec, world_size())
-    if not unported and args.ckpt_dir and model_axis(spec) > 1:
-        # each rank holds shards: a checkpoint of them is not JAX's format
-        unported = (f"mesh {spec.mesh!r}: --ckpt-dir on a 'model' axis is "
-                    "not yet ported to repro_torch")
     if unported:
         raise SystemExit(f"[train] {unported}")
     return spec
@@ -569,13 +579,7 @@ def setup(args, group=None, spec: ExperimentSpec = None):
     # JAX's weights, model.init(jax.random.key(seed)); a mesh rank, and a
     # rank of the fsdp trainer, keeps its shards
     params = model.init(random.key(spec.seed), device=dev)
-    shards = None
-    if tp is not None:
-        shards = ModelShards.of(tp, model.param_specs(),
-                                model.init_abstract())
-    elif spec.backend == "fsdp":
-        shards = make_fsdp_shards(group, run_.make_mesh(),
-                                  model.param_specs(), model.init_abstract())
+    shards = make_shards(spec, group, model)
     if shards is not None:
         params = shards.shard_tree(params)
     # the wire carries the logical gradient: bits as in one process
@@ -646,6 +650,28 @@ def main(argv=None):
     finally:
         if group is not None:
             group.close()
+
+
+def make_shards(spec: ExperimentSpec, group, model):
+    """This rank's layout of the master state: the fsdp trainer's parts
+    (``make_fsdp_shards``, on a ``model`` axis too), a mesh rank's model
+    shards, or None (one process; nothing is sharded)."""
+    if spec.backend == "fsdp":
+        return make_fsdp_shards(group, build(spec).make_mesh(),
+                                model.param_specs(), model.init_abstract())
+    if group is not None and group.model is not None:
+        return ModelShards.of(group.model, model.param_specs(),
+                              model.init_abstract())
+    return None
+
+
+def resident_bytes(state) -> int:
+    """The bytes a rank holds of the master trees (params, AdamW's m and
+    v, h_avg, w), counted leaf by leaf."""
+    trees = (state.params, state.opt_state["m"], state.opt_state["v"],
+             state.h_avg, state.w)
+    return sum(x.numel() * x.element_size() for t in trees if t is not None
+               for x in T.leaves(t))
 
 
 def save_params(args, group, spec: ExperimentSpec, step: int, state,
@@ -720,21 +746,28 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
              "host time in the collective (wait() when pipelined) per step "
              "on rank 0")
         shards = getattr(step_fn, "shards", None)
-        if shards is not None and not shards.shards_worker_state:
-            fs = shards.axis.stats
-            steps = max(spec.steps, 1)
-            echo(f"[train] fsdp: {group.world} ranks hold the master state's "
-                 f"shards, {fs['model_calls'] // steps} all-gathers and "
-                 f"{fs['model_bytes'] // steps} B sent per rank per step, "
-                 f"{1e3 * fs['model_s'] / steps:.2f} ms host time in them per "
-                 "step on rank 0")
+        steps = max(spec.steps, 1)
+        fsdp = shards is not None and not shards.shards_worker_state
+        if fsdp:
+            stages = [("worker group", shards.axis.stats)]
+            if shards.model_axis is not None:
+                stages.append(("model axis", shards.model_axis.stats))
+            echo(f"[train] fsdp: {group.world} ranks a worker group hold "
+                 "the master state's parts, "
+                 f"{resident_bytes(state)} B resident on rank 0 (params, "
+                 "m, v, h_avg, w); gathers per rank per step: "
+                 + "; ".join(
+                     f"{name} {st['model_calls'] // steps} calls, "
+                     f"{st['model_bytes'] // steps} B sent, "
+                     f"{1e3 * st['model_s'] / steps:.2f} ms host time"
+                     for name, st in stages))
         if group.model is not None:
             ms = group.model.stats
-            steps = max(spec.steps, 1)
-            held = sum(d is not None for d in shards.dims)
+            dims = shards.model.dims if fsdp else shards.dims
+            held = sum(d is not None for d in dims)
             echo(f"[train] model axis: {group.model.size} ranks a worker, "
                  f"each holding its shards of {held} of "
-                 f"{len(shards.dims)} leaves, "
+                 f"{len(dims)} leaves, "
                  f"{ms['model_calls'] // steps} collectives and "
                  f"{ms['model_bytes'] // steps} B sent per rank per step, "
                  f"{1e3 * ms['model_s'] / steps:.2f} ms host time in them "
@@ -757,7 +790,8 @@ EVAL_SEED_XOR = 0xE7A1
 class FinetuneSettings:
     """The runtime knobs of a fine-tune run (JAX's, field for field); none
     enters the spec's fingerprint.  ``num_processes`` is the size of the
-    worker group the run is on: 1 in one process, P under ``torchrun``."""
+    worker group the run is on: 1 in one process, P under ``torchrun``
+    (P x M ranks on a ``model`` axis of M)."""
 
     global_batch: int = 8
     seq_len: int = 32
@@ -826,11 +860,13 @@ class FinetuneLoop:
     Each stage runs the one before it when it has not run.
 
     ``group`` (a :class:`WorkerGroup`, under ``torchrun``) runs the
-    workers over its ranks, and under fsdp the master state as each
-    rank's shards; ``settings.num_processes`` must be its size (1 without
-    one).  ``config`` replaces the spec's config (e.g. the arch cut in
-    depth).  It runs on ``device`` (``cuda`` unless the caller asks for
-    the CPU), or the group's."""
+    workers over its ranks, on a ``model`` axis each worker over M ranks
+    (tensor parallelism), and under fsdp the master state as each rank's
+    parts; ``settings.num_processes`` must be the worker group's size (1
+    without one): a JAX process owns a row of the mesh, M ranks here.
+    ``config`` replaces the spec's config (e.g. the arch cut in depth).
+    It runs on ``device`` (``cuda`` unless the caller asks for the CPU),
+    or the group's."""
 
     def __init__(self, spec: ExperimentSpec, settings=None, *, config=None,
                  verbose: bool = True, device="cuda", group=None):
@@ -877,31 +913,37 @@ class FinetuneLoop:
 
         spec, st = self.spec, self.settings
         run_ = self.run_obj
+        # JAX's geometry first (its message for a bad --processes): the
+        # leading axis must tile the processes.  A JAX process owning a
+        # row of M devices is M ranks here, one per model index, so the
+        # process count is the worker group's size
+        self.mesh = make_multihost_mesh(spec.mesh_dims(),
+                                        num_processes=st.num_processes)
         world = 1 if self.group is None else self.group.world
         if st.num_processes != world:
             raise SpecError(
                 f"num_processes={st.num_processes}, but the run is on a "
                 f"worker group of {world} process(es): launch that many "
-                "ranks under torchrun")
-        self.mesh = make_multihost_mesh(spec.mesh_dims(),
-                                        num_processes=st.num_processes)
-        if model_size(self.mesh) > 1:
-            raise NotImplementedError(
-                f"mesh {spec.mesh!r}: the fine-tune harness on a 'model' "
-                "axis above 1 is not yet ported to repro_torch (ROADMAP "
-                "queue 1, item 8b)")
+                "ranks a model index under torchrun")
+        m = model_size(self.mesh)
+        tp = None if self.group is None else self.group.model
+        if (1 if tp is None else tp.size) != m:
+            raise SpecError(
+                f"mesh {spec.mesh!r} has a 'model' axis of {m}: it runs on "
+                f"{st.num_processes} x {m} ranks under torchrun (W' x M, "
+                f"W' = --processes), not on "
+                f"{world * (1 if tp is None else tp.size)}")
         self.n = num_workers(self.mesh)
         self.model = build_model(self.cfg)
+        refusal = self.model.model_axis_refusal(m)
+        if refusal:
+            raise NotImplementedError(f"mesh {spec.mesh!r}: {refusal}")
         kind = schedule_kind(st.schedule, spec.problem)
         self.opt = adamw(make_schedule(kind, st.lr, spec.steps),
                          weight_decay=0.01)
         self.key = random.key(spec.seed)
         params = self.model.init(self.key, device=self.device)
-        self.shards = None
-        if spec.backend == "fsdp":
-            self.shards = make_fsdp_shards(
-                self.group, self.mesh, self.model.param_specs(),
-                self.model.init_abstract())
+        self.shards = make_shards(spec, self.group, self.model)
         if self.shards is not None:
             params = self.shards.shard_tree(params)
         self.state = run_.init_state(params, self.opt, group=self.group,
@@ -910,7 +952,9 @@ class FinetuneLoop:
         # experts' slabs pinned to exact zero before compression
         grad_transform = (zero_inactive_expert_grads
                           if self.cfg.family == "moe" else None)
-        self.step_fn = run_.train_step(self.model.loss, self.opt,
+        loss_fn = self.model.loss if tp is None \
+            else functools.partial(self.model.loss, tp=tp)
+        self.step_fn = run_.train_step(loss_fn, self.opt,
                                        group=self.group, shards=self.shards,
                                        grad_transform=grad_transform)
         algo = run_.algo
@@ -1081,7 +1125,8 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--shard-size", type=int, default=64)
     ap.add_argument("--processes", type=int, default=1,
                     help="the worker group's size: the ranks torchrun "
-                         "starts (1 in one process)")
+                         "starts, divided by the spec's model axis (1 in "
+                         "one process)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--sanitize", action="store_true",

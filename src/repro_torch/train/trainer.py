@@ -45,6 +45,9 @@ on the logical gradient (``compress_local``), the decode keeps this rank's
 shard, AdamW is elementwise on shards, the norms are reduced over the
 model group, and the worker exchange runs over the worker group.  The
 in-flight payload is every worker's message, as the exchange delivers it.
+Under fsdp (:func:`make_train_step_fsdp`) the master trees are further
+split over the worker group, and the workers hold what they hold without
+it.
 """
 
 from __future__ import annotations
@@ -136,7 +139,8 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     sum, zeros of the workers' leaf shapes.  On a mesh rank ``params`` are
     its shards and ``shards`` says how (every tree of the state is sharded
     alike); under fsdp (:class:`FsdpShards`) ``params`` are the rank's fsdp
-    shards and h_i and the in-flight messages the logical tree's."""
+    parts and h_i and the in-flight messages what a worker holds (the
+    logical tree's, or on a ``model`` axis its shards)."""
     n = n_workers
     pipelined = pipeline is not None and pipeline.depth > 0
     if pipelined and algo is None:
@@ -149,7 +153,7 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     dev = T.leaves(params)[0].device
     # the tree a worker's h_i and message are shaped like
     worker = params if shards is None or shards.shards_worker_state \
-        else shards.logical
+        else shards.worker_like()
     h = T.tree_map(lambda p: torch.zeros((local,) + tuple(p.shape),
                                          dtype=torch.float32, device=dev),
                    worker)
@@ -273,10 +277,11 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
     workers = range(n) if group is None else group.workers
     summed = group is not None and agg_mode == "dense_psum"
     fsdp = shards is not None and not shards.shards_worker_state
-    # the workers' tree: a mesh rank's shards, or the logical tree (one
-    # process, fsdp); the master state's: the rank's shards, if any
-    worker_shards = None if fsdp else shards
-    wnorm = global_norm if worker_shards is None else shards.norm
+    # the workers' tree: a mesh rank's model shards (fsdp on a model axis
+    # too), or the logical tree (one process, fsdp without a model axis);
+    # the master state's: the rank's model shards or fsdp parts, if any
+    worker_shards = shards.model if fsdp else shards
+    wnorm = global_norm if worker_shards is None else worker_shards.norm
     mnorm = global_norm if shards is None else shards.norm
 
     @torch.no_grad()
@@ -290,8 +295,9 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
                              "with init_train_state(..., pipeline=...)")
         eval_params = state.w if downlink is not None else state.params
         if fsdp:
-            # the workers run the whole model: gathered leaf by leaf
-            eval_params = shards.gather_tree(eval_params)
+            # the workers run what they hold of the model: gathered leaf
+            # by leaf over the worker group
+            eval_params = shards.worker_tree(eval_params)
         dev = T.leaves(state.params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         B = batch["tokens"].shape[0]
@@ -335,8 +341,8 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
         if isinstance(applied, Pending):
             applied = applied.wait()
         if fsdp and summed:
-            # the all-reduced d of the logical leaves: this rank's shards
-            applied = shards.shard_tree(applied)
+            # the all-reduced d of what the workers hold: this rank's parts
+            applied = shards.from_worker_tree(applied)
         g, h_avg = combine_global(
             algo, applied, state.h_avg, n_workers=n, mode=agg_mode,
             wire_dtype=wire_dtype, chunks=chunks, summed=summed,
@@ -448,13 +454,13 @@ def make_fsdp_shards(group: Optional[WorkerGroup], mesh: Mesh,
                      param_specs: PyTree, logical: PyTree
                      ) -> Optional[FsdpShards]:
     """This rank's :class:`FsdpShards` of the logical params (``meta``
-    tensors) by :func:`fsdp_specs` on ``mesh``; None in one process,
-    where nothing is sharded."""
+    tensors) by :func:`fsdp_specs` on ``mesh`` (and on a ``model`` axis
+    the model specs); None in one process, where nothing is sharded."""
     if group is None:
         return None
     return FsdpShards.of_group(
         group, fsdp_dims(fsdp_specs(mesh, param_specs, logical), mesh),
-        logical)
+        logical, param_specs)
 
 
 def make_train_step_fsdp(
@@ -475,22 +481,28 @@ def make_train_step_fsdp(
     """The fsdp train step (``repro/train/trainer.py``'s
     ``make_train_step_fsdp``, the same keywords): over a ``group`` with
     its ``shards`` (:func:`make_fsdp_shards`) each rank keeps only its
-    fsdp shards of params, AdamW's m and v, h_avg and w, and the whole
-    h_i of its own workers.  One step:
+    fsdp parts of params, AdamW's m and v, h_avg and w, and the h_i of its
+    own workers as a worker holds them.  One step:
 
-        w_full = all-gather of w (the params without a downlink)
-        for each of this rank's workers: loss, grads at w_full, then
-            compress_local exactly as :func:`make_train_step` does
-        exchange; combine_global decodes each payload whole and keeps
-            this rank's shard of g and h_avg
-        AdamW on the shards
-        broadcast_global: each leaf's x - w gathered, encoded whole (its
-            norm and uniforms the logical leaf's), its shard kept
+        w_worker = all-gather of w over the worker group (the params
+            without a downlink): the logical tree, or on a ``model`` axis
+            this rank's model shards
+        for each of this rank's workers: loss, grads at w_worker, then
+            compress_local exactly as :func:`make_train_step` does (on a
+            model axis: the mesh rank's, in place or gathered)
+        exchange; combine_global decodes each payload as the step without
+            fsdp does and keeps this rank's part of g and h_avg
+        AdamW on the parts
+        broadcast_global: each leaf's x - w gathered in two stages (the
+            worker group, then the model axis), encoded whole (its norm
+            and uniforms the logical leaf's), its part kept
 
-    Every per-element step acts on shards and every draw and reduction of
-    the wire on the logical leaf, so the shards are bitwise those of one
-    process; ``g_norm``, ``update_norm`` and ``w_err`` are reduced over
-    the ranks (within rounding).  It needs a TrainState built with
+    Every per-element step acts on parts and every draw and every wire
+    reduction on the leaf that the step without fsdp reduces, so the parts
+    are bitwise those of one process, or on a ``model`` axis of the mesh
+    rank's shards; ``g_norm``, ``update_norm`` and ``w_err`` are reduced
+    over the axes (within rounding).  On a ``model`` axis ``loss_fn`` is
+    the tensor-parallel loss.  It needs a TrainState built with
     ``init_train_state(..., group=group, shards=shards)``.  In one process
     (no group) nothing is sharded and this is :func:`make_train_step`."""
     if shards is not None and shards.shards_worker_state:

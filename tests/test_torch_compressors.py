@@ -1151,12 +1151,12 @@ _JAX_FSDP_LAYOUT = """
     for arch in ARCHS:
         model = build_model(get_smoke_config(arch))
         shapes = jax.eval_shape(model.init, jax.random.key(0))
-        for shape in ((1, 1), (2, 1), (4, 1)):
+        for shape in SHAPES:
             mesh = make_mesh(shape)
             state = jax.eval_shape(lambda p: init_train_state(
                 p, adamw(constant(1e-3)), mesh, bidirectional=True), shapes)
             sh = fsdp_state_shardings(mesh, model.param_specs(), state)
-            out[f"{arch} {shape[0]}"] = {
+            out[f"{arch} {shape[0]}x{shape[1]}"] = {
                 "fsdp_specs": specs(fsdp_specs(mesh, model.param_specs(),
                                                shapes)),
                 "params": specs(sh.params), "w": specs(sh.w),
@@ -1167,63 +1167,82 @@ _JAX_FSDP_LAYOUT = """
 """
 
 
-def test_fsdp_specs_and_state_shardings_equal_jax():
+#: the meshes of the fsdp layout check: worker axes alone, and with a
+#: 'model' axis of 2 and 4
+FSDP_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2), (2, 4))
+#: JAX's fsdp layouts, computed once for every mesh (one subprocess)
+_JAX_FSDP = {}
+
+
+def _jax_fsdp_layouts():
+    if not _JAX_FSDP:
+        code = _JAX_FSDP_LAYOUT.replace("ARCHS", repr(FAMILY_SMOKES)).replace(
+            "SHAPES", repr(FSDP_MESHES))
+        out = run_with_devices(code, 8)
+        _JAX_FSDP.update(json.loads(out.split("FSDP_LAYOUT ", 1)[1]))
+    return _JAX_FSDP
+
+
+@pytest.mark.parametrize("shape", FSDP_MESHES,
+                         ids=[f"{a}x{b}" for a, b in FSDP_MESHES])
+def test_fsdp_specs_and_state_shardings_equal_jax(shape):
     """``fsdp_specs`` and ``fsdp_state_shardings`` (``Run.state_shardings``
     of an fsdp spec) give JAX's specs leaf for leaf, as tuples, for the
-    smoke tree of each family at 1x1, 2x1 and 4x1 (JAX on four host
-    devices in a subprocess); m, v and h_avg take the fsdp spec of the
-    first param of their shape (JAX's ``spec_for``), whose worker dim
-    differs from their own param's only at the leaves of
-    ``FSDP_BY_SHAPE``."""
-    code = _JAX_FSDP_LAYOUT.replace("ARCHS", repr(FAMILY_SMOKES))
-    out = run_with_devices(code, 4)
-    want = json.loads(out.split("FSDP_LAYOUT ", 1)[1])
+    smoke tree of each family on the mesh (JAX on eight host devices in a
+    subprocess); m, v and h_avg take the fsdp spec of the first param of
+    their shape (JAX's ``spec_for``), whose worker dim differs from their
+    own param's only at the leaves of ``FSDP_BY_SHAPE``.  On a 'model'
+    axis the worker axes take the first dim that neither the model spec
+    shards nor the worker count leaves a remainder on."""
+    want_all = _jax_fsdp_layouts()
     js = lambda tree: json.loads(json.dumps(  # noqa: E731
         T.leaves(tree, is_leaf=is_spec)))
+    n, m = shape
+    key = f"{n}x{m}"
     for arch in FAMILY_SMOKES:
         model = build_model(get_smoke_config(arch))
         logical = model.init_abstract()
-        for n in (1, 2, 4):
-            mesh = tagg.make_mesh((n, 1))
-            spec = ExperimentSpec(backend="fsdp", problem=arch, smoke=True,
-                                  mesh=f"{n}x1", n=n, d=64,
-                                  downlink="qsgd:16")
-            run = build(spec)
-            state = run.init_state(logical, adamw(lambda s: 1e-3))
-            sh = run.state_shardings(mesh, model.param_specs(), state)
-            w = want[f"{arch} {n}"]
-            fspecs = ttrainer.fsdp_specs(mesh, model.param_specs(), logical)
-            assert js(fspecs) == w["fsdp_specs"], (arch, n)
-            for k in ("params", "w", "h", "h_avg"):
-                assert js(getattr(sh, k)) == w[k], (arch, n, k)
-            for k in ("m", "v"):
-                assert js(sh.opt_state[k]) == w[k], (arch, n, k)
-            assert js(sh.opt_state["count"]) == w["count"]
-            dims = tagg.fsdp_dims(sh.params, mesh)
-            by_shape = tagg.fsdp_dims(sh.opt_state["m"], mesh)
-            assert tagg.fsdp_dims(sh.h_avg, mesh) == by_shape
-            paths = twire.leaf_paths(logical)
-            assert [(paths[j], dims[j], by_shape[j])
-                    for j in range(len(dims)) if dims[j] != by_shape[j]] \
-                == FSDP_BY_SHAPE.get((arch, n), []), (arch, n)
+        mesh = tagg.make_mesh(shape)
+        spec = ExperimentSpec(backend="fsdp", problem=arch, smoke=True,
+                              mesh=key, n=n, d=64, downlink="qsgd:16")
+        run = build(spec)
+        state = run.init_state(logical, adamw(lambda s: 1e-3))
+        sh = run.state_shardings(mesh, model.param_specs(), state)
+        w = want_all[f"{arch} {key}"]
+        fspecs = ttrainer.fsdp_specs(mesh, model.param_specs(), logical)
+        assert js(fspecs) == w["fsdp_specs"], (arch, key)
+        for k in ("params", "w", "h", "h_avg"):
+            assert js(getattr(sh, k)) == w[k], (arch, key, k)
+        for k in ("m", "v"):
+            assert js(sh.opt_state[k]) == w[k], (arch, key, k)
+        assert js(sh.opt_state["count"]) == w["count"]
+        dims = tagg.fsdp_dims(sh.params, mesh)
+        by_shape = tagg.fsdp_dims(sh.opt_state["m"], mesh)
+        assert tagg.fsdp_dims(sh.h_avg, mesh) == by_shape
+        paths = twire.leaf_paths(logical)
+        assert [(paths[j], dims[j], by_shape[j])
+                for j in range(len(dims)) if dims[j] != by_shape[j]] \
+            == FSDP_BY_SHAPE.get((arch, key), []), (arch, key)
 
 
 #: the leaves whose m, v and h_avg JAX's shape-keyed ``spec_for`` gives
 #: the fsdp spec of another param of their shape, with another worker dim
-#: (None: whole) than their own param's: (path, param's dim, that dim).
-#: The port keeps every m, v and h_avg leaf on its own param's shard
+#: (None: whole) than their own param's, by (arch, mesh): (path, param's
+#: dim, that dim).  The port keeps every m, v and h_avg leaf on its own param's shard
 #: (AdamW and the master update are elementwise on aligned shards);
 #: ``fsdp_state_shardings`` states JAX's layout.
 FSDP_BY_SHAPE = {
-    ("qwen2-0.5b", 4): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
+    ("qwen2-0.5b", "4x1"): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
                         ("layers/ln2", 1, None)],
-    ("granite-moe-3b-a800m", 4): [("layers/attn/wq", 1, 2)],
-    ("zamba2-7b", 1): [("shared_attn/attn/wo", 1, 0)],
-    ("zamba2-7b", 2): [("shared_attn/attn/wo", 1, 0)],
-    ("zamba2-7b", 4): [("shared_attn/attn/wo", 1, 0)],
-    ("whisper-medium", 4): [("encoder/attn/wo", 2, 1),
+    ("granite-moe-3b-a800m", "4x1"): [("layers/attn/wq", 1, 2)],
+    ("zamba2-7b", "1x1"): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", "2x1"): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", "4x1"): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", "2x2"): [("shared_attn/attn/wo", 1, 0)],
+    ("zamba2-7b", "2x4"): [("shared_attn/attn/wo", 1, 0)],
+    ("whisper-medium", "4x1"): [("encoder/attn/wo", 2, 1),
                             ("layers/attn/wo", 2, 1),
                             ("layers/xattn/wo", 2, 1)],
-    ("qwen2-vl-2b", 4): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
+    ("qwen2-vl-2b", "4x1"): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
                          ("layers/ln2", 1, None)],
 }

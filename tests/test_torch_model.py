@@ -301,7 +301,7 @@ def test_driver_folds_smoke_and_pipeline_into_a_spec(tmp_path, capsys):
     (dict(backend="reference", problem="logreg"), "bad experiment spec"),
     (dict(problem="logreg", mesh="1x1", n=1, d=16), "model archs"),
     (dict(mesh="2x3"), "not yet ported"),
-    (dict(backend="fsdp", mesh="2x2"), "not yet ported"),
+    (dict(backend="fsdp", mesh="2x2"), "W' x 2 ranks"),
     (dict(problem="zamba2-7b", d=32768, mesh="2x2"), "W' x 2 ranks"),
     (dict(leaf_codecs="*embed*=qsgd:16"), None),
     (dict(downlink="topk:64"), None),
@@ -677,6 +677,64 @@ def test_driver_2x2_mesh_matches_jax(tmp_path):
     _check_against_jax(ranks[0], jax_out)
 
 
+def _fsdp_driver_rank(store, argv):
+    """One rank of the driver, its output and the params that its final
+    checkpoint gathered (rank 0's, as numpy)."""
+    gathered = []
+    whole = tlaunch.whole_params
+
+    def keep(step_fn, tree):
+        out = whole(step_fn, tree)
+        gathered.append(out)
+        return out
+
+    tlaunch.whole_params = keep
+    try:
+        out = _mesh_driver_rank(store, argv)
+    finally:
+        tlaunch.whole_params = whole
+    return {"out": out, "params": T.tree_map(lambda a: a.numpy().copy(),
+                                             gathered[-1])}
+
+
+def test_driver_2x2_fsdp_matches_jax(tmp_path):
+    """--mesh 2x2 --trainer fsdp on four gloo ranks against JAX's driver on
+    four fake host devices: rank 0 prints JAX's fingerprint and bits and
+    its losses within LOSS_ATOL; its --ckpt-dir checkpoint restores through
+    JAX's ``repro.checkpoint`` under the spec's fingerprint, equal bit for
+    bit to the params every rank gathered (two stages: the worker group,
+    then the model axis)."""
+    from repro.checkpoint import npz as jnpz
+    from repro.launch import train as jtrain
+
+    ckpt = tmp_path / "ckpt"
+    flags = SMOKE_FLAGS + ["--mesh", "2x2", "--trainer", "fsdp"]
+    ranks = _spawn_ranks(tmp_path, 4, _fsdp_driver_rank,
+                         flags + ["--device", "cpu", "--ckpt-dir",
+                                  str(ckpt)])
+    assert [r["out"] for r in ranks[1:]] == ["", "", ""]
+    out = ranks[0]["out"]
+    assert " mesh=2x2 ranks=4 backend=gloo " in out
+    assert "[train] fsdp: 2 ranks a worker group hold" in out
+    assert "; model axis " in out
+    jax_out = _jax_driver(flags, 4)
+    _check_against_jax(out, jax_out)
+    spec = jtrain.spec_from_args(jtrain.parse_args(flags), 2)
+    assert spec.backend == "fsdp"
+    assert re.findall(r"spec fingerprint=(\S+)", out) == [spec.fingerprint()]
+    template = {"params": jax.tree.map(
+        np.asarray, jbuild_model(jget_smoke_config("qwen2-0.5b")).init(
+            jax.random.key(0)))}
+    back = jnpz.restore_checkpoint(str(ckpt), 4, template, spec=spec)
+    assert os.listdir(ckpt) == ["step_00000004.npz"]
+    for r in ranks:
+        for a, b in zip(jax.tree.leaves(back["params"]),
+                        T.leaves(r["params"])):
+            assert a.shape == b.shape
+            np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
+                                          b.view(np.uint32))
+
+
 def test_driver_refuses_a_mesh_the_ranks_do_not_fit(capsys):
     """A model axis needs W' x M ranks: one process cannot run 2x2."""
     with pytest.raises(SystemExit, match="W' x 2 ranks"):
@@ -803,6 +861,7 @@ def test_model_axis_runs_every_arch(arch):
 # -- the fsdp trainer on two gloo ranks ---------------------------------------
 
 import contextlib  # noqa: E402
+import functools  # noqa: E402
 
 from repro_torch.core import compressors as tcomp  # noqa: E402
 from repro_torch.core.efbv import EFBV, Downlink, Pipeline  # noqa: E402
@@ -820,10 +879,12 @@ FSDP_RANK_CASES = {
 FSDP_STEPS = 3
 
 
-def _fsdp_run(case, group=None):
-    """Three fsdp steps of 2 workers on the f32 smoke config, in one
-    process (no group) or on this rank of ``group``: the losses and, as
-    numpy, the master trees (this rank's shards) and h."""
+def _fsdp_run(case, group=None, mesh=(2, 1), backend="fsdp"):
+    """Three steps of 2 workers on the f32 smoke config, in one process
+    (no group) or on this rank of ``group``, under the fsdp trainer or,
+    with ``backend="shard_map"`` on a group with a model axis, the mesh
+    step: the losses and, as numpy, the master trees (this rank's parts)
+    and h."""
     comp, agg, down, pipeline = FSDP_RANK_CASES[case]
     cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
                               activation_dtype="float32")
@@ -831,19 +892,27 @@ def _fsdp_run(case, group=None):
     algo = EFBV(tcomp.make_compressor(comp), lam=0.37, nu=0.61)
     opt = adamw(cosine(3e-4, total_steps=FSDP_STEPS, warmup_steps=1),
                 weight_decay=0.01)
-    shards = ttrainer.make_fsdp_shards(group, tagg.make_mesh((2, 1)),
-                                       model.param_specs(),
-                                       model.init_abstract())
+    tp = None if group is None else group.model
+    if backend == "fsdp":
+        shards = ttrainer.make_fsdp_shards(group, tagg.make_mesh(mesh),
+                                           model.param_specs(),
+                                           model.init_abstract())
+        make = ttrainer.make_train_step_fsdp
+    else:
+        shards = tagg.ModelShards.of(tp, model.param_specs(),
+                                     model.init_abstract())
+        make = ttrainer.make_train_step
     params = model.init(random.key(3), device="cpu")
     if shards is not None:
         params = shards.shard_tree(params)
     state = ttrainer.init_train_state(
         params, opt, n_workers=2, bidirectional=True, algo=algo,
         agg_mode=agg, pipeline=pipeline, group=group, shards=shards)
-    step = ttrainer.make_train_step_fsdp(
-        model.loss, opt, algo, n_workers=2, agg_mode=agg,
-        downlink=Downlink.parse(down), pipeline=pipeline, group=group,
-        shards=shards)
+    loss_fn = model.loss if tp is None else functools.partial(model.loss,
+                                                              tp=tp)
+    step = make(loss_fn, opt, algo, n_workers=2, agg_mode=agg,
+                downlink=Downlink.parse(down), pipeline=pipeline,
+                group=group, shards=shards)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=4,
                        n_workers=2, seed=0)
     losses = []
@@ -899,6 +968,87 @@ def test_fsdp_two_ranks_equal_one_process_bitwise(tmp_path, case):
             np.testing.assert_array_equal(
                 np.concatenate(parts, axis=dims[j]).view(np.uint32),
                 whole.view(np.uint32), err_msg=f"{k} {paths[j]}")
+
+
+def _fsdp_mesh_rank(store, case):
+    """One rank of a 2x2 mesh: the mesh step's three steps, then the fsdp
+    step's on the same group."""
+    group = tagg.WorkerGroup.join(2, backend="gloo", device="cpu",
+                                  init_method=f"file://{store}/fsdp22",
+                                  model_size=2)
+    try:
+        return {"mesh": _fsdp_run(case, group, backend="shard_map"),
+                "fsdp": _fsdp_run(case, group, mesh=(2, 2))}
+    finally:
+        group.close()
+
+
+def _jax_fsdp_part_shapes(shape):
+    """Each smoke qwen2 leaf's part shape on one device of ``make_mesh(
+    shape)`` under JAX's ``fsdp_specs`` (its mesh read for axis names and
+    sizes only)."""
+    from types import SimpleNamespace
+
+    from jax.sharding import PartitionSpec as P
+
+    from repro.train.trainer import fsdp_specs as jfsdp_specs
+
+    axes = ("pod", "data", "model")[-len(shape):]
+    mesh = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, shape)))
+    jm = jbuild_model(jget_smoke_config("qwen2-0.5b"))
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))
+    specs = jfsdp_specs(mesh, jm.param_specs(), shapes)
+    out = []
+    for leaf, spec in zip(jax.tree.leaves(shapes), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(x, P))):
+        part = list(leaf.shape)
+        for i, entry in enumerate(spec):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None:
+                    part[i] //= mesh.shape[a]
+        out.append(part)
+    return out
+
+
+@pytest.mark.parametrize("case", list(FSDP_RANK_CASES))
+def test_fsdp_2x2_equals_2x2_mesh_bitwise(tmp_path, case):
+    """The fsdp step on a 2x2 mesh (2 workers x 2-way tensor parallelism,
+    four gloo ranks) against the 2x2 mesh step on the same ranks: each
+    rank holds its fsdp part of its model shard of params, w, h_avg, m
+    and v -- the shape JAX's ``fsdp_specs`` gives on ``make_mesh((2,
+    2))``, the layer stacks split on L, the embedding's model dim 0 and
+    worker dim 1 -- which reassembled over the worker group are the mesh
+    rank's shards bit for bit after three steps; each rank's h is its
+    worker's model shard, bitwise the mesh rank's, and the losses are
+    equal."""
+    ranks = _spawn_ranks(tmp_path, 4, _fsdp_mesh_rank, case)
+    paths = ["/".join(p) for p, _ in T.flatten_with_path(
+        ranks[0]["mesh"]["params"])]
+    dims = ranks[0]["fsdp"]["dims"]
+    assert all(r["fsdp"]["dims"] == dims for r in ranks)
+    assert dims[paths.index("embed")] == 1
+    assert all(dims[j] == 0 for j, p in enumerate(paths)
+               if p.startswith("layers/"))
+    want_shapes = _jax_fsdp_part_shapes((2, 2))
+    for r, got in enumerate(ranks):
+        mesh, fsdp = got["mesh"], got["fsdp"]
+        assert fsdp["losses"] == mesh["losses"]
+        for a, b in zip(T.leaves(mesh["h"]), T.leaves(fsdp["h"])):
+            np.testing.assert_array_equal(b.view(np.uint32),
+                                          a.view(np.uint32))
+        for k in ("params", "w", "h_avg", "m", "v"):
+            assert [list(x.shape) for x in T.leaves(fsdp[k])] == \
+                want_shapes, (k, r)
+    for i in range(2):  # each model index: its worker group of two ranks
+        mesh = ranks[i]["mesh"]
+        assert ranks[2 + i]["mesh"]["losses"] == mesh["losses"]
+        for k in ("params", "w", "h_avg", "m", "v"):
+            for j, shard in enumerate(T.leaves(mesh[k])):
+                parts = [T.leaves(ranks[w * 2 + i]["fsdp"][k])[j]
+                         for w in range(2)]
+                np.testing.assert_array_equal(
+                    np.concatenate(parts, axis=dims[j]).view(np.uint32),
+                    shard.view(np.uint32), err_msg=f"{k} {paths[j]}")
 
 
 @contextlib.contextmanager

@@ -387,14 +387,9 @@ def test_unported_run_surface_refused_with_its_roadmap_item(kw, item):
         params, opt, n_workers=2))
     assert sh.params["embed"] == ("model", "data")
     assert sh.params["final_norm"] == ("data",)
-    if mesh.shape["model"] == 1:
-        # item 8 is ported: the fsdp step builds (one process: the
-        # shard_map step)
-        assert callable(r.train_step(lambda p, b: (0.0, {}), None))
-        return
-    # item 8b: fsdp on a 'model' axis above 1 is refused
-    with pytest.raises(NotImplementedError, match=item):
-        r.train_step(lambda p, b: (0.0, {}), None)
+    # items 8 and 8b are ported: the fsdp step builds (one process: the
+    # shard_map step), on a 'model' axis above 1 too
+    assert callable(r.train_step(lambda p, b: (0.0, {}), None))
 
 
 @pytest.mark.parametrize("kw,participants", [

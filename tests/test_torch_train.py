@@ -651,3 +651,202 @@ def test_finetune_cli_flags_equal_jax(capsys):
     assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(SystemExit, match=r"\[finetune\] bad experiment"):
         tlaunch.main(["finetune", "--spec", spec + ".missing"])
+
+
+# -- the fine-tuning harness on a 2x2 mesh (a 'model' axis of 2) ------------
+
+import json  # noqa: E402
+import math  # noqa: E402
+
+from conftest import run_with_devices  # noqa: E402
+
+#: (spec file, backend, activation dtype) of each 2x2 fine-tune case: the
+#: committed specs on ``"mesh": "2x2", "n": 2``, and the qwen2 one under
+#: the shard_map trainer.  granite-moe runs its smoke config in f32: in
+#: bf16 the two packages' rounding flips routing choices, and its losses
+#: part by up to 2.6e-2 already at 2x1 without a model axis (final 7.4990
+#: vs JAX's 7.5106, eval 7.4548 vs 7.4289), where in f32 they agree within
+#: 1e-6 (7.499927 vs 7.499926)
+LOOP_2X2 = {"finetune_moe": ("finetune_moe", "fsdp", "float32"),
+            "zoo_qwen2_fsdp": ("zoo_qwen2_fsdp", "fsdp", "bfloat16"),
+            "zoo_qwen2_shard_map": ("zoo_qwen2_fsdp", "shard_map",
+                                    "bfloat16")}
+#: the losses' tolerance by activation dtype
+LOOP_2X2_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+LOOP_2X2_KW = dict(global_batch=4, seq_len=32, eval_batches=1, log_every=1,
+                   num_processes=2)
+#: the steps each case trains of its spec's budget (the spec, and so its
+#: fingerprint, unchanged: a truncated run, as ``finetune --steps 2``)
+LOOP_2X2_STEPS = 2
+#: the fingerprints of the committed fsdp specs on ``"mesh": "2x2", "n":
+#: 2``, as ``chip_smoke.py`` runs them on the card
+FSDP_SPECS_2X2 = {"finetune_moe": "3bf8fba981e36383",
+                  "zoo_qwen2_fsdp": "14ee601318e673be"}
+
+
+def _loop_2x2_specs():
+    """Each case's spec as JSON: the committed file on a 2x2 mesh of two
+    workers, the case's backend."""
+    out = {}
+    for case, (name, backend, _) in LOOP_2X2.items():
+        raw = open(os.path.join(SPECS_DIR, f"{name}.json")).read()
+        spec = dataclasses.replace(ExperimentSpec.from_json(raw),
+                                   mesh="2x2", n=2, backend=backend)
+        out[case] = spec.to_json()
+    return out
+
+
+_JAX_LOOP_2X2 = """
+import dataclasses
+import json
+from repro.configs import get_smoke_config
+from repro.core import ExperimentSpec
+from repro.train import loop
+out = {}
+for case, raw in SPECS.items():
+    spec = ExperimentSpec.from_json(raw)
+    cfg = dataclasses.replace(get_smoke_config(spec.problem),
+                              activation_dtype=ADT[case])
+    fl = loop.FinetuneLoop(spec, loop.FinetuneSettings(**KW), config=cfg,
+                           verbose=False)
+    fl.setup().build_data().train(steps=STEPS)
+    ev = fl.evaluate()
+    out[case] = {"fingerprint": spec.fingerprint(),
+                 "round_bits": fl.wire_report(),
+                 "final_loss": fl._final["loss"], "eval_loss": ev,
+                 "eval_seed": fl.eval_data.seed}
+print("LOOP_2X2 " + json.dumps(out))
+"""
+
+
+def _loop_2x2_rank(store, specs):
+    """One rank of four (2 processes x a model axis of 2): every case's
+    FinetuneLoop on the same group, and its moe h's expert slabs."""
+    from repro_torch.distributed.aggregate import WorkerGroup
+
+    group = WorkerGroup.join(2, backend="gloo", device="cpu",
+                             init_method=f"file://{store}/loop22",
+                             model_size=2)
+    out = {}
+    try:
+        for case, raw in specs.items():
+            spec = ExperimentSpec.from_json(raw)
+            cfg = dataclasses.replace(get_smoke_config(spec.problem),
+                                      activation_dtype=LOOP_2X2[case][2])
+            fl = tlaunch.FinetuneLoop(
+                spec, tlaunch.FinetuneSettings(**LOOP_2X2_KW), config=cfg,
+                verbose=False, group=group)
+            fl.setup().build_data().train(steps=LOOP_2X2_STEPS)
+            r = {"fingerprint": spec.fingerprint(),
+                 "round_bits": fl.wire_report(),
+                 "final_loss": fl._final["loss"],
+                 "eval_loss": fl.evaluate(),
+                 "eval_seed": fl.eval_data.seed}
+            r["h_shapes"] = [tuple(x.shape) for x in T.leaves(fl.state.h)]
+            out[case] = r
+        out["fixed_routing"] = _fixed_routing_step_2x2(
+            specs["finetune_moe"], group)
+    finally:
+        group.close()
+    return out
+
+
+def _fixed_routing_step_2x2(raw, group):
+    """One fsdp step of granite-moe's smoke config on this 2x2 rank under
+    fixed routing (zeroed routers: every token to experts 0 and 1) with
+    the spec's expert-sparse leaf rules and ``zero_inactive_expert_grads``:
+    whether each expert leaf's h (this rank's model shard of its worker's)
+    moved in the idle experts' slabs and in the routed ones."""
+    import functools
+
+    from repro_torch.core import build
+    from repro_torch.models import layers as tL
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.optim.schedules import constant
+
+    spec = ExperimentSpec.from_json(raw)
+    run = build(spec)
+    cfg = get_smoke_config(spec.problem)
+    model = build_model(cfg)
+    shards = tlaunch.make_shards(spec, group, model)
+    params = shards.shard_tree(tL.fixed_routing_params(
+        model.init(R.key(0), device="cpu")))
+    opt = sgd(constant(0.05))
+    state = run.init_state(params, opt, group=group, shards=shards)
+    step = run.train_step(functools.partial(model.loss, tp=group.model),
+                          opt, group=group, shards=shards,
+                          grad_transform=tL.zero_inactive_expert_grads)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=16,
+                       n_workers=2, seed=0)
+    state, _ = step(state, data.batch(0), R.fold_in(R.key(spec.seed), 0))
+    return {k: (bool(h[:, :, 2:].any()), bool(h[:, :, :2].any()),
+                tuple(h.shape))
+            for k, h in state.h["layers"]["moe"].items()
+            if k in tL.EXPERT_LEAVES}
+
+
+def test_finetune_loop_2x2_matches_jax_loop(tmp_path):
+    """``FinetuneLoop`` on ``finetune_moe.json`` and ``zoo_qwen2_fsdp.json``
+    at mesh 2x2 (n = 2, the fsdp trainer; qwen2 also under shard_map) on
+    four gloo ranks, 2 processes of 2 ranks, two steps of the spec's
+    budget, against JAX's on four fake host devices at
+    ``num_processes=2``: the fingerprint (the fsdp specs' pinned in
+    ``FSDP_SPECS_2X2``), the round's bits
+    and the eval stream's seed exactly JAX's, the final and eval losses
+    within bf16's 1e-2 (f32's 1e-4 for granite-moe, ``LOOP_2X2``); every
+    rank's h holds its worker's model shards; and one fsdp step of
+    granite-moe under fixed routing on the same ranks leaves the idle
+    experts' slabs of every rank's h exactly zero (as
+    ``test_fsdp_step_keeps_inactive_expert_slabs_of_h_zero`` at 4x1)."""
+    from test_torch_model import _spawn_ranks
+
+    specs = _loop_2x2_specs()
+    code = _JAX_LOOP_2X2.replace("SPECS", repr(specs)).replace(
+        "KW", repr(LOOP_2X2_KW)).replace(
+            "ADT", repr({k: v[2] for k, v in LOOP_2X2.items()})).replace(
+                "STEPS", repr(LOOP_2X2_STEPS))
+    want = json.loads(run_with_devices(code, 4).split("LOOP_2X2 ", 1)[1])
+    ranks = _spawn_ranks(tmp_path, 4, _loop_2x2_rank, specs)
+    for case, w in want.items():
+        spec = ExperimentSpec.from_json(specs[case])
+        got = ranks[0][case]
+        assert got["fingerprint"] == w["fingerprint"] == spec.fingerprint()
+        if case in FSDP_SPECS_2X2:
+            assert spec.fingerprint() == FSDP_SPECS_2X2[case]
+        assert got["round_bits"] == w["round_bits"], case
+        assert got["eval_seed"] == w["eval_seed"] == \
+            spec.seed ^ tlaunch.EVAL_SEED_XOR
+        np.testing.assert_allclose(
+            [got["final_loss"], got["eval_loss"]],
+            [w["final_loss"], w["eval_loss"]],
+            atol=LOOP_2X2_ATOL[LOOP_2X2[case][2]], err_msg=case)
+        # every rank: one worker, its model shards (half of each sharded
+        # leaf of the logical tree)
+        model = build_model(get_smoke_config(spec.problem))
+        logical = [tuple(x.shape) for x in T.leaves(model.init_abstract())]
+        for r in ranks:
+            # fixed routing on the model axis: the idle experts' slabs of
+            # h exactly zero, the routed ones moved
+            for k, (idle, routed, shape) in r["fixed_routing"].items():
+                assert (idle, routed) == (False, True), (k, shape)
+            shapes = r[case]["h_shapes"]
+            assert [s[0] for s in shapes] == [1] * len(logical)
+            assert any(s[1:] != l for s, l in zip(shapes, logical))
+            assert all(math.prod(s[1:]) in (math.prod(l), math.prod(l) // 2)
+                       for s, l in zip(shapes, logical))
+
+
+@pytest.mark.parametrize("processes", [0, 3, 4])
+def test_finetune_loop_2x2_refuses_processes_as_jax(processes):
+    """A --processes that JAX's multihost mesh cannot take on a 2x2 mesh
+    of 2 workers (it takes 1 or 2) fails with JAX's message."""
+    raw = _loop_2x2_specs()["zoo_qwen2_fsdp"]
+    kw = dict(LOOP_2X2_KW, num_processes=processes)
+    with pytest.raises(ValueError) as je:
+        jloop.FinetuneLoop(JSpec.from_json(raw),
+                           jloop.FinetuneSettings(**kw)).setup()
+    with pytest.raises(ValueError) as te:
+        tlaunch.FinetuneLoop(ExperimentSpec.from_json(raw),
+                             tlaunch.FinetuneSettings(**kw),
+                             device="cpu").setup()
+    assert str(te.value) == str(je.value)
