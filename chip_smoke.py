@@ -135,7 +135,7 @@ line is printed only when every phase passed):
                 block-sparse): 2,520,694,816 bits a worker, 72
                 ``pack_update`` and 6 ``qsgd_pack_update`` launches;
               * smoke_flags: ROADMAP's SMOKE flags (block-top-k (256,
-                16) up, QSGD(16) down, sequential), qwen2-0.5b cut to 12
+                16) up, QSGD(16) down, sequential), qwen2-0.5b cut to 4
                 of 24 layers (``cut_depth``), dist_fsdp's reference (not
                 profiled);
               * spec: the pipelined path's flags written as a spec file
@@ -201,6 +201,9 @@ line is printed only when every phase passed):
               * dist_pipelined: the pipelined path's flags, the all-gather
                 started asynchronously and waited on before the next
                 round's combine.
+              Both at 4 of 24 layers since PR 31 (``cut_depth``), each
+              against a one-process path of its flags and depth
+              (``dist_block_topk_ref``, ``dist_pipelined_ref``).
               Rank 0 must print the exact bits and (pipelined) |g| = 0 at
               step 0; on every rank, every step's loss and params checksum
               must equal the one-process path's, and its launches must be
@@ -208,7 +211,7 @@ line is printed only when every phase passed):
               ``threefry_uniform``).  A rank that fails, or a launch not
               done in DIST_TIMEOUT_S (then killed with all its ranks),
               fails the run.
-              * dist_fsdp: the smoke_flags path's flags and depth (12 of
+              * dist_fsdp: the smoke_flags path's flags and depth (4 of
                 24 layers) with ``--trainer
                 fsdp`` (the master state sharded over the two ranks by
                 ``fsdp_specs``: every qwen2-0.5b leaf halves, the
@@ -225,7 +228,7 @@ line is printed only when every phase passed):
               each against a one-process main path of the same flags and
               depth: ``mesh``, the smoke_flags path's flags on ``--mesh
               2x2`` (2 workers x 2-way tensor parallelism) with qwen2-0.5b
-              cut to 8 of 24 layers (``cut_depth``; against
+              cut to 4 of 24 layers (``cut_depth``; against
               ``mesh_ref``), its final checkpoint (``--ckpt-dir``: the
               params gathered over the model axis, rank 0 writing JAX's
               npz) bitwise the reassembled shards; ``mesh_fsdp``, the
@@ -237,9 +240,9 @@ line is printed only when every phase passed):
               final checkpoint, and each rank resident in exactly the
               fsdp-on-model specs' part (``fsdp_part_bytes``);
               ``mesh_heads``, the same flags on 1x4 with qwen2-0.5b at
-              12 of 24 layers (3.5 query heads and half a KV head a rank;
+              4 of 24 layers (3.5 query heads and half a KV head a rank;
               against ``mesh_heads_ref``); ``mesh_mamba2``, the mamba2
-              path's flags on 1x2 with mamba2-130m whole (against
+              path's flags on 1x2 with mamba2-130m at 12 of 24 layers (against
               ``mesh_mamba2_ref``).  Each: rank 0's exact bits, finite
               losses and raw gradient norms within 1e-3 relative of the
               reference's losses on every rank, its launches a rank, every
@@ -338,6 +341,31 @@ line is printed only when every phase passed):
                 batch's.
               Every threefry shape a serving path drew is held bitwise
               against the plain version on the card afterwards.
+7. tooling -- ``sanitize``: JAX's two ``make sanitize-smoke`` commands
+              on the card in one four-rank gloo launch (``--dist-child
+              sanitize``): the train command on 2x2, as is then with
+              ``--sanitize``, every rank's step and final losses bitwise
+              the same, the sanitized run launching no kernel and the
+              other launching ``pack_update``; then the finetune command
+              (``finetune_moe.json``) runs as one process the same
+              way (rank 1 sanitized, rank 3 as is, side by side), and
+              rank 2 puts a NaN in a param leaf, which must raise
+              FloatingPointError naming an aten op.
+              ``dense_free``: ``kernels.ops.dense_free`` of the three pack
+              kernels at JAX's cases' shapes and the full-width embed
+              leaf, the device bytes above those held before each call
+              within the declared outputs + 1 MiB.  ``dryrun``: the dry
+              run of qwen2-0.5b at its four shapes on 16x16, then its
+              prediction (argument + temp) for a 1x1 train step at global
+              batch 8, sequence 128, against the same step's
+              ``max_memory_allocated`` on the card: within 10%.
+              ``compute-sanitizer`` (memcheck of the eight kernels,
+              racecheck of those with shared memory, after a control
+              program without PyTorch) is not in the default run: on the
+              H100 machine it was written for the tool refuses the card
+              ("Device not supported", and cudaMalloc fails) even for the
+              control.  ``python3 chip_smoke.py --compute-sanitizer`` runs
+              it alone.
 
 The last lines are a JSON object per kernel (times, bound, launches), the
 card's name and power limit, and the result line.  Needs one CUDA GPU and
@@ -3077,6 +3105,9 @@ def dist_child():
     if name == "reference":
         dist_reference_child()
         return 0
+    if name == "sanitize":
+        sanitize_rank(outdir)
+        return 0
     if name in MESH_LAUNCHES:
         # the launch's mesh paths one after the other, each between
         # marker lines, then its other checks
@@ -3190,12 +3221,13 @@ RUNS = WORKERS * STEPS * FULL_LEAVES
 #: in every run of the driver, on every rank: the embedding and 7 weights a
 #: layer (biases and norms are constants); full width 24 layers, smoke 2
 INIT_DRAWS, SMOKE_INIT_DRAWS = 1 + 24 * 7, 1 + 2 * 7
-#: qwen2-0.5b at full width cut to 12 of its 24 layers (smoke_flags,
-#: dist_fsdp and mesh_heads: cut to keep the run's time with
-#: mesh_fsdp): its bits a worker up (block_topk:256,16) and down
+#: qwen2-0.5b at full width cut to 4 of its 24 layers (smoke_flags,
+#: dist_fsdp and mesh_heads: cut to 12 to keep the run's time with
+#: mesh_fsdp, to 4 with the tooling phases and remat's recomputed
+#: forwards): its bits a worker up (block_topk:256,16) and down
 #: (qsgd:16), and its init's draws
-HALF_LAYERS = 12
-HALF_BITS = (1_260_337_152, 2_520_673_728)
+HALF_LAYERS = 4
+HALF_BITS = (783_140_864, 1_566_281_152)
 HALF_INIT_DRAWS = 1 + HALF_LAYERS * 7
 # each main path: its flags, the exact bits it must print (regex -> values)
 # and the launches of every kernel in its run
@@ -3328,6 +3360,11 @@ MOE_LAYERS = 4
 #: projections, dt_bias's uniform, conv_w, wo); granite-moe's embedding,
 #: untied head and 8 a layer (4 attention and 4 expert weights)
 MAMBA2_INIT_DRAWS = 1 + 24 * 8
+#: mamba2-130m cut to 12 of its 24 layers (mesh_mamba2 and its
+#: reference, since PR 31): its bits a worker and its init's draws
+MAMBA2_HALF_LAYERS = 12
+MAMBA2_HALF_BITS = 335_201_280
+MAMBA2_HALF_INIT_DRAWS = 1 + MAMBA2_HALF_LAYERS * 8
 #: the smoke config's (2 layers)
 SMOKE_MAMBA2_INIT_DRAWS = 1 + 2 * 8
 MOE_INIT_DRAWS = 2 + MOE_LAYERS * 8
@@ -3439,24 +3476,50 @@ PATHS.update({
 #: the main paths on two gloo ranks sharing cuda:0 (one worker each,
 #: torchrun), each held bitwise against its one-process path ("same_as"):
 #: losses and params checksums at every step, on every rank
+#: the one-process references of the dist paths, at their depth: the
+#: block-top-k and pipelined paths' flags, qwen2-0.5b cut to HALF_LAYERS
+#: (whole before PR 31), their records (not profiled)
+PATHS.update({
+    "dist_block_topk_ref": {
+        "argv": PATHS["block_topk"]["argv"], "layers": HALF_LAYERS,
+        "bits": {r"(\d+) bits/round/worker": [HALF_BITS[0]]},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0, "threefry_uniform": HALF_INIT_DRAWS},
+        "profile": None,
+    },
+    "dist_pipelined_ref": {
+        "argv": PATHS["pipelined"]["argv"], "layers": HALF_LAYERS,
+        "bits": {r"(\d+) bits/round/worker": [HALF_BITS[0]],
+                 r"downlink (\d+) bits/round broadcast": [HALF_BITS[1]],
+                 r"total (\d+) bits/round up\+down":
+                 [WORKERS * HALF_BITS[0] + HALF_BITS[1]],
+                 r" (pipeline=depth:1) ": ["pipeline=depth:1"]},
+        "launches": {"pack_update": RUNS, "qsgd_pack_update": 0,
+                     "randk_update": 0,
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + HALF_INIT_DRAWS},
+        "profile": None,
+    },
+})
 DIST_PATHS = {
     "dist_block_topk": {
         "argv": PATHS["block_topk"]["argv"] + ["--dist-backend", "gloo"],
-        "same_as": "block_topk",
-        "bits": {**PATHS["block_topk"]["bits"],
+        "same_as": "dist_block_topk_ref", "layers": HALF_LAYERS,
+        "bits": {**PATHS["dist_block_topk_ref"]["bits"],
                  r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
         "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
-                     "randk_update": 0, "threefry_uniform": INIT_DRAWS},
+                     "randk_update": 0, "threefry_uniform": HALF_INIT_DRAWS},
     },
     "dist_pipelined": {
         "argv": PATHS["pipelined"]["argv"] + ["--dist-backend", "gloo"],
-        "same_as": "pipelined",
-        "bits": {**PATHS["pipelined"]["bits"],
+        "same_as": "dist_pipelined_ref", "layers": HALF_LAYERS,
+        "bits": {**PATHS["dist_pipelined_ref"]["bits"],
                  r" (ranks=2 backend=gloo) device=": ["ranks=2 backend=gloo"]},
         # each rank packs its worker; the broadcast runs on every rank
         "launches": {"pack_update": RUNS // WORKERS, "qsgd_pack_update": 0,
                      "randk_update": 0,
-                     "threefry_uniform": STEPS * FULL_LEAVES + INIT_DRAWS},
+                     "threefry_uniform": STEPS * FULL_LEAVES
+                     + HALF_INIT_DRAWS},
     },
 }
 DIST_PATHS["dist_fsdp"] = {
@@ -3515,27 +3578,28 @@ def mesh_bits(up, down=None, total=None, mesh=None, ranks=None):
 #: place or after a gather), encodes every leaf of the broadcast, and
 #: draws the whole init to keep its shards.
 #:   mesh: the smoke_flags path's flags on a 2x2 mesh (2 workers x 2-way
-#:     tensor parallelism), qwen2-0.5b cut to 8 of its 24 layers (cut
-#:     from 24 to keep the run's time with the model-axis paths), a
-#:     checkpoint at the end;
+#:     tensor parallelism), qwen2-0.5b cut to 4 of its 24 layers (cut
+#:     from 24 to 8 to keep the run's time with the model-axis paths,
+#:     to 4 with the tooling phases and remat), a checkpoint at the end;
 #:   mesh_fsdp: the mesh path's flags under ``--trainer fsdp``: each rank
 #:     holds its fsdp part (over the worker group) of its model shard of
 #:     every master tree, and must match the mesh path bit for bit
 #:     (``same_as``): losses, the master trees' layout sums at every step,
 #:     each rank's h, the final checkpoint;
 #:   mesh_heads: the same flags on 1x4, qwen2-0.5b at full width cut to
-#:     12 of its 24 layers: 14 / 4 = 3.5 query heads
+#:     4 of its 24 layers: 14 / 4 = 3.5 query heads
 #:     and half a KV head a rank, so each layer's attention runs on
 #:     weights gathered on use, its MLP Megatron-style;
 #:   mesh_mamba2: the mamba2 path's flags (seq 512, no checkpoint: a
-#:     rank's shards are not JAX's format) on 1x2, mamba2-130m whole: the
+#:     rank's shards are not JAX's format) on 1x2, mamba2-130m at 12 of
+#:     its 24 layers (whole before PR 31): the
 #:     SSD leaves gathered on use, the embedding (vocab 50,280) and the
 #:     tied head replicated; the same two ranks then run the
 #:     ``mesh_families`` module check (``mesh_families_child``).
 MESH_M = 2
-MESH_LAYERS = 8
-#: qwen2-0.5b at 8 layers, block_topk:256,16 up and qsgd:16 down
-MESH_CUT_BITS = (1_021_739_008, 2_043_477_440, 4_086_955_456)
+MESH_LAYERS = 4
+#: qwen2-0.5b at 4 layers, block_topk:256,16 up and qsgd:16 down
+MESH_CUT_BITS = (783_140_864, 1_566_281_152, 3_132_562_880)
 MESH_INIT_DRAWS = 1 + MESH_LAYERS * 7
 MAMBA2_MESH_ARGV = arch_argv("mamba2-130m", seq=512) \
     + ["--compressor", "block_topk:256,16"]
@@ -3577,10 +3641,10 @@ MESH_PATHS = {
     "mesh_mamba2": {
         "argv": with_mesh(MAMBA2_MESH_ARGV, "1x2"),
         "m": 2, "workers": 1, "arch": "mamba2-130m",
-        "ref": "mesh_mamba2_ref",
-        "bits": mesh_bits(MAMBA2_BITS, mesh="1x2", ranks=2),
+        "ref": "mesh_mamba2_ref", "layers": MAMBA2_HALF_LAYERS,
+        "bits": mesh_bits(MAMBA2_HALF_BITS, mesh="1x2", ranks=2),
         "launches": {"pack_update": MAMBA2_LEAVES * STEPS,
-                     "threefry_uniform": MAMBA2_INIT_DRAWS},
+                     "threefry_uniform": MAMBA2_HALF_INIT_DRAWS},
     },
 }
 #: the torchrun launches that run the mesh paths, to pay each launch's
@@ -3620,11 +3684,12 @@ PATHS.update({
     },
     "mesh_mamba2_ref": {
         "argv": with_workers(MAMBA2_MESH_ARGV, 1), "vocab": 50280,
-        "bits": {r"(\d+) bits/round/worker": [MAMBA2_BITS]},
+        "layers": MAMBA2_HALF_LAYERS,
+        "bits": {r"(\d+) bits/round/worker": [MAMBA2_HALF_BITS]},
         "finite": (r"\|g\|=(\S+)", r"h_res=(\S+)"),
         "launches": {"pack_update": MAMBA2_LEAVES * STEPS,
                      "qsgd_pack_update": 0, "randk_update": 0,
-                     "threefry_uniform": MAMBA2_INIT_DRAWS},
+                     "threefry_uniform": MAMBA2_HALF_INIT_DRAWS},
         "profile": None, "keep_params": True,
     },
 })
@@ -4274,7 +4339,7 @@ def phase_dist(name):
         if got != expect:
             raise AssertionError(f"[main] {name}: printed {pat!r} {got} != "
                                  f"{expect}")
-    if path["same_as"] == "pipelined":
+    if "--pipeline" in path["argv"]:
         g0 = re.findall(r"step\s+0 loss=\S+ \|g\|=(\S+)", text)
         if g0 != ["0.000"]:
             raise AssertionError(f"[main] {name}: step 0 |g| {g0}, want "
@@ -5787,6 +5852,352 @@ def phase_serve_families():
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# 7. the tooling slice: --sanitize, the dense-free gate, the dry run
+# ---------------------------------------------------------------------------
+
+#: JAX's ``make sanitize-smoke``, its two commands on the card (the train
+#: command's 2x2 mesh on four gloo ranks sharing cuda:0)
+SANITIZE_TRAIN = ["--arch", "qwen2-0.5b", "--smoke", "--mesh", "2x2",
+                  "--steps", "2", "--global-batch", "8", "--seq", "32",
+                  "--compressor", "block_topk:256,16", "--agg",
+                  "sparse_allgather", "--dist-backend", "gloo",
+                  "--log-every", "1"]
+SANITIZE_FINETUNE = ["finetune", "--spec",
+                     str(ROOT / "examples" / "specs" / "finetune_moe.json"),
+                     "--steps", "2", "--global-batch", "8", "--seq", "32",
+                     "--eval-every", "2", "--log-every", "1"]
+
+
+def step_losses(text):
+    """The step lines' losses of a driver's output, in order."""
+    return re.findall(r"step\s+\d+ loss=([0-9.]+)", text)
+
+
+def one_run(fn):
+    """``fn()`` with launch counts reset just before it and read just
+    after: (its result as hex, its step losses, the counts); its output
+    is printed too."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    torch.cuda.synchronize()
+    print(buf.getvalue(), end="", flush=True)
+    return [float(res).hex(), step_losses(buf.getvalue()),
+            dict(kernels.LAUNCHES)]
+
+
+@contextlib.contextmanager
+def one_process():
+    """torchrun's WORLD_SIZE hidden: a driver run inside a rank runs as
+    one process."""
+    import os
+
+    world = os.environ.pop("WORLD_SIZE")
+    try:
+        yield
+    finally:
+        os.environ["WORLD_SIZE"] = world
+
+
+def nan_check():
+    """A NaN put in a param leaf of the qwen2 smoke model: the sanitized
+    step must raise FloatingPointError naming an op (its message)."""
+    from repro_torch import random
+    from repro_torch.core import ExperimentSpec, build
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import sanitized_step
+
+    cfg = train.get_smoke_config("qwen2-0.5b")
+    spec = ExperimentSpec(problem="qwen2-0.5b", smoke=True,
+                          backend="shard_map", mesh="2x1", n=2,
+                          compressor="block_topk:256,16",
+                          agg="sparse_allgather", d=train.tuning_dim(cfg))
+    run_ = build(spec)
+    model = build_model(cfg)
+    params = model.init(random.key(0), device="cuda")
+    params["layers"]["mlp"]["wg"][0, 0, 0] = float("nan")
+    opt = train.adamw(train.cosine(3e-4, 10, 1))
+    step = sanitized_step(run_.train_step(model.loss, opt))
+    rng = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=rng)
+             for k in ("tokens", "labels")}
+    try:
+        step(run_.init_state(params, opt), batch, random.key(0))
+    except FloatingPointError as e:
+        return str(e).splitlines()[0]
+    return "no error"
+
+
+def sanitize_rank(outdir):
+    """One of the four ranks of the sanitize launch: the train command on
+    2x2 as is, then under ``--sanitize`` (each over its own file store);
+    then, side by side, rank 1 runs the finetune command as one process
+    under ``--sanitize``, rank 3 the same command as is (its sanitize mode
+    switched off again first) and rank 2 the NaN check.  Prints one JSON
+    line of results."""
+    import os
+
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    rank = int(os.environ["RANK"])
+    res = {}
+    for tag, extra in (("plain", []), ("sanitized", ["--sanitize"])):
+        res[tag] = one_run(lambda: train.main(
+            SANITIZE_TRAIN + extra
+            + ["--dist-init", f"file://{outdir}/store_{tag}"]))
+    if rank in (1, 3):
+        extra = ["--sanitize"] if rank == 1 else []
+        if rank == 3:
+            kernels._sanitize = False
+            os.environ.pop(kernels.SANITIZE_ENV)
+        with one_process():
+            res["finetune"] = one_run(
+                lambda: train.main(SANITIZE_FINETUNE + extra))
+    if rank == 2:
+        res["nan"] = nan_check()
+    print("[sanitize] " + json.dumps(res), flush=True)
+
+
+def phase_sanitize():
+    """JAX's two ``sanitize-smoke`` commands on the card: each run as is
+    and under ``--sanitize`` must end with the same losses (bitwise: the
+    plain versions are the kernels' bits), the sanitized run launching no
+    kernel (every wrapper on its plain version) and the unsanitized one
+    launching the pack kernel; a NaN in a param leaf raises
+    FloatingPointError naming an op."""
+    t0 = time.perf_counter()
+    logs = run_ranks("sanitize", ranks=4, timeout=300)
+    recs = [json.loads(re.search(r"\[sanitize\] (\{.*)", log).group(1))
+            for log in logs]
+    pairs = [(f"train rank {r}", rec["plain"], rec["sanitized"])
+             for r, rec in enumerate(recs)]
+    pairs.append(("finetune", recs[3]["finetune"], recs[1]["finetune"]))
+    for what, plain, sane in pairs:
+        if plain[:2] != sane[:2] or any(sane[2].values()) \
+                or not plain[2]["pack_update"]:
+            raise AssertionError(f"[sanitize] {what}: {plain} then {sane}")
+    if len(recs[0]["plain"][1]) != 2 or len(recs[3]["finetune"][1]) != 2:
+        raise AssertionError(f"[sanitize] step lines: {recs}")
+    if "invalid value (nan) encountered in aten." not in recs[2]["nan"]:
+        raise AssertionError(f"[sanitize] NaN: {recs[2]['nan']}")
+    ft = recs[3]["finetune"]
+    print(f"[sanitize] train 2x2 (4 gloo ranks): losses "
+          f"{recs[0]['plain'][1]} final {float.fromhex(recs[0]['plain'][0])!r}"
+          f" with and without --sanitize, launches {recs[0]['plain'][2]} "
+          f"then none; finetune losses {ft[1]} eval "
+          f"{float.fromhex(ft[0])!r} both ways, launches {ft[2]} then none; "
+          f"NaN -> {recs[2]['nan']}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_dense_free():
+    """``kernels.ops.dense_free`` of the three pack kernels: at JAX's
+    cases' shapes and the full-width embed leaf, the device bytes above
+    what was held before each call within the declared outputs + 1 MiB."""
+    from repro_torch.kernels import ops
+
+    for name in ops.DENSE_FREE_CASES:
+        rep = ops.dense_free(name, "cuda")
+        print(f"[dense_free] {name}: " + "; ".join(
+            f"d={d} declared={dec} above={above} "
+            f"({above - dec:+d} B)" for d, dec, above in rep.cases)
+            + f" slack={rep.slack} ok={rep.ok} [{SMI}]")
+        if not rep.ok:
+            raise AssertionError(f"[dense_free] {name}: {rep.violations}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sanitizer_child():
+    """Child process run under compute-sanitizer: each of the eight
+    kernels' wrappers once at small shapes (``--sanitizer-child all``), or
+    only the kernels that use shared memory (``shared``: ``pack_update``,
+    rand-k's tile kernel on its scan and bucketed plans, ``worker_sum``,
+    ``block_topk`` a warp and a CTA per row); prints the launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, pack, threefry
+
+    shared = sys.argv[2] == "shared"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    for nb, block, kb in ((64, 256, 16), (8, 2048, 64)):
+        pack.pack_update(randn(nb, block), randn(nb, block), 0.37, kb)
+        pack.block_topk(randn(nb, block), kb)
+    for size, k in ((4096, 16), (1 << 20, 1 << 14)):
+        idx = torch.randperm(size, device="cuda",
+                             generator=gen)[:k].to(torch.int32)
+        pack.randk_update(randn(size), randn(size), idx, size / k, 0.37)
+    for n in (4, 40):
+        ops.worker_sum(randn(n, 1000), torch.full((n,), 0.5, device="cuda"),
+                       randn(1000), 0.3, 0.7)
+    if not shared:
+        g, h = randn(4096), randn(4096)
+        norm = torch.linalg.vector_norm(g - h).reshape(1)
+        pack.qsgd_pack_update(g, h, torch.rand(4096, device="cuda",
+                                               generator=gen), norm, 0.37, 16)
+        pack.efbv_update(randn(64, 256), randn(64, 256), 0.37, 16)
+        threefry.threefry_fill(np.array([0, 42], np.uint32), 5000,
+                               torch.device("cuda"), True)
+        threefry.threefry_rows(torch.tensor([[0, 1], [2, 3]], device="cuda",
+                                            dtype=torch.int32), 700, False)
+    torch.cuda.synchronize()
+    print(f"[compute-sanitizer] child launched {dict(kernels.LAUNCHES)}",
+          flush=True)
+    return 0
+
+
+#: the control: a CUDA program without PyTorch, one in-bounds kernel, run
+#: under the same tool before the kernels are
+SANITIZER_CONTROL = r"""
+#include <cstdio>
+__global__ void fill(int *out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = i;
+}
+int main() {
+  int *out;
+  if (cudaMalloc(&out, 1000 * sizeof(int)) != cudaSuccess) return 2;
+  fill<<<4, 256>>>(out, 1000);
+  cudaError_t err = cudaDeviceSynchronize();
+  printf("control: %s\n", cudaGetErrorString(err));
+  return err == cudaSuccess ? 0 : 3;
+}
+"""
+
+#: the tools and the child's kernels each runs: memcheck over all eight,
+#: racecheck over those that use shared memory
+SANITIZER_RUNS = (("memcheck", "all"), ("racecheck", "shared"))
+
+
+def sanitizer_tool():
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "compute-sanitizer"
+    if not tool.exists():
+        raise AssertionError(f"[compute-sanitizer] not in the toolkit "
+                             f"({tool})")
+    return str(tool)
+
+
+def run_sanitized(argv, label, timeout=600):
+    """``argv`` under each tool's ``--error-exitcode 1``; fails unless the
+    run exits 0 with no error in the tool's summary."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    out = subprocess.run(argv, capture_output=True, text=True,
+                         timeout=timeout, env=env)
+    text = out.stdout + out.stderr
+    summary = [ln for ln in text.splitlines() if "ERROR SUMMARY" in ln]
+    print(f"[compute-sanitizer] {label}: exit {out.returncode} "
+          f"{summary[-1:] or 'no summary'} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if out.returncode != 0 or not summary \
+            or "ERROR SUMMARY: 0 errors" not in summary[-1]:
+        raise AssertionError(f"[compute-sanitizer] {label}: exit "
+                             f"{out.returncode}\n{text[-3000:]}")
+
+
+def phase_compute_sanitizer():
+    """compute-sanitizer over a control program without PyTorch, then over
+    ``sanitizer_child``: memcheck of the eight kernels, racecheck of those
+    that use shared memory.  Not in the default run: under the tool the
+    card's CUDA context fails to start on the machine this was written for
+    (``python3 chip_smoke.py --compute-sanitizer`` runs it alone)."""
+    from repro_torch.kernels import build
+
+    tool = sanitizer_tool()
+    version = subprocess.run([tool, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    print(f"[compute-sanitizer] {version.splitlines()[-1:]}")
+    work = ROOT / "build" / "sanitizer"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "control.cu").write_text(SANITIZER_CONTROL)
+    subprocess.run([build.nvcc_path(), "-arch=sm_90a", "-o",
+                    str(work / "control"), str(work / "control.cu")],
+                   check=True, timeout=300)
+    subprocess.run([str(work / "control")], check=True, timeout=60)
+    for tool_name, which in SANITIZER_RUNS:
+        base = [tool, "--tool", tool_name, "--error-exitcode", "1"]
+        run_sanitized(base + [str(work / "control")],
+                      f"{tool_name} control (no PyTorch)")
+        run_sanitized(base + [sys.executable, str(Path(__file__).resolve()),
+                              "--sanitizer-child", which],
+                      f"{tool_name} kernels ({which})")
+
+
+#: the dry run's check against the card: qwen2-0.5b whole, one rank, one
+#: worker, global batch 8, sequence 128
+DRYRUN_CHECK = ("chip_1x1_train", 128, 8)
+DRYRUN_TOLERANCE = 0.10
+
+
+def phase_dryrun():
+    """The dry run (``launch.train dryrun``) of qwen2-0.5b at the four
+    shapes on the 16x16 mesh (rank 0 of 256 on the meta device); then its
+    per-rank argument and argument + temp for a 1x1 train step at global
+    batch 8, sequence 128, and the same step on the card: its
+    ``max_memory_allocated`` above what was held before within 10% of
+    argument + temp."""
+    from repro_torch.distributed.aggregate import make_mesh
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    for shape in train.SHAPES:
+        rec = train.dryrun_one("qwen2-0.5b", shape)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {shape}: {rec}")
+        m, r = rec["memory"], rec["roofline"]
+        print(f"[dryrun] qwen2-0.5b {shape} 16x16: argument "
+              f"{m['argument_size_in_bytes']} temp "
+              f"{m['temp_size_in_bytes']} output "
+              f"{m['output_size_in_bytes']} flops {r['flops_per_rank']} "
+              f"bytes {r['bytes_per_rank']} collectives "
+              f"{r['coll_breakdown']} bottleneck {r['bottleneck']} "
+              f"host reads {rec['host_reads_skipped']}")
+    name, seq, batch = DRYRUN_CHECK
+    shape = train.ShapeSpec(name, seq, batch, "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rec = train.dryrun_one("qwen2-0.5b", shape, mesh=mesh)
+    m = rec["memory"]
+    pred = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args, run, _, _ = train.dryrun_program("qwen2-0.5b", shape, mesh,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del args, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = peak / pred
+    print(f"[dryrun] 1x1 qwen2-0.5b train (batch {batch}, seq {seq}): "
+          f"predicted argument {m['argument_size_in_bytes']} + temp "
+          f"{m['temp_size_in_bytes']} = {pred} B; card: held {held} B "
+          f"before the step, max_memory_allocated {peak} B above the "
+          f"process's base, {ratio:.4f}x the prediction [{SMI}]; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if abs(ratio - 1) > DRYRUN_TOLERANCE:
+        raise AssertionError(f"[dryrun] card peak {peak} B not within "
+                             f"{DRYRUN_TOLERANCE:.0%} of {pred} B")
+
+
 KERNEL_ROWS = {
     "pack_update": ("src/repro_torch/kernels/csrc/pack_update.cu",
                     "src/repro/kernels/pack.py:91 (and :78: the two Pallas "
@@ -5828,6 +6239,8 @@ def main():
         return randk_trap_child()
     if sys.argv[1:2] == ["--dist-child"]:
         return dist_child()
+    if sys.argv[1:2] == ["--sanitizer-child"]:
+        return sanitizer_child()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -5843,6 +6256,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[env] tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
+    if sys.argv[1:2] == ["--compute-sanitizer"]:
+        phase_build()
+        phase_compute_sanitizer()
+        return 0
 
     t0 = time.perf_counter()
     took = {}
@@ -5885,6 +6302,9 @@ def main():
     launches["serve_delta"] = timed("serve_delta", phase_serve_delta)
     launches["serve_families"] = timed("serve_families",
                                        phase_serve_families)
+    timed("sanitize", phase_sanitize)
+    timed("dense_free", phase_dense_free)
+    timed("dryrun", phase_dryrun)
     print("[env] seconds by phase (a path's profile with it): "
           + " ".join(f"{k}={v:.1f}" for k, v in took.items()))
     print(f"[env] phases took {time.perf_counter() - t0:.1f} s")

@@ -69,6 +69,10 @@ from repro_torch.models.layers import (MODEL_AXIS, ModelAxis, is_spec,
 PyTree = Any
 AGG_MODES = ("dense_psum", "sparse_allgather")
 BACKENDS = ("gloo", "nccl")
+#: torch's fake process-group backend: collectives that move nothing, for
+#: one rank's program of a large world on the ``meta`` device (the dry
+#: run, ``launch/train.py::dryrun_one``), and only there
+DRYRUN_BACKEND = "fake"
 #: byte alignment of each payload component in the flat transport buffer,
 #: so every component views back as its own dtype (itemsizes 1, 2 and 4)
 ALIGN = 4
@@ -217,6 +221,14 @@ def make_mesh(shape: Sequence[int], axes: Optional[Sequence[str]] = None
     ('pod', 'data', 'model')."""
     shape = tuple(int(x) for x in shape)
     return Mesh(_mesh_axes(shape, axes, "make_mesh"), shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """JAX's production meshes: (16, 16) ('data', 'model') on one pod,
+    (2, 16, 16) ('pod', 'data', 'model') across two."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), (POD_AXIS, DATA_AXIS, MODEL_AXIS))
+    return make_mesh((16, 16), (DATA_AXIS, MODEL_AXIS))
 
 
 def multihost_worker_shape(n_workers: int, num_processes: int
@@ -382,7 +394,11 @@ class ModelShards:
         for x, dim in zip(T.leaves(tree), self.dims):
             (rep if dim is None else local).append(
                 torch.sum(torch.square(x)))
-        total = self.axis.all_reduce(torch.stack(local).sum())
+        # every rank holds the same dims, so all skip the all-reduce alike
+        # when no leaf is sharded (granite-moe on a model axis of 16)
+        total = self.axis.all_reduce(torch.stack(local).sum()) if local \
+            else torch.zeros((), dtype=torch.float32,
+                             device=T.leaves(tree)[0].device)
         if rep:
             total = total + torch.stack(rep).sum()
         return torch.sqrt(total)
@@ -563,7 +579,8 @@ class WorkerGroup:
     model: Optional[ModelAxis] = None
 
     def __post_init__(self):
-        if self.backend not in BACKENDS:
+        dry = self.backend == DRYRUN_BACKEND and self.device.type == "meta"
+        if self.backend not in BACKENDS and not dry:
             raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
         if self.world < 1 or not 0 <= self.rank < self.world:
             raise ValueError(f"rank {self.rank} of {self.world} processes")
@@ -575,7 +592,8 @@ class WorkerGroup:
     @classmethod
     def join(cls, n_workers: int, *, backend: str, device,
              init_method: Optional[str] = None,
-             model_size: int = 1) -> "WorkerGroup":
+             model_size: int = 1, rank: Optional[int] = None,
+             world: Optional[int] = None, store=None) -> "WorkerGroup":
         """Join the process group as ``torchrun`` starts a rank: rank and
         size from ``RANK`` and ``WORLD_SIZE``, the rendezvous from
         ``init_method`` (``env://`` -- ``MASTER_ADDR`` / ``MASTER_PORT`` --
@@ -583,8 +601,11 @@ class WorkerGroup:
         caller's: nothing switches it.  ``model_size`` M > 1 splits the
         WORLD_SIZE ranks into WORLD_SIZE / M worker-group ranks of M model
         ranks each (global rank r = worker rank r // M, model rank r % M)
-        and builds both sub-groups."""
-        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        and builds both sub-groups.  ``rank``, ``world`` and ``store`` (the
+        dry run's fake backend) replace the environment and the
+        rendezvous."""
+        if rank is None:
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         if model_size < 1 or world % model_size:
             raise ValueError(f"WORLD_SIZE={world} ranks do not split into "
                              f"model groups of {model_size}")
@@ -596,8 +617,13 @@ class WorkerGroup:
                     backend=backend, device=device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        dist.init_process_group(backend, init_method=init_method or "env://",
-                                rank=rank, world_size=world)
+        if store is not None:
+            dist.init_process_group(backend, store=store, rank=rank,
+                                    world_size=world)
+        else:
+            dist.init_process_group(backend,
+                                    init_method=init_method or "env://",
+                                    rank=rank, world_size=world)
         group.pg = dist.group.WORLD
         if m > 1:
             # every rank builds every sub-group, in the same order

@@ -18,7 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, pack, ref
+from repro_torch.kernels import (LAUNCHES, build, check_device, pack,
+                                 plain_route, ref)
 
 
 def to_rows(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -204,11 +205,13 @@ def worker_sum(d: torch.Tensor, weights=None,
     (fma(sum, c_g, h), fma(sum, c_h, h)).  On the card the ``worker_sum``
     kernel (``csrc/worker_sum.cu``, one launch, laid out by
     :func:`worker_sum_plan`); on the CPU its plain loop
-    (``ref.worker_sum_ref``)."""
-    if not d.is_cuda:
-        if d.device.type == "cpu":
-            return ref.worker_sum_ref(d, weights, h, c_g, c_h, order)
-        raise ValueError(f"worker_sum runs on cpu or cuda, not {d.device}")
+    (``ref.worker_sum_ref``), and on the card too in sanitize mode."""
+    if plain_route(d.device):
+        return ref.worker_sum_ref(d, weights, h, c_g, c_h, order)
+    check_device("worker_sum", d.device)
+    if d.device.type == "meta":
+        out = torch.empty(d.shape[1:], dtype=torch.float32, device=d.device)
+        return out if h is None else (out, torch.empty_like(out))
     if d.dtype != torch.float32 or (h is not None
                                     and h.dtype != torch.float32):
         raise ValueError(f"worker_sum kernel takes f32, got {d.dtype}")
@@ -296,3 +299,103 @@ def dense_bound_ms(kernel: str, values: int, elem: int = 4, payload: int = 0
     t_ops = (n_ops + SEARCH_STEPS) * values / H100_ISSUE_PER_S
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# the dense-free gate on the card (JAX's ``analysis/hlo.py::dense_free``)
+# ---------------------------------------------------------------------------
+
+#: what a pack kernel may allocate beyond its declared outputs
+DENSE_FREE_SLACK = 1 << 20
+#: the full-width embed leaf of qwen2-0.5b (151,936 x 896 values)
+EMBED_VALUES = 136_134_656
+
+
+class DenseFreeReport(NamedTuple):
+    """JAX's ``DenseFreeReport`` on the card: per case (d, the bytes the
+    wrapper declares -- h_out, the payload with its CTA padding and the
+    kernel's planned scratch --, the device bytes allocated above what was
+    held before the call, at the peak), and what broke the gate."""
+
+    kernel: str
+    cases: Tuple[Tuple[int, int, int], ...]
+    slack: int
+    violations: Tuple[str, ...]
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+
+def _pack_case(d: int, block: int, kb: int, dev):
+    nb = -(-d // block)
+    g = torch.randn((nb, block), device=dev)
+    h = torch.randn((nb, block), device=dev)
+    rows = -(-nb // pack.CTA_ROWS) * pack.CTA_ROWS
+    scratch = build.load("pack_update").pack_update_scratch_bytes(
+        nb, block, kb)
+    declared = 4 * nb * block + 2 * 4 * rows * kb + scratch
+    return (lambda: pack.pack_update(g, h, 0.5, kb)), declared, nb * block
+
+
+def _randk_case(d: int, k: int, dev):
+    g = torch.randn(d, device=dev)
+    h = torch.randn(d, device=dev)
+    idx = (torch.arange(k, device=dev) * (d // k)).to(torch.int32)
+    _, bucketed, words, _ = pack.randk_plan(d, k)
+    declared = 4 * d + 4 * k + (4 * words if bucketed else 0)
+    return (lambda: pack.randk_update(g, h, idx, 2.0, 0.5)), declared, d
+
+
+def _qsgd_case(d: int, s: int, dev):
+    g = torch.randn(d, device=dev)
+    h = torch.randn(d, device=dev)
+    u = torch.rand(d, device=dev)
+    norm = torch.linalg.vector_norm(g - h).reshape(1)
+    declared = 4 * d + d * ref.level_dtype(s).itemsize
+    return (lambda: pack.qsgd_pack_update(g, h, u, norm, 0.5, s)), \
+        declared, d
+
+
+#: name -> the cases: JAX's shapes (``PACK_KERNELS``) and the embed leaf
+#: (block-top-k at the main path's 256/16; rand-k at JAX's k = 16, the
+#: scan path, and at the main path's 2**20, the bucketed one)
+DENSE_FREE_CASES = {
+    "block_topk_pack": lambda dev: [_pack_case(32 * 128, 128, 4, dev),
+                                    _pack_case(EMBED_VALUES, 256, 16, dev)],
+    "randk_update": lambda dev: [_randk_case(32 * 128, 16, dev),
+                                 _randk_case(EMBED_VALUES, 16, dev),
+                                 _randk_case(EMBED_VALUES, 1 << 20, dev)],
+    "qsgd_pack": lambda dev: [_qsgd_case(64 * 128, 16, dev),
+                              _qsgd_case(EMBED_VALUES, 16, dev)],
+}
+
+
+def dense_free(name: str, device) -> DenseFreeReport:
+    """Prove on the card that the pack kernel ``name`` (a key of
+    :data:`DENSE_FREE_CASES`) allocates no d-sized temporary: for each
+    case, ``torch.cuda.max_memory_allocated`` above the bytes held before
+    the wrapper call must stay within the bytes it declares plus
+    :data:`DENSE_FREE_SLACK`.  Raises on a device other than CUDA (the
+    CPU's plain versions are not the kernels)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"dense_free measures the CUDA kernels' device "
+                         f"memory; {device} has none")
+    cases, violations = [], []
+    for fn, declared, d in DENSE_FREE_CASES[name](device):
+        fn()  # the first call builds and loads the kernel
+        torch.cuda.synchronize(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize(device)
+        above = torch.cuda.max_memory_allocated(device) - held
+        del out
+        cases.append((d, declared, above))
+        if above > declared + DENSE_FREE_SLACK:
+            violations.append(
+                f"d = {d}: {above} B allocated above the {held} B held, "
+                f"{above - declared} B beyond the {declared} B declared")
+    return DenseFreeReport(name, tuple(cases), DENSE_FREE_SLACK,
+                           tuple(violations))

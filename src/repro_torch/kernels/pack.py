@@ -20,7 +20,10 @@
   the functions' results.
 
 On a CPU tensor a wrapper runs its plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
+tensor it launches the kernel or raises, except in sanitize mode
+(``kernels.enable``), where it runs the plain version there too; on a
+``meta`` tensor inside ``kernels.dry_run`` it allocates the kernel's
+outputs.  ``LAUNCHES`` counts kernel
 launches, so a run can show that its main path went through the kernels.
 """
 
@@ -31,7 +34,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, ref
+from repro_torch.kernels import (LAUNCHES, build, check_device,
+                                 plain_route, ref)
 
 # The CUDA block-top-k kernels (the pack and the dense two) take every
 # block % 128 == 0, as the TPU kernels do: a warp per row up to 1024 and a
@@ -72,15 +76,19 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     whole CTAs (multiples of ``CTA_ROWS`` rows), the kernel's bulk stores
     being whole CTA slabs."""
     _check(g2d, h2d, kb)
-    if g2d.device.type == "cpu":
+    if plain_route(g2d.device):
         return ref.pack_update_ref(g2d, h2d, lam, kb)
-    if g2d.device.type != "cuda":
-        raise ValueError(f"pack_update runs on cpu or cuda, not {g2d.device}")
+    check_device("pack_update", g2d.device)
     nb, block = g2d.shape
     if block % 128:
         raise ValueError(_block_message("pack_update", block))
     if not (g2d.is_contiguous() and h2d.is_contiguous()):
         raise ValueError("pack_update needs contiguous g and h")
+    rows = -(-nb // CTA_ROWS) * CTA_ROWS
+    vals = torch.empty((rows, kb), dtype=torch.float32, device=g2d.device)
+    idx = torch.empty((rows, kb), dtype=torch.int32, device=g2d.device)
+    if g2d.device.type == "meta":
+        return vals[:nb], idx[:nb], torch.empty_like(h2d)
     lib = build.load("pack_update")
     fn = lib.pack_update_f32
     # blocks above 4096 whose kb slots do not fit in shared memory rank
@@ -88,9 +96,6 @@ def pack_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int
     nbytes = lib.pack_update_scratch_bytes(nb, block, kb)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=g2d.device) \
         if nbytes else None
-    rows = -(-nb // CTA_ROWS) * CTA_ROWS
-    vals = torch.empty((rows, kb), dtype=torch.float32, device=g2d.device)
-    idx = torch.empty((rows, kb), dtype=torch.int32, device=g2d.device)
     if vals.data_ptr() % 16 or idx.data_ptr() % 16:
         raise ValueError("the pack kernel's bulk stores need 16-byte aligned "
                          "vals and idx")
@@ -129,17 +134,17 @@ def qsgd_pack_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     (levels (size,) int8 for s <= 127 else int16, h_out (size,) f32).  See
     ``csrc/qsgd_pack_update.cu`` for the arithmetic."""
     _check_qsgd(g, h, u, norm, s)
-    if g.device.type == "cpu":
+    if plain_route(g.device):
         return ref.qsgd_pack_update_ref(g, h, u, norm, lam, s)
-    if g.device.type != "cuda":
-        raise ValueError(f"qsgd_pack_update runs on cpu or cuda, not "
-                         f"{g.device}")
+    check_device("qsgd_pack_update", g.device)
     if not all(x.is_contiguous() for x in (g, h, u, norm)):
         raise ValueError("qsgd_pack_update needs contiguous g, h, u, norm")
-    fn = build.load("qsgd_pack_update").qsgd_pack_update_f32
     dtype = ref.level_dtype(s)
     levels = torch.empty(g.shape, dtype=dtype, device=g.device)
     h_out = torch.empty_like(h)
+    if g.device.type == "meta":
+        return levels, h_out
+    fn = build.load("qsgd_pack_update").qsgd_pack_update_f32
     inv_s = float(np.float32(1.0 / s))
     err = build.launch(fn, g.device, g.data_ptr(), h.data_ptr(),
                        u.data_ptr(), norm.data_ptr(), levels.data_ptr(),
@@ -208,19 +213,21 @@ def randk_update(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     (vals (k,) f32, h_out (size,) f32).  On the card one pass over h in
     tiles, the positions bucketed by tile first (``randk_plan``,
     ``csrc/randk_update.cu``); a position outside [0, size) makes the
-    kernel trap (the plain version raises)."""
+    kernel trap (the plain version, and so sanitize mode, raises
+    IndexError)."""
     _check_randk(g, h, idx)
-    if g.device.type == "cpu":
+    if plain_route(g.device):
         return ref.randk_update_ref(g, h, idx, scale, lam)
-    if g.device.type != "cuda":
-        raise ValueError(f"randk_update runs on cpu or cuda, not {g.device}")
+    check_device("randk_update", g.device)
     if not (g.is_contiguous() and h.is_contiguous() and idx.is_contiguous()):
         raise ValueError("randk_update needs contiguous g, h and idx")
-    fn = build.load("randk_update").randk_update_f32
     size, k = g.numel(), idx.numel()
     _, bucketed, words, hist_ctas = randk_plan(size, k)
     vals = torch.empty(k, dtype=torch.float32, device=g.device)
     h_out = torch.empty_like(h)
+    if g.device.type == "meta":
+        return vals, h_out
+    fn = build.load("randk_update").randk_update_f32
     scratch = torch.empty(words, dtype=torch.int32, device=g.device) \
         if bucketed else None
     err = build.launch(fn, g.device, g.data_ptr(), h.data_ptr(),
@@ -257,8 +264,6 @@ def _check_dense(name: str, x2d: torch.Tensor, kb: int, *others) -> None:
 def _dense_entry(name: str, x2d: torch.Tensor, *tensors: torch.Tensor):
     """The CUDA entry of ``name`` for x2d's type, after the checks that
     only the card needs."""
-    if x2d.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x2d.device}")
     if not all(t.is_contiguous() for t in (x2d, *tensors)):
         raise ValueError(f"{name} needs contiguous rows")
     return getattr(build.load("block_topk"),
@@ -269,10 +274,13 @@ def block_topk(x2d: torch.Tensor, kb: int) -> torch.Tensor:
     """(nb, block) f32 or bf16 -> (nb, block) of the same type: each row
     with all but its kb largest |x| zeroed (``ref.block_topk_ref``)."""
     _check_dense("block_topk", x2d, kb)
-    if x2d.device.type == "cpu":
+    if plain_route(x2d.device):
         return ref.block_topk_ref(x2d, kb)
-    fn = _dense_entry("block_topk", x2d)
+    check_device("block_topk", x2d.device)
     out = torch.empty_like(x2d)
+    if x2d.device.type == "meta":
+        return out
+    fn = _dense_entry("block_topk", x2d)
     err = build.launch(fn, x2d.device, x2d.data_ptr(), out.data_ptr(),
                        x2d.shape[0], x2d.shape[1], kb)
     if err != 0:
@@ -287,11 +295,14 @@ def efbv_update(g2d: torch.Tensor, h2d: torch.Tensor, lam: float, kb: int,
     type: d = block_topk(f32(g) - f32(h)), h_out = h + lam * d
     (``ref.efbv_update_ref``; ``fused``: one rounding at f32 kb = 1 too)."""
     _check_dense("efbv_update", g2d, kb, h2d)
-    if g2d.device.type == "cpu":
+    if plain_route(g2d.device):
         return ref.efbv_update_ref(g2d, h2d, lam, kb, fused)
-    fn = _dense_entry("efbv_update", g2d, h2d)
+    check_device("efbv_update", g2d.device)
     d = torch.empty_like(g2d)
     h_out = torch.empty_like(h2d)
+    if g2d.device.type == "meta":
+        return d, h_out
+    fn = _dense_entry("efbv_update", g2d, h2d)
     err = build.launch(fn, g2d.device, g2d.data_ptr(), h2d.data_ptr(),
                        d.data_ptr(), h_out.data_ptr(), g2d.shape[0],
                        g2d.shape[1], kb, float(lam), int(fused))

@@ -11,7 +11,8 @@ plain versions (``ref.threefry_ref``, ``ref.threefry_rows_ref``) need
 about 170 int64 elementwise passes per draw.
 
 On a CPU device a wrapper runs the plain version; on a CUDA device it
-launches the kernel or raises.  ``LAUNCHES["threefry_uniform"]`` and
+launches the kernel or raises (in sanitize mode it runs the plain version
+there too); on ``meta`` inside ``kernels.dry_run`` it allocates the draw.  ``LAUNCHES["threefry_uniform"]`` and
 ``LAUNCHES["threefry_rows"]`` count launches.
 """
 
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, ref
+from repro_torch.kernels import (LAUNCHES, build, check_device,
+                                 plain_route, ref)
 
 
 def threefry_fill(key, n: int, device: torch.device,
@@ -30,14 +32,13 @@ def threefry_fill(key, n: int, device: torch.device,
     n = int(n)
     if n < 0:
         raise ValueError(f"draw of {n} elements")
-    if device.type == "cpu":
+    if plain_route(device):
         return ref.threefry_ref(key, n, device, as_float)
-    if device.type != "cuda":
-        raise ValueError(f"threefry runs on cpu or cuda, not {device}")
+    check_device("threefry", device)
     k0, k1 = (int(v) for v in np.asarray(key, np.uint32))
     out = torch.empty(n, dtype=torch.float32 if as_float else torch.int32,
                       device=device)
-    if n == 0:
+    if n == 0 or device.type == "meta":
         return out
     err = build.launch(build.load("threefry").threefry_fill, out.device,
                        k0, k1, out.data_ptr(), n, int(as_float))
@@ -59,15 +60,14 @@ def threefry_rows(keys: torch.Tensor, m: int, as_float: bool
         raise ValueError(f"keys must be (n, 2) int32, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
     device = keys.device
-    if device.type == "cpu":
+    if plain_route(device):
         return ref.threefry_rows_ref(keys, m, as_float)
-    if device.type != "cuda":
-        raise ValueError(f"threefry runs on cpu or cuda, not {device}")
+    check_device("threefry", device)
     keys = keys.contiguous()
     n = keys.shape[0]
     out = torch.empty((n, m), dtype=torch.float32 if as_float
                       else torch.int32, device=device)
-    if n == 0 or m == 0:
+    if n == 0 or m == 0 or device.type == "meta":
         return out
     err = build.launch(build.load("threefry").threefry_rows, device,
                        keys.data_ptr(), n, m, out.data_ptr(), int(as_float))

@@ -170,8 +170,28 @@ else greedy decode of random prompts on the continuous-batching engine
     PYTHONPATH=src python -m repro_torch.launch.train serve \
         --arch mamba2-130m --smoke --batch 2 --prompt-len 4 --gen 6
 
-Flags and spec contents of the JAX drivers that this port does not have
-yet are refused with a "not yet ported" error, never ignored.
+``--sanitize`` (``train`` and ``finetune``, JAX's ``make sanitize-smoke``)
+checks every step's outputs for NaN, re-running a step that made one op by
+op to raise ``FloatingPointError`` at the op, and runs every kernel
+wrapper's plain version, index bounds checked, on the card too; the mode
+reaches ``torchrun`` ranks and spawned processes through
+``REPRO_TORCH_SANITIZE=1``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train finetune \
+        --spec examples/specs/finetune_moe.json --device cpu --steps 2 \
+        --global-batch 8 --seq 32 --eval-every 2 --sanitize
+
+The ``dryrun`` subcommand is JAX's ``launch/dryrun.py``: one rank's
+train step, prefill or decode step of each (arch, shape, mesh) run on the
+``meta`` device over a fake process group of the production mesh's 256
+or 512 ranks, reporting per-rank memory, flops, bytes and collective
+bytes (:func:`dryrun_one`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train dryrun \
+        --arch qwen2-0.5b --shape train_4k --mesh single
+
+Every flag of JAX's ``train``, ``finetune`` and ``serve`` drivers is
+parsed as JAX parses it.
 """
 
 from __future__ import annotations
@@ -180,6 +200,7 @@ import argparse
 import collections
 import dataclasses
 import functools
+import json
 import os
 import sys
 import time
@@ -187,7 +208,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import random, resolve_device
+from repro_torch import kernels, random, resolve_device
 from repro_torch import tree as T
 from repro_torch.configs import (ARCHS, get_config, get_smoke_config,
                                  known_archs)
@@ -201,14 +222,16 @@ from repro_torch.distributed.aggregate import (BACKENDS, ModelShards,
                                                Pending, WorkerGroup,
                                                make_multihost_mesh,
                                                model_size, num_workers)
+from repro_torch.models.layers import spec_dim
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import adamw
 from repro_torch.optim.schedules import cosine, wsd
-from repro_torch.train.trainer import make_fsdp_shards
+from repro_torch.train.trainer import make_fsdp_shards, sanitized_step
 
-# JAX-driver flags not yet ported, with the value that asks for nothing
-# beyond the port (any other value is refused)
-NOT_PORTED_FLAGS = {"--sanitize": False}
+#: what ``--sanitize`` switches on, printed as JAX's drivers print theirs
+SANITIZE_LINE = ("sanitize mode: NaN check of every step's outputs, op by "
+                 "op on a NaN + every kernel wrapper on its plain version "
+                 "with index bounds checked (no launches)")
 #: the compressor families the trainer runs, up, down and per leaf: every
 #: name of the spec grammar
 TRAIN_COMPRESSORS = ("identity", "none", "topk", "randk", "scaled_randk",
@@ -299,16 +322,8 @@ def parse_args(argv=None):
                     help="fsdp: the master state (params, AdamW's m and v, "
                          "h_avg, w) sharded over the worker group's ranks "
                          "(spec backend 'fsdp')")
-    for flag, neutral in NOT_PORTED_FLAGS.items():
-        if isinstance(neutral, bool):
-            ap.add_argument(flag, action="store_true", help="not yet ported")
-        else:
-            ap.add_argument(flag, type=type(neutral), default=neutral,
-                            help="not yet ported")
+    add_sanitize_flag(ap)
     args = ap.parse_args(argv)
-    for flag, neutral in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) != neutral:
-            ap.error(f"{flag} is not yet ported to repro_torch")
     try:
         Downlink.parse(args.downlink)
     except ValueError as e:
@@ -330,6 +345,25 @@ def parse_args(argv=None):
         except ValueError:
             ap.error(f"--mesh {args.mesh!r} is not an 'AxB' integer shape")
     return args
+
+
+def add_sanitize_flag(ap) -> None:
+    """JAX's ``--sanitize`` flag (``make sanitize-smoke``)."""
+    ap.add_argument("--sanitize", action="store_true",
+                    help="debug run: every step's outputs checked for NaN "
+                         "(on one the step re-runs op by op and raises "
+                         "FloatingPointError at the op that made it) + every "
+                         "kernel wrapper on its plain version with index "
+                         "bounds checked (repro_torch.kernels.enable)")
+
+
+def start_sanitize(args, who: str) -> None:
+    """``--sanitize``: sanitize mode for this process and its children
+    (``kernels.enable``), said on rank 0 as JAX's drivers say it."""
+    if args.sanitize:
+        kernels.enable()
+        if os.environ.get("RANK", "0") == "0":
+            print(f"[{who}] {SANITIZE_LINE}")
 
 
 def workers_of(args) -> int:
@@ -430,9 +464,10 @@ def spec_from_args(args, n: int) -> ExperimentSpec:
         pipeline=args.pipeline, leaf_codecs=args.leaf_codecs)
 
 
-def _unported_spec(spec: ExperimentSpec) -> str:
-    """What of a valid spec the port's trainer does not have yet ('' when
-    nothing)."""
+def _placement_refusal(spec: ExperimentSpec) -> str:
+    """Why a valid spec's state cannot be placed on its mesh ('' when it
+    can): a ``model`` axis that does not split a sharded dim, which JAX's
+    driver refuses too (``Model.model_axis_refusal``)."""
     refusal = build_model(run_config(spec)).model_axis_refusal(
         model_axis(spec))
     if refusal:
@@ -445,8 +480,8 @@ def experiment(args) -> ExperimentSpec:
     non-default ``--pipeline`` and ``--leaf-codecs`` folded in (all part of
     the experiment's identity), as the JAX driver's ``main`` does, or
     folded from the flags.
-    Exits with the JAX driver's message on a bad spec and with "not yet
-    ported" on what the port's trainer does not have."""
+    Exits with the JAX driver's message on a bad spec, and names the leaf
+    a ``model`` axis cannot split."""
     try:
         if args.spec:
             with open(args.spec) as f:
@@ -475,9 +510,9 @@ def experiment(args) -> ExperimentSpec:
             spec = spec_from_args(args, workers_of(args))
     except (SpecError, ValueError, OSError) as e:
         raise SystemExit(f"[train] bad experiment spec: {e}")
-    unported = _unported_spec(spec) or mesh_refusal(spec, world_size())
-    if unported:
-        raise SystemExit(f"[train] {unported}")
+    refusal = _placement_refusal(spec) or mesh_refusal(spec, world_size())
+    if refusal:
+        raise SystemExit(f"[train] {refusal}")
     return spec
 
 
@@ -642,7 +677,10 @@ def main(argv=None):
         return finetune_main(argv[1:])
     if argv[:1] == ["serve"]:
         return serve_main(argv[1:])
+    if argv[:1] == ["dryrun"]:
+        return dryrun_main(argv[1:])
     args = parse_args(argv)
+    start_sanitize(args, "train")
     spec = experiment(args)
     group = join_group(args, spec.n, model_axis(spec))
     try:
@@ -709,6 +747,8 @@ def train_loop(args, group, spec: ExperimentSpec, make) -> float:
     once the next is made."""
     echo = print if group is None or group.global_rank == 0 else _quiet
     state, step_fn, data = make()
+    if kernels.active():
+        step_fn = sanitized_step(step_fn)
     n = spec.n
     key = random.key(spec.seed)
     t_start = time.time()
@@ -937,7 +977,7 @@ class FinetuneLoop:
         self.model = build_model(self.cfg)
         refusal = self.model.model_axis_refusal(m)
         if refusal:
-            raise NotImplementedError(f"mesh {spec.mesh!r}: {refusal}")
+            raise ValueError(f"mesh {spec.mesh!r}: {refusal}")
         kind = schedule_kind(st.schedule, spec.problem)
         self.opt = adamw(make_schedule(kind, st.lr, spec.steps),
                          weight_decay=0.01)
@@ -957,6 +997,8 @@ class FinetuneLoop:
         self.step_fn = run_.train_step(loss_fn, self.opt,
                                        group=self.group, shards=self.shards,
                                        grad_transform=grad_transform)
+        if kernels.active():
+            self.step_fn = sanitized_step(self.step_fn)
         algo = run_.algo
         self._log(f"arch={self.cfg.name} family={self.cfg.family} "
                   f"params~{self.cfg.param_count():,} workers={self.n} "
@@ -1103,7 +1145,7 @@ def parse_finetune_args(argv=None):
     """The flags of JAX's ``launch/finetune.py`` (same names, defaults and
     choices), and the port's ``--device``, ``--dist-backend`` and
     ``--dist-init``.  ``--processes`` is the worker group's size: P ranks
-    under ``torchrun``.  ``--sanitize`` is not yet ported."""
+    under ``torchrun``."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train finetune")
     ap.add_argument("--spec", required=True,
                     help="path to the ExperimentSpec JSON driving the run "
@@ -1129,8 +1171,7 @@ def parse_finetune_args(argv=None):
                          "one process)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--sanitize", action="store_true",
-                    help="not yet ported")
+    add_sanitize_flag(ap)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dist-backend", default="", choices=("",) + BACKENDS,
                     help="process-group backend; required when WORLD_SIZE "
@@ -1138,8 +1179,6 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--dist-init", default="",
                     help="init_method of the process group (default env://)")
     args = ap.parse_args(argv)
-    if args.sanitize:
-        ap.error("--sanitize is not yet ported to repro_torch")
     if world_size() > 1 and not args.dist_backend:
         ap.error(f"WORLD_SIZE={world_size()}: --dist-backend "
                  f"{{{','.join(BACKENDS)}}} must be given")
@@ -1151,6 +1190,7 @@ def finetune_main(argv=None) -> float:
     ``launch/finetune.py`` ``main`` (the spec file is the experiment, the
     flags its runtime knobs); returns the eval loss."""
     args = parse_finetune_args(argv)
+    start_sanitize(args, "finetune")
     settings = FinetuneSettings(
         global_batch=args.global_batch, seq_len=args.seq, lr=args.lr,
         schedule=args.schedule, eval_every=args.eval_every,
@@ -1583,7 +1623,7 @@ def run_fleet(spec: ExperimentSpec, *, ckpt_dir=None, quiet: bool = False,
 def parse_serve_args(argv=None):
     """The flags of JAX's ``launch/serve.py`` (same names, defaults and the
     ``--prompt-len + --gen <= --max-len`` check), and the port's
-    ``--device``.  ``--sanitize`` is not yet ported."""
+    ``--device``."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train serve")
     ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
@@ -1599,12 +1639,8 @@ def parse_serve_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="fleet mode: checkpoint directory for the "
                          "per-version resync source")
-    ap.add_argument("--sanitize", action="store_true",
-                    help="not yet ported")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.sanitize:
-        ap.error("--sanitize is not yet ported to repro_torch")
     if args.prompt_len + args.gen > args.max_len:
         ap.error(
             f"--prompt-len {args.prompt_len} + --gen {args.gen} = "
@@ -1659,6 +1695,505 @@ def serve_main(argv=None):
     print(f"[serve] sample continuation (req 0): {gen[0][:16].tolist()}")
     return gen
 
+
+
+# -----------------------------------------------------------------------------
+# the dry run (``repro/launch/dryrun.py`` and ``launch/shapes.py``), the
+# ``dryrun`` subcommand
+# -----------------------------------------------------------------------------
+#
+# JAX lowers and compiles each (arch, shape, mesh) on 512 fake devices and
+# reads XLA's buffer assignment and HLO.  A torch step has no HLO: here one
+# rank's program runs on the ``meta`` device (shapes and dtypes, no
+# storage) over torch's fake process group of the mesh's 256 or 512 ranks,
+# and :class:`MetaTrace` watches every op: the storages it allocates and
+# frees, its flops, the bytes it reads and writes, and the collectives.
+
+#: JAX's dry-run compressor: about 1.6% density, paper-style k << d
+DRYRUN_COMPRESSOR = "block_topk:4096,64"
+LONG_CTX_WINDOW = 4096
+
+#: H100 SXM5 80GB data-sheet peaks, not measured: dense bf16 tensor-core
+#: flops (NVIDIA H100 data sheet, SXM5: 989.4 TFLOP/s without sparsity),
+#: HBM3 bytes (3.35 TB/s), NVLink 4 bytes one way (900 GB/s both ways)
+H100_BF16_FLOPS = 989.4e12
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_NVLINK_BYTES_PER_S = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """An input shape of the dry run (JAX's): the sequence, the global
+    batch, and the program: ``train`` (the step), ``prefill`` (the
+    forward's last logits) or ``decode`` (one token on a KV cache)."""
+
+    name: str
+    seq: int
+    global_batch: int
+    kind: str
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def adapt_config(cfg, shape: ShapeSpec):
+    """(the config the shape runs, note), or (None, skip reason): JAX's
+    policy -- long_500k runs the ssm natively, every attention arch as a
+    sliding-window variant, and skips the encdec."""
+    if shape.name != "long_500k":
+        return cfg, ""
+    if cfg.family == "encdec":
+        return None, ("skip: enc-dec decoder is not a 500k-token generator "
+                      "(DESIGN §6)")
+    if cfg.family in ("ssm",):
+        return cfg, "native sub-quadratic (recurrent state)"
+    if cfg.attn_window == 0:
+        cfg = dataclasses.replace(cfg, attn_window=LONG_CTX_WINDOW,
+                                  name=cfg.name + "-swa")
+        return cfg, f"sliding-window({LONG_CTX_WINDOW}) variant"
+    return cfg, "windowed"
+
+
+def _rank_rows(B: int, n: int) -> int:
+    """A rank's rows of a global batch of B: B / n when the n workers split
+    it (sharded over the worker axes), else all B (replicated), as JAX's
+    ``_maybe_worker_sharded``."""
+    return B // n if B % n == 0 else B
+
+
+def batch_struct(cfg, shape: ShapeSpec, mesh, device="meta") -> dict:
+    """One rank's train or prefill batch (its rows, :func:`_rank_rows`):
+    ``tokens`` (and for train ``labels``) int32, the vlm's f32
+    ``vision_embeds`` before the text, the encdec's f32 ``frames``."""
+    b = _rank_rows(shape.global_batch, num_workers(mesh))
+    out, text = {}, shape.seq
+    if cfg.family == "vlm":
+        text = shape.seq - cfg.vision_patches
+        out["vision_embeds"] = torch.empty(
+            (b, cfg.vision_patches, cfg.d_model), device=device)
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((b, cfg.encoder_frames, cfg.d_model),
+                                    device=device)
+    out["tokens"] = torch.empty((b, text), dtype=torch.int32, device=device)
+    if shape.kind == "train":
+        out["labels"] = torch.empty((b, text), dtype=torch.int32,
+                                    device=device)
+    return out
+
+
+def _shard_cache(cache, specs, tp):
+    """A cache tree's shards on the model axis ``tp`` (its specs)."""
+    if isinstance(cache, dict):
+        return {k: _shard_cache(v, specs[k], tp) for k, v in cache.items()}
+    dim = spec_dim(specs)
+    return cache if tp is None or dim is None else tp.shard(cache, dim)
+
+
+def decode_structs(cfg, shape: ShapeSpec, mesh, model, tp=None,
+                   device="meta"):
+    """(cache, token, pos) of one rank's decode: the cache of its lanes
+    (:func:`_rank_rows`) at the shape's context, sharded by
+    ``model.cache_specs`` on the model axis ``tp``; the (lanes, 1) int32
+    token; the 0-d int32 position, as JAX's ``decode_structs``."""
+    b = _rank_rows(shape.global_batch, num_workers(mesh))
+    cache = _shard_cache(model.init_cache(b, shape.seq, device=device),
+                         model.cache_specs(), tp)
+    token = torch.empty((b, 1), dtype=torch.int32, device=device)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    return cache, token, pos
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors."""
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+#: c10d ops by the collective's kind (JAX's names)
+COLLECTIVE_KINDS = {"allgather_": "all-gather", "_allgather_base_":
+                    "all-gather", "allgather_into_tensor_coalesced_":
+                    "all-gather", "allreduce_": "all-reduce",
+                    "allreduce_coalesced_": "all-reduce",
+                    "reduce_scatter_": "reduce-scatter",
+                    "_reduce_scatter_base_": "reduce-scatter",
+                    "alltoall_": "all-to-all", "alltoall_base_":
+                    "all-to-all", "broadcast_": "broadcast",
+                    "send": "send", "recv_": "recv"}
+#: ops whose outputs are views: they move no bytes
+_NO_BYTES = ("empty", "empty_like", "new_empty", "empty_strided", "zeros",
+             "zeros_like", "new_zeros", "full", "full_like", "new_full")
+
+
+class MetaTrace:
+    """A dispatch mode over one rank's program on the ``meta`` device: the
+    bytes of the storages its ops allocate, live at once (``live``, the
+    peak ``peak``: a storage counts from its allocation until it dies,
+    autograd's saved tensors included), matmul flops (torch's flop
+    formulas: matmuls, convolutions, fused attention), the bytes each op
+    reads and writes, the collectives' output bytes by kind, the host reads
+    the meta device cannot answer (skipped, counted by op and caller), and
+    with ``record`` every op (name, shapes, dtypes, flops)."""
+
+    def __init__(self, record: bool = False):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+
+        self.live = self.peak = self.flops = self.bytes = 0
+        self.coll = collections.Counter()
+        self.host_reads = collections.Counter()
+        self.ops = [] if record else None
+        self._seen = set()
+        trace, registry = self, flop_registry
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return trace._dispatch(registry, func, args, kwargs or {})
+
+        self.mode = Mode()
+
+    def exclude(self, *trees) -> None:
+        """Count the storages of ``trees`` (the arguments) as held already:
+        an op that writes into one allocates nothing."""
+        for t in trees:
+            for x in T.leaves(t):
+                if isinstance(x, torch.Tensor):
+                    self._seen.add(x.untyped_storage()._cdata)
+
+    def _track(self, t: torch.Tensor) -> None:
+        import weakref
+
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._seen:
+            return
+        self._seen.add(key)
+        n = st.nbytes()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key, n: int) -> None:
+        self._seen.discard(key)
+        self.live -= n
+
+    def _dispatch(self, registry, func, args, kwargs):
+        from torch.utils._pytree import tree_leaves
+
+        name = func._overloadpacket.__name__
+        if name == "_local_scalar_dense":
+            self.host_reads[f"{name} at {_caller()}"] += 1
+            return 0
+        out = func(*args, **kwargs)
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        for t in outs:
+            self._track(t)
+        flops = 0
+        if func.namespace == "c10d":
+            kind = COLLECTIVE_KINDS.get(name, name)
+            self.coll[kind] += sum(t.numel() * t.element_size()
+                                   for t in outs)
+        else:
+            packet = func._overloadpacket
+            if packet in registry:
+                flops = int(registry[packet](*args, **kwargs, out_val=out))
+                self.flops += flops
+            if not func.is_view and name not in _NO_BYTES:
+                ins = [t for t in tree_leaves((args, kwargs))
+                       if isinstance(t, torch.Tensor)]
+                self.bytes += sum(t.numel() * t.element_size()
+                                  for t in ins + outs)
+        if self.ops is not None:
+            self.ops.append({
+                "op": str(func),
+                "shapes": [list(t.shape) for t in outs],
+                "dtypes": [str(t.dtype).replace("torch.", "") for t in outs],
+                "flops": flops})
+        return out
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _caller() -> str:
+    """The innermost frame of the port outside the dry run: where a host
+    read was asked for."""
+    here = os.path.abspath(__file__)
+    f = sys._getframe(1)
+    while f is not None:
+        path = os.path.abspath(f.f_code.co_filename)
+        if f"{os.sep}repro_torch{os.sep}" in path and path != here:
+            return f"{path[path.rindex('repro_torch'):]}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
+def dryrun_program(arch: str, shape: ShapeSpec, mesh, *,
+                   agg_mode: str = "dense_psum",
+                   compressor: str = DRYRUN_COMPRESSOR,
+                   trainer: str = "shard_map", device="meta", group=None,
+                   config=None):
+    """One rank's program of ``arch`` at ``shape`` on ``mesh``: (args, run,
+    note, cfg), ``args`` the trees it holds ({"params", "m", "v", "h",
+    "h_avg", "batch"} for train, {"params", "batch"} for prefill,
+    {"params", "cache", "token", "pos"} for decode), ``run()`` the step
+    (JAX's ``build_lowered``: the train step at JAX's defaults -- AdamW on
+    cosine(3e-4, 10000, 200), EF-BV tuned at d = d_model * d_ff, the
+    ``trainer`` and ``agg_mode`` -- the prefill forward, or the decode step
+    and its argmax); (None, None, skip reason, None) where JAX skips.  On
+    ``meta`` the params are shapes only; elsewhere (the card) the init at
+    ``random.key(0)``.  ``group``: this rank's WorkerGroup on the mesh (None
+    on one rank)."""
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.efbv import EFBV
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_train_step,
+                                           make_train_step_fsdp)
+
+    cfg, note = adapt_config(config or get_config(arch), shape)
+    if cfg is None:
+        return None, None, note, None
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    n = num_workers(mesh)
+    tp = None if group is None else group.model
+    params = model.init_abstract() if dev.type == "meta" \
+        else model.init(random.key(0), device=dev)
+    if shape.kind == "train":
+        logical = model.init_abstract()
+        if trainer == "fsdp":
+            shards = make_fsdp_shards(group, mesh, model.param_specs(),
+                                      logical)
+        else:
+            shards = None if tp is None else ModelShards.of(
+                tp, model.param_specs(), logical)
+        if shards is not None:
+            params = shards.shard_tree(params)
+        opt = adamw(cosine(3e-4, total_steps=10_000, warmup_steps=200))
+        comp = make_compressor(compressor)
+        algo = EFBV.make(comp, d=cfg.d_model * cfg.d_ff if cfg.d_ff
+                         else cfg.d_model ** 2, n=n, mode="efbv")
+        state = init_train_state(params, opt, n_workers=n, algo=algo,
+                                 agg_mode=agg_mode, group=group,
+                                 shards=shards)
+        del params
+        make = make_train_step_fsdp if trainer == "fsdp" else make_train_step
+        loss_fn = model.loss if tp is None else functools.partial(
+            model.loss, tp=tp)
+        step_fn = make(loss_fn, opt, algo, n_workers=n, agg_mode=agg_mode,
+                       group=group, shards=shards)
+        rows = batch_struct(cfg, shape, mesh, dev)
+        workers = range(n) if group is None else group.workers
+        lo = workers[0] * (shape.global_batch // n)
+        # the global batch, of which the step copies this rank's rows
+        batch = {k: torch.zeros((shape.global_batch,) + tuple(v.shape[1:]),
+                                dtype=v.dtype, device=dev)
+                 for k, v in rows.items()}
+        key = random.fold_in(random.key(0), 0)
+        args = {"params": state.params, "m": state.opt_state["m"],
+                "v": state.opt_state["v"], "h": state.h,
+                "h_avg": state.h_avg,
+                "batch": {k: v[lo:lo + rows[k].shape[0]]
+                          for k, v in batch.items()}}
+        return args, lambda: step_fn(state, batch, key), note, cfg
+    if tp is not None:
+        params = ModelShards.of(tp, model.param_specs(),
+                                model.init_abstract()).shard_tree(params)
+    if shape.kind == "prefill":
+        batch = batch_struct(cfg, shape, mesh, dev)
+
+        def run():
+            with torch.no_grad():
+                return model.forward(params, batch, tp)[:, -1]
+        return {"params": params, "batch": batch}, run, note, cfg
+    cache, token, pos = decode_structs(cfg, shape, mesh, model, tp, dev)
+
+    def run():
+        logits, new = model.decode_step(params, cache, token, pos, tp)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    return ({"params": params, "cache": cache, "token": token, "pos": pos},
+            run, note, cfg)
+
+
+def dryrun_group(mesh, rank: int = 0):
+    """Rank ``rank``'s WorkerGroup of ``mesh`` over torch's fake process
+    group (``aggregate.DRYRUN_BACKEND``: every collective returns at once,
+    moving nothing), on the ``meta`` device; None for a one-rank mesh."""
+    import math as _math
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = _math.prod(mesh.devices_shape)
+    if world == 1:
+        return None
+    from repro_torch.distributed.aggregate import DRYRUN_BACKEND
+
+    return WorkerGroup.join(num_workers(mesh), backend=DRYRUN_BACKEND,
+                            device="meta", model_size=model_size(mesh),
+                            rank=rank, world=world, store=FakeStore())
+
+
+def mesh_label(mesh) -> str:
+    return "x".join(str(x) for x in mesh.devices_shape)
+
+
+def dryrun_one(arch: str, shape, *, multi_pod: bool = False, mesh=None,
+               agg_mode: str = "dense_psum",
+               compressor: str = DRYRUN_COMPRESSOR,
+               trainer: str = "shard_map", hlo_dir: str = "",
+               verbose: bool = True, execute: bool = True,
+               config=None) -> dict:
+    """JAX's ``run_one`` for one (arch, shape, mesh): the record of rank 0's
+    program on the ``meta`` device (:func:`dryrun_program`) over the fake
+    process group of the production mesh (or ``mesh``; ``shape`` a name of
+    :data:`SHAPES` or a :class:`ShapeSpec`).  The record has JAX's keys,
+    ``build_s`` and ``run_s`` in place of ``lower_s`` and ``compile_s``;
+    ``memory``: the per-rank bytes of the arguments (``trees``: each state
+    tree, the batch or cache), of the outputs, and the peak of the storages
+    the program allocates while live (``temp_size_in_bytes``); ``roofline``:
+    the per-rank flops, bytes and collective bytes by kind, each over the
+    H100's data-sheet peak.  ``execute=False`` builds the arguments only.
+    ``hlo_dir`` keeps each run's op trace gzipped (JSON lines: op, shapes,
+    dtypes, flops).  ``config`` replaces the arch's full config (a smoke
+    config, say)."""
+    from repro_torch.distributed.aggregate import make_production_mesh
+
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
+    rec = {"arch": arch, "shape": shape.name, "mesh": mesh_label(mesh),
+           "agg_mode": agg_mode, "compressor": compressor,
+           "trainer": trainer}
+    t0 = time.time()
+    group = None
+    try:
+        group = dryrun_group(mesh)
+        cfg0 = config or get_config(arch)
+        args, run, note, cfg = dryrun_program(
+            arch, shape, mesh, agg_mode=agg_mode, compressor=compressor,
+            trainer=trainer, group=group, config=config)
+        rec.update({"note": note, "n_workers": num_workers(mesh),
+                    "n_devices": int(np.prod(mesh.devices_shape)),
+                    "params": cfg0.param_count(),
+                    "active_params": cfg0.active_param_count()})
+        if args is None:
+            rec["status"] = "skipped"
+            rec["skip"] = note
+            return rec
+        trees = {k: tree_bytes(v) for k, v in args.items()}
+        arg_bytes = sum(trees.values())
+        rec["build_s"] = round(time.time() - t0, 2)
+        if not execute:
+            rec["memory"] = {"argument_size_in_bytes": arg_bytes,
+                             "trees": trees}
+            rec["status"] = "built"
+            return rec
+        t1 = time.time()
+        trace = MetaTrace(record=bool(hlo_dir))
+        trace.exclude(args)
+        with kernels.dry_run(), trace:
+            out = run()
+            out_bytes = tree_bytes(out)
+            del out
+        rec["run_s"] = round(time.time() - t1, 2)
+        rec["memory"] = {"argument_size_in_bytes": arg_bytes,
+                         "output_size_in_bytes": out_bytes,
+                         "temp_size_in_bytes": trace.peak,
+                         "trees": trees}
+        t_c = trace.flops / H100_BF16_FLOPS
+        t_m = trace.bytes / H100_HBM_BYTES_PER_S
+        coll = sum(trace.coll.values())
+        t_x = coll / H100_NVLINK_BYTES_PER_S
+        terms = {"compute": t_c, "memory": t_m, "collective": t_x}
+        rec["roofline"] = {
+            "flops_per_rank": trace.flops, "bytes_per_rank": trace.bytes,
+            "coll_bytes_per_rank": coll,
+            "coll_breakdown": dict(trace.coll),
+            "t_compute_s": t_c, "t_memory_s": t_m, "t_collective_s": t_x,
+            "bottleneck": max(terms, key=terms.get),
+            "peaks": {"bf16_flops_per_s": H100_BF16_FLOPS,
+                      "hbm_bytes_per_s": H100_HBM_BYTES_PER_S,
+                      "nvlink_bytes_per_s_one_way": H100_NVLINK_BYTES_PER_S,
+                      "source": "H100 SXM5 80GB data sheet; not measured"}}
+        rec["host_reads_skipped"] = dict(trace.host_reads)
+        if hlo_dir:
+            import gzip
+            os.makedirs(hlo_dir, exist_ok=True)
+            fname = (f"{arch}_{shape.name}_{rec['mesh']}_{agg_mode}"
+                     ".ops.jsonl.gz")
+            with gzip.open(os.path.join(hlo_dir, fname), "wt") as gz:
+                for op in trace.ops:
+                    gz.write(json.dumps(op) + "\n")
+        rec["status"] = "ok"
+        if verbose:
+            m = rec["memory"]
+            print(f"[dryrun] {arch:22s} {shape.name:12s} {rec['mesh']:8s} OK "
+                  f"build={rec['build_s']:.1f}s run={rec['run_s']:.1f}s "
+                  f"bottleneck={rec['roofline']['bottleneck']} "
+                  f"args={m['argument_size_in_bytes'] / 2**30:.2f}GiB "
+                  f"temp={m['temp_size_in_bytes'] / 2**30:.2f}GiB")
+    except Exception as e:  # noqa: BLE001 -- recorded, as JAX's run_one
+        import traceback
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        if verbose:
+            print(f"[dryrun] {arch:22s} {shape.name:12s} {rec['mesh']:8s} "
+                  f"FAIL {rec['error'][:200]}")
+            traceback.print_exc(limit=6)
+    finally:
+        if group is not None:
+            group.close()
+    return rec
+
+
+def parse_dryrun_args(argv=None):
+    """The flags of JAX's ``launch/dryrun.py`` (same names and defaults)."""
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.train dryrun",
+        description="multi-pod dry run: one rank's program of every (arch x "
+                    "shape x mesh) on the meta device, with roofline terms")
+    ap.add_argument("--arch", default="all", help=f"one of {ARCHS} or 'all'")
+    ap.add_argument("--shape", default="all",
+                    help=f"one of {list(SHAPES)} or 'all'")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--agg", default="dense_psum")
+    ap.add_argument("--compressor", default=DRYRUN_COMPRESSOR)
+    ap.add_argument("--out", default="dryrun_results.jsonl")
+    ap.add_argument("--hlo-dir", default="",
+                    help="keep each combination's op trace (gzipped JSON "
+                         "lines: op, shapes, dtypes, flops); a torch step has "
+                         "no HLO")
+    return ap.parse_args(argv)
+
+
+def dryrun_main(argv=None) -> list:
+    """``python -m repro_torch.launch.train dryrun``: JAX's dry-run
+    ``main``; appends a JSON record a combination to ``--out``."""
+    args = parse_dryrun_args(argv)
+    archs = ARCHS if args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    recs = []
+    with open(args.out, "a") as f:
+        for arch in archs:
+            for shape in shapes:
+                for mp in meshes:
+                    rec = dryrun_one(arch, shape, multi_pod=mp,
+                                     agg_mode=args.agg,
+                                     compressor=args.compressor,
+                                     hlo_dir=args.hlo_dir)
+                    f.write(json.dumps(rec) + "\n")
+                    f.flush()
+                    recs.append(rec)
+    return recs
 
 if __name__ == "__main__":
     main()

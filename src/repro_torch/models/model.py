@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random, resolve_device
 from repro_torch import tree as T
@@ -323,16 +324,19 @@ class Model:
         ('' when it can): a leaf that ``param_specs`` shards on a dim that
         ``size`` does not divide (a model axis of 3, say).  Every family
         runs on any axis that splits its sharded dims, heads whole or not
-        (the module docstring)."""
+        (the module docstring); JAX's driver cannot place such a state
+        either."""
         for (path, leaf), spec in zip(
                 T.flatten_with_path(self.init_abstract()),
                 T.leaves(self.param_specs(), is_leaf=L.is_spec)):
             dim = L.spec_dim(spec)
             if dim is not None and leaf.shape[dim] % size:
+                # JAX places the state with device_put, which raises here
                 return (f"a 'model' axis of {size}: {'/'.join(path)} "
                         f"{tuple(leaf.shape)} does not split over {size} "
-                        "ranks; such a mesh is not yet ported to repro_torch "
-                        "(ROADMAP queue 1, item 2f)")
+                        f"ranks: its dim {dim} of size {leaf.shape[dim]} "
+                        f"is not divisible by {size}, as JAX's sharding "
+                        "of the state requires")
         return ""
 
     def _specs(self) -> PyTree:
@@ -444,13 +448,28 @@ class Model:
         B, S, _ = h.shape
         pos = torch.arange(S, device=h.device).expand(B, S)
         es = self._specs()["encoder"]
-        for lp in _per_layer(params["encoder"], cfg.encoder_layers):
+
+        def block(h, lp):
             h = h + self._attend(lp["attn"], es["attn"],
                                  L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp,
                                  positions=pos, theta=0.0, causal=False)
-            h = h + self._ffn(lp["mlp"], es["mlp"],
-                              L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
+            return h + self._ffn(lp["mlp"], es["mlp"],
+                                 L.rmsnorm(h, lp["ln2"], cfg.norm_eps), tp)
+
+        block = self._remat(block)
+        for lp in _per_layer(params["encoder"], cfg.encoder_layers):
+            h = block(h, lp)
         return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _remat(self, block: Callable) -> Callable:
+        """``block`` recomputed in the backward when ``cfg.remat`` (JAX's
+        ``jax.checkpoint`` of each scanned block): its activations are not
+        kept, and its values are the same bits.  It draws no random
+        numbers, so no RNG state is saved."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return block
+        return lambda *args: checkpoint(block, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
 
     def _decoder_blocks(self, params: PyTree, h: torch.Tensor,
                         positions: torch.Tensor, tp: Optional[L.ModelAxis],
@@ -459,8 +478,10 @@ class Model:
         """The stacked decoder blocks of the family (JAX's scan), in a
         loop over the layers.  The hybrid's shared block runs after every
         layer i with i % attn_every == attn_every - 1 (JAX's ``lax.cond``),
-        its leaves' gradients summed over those runs.  Returns (hidden,
-        aux loss summed over the layers; 0.0 but for moe)."""
+        its leaves' gradients summed over those runs.  Each block (the
+        shared one with the layer it follows) is recomputed in the backward
+        when ``cfg.remat`` (:meth:`_remat`).  Returns (hidden, aux loss
+        summed over the layers; 0.0 but for moe)."""
         cfg = self.cfg
         attn_kw = dict(positions=positions, theta=cfg.rope_theta,
                        window=cfg.attn_window,
@@ -471,7 +492,8 @@ class Model:
         specs = self._specs()
         ls = specs["layers"]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+
+        def block(h, aux, lp, i):
             if cfg.family in ("ssm", "hybrid"):
                 h = h + L.mamba2_apply(
                     L.gather_tree(lp["mamba"], ls["mamba"], tp),
@@ -485,7 +507,7 @@ class Model:
                         **attn_kw)
                     h = h + self._ffn(shared["mlp"], ss["mlp"], L.rmsnorm(
                         h, shared["ln2"], cfg.norm_eps), tp)
-                continue
+                return h, aux
             h = h + self._attend(lp["attn"], ls["attn"],
                                  L.rmsnorm(h, lp["ln1"], cfg.norm_eps), tp,
                                  **attn_kw)
@@ -497,7 +519,7 @@ class Model:
                     causal=False)
                 h = h + self._ffn(lp["mlp"], ls["mlp"],
                                   L.rmsnorm(h, lp["ln3"], cfg.norm_eps), tp)
-                continue
+                return h, aux
             x = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
             if cfg.family == "moe":
                 y, a = L.moe_apply(L.gather_tree(lp["moe"], ls["moe"], tp),
@@ -505,9 +527,12 @@ class Model:
                                    k=cfg.experts_per_tok,
                                    capacity_factor=cfg.capacity_factor,
                                    groups=cfg.moe_groups)
-                h, aux = h + y, aux + a
-            else:
-                h = h + self._ffn(lp["mlp"], ls["mlp"], x, tp)
+                return h + y, aux + a
+            return h + self._ffn(lp["mlp"], ls["mlp"], x, tp), aux
+
+        block = self._remat(block)
+        for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+            h, aux = block(h, aux, lp, i)
         return h, aux
 
     def forward_aux(self, params: PyTree, batch: Dict[str, torch.Tensor],
@@ -651,7 +676,9 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params: PyTree, cache: PyTree,
-                    token: torch.Tensor, pos) -> Tuple[torch.Tensor, PyTree]:
+                    token: torch.Tensor, pos,
+                    tp: Optional[L.ModelAxis] = None
+                    ) -> Tuple[torch.Tensor, PyTree]:
         """One-token decode of every lane (JAX's ``decode_step``, batched as
         its ``vmap`` over lanes runs it): token (B, 1) int, pos (B,) int
         (each lane's position) or one int for all.  Returns (logits (B, 1,
@@ -659,7 +686,14 @@ class Model:
         into ``cache``'s tensors in place.  moe dispatches each lane as its
         own group (capacity ``max(1, int(cf * k / E))``), as the per-lane
         step does; the hybrid's shared block runs after each layer i with
-        i % attn_every == attn_every - 1, on its one K/V cache."""
+        i % attn_every == attn_every - 1, on its one K/V cache.
+
+        On a ``model`` axis (``tp``) ``params`` and ``cache`` are this
+        rank's shards (:meth:`param_specs`, :meth:`cache_specs`): a
+        vocab-sharded embedding is looked up vocab-parallel, each layer's
+        sharded leaves and K/V are gathered on use and its compute runs
+        replicated, the rank's shard of the new K/V written back, and the
+        logits are gathered whole."""
         cfg = self.cfg
         adt = _DTYPES[cfg.activation_dtype]
         hd = cfg.hd()
@@ -669,7 +703,29 @@ class Model:
         pos = torch.as_tensor(pos, device=dev).to(torch.int64)
         if pos.dim() == 0:
             pos = pos.expand(B)
-        h = params["embed"].to(adt)[token]                    # (B, 1, d)
+        specs = self._specs()
+        ls = specs["layers"]
+        if tp is not None and L.spec_dim(specs["embed"]) is not None:
+            h = L.vocab_parallel_embed(params["embed"], token, adt, tp)
+        else:
+            h = params["embed"].to(adt)[token]                # (B, 1, d)
+        kv_dim = L.spec_dim(self.cache_specs()["cross_k"]
+                            if cfg.family == "encdec" else
+                            self.cache_specs()["shared"]["k"]
+                            if cfg.family == "hybrid" else
+                            self.cache_specs().get("k", (None,)))
+        sharded = tp is not None and kv_dim is not None
+
+        def whole(x):
+            """A layer's K or V, gathered over the axis where sharded."""
+            return tp.all_gather(x, kv_dim - 1) if sharded else x
+
+        def keep(dst, x):
+            """This rank's shard of an updated layer's K or V, written
+            back (the cache itself was updated in place otherwise)."""
+            if sharded:
+                dst.copy_(tp.shard(x, kv_dim - 1))
+
         if cfg.family == "encdec":
             h = h + sinusoid_at(pos[:, None], cfg.d_model)[:, None].to(adt)
         attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=hd,
@@ -678,6 +734,7 @@ class Model:
                       n_heads=cfg.ssm_heads(), norm_eps=cfg.norm_eps)
         kv = cache["self"] if cfg.family == "encdec" else cache
         for i, lp in enumerate(_per_layer(params["layers"], cfg.n_layers)):
+            lp = L.gather_tree(lp, ls, tp)
             if cfg.family in ("ssm", "hybrid"):
                 mc = cache if cfg.family == "ssm" else cache["mamba"]
                 y, new = L.mamba2_decode(
@@ -689,20 +746,26 @@ class Model:
                 h = h + y
                 if cfg.family == "hybrid" \
                         and i % cfg.attn_every == cfg.attn_every - 1:
-                    shared = params["shared_attn"]
+                    shared = L.gather_tree(params["shared_attn"],
+                                           specs["shared_attn"], tp)
+                    sk, sv = cache["shared"]["k"], cache["shared"]["v"]
+                    k0, v0 = whole(sk[0]), whole(sv[0])
                     y, _, _ = L.attention_decode(
                         shared["attn"],
                         L.rmsnorm(h, shared["ln1"], cfg.norm_eps),
-                        cache["shared"]["k"][0], cache["shared"]["v"][0],
-                        pos, **attn_kw)
+                        k0, v0, pos, **attn_kw)
+                    keep(sk[0], k0)
+                    keep(sv[0], v0)
                     h = h + y
                     h = h + L.swiglu(shared["mlp"], L.rmsnorm(
                         h, shared["ln2"], cfg.norm_eps))
                 continue
+            ki, vi = whole(kv["k"][i]), whole(kv["v"][i])
             y, _, _ = L.attention_decode(
                 lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                kv["k"][i], kv["v"][i], pos,
-                mrope_sections=cfg.mrope_sections, **attn_kw)
+                ki, vi, pos, mrope_sections=cfg.mrope_sections, **attn_kw)
+            keep(kv["k"][i], ki)
+            keep(kv["v"][i], vi)
             h = h + y
             if cfg.family == "encdec":
                 h = h + L.attention(
@@ -711,8 +774,8 @@ class Model:
                     positions=torch.zeros((B, 1), dtype=torch.int64,
                                           device=dev),
                     theta=0.0, causal=False,
-                    kv=(cache["cross_k"][i].to(h.dtype),
-                        cache["cross_v"][i].to(h.dtype)))
+                    kv=(whole(cache["cross_k"][i]).to(h.dtype),
+                        whole(cache["cross_v"][i]).to(h.dtype)))
                 h = h + L.swiglu(lp["mlp"],
                                  L.rmsnorm(h, lp["ln3"], cfg.norm_eps))
                 continue
@@ -727,7 +790,10 @@ class Model:
             h = h + y
         h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return h @ head.to(h.dtype), cache
+        logits = h @ head.to(h.dtype)
+        if self.vocab_sharded(tp):
+            logits = tp.all_gather(logits, logits.dim() - 1)
+        return logits, cache
 
 
 MODEL = L.MODEL_AXIS

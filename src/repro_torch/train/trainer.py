@@ -14,7 +14,8 @@ rank r's contiguous n/P (one process per worker at P = n).  One step:
     w, _    = broadcast_global(downlink, downlink_key(key), params, w)
 
 Worker i's batch slice is row block i of the worker-major reshape
-(B, ...) -> (n, B / n, ...), as in the JAX trainer.  Workers evaluate their
+(B, ...) -> (n, B / n, ...), as in the JAX trainer; a rank copies only its
+workers' row blocks of the global batch to its device.  Workers evaluate their
 gradients at w, the downlink's reconstruction of the model; without a
 downlink w is the params and the last line is skipped.  Only one worker's
 gradients are alive at a time.  ``combine_global``, the optimizer and the
@@ -48,6 +49,13 @@ in-flight payload is every worker's message, as the exchange delivers it.
 Under fsdp (:func:`make_train_step_fsdp`) the master trees are further
 split over the worker group, and the workers hold what they hold without
 it.
+
+Each block's activations are recomputed in the backward by the model
+itself (``cfg.remat``, JAX's default); JAX's trainer-level ``remat=``
+(the whole loss under one ``jax.checkpoint``) has no counterpart: no
+driver of either package sets it.  In sanitize mode
+(``kernels.enable``) the drivers wrap the step in :func:`sanitized_step`,
+JAX's ``jax_debug_nans``.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import random
 from repro_torch import tree as T
@@ -299,18 +309,22 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
             # by leaf over the worker group
             eval_params = shards.worker_tree(eval_params)
         dev = T.leaves(state.params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         B = batch["tokens"].shape[0]
         if B % n:
             raise ValueError(f"global batch {B} does not split over {n} "
                              "workers")
         per = B // n
+        # only this rank's workers' rows reach its device
+        lo = workers[0] * per
+        batch = {k: torch.as_tensor(v[lo:lo + len(workers) * per],
+                                    device=dev) for k, v in batch.items()}
         # sampled before the workers run, on every rank from the same key
         mask = participation.sample_mask(participation_key(key), n, dev) \
             if federated else None
         messages, local, names = [], [], METRICS
         for row, i in enumerate(workers):
-            batch_i = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            batch_i = {k: v[row * per:(row + 1) * per]
+                       for k, v in batch.items()}
             loss, aux, grads = value_aux_and_grad(loss_fn, eval_params,
                                                   batch_i)
             if grad_transform is not None:
@@ -515,3 +529,77 @@ def make_train_step_fsdp(
                       downlink=downlink, pipeline=pipeline,
                       participation=participation, group=group,
                       shards=shards, grad_transform=grad_transform)
+
+
+# ---------------------------------------------------------------------------
+# sanitize mode: JAX's jax_debug_nans
+# ---------------------------------------------------------------------------
+
+#: ops whose output is uninitialised memory, which may hold any bits
+_UNINITIALISED = ("empty", "empty_like", "new_empty", "empty_strided")
+
+
+class NanCheck(TorchDispatchMode):
+    """Raises ``FloatingPointError`` at the first aten op (forward or
+    backward) whose floating output holds a NaN, naming it, as
+    ``jax_debug_nans`` names the primitive.  Inf is not checked."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        # a view makes no value, and uninitialised memory holds any bits
+        if not func.is_view \
+                and func._overloadpacket.__name__ not in _UNINITIALISED:
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                        and t.device.type != "meta" \
+                        and bool(torch.isnan(t).any()):
+                    raise FloatingPointError(
+                        f"invalid value (nan) encountered in {func}")
+        return out
+
+
+def _clone(x):
+    """A copy of the tensors of a (nested) state, the rest shared."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def _holds_nan(tree) -> bool:
+    flags = [torch.isnan(t).any() for t in tree_leaves(tree)
+             if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    return bool(torch.stack(flags).any()) if flags else False
+
+
+def sanitized_step(step_fn):
+    """``step_fn`` under JAX's ``jax_debug_nans`` semantics: after each
+    step its outputs (the state and metrics trees) are checked for NaN, and
+    on one the step is run again from a copy of its inputs under
+    :class:`NanCheck` and ``torch.autograd.detect_anomaly(check_nan=True)``,
+    which raises ``FloatingPointError`` at the first op that made a NaN.  A
+    NaN that the step masks away raises nothing, as under JAX."""
+    def step(state, batch, key):
+        saved = _clone(state)
+        out = step_fn(state, batch, key)
+        if _holds_nan(out):
+            try:
+                with NanCheck(), \
+                        torch.autograd.detect_anomaly(check_nan=True):
+                    step_fn(saved, batch, key)
+            except RuntimeError as e:
+                if "nan" not in str(e):
+                    raise
+                raise FloatingPointError(str(e)) from e
+            raise FloatingPointError(
+                "the step's outputs hold a NaN that no op of its re-run "
+                "made")
+        return out
+
+    step.shards = getattr(step_fn, "shards", None)
+    return step

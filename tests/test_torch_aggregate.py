@@ -1280,3 +1280,189 @@ def test_nccl_refused_on_a_shared_device(device, cards):
     with pytest.raises(ValueError, match="nccl"):
         tlaunch.rank_device(device, "nccl", 1, 2, cards)
     assert str(tlaunch.rank_device("cuda", "nccl", 1, 2, 2)) == "cuda:1"
+
+
+import json  # noqa: E402
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+
+# -- the dry run (JAX's ``launch/dryrun.py``), on the meta device -----------
+#
+# One JAX process of 512 fake host devices gives, without compiling, each
+# (arch, shape, production mesh)'s per-rank shard bytes of every state tree
+# and of the batch or cache (``NamedSharding.shard_shape``), the params,
+# notes and skips; and, compiled, the dot flops per device of JAX's mini
+# dry run (``test_mini_dryrun_lowering_16dev``: granite-moe smoke, 2x2x4).
+
+JAX_DRYRUN = """
+import json, math
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.analysis.hlo import hlo_cost
+from repro.configs import ARCHS, get_config, get_smoke_config
+from repro.core import EFBV, BlockTopK
+from repro.launch.mesh import make_mesh, make_production_mesh, num_workers
+from repro.launch.shapes import (SHAPES, adapt_config, batch_struct,
+                                 decode_structs)
+from repro.models import build_model
+from repro.optim import adamw, cosine
+from repro.train import (init_train_state, make_train_step,
+                         train_state_shardings)
+SDS = jax.ShapeDtypeStruct
+is_p = lambda s: isinstance(s, P)
+
+def specs_of(model):
+    # param_specs runs the init: capture it under eval_shape, abstractly
+    box = {}
+    def f():
+        box["s"] = model.param_specs()
+        return jnp.zeros(())
+    jax.eval_shape(f)
+    return box["s"]
+
+def tbytes(tree, shardings):
+    return int(sum(math.prod(s.shard_shape(a.shape)) * a.dtype.itemsize
+                   for a, s in zip(jax.tree.leaves(tree),
+                                   jax.tree.leaves(shardings))))
+
+def sbytes(tree):
+    return tbytes(tree, [a.sharding for a in jax.tree.leaves(tree)])
+
+out = {"memory": {}, "meta": {}, "own_spec_m": {}}
+opt = adamw(cosine(3e-4, total_steps=10_000, warmup_steps=200))
+abstract, specs = {}, {}
+for mp in (False, True):
+    mesh = make_production_mesh(multi_pod=mp)
+    label = "2x16x16" if mp else "16x16"
+    for arch in ARCHS:
+        cfg0 = get_config(arch)
+        if arch not in specs:
+            m0 = build_model(cfg0)
+            specs[arch], abstract[arch] = specs_of(m0), m0.init_abstract()
+        psh = jax.tree.map(lambda s: NamedSharding(mesh, s), specs[arch],
+                           is_leaf=is_p)
+        params = abstract[arch]
+        for name, shape in SHAPES.items():
+            cfg, note = adapt_config(cfg0, shape)
+            key = f"{arch}/{name}/{label}"
+            out["meta"][key] = {"note": note, "skip": cfg is None,
+                                "params": cfg0.param_count(),
+                                "active_params": cfg0.active_param_count()}
+            if cfg is None:
+                continue
+            if shape.kind == "train":
+                sds = jax.tree.map(lambda a, s: SDS(a.shape, a.dtype,
+                                                    sharding=s), params, psh)
+                st = jax.eval_shape(lambda p: init_train_state(p, opt, mesh),
+                                    sds)
+                sh = train_state_shardings(mesh, specs[arch], st)
+                rec = {"params": tbytes(st.params, sh.params),
+                       "m": tbytes(st.opt_state["m"], sh.opt_state["m"]),
+                       "v": tbytes(st.opt_state["v"], sh.opt_state["v"]),
+                       "h": tbytes(st.h, sh.h),
+                       "h_avg": tbytes(st.h_avg, sh.h_avg),
+                       "batch": sbytes(batch_struct(cfg, shape, mesh))}
+                # m as each leaf's own param spec lays it out
+                out["own_spec_m"][key] = tbytes(st.opt_state["m"], sh.params)
+            elif shape.kind == "prefill":
+                rec = {"params": tbytes(params, psh),
+                       "batch": sbytes(batch_struct(cfg, shape, mesh))}
+            else:
+                cache, token, pos = decode_structs(cfg, shape, mesh,
+                                                   build_model(cfg))
+                rec = {"params": tbytes(params, psh), "cache": sbytes(cache),
+                       "token": sbytes(token), "pos": sbytes(pos)}
+            out["memory"][key] = rec
+
+mesh = make_mesh((2, 2, 4))
+cfg = get_smoke_config("granite-moe-3b-a800m")
+model = build_model(cfg)
+algo = EFBV.make(BlockTopK(128, 16), d=4096, n=num_workers(mesh))
+opt = adamw(cosine(1e-3, 100, 10))
+sp = model.param_specs()
+shard = jax.tree.map(lambda s: NamedSharding(mesh, s), sp, is_leaf=is_p)
+params = jax.tree.map(lambda s, h: SDS(s.shape, s.dtype, sharding=h),
+                      model.init_abstract(), shard)
+state = jax.eval_shape(lambda p: init_train_state(p, opt, mesh), params)
+sh = train_state_shardings(mesh, sp, state)
+state = jax.tree.map(lambda s, h: SDS(s.shape, s.dtype, sharding=h), state, sh)
+bsh = NamedSharding(mesh, P(("pod", "data")))
+batch = {k: SDS((8, 64), jnp.int32, sharding=bsh) for k in ("tokens", "labels")}
+key = jax.eval_shape(lambda: jax.random.key(0))
+step = make_train_step(model.loss, opt, algo, mesh)
+out["mini_flops"] = hlo_cost(step.lower(state, batch, key).compile().as_text()).flops
+print("JSON" + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_dryrun():
+    from conftest import run_with_devices
+
+    return json.loads(run_with_devices(JAX_DRYRUN, 512).split("JSON")[-1])
+
+
+def test_dryrun_memory_trees_equal_jax_shard_bytes(jax_dryrun):
+    """Every arch at every shape on both production meshes: the dry run's
+    per-rank bytes of params and h, of the batch, of the decode cache, its
+    token and position equal JAX's shard bytes exactly, and its params,
+    active params, notes and skips are JAX's.  AdamW's m and v and h_avg
+    keep their own param's shard in the port; JAX lays them out by the
+    first param of their shape (``train_state_shardings``), which differs
+    at qwen2's and qwen2-vl's layer norms (sharded like the same-shaped
+    q bias in JAX): there they equal the own-spec layout of JAX's tree."""
+    from repro_torch.launch import train as tlaunch
+
+    want, differ = jax_dryrun["memory"], set()
+    assert len(jax_dryrun["meta"]) == 80
+    for key, meta in jax_dryrun["meta"].items():
+        arch, shape, mesh = key.split("/")
+        rec = tlaunch.dryrun_one(arch, shape, multi_pod=mesh == "2x16x16",
+                                 execute=False, verbose=False)
+        assert rec["n_devices"] == (512 if mesh == "2x16x16" else 256)
+        assert {k: rec[k] for k in ("note", "params", "active_params")} == \
+            {k: meta[k] for k in ("note", "params", "active_params")}, key
+        assert (rec["status"] == "skipped") == meta["skip"], key
+        if meta["skip"]:
+            continue
+        got = rec["memory"]["trees"]
+        assert set(got) == set(want[key]), key
+        for tree, nbytes in want[key].items():
+            if tree in ("m", "v", "h_avg") and got[tree] != nbytes:
+                differ.add(arch)
+                assert got[tree] == jax_dryrun["own_spec_m"][key], key
+            else:
+                assert got[tree] == nbytes, (key, tree)
+        assert rec["memory"]["argument_size_in_bytes"] == sum(got.values())
+    assert differ == {"qwen2-0.5b", "qwen2-vl-2b"}
+
+
+def test_dryrun_matmul_flops_against_jax_mini_step(jax_dryrun):
+    """JAX's mini dry run (granite-moe smoke, 2x2x4, 8 x 64 tokens): its
+    compiled step's dot flops per device (``hlo.hlo_cost``) against the
+    port's matmul flops per rank.  Without a model axis the port's worker
+    does the work that JAX's GSPMD splits four ways: a quarter of the
+    port's 2x2x1 flops is within 10% of JAX's.  On the 2x2x4 mesh the port
+    runs more: the attention (2 KV heads do not split over 4 ranks) and
+    the experts are gathered on use and computed on every rank, where JAX
+    splits the q/k/v columns and runs one expert a device (its
+    ``_maybe_ep_constraint``), so the port's flops are 3 to 4 times JAX's."""
+    from repro_torch.distributed.aggregate import make_mesh
+    from repro_torch.launch import train as tlaunch
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    shape = tlaunch.ShapeSpec("mini", 64, 8, "train")
+    flops = {}
+    for dims in ((2, 2, 1), (2, 2, 4)):
+        rec = tlaunch.dryrun_one("granite-moe-3b-a800m", shape,
+                                 mesh=make_mesh(dims),
+                                 compressor="block_topk:128,16", config=cfg,
+                                 verbose=False)
+        assert rec["status"] == "ok", rec
+        assert rec["host_reads_skipped"] == {}
+        flops[dims] = rec["roofline"]["flops_per_rank"]
+    jax_flops = jax_dryrun["mini_flops"]
+    print(f"mini dry run: JAX {jax_flops:.0f} dot flops a device; port "
+          f"{flops[(2, 2, 4)]} a rank on 2x2x4, {flops[(2, 2, 1)]} on 2x2x1")
+    assert abs(flops[(2, 2, 1)] / 4 / jax_flops - 1) <= 0.10
+    assert 3 <= flops[(2, 2, 4)] / jax_flops <= 4

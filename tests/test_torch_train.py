@@ -323,10 +323,11 @@ def test_cli_run_leaves_no_tensor_in_reference_cycles(compressor, capsys):
     ["--wire-dtype", "bfloat16"],
     ["--schedule", "wsd"], ["--ckpt-dir", "ckpt"], ["--sanitize"]])
 def test_cli_refuses_unported_flags(flag, capsys):
-    """The JAX driver's flags the port lacks exit with "not yet ported";
-    those ported since (a non-QSGD downlink, per-leaf codecs, a worker
-    fleet, every zoo compressor, bf16/f16 wires, checkpoints, the WSD
-    schedule and the fsdp trainer) parse as JAX's do."""
+    """Every flag of the JAX driver is ported and parses as JAX's does: a
+    non-QSGD downlink, per-leaf codecs, a worker fleet, every zoo
+    compressor, bf16/f16 wires, checkpoints, the WSD schedule, the fsdp
+    trainer and, since the twentieth slice, ``--sanitize``; no flag exits
+    with "not yet ported"."""
     if flag[0] in ("--downlink", "--leaf-codecs", "--worker-comps",
                    "--compressor", "--wire-dtype", "--ckpt-dir",
                    "--ckpt-every", "--schedule", "--trainer"):
@@ -334,9 +335,9 @@ def test_cli_refuses_unported_flags(flag, capsys):
         assert str(getattr(args, flag[0][2:].replace("-", "_"))) == flag[1]
         assert "not yet ported" not in capsys.readouterr().err
         return
-    with pytest.raises(SystemExit):
-        tlaunch.parse_args(["--smoke", "--device", "cpu", *flag])
-    assert "not yet ported" in capsys.readouterr().err
+    args = tlaunch.parse_args(["--smoke", "--device", "cpu", *flag])
+    assert args.sanitize is True
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 # -- the pipelined schedule ---------------------------------------------------
@@ -632,8 +633,8 @@ def test_finetune_loop_matches_jax_loop():
 def test_finetune_cli_flags_equal_jax(capsys):
     """``repro_torch.launch.train finetune`` takes JAX's
     ``launch/finetune.py`` flags with the same defaults and values, and
-    the port's device and process-group flags; ``--sanitize`` is refused
-    as not yet ported, and an unreadable spec with JAX's message."""
+    the port's device and process-group flags, ``--sanitize`` among them,
+    and an unreadable spec exits with JAX's message."""
     spec = os.path.join(SPECS_DIR, "finetune_moe.json")
     extra = {"device": "cuda", "dist_backend": "", "dist_init": ""}
     for argv in (["--spec", spec],
@@ -642,13 +643,11 @@ def test_finetune_cli_flags_equal_jax(capsys):
                   "--eval-every", "2", "--eval-batches", "1",
                   "--log-every", "1", "--heterogeneity", "0.25",
                   "--shard-size", "16", "--processes", "2", "--ckpt-dir",
-                  "ck", "--ckpt-every", "5"]):
+                  "ck", "--ckpt-every", "5"],
+                 ["--spec", spec, "--sanitize"]):
         want = vars(jfinetune.parse_args(argv))
         got = vars(tlaunch.parse_finetune_args(argv))
         assert got == {**want, **extra}
-    with pytest.raises(SystemExit):
-        tlaunch.parse_finetune_args(["--spec", spec, "--sanitize"])
-    assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(SystemExit, match=r"\[finetune\] bad experiment"):
         tlaunch.main(["finetune", "--spec", spec + ".missing"])
 
@@ -663,10 +662,11 @@ from conftest import run_with_devices  # noqa: E402
 #: (spec file, backend, activation dtype) of each 2x2 fine-tune case: the
 #: committed specs on ``"mesh": "2x2", "n": 2``, and the qwen2 one under
 #: the shard_map trainer.  granite-moe runs its smoke config in f32: in
-#: bf16 the two packages' rounding flips routing choices, and its losses
-#: part by up to 2.6e-2 already at 2x1 without a model axis (final 7.4990
-#: vs JAX's 7.5106, eval 7.4548 vs 7.4289), where in f32 they agree within
-#: 1e-6 (7.499927 vs 7.499926)
+#: bf16 the two packages route a near-tied token to other experts (fault
+#: z, measured by ``test_fault_z_moe_bf16_routes_flip_only_at_near_ties``),
+#: and its losses part by up to 2.6e-2 already at 2x1 without a model axis
+#: (final 7.4990 vs JAX's 7.5106, eval 7.4548 vs 7.4289), where in f32
+#: they agree within 1e-6 (7.499927 vs 7.499926)
 LOOP_2X2 = {"finetune_moe": ("finetune_moe", "fsdp", "float32"),
             "zoo_qwen2_fsdp": ("zoo_qwen2_fsdp", "fsdp", "bfloat16"),
             "zoo_qwen2_shard_map": ("zoo_qwen2_fsdp", "shard_map",
@@ -850,3 +850,215 @@ def test_finetune_loop_2x2_refuses_processes_as_jax(processes):
                              tlaunch.FinetuneSettings(**kw),
                              device="cpu").setup()
     assert str(te.value) == str(je.value)
+
+
+# -- sanitize mode (JAX's ``--sanitize``, ``make sanitize-smoke``) ----------
+#
+# The two commands of JAX's ``make sanitize-smoke`` on the CPU: each port run
+# under --sanitize ends with the losses of the same run without it, bit for
+# bit, and with JAX's sanitized run's within the smoke rounds' tolerances
+# (the 2x2 driver's 1.5e-3, bf16's 1e-2 for the finetune command).
+
+SANITIZE_TRAIN = ["--arch", "qwen2-0.5b", "--smoke", "--mesh", "2x2",
+                  "--steps", "2", "--global-batch", "8", "--seq", "32",
+                  "--compressor", "block_topk:256,16", "--agg",
+                  "sparse_allgather"]
+SANITIZE_FINETUNE = ["--spec", os.path.join(SPECS_DIR, "finetune_moe.json"),
+                     "--steps", "2", "--global-batch", "8", "--seq", "32",
+                     "--eval-every", "2"]
+JAX_SANITIZE = f"""
+import contextlib, io, json, os
+from repro.launch import finetune, train
+res = {{}}
+for name, main, argv in (("train", train.main, {SANITIZE_TRAIN!r}),
+                         ("finetune", finetune.main, {SANITIZE_FINETUNE!r})):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv + ["--sanitize"])
+    res[name] = buf.getvalue()
+# jax_debug_nans is on: a NaN put in a param leaf raises at a primitive
+import jax, jax.numpy as jnp
+from repro.configs import get_smoke_config
+from repro.models import build_model
+m = build_model(get_smoke_config("qwen2-0.5b"))
+p = m.init(jax.random.key(0))
+import numpy as np
+wg = np.array(p["layers"]["mlp"]["wg"])
+wg[0, 0, 0] = np.nan
+p["layers"]["mlp"]["wg"] = jnp.asarray(wg)
+batch = {{"tokens": jnp.zeros((2, 16), jnp.int32),
+          "labels": jnp.zeros((2, 16), jnp.int32)}}
+try:
+    jax.jit(jax.value_and_grad(lambda q: m.loss(q, batch)[0]))(p)
+    res["nan"] = "no error"
+except FloatingPointError as e:
+    res["nan"] = str(e).splitlines()[0]
+# JAX's REPRO_SANITIZE=1 does not switch the port's mode
+from repro_torch import kernels
+res["env"] = os.environ.get("REPRO_SANITIZE")
+res["port_active"] = kernels.active()
+print("JSON" + json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_sanitize():
+    """JAX's two sanitize-smoke commands, and an injected NaN under
+    ``jax_debug_nans``, in one process of four fake host devices."""
+    return json.loads(run_with_devices(JAX_SANITIZE, 4).split("JSON")[-1])
+
+
+def _step_lines(text):
+    import re
+
+    return [re.sub(r"\(\S+s/step\)", "", line) for line in text.splitlines()
+            if " loss=" in line]
+
+
+def _sanitize_rank(store, argv):
+    """One rank of the 2x2 train command, as is then under --sanitize
+    (each over its own file store): (final loss, output) of each."""
+    import contextlib
+    import io
+
+    out = []
+    for tag, extra in (("plain", []), ("sanitized", ["--sanitize"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            loss = tlaunch.main(argv + extra + [
+                "--dist-backend", "gloo", "--dist-init",
+                f"file://{store}/{tag}"])
+        out.append((loss, buf.getvalue()))
+    return out
+
+
+def test_sanitize_smoke_train_2x2_matches_plain_and_jax(tmp_path,
+                                                        jax_sanitize):
+    """The train command of ``make sanitize-smoke`` (--mesh 2x2) on four
+    gloo ranks: under --sanitize every rank's losses are the unsanitized
+    run's bitwise, rank 0 says so as JAX's driver does, and its losses are
+    JAX's sanitized run's within the 2x2 driver's 1.5e-3."""
+    from test_torch_model import LOSS_ATOL, _spawn_ranks
+
+    ranks = _spawn_ranks(tmp_path, 4, _sanitize_rank,
+                         SANITIZE_TRAIN + ["--device", "cpu"])
+    for (plain, p_out), (sane, s_out) in ranks:
+        assert float(plain).hex() == float(sane).hex()
+        assert _step_lines(p_out) == _step_lines(s_out)
+    out = ranks[0][1][1]
+    assert "[train] sanitize mode: NaN check" in out
+    losses = [float(x.split("loss=")[1].split()[0])
+              for x in _step_lines(out)]
+    jax_losses = [float(x.split("loss=")[1].split()[0])
+                  for x in _step_lines(jax_sanitize["train"])]
+    assert len(losses) == len(jax_losses) == 2
+    np.testing.assert_allclose(losses, jax_losses, rtol=0, atol=LOSS_ATOL)
+
+
+def test_sanitize_smoke_finetune_matches_plain_and_jax(jax_sanitize,
+                                                       monkeypatch, capsys):
+    """The finetune command of ``make sanitize-smoke`` in one process: the
+    sanitized run's step, final and eval losses are the unsanitized run's
+    bitwise, and JAX's sanitized run's within bf16's 1e-2."""
+    from repro_torch import kernels
+
+    # sanitize mode is this process's from the second run on: undone after
+    monkeypatch.setattr(kernels, "_sanitize", False)
+    monkeypatch.setenv(kernels.SANITIZE_ENV, "0")
+    argv = ["finetune"] + SANITIZE_FINETUNE + ["--device", "cpu"]
+    plain = tlaunch.main(argv)
+    p_out = capsys.readouterr().out
+    sane = tlaunch.main(argv + ["--sanitize"])
+    s_out = capsys.readouterr().out
+    assert kernels.active()
+    assert float(plain).hex() == float(sane).hex()
+    assert _step_lines(p_out) == _step_lines(s_out)
+    assert "[finetune] sanitize mode: NaN check" in s_out
+
+    def final(text):
+        line = [x for x in text.splitlines() if "done: final loss" in x][0]
+        return [float(line.split("final loss ")[1].split()[0]),
+                float(line.split("eval loss ")[1].split()[0])]
+    np.testing.assert_allclose(final(s_out), final(jax_sanitize["finetune"]),
+                               rtol=0, atol=1e-2)
+
+
+def test_sanitize_nan_raises_at_an_op_in_both_packages(jax_sanitize):
+    """A NaN put in a param leaf: JAX's jitted loss and gradient under
+    ``jax_debug_nans`` raise FloatingPointError at a primitive, and the
+    port's sanitized train step (``trainer.sanitized_step``) at the first
+    aten op that made a NaN; JAX's ``REPRO_SANITIZE=1`` leaves the port's
+    mode off."""
+    from repro_torch.core import ExperimentSpec, build
+    from repro_torch.train.trainer import sanitized_step
+
+    assert jax_sanitize["nan"].startswith("invalid value (nan) encountered")
+    assert jax_sanitize["env"] == "1" and jax_sanitize["port_active"] is False
+    cfg = get_smoke_config("qwen2-0.5b")
+    spec = ExperimentSpec(problem="qwen2-0.5b", smoke=True,
+                          backend="shard_map", mesh="2x1", n=2,
+                          compressor="block_topk:256,16",
+                          agg="sparse_allgather", d=tlaunch.tuning_dim(cfg))
+    run_ = build(spec)
+    model = build_model(cfg)
+    params = model.init(R.key(0), device="cpu")
+    opt = adamw(cosine(3e-4, 10, 1))
+    step = sanitized_step(run_.train_step(model.loss, opt))
+    batch = {k: torch.zeros((8, 32), dtype=torch.int64)
+             for k in ("tokens", "labels")}
+    # a clean step raises nothing, and changes nothing
+    state, _ = step(run_.init_state(params, opt), batch, R.key(0))
+    params["layers"]["mlp"]["wg"][0, 0, 0] = float("nan")
+    with pytest.raises(FloatingPointError,
+                       match=r"invalid value \(nan\) encountered in aten\."):
+        step(run_.init_state(params, opt), batch, R.key(0))
+
+
+def test_sanitize_routes_every_wrapper_plain_and_checks_bounds(monkeypatch):
+    """In sanitize mode a kernel wrapper takes its plain version on the
+    card too (``kernels.plain_route``), and an out-of-range rand-k
+    position raises IndexError there, launching nothing; off, the card
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels import pack as tpack
+
+    monkeypatch.setattr(kernels, "_sanitize", False)
+    monkeypatch.setenv(kernels.SANITIZE_ENV, "0")
+    cuda = torch.device("cuda")
+    assert not kernels.active() and not kernels.plain_route(cuda)
+    assert kernels.plain_route(torch.device("cpu"))
+    monkeypatch.setenv(kernels.SANITIZE_ENV, "1")
+    assert kernels.active() and kernels.plain_route(cuda)
+    before = dict(kernels.LAUNCHES)
+    g = torch.arange(100, dtype=torch.float32)
+    for bad in (100, -1):
+        idx = torch.tensor([3, bad, 7], dtype=torch.int32)
+        with pytest.raises(IndexError, match="rand-k positions outside"):
+            tpack.randk_update(g, torch.zeros_like(g), idx, 2.0, 0.5)
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_sanitize_reaches_a_spawned_child():
+    """``kernels.enable`` marks the processes started after it
+    (``REPRO_TORCH_SANITIZE=1``, as ``torchrun`` ranks and ``--processes``
+    workers inherit it); JAX's ``REPRO_SANITIZE=1`` alone does not."""
+    import subprocess
+    import sys
+
+    code = (
+        "import os, subprocess, sys\n"
+        "os.environ['REPRO_SANITIZE'] = '1'\n"
+        "from repro_torch import kernels\n"
+        "print('BEFORE', kernels.active())\n"
+        "kernels.enable()\n"
+        "child = 'from repro_torch import kernels; print(kernels.active())'\n"
+        "print('CHILD', subprocess.run([sys.executable, '-c', child],\n"
+        "      capture_output=True, text=True, check=True).stdout.strip())\n")
+    from repro_torch import kernels
+
+    env = dict(os.environ)
+    env.pop(kernels.SANITIZE_ENV, None)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True).stdout
+    assert "BEFORE False" in out and "CHILD True" in out
