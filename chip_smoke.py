@@ -50,7 +50,15 @@ line is printed only when every phase passed):
               worker sum's device time by the profiler at (1000, 112); a
               plain version above 2**24 values is not timed); the stable
               sorts of the batched compressors with forced ties, card ==
-              CPU == numpy.  The threefry draw's SASS per value: all
+              CPU == numpy.  The row shuffle (``shuffle_rows``: every sort
+              round of ``permutation_rows``/``choice_rows`` and the cut in
+              one launch) bitwise against its plain version at the
+              reference's shapes, rows of 1-3 values, 1625/1626 (one and
+              two rounds), 16384/16385 (both routes of ``shuffle_plan``),
+              one row and 65,539 rows, and card == CPU; timed at its
+              SHUFFLE_TIMED shapes beside the sequence it replaced and
+              ``argsort(rand)`` (not bit-equal), its bound from its SASS.
+              The threefry draw's SASS per value: all
               instructions, the integer pipe's, the FMA pipe's IMADs.
 3. reference -- JAX's initial weights (``Model.init(random.key(0))``,
               XLA's f32 erf_inv emulated) of the smoke config drawn on the
@@ -114,9 +122,9 @@ line is printed only when every phase passed):
               finite and descending, with the seconds each took.  Only
               rounds are timed in (a)-(c): each problem is drawn, f* solved
               and the stepsize tuned before the timer.  Its launches (the
-              problems' threefry draws, one row draw per shuffle round and
-              one worker sum a round, none of it growing with n) are a
-              main path's, ``reference``.
+              problems' threefry draws, one row shuffle -- every sort
+              round and the cut -- and one worker sum a round, none of it
+              growing with n) are a main path's, ``reference``.
 4. main paths -- the driver's ``setup`` and loop (``train.train_loop``),
               as ``repro_torch.launch.train.main`` runs them in one
               process, at the full width and depth of qwen2-0.5b, 2 workers, 3 steps, sparse all-gather
@@ -552,11 +560,12 @@ def phase_kernels():
     section(kernels_permutation)
     dense_rows = section(kernels_dense)
     rows_rows = section(kernels_rows)
+    shuffle_row = section(kernels_shuffle)
     print("[kernels] seconds by section: " + " ".join(
         f"{k}={v:.1f}" for k, v in secs.items()))
     return {"pack_update": pack_row, "qsgd_pack_update": qsgd_row,
             "randk_update": randk_row, "threefry_uniform": threefry_row,
-            **dense_rows, **rows_rows}
+            **dense_rows, **rows_rows, "shuffle_rows": shuffle_row}
 
 
 def bulk_store_sass():
@@ -1306,8 +1315,8 @@ def kernels_rows():
     one at ROWS_MAIN and SUM_MAIN.  Then the stable sorts the batched
     compressors stand on, card against CPU and numpy with forced ties:
     ``random.stable_order`` (the shuffle's sort as uint32) and
-    ``ref.topk_rows`` (top-k's tie order), and ``random.permutation_rows``
-    card against CPU."""
+    ``ref.topk_rows`` (top-k's tie order); ``random.permutation_rows`` card
+    against CPU is :func:`kernels_shuffle`'s."""
     import numpy as np
 
     from repro_torch import random
@@ -1457,18 +1466,232 @@ def kernels_rows():
         print(f"[kernels] stable sorts ({n}, {m}) with {top}-valued ties: "
               "stable_order card == CPU == numpy stable argsort, topk_rows "
               "card == CPU")
-    for n, m in ((1000, 56), (1000, 112), (16, 2**20)):
-        keys = random.split(random.key(m), n)
-        gpu = random.permutation_rows(keys, m, "cuda").cpu()
-        cpu = random.permutation_rows(keys, m, "cpu")
-        if not torch.equal(gpu, cpu):
-            raise AssertionError(f"[kernels] permutation_rows ({n}, {m}): "
-                                 "card != CPU")
-        print(f"[kernels] permutation_rows ({n}, {m}) rounds="
-              f"{random.shuffle_rounds(m)}: card == CPU bitwise")
     lap("sorts")
     print("[kernels] rows seconds: " + " ".join(f"{k}={v:.1f}"
                                                 for k, v in secs.items()))
+    return timing
+
+
+#: the row shuffle's cases beyond the reference's own shapes (MAIN_NS x
+#: MAIN_MS, k in 1, 2 and m): rows of 1, 2 and 3 values (0 and 1 rounds),
+#: one round's widest row (1625) and two rounds' narrowest (1626), the
+#: fused route's widest row and the first past it (the sorts route), one
+#: row, and 65,536 + 3 rows (the grid's rows loop)
+SHUFFLE_CASES = ((16, 1, 1), (16, 2, 2), (16, 2, 1), (16, 3, 3), (16, 3, 1),
+                 (16, 1625, 1625), (16, 1625, 7), (16, 1626, 1626),
+                 (16, 1626, 3), (4, 16384, 16384), (4, 16384, 2),
+                 (4, 16385, 16385), (4, 16385, 5), (1, 56, 1), (1, 56, 56),
+                 (65539, 56, 1), (65539, 34, 34))
+#: the shuffle's timed shapes: the committed spec's comp-(2, 32) at n = 16,
+#: Figure 2's comp-(1, 34) and comp-(1, 56) at n = 1000 (the JSON line's)
+SHUFFLE_TIMED = ((16, 32, 2), (1000, 34, 1), (1000, 56, 1))
+
+
+def check_shuffle_rows(n, m, k, dev):
+    """``threefry.shuffle_rows`` at (n, m, k) on the card against its plain
+    version, bitwise, on the subkeys ``permutation_rows`` copies; the
+    launch must take the plan's route (one ``shuffle_rows`` launch up to
+    SHUFFLE_MAX_M, a ``threefry_rows`` launch a round above).  Returns the
+    route."""
+    from repro_torch import random
+    from repro_torch.kernels import LAUNCHES, ref, threefry
+
+    keys = random.split(random.fold_in(random.key(9), 7 * n + m), n)
+    sub, _ = random._shuffle_keys(keys, m, dev)
+    before = dict(LAUNCHES)
+    got = threefry.shuffle_rows(sub, n, m, k)
+    torch.cuda.synchronize()
+    route = threefry.shuffle_plan(m)
+    rounds = random.shuffle_rounds(m)
+    took = {key: LAUNCHES[key] - before[key]
+            for key in ("shuffle_rows", "threefry_rows")}
+    want_took = {"shuffle_rows": int(route == "fused"),
+                 "threefry_rows": 0 if route == "fused" else rounds}
+    want = ref.shuffle_rows_ref(sub, n, m, k)
+    if not (torch.equal(got, want) and took == want_took):
+        raise AssertionError(f"[kernels] shuffle_rows ({n}, {m}, {k}) "
+                             f"route {route}: kernel != plain or launches "
+                             f"{took} != {want_took}")
+    return route
+
+
+def shuffle_sass():
+    """(instructions a drawn key, a compare-exchange, a value permuted) in
+    the row shuffle kernel's innermost loops (cuobjdump): the draw's holds
+    the threefry rounds' 20 funnel shifts (SHF.L.W) and stores its key
+    (STS.64); a compare-exchange's loads two keys (LDS.64); the permute's
+    two move x through the key slots (LDS and STS, no LDS.64)."""
+    (insts,) = sass_functions("threefry", "threefry_shuffle_rows_kernel")
+    loops = sass_loops(insts)
+    inner = [b for s, e, b in loops
+             if not any((s2, e2) != (s, e) and s <= s2 and e2 <= e
+                        for s2, e2, _ in loops)]
+
+    def count(body, op):
+        return sum(o == op for o in body)
+
+    def rotates(body):
+        return sum(o.startswith("SHF.L.W") for o in body)
+
+    draw = [len(b) / count(b, "STS.64") for b in inner
+            if rotates(b) >= 20 and count(b, "STS.64")]
+    cmpx = [len(b) / (count(b, "LDS.64") / 2) for b in inner
+            if count(b, "LDS.64") >= 2 and not rotates(b)]
+    perm = [len(b) for b in inner if not count(b, "LDS.64")
+            and not rotates(b) and any(o.startswith("LDS") for o in b)
+            and any(o.startswith("STS") for o in b)]
+    if not (draw and cmpx and perm):
+        raise AssertionError(f"[kernels] shuffle_rows SASS: loops not "
+                             f"found (draw {draw}, network {cmpx}, "
+                             f"permute {perm})")
+    return min(draw), min(cmpx), sum(perm)
+
+
+#: a compare of two distinct 64-bit keys: the least SASS it takes, the low
+#: words' ISETP and the high words' ISETP.EX
+KEY_COMPARE_SASS = 2
+#: a value moved from one round's order to the next: a load and a store
+VALUE_MOVE_SASS = 2
+
+
+def shuffle_work(n, m, k, sass):
+    """(thread instructions, bytes) that one shuffle of (n, m) cut to k
+    needs, whatever the algorithm: each round m draws at the kernel's SASS
+    a drawn key (``sass[0]``: the threefry rounds, the least a word
+    takes); every round but the last a comparison sort, log2(m!) compares,
+    and a move of every value; the last round only the k smallest in
+    order, max(m - 1, log2(m! / (m - k)!)) compares (the minimum alone
+    needs m - 1), and no move; KEY_COMPARE_SASS a compare.  Bytes: the
+    keys read (8 B a row a round) and the k columns written."""
+    from repro_torch import random
+
+    rounds = random.shuffle_rounds(m)
+    log2_fact = math.lgamma(m + 1) / math.log(2)
+    select = max(m - 1, log2_fact - math.lgamma(m - k + 1) / math.log(2))
+    compares = (rounds - 1) * log2_fact + (select if rounds else 0)
+    per_row = (sass[0] * m * rounds + KEY_COMPARE_SASS * compares
+               + VALUE_MOVE_SASS * m * max(rounds - 1, 0))
+    return n * per_row, 8 * rounds * n + 4 * n * k
+
+
+def network_work(n, m, k, sass):
+    """(thread instructions, bytes) of the kernel's own algorithm, for
+    comparison with :func:`shuffle_work`: each round a draw and a permute
+    of every value and the bitonic network's (p / 2) log p (log p + 1) / 2
+    compare-exchanges over the padded power of two p, at the SASS counts
+    ``sass``; the same bytes."""
+    from repro_torch import random
+
+    rounds = random.shuffle_rounds(m)
+    lg = max(m - 1, 0).bit_length()
+    stages = lg * (lg + 1) // 2
+    draw, cmpx, perm = sass
+    per_row = (draw + perm) * m + cmpx * (2 ** lg // 2) * stages
+    return n * rounds * per_row, 8 * rounds * n + 4 * n * k
+
+
+def kernels_shuffle():
+    """The row shuffle (``threefry.shuffle_rows``: every sort round of
+    ``permutation_rows``/``choice_rows`` and the cut in one launch) bitwise
+    against its plain version on the card at the reference's shapes
+    (MAIN_NS x MAIN_MS, k in 1, 2 and m) and SHUFFLE_CASES, both routes of
+    ``shuffle_plan``; then
+    ``permutation_rows``/``choice_rows`` card against CPU; then, at
+    SHUFFLE_TIMED, the wrapper (CUDA events), the kernel's device time
+    (profiler), the plain version, the sequence it replaced (a row draw,
+    ``stable_order`` and ``gather`` a round, the cut) and a yardstick that
+    is several calls and not bit-equal (``argsort`` of ``torch.rand``),
+    beside the bound from the function's work (:func:`shuffle_work`) and,
+    for comparison, the kernel's network's count (:func:`network_work`)."""
+    from repro_torch import random
+    from repro_torch.kernels import ref, threefry
+
+    dev = torch.device("cuda")
+    sass = shuffle_sass()
+    cases = sorted({(n, m, k) for n in MAIN_NS for m in MAIN_MS
+                    for k in (1, 2, m)} | set(SHUFFLE_CASES))
+    routes = collections.Counter(check_shuffle_rows(n, m, k, dev)
+                                 for n, m, k in cases)
+    torch.cuda.empty_cache()
+    print(f"[kernels] shuffle_rows (n, m, k) in {cases}: bitwise == plain, "
+          f"by route {dict(routes)} (fused up to m = "
+          f"{threefry.SHUFFLE_MAX_M})")
+    if set(routes) != {"fused", "sorts"}:
+        raise AssertionError(f"[kernels] shuffle_rows routes {routes}")
+    # the plan owns the switch; the launcher refuses only a row that does
+    # not fit a block's shared memory, which the first row past the plan's
+    # limit does not
+    from repro_torch.kernels import build
+
+    over = threefry.SHUFFLE_MAX_M + 1
+    sub, _ = random._shuffle_keys(random.split(random.key(3), 2), over, dev)
+    out = torch.empty((2, 1), dtype=torch.int32, device=dev)
+    err = build.launch(build.load("threefry").threefry_shuffle_rows, dev,
+                       sub.data_ptr(), 2, over, 1,
+                       random.shuffle_rounds(over), out.data_ptr())
+    if err != 1:  # cudaErrorInvalidValue
+        raise AssertionError(f"[kernels] shuffle_rows launcher at m = "
+                             f"{over}: cudaError {err}, want 1 (the row "
+                             "past the plan's limit does not fit)")
+    print(f"[kernels] shuffle_rows launcher refuses m = {over} "
+          "(cudaErrorInvalidValue: 8 B a padded slot and 4 B a value exceed "
+          "a block's shared memory), the first row the plan sends to the "
+          "sorts route")
+    for n, m, k in ((1000, 56, 1), (1000, 34, 1), (16, 32, 2),
+                    (1000, 112, 112), (16, 16385, 4), (16, 2**20, 2**20)):
+        keys = random.split(random.key(m + 1), n)
+        gpu = random.choice_rows(keys, m, k, "cuda").cpu()
+        cpu = random.choice_rows(keys, m, k, "cpu")
+        perm = k == m and torch.equal(
+            random.permutation_rows(keys, m, "cuda").cpu(), cpu)
+        if not torch.equal(gpu, cpu) or (k == m and not perm):
+            raise AssertionError(f"[kernels] choice_rows/permutation_rows "
+                                 f"({n}, {m}, {k}): card != CPU")
+        print(f"[kernels] choice_rows ({n}, {m}, {k})"
+              + (" and permutation_rows" if k == m else "")
+              + f" rounds={random.shuffle_rounds(m)} route "
+              f"{threefry.shuffle_plan(m)}: card == CPU bitwise")
+    timing = None
+    for n, m, k in SHUFFLE_TIMED:
+        sub, _ = random._shuffle_keys(random.split(random.key(n), n), m,
+                                      dev)
+        k_ms = timed_ms(lambda: threefry.shuffle_rows(sub, n, m, k))
+        dev_us = device_us(lambda: threefry.shuffle_rows(sub, n, m, k),
+                           "shuffle_rows")
+        p_ms = timed_ms(lambda: ref.shuffle_rows_ref(sub, n, m, k), reps=5)
+        s_ms = timed_ms(lambda: random.shuffle_by_sorts(
+            sub, n, m, k, threefry.threefry_rows))
+        s_us = device_us(lambda: random.shuffle_by_sorts(
+            sub, n, m, k, threefry.threefry_rows), "")
+        y_ms = timed_ms(lambda: torch.argsort(
+            torch.rand((n, m), device=dev), dim=1)[:, :k])
+        bounds = []
+        for work in (shuffle_work, network_work):
+            ops, nbytes = work(n, m, k, sass)
+            t_ops, t_bytes = (ops / H100_ISSUE_PER_S,
+                              nbytes / H100_BYTES_PER_S)
+            bounds.append((max(t_ops, t_bytes) * 1e3,
+                           "bytes" if t_bytes >= t_ops else "operations",
+                           ops / (n * random.shuffle_rounds(m) * m)))
+        (b_ms, by, per_value), (n_ms, _, n_value) = bounds
+        print(f"[kernels] shuffle_rows n={n} m={m} k={k}: kernel_ms="
+              f"{k_ms:.4f} (wrapper, CUDA events) device_us={dev_us:.2f} "
+              f"(profiler, 50 calls) plain_ms={p_ms:.4f} "
+              f"sequence_ms={s_ms:.4f} sequence_device_us={s_us:.2f} (row "
+              f"draw, stable_order, gather, cut) argsort_rand_ms={y_ms:.4f} "
+              f"(not one call, not bit-equal) bound_ms={b_ms:.6f} ({by}; "
+              f"the function's work, {per_value:.1f} SASS instructions a "
+              f"value a round) network_bound_ms={n_ms:.6f} (the kernel's "
+              f"bitonic network's count, {n_value:.1f} a value a round) "
+              f"[{SMI}]")
+        if (n, m) == ROWS_MAIN:
+            timing = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": by, "max_abs_err": 0.0,
+                      "library_ms": None, "yardstick_ms": y_ms,
+                      "device_us": dev_us, "sequence_ms": s_ms}
+    print(f"[kernels] shuffle_rows SASS: {sass[0]:.2f} instructions a "
+          f"drawn key, {sass[1]:.2f} a compare-exchange, {sass[2]:.2f} a "
+          "value permuted (the two permute loops)")
     return timing
 
 
@@ -2427,11 +2650,15 @@ def _bits_equal(a, b):
 
 def round_launches(comp, rounds):
     """Launches of ``rounds`` reference rounds of a comp-(k, k') run on one
-    f32 leaf: each round one row draw per shuffle round over k' (for all
-    n workers at once) and one ordered worker sum with the master update
+    f32 leaf: each round one row shuffle of k' (every sort round, for all
+    n workers at once; a row draw per sort round where k' is wider than the
+    fused kernel takes) and one ordered worker sum with the master update
     fused; none of it depends on n."""
     from repro_torch import random
+    from repro_torch.kernels import threefry
 
+    if threefry.shuffle_plan(comp.kp) == "fused":
+        return {"shuffle_rows": rounds, "worker_sum": rounds}
     return {"threefry_rows": rounds * random.shuffle_rounds(comp.kp),
             "worker_sum": rounds}
 
@@ -2500,21 +2727,30 @@ def profile_reference_round(frun, fprob, gamma, f_star):
             f" host-to-device copies in {PROFILE_ROUNDS} rounds, want "
             f"some launches and at most {PROFILE_MAX_LAUNCHES} and "
             f"{PROFILE_MAX_COPIES} a round")
+    return launches / PROFILE_ROUNDS, copies / PROFILE_ROUNDS
 
 
 def recording_kernel_shapes():
-    """Wrap the row draw's and the worker sum's wrappers so that every call
-    on the card notes its shape (and as_float; weights, order, fusion).
-    Returns (the notes, a function that restores the wrappers)."""
+    """Wrap the row draw's, the row shuffle's and the worker sum's wrappers
+    so that every call on the card notes its shape (and as_float; the cut
+    k; weights, order, fusion).  Returns (the notes, a function that
+    restores the wrappers)."""
     from repro_torch.kernels import ops, threefry
 
-    seen = {"threefry_rows": set(), "worker_sum": set()}
-    rows, wsum = threefry.threefry_rows, ops.worker_sum
+    seen = {"threefry_rows": set(), "shuffle_rows": set(),
+            "worker_sum": set()}
+    rows, shuffle, wsum = (threefry.threefry_rows, threefry.shuffle_rows,
+                           ops.worker_sum)
 
     def rows_noted(keys, m, as_float):
         if keys.is_cuda:
             seen["threefry_rows"].add((keys.shape[0], m, bool(as_float)))
         return rows(keys, m, as_float)
+
+    def shuffle_noted(keys, n, m, k):
+        if keys.is_cuda:
+            seen["shuffle_rows"].add((n, m, k))
+        return shuffle(keys, n, m, k)
 
     def sum_noted(d, weights=None, h=None, c_g=0.0, c_h=0.0,
                   order="reduce"):
@@ -2527,29 +2763,34 @@ def recording_kernel_shapes():
         return wsum(d, weights, h, c_g, c_h, order)
 
     def restore():
-        threefry.threefry_rows, ops.worker_sum = rows, wsum
+        threefry.threefry_rows, threefry.shuffle_rows, ops.worker_sum = \
+            rows, shuffle, wsum
 
-    threefry.threefry_rows, ops.worker_sum = rows_noted, sum_noted
+    threefry.threefry_rows, threefry.shuffle_rows, ops.worker_sum = \
+        rows_noted, shuffle_noted, sum_noted
     return seen, restore
 
 
 def check_main_shapes(seen):
-    """Each (shape, form) the main path gave the two reference kernels,
-    held bitwise against its plain version on the card on fresh data of
-    that shape (after the launch counts are read)."""
+    """Each (shape, form) the main path gave the reference kernels, held
+    bitwise against its plain version on the card on fresh data of that
+    shape (after the launch counts are read)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(7)
     dgen = torch.Generator(device="cuda").manual_seed(7)
     for n, m, as_float in sorted(seen["threefry_rows"]):
         check_threefry_rows(n, m, as_float, dev)
+    for n, m, k in sorted(seen["shuffle_rows"]):
+        check_shuffle_rows(n, m, k, dev)
     for n, cols, kind, order, fuse in sorted(seen["worker_sum"], key=str):
         check_worker_sum(n, cols, kind, order, fuse, gen, dev, dgen)
     torch.cuda.empty_cache()
     print(f"[reference-spec] the main path's own shapes, each bitwise == "
           f"plain on the card: threefry_rows (n, m, as_float) "
-          f"{sorted(seen['threefry_rows'])}; worker_sum (n, cols, weights, "
+          f"{sorted(seen['threefry_rows'])}; shuffle_rows (n, m, k) "
+          f"{sorted(seen['shuffle_rows'])}; worker_sum (n, cols, weights, "
           f"order, fused) {sorted(seen['worker_sum'], key=str)}")
-    if not (seen["threefry_rows"] and seen["worker_sum"]):
+    if not (seen["shuffle_rows"] and seen["worker_sum"]):
         raise AssertionError("[reference-spec] the main path gave a "
                              f"reference kernel no call: {seen}")
 
@@ -2617,13 +2858,14 @@ def phase_reference_spec():
     run profiled (``profile_reference_round``); (d) the paper's
     experiments at their fast setting (``paper_runs``).  The workers run
     batched, so a round's launches do not grow with n: each round one row
-    draw per shuffle round of comp's positions (``threefry_rows``) and one
-    ordered worker sum (``worker_sum``); ``threefry_uniform`` draws only
-    the problems.  Launch counts are reset just before and read just
-    after (the profiled run is not counted); only the card's runs launch.
-    Every shape the runs give the two kernels is noted and, after the
-    counts are read, held bitwise against the plain version
-    (``check_main_shapes``)."""
+    shuffle of comp's positions (``shuffle_rows``: every sort round and
+    the cut) and one ordered worker sum (``worker_sum``);
+    ``threefry_uniform`` draws only the problems.  Launch counts are reset
+    just before and read just after (the profiled run is not counted);
+    only the card's runs launch.  Every shape the runs give the kernels is
+    noted and, after the counts are read, held bitwise against the plain
+    version (``check_main_shapes``).  A line sums up a round: launches and
+    key copies (the profile), ms at n = 16 (a) and n = 1000 (c)."""
     from repro_torch.core import ExperimentSpec, build
 
     text = REFERENCE_SPEC.read_text()
@@ -2660,8 +2902,10 @@ def reference_spec_runs(run, spec):
     want = {}
     # (a) the spec verbatim, card and CPU
     gaps, runs = {}, {}
+    round_ms = {}
     for dev in ("cuda", "cpu"):
         res, ms, prob, f_star = reference_case(run, dev)
+        round_ms[spec.n, dev] = ms
         f0 = float(prob.f(torch.zeros(spec.d, device=dev)) - f_star)
         gaps[dev] = [f0] + [float(res.metrics[t - 1]) for t in (100, 500)]
         runs[dev] = res
@@ -2716,6 +2960,7 @@ def reference_spec_runs(run, spec):
         curves = {}
         for dev in ("cuda", "cpu"):
             res, ms, _, f_star = reference_case(frun, dev, prob=probs[dev])
+            round_ms[FIG2["n"], dev, mode] = ms
             f0 = float(probs[dev].f(torch.zeros(FIG2["d"], device=dev))
                        - f_star)
             curves[dev] = res.metrics.cpu()
@@ -2744,7 +2989,8 @@ def reference_spec_runs(run, spec):
                                           FIG2["steps"]))
         if mode == "efbv":
             saved = dict(LAUNCHES)
-            profile_reference_round(frun, probs["cuda"], gamma_c, f_star_c)
+            per_round = profile_reference_round(frun, probs["cuda"],
+                                                gamma_c, f_star_c)
             torch.cuda.synchronize()
             LAUNCHES.update(saved)
     torch.cuda.synchronize()
@@ -2753,6 +2999,12 @@ def reference_spec_runs(run, spec):
           f"{ {k: LAUNCHES[k] - before[k] for k in LAUNCHES} } (a loop "
           f"over the workers would launch threefry_uniform n x rounds = "
           f"{2 * FIG2['n'] * FIG2['steps']})")
+    print(f"[reference-spec] a round on the card: {per_round[0]:.1f} "
+          f"launches and {per_round[1]:.1f} key copies (profiled, n = "
+          f"{FIG2['n']}); {round_ms[spec.n, 'cuda']:.3f} ms at n = {spec.n} "
+          f"(a), {round_ms[FIG2['n'], 'cuda', 'efbv']:.3f} ms EF-BV and "
+          f"{round_ms[FIG2['n'], 'cuda', 'ef21']:.3f} ms EF21 at n = "
+          f"{FIG2['n']} (c) [{SMI}]")
     # (d) the paper at its fast setting
     paper_runs(want)
     torch.cuda.synchronize()
@@ -2944,7 +3196,7 @@ def params_checksum(params):
     return f"{s:016x}"
 
 
-def layout_sum(tree, shards=None, replica=False):
+def layout_sum(tree, shards=None, replica=False, slots=False):
     """A checksum of a master tree's bits that sums over the ranks' parts:
     for each leaf j, the sum of its 32-bit words times (1 + the word's
     flat index in the logical leaf mod 65521), weighted by j + 1, all mod
@@ -2953,7 +3205,8 @@ def layout_sum(tree, shards=None, replica=False):
     (the model spec's, the fsdp dim, or both); a leaf that an axis does
     not split counts on that axis's rank 0 only, and a ``replica`` (a
     mesh rank of a worker group other than the first, whose shards repeat
-    the first's) counts nowhere.  Without shards, the whole tree."""
+    the first's) counts nowhere; ``slots`` (m, v, h_avg) places them by
+    their own layout (``slot_dims``).  Without shards, the whole tree."""
     from repro_torch import tree as T
 
     if replica:
@@ -2963,9 +3216,11 @@ def layout_sum(tree, shards=None, replica=False):
         fsdp = not shards.shards_worker_state
         model = shards.model if fsdp else shards
         if model is not None:
-            cuts.append((model.dims, model.axis))
+            cuts.append((model.slot_dims if slots else model.dims,
+                         model.axis))
         if fsdp:
-            cuts.append((shards.dims, shards.axis))
+            cuts.append((shards.slot_dims if slots else shards.dims,
+                         shards.axis))
     total = 0
     for j, x in enumerate(T.leaves(tree)):
         shape = tuple(x.shape) if shards is None else shards.shape(j)
@@ -3069,7 +3324,8 @@ def recording(records, holder=None, layout=False):
                 trees = {"params": state.params, "w": state.w,
                          "h_avg": state.h_avg, "m": state.opt_state["m"],
                          "v": state.opt_state["v"]}
-                rec["layout"] = {k: layout_sum(trees[k], shards, replica)
+                rec["layout"] = {k: layout_sum(trees[k], shards, replica,
+                                               slots=k in SLOT_TREES)
                                  for k in LAYOUT_TREES}
             records.append(rec)
             if holder is not None:
@@ -3185,18 +3441,26 @@ def mesh_path_child(name, outdir, rank):
     # every master tree holds this rank's shards, never a whole leaf that
     # the specs shard: its bytes, counted leaf by leaf, against the
     # shards' and the logical tree's
+    from repro_torch.distributed import wire
+
     want = sum(4 * math.prod(shards.shard_shape(j))
                for j in range(len(shards.dims)))
+    # m, v and h_avg: JAX's layout (each leaf as the first of its shape)
+    slots = sum(4 * math.prod(shards.slot_shape(j))
+                for j in range(len(shards.dims)))
     logical = sum(4 * math.prod(shards.shape(j))
                   for j in range(len(shards.dims)))
     trees = {"params": st.params, "w": st.w, "h_avg": st.h_avg,
              "m": st.opt_state["m"], "v": st.opt_state["v"]}
     resident = {k: sum(x.numel() * x.element_size() for x in T.leaves(t))
                 for k, t in trees.items() if t is not None}
-    print(f"[dist] resident {json.dumps(resident)} shards {want} "
-          f"logical {logical} sharded_leaves "
+    paths = wire.leaf_paths(shards.logical)
+    moved = [paths[j] for j in range(len(paths)) if not shards.same_slot(j)]
+    print(f"[dist] resident {json.dumps(resident)} shards {want} slots "
+          f"{slots} logical {logical} sharded_leaves "
           f"{sum(d is not None for d in shards.dims)} of "
           f"{len(shards.dims)}")
+    print(f"[dist] slots moved {json.dumps(moved)}")
     # a worker's h_i: its model shards, under fsdp as on the mesh
     fsdp = not shards.shards_worker_state
     model = shards.model if fsdp else shards
@@ -3538,6 +3802,9 @@ DIST_PATHS["dist_fsdp"] = {
 }
 #: the master trees whose fsdp shards dist_fsdp holds against smoke_flags
 LAYOUT_TREES = ("params", "w", "h_avg", "m", "v")
+#: the master trees laid out as JAX's ``spec_for`` lays them out, each leaf
+#: as the first leaf of its shape (``ModelShards.slot_of``)
+SLOT_TREES = ("h_avg", "m", "v")
 MASK64 = (1 << 64) - 1
 
 
@@ -4573,10 +4840,13 @@ def phase_mesh(name):
         recs = json.loads(re.search(r"\[dist\] records (.*)", log)[1])
         launches = json.loads(re.search(r"\[dist\] launches (.*)", log)[1])
         peak = float(re.search(r"\[dist\] peak_gib (\S+)", log)[1])
-        res = re.search(r"\[dist\] resident (\{.*\}) shards (\d+) logical "
-                        r"(\d+) sharded_leaves (\d+) of (\d+)", log)
+        res = re.search(r"\[dist\] resident (\{.*\}) shards (\d+) slots "
+                        r"(\d+) logical (\d+) sharded_leaves (\d+) of "
+                        r"(\d+)", log)
         resident = json.loads(res[1])
-        shard_bytes, logical = int(res[2]), int(res[3])
+        shard_bytes, slot_bytes, logical = (int(res[2]), int(res[3]),
+                                            int(res[4]))
+        moved = json.loads(re.search(r"\[dist\] slots moved (.*)", log)[1])
         losses = [float.fromhex(a["loss"]) for a in recs]
         norms = [a["grad_norm"] for a in recs]
         if len(losses) != STEPS or not all(map(math.isfinite,
@@ -4592,11 +4862,13 @@ def phase_mesh(name):
         if launches != expect:
             raise AssertionError(f"[main] {name} rank {r}: launches "
                                  f"{launches}, want {expect}")
-        if any(v != shard_bytes for v in resident.values()) or \
-                not shard_bytes < logical:
+        # params and w in their shards, m, v and h_avg in JAX's layout
+        if any(v != (slot_bytes if k in SLOT_TREES else shard_bytes)
+               for k, v in resident.items()) or \
+                not max(shard_bytes, slot_bytes) < logical:
             raise AssertionError(f"[main] {name} rank {r}: resident "
-                                 f"{resident}, shards {shard_bytes}, "
-                                 f"logical {logical}")
+                                 f"{resident}, shards {shard_bytes}, slots "
+                                 f"{slot_bytes}, logical {logical}")
         h = re.search(r"\[dist\] h (\S+) model_shards (\S+)", log)
         if h[2] != "True":
             raise AssertionError(f"[main] {name} rank {r}: h does not hold "
@@ -4607,8 +4879,10 @@ def phase_mesh(name):
         print(f"[main] {name} rank {r} (worker {r // m}, model {r % m}): "
               f"losses={losses} (one process {one}) grad_norm={norms} "
               f"launches={launches}; resident bytes by tree {resident} = "
-              f"its shards' {shard_bytes} of the logical {logical} "
-              f"({res[4]} of {res[5]} leaves sharded)")
+              f"its shards' {shard_bytes} (params, w) and JAX's spec_for "
+              f"layout's {slot_bytes} (m, v, h_avg; moved {moved}) of the "
+              f"logical {logical} ({res[5]} of {res[6]} leaves sharded) "
+              f"[{SMI}]")
         print(f"[profile] {name} rank {r}: step_ms="
               f"{[a['step_ms'] for a in recs]} model_axis_host_ms="
               f"{[a['model_ms'] for a in recs]} model_axis_calls="
@@ -4664,12 +4938,14 @@ def npz_params(ckpt):
         return {k: f[k] for k in f.files if k.startswith("params|")}
 
 
-def fsdp_part_bytes(arch, layers, shape):
+def fsdp_part_bytes(arch, layers, shape, slots=False):
     """Each rank's bytes of one f32 master tree under fsdp on a mesh of
     ``shape``, from the specs alone: every leaf's dims divided by the
     axes that its fsdp spec (``fsdp_specs`` over the model's
     ``param_specs``) names, the worker axes by the worker count and
-    ``model`` by the model axis."""
+    ``model`` by the model axis; with ``slots`` (m, v, h_avg) each leaf
+    by the fsdp spec of the first leaf of its shape (JAX's ``spec_for``
+    in ``fsdp_state_shardings``)."""
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.distributed.aggregate import make_mesh
@@ -4681,7 +4957,7 @@ def fsdp_part_bytes(arch, layers, shape):
                                             n_layers=layers))
     mesh = make_mesh(shape)
     logical = model.init_abstract()
-    total = 0
+    parts = []
     for leaf, spec in zip(T.leaves(logical), T.leaves(fsdp_specs(
             mesh, model.param_specs(), logical), is_leaf=is_spec)):
         part = list(leaf.shape)
@@ -4689,8 +4965,11 @@ def fsdp_part_bytes(arch, layers, shape):
             for a in (entry if isinstance(entry, tuple) else (entry,)):
                 if a is not None:
                     part[i] //= mesh.shape[a]
-        total += 4 * math.prod(part)
-    return total
+        parts.append(4 * math.prod(part))
+    if slots:
+        shapes = [tuple(x.shape) for x in T.leaves(logical)]
+        parts = [parts[shapes.index(s)] for s in shapes]
+    return sum(parts)
 
 
 def fsdp_mesh_check(name, logs, records):
@@ -4732,18 +5011,25 @@ def fsdp_mesh_check(name, logs, records):
     if bad or mine.keys() != theirs.keys():
         raise AssertionError(f"[main] {name}: checkpoint differs from "
                              f"{base}'s at {bad[:4]}")
-    part = fsdp_part_bytes(path["arch"], path["layers"],
-                           (path["workers"], path["m"]))
+    mesh_dims = (path["workers"], path["m"])
+    part = fsdp_part_bytes(path["arch"], path["layers"], mesh_dims)
+    slot = fsdp_part_bytes(path["arch"], path["layers"], mesh_dims,
+                           slots=True)
     for r, log in enumerate(logs):
         resident = json.loads(re.search(r"\[dist\] resident (\{.*\}) ",
                                         log)[1])
         bres = json.loads(re.search(r"\[dist\] resident (\{.*\}) ",
                                     blogs[r])[1])
+        moved = re.search(r"\[dist\] slots moved (.*)", log)[1]
         print(f"[main] {name} rank {r}: resident bytes by tree {resident} "
-              f"(the fsdp-on-model specs' part: {part}; {base}: {bres})")
-        if any(v != part for v in resident.values()):
+              f"(the fsdp-on-model specs' part: {part} for params and w, "
+              f"{slot} for m, v and h_avg by JAX's spec_for, moved "
+              f"{moved}; {base}: {bres}) [{SMI}]")
+        if any(v != (slot if k in SLOT_TREES else part)
+               for k, v in resident.items()):
             raise AssertionError(f"[main] {name} rank {r}: resident "
-                                 f"{resident}, want {part} a tree")
+                                 f"{resident}, want {part} a tree, {slot} "
+                                 f"for {SLOT_TREES}")
     dims = re.search(r"\[dist\] fsdp_dims (.*)", logs[0])[1]
     print(f"[main] {name}: fsdp dims {dims}; at each of {STEPS} steps the "
           f"{len(logs)} ranks' parts of {', '.join(LAYOUT_TREES)} "
@@ -6014,14 +6300,15 @@ def phase_dense_free():
 
 
 def sanitizer_child():
-    """Child process run under compute-sanitizer: each of the eight
+    """Child process run under compute-sanitizer: each of the nine
     kernels' wrappers once at small shapes (``--sanitizer-child all``), or
     only the kernels that use shared memory (``shared``: ``pack_update``,
     rand-k's tile kernel on its scan and bucketed plans, ``worker_sum``,
-    ``block_topk`` a warp and a CTA per row); prints the launches."""
+    ``block_topk`` a warp and a CTA per row, the row shuffle below and
+    above 48 KB); prints the launches."""
     import numpy as np
 
-    from repro_torch import kernels
+    from repro_torch import kernels, random
     from repro_torch.kernels import ops, pack, threefry
 
     shared = sys.argv[2] == "shared"
@@ -6040,6 +6327,10 @@ def sanitizer_child():
     for n in (4, 40):
         ops.worker_sum(randn(n, 1000), torch.full((n,), 0.5, device="cuda"),
                        randn(1000), 0.3, 0.7)
+    for n, m, k in ((40, 56, 1), (3, 1626, 5), (2, 16384, 16384)):
+        sub, _ = random._shuffle_keys(random.split(random.key(m), n), m,
+                                      "cuda")
+        threefry.shuffle_rows(sub, n, m, k)
     if not shared:
         g, h = randn(4096), randn(4096)
         norm = torch.linalg.vector_norm(g - h).reshape(1)
@@ -6074,7 +6365,7 @@ int main() {
 }
 """
 
-#: the tools and the child's kernels each runs: memcheck over all eight,
+#: the tools and the child's kernels each runs: memcheck over all nine,
 #: racecheck over those that use shared memory
 SANITIZER_RUNS = (("memcheck", "all"), ("racecheck", "shared"))
 
@@ -6111,7 +6402,7 @@ def run_sanitized(argv, label, timeout=600):
 
 def phase_compute_sanitizer():
     """compute-sanitizer over a control program without PyTorch, then over
-    ``sanitizer_child``: memcheck of the eight kernels, racecheck of those
+    ``sanitizer_child``: memcheck of the nine kernels, racecheck of those
     that use shared memory.  Not in the default run: under the tool the
     card's CUDA context fails to start on the machine this was written for
     (``python3 chip_smoke.py --compute-sanitizer`` runs it alone)."""
@@ -6217,11 +6508,16 @@ KERNEL_ROWS = {
                     "src/repro/kernels/block_topk.py:86 (efbv_update_pallas; "
                     "body _efbv_update_kernel :70)"),
     # the reference backend's batched round; no Pallas kernel: JAX's draws
-    # under vmap and its worker mean are XLA's
+    # under vmap, its shuffle's sorts and its worker mean are XLA's
     "threefry_rows": ("src/repro_torch/kernels/csrc/threefry.cu",
                       "src/repro/core/efbv.py:604 (jax.random under vmap "
                       "over the workers of run_reference; no Pallas "
                       "kernel)"),
+    "shuffle_rows": ("src/repro_torch/kernels/csrc/threefry.cu",
+                     "src/repro/core/compressors.py:206 (comp-(k, k')'s "
+                     "jax.random.choice under vmap over the workers of "
+                     "run_reference, src/repro/core/efbv.py:604: XLA's "
+                     "sorts; no Pallas kernel)"),
     "worker_sum": ("src/repro_torch/kernels/csrc/worker_sum.cu",
                    "src/repro/core/efbv.py:608 (jnp.mean over the vmapped "
                    "workers, and :611 masked; no Pallas kernel)"),
@@ -6315,12 +6611,15 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # summed over the main paths, and by path
-            "launches": sum(run[name] for run in launches.values()),
+            "launches": sum(run.get(name, 0) for run in launches.values()),
             "launches_by_path": {p: run[name] for p, run in launches.items()
-                                 if run[name]},
+                                 if run.get(name)},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # the row shuffle's: several calls and not bit-equal, so not
+            # its library_ms
+            **{k: t[k] for k in ("yardstick_ms", "device_us") if k in t}})
     print(f"[kernels] launches on the main paths: {launches}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

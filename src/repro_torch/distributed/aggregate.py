@@ -317,6 +317,25 @@ def linear_worker_index(mesh: Mesh, coords: Dict[str, int]) -> int:
     return idx
 
 
+def first_of_shape(shapes: Sequence[Tuple[int, ...]]) -> Tuple[int, ...]:
+    """Per leaf, the index of the first leaf of its shape: JAX's
+    ``train_state_shardings``/``fsdp_state_shardings`` (``spec_for``) give
+    AdamW's m and v and h_avg the spec of that leaf, not of their own."""
+    first: Dict[Tuple[int, ...], int] = {}
+    return tuple(first.setdefault(tuple(s), j) for j, s in enumerate(shapes))
+
+
+def _move(axis: ModelAxis, x: torch.Tensor, src: Optional[int],
+          dst: Optional[int]) -> torch.Tensor:
+    """``x``, split over ``axis`` on dim ``src`` (None: whole), split on
+    dim ``dst`` instead: a slice of the local rows from a whole tensor, an
+    all-gather (counted in ``axis.stats``) from a split one."""
+    if src == dst or axis.size == 1:
+        return x
+    whole = x if src is None else axis.all_gather(x, src)
+    return whole if dst is None else axis.shard(whole, dst)
+
+
 @dataclasses.dataclass
 class ModelShards:
     """One worker's tree on a rank of the mesh's ``model`` axis: per leaf
@@ -324,11 +343,61 @@ class ModelShards:
     logical tree (``meta`` tensors) that the wire formats are built from.
     :meth:`gather` and :meth:`shard` move a leaf between its shard and its
     logical form; :meth:`part_codec` says whether a block-sparse leaf packs
-    in place."""
+    in place.
+
+    The slot trees (AdamW's m and v, h_avg) are laid out as JAX lays them
+    out: leaf j as the first leaf of its shape, ``slot_of[j]`` (JAX's
+    ``spec_for``), which differs from leaf j's own layout where a
+    replicated leaf shares its shape with a sharded one (qwen2's ``ln1`` and
+    ``ln2`` take the q bias's split).  :meth:`to_slot` and
+    :meth:`from_slot` move a leaf between the two layouts, bitwise."""
 
     axis: ModelAxis
     logical: PyTree
     dims: Tuple[Optional[int], ...]
+
+    def __post_init__(self):
+        self.slot_of = first_of_shape(
+            [tuple(x.shape) for x in T.leaves(self.logical)])
+        #: per leaf, the dim the axis splits its slots on
+        self.slot_dims = tuple(self.dims[f] for f in self.slot_of)
+
+    def slot_shape(self, j: int) -> Tuple[int, ...]:
+        return self.shard_shape(self.slot_of[j])
+
+    def slot_part(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slot of leaf j's logical tensor."""
+        return self.shard(self.slot_of[j], x)
+
+    def same_slot(self, j: int) -> bool:
+        """Whether leaf j's slots lie as its own shard does."""
+        return self.dims[j] == self.slot_dims[j] or self.axis.size == 1
+
+    def to_slot(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf j's slot from this rank's part of it."""
+        return _move(self.axis, x, self.dims[j], self.slot_dims[j])
+
+    def from_slot(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of leaf j from its slot (``x`` itself where
+        the layouts agree)."""
+        return _move(self.axis, x, self.slot_dims[j], self.dims[j])
+
+    def slot_from_worker(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf j's slot from what a worker holds of it."""
+        return self.to_slot(j, self.from_worker(j, x))
+
+    def slots_from_worker(self, tree: PyTree) -> PyTree:
+        return T.unflatten(tree, [self.slot_from_worker(j, x)
+                                  for j, x in enumerate(T.leaves(tree))])
+
+    def slot_like(self, tree: PyTree) -> PyTree:
+        """Empty tensors shaped as the slots of this rank's part of
+        ``tree`` (its own leaves where the layouts agree): what the slot
+        trees are initialised from."""
+        return T.unflatten(tree, [
+            x if self.same_slot(j) else
+            torch.empty(self.slot_shape(j), dtype=x.dtype, device=x.device)
+            for j, x in enumerate(T.leaves(tree))])
 
     @classmethod
     def of(cls, axis: ModelAxis, specs: PyTree, logical: PyTree
@@ -386,12 +455,14 @@ class ModelShards:
         shard = self.shard_shape(j)
         return dataclasses.replace(codec, shape=shard, size=math.prod(shard))
 
-    def norm(self, tree: PyTree) -> torch.Tensor:
-        """The global L2 norm of the logical tree from this rank's shards:
-        the sharded leaves' squares summed here, then over the axis (f32);
-        the replicated leaves' added once."""
+    def norm(self, tree: PyTree, slots: bool = False) -> torch.Tensor:
+        """The global L2 norm of the logical tree from this rank's shards
+        (its slots when ``slots``): the sharded leaves' squares summed
+        here, then over the axis (f32); the replicated leaves' added
+        once."""
         local, rep = [], []
-        for x, dim in zip(T.leaves(tree), self.dims):
+        for x, dim in zip(T.leaves(tree),
+                          self.slot_dims if slots else self.dims):
             (rep if dim is None else local).append(
                 torch.sum(torch.square(x)))
         # every rank holds the same dims, so all skip the all-reduce alike
@@ -438,7 +509,12 @@ class FsdpShards(ModelShards):
     :meth:`gather` then runs in two stages: over the worker group, which
     rebuilds the model shard (:meth:`to_worker`), then over the model axis
     (:attr:`model_axis`, the group's ``model`` process group with its own
-    ``stats``), which rebuilds the logical leaf."""
+    ``stats``), which rebuilds the logical leaf.
+
+    The slots (m, v, h_avg) take the layout of the first leaf of their
+    shape (JAX's ``fsdp_state_shardings``): where its fsdp dim, or on a
+    model axis its model dim, differs from leaf j's, :meth:`to_slot` and
+    :meth:`from_slot` move between the two through the same stages."""
 
     shards_worker_state = False
     #: what a worker holds: the model axis's shards (None: logical leaves)
@@ -508,10 +584,6 @@ class FsdpShards(ModelShards):
         return T.unflatten(tree, [self.to_worker(j, x) for j, x in
                                   enumerate(T.leaves(tree))])
 
-    def from_worker_tree(self, tree: PyTree) -> PyTree:
-        return T.unflatten(tree, [self.from_worker(j, x) for j, x in
-                                  enumerate(T.leaves(tree))])
-
     def worker_like(self) -> PyTree:
         """``meta`` tensors shaped as what a worker holds of each leaf."""
         return T.unflatten(self.logical, [
@@ -522,16 +594,57 @@ class FsdpShards(ModelShards):
         return None if self.model is None \
             else self.model.part_codec(j, codec)
 
-    def norm(self, tree: PyTree) -> torch.Tensor:
-        """The global L2 norm of the logical tree from this rank's parts:
-        each leaf's squares summed here, then over the axes that split it
-        (f32)."""
+    def same_slot(self, j: int) -> bool:
+        return super().same_slot(j) and (self.model is None
+                                         or self.model.same_slot(j))
+
+    def _relayout(self, x: torch.Tensor, src, dst) -> torch.Tensor:
+        """A part split as (model dim, fsdp dim) ``src`` split as ``dst``:
+        the fsdp split undone over the worker group unless it stays and
+        lies off both model dims, the model split moved over the model
+        axis, then the fsdp split redone."""
+        (m1, f1), (m2, f2) = src, dst
+        if m1 == m2:
+            return _move(self.axis, x, f1, f2)
+        keep = f1 == f2 and f1 not in (m1, m2)
+        if not keep:
+            x = _move(self.axis, x, f1, None)
+        x = _move(self.model_axis, x, m1, m2)
+        return x if keep else _move(self.axis, x, None, f2)
+
+    def _layouts(self, j: int):
+        """((model dim, fsdp dim) of leaf j, the same of its slots)."""
+        model = (None, None) if self.model is None \
+            else (self.model.dims[j], self.model.slot_dims[j])
+        return (model[0], self.dims[j]), (model[1], self.slot_dims[j])
+
+    def to_slot(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        own, slot = self._layouts(j)
+        return self._relayout(x, own, slot)
+
+    def from_slot(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        own, slot = self._layouts(j)
+        return self._relayout(x, slot, own)
+
+    def slot_from_worker(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf j's slot from what a worker holds of it (its model shard,
+        split over no worker), cut once."""
+        own, slot = self._layouts(j)
+        return self._relayout(x.reshape(self.worker_shape(j)),
+                              (own[0], None), slot)
+
+    def norm(self, tree: PyTree, slots: bool = False) -> torch.Tensor:
+        """The global L2 norm of the logical tree from this rank's parts
+        (its slots when ``slots``): each leaf's squares summed here, then
+        over the axes that split it (f32)."""
         if self.model is None:
-            return super().norm(tree)
+            return super().norm(tree, slots)
+        fdims = self.slot_dims if slots else self.dims
+        mdims = self.model.slot_dims if slots else self.model.dims
         # by (split over the workers, split over the model axis)
         sums = {}
         for j, x in enumerate(T.leaves(tree)):
-            key = (self.dims[j] is not None, self.model.dims[j] is not None)
+            key = (fdims[j] is not None, mdims[j] is not None)
             sums.setdefault(key, []).append(torch.sum(torch.square(x)))
         dev = T.leaves(tree)[0].device
         part = {k: torch.stack(sums[k]).sum() if k in sums
@@ -837,13 +950,18 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
     ``summed`` (dense only) says the message is already the sum of the n
     workers' d (the all-reduce of :func:`exchange`), which is divided by n
     here as ``torch.mean`` divides.  ``shards`` (a mesh or fsdp rank):
-    ``h_avg`` holds this rank's parts, an in-place leaf's payload decodes
-    to this rank's model shard and any other's to the logical leaf, and
-    each is cut to the part (``from_worker``, ``shard``)."""
+    ``h_avg`` holds this rank's slots (JAX's layout of m, v and h_avg:
+    :class:`ModelShards`), an in-place leaf's payload decodes to this
+    rank's model shard and any other's to the logical leaf, and each is
+    cut to the slot (``from_worker``, ``slot_part``); a dense message
+    (what a worker holds) is cut to the slots (``slots_from_worker``).  g
+    comes out in the slots' layout, as AdamW's m and v take it."""
     if mode == "dense_psum":
         d_bar = T.tree_map(lambda d: d / n_workers, message_stacked) \
             if summed else T.tree_map(lambda d: torch.mean(d, dim=0),
                                       message_stacked)
+        if shards is not None:
+            d_bar = shards.slots_from_worker(d_bar)
     else:
         logical = h_avg if shards is None else shards.logical
         fmt = wire.tree_format_for(algo.compressor, logical,
@@ -852,12 +970,14 @@ def combine_global(algo: EFBV, message_stacked, h_avg: PyTree, *,
         d_leaves = []
         for j, (payload, codec, ref) in enumerate(zip(
                 message_stacked, fmt.leaves, T.leaves(h_avg))):
-            part = None if shards is None else shards.part_codec(j, codec)
+            # a slot laid out otherwise than its leaf is cut from the whole
+            part = None if shards is None or not shards.same_slot(j) \
+                else shards.part_codec(j, codec)
             d = wire.chunked_decode_sum(part or codec, payload,
                                         chunks) / n_workers
             d_leaves.append(d.reshape(ref.shape) if shards is None
                             else shards.from_worker(j, d) if part
-                            else shards.shard(j, d))
+                            else shards.slot_part(j, d))
         d_bar = T.unflatten(h_avg, d_leaves)
     return algo.master_update(h_avg, d_bar)
 

@@ -27,7 +27,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"pack_update": 0, "qsgd_pack_update": 0,
                             "randk_update": 0, "threefry_uniform": 0,
                             "block_topk": 0, "efbv_update": 0,
-                            "threefry_rows": 0, "worker_sum": 0}
+                            "threefry_rows": 0, "worker_sum": 0,
+                            "shuffle_rows": 0}
 
 #: the environment variable that marks a process as sanitized (and its
 #: children: ``torchrun`` ranks, ``--processes`` workers, spawned tests)

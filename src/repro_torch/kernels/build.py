@@ -57,7 +57,10 @@ SIGNATURES = {
                   ctypes.c_int, _P],
                  "threefry_rows":
                  [_P, ctypes.c_longlong, ctypes.c_longlong, _P, ctypes.c_int,
-                  _P]},
+                  _P],
+                 "threefry_shuffle_rows":
+                 [_P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_int, _P, _P]},
     "worker_sum": {"worker_sum_f32":
                    [_P, _P, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     _P, _P, _P,

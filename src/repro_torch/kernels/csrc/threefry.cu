@@ -35,6 +35,28 @@
 // pipe (IMAD, IMAD.WIDE) buys nothing and costs issue slots; such cores
 // were measured slower (PERF.md, section 6).
 //
+// The row shuffle (threefry_shuffle_rows) is random.permutation_rows and
+// choice_rows in one launch: jax.random's shuffle of arange(m) under vmap
+// over n keys, every round and the cut to the first k columns.  Replaces
+// no Pallas kernel (JAX's shuffle is XLA's sort); it replaces the seven
+// launches of each round of the composition it equals (arange, repeat, the
+// row draw, xor, a segmented stable torch.sort, gather, the cut), which
+// cost microseconds of launch each for under one of work at the reference
+// round's (1000, 56).  A CTA per row holds the row's x in shared memory;
+// each round draws the row's m words under that round's key (counter
+// (0, c), as threefry_rows), forms the 64-bit keys word << 32 | c (all
+// distinct, so an ascending sort of them is JAX's stable sort of the words
+// read as uint32, lax.sort_key_val's tie rule), sorts them by a bitonic
+// network over the next power of two p (padded with UINT64_MAX, last),
+// and permutes x by the sorted columns; the CTA writes only the first k
+// columns.  Shared memory: 8 B of key a slot and 4 B of x a column (the
+// gathered x goes through the key slots), 8 p + 4 m bytes: up to m =
+// 16384 (196,608 B of the 227 KB a block can use).  Wider rows take the
+// row draw, torch.sort and gather (the wrapper's plan).  Bound: the
+// bitonic network's (p / 2) log p (log p + 1) / 2 compare-exchanges and the
+// draws at the issue rate; at (1000, 56) the launch and the network's 21
+// barriers, not bytes or instructions, set the time.
+//
 // Plain C interface (loaded with ctypes, no PyTorch headers): the launcher
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -142,7 +164,95 @@ threefry_rows_kernel(const uint32_t* __restrict__ keys, long long rows,
   }
 }
 
+constexpr int kShuffleThreads = 1024;
+
+// keys: (rounds * rows, 2), round r's key of row i at r * rows + i
+__global__ void __launch_bounds__(kShuffleThreads)
+threefry_shuffle_rows_kernel(const uint32_t* __restrict__ keys,
+                             long long rows, unsigned int m, unsigned int p,
+                             unsigned int k, int rounds,
+                             int* __restrict__ out) {
+  extern __shared__ unsigned long long slot[];             // p sort keys
+  uint32_t* x = reinterpret_cast<uint32_t*>(slot + p);     // m values
+  const unsigned int tid = threadIdx.x, nt = blockDim.x;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    for (unsigned int c = tid; c < m; c += nt) x[c] = c;
+    for (int round = 0; round < rounds; ++round) {
+      const long long kr = 2 * ((long long)round * rows + r);
+      const uint32_t k0 = keys[kr], k1 = keys[kr + 1];
+      const uint32_t k2 = k0 ^ k1 ^ 0x1bd11bdau;
+      for (unsigned int c = tid; c < p; c += nt)
+        slot[c] = c < m ? (unsigned long long)threefry_word(k0, k1, k2, 0u,
+                                                            c) << 32 | c
+                        : ~0ull;
+      __syncthreads();
+      // bitonic network, ascending: pair i of a stage is (a, a + stride)
+      for (unsigned int size = 2; size <= p; size <<= 1) {
+        for (unsigned int stride = size >> 1; stride > 0; stride >>= 1) {
+          for (unsigned int i = tid; i < p / 2; i += nt) {
+            const unsigned int a =
+                (i & ~(stride - 1)) << 1 | (i & (stride - 1));
+            const unsigned long long ka = slot[a], kb = slot[a + stride];
+            if ((ka > kb) == ((a & size) == 0)) {
+              slot[a] = kb;
+              slot[a + stride] = ka;
+            }
+          }
+          __syncthreads();
+        }
+      }
+      // x[i] <- x[column of the i-th smallest key], through the key slots
+      for (unsigned int i = tid; i < m; i += nt)
+        slot[i] = x[(uint32_t)slot[i]];
+      __syncthreads();
+      for (unsigned int i = tid; i < m; i += nt) x[i] = (uint32_t)slot[i];
+      __syncthreads();
+    }
+    int* row = out + r * (long long)k;
+    for (unsigned int i = tid; i < k; i += nt) row[i] = (int)x[i];
+    __syncthreads();  // the next row rewrites x
+  }
+}
+
 }  // namespace
+
+// out (rows, k) int32: the first k columns of each row's shuffle of
+// arange(m) by `rounds` rounds under keys (rounds * rows, 2).  Which rows
+// come here is the wrapper's plan (threefry.SHUFFLE_MAX_M); a row whose
+// 8 p + 4 m bytes exceed a block's shared memory is refused
+extern "C" int threefry_shuffle_rows(const void* keys, long long rows,
+                                     long long m, long long k, int rounds,
+                                     void* out, void* stream) {
+  if (rows <= 0 || k <= 0) return (int)cudaSuccess;
+  if (m <= 0 || m >= (1ll << 31) || k > m || rounds < 0)
+    return (int)cudaErrorInvalidValue;
+  long long p = 1;
+  while (p < m) p <<= 1;
+  const long long smem = 8 * p + 4 * m;
+  int device = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > most) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(threefry_shuffle_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // a thread a compare-exchange of a stage, whole warps, at most 1024
+  long long threads = (p / 2 + 31) / 32 * 32;
+  if (threads < 32) threads = 32;
+  if (threads > kShuffleThreads) threads = kShuffleThreads;
+  const dim3 grid(1, (unsigned int)(rows < 65535 ? rows : 65535));
+  threefry_shuffle_rows_kernel<<<grid, (unsigned int)threads, (size_t)smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), rows, (unsigned int)m,
+      (unsigned int)p, (unsigned int)k, rounds, static_cast<int*>(out));
+  return (int)cudaGetLastError();
+}
 
 extern "C" int threefry_rows(const void* keys, long long rows, long long m,
                              void* out, int as_float, void* stream) {

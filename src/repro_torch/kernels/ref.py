@@ -200,6 +200,17 @@ def threefry_rows_ref(keys: torch.Tensor, m: int,
     return out
 
 
+def shuffle_rows_ref(keys: torch.Tensor, n: int, m: int,
+                     k: int) -> torch.Tensor:
+    """The row shuffle (``threefry.shuffle_rows``): (n, k) int32, each row
+    the first k values of ``arange(m)`` reordered, a round at a time, by
+    the plain row draw under that round's n keys, ``random.stable_order``
+    of the words and ``torch.gather``."""
+    from repro_torch import random
+
+    return random.shuffle_by_sorts(keys, n, m, k, threefry_rows_ref)
+
+
 #: rows of one window of XLA's CPU tree reduction (its
 #: TreeReductionRewriter): a reduce over more rows sums windows of this many
 REDUCE_WINDOW = 32

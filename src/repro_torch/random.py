@@ -782,14 +782,30 @@ def stable_order(sort_keys: torch.Tensor) -> torch.Tensor:
     return torch.sort(flipped, dim=1, stable=True).indices
 
 
-def permutation_rows(keys, m: int, device="cuda") -> torch.Tensor:
-    """``vmap(lambda k: jax.random.permutation(k, m))(keys)``: (n, m) int32,
-    row i equal to ``permutation(keys[i], m)``.  Every round's subkeys are
-    derived on the host first (``k, sub = split(k)`` for all rows at once)
-    and copied in one go; each round is one row draw and one stable sort of
-    the (n, m) draws along the rows."""
-    from repro_torch import resolve_device
-    dev = resolve_device(device)
+def shuffle_by_sorts(keys_t: torch.Tensor, n: int, m: int, k: int,
+                     draw) -> torch.Tensor:
+    """The row shuffle as rounds of sorts: x = ``arange(m)`` on every row,
+    then for round r, ``draw(keys_t[r n:(r + 1) n], m, False)`` (n rows of
+    words), their :func:`stable_order` and ``torch.gather`` of x; the
+    first k columns.  ``draw`` is the row draw's wrapper or its plain
+    version."""
+    rounds = keys_t.shape[0] // n if n else 0
+    x = torch.arange(m, dtype=torch.int32, device=keys_t.device).repeat(n, 1)
+    for r in range(rounds):
+        x = torch.gather(x, 1, stable_order(
+            draw(keys_t[r * n:(r + 1) * n], m, False)))
+    return x if k == m else x[:, :k].contiguous()
+
+
+def _shuffle(keys_t: torch.Tensor, n: int, m: int, k: int) -> torch.Tensor:
+    from repro_torch.kernels import threefry
+    return threefry.shuffle_rows(keys_t, n, m, k)
+
+
+def _shuffle_keys(keys, m: int, dev) -> Tuple[torch.Tensor, int]:
+    """Every round's subkeys of a row shuffle of m values under the (n, 2)
+    keys, derived on the host (``k, sub = split(k)`` for all rows at once)
+    and copied to ``dev`` in one go, round-major; and n."""
     k = np.asarray(keys, np.uint32).reshape(-1, 2)
     n = k.shape[0]
     subs = []
@@ -797,20 +813,28 @@ def permutation_rows(keys, m: int, device="cuda") -> torch.Tensor:
         pair = split(k)
         k = pair[:, 0]
         subs.append(pair[:, 1])
-    x = torch.arange(m, dtype=torch.int32, device=dev).repeat(n, 1)
     if not subs:
-        return x
-    sub_t = key_tensor(np.concatenate(subs), dev)
-    for r in range(len(subs)):
-        order = stable_order(_rows(sub_t[r * n:(r + 1) * n], m, False))
-        x = torch.gather(x, 1, order)
-    return x
+        return torch.empty((0, 2), dtype=torch.int32, device=dev), n
+    return key_tensor(np.concatenate(subs), dev), n
+
+
+def permutation_rows(keys, m: int, device="cuda") -> torch.Tensor:
+    """``vmap(lambda k: jax.random.permutation(k, m))(keys)``: (n, m) int32,
+    row i equal to ``permutation(keys[i], m)``.  Every round's subkeys are
+    copied in one go; the shuffle is one launch of the row-shuffle kernel
+    on the card (``threefry.shuffle_rows``: every round; wider rows than
+    its plan takes, a row draw and a stable sort a round), its plain
+    version on the CPU."""
+    return choice_rows(keys, m, m, device)
 
 
 def choice_rows(keys, m: int, k: int, device="cuda") -> torch.Tensor:
     """(n, k) int32, row i equal to ``choice(keys[i], m, k)``: the first k
-    columns of :func:`permutation_rows`."""
+    columns of :func:`permutation_rows`, the only ones the shuffle
+    writes."""
     if k > m:
         raise ValueError(f"cannot take a larger sample ({k}) than the "
                          f"population ({m}) without replacement")
-    return permutation_rows(keys, m, device)[:, :k].contiguous()
+    from repro_torch import resolve_device
+    sub_t, n = _shuffle_keys(keys, m, resolve_device(device))
+    return _shuffle(sub_t, n, m, k)

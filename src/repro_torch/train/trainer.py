@@ -40,11 +40,16 @@ messages and control variates with it, and the step reports the
 On a mesh with a ``model`` axis (``shards``, a
 :class:`~repro_torch.distributed.aggregate.ModelShards`, with a group whose
 ``model`` is that axis) every tree of the state holds this rank's shards
-(params, AdamW's m and v, h_i, h_avg, w) as ``Model.param_specs`` shards
-them; ``loss_fn`` is the tensor-parallel loss.  The compressor still acts
+(params, h_i and w as ``Model.param_specs`` shards them; AdamW's m and v
+and h_avg as JAX's ``train_state_shardings`` does, each leaf by the spec
+of the first param of its shape: ``ModelShards.slot_of``); ``loss_fn`` is
+the tensor-parallel loss.  The compressor still acts
 on the logical gradient (``compress_local``), the decode keeps this rank's
-shard, AdamW is elementwise on shards, the norms are reduced over the
-model group, and the worker exchange runs over the worker group.  The
+slot, the master update and AdamW's moments are elementwise on slots,
+and the moment step moves to the params' shards before the weight decay
+(``from_slot``: a gather over the model axis, or a slice of a replicated
+param's rows); the norms are reduced over the model group, and the worker
+exchange runs over the worker group.  The
 in-flight payload is every worker's message, as the exchange delivers it.
 Under fsdp (:func:`make_train_step_fsdp`) the master trees are further
 split over the worker group, and the workers hold what they hold without
@@ -76,7 +81,8 @@ from repro_torch.distributed.aggregate import (FsdpShards, Mesh,
                                                ModelShards, Pending,
                                                WorkerGroup, broadcast_global,
                                                combine_global, compress_local,
-                                               exchange, fsdp_dims,
+                                               exchange, first_of_shape,
+                                               fsdp_dims,
                                                gather_metrics, num_workers,
                                                stack_worker_spec,
                                                worker_entry)
@@ -150,7 +156,9 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     its shards and ``shards`` says how (every tree of the state is sharded
     alike); under fsdp (:class:`FsdpShards`) ``params`` are the rank's fsdp
     parts and h_i and the in-flight messages what a worker holds (the
-    logical tree's, or on a ``model`` axis its shards)."""
+    logical tree's, or on a ``model`` axis its shards).  With ``shards``
+    AdamW's m and v and h_avg hold this rank's slots (JAX's layout of them,
+    ``ModelShards.slot_like``)."""
     n = n_workers
     pipelined = pipeline is not None and pipeline.depth > 0
     if pipelined and algo is None:
@@ -167,8 +175,10 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     h = T.tree_map(lambda p: torch.zeros((local,) + tuple(p.shape),
                                          dtype=torch.float32, device=dev),
                    worker)
+    # m, v and h_avg: JAX's layout, each leaf as the first of its shape
+    slots = params if shards is None else shards.slot_like(params)
     h_avg = T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                       params)
+                       slots)
     inflight = None
     if pipelined and group is not None and agg_mode == "dense_psum":
         inflight = T.tree_map(lambda p: torch.zeros(
@@ -176,7 +186,7 @@ def init_train_state(params: PyTree, optimizer: Optimizer, *,
     elif pipelined:
         inflight = init_inflight(algo, params, n, agg_mode=agg_mode,
                                  wire_dtype=wire_dtype, shards=shards)
-    return TrainState(params=params, opt_state=optimizer.init(params), h=h,
+    return TrainState(params=params, opt_state=optimizer.init(slots), h=h,
                       h_avg=h_avg, step=0,
                       w=T.tree_map(torch.clone, params) if bidirectional
                       else None,
@@ -293,6 +303,8 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
     worker_shards = shards.model if fsdp else shards
     wnorm = global_norm if worker_shards is None else worker_shards.norm
     mnorm = global_norm if shards is None else shards.norm
+    snorm = global_norm if shards is None \
+        else (lambda tree: shards.norm(tree, slots=True))
 
     @torch.no_grad()
     def train_step(state: TrainState, batch: Dict[str, Any], key
@@ -354,9 +366,6 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
         applied = state.inflight if pipelined else message
         if isinstance(applied, Pending):
             applied = applied.wait()
-        if fsdp and summed:
-            # the all-reduced d of what the workers hold: this rank's parts
-            applied = shards.from_worker_tree(applied)
         g, h_avg = combine_global(
             algo, applied, state.h_avg, n_workers=n, mode=agg_mode,
             wire_dtype=wire_dtype, chunks=chunks, summed=summed,
@@ -364,11 +373,15 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
         del applied
         inflight = message if pipelined else state.inflight
         del message
-        updates, opt_state = optimizer.update(g, state.opt_state, state.params)
+        # g, m and v lie as h_avg (the slots); the update moves to the
+        # params' layout before it is applied
+        updates, opt_state = optimizer.update(
+            g, state.opt_state, state.params,
+            to_params=None if shards is None else shards.from_slot)
         params = apply_updates(state.params, updates)
         metrics = {k: local[:, j].contiguous().mean()
                    for j, k in enumerate(names)}
-        metrics["g_norm"] = mnorm(g)
+        metrics["g_norm"] = snorm(g)
         metrics["update_norm"] = mnorm(updates)
         if federated:
             metrics["participants"] = mask.sum()
@@ -395,18 +408,25 @@ def _make_step(loss_fn, optimizer, algo, *, n_workers, agg_mode, wire_dtype,
 def train_state_shardings(mesh: Mesh, param_specs: PyTree,
                           state: TrainState) -> TrainState:
     """Each TrainState leaf's spec on ``mesh`` (JAX's
-    ``train_state_shardings``, specs as tuples of axis names): params,
-    AdamW's m and v, h_avg and w by ``param_specs`` (as the port lays
-    them out, leaf by leaf); h with the worker axes prepended
+    ``train_state_shardings``, specs as tuples of axis names): params and
+    w by ``param_specs``; AdamW's m and v and h_avg by the spec of the
+    first param of their shape (JAX's ``spec_for``, as the port lays them
+    out: ``ModelShards.slot_of``); h with the worker axes prepended
     (``stack_worker_spec``); the in-flight payload over the worker axes;
     the counters replicated."""
-    opt = {k: (param_specs if isinstance(v, (dict, list)) else ())
+    return _state_specs(mesh, param_specs, param_specs, state)
+
+
+def _state_specs(mesh, param_specs, master, state) -> TrainState:
+    """The TrainState of specs with params and w by ``master``, m, v and
+    h_avg by the ``master`` spec of the first leaf of their shape (the
+    logical shapes from h, whole on every rank but a mesh rank's)."""
+    shapes = [tuple(a.shape[1:]) for a in T.leaves(state.h)]
+    specs = T.leaves(master, is_leaf=is_spec)
+    like = [specs[f] for f in first_of_shape(shapes)]
+    opt = {k: (T.unflatten(v, like) if isinstance(v, (dict, list)) else ())
            for k, v in state.opt_state.items()}
-    return _state_specs(mesh, param_specs, param_specs, opt, param_specs,
-                        state)
-
-
-def _state_specs(mesh, param_specs, master, opt, h_avg, state) -> TrainState:
+    h_avg = T.unflatten(state.h_avg, like)
     waxes = (worker_entry(mesh),)
     inflight = None if state.inflight is None else T.tree_map(
         lambda _: waxes, state.inflight)
@@ -441,27 +461,15 @@ def fsdp_state_shardings(mesh: Mesh, param_specs: PyTree,
                          state: TrainState) -> TrainState:
     """JAX's ``fsdp_state_shardings``, specs as tuples: params and w by
     :func:`fsdp_specs`; AdamW's m and v and h_avg by the fsdp spec of the
-    first param of their shape (JAX's ``spec_for``); h keeps
-    ``stack_worker_spec`` of the param specs (a worker's h_i is whole);
-    the in-flight payload over the worker axes.  The logical shapes come
-    from h, which is whole on every rank.  These are JAX's specs; the
-    port keeps each m, v and h_avg leaf on its own param's shard, which
-    differs where the shape-keyed lookup names another param's spec (at
-    4x1 on the smoke trees: qwen2's ``layers/attn/wq``, ``ln1`` and
-    ``ln2``, whisper's ``wo``; zamba2's ``shared_attn/attn/wo`` at every
-    n)."""
+    first param of their shape (JAX's ``spec_for``, as ``FsdpShards``
+    lays them out); h keeps ``stack_worker_spec`` of the param specs (a
+    worker's h_i is whole); the in-flight payload over the worker axes.
+    The logical shapes come from h, which is whole on every rank."""
     shapes = [tuple(a.shape[1:]) for a in T.leaves(state.h)]
     fspecs = fsdp_specs(mesh, param_specs, T.unflatten(
         param_specs, [torch.empty(s, device="meta") for s in shapes],
         is_leaf=is_spec))
-    by_shape = {}
-    for shape, spec in zip(shapes, T.leaves(fspecs, is_leaf=is_spec)):
-        by_shape.setdefault(shape, spec)
-    like = [by_shape[shape] for shape in shapes]
-    opt = {k: (T.unflatten(v, like) if isinstance(v, (dict, list)) else ())
-           for k, v in state.opt_state.items()}
-    return _state_specs(mesh, param_specs, fspecs, opt,
-                        T.unflatten(state.h_avg, like), state)
+    return _state_specs(mesh, param_specs, fspecs, state)
 
 
 def make_fsdp_shards(group: Optional[WorkerGroup], mesh: Mesh,

@@ -1328,7 +1328,7 @@ def tbytes(tree, shardings):
 def sbytes(tree):
     return tbytes(tree, [a.sharding for a in jax.tree.leaves(tree)])
 
-out = {"memory": {}, "meta": {}, "own_spec_m": {}}
+out = {"memory": {}, "meta": {}}
 opt = adamw(cosine(3e-4, total_steps=10_000, warmup_steps=200))
 abstract, specs = {}, {}
 for mp in (False, True):
@@ -1362,8 +1362,6 @@ for mp in (False, True):
                        "h": tbytes(st.h, sh.h),
                        "h_avg": tbytes(st.h_avg, sh.h_avg),
                        "batch": sbytes(batch_struct(cfg, shape, mesh))}
-                # m as each leaf's own param spec lays it out
-                out["own_spec_m"][key] = tbytes(st.opt_state["m"], sh.params)
             elif shape.kind == "prefill":
                 rec = {"params": tbytes(params, psh),
                        "batch": sbytes(batch_struct(cfg, shape, mesh))}
@@ -1404,16 +1402,15 @@ def jax_dryrun():
 
 def test_dryrun_memory_trees_equal_jax_shard_bytes(jax_dryrun):
     """Every arch at every shape on both production meshes: the dry run's
-    per-rank bytes of params and h, of the batch, of the decode cache, its
-    token and position equal JAX's shard bytes exactly, and its params,
-    active params, notes and skips are JAX's.  AdamW's m and v and h_avg
-    keep their own param's shard in the port; JAX lays them out by the
-    first param of their shape (``train_state_shardings``), which differs
-    at qwen2's and qwen2-vl's layer norms (sharded like the same-shaped
-    q bias in JAX): there they equal the own-spec layout of JAX's tree."""
+    per-rank bytes of params, AdamW's m and v, h and h_avg, of the batch,
+    of the decode cache, its token and position equal JAX's shard bytes
+    exactly, and its params, active params, notes and skips are JAX's.  m,
+    v and h_avg lie as JAX's ``train_state_shardings`` lays them out, by
+    the first param of their shape (qwen2's and qwen2-vl's layer norms
+    sharded like the same-shaped q bias)."""
     from repro_torch.launch import train as tlaunch
 
-    want, differ = jax_dryrun["memory"], set()
+    want = jax_dryrun["memory"]
     assert len(jax_dryrun["meta"]) == 80
     for key, meta in jax_dryrun["meta"].items():
         arch, shape, mesh = key.split("/")
@@ -1428,13 +1425,200 @@ def test_dryrun_memory_trees_equal_jax_shard_bytes(jax_dryrun):
         got = rec["memory"]["trees"]
         assert set(got) == set(want[key]), key
         for tree, nbytes in want[key].items():
-            if tree in ("m", "v", "h_avg") and got[tree] != nbytes:
-                differ.add(arch)
-                assert got[tree] == jax_dryrun["own_spec_m"][key], key
-            else:
-                assert got[tree] == nbytes, (key, tree)
+            assert got[tree] == nbytes, (key, tree)
         assert rec["memory"]["argument_size_in_bytes"] == sum(got.values())
-    assert differ == {"qwen2-0.5b", "qwen2-vl-2b"}
+
+
+# -- m, v and h_avg laid out as JAX lays them out (fault ac) -------------------
+#
+# One JAX process of 4 fake host devices gives, for the smoke trees of
+# SLOT_ARCHS on each mesh of SLOT_MESHES, every device's index ranges of
+# each leaf of params, m, v and h_avg (``devices_indices_map`` of
+# ``train_state_shardings``, or ``fsdp_state_shardings`` under fsdp), in the
+# mesh's device order: (worker, model) row-major, as the port numbers its
+# ranks (worker-group rank r // M, model rank r % M).
+
+import math  # noqa: E402
+
+JAX_SLOTS = """
+import json
+import jax
+from repro.configs import get_smoke_config
+from repro.launch.mesh import make_mesh
+from repro.models import build_model
+from repro.optim import adamw, constant
+from repro.train import (fsdp_state_shardings, init_train_state,
+                         train_state_shardings)
+
+out = {}
+for arch in ARCHS:
+    model = build_model(get_smoke_config(arch))
+    shapes = jax.eval_shape(model.init, jax.random.key(0))
+    for dims, fsdp in MESHES:
+        mesh = make_mesh(dims)
+        state = jax.eval_shape(lambda p: init_train_state(
+            p, adamw(constant(1e-3)), mesh), shapes)
+        fn = fsdp_state_shardings if fsdp else train_state_shardings
+        sh = fn(mesh, model.param_specs(), state)
+        rec = {}
+        for k, tree, shard in (
+                ("params", state.params, sh.params),
+                ("m", state.opt_state["m"], sh.opt_state["m"]),
+                ("v", state.opt_state["v"], sh.opt_state["v"]),
+                ("h_avg", state.h_avg, sh.h_avg)):
+            rec[k] = [[[[sl.start or 0, n if sl.stop is None else sl.stop]
+                        for sl, n in zip(s.devices_indices_map(a.shape)[d],
+                                         a.shape)]
+                       for d in mesh.devices.flat]
+                      for a, s in zip(jax.tree.leaves(tree),
+                                      jax.tree.leaves(shard))]
+        out[f"{arch} {dims[0]}x{dims[1]}"] = rec
+print("SLOTS " + json.dumps(out))
+"""
+
+#: the smoke trees and meshes of the slot check: a 1x2 model axis
+#: (shard_map), fsdp on 2x2 and on 4x1
+SLOT_ARCHS = ("qwen2-0.5b", "whisper-medium", "zamba2-7b")
+SLOT_MESHES = (((1, 2), False), ((2, 2), True), ((4, 1), True))
+#: the leaves whose m, v and h_avg lie otherwise than their param (another
+#: leaf of their shape comes first), on each of the three meshes: qwen2's
+#: wq as wo, ln1 and ln2 as the q bias; whisper's wo as wq; zamba2's shared
+#: block's wo as its wq
+SLOT_MOVED = {
+    "qwen2-0.5b": ["layers/attn/wq", "layers/ln1", "layers/ln2"],
+    "whisper-medium": ["encoder/attn/wo", "layers/attn/wo",
+                       "layers/xattn/wo"],
+    "zamba2-7b": ["shared_attn/attn/wo"],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_slots():
+    from conftest import run_with_devices
+
+    code = JAX_SLOTS.replace("ARCHS", repr(SLOT_ARCHS)).replace(
+        "MESHES", repr(SLOT_MESHES))
+    return json.loads(run_with_devices(code, 4).split("SLOTS ", 1)[1])
+
+
+def _rank_shards(model, dims, fsdp, rank):
+    """Rank ``rank``'s layout of ``model``'s smoke tree on a mesh of
+    ``dims`` (a stand-in group: its shapes need no collective)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.layers import ModelAxis
+    from repro_torch.train import trainer as ttrainer
+
+    workers, m = dims
+    logical = model.init_abstract()
+    tp = ModelAxis(size=m, rank=rank % m) if m > 1 else None
+    if not fsdp:
+        return tagg.ModelShards.of(tp, model.param_specs(), logical)
+    group = SimpleNamespace(world=workers, rank=rank // m, pg=None, model=tp)
+    mesh = tagg.make_mesh(dims)
+    return tagg.FsdpShards.of_group(group, tagg.fsdp_dims(
+        ttrainer.fsdp_specs(mesh, model.param_specs(), logical), mesh),
+        logical, model.param_specs())
+
+
+@pytest.mark.parametrize("arch", SLOT_ARCHS)
+@pytest.mark.parametrize("dims,fsdp", SLOT_MESHES,
+                         ids=[f"{a}x{b}" for (a, b), _ in SLOT_MESHES])
+def test_slots_lie_as_jax_lays_them_out(jax_slots, arch, dims, fsdp):
+    """On every rank of a 1x2 model axis and of fsdp on 2x2 and 4x1, the
+    smoke tree's params, AdamW's m and v and h_avg, as ``init_train_state``
+    makes them, have each leaf's shard shape of JAX's
+    ``train_state_shardings`` (``fsdp_state_shardings``), and each rank's
+    part of a logical leaf (``shard``, ``slot_part``) is exactly the
+    device's index ranges there (``devices_indices_map``): m, v and h_avg
+    take the layout of the first param of their shape, which moves the
+    leaves of ``SLOT_MOVED``."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import wire
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train import trainer as ttrainer
+
+    model = build_model(get_smoke_config(arch))
+    key = f"{dims[0]}x{dims[1]}"
+    want = jax_slots[f"{arch} {key}"]
+    logical = model.init_abstract()
+    paths = wire.leaf_paths(logical)
+    shapes = [tuple(x.shape) for x in T.leaves(logical)]
+    workers, m = dims
+    for rank in range(workers * m):
+        shards = _rank_shards(model, dims, fsdp, rank)
+        assert [paths[j] for j in range(len(paths))
+                if not shards.same_slot(j)] == SLOT_MOVED[arch]
+        group = SimpleNamespace(n_workers=workers, per_rank=1)
+        state = ttrainer.init_train_state(
+            shards.shard_tree(logical), adamw(lambda s: 1e-3),
+            n_workers=workers, group=group if fsdp else None,
+            shards=shards)
+        trees = {"params": state.params, "m": state.opt_state["m"],
+                 "v": state.opt_state["v"], "h_avg": state.h_avg}
+        for k, tree in trees.items():
+            part = shards.shard if k == "params" else shards.slot_part
+            for j, (x, shape) in enumerate(zip(T.leaves(tree), shapes)):
+                ranges = want[k][j][rank]
+                assert list(x.shape) == [b - a for a, b in ranges], \
+                    (rank, k, paths[j])
+                flat = np.arange(math.prod(shape)).reshape(shape)
+                got = part(j, torch.from_numpy(flat))
+                np.testing.assert_array_equal(
+                    got.numpy(), flat[tuple(slice(a, b) for a, b in ranges)],
+                    err_msg=f"rank {rank} {k} {paths[j]}")
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adamw_decay", "sgd_momentum",
+                                 "clip_then_adamw"])
+def test_optimizer_moves_its_update_to_the_params_layout_bitwise(opt):
+    """``update(..., to_params=move)`` with the grads and the moments in
+    one layout and the params in another (here a 2-D leaf transposed,
+    standing for a slot split otherwise than its param, fault ac) gives
+    at every step bitwise the moved update of the same optimizer run in
+    one layout: AdamW's moment step moves before the weight decay, which
+    reads the params where they lie, and every operation is elementwise.
+    So the trainer gathers no param into its slot's layout."""
+    from repro_torch.optim.optimizers import (adamw, apply_updates, chain,
+                                              clip_by_global_norm, sgd)
+
+    make = {"adamw": lambda: adamw(lambda s: 1e-3),
+            "adamw_decay": lambda: adamw(lambda s: 1e-3, weight_decay=0.1),
+            "sgd_momentum": lambda: sgd(lambda s: 0.1, momentum=0.9),
+            "clip_then_adamw": lambda: chain(
+                clip_by_global_norm(0.5),
+                adamw(lambda s: 1e-3, weight_decay=0.1))}[opt]
+    rng = np.random.default_rng(5)
+
+    def tree():
+        return {"a": torch.from_numpy(rng.standard_normal((3, 5)).astype(
+                    np.float32)),
+                "b": torch.from_numpy(rng.standard_normal(4).astype(
+                    np.float32))}
+
+    def move(j, x):
+        return x.T.contiguous() if x.dim() == 2 else x
+
+    def moved(t):
+        return T.unflatten(t, [move(j, x) for j, x in
+                               enumerate(T.leaves(t))])
+
+    one, two = make(), make()
+    params = tree()
+    there = moved(params)
+    state, state2 = one.init(params), two.init(params)
+    for _ in range(3):
+        g = tree()
+        u, state = one.update(g, state, params)
+        u2, state2 = two.update(g, state2, there, to_params=move)
+        for a, b in zip(T.leaves(moved(u)), T.leaves(u2)):
+            assert torch.equal(a, b)
+        params, there = apply_updates(params, u), apply_updates(there, u2)
+    for a, b in zip(T.leaves(moved(params)), T.leaves(there)):
+        assert torch.equal(a, b)
 
 
 def test_dryrun_matmul_flops_against_jax_mini_step(jax_dryrun):

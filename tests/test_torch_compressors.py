@@ -1228,9 +1228,9 @@ def test_fsdp_specs_and_state_shardings_equal_jax(shape):
 #: the leaves whose m, v and h_avg JAX's shape-keyed ``spec_for`` gives
 #: the fsdp spec of another param of their shape, with another worker dim
 #: (None: whole) than their own param's, by (arch, mesh): (path, param's
-#: dim, that dim).  The port keeps every m, v and h_avg leaf on its own param's shard
-#: (AdamW and the master update are elementwise on aligned shards);
-#: ``fsdp_state_shardings`` states JAX's layout.
+#: dim, that dim).  The port lays m, v and h_avg out so too
+#: (``FsdpShards.slot_of``; ``tests/test_torch_aggregate.py::
+#: test_slots_lie_as_jax_lays_them_out``).
 FSDP_BY_SHAPE = {
     ("qwen2-0.5b", "4x1"): [("layers/attn/wq", 1, 2), ("layers/ln1", 1, None),
                         ("layers/ln2", 1, None)],

@@ -804,8 +804,20 @@ def test_run_state_shardings_lift_param_specs():
     state = run.init_state(model.init(random.key(0), device="cpu"),
                            adamw(lambda s: 1e-3), mesh)
     sh = run.state_shardings(mesh, specs, state)
-    assert sh.params is specs and sh.h_avg is specs and sh.w is specs
-    assert sh.opt_state["m"] is specs and sh.opt_state["count"] == ()
+    assert sh.params is specs and sh.w is specs
+    # m, v and h_avg by the spec of the first param of their shape (JAX's
+    # spec_for): the layer norms take the q bias's split, wq wo's, the rest
+    # their own
+    attn = specs["layers"]["attn"]
+    slots = dict(specs, layers=dict(
+        specs["layers"], ln1=attn["bq"], ln2=attn["bq"],
+        attn=dict(attn, wq=attn["wo"])))
+    assert attn["bq"] == (None, "model") and attn["wo"] == (None, "model",
+                                                           None)
+    assert attn["wq"] == (None, None, "model")
+    assert specs["layers"]["ln1"] == specs["layers"]["ln2"] == (None, None)
+    assert sh.h_avg == slots and sh.opt_state["m"] == slots
+    assert sh.opt_state["v"] == slots and sh.opt_state["count"] == ()
     jh = jspec_mod.stack_worker_spec(
         type("M", (), {"axis_names": ("data", "model")}),
         jax.tree.map(lambda s: jspec_mod.P(*s), specs,
@@ -879,6 +891,9 @@ FSDP_RANK_CASES = {
                         Pipeline(1)),
 }
 FSDP_STEPS = 3
+#: the master trees laid out as JAX's ``spec_for`` lays them out (by the
+#: first param of each leaf's shape)
+SLOT_TREES = ("h_avg", "m", "v")
 
 
 def _fsdp_run(case, group=None, mesh=(2, 1), backend="fsdp"):
@@ -929,7 +944,8 @@ def _fsdp_run(case, group=None, mesh=(2, 1), backend="fsdp"):
             "w": as_np(state.w), "h_avg": as_np(state.h_avg),
             "m": as_np(state.opt_state["m"]),
             "v": as_np(state.opt_state["v"]), "h": as_np(state.h),
-            "dims": None if shards is None else shards.dims}
+            "dims": None if shards is None else shards.dims,
+            "slot_dims": None if shards is None else shards.slot_dims}
 
 
 def _fsdp_rank(store, case):
@@ -985,10 +1001,11 @@ def _fsdp_mesh_rank(store, case):
         group.close()
 
 
-def _jax_fsdp_part_shapes(shape):
+def _jax_fsdp_part_shapes(shape, slots=False):
     """Each smoke qwen2 leaf's part shape on one device of ``make_mesh(
     shape)`` under JAX's ``fsdp_specs`` (its mesh read for axis names and
-    sizes only)."""
+    sizes only); with ``slots``, its m, v and h_avg's: the part of the first
+    leaf of its shape (``fsdp_state_shardings``' ``spec_for``)."""
     from types import SimpleNamespace
 
     from jax.sharding import PartitionSpec as P
@@ -1009,6 +1026,9 @@ def _jax_fsdp_part_shapes(shape):
                 if a is not None:
                     part[i] //= mesh.shape[a]
         out.append(part)
+    if slots:
+        leaves = [tuple(x.shape) for x in jax.tree.leaves(shapes)]
+        out = [out[leaves.index(s)] for s in leaves]
     return out
 
 
@@ -1016,11 +1036,13 @@ def _jax_fsdp_part_shapes(shape):
 def test_fsdp_2x2_equals_2x2_mesh_bitwise(tmp_path, case):
     """The fsdp step on a 2x2 mesh (2 workers x 2-way tensor parallelism,
     four gloo ranks) against the 2x2 mesh step on the same ranks: each
-    rank holds its fsdp part of its model shard of params, w, h_avg, m
-    and v -- the shape JAX's ``fsdp_specs`` gives on ``make_mesh((2,
-    2))``, the layer stacks split on L, the embedding's model dim 0 and
-    worker dim 1 -- which reassembled over the worker group are the mesh
-    rank's shards bit for bit after three steps; each rank's h is its
+    rank holds its fsdp part of its model shard of params and w -- the
+    shape JAX's ``fsdp_specs`` gives on ``make_mesh((2, 2))``, the layer
+    stacks split on L, the embedding's model dim 0 and worker dim 1 -- and
+    of h_avg, m and v as JAX's ``fsdp_state_shardings`` lays them out (the
+    part of the first leaf of their shape: wq as wo, ln1 and ln2 as the q
+    bias), which reassembled over the worker group are the mesh rank's
+    shards and slots bit for bit after three steps; each rank's h is its
     worker's model shard, bitwise the mesh rank's, and the losses are
     equal."""
     ranks = _spawn_ranks(tmp_path, 4, _fsdp_mesh_rank, case)
@@ -1031,7 +1053,14 @@ def test_fsdp_2x2_equals_2x2_mesh_bitwise(tmp_path, case):
     assert dims[paths.index("embed")] == 1
     assert all(dims[j] == 0 for j, p in enumerate(paths)
                if p.startswith("layers/"))
-    want_shapes = _jax_fsdp_part_shapes((2, 2))
+    slot_dims = ranks[0]["fsdp"]["slot_dims"]
+    moved = [paths[j] for j in range(len(paths))
+             if slot_dims[j] != dims[j]
+             or ranks[0]["mesh"]["slot_dims"][j]
+             != ranks[0]["mesh"]["dims"][j]]
+    assert moved == ["layers/attn/wq", "layers/ln1", "layers/ln2"]
+    want_shapes = {False: _jax_fsdp_part_shapes((2, 2)),
+                   True: _jax_fsdp_part_shapes((2, 2), slots=True)}
     for r, got in enumerate(ranks):
         mesh, fsdp = got["mesh"], got["fsdp"]
         assert fsdp["losses"] == mesh["losses"]
@@ -1040,16 +1069,17 @@ def test_fsdp_2x2_equals_2x2_mesh_bitwise(tmp_path, case):
                                           a.view(np.uint32))
         for k in ("params", "w", "h_avg", "m", "v"):
             assert [list(x.shape) for x in T.leaves(fsdp[k])] == \
-                want_shapes, (k, r)
+                want_shapes[k in SLOT_TREES], (k, r)
     for i in range(2):  # each model index: its worker group of two ranks
         mesh = ranks[i]["mesh"]
         assert ranks[2 + i]["mesh"]["losses"] == mesh["losses"]
         for k in ("params", "w", "h_avg", "m", "v"):
+            along = slot_dims if k in SLOT_TREES else dims
             for j, shard in enumerate(T.leaves(mesh[k])):
                 parts = [T.leaves(ranks[w * 2 + i]["fsdp"][k])[j]
                          for w in range(2)]
                 np.testing.assert_array_equal(
-                    np.concatenate(parts, axis=dims[j]).view(np.uint32),
+                    np.concatenate(parts, axis=along[j]).view(np.uint32),
                     shard.view(np.uint32), err_msg=f"{k} {paths[j]}")
 
 

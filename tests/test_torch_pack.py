@@ -1458,3 +1458,165 @@ def test_launch_switches_device_only_off_the_current_one(index, monkeypatch):
     assert calls == [((7, 8, 1000 + index), index)]
     assert entered == ([1] if index else [])
     assert current == [0]
+
+
+# -- the row shuffle (``threefry.shuffle_rows``): its kernel's sort, modelled ---
+
+def model_bitonic_order(words: np.ndarray) -> np.ndarray:
+    """The row-shuffle kernel's sort of (n, m) uint32 words, in numpy: the
+    composite keys ``word << 32 | column``, padded with UINT64_MAX to the
+    next power of two p, through the kernel's bitonic network (pair i of a
+    stage of size ``size`` and stride s: a = (i & ~(s - 1)) << 1 | (i & (s
+    - 1)) and a + s, ascending where a & size == 0); returns each row's
+    columns in sorted order (the keys' low words)."""
+    n, m = words.shape
+    p = 1
+    while p < m:
+        p <<= 1
+    slot = np.full((n, p), np.iinfo(np.uint64).max, np.uint64)
+    slot[:, :m] = (words.astype(np.uint64) << np.uint64(32)) \
+        | np.arange(m, dtype=np.uint64)
+    i = np.arange(p // 2)
+    size = 2
+    while size <= p:
+        stride = size >> 1
+        while stride:
+            a = ((i & ~(stride - 1)) << 1) | (i & (stride - 1))
+            ka, kb = slot[:, a], slot[:, a + stride]
+            swap = (ka > kb) == ((a & size) == 0)
+            slot[:, a] = np.where(swap, kb, ka)
+            slot[:, a + stride] = np.where(swap, ka, kb)
+            stride >>= 1
+        size <<= 1
+    return (slot[:, :m] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def model_shuffle_rows(keys: np.ndarray, n: int, m: int, k: int):
+    """The row-shuffle kernel in numpy: x = arange(m) a row; each round the
+    row's words under that round's key (``keys[r * n + i]``, counter (0,
+    c)), the modelled sort, x permuted by the sorted columns; the first k
+    columns."""
+    from repro_torch import random as R
+
+    rounds = keys.shape[0] // n if n else 0
+    x = np.broadcast_to(np.arange(m), (n, m))
+    for r in range(rounds):
+        y0, y1 = R.threefry2x32(keys[r * n:(r + 1) * n, None, :],
+                                np.zeros(m, np.uint32),
+                                np.arange(m, dtype=np.uint32))
+        x = np.take_along_axis(x, model_bitonic_order(y0 ^ y1), axis=1)
+    return x[:, :k]
+
+
+@pytest.mark.parametrize("n,m,distinct", [(16, 56, 3), (8, 150, 2),
+                                          (4, 4096, 64), (3, 1, 1),
+                                          (5, 2, 1), (5, 3, 2),
+                                          (2, 16384, 7)])
+def test_model_shuffle_sort_keeps_ties_like_lax_sort(n, m, distinct):
+    """The kernel's sort (``model_bitonic_order``: composite keys, the
+    bitonic network over the padded power of two) with forced ties (the
+    data of ``test_stable_order_keeps_ties_in_order_like_lax_sort``, up to
+    the fused route's limit) orders each row as JAX's
+    ``lax.sort_key_val`` under vmap: equal words keep their column
+    order."""
+    import jax
+
+    from repro_torch.kernels import threefry
+
+    assert m <= threefry.SHUFFLE_MAX_M
+    rng = np.random.default_rng(distinct)
+    u = (rng.integers(0, distinct, (n, m)) * (2**32 // distinct)).astype(
+        np.uint32)
+    cols = jnp.broadcast_to(jnp.arange(m, dtype=jnp.int32), (n, m))
+    _, want = jax.vmap(jax.lax.sort_key_val)(jnp.asarray(u), cols)
+    np.testing.assert_array_equal(model_bitonic_order(u), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,m,k", [(16, 56, 1), (16, 34, 17), (16, 32, 32),
+                                   (4, 1626, 9), (3, 1, 1), (5, 2, 2),
+                                   (5, 3, 1)])
+def test_model_shuffle_rows_equals_plain(n, m, k):
+    """The kernel modelled whole (``model_shuffle_rows``: the draw, the
+    sort, the permute, the cut, one and two rounds) equals the plain
+    version ``ref.shuffle_rows_ref`` on the same subkeys, bitwise."""
+    from repro_torch import random as R
+
+    sub, rows = R._shuffle_keys(R.split(R.key(m), n), m, "cpu")
+    assert rows == n and sub.shape == (R.shuffle_rounds(m) * n, 2)
+    want = ref.shuffle_rows_ref(sub, n, m, k)
+    assert want.shape == (n, k) and want.dtype == torch.int32
+    np.testing.assert_array_equal(
+        model_shuffle_rows(sub.numpy().view(np.uint32), n, m, k),
+        want.numpy())
+
+
+@pytest.mark.parametrize("m", [16383, 16384, 16385, 20000])
+def test_shuffle_plan_switches_at_the_shared_memory_limit(m, monkeypatch):
+    """``threefry.shuffle_plan``: the fused kernel up to SHUFFLE_MAX_M =
+    16384 values a row (8 B of key a padded slot and 4 B of x a value,
+    196,608 B of the 227 KB a block holds), the row draw and torch's sort
+    above.  The limit is the widest row whose shared memory fits an H100
+    block, the one check the C launcher makes.  The wrapper follows the
+    plan on the card: with the card's route forced here, a row of m <=
+    16384 goes to the kernel's library and one above to a row draw a
+    round, equal to the plain version."""
+    from repro_torch import random as R
+    from repro_torch.kernels import build, threefry
+
+    def fits(width):
+        return 8 * (1 << (width - 1).bit_length()) + 4 * width <= 232_448
+
+    assert threefry.SHUFFLE_MAX_M == 16384
+    assert fits(threefry.SHUFFLE_MAX_M) and not fits(threefry.SHUFFLE_MAX_M
+                                                      + 1)
+    fused = m <= 16384
+    assert threefry.shuffle_plan(m) == ("fused" if fused else "sorts")
+    sub, n = R._shuffle_keys(R.split(R.key(m), 2), m, "cpu")
+    draws = []
+
+    def draw(keys, width, as_float):
+        draws.append(width)
+        return ref.threefry_rows_ref(keys, width, as_float)
+
+    def load(name):
+        raise LookupError(f"kernel library {name}")
+
+    monkeypatch.setattr(threefry, "plain_route", lambda device: False)
+    monkeypatch.setattr(threefry, "check_device", lambda *a: None)
+    monkeypatch.setattr(threefry, "threefry_rows", draw)
+    monkeypatch.setattr(build, "load", load)
+    if fused:
+        with pytest.raises(LookupError, match="threefry"):
+            threefry.shuffle_rows(sub, n, m, 3)
+        assert draws == []
+    else:
+        got = threefry.shuffle_rows(sub, n, m, 3)
+        assert draws == [m] * R.shuffle_rounds(m)
+        monkeypatch.undo()
+        assert torch.equal(got, ref.shuffle_rows_ref(sub, n, m, 3))
+
+
+def test_shuffle_rows_checks_its_arguments_and_allocates_on_meta():
+    """The row-shuffle wrapper refuses keys that are not (rounds * n, 2)
+    int32 and a cut wider than the row; on ``meta`` inside the dry run it
+    allocates its (n, k) int32 output (either route) and counts no
+    launch."""
+    from repro_torch import kernels
+    from repro_torch.kernels import threefry
+
+    keys = torch.zeros((6, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        threefry.shuffle_rows(keys.long(), 3, 8, 2)
+    with pytest.raises(ValueError, match="keys for 4 rows"):
+        threefry.shuffle_rows(keys, 4, 8, 2)
+    with pytest.raises(ValueError, match="cut to 9"):
+        threefry.shuffle_rows(keys, 3, 8, 9)
+    reset_launches()
+    with kernels.dry_run():
+        for m in (56, threefry.SHUFFLE_MAX_M + 1):
+            out = threefry.shuffle_rows(keys.to("meta"), 3, m, 5)
+            assert out.device.type == "meta" and out.dtype == torch.int32
+            assert out.shape == (3, 5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        threefry.shuffle_rows(keys.to("meta"), 3, 56, 5)
+    assert not any(LAUNCHES.values())

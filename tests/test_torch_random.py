@@ -315,21 +315,30 @@ def test_row_draws_match_jax_under_vmap(n, m):
 
 
 @pytest.mark.parametrize("n,m,k", [(16, 1, 1), (16, 56, 1), (16, 150, 150),
-                                   (4, 1626, 9), (1000, 56, 1)])
+                                   (4, 1626, 9), (1000, 56, 1), (16, 2, 2),
+                                   (16, 2, 1), (16, 3, 3), (16, 3, 2)])
 def test_permutation_and_choice_rows_match_jax_under_vmap(n, m, k):
-    """One row shuffle for all workers (one draw and one stable sort a
-    round; 2 rounds above 1625) equals ``vmap`` of JAX's permutation and
-    choice."""
+    """One row shuffle for all workers (the row-shuffle wrapper's plain
+    version on the CPU: a draw and a stable sort a round, 2 rounds above
+    1625, then the cut) equals ``vmap`` of JAX's permutation and choice;
+    so does ``ref.shuffle_rows_ref`` on the subkeys, which the card's
+    kernel is held to."""
+    from repro_torch.kernels import ref
+
     jk, tk = _worker_keys(n)
+    want_p = np.asarray(jax.vmap(partial(jax.random.permutation, x=m))(jk))
+    want_c = np.asarray(jax.vmap(partial(jax.random.choice, a=m, shape=(k,),
+                                         replace=False))(jk))
     got = R.permutation_rows(tk, m, device="cpu")
     assert got.shape == (n, m) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want_p)
+    choice = R.choice_rows(tk, m, k, device="cpu")
+    assert choice.shape == (n, k) and choice.is_contiguous()
+    np.testing.assert_array_equal(choice.numpy(), want_c)
+    sub, rows = R._shuffle_keys(tk, m, "cpu")
+    assert rows == n and sub.shape == (R.shuffle_rounds(m) * n, 2)
     np.testing.assert_array_equal(
-        got.numpy(), np.asarray(jax.vmap(
-            partial(jax.random.permutation, x=m))(jk)))
-    np.testing.assert_array_equal(
-        R.choice_rows(tk, m, k, device="cpu").numpy(),
-        np.asarray(jax.vmap(partial(jax.random.choice, a=m, shape=(k,),
-                                    replace=False))(jk)))
+        ref.shuffle_rows_ref(sub, n, m, k).numpy(), want_c)
 
 
 @pytest.mark.parametrize("n,m,distinct", [(16, 56, 3), (8, 150, 2),
@@ -351,32 +360,35 @@ def test_stable_order_keeps_ties_in_order_like_lax_sort(n, m, distinct):
 
 def test_row_draws_are_one_call_and_one_key_copy(monkeypatch):
     """Each batched draw makes one row-draw call and one copy of its keys,
-    whatever n is (a 2-round permutation: two calls, still one copy); on
+    whatever n is; a row shuffle one call of the row-shuffle wrapper (every
+    round: a 2-round permutation too) and one copy of all rounds' keys; on
     the CPU nothing launches."""
-    calls = {"rows": 0, "copies": 0}
-    rows, copy = R._rows, R.key_tensor
+    calls = {"rows": 0, "shuffles": 0, "copies": 0}
+    rows, shuffle, copy = R._rows, R._shuffle, R.key_tensor
 
-    def counted_rows(*a):
-        calls["rows"] += 1
-        return rows(*a)
+    def counted(key, fn):
+        def wrapped(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrapped
 
-    def counted_copy(*a):
-        calls["copies"] += 1
-        return copy(*a)
-
-    monkeypatch.setattr(R, "_rows", counted_rows)
-    monkeypatch.setattr(R, "key_tensor", counted_copy)
+    monkeypatch.setattr(R, "_rows", counted("rows", rows))
+    monkeypatch.setattr(R, "_shuffle", counted("shuffles", shuffle))
+    monkeypatch.setattr(R, "key_tensor", counted("copies", copy))
     reset_launches()
     for n in (2, 300):
         tk = R.split(R.key(n), n)
-        for fn, want in ((lambda: R.uniform_rows(tk, 9, "cpu"), (1, 1)),
-                         (lambda: R.randint_rows(tk, 9, 0, 5, "cpu"), (1, 1)),
-                         (lambda: R.permutation_rows(tk, 40, "cpu"), (1, 1)),
+        for fn, want in ((lambda: R.uniform_rows(tk, 9, "cpu"), (1, 0, 1)),
+                         (lambda: R.randint_rows(tk, 9, 0, 5, "cpu"),
+                          (1, 0, 1)),
+                         (lambda: R.permutation_rows(tk, 40, "cpu"),
+                          (0, 1, 1)),
                          (lambda: R.choice_rows(tk, 1700, 3, "cpu"),
-                          (2, 1))):
-            calls.update(rows=0, copies=0)
+                          (0, 1, 1))):
+            calls.update(rows=0, shuffles=0, copies=0)
             fn()
-            assert (calls["rows"], calls["copies"]) == want
+            assert (calls["rows"], calls["shuffles"], calls["copies"]) \
+                == want
     assert not any(LAUNCHES.values())
 
 

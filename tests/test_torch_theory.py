@@ -1074,8 +1074,9 @@ COUNT_CASES.update({
 
 
 def _count_round(monkeypatch, name, n, steps):
-    """Draw calls (1-D and row draws), key copies and worker sums of a
-    ``steps``-round reference run of COUNT_CASES[name] at n workers."""
+    """Draw calls (1-D and row draws, row shuffles), key copies and worker
+    sums of a ``steps``-round reference run of COUNT_CASES[name] at n
+    workers."""
     from repro_torch.kernels import ops, threefry
 
     counts = dict(draws=0, copies=0, sums=0)
@@ -1090,6 +1091,8 @@ def _count_round(monkeypatch, name, n, steps):
                         counted("draws", threefry.threefry_rows))
     monkeypatch.setattr(threefry, "threefry_fill",
                         counted("draws", threefry.threefry_fill))
+    monkeypatch.setattr(threefry, "shuffle_rows",
+                        counted("draws", threefry.shuffle_rows))
     monkeypatch.setattr(R, "key_tensor", counted("copies", R.key_tensor))
     monkeypatch.setattr(ops, "worker_sum", counted("sums", ops.worker_sum))
     B = torch.from_numpy(np.random.default_rng(n).standard_normal(

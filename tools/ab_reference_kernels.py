@@ -22,7 +22,12 @@ another commit unpacked under ``build/``); its kernels build into
 * ``threefry_rows``: the (1000, 56) word draw's median and ``torch.rand``'s;
 * ``host_us``: the host microseconds of one call (2000 back to back, then
   a synchronize) of each wrapper, of its PyTorch counterpart and of their
-  parts (an allocation, the stream, the C entry points alone).
+  parts (an allocation, the stream, the C entry points alone);
+* ``reference_round``: a round of the reference backend, ms between
+  synchronisations (``chip_smoke.reference_case``) of the committed logreg
+  spec at n = 16 and of Figure 2's EF-BV at n = 1000, and the latter's
+  kernel launches and host-to-device copies a round under the profiler
+  (``chip_smoke.profile_reference_round``), with the tree's own code.
 
 Run two trees in turns in one call (A, B, B, A) to compare them on one
 card.
@@ -174,5 +179,33 @@ out["threefry_fill"]["round_device_ms"] = round_device_ms(
     lambda n: threefry.threefry_fill(key, n, dev, True))
 out["threefry_fill"]["torch_rand_device_ms"] = round_device_ms(
     lambda n: torch.rand(n, device=dev), name="")
+
+
+def reference_round():
+    from repro_torch.core import ExperimentSpec
+    from repro_torch.core import build as build_run
+    from repro_torch.data.synthetic import LogReg, make_synthetic
+
+    fig2 = chip_smoke.FIG2
+    run16 = build_run(ExperimentSpec.from_json(
+        chip_smoke.REFERENCE_SPEC.read_text()))
+    chip_smoke.reference_case(run16, "cuda")
+    ms16 = [chip_smoke.reference_case(run16, "cuda")[1] for _ in range(3)]
+    A, b = make_synthetic(random.key(fig2["seed"]),
+                          N=chip_smoke.FIG2_ROWS * fig2["n"], d=fig2["d"],
+                          device="cuda")
+    prob = LogReg.split(A, b, n=fig2["n"], mu_reg=0.1)
+    frun = build_run(ExperimentSpec(mode="efbv", **fig2))
+    _, _, _, f_star = chip_smoke.reference_case(frun, "cuda", prob=prob)
+    ms1000 = [chip_smoke.reference_case(frun, "cuda", prob=prob)[1]
+              for _ in range(3)]
+    gamma = frun._tune(L=prob.L(), Ltilde=prob.L_tilde()).gamma
+    launches, copies = chip_smoke.profile_reference_round(frun, prob, gamma,
+                                                          f_star)
+    return {"ms_n16": ms16, "ms_n1000": ms1000,
+            "launches_a_round": launches, "copies_a_round": copies}
+
+
+out["reference_round"] = reference_round()
 print(f"[ab] {root} {json.dumps(out)}", flush=True)
 
